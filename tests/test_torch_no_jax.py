@@ -1,0 +1,29 @@
+"""tpufft_torch imports with neither jax nor tpufft loaded, and builds
+nothing at import (checked in a fresh interpreter)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        import tpufft_torch
+        import tpufft_torch.convert, tpufft_torch.execute, tpufft_torch._build
+        import tpufft_torch.kernels.minor_fft
+        assert "jax" not in sys.modules, "jax was imported"
+        assert "tpufft" not in sys.modules, "tpufft was imported"
+        assert "triton" not in sys.modules, "triton was imported"
+        assert tpufft_torch._build.load.cache_info().currsize == 0
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA sources.
+
+``tpufft_torch/csrc/*.cu`` are compiled with ``nvcc`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The library goes
+to ``build/tpufft_torch/`` beside the package, named by a hash of the
+sources and flags, so an unchanged checkout builds once and a changed
+source never loads a stale library. Nothing here runs at import: the first
+CUDA launch calls :func:`load`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "load"]
+
+_SRC_DIR = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpufft_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, into the log
+)
+
+
+def _nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then $PATH, then /usr/local/cuda/bin."""
+    candidates = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        candidates.append(os.path.join(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of tpufft_torch are built from source at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_SRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources unless a library for this exact source hash
+    exists; returns the library's path. nvcc's output (ptxas's resource
+    report) is kept beside it, with the suffix ``.log``."""
+    out = _BUILD_DIR / f"libtpufft_torch_{_digest()}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    sources = [str(p) for p in sorted(_SRC_DIR.glob("*.cu"))]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a half file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's C signature."""
+    lib = ctypes.CDLL(str(build()))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tpufft_minor_fft.argtypes = [
+        vp, vp, vp, vp, vp,          # xr, xi, yr, yi, twiddle table
+        ctypes.c_longlong, i32,      # batch, n
+        ctypes.POINTER(i32), i32,    # radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_minor_fft.restype = i32
+    return lib

@@ -1,0 +1,77 @@
+// Host entry point of the batched minor-axis C2C FFT, with a plain C
+// interface for ctypes (tpufft_torch/_build.py builds this file, and
+// tpufft_torch/kernels/minor_fft.py binds and checks it). The kernel and
+// its design notes are in minor_fft.cuh.
+
+#include "minor_fft.cuh"
+
+using namespace tpufft_minor;
+
+namespace {
+
+template <typename T, int kThreads, int kPer, int kMinBlocks>
+int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
+           long long batch, const Radices& plan, const Geometry& g,
+           int inverse, float scale, cudaStream_t stream) {
+  auto* kernel = minor_fft_kernel<T, kThreads, kPer, kMinBlocks>;
+  if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
+  if (g.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (batch + g.rows - 1) / g.rows;
+  kernel<<<(unsigned)blocks, g.threads, g.smem, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw), (int64_t)batch, plan, g.rows, inverse,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
+                 const void* tw, long long batch, const Radices& plan,
+                 int inverse, float scale, cudaStream_t stream) {
+  const Geometry g = launch_geometry(plan.n);
+  if (g.per == 8)
+    return launch<T, 512, 8, 2>(xr, xi, yr, yi, tw, batch, plan, g, inverse,
+                                scale, stream);
+  return launch<T, 1024, 16, 1>(xr, xi, yr, yi, tw, batch, plan, g, inverse,
+                                scale, stream);
+}
+
+}  // namespace
+
+// Transforms the (batch, n) planes xr/xi into yr/yi (f32, or bf16 when
+// bf16 != 0) on `stream`, a stream of the current device. tw holds the n
+// complex f32 values exp(-+2 pi i k / n) for the direction;
+// radices[0:nstages] multiply to n, each 2, 4, 8 or an odd value up to 127.
+// Returns 0 or the CUDA error code of the launch.
+extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
+                                void* yi, const void* tw, long long batch,
+                                int n, const int* radices, int nstages,
+                                int inverse, float scale, int bf16,
+                                void* stream) {
+  if (n < 1 || n > kMaxN || nstages < 0 || nstages > kMaxStages || batch < 0)
+    return (int)cudaErrorInvalidValue;
+  long long prod = 1;
+  Radices plan;
+  plan.n = n;
+  plan.count = nstages;
+  for (int i = 0; i < nstages; ++i) {
+    const int r = radices[i];
+    if (r < 2 || r > 127 || (r % 2 == 0 && r != 2 && r != 4 && r != 8))
+      return (int)cudaErrorInvalidValue;
+    plan.r[i] = r;
+    prod *= r;
+  }
+  if (prod != n) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_sized<__nv_bfloat16>(xr, xi, yr, yi, tw, batch, plan,
+                                       inverse, scale, s);
+  return launch_sized<float>(xr, xi, yr, yi, tw, batch, plan, inverse, scale,
+                             s);
+}
