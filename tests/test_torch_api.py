@@ -28,7 +28,7 @@ from tpufft import SplitComplex as TPSplit
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
 from tpufft_torch.convert import plan_from_fields, split_from_numpy
-from tpufft_torch.kernels import minor_fft
+from tpufft_torch.kernels import minor_fft, pair_fft
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")
@@ -111,12 +111,23 @@ def test_fft_ifft_c128_stockham(fn, shape, rng, minor_calls):
 
 
 @pytest.mark.parametrize("fn", ["fftn", "ifftn", "fft2", "ifft2"])
-def test_fftn_fft2(fn, rng, minor_calls):
+def test_fftn_fft2(fn, rng, minor_calls, monkeypatch):
+    pair_calls = []
+    real_pair = pair_fft.fft_pair
+
+    def pair_spy(xr, xi, **kw):
+        pair_calls.append(tuple(xr.shape))
+        return real_pair(xr, xi, **kw)
+
+    monkeypatch.setattr(pair_fft, "fft_pair", pair_spy)
     x = _complex((4, 16, 24), rng)
     ref = getattr(tpufft, fn)(x, config=TP_CFG)
     got = getattr(tpufft_torch, fn)(x, config=CFG)
     assert _err(got, ref) < 1e-5
-    assert len(minor_calls) == (3 if fn.endswith("n") else 2)
+    # the trailing pair runs in one pass of the pair kernel, fftn's axis 0
+    # on the strided kernel: the minor-axis kernel is not called
+    assert pair_calls == [(4, 16, 24)]
+    assert minor_calls == []
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
@@ -149,7 +160,7 @@ def test_axis0(axis, rng, minor_calls):
     ref = tpufft.fft(x, axis=axis, config=TP_CFG)
     got = tpufft_torch.fft(x, axis=axis, config=CFG)
     assert _err(got, ref) < 1e-5
-    assert minor_calls == [(24, 130)]  # moved minor and made contiguous
+    assert minor_calls == []  # the strided kernel reads axis 0 in place
 
 
 def test_input_forms(rng):
@@ -224,9 +235,13 @@ def test_later_options_not_ported(kw):
 def test_backend_dispatch(rng, minor_calls):
     x = _complex((6, 131), rng)        # 131: prime, outside the envelope
     np_ref = np.fft.fft(x.astype(np.complex128))
-    assert _err(tpufft_torch.fft(x), np_ref) < 1e-5
-    with pytest.raises(ValueError, match="not factorable"):
-        tpufft_torch.fft(x, config=PlanConfig(backend="pallas"))
+    assert _err(tpufft_torch.fft(x), np_ref) < 1e-5   # auto: the Stockham
+    assert minor_calls == []
+    # backend="pallas": Bluestein, both length-384 transforms on the kernel
+    got = tpufft_torch.fft(x, config=PlanConfig(backend="pallas"))
+    assert _err(got, np_ref) < 1e-4
+    assert minor_calls == [(6, 384), (6, 384)]
+    minor_calls.clear()
     with pytest.raises(ValueError, match="not supported by the fused kernel"):
         tpufft_torch.fft(x[:, :128].astype(np.complex128),
                          config=PlanConfig(backend="pallas"))

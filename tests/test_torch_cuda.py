@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-main path through it.
+"""The port on the card: each CUDA kernel against its plain version, and the
+main paths through them.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports neither jax nor tpufft, so it also runs where only PyTorch is
@@ -18,7 +18,7 @@ import torch
 
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
-from tpufft_torch.kernels import minor_fft
+from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft
 
 pytestmark = pytest.mark.cuda
 
@@ -82,19 +82,39 @@ def test_wrapper_checks(cuda_device):
         minor_fft.fft_minor(y, y, inverse=False, scale=1.0)
 
 
-@pytest.mark.parametrize("shape,axes", [((300, 1024), (-1,)),
-                                        ((70, 93), (0,)),
-                                        ((5, 16, 24), None)])
-def test_main_path_runs_the_kernel(shape, axes, cuda_device):
+def _reset():
+    for m in (minor_fft, inner_fft, pair_fft):
+        m.reset_counts()
+
+
+def _counts():
+    """Launches per kernel, and plain-version runs on CUDA tensors."""
+    return ({"minor": minor_fft.launches, **inner_fft.launches,
+             "pair": pair_fft.launches},
+            minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
+            + pair_fft.reference_cuda_calls)
+
+
+# launches of one fftn: (70, 93) axis 0 is strided with one trailing dim
+# (K2); (5, 16, 24) runs axis 0 strided with two trailing dims (K3) and
+# the trailing pair in one pass (K4)
+@pytest.mark.parametrize("shape,axes,per_call", [
+    ((300, 1024), (-1,), {"minor": 1}),
+    ((70, 93), (0,), {"inner": 1}),
+    ((5, 16, 24), None, {"inner_nd": 1, "pair": 1}),
+    ((6, 40, 600), (0, 1, 2), {"inner_nd": 1, "inner": 1, "minor": 1}),
+])
+def test_main_path_runs_the_kernel(shape, axes, per_call, cuda_device):
     xr, xi = _planes(shape, cuda_device)
     x = SplitComplex(xr, xi)
-    minor_fft.reset_counts()
+    _reset()
     y = tpufft_torch.fftn(x, axes=axes)
     back = tpufft_torch.ifftn(y, axes=axes)
     torch.cuda.synchronize()
-    n_axes = len(shape) if axes is None else len(axes)
-    assert minor_fft.launches == 2 * n_axes
-    assert minor_fft.reference_cuda_calls == 0
+    launches, plain = _counts()
+    want = {k: 2 * per_call.get(k, 0) for k in launches}
+    assert launches == want
+    assert plain == 0
     ref = np.fft.fftn(xr.cpu().numpy().astype(np.float64)
                       + 1j * xi.cpu().numpy(), axes=axes)
     got = y.numpy()
@@ -140,10 +160,138 @@ def test_input_forms_on_the_card(cuda_device):
 
 
 def test_backend_pallas_raises_outside_envelope(cuda_device):
+    """131 is prime, outside the kernels' envelope: backend="pallas" serves
+    it by Bluestein on the minor-axis kernel; f64 planes, which no kernel
+    takes, still raise."""
     xr, xi = _planes((4, 131), cuda_device)
-    with pytest.raises(ValueError, match="not factorable"):
-        tpufft_torch.fft(SplitComplex(xr, xi),
+    _reset()
+    y = tpufft_torch.fft(SplitComplex(xr, xi),
                          config=PlanConfig(backend="pallas"))
-    minor_fft.reset_counts()
+    torch.cuda.synchronize()
+    assert _counts() == ({"minor": 2, "inner": 0, "inner_nd": 0,
+                          "pair": 0}, 0)
+    ref = np.fft.fft(xr.cpu().numpy().astype(np.float64)
+                     + 1j * xi.cpu().numpy())
+    assert np.max(np.abs(y.numpy() - ref)) / np.max(np.abs(ref)) < 1e-4
+    with pytest.raises(ValueError, match="not supported by the fused"):
+        tpufft_torch.fft(SplitComplex(xr.double(), xi.double()),
+                         config=PlanConfig(backend="pallas"))
+    _reset()
     y = tpufft_torch.fft(SplitComplex(xr, xi))  # auto: the Stockham
-    assert minor_fft.launches == 0 and y.re.is_cuda
+    assert _counts()[0]["minor"] == 0 and y.re.is_cuda
+
+
+STRIDED_NS = [8, 93, 127, 128, 960, 1024, 4096, 16384]
+
+
+def _twiddle(n, m, device, seed):
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(-np.pi, np.pi, (n, m))
+    return torch.from_numpy(np.stack([np.cos(th), np.sin(th)], -1)
+                            .astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", STRIDED_NS)
+def test_strided_kernel_matches_plain_version(n, dtype, tol, cuda_device):
+    """K2 on (pre, n, L) and K3 on (pre*n, M, L), with and without the
+    (n, M) twiddle, on ragged pre and post edges."""
+    for pre, M, L in ((11, 37, 1), (2, 12, 25)):
+        xr, xi = _planes((pre, n, M * L), cuda_device, dtype, seed=n + M)
+        tw = _twiddle(n, M, cuda_device, seed=n)
+        for inverse in (False, True):
+            for scale in (1.0, 1.0 / n):
+                before = dict(inner_fft.launches)
+                got = inner_fft.fft_inner(xr, xi, inverse=inverse,
+                                          scale=scale)
+                ref = inner_fft.fft_inner_reference(xr, xi, inverse=inverse,
+                                                    scale=scale)
+                assert got[0].dtype == dtype and _err(got, ref) < tol
+                v = (pre * n, M, L)
+                for twiddle in (None, tw):
+                    got = inner_fft.fft_inner_nd(
+                        xr.reshape(v), xi.reshape(v), n=n, inverse=inverse,
+                        scale=scale, twiddle=twiddle)
+                    ref = inner_fft.fft_inner_nd_reference(
+                        xr.reshape(v), xi.reshape(v), n=n, inverse=inverse,
+                        scale=scale, twiddle=twiddle)
+                    torch.cuda.synchronize()
+                    assert got[0].shape == v and _err(got, ref) < tol
+                assert inner_fft.launches == {
+                    "inner": before["inner"] + 1,
+                    "inner_nd": before["inner_nd"] + 2}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n1,n2", [(8, 93), (64, 64), (128, 128), (160, 48),
+                                   (2, 2), (127, 3)])
+def test_pair_kernel_matches_plain_version(n1, n2, dtype, tol, cuda_device):
+    xr, xi = _planes((13, n1, n2), cuda_device, dtype, seed=n1 * n2)
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / (n1 * n2)):
+            before = pair_fft.launches
+            got = pair_fft.fft_pair(xr, xi, inverse=inverse, scale=scale)
+            ref = pair_fft.fft_pair_reference(xr, xi, inverse=inverse,
+                                              scale=scale)
+            torch.cuda.synchronize()
+            assert pair_fft.launches == before + 1
+            assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+def test_new_wrappers_raise_outside_the_envelope(cuda_device):
+    """A CUDA tensor the kernels do not take raises; nothing falls back."""
+    _reset()
+    y = torch.zeros(2, 131, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        inner_fft.fft_inner(y, y, inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="envelope"):
+        inner_fft.fft_inner_nd(y.reshape(262, 4, 10), y.reshape(262, 4, 10),
+                               n=131, inverse=False, scale=1.0)
+    z = torch.zeros(2, 128, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        pair_fft.fft_pair(z, z, inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pair_fft.fft_pair(z[:, :64].double(), z[:, :64].double(),
+                          inverse=False, scale=1.0)
+    assert _counts() == ({"minor": 0, "inner": 0, "inner_nd": 0,
+                          "pair": 0}, 0)
+
+
+@pytest.mark.parametrize("n,kernels", [
+    (32768, {"inner_nd": 1, "minor": 1}),      # two-pass 256 * 128
+    (49152, {"inner_nd": 1, "minor": 1}),      # two-pass 256 * 192
+    (4099, {"minor": 2}),                      # Bluestein, m = 8320
+])
+def test_long_and_prime_paths(n, kernels, cuda_device):
+    xr, xi = _planes((3, n), cuda_device)
+    _reset()
+    y = tpufft_torch.fft(SplitComplex(xr, xi))
+    back = tpufft_torch.ifft(y)
+    torch.cuda.synchronize()
+    launches, plain = _counts()
+    assert launches == {k: 2 * kernels.get(k, 0) for k in launches}
+    assert plain == 0
+    ref = np.fft.fft(xr.cpu().numpy().astype(np.float64)
+                     + 1j * xi.cpu().numpy())
+    assert np.max(np.abs(y.numpy() - ref)) / np.max(np.abs(ref)) < 1e-4
+    assert _err(back, (xr, xi)) < 1e-4
+
+
+def test_pair_autograd_on_the_card(cuda_device):
+    xr, xi = _planes((3, 64, 48), cuda_device)
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+    _reset()
+    out = tpufft_torch.fft2(SplitComplex(xr, xi), norm="ortho")
+    (out.re.square().sum() + 2.0 * out.im.square().sum()).backward()
+    assert _counts() == ({"minor": 0, "inner": 0, "inner_nd": 0,
+                          "pair": 2}, 0)
+    cr = xr.detach().cpu().requires_grad_(True)
+    ci = xi.detach().cpu().requires_grad_(True)
+    ref = tpufft_torch.fft2(SplitComplex(cr, ci), norm="ortho")
+    (ref.re.square().sum() + 2.0 * ref.im.square().sum()).backward()
+    assert _err((xr.grad, xi.grad), (cr.grad, ci.grad)) < 1e-5

@@ -1,0 +1,320 @@
+"""The port's ND, two-pass and Bluestein paths against tpufft's, on the same
+inputs.
+
+Both packages get the same numpy arrays made from a seed. tpufft runs its
+Pallas kernels in interpret mode on the CPU with ``precision="highest"``;
+the port runs its kernels' plain versions (CPU tensors). Tolerances,
+normalized by the spectrum's magnitude:
+
+* c64 ND plans: 1e-5, both sides compute in f32 and differ in summation
+  order;
+* two-pass and Bluestein, c64: 1e-4, for the extra f32 passes and the
+  chirp's f32 rounding;
+* bf16 planes: 8e-3, the README's fast-profile bound;
+* c128: 1e-10, the torch-op Stockham against tpufft's x64 path;
+* gradients: 1e-5 of the gradient's magnitude.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import tpufft
+from tpufft import PlanConfig as TPPlanConfig
+from tpufft import SplitComplex as TPSplit
+
+import tpufft_torch
+from tpufft_torch import PlanConfig, SplitComplex, execute
+from tpufft_torch.convert import plan_from_fields
+from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft
+
+TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
+                      precision="highest")
+TP_AUTO = dataclasses.replace(TP_CFG, backend="auto")
+CFGS = {"pallas": (TP_CFG, PlanConfig(**dataclasses.asdict(TP_CFG))),
+        "auto": (TP_AUTO, PlanConfig(**dataclasses.asdict(TP_AUTO)))}
+
+
+def _err(got, ref):
+    got = np.asarray(got, np.complex128)
+    ref = np.asarray(ref, np.complex128)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return np.max(np.abs(got - ref)) / max(1.0, float(np.max(np.abs(ref))))
+
+
+def _complex(shape, seed, dtype=np.complex64):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(dtype)
+
+
+ND_CASES = [
+    ((4, 16, 24), None, "fftn"),
+    ((4, 16, 24), (0, 1), "ifftn"),
+    ((4, 16, 24), (0, 2), "fftn"),
+    ((4, 16, 24), (2, 1), "ifftn"),
+    ((3, 8, 12, 40), (1, 2, 3), "fftn"),
+    ((3, 8, 12, 40), (0, 2), "ifftn"),
+    ((3, 8, 12, 40), None, "ifftn"),
+    ((2, 3, 4, 8, 16), (1, 3, 4), "ifftn"),
+    ((2, 3, 4, 8, 16), (0, 1, 2), "fftn"),
+    ((2, 3, 4, 8, 16), None, "fftn"),
+]
+
+
+@pytest.mark.parametrize("shape,axes,fn", ND_CASES)
+def test_fftn_matches_tpufft(shape, axes, fn):
+    x = _complex(shape, seed=sum(shape))
+    tp_cfg, cfg = CFGS["pallas"]
+    ref = getattr(tpufft, fn)(x, axes=axes, config=tp_cfg)
+    got = getattr(tpufft_torch, fn)(x, axes=axes, config=cfg)
+    assert _err(got, ref) < 1e-5
+    np_ref = getattr(np.fft, fn)(x.astype(np.complex128), axes=axes)
+    assert _err(got, np_ref) < 1e-5
+
+
+@pytest.mark.parametrize("fn", ["fft2", "ifft2"])
+@pytest.mark.parametrize("shape", [(5, 64, 64), (2, 3, 8, 93), (160, 48)])
+def test_fft2_matches_tpufft(shape, fn):
+    x = _complex(shape, seed=7)
+    tp_cfg, cfg = CFGS["pallas"]
+    assert _err(getattr(tpufft_torch, fn)(x, config=cfg),
+                getattr(tpufft, fn)(x, config=tp_cfg)) < 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("norm", [None, "backward", "ortho", "forward"])
+def test_nd_norms(norm, inverse):
+    x = _complex((3, 20, 24), seed=3)
+    fn = "ifftn" if inverse else "fftn"
+    tp_cfg, cfg = CFGS["pallas"]
+    ref = getattr(tpufft, fn)(x, norm=norm, config=tp_cfg)
+    got = getattr(tpufft_torch, fn)(x, norm=norm, config=cfg)
+    assert _err(got, ref) < 1e-5
+    assert _err(got, getattr(np.fft, fn)(x.astype(np.complex128),
+                                         norm=norm)) < 1e-5
+
+
+@pytest.mark.parametrize("s,axes", [((20, 30), (1, 2)),
+                                    ((3, 8, 16), None),
+                                    (("fast", "fast-aligned"), (1, 2)),
+                                    ((40, 10), (0, 1))])
+def test_nd_crop_pad(s, axes):
+    x = _complex((4, 16, 24), seed=5)
+    tp_cfg, cfg = CFGS["pallas"]
+    ref = tpufft.fftn(x, s=s, axes=axes, config=tp_cfg)
+    got = tpufft_torch.fftn(x, s=s, axes=axes, config=cfg)
+    assert _err(got, ref) < 1e-5
+
+
+def test_nd_real_input():
+    x = np.random.default_rng(9).standard_normal((3, 24, 40)).astype(
+        np.float32)
+    tp_cfg, cfg = CFGS["pallas"]
+    got = tpufft_torch.fftn(torch.from_numpy(x), config=cfg)
+    assert got.is_complex()
+    assert _err(got.numpy(), tpufft.fftn(x, config=tp_cfg)) < 1e-5
+
+
+def test_nd_c128_stockham():
+    x = _complex((3, 12, 20), seed=2, dtype=np.complex128)
+    ref = tpufft.fftn(x, config=TP_AUTO)
+    got = tpufft_torch.fftn(x, config=CFGS["auto"][1])
+    assert got.dtype == np.complex128 and _err(got, ref) < 1e-10
+
+
+def test_nd_bf16_planes():
+    x = _complex((4, 32, 48), seed=4)
+    tp_cfg = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
+                          profile="fast")
+    cfg = PlanConfig(**dataclasses.asdict(tp_cfg))
+    ref = tpufft.fftn(x, config=tp_cfg)
+    out = tpufft_torch.fftn(
+        SplitComplex(torch.from_numpy(x.real.copy()),
+                     torch.from_numpy(x.imag.copy())), config=cfg)
+    assert out.dtype == torch.bfloat16
+    assert _err(out.numpy(), ref) < 8e-3
+
+
+def _port_plan(tp_plan):
+    return plan_from_fields(
+        tp_plan.shape, tp_plan.dtype, tp_plan.axes, tp_plan.lengths,
+        tp_plan.bases, tp_plan.inverse, tp_plan.norm, tp_plan.kind,
+        dataclasses.asdict(tp_plan.config))
+
+
+@pytest.mark.parametrize("shape,axes,inverse,norm", [
+    ((3, 16, 24), (1, 2), False, "ortho"),       # the pair (_FFTPair)
+    ((3, 16, 24), None, True, None),             # strided + pair
+    ((4, 40, 6), (0, 1), False, "forward"),      # strided, post 6 and 240
+])
+def test_nd_grad_matches_jax(shape, axes, inverse, norm):
+    rng = np.random.default_rng(11)
+    re = rng.standard_normal(shape).astype(np.float32)
+    im = rng.standard_normal(shape).astype(np.float32)
+    tp_plan = tpufft.plan_fft(shape, jnp.complex64, axes=axes,
+                              inverse=inverse, norm=norm, config=TP_CFG)
+
+    def loss(a, b):
+        out = tp_plan(TPSplit(a, b))
+        return jnp.sum(out.re ** 2) + 2.0 * jnp.sum(out.im ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+    xr = torch.tensor(re, requires_grad=True)
+    xi = torch.tensor(im, requires_grad=True)
+    out = _port_plan(tp_plan)(SplitComplex(xr, xi))
+    (torch.sum(out.re ** 2) + 2.0 * torch.sum(out.im ** 2)).backward()
+    for got, want in ((xr.grad, ref[0]), (xi.grad, ref[1])):
+        want = np.asarray(want)
+        assert np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want)) < 1e-5
+
+
+def test_pair_grad_real_input():
+    x = np.random.default_rng(12).standard_normal((2, 8, 93)).astype(
+        np.float32)
+
+    def loss(v):
+        out = tpufft.fft2(v, config=TP_CFG)
+        return jnp.sum(out.real ** 2) + 2.0 * jnp.sum(out.imag ** 2)
+
+    ref = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    xt = torch.tensor(x, requires_grad=True)
+    out = tpufft_torch.fft2(xt, config=CFGS["pallas"][1])
+    (torch.sum(out.real ** 2) + 2.0 * torch.sum(out.imag ** 2)).backward()
+    assert np.max(np.abs(xt.grad.numpy() - ref)) / np.max(np.abs(ref)) < 1e-5
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+@pytest.mark.parametrize("fn", ["fft", "ifft"])
+@pytest.mark.parametrize("n", [32768, 49152, 131, 1031, 4099])
+def test_long_and_prime_lengths(n, fn, backend):
+    """Two-pass split (32768, 49152) and Bluestein (131 under "pallas";
+    1031 and 4099, prime factors above 1024, under both backends)."""
+    x = _complex((2, n), seed=n)
+    tp_cfg, cfg = CFGS[backend]
+    got = getattr(tpufft_torch, fn)(x, config=cfg)
+    assert _err(got, getattr(tpufft, fn)(x, config=tp_cfg)) < 1e-4
+    assert _err(got, getattr(np.fft, fn)(x.astype(np.complex128))) < 1e-4
+
+
+@pytest.mark.parametrize("shape,axis", [((2, 32768, 3), 1),
+                                        ((3, 1031, 40), 1),
+                                        ((2, 4099, 33), 1)])
+def test_long_and_prime_strided_axes(shape, axis):
+    x = _complex(shape, seed=1)
+    tp_cfg, cfg = CFGS["pallas"]
+    got = tpufft_torch.fft(x, axis=axis, config=cfg)
+    assert _err(got, tpufft.fft(x, axis=axis, config=tp_cfg)) < 1e-4
+    assert _err(got, np.fft.fft(x.astype(np.complex128), axis=axis)) < 1e-4
+
+
+def test_long_and_prime_bf16_planes():
+    """bf16 planes stay bf16 through the two-pass and Bluestein."""
+    cfg = PlanConfig(backend="pallas", plane_dtype="bfloat16")
+    for n in (32768, 131):
+        x = _complex((2, n), seed=n)
+        out = tpufft_torch.fft(SplitComplex(
+            torch.from_numpy(x.real.copy()).bfloat16(),
+            torch.from_numpy(x.imag.copy()).bfloat16()), config=cfg)
+        assert out.dtype == torch.bfloat16
+        assert _err(out.numpy(), np.fft.fft(x.astype(np.complex128))) < 8e-3
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", [32768, 131, 1031])
+def test_pallas_backend_long_and_prime_lengths(n, inverse):
+    """backend="pallas" serves a length beyond the single-pass envelope
+    (two-pass) and prime lengths above 127 (Bluestein), as tpufft does;
+    the port used to raise ValueError here."""
+    x = _complex((2, n), seed=n + 1)
+    tp_cfg = TPPlanConfig(interpret=True, backend="pallas",
+                          precision="highest")
+    cfg = PlanConfig(**dataclasses.asdict(tp_cfg))
+    fn = "ifft" if inverse else "fft"
+    ref = getattr(tpufft, fn)(x, config=tp_cfg)
+    got = getattr(tpufft_torch, fn)(x, config=cfg)
+    assert _err(got, ref) < 1e-4
+
+
+def test_pallas_backend_still_raises_for_f64():
+    x = _complex((2, 131), seed=0, dtype=np.complex128)
+    with pytest.raises(ValueError, match="not supported by the fused kernel"):
+        tpufft_torch.fft(x, config=PlanConfig(backend="pallas"))
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    """Which wrapper each call reached, with the planes' shape, and every
+    ``movedim`` (the CPU plain versions of the strided and pair kernels
+    use transposes, so only a route's ``movedim`` shows)."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(xr, xi, **kw):
+            calls.append((name, tuple(xr.shape)))
+            return fn(xr, xi, **kw)
+        return wrapped
+
+    for mod, name in ((minor_fft, "fft_minor"), (inner_fft, "fft_inner"),
+                      (inner_fft, "fft_inner_nd"), (pair_fft, "fft_pair")):
+        monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
+    real_movedim = torch.Tensor.movedim
+
+    def movedim(self, *args):
+        calls.append(("movedim", tuple(self.shape)))
+        return real_movedim(self, *args)
+
+    monkeypatch.setattr(torch.Tensor, "movedim", movedim)
+    real_two_pass = execute._fft_axis_two_pass
+
+    def two_pass(ar, ai, axis, a, b, **kw):
+        calls.append(("two_pass", (a, b)))
+        return real_two_pass(ar, ai, axis, a, b, **kw)
+
+    monkeypatch.setattr(execute, "_fft_axis_two_pass", two_pass)
+    return calls
+
+
+def test_dispatch_strided_axes(spies):
+    """A non-minor axis reaches the strided wrappers on its own layout:
+    K2 with one trailing dim, K3 with several; no movedim."""
+    tpufft_torch.fft(_complex((3, 40, 50), seed=0), axis=1)
+    tpufft_torch.fft(_complex((3, 40, 5, 10), seed=0), axis=1)
+    assert spies == [("fft_inner", (3, 40, 50)),
+                     ("fft_inner_nd", (120, 5, 10))]
+
+
+def test_dispatch_short_post_stays_strided(spies):
+    """Unlike tpufft (post < 32 moves the axis minor), a short trailing
+    product also runs on the strided kernel, in place."""
+    tpufft_torch.fft(_complex((3, 40, 2), seed=0), axis=1)
+    tpufft_torch.fft(_complex((130, 24), seed=0), axis=0)
+    assert spies == [("fft_inner", (3, 40, 2)), ("fft_inner", (1, 130, 24))]
+
+
+def test_dispatch_pair_last(spies):
+    """A fitting trailing pair reaches the pair wrapper; the leading axis
+    the strided wrapper; a pair over the envelope runs axis by axis."""
+    tpufft_torch.fftn(_complex((4, 16, 24), seed=0))
+    assert spies == [("fft_inner_nd", (4, 16, 24)),
+                     ("fft_pair", (4, 16, 24))]
+    spies.clear()
+    tpufft_torch.fft2(_complex((2, 128, 160), seed=0))
+    assert spies == [("fft_inner", (2, 128, 160)),
+                     ("fft_minor", (256, 160))]
+
+
+def test_dispatch_two_pass_and_bluestein(spies):
+    tpufft_torch.fft(_complex((2, 32768), seed=0))
+    assert spies == [("two_pass", (256, 128)),
+                     ("fft_inner_nd", (512, 128, 1)),
+                     ("fft_minor", (512, 128))]
+    spies.clear()
+    tpufft_torch.fft(_complex((2, 4099), seed=0))
+    # Bluestein moves its axis minor as tpufft does (a no-op here)
+    assert [c for c in spies if c[0] != "movedim"] == [
+        ("fft_minor", (2, 8320)), ("fft_minor", (2, 8320))]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA sources.
 
-``tpufft_torch/csrc/*.cu`` are compiled with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The library goes
+Each ``tpufft_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The library goes
 to ``build/tpufft_torch/`` beside the package, named by a hash of the
 sources and flags, so an unchanged checkout builds once and a changed
 source never loads a stale library. Nothing here runs at import: the first
@@ -25,7 +26,7 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpufft_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into the log
 )
 
@@ -65,14 +66,34 @@ def build() -> Path:
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    sources = [str(p) for p in sorted(_SRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(_SRC_DIR.glob("*.cu")):
+        obj = tmp.with_name(f"{src.stem}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    out.with_suffix(".log").write_text("".join(log) + proc.stdout
+                                       + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a half file
     return out
 
@@ -90,4 +111,23 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_minor_fft.restype = i32
+    lib.tpufft_strided_fft.argtypes = [
+        vp, vp, vp, vp, vp,          # xr, xi, yr, yi, twiddle table
+        ctypes.c_longlong, i32,      # pre, n
+        ctypes.c_longlong,           # post
+        ctypes.POINTER(i32), i32,    # radices, number of stages
+        vp, i32, ctypes.c_longlong,  # (n, M) twiddle or None, M, L
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_strided_fft.restype = i32
+    lib.tpufft_pair_fft.argtypes = [
+        vp, vp, vp, vp, vp, vp,      # xr, xi, yr, yi, n1 and n2 tables
+        ctypes.c_longlong, i32, i32,  # pre, n1, n2
+        ctypes.POINTER(i32), i32,    # n1's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n2's radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_pair_fft.restype = i32
     return lib

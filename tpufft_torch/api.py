@@ -13,10 +13,12 @@ Tensors run where they lie; nothing picks a device on its own.
 
 Ported so far: complex-to-complex plans over any set of axes, the four
 norms, ``n``/``s`` crop and zero-pad (including "fast"/"fast-aligned"),
-explicit ``bases``, ``PlanConfig`` and autograd. Real transforms and the
-transform-major / lane-fused layouts raise NotImplementedError; tpufft's
-cube, pair, mid-pair and pad fusions are not ported (the results are the
-same, in more passes).
+explicit ``bases``, ``PlanConfig`` and autograd. When a plan's last two
+axes are the array's two minor axes and the pair fits the pair kernel,
+they run in one pass (tpufft's ``pair_last`` rule). Real transforms and
+the transform-major / lane-fused layouts raise NotImplementedError;
+tpufft's cube, mid-pair and pad fusions are not ported (the results are
+the same, in more passes).
 """
 
 from __future__ import annotations
@@ -186,18 +188,30 @@ class Plan:
 
 
 def _apply_plan_split(ar, ai, *, plan: Plan):
-    """Crop/pad every axis, then transform the axes in order; the whole
-    normalization is folded into the last axis's pass."""
+    """Crop/pad every axis, then transform: the trailing pair in one pass
+    when it fits the pair kernel, every other axis in order. The whole
+    normalization is folded into the last pass (the pair's when it runs)."""
     axes, lengths = plan.axes, plan.lengths
     scale = _norm_scale(plan.norm, math.prod(lengths), plan.inverse)
     for a, n in zip(axes, lengths):
         ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
-    for k, (a, b) in enumerate(zip(axes, plan.bases)):
-        takes_scale = k == len(axes) - 1
+    ndim = ar.ndim
+    pair_last = (
+        len(axes) >= 2
+        and set(axes[-2:]) == {ndim - 2, ndim - 1}
+        and _execute.pair_supported(ar.shape[-2], ar.shape[-1], ar.dtype,
+                                    plan.config)
+    )
+    n_single = len(axes) - (2 if pair_last else 0)
+    for k in range(n_single):
+        takes_scale = not pair_last and k == n_single - 1
         ar, ai = _execute.fft_axis(
-            ar, ai, a, b, inverse=plan.inverse,
+            ar, ai, axes[k], plan.bases[k], inverse=plan.inverse,
             scale=scale if takes_scale else 1.0, config=plan.config,
         )
+    if pair_last:
+        ar, ai = _execute.fft_pair_last(ar, ai, inverse=plan.inverse,
+                                        scale=scale)
     if ai is None:
         ai = torch.zeros_like(ar)
     return ar, ai

@@ -15,11 +15,8 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
            int inverse, float scale, cudaStream_t stream) {
   auto* kernel = minor_fft_kernel<T, kThreads, kPer, kMinBlocks>;
   if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
-  if (g.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_smem(kernel, g.smem);
+  if (err != cudaSuccess) return (int)err;
   const long long blocks = (batch + g.rows - 1) / g.rows;
   kernel<<<(unsigned)blocks, g.threads, g.smem, stream>>>(
       static_cast<const T*>(xr), static_cast<const T*>(xi),
@@ -53,20 +50,9 @@ extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 int n, const int* radices, int nstages,
                                 int inverse, float scale, int bf16,
                                 void* stream) {
-  if (n < 1 || n > kMaxN || nstages < 0 || nstages > kMaxStages || batch < 0)
-    return (int)cudaErrorInvalidValue;
-  long long prod = 1;
   Radices plan;
-  plan.n = n;
-  plan.count = nstages;
-  for (int i = 0; i < nstages; ++i) {
-    const int r = radices[i];
-    if (r < 2 || r > 127 || (r % 2 == 0 && r != 2 && r != 4 && r != 8))
-      return (int)cudaErrorInvalidValue;
-    plan.r[i] = r;
-    prod *= r;
-  }
-  if (prod != n) return (int)cudaErrorInvalidValue;
+  if (batch < 0 || !make_radices(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)

@@ -1,0 +1,157 @@
+// Batched 2-D C2C FFT over the two trailing axes of (pre, n1, n2) planes,
+// with a plain C entry point for ctypes (tpufft_torch/kernels/pair_fft.py
+// binds and checks it).
+//
+// Replaces tpufft/kernels/mxu_fft.py:_build_2d, the Pallas TPU kernel that
+// runs a plan's trailing pair of axes in one pass. Contract as there,
+// without its n2_io pad/crop: f32 or bf16 storage, f32 arithmetic, a
+// forward/inverse flag, one real scale applied once at the store.
+//
+// What bounds it on an H100: device-memory bandwidth (~3 flop/byte per
+// axis). Run axis by axis, a 2-D transform reads and writes the planes
+// twice; this kernel does it once. A block loads whole (n1, n2) slices
+// (contiguous, so the load is K1's coalesced row load), runs the n2
+// transforms of the n1 rows with the shared Stockham stages
+// (fft_stages.cuh), transposes each slice in shared memory through
+// registers to (n2, n1), runs the n1 transforms of the n2 rows, and
+// stores each element back to its natural (k1, k2) place. The slices are
+// packed like the minor kernel's rows (minor_fft.cuh:launch_geometry):
+// ~4096 elements to a 512-thread block, or one slice of up to 16384
+// elements (139 KB of shared memory) to a block of up to 1024 threads.
+//
+// Known cost left for later work: the transpose and the store read or
+// write shared memory with stride n1, which puts up to 16 threads of a
+// half-warp on one bank when n1 is a multiple of 16.
+
+#include <climits>
+
+#include "minor_fft.cuh"
+
+using namespace tpufft_fft;
+using tpufft_minor::Geometry;
+using tpufft_minor::launch_geometry;
+
+namespace {
+
+// Block b transforms slices [b*slabs, b*slabs + slabs) of the planes; the
+// ragged last block computes on zero slices and stores only real ones.
+template <typename T, int kThreads, int kPer, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                T* __restrict__ yr, T* __restrict__ yi,
+                const float2* __restrict__ tw1,
+                const float2* __restrict__ tw2, int64_t pre, Radices plan1,
+                Radices plan2, int slabs, int inverse, float scale) {
+  extern __shared__ float2 tpufft_pair_smem[];
+  float2* buf = tpufft_pair_smem;
+  const int n1 = plan1.n, n2 = plan2.n, area = n1 * n2;
+  const int64_t s0 = (int64_t)blockIdx.x * slabs;
+  const int64_t here = pre - s0 < slabs ? pre - s0 : slabs;
+  const int64_t base = s0 * area;
+  const int total = slabs * area;
+  const int valid = (int)(here * area);
+  const bool inv = inverse != 0;
+  float2 v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    v[k] = make_float2(0.f, 0.f);
+    if (e < valid) v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) buf[pad(e)] = v[k];
+  }
+  __syncthreads();
+  run_stages<kPer>(buf, tw2, plan2, slabs * n1, inv);  // along n2
+  // (n1, n2) -> (n2, n1) in every slice, in place through registers
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) v[k] = buf[pad(e)];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) {
+      const int s = e / area, r = e - s * area;
+      const int k1 = r / n2, k2 = r - k1 * n2;
+      buf[pad(s * area + k2 * n1 + k1)] = v[k];
+    }
+  }
+  __syncthreads();
+  run_stages<kPer>(buf, tw1, plan1, slabs * n2, inv);  // along n1
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < valid) {
+      const int s = e / area, r = e - s * area;
+      const int k1 = r / n2, k2 = r - k1 * n2;
+      const float2 w = buf[pad(s * area + k2 * n1 + k1)];
+      store_f(yr, base + e, w.x * scale);
+      store_f(yi, base + e, w.y * scale);
+    }
+  }
+}
+
+template <typename T, int kThreads, int kPer, int kMinBlocks>
+int launch(const void* xr, const void* xi, void* yr, void* yi,
+           const void* tw1, const void* tw2, long long pre,
+           const Radices& plan1, const Radices& plan2, const Geometry& g,
+           int inverse, float scale, cudaStream_t stream) {
+  auto* kernel = pair_fft_kernel<T, kThreads, kPer, kMinBlocks>;
+  if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(kernel, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (pre + g.rows - 1) / g.rows;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, g.threads, g.smem, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw1), static_cast<const float2*>(tw2),
+      (int64_t)pre, plan1, plan2, g.rows, inverse, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
+                 const void* tw1, const void* tw2, long long pre,
+                 const Radices& plan1, const Radices& plan2, int inverse,
+                 float scale, cudaStream_t stream) {
+  const Geometry g = launch_geometry(plan1.n * plan2.n);
+  if (g.per == 8)
+    return launch<T, 512, 8, 2>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
+                                g, inverse, scale, stream);
+  return launch<T, 1024, 16, 1>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
+                                g, inverse, scale, stream);
+}
+
+}  // namespace
+
+// Transforms both trailing axes of the (pre, n1, n2) planes xr/xi into
+// yr/yi (f32, or bf16 when bf16 != 0) on `stream`, a stream of the current
+// device. tw1 and tw2 hold exp(-+2 pi i k / n1) and exp(-+2 pi i k / n2)
+// as complex f32 for the direction; rad1 and rad2 multiply to n1 and n2,
+// each radix 2, 4, 8 or an odd value up to 127; n1, n2 >= 2 and
+// n1 * n2 <= 16384. Returns 0 or the CUDA error code of the launch.
+extern "C" int tpufft_pair_fft(const void* xr, const void* xi, void* yr,
+                               void* yi, const void* tw1, const void* tw2,
+                               long long pre, int n1, int n2,
+                               const int* rad1, int nstages1,
+                               const int* rad2, int nstages2, int inverse,
+                               float scale, int bf16, void* stream) {
+  Radices plan1, plan2;
+  if (pre < 0 || n1 < 2 || n2 < 2 || (long long)n1 * n2 > kMaxN ||
+      !make_radices(n1, rad1, nstages1, &plan1) ||
+      !make_radices(n2, rad2, nstages2, &plan2))
+    return (int)cudaErrorInvalidValue;
+  if (pre == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_sized<__nv_bfloat16>(xr, xi, yr, yi, tw1, tw2, pre, plan1,
+                                       plan2, inverse, scale, s);
+  return launch_sized<float>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
+                             inverse, scale, s);
+}

@@ -1,0 +1,216 @@
+// Batched C2C FFT along a strided (non-minor) axis, with a plain C entry
+// point for ctypes (tpufft_torch/kernels/inner_fft.py binds and checks it).
+//
+// Replaces two Pallas TPU kernels of tpufft/kernels/mxu_fft.py:
+// - _build_inner: the middle axis of a (pre, n, L) view, L contiguous;
+// - _build_inner_nd: dim 0 of a (pre*n, M, L) view, optionally multiplied
+//   by an (n, M) complex twiddle before the store (with_tw, pass 1 of the
+//   two-pass split of a long axis).
+// On the H100 there is no (8, 128) lane tiling, so both views are the same
+// memory: (pre, n, post) with post = M*L contiguous. One kernel serves
+// both; the wrappers count the two separately. Contract as the minor-axis
+// kernel's: f32 or bf16 storage, f32 arithmetic, a forward/inverse flag,
+// one real scale applied once at the store, twiddles from a host f64 table.
+//
+// What bounds it on an H100: device-memory bandwidth, as for the minor
+// axis (~3 flop/byte), plus the access pattern: the n values of one
+// transform lie `post` elements apart. A block therefore takes an
+// (n, cols) tile - n strided rows, `cols` contiguous columns - and loads it
+// with neighbouring threads on neighbouring columns (coalesced runs of
+// cols elements), transposing it into shared memory as cols rows of
+// length n. It runs the shared Stockham stages (fft_stages.cuh) on those
+// rows and stores the tile back the same way. Every element crosses device
+// memory once each way. The tile is (n, cols) with n * cols <= 4096 for
+// n <= 1024 (512 threads, two or more blocks an SM, as the minor kernel
+// packs short rows) and <= 16384 for longer n (1024 threads, up to 139 KB
+// of shared memory, one block an SM). Measured on an H100 at 700 W, the
+// small tiles ran 2.4x faster at n = 640 and 1.2x at n = 1024 than the
+// large ones despite their narrower column runs (4 columns at n = 1024),
+// and 1.4-1.7x slower at n = 2048 and 4096: with one block an SM nothing
+// overlaps a block's load, stages and store. When post is narrower than a
+// tile, one block takes several pre-slices.
+//
+// Known costs left for later work:
+// - at n = 16384 a tile is one column wide, so each load is a lone
+//   4-byte access per row (a four-step or TMA tiles would fix it);
+// - writing the transposed tile into shared memory hits one bank with up
+//   to 16 threads of a half-warp when n is a multiple of 16 (the stages'
+//   pad() serves their own strides, not this one).
+
+#include <climits>
+
+#include "fft_stages.cuh"
+
+using namespace tpufft_fft;
+
+namespace {
+
+constexpr int kSmallTile = 4096;   // elements of a tile for n <= 1024
+constexpr int kLargeTile = 16384;  // elements of a tile for longer n
+
+struct Tile {
+  int cols_log2;  // tile columns, a power of two
+  int slabs;      // pre-slices per block (> 1 only when cols >= post)
+  int per;        // complex values per thread (the kernel's kPer)
+  int threads;
+  size_t smem;
+  long long col_tiles, blocks;
+};
+
+inline int log2_floor(long long x) {
+  int k = 0;
+  while ((2LL << k) <= x) ++k;
+  return k;
+}
+
+inline Tile tile_for(long long pre, int n, long long post) {
+  Tile t;
+  const int cap = n <= 1024 ? kSmallTile : kLargeTile;
+  t.per = cap == kSmallTile ? 8 : 16;
+  int lg = log2_floor(cap / n);
+  while (lg > 0 && (1LL << (lg - 1)) >= post) --lg;  // no wider than post
+  t.cols_log2 = lg;
+  const int cols = 1 << lg;
+  t.slabs = 1;
+  if (cols >= post) {
+    long long s = cap / ((long long)n * cols);
+    if (s > pre) s = pre;
+    t.slabs = s < 1 ? 1 : (int)s;
+  }
+  const int elems = t.slabs * cols * n;
+  t.threads = ((elems + t.per - 1) / t.per + 31) / 32 * 32;
+  t.smem = (size_t)pad(elems) * sizeof(float2);
+  t.col_tiles = (post + cols - 1) / cols;
+  t.blocks = t.col_tiles * ((pre + t.slabs - 1) / t.slabs);
+  return t;
+}
+
+// Block b takes slabs pre-slices starting at p0 and cols columns starting
+// at c0 of the (pre, n, post) planes; shared row pp*cols + l holds column
+// c0 + l of slice p0 + pp. Out-of-range slices and columns load zeros and
+// are not stored. With tw_nm, output (k, c) is multiplied by
+// tw_nm[k, c / tw_l] (an (n, tw_m) table) before the scale.
+template <typename T, int kThreads, int kPer, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                   T* __restrict__ yr, T* __restrict__ yi,
+                   const float2* __restrict__ tw,
+                   const float2* __restrict__ tw_nm, int64_t pre, int post,
+                   int tw_m, int tw_l, Radices plan, int cols_log2,
+                   int slabs, int64_t col_tiles, int inverse, float scale) {
+  extern __shared__ float2 tpufft_strided_smem[];
+  float2* buf = tpufft_strided_smem;
+  const int n = plan.n;
+  const int cols = 1 << cols_log2;
+  const int64_t p0 = (int64_t)(blockIdx.x / col_tiles) * slabs;
+  const int c0 = (int)(blockIdx.x % col_tiles) * cols;
+  const int rows = slabs * cols;
+  const int total = rows * n;
+  float2 v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    v[k] = make_float2(0.f, 0.f);
+    if (e < total) {
+      const int l = e & (cols - 1), t = e >> cols_log2;
+      const int pp = t / n, kk = t - pp * n;
+      const int64_t p = p0 + pp;
+      const int c = c0 + l;
+      if (p < pre && c < post) {
+        const int64_t g = (p * n + kk) * post + c;
+        v[k] = make_float2(load_f(xr, g), load_f(xi, g));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) {
+      const int l = e & (cols - 1), t = e >> cols_log2;
+      const int pp = t / n, kk = t - pp * n;
+      buf[pad((pp * cols + l) * n + kk)] = v[k];
+    }
+  }
+  __syncthreads();
+  run_stages<kPer>(buf, tw, plan, rows, inverse != 0);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) {
+      const int l = e & (cols - 1), t = e >> cols_log2;
+      const int pp = t / n, kk = t - pp * n;
+      const int64_t p = p0 + pp;
+      const int c = c0 + l;
+      if (p < pre && c < post) {
+        float2 w = buf[pad((pp * cols + l) * n + kk)];
+        if (tw_nm != nullptr) w = cmul(w, __ldg(&tw_nm[kk * tw_m + c / tw_l]));
+        const int64_t g = (p * n + kk) * post + c;
+        store_f(yr, g, w.x * scale);
+        store_f(yi, g, w.y * scale);
+      }
+    }
+  }
+}
+
+template <typename T, int kThreads, int kPer, int kMinBlocks>
+int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
+           const void* tw_nm, long long pre, long long post, int tw_m,
+           long long tw_l, const Radices& plan, const Tile& t, int inverse,
+           float scale, cudaStream_t stream) {
+  auto* kernel = strided_fft_kernel<T, kThreads, kPer, kMinBlocks>;
+  if (t.threads > kThreads || t.per != kPer) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(kernel, t.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)t.blocks, t.threads, t.smem, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw), static_cast<const float2*>(tw_nm),
+      (int64_t)pre, (int)post, tw_m, (int)tw_l, plan, t.cols_log2, t.slabs,
+      (int64_t)t.col_tiles, inverse, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
+                 const void* tw, const void* tw_nm, long long pre,
+                 long long post, int tw_m, long long tw_l,
+                 const Radices& plan, int inverse, float scale,
+                 cudaStream_t stream) {
+  const Tile t = tile_for(pre, plan.n, post);
+  if (t.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (t.per == 8)
+    return launch<T, 512, 8, 2>(xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m,
+                                tw_l, plan, t, inverse, scale, stream);
+  return launch<T, 1024, 16, 1>(xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m,
+                                tw_l, plan, t, inverse, scale, stream);
+}
+
+}  // namespace
+
+// Transforms axis 1 of the (pre, n, post) planes xr/xi into yr/yi (f32,
+// or bf16 when bf16 != 0) on `stream`, a stream of the current device.
+// tw holds the n complex f32 values exp(-+2 pi i k / n) for the direction;
+// radices[0:nstages] multiply to n, each 2, 4, 8 or an odd value up to 127.
+// tw_nm is null, or an (n, tw_m) complex f32 table with tw_m * tw_l = post
+// that multiplies output (k, m * tw_l + l) by tw_nm[k, m] before the
+// scale. Returns 0 or the CUDA error code of the launch.
+extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
+                                  void* yi, const void* tw, long long pre,
+                                  int n, long long post, const int* radices,
+                                  int nstages, const void* tw_nm, int tw_m,
+                                  long long tw_l, int inverse, float scale,
+                                  int bf16, void* stream) {
+  Radices plan;
+  if (pre < 0 || post < 0 || post > INT_MAX ||
+      !make_radices(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (tw_nm != nullptr && (tw_m < 1 || tw_l < 1 || tw_m * tw_l != post))
+    return (int)cudaErrorInvalidValue;
+  if (pre == 0 || post == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_sized<__nv_bfloat16>(xr, xi, yr, yi, tw, tw_nm, pre, post,
+                                       tw_m, tw_l, plan, inverse, scale, s);
+  return launch_sized<float>(xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m,
+                             tw_l, plan, inverse, scale, s);
+}

@@ -1,0 +1,180 @@
+"""Batched C2C FFT along a strided (non-minor) axis: the CUDA kernel, its
+two wrappers, and their plain PyTorch versions.
+
+Counterpart of two Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
+
+* ``_build_inner`` (K2), the middle axis of (pre, n, L) planes with L
+  contiguous: :func:`fft_inner`;
+* ``_build_inner_nd`` (K3), dim 0 of (pre*n, M, L) planes in groups of n,
+  optionally multiplied by an (n, M) complex twiddle before the store
+  (``with_tw``, pass 1 of the two-pass split): :func:`fft_inner_nd`.
+
+Without the TPU's lane tiling both views are the same memory, (pre, n,
+post) with post = M*L contiguous, so one CUDA kernel
+(``csrc/strided_fft.cu``) serves both; each wrapper counts its own
+launches. The contract is the minor-axis kernel's: f32 or bf16 storage,
+f32 arithmetic, a forward/inverse flag, one real scale applied once at the
+store, the same length envelope (``minor_fft.supported``) and the same
+host-f64 twiddle table.
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises, never falls back. ``launches`` counts kernel launches per wrapper;
+``reference_cuda_calls`` counts runs of the plain versions on CUDA
+tensors, which the main path never makes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from . import minor_fft
+
+__all__ = [
+    "fft_inner",
+    "fft_inner_nd",
+    "fft_inner_nd_reference",
+    "fft_inner_reference",
+    "launches",
+    "reference_cuda_calls",
+    "reset_counts",
+]
+
+launches = {"inner": 0, "inner_nd": 0}
+reference_cuda_calls = 0
+
+
+def reset_counts() -> None:
+    """Zero ``launches`` and ``reference_cuda_calls``."""
+    global reference_cuda_calls
+    for k in launches:
+        launches[k] = 0
+    reference_cuda_calls = 0
+
+
+def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
+            scale: float, twiddle=None, tw_l: int = 0):
+    """The strided kernel on the (pre, n, post) view of contiguous planes."""
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    if xr.numel() == 0:
+        return yr, yi, False
+    lib = _build.load()
+    rad = minor_fft.radices(n)
+    rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
+    tw_m = 0 if twiddle is None else twiddle.shape[1]
+    with torch.cuda.device(xr.device):
+        tw = minor_fft._device_twiddles(n, bool(inverse), xr.device)
+        err = lib.tpufft_strided_fft(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            tw.data_ptr(), pre, n, post, rad_arr, len(rad),
+            None if twiddle is None else twiddle.data_ptr(), tw_m, tw_l,
+            int(bool(inverse)), float(scale),
+            int(xr.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"strided_fft launch failed: CUDA error {err}")
+    return yr, yi, True
+
+
+def fft_inner(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
+              scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transform the middle axis of (pre, n, L) planes (K2).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and raise on anything it does not take."""
+    if xr.device.type == "cpu" and xi.device.type == "cpu":
+        return fft_inner_reference(xr, xi, inverse=inverse, scale=scale)
+    minor_fft.check_planes("fft_inner", xr, xi, 3)
+    pre, n, post = xr.shape
+    minor_fft.check_length("fft_inner", n)
+    yr, yi, launched = _launch(xr, xi, pre, n, post, inverse, scale)
+    launches["inner"] += launched
+    return yr, yi
+
+
+def _check_twiddle(twiddle, n: int, M: int, xr) -> None:
+    if (twiddle.shape != (n, M, 2) or twiddle.dtype != torch.float32
+            or twiddle.device != xr.device or not twiddle.is_contiguous()):
+        raise ValueError(
+            f"fft_inner_nd: twiddle must be a contiguous float32 (n, M, 2) "
+            f"= ({n}, {M}, 2) tensor on {xr.device}, got "
+            f"{tuple(twiddle.shape)} {twiddle.dtype} on {twiddle.device}")
+
+
+def fft_inner_nd(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
+                 inverse: bool, scale: float,
+                 twiddle: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transform dim 0 of (pre*n, M, L) planes in groups of n (K3).
+
+    ``twiddle``: None, or a float32 (n, M, 2) tensor of complex values
+    (re, im) on the planes' device; output (k, m, l) of each group is
+    multiplied by ``twiddle[k, m]`` before the scale. CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if xr.device.type == "cpu" and xi.device.type == "cpu":
+        return fft_inner_nd_reference(xr, xi, n=n, inverse=inverse,
+                                      scale=scale, twiddle=twiddle)
+    minor_fft.check_planes("fft_inner_nd", xr, xi, 3)
+    minor_fft.check_length("fft_inner_nd", n)
+    pn, M, L = xr.shape
+    if n < 1 or pn % n:
+        raise ValueError(
+            f"fft_inner_nd: dim 0 ({pn}) is not a multiple of n = {n}")
+    if twiddle is not None:
+        _check_twiddle(twiddle, n, M, xr)
+    yr, yi, launched = _launch(xr, xi, pn // n, n, M * L, inverse, scale,
+                               twiddle, L)
+    launches["inner_nd"] += launched
+    return yr, yi
+
+
+# ----------------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------------
+
+def _reference(xr, xi, n: int, inverse: bool, scale: float, twiddle=None):
+    """(pre, n, post) planes in any storage dtype: the minor-axis plain
+    version on the moved axis, f32 throughout, the twiddle (n, M, 2)
+    broadcast over post = M*L, one rounding to the storage dtype."""
+    global reference_cuda_calls
+    if xr.is_cuda:
+        reference_cuda_calls += 1
+    store = xr.dtype
+    pre, _, post = xr.shape
+    ar = xr.float().transpose(1, 2).reshape(-1, n)
+    ai = xi.float().transpose(1, 2).reshape(-1, n)
+    zr, zi = minor_fft.fft_minor_reference(
+        ar, ai, inverse=inverse, scale=1.0 if twiddle is not None else scale)
+    zr = zr.reshape(pre, post, n).transpose(1, 2)
+    zi = zi.reshape(pre, post, n).transpose(1, 2)
+    if twiddle is not None:
+        reps = post // twiddle.shape[1]
+        twr = twiddle[..., 0].repeat_interleave(reps, dim=1)
+        twi = twiddle[..., 1].repeat_interleave(reps, dim=1)
+        zr, zi = ((zr * twr - zi * twi) * scale,
+                  (zr * twi + zi * twr) * scale)
+    return zr.contiguous().to(store), zi.contiguous().to(store)
+
+
+def fft_inner_reference(xr: torch.Tensor, xi: torch.Tensor, *,
+                        inverse: bool, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fft_inner`: same contract, any
+    device."""
+    return _reference(xr, xi, xr.shape[1], inverse, scale)
+
+
+def fft_inner_nd_reference(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
+                           inverse: bool, scale: float,
+                           twiddle: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fft_inner_nd`: same contract, any
+    device."""
+    pn, M, L = xr.shape
+    view = (pn // n, n, M * L)
+    zr, zi = _reference(xr.reshape(view), xi.reshape(view), n, inverse,
+                        scale, twiddle)
+    return zr.reshape(pn, M, L), zi.reshape(pn, M, L)

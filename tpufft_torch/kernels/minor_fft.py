@@ -45,6 +45,8 @@ from ..twiddle import exact_quarter_cleanup
 __all__ = [
     "MAX_N",
     "MAX_PRIME",
+    "check_length",
+    "check_planes",
     "fft_minor",
     "fft_minor_reference",
     "launches",
@@ -109,25 +111,33 @@ def _device_twiddles(n: int, inverse: bool, device: torch.device):
     return torch.from_numpy(table).to(device)
 
 
-def _check_launch_args(xr: torch.Tensor, xi: torch.Tensor) -> None:
+def check_planes(name: str, xr: torch.Tensor, xi: torch.Tensor,
+                 ndim: int) -> None:
+    """Raise ValueError unless xr and xi are contiguous float32 or bfloat16
+    planes of one shape and rank ``ndim`` on one CUDA device (what every
+    kernel of the port takes)."""
     if xr.device.type != "cuda" or xi.device != xr.device:
         raise ValueError(
-            f"minor_fft: planes must lie on one CUDA device, got "
+            f"{name}: planes must lie on one CUDA device, got "
             f"{xr.device} and {xi.device}")
     if xr.dtype not in STORAGE_DTYPES or xi.dtype != xr.dtype:
         raise ValueError(
-            f"minor_fft: planes must both be float32 or bfloat16, got "
+            f"{name}: planes must both be float32 or bfloat16, got "
             f"{xr.dtype} and {xi.dtype}")
-    if xr.ndim != 2 or xi.shape != xr.shape:
+    if xr.ndim != ndim or xi.shape != xr.shape:
         raise ValueError(
-            f"minor_fft: planes must be (batch, n) of one shape, got "
+            f"{name}: planes must be rank {ndim} of one shape, got "
             f"{tuple(xr.shape)} and {tuple(xi.shape)}")
     if not (xr.is_contiguous() and xi.is_contiguous()):
-        raise ValueError("minor_fft: planes must be contiguous")
-    if not _length_ok(xr.shape[1]):
+        raise ValueError(f"{name}: planes must be contiguous")
+
+
+def check_length(name: str, n: int) -> None:
+    """Raise ValueError unless length n is inside the kernels' envelope."""
+    if not _length_ok(n):
         raise ValueError(
-            f"minor_fft: length {xr.shape[1]} is outside the kernel's "
-            f"envelope (n <= {MAX_N}, prime factors <= {MAX_PRIME})")
+            f"{name}: length {n} is outside the kernel's envelope "
+            f"(n <= {MAX_N}, prime factors <= {MAX_PRIME})")
 
 
 def fft_minor(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
@@ -139,8 +149,9 @@ def fft_minor(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
     global launches
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return fft_minor_reference(xr, xi, inverse=inverse, scale=scale)
-    _check_launch_args(xr, xi)
+    check_planes("minor_fft", xr, xi, 2)
     batch, n = xr.shape
+    check_length("minor_fft", n)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if batch == 0:
