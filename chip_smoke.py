@@ -33,7 +33,23 @@ Phases, each of which raises (and so exits nonzero) on failure:
    ``np.fft`` on a few slices and through the round trip;
 8. times at those shapes: the path, each kernel alone at the shape the
    path gives it, its plain version, cuFFT (a baseline only) and a device
-   copy of both planes, plus the old movedim route of the strided axis.
+   copy of both planes, plus the old movedim route of the strided axis;
+9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
+   DFT, K1 with a bound on its load) and K4 with ``n2_in`` against their
+   plain versions on ragged batches: even and odd real lengths 2 to 32768,
+   pads (93 -> 128) to (5000 -> 8192), pairs (64, 93 -> 128) and
+   (120, 100 -> 128), scale 1 and 1/n, f32 and bf16 storage;
+10. the real and padded paths at full size, each call driven with every
+    count set to 0 just before it and read just after: ``rfft`` and
+    ``irfft`` on (100000, 1024) (K7, K8), ``rfft`` on (1000000, 93) (K7,
+    odd n), ``rfft2`` and ``irfft2`` on (100, 640, 480) (K7 + K2, K2 + K8),
+    ``fft(n="fast-aligned")`` on (1000000, 93) -> 128 (K9) and
+    ``fft2(s=(64, 128))`` on (10000, 64, 93) (K4 with ``n2_in``), each
+    against ``np.fft`` on a few slices and through its round trip;
+11. times at those shapes: the path, each kernel alone, its plain version,
+    cuFFT (a baseline only) and the copy floor (one read of the input and
+    one write of the output), plus ``rfft`` along a non-minor axis
+    (movedim + K7 + movedim back).
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -52,7 +68,7 @@ import torch
 import tpufft_torch
 from tpufft_torch import _build, execute
 from tpufft_torch.convert import split_from_numpy
-from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft
+from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft, real_fft
 
 F32_TOL = 1e-5   # kernel vs plain version, f32 storage: both compute in f32
 BF16_TOL = 8e-3  # bf16 storage: both round to bf16 (2^-8 relative) at the store
@@ -63,6 +79,12 @@ REPS = 20
 STRIDED_NS = (8, 93, 127, 128, 960, 1024, 4096, 16384)
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
+REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
+ALL_KERNELS = KERNELS + REAL_KERNELS
+REAL_EVEN_NS = (2, 8, 128, 1024, 4096, 32768)
+REAL_ODD_NS = (3, 93, 127, 16383)
+PADS = ((93, 128), (1000, 1024), (5000, 8192))
+PAIR_PADS = ((64, 93, 128), (120, 100, 128))
 
 
 def check(ok: bool, what: str) -> None:
@@ -143,16 +165,18 @@ def phase_kernel() -> None:
 
 
 def reset_counts() -> None:
-    for m in (minor_fft, inner_fft, pair_fft):
+    for m in (minor_fft, inner_fft, pair_fft, real_fft):
         m.reset_counts()
 
 
 def counts() -> tuple[dict, int]:
     """Launches per kernel, and plain-version runs on CUDA tensors."""
     return ({"minor": minor_fft.launches, **inner_fft.launches,
-             "pair": pair_fft.launches},
+             "pair": pair_fft.launches, **real_fft.launches,
+             "minor_padded": minor_fft.padded_launches,
+             "pair_padded": pair_fft.padded_launches},
             minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
-            + pair_fft.reference_cuda_calls)
+            + pair_fft.reference_cuda_calls + real_fft.reference_cuda_calls)
 
 
 def phase_main_path() -> int:
@@ -171,8 +195,8 @@ def phase_main_path() -> int:
         torch.cuda.synchronize()
         by_kernel, plain = counts()
         launches = by_kernel["minor"]
-        check(by_kernel == {"minor": 3, "inner": 0, "inner_nd": 0,
-                            "pair": 0},
+        check(by_kernel == {k: 3 if k == "minor" else 0
+                            for k in ALL_KERNELS},
               f"({batch}, {n}): kernel launches {by_kernel}, expected "
               "minor 3 (plan, fft, ifft)")
         check(plain == 0, f"({batch}, {n}): plain version ran {plain} times "
@@ -317,7 +341,7 @@ def phase_new_paths() -> dict:
         back = run(y, True)
         torch.cuda.synchronize()
         by_kernel, plain = counts()
-        want = {k: 2 * per_call.get(k, 0) for k in KERNELS}
+        want = {k: 2 * per_call.get(k, 0) for k in ALL_KERNELS}
         check(by_kernel == want,
               f"{name}: kernel launches {by_kernel}, expected {want}")
         check(plain == 0,
@@ -475,6 +499,317 @@ def phase_new_times() -> dict:
     return out
 
 
+def _hold(worst, key, dtype, got, ref, what):
+    """Check one kernel result against its plain version's; keep the worst
+    normalized error per (kernel, dtype)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = max(norm_err(g, r) for g, r in zip(got, ref))
+    worst[(key, dtype)] = max(worst.get((key, dtype), 0.0), err)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    check(all(g.dtype == dtype and g.shape == r.shape
+              for g, r in zip(got, ref)),
+          f"{key} {what}: output {got[0].dtype} {tuple(got[0].shape)}")
+    check(err < tol, f"{key} vs plain {what}: {err:.3e} >= {tol}")
+
+
+def phase_real_kernels() -> None:
+    """K7, K8, K9 and K4 with n2_in against their plain versions."""
+    worst = {}
+    dtypes = (torch.float32, torch.bfloat16)
+    for n in REAL_EVEN_NS + REAL_ODD_NS:
+        m1 = n // 2 + 1
+        for dtype in dtypes:
+            x, _ = _planes((257, n), dtype, seed=n)
+            br, bi = _planes((257, m1), dtype, seed=n + 1)
+            for scale in (1.0, 1.0 / n):
+                what = f"n={n} {dtype} scale={scale}"
+                _hold(worst, "r2c", dtype,
+                      real_fft.rfft_minor(x, scale=scale),
+                      real_fft.rfft_minor_reference(x, scale=scale), what)
+                _hold(worst, "c2r", dtype,
+                      real_fft.irfft_minor(br, bi, n=n, scale=scale),
+                      real_fft.irfft_minor_reference(br, bi, n=n,
+                                                     scale=scale), what)
+    for n_in, n in PADS:
+        for dtype in dtypes:
+            xr, xi = _planes((257, n_in), dtype, seed=n_in)
+            for inverse in (False, True):
+                for scale in (1.0, 1.0 / n):
+                    kw = dict(n=n, inverse=inverse, scale=scale)
+                    _hold(worst, "minor_padded", dtype,
+                          minor_fft.fft_minor_padded(xr, xi, **kw),
+                          minor_fft.fft_minor_padded_reference(xr, xi, **kw),
+                          f"({n_in} -> {n}) {dtype} inverse={inverse} "
+                          f"scale={scale}")
+    for n1, n2_in, n2 in PAIR_PADS:
+        for dtype in dtypes:
+            xr, xi = _planes((13, n1, n2_in), dtype, seed=n1 + n2_in)
+            for inverse in (False, True):
+                for scale in (1.0, 1.0 / (n1 * n2)):
+                    kw = dict(n2=n2, inverse=inverse, scale=scale)
+                    _hold(worst, "pair_padded", dtype,
+                          pair_fft.fft_pair_padded(xr, xi, **kw),
+                          pair_fft.fft_pair_padded_reference(xr, xi, **kw),
+                          f"({n1}, {n2_in} -> {n2}) {dtype} "
+                          f"inverse={inverse} scale={scale}")
+    torch.cuda.synchronize()
+    for k in REAL_KERNELS:
+        print(f"{k} vs plain: max normalized error f32 "
+              f"{worst[(k, torch.float32)]:.3e} (tol {F32_TOL}), bf16 "
+              f"{worst[(k, torch.bfloat16)]:.3e} (tol {BF16_TOL})")
+
+
+def _np_slices(x, k: int = 4) -> np.ndarray:
+    """The first k slices of a tensor, SplitComplex or numpy array, as a
+    float64 / complex128 numpy array."""
+    if isinstance(x, tpufft_torch.SplitComplex):
+        return (x.re[:k].double().cpu().numpy()
+                + 1j * x.im[:k].double().cpu().numpy())
+    x = x[:k].detach().cpu()
+    return (x.to(torch.complex128) if x.is_complex() else x.double()).numpy()
+
+
+# The real and padded paths at full size: name, input shape, whether the
+# input is real, the call, the launches of that ONE call, np.fft on the
+# input's first slices, and the round trip back to the input.
+REAL_PATHS = (
+    ("rfft", (100_000, 1024), True,
+     lambda x: tpufft_torch.rfft(x), {"r2c": 1},
+     lambda a: np.fft.rfft(a), lambda y: tpufft_torch.irfft(y, n=1024)),
+    ("rfft_odd", (1_000_000, 93), True,
+     lambda x: tpufft_torch.rfft(x), {"r2c": 1},
+     lambda a: np.fft.rfft(a), lambda y: tpufft_torch.irfft(y, n=93)),
+    ("rfft2", (100, 640, 480), True,
+     lambda x: tpufft_torch.rfft2(x), {"r2c": 1, "inner": 1},
+     lambda a: np.fft.rfft2(a),
+     lambda y: tpufft_torch.irfft2(y, s=(640, 480))),
+    ("fft_fast_aligned", (1_000_000, 93), False,
+     lambda x: tpufft_torch.fft(x, n="fast-aligned"), {"minor_padded": 1},
+     lambda a: np.fft.fft(a, 128), lambda y: tpufft_torch.ifft(y)),
+    ("fft2_pair_pad", (10_000, 64, 93), False,
+     lambda x: tpufft_torch.fft2(x, s=(64, 128)), {"pair_padded": 1},
+     lambda a: np.fft.fft2(a, s=(64, 128)), lambda y: tpufft_torch.ifft2(y)),
+)
+# The inverse calls at full size, the round trips of the real paths: name,
+# the launches of that ONE call.
+REAL_INVERSES = {"rfft": ("irfft", {"c2r": 1}),
+                 "rfft_odd": ("irfft_odd", {"c2r": 1}),
+                 "rfft2": ("irfft2", {"inner": 1, "c2r": 1})}
+
+
+def _real_input(shape, real: bool, seed: int):
+    xr, xi = _device_planes(shape, seed)
+    return xr if real else tpufft_torch.SplitComplex(xr, xi)
+
+
+def _counted(fn, arg, name, per_call, total):
+    """fn(arg) with every count set to 0 just before and read just after;
+    checks that exactly the kernels of per_call ran, and no plain version."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn(arg)
+    torch.cuda.synchronize()
+    by_kernel, plain = counts()
+    want = {k: per_call.get(k, 0) for k in ALL_KERNELS}
+    check(by_kernel == want,
+          f"{name}: kernel launches {by_kernel}, expected {want}")
+    check(plain == 0, f"{name}: plain versions ran {plain} times on CUDA "
+          "tensors")
+    for k in ALL_KERNELS:
+        total[k] += by_kernel[k]
+    return out
+
+
+def phase_real_paths() -> dict:
+    """Each real or padded path once, and its round trip; returns the
+    launches per kernel."""
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    for name, shape, real, run, per_call, ref_fn, back_fn in REAL_PATHS:
+        x = _real_input(shape, real, seed=len(name))
+        y = _counted(run, x, name, per_call, total)
+        if name in REAL_INVERSES:
+            back = _counted(back_fn, y, REAL_INVERSES[name][0],
+                            REAL_INVERSES[name][1], total)
+        else:
+            back = back_fn(y)
+        torch.cuda.synchronize()
+        yc = y if real else y.complex()
+        check(yc.is_cuda and yc.is_complex() and bool(torch.isfinite(
+            torch.view_as_real(yc)).all()), f"{name}: output {yc.dtype}")
+        ref = ref_fn(_np_slices(x))
+        check(tuple(yc.shape[1:]) == ref.shape[1:],
+              f"{name}: output shape {tuple(yc.shape)}, np.fft {ref.shape}")
+        got = _np_slices(yc, ref.shape[0])
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err < NP_TOL, f"{name}: vs np.fft {err:.3e}")
+        if real:
+            rt = norm_err(back, x)
+        else:   # the inverse gives back the input zero-padded to y's width
+            pad = (0, y.shape[-1] - shape[-1])
+            rt = pair_err(tuple(p[:4] for p in back),
+                          tuple(torch.nn.functional.pad(p[:4], pad)
+                                for p in x))
+        check(rt < NP_TOL, f"{name}: round trip error {rt:.3e}")
+        print(f"path {name} {shape} {'f32 real' if real else 'c64'} -> "
+              f"{tuple(yc.shape)}: {ref.shape[0]} slices vs np.fft "
+              f"{err:.3e}, round trip {rt:.3e}")
+        del x, y, yc, back
+    print(f"real and padded paths, launches {total}, plain-version CUDA "
+          "calls 0")
+    return total
+
+
+def _copy_floor_ms(nbytes: float) -> float:
+    """A device copy that reads and writes nbytes / 2 each: the floor of a
+    pass that reads its input and writes its output once."""
+    src = torch.empty(int(nbytes // 8), device="cuda")
+    dst = torch.empty_like(src)
+    t = _time_ms(lambda: dst.copy_(src))
+    del src, dst
+    return t
+
+
+def phase_real_times(k1_ms: float) -> dict:
+    """Times at the real and padded paths' shapes; returns, per new kernel,
+    its time, its plain version's and its largest absolute error against
+    the plain version at full size."""
+    out = {}
+
+    def kernel_row(key, shape, kernel, plain, nbytes):
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        abs_err = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(got, ref))
+        err = max(norm_err(g, r) for g, r in zip(got, ref))
+        check(err < F32_TOL, f"{key} {shape}: kernel vs plain {err:.3e}")
+        del got, ref
+        t_k, t_p = _time_ms(kernel), _time_ms(plain)
+        print(f"  {key} alone {shape}: kernel {t_k:.4f} ms "
+              f"({nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} "
+              f"ms; vs plain max abs {abs_err:.3e}, normalized {err:.3e}")
+        if key not in out:
+            out[key] = {"ms": t_k, "plain_ms": t_p, "max_abs_err": abs_err}
+        out[key]["max_abs_err"] = max(out[key]["max_abs_err"], abs_err)
+
+    f32 = 4
+    # rfft / irfft (100000, 1024)
+    rows, n = 100_000, 1024
+    m1 = n // 2 + 1
+    x, _ = _device_planes((rows, n), seed=1)
+    xc = torch.complex(*_device_planes((rows, m1), seed=2))
+    hr, hi = xc.real.contiguous(), xc.imag.contiguous()
+    nb = f32 * (rows * n + 2 * rows * m1)
+    t = {"rfft_path": _time_ms(lambda: tpufft_torch.rfft(x)),
+         "irfft_path": _time_ms(lambda: tpufft_torch.irfft(xc, n=n)),
+         "torch_rfft": _time_ms(lambda: torch.fft.rfft(x)),
+         "torch_irfft": _time_ms(lambda: torch.fft.irfft(xc, n=n)),
+         "copy_floor": _copy_floor_ms(nb)}
+    print(f"times real ({rows}, {n}), median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; K1 C2C at this shape {k1_ms:.4f}; one pass {nb / 1e9:.4f} "
+          "GB")
+    kernel_row("r2c", (rows, n),
+               lambda: real_fft.rfft_minor(x, scale=1.0),
+               lambda: real_fft.rfft_minor_reference(x, scale=1.0), nb)
+    kernel_row("c2r", (rows, n),
+               lambda: real_fft.irfft_minor(hr, hi, n=n, scale=1.0 / n),
+               lambda: real_fft.irfft_minor_reference(hr, hi, n=n,
+                                                      scale=1.0 / n), nb)
+    out["r2c"]["vs_k1"] = out["r2c"]["ms"] / k1_ms
+    yr, yi = real_fft.rfft_minor(x, scale=1.0)
+    inter = _time_ms(lambda: torch.complex(yr, yi))
+    deinter = _time_ms(lambda: (xc.real.contiguous(), xc.imag.contiguous()))
+    print(f"  around the kernels: interleave of K7's planes into the complex "
+          f"output {inter:.4f} ms, de-interleave of irfft's complex input "
+          f"{deinter:.4f} ms")
+    del yr, yi
+    xt = x.reshape(n, rows)   # the same bytes, rfft along axis 0
+    moved = _time_ms(lambda: tpufft_torch.rfft(xt, axis=0))
+    print(f"  rfft along axis 0 of ({n}, {rows}) (movedim + K7 + movedim "
+          f"back): {moved:.4f} ms")
+    del x, xc, hr, hi, xt
+    # rfft (1000000, 93), odd n
+    rows, n = 1_000_000, 93
+    m1 = n // 2 + 1
+    x, _ = _device_planes((rows, n), seed=3)
+    nb = f32 * (rows * n + 2 * rows * m1)
+    t = {"rfft_path": _time_ms(lambda: tpufft_torch.rfft(x)),
+         "torch_rfft": _time_ms(lambda: torch.fft.rfft(x)),
+         "copy_floor": _copy_floor_ms(nb)}
+    print(f"times real ({rows}, {n}), median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    kernel_row("r2c", (rows, n),
+               lambda: real_fft.rfft_minor(x, scale=1.0),
+               lambda: real_fft.rfft_minor_reference(x, scale=1.0), nb)
+    del x
+    # rfft2 / irfft2 (100, 640, 480)
+    shape = (100, 640, 480)
+    x, _ = _device_planes(shape, seed=4)
+    y = tpufft_torch.rfft2(x)
+    nb = f32 * (x.numel() + 2 * y.numel())
+    rows = x.reshape(-1, shape[2])
+    pr, pi = real_fft.rfft_minor(rows, scale=1.0)
+    pr, pi = pr.reshape(y.shape), pi.reshape(y.shape)
+    t_k7 = _time_ms(lambda: real_fft.rfft_minor(rows, scale=1.0))
+    t_k2 = _time_ms(lambda: inner_fft.fft_inner(pr, pi, inverse=False,
+                                                 scale=1.0))
+    print(f"  inside rfft2 {shape}: K7 on {tuple(rows.shape)} {t_k7:.4f} ms, "
+          f"K2 on {tuple(pr.shape)} {t_k2:.4f} ms")
+    del rows, pr, pi
+    t = {"rfft2_path": _time_ms(lambda: tpufft_torch.rfft2(x)),
+         "irfft2_path": _time_ms(lambda: tpufft_torch.irfft2(y, s=shape[1:])),
+         "torch_rfft2": _time_ms(lambda: torch.fft.rfft2(x)),
+         "torch_irfft2": _time_ms(lambda: torch.fft.irfft2(y, s=shape[1:])),
+         "copy_floor_per_pass": _copy_floor_ms(nb)}
+    print(f"times real {shape}, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    del x, y
+    # fft(n="fast-aligned") (1000000, 93) -> 128
+    rows, n_in, n = 1_000_000, 93, 128
+    xr, xi = _device_planes((rows, n_in), seed=5)
+    xs = tpufft_torch.SplitComplex(xr, xi)
+    xc = torch.complex(xr, xi)
+    nb = 2 * f32 * (rows * n_in + rows * n)
+    t = {"path": _time_ms(lambda: tpufft_torch.fft(xs, n="fast-aligned")),
+         "pad_then_K1": _time_ms(lambda: minor_fft.fft_minor(
+             torch.nn.functional.pad(xr, (0, n - n_in)),
+             torch.nn.functional.pad(xi, (0, n - n_in)),
+             inverse=False, scale=1.0)),
+         "torch_fft_n128": _time_ms(lambda: torch.fft.fft(xc, n=n)),
+         "copy_floor": _copy_floor_ms(nb)}
+    print(f"times pad ({rows}, {n_in} -> {n}) c64, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    kernel_row("minor_padded", (rows, n_in, n),
+               lambda: minor_fft.fft_minor_padded(xr, xi, n=n, inverse=False,
+                                                  scale=1.0),
+               lambda: minor_fft.fft_minor_padded_reference(
+                   xr, xi, n=n, inverse=False, scale=1.0), nb)
+    del xr, xi, xs, xc
+    # fft2(s=(64, 128)) on (10000, 64, 93)
+    shape, n2 = (10_000, 64, 93), 128
+    xr, xi = _device_planes(shape, seed=6)
+    xs = tpufft_torch.SplitComplex(xr, xi)
+    xc = torch.complex(xr, xi)
+    nb = 2 * f32 * (xr.numel() * (1 + n2 / shape[2]))
+    t = {"path": _time_ms(lambda: tpufft_torch.fft2(xs, s=(64, n2))),
+         "torch_fft2_s": _time_ms(lambda: torch.fft.fft2(xc, s=(64, n2))),
+         "copy_floor": _copy_floor_ms(nb)}
+    print(f"times pair pad {shape} -> (64, {n2}) c64, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    kernel_row("pair_padded", shape + (n2,),
+               lambda: pair_fft.fft_pair_padded(xr, xi, n2=n2, inverse=False,
+                                                scale=1.0),
+               lambda: pair_fft.fft_pair_padded_reference(
+                   xr, xi, n2=n2, inverse=False, scale=1.0), nb)
+    del xr, xi, xs, xc
+    torch.cuda.synchronize()
+    print(f"rfft (100000, 1024) on K7 {out['r2c']['ms']:.4f} ms against K1's "
+          f"C2C {k1_ms:.4f} ms: ratio {out['r2c']['vs_k1']:.3f}")
+    return out
+
+
 def _time_ms(fn) -> float:
     """Median of REPS CUDA-event timings after two warm-up calls."""
     fn()
@@ -544,6 +879,9 @@ def main() -> None:
     path_launches = phase_new_paths()
     new_rows = phase_new_times()
     head = rows[MAIN_SHAPES[0]]
+    phase_real_kernels()
+    real_launches = phase_real_paths()
+    real_rows = phase_real_times(head["kernel"])
     entries = [{
         "name": "minor_fft",
         "route": "cuda",
@@ -568,11 +906,28 @@ def main() -> None:
             "source": ("tpufft_torch/csrc/pair_fft.cu" if key == "pair"
                        else "tpufft_torch/csrc/strided_fft.cu"),
             "replaces": f"tpufft/kernels/mxu_fft.py:{line}",
-            "launches": path_launches[key],
+            "launches": path_launches[key] + (
+                real_launches["pair_padded"] if key == "pair" else 0),
             "max_abs_err": max(errs),
             "ms": new_rows[timed]["ms"],
             "plain_ms": new_rows[timed]["plain_ms"],
         })
+    for key, name_, source, line in (
+            ("r2c", "rfft_minor (K7)", "real_fft.cu", 418),
+            ("c2r", "irfft_minor (K8)", "real_fft.cu", 474),
+            ("minor_padded", "minor_fft_padded (K9)", "minor_fft.cu", 551)):
+        entries.append({
+            "name": name_,
+            "route": "cuda",
+            "source": f"tpufft_torch/csrc/{source}",
+            "replaces": f"tpufft/kernels/mxu_fft.py:{line}",
+            "launches": real_launches[key],
+            "max_abs_err": real_rows[key]["max_abs_err"],
+            "ms": real_rows[key]["ms"],
+            "plain_ms": real_rows[key]["plain_ms"],
+        })
+    check(real_launches["pair_padded"] > 0,
+          "pair_fft (K4) with n2_in never ran on the main paths")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never ran on the main paths")
     print(json.dumps({"kernels": entries}))

@@ -218,18 +218,33 @@ def test_errors_match(call, rng):
     assert type(ours.value) in (ValueError, TypeError)
 
 
-@pytest.mark.parametrize("kw", [{"kind": "r2c"}, {"kind": "c2r"},
-                                {"layout": "transform-major"},
+@pytest.mark.parametrize("kw", [{"layout": "transform-major"},
                                 {"layout": "lane-fused"}])
 def test_later_options_not_ported(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpufft_torch.plan_fft((4, 8, 8, 8), **kw)
-    if "kind" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            plan_from_fields((4, 8), "complex64", (1,), (8,), ((8,),), False,
-                             None, kw["kind"], {})
     with pytest.raises(ValueError):
         tpufft_torch.plan_fft((4, 8), layout="bogus")
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r"])
+def test_real_plan_fields_match_tpufft(kind):
+    """plan_fft and plan_from_fields build r2c/c2r plans with tpufft's
+    lengths and out_shape (c2r's default last length is 2 (m - 1))."""
+    for shape, axes, s in (((4, 8, 8, 8), None, None),
+                           ((4, 9, 10), (0, 2), None),
+                           ((6, 93), (-1,), (200,)),
+                           ((5, 12, 7), (2, 1), (16, 9))):
+        tp_plan = tpufft.plan_fft(shape, axes=axes, s=s, kind=kind,
+                                  config=TP_CFG)
+        plan = tpufft_torch.plan_fft(shape, axes=axes, s=s, kind=kind,
+                                     config=CFG)
+        carried = _port_plan(tp_plan)
+        for p in (plan, carried):
+            assert p.kind == kind
+            assert p.lengths == tp_plan.lengths
+            assert p.out_shape == tp_plan.out_shape
+        assert carried == plan
 
 
 def test_backend_dispatch(rng, minor_calls):

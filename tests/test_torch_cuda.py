@@ -18,7 +18,7 @@ import torch
 
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
-from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft
+from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft, real_fft
 
 pytestmark = pytest.mark.cuda
 
@@ -83,7 +83,7 @@ def test_wrapper_checks(cuda_device):
 
 
 def _reset():
-    for m in (minor_fft, inner_fft, pair_fft):
+    for m in (minor_fft, inner_fft, pair_fft, real_fft):
         m.reset_counts()
 
 
@@ -295,3 +295,190 @@ def test_pair_autograd_on_the_card(cuda_device):
     ref = tpufft_torch.fft2(SplitComplex(cr, ci), norm="ortho")
     (ref.re.square().sum() + 2.0 * ref.im.square().sum()).backward()
     assert _err((xr.grad, xi.grad), (cr.grad, ci.grad)) < 1e-5
+
+
+# ----------------------------------------------------------------------------
+# The real transforms (K7, K8) and the fused zero-pad (K9, K4 with n2_in)
+# ----------------------------------------------------------------------------
+
+def _all_counts():
+    """Launches of every kernel, padded ones apart, and plain-version runs
+    on CUDA tensors."""
+    launches, plain = _counts()
+    launches.update(real_fft.launches, minor_padded=minor_fft.padded_launches,
+                    pair_padded=pair_fft.padded_launches)
+    return launches, plain + real_fft.reference_cuda_calls
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [2, 3, 8, 93, 127, 128, 1024, 4096, 16383,
+                               32768])
+def test_real_kernels_match_plain_versions(n, dtype, tol, cuda_device):
+    """K7 and K8 on a ragged batch of 257 rows, both scales; the planes
+    into K8 have nonzero imaginary parts at DC and Nyquist."""
+    x, _ = _planes((257, n), cuda_device, dtype, seed=n)
+    hr, hi = _planes((257, n // 2 + 1), cuda_device, dtype, seed=n + 1)
+    for scale in (1.0, 1.0 / n):
+        before = dict(real_fft.launches)
+        got = real_fft.rfft_minor(x, scale=scale)
+        ref = real_fft.rfft_minor_reference(x, scale=scale)
+        assert got[0].dtype == dtype and got[0].shape == (257, n // 2 + 1)
+        assert _err(got, ref) < tol
+        got = real_fft.irfft_minor(hr, hi, n=n, scale=scale)
+        ref = real_fft.irfft_minor_reference(hr, hi, n=n, scale=scale)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (257, n)
+        assert _err((got, torch.zeros_like(got)),
+                    (ref, torch.zeros_like(ref))) < tol
+        assert real_fft.launches == {"r2c": before["r2c"] + 1,
+                                     "c2r": before["c2r"] + 1}
+
+
+def test_real_kernel_misaligned_input(cuda_device):
+    """An even-n row read as float2 pairs from a pointer that is not 8-byte
+    aligned: the wrapper copies it, the result is unchanged."""
+    flat = torch.randn(4 * 128 + 1, device=cuda_device)
+    x = flat[1:].view(4, 128)
+    assert x.data_ptr() % 8 != 0
+    got = real_fft.rfft_minor(x, scale=1.0)
+    ref = real_fft.rfft_minor_reference(x, scale=1.0)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_in,n", [(93, 128), (1000, 1024), (5000, 8192),
+                                    (1, 16), (8191, 16384)])
+def test_padded_kernel_matches_plain_version(n_in, n, dtype, tol,
+                                             cuda_device):
+    xr, xi = _planes((257, n_in), cuda_device, dtype, seed=n_in)
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / n):
+            before = minor_fft.padded_launches
+            kw = dict(n=n, inverse=inverse, scale=scale)
+            got = minor_fft.fft_minor_padded(xr, xi, **kw)
+            ref = minor_fft.fft_minor_padded_reference(xr, xi, **kw)
+            torch.cuda.synchronize()
+            assert minor_fft.padded_launches == before + 1
+            assert got[0].dtype == dtype and got[0].shape == (257, n)
+            assert _err(got, ref) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n1,n2_in,n2", [(64, 93, 128), (120, 100, 128),
+                                         (8, 1, 16), (2, 3, 4)])
+def test_pair_padded_kernel_matches_plain_version(n1, n2_in, n2, dtype, tol,
+                                                  cuda_device):
+    xr, xi = _planes((13, n1, n2_in), cuda_device, dtype, seed=n1 + n2_in)
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / (n1 * n2)):
+            before = pair_fft.padded_launches
+            kw = dict(n2=n2, inverse=inverse, scale=scale)
+            got = pair_fft.fft_pair_padded(xr, xi, **kw)
+            ref = pair_fft.fft_pair_padded_reference(xr, xi, **kw)
+            torch.cuda.synchronize()
+            assert pair_fft.padded_launches == before + 1
+            assert got[0].dtype == dtype and got[0].shape == (13, n1, n2)
+            assert _err(got, ref) < tol
+
+
+def test_real_and_padded_wrappers_raise_outside_the_envelope(cuda_device):
+    _reset()
+    y = torch.zeros(2, 131, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        real_fft.rfft_minor(y, scale=1.0)
+    h = torch.zeros(2, 66, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        real_fft.irfft_minor(h, h, n=131, scale=1.0)
+    with pytest.raises(ValueError, match="bins"):
+        real_fft.irfft_minor(h, h, n=128, scale=1.0)
+    with pytest.raises(ValueError, match="envelope"):
+        minor_fft.fft_minor_padded(y, y, n=262, inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="must be in"):
+        minor_fft.fft_minor_padded(y, y, n=128, inverse=False, scale=1.0)
+    z = torch.zeros(2, 64, 93, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        pair_fft.fft_pair_padded(z, z, n2=512, inverse=False, scale=1.0)
+    launches, plain = _all_counts()
+    assert not any(launches.values()) and plain == 0
+
+
+# one call of each: the kernels it launches
+@pytest.mark.parametrize("name,shape,call,per_call", [
+    ("rfft", (300, 1024), lambda x: tpufft_torch.rfft(x), {"r2c": 1}),
+    ("rfft odd", (300, 93), lambda x: tpufft_torch.rfft(x), {"r2c": 1}),
+    ("rfft axis 0", (1024, 30), lambda x: tpufft_torch.rfft(x, axis=0),
+     {"r2c": 1}),
+    ("rfft2", (5, 40, 48), lambda x: tpufft_torch.rfft2(x),
+     {"r2c": 1, "inner": 1}),
+    ("rfft2 even pair", (5, 64, 130), lambda x: tpufft_torch.rfftn(
+        x, axes=(0, 1, 2)), {"r2c": 1, "inner": 1, "inner_nd": 1}),
+    ("irfft", (300, 513), lambda x: tpufft_torch.irfft(x), {"c2r": 1}),
+    ("irfft odd", (300, 47), lambda x: tpufft_torch.irfft(x, n=93),
+     {"c2r": 1}),
+    ("irfft2", (5, 40, 25), lambda x: tpufft_torch.irfft2(x),
+     {"inner": 1, "c2r": 1}),
+    ("fft fast-aligned", (70, 93),
+     lambda x: tpufft_torch.fft(x, n="fast-aligned"), {"minor_padded": 1}),
+    ("fft2 pair pad", (5, 64, 93),
+     lambda x: tpufft_torch.fft2(x, s=(64, 128)), {"pair_padded": 1}),
+    ("fftn pad then strided", (16, 5, 93),
+     lambda x: tpufft_torch.fftn(x, s=(16, 128), axes=(0, 2)),
+     {"minor_padded": 1, "inner_nd": 1}),
+])
+def test_real_and_padded_paths_run_their_kernels(name, shape, call, per_call,
+                                                 cuda_device):
+    real_in = name.startswith("rfft")
+    xr, xi = _planes(shape, cuda_device)
+    x = xr if real_in else SplitComplex(xr, xi)
+    _reset()
+    y = call(x)
+    torch.cuda.synchronize()
+    launches, plain = _all_counts()
+    assert launches == {k: per_call.get(k, 0) for k in launches}, name
+    assert plain == 0
+    # the same call on the CPU runs the plain versions
+    cpu = call(xr.cpu() if real_in else SplitComplex(xr.cpu(), xi.cpu()))
+    got = y if isinstance(y, SplitComplex) else (
+        (y.real, y.imag) if y.is_complex() else (y, torch.zeros_like(y)))
+    ref = cpu if isinstance(cpu, SplitComplex) else (
+        (cpu.real, cpu.imag) if cpu.is_complex() else
+        (cpu, torch.zeros_like(cpu)))
+    assert _err(got, ref) < 1e-5
+
+
+def test_real_autograd_on_the_card(cuda_device):
+    """rfft's backward runs K9 (the gradient zero-padded to n bins); irfft's
+    runs K7; the gradients agree with the CPU's."""
+    x, _ = _planes((8, 1024), cuda_device)
+    x.requires_grad_(True)
+    _reset()
+    out = tpufft_torch.rfft(x, norm="ortho")
+    (out.real.square().sum() + 2.0 * out.imag.square().sum()).backward()
+    launches, plain = _all_counts()
+    assert launches["r2c"] == 1 and launches["minor_padded"] == 1
+    assert plain == 0
+    xc = x.detach().cpu().requires_grad_(True)
+    ref = tpufft_torch.rfft(xc, norm="ortho")
+    (ref.real.square().sum() + 2.0 * ref.imag.square().sum()).backward()
+    assert _err((x.grad, torch.zeros_like(x.grad)),
+                (xc.grad, torch.zeros_like(xc.grad))) < 1e-5
+    hr, hi = _planes((8, 513), cuda_device)
+    hr.requires_grad_(True)
+    hi.requires_grad_(True)
+    _reset()
+    y = tpufft_torch.irfft(SplitComplex(hr, hi), n=1024)
+    y.re.square().sum().backward()
+    launches, plain = _all_counts()
+    assert launches["c2r"] == 1 and launches["r2c"] == 1 and plain == 0
+    cr = hr.detach().cpu().requires_grad_(True)
+    ci = hi.detach().cpu().requires_grad_(True)
+    tpufft_torch.irfft(SplitComplex(cr, ci), n=1024).re.square().sum() \
+        .backward()
+    assert _err((hr.grad, hi.grad), (cr.grad, ci.grad)) < 1e-5

@@ -16,6 +16,7 @@ def test_port_imports_without_jax():
         import tpufft_torch.convert, tpufft_torch.execute, tpufft_torch._build
         import tpufft_torch.kernels.minor_fft
         import tpufft_torch.kernels.inner_fft, tpufft_torch.kernels.pair_fft
+        import tpufft_torch.kernels.real_fft
         assert "jax" not in sys.modules, "jax was imported"
         assert "tpufft" not in sys.modules, "tpufft was imported"
         assert "triton" not in sys.modules, "triton was imported"

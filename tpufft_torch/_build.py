@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tpufft_minor_fft.argtypes = [
         vp, vp, vp, vp, vp,          # xr, xi, yr, yi, twiddle table
-        ctypes.c_longlong, i32,      # batch, n
+        ctypes.c_longlong, i32, i32,  # batch, n, n_in
         ctypes.POINTER(i32), i32,    # radices, number of stages
         i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
         vp,                          # cudaStream_t
@@ -123,11 +123,29 @@ def load() -> ctypes.CDLL:
     lib.tpufft_strided_fft.restype = i32
     lib.tpufft_pair_fft.argtypes = [
         vp, vp, vp, vp, vp, vp,      # xr, xi, yr, yi, n1 and n2 tables
-        ctypes.c_longlong, i32, i32,  # pre, n1, n2
+        ctypes.c_longlong, i32, i32, i32,  # pre, n1, n2, n2_in
         ctypes.POINTER(i32), i32,    # n1's radices, number of stages
         ctypes.POINTER(i32), i32,    # n2's radices, number of stages
         i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
         vp,                          # cudaStream_t
     ]
     lib.tpufft_pair_fft.restype = i32
+    lib.tpufft_rfft.argtypes = [
+        vp, vp, vp,                  # x, yr, yi
+        vp, vp,                      # stage and half-length twiddle tables
+        ctypes.c_longlong, i32,      # batch, n
+        ctypes.POINTER(i32), i32,    # radices, number of stages
+        ctypes.c_float, i32,         # scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_rfft.restype = i32
+    lib.tpufft_irfft.argtypes = [
+        vp, vp, vp,                  # xr, xi, y
+        vp, vp,                      # stage and half-length twiddle tables
+        ctypes.c_longlong, i32,      # batch, n
+        ctypes.POINTER(i32), i32,    # radices, number of stages
+        ctypes.c_float, i32,         # scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_irfft.restype = i32
     return lib

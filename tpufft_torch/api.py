@@ -1,5 +1,5 @@
-"""Public API: plans and the complex FFT functions (counterpart of
-``tpufft/api.py``).
+"""Public API: plans, the complex and real FFT functions and the Hermitian
+family (counterpart of ``tpufft/api.py``).
 
 Complex data crosses this boundary in three forms, and the output form
 follows the input form:
@@ -9,21 +9,27 @@ follows the input form:
 * a numpy array -> a numpy complex array, computed on the plan's
   ``device`` (``"cpu"`` unless the caller names one).
 
-Tensors run where they lie; nothing picks a device on its own.
+A ``c2r`` plan returns its real plane: a real tensor, a real numpy array,
+or ``SplitComplex(out, zeros)``; an ``r2c`` plan refuses complex input
+with TypeError. Tensors run where they lie; nothing picks a device on its
+own.
 
-Ported so far: complex-to-complex plans over any set of axes, the four
+Ported so far: c2c, r2c and c2r plans over any set of axes, the four
 norms, ``n``/``s`` crop and zero-pad (including "fast"/"fast-aligned"),
-explicit ``bases``, ``PlanConfig`` and autograd. When a plan's last two
-axes are the array's two minor axes and the pair fits the pair kernel,
-they run in one pass (tpufft's ``pair_last`` rule). Real transforms and
-the transform-major / lane-fused layouts raise NotImplementedError;
-tpufft's cube, mid-pair and pad fusions are not ported (the results are
-the same, in more passes).
+explicit ``bases``, ``PlanConfig`` and autograd; rfft/irfft/rfftn/irfftn/
+rfft2/irfft2 and the hfft family. When a plan's last two axes are the
+array's two minor axes and the pair fits the pair kernel, they run in one
+pass (tpufft's ``pair_last`` rule); a zero-padded minor axis pads inside
+its kernel's load (tpufft's ``pad_fused`` and ``pair_pad`` rules). The
+transform-major and lane-fused layouts raise NotImplementedError;
+tpufft's cube and mid-pair fusions are not ported (the results are the
+same, in more passes).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
@@ -40,6 +46,8 @@ __all__ = [
     "SplitComplex",
     "plan_fft",
     "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
+    "rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn",
+    "hfft", "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn",
 ]
 
 _NORMS = (None, "backward", "ortho", "forward")
@@ -132,12 +140,13 @@ class Plan:
     bases: tuple[tuple[int, ...], ...]
     inverse: bool
     norm: str | None
-    kind: str                          # "c2c"
+    kind: str                          # "c2c", "r2c" or "c2r"
     config: PlanConfig
     device: str = "cpu"
 
     def __call__(self, x):
-        """Execute the plan; the output form follows the input form."""
+        """Execute the plan; the output form follows the input form, and a
+        c2r plan returns its real plane."""
         split_io = isinstance(x, SplitComplex)
         numpy_io = not split_io and not isinstance(x, torch.Tensor)
         ar, ai = self._split_input(x)
@@ -147,6 +156,12 @@ class Plan:
         ar = ar.to(rdt)
         ai = None if ai is None else ai.to(rdt)
         outr, outi = _apply_plan_split(ar, ai, plan=self)
+        if self.kind == "c2r":
+            if split_io:
+                return SplitComplex(outr, torch.zeros_like(outr))
+            if outr.dtype == torch.bfloat16:
+                outr = outr.float()
+            return outr.detach().cpu().numpy() if numpy_io else outr
         out = SplitComplex(outr, outi)
         if split_io:
             return out
@@ -155,13 +170,19 @@ class Plan:
         return out.complex()
 
     def _split_input(self, x):
+        r2c = self.kind == "r2c"
         if isinstance(x, SplitComplex):
+            if r2c:
+                raise TypeError("rfft requires real input, got SplitComplex")
             ar, ai = x.re, x.im
         elif isinstance(x, tuple):
             raise TypeError(
                 "pass plane pairs as SplitComplex(re, im), not a bare tuple"
             )
         elif isinstance(x, torch.Tensor):
+            if x.is_complex() and r2c:
+                raise TypeError(
+                    f"rfft requires real input, got dtype {x.dtype}")
             ar, ai = (x.real, x.imag) if x.is_complex() else (x, None)
         else:
             xn = np.asarray(x)
@@ -170,6 +191,9 @@ class Plan:
                 return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
             if np.iscomplexobj(xn):
+                if r2c:
+                    raise TypeError(
+                        f"rfft requires real input, got dtype {xn.dtype}")
                 ar, ai = host(xn.real), host(xn.imag)
             else:
                 ar, ai = host(xn), None
@@ -184,37 +208,241 @@ class Plan:
         shape = list(self.shape)
         for a, n in zip(self.axes, self.lengths):
             shape[a] = n
+        if self.kind == "r2c":
+            shape[self.axes[-1]] = self.lengths[-1] // 2 + 1
         return tuple(shape)
 
 
 def _apply_plan_split(ar, ai, *, plan: Plan):
-    """Crop/pad every axis, then transform: the trailing pair in one pass
-    when it fits the pair kernel, every other axis in order. The whole
-    normalization is folded into the last pass (the pair's when it runs)."""
+    """Crop/pad every axis, then transform (tpufft's ``_apply_plan_split``
+    without the cube and mid-pair fusions). A zero-padded minor axis pads
+    inside its kernel's load: K9 for a single axis (``pad_fused``), K4's
+    ``n2_in`` for the trailing pair (``pair_pad``); those passes run
+    first. The trailing pair runs in one pass when it fits the pair
+    kernel, every other axis in order, and the whole normalization is
+    folded into one pass (the pair's when it runs)."""
     axes, lengths = plan.axes, plan.lengths
     scale = _norm_scale(plan.norm, math.prod(lengths), plan.inverse)
-    for a, n in zip(axes, lengths):
-        ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
+    if plan.kind == "r2c":
+        return _apply_r2c(ar, plan, scale)
+    if plan.kind == "c2r":
+        return _apply_c2r(ar, ai, plan, scale)
     ndim = ar.ndim
+    tgt = list(ar.shape)
+    for a, n in zip(axes, lengths):
+        tgt[a] = n
     pair_last = (
         len(axes) >= 2
         and set(axes[-2:]) == {ndim - 2, ndim - 1}
-        and _execute.pair_supported(ar.shape[-2], ar.shape[-1], ar.dtype,
-                                    plan.config)
+        and _execute.pair_supported(tgt[-2], tgt[-1], ar.dtype, plan.config)
     )
     n_single = len(axes) - (2 if pair_last else 0)
-    for k in range(n_single):
+    pad_fused = False   # the minor axis is a single axis padded by K9
+    pair_pad = None     # the pair's minor axis is padded by K4 to this
+    for i, (a, n) in enumerate(zip(axes, lengths)):
+        cur = ar.shape[a]
+        if a == ndim - 1 and cur < n:
+            if (i < n_single
+                    and _execute.pad_axis_ok(cur, n, ar.dtype, plan.config)):
+                pad_fused = True
+                continue
+            if (i >= n_single and _execute.pair_pad_ok(
+                    tgt[-2], cur, n, ar.dtype, plan.config)):
+                pair_pad = n
+                continue
+        ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
+    if pair_pad is not None:
+        ar, ai = _execute.fft_pair_last(ar, ai, inverse=plan.inverse,
+                                        scale=scale, n2_out=pair_pad)
+    order = [i for i in range(n_single) if pad_fused and axes[i] == ndim - 1]
+    order += [i for i in range(n_single) if i not in order]
+    for k, i in enumerate(order):
         takes_scale = not pair_last and k == n_single - 1
-        ar, ai = _execute.fft_axis(
-            ar, ai, axes[k], plan.bases[k], inverse=plan.inverse,
-            scale=scale if takes_scale else 1.0, config=plan.config,
-        )
-    if pair_last:
+        axis_scale = scale if takes_scale else 1.0
+        if pad_fused and axes[i] == ndim - 1:
+            ar, ai = _execute.fft_axis_padded(
+                ar, ai, axes[i], lengths[i], inverse=plan.inverse,
+                scale=axis_scale, config=plan.config)
+        else:
+            ar, ai = _execute.fft_axis(
+                ar, ai, axes[i], plan.bases[i], inverse=plan.inverse,
+                scale=axis_scale, config=plan.config,
+            )
+    if pair_last and pair_pad is None:
         ar, ai = _execute.fft_pair_last(ar, ai, inverse=plan.inverse,
                                         scale=scale)
     if ai is None:
         ai = torch.zeros_like(ar)
     return ar, ai
+
+
+def _apply_r2c(ar, plan: Plan, scale: float):
+    """rfft over the plan's axes of the real plane ``ar``: crop/pad every
+    axis, transform the last axis real to half spectrum, then a forward C2C
+    over the other axes on the n//2+1-packed planes; the whole scale goes
+    on the last pass (tpufft's ``_apply_r2c``). The last axis runs on K7
+    where its envelope holds, else the packed half-length path (even n) or
+    a full C2C and a slice (odd n)."""
+    axes, lengths = plan.axes, plan.lengths
+    for a, n in zip(axes, lengths):
+        ar = _resize_axis(ar, n, a)
+    n_last = lengths[-1]
+    s_last = scale if len(axes) == 1 else 1.0
+    if n_last >= 2 and _execute.r2c_minor_supported(n_last, ar.dtype,
+                                                    plan.config):
+        ar, ai = _execute.rfft_minor(ar, axes[-1], n_last, s_last,
+                                     plan.config)
+    elif n_last % 2 == 0 and n_last >= 2:
+        ar, ai = _rfft_packed_last(ar, axes[-1], n_last, s_last, plan.config)
+    else:
+        ar, ai = _execute.fft_axis(
+            ar, None, axes[-1], plan.bases[-1], inverse=False, scale=s_last,
+            config=plan.config,
+        )
+        ar = ar.narrow(axes[-1], 0, n_last // 2 + 1)
+        ai = ai.narrow(axes[-1], 0, n_last // 2 + 1)
+    for i, a in enumerate(axes[:-1]):
+        axis_scale = scale if i == len(axes) - 2 else 1.0
+        ar, ai = _execute.fft_axis(
+            ar, ai, a, plan.bases[i], inverse=False, scale=axis_scale,
+            config=plan.config,
+        )
+    return ar, ai
+
+
+def _apply_c2r(ar, ai, plan: Plan, scale: float):
+    """irfft over the plan's axes (tpufft's ``_apply_c2r``): an inverse C2C
+    over the leading axes on the packed planes, then the last axis half
+    spectrum to real, on K8 where its envelope holds, else the packed
+    half-length inverse (even n) or the Hermitian extension and an inverse
+    C2C over every axis (odd n). Returns (real plane, None)."""
+    axes, lengths = plan.axes, plan.lengths
+    n_last = lengths[-1]
+    for a, n in zip(axes[:-1], lengths[:-1]):
+        ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
+    if ai is None:
+        ai = torch.zeros_like(ar)
+    kernel = n_last >= 2 and _execute.r2c_minor_supported(
+        n_last, ar.dtype, plan.config)
+    if kernel or (n_last % 2 == 0 and n_last >= 2):
+        m1 = n_last // 2 + 1
+        ar = _resize_axis(ar, m1, axes[-1])
+        ai = _resize_axis(ai, m1, axes[-1])
+        for i, a in enumerate(axes[:-1]):
+            ar, ai = _execute.fft_axis(
+                ar, ai, a, plan.bases[i], inverse=True, scale=1.0,
+                config=plan.config,
+            )
+        if kernel:
+            return _execute.irfft_minor(ar, ai, axes[-1], n_last, scale,
+                                        plan.config), None
+        return _irfft_packed_last(ar, ai, axes[-1], n_last, 2.0 * scale,
+                                  plan.config), None
+    ar, ai = _hermitian_extend(ar, ai, n_last, axes[-1],
+                               other_axes=axes[:-1])
+    for i, a in enumerate(axes):
+        axis_scale = scale if i == len(axes) - 1 else 1.0
+        ar, ai = _execute.fft_axis(
+            ar, ai, a, plan.bases[i], inverse=True, scale=axis_scale,
+            config=plan.config,
+        )
+    return ar, None
+
+
+@functools.lru_cache(maxsize=64)
+def _half_twiddle(m: int, n: int):
+    """Host W[k] = exp(-2 pi i k / n) for k in [0, m], float64 planes."""
+    k = np.arange(m + 1, dtype=np.float64)
+    theta = -2.0 * np.pi * k / n
+    return np.cos(theta), np.sin(theta)
+
+
+def _half_twiddle_planes(m: int, n: int, like: torch.Tensor):
+    return tuple(torch.as_tensor(w, dtype=like.dtype, device=like.device)
+                 for w in _half_twiddle(m, n))
+
+
+def _rfft_packed_last(ar, axis: int, n: int, scale: float,
+                      config: PlanConfig):
+    """Half-length packed rfft along ``axis`` (n even, real plane): the n
+    reals as n/2 complex points (even samples real, odd imaginary), one
+    length-n/2 C2C through the axis ladder, and the Hermitian untangle in
+    torch ops (tpufft's ``_rfft_packed_last``)."""
+    m = n // 2
+    ar = ar.movedim(axis, -1)
+    pre = ar.shape[:-1]
+    x2 = ar.reshape(pre + (m, 2))
+    zr, zi = _execute.fft_axis(
+        x2[..., 0], x2[..., 1], ar.ndim - 1, default_bases(m),
+        inverse=False, scale=scale, config=config,
+    )
+    # k-indexed (length m+1) views: Z[k % m] and Z[(m - k) % m]
+    zk_r = torch.cat([zr, zr[..., :1]], -1)
+    zk_i = torch.cat([zi, zi[..., :1]], -1)
+    zj_r = torch.cat([zr[..., :1], zr[..., 1:].flip(-1), zr[..., :1]], -1)
+    zj_i = torch.cat([zi[..., :1], zi[..., 1:].flip(-1), zi[..., :1]], -1)
+    # Xe = (Z + conj(Zj))/2 ; Xo = -i (Z - conj(Zj))/2
+    ae = (zk_r + zj_r) * 0.5
+    be = (zk_i - zj_i) * 0.5
+    ao = (zk_i + zj_i) * 0.5
+    bo = (zj_r - zk_r) * 0.5
+    wr, wi = _half_twiddle_planes(m, n, zr)
+    xr = ae + wr * ao - wi * bo
+    xi = be + wr * bo + wi * ao
+    return xr.movedim(-1, axis), xi.movedim(-1, axis)
+
+
+def _irfft_packed_last(ar, ai, axis: int, n: int, inner_scale: float,
+                       config: PlanConfig):
+    """Half-length packed irfft along ``axis`` (n even) of the n//2+1
+    packed planes; ``inner_scale`` is twice the caller's scale. Returns the
+    real plane (tpufft's ``_irfft_packed_last``)."""
+    m = n // 2
+    ar = ar.movedim(axis, -1)
+    ai = ai.movedim(axis, -1)
+    pre = ar.shape[:-1]
+    # the imaginary parts of the DC and Nyquist bins are inert (numpy's
+    # irfft); zeroing them makes the packed spectrum exactly Hermitian
+    zero = torch.zeros_like(ai[..., :1])
+    ai = torch.cat([zero, ai[..., 1:m], zero], -1)
+    # Xc[k] = conj(X[m-k]) for k in [0, m)
+    xc_r = ar[..., 1:].flip(-1)
+    xc_i = -ai[..., 1:].flip(-1)
+    xr, xi = ar[..., :m], ai[..., :m]
+    # Xe = (X + Xc)/2 ; (W Xo) = (X - Xc)/2 ; Xo = conj(W) * (W Xo)
+    er = (xr + xc_r) * 0.5
+    ei = (xi + xc_i) * 0.5
+    ur = (xr - xc_r) * 0.5
+    ui = (xi - xc_i) * 0.5
+    wr, wi = _half_twiddle_planes(m - 1, n, ar)
+    or_ = wr * ur + wi * ui
+    oi = wr * ui - wi * ur
+    zr, zi = _execute.fft_axis(
+        er - oi, ei + or_, ar.ndim - 1, default_bases(m), inverse=True,
+        scale=inner_scale, config=config,
+    )
+    out = torch.stack([zr, zi], -1).reshape(pre + (n,))
+    return out.movedim(-1, axis)
+
+
+def _hermitian_extend(ar, ai, n: int, axis: int, other_axes):
+    """The full length-n spectrum from the n//2+1 Hermitian-packed bins:
+    the mirrored half conjugated and index-negated along every other
+    transformed axis (tpufft's ``_hermitian_extend``)."""
+    if ai is None:
+        ai = torch.zeros_like(ar)
+    expected = n // 2 + 1
+    if ar.shape[axis] != expected:
+        ar = _resize_axis(ar, expected, axis)
+        ai = _resize_axis(ai, expected, axis)
+    mir_r = ar.narrow(axis, 1, (n + 1) // 2 - 1).flip(axis)
+    mir_i = -ai.narrow(axis, 1, (n + 1) // 2 - 1).flip(axis)
+    for a in other_axes:
+        # index negation mod n_a: k -> (-k) % n_a == roll(flip, 1)
+        mir_r = torch.roll(mir_r.flip(a), 1, dims=a)
+        mir_i = torch.roll(mir_i.flip(a), 1, dims=a)
+    return (torch.cat([ar, mir_r], dim=axis),
+            torch.cat([ai, mir_i], dim=axis))
 
 
 def _check_ported(kind: str, layout: str) -> None:
@@ -226,11 +454,7 @@ def _check_ported(kind: str, layout: str) -> None:
         raise NotImplementedError(
             f"layout={layout!r} is not ported yet (ROADMAP.md, queue 1, "
             "item 3: api.py layouts)")
-    if kind in ("r2c", "c2r"):
-        raise NotImplementedError(
-            f"kind={kind!r} is not ported yet (ROADMAP.md, queue 1, item 5: "
-            "real transforms)")
-    if kind != "c2c":
+    if kind not in ("c2c", "r2c", "c2r"):
         raise ValueError(f"kind must be 'c2c', 'r2c' or 'c2r', got {kind!r}")
 
 
@@ -261,6 +485,8 @@ def plan_fft(
     _check_ported(kind, layout)
     if s is None:
         lengths = tuple(shape[a] for a in axes)
+        if kind == "c2r":
+            lengths = lengths[:-1] + (2 * (shape[axes[-1]] - 1),)
     else:
         if len(s) != len(axes):
             raise ValueError(f"len(s)={len(s)} must equal len(axes)={len(axes)}")
@@ -285,12 +511,16 @@ def _logical_dtype(x):
     return np.asarray(x).dtype
 
 
-def _plan_for(x, axes, s, inverse, norm, bases, config, device):
-    shape = x.shape if isinstance(x, (SplitComplex, torch.Tensor)) \
-        else np.shape(x)
+def _shape_of(x) -> tuple[int, ...]:
+    if isinstance(x, (SplitComplex, torch.Tensor)):
+        return tuple(x.shape)
+    return tuple(np.shape(x))
+
+
+def _plan_for(x, axes, s, inverse, norm, kind, bases, config, device):
     return plan_fft(
-        shape, _logical_dtype(x), axes=axes, s=s, inverse=inverse,
-        norm=norm, bases=bases, config=config, device=device,
+        _shape_of(x), _logical_dtype(x), axes=axes, s=s, inverse=inverse,
+        norm=norm, kind=kind, bases=bases, config=config, device=device,
     )
 
 
@@ -298,23 +528,61 @@ def fft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
         device="cpu"):
     """1-D complex FFT (real input allowed; full spectrum out)."""
     s = None if n is None else (n,)
-    return _plan_for(x, (axis,), s, False, norm, bases, config, device)(x)
+    return _plan_for(x, (axis,), s, False, norm, "c2c", bases, config,
+                     device)(x)
 
 
 def ifft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
          device="cpu"):
     s = None if n is None else (n,)
-    return _plan_for(x, (axis,), s, True, norm, bases, config, device)(x)
+    return _plan_for(x, (axis,), s, True, norm, "c2c", bases, config,
+                     device)(x)
+
+
+def rfft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
+         device="cpu"):
+    """1-D FFT of real input: the n//2+1 bins of the half spectrum."""
+    s = None if n is None else (n,)
+    return _plan_for(x, (axis,), s, False, norm, "r2c", bases, config,
+                     device)(x)
+
+
+def irfft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
+          device="cpu"):
+    """Inverse of rfft: real output of length n (default 2 (m - 1))."""
+    if n is None:
+        n = 2 * (_shape_of(x)[axis] - 1)
+    return _plan_for(x, (axis,), (n,), True, norm, "c2r", bases, config,
+                     device)(x)
 
 
 def fftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
          device="cpu"):
-    return _plan_for(x, axes, s, False, norm, bases, config, device)(x)
+    return _plan_for(x, axes, s, False, norm, "c2c", bases, config,
+                     device)(x)
 
 
 def ifftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
           device="cpu"):
-    return _plan_for(x, axes, s, True, norm, bases, config, device)(x)
+    return _plan_for(x, axes, s, True, norm, "c2c", bases, config,
+                     device)(x)
+
+
+def rfftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
+          device="cpu"):
+    return _plan_for(x, axes, s, False, norm, "r2c", bases, config,
+                     device)(x)
+
+
+def irfftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
+           device="cpu"):
+    shape = _shape_of(x)
+    axes_c = _canon_axes(len(shape), _axes_from_s(s, axes))
+    if s is None:
+        s = tuple(shape[a] for a in axes_c[:-1]) + (
+            2 * (shape[axes_c[-1]] - 1),)
+    return _plan_for(x, axes_c, s, True, norm, "c2r", bases, config,
+                     device)(x)
 
 
 def fft2(x, s=None, axes=(-2, -1), norm=None, **kw):
@@ -323,3 +591,109 @@ def fft2(x, s=None, axes=(-2, -1), norm=None, **kw):
 
 def ifft2(x, s=None, axes=(-2, -1), norm=None, **kw):
     return ifftn(x, s=s, axes=axes, norm=norm, **kw)
+
+
+def rfft2(x, s=None, axes=(-2, -1), norm=None, **kw):
+    return rfftn(x, s=s, axes=axes, norm=norm, **kw)
+
+
+def irfft2(x, s=None, axes=(-2, -1), norm=None, **kw):
+    return irfftn(x, s=s, axes=axes, norm=norm, **kw)
+
+
+# ----------------------------------------------------------------------------
+# The Hermitian family: thin wrappers over rfft and irfft
+# ----------------------------------------------------------------------------
+
+def _conj_any(x):
+    if isinstance(x, SplitComplex):
+        return x.conj()
+    if isinstance(x, torch.Tensor):
+        return x.conj().resolve_conj() if x.is_complex() else x
+    return np.conj(np.asarray(x))
+
+
+def _rescale(res, scale: float):
+    """res times a real scale, in res's own form and dtype."""
+    if isinstance(res, SplitComplex):
+        return SplitComplex(res.re * scale, res.im * scale)
+    if isinstance(res, np.ndarray):
+        return res * np.asarray(scale, res.dtype)
+    return res * scale
+
+
+def _check_norm(norm) -> None:
+    if norm not in _NORMS:
+        raise ValueError(f"norm must be one of {_NORMS}, got {norm!r}")
+
+
+def hfft(x, n=None, axis=-1, norm=None, **kw):
+    """FFT of Hermitian-symmetric input (real spectrum out):
+    hfft(x, n) == irfft(conj(x), n) * n under the backward norm."""
+    _check_norm(norm)
+    if n is None:
+        n = 2 * (_shape_of(x)[axis] - 1)
+    res = irfft(_conj_any(x), n=n, axis=axis, norm=None, **kw)
+    scale = {None: float(n), "backward": float(n),
+             "ortho": math.sqrt(n), "forward": 1.0}[norm]
+    return _rescale(res, scale)
+
+
+def ihfft(x, n=None, axis=-1, norm=None, **kw):
+    """Inverse of hfft: real input, the conjugate half spectrum out."""
+    _check_norm(norm)
+    if n is None:
+        n = _shape_of(x)[axis]
+    res = rfft(x, n=n, axis=axis, norm=None, **kw)
+    scale = {None: 1.0 / n, "backward": 1.0 / n,
+             "ortho": 1.0 / math.sqrt(n), "forward": 1.0}[norm]
+    return _rescale(_conj_any(res), scale)
+
+
+def _hfft_scale(res, n_total: int, norm, inverse: bool):
+    """The hfft/ihfft norm rescale over the product of the transformed
+    lengths (scipy's convention for the Hermitian family)."""
+    if inverse:
+        scale = {None: 1.0 / n_total, "backward": 1.0 / n_total,
+                 "ortho": 1.0 / math.sqrt(n_total), "forward": 1.0}[norm]
+    else:
+        scale = {None: float(n_total), "backward": float(n_total),
+                 "ortho": math.sqrt(n_total), "forward": 1.0}[norm]
+    return _rescale(res, scale)
+
+
+def hfftn(x, s=None, axes=None, norm=None, **kw):
+    """ND FFT of an array Hermitian-symmetric in its last transformed axis
+    (real spectrum out): irfftn(conj(x), s, axes) * N under the backward
+    norm, N the product of the output's transformed lengths."""
+    _check_norm(norm)
+    res = irfftn(_conj_any(x), s=s, axes=axes, norm=None, **kw)
+    shape = _shape_of(res)
+    ax = _canon_axes(len(shape), _axes_from_s(s, axes))
+    n_total = math.prod(shape[a] for a in ax)
+    return _hfft_scale(res, n_total, norm, inverse=False)
+
+
+def hfft2(x, s=None, axes=(-2, -1), norm=None, **kw):
+    return hfftn(x, s=s, axes=axes, norm=norm, **kw)
+
+
+def ihfftn(x, s=None, axes=None, norm=None, **kw):
+    """Inverse of hfftn: real input, the conjugate half spectrum out."""
+    _check_norm(norm)
+    in_shape = _shape_of(x)
+    ax = _canon_axes(len(in_shape), _axes_from_s(s, axes))
+    # the norm counts the transform lengths (s or the input's), not the
+    # packed n//2+1 of the output
+    if s is not None:
+        s_seq = (s,) * len(ax) if isinstance(s, str) else s
+        lengths = tuple(_resolve_fast_length(v, in_shape[a])
+                        for v, a in zip(s_seq, ax))
+    else:
+        lengths = tuple(in_shape[a] for a in ax)
+    res = _conj_any(rfftn(x, s=s, axes=axes, norm=None, **kw))
+    return _hfft_scale(res, math.prod(lengths), norm, inverse=True)
+
+
+def ihfft2(x, s=None, axes=(-2, -1), norm=None, **kw):
+    return ihfftn(x, s=s, axes=axes, norm=norm, **kw)

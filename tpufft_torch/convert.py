@@ -25,7 +25,8 @@ __all__ = ["plan_from_fields", "split_from_numpy"]
 def plan_from_fields(shape, dtype, axes, lengths, bases, inverse, norm, kind,
                      config_dict, *, device="cpu") -> Plan:
     """The port's ``Plan`` with the field values of a ``tpufft.Plan``
-    (``config_dict`` holds the fields of its ``PlanConfig``)."""
+    (``config_dict`` holds the fields of its ``PlanConfig``). For a c2r
+    plan, ``lengths[-1]`` is the real output length, as in tpufft."""
     _check_ported(kind, "natural")
     return Plan(
         shape=tuple(int(d) for d in shape),

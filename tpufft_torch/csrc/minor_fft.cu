@@ -9,11 +9,11 @@ using namespace tpufft_minor;
 
 namespace {
 
-template <typename T, int kThreads, int kPer, int kMinBlocks>
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
 int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
-           long long batch, const Radices& plan, const Geometry& g,
+           long long batch, const Radices& plan, const Geometry& g, int n_in,
            int inverse, float scale, cudaStream_t stream) {
-  auto* kernel = minor_fft_kernel<T, kThreads, kPer, kMinBlocks>;
+  auto* kernel = minor_fft_kernel<T, kThreads, kPer, kMinBlocks, kPadded>;
   if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, g.smem);
   if (err != cudaSuccess) return (int)err;
@@ -21,43 +21,57 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   kernel<<<(unsigned)blocks, g.threads, g.smem, stream>>>(
       static_cast<const T*>(xr), static_cast<const T*>(xi),
       static_cast<T*>(yr), static_cast<T*>(yi),
-      static_cast<const float2*>(tw), (int64_t)batch, plan, g.rows, inverse,
-      scale);
+      static_cast<const float2*>(tw), (int64_t)batch, plan, g.rows, n_in,
+      inverse, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPadded>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, long long batch, const Radices& plan,
-                 int inverse, float scale, cudaStream_t stream) {
+                 int n_in, int inverse, float scale, cudaStream_t stream) {
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
-    return launch<T, 512, 8, 2>(xr, xi, yr, yi, tw, batch, plan, g, inverse,
-                                scale, stream);
-  return launch<T, 1024, 16, 1>(xr, xi, yr, yi, tw, batch, plan, g, inverse,
-                                scale, stream);
+    return launch<T, 512, 8, 2, kPadded>(xr, xi, yr, yi, tw, batch, plan, g,
+                                          n_in, inverse, scale, stream);
+  return launch<T, 1024, 16, 1, kPadded>(xr, xi, yr, yi, tw, batch, plan, g,
+                                         n_in, inverse, scale, stream);
+}
+
+template <typename T>
+int launch_typed(const void* xr, const void* xi, void* yr, void* yi,
+                 const void* tw, long long batch, const Radices& plan,
+                 int n_in, int inverse, float scale, cudaStream_t stream) {
+  if (n_in == plan.n)
+    return launch_sized<T, false>(xr, xi, yr, yi, tw, batch, plan, n_in,
+                                  inverse, scale, stream);
+  return launch_sized<T, true>(xr, xi, yr, yi, tw, batch, plan, n_in,
+                               inverse, scale, stream);
 }
 
 }  // namespace
 
-// Transforms the (batch, n) planes xr/xi into yr/yi (f32, or bf16 when
-// bf16 != 0) on `stream`, a stream of the current device. tw holds the n
-// complex f32 values exp(-+2 pi i k / n) for the direction;
-// radices[0:nstages] multiply to n, each 2, 4, 8 or an odd value up to 127.
+// Transforms the (batch, n_in) planes xr/xi, zero-padded to length n, into
+// the (batch, n) planes yr/yi (f32, or bf16 when bf16 != 0) on `stream`, a
+// stream of the current device; n_in == n is the plain C2C transform (K1),
+// 1 <= n_in < n the fused zero-pad DFT (K9). tw holds the n complex f32
+// values exp(-+2 pi i k / n) for the direction; radices[0:nstages] multiply
+// to n, each 2, 4, 8 or an odd value up to 127.
 // Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 void* yi, const void* tw, long long batch,
-                                int n, const int* radices, int nstages,
-                                int inverse, float scale, int bf16,
-                                void* stream) {
+                                int n, int n_in, const int* radices,
+                                int nstages, int inverse, float scale,
+                                int bf16, void* stream) {
   Radices plan;
-  if (batch < 0 || !make_radices(n, radices, nstages, &plan))
+  if (batch < 0 || n_in < 1 || n_in > n ||
+      !make_radices(n, radices, nstages, &plan))
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_sized<__nv_bfloat16>(xr, xi, yr, yi, tw, batch, plan,
+    return launch_typed<__nv_bfloat16>(xr, xi, yr, yi, tw, batch, plan, n_in,
                                        inverse, scale, s);
-  return launch_sized<float>(xr, xi, yr, yi, tw, batch, plan, inverse, scale,
-                             s);
+  return launch_typed<float>(xr, xi, yr, yi, tw, batch, plan, n_in, inverse,
+                             scale, s);
 }

@@ -38,12 +38,18 @@ constexpr int kPackedElems = 4096;  // rows * n of a block of short rows
 // Block b transforms rows [b*rows, b*rows + rows) of the (batch, n) planes;
 // the ragged last block computes on zero rows and stores only real ones.
 // blockDim.x <= kThreads and rows * n <= kPer * blockDim.x.
-template <typename T, int kThreads, int kPer, int kMinBlocks>
+//
+// kPadded (K9, the zero-pad DFT of tpufft's _build_minor_rect with
+// m_in = n_in < m_out = den = n): the input rows are n_in long (row stride
+// n_in), and columns n_in..n-1 load as zeros, so the pad never touches
+// device memory. Only the load differs; without kPadded, n_in is unused and
+// the kernel is K1's.
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 minor_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                  T* __restrict__ yr, T* __restrict__ yi,
                  const float2* __restrict__ tw, int64_t batch, Radices plan,
-                 int rows, int inverse, float scale) {
+                 int rows, int n_in, int inverse, float scale) {
   extern __shared__ float2 tpufft_minor_smem[];
   float2* buf = tpufft_minor_smem;
   const int n = plan.n;
@@ -57,7 +63,14 @@ minor_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   for (int k = 0; k < kPer; ++k) {
     const int e = threadIdx.x + k * blockDim.x;
     v[k] = make_float2(0.f, 0.f);
-    if (e < valid) v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+    if (kPadded) {
+      const int r = e / n, c = e - r * n;
+      const int64_t src = (row0 + r) * n_in + c;
+      if (e < valid && c < n_in)
+        v[k] = make_float2(load_f(xr, src), load_f(xi, src));
+    } else if (e < valid) {
+      v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+    }
   }
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {

@@ -3,9 +3,13 @@
 // binds and checks it).
 //
 // Replaces tpufft/kernels/mxu_fft.py:_build_2d, the Pallas TPU kernel that
-// runs a plan's trailing pair of axes in one pass. Contract as there,
-// without its n2_io pad/crop: f32 or bf16 storage, f32 arithmetic, a
-// forward/inverse flag, one real scale applied once at the store.
+// runs a plan's trailing pair of axes in one pass. Contract as there: f32
+// or bf16 storage, f32 arithmetic, a forward/inverse flag, one real scale
+// applied once at the store, and n2_io's zero-pad direction (m_in < m_out =
+// n2) as n2_in: the input slices are (n1, n2_in) and their columns n2_in..
+// n2-1 load as zeros, so the pad never touches device memory. n2_io's crop
+// direction (the adjoint) is not a forward path here: the backward of the
+// padded pair is the full pair of the gradient, then a crop.
 //
 // What bounds it on an H100: device-memory bandwidth (~3 flop/byte per
 // axis). Run axis by axis, a 2-D transform reads and writes the planes
@@ -35,13 +39,16 @@ namespace {
 
 // Block b transforms slices [b*slabs, b*slabs + slabs) of the planes; the
 // ragged last block computes on zero slices and stores only real ones.
-template <typename T, int kThreads, int kPer, int kMinBlocks>
+// kPadded: input slices are (n1, n2_in), zero-padded to (n1, n2) at the
+// load; without it n2_in is unused.
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 T* __restrict__ yr, T* __restrict__ yi,
                 const float2* __restrict__ tw1,
                 const float2* __restrict__ tw2, int64_t pre, Radices plan1,
-                Radices plan2, int slabs, int inverse, float scale) {
+                Radices plan2, int slabs, int n2_in, int inverse,
+                float scale) {
   extern __shared__ float2 tpufft_pair_smem[];
   float2* buf = tpufft_pair_smem;
   const int n1 = plan1.n, n2 = plan2.n, area = n1 * n2;
@@ -56,7 +63,14 @@ pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   for (int k = 0; k < kPer; ++k) {
     const int e = threadIdx.x + k * blockDim.x;
     v[k] = make_float2(0.f, 0.f);
-    if (e < valid) v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+    if (kPadded) {
+      const int r = e / n2, c = e - r * n2;  // r = slice * n1 + k1
+      const int64_t src = (s0 * n1 + r) * n2_in + c;
+      if (e < valid && c < n2_in)
+        v[k] = make_float2(load_f(xr, src), load_f(xi, src));
+    } else if (e < valid) {
+      v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+    }
   }
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
@@ -96,12 +110,12 @@ pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
-template <typename T, int kThreads, int kPer, int kMinBlocks>
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
 int launch(const void* xr, const void* xi, void* yr, void* yi,
            const void* tw1, const void* tw2, long long pre,
            const Radices& plan1, const Radices& plan2, const Geometry& g,
-           int inverse, float scale, cudaStream_t stream) {
-  auto* kernel = pair_fft_kernel<T, kThreads, kPer, kMinBlocks>;
+           int n2_in, int inverse, float scale, cudaStream_t stream) {
+  auto* kernel = pair_fft_kernel<T, kThreads, kPer, kMinBlocks, kPadded>;
   if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, g.smem);
   if (err != cudaSuccess) return (int)err;
@@ -111,47 +125,64 @@ int launch(const void* xr, const void* xi, void* yr, void* yi,
       static_cast<const T*>(xr), static_cast<const T*>(xi),
       static_cast<T*>(yr), static_cast<T*>(yi),
       static_cast<const float2*>(tw1), static_cast<const float2*>(tw2),
-      (int64_t)pre, plan1, plan2, g.rows, inverse, scale);
+      (int64_t)pre, plan1, plan2, g.rows, n2_in, inverse, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPadded>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw1, const void* tw2, long long pre,
-                 const Radices& plan1, const Radices& plan2, int inverse,
-                 float scale, cudaStream_t stream) {
+                 const Radices& plan1, const Radices& plan2, int n2_in,
+                 int inverse, float scale, cudaStream_t stream) {
   const Geometry g = launch_geometry(plan1.n * plan2.n);
   if (g.per == 8)
-    return launch<T, 512, 8, 2>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
-                                g, inverse, scale, stream);
-  return launch<T, 1024, 16, 1>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
-                                g, inverse, scale, stream);
+    return launch<T, 512, 8, 2, kPadded>(xr, xi, yr, yi, tw1, tw2, pre,
+                                          plan1, plan2, g, n2_in, inverse,
+                                          scale, stream);
+  return launch<T, 1024, 16, 1, kPadded>(xr, xi, yr, yi, tw1, tw2, pre,
+                                         plan1, plan2, g, n2_in, inverse,
+                                         scale, stream);
+}
+
+template <typename T>
+int launch_typed(const void* xr, const void* xi, void* yr, void* yi,
+                 const void* tw1, const void* tw2, long long pre,
+                 const Radices& plan1, const Radices& plan2, int n2_in,
+                 int inverse, float scale, cudaStream_t stream) {
+  if (n2_in == plan2.n)
+    return launch_sized<T, false>(xr, xi, yr, yi, tw1, tw2, pre, plan1,
+                                  plan2, n2_in, inverse, scale, stream);
+  return launch_sized<T, true>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
+                               n2_in, inverse, scale, stream);
 }
 
 }  // namespace
 
-// Transforms both trailing axes of the (pre, n1, n2) planes xr/xi into
+// Transforms both trailing axes of the (pre, n1, n2_in) planes xr/xi,
+// zero-padded along the last axis to n2, into the (pre, n1, n2) planes
 // yr/yi (f32, or bf16 when bf16 != 0) on `stream`, a stream of the current
-// device. tw1 and tw2 hold exp(-+2 pi i k / n1) and exp(-+2 pi i k / n2)
-// as complex f32 for the direction; rad1 and rad2 multiply to n1 and n2,
-// each radix 2, 4, 8 or an odd value up to 127; n1, n2 >= 2 and
-// n1 * n2 <= 16384. Returns 0 or the CUDA error code of the launch.
+// device; n2_in == n2 is the plain pair transform. tw1 and tw2 hold
+// exp(-+2 pi i k / n1) and exp(-+2 pi i k / n2) as complex f32 for the
+// direction; rad1 and rad2 multiply to n1 and n2, each radix 2, 4, 8 or an
+// odd value up to 127; n1, n2 >= 2, 1 <= n2_in <= n2 and n1 * n2 <= 16384.
+// Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_pair_fft(const void* xr, const void* xi, void* yr,
                                void* yi, const void* tw1, const void* tw2,
-                               long long pre, int n1, int n2,
+                               long long pre, int n1, int n2, int n2_in,
                                const int* rad1, int nstages1,
                                const int* rad2, int nstages2, int inverse,
                                float scale, int bf16, void* stream) {
   Radices plan1, plan2;
   if (pre < 0 || n1 < 2 || n2 < 2 || (long long)n1 * n2 > kMaxN ||
+      n2_in < 1 || n2_in > n2 ||
       !make_radices(n1, rad1, nstages1, &plan1) ||
       !make_radices(n2, rad2, nstages2, &plan2))
     return (int)cudaErrorInvalidValue;
   if (pre == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_sized<__nv_bfloat16>(xr, xi, yr, yi, tw1, tw2, pre, plan1,
-                                       plan2, inverse, scale, s);
-  return launch_sized<float>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
-                             inverse, scale, s);
+    return launch_typed<__nv_bfloat16>(xr, xi, yr, yi, tw1, tw2, pre, plan1,
+                                       plan2, n2_in, inverse, scale, s);
+  return launch_typed<float>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
+                             n2_in, inverse, scale, s);
 }

@@ -1,0 +1,330 @@
+// Batched real-input FFT (rfft) and its inverse (irfft) along the contiguous
+// minor axis, with plain C entry points for ctypes
+// (tpufft_torch/kernels/real_fft.py binds and checks them).
+//
+// Replaces two Pallas TPU kernels of tpufft/kernels/mxu_fft.py:
+//   K7 _build_minor_r2c: real (batch, n) -> (batch, n//2+1) re/im planes;
+//   K8 _build_minor_c2r: (batch, n//2+1) re/im planes -> real (batch, n),
+//      the imaginary parts of the DC and (even n) Nyquist bins ignored.
+// Contract as there: f32 or bf16 storage, f32 arithmetic, the scale applied
+// once at the store; any n the length envelope admits, odd and prime
+// included. K7 is always the forward transform and K8 the inverse.
+//
+// What bounds them on an H100: device-memory bandwidth, as for K1
+// (minor_fft.cuh). The TPU kernels are dense (n, n//2+1) matmuls, which
+// suit the MXU and made rfft cost twice its C2C there; here each kernel is
+// one pass of the shared-memory Stockham (fft_stages.cuh) with a packing
+// step around it, so it moves fewer bytes than K1 at the same n:
+//
+// - even n = 2m (m in K1's envelope, so n <= 32768): rfft reads the real
+//   row as m complex values z[j] = x[2j] + i x[2j+1] (one 8-byte load per
+//   pair, no zero plane read), runs the length-m stages, and untangles
+//   X[k] = (Z[k] + conj Z[m-k]) / 2 - i W^k (Z[k] - conj Z[m-k]) / 2,
+//   k = 0..m, Z[m] = Z[0], W^k = exp(-2 pi i k / n) from a host f64 table,
+//   while storing. irfft forms Z'[k] = (X[k] + conj X[m-k])
+//   + i conj(W^k) (X[k] - conj X[m-k]) for k < m in shared memory, runs the
+//   inverse length-m stages, and stores z'[j] as the pair (x[2j], x[2j+1]);
+//   Z' = 2Z, which is the factor 2 of tpufft's packed inverse folded in;
+// - odd n (in K1's envelope): rfft loads the row with a zero imaginary part
+//   and stores the first n//2+1 bins of the length-n transform; irfft
+//   extends the half spectrum Hermitian-wise in registers at the load
+//   (X[n-k] = conj X[k]) and stores the real part.
+//
+// Rows are packed to blocks exactly as K1 packs them (launch_geometry of the
+// stage length), and the same launch bounds hold registers to 64.
+
+#include <climits>
+
+#include "minor_fft.cuh"
+
+using namespace tpufft_fft;
+using tpufft_minor::Geometry;
+using tpufft_minor::launch_geometry;
+
+namespace {
+
+// Two neighbouring reals p[i], p[i+1] (i even) as one complex value; the
+// wrapper guarantees 8-byte (f32) or 4-byte (bf16) alignment of p.
+__device__ __forceinline__ float2 load_pair(const float* p, int64_t i) {
+  return *reinterpret_cast<const float2*>(p + i);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p,
+                                            int64_t i) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+}
+__device__ __forceinline__ void store_pair(float* p, int64_t i, float2 v) {
+  *reinterpret_cast<float2*>(p + i) = v;
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int64_t i,
+                                           float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p + i) = __float22bfloat162_rn(v);
+}
+
+// K7. Block b transforms rows [b*rows, b*rows + rows) of the real (batch, n)
+// plane x into the (batch, n//2+1) planes yr/yi. kPacked: n = 2 plan.n,
+// stages of length m = plan.n on z[j] = x[2j] + i x[2j+1], half_tw[k] =
+// exp(-2 pi i k / n) for k <= m. Otherwise n = plan.n.
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPacked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rfft_kernel(const T* __restrict__ x, T* __restrict__ yr, T* __restrict__ yi,
+            const float2* __restrict__ tw,
+            const float2* __restrict__ half_tw, int64_t batch, Radices plan,
+            int rows, float scale) {
+  extern __shared__ float2 tpufft_rfft_smem[];
+  float2* buf = tpufft_rfft_smem;
+  const int L = plan.n;  // stage length
+  const int n = kPacked ? 2 * L : L;
+  const int m1 = n / 2 + 1;
+  const int64_t row0 = (int64_t)blockIdx.x * rows;
+  const int here = (int)(batch - row0 < rows ? batch - row0 : rows);
+  const int total = rows * L;
+  const int valid = here * L;
+  const int64_t in0 = row0 * n;
+  float2 v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    v[k] = make_float2(0.f, 0.f);
+    if (e < valid)
+      v[k] = kPacked ? load_pair(x, in0 + 2 * (int64_t)e)
+                     : make_float2(load_f(x, in0 + e), 0.f);
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) buf[pad(e)] = v[k];
+  }
+  __syncthreads();
+  run_stages<kPer>(buf, tw, plan, rows, false);
+  const int64_t out0 = row0 * m1;
+  const int outs = here * m1;
+  for (int e = threadIdx.x; e < outs; e += blockDim.x) {
+    const int r = e / m1, k = e - r * m1;
+    float2 X;
+    if (kPacked) {
+      const float2 a = buf[pad(r * L + (k == L ? 0 : k))];   // Z[k]
+      const float2 b = buf[pad(r * L + (k == 0 ? 0 : L - k))];  // Z[m-k]
+      const float2 s = make_float2(a.x + b.x, a.y - b.y);  // Z + conj Zm
+      const float2 wd = cmul(__ldg(&half_tw[k]),
+                             make_float2(a.x - b.x, a.y + b.y));
+      X = make_float2(0.5f * (s.x + wd.y), 0.5f * (s.y - wd.x));  // - i wd
+    } else {
+      X = buf[pad(r * L + k)];
+    }
+    store_f(yr, out0 + e, X.x * scale);
+    store_f(yi, out0 + e, X.y * scale);
+  }
+}
+
+// K8. Block b synthesizes rows [b*rows, b*rows + rows) of the real
+// (batch, n) plane y from the (batch, n//2+1) planes xr/xi. kPacked and
+// half_tw as for rfft_kernel. The packed form keeps each row's Nyquist bin
+// in `rows` extra float2 after the stage buffer.
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPacked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+irfft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+             T* __restrict__ y, const float2* __restrict__ tw,
+             const float2* __restrict__ half_tw, int64_t batch, Radices plan,
+             int rows, float scale) {
+  extern __shared__ float2 tpufft_irfft_smem[];
+  float2* buf = tpufft_irfft_smem;
+  const int L = plan.n;  // stage length
+  const int n = kPacked ? 2 * L : L;
+  const int m1 = n / 2 + 1;
+  const int64_t row0 = (int64_t)blockIdx.x * rows;
+  const int here = (int)(batch - row0 < rows ? batch - row0 : rows);
+  const int total = rows * L;
+  const int valid = here * L;
+  const int64_t in0 = row0 * m1;
+  float2 v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    v[k] = make_float2(0.f, 0.f);
+    if (e < valid) {
+      const int r = e / L, j = e - r * L;
+      // packed: X[j], j < m; odd: X[j] or conj X[n-j] for j > n/2
+      const int src = (kPacked || j < m1) ? j : n - j;
+      const int64_t at = in0 + (int64_t)r * m1 + src;
+      const float im = src == 0 ? 0.f : load_f(xi, at);
+      v[k] = make_float2(load_f(xr, at), src == j ? im : -im);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) buf[pad(e)] = v[k];
+  }
+  if (kPacked) {
+    float2* nyq = buf + pad(total);
+    for (int r = threadIdx.x; r < rows; r += blockDim.x)
+      nyq[r] = make_float2(
+          r < here ? load_f(xr, in0 + (int64_t)r * m1 + L) : 0.f, 0.f);
+    __syncthreads();
+    // Z'[j] = (X[j] + conj X[m-j]) + i conj(W^j) (X[j] - conj X[m-j])
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = threadIdx.x + k * blockDim.x;
+      if (e < total) {
+        const int r = e / L, j = e - r * L;
+        const float2 a = v[k];
+        const float2 b = j == 0 ? nyq[r] : buf[pad(r * L + L - j)];
+        const float2 w = __ldg(&half_tw[j]);
+        const float2 wd = cmul(make_float2(w.x, -w.y),
+                               make_float2(a.x - b.x, a.y + b.y));
+        v[k] = make_float2(a.x + b.x - wd.y, a.y - b.y + wd.x);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = threadIdx.x + k * blockDim.x;
+      if (e < total) buf[pad(e)] = v[k];
+    }
+  }
+  __syncthreads();
+  run_stages<kPer>(buf, tw, plan, rows, true);
+  const int64_t out0 = row0 * n;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < valid) {
+      const float2 z = buf[pad(e)];
+      if (kPacked)
+        store_pair(y, out0 + 2 * (int64_t)e,
+                   make_float2(z.x * scale, z.y * scale));
+      else
+        store_f(y, out0 + e, z.x * scale);
+    }
+  }
+}
+
+// Dynamic shared memory of a block: the stage buffer, plus the Nyquist
+// bins of the packed irfft.
+inline size_t smem_bytes(const Geometry& g, bool nyquist) {
+  return g.smem + (nyquist ? (size_t)g.rows * sizeof(float2) : 0);
+}
+
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPacked>
+int launch_r2c(const void* x, void* yr, void* yi, const void* tw,
+               const void* half_tw, long long batch, const Radices& plan,
+               const Geometry& g, float scale, cudaStream_t stream) {
+  auto* kernel = rfft_kernel<T, kThreads, kPer, kMinBlocks, kPacked>;
+  if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(g, false);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (batch + g.rows - 1) / g.rows;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, g.threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw), static_cast<const float2*>(half_tw),
+      (int64_t)batch, plan, g.rows, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPacked>
+int launch_c2r(const void* xr, const void* xi, void* y, const void* tw,
+               const void* half_tw, long long batch, const Radices& plan,
+               const Geometry& g, float scale, cudaStream_t stream) {
+  auto* kernel = irfft_kernel<T, kThreads, kPer, kMinBlocks, kPacked>;
+  if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(g, kPacked);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (batch + g.rows - 1) / g.rows;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, g.threads, smem, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<T*>(y), static_cast<const float2*>(tw),
+      static_cast<const float2*>(half_tw), (int64_t)batch, plan, g.rows,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kPacked>
+int launch_r2c_sized(const void* x, void* yr, void* yi, const void* tw,
+                     const void* half_tw, long long batch,
+                     const Radices& plan, float scale, cudaStream_t stream) {
+  const Geometry g = launch_geometry(plan.n);
+  if (g.per == 8)
+    return launch_r2c<T, 512, 8, 2, kPacked>(x, yr, yi, tw, half_tw, batch,
+                                             plan, g, scale, stream);
+  return launch_r2c<T, 1024, 16, 1, kPacked>(x, yr, yi, tw, half_tw, batch,
+                                             plan, g, scale, stream);
+}
+
+template <typename T, bool kPacked>
+int launch_c2r_sized(const void* xr, const void* xi, void* y, const void* tw,
+                     const void* half_tw, long long batch,
+                     const Radices& plan, float scale, cudaStream_t stream) {
+  const Geometry g = launch_geometry(plan.n);
+  if (g.per == 8)
+    return launch_c2r<T, 512, 8, 2, kPacked>(xr, xi, y, tw, half_tw, batch,
+                                             plan, g, scale, stream);
+  return launch_c2r<T, 1024, 16, 1, kPacked>(xr, xi, y, tw, half_tw, batch,
+                                             plan, g, scale, stream);
+}
+
+// The stage plan of length n: m = n/2 for even n, n for odd n.
+bool real_plan(int n, const int* radices, int nstages, Radices* plan) {
+  if (n < 2) return false;
+  return make_radices(n % 2 == 0 ? n / 2 : n, radices, nstages, plan);
+}
+
+}  // namespace
+
+// rfft of the real (batch, n) plane x into the (batch, n//2+1) planes yr/yi
+// (f32, or bf16 when bf16 != 0), times scale, on `stream`, a stream of the
+// current device. With L = n/2 for even n and L = n for odd n: tw holds the
+// L complex f32 values exp(-2 pi i k / L), radices[0:nstages] multiply to L
+// (each 2, 4, 8 or an odd value up to 127), and half_tw, read for even n
+// only, holds exp(-2 pi i k / n) for k = 0..n/2. For even n, x must be
+// 8-byte (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA error code.
+extern "C" int tpufft_rfft(const void* x, void* yr, void* yi, const void* tw,
+                           const void* half_tw, long long batch, int n,
+                           const int* radices, int nstages, float scale,
+                           int bf16, void* stream) {
+  Radices plan;
+  if (batch < 0 || !real_plan(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool even = n % 2 == 0;
+  if (bf16)
+    return even ? launch_r2c_sized<__nv_bfloat16, true>(
+                      x, yr, yi, tw, half_tw, batch, plan, scale, s)
+                : launch_r2c_sized<__nv_bfloat16, false>(
+                      x, yr, yi, tw, half_tw, batch, plan, scale, s);
+  return even ? launch_r2c_sized<float, true>(x, yr, yi, tw, half_tw, batch,
+                                              plan, scale, s)
+              : launch_r2c_sized<float, false>(x, yr, yi, tw, half_tw, batch,
+                                               plan, scale, s);
+}
+
+// irfft of the (batch, n//2+1) planes xr/xi into the real (batch, n) plane
+// y, times scale (scale 1/n is numpy's irfft), on `stream`. tw holds
+// exp(+2 pi i k / L), the inverse table; radices and half_tw as for
+// tpufft_rfft. For even n, y must be 8-byte (f32) or 4-byte (bf16) aligned.
+// Returns 0 or the CUDA error code.
+extern "C" int tpufft_irfft(const void* xr, const void* xi, void* y,
+                            const void* tw, const void* half_tw,
+                            long long batch, int n, const int* radices,
+                            int nstages, float scale, int bf16,
+                            void* stream) {
+  Radices plan;
+  if (batch < 0 || !real_plan(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool even = n % 2 == 0;
+  if (bf16)
+    return even ? launch_c2r_sized<__nv_bfloat16, true>(
+                      xr, xi, y, tw, half_tw, batch, plan, scale, s)
+                : launch_c2r_sized<__nv_bfloat16, false>(
+                      xr, xi, y, tw, half_tw, batch, plan, scale, s);
+  return even ? launch_c2r_sized<float, true>(xr, xi, y, tw, half_tw, batch,
+                                              plan, scale, s)
+              : launch_c2r_sized<float, false>(xr, xi, y, tw, half_tw, batch,
+                                               plan, scale, s);
+}

@@ -22,12 +22,22 @@ For each transformed axis, decide by predicate, before any launch:
 Every wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors. :func:`fft_pair_last` runs a plan's two trailing
 axes in one pass of the pair kernel (``kernels/pair_fft``) when
-:func:`pair_supported` says it fits.
+:func:`pair_supported` says it fits, and with ``n2_out`` zero-pads the minor
+axis inside that pass (:func:`pair_pad_ok`). :func:`fft_axis_padded` runs
+a zero-padded minor axis as one pass of K9, the minor-axis kernel with a
+bound on its load (:func:`pad_axis_ok`). :func:`rfft_minor` and
+:func:`irfft_minor` run the real transforms of one axis on K7 and K8
+(``kernels/real_fft``) when :func:`r2c_minor_supported` says they fit,
+moving a non-minor axis minor and back as tpufft does.
 
-``fft_axis`` and ``fft_pair_last`` are differentiable (``_FFTAxis``,
-``_FFTPair``): the split-plane DFT is the real-linear map
-[[Fr, -Fi], [Fi, Fr]] with F symmetric, so its transpose applied to g is
-the same transform with the opposite sign and the same scale.
+Every entry point is differentiable (``_FFTAxis``, ``_FFTPair``,
+``_FFTPadded``, ``_RFFTMinor``, ``_IRFFTMinor``): the split-plane DFT is
+the real-linear map [[Fr, -Fi], [Fi, Fr]] with F symmetric, so its
+transpose applied to g is the same transform with the opposite sign and
+the same scale; a zero-pad's transpose is the crop; rfft's is the
+opposite-sign transform of the gradient zero-padded to n bins, real
+plane; irfft's is c_k times the forward real transform of the gradient,
+with c_k = 1 at DC and Nyquist and 2 elsewhere.
 """
 
 from __future__ import annotations
@@ -41,10 +51,14 @@ import torch.nn.functional as F
 
 from . import core
 from .config import PlanConfig
-from .kernels import inner_fft, minor_fft, pair_fft
-from .planner import factorize, next_fast_len
+from .kernels import inner_fft, minor_fft, pair_fft, real_fft
+from .planner import default_bases, factorize, next_fast_len
 
-__all__ = ["fft_axis", "fft_pair_last", "pair_supported"]
+__all__ = [
+    "fft_axis", "fft_axis_padded", "fft_pair_last", "irfft_minor",
+    "pad_axis_ok", "pair_pad_ok", "pair_supported", "r2c_minor_supported",
+    "rfft_minor",
+]
 
 # Bluestein under backend="auto" only for a prime factor above this; below
 # it tpufft measured the direct stages faster (tpufft/execute.py:271).
@@ -320,33 +334,47 @@ def pair_supported(n1: int, n2: int, dtype, config: PlanConfig) -> bool:
     return config.backend != "xla" and pair_fft.supported(n1, n2, dtype)
 
 
-def _pair_impl(ar, ai, *, inverse: bool, scale: float):
+def pair_pad_ok(n1: int, n2_in: int, n2: int, dtype,
+                config: PlanConfig) -> bool:
+    """Can the trailing pair fuse the minor-axis zero-pad n2_in -> n2 into
+    its pass (``pair_fft.fft_pair_padded``, tpufft's ``n2_io``)?"""
+    return 1 <= n2_in < n2 and pair_supported(n1, n2, dtype, config)
+
+
+def _pair_impl(ar, ai, *, inverse: bool, scale: float, n2: int | None):
     if ai is None:
         ai = torch.zeros_like(ar)
     shape = ar.shape
     view = (-1,) + tuple(shape[-2:])
-    outr, outi = pair_fft.fft_pair(
-        ar.reshape(view).contiguous(), ai.reshape(view).contiguous(),
-        inverse=inverse, scale=scale)
-    return outr.reshape(shape), outi.reshape(shape)
+    xr, xi = ar.reshape(view).contiguous(), ai.reshape(view).contiguous()
+    if n2 is None:
+        outr, outi = pair_fft.fft_pair(xr, xi, inverse=inverse, scale=scale)
+    else:
+        outr, outi = pair_fft.fft_pair_padded(xr, xi, n2=n2,
+                                              inverse=inverse, scale=scale)
+    out_shape = shape[:-1] + outr.shape[-1:]
+    return outr.reshape(out_shape), outi.reshape(out_shape)
 
 
 class _FFTPair(torch.autograd.Function):
     """Differentiable trailing-pair transform (tpufft's ``_fft_pair_diff``):
     the backward is the pair transform of the opposite sign with the same
-    scale."""
+    scale, cropped back to the input's minor length when the forward
+    zero-padded it (n2 not None)."""
 
     @staticmethod
-    def forward(ctx, ar, ai, inverse, scale):
-        ctx.args = (inverse, scale)
+    def forward(ctx, ar, ai, inverse, scale, n2):
+        ctx.args = (inverse, scale, ar.shape[-1], n2)
         ctx.real_input = ai is None
-        return _pair_impl(ar, ai, inverse=inverse, scale=scale)
+        return _pair_impl(ar, ai, inverse=inverse, scale=scale, n2=n2)
 
     @staticmethod
     def backward(ctx, gr, gi):
-        inverse, scale = ctx.args
-        br, bi = _FFTPair.apply(gr, gi, not inverse, scale)
-        return br, (None if ctx.real_input else bi), None, None
+        inverse, scale, n2_in, n2 = ctx.args
+        br, bi = _FFTPair.apply(gr, gi, not inverse, scale, None)
+        if n2 is not None:
+            br, bi = br[..., :n2_in], bi[..., :n2_in]
+        return br, (None if ctx.real_input else bi), None, None, None
 
 
 def fft_pair_last(
@@ -355,7 +383,183 @@ def fft_pair_last(
     *,
     inverse: bool,
     scale: float,
+    n2_out: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Transform the last two axes in one pass of the pair kernel
-    (differentiable); the caller checks :func:`pair_supported`."""
-    return _FFTPair.apply(ar, ai, bool(inverse), float(scale))
+    (differentiable); the caller checks :func:`pair_supported`. ``n2_out``:
+    zero-pad the minor axis to this length inside the pass (the caller
+    checks :func:`pair_pad_ok`)."""
+    n2 = None if n2_out is None or n2_out == ar.shape[-1] else int(n2_out)
+    return _FFTPair.apply(ar, ai, bool(inverse), float(scale), n2)
+
+
+# ----------------------------------------------------------------------------
+# The zero-padded minor axis in one pass (K9)
+# ----------------------------------------------------------------------------
+
+def pad_axis_ok(n_in: int, n_out: int, dtype, config: PlanConfig) -> bool:
+    """Can a minor axis zero-padded from n_in to n_out run as one pass of
+    K9 (``minor_fft.fft_minor_padded``) instead of a pad pass and a
+    transform? tpufft's rule (``execute.py:761``) bounds n_out by its dense
+    table; K9 takes every n_out inside K1's envelope."""
+    return (config.backend != "xla" and 1 <= n_in < n_out
+            and minor_fft.supported(n_out, dtype))
+
+
+class _FFTPadded(torch.autograd.Function):
+    """Differentiable zero-pad DFT of (batch, n_in) rows to length n: the
+    backward is the opposite-sign length-n transform of g, cropped to
+    n_in (the adjoint tpufft computes with the swapped rectangle)."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, n, inverse, scale, config):
+        ctx.args = (ar.shape[-1], n, inverse, scale, config)
+        ctx.real_input = ai is None
+        if ai is None:
+            ai = torch.zeros_like(ar)
+        return minor_fft.fft_minor_padded(ar.contiguous(), ai.contiguous(),
+                                          n=n, inverse=inverse, scale=scale)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        n_in, n, inverse, scale, config = ctx.args
+        br, bi = fft_axis(gr, gi, 1, default_bases(n, config.max_radix),
+                          inverse=not inverse, scale=scale, config=config)
+        return (br[:, :n_in], None if ctx.real_input else bi[:, :n_in],
+                None, None, None, None)
+
+
+def fft_axis_padded(
+    ar: torch.Tensor,
+    ai: torch.Tensor | None,
+    axis: int,
+    n_out: int,
+    *,
+    inverse: bool,
+    scale: float,
+    config: PlanConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad the minor ``axis`` to length ``n_out`` and transform it in
+    one K9 pass (differentiable; the caller checks :func:`pad_axis_ok`).
+    tpufft moves a non-minor axis minor for its rectangular kernel; the
+    port pads a non-minor axis with a copy and runs the strided kernel."""
+    if axis % ar.ndim != ar.ndim - 1:
+        raise ValueError("fft_axis_padded serves the minor axis only")
+    shape = ar.shape
+    rows = (-1, shape[-1])
+    outr, outi = _FFTPadded.apply(
+        ar.reshape(rows), None if ai is None else ai.reshape(rows),
+        int(n_out), bool(inverse), float(scale), config)
+    out_shape = shape[:-1] + (int(n_out),)
+    return outr.reshape(out_shape), outi.reshape(out_shape)
+
+
+# ----------------------------------------------------------------------------
+# Real transforms of one axis (K7, K8)
+# ----------------------------------------------------------------------------
+
+def r2c_minor_supported(n: int, dtype, config: PlanConfig) -> bool:
+    """Can K7/K8 serve real length n in plane dtype ``dtype``? The port's
+    own envelope (``real_fft.supported``: even n up to 32768, odd n inside
+    K1's), not tpufft's n <= 1024 table bound."""
+    return config.backend != "xla" and real_fft.supported(n, dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _c2r_weights(n: int):
+    """c_k for the irfft gradient, for the real and the imaginary plane:
+    1 at DC and (even n) Nyquist, 2 elsewhere; the imaginary weights are 0
+    at DC and Nyquist, whose imaginary parts the forward ignores
+    (tpufft's ``_tables_c2r``)."""
+    m1 = n // 2 + 1
+    cr = np.full(m1, 2.0)
+    cr[0] = 1.0
+    if n % 2 == 0:
+        cr[-1] = 1.0
+    ci = cr.copy()
+    ci[0] = 0.0
+    if n % 2 == 0:
+        ci[-1] = 0.0
+    return cr, ci
+
+
+class _RFFTMinor(torch.autograd.Function):
+    """Differentiable rfft of real (batch, n) rows on K7. The backward,
+    gx = s Re(sum_k G[k] e^{+2 pi i j k / n}) with G zero-padded to n bins,
+    is the opposite-sign transform of the padded gradient (K9 where it
+    fits), real plane."""
+
+    @staticmethod
+    def forward(ctx, x, scale, config):
+        ctx.args = (x.shape[-1], scale, config)
+        return real_fft.rfft_minor(x.contiguous(), scale=scale)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        n, scale, config = ctx.args
+        m1 = gr.shape[-1]
+        if pad_axis_ok(m1, n, gr.dtype, config):
+            br, _ = fft_axis_padded(gr, gi, 1, n, inverse=True, scale=scale,
+                                    config=config)
+        else:
+            pad = (0, n - m1)
+            br, _ = fft_axis(F.pad(gr, pad), F.pad(gi, pad), 1,
+                             default_bases(n, config.max_radix),
+                             inverse=True, scale=scale, config=config)
+        return br, None, None
+
+
+class _IRFFTMinor(torch.autograd.Function):
+    """Differentiable irfft of (batch, n//2+1) rows to real (batch, n) on
+    K8. The backward is gXr + i gXi = c_k s F(g)[k], F(g) the forward
+    real transform of g on K7."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, n, scale, config):
+        ctx.args = (n, scale, config)
+        return real_fft.irfft_minor(ar.contiguous(), ai.contiguous(), n=n,
+                                    scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, scale, config = ctx.args
+        fr, fi = _RFFTMinor.apply(g, scale, config)
+        cr, ci = (torch.as_tensor(c, dtype=fr.dtype, device=fr.device)
+                  for c in _c2r_weights(n))
+        return fr * cr, fi * ci, None, None, None
+
+
+def rfft_minor(ar: torch.Tensor, axis: int, n: int, scale: float,
+               config: PlanConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """rfft of length n along ``axis`` of the real plane ``ar`` on K7
+    (differentiable; the caller checks :func:`r2c_minor_supported`):
+    (re, im) planes packed to n//2+1. A non-minor axis is moved minor and
+    back (tpufft ``execute.py:902-912``)."""
+    axis = axis % ar.ndim
+    moved = axis != ar.ndim - 1
+    if moved:
+        ar = ar.movedim(axis, -1)
+    pre = ar.shape[:-1]
+    outr, outi = _RFFTMinor.apply(ar.reshape(-1, n), float(scale), config)
+    outr = outr.reshape(pre + (n // 2 + 1,))
+    outi = outi.reshape(pre + (n // 2 + 1,))
+    if moved:
+        outr, outi = outr.movedim(-1, axis), outi.movedim(-1, axis)
+    return outr, outi
+
+
+def irfft_minor(ar: torch.Tensor, ai: torch.Tensor, axis: int, n: int,
+                scale: float, config: PlanConfig) -> torch.Tensor:
+    """irfft to length n along ``axis`` of the n//2+1-packed planes on K8
+    (differentiable; the caller checks :func:`r2c_minor_supported`): the
+    real plane. A non-minor axis is moved minor and back."""
+    axis = axis % ar.ndim
+    moved = axis != ar.ndim - 1
+    if moved:
+        ar, ai = ar.movedim(axis, -1), ai.movedim(axis, -1)
+    pre = ar.shape[:-1]
+    m1 = ar.shape[-1]
+    out = _IRFFTMinor.apply(ar.reshape(-1, m1), ai.reshape(-1, m1), int(n),
+                            float(scale), config)
+    out = out.reshape(pre + (n,))
+    return out.movedim(-1, axis) if moved else out

@@ -19,6 +19,13 @@ a CUDA tensor launches the kernel or raises, never falls back. Its launch
 count is ``launches``; ``reference_cuda_calls`` counts runs of the plain
 version on CUDA tensors, which the main path never makes.
 
+``fft_minor_padded`` is K9, the counterpart of ``_build_minor_rect`` in its
+zero-pad direction (m_in < m_out = den): the same kernel with a bound on
+its load, reading (batch, n_in) rows and transforming them zero-padded to
+n, so the pad never touches device memory. It counts ``padded_launches``;
+its plain version is ``fft_minor_padded_reference`` (``F.pad``, then
+``fft_minor_reference``).
+
 ``fft_minor_reference`` is the plain version. It follows tpufft's own
 factorization (``_compute``, ``_butterfly`` and the ``_tables`` ported
 below: a dense DFT for n <= 128, radix-{2,4,8} butterflies times
@@ -36,6 +43,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from ..core import stockham_split_last_axis
@@ -48,8 +56,11 @@ __all__ = [
     "check_length",
     "check_planes",
     "fft_minor",
+    "fft_minor_padded",
+    "fft_minor_padded_reference",
     "fft_minor_reference",
     "launches",
+    "padded_launches",
     "radices",
     "reference_cuda_calls",
     "reset_counts",
@@ -61,13 +72,15 @@ MAX_PRIME = 127   # largest radix of the kernel's direct-sum stage
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0
+padded_launches = 0
 reference_cuda_calls = 0
 
 
 def reset_counts() -> None:
-    """Zero ``launches`` and ``reference_cuda_calls``."""
-    global launches, reference_cuda_calls
+    """Zero ``launches``, ``padded_launches`` and ``reference_cuda_calls``."""
+    global launches, padded_launches, reference_cuda_calls
     launches = 0
+    padded_launches = 0
     reference_cuda_calls = 0
 
 
@@ -140,6 +153,28 @@ def check_length(name: str, n: int) -> None:
             f"(n <= {MAX_N}, prime factors <= {MAX_PRIME})")
 
 
+def _launch(xr, xi, n: int, inverse: bool, scale: float):
+    """K1 (n == n_in) or K9 (n_in < n) on the (batch, n_in) planes."""
+    batch, n_in = xr.shape
+    yr = xr.new_empty((batch, n))
+    yi = torch.empty_like(yr)
+    if batch == 0:
+        return yr, yi, False
+    lib = _build.load()
+    rad = radices(n)
+    rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
+    with torch.cuda.device(xr.device):
+        tw = _device_twiddles(n, bool(inverse), xr.device)
+        err = lib.tpufft_minor_fft(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            tw.data_ptr(), batch, n, n_in, rad_arr, len(rad),
+            int(bool(inverse)), float(scale), int(xr.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"minor_fft launch failed: CUDA error {err}")
+    return yr, yi, True
+
+
 def fft_minor(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
               scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Transform the (batch, n) planes along their minor axis.
@@ -150,25 +185,33 @@ def fft_minor(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return fft_minor_reference(xr, xi, inverse=inverse, scale=scale)
     check_planes("minor_fft", xr, xi, 2)
-    batch, n = xr.shape
+    n = xr.shape[1]
     check_length("minor_fft", n)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
-    if batch == 0:
-        return yr, yi
-    lib = _build.load()
-    rad = radices(n)
-    rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
-    with torch.cuda.device(xr.device):
-        tw = _device_twiddles(n, bool(inverse), xr.device)
-        err = lib.tpufft_minor_fft(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw.data_ptr(), batch, n, rad_arr, len(rad), int(bool(inverse)),
-            float(scale), int(xr.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"minor_fft launch failed: CUDA error {err}")
-    launches += 1
+    yr, yi, launched = _launch(xr, xi, n, inverse, scale)
+    launches += launched
+    return yr, yi
+
+
+def fft_minor_padded(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
+                     inverse: bool,
+                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad the (batch, n_in) planes to length n > n_in along their
+    minor axis and transform them, in one pass (K9): (batch, n) out.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and raise on anything it does not take."""
+    global padded_launches
+    if xr.device.type == "cpu" and xi.device.type == "cpu":
+        return fft_minor_padded_reference(xr, xi, n=n, inverse=inverse,
+                                          scale=scale)
+    check_planes("minor_fft_padded", xr, xi, 2)
+    n = int(n)
+    check_length("minor_fft_padded", n)
+    if not 1 <= xr.shape[1] < n:
+        raise ValueError(f"minor_fft_padded: input length {xr.shape[1]} "
+                         f"must be in [1, {n})")
+    yr, yi, launched = _launch(xr, xi, n, inverse, scale)
+    padded_launches += launched
     return yr, yi
 
 
@@ -305,6 +348,16 @@ def _compute(n: int, kind, tables, xr, xi, inverse: bool):
     yi = yi.transpose(0, 1).reshape(B * f, (A // f) * lanes)
     zr, zi = _cmm(w2, yr, yi)
     return zr.reshape(n, lanes), zi.reshape(n, lanes)
+
+
+def fft_minor_padded_reference(xr: torch.Tensor, xi: torch.Tensor, *,
+                               n: int, inverse: bool, scale: float
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fft_minor_padded`: ``F.pad`` to
+    length n, then :func:`fft_minor_reference`; any device."""
+    pad = (0, int(n) - xr.shape[-1])
+    return fft_minor_reference(F.pad(xr, pad), F.pad(xi, pad),
+                               inverse=inverse, scale=scale)
 
 
 def fft_minor_reference(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,

@@ -1,0 +1,223 @@
+"""Batched real-input FFT along the contiguous minor axis and its inverse:
+the CUDA kernels, their wrappers, and their plain PyTorch versions.
+
+Counterpart of two Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
+
+* ``_build_minor_r2c`` (K7): real (batch, n) -> the (batch, n//2+1) half
+  spectrum as re/im planes, scale folded in: :func:`rfft_minor`;
+* ``_build_minor_c2r`` (K8): (batch, n//2+1) re/im planes -> real
+  (batch, n), the imaginary parts of the DC and (even n) Nyquist bins
+  ignored, as numpy's ``irfft`` does: :func:`irfft_minor`.
+
+Storage is f32 or bf16 and arithmetic f32, as for K1. The TPU kernels are
+dense (n, n//2+1) matmuls; the CUDA kernels (``csrc/real_fft.cu``) are one
+shared-memory Stockham pass each: an even n = 2m runs the length-m C2C
+stages on the packed row x[2j] + i x[2j+1] with the Hermitian untangle
+fused into the store (rfft) or the load (irfft); an odd n runs the length-n
+stages on the real row (rfft) or on the Hermitian extension (irfft). Their
+envelope (:func:`supported`): an even n whose half is inside K1's envelope
+(n <= 32768), or an odd n inside it (n <= 16383, prime factors <= 127).
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises, never falls back. ``launches["r2c"]`` and ``launches["c2r"]`` count
+launches; ``reference_cuda_calls`` counts runs of the plain versions on
+CUDA tensors, which the main path never makes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..twiddle import exact_quarter_cleanup
+from . import minor_fft
+
+__all__ = [
+    "irfft_minor",
+    "irfft_minor_reference",
+    "launches",
+    "reference_cuda_calls",
+    "reset_counts",
+    "rfft_minor",
+    "rfft_minor_reference",
+    "supported",
+]
+
+launches = {"r2c": 0, "c2r": 0}
+reference_cuda_calls = 0
+
+
+def reset_counts() -> None:
+    """Zero ``launches`` and ``reference_cuda_calls``."""
+    global reference_cuda_calls
+    for k in launches:
+        launches[k] = 0
+    reference_cuda_calls = 0
+
+
+def _stage_length(n: int) -> int:
+    """Length of the C2C stages the kernels run for a real length n."""
+    return n // 2 if n % 2 == 0 else n
+
+
+def supported(n: int, dtype) -> bool:
+    """Is the real length n in storage ``dtype`` inside the kernels'
+    envelope? Every length tpufft's K7/K8 take (2 <= n <= 1024) whose
+    stage length is inside K1's envelope is; the primes 131 to 1021 are
+    not (they run the C2C ladder)."""
+    n = int(n)
+    return n >= 2 and minor_fft.supported(_stage_length(n), dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_half_twiddle(n: int, device: torch.device) -> torch.Tensor:
+    """W^k = exp(-2 pi i k / n), k = 0..n/2, as (n/2 + 1, 2) f32 on
+    ``device``: host float64 trig with exact quarter points (tpufft's
+    ``_half_twiddle``)."""
+    k = np.arange(n // 2 + 1, dtype=np.float64)
+    theta = (-2.0 * np.pi / n) * k
+    w = exact_quarter_cleanup(np.cos(theta) + 1j * np.sin(theta), k, float(n))
+    return torch.from_numpy(
+        np.stack([w.real, w.imag], axis=-1).astype(np.float32)).to(device)
+
+
+def _check_plane(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the plane must lie on a CUDA device, "
+                         f"got {x.device}")
+    if x.dtype not in minor_fft.STORAGE_DTYPES:
+        raise ValueError(f"{name}: the plane must be float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: the plane must be a contiguous "
+                         f"(batch, n) matrix, got {tuple(x.shape)}")
+
+
+def _check_length(name: str, n: int, dtype) -> None:
+    if not supported(n, dtype):
+        raise ValueError(
+            f"{name}: real length {n} is outside the kernel's envelope "
+            f"(even n with n/2 inside K1's, or odd n inside K1's: "
+            f"n <= {minor_fft.MAX_N}, prime factors <= {minor_fft.MAX_PRIME})")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it, whose data pointer allows the kernel's paired
+    (8-byte f32, 4-byte bf16) loads."""
+    return x if x.data_ptr() % (2 * x.element_size()) == 0 else x.clone()
+
+
+def _launch_args(n: int, inverse: bool, device: torch.device):
+    L = _stage_length(n)
+    rad = minor_fft.radices(L)
+    rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
+    tw = minor_fft._device_twiddles(L, inverse, device)
+    half = _device_half_twiddle(n, device)
+    return tw, half, rad_arr, len(rad)
+
+
+def rfft_minor(x: torch.Tensor, *,
+               scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (batch, n//2+1) half spectrum of the real (batch, n) plane,
+    times ``scale``, as re/im planes in the storage dtype of ``x``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and raise on anything it does not take."""
+    if x.device.type == "cpu":
+        return rfft_minor_reference(x, scale=scale)
+    _check_plane("rfft_minor", x)
+    batch, n = x.shape
+    _check_length("rfft_minor", n, x.dtype)
+    yr = x.new_empty((batch, n // 2 + 1))
+    yi = torch.empty_like(yr)
+    if batch == 0:
+        return yr, yi
+    if n % 2 == 0:
+        x = _aligned(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        tw, half, rad_arr, nstages = _launch_args(n, False, x.device)
+        err = lib.tpufft_rfft(
+            x.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw.data_ptr(),
+            half.data_ptr(), batch, n, rad_arr, nstages, float(scale),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rfft_minor launch failed: CUDA error {err}")
+    launches["r2c"] += 1
+    return yr, yi
+
+
+def irfft_minor(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
+                scale: float) -> torch.Tensor:
+    """The real (batch, n) plane synthesized from the (batch, n//2+1)
+    half-spectrum planes, times ``scale`` (1/n is numpy's ``irfft``), in
+    their storage dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and raise on anything it does not take."""
+    if xr.device.type == "cpu" and xi.device.type == "cpu":
+        return irfft_minor_reference(xr, xi, n=n, scale=scale)
+    minor_fft.check_planes("irfft_minor", xr, xi, 2)
+    n = int(n)
+    batch, m1 = xr.shape
+    _check_length("irfft_minor", n, xr.dtype)
+    if m1 != n // 2 + 1:
+        raise ValueError(f"irfft_minor: planes of {m1} bins for length {n}, "
+                         f"expected {n // 2 + 1}")
+    y = xr.new_empty((batch, n))
+    if batch == 0:
+        return y
+    lib = _build.load()
+    with torch.cuda.device(xr.device):
+        tw, half, rad_arr, nstages = _launch_args(n, True, xr.device)
+        err = lib.tpufft_irfft(
+            xr.data_ptr(), xi.data_ptr(), y.data_ptr(), tw.data_ptr(),
+            half.data_ptr(), batch, n, rad_arr, nstages, float(scale),
+            int(xr.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"irfft_minor launch failed: CUDA error {err}")
+    launches["c2r"] += 1
+    return y
+
+
+# ----------------------------------------------------------------------------
+# Plain versions: the full-length C2C of K1's plain version, no packing
+# ----------------------------------------------------------------------------
+
+def rfft_minor_reference(x: torch.Tensor, *,
+                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`rfft_minor`: K1's plain version on
+    (x, 0) at length n, then the first n//2+1 bins; any device."""
+    global reference_cuda_calls
+    if x.is_cuda:
+        reference_cuda_calls += 1
+    n = x.shape[-1]
+    zr, zi = minor_fft.fft_minor_reference(x, torch.zeros_like(x),
+                                           inverse=False, scale=scale)
+    return (zr[..., :n // 2 + 1].contiguous(),
+            zi[..., :n // 2 + 1].contiguous())
+
+
+def irfft_minor_reference(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
+                          scale: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`irfft_minor`: the Hermitian
+    extension X[n-k] = conj X[k] to length n, K1's plain version inverse,
+    and its real plane; any device."""
+    global reference_cuda_calls
+    if xr.is_cuda:
+        reference_cuda_calls += 1
+    n = int(n)
+    store = xr.dtype
+    ar, ai = xr.float(), xi.float()
+    mirror = slice(1, (n + 1) // 2)
+    fr = torch.cat([ar, ar[..., mirror].flip(-1)], dim=-1)[..., :n]
+    fi = torch.cat([ai, -ai[..., mirror].flip(-1)], dim=-1)[..., :n]
+    zr, _ = minor_fft.fft_minor_reference(fr.contiguous(), fi.contiguous(),
+                                          inverse=True, scale=scale)
+    return zr.to(store)
