@@ -49,26 +49,55 @@ Phases, each of which raises (and so exits nonzero) on failure:
 11. times at those shapes: the path, each kernel alone, its plain version,
     cuFFT (a baseline only) and the copy floor (one read of the input and
     one write of the output), plus ``rfft`` along a non-minor axis
-    (movedim + K7 + movedim back).
+    (movedim + K7 + movedim back);
+12. the dense-matrix kernels K10 (complex), K11 (real) and K12 (real, the
+    DCT/DST table) against their plain versions (f32 matmuls, TF32 off) on
+    ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128)
+    and (128 -> 93), and every DCT/DST (kind, type, norm, direction) at
+    n = 2 to 1024;
+13. the filtering, convolution, DCT/DST, czt and fht paths at full size,
+    each call driven with every count set to 0 just before it and read just
+    after: ``hilbert`` (100000, 512) (K10), a low-pass ``plan_filter(512)``
+    on real (K11) and c64 (K10) rows, ``dct``/``idct`` (100000, 1024) and
+    ``dst``/``idst`` type 4 (100000, 93) (K12), ``fftconvolve`` (100, 640,
+    480) with a (1, 31, 31) kernel, ``oaconvolve`` (16, 2000000) with
+    (1, 1025), ``resample`` (10000, 4800) -> 4410, ``envelope`` (10000,
+    4096), ``czt`` (100000, 1024) -> 1024 on a zoomed arc (K9 + K1) and
+    ``fht``/``ifht`` (100000, 1024) (K7 + K8), each against scipy in
+    float64 on a few rows and through its round trip where it has one;
+14. times: each of those paths, K10, K11 and K12 alone at their paths'
+    shapes, their plain versions and ``torch.matmul`` on the same operands
+    (cuBLAS, a yardstick only), and the filter's dense route (K10) against
+    its composed route (K1, multiply, K1) on (100000, n) for n = 64 to 512.
 
-The line before the last is one JSON object describing every kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every kernel's bound is the larger of the bytes it must move (each input
+read once, each output written once) over the copy rate measured here and
+its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
+clock ``nvidia-smi`` reports). The line before the last is one JSON object
+describing every kernel; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import json
+import math
 import statistics
 import subprocess
 import time
 
 import numpy as np
+import scipy.fft
+import scipy.signal
 import torch
 
 import tpufft_torch
-from tpufft_torch import _build, execute
+from tpufft_torch import _build, execute, realtrans, signal
 from tpufft_torch.convert import split_from_numpy
-from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft, real_fft
+from tpufft_torch.kernels import (dense_mm, inner_fft, minor_fft, pair_fft,
+                                  real_fft)
 
 F32_TOL = 1e-5   # kernel vs plain version, f32 storage: both compute in f32
 BF16_TOL = 8e-3  # bf16 storage: both round to bf16 (2^-8 relative) at the store
@@ -80,11 +109,17 @@ STRIDED_NS = (8, 93, 127, 128, 960, 1024, 4096, 16384)
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
-ALL_KERNELS = KERNELS + REAL_KERNELS
+DENSE_KERNELS = ("complex", "real", "r2r")
+ALL_KERNELS = KERNELS + REAL_KERNELS + DENSE_KERNELS
 REAL_EVEN_NS = (2, 8, 128, 1024, 4096, 32768)
 REAL_ODD_NS = (3, 93, 127, 16383)
 PADS = ((93, 128), (1000, 1024), (5000, 8192))
 PAIR_PADS = ((64, 93, 128), (120, 100, 128))
+DENSE_SHAPES = ((2, 2), (7, 7), (64, 64), (93, 93), (128, 128), (512, 512),
+                (93, 128), (128, 93))
+R2R_NS = (2, 3, 93, 128, 1000, 1024)
+R2R_NORMS = ("backward", "ortho", "forward")
+CROSSOVER_NS = (64, 128, 256, 512)
 
 
 def check(ok: bool, what: str) -> None:
@@ -103,21 +138,35 @@ def pair_err(got, ref) -> float:
     return max(norm_err(got[0], ref[0]), norm_err(got[1], ref[1]))
 
 
-def phase_device() -> str:
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> tuple[str, float]:
+    """The card's name, and its FP32 peak in FLOP/s: SMs x 128 FP32 lanes
+    x 2 (an FMA) x the maximum SM clock."""
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs "
                            "only on the GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())
+    print(_smi("name,power.limit"))
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name} count {torch.cuda.device_count()}")
-    check(not torch.backends.cuda.matmul.allow_tf32,
-          "TF32 matmuls are on; the plain version must run in full f32")
-    return name
+    # the plain versions and the yardsticks run in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = sms * 128 * 2 * mhz * 1e6
+    print(f"FP32 peak: {sms} SMs x 128 lanes x 2 x {mhz:.0f} MHz = "
+          f"{peak / 1e12:.2f} TFLOP/s")
+    return name, peak
 
 
 def phase_build() -> None:
@@ -165,7 +214,7 @@ def phase_kernel() -> None:
 
 
 def reset_counts() -> None:
-    for m in (minor_fft, inner_fft, pair_fft, real_fft):
+    for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm):
         m.reset_counts()
 
 
@@ -174,9 +223,10 @@ def counts() -> tuple[dict, int]:
     return ({"minor": minor_fft.launches, **inner_fft.launches,
              "pair": pair_fft.launches, **real_fft.launches,
              "minor_padded": minor_fft.padded_launches,
-             "pair_padded": pair_fft.padded_launches},
+             "pair_padded": pair_fft.padded_launches, **dense_mm.launches},
             minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
-            + pair_fft.reference_cuda_calls + real_fft.reference_cuda_calls)
+            + pair_fft.reference_cuda_calls + real_fft.reference_cuda_calls
+            + dense_mm.reference_cuda_calls)
 
 
 def phase_main_path() -> int:
@@ -389,7 +439,7 @@ def phase_new_times() -> dict:
     largest absolute error against the plain version at full size."""
     out = {}
 
-    def kernel_row(key, shape, kernel, plain, gb):
+    def kernel_row(key, shape, kernel, plain, gb, flops=None, library=None):
         got, ref = kernel(), plain()
         abs_err = max((got[0] - ref[0]).abs().max().item(),
                       (got[1] - ref[1]).abs().max().item())
@@ -397,11 +447,14 @@ def phase_new_times() -> dict:
         check(err < F32_TOL, f"{key} {shape}: kernel vs plain {err:.3e}")
         del got, ref
         t_k, t_p = _time_ms(kernel), _time_ms(plain)
+        t_l = None if library is None else _time_ms(library)
         print(f"  {key} alone {shape}: kernel {t_k:.4f} ms "
-              f"({gb / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} ms; vs plain "
-              f"max abs {abs_err:.3e}, normalized {err:.3e}")
+              f"({gb / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} ms"
+              + ("" if t_l is None else f", torch.fft {t_l:.4f} ms")
+              + f"; vs plain max abs {abs_err:.3e}, normalized {err:.3e}")
         row = out.setdefault(key, {"ms": t_k, "plain_ms": t_p,
-                                   "max_abs_err": 0.0})
+                                   "library_ms": t_l, "bytes": gb * 1e9,
+                                   "flops": flops, "max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
         return t_k
 
@@ -428,14 +481,15 @@ def phase_new_times() -> dict:
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
               + f"; one pass {gb:.4f} GB, copy "
               f"{gb / (t['copy'] * 1e-3):.0f} GB/s")
-        del xc
         if name == "nd_strided":
             pre, n, post = shape
             kernel_row("inner", shape,
                        lambda: inner_fft.fft_inner(xr, xi, inverse=False,
                                                    scale=1.0),
                        lambda: inner_fft.fft_inner_reference(
-                           xr, xi, inverse=False, scale=1.0), gb)
+                           xr, xi, inverse=False, scale=1.0), gb,
+                       flops=_fft_flops(n, pre * post),
+                       library=lambda: torch.fft.fft(xc, dim=1))
             moved = _time_ms(lambda: _movedim_route(xr, xi))
             print(f"  movedim route of axis 1 {shape} (copy, K1, copy "
                   f"back): {moved:.4f} ms")
@@ -453,12 +507,18 @@ def phase_new_times() -> dict:
                        lambda: inner_fft.fft_inner_nd(
                            r3, i3, n=n1, inverse=False, scale=1.0),
                        lambda: inner_fft.fft_inner_nd_reference(
-                           r3, i3, n=n1, inverse=False, scale=1.0), gb)
+                           r3, i3, n=n1, inverse=False, scale=1.0), gb,
+                       flops=_fft_flops(n1, pre * n2 * n3),
+                       library=lambda: torch.fft.fft(xc, dim=1))
+            c3 = xc.reshape(v)
             kernel_row("pair", v,
                        lambda: pair_fft.fft_pair(r3, i3, inverse=False,
                                                  scale=1.0),
                        lambda: pair_fft.fft_pair_reference(
-                           r3, i3, inverse=False, scale=1.0), gb)
+                           r3, i3, inverse=False, scale=1.0), gb,
+                       flops=_fft_flops(n2 * n3, pre * n1),
+                       library=lambda: torch.fft.fft2(c3))
+            del c3
         elif name == "two_pass":
             rows, n = shape
             a, b = execute._split_large(n)
@@ -494,9 +554,15 @@ def phase_new_times() -> dict:
                            pr, pi, inverse=False, scale=1.0),
                        _pass_gb((rows, m)))
             del pr, pi
-        del x, xr, xi, yr, yi
+        del x, xc, xr, xi, yr, yi
         torch.cuda.synchronize()
     return out
+
+
+def _fft_flops(n: int, count: int, real: bool = False) -> float:
+    """The conventional flop count of ``count`` length-n FFTs: 5 n log2 n
+    each, half that for a real transform."""
+    return (2.5 if real else 5.0) * n * math.log2(n) * count
 
 
 def _hold(worst, key, dtype, got, ref, what):
@@ -676,7 +742,8 @@ def phase_real_times(k1_ms: float) -> dict:
     the plain version at full size."""
     out = {}
 
-    def kernel_row(key, shape, kernel, plain, nbytes):
+    def kernel_row(key, shape, kernel, plain, nbytes, flops=None,
+                   library=None):
         got, ref = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -686,11 +753,15 @@ def phase_real_times(k1_ms: float) -> dict:
         check(err < F32_TOL, f"{key} {shape}: kernel vs plain {err:.3e}")
         del got, ref
         t_k, t_p = _time_ms(kernel), _time_ms(plain)
+        t_l = None if library is None else _time_ms(library)
         print(f"  {key} alone {shape}: kernel {t_k:.4f} ms "
-              f"({nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} "
-              f"ms; vs plain max abs {abs_err:.3e}, normalized {err:.3e}")
+              f"({nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} ms"
+              + ("" if t_l is None else f", torch.fft {t_l:.4f} ms")
+              + f"; vs plain max abs {abs_err:.3e}, normalized {err:.3e}")
         if key not in out:
-            out[key] = {"ms": t_k, "plain_ms": t_p, "max_abs_err": abs_err}
+            out[key] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                        "bytes": nbytes, "flops": flops,
+                        "max_abs_err": abs_err}
         out[key]["max_abs_err"] = max(out[key]["max_abs_err"], abs_err)
 
     f32 = 4
@@ -712,11 +783,15 @@ def phase_real_times(k1_ms: float) -> dict:
           "GB")
     kernel_row("r2c", (rows, n),
                lambda: real_fft.rfft_minor(x, scale=1.0),
-               lambda: real_fft.rfft_minor_reference(x, scale=1.0), nb)
+               lambda: real_fft.rfft_minor_reference(x, scale=1.0), nb,
+               flops=_fft_flops(n, rows, real=True),
+               library=lambda: torch.fft.rfft(x))
     kernel_row("c2r", (rows, n),
                lambda: real_fft.irfft_minor(hr, hi, n=n, scale=1.0 / n),
                lambda: real_fft.irfft_minor_reference(hr, hi, n=n,
-                                                      scale=1.0 / n), nb)
+                                                      scale=1.0 / n), nb,
+               flops=_fft_flops(n, rows, real=True),
+               library=lambda: torch.fft.irfft(xc, n=n))
     out["r2c"]["vs_k1"] = out["r2c"]["ms"] / k1_ms
     yr, yi = real_fft.rfft_minor(x, scale=1.0)
     inter = _time_ms(lambda: torch.complex(yr, yi))
@@ -785,7 +860,9 @@ def phase_real_times(k1_ms: float) -> dict:
                lambda: minor_fft.fft_minor_padded(xr, xi, n=n, inverse=False,
                                                   scale=1.0),
                lambda: minor_fft.fft_minor_padded_reference(
-                   xr, xi, n=n, inverse=False, scale=1.0), nb)
+                   xr, xi, n=n, inverse=False, scale=1.0), nb,
+               flops=_fft_flops(n, rows),
+               library=lambda: torch.fft.fft(xc, n=n))
     del xr, xi, xs, xc
     # fft2(s=(64, 128)) on (10000, 64, 93)
     shape, n2 = (10_000, 64, 93), 128
@@ -808,6 +885,280 @@ def phase_real_times(k1_ms: float) -> dict:
     print(f"rfft (100000, 1024) on K7 {out['r2c']['ms']:.4f} ms against K1's "
           f"C2C {k1_ms:.4f} ms: ratio {out['r2c']['vs_k1']:.3f}")
     return out
+
+
+def phase_dense_kernels() -> None:
+    """K10, K11 and K12 against their plain versions (f32 matmuls, TF32
+    off) on ragged batches of 257 rows."""
+    worst = {}
+    f32 = torch.float32
+    for m_in, m_out in DENSE_SHAPES:
+        xr, xi = _planes((257, m_in), f32, seed=m_in)
+        wr, wi = _planes((m_in, m_out), f32, seed=m_out + 7)
+        what = f"({m_in} -> {m_out})"
+        _hold(worst, "complex", f32,
+              dense_mm.dense_mm_complex(xr, xi, wr, wi),
+              dense_mm.dense_mm_complex_reference(xr, xi, wr, wi), what)
+        _hold(worst, "real", f32, dense_mm.dense_mm_real(xr, wr),
+              dense_mm.dense_mm_real_reference(xr, wr), what)
+    for n in R2R_NS:
+        x, _ = _planes((257, n), f32, seed=n)
+        for kind in ("dct", "dst"):
+            for type_ in (1, 2, 3, 4):
+                for norm in R2R_NORMS:
+                    for inverse in (False, True):
+                        w = realtrans._table((kind, type_, n, norm, inverse),
+                                             x.device)
+                        _hold(worst, "r2r", f32, dense_mm.r2r_minor(x, w),
+                              dense_mm.r2r_minor_reference(x, w),
+                              f"{kind}{type_} n={n} {norm} "
+                              f"inverse={inverse}")
+    torch.cuda.synchronize()
+    for k in DENSE_KERNELS:
+        print(f"{k} vs plain: max normalized error f32 "
+              f"{worst[(k, f32)]:.3e} (tol {F32_TOL})")
+
+
+def _lowpass(n: int) -> np.ndarray:
+    """A Hermitian 0/1 low-pass response (bins |k| <= n/8): its impulse is
+    real, so on real rows the filter is one real product (K11)."""
+    k = np.minimum(np.arange(n), n - np.arange(n))
+    return (k <= n // 8).astype(np.float64)
+
+
+def _rel(got: np.ndarray, ref: np.ndarray) -> float:
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape, f"shape {got.shape} vs {ref.shape}")
+    return float(np.max(np.abs(got - ref)) / max(1.0, np.max(np.abs(ref))))
+
+
+def _host(t: torch.Tensor, k: int = 4) -> np.ndarray:
+    """The first k rows of a tensor as float64 / complex128 numpy."""
+    t = t[:k].detach().cpu()
+    return (t.to(torch.complex128) if t.is_complex() else t.double()).numpy()
+
+
+CZT_W = np.exp(-2j * np.pi * 0.25 / 1024)   # a quarter of the circle ...
+CZT_A = np.exp(2j * np.pi * 0.1)            # ... from a tenth of a turn on
+
+
+@functools.lru_cache(maxsize=None)
+def _lowpass_plan():
+    return tpufft_torch.plan_filter(512, response=_lowpass(512))
+
+
+def _lowpass_f64(x: np.ndarray) -> np.ndarray:
+    return np.fft.ifft(np.fft.fft(x) * _lowpass(512))
+
+
+def _envelope_f64(x: np.ndarray) -> np.ndarray:
+    """scipy's envelope (scipy >= 1.16), else the port's own in f64 on the
+    CPU, which the CPU tests hold to scipy's at 1e-10."""
+    if hasattr(scipy.signal, "envelope"):
+        return scipy.signal.envelope(x)
+    return tpufft_torch.envelope(x, device="cpu")
+
+
+# The dense-kernel and filtering paths at full size: name, input shape,
+# whether the input is complex, the second operand's shape, the call (of
+# the input and the second operand), the launches of that ONE call,
+# scipy/numpy in float64 on the input's first rows, and the inverse call
+# with its launches where the path has a round trip.
+DENSE_PATHS = (
+    ("hilbert", (100_000, 512), False, None,
+     lambda x, _: tpufft_torch.hilbert(x), {"complex": 1},
+     lambda a, _: scipy.signal.hilbert(a), None, None),
+    ("filter_real", (100_000, 512), False, None,
+     lambda x, _: _lowpass_plan()(x), {"real": 1},
+     lambda a, _: _lowpass_f64(a).real,
+     lambda y: _lowpass_plan()(y), {"real": 1}),
+    ("filter_complex", (100_000, 512), True, None,
+     lambda x, _: _lowpass_plan()(x), {"complex": 1},
+     lambda a, _: _lowpass_f64(a),
+     lambda y: _lowpass_plan()(y), {"complex": 1}),
+    ("dct", (100_000, 1024), False, None,
+     lambda x, _: tpufft_torch.dct(x), {"r2r": 1},
+     lambda a, _: scipy.fft.dct(a),
+     lambda y: tpufft_torch.idct(y), {"r2r": 1}),
+    ("dst4", (100_000, 93), False, None,
+     lambda x, _: tpufft_torch.dst(x, type=4), {"r2r": 1},
+     lambda a, _: scipy.fft.dst(a, type=4),
+     lambda y: tpufft_torch.idst(y, type=4), {"r2r": 1}),
+    ("fftconvolve", (100, 640, 480), False, (1, 31, 31),
+     lambda x, k: tpufft_torch.fftconvolve(x, k, mode="same", axes=(1, 2)),
+     {"r2c": 2, "inner": 3, "c2r": 1},
+     lambda a, k: scipy.signal.fftconvolve(a, k, mode="same", axes=(1, 2)),
+     None, None),
+    ("oaconvolve", (16, 2_000_000), False, (1, 1025),
+     lambda x, k: tpufft_torch.oaconvolve(x, k, axes=-1),
+     {"r2c": 2, "c2r": 1},
+     lambda a, k: scipy.signal.oaconvolve(a, k, axes=-1), None, None),
+    ("resample", (10_000, 4800), False, None,
+     lambda x, _: tpufft_torch.resample(x, 4410, axis=-1), {"minor": 2},
+     lambda a, _: scipy.signal.resample(a, 4410, axis=-1), None, None),
+    ("envelope", (10_000, 4096), False, None,
+     lambda x, _: tpufft_torch.envelope(x),
+     {"r2c": 1, "minor_padded": 1, "c2r": 1},
+     lambda a, _: _envelope_f64(a), None, None),
+    ("czt", (100_000, 1024), False, None,
+     lambda x, _: tpufft_torch.czt(x, 1024, CZT_W, CZT_A),
+     {"minor_padded": 1, "minor": 1},
+     lambda a, _: scipy.signal.czt(a, 1024, CZT_W, CZT_A), None, None),
+    ("fht", (100_000, 1024), False, None,
+     lambda x, _: tpufft_torch.fht(x, 0.05, 0.5), {"r2c": 1, "c2r": 1},
+     lambda a, _: scipy.fft.fht(a, 0.05, 0.5),
+     lambda y: tpufft_torch.ifht(y, 0.05, 0.5), {"r2c": 1, "c2r": 1}),
+)
+
+
+def _dense_path_inputs(shape, is_complex: bool, kshape, seed: int):
+    """A path's input at full size, made on the card from a seed, and its
+    second operand where it has one."""
+    xr, xi = _device_planes(shape, seed)
+    x = torch.complex(xr, xi) if is_complex else xr
+    return x, None if kshape is None else _device_planes(kshape, seed + 1)[0]
+
+
+def phase_dense_paths() -> dict:
+    """Each path once at full size, and its round trip, with every count
+    set to 0 just before each call and read just after; returns the
+    launches per kernel."""
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    for seed, (name, shape, is_complex, kshape, run, per_call, ref_fn,
+               back_fn, back_call) in enumerate(DENSE_PATHS):
+        x, k = _dense_path_inputs(shape, is_complex, kshape, seed)
+        y = _counted(lambda a: run(a, k), x, name, per_call, total)
+        rows = 2 if x.ndim == 3 else (1 if name == "oaconvolve" else 4)
+        check(y.device == x.device and bool(torch.isfinite(
+            torch.view_as_real(y) if y.is_complex() else y).all()),
+            f"{name}: output {y.dtype} on {y.device}")
+        xk = None if k is None else k.double().cpu().numpy()
+        ref = ref_fn(_host(x, rows), xk)
+        if name == "envelope":   # rows of the stacked (envelope, residual)
+            got = y[:, :rows].double().cpu().numpy()
+        else:
+            got = _host(y, rows)
+        err = _rel(got, ref)
+        check(err < NP_TOL, f"{name}: vs scipy/numpy in f64 {err:.3e}")
+        line = (f"path {name} {tuple(x.shape)} -> {tuple(y.shape)} "
+                f"{y.dtype}: {rows} rows vs scipy/numpy f64 {err:.3e}")
+        if back_fn is not None:
+            back = _counted(back_fn, y, f"{name} back", back_call, total)
+            # the inverse gives back the input; a low-pass is a projection,
+            # so filtering twice gives the first result back
+            want = y if name.startswith("filter") else x
+            rt = norm_err(torch.view_as_real(back) if back.is_complex()
+                          else back,
+                          torch.view_as_real(want) if want.is_complex()
+                          else want)
+            check(rt < NP_TOL, f"{name}: round trip error {rt:.3e}")
+            line += f", round trip {rt:.3e}"
+            del back
+        elif name == "hilbert":   # the analytic signal's real part is x
+            rt = norm_err(y.real, x)
+            check(rt < NP_TOL, f"{name}: real part vs input {rt:.3e}")
+            line += f", real part vs input {rt:.3e}"
+        print(line)
+        del x, k, y
+        torch.cuda.synchronize()
+    print(f"dense and filtering paths, launches {total}, plain-version CUDA "
+          "calls 0")
+    return total
+
+
+def phase_dense_times() -> dict:
+    """Times of the paths and of K10, K11 and K12 alone at their paths'
+    shapes; returns, per dense kernel, its time, its plain version's,
+    torch.matmul's on the same operands, its bytes and flops, and its
+    largest absolute error against the plain version."""
+    for seed, (name, shape, is_complex, kshape, run, *_) in enumerate(
+            DENSE_PATHS):
+        x, k = _dense_path_inputs(shape, is_complex, kshape, seed)
+        print(f"times path {name} {shape}, median of {REPS}: "
+              f"{_time_ms(lambda: run(x, k)):.4f} ms")
+        del x, k
+    torch.cuda.synchronize()
+    out = {}
+
+    def kernel_row(key, shape, kernel, plain, library, nbytes, flops):
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        abs_err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        err = max(norm_err(g, r) for g, r in zip(got, ref))
+        check(err < F32_TOL, f"{key} {shape}: kernel vs plain {err:.3e}")
+        del got, ref
+        t_k, t_p, t_l = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+        print(f"  {key} alone {shape}: kernel {t_k:.4f} ms "
+              f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} "
+              f"ms, torch.matmul {t_l:.4f} ms; vs plain max abs "
+              f"{abs_err:.3e}, normalized {err:.3e}")
+        out[key] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                    "bytes": nbytes, "flops": flops, "max_abs_err": abs_err}
+
+    f32 = 4
+    rows, n = 100_000, 512
+    xr, xi = _device_planes((rows, n), seed=32)
+    dev = xr.device
+    hplan = signal._hilbert_plan(n, 1, None)
+    wr, wi = hplan._table("cr", dev), hplan._table("ci", dev)
+    xc, wc = torch.complex(xr, xi), torch.complex(wr, wi)
+    kernel_row("complex", (rows, n, n),
+               lambda: dense_mm.dense_mm_complex(xr, xi, wr, wi),
+               lambda: dense_mm.dense_mm_complex_reference(xr, xi, wr, wi),
+               lambda: torch.matmul(xc, wc),
+               f32 * (4 * rows * n + 2 * n * n), 8.0 * rows * n * n)
+    del xc, wc
+    w = _lowpass_plan()._table("cr", dev)
+    kernel_row("real", (rows, n, n), lambda: dense_mm.dense_mm_real(xr, w),
+               lambda: dense_mm.dense_mm_real_reference(xr, w),
+               lambda: torch.matmul(xr, w),
+               f32 * (2 * rows * n + n * n), 2.0 * rows * n * n)
+    del xr, xi
+    n = 1024
+    x, _ = _device_planes((rows, n), seed=33)
+    w = realtrans._table(("dct", 2, n, "backward", False), dev)
+    kernel_row("r2r", (rows, n, n), lambda: dense_mm.r2r_minor(x, w),
+               lambda: dense_mm.r2r_minor_reference(x, w),
+               lambda: torch.matmul(x, w),
+               f32 * (2 * rows * n + n * n), 2.0 * rows * n * n)
+    del x
+    # the filter's two routes on (100000, n): one K10 pass against K1,
+    # the pointwise response, K1 (and cuFFT's composition, a yardstick)
+    rng = np.random.default_rng(34)
+    for n in CROSSOVER_NS:
+        H = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        plan = tpufft_torch.plan_filter(n, response=H)
+        xr, xi = _device_planes((rows, n), seed=n)
+        xc = torch.complex(xr, xi)
+        Hc = torch.as_tensor(H, dtype=torch.complex64, device=dev)
+        t = {"dense_K10": _time_ms(lambda: plan._dense_complex(
+                 xr, xi, adjoint=False)),
+             "composed_K1": _time_ms(lambda: plan._composed(xr, xi)),
+             "cufft_composed": _time_ms(lambda: torch.fft.ifft(
+                 torch.fft.fft(xc) * Hc))}
+        print(f"crossover filter ({rows}, {n}) c64, median of {REPS} ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f"; dense / composed {t['dense_K10'] / t['composed_K1']:.3f}")
+        del xr, xi, xc
+    torch.cuda.synchronize()
+    return out
+
+
+def _copy_rate() -> float:
+    """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
+    nbytes = 2e9
+    rate = nbytes / (_copy_floor_ms(nbytes) * 1e-3)
+    print(f"copy rate {rate / 1e9:.0f} GB/s (a 1 GB device copy)")
+    return rate
+
+
+def _bound(row: dict, rate: float, peak: float) -> tuple[float, str]:
+    """The least time for a kernel's work, ms, and which term sets it."""
+    t_bytes = row["bytes"] / rate * 1e3
+    t_ops = row["flops"] / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _time_ms(fn) -> float:
@@ -863,14 +1214,26 @@ def phase_times() -> dict:
               + f"; kernel {gbytes / (t['kernel'] * 1e-3):.0f} GB/s, "
               f"copy {gbytes / (t['copy'] * 1e-3):.0f} GB/s; kernel vs plain "
               f"max abs {abs_err:.3e}, normalized {err:.3e}")
-        rows[(batch, n)] = dict(t, max_abs_err=abs_err)
+        rows[(batch, n)] = dict(t, max_abs_err=abs_err, bytes=gbytes * 1e9,
+                                flops=_fft_flops(n, batch))
         del x, xc, xr, xi, yr, yi
     torch.cuda.synchronize()
     return rows
 
 
+def _entry(name: str, source: str, replaces: str, launches: int,
+           row: dict, rate: float, peak: float) -> dict:
+    bound_ms, bound_by = _bound(row, rate, peak)
+    return {"name": name, "route": "cuda",
+            "source": f"tpufft_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": row["library_ms"]}
+
+
 def main() -> None:
-    name = phase_device()
+    name, peak = phase_device()
     phase_build()
     phase_kernel()
     launches = phase_main_path()
@@ -882,54 +1245,52 @@ def main() -> None:
     phase_real_kernels()
     real_launches = phase_real_paths()
     real_rows = phase_real_times(head["kernel"])
-    entries = [{
-        "name": "minor_fft",
-        "route": "cuda",
-        "source": "tpufft_torch/csrc/minor_fft.cu",
-        "replaces": "tpufft/kernels/mxu_fft.py:1282",
-        "launches": launches + path_launches["minor"],
-        "max_abs_err": max([r["max_abs_err"] for r in rows.values()]
-                           + [new_rows["minor"]["max_abs_err"]]),
-        "ms": head["kernel"],
-        "plain_ms": head["plain"],
-    }]
-    for key, name_, line, timed in (
-            ("inner", "inner_fft (K2)", 1341, "inner"),
-            ("inner_nd", "inner_nd_fft (K3)", 1427, "inner_nd"),
-            ("pair", "pair_fft (K4)", 1686, "pair")):
-        errs = [new_rows[timed]["max_abs_err"]]
-        if key == "inner_nd":
-            errs.append(new_rows["inner_nd_tw"]["max_abs_err"])
-        entries.append({
-            "name": name_,
-            "route": "cuda",
-            "source": ("tpufft_torch/csrc/pair_fft.cu" if key == "pair"
-                       else "tpufft_torch/csrc/strided_fft.cu"),
-            "replaces": f"tpufft/kernels/mxu_fft.py:{line}",
-            "launches": path_launches[key] + (
-                real_launches["pair_padded"] if key == "pair" else 0),
-            "max_abs_err": max(errs),
-            "ms": new_rows[timed]["ms"],
-            "plain_ms": new_rows[timed]["plain_ms"],
-        })
-    for key, name_, source, line in (
-            ("r2c", "rfft_minor (K7)", "real_fft.cu", 418),
-            ("c2r", "irfft_minor (K8)", "real_fft.cu", 474),
-            ("minor_padded", "minor_fft_padded (K9)", "minor_fft.cu", 551)):
-        entries.append({
-            "name": name_,
-            "route": "cuda",
-            "source": f"tpufft_torch/csrc/{source}",
-            "replaces": f"tpufft/kernels/mxu_fft.py:{line}",
-            "launches": real_launches[key],
-            "max_abs_err": real_rows[key]["max_abs_err"],
-            "ms": real_rows[key]["ms"],
-            "plain_ms": real_rows[key]["plain_ms"],
-        })
+    phase_dense_kernels()
+    dense_launches = phase_dense_paths()
+    dense_rows = phase_dense_times()
+    rate = _copy_rate()
+    total = collections.Counter()
+    for part in (path_launches, real_launches, dense_launches):
+        total.update(part)
+    total["minor"] += launches
+    k1 = {"ms": head["kernel"], "plain_ms": head["plain"],
+          "library_ms": head["torch_fft"], "bytes": head["bytes"],
+          "flops": head["flops"],
+          "max_abs_err": max([r["max_abs_err"] for r in rows.values()]
+                             + [new_rows["minor"]["max_abs_err"]])}
+    new_rows["inner_nd"]["max_abs_err"] = max(
+        new_rows["inner_nd"]["max_abs_err"],
+        new_rows["inner_nd_tw"]["max_abs_err"])
+    mx = "tpufft/kernels/mxu_fft.py"
+    entries = [
+        _entry("minor_fft", "minor_fft.cu", f"{mx}:1282", total["minor"], k1,
+               rate, peak),
+        _entry("inner_fft (K2)", "strided_fft.cu", f"{mx}:1341",
+               total["inner"], new_rows["inner"], rate, peak),
+        _entry("inner_nd_fft (K3)", "strided_fft.cu", f"{mx}:1427",
+               total["inner_nd"], new_rows["inner_nd"], rate, peak),
+        _entry("pair_fft (K4)", "pair_fft.cu", f"{mx}:1686",
+               total["pair"] + total["pair_padded"], new_rows["pair"], rate,
+               peak),
+        _entry("rfft_minor (K7)", "real_fft.cu", f"{mx}:418", total["r2c"],
+               real_rows["r2c"], rate, peak),
+        _entry("irfft_minor (K8)", "real_fft.cu", f"{mx}:474", total["c2r"],
+               real_rows["c2r"], rate, peak),
+        _entry("minor_fft_padded (K9)", "minor_fft.cu", f"{mx}:551",
+               total["minor_padded"], real_rows["minor_padded"], rate, peak),
+        _entry("dense_mm_complex (K10)", "dense_mm.cu", f"{mx}:606",
+               total["complex"], dense_rows["complex"], rate, peak),
+        _entry("dense_mm_real (K11)", "dense_mm.cu", f"{mx}:658",
+               total["real"], dense_rows["real"], rate, peak),
+        _entry("r2r_minor (K12)", "dense_mm.cu", "tpufft/realtrans.py:177",
+               total["r2r"], dense_rows["r2r"], rate, peak),
+    ]
     check(real_launches["pair_padded"] > 0,
           "pair_fft (K4) with n2_in never ran on the main paths")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never ran on the main paths")
+        print(f"bound {e['name']}: {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"kernel {e['ms']:.4f} ms, {e['bound_ms'] / e['ms']:.3f} of it")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -14,6 +14,7 @@ the spectrum's magnitude:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -80,10 +81,11 @@ def test_plan_carried_across(shape, inverse, rng, minor_calls):
                               inverse=inverse, config=TP_CFG)
     plan = _port_plan(tp_plan)
     assert plan == tpufft_torch.plan_fft(shape, torch.complex64, axes=(-1,),
-                                         inverse=inverse, config=CFG)
+                                         inverse=inverse, config=CFG,
+                                         device="cpu")
     assert plan.out_shape == tp_plan.out_shape
     ref = tp_plan(TPSplit(jnp.asarray(x.real), jnp.asarray(x.imag)))
-    out = plan(split_from_numpy(x.real, x.imag))
+    out = plan(split_from_numpy(x.real, x.imag, device="cpu"))
     assert isinstance(out, SplitComplex) and out.dtype == torch.float32
     assert _err(out.numpy(), np.asarray(ref.re) + 1j * np.asarray(ref.im)) < 1e-5
     assert minor_calls == [shape]
@@ -94,7 +96,7 @@ def test_plan_carried_across(shape, inverse, rng, minor_calls):
 def test_fft_ifft_c64(fn, shape, rng):
     x = _complex(shape, rng)
     ref = getattr(tpufft, fn)(x, config=TP_CFG)
-    got = getattr(tpufft_torch, fn)(x, config=CFG)
+    got = getattr(tpufft_torch, fn)(x, config=CFG, device="cpu")
     assert isinstance(got, np.ndarray) and got.dtype == np.complex64
     assert _err(got, ref) < 1e-5
 
@@ -104,7 +106,7 @@ def test_fft_ifft_c64(fn, shape, rng):
 def test_fft_ifft_c128_stockham(fn, shape, rng, minor_calls):
     x = _complex(shape, rng, np.complex128)
     ref = getattr(tpufft, fn)(x, config=TP_AUTO)
-    got = getattr(tpufft_torch, fn)(x, config=AUTO)
+    got = getattr(tpufft_torch, fn)(x, config=AUTO, device="cpu")
     assert got.dtype == np.complex128
     assert _err(got, ref) < 1e-10
     assert minor_calls == []  # f64 never reaches the f32/bf16 kernel
@@ -122,7 +124,7 @@ def test_fftn_fft2(fn, rng, minor_calls, monkeypatch):
     monkeypatch.setattr(pair_fft, "fft_pair", pair_spy)
     x = _complex((4, 16, 24), rng)
     ref = getattr(tpufft, fn)(x, config=TP_CFG)
-    got = getattr(tpufft_torch, fn)(x, config=CFG)
+    got = getattr(tpufft_torch, fn)(x, config=CFG, device="cpu")
     assert _err(got, ref) < 1e-5
     # the trailing pair runs in one pass of the pair kernel, fftn's axis 0
     # on the strided kernel: the minor-axis kernel is not called
@@ -136,7 +138,7 @@ def test_norms(norm, inverse, rng):
     x = _complex((130, 93), rng)
     fn = "ifft" if inverse else "fft"
     ref = getattr(tpufft, fn)(x, norm=norm, config=TP_CFG)
-    got = getattr(tpufft_torch, fn)(x, norm=norm, config=CFG)
+    got = getattr(tpufft_torch, fn)(x, norm=norm, config=CFG, device="cpu")
     assert _err(got, ref) < 1e-5
     np_ref = getattr(np.fft, fn)(x.astype(np.complex128), norm=norm)
     assert _err(got, np_ref) < 1e-5
@@ -147,18 +149,19 @@ def test_norms(norm, inverse, rng):
 def test_crop_pad(n, fn, rng):
     x = _complex((130, 93), rng)
     ref = getattr(tpufft, fn)(x, n=n, config=TP_CFG)
-    got = getattr(tpufft_torch, fn)(x, n=n, config=CFG)
+    got = getattr(tpufft_torch, fn)(x, n=n, config=CFG, device="cpu")
     assert _err(got, ref) < 1e-5
     tp_plan = tpufft.plan_fft(x.shape, axes=(-1,), s=(n,))
     assert (_port_plan(tp_plan).out_shape == tp_plan.out_shape
-            == tpufft_torch.plan_fft(x.shape, axes=(-1,), s=(n,)).out_shape)
+            == tpufft_torch.plan_fft(x.shape, axes=(-1,), s=(n,),
+                                     device="cpu").out_shape)
 
 
 @pytest.mark.parametrize("axis", [0, -2])
 def test_axis0(axis, rng, minor_calls):
     x = _complex((130, 24), rng)
     ref = tpufft.fft(x, axis=axis, config=TP_CFG)
-    got = tpufft_torch.fft(x, axis=axis, config=CFG)
+    got = tpufft_torch.fft(x, axis=axis, config=CFG, device="cpu")
     assert _err(got, ref) < 1e-5
     assert minor_calls == []  # the strided kernel reads axis 0 in place
 
@@ -166,7 +169,7 @@ def test_axis0(axis, rng, minor_calls):
 def test_input_forms(rng):
     x = _complex((130, 93), rng)
     ref = np.asarray(tpufft.fft(x, config=TP_CFG))
-    out_np = tpufft_torch.fft(x, config=CFG)
+    out_np = tpufft_torch.fft(x, config=CFG, device="cpu")
     out_t = tpufft_torch.fft(torch.from_numpy(x), config=CFG)
     out_s = tpufft_torch.fft(SplitComplex(torch.from_numpy(x.real.copy()),
                                           torch.from_numpy(x.imag.copy())),
@@ -193,7 +196,15 @@ def test_bf16_planes(rng):
                            config=cfg)
     assert out.dtype == torch.bfloat16
     assert _err(out.numpy(), ref) < 8e-3
-    assert _err(tpufft_torch.fft(x, config=cfg), ref) < 8e-3
+    assert _err(tpufft_torch.fft(x, config=cfg, device="cpu"), ref) < 8e-3
+
+
+class _OnCPU:
+    """tpufft_torch with ``device="cpu"`` passed to every call, so that
+    numpy input runs on the CPU."""
+
+    def __getattr__(self, name):
+        return functools.partial(getattr(tpufft_torch, name), device="cpu")
 
 
 @pytest.mark.parametrize("call", [
@@ -213,7 +224,7 @@ def test_errors_match(call, rng):
     with pytest.raises(Exception) as theirs:
         call(tpufft, x)
     with pytest.raises(Exception) as ours:
-        call(tpufft_torch, x)
+        call(_OnCPU(), x)
     assert type(ours.value) is type(theirs.value)
     assert type(ours.value) in (ValueError, TypeError)
 
@@ -222,9 +233,9 @@ def test_errors_match(call, rng):
                                 {"layout": "lane-fused"}])
 def test_later_options_not_ported(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpufft_torch.plan_fft((4, 8, 8, 8), **kw)
+        tpufft_torch.plan_fft((4, 8, 8, 8), **kw, device="cpu")
     with pytest.raises(ValueError):
-        tpufft_torch.plan_fft((4, 8), layout="bogus")
+        tpufft_torch.plan_fft((4, 8), layout="bogus", device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["r2c", "c2r"])
@@ -238,7 +249,7 @@ def test_real_plan_fields_match_tpufft(kind):
         tp_plan = tpufft.plan_fft(shape, axes=axes, s=s, kind=kind,
                                   config=TP_CFG)
         plan = tpufft_torch.plan_fft(shape, axes=axes, s=s, kind=kind,
-                                     config=CFG)
+                                     config=CFG, device="cpu")
         carried = _port_plan(tp_plan)
         for p in (plan, carried):
             assert p.kind == kind
@@ -250,22 +261,24 @@ def test_real_plan_fields_match_tpufft(kind):
 def test_backend_dispatch(rng, minor_calls):
     x = _complex((6, 131), rng)        # 131: prime, outside the envelope
     np_ref = np.fft.fft(x.astype(np.complex128))
-    assert _err(tpufft_torch.fft(x), np_ref) < 1e-5   # auto: the Stockham
+    # auto: the Stockham
+    assert _err(tpufft_torch.fft(x, device="cpu"), np_ref) < 1e-5
     assert minor_calls == []
     # backend="pallas": Bluestein, both length-384 transforms on the kernel
-    got = tpufft_torch.fft(x, config=PlanConfig(backend="pallas"))
+    got = tpufft_torch.fft(x, config=PlanConfig(backend="pallas"),
+                           device="cpu")
     assert _err(got, np_ref) < 1e-4
     assert minor_calls == [(6, 384), (6, 384)]
     minor_calls.clear()
     with pytest.raises(ValueError, match="not supported by the fused kernel"):
         tpufft_torch.fft(x[:, :128].astype(np.complex128),
-                         config=PlanConfig(backend="pallas"))
+                         config=PlanConfig(backend="pallas"), device="cpu")
     assert minor_calls == []
     y = _complex((6, 128), rng)
-    got = tpufft_torch.fft(y, config=PlanConfig(backend="xla"))
+    got = tpufft_torch.fft(y, config=PlanConfig(backend="xla"), device="cpu")
     assert minor_calls == []
     assert _err(got, np.fft.fft(y.astype(np.complex128))) < 1e-5
-    tpufft_torch.fft(y)
+    tpufft_torch.fft(y, device="cpu")
     assert minor_calls == [(6, 128)]
 
 
@@ -318,7 +331,31 @@ def test_grad_real_input(rng):
 
 def test_split_from_numpy():
     re = np.arange(6, dtype=np.float32).reshape(2, 3)
-    sc = split_from_numpy(re, -re)
+    sc = split_from_numpy(re, -re, device="cpu")
     assert isinstance(sc, SplitComplex) and sc.device.type == "cpu"
     assert sc.dtype == torch.float32 and sc.shape == (2, 3)
     assert np.array_equal(sc.numpy(), re - 1j * re)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: tpufft_torch.fft(x),
+    lambda x: tpufft_torch.rfft(x.real),
+    lambda x: tpufft_torch.fftn(x),
+    lambda x: tpufft_torch.plan_fft(x.shape, x.dtype, axes=(-1,))(x),
+    lambda x: split_from_numpy(x.real, x.imag),
+    lambda x: tpufft_torch.dct(x.real),
+    lambda x: tpufft_torch.plan_filter(9, response=np.ones(9))(x),
+    lambda x: tpufft_torch.fftconvolve(x, x),
+    lambda x: tpufft_torch.hilbert(x.real),
+    lambda x: tpufft_torch.czt(x),
+    lambda x: tpufft_torch.fht(x.real, 0.1, 0.5),
+], ids=["fft", "rfft", "fftn", "plan", "split_from_numpy", "dct", "filter",
+        "fftconvolve", "hilbert", "czt", "fht"])
+def test_numpy_input_without_a_device_needs_the_card(call, monkeypatch):
+    """numpy input runs on the CUDA device unless the caller names
+    another: with no card, a call that names none raises RuntimeError and
+    never runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = _complex((4, 9), np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(x)

@@ -18,7 +18,8 @@ import torch
 
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
-from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft, real_fft
+from tpufft_torch.kernels import (dense_mm, inner_fft, minor_fft, pair_fft,
+                                  real_fft)
 
 pytestmark = pytest.mark.cuda
 
@@ -482,3 +483,119 @@ def test_real_autograd_on_the_card(cuda_device):
     tpufft_torch.irfft(SplitComplex(cr, ci), n=1024).re.square().sum() \
         .backward()
     assert _err((hr.grad, hi.grad), (cr.grad, ci.grad)) < 1e-5
+
+
+# ----------------------------------------------------------------------------
+# The dense-matrix kernels (K10, K11, K12) and the paths above them
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m_in,m_out", [(2, 2), (7, 7), (64, 64), (93, 93),
+                                        (128, 128), (512, 512), (93, 128),
+                                        (128, 93), (1000, 1000)])
+def test_dense_kernels_match_plain_versions(m_in, m_out, cuda_device):
+    """K10 and K11 on a ragged batch of 257 rows, squares and rectangles;
+    the plain versions are f32 matmuls (TF32 off)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    xr, xi = _planes((257, m_in), cuda_device, seed=m_in)
+    wr, wi = _planes((m_in, m_out), cuda_device, seed=m_out + 1)
+    dense_mm.reset_counts()
+    got = dense_mm.dense_mm_complex(xr, xi, wr, wi)
+    real = dense_mm.dense_mm_real(xr, wr)
+    assert dense_mm.launches == {"complex": 1, "real": 1, "r2r": 0}
+    ref = dense_mm.dense_mm_complex_reference(xr, xi, wr, wi)
+    ref_real = dense_mm.dense_mm_real_reference(xr, wr)
+    torch.cuda.synchronize()
+    assert got[0].shape == (257, m_out) and got[0].dtype == torch.float32
+    assert _err(got, ref) < 1e-5
+    assert _err((real, torch.zeros_like(real)),
+                (ref_real, torch.zeros_like(ref_real))) < 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 3, 93, 128, 1000, 1024])
+def test_r2r_kernel_matches_plain_version(n, cuda_device):
+    """K12 with the table of every (kind, type) and norm."""
+    from tpufft_torch import realtrans
+
+    x, _ = _planes((257, n), cuda_device, seed=n)
+    for kind in ("dct", "dst"):
+        for type_ in (1, 2, 3, 4):
+            for norm in ("backward", "ortho", "forward"):
+                w = realtrans._table((kind, type_, n, norm, False),
+                                     cuda_device)
+                got = dense_mm.r2r_minor(x, w)
+                ref = dense_mm.r2r_minor_reference(x, w)
+                torch.cuda.synchronize()
+                assert _err((got, torch.zeros_like(got)),
+                            (ref, torch.zeros_like(ref))) < 1e-5
+
+
+def test_dense_wrappers_check_their_operands(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device)
+    w = torch.zeros(8, 5, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        dense_mm.dense_mm_real(x.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_mm.dense_mm_real(x.T, w)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dense_mm.dense_mm_real(x, w.cpu())
+    with pytest.raises(ValueError, match="does not take"):
+        dense_mm.dense_mm_complex(x, x, w.T.contiguous(), w.T.contiguous())
+    empty = dense_mm.r2r_minor(torch.zeros(0, 8, device=cuda_device), w)
+    assert empty.shape == (0, 5)
+
+
+# one call of each path: the dense kernel it launches
+@pytest.mark.parametrize("name,call,per_call", [
+    ("hilbert", lambda x: tpufft_torch.hilbert(x), {"complex": 1}),
+    ("filter real", lambda x: tpufft_torch.plan_filter(
+        512, impulse=np.hanning(512))(x), {"real": 1}),
+    ("filter complex", lambda x: tpufft_torch.plan_filter(
+        512, impulse=np.hanning(512))(x.to(torch.complex64)),
+     {"complex": 1}),
+    ("dct", lambda x: tpufft_torch.dct(x), {"r2r": 1}),
+    ("idct type 3 axis 0", lambda x: tpufft_torch.idct(x, type=3, axis=0),
+     {"r2r": 1}),
+])
+def test_dense_paths_run_their_kernels(name, call, per_call, cuda_device):
+    x, _ = _planes((300, 512), cuda_device, seed=3)
+    dense_mm.reset_counts()
+    y = call(x)
+    torch.cuda.synchronize()
+    assert dense_mm.launches == {k: per_call.get(k, 0)
+                                 for k in dense_mm.launches}, name
+    assert dense_mm.reference_cuda_calls == 0
+    cpu = call(x.cpu())
+    assert y.is_cuda and y.dtype == cpu.dtype
+    got = (y.real, y.imag) if y.is_complex() else (y, torch.zeros_like(y))
+    ref = (cpu.real, cpu.imag) if cpu.is_complex() else (
+        cpu, torch.zeros_like(cpu))
+    assert _err(got, ref) < 1e-5
+
+
+def test_dense_autograd_on_the_card(cuda_device):
+    """The dense backward runs the same kernel with the adjoint table."""
+    x, _ = _planes((8, 128), cuda_device)
+    x.requires_grad_(True)
+    dense_mm.reset_counts()
+    tpufft_torch.dct(x, norm="ortho").square().sum().backward()
+    assert dense_mm.launches["r2r"] == 2
+    xc = x.detach().cpu().requires_grad_(True)
+    tpufft_torch.dct(xc, norm="ortho").square().sum().backward()
+    assert _err((x.grad, torch.zeros_like(x.grad)),
+                (xc.grad, torch.zeros_like(xc.grad))) < 1e-5
+
+
+def test_numpy_input_runs_on_the_card_by_default(cuda_device):
+    """numpy in with no device: the work runs on the card (its kernels
+    launch) and numpy comes back."""
+    x = np.random.default_rng(0).standard_normal((40, 128)).astype(
+        np.float32)
+    for m in (minor_fft, dense_mm):
+        m.reset_counts()
+    spec = tpufft_torch.fft(x)
+    analytic = tpufft_torch.hilbert(x)
+    torch.cuda.synchronize()
+    assert isinstance(spec, np.ndarray) and spec.dtype == np.complex64
+    assert isinstance(analytic, np.ndarray)
+    assert minor_fft.launches > 0 and dense_mm.launches["complex"] > 0
+    assert np.max(np.abs(spec - np.fft.fft(x))) < 1e-3

@@ -71,7 +71,7 @@ def test_fftn_matches_tpufft(shape, axes, fn):
     x = _complex(shape, seed=sum(shape))
     tp_cfg, cfg = CFGS["pallas"]
     ref = getattr(tpufft, fn)(x, axes=axes, config=tp_cfg)
-    got = getattr(tpufft_torch, fn)(x, axes=axes, config=cfg)
+    got = getattr(tpufft_torch, fn)(x, axes=axes, config=cfg, device="cpu")
     assert _err(got, ref) < 1e-5
     np_ref = getattr(np.fft, fn)(x.astype(np.complex128), axes=axes)
     assert _err(got, np_ref) < 1e-5
@@ -82,7 +82,7 @@ def test_fftn_matches_tpufft(shape, axes, fn):
 def test_fft2_matches_tpufft(shape, fn):
     x = _complex(shape, seed=7)
     tp_cfg, cfg = CFGS["pallas"]
-    assert _err(getattr(tpufft_torch, fn)(x, config=cfg),
+    assert _err(getattr(tpufft_torch, fn)(x, config=cfg, device="cpu"),
                 getattr(tpufft, fn)(x, config=tp_cfg)) < 1e-5
 
 
@@ -93,7 +93,7 @@ def test_nd_norms(norm, inverse):
     fn = "ifftn" if inverse else "fftn"
     tp_cfg, cfg = CFGS["pallas"]
     ref = getattr(tpufft, fn)(x, norm=norm, config=tp_cfg)
-    got = getattr(tpufft_torch, fn)(x, norm=norm, config=cfg)
+    got = getattr(tpufft_torch, fn)(x, norm=norm, config=cfg, device="cpu")
     assert _err(got, ref) < 1e-5
     assert _err(got, getattr(np.fft, fn)(x.astype(np.complex128),
                                          norm=norm)) < 1e-5
@@ -107,7 +107,7 @@ def test_nd_crop_pad(s, axes):
     x = _complex((4, 16, 24), seed=5)
     tp_cfg, cfg = CFGS["pallas"]
     ref = tpufft.fftn(x, s=s, axes=axes, config=tp_cfg)
-    got = tpufft_torch.fftn(x, s=s, axes=axes, config=cfg)
+    got = tpufft_torch.fftn(x, s=s, axes=axes, config=cfg, device="cpu")
     assert _err(got, ref) < 1e-5
 
 
@@ -123,7 +123,7 @@ def test_nd_real_input():
 def test_nd_c128_stockham():
     x = _complex((3, 12, 20), seed=2, dtype=np.complex128)
     ref = tpufft.fftn(x, config=TP_AUTO)
-    got = tpufft_torch.fftn(x, config=CFGS["auto"][1])
+    got = tpufft_torch.fftn(x, config=CFGS["auto"][1], device="cpu")
     assert got.dtype == np.complex128 and _err(got, ref) < 1e-10
 
 
@@ -144,7 +144,7 @@ def _port_plan(tp_plan):
     return plan_from_fields(
         tp_plan.shape, tp_plan.dtype, tp_plan.axes, tp_plan.lengths,
         tp_plan.bases, tp_plan.inverse, tp_plan.norm, tp_plan.kind,
-        dataclasses.asdict(tp_plan.config))
+        dataclasses.asdict(tp_plan.config), device="cpu")
 
 
 @pytest.mark.parametrize("shape,axes,inverse,norm", [
@@ -196,7 +196,7 @@ def test_long_and_prime_lengths(n, fn, backend):
     1031 and 4099, prime factors above 1024, under both backends)."""
     x = _complex((2, n), seed=n)
     tp_cfg, cfg = CFGS[backend]
-    got = getattr(tpufft_torch, fn)(x, config=cfg)
+    got = getattr(tpufft_torch, fn)(x, config=cfg, device="cpu")
     assert _err(got, getattr(tpufft, fn)(x, config=tp_cfg)) < 1e-4
     assert _err(got, getattr(np.fft, fn)(x.astype(np.complex128))) < 1e-4
 
@@ -207,7 +207,7 @@ def test_long_and_prime_lengths(n, fn, backend):
 def test_long_and_prime_strided_axes(shape, axis):
     x = _complex(shape, seed=1)
     tp_cfg, cfg = CFGS["pallas"]
-    got = tpufft_torch.fft(x, axis=axis, config=cfg)
+    got = tpufft_torch.fft(x, axis=axis, config=cfg, device="cpu")
     assert _err(got, tpufft.fft(x, axis=axis, config=tp_cfg)) < 1e-4
     assert _err(got, np.fft.fft(x.astype(np.complex128), axis=axis)) < 1e-4
 
@@ -236,14 +236,14 @@ def test_pallas_backend_long_and_prime_lengths(n, inverse):
     cfg = PlanConfig(**dataclasses.asdict(tp_cfg))
     fn = "ifft" if inverse else "fft"
     ref = getattr(tpufft, fn)(x, config=tp_cfg)
-    got = getattr(tpufft_torch, fn)(x, config=cfg)
+    got = getattr(tpufft_torch, fn)(x, config=cfg, device="cpu")
     assert _err(got, ref) < 1e-4
 
 
 def test_pallas_backend_still_raises_for_f64():
     x = _complex((2, 131), seed=0, dtype=np.complex128)
     with pytest.raises(ValueError, match="not supported by the fused kernel"):
-        tpufft_torch.fft(x, config=PlanConfig(backend="pallas"))
+        tpufft_torch.fft(x, config=PlanConfig(backend="pallas"), device="cpu")
 
 
 @pytest.fixture
@@ -282,8 +282,8 @@ def spies(monkeypatch):
 def test_dispatch_strided_axes(spies):
     """A non-minor axis reaches the strided wrappers on its own layout:
     K2 with one trailing dim, K3 with several; no movedim."""
-    tpufft_torch.fft(_complex((3, 40, 50), seed=0), axis=1)
-    tpufft_torch.fft(_complex((3, 40, 5, 10), seed=0), axis=1)
+    tpufft_torch.fft(_complex((3, 40, 50), seed=0), axis=1, device="cpu")
+    tpufft_torch.fft(_complex((3, 40, 5, 10), seed=0), axis=1, device="cpu")
     assert spies == [("fft_inner", (3, 40, 50)),
                      ("fft_inner_nd", (120, 5, 10))]
 
@@ -291,30 +291,30 @@ def test_dispatch_strided_axes(spies):
 def test_dispatch_short_post_stays_strided(spies):
     """Unlike tpufft (post < 32 moves the axis minor), a short trailing
     product also runs on the strided kernel, in place."""
-    tpufft_torch.fft(_complex((3, 40, 2), seed=0), axis=1)
-    tpufft_torch.fft(_complex((130, 24), seed=0), axis=0)
+    tpufft_torch.fft(_complex((3, 40, 2), seed=0), axis=1, device="cpu")
+    tpufft_torch.fft(_complex((130, 24), seed=0), axis=0, device="cpu")
     assert spies == [("fft_inner", (3, 40, 2)), ("fft_inner", (1, 130, 24))]
 
 
 def test_dispatch_pair_last(spies):
     """A fitting trailing pair reaches the pair wrapper; the leading axis
     the strided wrapper; a pair over the envelope runs axis by axis."""
-    tpufft_torch.fftn(_complex((4, 16, 24), seed=0))
+    tpufft_torch.fftn(_complex((4, 16, 24), seed=0), device="cpu")
     assert spies == [("fft_inner_nd", (4, 16, 24)),
                      ("fft_pair", (4, 16, 24))]
     spies.clear()
-    tpufft_torch.fft2(_complex((2, 128, 160), seed=0))
+    tpufft_torch.fft2(_complex((2, 128, 160), seed=0), device="cpu")
     assert spies == [("fft_inner", (2, 128, 160)),
                      ("fft_minor", (256, 160))]
 
 
 def test_dispatch_two_pass_and_bluestein(spies):
-    tpufft_torch.fft(_complex((2, 32768), seed=0))
+    tpufft_torch.fft(_complex((2, 32768), seed=0), device="cpu")
     assert spies == [("two_pass", (256, 128)),
                      ("fft_inner_nd", (512, 128, 1)),
                      ("fft_minor", (512, 128))]
     spies.clear()
-    tpufft_torch.fft(_complex((2, 4099), seed=0))
+    tpufft_torch.fft(_complex((2, 4099), seed=0), device="cpu")
     # Bluestein moves its axis minor as tpufft does (a no-op here)
     assert [c for c in spies if c[0] != "movedim"] == [
         ("fft_minor", (2, 8320)), ("fft_minor", (2, 8320))]

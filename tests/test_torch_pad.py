@@ -155,10 +155,10 @@ def test_padded_plans_match_tpufft(shape, axes, s, norm, kernels, scaled,
     plan = plan_from_fields(
         tp_plan.shape, tp_plan.dtype, tp_plan.axes, tp_plan.lengths,
         tp_plan.bases, tp_plan.inverse, tp_plan.norm, tp_plan.kind,
-        dataclasses.asdict(tp_plan.config))
+        dataclasses.asdict(tp_plan.config), device="cpu")
     assert plan == tpufft_torch.plan_fft(shape, torch.complex64, axes=axes,
                                          s=s, inverse=inverse, norm=norm,
-                                         config=CFG)
+                                         config=CFG, device="cpu")
     ref = tp_plan(TPSplit(jnp.asarray(x.real), jnp.asarray(x.imag)))
     got = plan(SplitComplex(torch.from_numpy(x.real.copy()),
                             torch.from_numpy(x.imag.copy())))
@@ -193,7 +193,7 @@ def test_pad_axis_ok():
 def test_xla_backend_pads_with_a_copy(passes):
     x = _complex((4, 93), 3)
     got = tpufft_torch.fft(x, n="fast-aligned",
-                           config=PlanConfig(backend="xla"))
+                           config=PlanConfig(backend="xla"), device="cpu")
     assert passes == []
     assert _err(got, np.fft.fft(x.astype(np.complex128), 128)) < 1e-5
 
@@ -246,7 +246,8 @@ def test_padded_grad_matches_jax(shape, axes, s, inverse, norm):
     xr = torch.tensor(re, requires_grad=True)
     xi = torch.tensor(im, requires_grad=True)
     plan = tpufft_torch.plan_fft(shape, torch.complex64, axes=axes, s=s,
-                                 inverse=inverse, norm=norm, config=CFG)
+                                 inverse=inverse, norm=norm, config=CFG,
+                                 device="cpu")
     out = plan(SplitComplex(xr, xi))
     (torch.sum(out.re ** 2) + 2.0 * torch.sum(out.im ** 2)).backward()
     for got, want in ((xr.grad, ref[0]), (xi.grad, ref[1])):

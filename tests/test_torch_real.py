@@ -84,12 +84,12 @@ def kernel_calls(monkeypatch):
 def test_rfft_irfft_match_tpufft(n, norm, kernel_calls):
     x = _real((3, n), n)
     ref = tpufft.rfft(x, norm=norm, config=TP_CFG)
-    got = tpufft_torch.rfft(x, norm=norm, config=CFG)
+    got = tpufft_torch.rfft(x, norm=norm, config=CFG, device="cpu")
     assert got.dtype == np.complex64 and got.shape == (3, n // 2 + 1)
     assert _err(got, ref) < _tol(n)
     assert _err(got, np.fft.rfft(x.astype(np.float64), norm=norm)) < _tol(n)
     back_ref = tpufft.irfft(ref, n=n, norm=norm, config=TP_CFG)
-    back = tpufft_torch.irfft(got, n=n, norm=norm, config=CFG)
+    back = tpufft_torch.irfft(got, n=n, norm=norm, config=CFG, device="cpu")
     assert back.dtype == np.float32 and back.shape == (3, n)
     assert _err(back, back_ref) < _tol(n)
     assert _err(back, x) < _tol(n)
@@ -101,7 +101,8 @@ def test_rfft_irfft_match_tpufft(n, norm, kernel_calls):
 def test_rfft_crop_pad(n):
     x = _real((4, 100), 5)
     ref = tpufft.rfft(x, n=n, config=TP_CFG)
-    assert _err(tpufft_torch.rfft(x, n=n, config=CFG), ref) < _tol(n)
+    assert _err(tpufft_torch.rfft(x, n=n, config=CFG,
+                                  device="cpu"), ref) < _tol(n)
 
 
 @pytest.mark.parametrize("n", [None, 64, 99, 130, 200])
@@ -109,7 +110,7 @@ def test_irfft_crop_pad(n):
     """Spectra of 51 bins to lengths below, at and above 2 (m - 1)."""
     y = _complex((4, 51), 6)
     ref = tpufft.irfft(y, n=n, config=TP_CFG)
-    got = tpufft_torch.irfft(y, n=n, config=CFG)
+    got = tpufft_torch.irfft(y, n=n, config=CFG, device="cpu")
     assert got.shape == ref.shape and _err(got, ref) < 1e-5
 
 
@@ -131,12 +132,12 @@ ND_CASES = [
 def test_rfftn_irfftn_match_tpufft(shape, axes, s):
     x = _real(shape, sum(shape))
     ref = tpufft.rfftn(x, s=s, axes=axes, config=TP_CFG)
-    got = tpufft_torch.rfftn(x, s=s, axes=axes, config=CFG)
+    got = tpufft_torch.rfftn(x, s=s, axes=axes, config=CFG, device="cpu")
     assert _err(got, ref) < 1e-5
     assert _err(got, np.fft.rfftn(x.astype(np.float64), s=s,
                                   axes=axes)) < 1e-5
     back_ref = tpufft.irfftn(ref, s=s, axes=axes, config=TP_CFG)
-    back = tpufft_torch.irfftn(got, s=s, axes=axes, config=CFG)
+    back = tpufft_torch.irfftn(got, s=s, axes=axes, config=CFG, device="cpu")
     assert back.shape == back_ref.shape and _err(back, back_ref) < 1e-5
 
 
@@ -144,7 +145,7 @@ def test_rfftn_irfftn_match_tpufft(shape, axes, s):
 def test_rfft2_irfft2(fn):
     x = _real((3, 12, 20), 1) if fn == "rfft2" else _complex((3, 12, 11), 1)
     ref = getattr(tpufft, fn)(x, config=TP_CFG)
-    got = getattr(tpufft_torch, fn)(x, config=CFG)
+    got = getattr(tpufft_torch, fn)(x, config=CFG, device="cpu")
     assert got.shape == ref.shape and _err(got, ref) < 1e-5
 
 
@@ -153,7 +154,8 @@ def test_irfftn_odd_last_length_hermitian_extend():
     extension over every axis, index-negated along the other axes."""
     y = _complex((3, 5, 66), 2)
     ref = tpufft.irfftn(y, s=(5, 131), axes=(1, 2), config=TP_CFG)
-    got = tpufft_torch.irfftn(y, s=(5, 131), axes=(1, 2), config=CFG)
+    got = tpufft_torch.irfftn(y, s=(5, 131), axes=(1, 2), config=CFG,
+                              device="cpu")
     assert _err(got, ref) < 1e-4
     assert _err(got, np.fft.irfftn(y.astype(np.complex128), s=(5, 131),
                                    axes=(1, 2))) < 1e-4
@@ -162,11 +164,11 @@ def test_irfftn_odd_last_length_hermitian_extend():
 def test_hfft_ihfft():
     """After tests/test_api.py: float64 numpy input runs the f64 path."""
     x = _real(20, 0, np.float64)
-    got = tpufft_torch.ihfft(x)
+    got = tpufft_torch.ihfft(x, device="cpu")
     assert _err(got, tpufft.ihfft(x)) < 1e-10
     assert_spectrum_close(got, np.fft.ihfft(x), np.complex128)
     spec = np.fft.ihfft(x).astype(np.complex128)
-    got = tpufft_torch.hfft(spec, n=20)
+    got = tpufft_torch.hfft(spec, n=20, device="cpu")
     assert _err(got, tpufft.hfft(spec, n=20)) < 1e-10
     assert_spectrum_close(got, np.fft.hfft(spec, n=20), np.complex128)
 
@@ -176,13 +178,13 @@ def test_hfftn_ihfftn_match_scipy(norm):
     sfft = pytest.importorskip("scipy.fft")
     x = _complex((3, 6, 5), 3, np.complex128)
     for fn, kw in (("hfftn", {"axes": (1, 2)}), ("hfft2", {})):
-        got = getattr(tpufft_torch, fn)(x, norm=norm, **kw)
+        got = getattr(tpufft_torch, fn)(x, norm=norm, **kw, device="cpu")
         assert _err(got, getattr(tpufft, fn)(x, norm=norm, **kw)) < 1e-10
         assert_spectrum_close(got, getattr(sfft, fn)(x, norm=norm, **kw),
                               np.complex128)
     r = _real((3, 6, 8), 4, np.float64)
     for fn, kw in (("ihfftn", {"axes": (1, 2)}), ("ihfft2", {})):
-        got = getattr(tpufft_torch, fn)(r, norm=norm, **kw)
+        got = getattr(tpufft_torch, fn)(r, norm=norm, **kw, device="cpu")
         assert _err(got, getattr(tpufft, fn)(r, norm=norm, **kw)) < 1e-10
         assert_spectrum_close(got, getattr(sfft, fn)(r, norm=norm, **kw),
                               np.complex128)
@@ -193,7 +195,8 @@ def test_hermitian_family_f32_and_forms():
     forms keep their form; ihfftn resolves a "fast" length spec."""
     x = _complex((4, 33), 5)
     ref = tpufft.hfft(x, norm="ortho", config=TP_CFG)
-    assert _err(tpufft_torch.hfft(x, norm="ortho", config=CFG), ref) < 1e-5
+    assert _err(tpufft_torch.hfft(x, norm="ortho", config=CFG,
+                                  device="cpu"), ref) < 1e-5
     split = tpufft_torch.hfft(SplitComplex(torch.from_numpy(x.real.copy()),
                                            torch.from_numpy(x.imag.copy())),
                               norm="ortho", config=CFG)
@@ -203,7 +206,8 @@ def test_hermitian_family_f32_and_forms():
     got = tpufft_torch.ihfft(torch.from_numpy(r), config=CFG)
     assert isinstance(got, torch.Tensor) and got.is_complex()
     assert _err(got.numpy(), tpufft.ihfft(r, config=TP_CFG)) < 1e-5
-    got = tpufft_torch.ihfftn(r, s="fast", norm="ortho", config=CFG)
+    got = tpufft_torch.ihfftn(r, s="fast", norm="ortho", config=CFG,
+                              device="cpu")
     assert _err(got, tpufft.ihfftn(r, s="fast", norm="ortho",
                                    config=TP_CFG)) < 1e-5
 
@@ -211,7 +215,7 @@ def test_hermitian_family_f32_and_forms():
 def test_input_and_output_forms():
     x = _real((3, 16), 7)
     spec = np.fft.rfft(x.astype(np.float64))
-    out_np = tpufft_torch.rfft(x)
+    out_np = tpufft_torch.rfft(x, device="cpu")
     out_t = tpufft_torch.rfft(torch.from_numpy(x))
     assert isinstance(out_np, np.ndarray) and out_np.dtype == np.complex64
     assert out_t.is_complex() and out_t.dtype == torch.complex64
@@ -219,7 +223,7 @@ def test_input_and_output_forms():
         assert _err(got, spec) < 1e-5
     # c2r: the real plane as real numpy, a real tensor, or SplitComplex
     # (out, zeros) (after tests/test_split.py)
-    back_np = tpufft_torch.irfft(spec.astype(np.complex64), n=16)
+    back_np = tpufft_torch.irfft(spec.astype(np.complex64), n=16, device="cpu")
     back_t = tpufft_torch.irfft(out_t, n=16)
     back_s = tpufft_torch.irfft(
         SplitComplex(out_t.real.contiguous(), out_t.imag.contiguous()), n=16)
@@ -230,7 +234,7 @@ def test_input_and_output_forms():
     for got in (back_np, back_t.numpy(), back_s.re.numpy()):
         assert _err(got, x) < 1e-5
     plan = tpufft_torch.plan_fft((3, 16), torch.float32, kind="r2c",
-                                 axes=(-1,))
+                                 axes=(-1,), device="cpu")
     assert plan.out_shape == (3, 9)
     assert _err(plan(x), spec) < 1e-5
 
@@ -274,7 +278,7 @@ def test_bf16_planes():
         config=cfg)
     assert split.dtype == torch.bfloat16
     assert _err(split.re.float().numpy(), x) < 8e-3
-    back = tpufft_torch.irfft(got, n=1024, config=cfg)
+    back = tpufft_torch.irfft(got, n=1024, config=cfg, device="cpu")
     assert back.dtype == torch.float32
     assert _err(back.numpy(), tpufft.irfft(ref, n=1024, config=tp_cfg)) \
         < 8e-3
@@ -286,9 +290,9 @@ def test_pallas_backend_serves_primes(n, kernel_calls):
     Hermitian extension) on Bluestein, under backend="pallas", without
     raising."""
     x = _real((2, n), n)
-    got = tpufft_torch.rfft(x, config=CFG)
+    got = tpufft_torch.rfft(x, config=CFG, device="cpu")
     assert _err(got, tpufft.rfft(x, config=TP_CFG)) < 1e-4
-    back = tpufft_torch.irfft(got, n=n, config=CFG)
+    back = tpufft_torch.irfft(got, n=n, config=CFG, device="cpu")
     assert _err(back, x) < 1e-4
     assert kernel_calls == []
 
@@ -300,18 +304,20 @@ def test_pallas_backend_serves_every_length_up_to_1024():
     cfg = PlanConfig(backend="pallas")
     for n in range(2, 1025):
         x = _real((1, n), n)
-        got = tpufft_torch.rfft(x, config=cfg)
+        got = tpufft_torch.rfft(x, config=cfg, device="cpu")
         assert _err(got, np.fft.rfft(x.astype(np.float64))) < 1e-4, n
-        assert _err(tpufft_torch.irfft(got, n=n, config=cfg), x) < 1e-4, n
+        assert _err(tpufft_torch.irfft(got, n=n, config=cfg,
+                                       device="cpu"), x) < 1e-4, n
 
 
 def test_xla_backend_runs_no_kernel(kernel_calls):
     x = _real((3, 128), 11)
     cfg = PlanConfig(backend="xla")
-    got = tpufft_torch.rfft(x, config=cfg)
+    got = tpufft_torch.rfft(x, config=cfg, device="cpu")
     assert _err(got, np.fft.rfft(x.astype(np.float64))) < 1e-5
-    assert _err(tpufft_torch.irfft(got, n=128, config=cfg), x) < 1e-5
-    got = tpufft_torch.rfft(x[:, :93], config=cfg)        # odd n
+    assert _err(tpufft_torch.irfft(got, n=128, config=cfg,
+                                   device="cpu"), x) < 1e-5
+    got = tpufft_torch.rfft(x[:, :93], config=cfg, device="cpu")        # odd n
     assert _err(got, np.fft.rfft(x[:, :93].astype(np.float64))) < 1e-5
     assert kernel_calls == []
 
@@ -335,7 +341,8 @@ def test_rfft_grad_matches_jax(shape, axes, n, norm):
     ref = np.asarray(jax.grad(lambda v: _loss(tp_plan(v)))(jnp.asarray(x)))
     xt = torch.tensor(x, requires_grad=True)
     plan = tpufft_torch.plan_fft(shape, torch.float32, axes=axes, s=s,
-                                 norm=norm, kind="r2c", config=CFG)
+                                 norm=norm, kind="r2c", config=CFG,
+                                 device="cpu")
     out = plan(xt)
     (torch.sum(out.real ** 2) + 2.0 * torch.sum(out.imag ** 2)).backward()
     assert np.max(np.abs(xt.grad.numpy() - ref)) / np.max(np.abs(ref)) < 1e-5
@@ -360,7 +367,7 @@ def test_irfft_grad_matches_jax(shape, axes, s, norm):
     xi = torch.tensor(im, requires_grad=True)
     plan = tpufft_torch.plan_fft(shape, torch.complex64, axes=axes, s=s,
                                  inverse=True, norm=norm, kind="c2r",
-                                 config=CFG)
+                                 config=CFG, device="cpu")
     torch.sum(plan(SplitComplex(xr, xi)).re ** 2).backward()
     for got, want in ((xr.grad, ref[0]), (xi.grad, ref[1])):
         want = np.asarray(want)

@@ -1,11 +1,15 @@
 """tpufft_torch — the PyTorch and CUDA port of tpufft.
 
 Batched complex and real FFTs on torch tensors, with tpufft's plans,
-arguments, split-plane layout and results. A transform whose lengths are
-inside the kernels' envelopes runs hand-written CUDA kernels on an NVIDIA
-Hopper GPU (``kernels/``) and their plain PyTorch versions on the CPU;
-everything else runs a torch-op Stockham FFT (``core.py``). CUDA sources
-are compiled at first use, never at import.
+arguments, split-plane layout and results, and the layers above them:
+filtering and FFT convolution (``signal``), DCT/DST (``realtrans``), the
+chirp-z transform (``czt``) and the fast Hankel transform (``fhtlog``). A
+transform whose lengths are inside the kernels' envelopes runs
+hand-written CUDA kernels on an NVIDIA Hopper GPU (``kernels/``) and their
+plain PyTorch versions on the CPU; everything else runs a torch-op
+Stockham FFT (``core.py``). Numpy input runs on the CUDA device unless the
+caller names another (``device="cpu"``). CUDA sources are compiled at
+first use, never at import.
 """
 
 from .config import PlanConfig
@@ -15,6 +19,11 @@ from .planner import (default_bases, factorize, next_fast_len,
 from .api import (Plan, plan_fft, fft, ifft, fft2, ifft2, fftn, ifftn,
                   rfft, irfft, rfft2, irfft2, rfftn, irfftn, hfft, ihfft,
                   hfft2, ihfft2, hfftn, ihfftn)
+from .signal import (FilterPlan, plan_filter, fftconvolve, oaconvolve,
+                     correlate, hilbert, hilbert2, resample, envelope)
+from .realtrans import dct, idct, dst, idst, dctn, idctn, dstn, idstn
+from .czt import CZT, ZoomFFT, czt, zoom_fft, czt_points
+from .fhtlog import fht, ifht, fhtoffset
 
 __all__ = [
     "PlanConfig", "SplitComplex", "Plan", "plan_fft",
@@ -23,4 +32,9 @@ __all__ = [
     "hfft", "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn",
     "default_bases", "factorize", "next_fast_len", "prev_fast_len",
     "stage_schedule",
+    "plan_filter", "FilterPlan", "fftconvolve", "oaconvolve", "correlate",
+    "hilbert", "hilbert2", "resample", "envelope",
+    "dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn",
+    "CZT", "ZoomFFT", "czt", "zoom_fft", "czt_points",
+    "fht", "ifht", "fhtoffset",
 ]

@@ -148,4 +148,16 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_irfft.restype = i32
+    lib.tpufft_dense_mm_complex.argtypes = [
+        vp, vp, vp, vp, vp, vp,      # xr, xi, wr, wi, yr, yi
+        ctypes.c_longlong, i32, i32,  # batch, m_in, m_out
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_dense_mm_complex.restype = i32
+    lib.tpufft_dense_mm_real.argtypes = [
+        vp, vp, vp,                  # x, w, y
+        ctypes.c_longlong, i32, i32,  # batch, m_in, m_out
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_dense_mm_real.restype = i32
     return lib

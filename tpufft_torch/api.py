@@ -7,12 +7,14 @@ follows the input form:
 * a torch tensor (complex or real) -> a complex tensor on the same device;
 * ``SplitComplex(re, im)`` planes -> ``SplitComplex`` planes;
 * a numpy array -> a numpy complex array, computed on the plan's
-  ``device`` (``"cpu"`` unless the caller names one).
+  ``device``: the CUDA device unless the caller names another
+  (``device="cpu"``); with no CUDA device a numpy call that names none
+  raises RuntimeError (:func:`numpy_device`), it never runs on the CPU
+  unasked.
 
 A ``c2r`` plan returns its real plane: a real tensor, a real numpy array,
 or ``SplitComplex(out, zeros)``; an ``r2c`` plan refuses complex input
-with TypeError. Tensors run where they lie; nothing picks a device on its
-own.
+with TypeError. Tensors and ``SplitComplex`` planes run where they lie.
 
 Ported so far: c2c, r2c and c2r plans over any set of axes, the four
 norms, ``n``/``s`` crop and zero-pad (including "fast"/"fast-aligned"),
@@ -24,6 +26,14 @@ its kernel's load (tpufft's ``pad_fused`` and ``pair_pad`` rules). The
 transform-major and lane-fused layouts raise NotImplementedError;
 tpufft's cube and mid-pair fusions are not ported (the results are the
 same, in more passes).
+
+The layers above the transforms live beside this module, with the same
+input forms and the same ``device`` rule: ``signal`` (``plan_filter``,
+``FilterPlan``, ``fftconvolve``, ``oaconvolve``, ``correlate``,
+``hilbert``, ``hilbert2``, ``resample``, ``envelope``), ``realtrans``
+(``dct``, ``idct``, ``dst``, ``idst`` and their n-D forms), ``czt``
+(``CZT``, ``ZoomFFT``, ``czt``, ``zoom_fft``, ``czt_points``) and
+``fhtlog`` (``fht``, ``ifht``, ``fhtoffset``).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ __all__ = [
     "Plan",
     "SplitComplex",
     "plan_fft",
+    "numpy_device",
     "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
     "rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn",
     "hfft", "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn",
@@ -52,6 +63,19 @@ __all__ = [
 
 _NORMS = (None, "backward", "ortho", "forward")
 _LAYOUTS = ("natural", "transform-major", "lane-fused")
+
+
+def numpy_device(device=None) -> torch.device:
+    """The device that numpy input runs on: ``device``, or the CUDA device
+    when it is None. Raises RuntimeError when that is a CUDA device and
+    there is none: numpy input never runs on the CPU unless the caller
+    names it (``device="cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "numpy input runs on the CUDA device unless a device is named, "
+            "and there is none: pass device='cpu' to run on the CPU")
+    return dev
 
 
 def _norm_scale(norm, n_total: int, inverse: bool) -> float:
@@ -130,7 +154,8 @@ def _axes_from_s(s, axes):
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """An executable FFT plan: shapes, per-axis radix schedules, direction,
-    normalization, configuration, and the device numpy input is moved to.
+    normalization, configuration, and the device numpy input is moved to
+    (None: the CUDA device).
     """
 
     shape: tuple[int, ...]
@@ -142,7 +167,7 @@ class Plan:
     norm: str | None
     kind: str                          # "c2c", "r2c" or "c2r"
     config: PlanConfig
-    device: str = "cpu"
+    device: str | None = None
 
     def __call__(self, x):
         """Execute the plan; the output form follows the input form, and a
@@ -188,7 +213,8 @@ class Plan:
             xn = np.asarray(x)
 
             def host(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    numpy_device(self.device))
 
             if np.iscomplexobj(xn):
                 if r2c:
@@ -470,10 +496,10 @@ def plan_fft(
     bases=None,
     config: PlanConfig | None = None,
     layout: str = "natural",
-    device="cpu",
+    device=None,
 ) -> Plan:
     """Build an FFT plan (the arguments of ``tpufft.plan_fft``, plus the
-    ``device`` that numpy input is moved to)."""
+    ``device`` that numpy input is moved to: None for the CUDA device)."""
     cfg = config or PlanConfig()
     shape = tuple(int(d) for d in shape)
     if norm not in _NORMS:
@@ -497,7 +523,7 @@ def plan_fft(
     return Plan(
         shape=shape, dtype=dtype_name(dtype), axes=axes, lengths=lengths,
         bases=bases, inverse=bool(inverse), norm=norm, kind=kind, config=cfg,
-        device=str(torch.device(device)),
+        device=None if device is None else str(torch.device(device)),
     )
 
 
@@ -525,7 +551,7 @@ def _plan_for(x, axes, s, inverse, norm, kind, bases, config, device):
 
 
 def fft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
-        device="cpu"):
+        device=None):
     """1-D complex FFT (real input allowed; full spectrum out)."""
     s = None if n is None else (n,)
     return _plan_for(x, (axis,), s, False, norm, "c2c", bases, config,
@@ -533,14 +559,14 @@ def fft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
 
 
 def ifft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
-         device="cpu"):
+         device=None):
     s = None if n is None else (n,)
     return _plan_for(x, (axis,), s, True, norm, "c2c", bases, config,
                      device)(x)
 
 
 def rfft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
-         device="cpu"):
+         device=None):
     """1-D FFT of real input: the n//2+1 bins of the half spectrum."""
     s = None if n is None else (n,)
     return _plan_for(x, (axis,), s, False, norm, "r2c", bases, config,
@@ -548,7 +574,7 @@ def rfft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
 
 
 def irfft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
-          device="cpu"):
+          device=None):
     """Inverse of rfft: real output of length n (default 2 (m - 1))."""
     if n is None:
         n = 2 * (_shape_of(x)[axis] - 1)
@@ -557,25 +583,25 @@ def irfft(x, n=None, axis=-1, norm=None, *, bases=None, config=None,
 
 
 def fftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
-         device="cpu"):
+         device=None):
     return _plan_for(x, axes, s, False, norm, "c2c", bases, config,
                      device)(x)
 
 
 def ifftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
-          device="cpu"):
+          device=None):
     return _plan_for(x, axes, s, True, norm, "c2c", bases, config,
                      device)(x)
 
 
 def rfftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
-          device="cpu"):
+          device=None):
     return _plan_for(x, axes, s, False, norm, "r2c", bases, config,
                      device)(x)
 
 
 def irfftn(x, s=None, axes=None, norm=None, *, bases=None, config=None,
-           device="cpu"):
+           device=None):
     shape = _shape_of(x)
     axes_c = _canon_axes(len(shape), _axes_from_s(s, axes))
     if s is None:

@@ -8,22 +8,36 @@ the port never imports tpufft:
     plan = plan_from_fields(tp.shape, tp.dtype, tp.axes, tp.lengths,
                             tp.bases, tp.inverse, tp.norm, tp.kind,
                             dataclasses.asdict(tp.config))
+
+A filter or chirp-z plan's fields are its parameters:
+
+    tf = tpufft.plan_filter(...)
+    plan = filter_plan_from_fields(tf.n, tf._c, tf.axis,
+                                   dataclasses.asdict(tf.config))
+    tc = tpufft.CZT(...)
+    plan = czt_plan_from_fields(tc.n, tc.m, tc.w, tc.a,
+                                dataclasses.asdict(tc.config))
 """
 
 from __future__ import annotations
 
+import cmath
+
 import numpy as np
 import torch
 
-from .api import Plan, _check_ported
+from .api import Plan, _check_ported, numpy_device
 from .config import PlanConfig
 from .core import SplitComplex, dtype_name
+from .czt import CZT
+from .signal import FilterPlan, plan_filter
 
-__all__ = ["plan_from_fields", "split_from_numpy"]
+__all__ = ["czt_plan_from_fields", "filter_plan_from_fields",
+           "plan_from_fields", "split_from_numpy"]
 
 
 def plan_from_fields(shape, dtype, axes, lengths, bases, inverse, norm, kind,
-                     config_dict, *, device="cpu") -> Plan:
+                     config_dict, *, device=None) -> Plan:
     """The port's ``Plan`` with the field values of a ``tpufft.Plan``
     (``config_dict`` holds the fields of its ``PlanConfig``). For a c2r
     plan, ``lengths[-1]`` is the real output length, as in tpufft."""
@@ -38,13 +52,40 @@ def plan_from_fields(shape, dtype, axes, lengths, bases, inverse, norm, kind,
         norm=norm,
         kind=kind,
         config=PlanConfig(**dict(config_dict)),
-        device=str(torch.device(device)),
+        device=None if device is None else str(torch.device(device)),
     )
 
 
-def split_from_numpy(re, im, device="cpu") -> SplitComplex:
-    """``SplitComplex`` planes on ``device`` from two real numpy arrays."""
+def split_from_numpy(re, im, device=None) -> SplitComplex:
+    """``SplitComplex`` planes on ``device`` (None: the CUDA device, as for
+    every numpy input, ``api.numpy_device``) from two real numpy arrays."""
+    dev = numpy_device(device)
+
     def plane(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return SplitComplex(plane(re), plane(im))
+
+
+def filter_plan_from_fields(n, impulse, axis, config_dict, *,
+                            device=None) -> FilterPlan:
+    """The port's ``FilterPlan`` with the fields of a ``tpufft.FilterPlan``:
+    its length ``n``, its time-domain circular kernel (``_c``) and its
+    ``axis``. ``device``: where numpy input runs (None: the CUDA device)."""
+    return plan_filter(int(n), impulse=np.asarray(impulse, np.complex128),
+                       axis=int(axis), config=PlanConfig(**dict(config_dict)),
+                       device=device)
+
+
+def czt_plan_from_fields(n, m, w, a, config_dict, *, device=None) -> CZT:
+    """The port's ``CZT`` with the fields of a ``tpufft.CZT`` (``n``,
+    ``m``, ``w``, ``a``). The default spiral (``w = exp(-2 pi i / m)``) is
+    rebuilt from its exact angles, as the CZT constructor does for
+    ``w=None``. ``device``: where numpy input runs (None: the CUDA
+    device)."""
+    m = int(m)
+    w = complex(w)
+    if w == cmath.exp(-2j * np.pi / m):
+        w = None
+    return CZT(int(n), m, w, complex(a), config=PlanConfig(**dict(config_dict)),
+               device=device)
