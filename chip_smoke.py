@@ -68,7 +68,26 @@ Phases, each of which raises (and so exits nonzero) on failure:
 14. times: each of those paths, K10, K11 and K12 alone at their paths'
     shapes, their plain versions and ``torch.matmul`` on the same operands
     (cuBLAS, a yardstick only), and the filter's dense route (K10) against
-    its composed route (K1, multiply, K1) on (100000, n) for n = 64 to 512.
+    its composed route (K1, multiply, K1) on (100000, n) for n = 64 to 512;
+15. the short-time Fourier kernels K13 (overlapped-frame STFT), K14
+    (inverse STFT with overlap-add) and K15 (Welch and CSD accumulators)
+    against their plain versions: hop 128, 64 and 32, nperseg 128 to 1024,
+    nfft > nperseg, detrend False, "constant" and "linear" folded into
+    the matrix, batches of 1, 3 and 70 rows, f32 and bf16 signals;
+16. the spectral paths at full size on (64, 1048576) f32 signals, each call
+    driven with every count set to 0 just before it and read just after:
+    ``stft(nperseg=256)`` (K13), its ``istft`` (K14), ``welch`` (K15),
+    ``csd`` and ``coherence`` of two signals (K15), ``spectrogram`` at
+    hop 128 (K13), ``ShortTimeFFT(hann(128), hop=64, fs=48000)``'s
+    ``stft`` and ``istft`` (K13, K14), ``periodogram`` of (64, 16384) (K7)
+    and ``lombscargle`` of 20000 samples at 4000 frequencies, each against
+    scipy in float64 on a few rows (limit 1e-4) and through the round
+    trips;
+17. times: those paths, K13, K14 and K15 (welch, csd) alone at their
+    paths' shapes, their plain versions and the PyTorch yardsticks:
+    ``torch.stft(center=False)`` for K13, ``torch.istft`` for K14 and
+    ``torch.stft`` then ``abs() ** 2`` and a sum (a short composition) for
+    K15.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -94,14 +113,15 @@ import scipy.signal
 import torch
 
 import tpufft_torch
-from tpufft_torch import _build, execute, realtrans, signal
+from tpufft_torch import _build, execute, realtrans, signal, spectral
 from tpufft_torch.convert import split_from_numpy
 from tpufft_torch.kernels import (dense_mm, inner_fft, minor_fft, pair_fft,
-                                  real_fft)
+                                  real_fft, stft_mm)
 
 F32_TOL = 1e-5   # kernel vs plain version, f32 storage: both compute in f32
 BF16_TOL = 8e-3  # bf16 storage: both round to bf16 (2^-8 relative) at the store
 NP_TOL = 1e-3    # main path vs np.fft.fft, the check bench.py makes
+SPECTRAL_TOL = 1e-4  # f32 spectral paths vs scipy in float64
 KERNEL_NS = (8, 93, 127, 128, 256, 960, 1024, 1792, 4096, 16384)
 MAIN_SHAPES = ((100_000, 1024), (1_000_000, 93))
 REPS = 20
@@ -110,7 +130,8 @@ PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
 DENSE_KERNELS = ("complex", "real", "r2r")
-ALL_KERNELS = KERNELS + REAL_KERNELS + DENSE_KERNELS
+STFT_KERNELS = ("stft", "istft", "welch", "csd")
+ALL_KERNELS = KERNELS + REAL_KERNELS + DENSE_KERNELS + STFT_KERNELS
 REAL_EVEN_NS = (2, 8, 128, 1024, 4096, 32768)
 REAL_ODD_NS = (3, 93, 127, 16383)
 PADS = ((93, 128), (1000, 1024), (5000, 8192))
@@ -214,7 +235,7 @@ def phase_kernel() -> None:
 
 
 def reset_counts() -> None:
-    for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm):
+    for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm, stft_mm):
         m.reset_counts()
 
 
@@ -223,10 +244,11 @@ def counts() -> tuple[dict, int]:
     return ({"minor": minor_fft.launches, **inner_fft.launches,
              "pair": pair_fft.launches, **real_fft.launches,
              "minor_padded": minor_fft.padded_launches,
-             "pair_padded": pair_fft.padded_launches, **dense_mm.launches},
+             "pair_padded": pair_fft.padded_launches, **dense_mm.launches,
+             **stft_mm.launches},
             minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
             + pair_fft.reference_cuda_calls + real_fft.reference_cuda_calls
-            + dense_mm.reference_cuda_calls)
+            + dense_mm.reference_cuda_calls + stft_mm.reference_cuda_calls)
 
 
 def phase_main_path() -> int:
@@ -1146,6 +1168,266 @@ def phase_dense_times() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# The short-time Fourier kernels K13, K14, K15 and the spectral paths
+# ----------------------------------------------------------------------------
+
+# (batch, nperseg, hop, nfft, nseg, detrend): hops 128, 64 and 32, nperseg
+# 128 to 1024, nfft > nperseg, the three foldable detrends, a batch of 1
+# and ragged batches and segment counts
+STFT_KERNEL_CASES = ((3, 256, 128, 256, 300, False),
+                     (1, 128, 64, 128, 1000, "constant"),
+                     (70, 128, 64, 200, 131, "linear"),
+                     (3, 1024, 256, 1024, 37, "constant"),
+                     (5, 256, 128, 512, 129, "linear"),
+                     (2, 128, 32, 128, 500, False))
+SIG = (64, 1_048_576)   # the spectral paths' signals
+
+
+def phase_stft_kernels() -> None:
+    """K13, K14 and K15 (welch and csd) against their plain versions."""
+    worst = {}
+    for batch, nperseg, hop, nfft, nseg, detrend in STFT_KERNEL_CASES:
+        win = scipy.signal.get_window("hann", nperseg)
+        mr, mi = spectral._tables("stft", win, nperseg, nfft,
+                                  (detrend or None, 1.0), torch.device("cuda"))
+        ar, ai = spectral._tables("istft", win, nperseg, nfft, 1.0,
+                                  torch.device("cuda"))
+        m1 = nfft // 2 + 1
+        n_sig = (nseg - 1) * hop + nperseg + hop - 1
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = _planes((batch, n_sig), dtype, seed=nperseg + nseg)
+            zr, zi = _planes((batch, nseg, m1), dtype, seed=m1)
+            what = (f"batch {batch} nperseg {nperseg} hop {hop} nfft {nfft} "
+                    f"nseg {nseg} detrend {detrend} {dtype}")
+            # both sides read the same (bf16: the same rounded) values and
+            # compute in f32: the f32 limit holds for either storage
+            for key, got, ref in (
+                    ("stft", stft_mm.stft_frames(x, mr, mi, hop),
+                     stft_mm.stft_frames_reference(x, mr, mi, hop)),
+                    ("welch", stft_mm.welch_accum(x, mr, mi, hop),
+                     stft_mm.welch_accum_reference(x, mr, mi, hop)),
+                    ("csd", stft_mm.welch_accum(x, mr, mi, hop, y),
+                     stft_mm.welch_accum_reference(x, mr, mi, hop, y)),
+                    ("istft", stft_mm.istft_ola(zr, zi, ar, ai, hop),
+                     stft_mm.istft_ola_reference(zr, zi, ar, ai, hop))):
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err = max(norm_err(g, r) for g, r in zip(got, ref))
+                worst[key] = max(worst.get(key, 0.0), err)
+                check(all(g.dtype == torch.float32 and g.shape == r.shape
+                          for g, r in zip(got, ref)),
+                      f"{key} {what}: output {got[0].dtype} "
+                      f"{tuple(got[0].shape)}")
+                check(err < F32_TOL,
+                      f"{key} vs plain {what}: {err:.3e} >= {F32_TOL}")
+    torch.cuda.synchronize()
+    for k in STFT_KERNELS:
+        print(f"{k} vs plain (f32 and bf16 signals): max normalized error "
+              f"{worst[k]:.3e} (tol {F32_TOL})")
+
+
+def _sft128():
+    return tpufft_torch.ShortTimeFFT(scipy.signal.get_window("hann", 128),
+                                     64, 48000.0)
+
+
+def phase_spectral_paths() -> dict:
+    """Each spectral path once at full size with every count set to 0 just
+    before each call and read just after, against scipy in float64 on a
+    few rows; returns the launches per kernel."""
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    x, y = _device_planes(SIG, seed=51)
+    xh = x[:2].double().cpu().numpy()
+    yh = y[:2].double().cpu().numpy()
+    n = SIG[1]
+    lines = []
+
+    def run(name, fn, per_call, ref, got_rows=lambda r: r[:2]):
+        out = _counted(lambda _: fn(), None, name, per_call, total)
+        res = out[-1] if isinstance(out, tuple) else out
+        check(res.is_cuda and bool(torch.isfinite(
+            torch.view_as_real(res) if res.is_complex() else res).all()),
+            f"{name}: output {res.dtype} on {res.device}")
+        err = _rel(got_rows(res).cpu().numpy(), ref)
+        check(err < SPECTRAL_TOL, f"{name}: vs scipy in f64 {err:.3e}")
+        lines.append(f"path {name} {SIG} f32 -> {tuple(res.shape)} "
+                     f"{res.dtype}: 2 rows vs scipy f64 {err:.3e}, "
+                     f"launches {per_call}")
+        return out
+
+    _, _, Z = run("stft", lambda: tpufft_torch.stft(x, nperseg=256),
+                  {"stft": 1}, scipy.signal.stft(xh, nperseg=256)[2])
+    _, back = run("istft", lambda: tpufft_torch.istft(Z), {"istft": 1},
+                  scipy.signal.istft(Z[:2].cpu().numpy().astype(
+                      np.complex128))[1])
+    rt = norm_err(back[:, :n], x)
+    check(rt < SPECTRAL_TOL, f"istft(stft(x)) round trip {rt:.3e}")
+    lines.append(f"  stft -> istft round trip {rt:.3e}")
+    del Z, back
+    run("welch", lambda: tpufft_torch.welch(x), {"welch": 1},
+        scipy.signal.welch(xh)[1])
+    run("csd", lambda: tpufft_torch.csd(x, y), {"csd": 1},
+        scipy.signal.csd(xh, yh)[1])
+    run("coherence", lambda: tpufft_torch.coherence(x, y),
+        {"welch": 2, "csd": 1}, scipy.signal.coherence(xh, yh)[1])
+    run("spectrogram", lambda: tpufft_torch.spectrogram(
+        x, nperseg=256, noverlap=128), {"stft": 1},
+        scipy.signal.spectrogram(xh, nperseg=256, noverlap=128)[2])
+    sft, sft_ref = _sft128(), scipy.signal.ShortTimeFFT(
+        scipy.signal.get_window("hann", 128), 64, 48000.0)
+    S = run("ShortTimeFFT.stft hop 64", lambda: sft.stft(x), {"stft": 1},
+            sft_ref.stft(xh))
+    back = run("ShortTimeFFT.istft hop 64", lambda: sft.istft(S, k1=n),
+               {"istft": 1}, sft_ref.istft(
+                   S[:2].cpu().numpy().astype(np.complex128), k1=n))
+    rt = norm_err(back, x)
+    check(rt < SPECTRAL_TOL, f"ShortTimeFFT round trip {rt:.3e}")
+    lines.append(f"  ShortTimeFFT stft -> istft round trip {rt:.3e}, "
+                 f"{S.shape[-1]} slices a row")
+    del S, back
+    xs = x[:, :16384]
+    run("periodogram", lambda: tpufft_torch.periodogram(xs), {"r2c": 1},
+        scipy.signal.periodogram(xh[:, :16384])[1])
+    g = np.random.default_rng(52)
+    t_ls = np.sort(g.uniform(0, 100, 20000))
+    y_ls = np.sin(2.1 * t_ls) + 0.3 * g.standard_normal(20000)
+    f_ls = np.linspace(0.01, 10, 4000)
+    dev = [torch.as_tensor(v, device="cuda") for v in (t_ls, y_ls, f_ls)]
+    run("lombscargle", lambda: tpufft_torch.lombscargle(
+        *dev, normalize=True), {},
+        scipy.signal.lombscargle(t_ls, y_ls, f_ls, normalize=True),
+        got_rows=lambda r: r)
+    for line in lines:
+        print(line)
+    print(f"spectral paths, launches {total}, plain-version CUDA calls 0")
+    return total
+
+
+def phase_spectral_times() -> dict:
+    """Times of the spectral paths and of K13, K14 and K15 alone at their
+    paths' shapes; returns, per kernel, its time, its plain version's, the
+    PyTorch yardstick's, its bytes and flops and its largest absolute
+    error against the plain version."""
+    out = {}
+    f32 = 4
+
+    def kernel_row(key, shape, kernel, plain, library, nbytes, flops,
+                   lib_name):
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        abs_err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        err = max(norm_err(g, r) for g, r in zip(got, ref))
+        check(err < F32_TOL, f"{key} {shape}: kernel vs plain {err:.3e}")
+        del got, ref
+        t_k, t_p, t_l = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+        print(f"  {key} alone {shape}: kernel {t_k:.4f} ms "
+              f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} "
+              f"ms, {lib_name} {t_l:.4f} ms; vs plain max abs "
+              f"{abs_err:.3e}, normalized {err:.3e}")
+        out[key] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                    "bytes": nbytes, "flops": flops, "max_abs_err": abs_err}
+
+    x, y = _device_planes(SIG, seed=53)
+    batch, n = SIG
+    sft = _sft128()
+    _, _, Z = tpufft_torch.stft(x, nperseg=256)
+    S = sft.stft(x)
+    t = {"stft": _time_ms(lambda: tpufft_torch.stft(x, nperseg=256)),
+         "istft": _time_ms(lambda: tpufft_torch.istft(Z)),
+         "welch": _time_ms(lambda: tpufft_torch.welch(x)),
+         "csd": _time_ms(lambda: tpufft_torch.csd(x, y)),
+         "coherence": _time_ms(lambda: tpufft_torch.coherence(x, y)),
+         "spectrogram_hop128": _time_ms(lambda: tpufft_torch.spectrogram(
+             x, nperseg=256, noverlap=128)),
+         "ShortTimeFFT_stft_hop64": _time_ms(lambda: sft.stft(x)),
+         "ShortTimeFFT_istft_hop64": _time_ms(lambda: sft.istft(S, k1=n))}
+    print(f"times spectral paths {SIG} f32, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    del Z, S
+    torch.cuda.synchronize()
+
+    win = torch.hann_window(256, device="cuda", dtype=torch.float64)
+    win32 = win.float()
+    nperseg, hop, m1 = 256, 128, 129
+    # K13 at the stft path's shape: the signal as the path gives it
+    # (extended by nperseg / 2 a side and padded to whole segments)
+    xe = torch.nn.functional.pad(x, (nperseg // 2, nperseg // 2))
+    nseg = 1 + (xe.shape[1] - nperseg) // hop
+    fold = math.sqrt(1.0 / win.sum().item() ** 2)
+    mr, mi = spectral._tables("stft", win.cpu().numpy(), nperseg, nperseg,
+                              (None, fold), torch.device("cuda"))
+    out_floats = 2 * batch * nseg * m1
+    kernel_row("stft", (batch, xe.shape[1], nperseg, hop),
+               lambda: stft_mm.stft_frames(xe, mr, mi, hop),
+               lambda: stft_mm.stft_frames_reference(xe, mr, mi, hop),
+               lambda: torch.stft(xe, 256, hop, window=win32, center=False,
+                                  return_complex=True),
+               f32 * (xe.numel() + out_floats),
+               4.0 * nperseg * m1 * nseg * batch, "torch.stft(center=False)")
+    # K14 at the istft path's shape
+    zr, zi = stft_mm.stft_frames(xe, mr, mi, hop)
+    zc = torch.complex(zr, zi).transpose(1, 2)
+    ar, ai = spectral._tables("istft", win.cpu().numpy(), nperseg, nperseg,
+                              float(win.sum().item()), torch.device("cuda"))
+    n_out = (nseg - 1) * hop + nperseg
+    kernel_row("istft", (batch, nseg, m1, hop),
+               lambda: stft_mm.istft_ola(zr, zi, ar, ai, hop),
+               lambda: stft_mm.istft_ola_reference(zr, zi, ar, ai, hop),
+               lambda: torch.istft(zc, 256, hop, window=win32, center=True),
+               f32 * (out_floats + batch * n_out),
+               4.0 * (nperseg // hop) * m1 * n_out * batch,
+               "torch.istft(center=True)")
+    del zr, zi, zc
+    # K15 at welch's shape (x as it is: no extension, no padding)
+    nseg_w = 1 + (n - nperseg) // hop
+    mr1, mi1 = spectral._tables("stft", win.cpu().numpy(), nperseg, nperseg,
+                                ("constant", 1.0), torch.device("cuda"))
+
+    def stft_sq():
+        return torch.stft(x, 256, hop, window=win32, center=False,
+                          return_complex=True).abs().pow(2).sum(-1)
+
+    kernel_row("welch", (batch, n, nperseg, hop),
+               lambda: stft_mm.welch_accum(x, mr1, mi1, hop),
+               lambda: stft_mm.welch_accum_reference(x, mr1, mi1, hop),
+               stft_sq, f32 * (x.numel() + batch * m1),
+               (4.0 * nperseg + 3) * m1 * nseg_w * batch,
+               "torch.stft, abs()**2, sum")
+
+    def stft_cross():
+        a = torch.stft(x, 256, hop, window=win32, center=False,
+                       return_complex=True)
+        b = torch.stft(y, 256, hop, window=win32, center=False,
+                       return_complex=True)
+        return (a.conj() * b).sum(-1)
+
+    kernel_row("csd", (batch, n, nperseg, hop),
+               lambda: stft_mm.welch_accum(x, mr1, mi1, hop, y),
+               lambda: stft_mm.welch_accum_reference(x, mr1, mi1, hop, y),
+               stft_cross, f32 * (2 * x.numel() + 2 * batch * m1),
+               (8.0 * nperseg + 8) * m1 * nseg_w * batch,
+               "torch.stft twice, conj product, sum")
+    # K13 and K14 at ShortTimeFFT's hop 64, m_num 128
+    sm_r, sm_i = sft._device_tables(("stft", None),
+                                    lambda: sft._fused_stft_matrix(None),
+                                    x.device)
+    xp = torch.nn.functional.pad(x, (64, 64))
+    yr, yi = stft_mm.stft_frames(xp, sm_r, sm_i, 64)
+    t64 = {"K13": _time_ms(lambda: stft_mm.stft_frames(xp, sm_r, sm_i, 64))}
+    sa_r, sa_i = sft._device_tables(("istft",), sft._fused_istft_matrix,
+                                    x.device)
+    t64["K14"] = _time_ms(lambda: stft_mm.istft_ola(yr, yi, sa_r, sa_i, 64))
+    print(f"  hop 64, m_num 128 on {tuple(xp.shape)} ({yr.shape[1]} "
+          f"slices): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                   t64.items()))
+    del yr, yi, xp, xe, x, y
+    torch.cuda.synchronize()
+    return out
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -1248,9 +1530,13 @@ def main() -> None:
     phase_dense_kernels()
     dense_launches = phase_dense_paths()
     dense_rows = phase_dense_times()
+    phase_stft_kernels()
+    stft_launches = phase_spectral_paths()
+    stft_rows = phase_spectral_times()
     rate = _copy_rate()
     total = collections.Counter()
-    for part in (path_launches, real_launches, dense_launches):
+    for part in (path_launches, real_launches, dense_launches,
+                 stft_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],
@@ -1284,7 +1570,20 @@ def main() -> None:
                total["real"], dense_rows["real"], rate, peak),
         _entry("r2r_minor (K12)", "dense_mm.cu", "tpufft/realtrans.py:177",
                total["r2r"], dense_rows["r2r"], rate, peak),
+        _entry("stft_frames (K13)", "stft_mm.cu", f"{mx}:755",
+               total["stft"], stft_rows["stft"], rate, peak),
+        _entry("istft_ola (K14)", "stft_mm.cu", f"{mx}:884",
+               total["istft"], stft_rows["istft"], rate, peak),
+        _entry("welch_accum (K15)", "stft_mm.cu", f"{mx}:1008",
+               total["welch"] + total["csd"], stft_rows["welch"], rate,
+               peak),
     ]
+    check(stft_launches["csd"] > 0,
+          "welch_accum (K15) with two signals never ran on the main paths")
+    csd_bound = _bound(stft_rows["csd"], rate, peak)[0]
+    print(f"bound welch_accum (K15) csd: {csd_bound:.4f} ms, kernel "
+          f"{stft_rows['csd']['ms']:.4f} ms, "
+          f"{csd_bound / stft_rows['csd']['ms']:.3f} of it")
     check(real_launches["pair_padded"] > 0,
           "pair_fft (K4) with n2_in never ran on the main paths")
     for e in entries:

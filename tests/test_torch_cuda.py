@@ -19,7 +19,7 @@ import torch
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
 from tpufft_torch.kernels import (dense_mm, inner_fft, minor_fft, pair_fft,
-                                  real_fft)
+                                  real_fft, stft_mm)
 
 pytestmark = pytest.mark.cuda
 
@@ -599,3 +599,128 @@ def test_numpy_input_runs_on_the_card_by_default(cuda_device):
     assert isinstance(analytic, np.ndarray)
     assert minor_fft.launches > 0 and dense_mm.launches["complex"] > 0
     assert np.max(np.abs(spec - np.fft.fft(x))) < 1e-3
+
+
+# ----------------------------------------------------------------------------
+# The short-time Fourier kernels K13, K14, K15
+# ----------------------------------------------------------------------------
+
+def _stft_tables(nperseg, m1, device, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (nperseg, m1)).astype(np.float32)).to(device) for _ in range(2))
+
+
+def _rel(got, ref):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return ((got - ref).abs().max() / max(1.0, ref.abs().max())).item()
+
+
+# (batch, nperseg, hop, m1, nseg): hops 128, 64 and 1, nperseg 128 to 1024,
+# nfft > nperseg (m1 wider than nperseg / 2 + 1), a batch of 1, ragged
+# segment and column edges
+STFT_SHAPES = [(3, 256, 128, 129, 300), (1, 128, 64, 65, 1000),
+               (5, 1024, 256, 513, 37), (2, 200, 100, 151, 129),
+               (7, 16, 1, 9, 1), (70, 64, 16, 33, 131)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-5)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch,nperseg,hop,m1,nseg", STFT_SHAPES)
+def test_stft_kernels_match_plain_versions(batch, nperseg, hop, m1, nseg,
+                                           dtype, tol, cuda_device):
+    """K13, K14 and K15 (welch and csd) against their plain versions on the
+    same (bf16: the same rounded) inputs; both compute in f32."""
+    n_sig = (nseg - 1) * hop + nperseg + hop - 1   # a ragged tail
+    x, y = _planes((batch, n_sig), cuda_device, dtype, seed=nperseg)
+    mr, mi = _stft_tables(nperseg, m1, cuda_device, seed=m1)
+    stft_mm.reset_counts()
+    got = stft_mm.stft_frames(x, mr, mi, hop)
+    ref = stft_mm.stft_frames_reference(x, mr, mi, hop)
+    assert got[0].shape == (batch, nseg, m1) and got[0].dtype == torch.float32
+    assert max(_rel(g, r) for g, r in zip(got, ref)) < tol
+    w = stft_mm.welch_accum(x, mr, mi, hop)
+    assert _rel(w, stft_mm.welch_accum_reference(x, mr, mi, hop)) < tol
+    c = stft_mm.welch_accum(x, mr, mi, hop, y)
+    cref = stft_mm.welch_accum_reference(x, mr, mi, hop, y)
+    assert max(_rel(g, r) for g, r in zip(c, cref)) < tol
+    if nperseg % hop == 0:
+        zr, zi = _planes((batch, nseg, m1), cuda_device, dtype, seed=nseg)
+        ar, ai = (t.T.contiguous() for t in _stft_tables(nperseg, m1,
+                                                          cuda_device, 5))
+        o = stft_mm.istft_ola(zr, zi, ar, ai, hop)
+        assert o.shape == (batch, (nseg - 1) * hop + nperseg)
+        assert _rel(o, stft_mm.istft_ola_reference(zr, zi, ar, ai, hop)) < tol
+    torch.cuda.synchronize()
+    assert stft_mm.launches == {"stft": 1, "welch": 1, "csd": 1,
+                                "istft": int(nperseg % hop == 0)}
+
+
+def test_stft_wrappers_check_their_operands(cuda_device):
+    x = torch.zeros(2, 512, device=cuda_device)
+    mr = torch.zeros(128, 65, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stft_mm.stft_frames(x.double(), mr, mr, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        stft_mm.stft_frames(x[:, ::2], mr, mr, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        stft_mm.welch_accum(x.cpu(), mr, mr, 64)
+    with pytest.raises(ValueError, match="tables must be float32 on"):
+        stft_mm.welch_accum(x, mr.cpu(), mr.cpu(), 64)
+    z = torch.zeros(2, 7, 65, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of hop"):
+        stft_mm.istft_ola(z, z, mr.T.contiguous(), mr.T.contiguous(), 48)
+
+
+# one call of each spectral path: the kernels it launches
+@pytest.mark.parametrize("name,call,per_call", [
+    ("stft", lambda x: tpufft_torch.stft(x, nperseg=256)[2], {"stft": 1}),
+    ("stft hop 64", lambda x: tpufft_torch.stft(x, nperseg=128)[2],
+     {"stft": 1}),
+    ("welch", lambda x: tpufft_torch.welch(x)[1], {"welch": 1}),
+    ("csd", lambda x: tpufft_torch.csd(x, x.flip(-1))[1], {"csd": 1}),
+    ("coherence", lambda x: tpufft_torch.coherence(x, x.flip(-1))[1],
+     {"welch": 2, "csd": 1}),
+    ("spectrogram", lambda x: tpufft_torch.spectrogram(
+        x, nperseg=256, noverlap=128)[2], {"stft": 1}),
+    ("istft", lambda x: tpufft_torch.istft(
+        tpufft_torch.stft(x, nperseg=256, detrend="linear")[2])[1],
+     {"stft": 1, "istft": 1}),
+    ("ShortTimeFFT", lambda x: tpufft_torch.ShortTimeFFT(
+        np.hanning(128), 64, 48000.0).istft(tpufft_torch.ShortTimeFFT(
+            np.hanning(128), 64, 48000.0).stft(x), k1=x.shape[-1]),
+     {"stft": 1, "istft": 1}),
+])
+def test_spectral_paths_run_their_kernels(name, call, per_call, cuda_device):
+    x, _ = _planes((6, 20000), cuda_device, seed=4)
+    stft_mm.reset_counts()
+    y = call(x)
+    torch.cuda.synchronize()
+    assert stft_mm.launches == {k: per_call.get(k, 0)
+                                for k in stft_mm.launches}, name
+    assert stft_mm.reference_cuda_calls == 0
+    cpu = call(x.cpu())
+    assert y.is_cuda and y.dtype == cpu.dtype and y.shape == cpu.shape
+    got = (y.real, y.imag) if y.is_complex() else (y, torch.zeros_like(y))
+    ref = (cpu.real, cpu.imag) if cpu.is_complex() else (
+        cpu, torch.zeros_like(cpu))
+    assert _err(got, ref) < 1e-5
+
+
+def test_spectral_autograd_on_the_card(cuda_device):
+    """The fused routes' backward passes (plain torch ops) on the card
+    agree with the CPU's."""
+    x, _ = _planes((4, 4096), cuda_device, seed=6)
+
+    def loss(v):
+        _, _, Z = tpufft_torch.stft(v, nperseg=128)
+        _, back = tpufft_torch.istft(Z * 1.5, nperseg=128)
+        _, P = tpufft_torch.welch(v, nperseg=128)
+        return back.square().sum() + P.sum() + Z.abs().sum()
+
+    xg = x.clone().requires_grad_(True)
+    loss(xg).backward()
+    xc = x.cpu().requires_grad_(True)
+    loss(xc).backward()
+    assert _rel(xg.grad, xc.grad) < 1e-5

@@ -19,6 +19,8 @@ def test_port_imports_without_jax():
         import tpufft_torch.kernels.real_fft, tpufft_torch.kernels.dense_mm
         import tpufft_torch.signal, tpufft_torch.realtrans
         import tpufft_torch.czt, tpufft_torch.fhtlog
+        import tpufft_torch.kernels.stft_mm, tpufft_torch.spectral
+        import tpufft_torch.shorttime, tpufft_torch.windows
         assert "jax" not in sys.modules, "jax was imported"
         assert "tpufft" not in sys.modules, "tpufft was imported"
         assert "triton" not in sys.modules, "triton was imported"

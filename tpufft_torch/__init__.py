@@ -3,7 +3,9 @@
 Batched complex and real FFTs on torch tensors, with tpufft's plans,
 arguments, split-plane layout and results, and the layers above them:
 filtering and FFT convolution (``signal``), DCT/DST (``realtrans``), the
-chirp-z transform (``czt``) and the fast Hankel transform (``fhtlog``). A
+chirp-z transform (``czt``), the fast Hankel transform (``fhtlog``), and
+short-time and averaged spectral analysis (``spectral``, ``shorttime``,
+``windows``). A
 transform whose lengths are inside the kernels' envelopes runs
 hand-written CUDA kernels on an NVIDIA Hopper GPU (``kernels/``) and their
 plain PyTorch versions on the CPU; everything else runs a torch-op
@@ -24,6 +26,11 @@ from .signal import (FilterPlan, plan_filter, fftconvolve, oaconvolve,
 from .realtrans import dct, idct, dst, idst, dctn, idctn, dstn, idstn
 from .czt import CZT, ZoomFFT, czt, zoom_fft, czt_points
 from .fhtlog import fht, ifht, fhtoffset
+from .spectral import (get_window, stft, istft, spectrogram, periodogram,
+                       welch, csd, coherence, check_NOLA, check_COLA,
+                       lombscargle)
+from .shorttime import ShortTimeFFT, closest_STFT_dual_window
+from . import windows
 
 __all__ = [
     "PlanConfig", "SplitComplex", "Plan", "plan_fft",
@@ -37,4 +44,7 @@ __all__ = [
     "dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn",
     "CZT", "ZoomFFT", "czt", "zoom_fft", "czt_points",
     "fht", "ifht", "fhtoffset",
+    "get_window", "stft", "istft", "spectrogram", "periodogram", "welch",
+    "csd", "coherence", "check_NOLA", "check_COLA", "lombscargle",
+    "ShortTimeFFT", "closest_STFT_dual_window", "windows",
 ]

@@ -160,4 +160,25 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_dense_mm_real.restype = i32
+    i64 = ctypes.c_longlong
+    lib.tpufft_stft_frames.argtypes = [
+        vp, vp, vp, vp, vp,          # x, mr, mi, yr, yi
+        i64, i64, i32, i32, i32, i32,  # batch, n_sig, hop, nseg, nperseg, m1
+        i32, vp,                     # bf16 storage, cudaStream_t
+    ]
+    lib.tpufft_stft_frames.restype = i32
+    lib.tpufft_istft_ola.argtypes = [
+        vp, vp, vp, vp, vp,          # zr, zi, ar, ai, out
+        i64, i32, i32, i32, i32,     # batch, nseg, hop, nperseg, m1
+        i32, vp,                     # bf16 storage, cudaStream_t
+    ]
+    lib.tpufft_istft_ola.restype = i32
+    lib.tpufft_welch_partial_floats.argtypes = [i64, i32, i32, i32]
+    lib.tpufft_welch_partial_floats.restype = i64
+    lib.tpufft_welch_accum.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp,  # x, y, mr, mi, partials, outr, outi
+        i64, i64, i32, i32, i32, i32,  # batch, n_sig, hop, nseg, nperseg, m1
+        i32, i32, vp,                # cross, bf16 storage, cudaStream_t
+    ]
+    lib.tpufft_welch_accum.restype = i32
     return lib

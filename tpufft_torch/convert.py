@@ -17,6 +17,14 @@ A filter or chirp-z plan's fields are its parameters:
     tc = tpufft.CZT(...)
     plan = czt_plan_from_fields(tc.n, tc.m, tc.w, tc.a,
                                 dataclasses.asdict(tc.config))
+
+A short-time FFT's fields are its (scaled) window, hop and the rest of
+its state:
+
+    ts = tpufft.ShortTimeFFT(...)
+    sft = short_time_fft_from_fields(ts.win, ts.hop, ts.fs, ts.fft_mode,
+                                     ts.mfft, ts.dual_win, ts.scaling,
+                                     ts.phase_shift)
 """
 
 from __future__ import annotations
@@ -30,10 +38,12 @@ from .api import Plan, _check_ported, numpy_device
 from .config import PlanConfig
 from .core import SplitComplex, dtype_name
 from .czt import CZT
+from .shorttime import ShortTimeFFT
 from .signal import FilterPlan, plan_filter
 
 __all__ = ["czt_plan_from_fields", "filter_plan_from_fields",
-           "plan_from_fields", "split_from_numpy"]
+           "plan_from_fields", "short_time_fft_from_fields",
+           "split_from_numpy"]
 
 
 def plan_from_fields(shape, dtype, axes, lengths, bases, inverse, norm, kind,
@@ -89,3 +99,30 @@ def czt_plan_from_fields(n, m, w, a, config_dict, *, device=None) -> CZT:
         w = None
     return CZT(int(n), m, w, complex(a), config=PlanConfig(**dict(config_dict)),
                device=device)
+
+
+def short_time_fft_from_fields(win, hop, fs, fft_mode, mfft, dual_win,
+                               scaling, phase_shift, config_dict=None, *,
+                               device=None) -> ShortTimeFFT:
+    """The port's ``ShortTimeFFT`` with the state of a
+    ``tpufft.ShortTimeFFT``: its window as it stands (already scaled by
+    ``scale_to``), ``hop``, ``fs``, ``fft_mode``, ``mfft``, ``dual_win``,
+    ``scaling`` (None, "magnitude", "psd" or "unitary") and
+    ``phase_shift``; ``config_dict`` holds the fields of its
+    ``PlanConfig`` (None: the defaults). ``device``: where numpy input runs
+    (None: the CUDA device)."""
+    win = np.asarray(win)
+    onesided2x = fft_mode == "onesided2X"
+    # onesided2X needs a scaling at construction; the window already
+    # carries it, so build onesided and set the mode with the scaling
+    sft = ShortTimeFFT(
+        win, int(hop), float(fs),
+        fft_mode="onesided" if onesided2x else fft_mode, mfft=int(mfft),
+        dual_win=None if dual_win is None else np.asarray(dual_win),
+        phase_shift=None if phase_shift is None else int(phase_shift),
+        config=None if config_dict is None
+        else PlanConfig(**dict(config_dict)),
+        device=device)
+    sft._scaling = scaling
+    sft._fft_mode = fft_mode
+    return sft
