@@ -87,7 +87,26 @@ Phases, each of which raises (and so exits nonzero) on failure:
     paths' shapes, their plain versions and the PyTorch yardsticks:
     ``torch.stft(center=False)`` for K13, ``torch.istft`` for K14 and
     ``torch.stft`` then ``abs() ** 2`` and a sum (a short composition) for
-    K15.
+    K15;
+18. the thread-block-cluster kernels K5 (the trailing cube) and K6 (two
+    middle axes of (pre, n1, n2, L)) against their plain versions: cubes
+    (8, 8, 8) to (64, 64, 64) and (24, 40, 56) (clusters of 1 to 16
+    blocks), pairs (8, 16, 128) to (128, 512, 3), among them (64, 128, 37)
+    (a ragged L), pre 3 and 5, both directions, scale 1 and 1/N, f32 and
+    bf16 storage; and how many clusters of each the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), as SMs kept busy;
+19. the ND paths at full size, each call driven with every count set to 0
+    just before it and read just after: ``fftn(axes=(1, 2, 3))`` on
+    (100, 64, 64, 64) (K5 once, K3 and K4 never), ``fftn`` over every axis
+    of (1, 64, 64, 64, 64) (K3 once, then K5), ``fftn(axes=(1, 2))`` on the
+    channels-last (32, 64, 128, 128) (K6 once, the strided kernel never),
+    each against ``np.fft`` on a few slices and through its round trip,
+    and the backward of the cube path against numpy;
+20. times: those paths, K5 and K6 alone, their plain versions, cuFFT
+    (``torch.fft.fftn``, a yardstick only), the routes they replace (K3 +
+    K4 for the cube, K3 + K2 for the pair) and the copy floor; and K6
+    against the two strided passes at about 268 MB for L = 1 to 512, the
+    sweep behind ``execute.MID_PAIR_MIN_L``.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -115,8 +134,9 @@ import torch
 import tpufft_torch
 from tpufft_torch import _build, execute, realtrans, signal, spectral
 from tpufft_torch.convert import split_from_numpy
-from tpufft_torch.kernels import (dense_mm, inner_fft, minor_fft, pair_fft,
-                                  real_fft, stft_mm)
+from tpufft_torch.kernels import (cube_fft, dense_mm, inner_fft,
+                                  mid_pair_fft, minor_fft, pair_fft, real_fft,
+                                  stft_mm)
 
 F32_TOL = 1e-5   # kernel vs plain version, f32 storage: both compute in f32
 BF16_TOL = 8e-3  # bf16 storage: both round to bf16 (2^-8 relative) at the store
@@ -131,7 +151,9 @@ KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
 DENSE_KERNELS = ("complex", "real", "r2r")
 STFT_KERNELS = ("stft", "istft", "welch", "csd")
-ALL_KERNELS = KERNELS + REAL_KERNELS + DENSE_KERNELS + STFT_KERNELS
+CLUSTER_KERNELS = ("cube", "mid_pair")
+ALL_KERNELS = (KERNELS + REAL_KERNELS + DENSE_KERNELS + STFT_KERNELS
+               + CLUSTER_KERNELS)
 REAL_EVEN_NS = (2, 8, 128, 1024, 4096, 32768)
 REAL_ODD_NS = (3, 93, 127, 16383)
 PADS = ((93, 128), (1000, 1024), (5000, 8192))
@@ -141,6 +163,13 @@ DENSE_SHAPES = ((2, 2), (7, 7), (64, 64), (93, 93), (128, 128), (512, 512),
 R2R_NS = (2, 3, 93, 128, 1000, 1024)
 R2R_NORMS = ("backward", "ortho", "forward")
 CROSSOVER_NS = (64, 128, 256, 512)
+# clusters of 1, 2, 4, 8, 16, 16, 16 and 8 blocks (the last three of 8192,
+# 16384 and 6720 elements); of 1, 2, 4, 16, 16, 8, 16 and 16
+CUBES = ((8, 8, 8), (8, 16, 32), (16, 16, 32), (16, 32, 32), (16, 32, 64),
+         (32, 64, 64), (64, 64, 64), (24, 40, 56))
+MID_PAIRS = ((8, 16, 128), (16, 64, 24), (32, 64, 16), (64, 128, 8),
+             (64, 128, 37), (40, 64, 256), (128, 128, 9), (128, 512, 3))
+MID_PAIR_SWEEP_LS = (1, 2, 4, 8, 32, 128, 512)
 
 
 def check(ok: bool, what: str) -> None:
@@ -235,7 +264,8 @@ def phase_kernel() -> None:
 
 
 def reset_counts() -> None:
-    for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm, stft_mm):
+    for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm, stft_mm,
+              cube_fft, mid_pair_fft):
         m.reset_counts()
 
 
@@ -245,10 +275,13 @@ def counts() -> tuple[dict, int]:
              "pair": pair_fft.launches, **real_fft.launches,
              "minor_padded": minor_fft.padded_launches,
              "pair_padded": pair_fft.padded_launches, **dense_mm.launches,
-             **stft_mm.launches},
+             **stft_mm.launches, "cube": cube_fft.launches,
+             "mid_pair": mid_pair_fft.launches},
             minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
             + pair_fft.reference_cuda_calls + real_fft.reference_cuda_calls
-            + dense_mm.reference_cuda_calls + stft_mm.reference_cuda_calls)
+            + dense_mm.reference_cuda_calls + stft_mm.reference_cuda_calls
+            + cube_fft.reference_cuda_calls
+            + mid_pair_fft.reference_cuda_calls)
 
 
 def phase_main_path() -> int:
@@ -1428,6 +1461,230 @@ def phase_spectral_times() -> dict:
     return out
 
 
+def phase_cluster_kernels() -> None:
+    """K5 and K6 against their plain versions; prints how many clusters of
+    each the card holds at once."""
+    worst = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for cube in CUBES:
+        c = cube_fft.cluster_size(*cube)
+        active = cube_fft.active_clusters(*cube, False, 0)
+        print(f"K5 cube {cube}: clusters of {c} blocks, {active} at once "
+              f"({active * c} blocks on the {sms} SMs)")
+        check(active > 0, f"K5 {cube}: no cluster fits")
+        for dtype in (torch.float32, torch.bfloat16):
+            for pre in (3, 5):
+                xr, xi = _planes((pre,) + cube, dtype, seed=sum(cube) + pre)
+                for inverse in (False, True):
+                    for scale in (1.0, 1.0 / math.prod(cube)):
+                        kw = dict(inverse=inverse, scale=scale)
+                        _hold(worst, "cube", dtype,
+                              cube_fft.fft_cube(xr, xi, **kw),
+                              cube_fft.fft_cube_reference(xr, xi, **kw),
+                              f"{(pre,) + cube} {dtype} inverse={inverse} "
+                              f"scale={scale}")
+    for n1, n2, L in MID_PAIRS:
+        c = mid_pair_fft.cluster_size(n1, n2)
+        active = mid_pair_fft.active_clusters(n1, n2, False, 0)
+        print(f"K6 pair ({n1}, {n2}) L {L}: clusters of {c} blocks, {active}"
+              f" at once ({active * c} blocks on the {sms} SMs)")
+        check(active > 0, f"K6 {(n1, n2)}: no cluster fits")
+        for dtype in (torch.float32, torch.bfloat16):
+            for pre in (3, 5):
+                xr, xi = _planes((pre, n1, n2, L), dtype, seed=n1 + L + pre)
+                for inverse in (False, True):
+                    for scale in (1.0, 1.0 / (n1 * n2)):
+                        kw = dict(inverse=inverse, scale=scale)
+                        _hold(worst, "mid_pair", dtype,
+                              mid_pair_fft.fft_mid_pair(xr, xi, **kw),
+                              mid_pair_fft.fft_mid_pair_reference(xr, xi,
+                                                                  **kw),
+                              f"{(pre, n1, n2, L)} {dtype} "
+                              f"inverse={inverse} scale={scale}")
+    torch.cuda.synchronize()
+    for k in CLUSTER_KERNELS:
+        print(f"{k} vs plain: max normalized error f32 "
+              f"{worst[(k, torch.float32)]:.3e} (tol {F32_TOL}), bf16 "
+              f"{worst[(k, torch.bfloat16)]:.3e} (tol {BF16_TOL})")
+
+
+CUBE_SHAPE = (100, 64, 64, 64)
+CUBE_5D_SHAPE = (1, 64, 64, 64, 64)
+MID_SHAPE = (32, 64, 128, 128)   # channels-last (B, H, W, C)
+# The ND paths at full size: name, shape, axes, the launches of ONE
+# transform per kernel.
+ND_PATHS = (
+    ("cube_last", CUBE_SHAPE, (1, 2, 3), {"cube": 1}),
+    ("cube_5d", CUBE_5D_SHAPE, None, {"inner_nd": 1, "cube": 1}),
+    ("mid_pair", MID_SHAPE, (1, 2), {"mid_pair": 1}),
+)
+
+
+def phase_nd_paths() -> dict:
+    """Each ND path once forward and once back, counts reset around each
+    call; the backward of the cube path; returns the launches per
+    kernel."""
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    for name, shape, axes, per_call in ND_PATHS:
+        xr, xi = _device_planes(shape, seed=len(name))
+        x = tpufft_torch.SplitComplex(xr, xi)
+        y = _counted(lambda v: tpufft_torch.fftn(v, axes=axes), x, name,
+                     per_call, total)
+        back = _counted(lambda v: tpufft_torch.ifftn(v, axes=axes), y,
+                        f"{name} inverse", per_call, total)
+        check(y.shape == shape and y.dtype == torch.float32 and y.re.is_cuda,
+              f"{name}: output {y.shape} {y.dtype}")
+        check(bool(torch.isfinite(y.re).all() and torch.isfinite(y.im).all()),
+              f"{name}: non-finite output")
+        if axes is None:   # every axis: np.fft of the whole array
+            k = shape[0]
+            ref = np.fft.fftn(_np_slices(x, k))
+        else:              # axis 0 is a batch: np.fft of two slices
+            k = 2
+            ref = np.fft.fftn(_np_slices(x, k), axes=axes)
+        got = _np_slices(y, k)
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err < NP_TOL, f"{name}: vs np.fft {err:.3e}")
+        rt = pair_err(back, x)
+        check(rt < NP_TOL, f"{name}: round trip error {rt:.3e}")
+        print(f"path {name} {shape} c64 axes {axes}: {k} slices vs np.fft "
+              f"{err:.3e}, round trip {rt:.3e}, launches {per_call} a call, "
+              "plain-version CUDA calls 0")
+        del x, y, back, xr, xi
+    # the backward on the card: L = sum(re^2) + 2 sum(im^2) of y = F x has
+    # the gradient N ifftn(2 re + 4i im) (the opposite-sign transform)
+    xr, xi = _device_planes(CUBE_SHAPE, seed=7)
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+
+    def loss_backward(x):
+        out = tpufft_torch.fftn(x, axes=(1, 2, 3))
+        (out.re.square().sum() + 2.0 * out.im.square().sum()).backward()
+        return out
+
+    out = _counted(loss_backward, tpufft_torch.SplitComplex(xr, xi),
+                   "cube_last backward", {"cube": 2}, total)
+    g = (2.0 * out.re[:2].detach().double().cpu().numpy()
+         + 4.0j * out.im[:2].detach().double().cpu().numpy())
+    want = np.fft.ifftn(g, axes=(1, 2, 3)) * math.prod(CUBE_SHAPE[1:])
+    got = (xr.grad[:2].double().cpu().numpy()
+           + 1j * xi.grad[:2].double().cpu().numpy())
+    err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    check(err < NP_TOL, f"cube_last backward vs numpy {err:.3e}")
+    print(f"backward of cube_last {CUBE_SHAPE}: K5 twice (forward and "
+          f"backward), 2 slices of the gradient vs numpy {err:.3e}")
+    del xr, xi, out
+    print(f"ND paths, launches {total}, plain-version CUDA calls 0")
+    return total
+
+
+def _axes_1_2(xr, xi):
+    """The route K6 replaces: axes 1 and 2 of (pre, n1, n2, L) planes one
+    at a time, each on the kernel its layout picks (K3 then K2; K3 then K1
+    when L = 1)."""
+    yr, yi = execute._kernel_axis(xr, xi, 1, inverse=False, scale=1.0)
+    return execute._kernel_axis(yr, yi, 2, inverse=False, scale=1.0)
+
+
+def phase_nd_times() -> dict:
+    """Times of the ND paths and of K5 and K6 alone at their paths' shapes,
+    against their plain versions, cuFFT, the routes they replace and the
+    copy floor; the L sweep of K6 against the two strided passes. Returns,
+    per kernel, its time, its plain version's, cuFFT's, its bytes and
+    flops and its largest absolute error against its plain version."""
+    out = {}
+    f32 = 4
+
+    def kernel_row(key, shape, kernel, plain, library, nbytes, flops):
+        got, ref = kernel(), plain()
+        abs_err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        err = pair_err(got, ref)
+        check(err < F32_TOL, f"{key} {shape}: kernel vs plain {err:.3e}")
+        del got, ref
+        t_k, t_p, t_l = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+        print(f"  {key} alone {shape}: kernel {t_k:.4f} ms "
+              f"({nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), plain {t_p:.4f} "
+              f"ms, torch.fft.fftn {t_l:.4f} ms; vs plain max abs "
+              f"{abs_err:.3e}, normalized {err:.3e}")
+        out[key] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                    "bytes": nbytes, "flops": flops, "max_abs_err": abs_err}
+
+    # the cube (100, 64, 64, 64)
+    pre, n1, n2, n3 = CUBE_SHAPE
+    xr, xi = _device_planes(CUBE_SHAPE, seed=1)
+    x = tpufft_torch.SplitComplex(xr, xi)
+    xc = torch.complex(xr, xi)
+    nb = 2 * 2 * f32 * xr.numel()
+    v3 = (pre * n1, n2, n3)
+
+    def old_cube():
+        yr, yi = inner_fft.fft_inner_nd(xr.reshape(v3), xi.reshape(v3), n=n1,
+                                        inverse=False, scale=1.0)
+        return pair_fft.fft_pair(yr, yi, inverse=False, scale=1.0)
+
+    t = {"path": _time_ms(lambda: tpufft_torch.fftn(x, axes=(1, 2, 3))),
+         "old_route_K3_K4": _time_ms(old_cube),
+         "torch_fftn": _time_ms(lambda: torch.fft.fftn(xc, dim=(1, 2, 3))),
+         "copy_floor": _copy_floor_ms(nb)}
+    print(f"times cube_last {CUBE_SHAPE} c64, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; one pass {nb / 1e9:.4f} GB")
+    kernel_row("cube", CUBE_SHAPE,
+               lambda: cube_fft.fft_cube(xr, xi, inverse=False, scale=1.0),
+               lambda: cube_fft.fft_cube_reference(xr, xi, inverse=False,
+                                                   scale=1.0),
+               lambda: torch.fft.fftn(xc, dim=(1, 2, 3)), nb,
+               _fft_flops(n1 * n2 * n3, pre))
+    del x, xc, xr, xi
+    # every axis of (1, 64, 64, 64, 64): K3 along axis 1, then K5
+    xr, xi = _device_planes(CUBE_5D_SHAPE, seed=2)
+    x = tpufft_torch.SplitComplex(xr, xi)
+    xc = torch.complex(xr, xi)
+    nb = 2 * 2 * f32 * xr.numel()
+    t = {"path": _time_ms(lambda: tpufft_torch.fftn(x)),
+         "torch_fftn": _time_ms(lambda: torch.fft.fftn(xc)),
+         "copy_floor_per_pass": _copy_floor_ms(nb)}
+    print(f"times cube_5d {CUBE_5D_SHAPE} c64, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    del x, xc, xr, xi
+    # the mid pair (32, 64, 128, 128)
+    pre, n1, n2, L = MID_SHAPE
+    xr, xi = _device_planes(MID_SHAPE, seed=3)
+    x = tpufft_torch.SplitComplex(xr, xi)
+    xc = torch.complex(xr, xi)
+    nb = 2 * 2 * f32 * xr.numel()
+    t = {"path": _time_ms(lambda: tpufft_torch.fftn(x, axes=(1, 2))),
+         "old_route_K3_K2": _time_ms(lambda: _axes_1_2(xr, xi)),
+         "torch_fftn": _time_ms(lambda: torch.fft.fftn(xc, dim=(1, 2))),
+         "copy_floor": _copy_floor_ms(nb)}
+    print(f"times mid_pair {MID_SHAPE} c64, median of {REPS} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; one pass {nb / 1e9:.4f} GB")
+    kernel_row("mid_pair", MID_SHAPE,
+               lambda: mid_pair_fft.fft_mid_pair(xr, xi, inverse=False,
+                                                 scale=1.0),
+               lambda: mid_pair_fft.fft_mid_pair_reference(
+                   xr, xi, inverse=False, scale=1.0),
+               lambda: torch.fft.fftn(xc, dim=(1, 2)), nb,
+               _fft_flops(n1 * n2, pre * L))
+    del x, xc, xr, xi
+    # the L sweep: K6 against the two axis passes on (pre, 64, 128, L)
+    # planes of about 268 MB
+    for L in MID_PAIR_SWEEP_LS:
+        pre = 4096 // L
+        shape = (pre, n1, n2, L)
+        xr, xi = _device_planes(shape, seed=L)
+        t_k6 = _time_ms(lambda: mid_pair_fft.fft_mid_pair(
+            xr, xi, inverse=False, scale=1.0))
+        t_two = _time_ms(lambda: _axes_1_2(xr, xi))
+        print(f"  L sweep {shape} ({2 * f32 * xr.numel() / 1e6:.0f} MB): "
+              f"K6 {t_k6:.4f} ms, two strided passes {t_two:.4f} ms, "
+              f"ratio {t_k6 / t_two:.3f}")
+        del xr, xi
+    torch.cuda.synchronize()
+    return out
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -1533,10 +1790,13 @@ def main() -> None:
     phase_stft_kernels()
     stft_launches = phase_spectral_paths()
     stft_rows = phase_spectral_times()
+    phase_cluster_kernels()
+    nd_launches = phase_nd_paths()
+    nd_rows = phase_nd_times()
     rate = _copy_rate()
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
-                 stft_launches):
+                 stft_launches, nd_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],
@@ -1558,6 +1818,10 @@ def main() -> None:
         _entry("pair_fft (K4)", "pair_fft.cu", f"{mx}:1686",
                total["pair"] + total["pair_padded"], new_rows["pair"], rate,
                peak),
+        _entry("cube_fft (K5)", "cluster_fft.cu", f"{mx}:2006",
+               total["cube"], nd_rows["cube"], rate, peak),
+        _entry("mid_pair_fft (K6)", "cluster_fft.cu", f"{mx}:1496",
+               total["mid_pair"], nd_rows["mid_pair"], rate, peak),
         _entry("rfft_minor (K7)", "real_fft.cu", f"{mx}:418", total["r2c"],
                real_rows["r2c"], rate, peak),
         _entry("irfft_minor (K8)", "real_fft.cu", f"{mx}:474", total["c2r"],

@@ -29,7 +29,7 @@ from tpufft import SplitComplex as TPSplit
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
 from tpufft_torch.convert import plan_from_fields, split_from_numpy
-from tpufft_torch.kernels import minor_fft, pair_fft
+from tpufft_torch.kernels import cube_fft, minor_fft, pair_fft
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")
@@ -114,21 +114,26 @@ def test_fft_ifft_c128_stockham(fn, shape, rng, minor_calls):
 
 @pytest.mark.parametrize("fn", ["fftn", "ifftn", "fft2", "ifft2"])
 def test_fftn_fft2(fn, rng, minor_calls, monkeypatch):
-    pair_calls = []
-    real_pair = pair_fft.fft_pair
+    calls = []
 
-    def pair_spy(xr, xi, **kw):
-        pair_calls.append(tuple(xr.shape))
-        return real_pair(xr, xi, **kw)
+    def spy(name, real):
+        def wrapped(xr, xi, **kw):
+            calls.append((name, tuple(xr.shape)))
+            return real(xr, xi, **kw)
+        return wrapped
 
-    monkeypatch.setattr(pair_fft, "fft_pair", pair_spy)
+    monkeypatch.setattr(pair_fft, "fft_pair", spy("pair", pair_fft.fft_pair))
+    monkeypatch.setattr(cube_fft, "fft_cube", spy("cube", cube_fft.fft_cube))
     x = _complex((4, 16, 24), rng)
     ref = getattr(tpufft, fn)(x, config=TP_CFG)
     got = getattr(tpufft_torch, fn)(x, config=CFG, device="cpu")
     assert _err(got, ref) < 1e-5
-    # the trailing pair runs in one pass of the pair kernel, fftn's axis 0
-    # on the strided kernel: the minor-axis kernel is not called
-    assert pair_calls == [(4, 16, 24)]
+    # fftn's three axes run in one pass of the cube kernel, fft2's trailing
+    # pair in one pass of the pair kernel: the minor-axis kernel is not
+    # called
+    want = (("cube", (1, 4, 16, 24)) if fn.endswith("fftn")
+            else ("pair", (4, 16, 24)))
+    assert calls == [want]
     assert minor_calls == []
 
 

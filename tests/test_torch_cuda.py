@@ -18,8 +18,9 @@ import torch
 
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
-from tpufft_torch.kernels import (dense_mm, inner_fft, minor_fft, pair_fft,
-                                  real_fft, stft_mm)
+from tpufft_torch.kernels import (cube_fft, dense_mm, inner_fft,
+                                  mid_pair_fft, minor_fft, pair_fft, real_fft,
+                                  stft_mm)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,26 +85,39 @@ def test_wrapper_checks(cuda_device):
 
 
 def _reset():
-    for m in (minor_fft, inner_fft, pair_fft, real_fft):
+    for m in (minor_fft, inner_fft, pair_fft, real_fft, cube_fft,
+              mid_pair_fft):
         m.reset_counts()
 
 
 def _counts():
     """Launches per kernel, and plain-version runs on CUDA tensors."""
     return ({"minor": minor_fft.launches, **inner_fft.launches,
-             "pair": pair_fft.launches},
+             "pair": pair_fft.launches, "cube": cube_fft.launches,
+             "mid_pair": mid_pair_fft.launches},
             minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
-            + pair_fft.reference_cuda_calls)
+            + pair_fft.reference_cuda_calls + cube_fft.reference_cuda_calls
+            + mid_pair_fft.reference_cuda_calls)
+
+
+NONE = {"minor": 0, "inner": 0, "inner_nd": 0, "pair": 0, "cube": 0,
+        "mid_pair": 0}
 
 
 # launches of one fftn: (70, 93) axis 0 is strided with one trailing dim
-# (K2); (5, 16, 24) runs axis 0 strided with two trailing dims (K3) and
-# the trailing pair in one pass (K4)
+# (K2); (3, 128, 128) runs axis 0 strided with two trailing dims (K3) and
+# the trailing pair in one pass (K4); (5, 16, 24) fits the cube kernel
+# (K5), (2, 8, 16, 128) axes (1, 2) the mid-pair kernel (K6), as do axes
+# (0, 1) of (6, 40, 600) before the minor axis (K1)
 @pytest.mark.parametrize("shape,axes,per_call", [
     ((300, 1024), (-1,), {"minor": 1}),
     ((70, 93), (0,), {"inner": 1}),
-    ((5, 16, 24), None, {"inner_nd": 1, "pair": 1}),
-    ((6, 40, 600), (0, 1, 2), {"inner_nd": 1, "inner": 1, "minor": 1}),
+    ((3, 128, 128), None, {"inner_nd": 1, "pair": 1}),
+    ((5, 16, 24), None, {"cube": 1}),
+    ((6, 40, 600), (0, 1, 2), {"mid_pair": 1, "minor": 1}),
+    ((2, 3, 16, 32, 64), (1, 2, 3, 4), {"inner_nd": 1, "cube": 1}),
+    ((2, 8, 16, 128), (1, 2), {"mid_pair": 1}),
+    ((2, 40, 64, 37), (1, 2), {"mid_pair": 1}),
 ])
 def test_main_path_runs_the_kernel(shape, axes, per_call, cuda_device):
     xr, xi = _planes(shape, cuda_device)
@@ -169,8 +183,7 @@ def test_backend_pallas_raises_outside_envelope(cuda_device):
     y = tpufft_torch.fft(SplitComplex(xr, xi),
                          config=PlanConfig(backend="pallas"))
     torch.cuda.synchronize()
-    assert _counts() == ({"minor": 2, "inner": 0, "inner_nd": 0,
-                          "pair": 0}, 0)
+    assert _counts() == (dict(NONE, minor=2), 0)
     ref = np.fft.fft(xr.cpu().numpy().astype(np.float64)
                      + 1j * xi.cpu().numpy())
     assert np.max(np.abs(y.numpy() - ref)) / np.max(np.abs(ref)) < 1e-4
@@ -258,8 +271,7 @@ def test_new_wrappers_raise_outside_the_envelope(cuda_device):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         pair_fft.fft_pair(z[:, :64].double(), z[:, :64].double(),
                           inverse=False, scale=1.0)
-    assert _counts() == ({"minor": 0, "inner": 0, "inner_nd": 0,
-                          "pair": 0}, 0)
+    assert _counts() == (NONE, 0)
 
 
 @pytest.mark.parametrize("n,kernels", [
@@ -289,8 +301,7 @@ def test_pair_autograd_on_the_card(cuda_device):
     _reset()
     out = tpufft_torch.fft2(SplitComplex(xr, xi), norm="ortho")
     (out.re.square().sum() + 2.0 * out.im.square().sum()).backward()
-    assert _counts() == ({"minor": 0, "inner": 0, "inner_nd": 0,
-                          "pair": 2}, 0)
+    assert _counts() == (dict(NONE, pair=2), 0)
     cr = xr.detach().cpu().requires_grad_(True)
     ci = xi.detach().cpu().requires_grad_(True)
     ref = tpufft_torch.fft2(SplitComplex(cr, ci), norm="ortho")
@@ -724,3 +735,97 @@ def test_spectral_autograd_on_the_card(cuda_device):
     xc = x.cpu().requires_grad_(True)
     loss(xc).backward()
     assert _rel(xg.grad, xc.grad) < 1e-5
+
+
+# ----------------------------------------------------------------------------
+# The trailing cube (K5) and the middle pair (K6) on thread-block clusters
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cube", [(8, 8, 8), (8, 16, 32), (16, 16, 32),
+                                  (16, 32, 32), (16, 32, 64), (32, 64, 64),
+                                  (64, 64, 64), (24, 40, 56)])
+def test_cube_kernel_matches_plain_version(cube, dtype, tol, cuda_device):
+    """Clusters of 1, 2, 4, 8, 16, 16, 16 and 8 blocks (blocks of 8192
+    elements, and of 16384 in two register passes), on a ragged pre of
+    3."""
+    assert cube_fft.active_clusters(*cube, dtype == torch.bfloat16, 0) > 0
+    xr, xi = _planes((3,) + cube, cuda_device, dtype, seed=sum(cube))
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / np.prod(cube)):
+            before = cube_fft.launches
+            got = cube_fft.fft_cube(xr, xi, inverse=inverse, scale=scale)
+            ref = cube_fft.fft_cube_reference(xr, xi, inverse=inverse,
+                                              scale=scale)
+            torch.cuda.synchronize()
+            assert cube_fft.launches == before + 1
+            assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n1,n2,L", [(8, 16, 128), (16, 64, 24),
+                                     (32, 64, 16), (64, 128, 8),
+                                     (64, 128, 37), (40, 64, 256),
+                                     (128, 128, 9), (128, 512, 3)])
+def test_mid_pair_kernel_matches_plain_version(n1, n2, L, dtype, tol,
+                                               cuda_device):
+    """Clusters of 1, 2, 4, 16, 16, 8, 16 and 16 blocks (the last two of
+    4096 and 16384 elements, the last in two register passes), a ragged L
+    (37, 9, 3) and pre of 3."""
+    assert mid_pair_fft.active_clusters(n1, n2, dtype == torch.bfloat16,
+                                        0) > 0
+    xr, xi = _planes((3, n1, n2, L), cuda_device, dtype, seed=n1 + L)
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / (n1 * n2)):
+            before = mid_pair_fft.launches
+            got = mid_pair_fft.fft_mid_pair(xr, xi, inverse=inverse,
+                                            scale=scale)
+            ref = mid_pair_fft.fft_mid_pair_reference(
+                xr, xi, inverse=inverse, scale=scale)
+            torch.cuda.synchronize()
+            assert mid_pair_fft.launches == before + 1
+            assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+def test_cluster_wrappers_raise_outside_the_envelope(cuda_device):
+    """A CUDA tensor the cluster kernels do not take raises; nothing falls
+    back."""
+    _reset()
+    big = torch.zeros(1, 128, 128, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        cube_fft.fft_cube(big, big, inverse=False, scale=1.0)
+    odd = torch.zeros(1, 27, 200, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        mid_pair_fft.fft_mid_pair(odd, odd, inverse=False, scale=1.0)
+    x = torch.zeros(2, 8, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cube_fft.fft_cube(x.double(), x.double(), inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mid_pair_fft.fft_mid_pair(x.transpose(1, 2), x.transpose(1, 2),
+                                  inverse=False, scale=1.0)
+    assert _counts() == (NONE, 0)
+
+
+def test_cube_and_mid_pair_autograd_on_the_card(cuda_device):
+    """The backward of each is the same kernel of the opposite sign: two
+    launches a loss; the gradients agree with the CPU's."""
+    for shape, axes, key in (((2, 16, 32, 64), (1, 2, 3), "cube"),
+                             ((2, 8, 16, 128), (1, 2), "mid_pair")):
+        xr, xi = _planes(shape, cuda_device, seed=len(key))
+        xr.requires_grad_(True)
+        xi.requires_grad_(True)
+        _reset()
+        out = tpufft_torch.fftn(SplitComplex(xr, xi), axes=axes,
+                                norm="ortho")
+        (out.re.square().sum() + 2.0 * out.im.square().sum()).backward()
+        assert _counts() == (dict(NONE, **{key: 2}), 0)
+        cr = xr.detach().cpu().requires_grad_(True)
+        ci = xi.detach().cpu().requires_grad_(True)
+        ref = tpufft_torch.fftn(SplitComplex(cr, ci), axes=axes,
+                                norm="ortho")
+        (ref.re.square().sum() + 2.0 * ref.im.square().sum()).backward()
+        assert _err((xr.grad, xi.grad), (cr.grad, ci.grad)) < 1e-5

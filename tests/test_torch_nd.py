@@ -30,7 +30,8 @@ from tpufft import SplitComplex as TPSplit
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex, execute
 from tpufft_torch.convert import plan_from_fields
-from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft
+from tpufft_torch.kernels import (cube_fft, inner_fft, mid_pair_fft,
+                                  minor_fft, pair_fft)
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")
@@ -260,7 +261,9 @@ def spies(monkeypatch):
         return wrapped
 
     for mod, name in ((minor_fft, "fft_minor"), (inner_fft, "fft_inner"),
-                      (inner_fft, "fft_inner_nd"), (pair_fft, "fft_pair")):
+                      (inner_fft, "fft_inner_nd"), (pair_fft, "fft_pair"),
+                      (cube_fft, "fft_cube"),
+                      (mid_pair_fft, "fft_mid_pair")):
         monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
     real_movedim = torch.Tensor.movedim
 
@@ -298,10 +301,12 @@ def test_dispatch_short_post_stays_strided(spies):
 
 def test_dispatch_pair_last(spies):
     """A fitting trailing pair reaches the pair wrapper; the leading axis
-    the strided wrapper; a pair over the envelope runs axis by axis."""
-    tpufft_torch.fftn(_complex((4, 16, 24), seed=0), device="cpu")
-    assert spies == [("fft_inner_nd", (4, 16, 24)),
-                     ("fft_pair", (4, 16, 24))]
+    the strided wrapper; a pair over the envelope runs axis by axis. (A
+    3-D ``fftn`` inside the cube kernel's envelope takes the cube instead:
+    ``test_dispatch_cube_last``; (3, 128, 128) is outside it.)"""
+    tpufft_torch.fftn(_complex((3, 128, 128), seed=0), device="cpu")
+    assert spies == [("fft_inner_nd", (3, 128, 128)),
+                     ("fft_pair", (3, 128, 128))]
     spies.clear()
     tpufft_torch.fft2(_complex((2, 128, 160), seed=0), device="cpu")
     assert spies == [("fft_inner", (2, 128, 160)),
@@ -318,3 +323,146 @@ def test_dispatch_two_pass_and_bluestein(spies):
     # Bluestein moves its axis minor as tpufft does (a no-op here)
     assert [c for c in spies if c[0] != "movedim"] == [
         ("fft_minor", (2, 8320)), ("fft_minor", (2, 8320))]
+
+
+# ----------------------------------------------------------------------------
+# The trailing cube (K5) and the middle pair (K6)
+# ----------------------------------------------------------------------------
+
+def test_dispatch_cube_last(spies):
+    """A trailing cube inside K5's envelope reaches the cube wrapper once,
+    after the leading axis; a length-1 leading axis that takes no scale is
+    skipped; a cube inside tpufft's gate but outside K5's envelope (more
+    than a cluster's shared memory) keeps the pair and the strided axis."""
+    tpufft_torch.fftn(_complex((3, 16, 32, 64), seed=0), axes=(1, 2, 3),
+                      device="cpu")
+    assert spies == [("fft_cube", (3, 16, 32, 64))]
+    spies.clear()
+    tpufft_torch.fftn(_complex((1, 2, 16, 32, 64), seed=0), device="cpu")
+    assert spies == [("fft_inner_nd", (2, 512, 64)),
+                     ("fft_cube", (2, 16, 32, 64))]
+    spies.clear()
+    assert not cube_fft.supported(128, 128, 64, torch.float32)
+    tpufft_torch.fftn(_complex((1, 128, 128, 64), seed=0), axes=(1, 2, 3),
+                      device="cpu")
+    assert spies == [("fft_inner_nd", (128, 128, 64)),
+                     ("fft_pair", (128, 128, 64))]
+
+
+def test_dispatch_mid_pair(spies):
+    """Two adjacent middle axes in front of the minor one reach the
+    mid-pair wrapper once on the (pre, n1, n2, L) view; below
+    ``MID_PAIR_MIN_L`` (or outside K6's envelope) they run one strided
+    pass each."""
+    tpufft_torch.fftn(_complex((2, 8, 16, 128), seed=0), axes=(1, 2),
+                      device="cpu")
+    assert spies == [("fft_mid_pair", (2, 8, 16, 128))]
+    spies.clear()
+    short = execute.MID_PAIR_MIN_L - 1
+    assert short >= 1 and not execute.mid_pair_ok(
+        8, 16, short, torch.float32, PlanConfig())
+    tpufft_torch.fftn(_complex((2, 8, 16, short), seed=0), axes=(1, 2),
+                      device="cpu")
+    assert [c[0] for c in spies] == ["fft_inner_nd", "fft_inner"]
+    spies.clear()
+    # tpufft's pairing: the pair's second axis is the one before the minor
+    # axis, so (1, 2) of a 5-D array runs two strided passes and (2, 3)
+    # fuses, after the strided axis 0
+    tpufft_torch.fftn(_complex((2, 8, 16, 8, 16), seed=0), axes=(1, 2),
+                      device="cpu")
+    assert [c[0] for c in spies] == ["fft_inner_nd", "fft_inner_nd"]
+    spies.clear()
+    tpufft_torch.fftn(_complex((2, 8, 16, 8, 16), seed=0), axes=(0, 2, 3),
+                      device="cpu")
+    assert [c[0] for c in spies] == ["fft_inner_nd", "fft_mid_pair"]
+    assert spies[1] == ("fft_mid_pair", (16, 16, 8, 16))
+
+
+@pytest.mark.parametrize("fn", ["fftn", "ifftn"])
+@pytest.mark.parametrize("norm", [None, "backward", "ortho", "forward"])
+@pytest.mark.parametrize("shape,axes", [
+    ((3, 16, 32, 64), (1, 2, 3)),        # the cube (K5)
+    ((2, 8, 16, 16, 64), None),          # leading axes, then the cube
+    ((3, 40, 64, 256), (1, 2)),          # the mid pair (K6), scale on it
+    ((2, 4, 8, 16, 128), (0, 2, 3)),     # strided axis 0, then the mid pair
+])
+def test_cube_and_mid_pair_match_tpufft(shape, axes, norm, fn):
+    x = _complex(shape, seed=len(shape) + (norm or "").__len__())
+    tp_cfg, cfg = CFGS["auto"]
+    ref = getattr(tpufft, fn)(x, axes=axes, norm=norm, config=tp_cfg)
+    got = getattr(tpufft_torch, fn)(x, axes=axes, norm=norm, config=cfg,
+                                    device="cpu")
+    assert _err(got, ref) < 1e-5
+    np_ref = getattr(np.fft, fn)(x.astype(np.complex128), axes=axes,
+                                 norm=norm)
+    assert _err(got, np_ref) < 1e-5
+
+
+def test_cube_and_mid_pair_bf16_planes():
+    tp_cfg = TPPlanConfig(interpret=True, backend="auto", lane_block=128,
+                          profile="fast")
+    cfg = PlanConfig(**dataclasses.asdict(tp_cfg))
+    for shape, axes in (((3, 16, 32, 64), (1, 2, 3)),
+                        ((3, 40, 64, 256), (1, 2))):
+        x = _complex(shape, seed=5)
+        ref = tpufft.fftn(x, axes=axes, config=tp_cfg)
+        out = tpufft_torch.fftn(
+            SplitComplex(torch.from_numpy(x.real.copy()),
+                         torch.from_numpy(x.imag.copy())),
+            axes=axes, config=cfg)
+        assert out.dtype == torch.bfloat16
+        assert _err(out.numpy(), ref) < 8e-3
+
+
+def test_mid_pair_real_input(spies):
+    """Real input reaching the mid pair (tpufft's ai=None case,
+    tests/test_nd.py::test_mid_pair_real_input)."""
+    x = np.random.default_rng(13).standard_normal((16, 16, 256)).astype(
+        np.float32)
+    got = tpufft_torch.fftn(torch.from_numpy(x), axes=(0, 1),
+                            config=CFGS["auto"][1])
+    assert spies == [("fft_mid_pair", (1, 16, 16, 256))]
+    assert got.is_complex()
+    ref = tpufft.fftn(x, axes=(0, 1), config=CFGS["auto"][0])
+    assert _err(got.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("shape,axes,inverse,norm", [
+    ((2, 8, 16, 64), (1, 2, 3), False, None),      # the cube
+    ((2, 4, 8, 16, 64), None, True, "ortho"),      # strided + the cube
+    ((1, 8, 16, 128), (1, 2), False, "forward"),   # the mid pair
+])
+def test_cube_and_mid_pair_grad_match_jax(shape, axes, inverse, norm):
+    rng = np.random.default_rng(17)
+    re = rng.standard_normal(shape).astype(np.float32)
+    im = rng.standard_normal(shape).astype(np.float32)
+    tp_plan = tpufft.plan_fft(shape, jnp.complex64, axes=axes,
+                              inverse=inverse, norm=norm, config=TP_AUTO)
+
+    def loss(a, b):
+        out = tp_plan(TPSplit(a, b))
+        return jnp.sum(out.re ** 2) + 2.0 * jnp.sum(out.im ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+    xr = torch.tensor(re, requires_grad=True)
+    xi = torch.tensor(im, requires_grad=True)
+    out = _port_plan(tp_plan)(SplitComplex(xr, xi))
+    (torch.sum(out.re ** 2) + 2.0 * torch.sum(out.im ** 2)).backward()
+    for got, want in ((xr.grad, ref[0]), (xi.grad, ref[1])):
+        want = np.asarray(want)
+        assert np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want)) < 1e-5
+
+
+def test_mid_pair_grad_real_input():
+    x = np.random.default_rng(19).standard_normal((8, 16, 128)).astype(
+        np.float32)
+
+    def loss(v):
+        out = tpufft.fftn(v, axes=(0, 1), config=TP_AUTO)
+        return jnp.sum(out.real ** 2) + 2.0 * jnp.sum(out.imag ** 2)
+
+    ref = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    xt = torch.tensor(x, requires_grad=True)
+    out = tpufft_torch.fftn(xt, axes=(0, 1), config=CFGS["auto"][1])
+    (torch.sum(out.real ** 2) + 2.0 * torch.sum(out.imag ** 2)).backward()
+    assert np.max(np.abs(xt.grad.numpy() - ref)) / np.max(np.abs(ref)) < 1e-5

@@ -27,7 +27,7 @@ from tpufft.kernels import mxu_fft as tp_mxu
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex, execute
 from tpufft_torch.convert import plan_from_fields
-from tpufft_torch.kernels import inner_fft, minor_fft, pair_fft
+from tpufft_torch.kernels import cube_fft, inner_fft, minor_fft, pair_fft
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")
@@ -115,7 +115,8 @@ def passes(monkeypatch):
 
     for module, names in ((minor_fft, ("fft_minor", "fft_minor_padded")),
                           (inner_fft, ("fft_inner", "fft_inner_nd")),
-                          (pair_fft, ("fft_pair", "fft_pair_padded"))):
+                          (pair_fft, ("fft_pair", "fft_pair_padded")),
+                          (cube_fft, ("fft_cube",))):
         for name in names:
             spy(module, name)
     return calls
@@ -131,8 +132,9 @@ PLAN_CASES = [
     # takes the scale
     ((16, 5, 93), (0, 2), (16, 128), "forward",
      ["fft_minor_padded", "fft_inner_nd"], 1),
-    # the pad fused into the trailing pair, then the leading axis
-    ((4, 16, 93), None, (4, 16, 128), "ortho",
+    # the pad fused into the trailing pair, then the leading axis (a cube
+    # outside the cube kernel's envelope: 3 * 128 * 128)
+    ((3, 128, 93), None, (3, 128, 128), "ortho",
      ["fft_pair_padded", "fft_inner_nd"], 0),
     # "fast-aligned" on both pair axes: axis 1 needs no pad (16 -> 128 is a
     # pad, so it is resized first), the minor axis pads inside K4
@@ -142,6 +144,10 @@ PLAN_CASES = [
     ((5, 100), (-1,), (64,), None, ["fft_minor"], 0),
     # a padded non-minor axis: resized, then the strided kernel
     ((50, 24), (0,), (64,), "ortho", ["fft_inner"], 0),
+    # a cube inside the cube kernel's envelope: the minor axis is resized
+    # and the three axes run in one pass, which takes the scale (tpufft's
+    # cube_last rule comes before the pair's pad)
+    ((4, 16, 93), None, (4, 16, 128), "ortho", ["fft_cube"], 0),
 ]
 
 

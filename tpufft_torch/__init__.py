@@ -16,11 +16,12 @@ first use, never at import.
 
 from .config import PlanConfig
 from .core import SplitComplex
-from .planner import (default_bases, factorize, next_fast_len,
-                      prev_fast_len, stage_schedule)
-from .api import (Plan, plan_fft, fft, ifft, fft2, ifft2, fftn, ifftn,
-                  rfft, irfft, rfft2, irfft2, rfftn, irfftn, hfft, ihfft,
-                  hfft2, ihfft2, hfftn, ihfftn)
+from .planner import (default_bases, digit_reverse, factorize,
+                      next_fast_len, prev_fast_len, stage_schedule)
+from .api import (Plan, PrecisionDowngradeWarning, plan_fft, fft, ifft,
+                  fft2, ifft2, fftn, ifftn, rfft, irfft, rfft2, irfft2,
+                  rfftn, irfftn, hfft, ihfft, hfft2, ihfft2, hfftn, ihfftn,
+                  fftfreq, rfftfreq, fftshift, ifftshift)
 from .signal import (FilterPlan, plan_filter, fftconvolve, oaconvolve,
                      correlate, hilbert, hilbert2, resample, envelope)
 from .realtrans import dct, idct, dst, idst, dctn, idctn, dstn, idstn
@@ -33,12 +34,14 @@ from .shorttime import ShortTimeFFT, closest_STFT_dual_window
 from . import windows
 
 __all__ = [
-    "PlanConfig", "SplitComplex", "Plan", "plan_fft",
+    "PlanConfig", "SplitComplex", "Plan", "PrecisionDowngradeWarning",
+    "plan_fft",
     "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
     "rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn",
     "hfft", "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn",
-    "default_bases", "factorize", "next_fast_len", "prev_fast_len",
-    "stage_schedule",
+    "fftfreq", "rfftfreq", "fftshift", "ifftshift",
+    "default_bases", "digit_reverse", "factorize", "next_fast_len",
+    "prev_fast_len", "stage_schedule",
     "plan_filter", "FilterPlan", "fftconvolve", "oaconvolve", "correlate",
     "hilbert", "hilbert2", "resample", "envelope",
     "dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn",

@@ -130,6 +130,37 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_pair_fft.restype = i32
+    lib.tpufft_cube_fft.argtypes = [
+        vp, vp, vp, vp,              # xr, xi, yr, yi
+        vp, vp, vp,                  # n1, n2 and n3 tables
+        ctypes.c_longlong, i32, i32, i32, i32,  # pre, n1, n2, n3, cluster
+        ctypes.POINTER(i32), i32,    # n1's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n2's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n3's radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_cube_fft.restype = i32
+    lib.tpufft_cube_active_clusters.argtypes = [
+        i32, i32, i32, i32, i32,     # n1, n2, n3, cluster, bf16 storage
+        ctypes.POINTER(i32),         # out: clusters the card holds at once
+    ]
+    lib.tpufft_cube_active_clusters.restype = i32
+    lib.tpufft_mid_pair_fft.argtypes = [
+        vp, vp, vp, vp, vp, vp,      # xr, xi, yr, yi, n1 and n2 tables
+        ctypes.c_longlong, i32, i32,  # pre, n1, n2
+        ctypes.c_longlong, i32, i32,  # L, lanes a tile, cluster
+        ctypes.POINTER(i32), i32,    # n1's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n2's radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_mid_pair_fft.restype = i32
+    lib.tpufft_mid_pair_active_clusters.argtypes = [
+        i32, i32, i32, i32, i32,     # n1, n2, lanes, cluster, bf16 storage
+        ctypes.POINTER(i32),         # out: clusters the card holds at once
+    ]
+    lib.tpufft_mid_pair_active_clusters.restype = i32
     lib.tpufft_rfft.argtypes = [
         vp, vp, vp,                  # x, yr, yi
         vp, vp,                      # stage and half-length twiddle tables

@@ -19,13 +19,17 @@ with TypeError. Tensors and ``SplitComplex`` planes run where they lie.
 Ported so far: c2c, r2c and c2r plans over any set of axes, the four
 norms, ``n``/``s`` crop and zero-pad (including "fast"/"fast-aligned"),
 explicit ``bases``, ``PlanConfig`` and autograd; rfft/irfft/rfftn/irfftn/
-rfft2/irfft2 and the hfft family. When a plan's last two axes are the
-array's two minor axes and the pair fits the pair kernel, they run in one
-pass (tpufft's ``pair_last`` rule); a zero-padded minor axis pads inside
-its kernel's load (tpufft's ``pad_fused`` and ``pair_pad`` rules). The
-transform-major and lane-fused layouts raise NotImplementedError;
-tpufft's cube and mid-pair fusions are not ported (the results are the
-same, in more passes).
+rfft2/irfft2 and the hfft family, and the host helpers ``fftfreq``,
+``rfftfreq``, ``fftshift``, ``ifftshift``. When a plan's last three axes
+are the array's three minor axes and the cube fits the cube kernel, they
+run in one pass (tpufft's ``cube_last`` rule); else when its last two are
+the two minor axes and fit the pair kernel, they do (``pair_last``); two
+adjacent middle axes in front of the minor one run in one mid-pair pass;
+a zero-padded minor axis pads inside its kernel's load (tpufft's
+``pad_fused`` and ``pair_pad`` rules). Each fusion follows the port's own
+kernel envelopes, so a shape tpufft fuses may run in more passes here,
+with the same result. The transform-major and lane-fused layouts raise
+NotImplementedError.
 
 The layers above the transforms live beside this module, with the same
 input forms and the same ``device`` rule: ``signal`` (``plan_filter``,
@@ -53,16 +57,28 @@ from .planner import default_bases, next_fast_len, validate_bases
 
 __all__ = [
     "Plan",
+    "PrecisionDowngradeWarning",
     "SplitComplex",
     "plan_fft",
     "numpy_device",
     "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
     "rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn",
     "hfft", "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn",
+    "fftfreq", "rfftfreq", "fftshift", "ifftshift",
 ]
 
 _NORMS = (None, "backward", "ortho", "forward")
 _LAYOUTS = ("natural", "transform-major", "lane-fused")
+
+
+class PrecisionDowngradeWarning(UserWarning):
+    """A float64/complex128 plan would compute in float32.
+
+    tpufft warns with it at plan time when JAX's x64 mode is off (a TPU has
+    no float64). PyTorch computes float64 natively on the CPU and the GPU,
+    so no plan of the port downgrades and the port never warns with it; it
+    is exported so that code which filters or catches tpufft's warning runs
+    unchanged."""
 
 
 def numpy_device(device=None) -> torch.device:
@@ -240,13 +256,24 @@ class Plan:
 
 
 def _apply_plan_split(ar, ai, *, plan: Plan):
-    """Crop/pad every axis, then transform (tpufft's ``_apply_plan_split``
-    without the cube and mid-pair fusions). A zero-padded minor axis pads
-    inside its kernel's load: K9 for a single axis (``pad_fused``), K4's
-    ``n2_in`` for the trailing pair (``pair_pad``); those passes run
-    first. The trailing pair runs in one pass when it fits the pair
-    kernel, every other axis in order, and the whole normalization is
-    folded into one pass (the pair's when it runs)."""
+    """Crop/pad every axis, then transform (tpufft's ``_apply_plan_split``).
+    A zero-padded minor axis pads inside its kernel's load: K9 for a single
+    axis (``pad_fused``), K4's ``n2_in`` for the trailing pair
+    (``pair_pad``); those passes run first. Then the single axes in order,
+    two adjacent middle axes in one mid-pair pass (K6) where
+    :func:`execute.mid_pair_ok` holds, and last the trailing cube in one
+    pass (K5, ``cube_last``) or the trailing pair (K4, ``pair_last``) where
+    they fit. The whole normalization is folded into one pass: the cube's
+    or the pair's when it runs, else the last single or mid-pair pass. A
+    single axis of length 1 that takes no scale is the identity and is
+    skipped.
+
+    The routes come from the port's own envelopes, not tpufft's TPU rules:
+    a cube that tpufft fuses and K5 does not hold (e.g. 128 x 128 x 64,
+    more than a cluster's shared memory) runs the trailing pair and then
+    its leading axis, and the mid pair needs no lane-aligned L, only
+    ``L >= execute.MID_PAIR_MIN_L``. The results are the same on every
+    route."""
     axes, lengths = plan.axes, plan.lengths
     scale = _norm_scale(plan.norm, math.prod(lengths), plan.inverse)
     if plan.kind == "r2c":
@@ -257,23 +284,29 @@ def _apply_plan_split(ar, ai, *, plan: Plan):
     tgt = list(ar.shape)
     for a, n in zip(axes, lengths):
         tgt[a] = n
-    pair_last = (
+    cfg = plan.config
+    cube_last = (
+        len(axes) >= 3
+        and set(axes[-3:]) == {ndim - 3, ndim - 2, ndim - 1}
+        and _execute.cube_supported(tgt[-3], tgt[-2], tgt[-1], ar.dtype, cfg)
+    )
+    pair_last = not cube_last and (
         len(axes) >= 2
         and set(axes[-2:]) == {ndim - 2, ndim - 1}
-        and _execute.pair_supported(tgt[-2], tgt[-1], ar.dtype, plan.config)
+        and _execute.pair_supported(tgt[-2], tgt[-1], ar.dtype, cfg)
     )
-    n_single = len(axes) - (2 if pair_last else 0)
+    n_single = len(axes) - (3 if cube_last else (2 if pair_last else 0))
     pad_fused = False   # the minor axis is a single axis padded by K9
     pair_pad = None     # the pair's minor axis is padded by K4 to this
     for i, (a, n) in enumerate(zip(axes, lengths)):
         cur = ar.shape[a]
         if a == ndim - 1 and cur < n:
-            if (i < n_single
-                    and _execute.pad_axis_ok(cur, n, ar.dtype, plan.config)):
+            if i < n_single and _execute.pad_axis_ok(cur, n, ar.dtype, cfg):
                 pad_fused = True
                 continue
-            if (i >= n_single and _execute.pair_pad_ok(
-                    tgt[-2], cur, n, ar.dtype, plan.config)):
+            if (pair_last and i >= n_single
+                    and _execute.pair_pad_ok(tgt[-2], cur, n, ar.dtype,
+                                             cfg)):
                 pair_pad = n
                 continue
         ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
@@ -282,19 +315,49 @@ def _apply_plan_split(ar, ai, *, plan: Plan):
                                         scale=scale, n2_out=pair_pad)
     order = [i for i in range(n_single) if pad_fused and axes[i] == ndim - 1]
     order += [i for i in range(n_single) if i not in order]
+    # adjacent single axes (ndim - 3, ndim - 2) fuse into one mid-pair pass
+    # over the (pre, n1, n2, L) view, L the minor dim (tpufft's pairing)
+    mid_second = {}
+    cand = [i for i in range(n_single)
+            if not (pad_fused and axes[i] == ndim - 1)]
+    j = 0
+    while j + 1 < len(cand):
+        i1, i2 = cand[j], cand[j + 1]
+        if (axes[i2] == axes[i1] + 1 and axes[i2] == ndim - 2
+                and _execute.mid_pair_ok(lengths[i1], lengths[i2],
+                                         tgt[-1], ar.dtype, cfg)):
+            mid_second[i1] = i2
+            j += 2
+        else:
+            j += 1
+    skip = set(mid_second.values())
+    last_fused = cube_last or pair_last
     for k, i in enumerate(order):
-        takes_scale = not pair_last and k == n_single - 1
+        if i in skip:
+            continue
+        takes_scale = not last_fused and k == n_single - 1
         axis_scale = scale if takes_scale else 1.0
-        if pad_fused and axes[i] == ndim - 1:
+        if i in mid_second:
+            takes_scale = (not last_fused
+                           and max(i, mid_second[i]) == order[-1])
+            ar, ai = _execute.fft_mid_pair(
+                ar, ai, axes[i], inverse=plan.inverse,
+                scale=scale if takes_scale else 1.0)
+        elif pad_fused and axes[i] == ndim - 1:
             ar, ai = _execute.fft_axis_padded(
                 ar, ai, axes[i], lengths[i], inverse=plan.inverse,
-                scale=axis_scale, config=plan.config)
+                scale=axis_scale, config=cfg)
+        elif lengths[i] == 1 and axis_scale == 1.0:
+            continue
         else:
             ar, ai = _execute.fft_axis(
                 ar, ai, axes[i], plan.bases[i], inverse=plan.inverse,
-                scale=axis_scale, config=plan.config,
+                scale=axis_scale, config=cfg,
             )
-    if pair_last and pair_pad is None:
+    if cube_last:
+        ar, ai = _execute.fft_cube_last(ar, ai, inverse=plan.inverse,
+                                        scale=scale)
+    elif pair_last and pair_pad is None:
         ar, ai = _execute.fft_pair_last(ar, ai, inverse=plan.inverse,
                                         scale=scale)
     if ai is None:
@@ -723,3 +786,63 @@ def ihfftn(x, s=None, axes=None, norm=None, **kw):
 
 def ihfft2(x, s=None, axes=(-2, -1), norm=None, **kw):
     return ihfftn(x, s=s, axes=axes, norm=norm, **kw)
+
+
+# ----------------------------------------------------------------------------
+# Host helpers (numpy semantics)
+# ----------------------------------------------------------------------------
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype; None is float32."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def fftfreq(n, d=1.0, *, dtype=None, device=None) -> torch.Tensor:
+    """The sample frequencies of an n-point DFT with sample spacing d
+    (``np.fft.fftfreq``), float32 unless ``dtype`` says otherwise, on
+    ``device`` (None: the CUDA device, as for numpy input)."""
+    n = int(n)
+    k = torch.cat([torch.arange(0, (n - 1) // 2 + 1),
+                   torch.arange(-(n // 2), 0)])
+    out = k.to(torch.float64) / (n * d)
+    return out.to(numpy_device(device), _torch_dtype(dtype))
+
+
+def rfftfreq(n, d=1.0, *, dtype=None, device=None) -> torch.Tensor:
+    """The n//2 + 1 non-negative sample frequencies of an n-point real DFT
+    (``np.fft.rfftfreq``); dtype and device as for :func:`fftfreq`."""
+    n = int(n)
+    out = torch.arange(0, n // 2 + 1, dtype=torch.float64) / (n * d)
+    return out.to(numpy_device(device), _torch_dtype(dtype))
+
+
+def _shift(x, axes, sign):
+    if isinstance(x, SplitComplex):
+        return SplitComplex(_shift(x.re, axes, sign), _shift(x.im, axes, sign))
+    tensor = isinstance(x, torch.Tensor)
+    if not tensor:
+        x = np.asarray(x)   # numpy in -> numpy out
+    if axes is None:
+        axes = tuple(range(x.ndim))
+    elif isinstance(axes, int):
+        axes = (axes,)
+    axes = tuple(axes)
+    shifts = [sign * (x.shape[a] // 2) for a in axes]
+    return (torch.roll(x, shifts, axes) if tensor
+            else np.roll(x, shifts, axes))
+
+
+def fftshift(x, axes=None):
+    """Move the zero-frequency term to the centre along ``axes`` (all by
+    default); tensors, ``SplitComplex`` planes and numpy arrays keep their
+    form and device."""
+    return _shift(x, axes, 1)
+
+
+def ifftshift(x, axes=None):
+    """The inverse of :func:`fftshift`."""
+    return _shift(x, axes, -1)

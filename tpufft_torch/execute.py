@@ -20,7 +20,12 @@ For each transformed axis, decide by predicate, before any launch:
   widened to f32 around it; ``backend="pallas"`` raises there instead.
 
 Every wrapper launches its CUDA kernel for CUDA tensors and runs its plain
-version for CPU tensors. :func:`fft_pair_last` runs a plan's two trailing
+version for CPU tensors. :func:`fft_cube_last` runs a plan's three trailing
+axes in one pass of the cube kernel (``kernels/cube_fft``) when
+:func:`cube_supported` says it fits; :func:`fft_mid_pair` runs two
+adjacent middle axes in one pass of the mid-pair kernel
+(``kernels/mid_pair_fft``) when :func:`mid_pair_ok` says so.
+:func:`fft_pair_last` runs a plan's two trailing
 axes in one pass of the pair kernel (``kernels/pair_fft``) when
 :func:`pair_supported` says it fits, and with ``n2_out`` zero-pads the minor
 axis inside that pass (:func:`pair_pad_ok`). :func:`fft_axis_padded` runs
@@ -31,7 +36,8 @@ bound on its load (:func:`pad_axis_ok`). :func:`rfft_minor` and
 moving a non-minor axis minor and back as tpufft does.
 
 Every entry point is differentiable (``_FFTAxis``, ``_FFTPair``,
-``_FFTPadded``, ``_RFFTMinor``, ``_IRFFTMinor``): the split-plane DFT is
+``_FFTCube``, ``_FFTMidPair``, ``_FFTPadded``, ``_RFFTMinor``,
+``_IRFFTMinor``): the split-plane DFT is
 the real-linear map [[Fr, -Fi], [Fi, Fr]] with F symmetric, so its
 transpose applied to g is the same transform with the opposite sign and
 the same scale; a zero-pad's transpose is the crop; rfft's is the
@@ -51,13 +57,15 @@ import torch.nn.functional as F
 
 from . import core
 from .config import PlanConfig
-from .kernels import inner_fft, minor_fft, pair_fft, real_fft
+from .kernels import (cube_fft, inner_fft, mid_pair_fft, minor_fft,
+                      pair_fft, real_fft)
 from .planner import default_bases, factorize, next_fast_len
 
 __all__ = [
-    "fft_axis", "fft_axis_padded", "fft_pair_last", "irfft_minor",
-    "pad_axis_ok", "pair_pad_ok", "pair_supported", "r2c_minor_supported",
-    "rfft_minor",
+    "MID_PAIR_MIN_L", "cube_supported", "fft_axis", "fft_axis_padded",
+    "fft_cube_last", "fft_mid_pair", "fft_pair_last", "irfft_minor",
+    "mid_pair_ok", "pad_axis_ok", "pair_pad_ok", "pair_supported",
+    "r2c_minor_supported", "rfft_minor",
 ]
 
 # Bluestein under backend="auto" only for a prime factor above this; below
@@ -391,6 +399,117 @@ def fft_pair_last(
     checks :func:`pair_pad_ok`)."""
     n2 = None if n2_out is None or n2_out == ar.shape[-1] else int(n2_out)
     return _FFTPair.apply(ar, ai, bool(inverse), float(scale), n2)
+
+
+# ----------------------------------------------------------------------------
+# The trailing cube (K5) and two adjacent middle axes (K6) in one pass
+# ----------------------------------------------------------------------------
+
+# The mid-pair rule needs at least this contiguous batch L behind the pair;
+# below it the two strided passes run. From chip_smoke.py's L sweep on the
+# H100 (PERF.md): below 4, K6 computes on masked lanes of its 4-lane tiles
+# and ran 1.8-4.3x slower than the two passes; from 4 on it ran within
+# 0.97-1.09x of them.
+MID_PAIR_MIN_L = 4
+
+
+def cube_supported(n1: int, n2: int, n3: int, dtype,
+                   config: PlanConfig) -> bool:
+    """Can the trailing (n1, n2, n3) axes run as one pass of the cube
+    kernel? The port's own envelope (``cube_fft.supported``: a cluster of
+    at most 16 blocks of 16384 elements, so at most 64^3); tpufft's VMEM
+    and lane rules do not apply. A cube that tpufft fuses and the port does
+    not (e.g. 128 x 128 x 64) runs the trailing pair and then n1, with the
+    same result."""
+    return config.backend != "xla" and cube_fft.supported(n1, n2, n3, dtype)
+
+
+def mid_pair_ok(n1: int, n2: int, L: int, dtype, config: PlanConfig) -> bool:
+    """Can two adjacent middle axes (n1, n2) with a contiguous batch L
+    behind them run as one pass of the mid-pair kernel? The port's own
+    envelope (``mid_pair_fft.supported``) and ``L >= MID_PAIR_MIN_L``;
+    tpufft's lane rule (L a multiple of 128) does not apply."""
+    return (config.backend != "xla" and L >= MID_PAIR_MIN_L
+            and mid_pair_fft.supported(n1, n2, L, dtype))
+
+
+class _FFTCube(torch.autograd.Function):
+    """Differentiable trailing-cube transform (tpufft's ``_fft_cube_diff``):
+    the backward is the cube transform of the opposite sign with the same
+    scale."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, inverse, scale):
+        ctx.args = (inverse, scale)
+        ctx.real_input = ai is None
+        if ai is None:
+            ai = torch.zeros_like(ar)
+        shape = ar.shape
+        view = (-1,) + tuple(shape[-3:])
+        outr, outi = cube_fft.fft_cube(
+            ar.reshape(view).contiguous(), ai.reshape(view).contiguous(),
+            inverse=inverse, scale=scale)
+        return outr.reshape(shape), outi.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        inverse, scale = ctx.args
+        br, bi = _FFTCube.apply(gr, gi, not inverse, scale)
+        return br, (None if ctx.real_input else bi), None, None
+
+
+def fft_cube_last(
+    ar: torch.Tensor,
+    ai: torch.Tensor | None,
+    *,
+    inverse: bool,
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transform the last three axes in one pass of the cube kernel
+    (differentiable); the caller checks :func:`cube_supported`."""
+    return _FFTCube.apply(ar, ai, bool(inverse), float(scale))
+
+
+class _FFTMidPair(torch.autograd.Function):
+    """Differentiable transform of axes (a, a + 1) as one mid-pair pass
+    over the (pre, n1, n2, L) view (tpufft's ``_fft_mid_pair_diff``): the
+    backward is the same pass of the opposite sign with the same scale."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, axis1, inverse, scale):
+        ctx.args = (axis1, inverse, scale)
+        ctx.real_input = ai is None
+        if ai is None:
+            ai = torch.zeros_like(ar)
+        shape = ar.shape
+        view = (math.prod(shape[:axis1]), shape[axis1], shape[axis1 + 1],
+                math.prod(shape[axis1 + 2:]))
+        outr, outi = mid_pair_fft.fft_mid_pair(
+            ar.reshape(view).contiguous(), ai.reshape(view).contiguous(),
+            inverse=inverse, scale=scale)
+        return outr.reshape(shape), outi.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        axis1, inverse, scale = ctx.args
+        br, bi = _FFTMidPair.apply(gr, gi, axis1, not inverse, scale)
+        return br, (None if ctx.real_input else bi), None, None, None
+
+
+def fft_mid_pair(
+    ar: torch.Tensor,
+    ai: torch.Tensor | None,
+    axis1: int,
+    *,
+    inverse: bool,
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Transform the adjacent axes (axis1, axis1 + 1) in one pass of the
+    mid-pair kernel over the free (pre, n1, n2, L) view, L the product of
+    the axes behind them (differentiable); the caller checks
+    :func:`mid_pair_ok`."""
+    return _FFTMidPair.apply(ar, ai, axis1 % ar.ndim, bool(inverse),
+                             float(scale))
 
 
 # ----------------------------------------------------------------------------

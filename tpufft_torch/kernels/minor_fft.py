@@ -55,6 +55,7 @@ __all__ = [
     "MAX_PRIME",
     "check_length",
     "check_planes",
+    "fft_axes_reference",
     "fft_minor",
     "fft_minor_padded",
     "fft_minor_padded_reference",
@@ -387,4 +388,23 @@ def fft_minor_reference(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
     else:
         zr, zi = _compute(n, kind, tables, ar.T, ai.T, bool(inverse))
         zr, zi = zr.T, zi.T
+    return zr.contiguous().to(store), zi.contiguous().to(store)
+
+
+def fft_axes_reference(xr: torch.Tensor, xi: torch.Tensor,
+                       dims: tuple[int, ...], *, inverse: bool,
+                       scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The minor-axis plain version along each of ``dims`` in turn, in f32,
+    the scale on the last, with one rounding to the storage dtype; any
+    device. Each axis is swapped minor with ``transpose`` and back."""
+    store = xr.dtype
+    zr, zi = xr.float(), xi.float()
+    for k, d in enumerate(dims):
+        zr, zi = zr.transpose(d, -1), zi.transpose(d, -1)
+        shape = zr.shape
+        zr, zi = fft_minor_reference(
+            zr.reshape(-1, shape[-1]), zi.reshape(-1, shape[-1]),
+            inverse=inverse, scale=scale if k == len(dims) - 1 else 1.0)
+        zr = zr.reshape(shape).transpose(d, -1)
+        zi = zi.reshape(shape).transpose(d, -1)
     return zr.contiguous().to(store), zi.contiguous().to(store)

@@ -159,15 +159,5 @@ def fft_pair_reference(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
     global reference_cuda_calls
     if xr.is_cuda:
         reference_cuda_calls += 1
-    store = xr.dtype
-    pre, n1, n2 = xr.shape
-    zr, zi = minor_fft.fft_minor_reference(
-        xr.float().reshape(-1, n2), xi.float().reshape(-1, n2),
-        inverse=inverse, scale=1.0)
-    zr = zr.reshape(pre, n1, n2).transpose(1, 2).reshape(-1, n1)
-    zi = zi.reshape(pre, n1, n2).transpose(1, 2).reshape(-1, n1)
-    zr, zi = minor_fft.fft_minor_reference(zr, zi, inverse=inverse,
-                                           scale=scale)
-    zr = zr.reshape(pre, n2, n1).transpose(1, 2)
-    zi = zi.reshape(pre, n2, n1).transpose(1, 2)
-    return zr.contiguous().to(store), zi.contiguous().to(store)
+    return minor_fft.fft_axes_reference(xr, xi, (2, 1), inverse=inverse,
+                                        scale=scale)

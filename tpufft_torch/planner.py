@@ -31,6 +31,7 @@ from typing import Sequence
 
 __all__ = [
     "Stage",
+    "digit_reverse",
     "factorize",
     "default_bases",
     "kernel_factors",
@@ -101,6 +102,25 @@ def validate_bases(n: int, bases: Sequence[int]) -> tuple[int, ...]:
             f"product of bases {bases} is {math.prod(bases)}, expected {n}"
         )
     return bases
+
+
+def digit_reverse(index: int, bases: Sequence[int]) -> int:
+    """Mixed-radix digit reversal of ``index`` over the ordered base list
+    (tpufft's ``planner.digit_reverse``): with index = sum_i d_i *
+    prod(bases[i+1:]), returns sum_i d_i * prod(bases[:i]). The
+    input-reordering permutation a decimation-in-time formulation needs;
+    the port's transforms are all autosort and never permute, so it serves
+    interop with DIT-ordered data."""
+    bases = tuple(int(b) for b in bases)
+    digits = []
+    rem = int(index)
+    for b in reversed(bases):
+        digits.append(rem % b)
+        rem //= b
+    out = 0
+    for b, d in zip(reversed(bases), digits):
+        out = out * b + d
+    return out
 
 
 @functools.lru_cache(maxsize=None)
