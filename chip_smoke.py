@@ -106,7 +106,29 @@ Phases, each of which raises (and so exits nonzero) on failure:
     (``torch.fft.fftn``, a yardstick only), the routes they replace (K3 +
     K4 for the cube, K3 + K2 for the pair) and the copy floor; and K6
     against the two strided passes at about 268 MB for L = 1 to 512, the
-    sweep behind ``execute.MID_PAIR_MIN_L``.
+    sweep behind ``execute.MID_PAIR_MIN_L``;
+21. the fused-storage kernels K16 (cube), K17 (pair), K18 (a leading
+    axis, M > 1), K19 (the axis next to the minor one, M = 1) and K20 (the
+    minor axis) against their plain versions: halves 8 to 16384 (93 among
+    them), ragged pre, B and M, the cubes of phase 18 (clusters of 1 to 16
+    blocks), both directions, scale 1 and 1/N, f32 and bf16 storage;
+22. the layouts at full size, each call driven with every count set to 0
+    just before it and read just after: lane-fused ``plan_fft`` of
+    (100, 64, 64, 64) axes 1-3 (K16 once; P1) and its bf16 form (P1b),
+    of (1, 64, 64, 64, 64) axes 1-4 (K18, K16; P2), of (10, 128, 128, 128)
+    (K18, K17; P3), of (16, 64, 128, 256) (K18, K19, K20; P4), and
+    transform-major plans of (1000000, 93) along its minor axis (K2 on the
+    physical (93, 1000000); T1) and of (1, 25, 160, 160, 48) axes 1-4 (the
+    natural rules on (1, 25, 48, 160, 160): K3, K6, K1; T2), each against
+    ``np.fft`` on a few unpacked slices and through its inverse plan, and
+    the backward of P1;
+23. times: each layout path, ``pack`` and ``unpack``, the natural-layout
+    plan on the same logical data, cuFFT (a yardstick only) and the copy
+    floor; each fused kernel alone at its path's shape beside its
+    split-plane sibling on the same data (K5, K4, K3, K2, K1), its plain
+    version and one ``torch.fft`` call of the same function; and K18
+    against K3 on the same 268 MB for halves L = 2 to 64, where a half is
+    shorter than a 32-byte sector.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -134,7 +156,7 @@ import torch
 import tpufft_torch
 from tpufft_torch import _build, execute, realtrans, signal, spectral
 from tpufft_torch.convert import split_from_numpy
-from tpufft_torch.kernels import (cube_fft, dense_mm, inner_fft,
+from tpufft_torch.kernels import (cube_fft, dense_mm, fused_fft, inner_fft,
                                   mid_pair_fft, minor_fft, pair_fft, real_fft,
                                   stft_mm)
 
@@ -152,8 +174,9 @@ REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
 DENSE_KERNELS = ("complex", "real", "r2r")
 STFT_KERNELS = ("stft", "istft", "welch", "csd")
 CLUSTER_KERNELS = ("cube", "mid_pair")
+FUSED_KERNELS = tuple(f"fused_{k}" for k in fused_fft.launches)
 ALL_KERNELS = (KERNELS + REAL_KERNELS + DENSE_KERNELS + STFT_KERNELS
-               + CLUSTER_KERNELS)
+               + CLUSTER_KERNELS + FUSED_KERNELS)
 REAL_EVEN_NS = (2, 8, 128, 1024, 4096, 32768)
 REAL_ODD_NS = (3, 93, 127, 16383)
 PADS = ((93, 128), (1000, 1024), (5000, 8192))
@@ -265,7 +288,7 @@ def phase_kernel() -> None:
 
 def reset_counts() -> None:
     for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm, stft_mm,
-              cube_fft, mid_pair_fft):
+              cube_fft, mid_pair_fft, fused_fft):
         m.reset_counts()
 
 
@@ -276,12 +299,14 @@ def counts() -> tuple[dict, int]:
              "minor_padded": minor_fft.padded_launches,
              "pair_padded": pair_fft.padded_launches, **dense_mm.launches,
              **stft_mm.launches, "cube": cube_fft.launches,
-             "mid_pair": mid_pair_fft.launches},
+             "mid_pair": mid_pair_fft.launches,
+             **{f"fused_{k}": v for k, v in fused_fft.launches.items()}},
             minor_fft.reference_cuda_calls + inner_fft.reference_cuda_calls
             + pair_fft.reference_cuda_calls + real_fft.reference_cuda_calls
             + dense_mm.reference_cuda_calls + stft_mm.reference_cuda_calls
             + cube_fft.reference_cuda_calls
-            + mid_pair_fft.reference_cuda_calls)
+            + mid_pair_fft.reference_cuda_calls
+            + fused_fft.reference_cuda_calls)
 
 
 def phase_main_path() -> int:
@@ -1685,6 +1710,296 @@ def phase_nd_times() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phases 21-23: the fused-storage kernels (K16-K20) and the layouts
+# ----------------------------------------------------------------------------
+
+# kernel, logical shape of a fused array whose last dim is the half h:
+# halves 8 to 16384 (93 among them), ragged pre, B and M, and the cubes of
+# phase 18 (clusters of 1 to 16 blocks)
+FUSED_CASES = (
+    ("minor", (257, 8)), ("minor", (257, 93)), ("minor", (37, 1024)),
+    ("minor", (5, 16384)),
+    ("inner", (3, 64, 37, 93)), ("inner", (11, 128, 3, 256)),
+    ("inner", (2, 16, 5, 8)), ("inner", (1, 2048, 3, 8)),
+    ("inner_m1", (5, 128, 93)), ("inner_m1", (3, 8, 16384)),
+    ("inner_m1", (13, 93, 64)),
+    ("pair", (13, 64, 64)), ("pair", (13, 8, 93)), ("pair", (5, 128, 128)),
+    ("pair", (7, 160, 48)),
+) + tuple(("cube", (3,) + c) for c in CUBES)
+FUSED_CALLS = {
+    "minor": (fused_fft.fft_minor_fused, fused_fft.fft_minor_fused_reference),
+    "inner": (fused_fft.fft_inner_fused, fused_fft.fft_inner_fused_reference),
+    "inner_m1": (fused_fft.fft_inner_fused,
+                 fused_fft.fft_inner_fused_reference),
+    "pair": (fused_fft.fft_pair_fused, fused_fft.fft_pair_fused_reference),
+    "cube": (fused_fft.fft_cube_fused, fused_fft.fft_cube_fused_reference),
+}
+
+
+def _fused_array(shape, dtype, seed):
+    """A fused (..., 2 * shape[-1]) array on the card, rows [re | im]."""
+    re, im = _planes(shape, torch.float32, seed)
+    return torch.cat([re, im], -1).to(dtype)
+
+
+def _halves(st):
+    h = st.shape[-1] // 2
+    return st[..., :h], st[..., h:]
+
+
+def phase_fused_kernels() -> None:
+    """K16-K20 against their plain versions; prints the worst normalized
+    error per kernel and dtype."""
+    worst = {}
+    for key, shape in FUSED_CASES:
+        kernel, plain = FUSED_CALLS[key]
+        n_total = math.prod(shape[1:] if key in ("cube", "pair")
+                            else shape[1:2])
+        if key == "cube":
+            active = cube_fft.active_clusters(*shape[1:], False, 0,
+                                              fused=True)
+            check(active > 0, f"K16 {shape[1:]}: no cluster fits")
+        for dtype in (torch.float32, torch.bfloat16):
+            st = _fused_array(shape, dtype, seed=sum(shape))
+            for inverse in (False, True):
+                for scale in (1.0, 1.0 / n_total):
+                    kw = dict(inverse=inverse, scale=scale)
+                    _hold(worst, key, dtype, _halves(kernel(st, **kw)),
+                          _halves(plain(st, **kw)),
+                          f"{shape} {dtype} inverse={inverse} scale={scale}")
+    torch.cuda.synchronize()
+    for k in FUSED_CALLS:
+        print(f"fused {k} vs plain: max normalized error f32 "
+              f"{worst[(k, torch.float32)]:.3e} (tol {F32_TOL}), bf16 "
+              f"{worst[(k, torch.bfloat16)]:.3e} (tol {BF16_TOL})")
+
+
+# The layout paths at full size: name, logical shape, axes, layout, the
+# PlanConfig profile, and the launches of ONE call per kernel.
+LAYOUT_PATHS = (
+    ("P1", CUBE_SHAPE, (1, 2, 3), "lane-fused", None, {"fused_cube": 1}),
+    ("P1b", CUBE_SHAPE, (1, 2, 3), "lane-fused", "fast", {"fused_cube": 1}),
+    ("P2", CUBE_5D_SHAPE, (1, 2, 3, 4), "lane-fused", None,
+     {"fused_inner": 1, "fused_cube": 1}),
+    ("P3", (10, 128, 128, 128), (1, 2, 3), "lane-fused", None,
+     {"fused_inner": 1, "fused_pair": 1}),
+    ("P4", (16, 64, 128, 256), (1, 2, 3), "lane-fused", None,
+     {"fused_inner": 1, "fused_inner_m1": 1, "fused_minor": 1}),
+    ("T1", (1_000_000, 93), (-1,), "transform-major", None, {"inner": 1}),
+    ("T2", (1, 25, 160, 160, 48), (1, 2, 3, 4), "transform-major", None,
+     {"inner_nd": 1, "mid_pair": 1, "minor": 1}),
+)
+
+
+def _layout_plans(shape, axes, layout, profile):
+    """The forward and inverse plans of a layout path, and the forward
+    natural-layout plan of the same logical data."""
+    cfg = None if profile is None else tpufft_torch.PlanConfig(
+        profile=profile)
+    kw = dict(axes=axes, config=cfg)
+    return (tpufft_torch.plan_fft(shape, layout=layout, **kw),
+            tpufft_torch.plan_fft(shape, layout=layout, inverse=True, **kw),
+            tpufft_torch.plan_fft(shape, **kw))
+
+
+def phase_layout_paths() -> dict:
+    """Each layout path once forward and once back through its inverse
+    plan, counts reset around each call; the backward of P1; returns the
+    launches per kernel."""
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    for name, shape, axes, layout, profile, per_call in LAYOUT_PATHS:
+        xr, xi = _device_planes(shape, seed=len(shape) + shape[-1])
+        x = tpufft_torch.SplitComplex(xr, xi)
+        fwd, inv, _ = _layout_plans(shape, axes, layout, profile)
+        packed = fwd.pack(x)
+        y = _counted(fwd, packed, name, per_call, total)
+        back = _counted(inv, y, f"{name} inverse", per_call, total)
+        out, rt_planes = fwd.unpack(y), inv.unpack(back)
+        check(out.shape == shape and out.re.is_cuda and bool(
+            torch.isfinite(out.re).all() and torch.isfinite(out.im).all()),
+            f"{name}: output {out.shape}")
+        dims = tuple(a % len(shape) for a in axes)
+        k = shape[0] if 0 in dims else (4 if len(shape) == 2 else 2)
+        ref = np.fft.fftn(_np_slices(x, k), axes=dims)
+        got = _np_slices(out, k)
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        tol = BF16_TOL if profile else NP_TOL
+        check(err < tol, f"{name}: vs np.fft {err:.3e} >= {tol}")
+        rt = pair_err(rt_planes, x)
+        check(rt < tol, f"{name}: round trip error {rt:.3e} >= {tol}")
+        print(f"path {name} {layout} {shape} axes {axes}"
+              + (f" profile={profile}" if profile else "")
+              + f": physical {tuple(y.shape)} {y.dtype}, {k} slices vs "
+              f"np.fft {err:.3e}, round trip {rt:.3e}, launches {per_call} "
+              "a call, plain-version CUDA calls 0")
+        del x, xr, xi, packed, y, back, out, rt_planes
+    # the backward of P1: L = <plan(st), w> has the gradient A^T w, the
+    # opposite-sign pass: N ifftn of w's complex value
+    fwd, _, _ = _layout_plans(CUBE_SHAPE, (1, 2, 3), "lane-fused", None)
+    st = fwd.pack(tpufft_torch.SplitComplex(*_device_planes(CUBE_SHAPE, 7)))
+    st.requires_grad_(True)
+    w = torch.cat(_device_planes(CUBE_SHAPE, 8), -1)
+
+    def loss_backward(v):
+        out = fwd(v)
+        (out * w).sum().backward()
+        return out
+
+    _counted(loss_backward, st, "P1 backward", {"fused_cube": 2}, total)
+    wc = _np_slices(tpufft_torch.SplitComplex(*_halves(w)), 2)
+    want = np.fft.ifftn(wc, axes=(1, 2, 3)) * math.prod(CUBE_SHAPE[1:])
+    got = _np_slices(tpufft_torch.SplitComplex(*_halves(st.grad)), 2)
+    err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    check(err < NP_TOL, f"P1 backward vs numpy {err:.3e}")
+    print(f"backward of P1 {CUBE_SHAPE}: K16 twice (forward and backward), "
+          f"2 slices of the gradient vs numpy {err:.3e}")
+    del st, w
+    print(f"layout paths, launches {total}, plain-version CUDA calls 0")
+    return total
+
+
+def phase_layout_times() -> dict:
+    """Times of the layout paths, pack, unpack, the natural-layout plan,
+    cuFFT and the copy floor; each fused kernel alone beside its
+    split-plane sibling on the same data, its plain version and a
+    ``torch.fft`` call of the same function. Returns, per kernel row, its
+    time, plain and library times, bytes, flops and largest absolute error
+    against its plain version."""
+    out = {}
+
+    def kernel_row(key, what, kernel, plain, sibling, library, nbytes,
+                   flops, tol=F32_TOL):
+        got, ref = kernel(), plain()
+        abs_err = (got.float() - ref.float()).abs().max().item()
+        err = pair_err(_halves(got), _halves(ref))
+        check(err < tol, f"{key} {what}: kernel vs plain {err:.3e}")
+        del got, ref
+        t_k, t_s = _time_ms(kernel), _time_ms(sibling)
+        t_p, t_l = _time_ms(plain), _time_ms(library)
+        print(f"  {key} alone {what}: kernel {t_k:.4f} ms "
+              f"({nbytes / 1e9 / (t_k * 1e-3):.0f} GB/s), split-plane "
+              f"sibling {t_s:.4f} ms, plain {t_p:.4f} ms, torch.fft "
+              f"{t_l:.4f} ms; vs plain max abs {abs_err:.3e}, normalized "
+              f"{err:.3e}")
+        out[key] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                    "sibling_ms": t_s, "bytes": nbytes, "flops": flops,
+                    "max_abs_err": abs_err}
+
+    for name, shape, axes, layout, profile, _ in LAYOUT_PATHS:
+        xr, xi = _device_planes(shape, seed=1)
+        x = tpufft_torch.SplitComplex(xr, xi)
+        xc = torch.complex(xr, xi)
+        fwd, _, nat = _layout_plans(shape, axes, layout, profile)
+        packed = fwd.pack(x)
+        y = fwd(packed)
+        dims = tuple(a % len(shape) for a in axes)
+        elem = 2 if profile else 4
+        nb = 2 * 2 * elem * xr.numel()
+        t = {"path": _time_ms(lambda: fwd(packed)),
+             "pack": _time_ms(lambda: fwd.pack(x)),
+             "unpack": _time_ms(lambda: fwd.unpack(y)),
+             "natural": _time_ms(lambda: nat(x)),
+             "torch_fftn": _time_ms(lambda: torch.fft.fftn(xc, dim=dims)),
+             "copy_floor": _copy_floor_ms(nb)}
+        print(f"times {name} {layout} {shape} axes {axes}"
+              + (f" profile={profile}" if profile else "")
+              + f", median of {REPS} ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f"; one pass {nb / 1e9:.4f} GB")
+        if name in ("P1", "P1b"):
+            dt = torch.bfloat16 if profile else torch.float32
+            st, ar, ai = packed.to(dt), xr.to(dt), xi.to(dt)
+            kw = dict(inverse=False, scale=1.0)
+            kernel_row("K16" if dt == torch.float32 else "K16_bf16",
+                       f"{shape} {dt}",
+                       lambda: fused_fft.fft_cube_fused(st, **kw),
+                       lambda: fused_fft.fft_cube_fused_reference(st, **kw),
+                       lambda: cube_fft.fft_cube(ar, ai, **kw),
+                       lambda: torch.fft.fftn(xc, dim=dims), nb,
+                       _fft_flops(math.prod(shape[1:]), shape[0]),
+                       F32_TOL if dt == torch.float32 else BF16_TOL)
+            del st, ar, ai
+        elif name in ("P2", "P3", "P4"):
+            pre, n, M = shape[0], shape[1], math.prod(shape[2:-1])
+            v4 = (pre, n, M, 2 * shape[-1])
+            v3 = (pre * n, M, shape[-1])
+            kw = dict(inverse=False, scale=1.0)
+            kernel_row(f"K18_{name}", str(v4),
+                       lambda: fused_fft.fft_inner_fused(
+                           packed.reshape(v4), **kw),
+                       lambda: fused_fft.fft_inner_fused_reference(
+                           packed.reshape(v4), **kw),
+                       lambda: inner_fft.fft_inner_nd(
+                           xr.reshape(v3), xi.reshape(v3), n=n, **kw),
+                       lambda: torch.fft.fft(xc, dim=1), nb,
+                       _fft_flops(n, xr.numel() // n))
+            if name == "P3":
+                n2, n3 = shape[-2:]
+                v = (-1, n2, 2 * n3)
+                c3 = xc.reshape(-1, n2, n3)
+                kernel_row("K17", str(tuple(packed.reshape(v).shape)),
+                           lambda: fused_fft.fft_pair_fused(
+                               packed.reshape(v), **kw),
+                           lambda: fused_fft.fft_pair_fused_reference(
+                               packed.reshape(v), **kw),
+                           lambda: pair_fft.fft_pair(
+                               xr.reshape(c3.shape), xi.reshape(c3.shape),
+                               **kw),
+                           lambda: torch.fft.fft2(c3), nb,
+                           _fft_flops(n2 * n3, c3.shape[0]))
+                del c3
+            if name == "P4":
+                n2, n3 = shape[-2:]
+                v4 = (pre * n, n2, 1, 2 * n3)
+                c3 = xc.reshape(pre * n, n2, n3)
+                kernel_row("K19", str(v4),
+                           lambda: fused_fft.fft_inner_fused(
+                               packed.reshape(v4), **kw),
+                           lambda: fused_fft.fft_inner_fused_reference(
+                               packed.reshape(v4), **kw),
+                           lambda: inner_fft.fft_inner(
+                               xr.reshape(c3.shape), xi.reshape(c3.shape),
+                               **kw),
+                           lambda: torch.fft.fft(c3, dim=1), nb,
+                           _fft_flops(n2, xr.numel() // n2))
+                v2 = (-1, 2 * n3)
+                r2, i2 = xr.reshape(-1, n3), xi.reshape(-1, n3)
+                kernel_row("K20", str(tuple(packed.reshape(v2).shape)),
+                           lambda: fused_fft.fft_minor_fused(
+                               packed.reshape(v2), **kw),
+                           lambda: fused_fft.fft_minor_fused_reference(
+                               packed.reshape(v2), **kw),
+                           lambda: minor_fft.fft_minor(r2, i2, **kw),
+                           lambda: torch.fft.fft(c3, dim=-1), nb,
+                           _fft_flops(n3, xr.numel() // n3))
+                del c3, r2, i2
+        elif name == "T1":
+            pr, pi = packed
+            t_k2 = _time_ms(lambda: inner_fft.fft_inner(
+                pr.reshape(1, *pr.shape), pi.reshape(1, *pi.shape),
+                inverse=False, scale=1.0))
+            t_k1 = _time_ms(lambda: minor_fft.fft_minor(
+                xr, xi, inverse=False, scale=1.0))
+            print(f"  K2 on the physical {tuple(pr.shape)}: {t_k2:.4f} ms "
+                  f"({nb / 1e9 / (t_k2 * 1e-3):.0f} GB/s); K1 on the natural "
+                  f"{shape}: {t_k1:.4f} ms")
+        del x, xc, xr, xi, packed, y
+        torch.cuda.synchronize()
+    # small halves: a half of L f32 values is a run of 4L bytes, part of a
+    # 32-byte sector below L = 8; K18 against K3 on the same 268 MB
+    for L in (2, 4, 8, 16, 64):
+        xr, xi = _device_planes((64, 262144 // L, L), seed=L)
+        st = torch.cat([xr, xi], -1).reshape(1, 64, 262144 // L, 2 * L)
+        kw = dict(inverse=False, scale=1.0)
+        t_f = _time_ms(lambda: fused_fft.fft_inner_fused(st, **kw))
+        t_s = _time_ms(lambda: inner_fft.fft_inner_nd(xr, xi, n=64, **kw))
+        print(f"  small halves: K18 on {tuple(st.shape)} {t_f:.4f} ms, K3 on "
+              f"its planes {t_s:.4f} ms, ratio {t_f / t_s:.3f}")
+        del xr, xi, st
+    return out
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -1793,10 +2108,13 @@ def main() -> None:
     phase_cluster_kernels()
     nd_launches = phase_nd_paths()
     nd_rows = phase_nd_times()
+    phase_fused_kernels()
+    layout_launches = phase_layout_paths()
+    layout_rows = phase_layout_times()
     rate = _copy_rate()
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
-                 stft_launches, nd_launches):
+                 stft_launches, nd_launches, layout_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],
@@ -1807,6 +2125,8 @@ def main() -> None:
     new_rows["inner_nd"]["max_abs_err"] = max(
         new_rows["inner_nd"]["max_abs_err"],
         new_rows["inner_nd_tw"]["max_abs_err"])
+    layout_rows["K18_P3"]["max_abs_err"] = max(
+        layout_rows[f"K18_{p}"]["max_abs_err"] for p in ("P2", "P3", "P4"))
     mx = "tpufft/kernels/mxu_fft.py"
     entries = [
         _entry("minor_fft", "minor_fft.cu", f"{mx}:1282", total["minor"], k1,
@@ -1841,7 +2161,25 @@ def main() -> None:
         _entry("welch_accum (K15)", "stft_mm.cu", f"{mx}:1008",
                total["welch"] + total["csd"], stft_rows["welch"], rate,
                peak),
+        _entry("cube_fft_fused (K16)", "cluster_fft.cu", f"{mx}:2105",
+               total["fused_cube"], layout_rows["K16"], rate, peak),
+        _entry("pair_fft_fused (K17)", "pair_fft.cu", f"{mx}:2337",
+               total["fused_pair"], layout_rows["K17"], rate, peak),
+        _entry("inner_fft_fused (K18)", "strided_fft.cu", f"{mx}:2154",
+               total["fused_inner"], layout_rows["K18_P3"], rate, peak),
+        _entry("inner_fft_fused_m1 (K19)", "strided_fft.cu", f"{mx}:2203",
+               total["fused_inner_m1"], layout_rows["K19"], rate, peak),
+        _entry("minor_fft_fused (K20)", "minor_fft.cu", f"{mx}:2257",
+               total["fused_minor"], layout_rows["K20"], rate, peak),
     ]
+    for key in ("K16_bf16", "K18_P2", "K18_P4"):
+        b = _bound(layout_rows[key], rate, peak)[0]
+        print(f"bound {key}: {b:.4f} ms, kernel {layout_rows[key]['ms']:.4f}"
+              f" ms, {b / layout_rows[key]['ms']:.3f} of it")
+    for key, row in layout_rows.items():
+        print(f"{key}: kernel {row['ms']:.4f} ms against its split-plane "
+              f"sibling {row['sibling_ms']:.4f} ms, ratio "
+              f"{row['ms'] / row['sibling_ms']:.3f}")
     check(stft_launches["csd"] > 0,
           "welch_accum (K15) with two signals never ran on the main paths")
     csd_bound = _bound(stft_rows["csd"], rate, peak)[0]

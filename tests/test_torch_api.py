@@ -234,11 +234,9 @@ def test_errors_match(call, rng):
     assert type(ours.value) in (ValueError, TypeError)
 
 
-@pytest.mark.parametrize("kw", [{"layout": "transform-major"},
-                                {"layout": "lane-fused"}])
-def test_later_options_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpufft_torch.plan_fft((4, 8, 8, 8), **kw, device="cpu")
+def test_bogus_layout_raises():
+    """A layout neither package knows is a ValueError (the layouts
+    themselves: tests/test_torch_layouts.py)."""
     with pytest.raises(ValueError):
         tpufft_torch.plan_fft((4, 8), layout="bogus", device="cpu")
 

@@ -829,3 +829,166 @@ def test_cube_and_mid_pair_autograd_on_the_card(cuda_device):
                                 norm="ortho")
         (ref.re.square().sum() + 2.0 * ref.im.square().sum()).backward()
         assert _err((xr.grad, xi.grad), (cr.grad, ci.grad)) < 1e-5
+
+
+# ----------------------------------------------------------------------------
+# The fused-storage kernels (K16-K20) and the layouts
+# ----------------------------------------------------------------------------
+
+def _fused_array(shape, device, dtype=torch.float32, seed=0):
+    """A fused (..., 2 * shape[-1]) array, rows [re | im]."""
+    re, im = _planes(shape, device, torch.float32, seed)
+    return torch.cat([re, im], -1).to(dtype)
+
+
+def _fused_err(got, ref):
+    h = got.shape[-1] // 2
+    return _err((got[..., :h], got[..., h:]), (ref[..., :h], ref[..., h:]))
+
+
+# kernel, logical shape: ragged pre/B/M, halves 8 to 16384 (93 among them),
+# M > 1 (K18) and M == 1 (K19), pairs up to 16384 elements
+FUSED_CASES = [
+    ("minor", (257, 8)), ("minor", (37, 93)), ("minor", (5, 1024)),
+    ("minor", (3, 16384)),
+    ("inner", (3, 64, 37, 93)), ("inner", (2, 16, 5, 64)),
+    ("inner", (11, 128, 3, 256)), ("inner", (1, 2048, 3, 8)),
+    ("inner_m1", (5, 128, 93)), ("inner_m1", (3, 8, 16384)),
+    ("pair", (13, 64, 64)), ("pair", (3, 8, 93)), ("pair", (5, 128, 128)),
+    ("cube", (3, 8, 8, 8)), ("cube", (3, 16, 32, 64)),
+    ("cube", (2, 64, 64, 64)), ("cube", (3, 24, 40, 56)),
+]
+
+
+def _fused_call(kernel):
+    from tpufft_torch.kernels import fused_fft
+    return {"minor": (fused_fft.fft_minor_fused,
+                      fused_fft.fft_minor_fused_reference),
+            "inner": (fused_fft.fft_inner_fused,
+                      fused_fft.fft_inner_fused_reference),
+            "inner_m1": (fused_fft.fft_inner_fused,
+                         fused_fft.fft_inner_fused_reference),
+            "pair": (fused_fft.fft_pair_fused,
+                     fused_fft.fft_pair_fused_reference),
+            "cube": (fused_fft.fft_cube_fused,
+                     fused_fft.fft_cube_fused_reference)}[kernel]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel,shape", FUSED_CASES)
+def test_fused_kernel_matches_plain_version(kernel, shape, dtype, tol,
+                                            cuda_device):
+    from tpufft_torch.kernels import fused_fft
+    kern, plain = _fused_call(kernel)
+    st = _fused_array(shape, cuda_device, dtype, seed=sum(shape))
+    if kernel == "inner_m1":
+        st = st.reshape(shape[0], shape[1], 1, -1)
+    n_total = np.prod(shape[1:] if kernel in ("cube", "pair") else shape[1])
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / n_total):
+            before = fused_fft.launches[kernel]
+            got = kern(st, inverse=inverse, scale=scale)
+            ref = plain(st, inverse=inverse, scale=scale)
+            torch.cuda.synchronize()
+            assert fused_fft.launches[kernel] == before + 1
+            assert got.dtype == dtype and got.shape == st.shape
+            assert _fused_err(got, ref) < tol
+
+
+def test_fused_wrappers_raise_outside_the_envelope(cuda_device):
+    """A CUDA array the fused kernels do not take raises; nothing falls
+    back."""
+    from tpufft_torch.kernels import fused_fft
+    fused_fft.reset_counts()
+    with pytest.raises(ValueError, match="envelope"):
+        fused_fft.fft_cube_fused(torch.zeros(1, 128, 128, 128,
+                                             device=cuda_device),
+                                 inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="envelope"):
+        fused_fft.fft_pair_fused(torch.zeros(2, 128, 512, device=cuda_device),
+                                 inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="envelope"):
+        fused_fft.fft_minor_fused(torch.zeros(2, 262, device=cuda_device),
+                                  inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_fft.fft_inner_fused(torch.zeros(2, 8, 4, 16, device=cuda_device,
+                                              dtype=torch.float64),
+                                  inverse=False, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_fft.fft_minor_fused(torch.zeros(16, 8, device=cuda_device).T,
+                                  inverse=False, scale=1.0)
+    assert fused_fft.launches == dict.fromkeys(fused_fft.launches, 0)
+    assert fused_fft.reference_cuda_calls == 0
+
+
+# lane-fused plans on the card: logical shape, axes, fused launches of ONE
+# call (the cube, pair and minor tiers with their leading axes)
+@pytest.mark.parametrize("shape,axes,per_call", [
+    ((3, 16, 32, 64), (1, 2, 3), {"cube": 1}),
+    ((2, 4, 8, 16, 32), (1, 2, 3, 4), {"inner": 1, "cube": 1}),
+    ((2, 128, 128, 128), (1, 2, 3), {"inner": 1, "pair": 1}),
+    ((2, 8, 128, 256), (1, 2, 3), {"inner": 1, "inner_m1": 1, "minor": 1}),
+])
+def test_lane_fused_plans_run_the_fused_kernels(shape, axes, per_call,
+                                                cuda_device):
+    from tpufft_torch.kernels import fused_fft
+    x = _planes(shape, cuda_device, seed=len(shape))
+    xc = torch.complex(*x)
+    fwd = tpufft_torch.plan_fft(shape, axes=axes, layout="lane-fused")
+    inv = tpufft_torch.plan_fft(shape, axes=axes, layout="lane-fused",
+                                inverse=True)
+    st = fwd.pack(xc)
+    _reset()
+    fused_fft.reset_counts()
+    y = fwd(st)
+    torch.cuda.synchronize()
+    assert fused_fft.launches == dict(dict.fromkeys(fused_fft.launches, 0),
+                                      **per_call)
+    assert _counts() == (NONE, 0) and fused_fft.reference_cuda_calls == 0
+    got = fwd.unpack(y)
+    want = torch.fft.fftn(xc.cpu().to(torch.complex128), dim=axes)
+    assert _err((got.re, got.im), (want.real, want.imag)) < 1e-5
+    back = inv.unpack(inv(y))
+    assert _err((back.re, back.im), x) < 1e-5
+
+
+def test_lane_fused_autograd_on_the_card(cuda_device):
+    """The backward of the cube tier is K16 of the opposite sign: two
+    launches a loss; the gradient agrees with the CPU's."""
+    from tpufft_torch.kernels import fused_fft
+    shape = (2, 16, 32, 64)
+    p = tpufft_torch.plan_fft(shape, axes=(1, 2, 3), layout="lane-fused",
+                              norm="ortho")
+    st = _fused_array(shape, cuda_device, seed=3).requires_grad_(True)
+    fused_fft.reset_counts()
+    (p(st).square() * torch.arange(2 * shape[-1], device=cuda_device)
+     ).sum().backward()
+    assert fused_fft.launches["cube"] == 2
+    pc = tpufft_torch.plan_fft(shape, axes=(1, 2, 3), layout="lane-fused",
+                               norm="ortho", device="cpu")
+    sc = st.detach().cpu().requires_grad_(True)
+    (pc(sc).square() * torch.arange(2 * shape[-1])).sum().backward()
+    assert _fused_err(st.grad, sc.grad) < 1e-5
+
+
+def test_transform_major_plans_on_the_card(cuda_device):
+    """(20000, 93) along its minor axis runs K2 on the physical
+    (93, 20000) planes; the ND plan of (1, 5, 40, 40, 24) runs the natural
+    rules on (1, 5, 24, 40, 40)."""
+    for shape, axes, want in (((20000, 93), (-1,), {"inner": 1}),
+                              ((1, 5, 40, 40, 24), (1, 2, 3, 4), None)):
+        x = torch.complex(*_planes(shape, cuda_device, seed=len(shape)))
+        p = tpufft_torch.plan_fft(shape, axes=axes, layout="transform-major")
+        sc = p.pack(x)
+        _reset()
+        y = p(sc)
+        torch.cuda.synchronize()
+        by_kernel, plain = _counts()
+        assert plain == 0 and sum(by_kernel.values()) > 0
+        if want is not None:
+            assert by_kernel == dict(NONE, **want)
+        got = p.unpack(y)
+        ref = torch.fft.fftn(x.cpu().to(torch.complex128), dim=axes)
+        assert _err((got.re, got.im), (ref.real, ref.imag)) < 1e-5

@@ -17,6 +17,7 @@ def test_port_imports_without_jax():
         import tpufft_torch.kernels.minor_fft
         import tpufft_torch.kernels.inner_fft, tpufft_torch.kernels.pair_fft
         import tpufft_torch.kernels.cube_fft, tpufft_torch.kernels.mid_pair_fft
+        import tpufft_torch.kernels.fused_fft
         import tpufft_torch.kernels.real_fft, tpufft_torch.kernels.dense_mm
         import tpufft_torch.signal, tpufft_torch.realtrans
         import tpufft_torch.czt, tpufft_torch.fhtlog

@@ -146,6 +146,50 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(i32),         # out: clusters the card holds at once
     ]
     lib.tpufft_cube_active_clusters.restype = i32
+    # the fused-storage forms (K16-K20): one input and one output array
+    # whose rows of the minor logical axis hold [re | im]
+    lib.tpufft_minor_fft_fused.argtypes = [
+        vp, vp, vp,                  # st, out, twiddle table
+        ctypes.c_longlong, i32,      # batch, n
+        ctypes.POINTER(i32), i32,    # radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_minor_fft_fused.restype = i32
+    lib.tpufft_strided_fft_fused.argtypes = [
+        vp, vp, vp,                  # st, out, twiddle table
+        ctypes.c_longlong, i32,      # pre, n
+        ctypes.c_longlong, ctypes.c_longlong,  # M, L (the half)
+        ctypes.POINTER(i32), i32,    # radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_strided_fft_fused.restype = i32
+    lib.tpufft_pair_fft_fused.argtypes = [
+        vp, vp, vp, vp,              # st, out, n1 and n2 tables
+        ctypes.c_longlong, i32, i32,  # pre, n1, n2
+        ctypes.POINTER(i32), i32,    # n1's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n2's radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_pair_fft_fused.restype = i32
+    lib.tpufft_cube_fft_fused.argtypes = [
+        vp, vp,                      # st, out
+        vp, vp, vp,                  # n1, n2 and n3 tables
+        ctypes.c_longlong, i32, i32, i32, i32,  # pre, n1, n2, n3, cluster
+        ctypes.POINTER(i32), i32,    # n1's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n2's radices, number of stages
+        ctypes.POINTER(i32), i32,    # n3's radices, number of stages
+        i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        vp,                          # cudaStream_t
+    ]
+    lib.tpufft_cube_fft_fused.restype = i32
+    lib.tpufft_cube_fused_active_clusters.argtypes = [
+        i32, i32, i32, i32, i32,     # n1, n2, n3, cluster, bf16 storage
+        ctypes.POINTER(i32),         # out: clusters the card holds at once
+    ]
+    lib.tpufft_cube_fused_active_clusters.restype = i32
     lib.tpufft_mid_pair_fft.argtypes = [
         vp, vp, vp, vp, vp, vp,      # xr, xi, yr, yi, n1 and n2 tables
         ctypes.c_longlong, i32, i32,  # pre, n1, n2

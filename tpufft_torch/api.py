@@ -16,20 +16,32 @@ A ``c2r`` plan returns its real plane: a real tensor, a real numpy array,
 or ``SplitComplex(out, zeros)``; an ``r2c`` plan refuses complex input
 with TypeError. Tensors and ``SplitComplex`` planes run where they lie.
 
-Ported so far: c2c, r2c and c2r plans over any set of axes, the four
-norms, ``n``/``s`` crop and zero-pad (including "fast"/"fast-aligned"),
-explicit ``bases``, ``PlanConfig`` and autograd; rfft/irfft/rfftn/irfftn/
-rfft2/irfft2 and the hfft family, and the host helpers ``fftfreq``,
-``rfftfreq``, ``fftshift``, ``ifftshift``. When a plan's last three axes
-are the array's three minor axes and the cube fits the cube kernel, they
-run in one pass (tpufft's ``cube_last`` rule); else when its last two are
-the two minor axes and fit the pair kernel, they do (``pair_last``); two
-adjacent middle axes in front of the minor one run in one mid-pair pass;
-a zero-padded minor axis pads inside its kernel's load (tpufft's
-``pad_fused`` and ``pair_pad`` rules). Each fusion follows the port's own
-kernel envelopes, so a shape tpufft fuses may run in more passes here,
-with the same result. The transform-major and lane-fused layouts raise
-NotImplementedError.
+The surface is tpufft's: c2c, r2c and c2r plans over any set of axes,
+the four norms, ``n``/``s`` crop and zero-pad (including
+"fast"/"fast-aligned"), explicit ``bases``, ``PlanConfig`` and autograd;
+rfft/irfft/rfftn/irfftn/rfft2/irfft2 and the hfft family, and the host
+helpers ``fftfreq``, ``rfftfreq``, ``fftshift``, ``ifftshift``. When a
+plan's last three axes are the array's three minor axes and the cube fits
+the cube kernel, they run in one pass (tpufft's ``cube_last`` rule); else
+when its last two are the two minor axes and fit the pair kernel, they do
+(``pair_last``); two adjacent middle axes in front of the minor one run in
+one mid-pair pass; a zero-padded minor axis pads inside its kernel's load
+(tpufft's ``pad_fused`` and ``pair_pad`` rules). Each fusion follows the
+port's own kernel envelopes, so a shape tpufft fuses may run in more
+passes here, with the same result.
+
+c2c plans also take tpufft's two other layouts (``plan_fft(layout=...)``),
+converted at the pipeline's edges by ``Plan.pack`` and ``Plan.unpack``:
+
+* ``"transform-major"``: the planes are stored with the transform axes
+  permuted (one axis: moved first; several: tpufft's lane-utilization
+  order, kept verbatim though it is a TPU rule) and run the natural
+  pipeline on that physical shape;
+* ``"lane-fused"``: the data is ONE real array (..., n1, n2, 2*n3) whose
+  minor logical rows hold [re | im]; the plan runs tpufft's tiers on the
+  fused kernels (``kernels/fused_fft``, K16-K20): the trailing cube, else
+  the trailing pair, else every axis on its own, the leading axes first;
+  when no tier fits, the split-plane pipeline on the two halves.
 
 The layers above the transforms live beside this module, with the same
 input forms and the same ``device`` rule: ``signal`` (``plan_filter``,
@@ -53,6 +65,7 @@ import torch
 from . import execute as _execute
 from .config import PlanConfig
 from .core import SplitComplex, dtype_name, real_dtype_for
+from .kernels import fused_fft as _fused
 from .planner import default_bases, next_fast_len, validate_bases
 
 __all__ = [
@@ -172,6 +185,13 @@ class Plan:
     """An executable FFT plan: shapes, per-axis radix schedules, direction,
     normalization, configuration, and the device numpy input is moved to
     (None: the CUDA device).
+
+    A ``layout="transform-major"`` plan's ``shape`` and ``axes`` describe
+    the PHYSICAL planes; ``logical_shape`` is the user's view, and
+    ``logical_axis`` (one axis) or ``logical_perm`` (several; physical dim
+    i is logical dim ``logical_perm[i]``) maps one to the other. A
+    ``layout="lane-fused"`` plan's ``shape`` is the logical shape; it runs
+    on the fused (..., 2 * shape[-1]) array.
     """
 
     shape: tuple[int, ...]
@@ -184,16 +204,31 @@ class Plan:
     kind: str                          # "c2c", "r2c" or "c2r"
     config: PlanConfig
     device: str | None = None
+    layout: str = "natural"
+    logical_shape: tuple[int, ...] | None = None
+    logical_axis: int | None = None
+    logical_perm: tuple[int, ...] | None = None
 
     def __call__(self, x):
         """Execute the plan; the output form follows the input form, and a
-        c2r plan returns its real plane."""
+        c2r plan returns its real plane. A lane-fused plan takes and returns
+        the fused real array (a tensor; numpy input moves to the plan's
+        device first)."""
+        if self.layout == "lane-fused":
+            st = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(np.asarray(x))).to(
+                    numpy_device(self.device))
+            expect = self.shape[:-1] + (2 * self.shape[-1],)
+            if tuple(st.shape) != expect:
+                raise ValueError(
+                    f"lane-fused plan expects fused shape {expect} "
+                    f"(lanes [re|im]), got {tuple(st.shape)}; use "
+                    "Plan.pack() to convert")
+            return _apply_plan_fused(st.to(self._plane_dtype()), plan=self)
         split_io = isinstance(x, SplitComplex)
         numpy_io = not split_io and not isinstance(x, torch.Tensor)
         ar, ai = self._split_input(x)
-        rdt = real_dtype_for(self.dtype)
-        if self.config.plane_dtype == "bfloat16" and rdt == torch.float32:
-            rdt = torch.bfloat16
+        rdt = self._plane_dtype()
         ar = ar.to(rdt)
         ai = None if ai is None else ai.to(rdt)
         outr, outi = _apply_plan_split(ar, ai, plan=self)
@@ -209,6 +244,14 @@ class Plan:
         if numpy_io:
             return out.numpy()
         return out.complex()
+
+    def _plane_dtype(self) -> torch.dtype:
+        """float64 for c128 plans; bfloat16 for f32 planes under
+        ``plane_dtype="bfloat16"``; else float32."""
+        rdt = real_dtype_for(self.dtype)
+        if self.config.plane_dtype == "bfloat16" and rdt == torch.float32:
+            rdt = torch.bfloat16
+        return rdt
 
     def _split_input(self, x):
         r2c = self.kind == "r2c"
@@ -253,6 +296,154 @@ class Plan:
         if self.kind == "r2c":
             shape[self.axes[-1]] = self.lengths[-1] // 2 + 1
         return tuple(shape)
+
+    # -- layout conversion ---------------------------------------------------
+    # The conversion is the repack a layout exists to avoid: pack once at a
+    # pipeline's entry (on the host when the data starts there), keep the
+    # data in the plan's layout across calls, unpack once at its exit.
+
+    def _perm(self) -> tuple[int, ...]:
+        """A transform-major plan's physical dim i is logical dim
+        ``_perm()[i]``."""
+        if self.logical_perm is not None:
+            return self.logical_perm
+        ax = self.logical_axis
+        return (ax,) + tuple(i for i in range(len(self.shape)) if i != ax)
+
+    def pack(self, x):
+        """Convert a LOGICAL-layout array to this plan's physical layout.
+
+        Host numpy input converts on the host, then moves to the plan's
+        device; tensors and ``SplitComplex`` planes convert where they lie.
+        transform-major -> ``SplitComplex`` planes in the physical order;
+        lane-fused -> ONE real tensor (..., n1, n2, 2*n3), lanes [re|im];
+        natural -> ``SplitComplex`` planes. Host complex128 or float64 packs
+        to float64, anything else to float32."""
+        if self.layout == "lane-fused":
+            if isinstance(x, SplitComplex):
+                return torch.cat([x.re, x.im], dim=-1)
+            if isinstance(x, torch.Tensor):
+                re, im = _tensor_planes(x)
+                return torch.cat([re, im], dim=-1)
+            re, im = _host_planes(x)
+            return torch.from_numpy(np.concatenate([re, im], axis=-1)).to(
+                numpy_device(self.device))
+        if self.layout != "transform-major":
+            return _as_split(x, self.device)
+        perm = self._perm()
+        if isinstance(x, (SplitComplex, torch.Tensor)):
+            re, im = x if isinstance(x, SplitComplex) else _tensor_planes(x)
+            return SplitComplex(re.permute(perm).contiguous(),
+                                im.permute(perm).contiguous())
+        dev = numpy_device(self.device)
+        return SplitComplex(*(
+            torch.from_numpy(np.ascontiguousarray(p.transpose(perm))).to(dev)
+            for p in _host_planes(x)))
+
+    def unpack(self, y):
+        """Convert a plan-layout result back to the LOGICAL layout.
+
+        transform-major: ``SplitComplex`` in -> ``SplitComplex`` out, a
+        tensor in -> a tensor out (one permuting copy where they lie); numpy
+        otherwise. lane-fused: the fused tensor -> ``SplitComplex`` (two
+        lane slices, bf16 widened to float32); numpy -> numpy complex.
+        natural: ``y`` itself."""
+        if self.layout == "lane-fused":
+            n3 = self.lengths[-1]
+            if isinstance(y, torch.Tensor):
+                re, im = y[..., :n3], y[..., n3:]
+                if re.dtype == torch.bfloat16:
+                    re, im = re.float(), im.float()
+                return SplitComplex(re, im)
+            yn = np.asarray(y)
+            return yn[..., :n3] + 1j * yn[..., n3:]
+        if self.layout != "transform-major":
+            return y
+        inv = tuple(int(i) for i in np.argsort(self._perm()))
+        if isinstance(y, SplitComplex):
+            return SplitComplex(y.re.permute(inv).contiguous(),
+                                y.im.permute(inv).contiguous())
+        if isinstance(y, torch.Tensor):
+            return y.permute(inv).contiguous()
+        return np.ascontiguousarray(np.transpose(np.asarray(y), inv))
+
+
+def _tensor_planes(x: torch.Tensor):
+    """A tensor's real and imaginary planes (zeros for a real tensor)."""
+    if x.is_complex():
+        return x.real, x.imag
+    return x, torch.zeros_like(x)
+
+
+def _host_planes(x):
+    """The real and imaginary planes of a host array-like as numpy arrays:
+    float64 for complex128/float64 input, float32 otherwise; a real input's
+    imaginary plane is zeros."""
+    xn = np.asarray(x)
+    rdt = np.float64 if xn.dtype in (np.complex128, np.float64) else np.float32
+    re = np.asarray(xn.real, rdt)
+    im = (np.asarray(xn.imag, rdt) if np.iscomplexobj(xn)
+          else np.zeros_like(re))
+    return re, im
+
+
+def _as_split(x, device) -> SplitComplex:
+    """``SplitComplex`` planes of any input form (tpufft's
+    ``SplitComplex.from_array``): planes as they are, a tensor's parts where
+    it lies, numpy on ``numpy_device(device)``."""
+    if isinstance(x, SplitComplex):
+        return x
+    if isinstance(x, torch.Tensor):
+        return SplitComplex(*_tensor_planes(x))
+    dev = numpy_device(device)
+    return SplitComplex(*(torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                          for p in _host_planes(x)))
+
+
+def _apply_plan_fused(st, *, plan: Plan):
+    """Transform the lane-fused array ``st`` (tpufft's
+    ``_apply_plan_fused``), with tpufft's tiers in its order:
+
+    1. the trailing cube in one K16 pass;
+    2. else the trailing pair in one K17 pass;
+    3. else the minor axis in one K20 pass;
+
+    each tier's leading axes first, one K18 pass each (K19 for the axis
+    next to the minor one), with scale 1, and the whole norm folded into
+    the tier's last pass. A tier runs when its kernels' gates hold
+    (``kernels/fused_fft``: the port's envelopes on the logical lengths)
+    and the backend is not "xla". When no tier fits (float64,
+    ``backend="xla"``, lengths outside the envelopes), the split-plane
+    pipeline runs on the two halves, which are then concatenated: tpufft's
+    own last route, still on the split-plane kernels for f32/bf16."""
+    lengths, axes = plan.lengths, plan.axes
+    n3 = lengths[-1]
+    scale = _norm_scale(plan.norm, math.prod(lengths), plan.inverse)
+    kernel_ok = plan.config.backend != "xla"
+    dt, inv = st.dtype, plan.inverse
+
+    def leading_ok(k: int) -> bool:
+        return all(_fused.inner_supported(n, dt) for n in lengths[:k])
+
+    def leading(st, k: int):
+        for a in axes[:k]:
+            st = _execute.fft_axis_fused(st, a, inverse=inv, scale=1.0)
+        return st
+
+    if (kernel_ok and _fused.cube_supported(*lengths[-3:], dt)
+            and leading_ok(len(axes) - 3)):
+        return _execute.fft_cube_fused(leading(st, len(axes) - 3),
+                                       inverse=inv, scale=scale)
+    if (kernel_ok and _fused.pair_supported(lengths[-2], n3, dt)
+            and leading_ok(len(axes) - 2)):
+        return _execute.fft_pair_fused(leading(st, len(axes) - 2),
+                                       inverse=inv, scale=scale)
+    if (kernel_ok and _fused.minor_supported(n3, dt)
+            and leading_ok(len(axes) - 1)):
+        return _execute.fft_minor_fused(leading(st, len(axes) - 1),
+                                        inverse=inv, scale=scale)
+    outr, outi = _apply_plan_split(st[..., :n3], st[..., n3:], plan=plan)
+    return torch.cat([outr, outi], dim=-1)
 
 
 def _apply_plan_split(ar, ai, *, plan: Plan):
@@ -534,17 +725,21 @@ def _hermitian_extend(ar, ai, n: int, axis: int, other_axes):
             torch.cat([ai, mir_i], dim=axis))
 
 
-def _check_ported(kind: str, layout: str) -> None:
+def _check_kind_layout(kind: str, layout: str) -> None:
     if layout not in _LAYOUTS:
         raise ValueError(
             "layout must be 'natural', 'transform-major' or 'lane-fused', "
             f"got {layout!r}")
-    if layout != "natural":
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 3: api.py layouts)")
     if kind not in ("c2c", "r2c", "c2r"):
         raise ValueError(f"kind must be 'c2c', 'r2c' or 'c2r', got {kind!r}")
+
+
+def _lane_util(n: int) -> float:
+    """tpufft's lane utilization of a length stored on the TPU's 128-lane
+    minor dim, n / (ceil(n/128) * 128). A TPU rule, kept verbatim: it
+    orders a transform-major plan's axes, and ``Plan.shape`` and
+    ``logical_perm`` are public."""
+    return n / (-(-n // 128) * 128)
 
 
 def plan_fft(
@@ -562,7 +757,16 @@ def plan_fft(
     device=None,
 ) -> Plan:
     """Build an FFT plan (the arguments of ``tpufft.plan_fft``, plus the
-    ``device`` that numpy input is moved to: None for the CUDA device)."""
+    ``device`` that numpy input is moved to: None for the CUDA device).
+
+    ``layout="transform-major"`` (c2c only): the plan's planes store the
+    transform axes permuted. One axis goes first, ``moveaxis(x, axis, 0)``
+    (``s`` allowed); several are ordered by tpufft's lane rule
+    (:func:`_lane_util`, ascending) behind the other dims, so the most
+    lane-aligned length is minor (no ``s``). ``layout="lane-fused"``: a c2c
+    plan over at least three axes, the last three among them, without
+    ``s``; its axes are sorted. Convert with :meth:`Plan.pack` and
+    :meth:`Plan.unpack` at the pipeline's edges."""
     cfg = config or PlanConfig()
     shape = tuple(int(d) for d in shape)
     if norm not in _NORMS:
@@ -571,7 +775,11 @@ def plan_fft(
     axes = _canon_axes(len(shape), axes)
     if isinstance(s, str):
         s = (s,) * len(axes)
-    _check_ported(kind, layout)
+    _check_kind_layout(kind, layout)
+    dev = None if device is None else str(torch.device(device))
+    if layout != "natural":
+        return _layout_plan(shape, dtype, axes, s, inverse, norm, kind, bases,
+                            cfg, layout, dev)
     if s is None:
         lengths = tuple(shape[a] for a in axes)
         if kind == "c2r":
@@ -586,8 +794,56 @@ def plan_fft(
     return Plan(
         shape=shape, dtype=dtype_name(dtype), axes=axes, lengths=lengths,
         bases=bases, inverse=bool(inverse), norm=norm, kind=kind, config=cfg,
-        device=None if device is None else str(torch.device(device)),
+        device=dev,
     )
+
+
+def _layout_plan(shape, dtype, axes, s, inverse, norm, kind, bases, cfg,
+                 layout, device) -> Plan:
+    """A transform-major or lane-fused plan (tpufft's layout branch of
+    ``plan_fft``, with its errors)."""
+    common = dict(dtype=dtype_name(dtype), inverse=bool(inverse), norm=norm,
+                  kind=kind, config=cfg, device=device, layout=layout,
+                  logical_shape=shape)
+    if layout == "lane-fused":
+        if kind != "c2c" or len(axes) < 3 or s is not None:
+            raise ValueError(
+                "layout='lane-fused' supports >=3-axis c2c plans without "
+                "resize (s)")
+        if not {len(shape) - 3, len(shape) - 2, len(shape) - 1} <= set(axes):
+            raise ValueError(
+                "layout='lane-fused' requires the transform axes to "
+                f"include the last three, got {axes}")
+        # a multi-axis c2c transform is order-independent; the fused body
+        # peels the leading axes and takes the last three as its tier
+        axes = tuple(sorted(axes))
+        lengths = tuple(shape[a] for a in axes)
+        return Plan(shape=shape, axes=axes, lengths=lengths,
+                    bases=_resolve_bases(lengths, bases, cfg), **common)
+    if kind != "c2c":
+        raise ValueError("layout='transform-major' supports c2c plans")
+    if len(axes) == 1:
+        ax = axes[0]
+        phys = (shape[ax],) + tuple(d for i, d in enumerate(shape) if i != ax)
+        n = shape[ax] if s is None else _resolve_fast_length(s[0], shape[ax])
+        return Plan(shape=phys, axes=(0,), lengths=(n,),
+                    bases=_resolve_bases((n,), bases, cfg), logical_axis=ax,
+                    **common)
+    if s is not None:
+        raise ValueError(
+            "layout='transform-major' with multiple axes does not support "
+            "resize (s)")
+    # the other dims keep their order in front, then the transform axes,
+    # the most lane-aligned last (a separable transform runs in any order)
+    batch = tuple(i for i in range(len(shape)) if i not in axes)
+    order = sorted(axes, key=lambda a: (_lane_util(shape[a]), shape[a]))
+    perm = batch + tuple(order)
+    phys = tuple(shape[p] for p in perm)
+    phys_axes = tuple(range(len(shape) - len(axes), len(shape)))
+    lengths = tuple(phys[a] for a in phys_axes)
+    return Plan(shape=phys, axes=phys_axes, lengths=lengths,
+                bases=_resolve_bases(lengths, bases, cfg), logical_perm=perm,
+                **common)
 
 
 def _logical_dtype(x):

@@ -7,7 +7,13 @@ the port never imports tpufft:
     tp = tpufft.plan_fft(...)
     plan = plan_from_fields(tp.shape, tp.dtype, tp.axes, tp.lengths,
                             tp.bases, tp.inverse, tp.norm, tp.kind,
-                            dataclasses.asdict(tp.config))
+                            dataclasses.asdict(tp.config), layout=tp.layout,
+                            logical_shape=tp.logical_shape,
+                            logical_axis=tp.logical_axis,
+                            logical_perm=tp.logical_perm)
+
+A transform-major or lane-fused plan comes across with the same physical
+shape, so data packed for one runs on the other with the same results.
 
 A filter or chirp-z plan's fields are its parameters:
 
@@ -34,7 +40,7 @@ import cmath
 import numpy as np
 import torch
 
-from .api import Plan, _check_ported, numpy_device
+from .api import Plan, _check_kind_layout, numpy_device
 from .config import PlanConfig
 from .core import SplitComplex, dtype_name
 from .czt import CZT
@@ -47,11 +53,19 @@ __all__ = ["czt_plan_from_fields", "filter_plan_from_fields",
 
 
 def plan_from_fields(shape, dtype, axes, lengths, bases, inverse, norm, kind,
-                     config_dict, *, device=None) -> Plan:
+                     config_dict, *, device=None, layout="natural",
+                     logical_shape=None, logical_axis=None,
+                     logical_perm=None) -> Plan:
     """The port's ``Plan`` with the field values of a ``tpufft.Plan``
     (``config_dict`` holds the fields of its ``PlanConfig``). For a c2r
-    plan, ``lengths[-1]`` is the real output length, as in tpufft."""
-    _check_ported(kind, "natural")
+    plan, ``lengths[-1]`` is the real output length, as in tpufft. A
+    layout plan carries its ``layout``, ``logical_shape``,
+    ``logical_axis`` and ``logical_perm`` as they are."""
+    _check_kind_layout(kind, layout)
+
+    def ints(v):
+        return None if v is None else tuple(int(d) for d in v)
+
     return Plan(
         shape=tuple(int(d) for d in shape),
         dtype=dtype_name(dtype),
@@ -63,6 +77,10 @@ def plan_from_fields(shape, dtype, axes, lengths, bases, inverse, norm, kind,
         kind=kind,
         config=PlanConfig(**dict(config_dict)),
         device=None if device is None else str(torch.device(device)),
+        layout=layout,
+        logical_shape=ints(logical_shape),
+        logical_axis=None if logical_axis is None else int(logical_axis),
+        logical_perm=ints(logical_perm),
     )
 
 

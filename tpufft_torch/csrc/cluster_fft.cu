@@ -6,11 +6,15 @@
 // - K6, tpufft_mid_pair_fft: axes 1 and 2 of (pre, n1, n2, L) planes in
 //   one pass, L the contiguous batch (fftn(axes=(1, 2)) of a channels-last
 //   (B, H, W, C) array). Replaces tpufft/kernels/mxu_fft.py:_build_mid_pair.
+// - K16, tpufft_cube_fft_fused: K5 on fused storage (pre, n1, n2, 2*n3),
+//   each n3-row [re | im] (fft_stages.cuh). Replaces
+//   tpufft/kernels/mxu_fft.py:_build_3d_fused; only the load and the store
+//   differ from K5, through the kernel's kFused flag.
 //
 // Contract as there: f32 or bf16 storage, f32 arithmetic, a forward/inverse
 // flag, and one real scale applied once at the store. Plain C entry points
-// for ctypes (tpufft_torch/kernels/cube_fft.py and mid_pair_fft.py bind and
-// check them).
+// for ctypes (tpufft_torch/kernels/cube_fft.py, mid_pair_fft.py and
+// fused_fft.py bind and check them).
 //
 // What bounds them on an H100: device-memory bandwidth by the bytes (~3
 // flop/byte an axis), but in practice the shared-memory passes and the
@@ -125,20 +129,6 @@ __device__ __forceinline__ void stages(float2* buf,
                      rows - r0 < chunk ? rows - r0 : chunk, inv);
 }
 
-// e / d for 0 <= e < 2^16 and 1 <= d < 2^16 as a multiply and a shift:
-// with m = ceil(2^32 / d), e m / 2^32 = e / d + e (m - 2^32 / d) / 2^32,
-// and the second term is below 2^-16 < 1/d, so the floor is exact. The
-// kernels' indices are below 16384, where a hardware division costs ~20
-// instructions and would run for every element of every phase.
-struct Div {
-  unsigned long long m;
-  __device__ __forceinline__ explicit Div(int d)
-      : m(((1ull << 32) + (unsigned)d - 1) / (unsigned)d) {}
-  __device__ __forceinline__ int operator()(int e) const {
-    return (int)(((unsigned long long)(unsigned)e * m) >> 32);
-  }
-};
-
 inline bool cluster_ok(int csize) {
   return csize == 1 || csize == 2 || csize == 4 || csize == 8 ||
          csize == 16;
@@ -220,8 +210,10 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster,
 // K5. Cluster c (blocks c*C .. c*C + C-1) transforms cube c; block `rank`
 // holds slabs [rank*slabs, rank*slabs + slabs) of n1 and, after the
 // gather, flat (k2, k3) columns [rank*cols, rank*cols + cols) as rows of
-// n1.
-template <typename T, int kThreads, int kMinBlocks>
+// n1. kFused (K16): the cube is fused storage (pre, n1, n2, 2*n3), h = n3
+// (fft_stages.cuh); the block's slabs are then runs of n3 values a plane,
+// each n3-row's re run followed by its im run.
+template <typename T, int kThreads, int kMinBlocks, bool kFused>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 cube_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 T* __restrict__ yr, T* __restrict__ yi,
@@ -252,8 +244,14 @@ cube_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int e = elem(h, k);
-      if (e < share)
-        v[k] = make_float2(load_f(xr, src0 + e), load_f(xi, src0 + e));
+      if (e < share) {
+        int64_t src = src0 + e;
+        if (kFused) {
+          const int r = e - by_area(e) * area;
+          src = fused_index(src, r - by_n3(r) * n3);
+        }
+        v[k] = make_float2(load_f(xr, src), load_f(xi, src));
+      }
     }
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -302,7 +300,11 @@ cube_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       if (e < share) {
         const int k1 = by_cols(e), q = e - k1 * cols;
         const float2 w = buf[pad(q * n1 + k1)];
-        const int64_t dst = dst0 + (int64_t)k1 * area + q;
+        int64_t dst = dst0 + (int64_t)k1 * area + q;
+        if (kFused) {
+          const int c = rank * cols + q;  // the flat (k2, k3) column
+          dst = fused_index(dst, c - by_n3(c) * n3);
+        }
         store_f(yr, dst, w.x * scale);
         store_f(yi, dst, w.y * scale);
       }
@@ -445,13 +447,13 @@ int active_clusters(Kernel kernel, const Shape& s, int csize, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
 }
 
-template <typename T, int kThreads, int kMinBlocks>
-int launch_cube(const void* xr, const void* xi, void* yr, void* yi,
-                const void* tw1, const void* tw2, const void* tw3,
-                long long pre, const Radices& p1, const Radices& p2,
-                const Radices& p3, int csize, const Shape& s, int inverse,
-                float scale, cudaStream_t stream) {
-  auto* kernel = cube_fft_kernel<T, kThreads, kMinBlocks>;
+template <typename T, int kThreads, int kMinBlocks, bool kFused>
+int launch_cube(const T* xr, const T* xi, T* yr, T* yi, const void* tw1,
+                const void* tw2, const void* tw3, long long pre,
+                const Radices& p1, const Radices& p2, const Radices& p3,
+                int csize, const Shape& s, int inverse, float scale,
+                cudaStream_t stream) {
+  auto* kernel = cube_fft_kernel<T, kThreads, kMinBlocks, kFused>;
   const long long blocks = pre * csize;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
@@ -459,13 +461,34 @@ int launch_cube(const void* xr, const void* xi, void* yr, void* yi,
   const cudaError_t err =
       configure(kernel, s, blocks, csize, stream, &attr, &cfg);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(xr),
-                     static_cast<const T*>(xi), static_cast<T*>(yr),
-                     static_cast<T*>(yi), static_cast<const float2*>(tw1),
+  cudaLaunchKernelEx(&cfg, kernel, xr, xi, yr, yi,
+                     static_cast<const float2*>(tw1),
                      static_cast<const float2*>(tw2),
                      static_cast<const float2*>(tw3), p1, p2, p3, csize,
                      inverse, scale);
   return (int)cudaGetLastError();
+}
+
+// K5 (kFused off: xr, xi, yr, yi are the four planes) or K16 (on: xr and
+// yr are the fused input and output, xi and yi unused), for the checked
+// cube geometry s.
+template <typename T, bool kFused>
+int launch_cube_typed(const void* xr, const void* xi, void* yr, void* yi,
+                      const void* tw1, const void* tw2, const void* tw3,
+                      long long pre, const Radices& p1, const Radices& p2,
+                      const Radices& p3, int csize, const Shape& s,
+                      int inverse, float scale, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xr);
+  T* y = static_cast<T*>(yr);
+  const T* x_im = kFused ? x + p3.n : static_cast<const T*>(xi);
+  T* y_im = kFused ? y + p3.n : static_cast<T*>(yi);
+  if (s.threads <= kPackedShare / kPer)
+    return launch_cube<T, 512, 2, kFused>(x, x_im, y, y_im, tw1, tw2, tw3,
+                                          pre, p1, p2, p3, csize, s, inverse,
+                                          scale, stream);
+  return launch_cube<T, 1024, 1, kFused>(x, x_im, y, y_im, tw1, tw2, tw3, pre,
+                                         p1, p2, p3, csize, s, inverse, scale,
+                                         stream);
 }
 
 template <typename T, int kThreads, int kMinBlocks>
@@ -526,6 +549,49 @@ inline Shape mid_shape(int n1, int n2, int lanes, int csize) {
   return s;
 }
 
+template <bool kFused>
+int cube_entry(const void* xr, const void* xi, void* yr, void* yi,
+               const void* tw1, const void* tw2, const void* tw3,
+               long long pre, int n1, int n2, int n3, int csize,
+               const int* rad1, int nstages1, const int* rad2, int nstages2,
+               const int* rad3, int nstages3, int inverse, float scale,
+               int bf16, void* stream) {
+  Radices p1, p2, p3;
+  if (pre < 0 || n1 < 2 || n2 < 2 || n3 < 2 ||
+      !make_radices(n1, rad1, nstages1, &p1) ||
+      !make_radices(n2, rad2, nstages2, &p2) ||
+      !make_radices(n3, rad3, nstages3, &p3))
+    return (int)cudaErrorInvalidValue;
+  const Shape s = cube_shape(n1, n2, n3, csize);
+  if (s.threads == 0) return (int)cudaErrorInvalidValue;
+  if (pre == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_cube_typed<__nv_bfloat16, kFused>(
+        xr, xi, yr, yi, tw1, tw2, tw3, pre, p1, p2, p3, csize, s, inverse,
+        scale, st);
+  return launch_cube_typed<float, kFused>(xr, xi, yr, yi, tw1, tw2, tw3, pre,
+                                          p1, p2, p3, csize, s, inverse,
+                                          scale, st);
+}
+
+template <bool kFused>
+int cube_clusters(int n1, int n2, int n3, int csize, int bf16, int* out) {
+  const Shape s = cube_shape(n1, n2, n3, csize);
+  if (s.threads == 0) return (int)cudaErrorInvalidValue;
+  if (s.threads <= kPackedShare / kPer)
+    return bf16 ? active_clusters(
+                      cube_fft_kernel<__nv_bfloat16, 512, 2, kFused>, s,
+                      csize, out)
+                : active_clusters(cube_fft_kernel<float, 512, 2, kFused>, s,
+                                  csize, out);
+  return bf16 ? active_clusters(
+                    cube_fft_kernel<__nv_bfloat16, 1024, 1, kFused>, s,
+                    csize, out)
+              : active_clusters(cube_fft_kernel<float, 1024, 1, kFused>, s,
+                                csize, out);
+}
+
 }  // namespace
 
 // Transforms the three trailing axes of the (pre, n1, n2, n3) planes xr/xi
@@ -544,30 +610,27 @@ extern "C" int tpufft_cube_fft(const void* xr, const void* xi, void* yr,
                                int nstages1, const int* rad2, int nstages2,
                                const int* rad3, int nstages3, int inverse,
                                float scale, int bf16, void* stream) {
-  Radices p1, p2, p3;
-  if (pre < 0 || n1 < 2 || n2 < 2 || n3 < 2 ||
-      !make_radices(n1, rad1, nstages1, &p1) ||
-      !make_radices(n2, rad2, nstages2, &p2) ||
-      !make_radices(n3, rad3, nstages3, &p3))
-    return (int)cudaErrorInvalidValue;
-  const Shape s = cube_shape(n1, n2, n3, csize);
-  if (s.threads == 0) return (int)cudaErrorInvalidValue;
-  if (pre == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.threads <= kPackedShare / kPer) {
-    if (bf16)
-      return launch_cube<__nv_bfloat16, 512, 2>(xr, xi, yr, yi, tw1, tw2,
-                                                tw3, pre, p1, p2, p3, csize,
-                                                s, inverse, scale, st);
-    return launch_cube<float, 512, 2>(xr, xi, yr, yi, tw1, tw2, tw3, pre, p1,
-                                      p2, p3, csize, s, inverse, scale, st);
-  }
-  if (bf16)
-    return launch_cube<__nv_bfloat16, 1024, 1>(xr, xi, yr, yi, tw1, tw2, tw3,
-                                               pre, p1, p2, p3, csize, s,
-                                               inverse, scale, st);
-  return launch_cube<float, 1024, 1>(xr, xi, yr, yi, tw1, tw2, tw3, pre, p1,
-                                     p2, p3, csize, s, inverse, scale, st);
+  return cube_entry<false>(xr, xi, yr, yi, tw1, tw2, tw3, pre, n1, n2, n3,
+                           csize, rad1, nstages1, rad2, nstages2, rad3,
+                           nstages3, inverse, scale, bf16, stream);
+}
+
+// K16: tpufft_cube_fft on fused storage. Transforms the three trailing
+// logical axes of the (pre, n1, n2, 2*n3) array st, each n3-row stored as
+// [re | im], into `out` of the same shape; every other argument and
+// condition as for tpufft_cube_fft. Returns 0 or the CUDA error code.
+extern "C" int tpufft_cube_fft_fused(const void* st, void* out,
+                                     const void* tw1, const void* tw2,
+                                     const void* tw3, long long pre, int n1,
+                                     int n2, int n3, int csize,
+                                     const int* rad1, int nstages1,
+                                     const int* rad2, int nstages2,
+                                     const int* rad3, int nstages3,
+                                     int inverse, float scale, int bf16,
+                                     void* stream) {
+  return cube_entry<true>(st, nullptr, out, nullptr, tw1, tw2, tw3, pre, n1,
+                          n2, n3, csize, rad1, nstages1, rad2, nstages2, rad3,
+                          nstages3, inverse, scale, bf16, stream);
 }
 
 // Into *out, how many clusters of tpufft_cube_fft at (n1, n2, n3, csize)
@@ -575,17 +638,14 @@ extern "C" int tpufft_cube_fft(const void* xr, const void* xi, void* yr,
 // Returns 0 or the CUDA error code.
 extern "C" int tpufft_cube_active_clusters(int n1, int n2, int n3, int csize,
                                            int bf16, int* out) {
-  const Shape s = cube_shape(n1, n2, n3, csize);
-  if (s.threads == 0) return (int)cudaErrorInvalidValue;
-  if (s.threads <= kPackedShare / kPer)
-    return bf16 ? active_clusters(cube_fft_kernel<__nv_bfloat16, 512, 2>, s,
-                                  csize, out)
-                : active_clusters(cube_fft_kernel<float, 512, 2>, s, csize,
-                                  out);
-  return bf16 ? active_clusters(cube_fft_kernel<__nv_bfloat16, 1024, 1>, s,
-                                csize, out)
-              : active_clusters(cube_fft_kernel<float, 1024, 1>, s, csize,
-                                out);
+  return cube_clusters<false>(n1, n2, n3, csize, bf16, out);
+}
+
+// The same for tpufft_cube_fft_fused.
+extern "C" int tpufft_cube_fused_active_clusters(int n1, int n2, int n3,
+                                                 int csize, int bf16,
+                                                 int* out) {
+  return cube_clusters<true>(n1, n2, n3, csize, bf16, out);
 }
 
 // Transforms axes 1 and 2 of the (pre, n1, n2, L) planes xr/xi into the

@@ -1,6 +1,7 @@
 // The in-shared-memory Stockham FFT core shared by the port's C2C kernels:
 // the minor-axis kernel (minor_fft.cuh), the strided-axis kernel
-// (strided_fft.cu) and the trailing-pair kernel (pair_fft.cu). Each kernel
+// (strided_fft.cu), the trailing-pair kernel (pair_fft.cu), the cluster
+// kernels (cluster_fft.cu) and the real transforms (real_fft.cu). Each kernel
 // loads its tile from device memory into one shared buffer laid out as
 // `rows` rows of length n, calls run_stages, and stores the rows back; only
 // the load and the store differ between them.
@@ -27,6 +28,15 @@
 // Shared memory is indexed through pad(i) = i + i/16, one spare float2
 // per 16: a radix-R stage with s = 1 writes with stride R, which would
 // put a half-warp's 16 float2 stores on 16/R of the 16 bank pairs.
+//
+// Fused storage (tpufft's layout="lane-fused" plans): a logical complex
+// row of length h is one real row of 2h, [re(0..h-1) | im(0..h-1)]. Each
+// kernel reads and writes it through its two plane pointers, set by the
+// host to st and st + h, at fused_index(g, g mod h) for logical element g:
+// re at st[2g - g mod h], im h further on. The two pointers address
+// disjoint elements of one buffer, so their __restrict__ holds. A kernel
+// takes the layout as a template flag (kFused); with it off, its loads and
+// stores are the split planes' own.
 
 #pragma once
 
@@ -260,6 +270,26 @@ __device__ __forceinline__ void run_stages(float2* buf,
     }
     s *= r;
   }
+}
+
+// e / d for 0 <= e < 2^16 and 1 <= d < 2^16 as a multiply and a shift:
+// with m = ceil(2^32 / d), e m / 2^32 = e / d + e (m - 2^32 / d) / 2^32,
+// and the second term is below 2^-16 < 1/d, so the floor is exact. The
+// kernels' in-block indices are below 16384, where a hardware division
+// costs ~20 instructions and would run for every element of every phase.
+struct Div {
+  unsigned long long m;
+  __device__ __forceinline__ explicit Div(int d)
+      : m(((1ull << 32) + (unsigned)d - 1) / (unsigned)d) {}
+  __device__ __forceinline__ int operator()(int e) const {
+    return (int)(((unsigned long long)(unsigned)e * m) >> 32);
+  }
+};
+
+// Index, through the re pointer, of logical element g of fused storage;
+// k = g mod h (the im value lies h further on).
+__device__ __forceinline__ int64_t fused_index(int64_t g, int k) {
+  return 2 * g - k;
 }
 
 // Host: fill `plan` from radices[0:nstages] for length n; false unless

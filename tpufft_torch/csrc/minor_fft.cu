@@ -1,7 +1,8 @@
-// Host entry point of the batched minor-axis C2C FFT, with a plain C
-// interface for ctypes (tpufft_torch/_build.py builds this file, and
-// tpufft_torch/kernels/minor_fft.py binds and checks it). The kernel and
-// its design notes are in minor_fft.cuh.
+// Host entry points of the batched minor-axis C2C FFT (K1, K9) and of its
+// fused-storage form (K20), with a plain C interface for ctypes
+// (tpufft_torch/_build.py builds this file; tpufft_torch/kernels/
+// minor_fft.py and fused_fft.py bind and check it). The kernel and its
+// design notes are in minor_fft.cuh.
 
 #include "minor_fft.cuh"
 
@@ -9,11 +10,13 @@ using namespace tpufft_minor;
 
 namespace {
 
-template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded,
+          bool kFused>
 int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
            long long batch, const Radices& plan, const Geometry& g, int n_in,
            int inverse, float scale, cudaStream_t stream) {
-  auto* kernel = minor_fft_kernel<T, kThreads, kPer, kMinBlocks, kPadded>;
+  auto* kernel =
+      minor_fft_kernel<T, kThreads, kPer, kMinBlocks, kPadded, kFused>;
   if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, g.smem);
   if (err != cudaSuccess) return (int)err;
@@ -26,16 +29,16 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kPadded>
+template <typename T, bool kPadded, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, long long batch, const Radices& plan,
                  int n_in, int inverse, float scale, cudaStream_t stream) {
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
-    return launch<T, 512, 8, 2, kPadded>(xr, xi, yr, yi, tw, batch, plan, g,
-                                          n_in, inverse, scale, stream);
-  return launch<T, 1024, 16, 1, kPadded>(xr, xi, yr, yi, tw, batch, plan, g,
-                                         n_in, inverse, scale, stream);
+    return launch<T, 512, 8, 2, kPadded, kFused>(
+        xr, xi, yr, yi, tw, batch, plan, g, n_in, inverse, scale, stream);
+  return launch<T, 1024, 16, 1, kPadded, kFused>(
+      xr, xi, yr, yi, tw, batch, plan, g, n_in, inverse, scale, stream);
 }
 
 template <typename T>
@@ -43,10 +46,23 @@ int launch_typed(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, long long batch, const Radices& plan,
                  int n_in, int inverse, float scale, cudaStream_t stream) {
   if (n_in == plan.n)
-    return launch_sized<T, false>(xr, xi, yr, yi, tw, batch, plan, n_in,
-                                  inverse, scale, stream);
-  return launch_sized<T, true>(xr, xi, yr, yi, tw, batch, plan, n_in,
-                               inverse, scale, stream);
+    return launch_sized<T, false, false>(xr, xi, yr, yi, tw, batch, plan,
+                                         n_in, inverse, scale, stream);
+  return launch_sized<T, true, false>(xr, xi, yr, yi, tw, batch, plan, n_in,
+                                      inverse, scale, stream);
+}
+
+// K20: the rows of st and out are fused storage, their two planes st and
+// st + n (out and out + n) with row stride 2n.
+template <typename T>
+int launch_fused(const void* st, void* out, const void* tw, long long batch,
+                 const Radices& plan, int inverse, float scale,
+                 cudaStream_t stream) {
+  const T* x = static_cast<const T*>(st);
+  T* y = static_cast<T*>(out);
+  const int n = plan.n;
+  return launch_sized<T, false, true>(x, x + n, y, y + n, tw, batch, plan, n,
+                                      inverse, scale, stream);
 }
 
 }  // namespace
@@ -74,4 +90,24 @@ extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                        inverse, scale, s);
   return launch_typed<float>(xr, xi, yr, yi, tw, batch, plan, n_in, inverse,
                              scale, s);
+}
+
+// K20: the same transform on fused storage. Transforms the (batch, 2n)
+// array st, each row [re(0..n-1) | im(0..n-1)], into `out` of the same
+// shape; tw, radices, inverse, scale, bf16 and stream as for
+// tpufft_minor_fft. Returns 0 or the CUDA error code of the launch.
+extern "C" int tpufft_minor_fft_fused(const void* st, void* out,
+                                      const void* tw, long long batch, int n,
+                                      const int* radices, int nstages,
+                                      int inverse, float scale, int bf16,
+                                      void* stream) {
+  Radices plan;
+  if (batch < 0 || !make_radices(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_fused<__nv_bfloat16>(st, out, tw, batch, plan, inverse,
+                                       scale, s);
+  return launch_fused<float>(st, out, tw, batch, plan, inverse, scale, s);
 }

@@ -15,6 +15,9 @@
 // shared with the strided-axis and pair kernels), and stores the rows
 // coalesced in natural order. The TPU kernel's dense DFT matmuls and
 // batch-on-lanes transposes exist for the MXU and are not carried over.
+// The same kernel on fused storage (kFused) replaces _build_minor_fused
+// (K20), whose block-complex matmul st @ [[Wr, Wi], [-Wi, Wr]] is this DFT
+// of each row's two halves.
 //
 // Two details keep the passes near the bandwidth bound:
 // - the load and the store are unrolled over a thread's kPer values, so
@@ -44,15 +47,21 @@ constexpr int kPackedElems = 4096;  // rows * n of a block of short rows
 // n_in), and columns n_in..n-1 load as zeros, so the pad never touches
 // device memory. Only the load differs; without kPadded, n_in is unused and
 // the kernel is K1's.
-template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
+// kFused (K20, tpufft's _build_minor_fused): the rows are fused storage,
+// (batch, 2n) with each row [re | im], h = n (fft_stages.cuh); only the
+// load and the store differ from K1.
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded,
+          bool kFused>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 minor_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                  T* __restrict__ yr, T* __restrict__ yi,
                  const float2* __restrict__ tw, int64_t batch, Radices plan,
                  int rows, int n_in, int inverse, float scale) {
+  static_assert(!(kPadded && kFused), "no fused zero-pad form");
   extern __shared__ float2 tpufft_minor_smem[];
   float2* buf = tpufft_minor_smem;
   const int n = plan.n;
+  const Div by_n(n);  // the fused IO's column of e (e < 16384)
   const int64_t row0 = (int64_t)blockIdx.x * rows;
   const int64_t here = batch - row0 < rows ? batch - row0 : rows;
   const int64_t base = row0 * n;
@@ -69,7 +78,9 @@ minor_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       if (e < valid && c < n_in)
         v[k] = make_float2(load_f(xr, src), load_f(xi, src));
     } else if (e < valid) {
-      v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+      const int64_t g =
+          kFused ? fused_index(base + e, e - by_n(e) * n) : base + e;
+      v[k] = make_float2(load_f(xr, g), load_f(xi, g));
     }
   }
 #pragma unroll
@@ -84,8 +95,10 @@ minor_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
     const int e = threadIdx.x + k * blockDim.x;
     if (e < valid) {
       const float2 w = buf[pad(e)];
-      store_f(yr, base + e, w.x * scale);
-      store_f(yi, base + e, w.y * scale);
+      const int64_t g =
+          kFused ? fused_index(base + e, e - by_n(e) * n) : base + e;
+      store_f(yr, g, w.x * scale);
+      store_f(yi, g, w.y * scale);
     }
   }
 }

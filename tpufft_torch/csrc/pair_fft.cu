@@ -1,9 +1,11 @@
 // Batched 2-D C2C FFT over the two trailing axes of (pre, n1, n2) planes,
-// with a plain C entry point for ctypes (tpufft_torch/kernels/pair_fft.py
-// binds and checks it).
+// with plain C entry points for ctypes (tpufft_torch/kernels/pair_fft.py
+// and fused_fft.py bind and check them).
 //
 // Replaces tpufft/kernels/mxu_fft.py:_build_2d, the Pallas TPU kernel that
-// runs a plan's trailing pair of axes in one pass. Contract as there: f32
+// runs a plan's trailing pair of axes in one pass, and, on fused storage
+// (tpufft_pair_fft_fused: (pre, n1, 2*n2), each n2-row [re | im]; only the
+// load and the store differ), _build_pair_fused (K17). Contract as there: f32
 // or bf16 storage, f32 arithmetic, a forward/inverse flag, one real scale
 // applied once at the store, and n2_io's zero-pad direction (m_in < m_out =
 // n2) as n2_in: the input slices are (n1, n2_in) and their columns n2_in..
@@ -40,8 +42,10 @@ namespace {
 // Block b transforms slices [b*slabs, b*slabs + slabs) of the planes; the
 // ragged last block computes on zero slices and stores only real ones.
 // kPadded: input slices are (n1, n2_in), zero-padded to (n1, n2) at the
-// load; without it n2_in is unused.
-template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
+// load; without it n2_in is unused. kFused (K17): the slices are fused
+// storage, h = n2 (fft_stages.cuh).
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded,
+          bool kFused>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 T* __restrict__ yr, T* __restrict__ yi,
@@ -49,6 +53,7 @@ pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 const float2* __restrict__ tw2, int64_t pre, Radices plan1,
                 Radices plan2, int slabs, int n2_in, int inverse,
                 float scale) {
+  static_assert(!(kPadded && kFused), "no fused zero-pad form");
   extern __shared__ float2 tpufft_pair_smem[];
   float2* buf = tpufft_pair_smem;
   const int n1 = plan1.n, n2 = plan2.n, area = n1 * n2;
@@ -69,7 +74,8 @@ pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       if (e < valid && c < n2_in)
         v[k] = make_float2(load_f(xr, src), load_f(xi, src));
     } else if (e < valid) {
-      v[k] = make_float2(load_f(xr, base + e), load_f(xi, base + e));
+      const int64_t g = kFused ? fused_index(base + e, e % n2) : base + e;
+      v[k] = make_float2(load_f(xr, g), load_f(xi, g));
     }
   }
 #pragma unroll
@@ -104,18 +110,21 @@ pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       const int s = e / area, r = e - s * area;
       const int k1 = r / n2, k2 = r - k1 * n2;
       const float2 w = buf[pad(s * area + k2 * n1 + k1)];
-      store_f(yr, base + e, w.x * scale);
-      store_f(yi, base + e, w.y * scale);
+      const int64_t g = kFused ? fused_index(base + e, k2) : base + e;
+      store_f(yr, g, w.x * scale);
+      store_f(yi, g, w.y * scale);
     }
   }
 }
 
-template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded>
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPadded,
+          bool kFused>
 int launch(const void* xr, const void* xi, void* yr, void* yi,
            const void* tw1, const void* tw2, long long pre,
            const Radices& plan1, const Radices& plan2, const Geometry& g,
            int n2_in, int inverse, float scale, cudaStream_t stream) {
-  auto* kernel = pair_fft_kernel<T, kThreads, kPer, kMinBlocks, kPadded>;
+  auto* kernel =
+      pair_fft_kernel<T, kThreads, kPer, kMinBlocks, kPadded, kFused>;
   if (g.threads > kThreads || g.per != kPer) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, g.smem);
   if (err != cudaSuccess) return (int)err;
@@ -129,19 +138,19 @@ int launch(const void* xr, const void* xi, void* yr, void* yi,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kPadded>
+template <typename T, bool kPadded, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw1, const void* tw2, long long pre,
                  const Radices& plan1, const Radices& plan2, int n2_in,
                  int inverse, float scale, cudaStream_t stream) {
   const Geometry g = launch_geometry(plan1.n * plan2.n);
   if (g.per == 8)
-    return launch<T, 512, 8, 2, kPadded>(xr, xi, yr, yi, tw1, tw2, pre,
-                                          plan1, plan2, g, n2_in, inverse,
-                                          scale, stream);
-  return launch<T, 1024, 16, 1, kPadded>(xr, xi, yr, yi, tw1, tw2, pre,
-                                         plan1, plan2, g, n2_in, inverse,
-                                         scale, stream);
+    return launch<T, 512, 8, 2, kPadded, kFused>(xr, xi, yr, yi, tw1, tw2,
+                                                  pre, plan1, plan2, g, n2_in,
+                                                  inverse, scale, stream);
+  return launch<T, 1024, 16, 1, kPadded, kFused>(xr, xi, yr, yi, tw1, tw2,
+                                                 pre, plan1, plan2, g, n2_in,
+                                                 inverse, scale, stream);
 }
 
 template <typename T>
@@ -150,10 +159,25 @@ int launch_typed(const void* xr, const void* xi, void* yr, void* yi,
                  const Radices& plan1, const Radices& plan2, int n2_in,
                  int inverse, float scale, cudaStream_t stream) {
   if (n2_in == plan2.n)
-    return launch_sized<T, false>(xr, xi, yr, yi, tw1, tw2, pre, plan1,
-                                  plan2, n2_in, inverse, scale, stream);
-  return launch_sized<T, true>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
-                               n2_in, inverse, scale, stream);
+    return launch_sized<T, false, false>(xr, xi, yr, yi, tw1, tw2, pre,
+                                         plan1, plan2, n2_in, inverse, scale,
+                                         stream);
+  return launch_sized<T, true, false>(xr, xi, yr, yi, tw1, tw2, pre, plan1,
+                                      plan2, n2_in, inverse, scale, stream);
+}
+
+// K17: (pre, n1, 2*n2) fused storage, its two planes st and st + n2 (out
+// and out + n2) with row stride 2*n2.
+template <typename T>
+int launch_fused(const void* st, void* out, const void* tw1, const void* tw2,
+                 long long pre, const Radices& plan1, const Radices& plan2,
+                 int inverse, float scale, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(st);
+  T* y = static_cast<T*>(out);
+  const int n2 = plan2.n;
+  return launch_sized<T, false, true>(x, x + n2, y, y + n2, tw1, tw2, pre,
+                                      plan1, plan2, n2, inverse, scale,
+                                      stream);
 }
 
 }  // namespace
@@ -185,4 +209,29 @@ extern "C" int tpufft_pair_fft(const void* xr, const void* xi, void* yr,
                                        plan2, n2_in, inverse, scale, s);
   return launch_typed<float>(xr, xi, yr, yi, tw1, tw2, pre, plan1, plan2,
                              n2_in, inverse, scale, s);
+}
+
+// K17: both trailing logical axes of the (pre, n1, 2*n2) array st in fused
+// storage, each n2-row [re(0..n2-1) | im(0..n2-1)], into `out` of the same
+// shape; every other argument and condition as for tpufft_pair_fft with
+// n2_in = n2. Returns 0 or the CUDA error code of the launch.
+extern "C" int tpufft_pair_fft_fused(const void* st, void* out,
+                                     const void* tw1, const void* tw2,
+                                     long long pre, int n1, int n2,
+                                     const int* rad1, int nstages1,
+                                     const int* rad2, int nstages2,
+                                     int inverse, float scale, int bf16,
+                                     void* stream) {
+  Radices plan1, plan2;
+  if (pre < 0 || n1 < 2 || n2 < 2 || (long long)n1 * n2 > kMaxN ||
+      !make_radices(n1, rad1, nstages1, &plan1) ||
+      !make_radices(n2, rad2, nstages2, &plan2))
+    return (int)cudaErrorInvalidValue;
+  if (pre == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_fused<__nv_bfloat16>(st, out, tw1, tw2, pre, plan1, plan2,
+                                       inverse, scale, s);
+  return launch_fused<float>(st, out, tw1, tw2, pre, plan1, plan2, inverse,
+                             scale, s);
 }

@@ -1,11 +1,15 @@
-// Batched C2C FFT along a strided (non-minor) axis, with a plain C entry
-// point for ctypes (tpufft_torch/kernels/inner_fft.py binds and checks it).
+// Batched C2C FFT along a strided (non-minor) axis, with plain C entry
+// points for ctypes (tpufft_torch/kernels/inner_fft.py and fused_fft.py bind
+// and check them).
 //
-// Replaces two Pallas TPU kernels of tpufft/kernels/mxu_fft.py:
+// Replaces four Pallas TPU kernels of tpufft/kernels/mxu_fft.py:
 // - _build_inner: the middle axis of a (pre, n, L) view, L contiguous;
 // - _build_inner_nd: dim 0 of a (pre*n, M, L) view, optionally multiplied
 //   by an (n, M) complex twiddle before the store (with_tw, pass 1 of the
-//   two-pass split of a long axis).
+//   two-pass split of a long axis);
+// - _build_inner_fused and _build_inner_fused_m1 (K18, K19): the same axis
+//   of a fused-storage (pre, n, M, 2L) array whose L-rows are [re | im]
+//   (tpufft_strided_fft_fused; only the load and the store differ).
 // On the H100 there is no (8, 128) lane tiling, so both views are the same
 // memory: (pre, n, post) with post = M*L contiguous. One kernel serves
 // both; the wrappers count the two separately. Contract as the minor-axis
@@ -90,7 +94,11 @@ inline Tile tile_for(long long pre, int n, long long post) {
 // c0 + l of slice p0 + pp. Out-of-range slices and columns load zeros and
 // are not stored. With tw_nm, output (k, c) is multiplied by
 // tw_nm[k, c / tw_l] (an (n, tw_m) table) before the scale.
-template <typename T, int kThreads, int kPer, int kMinBlocks>
+// kFused (K18, K19): the planes are fused storage (pre, n, M, 2L) with
+// post = M * L logical columns and h = tw_l = L (fft_stages.cuh); logical
+// column c = m*L + l lies at m*2L + l, so a tile's columns may span several
+// m and never read an im half as re columns. tw_nm is null.
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kFused>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                    T* __restrict__ yr, T* __restrict__ yi,
@@ -117,7 +125,8 @@ strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       const int64_t p = p0 + pp;
       const int c = c0 + l;
       if (p < pre && c < post) {
-        const int64_t g = (p * n + kk) * post + c;
+        int64_t g = (p * n + kk) * post + c;
+        if (kFused) g = fused_index(g, c % tw_l);
         v[k] = make_float2(load_f(xr, g), load_f(xi, g));
       }
     }
@@ -143,8 +152,10 @@ strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       const int c = c0 + l;
       if (p < pre && c < post) {
         float2 w = buf[pad((pp * cols + l) * n + kk)];
-        if (tw_nm != nullptr) w = cmul(w, __ldg(&tw_nm[kk * tw_m + c / tw_l]));
-        const int64_t g = (p * n + kk) * post + c;
+        if (!kFused && tw_nm != nullptr)
+          w = cmul(w, __ldg(&tw_nm[kk * tw_m + c / tw_l]));
+        int64_t g = (p * n + kk) * post + c;
+        if (kFused) g = fused_index(g, c % tw_l);
         store_f(yr, g, w.x * scale);
         store_f(yi, g, w.y * scale);
       }
@@ -152,12 +163,12 @@ strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
-template <typename T, int kThreads, int kPer, int kMinBlocks>
+template <typename T, int kThreads, int kPer, int kMinBlocks, bool kFused>
 int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
            const void* tw_nm, long long pre, long long post, int tw_m,
            long long tw_l, const Radices& plan, const Tile& t, int inverse,
            float scale, cudaStream_t stream) {
-  auto* kernel = strided_fft_kernel<T, kThreads, kPer, kMinBlocks>;
+  auto* kernel = strided_fft_kernel<T, kThreads, kPer, kMinBlocks, kFused>;
   if (t.threads > kThreads || t.per != kPer) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, t.smem);
   if (err != cudaSuccess) return (int)err;
@@ -170,7 +181,7 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, const void* tw_nm, long long pre,
                  long long post, int tw_m, long long tw_l,
@@ -179,10 +190,24 @@ int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
   const Tile t = tile_for(pre, plan.n, post);
   if (t.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (t.per == 8)
-    return launch<T, 512, 8, 2>(xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m,
-                                tw_l, plan, t, inverse, scale, stream);
-  return launch<T, 1024, 16, 1>(xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m,
-                                tw_l, plan, t, inverse, scale, stream);
+    return launch<T, 512, 8, 2, kFused>(xr, xi, yr, yi, tw, tw_nm, pre, post,
+                                        tw_m, tw_l, plan, t, inverse, scale,
+                                        stream);
+  return launch<T, 1024, 16, 1, kFused>(xr, xi, yr, yi, tw, tw_nm, pre, post,
+                                        tw_m, tw_l, plan, t, inverse, scale,
+                                        stream);
+}
+
+// K18/K19: (pre, n, M, 2L) fused storage, its two planes st and st + L
+// (out and out + L), as the (pre, n, M * L) logical planes with h = L.
+template <typename T>
+int launch_fused(const void* st, void* out, const void* tw, long long pre,
+                 long long M, long long L, const Radices& plan, int inverse,
+                 float scale, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(st);
+  T* y = static_cast<T*>(out);
+  return launch_sized<T, true>(x, x + L, y, y + L, tw, nullptr, pre, M * L,
+                               0, L, plan, inverse, scale, stream);
 }
 
 }  // namespace
@@ -209,8 +234,33 @@ extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
   if (pre == 0 || post == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_sized<__nv_bfloat16>(xr, xi, yr, yi, tw, tw_nm, pre, post,
-                                       tw_m, tw_l, plan, inverse, scale, s);
-  return launch_sized<float>(xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m,
-                             tw_l, plan, inverse, scale, s);
+    return launch_sized<__nv_bfloat16, false>(xr, xi, yr, yi, tw, tw_nm, pre,
+                                              post, tw_m, tw_l, plan, inverse,
+                                              scale, s);
+  return launch_sized<float, false>(xr, xi, yr, yi, tw, tw_nm, pre, post,
+                                    tw_m, tw_l, plan, inverse, scale, s);
+}
+
+// K18 (M > 1) and K19 (M == 1): axis 1 of the (pre, n, M, 2L) array st in
+// fused storage, each L-row [re(0..L-1) | im(0..L-1)], into `out` of the
+// same shape; tw, radices, inverse, scale, bf16 and stream as for
+// tpufft_strided_fft; M, L >= 1 and M * L <= INT_MAX. Returns 0 or the
+// CUDA error code of the launch.
+extern "C" int tpufft_strided_fft_fused(const void* st, void* out,
+                                        const void* tw, long long pre, int n,
+                                        long long M, long long L,
+                                        const int* radices, int nstages,
+                                        int inverse, float scale, int bf16,
+                                        void* stream) {
+  Radices plan;
+  if (pre < 0 || M < 1 || L < 1 || M > INT_MAX / L ||
+      !make_radices(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (pre == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_fused<__nv_bfloat16>(st, out, tw, pre, M, L, plan, inverse,
+                                       scale, s);
+  return launch_fused<float>(st, out, tw, pre, M, L, plan, inverse, scale,
+                             s);
 }

@@ -34,10 +34,14 @@ bound on its load (:func:`pad_axis_ok`). :func:`rfft_minor` and
 :func:`irfft_minor` run the real transforms of one axis on K7 and K8
 (``kernels/real_fft``) when :func:`r2c_minor_supported` says they fit,
 moving a non-minor axis minor and back as tpufft does.
+:func:`fft_cube_fused`, :func:`fft_pair_fused`, :func:`fft_minor_fused`
+and :func:`fft_axis_fused` run the passes of a lane-fused plan on fused
+storage, ONE real array whose minor logical rows hold [re | im]
+(``kernels/fused_fft``, K16-K20).
 
 Every entry point is differentiable (``_FFTAxis``, ``_FFTPair``,
 ``_FFTCube``, ``_FFTMidPair``, ``_FFTPadded``, ``_RFFTMinor``,
-``_IRFFTMinor``): the split-plane DFT is
+``_IRFFTMinor``, ``_FFTFused``): the split-plane DFT is
 the real-linear map [[Fr, -Fi], [Fi, Fr]] with F symmetric, so its
 transpose applied to g is the same transform with the opposite sign and
 the same scale; a zero-pad's transpose is the crop; rfft's is the
@@ -57,13 +61,14 @@ import torch.nn.functional as F
 
 from . import core
 from .config import PlanConfig
-from .kernels import (cube_fft, inner_fft, mid_pair_fft, minor_fft,
-                      pair_fft, real_fft)
+from .kernels import (cube_fft, fused_fft, inner_fft, mid_pair_fft,
+                      minor_fft, pair_fft, real_fft)
 from .planner import default_bases, factorize, next_fast_len
 
 __all__ = [
-    "MID_PAIR_MIN_L", "cube_supported", "fft_axis", "fft_axis_padded",
-    "fft_cube_last", "fft_mid_pair", "fft_pair_last", "irfft_minor",
+    "MID_PAIR_MIN_L", "cube_supported", "fft_axis", "fft_axis_fused",
+    "fft_axis_padded", "fft_cube_fused", "fft_cube_last", "fft_mid_pair",
+    "fft_minor_fused", "fft_pair_fused", "fft_pair_last", "irfft_minor",
     "mid_pair_ok", "pad_axis_ok", "pair_pad_ok", "pair_supported",
     "r2c_minor_supported", "rfft_minor",
 ]
@@ -510,6 +515,85 @@ def fft_mid_pair(
     :func:`mid_pair_ok`."""
     return _FFTMidPair.apply(ar, ai, axis1 % ar.ndim, bool(inverse),
                              float(scale))
+
+
+# ----------------------------------------------------------------------------
+# Passes on fused storage (K16-K20)
+# ----------------------------------------------------------------------------
+
+def _fused_impl(st, kind: str, axis: int, inverse: bool, scale: float):
+    """One fused-storage pass over the free view its kernel takes."""
+    shape = st.shape
+    kw = dict(inverse=inverse, scale=scale)
+    if kind == "cube":
+        out = fused_fft.fft_cube_fused(
+            st.reshape((-1,) + tuple(shape[-3:])).contiguous(), **kw)
+    elif kind == "pair":
+        out = fused_fft.fft_pair_fused(
+            st.reshape((-1,) + tuple(shape[-2:])).contiguous(), **kw)
+    elif kind == "minor":
+        out = fused_fft.fft_minor_fused(
+            st.reshape(-1, shape[-1]).contiguous(), **kw)
+    else:
+        view = (math.prod(shape[:axis]), shape[axis],
+                math.prod(shape[axis + 1:-1]), shape[-1])
+        out = fused_fft.fft_inner_fused(st.reshape(view).contiguous(), **kw)
+    return out.reshape(shape)
+
+
+class _FFTFused(torch.autograd.Function):
+    """Differentiable fused-storage pass (tpufft's ``_fft_cube_fused_diff``,
+    ``_fft_pair_fused_diff``, ``_fft_minor_fused_diff`` and
+    ``_fft_axis_fused_diff``). On the stacked [re | im] real vector the DFT
+    is A = [[Fr, -Fi], [Fi, Fr]], the split planes' map with its elements
+    permuted; F symmetric makes A^T the opposite-sign transform with the
+    same scale, so the backward is the same pass with the sign flipped."""
+
+    @staticmethod
+    def forward(ctx, st, kind, axis, inverse, scale):
+        ctx.args = (kind, axis, inverse, scale)
+        return _fused_impl(st, kind, axis, inverse, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        kind, axis, inverse, scale = ctx.args
+        return (_FFTFused.apply(g, kind, axis, not inverse, scale), None,
+                None, None, None)
+
+
+def fft_cube_fused(st: torch.Tensor, *, inverse: bool,
+                   scale: float) -> torch.Tensor:
+    """Transform the last three logical axes of a lane-fused
+    (..., n1, n2, 2*n3) array in one K16 pass (differentiable); the caller
+    checks ``fused_fft.cube_supported``."""
+    return _FFTFused.apply(st, "cube", -1, bool(inverse), float(scale))
+
+
+def fft_pair_fused(st: torch.Tensor, *, inverse: bool,
+                   scale: float) -> torch.Tensor:
+    """Transform the last two logical axes of a lane-fused (..., n2, 2*n3)
+    array in one K17 pass (differentiable); the caller checks
+    ``fused_fft.pair_supported``."""
+    return _FFTFused.apply(st, "pair", -1, bool(inverse), float(scale))
+
+
+def fft_minor_fused(st: torch.Tensor, *, inverse: bool,
+                    scale: float) -> torch.Tensor:
+    """Transform the minor logical axis of a lane-fused (..., 2*n) array in
+    one K20 pass (differentiable); the caller checks
+    ``fused_fft.minor_supported``."""
+    return _FFTFused.apply(st, "minor", -1, bool(inverse), float(scale))
+
+
+def fft_axis_fused(st: torch.Tensor, axis: int, *, inverse: bool,
+                   scale: float) -> torch.Tensor:
+    """Transform a leading logical ``axis`` of a lane-fused (..., 2*n_minor)
+    array in one K18 pass (K19 when it is the axis next to the minor one;
+    differentiable); the caller checks ``fused_fft.inner_supported``."""
+    axis = axis % st.ndim
+    if axis >= st.ndim - 1:
+        raise ValueError("fft_axis_fused serves leading axes only")
+    return _FFTFused.apply(st, "inner", axis, bool(inverse), float(scale))
 
 
 # ----------------------------------------------------------------------------

@@ -119,15 +119,17 @@ def supported(n1: int, n2: int, n3: int, dtype) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def active_clusters(n1: int, n2: int, n3: int, bf16: bool,
-                    device_index: int) -> int:
+                    device_index: int, fused: bool = False) -> int:
     """How many clusters of the kernel at this cube the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; needs the card)."""
+    (``cudaOccupancyMaxActiveClusters``; needs the card); ``fused``: of
+    its fused-storage form K16 (``kernels/fused_fft``)."""
     lib = _build.load()
+    query = (lib.tpufft_cube_fused_active_clusters if fused
+             else lib.tpufft_cube_active_clusters)
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = lib.tpufft_cube_active_clusters(
-            n1, n2, n3, cluster_size(n1, n2, n3), int(bf16),
-            ctypes.byref(out))
+        err = query(n1, n2, n3, cluster_size(n1, n2, n3), int(bf16),
+                    ctypes.byref(out))
     if err != 0:
         raise RuntimeError(
             f"cube_fft: cudaOccupancyMaxActiveClusters failed: CUDA error "
