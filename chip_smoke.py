@@ -33,7 +33,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
    ``np.fft`` on a few slices and through the round trip;
 8. times at those shapes: the path, each kernel alone at the shape the
    path gives it, its plain version, cuFFT (a baseline only) and a device
-   copy of both planes, plus the old movedim route of the strided axis;
+   copy of both planes, plus the old movedim route of the strided axis and
+   K4's packed form on (200000, 8, 93) beside ``fft2`` and its copy floor;
 9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
    DFT, K1 with a bound on its load) and K4 with ``n2_in`` against their
    plain versions on ragged batches: even and odd real lengths 2 to 32768,
@@ -69,11 +70,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
     shapes, their plain versions and ``torch.matmul`` on the same operands
     (cuBLAS, a yardstick only), and the filter's dense route (K10) against
     its composed route (K1, multiply, K1) on (100000, n) for n = 64 to 512;
-15. the short-time Fourier kernels K13 (overlapped-frame STFT), K14
-    (inverse STFT with overlap-add) and K15 (Welch and CSD accumulators)
-    against their plain versions: hop 128, 64 and 32, nperseg 128 to 1024,
-    nfft > nperseg, detrend False, "constant" and "linear" folded into
-    the matrix, batches of 1, 3 and 70 rows, f32 and bf16 signals;
+15. the short-time Fourier kernels K13 (overlapped-frame STFT, an FFT of
+    each frame in shared memory), K14 (inverse STFT with overlap-add) and
+    K15 (Welch and CSD accumulators) against their plain versions: hop 128,
+    64 and 32, nperseg 128 to 1024, nfft > nperseg, detrend False,
+    "constant" and "linear", batches of 1, 3 and 70 rows, f32 and bf16
+    signals; for K13 also odd nfft (255, 93), a hop longer than a frame,
+    hop 1, ragged last runs of frames and a ShortTimeFFT's window and
+    per-bin factor (onesided2X, psd scaling, a phase shift);
 16. the spectral paths at full size on (64, 1048576) f32 signals, each call
     driven with every count set to 0 just before it and read just after:
     ``stft(nperseg=256)`` (K13), its ``istft`` (K14), ``welch`` (K15),
@@ -84,7 +88,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
     scipy in float64 on a few rows (limit 1e-4) and through the round
     trips;
 17. times: those paths, K13, K14 and K15 (welch, csd) alone at their
-    paths' shapes, their plain versions and the PyTorch yardsticks:
+    paths' shapes (K13's bound: its bytes, the signal read once and the
+    planes written once), their plain versions and the PyTorch yardsticks:
     ``torch.stft(center=False)`` for K13, ``torch.istft`` for K14 and
     ``torch.stft`` then ``abs() ** 2`` and a sum (a short composition) for
     K15;
@@ -599,6 +604,20 @@ def phase_new_times() -> dict:
                        flops=_fft_flops(n2 * n3, pre * n1),
                        library=lambda: torch.fft.fft2(c3))
             del c3
+            # K4's packed form: five (8, 93) slices a block
+            pk = (200_000, 8, 93)
+            pr, pi = _device_planes(pk, seed=3)
+            cp = torch.complex(pr, pi)
+            kernel_row("pair_packed", pk,
+                       lambda: pair_fft.fft_pair(pr, pi, inverse=False,
+                                                 scale=1.0),
+                       lambda: pair_fft.fft_pair_reference(
+                           pr, pi, inverse=False, scale=1.0), _pass_gb(pk),
+                       flops=_fft_flops(8 * 93, pk[0]),
+                       library=lambda: torch.fft.fft2(cp))
+            print(f"  copy floor {pk}: "
+                  f"{_copy_floor_ms(_pass_gb(pk) * 1e9):.4f} ms")
+            del pr, pi, cp
         elif name == "two_pass":
             rows, n = shape
             a, b = execute._split_large(n)
@@ -1242,15 +1261,44 @@ STFT_KERNEL_CASES = ((3, 256, 128, 256, 300, False),
 SIG = (64, 1_048_576)   # the spectral paths' signals
 
 
+# K13's frame FFT beyond those: odd nfft (255, 93), a hop longer than a
+# frame, hop 1 (4096 frames a block), ShortTimeFFT's operands (below)
+K13_CASES = ((4, 128, 64, 255, 1001, "linear"),
+             (2, 93, 31, 93, 400, "constant"),
+             (3, 64, 100, 64, 250, False),
+             (2, 2, 1, 2, 9000, "linear"))
+
+
+def _sft_k13():
+    """A ShortTimeFFT with a phase shift, onesided2X and psd scaling."""
+    return tpufft_torch.ShortTimeFFT(
+        scipy.signal.get_window("hann", 128), 64, 48000.0,
+        fft_mode="onesided2X", mfft=200, phase_shift=5, scale_to="psd")
+
+
 def phase_stft_kernels() -> None:
     """K13, K14 and K15 (welch and csd) against their plain versions."""
     worst = {}
+    cuda = torch.device("cuda")
+
+    def hold(key, what, got, ref):
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(norm_err(g, r) for g, r in zip(got, ref))
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(all(g.dtype == torch.float32 and g.shape == r.shape
+                  for g, r in zip(got, ref)),
+              f"{key} {what}: output {got[0].dtype} {tuple(got[0].shape)}")
+        check(err < F32_TOL, f"{key} vs plain {what}: {err:.3e} >= {F32_TOL}")
+
+    frame_cases = []
     for batch, nperseg, hop, nfft, nseg, detrend in STFT_KERNEL_CASES:
         win = scipy.signal.get_window("hann", nperseg)
+        frame_cases.append((batch, hop, nseg, detrend, nfft,
+                            spectral._frame_tables(win, nfft, 0.5, cuda)))
         mr, mi = spectral._tables("stft", win, nperseg, nfft,
-                                  (detrend or None, 1.0), torch.device("cuda"))
-        ar, ai = spectral._tables("istft", win, nperseg, nfft, 1.0,
-                                  torch.device("cuda"))
+                                  (detrend or None, 1.0), cuda)
+        ar, ai = spectral._tables("istft", win, nperseg, nfft, 1.0, cuda)
         m1 = nfft // 2 + 1
         n_sig = (nseg - 1) * hop + nperseg + hop - 1
         for dtype in (torch.float32, torch.bfloat16):
@@ -1260,29 +1308,35 @@ def phase_stft_kernels() -> None:
                     f"nseg {nseg} detrend {detrend} {dtype}")
             # both sides read the same (bf16: the same rounded) values and
             # compute in f32: the f32 limit holds for either storage
-            for key, got, ref in (
-                    ("stft", stft_mm.stft_frames(x, mr, mi, hop),
-                     stft_mm.stft_frames_reference(x, mr, mi, hop)),
-                    ("welch", stft_mm.welch_accum(x, mr, mi, hop),
-                     stft_mm.welch_accum_reference(x, mr, mi, hop)),
-                    ("csd", stft_mm.welch_accum(x, mr, mi, hop, y),
-                     stft_mm.welch_accum_reference(x, mr, mi, hop, y)),
-                    ("istft", stft_mm.istft_ola(zr, zi, ar, ai, hop),
-                     stft_mm.istft_ola_reference(zr, zi, ar, ai, hop))):
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                err = max(norm_err(g, r) for g, r in zip(got, ref))
-                worst[key] = max(worst.get(key, 0.0), err)
-                check(all(g.dtype == torch.float32 and g.shape == r.shape
-                          for g, r in zip(got, ref)),
-                      f"{key} {what}: output {got[0].dtype} "
-                      f"{tuple(got[0].shape)}")
-                check(err < F32_TOL,
-                      f"{key} vs plain {what}: {err:.3e} >= {F32_TOL}")
+            hold("welch", what, stft_mm.welch_accum(x, mr, mi, hop),
+                 stft_mm.welch_accum_reference(x, mr, mi, hop))
+            hold("csd", what, stft_mm.welch_accum(x, mr, mi, hop, y),
+                 stft_mm.welch_accum_reference(x, mr, mi, hop, y))
+            hold("istft", what, stft_mm.istft_ola(zr, zi, ar, ai, hop),
+                 stft_mm.istft_ola_reference(zr, zi, ar, ai, hop))
+    for batch, nperseg, hop, nfft, nseg, detrend in K13_CASES:
+        win = scipy.signal.get_window("hann", nperseg)
+        frame_cases.append((batch, hop, nseg, detrend, nfft,
+                            spectral._frame_tables(win, nfft, 1.0, cuda)))
+    sft = _sft_k13()
+    frame_cases.append((3, 64, 700, "constant", 200, sft._frame_tables(cuda)))
+    for batch, hop, nseg, detrend, nfft, (w, cr, ci) in frame_cases:
+        nperseg = w.shape[0]
+        args = (w, cr, ci, nfft, detrend, hop, nseg)
+        n_sig = (nseg - 1) * hop + nperseg + hop - 1
+        for dtype in (torch.float32, torch.bfloat16):
+            x, _ = _planes((batch, n_sig), dtype, seed=nperseg + nseg)
+            hold("stft", f"batch {batch} nperseg {nperseg} hop {hop} nfft "
+                 f"{nfft} nseg {nseg} detrend {detrend} {dtype}",
+                 stft_mm.stft_frames(x, *args),
+                 stft_mm.stft_frames_reference(x, *args))
     torch.cuda.synchronize()
     for k in STFT_KERNELS:
         print(f"{k} vs plain (f32 and bf16 signals): max normalized error "
               f"{worst[k]:.3e} (tol {F32_TOL})")
+    print(f"stft (K13) cases: {len(frame_cases)} x f32/bf16, among them odd "
+          f"nfft 255 and 93 and ShortTimeFFT(onesided2X, mfft 200, "
+          f"phase_shift 5, psd)")
 
 
 def _sft128():
@@ -1415,18 +1469,22 @@ def phase_spectral_times() -> dict:
     xe = torch.nn.functional.pad(x, (nperseg // 2, nperseg // 2))
     nseg = 1 + (xe.shape[1] - nperseg) // hop
     fold = math.sqrt(1.0 / win.sum().item() ** 2)
-    mr, mi = spectral._tables("stft", win.cpu().numpy(), nperseg, nperseg,
-                              (None, fold), torch.device("cuda"))
     out_floats = 2 * batch * nseg * m1
+    frame_args = spectral._frame_tables(win.cpu().numpy(), nperseg, fold,
+                                        torch.device("cuda")) + (
+        nperseg, None, hop, nseg)
+    # least work: the signal read once, the planes written once; the FFT's
+    # flops (~2.5 nfft log2 nfft a real frame) are far below the bytes
     kernel_row("stft", (batch, xe.shape[1], nperseg, hop),
-               lambda: stft_mm.stft_frames(xe, mr, mi, hop),
-               lambda: stft_mm.stft_frames_reference(xe, mr, mi, hop),
+               lambda: stft_mm.stft_frames(xe, *frame_args),
+               lambda: stft_mm.stft_frames_reference(xe, *frame_args),
                lambda: torch.stft(xe, 256, hop, window=win32, center=False,
                                   return_complex=True),
                f32 * (xe.numel() + out_floats),
-               4.0 * nperseg * m1 * nseg * batch, "torch.stft(center=False)")
+               _fft_flops(nperseg, nseg * batch, real=True),
+               "torch.stft(center=False)")
     # K14 at the istft path's shape
-    zr, zi = stft_mm.stft_frames(xe, mr, mi, hop)
+    zr, zi = stft_mm.stft_frames(xe, *frame_args)
     zc = torch.complex(zr, zi).transpose(1, 2)
     ar, ai = spectral._tables("istft", win.cpu().numpy(), nperseg, nperseg,
                               float(win.sum().item()), torch.device("cuda"))
@@ -1469,12 +1527,11 @@ def phase_spectral_times() -> dict:
                (8.0 * nperseg + 8) * m1 * nseg_w * batch,
                "torch.stft twice, conj product, sum")
     # K13 and K14 at ShortTimeFFT's hop 64, m_num 128
-    sm_r, sm_i = sft._device_tables(("stft", None),
-                                    lambda: sft._fused_stft_matrix(None),
-                                    x.device)
     xp = torch.nn.functional.pad(x, (64, 64))
-    yr, yi = stft_mm.stft_frames(xp, sm_r, sm_i, 64)
-    t64 = {"K13": _time_ms(lambda: stft_mm.stft_frames(xp, sm_r, sm_i, 64))}
+    sft_args = sft._frame_tables(x.device) + (
+        128, None, 64, 1 + (xp.shape[1] - 128) // 64)
+    yr, yi = stft_mm.stft_frames(xp, *sft_args)
+    t64 = {"K13": _time_ms(lambda: stft_mm.stft_frames(xp, *sft_args))}
     sa_r, sa_i = sft._device_tables(("istft",), sft._fused_istft_matrix,
                                     x.device)
     t64["K14"] = _time_ms(lambda: stft_mm.istft_ola(yr, yi, sa_r, sa_i, 64))

@@ -256,6 +256,53 @@ def test_pair_kernel_matches_plain_version(n1, n2, dtype, tol, cuda_device):
             assert got[0].dtype == dtype and _err(got, ref) < tol
 
 
+# the pair core's forms at the shapes of the main paths and around them:
+# (pre, n1, n2) with 16384 elements a slice (one block an SM), n1 = 16 and
+# 32 (multiples of 16 on the column pass), a 64 x 128 slice zero-padded
+# from 93 (the fft2(s=) path), packed small slices (several a block) and
+# an odd first radix on the row pass; the last four hold more runs of
+# slices than the persistent grid has blocks, so each block loops
+PAIR_CORE_CASES = [("pair", (37, 128, 128), None), ("pair", (9, 16, 128), None),
+                   ("pair", (11, 32, 64), None), ("pair", (301, 8, 93), None),
+                   ("pair", (5, 3, 2048), None), ("pair", (7, 64, 75), None),
+                   ("padded", (23, 64, 93), 128), ("padded", (41, 32, 33), 64),
+                   ("fused", (37, 128, 128), None), ("fused", (301, 8, 93), None),
+                   ("fused", (9, 16, 128), None),
+                   ("pair", (401, 128, 128), None),
+                   ("fused", (301, 128, 128), None),
+                   ("padded", (1999, 64, 93), 128),
+                   ("pair", (20011, 8, 93), None)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("form,shape,n2", PAIR_CORE_CASES)
+def test_pair_core_matches_plain_versions(form, shape, n2, dtype, tol,
+                                          cuda_device):
+    """K4 (split planes, and with n2_in) and K17 (fused storage) on the
+    register-and-team pass core against their plain versions."""
+    from tpufft_torch.kernels import fused_fft
+    for inverse in (False, True):
+        kw = dict(inverse=inverse, scale=0.5 if inverse else 1.0)
+        if form == "fused":
+            st = _fused_array(shape, cuda_device, dtype, seed=sum(shape))
+            got = fused_fft.fft_pair_fused(st, **kw)
+            ref = fused_fft.fft_pair_fused_reference(st, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and _fused_err(got, ref) < tol
+            continue
+        xr, xi = _planes(shape, cuda_device, dtype, seed=sum(shape))
+        if form == "padded":
+            got = pair_fft.fft_pair_padded(xr, xi, n2=n2, **kw)
+            ref = pair_fft.fft_pair_padded_reference(xr, xi, n2=n2, **kw)
+        else:
+            got = pair_fft.fft_pair(xr, xi, **kw)
+            ref = pair_fft.fft_pair_reference(xr, xi, **kw)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
 def test_new_wrappers_raise_outside_the_envelope(cuda_device):
     """A CUDA tensor the kernels do not take raises; nothing falls back."""
     _reset()
@@ -646,9 +693,16 @@ def test_stft_kernels_match_plain_versions(batch, nperseg, hop, m1, nseg,
     n_sig = (nseg - 1) * hop + nperseg + hop - 1   # a ragged tail
     x, y = _planes((batch, n_sig), cuda_device, dtype, seed=nperseg)
     mr, mi = _stft_tables(nperseg, m1, cuda_device, seed=m1)
+    # K13 on nfft = 2 (m1 - 1): a random window and per-bin factor, the
+    # detrend kinds in turn
+    win, c_r = (t[:, 0].contiguous() for t in _stft_tables(
+        max(nperseg, m1), 2, cuda_device, seed=batch))
+    frame_args = (win[:nperseg].contiguous(), c_r[:m1].contiguous(),
+                  c_r.flip(0)[:m1].contiguous(), 2 * (m1 - 1),
+                  (False, "constant", "linear")[nseg % 3], hop, nseg)
     stft_mm.reset_counts()
-    got = stft_mm.stft_frames(x, mr, mi, hop)
-    ref = stft_mm.stft_frames_reference(x, mr, mi, hop)
+    got = stft_mm.stft_frames(x, *frame_args)
+    ref = stft_mm.stft_frames_reference(x, *frame_args)
     assert got[0].shape == (batch, nseg, m1) and got[0].dtype == torch.float32
     assert max(_rel(g, r) for g, r in zip(got, ref)) < tol
     w = stft_mm.welch_accum(x, mr, mi, hop)
@@ -671,10 +725,13 @@ def test_stft_kernels_match_plain_versions(batch, nperseg, hop, m1, nseg,
 def test_stft_wrappers_check_their_operands(cuda_device):
     x = torch.zeros(2, 512, device=cuda_device)
     mr = torch.zeros(128, 65, device=cuda_device)
+    frame_args = (torch.ones(128, device=cuda_device),
+                  torch.ones(65, device=cuda_device),
+                  torch.zeros(65, device=cuda_device), 128, False, 64, 3)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        stft_mm.stft_frames(x.double(), mr, mr, 64)
+        stft_mm.stft_frames(x.double(), *frame_args)
     with pytest.raises(ValueError, match="contiguous"):
-        stft_mm.stft_frames(x[:, ::2], mr, mr, 64)
+        stft_mm.stft_frames(x[:, ::2], *frame_args)
     with pytest.raises(ValueError, match="CUDA device"):
         stft_mm.welch_accum(x.cpu(), mr, mr, 64)
     with pytest.raises(ValueError, match="tables must be float32 on"):
@@ -682,6 +739,61 @@ def test_stft_wrappers_check_their_operands(cuda_device):
     z = torch.zeros(2, 7, 65, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of hop"):
         stft_mm.istft_ola(z, z, mr.T.contiguous(), mr.T.contiguous(), 48)
+
+
+# (batch, nperseg, hop, nfft, nseg, offset): the stft path's hop 128 and
+# ShortTimeFFT's hop 64, odd nfft (255, 93), nfft > nperseg, a ragged last
+# run of frames (nseg not a multiple of a block's frames), hop 1, a hop
+# longer than a frame, and signals that start off a 16-byte boundary
+# (offset > 0: the span's copy starts and ends element by element)
+K13_CASES = [(3, 256, 128, 256, 300, 0), (2, 128, 64, 128, 1001, 1),
+             (5, 128, 32, 255, 77, 3), (2, 93, 31, 93, 40, 2),
+             (3, 200, 100, 300, 33, 0), (2, 16, 1, 17, 500, 5),
+             (4, 64, 100, 64, 9, 1), (1, 1024, 256, 1024, 37, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("detrend", [False, "constant", "linear"])
+@pytest.mark.parametrize("batch,nperseg,hop,nfft,nseg,offset", K13_CASES)
+def test_stft_frame_fft_matches_plain_version(batch, nperseg, hop, nfft,
+                                              nseg, offset, detrend, dtype,
+                                              cuda_device):
+    """K13's frame FFT against its plain version (the f64-built matrix):
+    f32 and bf16 signals (both sides read the same values and compute in
+    f32), every detrend, a complex per-bin factor."""
+    n_sig = (nseg - 1) * hop + nperseg + 7
+    flat, _ = _planes((batch * n_sig + offset,), cuda_device, dtype,
+                      seed=nfft + nseg)
+    x = flat[offset:].view(batch, n_sig)
+    m1 = nfft // 2 + 1
+    rng = np.random.default_rng(nseg)
+    win, c_r, c_i = (torch.from_numpy(rng.standard_normal(k).astype(
+        np.float32)).to(cuda_device) for k in (nperseg, m1, m1))
+    args = (win, c_r, c_i, nfft, detrend, hop, nseg)
+    before = stft_mm.launches["stft"]
+    got = stft_mm.stft_frames(x, *args)
+    ref = stft_mm.stft_frames_reference(x, *args)
+    torch.cuda.synchronize()
+    assert stft_mm.launches["stft"] == before + 1
+    assert got[0].shape == (batch, nseg, m1) and got[0].dtype == torch.float32
+    assert max(_rel(g, r) for g, r in zip(got, ref)) < 1e-5
+
+
+def test_stft_frame_fft_raises_outside_its_envelope(cuda_device):
+    """An nfft whose stage length has a prime factor above 127, or above
+    the envelope's 1024 (1025 = 5^2 x 41), raises on a CUDA tensor (the
+    callers route it to the composed stft)."""
+    x = torch.zeros(2, 1000, device=cuda_device)
+    ones = torch.ones(132, device=cuda_device)
+    with pytest.raises(ValueError, match="outside the kernel's envelope"):
+        stft_mm.stft_frames(x, ones[:128], ones, ones, 262, False, 64, 10)
+    big = torch.ones(513, device=cuda_device)
+    with pytest.raises(ValueError, match="outside the kernel's envelope"):
+        stft_mm.stft_frames(x, ones[:128], big, big, 1025, False, 64, 10)
+    with pytest.raises(ValueError, match="do not fit"):
+        stft_mm.stft_frames(x, ones[:128], ones[:65], ones[:65], 128,
+                            False, 64, 20)
 
 
 # one call of each spectral path: the kernels it launches

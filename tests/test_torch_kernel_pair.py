@@ -63,6 +63,19 @@ def test_pair_matches_build_2d(n1, n2, pre, inverse):
     assert _err(got, ref) < 1e-5
 
 
+@pytest.mark.parametrize("n1,n2,pre", [(16, 64, 5), (32, 64, 7),
+                                       (16, 128, 3), (32, 32, 11)])
+def test_pair_column_lengths_of_16_and_32_match_build_2d(n1, n2, pre):
+    """n1 = 16 and 32 (column lines whose tile stride is a multiple of 16
+    elements, where the card's column pass must not collide on banks) and
+    a pre that leaves the last block of packed slices ragged."""
+    re, im = _planes((pre, n1, n2), seed=n1 + n2 + pre)
+    for inverse in (False, True):
+        got, ref = _run_both(re, im, inverse, 1.0 / n1 if inverse else 1.0,
+                             jnp.float32, torch.float32)
+        assert _err(got, ref) < 1e-5
+
+
 @pytest.mark.parametrize("n1,n2", PAIRS)
 def test_pair_matches_build_2d_bf16_storage(n1, n2):
     re, im = _planes((3, n1, n2), seed=n1 + n2)

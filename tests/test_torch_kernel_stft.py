@@ -6,21 +6,29 @@ K13 (``mxu_fft.build_stft_overlap``), K14 (``build_istft_ola``) and K15
 with tpufft's default bf16x3 precision, at hop 128 (tpufft's kernels tile
 the hop in 128 lanes) and K = nperseg / hop of 1, 2 and 4; the port's
 wrappers, given CPU tensors, run their plain versions (``unfold`` and
-``torch.matmul`` in f32, an ``index_add_`` overlap-add). Both get the same
-seeded numpy signals and the same host matrices. Tolerance 2e-5,
-normalized by the result's magnitude: bf16x3 keeps about 2^-24 of each
-product and the plain versions round in f32, so the two differ by a few
-1e-6 at nperseg = 512 (the kernels on the card are held to their plain
-versions in ``test_torch_cuda.py``).
+``torch.matmul`` in f32, an ``index_add_`` overlap-add). tpufft's K13
+takes its callers' host matrix (``spectral._stft_matrix``,
+``ShortTimeFFT._fused_stft_matrix``); the port's takes the window, the
+per-bin factor c, nfft and the detrend kind, and its plain version builds
+the same matrix from them (``stft_mm.frame_matrix``). Both get the same
+seeded numpy signals. Tolerance 2e-5, normalized by the result's
+magnitude: bf16x3 keeps about 2^-24 of each product and the plain versions
+round in f32, so the two differ by a few 1e-6 at nperseg = 512 (the
+kernels on the card are held to their plain versions in
+``test_torch_cuda.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import scipy.signal as sps
+
+import tpufft
 from tpufft import spectral as tp_spectral
 from tpufft.kernels import mxu_fft
 
+import tpufft_torch
 from tpufft_torch import spectral
 from tpufft_torch.kernels import stft_mm
 
@@ -56,21 +64,134 @@ def _t(*arrays):
     return tuple(torch.from_numpy(a) for a in arrays)
 
 
+def _frame_args(nperseg, nfft, fold=1.0):
+    """K13's operands for tpufft's spectral matrix: the window and c =
+    fold on every bin."""
+    m1 = nfft // 2 + 1
+    return _t(np.hanning(nperseg).astype(np.float32),
+              np.full(m1, fold, np.float32), np.zeros(m1, np.float32))
+
+
+def _stft_ref(x, M, nseg):
+    """tpufft's K13 in interpret mode on the f32 planes of M."""
+    ref = mxu_fft.build_stft_overlap(
+        np.ascontiguousarray(M.real, np.float32),
+        np.ascontiguousarray(M.imag, np.float32), HOP, nseg, 8, "bf16x3",
+        True)(x)
+    return np.asarray(ref[0]) + 1j * np.asarray(ref[1])
+
+
+def _frames64(x, nperseg, hop, nseg):
+    return np.lib.stride_tricks.sliding_window_view(
+        x.astype(np.float64), nperseg, axis=-1)[:, ::hop][:, :nseg]
+
+
 @pytest.mark.parametrize("detrend", DETRENDS)
 @pytest.mark.parametrize("batch,nperseg,nfft,nseg", SHAPES)
 def test_stft_frames_matches_tpufft(batch, nperseg, nfft, nseg, detrend):
     mr, mi = _stft_planes(nperseg, nfft, detrend)
     x = _signal(batch, (nseg - 1) * HOP + nperseg, nperseg + nseg)
-    ref = mxu_fft.build_stft_overlap(mr, mi, HOP, nseg, 8, "bf16x3",
-                                     True)(x)
-    yr, yi = stft_mm.stft_frames(*_t(x, mr, mi), HOP)
+    ref = _stft_ref(x, mr + 1j * mi, nseg)
+    yr, yi = stft_mm.stft_frames(torch.from_numpy(x),
+                                 *_frame_args(nperseg, nfft), nfft, detrend,
+                                 HOP, nseg)
     assert yr.dtype == torch.float32 and yr.shape == (batch, nseg,
                                                       nfft // 2 + 1)
     got = yr.numpy() + 1j * yi.numpy()
-    assert _err(got, np.asarray(ref[0]) + 1j * np.asarray(ref[1])) < TOL
-    frames = np.lib.stride_tricks.sliding_window_view(
-        x.astype(np.float64), nperseg, axis=-1)[:, ::HOP]
+    assert _err(got, ref) < TOL
+    frames = _frames64(x, nperseg, HOP, nseg)
     assert _err(got, frames @ (mr.astype(np.float64) + 1j * mi)) < TOL
+
+
+@pytest.mark.parametrize("detrend", DETRENDS)
+@pytest.mark.parametrize("batch,nperseg,nfft,nseg", [(2, 128, 255, 5),
+                                                     (1, 256, 257, 3),
+                                                     (3, 128, 200, 4)])
+def test_frame_matrix_matches_tpufft_stft_matrix(batch, nperseg, nfft, nseg,
+                                                 detrend):
+    """The structured plain version (window, c, nfft, detrend) against
+    tpufft's K13 fed with ``tpufft.spectral._stft_matrix`` times a scale:
+    odd nfft and nfft > nperseg, the three detrends."""
+    fold = 0.37
+    M = tp_spectral._stft_matrix(np.hanning(nperseg), nperseg, nfft,
+                                 detrend or None) * fold
+    mine = stft_mm.frame_matrix(np.hanning(nperseg),
+                                np.full(nfft // 2 + 1, fold), nfft, detrend)
+    assert np.max(np.abs(mine - M)) < 1e-12
+    x = _signal(batch, (nseg - 1) * HOP + nperseg + 7, nfft)
+    yr, yi = stft_mm.stft_frames(torch.from_numpy(x),
+                                 *_frame_args(nperseg, nfft, fold), nfft,
+                                 detrend, HOP, nseg)
+    got = yr.numpy() + 1j * yi.numpy()
+    assert _err(got, _stft_ref(x[:, :(nseg - 1) * HOP + nperseg], M,
+                               nseg)) < TOL
+    assert _err(got, _frames64(x, nperseg, HOP, nseg) @ M) < TOL
+
+
+@pytest.mark.parametrize("detrend", [None, "constant", "linear"])
+@pytest.mark.parametrize("mfft,phase_shift,scale_to", [
+    (256, 3, "psd"), (301, -40, "magnitude"), (256, None, "magnitude")])
+def test_frame_factor_matches_tpufft_short_time_matrix(mfft, phase_shift,
+                                                       scale_to, detrend):
+    """K13's operands from ``ShortTimeFFT`` (its real window and c, the
+    phase roll times the onesided2X doubling) against tpufft's K13 fed
+    with tpufft's ``ShortTimeFFT._fused_stft_matrix``."""
+    win = sps.get_window("hann", 256)
+    kw = dict(fft_mode="onesided2X", mfft=mfft, phase_shift=phase_shift,
+              scale_to=scale_to)
+    tp = tpufft.ShortTimeFFT(win, HOP, 8.0, **kw)
+    ours = tpufft_torch.ShortTimeFFT(win, HOP, 8.0, device="cpu", **kw)
+    M = tp._fused_stft_matrix(detrend)
+    c = ours._frame_factor()
+    assert np.max(np.abs(stft_mm.frame_matrix(np.real(ours._win), c, mfft,
+                                              detrend) - M)) < 1e-12
+    nseg = 6
+    x = _signal(2, (nseg - 1) * HOP + 256, mfft)
+    yr, yi = stft_mm.stft_frames(
+        *_t(x, np.real(ours._win).astype(np.float32),
+            c.real.astype(np.float32), c.imag.astype(np.float32)),
+        mfft, detrend, HOP, nseg)
+    assert _err(yr.numpy() + 1j * yi.numpy(), _stft_ref(x, M, nseg)) < TOL
+
+
+@pytest.mark.parametrize("nfft, inside", [(1024, True), (1023, True),
+                                          (1025, False), (6561, False)])
+def test_frame_fft_envelope_ends_at_1024(nfft, inside):
+    """K13's envelope ends at the callers' nfft cap of 1024: 1025 = 5^2 x 41
+    and 6561 = 3^8 have small prime factors but lie above it, so
+    frames_supported is false and stft_frames refuses them on the card."""
+    assert stft_mm.MAX_FRAME_NFFT == 1024
+    assert stft_mm.frames_supported(nfft) == inside
+
+
+def test_nfft_outside_the_frame_fft_takes_the_composed_route(monkeypatch):
+    """An nfft whose half has a prime factor above 127 (262 = 2 x 131, and
+    the prime 131) is outside K13's FFT: stft and ShortTimeFFT take the
+    composed route (no K13 call, plain or kernel) and still match scipy;
+    256 and 255 stay on K13."""
+    assert not stft_mm.frames_supported(262)
+    assert not stft_mm.frames_supported(131)
+    assert stft_mm.frames_supported(256) and stft_mm.frames_supported(255)
+    calls = []
+    orig = stft_mm.stft_frames_reference
+    monkeypatch.setattr(stft_mm, "stft_frames_reference",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    x = _signal(2, 3000, 9)
+    for nfft, on_k13 in ((262, False), (131, False), (256, True)):
+        calls.clear()
+        _, _, Z = tpufft_torch.stft(torch.from_numpy(x), nperseg=128,
+                                    nfft=nfft)
+        assert len(calls) == int(on_k13), nfft
+        want = sps.stft(x.astype(np.float64), nperseg=128, nfft=nfft)[2]
+        assert _err(Z.numpy(), want) < 1e-5
+        calls.clear()
+        win = sps.get_window("hann", 128)
+        S = tpufft_torch.ShortTimeFFT(win, 64, 1.0, mfft=nfft,
+                                      device="cpu").stft(torch.from_numpy(x))
+        assert len(calls) == int(on_k13), nfft
+        want = sps.ShortTimeFFT(win, 64, 1.0, mfft=nfft).stft(
+            x.astype(np.float64))
+        assert _err(S.numpy(), want) < 1e-5
 
 
 @pytest.mark.parametrize("batch,nperseg,nfft,nseg", SHAPES)
@@ -124,7 +245,9 @@ def test_plain_versions_take_any_hop(hop):
     frames = np.stack([x[:, s * hop:s * hop + nperseg]
                        for s in range(nseg)], 1).astype(np.float64)
     spec = frames @ (mr.astype(np.float64) + 1j * mi)
-    yr, yi = stft_mm.stft_frames(*_t(x, mr, mi), hop)
+    yr, yi = stft_mm.stft_frames(torch.from_numpy(x),
+                                 *_frame_args(nperseg, nfft), nfft,
+                                 "constant", hop, nseg)
     assert _err(yr.numpy() + 1j * yi.numpy(), spec) < TOL
     assert _err(stft_mm.welch_accum(*_t(x, mr, mi), hop).numpy(),
                 (np.abs(spec) ** 2).sum(1)) < TOL
@@ -135,8 +258,12 @@ def test_cpu_tensors_run_the_plain_versions():
     nothing."""
     stft_mm.reset_counts()
     x, m = torch.ones(2, 10), torch.ones(4, 3)
-    yr, yi = stft_mm.stft_frames(x, m, m, 2)
-    assert torch.equal(yr, torch.full((2, 4, 3), 4.0))
+    yr, yi = stft_mm.stft_frames(x, torch.ones(4), torch.ones(3),
+                                 torch.zeros(3), 4, False, 2, 4)
+    dc = torch.zeros(2, 4, 3)
+    dc[..., 0] = 4.0   # a constant frame of ones: all in the DC bin
+    assert torch.allclose(yr, dc, atol=1e-6)
+    assert torch.allclose(yi, torch.zeros_like(yi), atol=1e-6)
     assert torch.equal(stft_mm.welch_accum(x, m, m, 2),
                        torch.full((2, 3), 128.0))
     out = stft_mm.istft_ola(yr, yi, m.T.contiguous(), m.T.contiguous(), 2)

@@ -9,12 +9,9 @@ prints it). A checkout's library is built with its own
 ``tpufft_torch._build.build()`` (into its own ``build/``; one nvcc per
 source, needs nvcc). The tool reads the ptxas report, demangles each kernel's name with
 ``c++filt`` (or ``cu++filt``), and matches kernels by name and template
-arguments. The kernels that gained the fused-storage flag (kFused) take it
-as their last template argument: the new build's ``false`` instantiation is
-matched with the old build's instantiation without it, and its ``true``
-instantiations (K16-K20) are listed on their own. Prints every matched
-kernel's numbers and exits 1 if any differ or any old kernel has no match.
-NEW defaults to this checkout.
+arguments. Prints every old kernel's numbers beside the new build's, then
+the kernels only the new build has, and exits 1 if any matched kernel
+differs or any old kernel has no match. NEW defaults to this checkout.
 """
 
 from __future__ import annotations
@@ -24,10 +21,6 @@ import re
 import shutil
 import subprocess
 import sys
-
-FUSED_FLAG = ("minor_fft_kernel", "strided_fft_kernel", "pair_fft_kernel",
-              "cube_fft_kernel")
-
 
 def _build_log(root: str) -> str:
     code = ("from tpufft_torch import _build; "
@@ -110,26 +103,16 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)))
     old = {_key(k): v for k, v in _report(_log(sys.argv[1])).items()}
     new = {_key(k): v for k, v in _report(_log(new_path)).items()}
-    fused, matched = {}, {}
-    for k, v in new.items():
-        base = k.split("<")[0].split("::")[-1]
-        if base in FUSED_FLAG:
-            head, args = k[:-1].rsplit(", ", 1)
-            if args == "true":
-                fused[k] = v
-                continue
-            k = head + ">"
-        matched[k] = v
     bad = 0
     print("kernel: registers, spill stores, spill loads, stack (old -> new)")
     for k in sorted(old):
-        got = matched.get(k)
+        got = new.get(k)
         same = got == old[k]
         bad += not same
         print(f"  {'same' if same else 'DIFF'} {k}: {old[k]} -> {got}")
-    print("fused-storage instantiations (new):")
-    for k in sorted(fused):
-        print(f"  {k}: {fused[k]}")
+    print("kernels only in the new build:")
+    for k in sorted(set(new) - set(old)):
+        print(f"  {k}: {new[k]}")
     print(f"{len(old) - bad} of {len(old)} kernels unchanged")
     return 1 if bad else 0
 

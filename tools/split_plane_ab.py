@@ -1,13 +1,32 @@
-"""Time the split-plane kernels K1 (minor axis, (100000, 1024) c64) and K5
-(cube, (100, 64, 64, 64) c64) of two checkouts of tpufft_torch in turns on
-one card: old, new, new, old.
+"""Time kernels of two checkouts of tpufft_torch in turns on one card: old,
+new, new, old.
 
-    python3 tools/split_plane_ab.py OLD_ROOT [NEW_ROOT]
+    python3 tools/split_plane_ab.py [--rounds R] [--only ROWS] OLD_ROOT [NEW_ROOT]
+
+The rows, each the median of 20 CUDA-event timings after two warm-up
+calls, in ms:
+
+- K1 (minor axis, (100000, 1024) c64), K5 (cube, (100, 64, 64, 64) c64)
+  and K7 (real minor axis, (100000, 1024) f32);
+- K13 (``stft_frames``) on (64, 1048832) f32 at nperseg 256, hop 128 (the
+  ``stft`` path's shape: 1048576 samples extended by 128 a side), beside
+  ``torch.stft(center=False)`` of the same frames;
+- K4 (``fft_pair``) on (1280, 128, 128) c64, K4 with ``n2_in`` on
+  (10000, 64, 93) zero-padded to (10000, 64, 128), K4's packed form on
+  (200000, 8, 93) (five slices a block), and K17 (``fft_pair_fused``) on
+  the (1280, 128, 2 x 128) fused array, beside ``torch.fft.fft2``;
+- the lane-fused plans P3 (10, 128, 128, 128) and P4 (16, 64, 128, 256)
+  over axes 1-3.
 
 Each turn is a fresh process that imports that checkout's tpufft_torch
-(building its library on first use) and prints the median of 20 CUDA-event
-timings after two warm-up calls. NEW_ROOT defaults to this checkout. Needs
-the card.
+(building its library on first use). K13's arguments changed between
+checkouts (a host matrix before, the window, c, nfft and the detrend kind
+now): the timer passes whichever the checkout's ``stft_frames`` takes, for
+the same function (hann window, scale 1/sum(window), no detrend).
+NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
+times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
+list of the rows above (K1, K5, K7, K13, K4, K4_n2_in, K4_packed, K17, P3,
+P4) and times those alone. Needs the card.
 """
 
 from __future__ import annotations
@@ -17,8 +36,11 @@ import subprocess
 import sys
 
 TIMER = r"""
-import statistics, torch
-from tpufft_torch.kernels import cube_fft, minor_fft
+import inspect, statistics, torch
+import numpy as np
+from tpufft_torch import SplitComplex, plan_fft, spectral
+from tpufft_torch.kernels import (cube_fft, fused_fft, minor_fft, pair_fft,
+                                  real_fft, stft_mm)
 
 def median_ms(fn, reps=20):
     fn(); fn(); torch.cuda.synchronize()
@@ -30,25 +52,101 @@ def median_ms(fn, reps=20):
         out.append(a.elapsed_time(b))
     return statistics.median(out)
 
+import os
+ONLY = os.environ.get("AB_ONLY")
+def want(*names):
+    return not ONLY or any(n in ONLY.split(",") for n in names)
+
+rows = {}
+kw = dict(inverse=False, scale=1.0)
 g = torch.Generator(device="cuda"); g.manual_seed(1)
-xr = torch.randn(100000, 1024, generator=g, device="cuda")
-xi = torch.randn(100000, 1024, generator=g, device="cuda")
-k1 = median_ms(lambda: minor_fft.fft_minor(xr, xi, inverse=False, scale=1.0))
-cr = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
-ci = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
-k5 = median_ms(lambda: cube_fft.fft_cube(cr, ci, inverse=False, scale=1.0))
-print(f"K1 {k1:.4f} ms K5 {k5:.4f} ms")
+if want("K1", "K5", "K7"):
+    xr = torch.randn(100000, 1024, generator=g, device="cuda")
+    xi = torch.randn(100000, 1024, generator=g, device="cuda")
+    rows["K1"] = median_ms(lambda: minor_fft.fft_minor(xr, xi, **kw))
+    cr = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
+    ci = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
+    rows["K5"] = median_ms(lambda: cube_fft.fft_cube(cr, ci, **kw))
+    rows["K7"] = median_ms(lambda: real_fft.rfft_minor(xr, scale=1.0))
+    del xr, xi, cr, ci
+
+x = torch.randn(64, 1048832, generator=g, device="cuda")
+nperseg, hop = 256, 128
+nseg = 1 + (x.shape[1] - nperseg) // hop
+win = np.hanning(nperseg + 1)[:-1]   # scipy's periodic hann
+fold = 1.0 / win.sum()
+if "win" in inspect.signature(stft_mm.stft_frames).parameters:
+    w = torch.tensor(win, dtype=torch.float32, device="cuda")
+    c_r = torch.full((nperseg // 2 + 1,), fold, device="cuda")
+    c_i = torch.zeros_like(c_r)
+    k13 = lambda: stft_mm.stft_frames(x, w, c_r, c_i, nperseg, False, hop,
+                                      nseg)
+else:
+    mr, mi = spectral._tables("stft", win, nperseg, nperseg, (None, fold),
+                              torch.device("cuda"))
+    k13 = lambda: stft_mm.stft_frames(x, mr, mi, hop)
+if want("K13"):
+    rows["K13"] = median_ms(k13)
+    w32 = torch.tensor(win, dtype=torch.float32, device="cuda")
+    rows["torch.stft"] = median_ms(lambda: torch.stft(
+        x, nperseg, hop, window=w32, center=False, return_complex=True))
+del x
+
+for name, shape, n2 in (("K4", (1280, 128, 128), 128),
+                        ("K4_n2_in", (10000, 64, 93), 128),
+                        ("K4_packed", (200000, 8, 93), 93)):
+    if not want(name, "K17" if name == "K4" else name):
+        continue
+    pr = torch.randn(*shape, generator=g, device="cuda")
+    pi = torch.randn(*shape, generator=g, device="cuda")
+    if n2 == shape[-1]:
+        rows[name] = median_ms(lambda: pair_fft.fft_pair(pr, pi, **kw))
+        c = torch.complex(pr, pi)
+        rows[name + " fft2"] = median_ms(lambda: torch.fft.fft2(c))
+        del c
+    else:
+        rows[name] = median_ms(lambda: pair_fft.fft_pair_padded(
+            pr, pi, n2=n2, **kw))
+    if name == "K4":
+        st = torch.cat([pr, pi], -1)
+        rows["K17"] = median_ms(lambda: fused_fft.fft_pair_fused(st, **kw))
+        del st
+    del pr, pi
+
+for name, shape in (("P3", (10, 128, 128, 128)), ("P4", (16, 64, 128, 256))):
+    if not want(name):
+        continue
+    plan = plan_fft(shape, axes=(1, 2, 3), layout="lane-fused")
+    pr = torch.randn(*shape, generator=g, device="cuda")
+    pi = torch.randn(*shape, generator=g, device="cuda")
+    packed = plan.pack(SplitComplex(pr, pi))
+    rows[name] = median_ms(lambda: plan(packed))
+    del pr, pi, packed
+print(" ".join(f"{k} {v:.4f}" for k, v in rows.items()))
 """
 
 
 def main() -> int:
-    old = os.path.abspath(sys.argv[1])
-    new = os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else
+    args = sys.argv[1:]
+    rounds, only = 1, None
+    while args and args[0].startswith("--"):
+        flag, value = args[0], args[1]
+        if flag == "--rounds":
+            rounds = int(value)
+        elif flag == "--only":
+            only = value
+        else:
+            raise SystemExit(f"unknown option {flag}")
+        args = args[2:]
+    old = os.path.abspath(args[0])
+    new = os.path.abspath(args[1] if len(args) > 1 else
                           os.path.dirname(os.path.dirname(
                               os.path.abspath(__file__))))
-    for label, root in (("old", old), ("new", new), ("new", new),
-                        ("old", old)):
+    turns = (("old", old), ("new", new), ("new", new), ("old", old))
+    for label, root in turns * rounds:
         env = dict(os.environ, PYTHONPATH=root)
+        if only:
+            env["AB_ONLY"] = only
         out = subprocess.run([sys.executable, "-c", TIMER], cwd=root,
                              env=env, capture_output=True, text=True,
                              timeout=1200)

@@ -237,8 +237,11 @@ def load() -> ctypes.CDLL:
     lib.tpufft_dense_mm_real.restype = i32
     i64 = ctypes.c_longlong
     lib.tpufft_stft_frames.argtypes = [
-        vp, vp, vp, vp, vp,          # x, mr, mi, yr, yi
-        i64, i64, i32, i32, i32, i32,  # batch, n_sig, hop, nseg, nperseg, m1
+        vp, vp, vp, vp, vp, vp,      # x, window, cr, ci, yr, yi
+        vp, vp,                      # stage and half-length twiddle tables
+        i64, i64, i32, i32, i32,     # batch, n_sig, hop, nseg, nperseg
+        i32, i32,                    # nfft, detrend (0, 1 constant, 2 linear)
+        ctypes.POINTER(i32), i32,    # radices, number of stages
         i32, vp,                     # bf16 storage, cudaStream_t
     ]
     lib.tpufft_stft_frames.restype = i32

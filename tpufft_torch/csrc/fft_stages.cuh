@@ -143,7 +143,10 @@ __device__ __forceinline__ void butterfly<8>(float2 (&x)[8], bool inv) {
 }
 
 // One radix-R stage (R in {2, 4, 8}) over `rows` rows of length n held in
-// buf; s is the product of the radices of the earlier stages.
+// buf; s is the product of the radices of the earlier stages. Where n is
+// a power of two (so are per_row and s), the item's row and butterfly come
+// from shifts and masks instead of integer division (a few instructions
+// against ~20).
 template <int R, int kPer>
 __device__ void stage_pow2(float2* buf, const float2* __restrict__ tw, int n,
                            int s, int rows, bool inv) {
@@ -151,13 +154,29 @@ __device__ void stage_pow2(float2* buf, const float2* __restrict__ tw, int n,
   const int m = n / (R * s);
   const int per_row = n / R;  // butterflies per row
   const int items = rows * per_row;
+  const bool shift = (n & (n - 1)) == 0;
+  const int l_row = __ffs(per_row) - 1, l_s = __ffs(s) - 1;  // for shift
+  // item it -> (row, p, q): it = row * per_row + p * s + q
+  const auto split = [&](int it, int& row, int& p, int& q) {
+    if (shift) {
+      row = it >> l_row;
+      const int bf = it & (per_row - 1);
+      p = bf >> l_s;
+      q = bf & (s - 1);
+    } else {
+      row = it / per_row;
+      const int bf = it - row * per_row;
+      p = bf / s;
+      q = bf - p * s;
+    }
+  };
   float2 v[K][R];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int it = threadIdx.x + k * blockDim.x;
     if (it < items) {
-      const int row = it / per_row, bf = it - row * per_row;
-      const int p = bf / s, q = bf - p * s;
+      int row, p, q;
+      split(it, row, p, q);
       const int src = row * n + p * s + q;
 #pragma unroll
       for (int b = 0; b < R; ++b) v[k][b] = buf[pad(src + b * m * s)];
@@ -171,14 +190,49 @@ __device__ void stage_pow2(float2* buf, const float2* __restrict__ tw, int n,
   for (int k = 0; k < K; ++k) {
     const int it = threadIdx.x + k * blockDim.x;
     if (it < items) {
-      const int row = it / per_row, bf = it - row * per_row;
-      const int p = bf / s, q = bf - p * s;
+      int row, p, q;
+      split(it, row, p, q);
       const int dst = row * n + p * R * s + q;
 #pragma unroll
       for (int j = 0; j < R; ++j) buf[pad(dst + j * s)] = v[k][j];
     }
   }
   __syncthreads();
+}
+
+// Output 0 of a radix-r DFT (r odd) whose inputs are at(b), b < r, and
+// x0 = at(0): their sum.
+template <class At>
+__device__ __forceinline__ float2 odd_sum(const At& at, float2 x0, int r) {
+  float2 acc = x0;
+  for (int b = 1; b < r; ++b) acc = cadd(acc, at(b));
+  return acc;
+}
+
+// Outputs jj and r - jj (1 <= jj <= (r - 1) / 2) of that DFT, before any
+// stage twiddle, into o1 and o2, with W_r^e = tw[e * stride] (the conjugate
+// pairs of stage_odd below).
+template <class At>
+__device__ __forceinline__ void odd_pair(const At& at, float2 x0,
+                                         const float2* __restrict__ tw, int r,
+                                         int stride, int jj, float2& o1,
+                                         float2& o2) {
+  const int h = (r - 1) / 2;
+  float2 A = make_float2(0.f, 0.f), D = make_float2(0.f, 0.f);
+  int e = 0;  // (jj * b) mod r
+  for (int b = 1; b <= h; ++b) {
+    e += jj;
+    if (e >= r) e -= r;
+    const float2 w = __ldg(&tw[e * stride]);
+    const float2 xb = at(b);
+    const float2 xc = at(r - b);
+    A.x += (xb.x + xc.x) * w.x;
+    A.y += (xb.y + xc.y) * w.x;
+    D.x += (xb.x - xc.x) * w.y;
+    D.y += (xb.y - xc.y) * w.y;
+  }
+  o1 = make_float2(x0.x + A.x - D.y, x0.y + A.y + D.x);
+  o2 = make_float2(x0.x + A.x + D.y, x0.y + A.y - D.x);
 }
 
 // One stage of an odd radix r (a prime up to 127). With h = (r - 1) / 2,
@@ -208,27 +262,13 @@ __device__ void stage_odd(float2* buf, const float2* __restrict__ tw, int n,
       const int row = g / stride, rem = g - row * stride;
       const int p = rem / s, q = rem - p * s;
       const int src = row * n + p * s + q;
-      const float2 x0 = buf[pad(src)];
+      const auto at = [&](int b) { return buf[pad(src + b * stride)]; };
+      const float2 x0 = at(0);
       if (jj == 0) {
-        float2 acc = x0;
-        for (int b = 1; b < r; ++b) acc = cadd(acc, buf[pad(src + b * stride)]);
-        v0[k] = acc;
+        v0[k] = odd_sum(at, x0, r);
       } else {
-        float2 A = make_float2(0.f, 0.f), D = make_float2(0.f, 0.f);
-        int e = 0;  // (jj * b) mod r
-        for (int b = 1; b <= h; ++b) {
-          e += jj;
-          if (e >= r) e -= r;
-          const float2 w = __ldg(&tw[e * stride]);
-          const float2 xb = buf[pad(src + b * stride)];
-          const float2 xc = buf[pad(src + (r - b) * stride)];
-          A.x += (xb.x + xc.x) * w.x;
-          A.y += (xb.y + xc.y) * w.x;
-          D.x += (xb.x - xc.x) * w.y;
-          D.y += (xb.y - xc.y) * w.y;
-        }
-        const float2 o1 = make_float2(x0.x + A.x - D.y, x0.y + A.y + D.x);
-        const float2 o2 = make_float2(x0.x + A.x + D.y, x0.y + A.y - D.x);
+        float2 o1, o2;
+        odd_pair(at, x0, tw, r, stride, jj, o1, o2);
         v0[k] = cmul(o1, __ldg(&tw[jj * p * s]));
         v1[k] = cmul(o2, __ldg(&tw[(r - jj) * p * s]));
       }

@@ -35,7 +35,7 @@
 
 #include <climits>
 
-#include "minor_fft.cuh"
+#include "real_fft.cuh"
 
 using namespace tpufft_fft;
 using tpufft_minor::Geometry;
@@ -102,12 +102,7 @@ rfft_kernel(const T* __restrict__ x, T* __restrict__ yr, T* __restrict__ yi,
     const int r = e / m1, k = e - r * m1;
     float2 X;
     if (kPacked) {
-      const float2 a = buf[pad(r * L + (k == L ? 0 : k))];   // Z[k]
-      const float2 b = buf[pad(r * L + (k == 0 ? 0 : L - k))];  // Z[m-k]
-      const float2 s = make_float2(a.x + b.x, a.y - b.y);  // Z + conj Zm
-      const float2 wd = cmul(__ldg(&half_tw[k]),
-                             make_float2(a.x - b.x, a.y + b.y));
-      X = make_float2(0.5f * (s.x + wd.y), 0.5f * (s.y - wd.x));  // - i wd
+      X = tpufft_real::untangle(buf, r * L, L, k, half_tw);
     } else {
       X = buf[pad(r * L + k)];
     }

@@ -1,12 +1,16 @@
-// The short-time Fourier kernels: overlapped frames of a signal times a
-// host-built matrix, with plain C entry points for ctypes
+// The short-time Fourier kernels, with plain C entry points for ctypes
 // (tpufft_torch/kernels/stft_mm.py binds and checks them).
 //
 // Replaces three Pallas TPU kernels of tpufft/kernels/mxu_fft.py:
 //   K13 build_stft_overlap: a real signal (batch, n_sig) -> spectrum planes
-//       (batch, nseg, m1); frame s of row b is x[b, s hop : s hop + nperseg]
-//       times a complex (nperseg, m1) matrix M that folds the detrend, the
-//       window, the zero-pad to nfft, the DFT and the scale;
+//       (batch, nseg, m1); frame s of row b is f = x[b, s hop : s hop +
+//       nperseg], and its spectrum is
+//         y[b, s, k] = c[k] rDFT_nfft(w . (f - A pinv(A) f))[k],
+//       the detrend (A = [1] or [1, j - (nperseg-1)/2]), the real window w,
+//       the zero-pad to nfft, the real DFT and a per-bin complex factor c
+//       (the scale, a phase shift, the onesided2X doubling). The TPU kernel
+//       and the callers' backward fold all of it into one (nperseg, m1)
+//       matrix M = D diag(w) V diag(c);
 //   K14 build_istft_ola: spectrum planes (batch, nseg, m1) -> the
 //       overlap-added signal (batch, (nseg + K - 1) hop), K = nperseg / hop;
 //       segment s contributes Zr Ar + Zi Ai (A is (m1, nperseg)) at s hop;
@@ -14,91 +18,259 @@
 //   K15 build_welch_accum: the sum over segments of |F_s M|^2 (welch), or
 //       of conj(F_s M) (G_s M) as two planes (csd), -> (batch, m1); the
 //       per-segment spectra never reach device memory.
-// Signals and spectra are f32 or bf16 (computed in f32), matrices and
+// Signals and spectra are f32 or bf16 (computed in f32), tables and
 // results f32, all row-major and contiguous.
 //
-// What bounds them on an H100: FP32 arithmetic. Each is a dense product
-// of depth nperseg (K13, K15) or K m1 (K14) with 4 flop per depth step and
-// output for about 8 bytes of traffic an output: at nperseg = 256 that is
-// ~1000 flop a byte, far above the ~20 where the card's 67 TFLOP/s of FP32
-// FMA meets its memory rate. So all three are the shared-memory SGEMM of
-// tile_mm.cuh (f32 FMA, no TF32, as K10-K12), with an A operand that is
-// never materialised:
-//   K13: row (b, s) of A starts at b n_sig + s hop, so A is the frame view
-//        with leading dimension hop; the nperseg / hop overlapping re-reads
-//        come from L1/L2, never as a frame tensor in device memory. A real
-//        X times a complex M: one X slice staged, Yr and Yi accumulated.
+// K13 on an H100 is bound by device-memory bytes: one read of the signal
+// and one write of the planes (at nperseg 256, hop 128: 4 bytes in, 8.1
+// bytes out per sample) against ~2.5 nfft log2 nfft flops a frame. The
+// dense product with M costs 4 nperseg flops a bin, ~32x the FFT's at
+// nfft = 256, which bounded the earlier form by the FP32 peak above
+// torch.stft's time. So K13 is an FFT: a block takes one row and a run of
+// `frames` consecutive frames, copies the run's span, (frames - 1) hop +
+// nperseg samples, into shared memory once (16-byte cp.async where the
+// chunk lies inside the signal), reads the overlapping frames from there,
+// takes each frame's mean and first moment by a warp reduction, windows and
+// zero-pads it into the stage buffer as K7 packs a row (even nfft: m =
+// nfft/2 complex values x[2j] + i x[2j+1]; odd nfft: the row with a zero
+// imaginary part), runs K7's stages (fft_stages.cuh), untangles the bins
+// (real_fft.cuh), multiplies by c and stores the block's frames as one
+// contiguous, coalesced run of each plane. A block takes half the rows K1
+// packs of its stage length (minor_fft.cuh:launch_geometry): ~2048
+// values, 256 threads, 64 registers, up to four blocks an SM; fewer where
+// the span would not fit.
+//
+// K14 and K15 are still dense products: the shared-memory SGEMM of
+// tile_mm.cuh (f32 FMA, no TF32, as K10-K12), of depth K m1 (K14) or
+// nperseg (K15), with an A operand that is never materialised:
 //   K14: output chunk c (hop samples) of row b is the sum over taps
 //        k < K of Z[b, c - k, :] A[:, k hop : (k + 1) hop]: a product of
 //        depth K m1 whose A row at tap k is segment c - k, masked where that
 //        segment does not exist. Every output is written once by one
 //        thread: no atomics, no scatter-add, the same bits every run.
-//   K15: K13's product with an epilogue that squares (or takes conj(X) Y
-//        of the two signals' spectra) and sums the tile's segment rows in
-//        registers, then across the block's threads through shared memory,
-//        into one partial per (row, segment tile, column). A block has no
-//        sequential grid to carry a sum (the TPU kernel revisits one
-//        output block), so a second small pass sums the partials over the
-//        segment tiles in a fixed order: deterministic. The segment tiles
-//        are what fill 132 SMs when batch x column tiles are few.
-// Rows of a batch are gridDim.z; a batch beyond 65535 rows runs in several
-// launches.
+//   K15: row (b, s) of A starts at b n_sig + s hop (the frame view, its
+//        overlapping re-reads served by L1/L2); the epilogue squares (or
+//        takes conj(X) Y of the two signals' spectra) and sums the tile's
+//        segment rows in registers, then across the block's threads through
+//        shared memory, into one partial per (row, segment tile, column).
+//        A block has no sequential grid to carry a sum (the TPU kernel
+//        revisits one output block), so a second small pass sums the
+//        partials over the segment tiles in a fixed order: deterministic.
+//        The segment tiles are what fill 132 SMs when batch x column tiles
+//        are few.
+// Rows of a batch are gridDim.z there; a batch beyond 65535 rows runs in
+// several launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
+#include "real_fft.cuh"
 #include "tile_mm.cuh"
+
+namespace k13 {
+
+using tpufft_fft::Div;
+using tpufft_fft::Radices;
+using tpufft_fft::pad;
+using tpufft_minor::Geometry;
+using tpufft_minor::launch_geometry;
+using tile_mm::to_f32;
+
+constexpr int kBlock = 512;           // threads of a block at most
+constexpr int kPer = 8;               // stage values a thread
+constexpr size_t kSpanBytes = 64 << 10;   // the largest span a block copies
+
+// 16 bytes from device to shared memory without passing through registers.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__host__ __device__ __forceinline__ size_t round16(size_t b) {
+  return (b + 15) & ~size_t(15);
+}
+
+// Byte offsets of a block's shared regions: the stage buffer (pad(frames
+// L) float2), the signal span (raw storage values, 16 bytes of slack a
+// side for the alignment of its copy), the window, the per-frame detrend
+// (mean, slope) pairs.
+struct Layout {
+  size_t sig, win, stats, bytes;
+  __host__ __device__ Layout(int frames, int L, int hop, int nperseg,
+                             int elem) {
+    sig = round16((size_t)pad(frames * L) * sizeof(float2));
+    win = sig + round16(((size_t)(frames - 1) * hop + nperseg) * elem + 32);
+    stats = win + round16((size_t)nperseg * sizeof(float));
+    bytes = stats + (size_t)frames * sizeof(float2);
+  }
+};
+
+// K13. Block (b, run) transforms frames s0 .. s0 + frames - 1 of signal row
+// b, s0 = run * frames, into rows s0.. of the (batch, nseg, m1) planes
+// yr/yi. kPacked: nfft = 2 plan.n (stages of length m = plan.n on
+// z[j] = g[2j] + i g[2j+1], half_tw[k] = exp(-2 pi i k / nfft), k <= m);
+// otherwise nfft = plan.n (odd). detrend: 0 none, 1 constant, 2 linear.
+template <class T, bool kPacked>
+__global__ void __launch_bounds__(kBlock, 2)
+stft_frames_kernel(const T* __restrict__ x, const float* __restrict__ win,
+                   const float* __restrict__ cr, const float* __restrict__ ci,
+                   float* __restrict__ yr, float* __restrict__ yi,
+                   const float2* __restrict__ tw,
+                   const float2* __restrict__ half_tw, int64_t n_total,
+                   int64_t n_sig, int hop, int nseg, int nperseg, int detrend,
+                   Radices plan, int frames, int runs) {
+  extern __shared__ float4 tpufft_stft_smem[];   // 16-byte aligned
+  char* base = reinterpret_cast<char*>(tpufft_stft_smem);
+  const int L = plan.n;
+  const int m1 = (kPacked ? 2 * L : L) / 2 + 1;
+  const Layout lay(frames, L, hop, nperseg, (int)sizeof(T));
+  float2* buf = reinterpret_cast<float2*>(base);
+  T* sig = reinterpret_cast<T*>(base + lay.sig);
+  float* wtab = reinterpret_cast<float*>(base + lay.win);
+  float2* stats = reinterpret_cast<float2*>(base + lay.stats);
+
+  const int64_t b = blockIdx.x / runs;
+  const int s0 = (int)(blockIdx.x - b * runs) * frames;
+  const int here = min(frames, nseg - s0);
+
+  // the span of the run, in 16-byte chunks from the aligned address at or
+  // below its first sample; chunks that reach outside the signal go
+  // element by element
+  constexpr int E = 16 / sizeof(T);
+  const int64_t a = b * n_sig + (int64_t)s0 * hop;
+  const int lead =
+      (int)((reinterpret_cast<uintptr_t>(x + a) & 15) / sizeof(T));
+  const int64_t a16 = a - lead;
+  const int chunks = (lead + (here - 1) * hop + nperseg + E - 1) / E;
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const int64_t g = a16 + (int64_t)c * E;
+    if (g >= 0 && g + E <= n_total) {
+      cp_async16(sig + c * E, x + g);
+    } else {
+      for (int e = 0; e < E; ++e)
+        if (g + e >= 0 && g + e < n_total) sig[c * E + e] = x[g + e];
+    }
+  }
+  for (int i = threadIdx.x; i < nperseg; i += blockDim.x) wtab[i] = win[i];
+  cp_async_wait_all();
+  __syncthreads();
+
+  // detrend: each frame's mean and its first moment about the centre,
+  // one warp a frame
+  const float mid = 0.5f * (float)(nperseg - 1);
+  if (detrend) {
+    const int lane = threadIdx.x & 31;
+    const float tt =
+        (float)nperseg * ((float)nperseg * (float)nperseg - 1.f) / 12.f;
+    for (int r = threadIdx.x >> 5; r < here; r += blockDim.x >> 5) {
+      const T* f = sig + lead + r * hop;
+      float s1 = 0.f, s2 = 0.f;
+      for (int j = lane; j < nperseg; j += 32) {
+        const float v = to_f32(f[j]);
+        s1 += v;
+        s2 += v * ((float)j - mid);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      }
+      if (lane == 0)
+        stats[r] = make_float2(s1 / (float)nperseg,
+                               detrend == 2 && nperseg > 1 ? s2 / tt : 0.f);
+    }
+    __syncthreads();
+  }
+
+  // detrended, windowed, zero-padded frames into the stage buffer
+  const Div by_L(L);
+  const int total = frames * L;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) {
+      const int r = by_L(e), j = e - r * L;
+      float2 z = make_float2(0.f, 0.f);
+      if (r < here) {
+        const float2 st = detrend ? stats[r] : make_float2(0.f, 0.f);
+        const T* f = sig + lead + r * hop;
+        auto sample = [&](int i) {
+          return i < nperseg
+                     ? (to_f32(f[i]) - st.x - st.y * ((float)i - mid)) *
+                           wtab[i]
+                     : 0.f;
+        };
+        z = kPacked ? make_float2(sample(2 * j), sample(2 * j + 1))
+                    : make_float2(sample(j), 0.f);
+      }
+      buf[pad(e)] = z;
+    }
+  }
+  __syncthreads();
+  tpufft_fft::run_stages<kPer>(buf, tw, plan, frames, false);
+
+  // bins times c; the block's frames are one contiguous run of each plane
+  const Div by_m1(m1);
+  const int64_t out0 = (b * nseg + s0) * (int64_t)m1;
+  const int outs = here * m1;
+  for (int e = threadIdx.x; e < outs; e += blockDim.x) {
+    const int r = by_m1(e), k = e - r * m1;
+    const float2 X = kPacked ? tpufft_real::untangle(buf, r * L, L, k, half_tw)
+                             : buf[pad(r * L + k)];
+    const float c_r = __ldg(&cr[k]), c_i = __ldg(&ci[k]);
+    yr[out0 + e] = X.x * c_r - X.y * c_i;
+    yi[out0 + e] = X.x * c_i + X.y * c_r;
+  }
+}
+
+template <class T, bool kPacked>
+int launch(const void* x, const float* win, const float* cr, const float* ci,
+           float* yr, float* yi, const float2* tw, const float2* half_tw,
+           int64_t batch, int64_t n_sig, int hop, int nseg, int nperseg,
+           int detrend, const Radices& plan, cudaStream_t stream) {
+  auto* kernel = stft_frames_kernel<T, kPacked>;
+  const int L = plan.n;
+  const Geometry g = launch_geometry(L);
+  if (g.per != kPer || g.threads > kBlock) return (int)cudaErrorInvalidValue;
+  // half of K1's rows a block: ~2048 values, 256 threads, up to four
+  // blocks an SM (tools/stft_phases.py: faster than K1's ~4096)
+  int frames = g.rows > 1 ? g.rows / 2 : 1;
+  if (frames > nseg) frames = nseg;
+  while (frames > 1 &&
+         ((size_t)(frames - 1) * hop + nperseg) * sizeof(T) > kSpanBytes)
+    frames = (frames + 1) / 2;
+  const Layout lay(frames, L, hop, nperseg, (int)sizeof(T));
+  if (lay.bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int threads = ((frames * L + kPer - 1) / kPer + 31) / 32 * 32;
+  const cudaError_t err = tpufft_fft::allow_smem(kernel, lay.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int runs = (nseg + frames - 1) / frames;
+  const long long blocks = batch * runs;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, lay.bytes, stream>>>(
+      static_cast<const T*>(x), win, cr, ci, yr, yi, tw, half_tw,
+      batch * n_sig, n_sig, hop, nseg, nperseg, detrend, plan, frames, runs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k13
 
 namespace {
 
 using namespace tile_mm;
 
 constexpr int64_t kMaxGrid = 65535;   // gridDim.y and gridDim.z limits
-
-// At most 128 registers, so two blocks share an SM: left alone ptxas gives
-// the kernel 159 (one block an SM), 1.2x slower on an H100 (PERF.md).
-template <class T>
-__global__ void __launch_bounds__(kThreads, 2)
-stft_kernel(const T* __restrict__ x, const float* __restrict__ mr,
-            const float* __restrict__ mi, float* __restrict__ yr,
-            float* __restrict__ yi, int64_t n_sig, int hop, int nseg,
-            int nperseg, int m1) {
-  constexpr int TM = 8;
-  __shared__ __align__(16) Smem<TM, RealComplex::PA, RealComplex::PB> sm;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int64_t b = blockIdx.z;
-  const int s0 = blockIdx.y * Tile<TM>::BM;
-  const int col0 = blockIdx.x * kBN;
-  const T* xb = x + b * n_sig;
-
-  float acc[RealComplex::PC][TM][4];
-  zero(acc);
-  accumulate<RealComplex, TM>(
-      sm, nperseg,
-      [&](int, int r, int k) {
-        const int s = s0 + r;
-        return s < nseg ? to_f32(xb[(int64_t)s * hop + k]) : 0.f;
-      },
-      [&](int q, int k, int c) {
-        return col0 + c < m1 ? (q ? mi : mr)[(int64_t)k * m1 + col0 + c]
-                             : 0.f;
-      },
-      acc);
-
-  const bool vec = (m1 % 4) == 0;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int s = s0 + row_of(i, ty);
-    if (s >= nseg) continue;
-    const int64_t off = (b * nseg + s) * m1;
-    store4(yr + off, col0 + tx * 4, m1, vec, acc[0][i]);
-    store4(yi + off, col0 + tx * 4, m1, vec, acc[1][i]);
-  }
-}
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
@@ -230,24 +402,6 @@ __global__ void sum_tiles_kernel(const float* __restrict__ part,
 int tiles_of(int64_t n, int bm) { return (int)((n + bm - 1) / bm); }
 
 template <class T>
-int launch_stft(const T* x, const float* mr, const float* mi, float* yr,
-                float* yi, int64_t batch, int64_t n_sig, int hop, int nseg,
-                int nperseg, int m1, cudaStream_t stream) {
-  const int tiles = tiles_of(nseg, Tile<8>::BM);
-  if (tiles > kMaxGrid) return (int)cudaErrorInvalidValue;
-  for (int64_t b0 = 0; b0 < batch; b0 += kMaxGrid) {
-    const int64_t rows = batch - b0 < kMaxGrid ? batch - b0 : kMaxGrid;
-    const dim3 grid(tiles_of(m1, kBN), tiles, (unsigned)rows);
-    stft_kernel<T><<<grid, kThreads, 0, stream>>>(
-        x + b0 * n_sig, mr, mi, yr + b0 * nseg * m1, yi + b0 * nseg * m1,
-        n_sig, hop, nseg, nperseg, m1);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-template <class T>
 int launch_istft(const T* zr, const T* zi, const float* ar, const float* ai,
                  float* out, int64_t batch, int nseg, int hop, int nperseg,
                  int m1, cudaStream_t stream) {
@@ -298,27 +452,52 @@ int launch_welch(const T* x, const T* y, const float* mr, const float* mi,
 
 }  // namespace
 
-// K13: x (batch, n_sig) f32 or bf16 (bf16 != 0), mr/mi (nperseg, m1) f32,
-// yr/yi (batch, nseg, m1) f32; frame s of row b starts at b n_sig + s hop,
-// with (nseg - 1) hop + nperseg <= n_sig. Returns 0 or a CUDA error.
-extern "C" int tpufft_stft_frames(const void* x, const void* mr,
-                                  const void* mi, void* yr, void* yi,
-                                  long long batch, long long n_sig, int hop,
-                                  int nseg, int nperseg, int m1, int bf16,
+// K13: x (batch, n_sig) f32 or bf16 (bf16 != 0), win (nperseg) f32, cr/ci
+// (nfft/2 + 1) f32, yr/yi (batch, nseg, nfft/2 + 1) f32; frame s of row b
+// starts at b n_sig + s hop, with (nseg - 1) hop + nperseg <= n_sig and
+// nperseg <= nfft. detrend: 0 none, 1 constant, 2 linear. With L = nfft/2
+// for even nfft and L = nfft for odd: tw holds exp(-2 pi i k / L), k < L,
+// radices[0:nstages] multiply to L (each 2, 4, 8 or an odd value up to
+// 127), half_tw (read for even nfft) exp(-2 pi i k / nfft), k <= nfft/2.
+// Returns 0 or a CUDA error.
+extern "C" int tpufft_stft_frames(const void* x, const void* win,
+                                  const void* cr, const void* ci, void* yr,
+                                  void* yi, const void* tw,
+                                  const void* half_tw, long long batch,
+                                  long long n_sig, int hop, int nseg,
+                                  int nperseg, int nfft, int detrend,
+                                  const int* radices, int nstages, int bf16,
                                   void* stream) {
-  if (batch < 0 || hop < 1 || nseg < 1 || nperseg < 1 || m1 < 1 ||
-      (int64_t)(nseg - 1) * hop + nperseg > n_sig)
+  tpufft_fft::Radices plan;
+  const bool even = nfft % 2 == 0;
+  if (batch < 0 || hop < 1 || nseg < 1 || nperseg < 1 || nfft < 2 ||
+      nperseg > nfft || detrend < 0 || detrend > 2 ||
+      (int64_t)(nseg - 1) * hop + nperseg > n_sig ||
+      !tpufft_fft::make_radices(even ? nfft / 2 : nfft, radices, nstages,
+                                &plan))
     return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* fr = static_cast<const float*>(mr);
-  const auto* fi = static_cast<const float*>(mi);
+  const auto* w = static_cast<const float*>(win);
+  const auto* c_r = static_cast<const float*>(cr);
+  const auto* c_i = static_cast<const float*>(ci);
+  auto* o_r = static_cast<float*>(yr);
+  auto* o_i = static_cast<float*>(yi);
+  const auto* t = static_cast<const float2*>(tw);
+  const auto* h = static_cast<const float2*>(half_tw);
   if (bf16)
-    return launch_stft(static_cast<const __nv_bfloat16*>(x), fr, fi,
-                       static_cast<float*>(yr), static_cast<float*>(yi), batch,
-                       n_sig, hop, nseg, nperseg, m1, st);
-  return launch_stft(static_cast<const float*>(x), fr, fi,
-                     static_cast<float*>(yr), static_cast<float*>(yi), batch,
-                     n_sig, hop, nseg, nperseg, m1, st);
+    return even ? k13::launch<__nv_bfloat16, true>(
+                      x, w, c_r, c_i, o_r, o_i, t, h, batch, n_sig, hop, nseg,
+                      nperseg, detrend, plan, st)
+                : k13::launch<__nv_bfloat16, false>(
+                      x, w, c_r, c_i, o_r, o_i, t, h, batch, n_sig, hop, nseg,
+                      nperseg, detrend, plan, st);
+  return even ? k13::launch<float, true>(x, w, c_r, c_i, o_r, o_i, t, h, batch,
+                                         n_sig, hop, nseg, nperseg, detrend,
+                                         plan, st)
+              : k13::launch<float, false>(x, w, c_r, c_i, o_r, o_i, t, h,
+                                          batch, n_sig, hop, nseg, nperseg,
+                                          detrend, plan, st);
 }
 
 // K14: zr/zi (batch, nseg, m1) f32 or bf16, ar/ai (m1, nperseg) f32 with

@@ -1,14 +1,17 @@
 """The short-time Fourier kernels: the CUDA kernels, their wrappers, and
 their plain PyTorch versions.
 
-Counterparts of three Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``,
-each a product of a signal's overlapping frames with one matrix built on
-the host (``spectral._stft_matrix``, ``_istft_matrix`` and the
-``ShortTimeFFT`` matrices fold detrend, window, zero-pad, DFT and scale):
+Counterparts of three Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
 
 * ``build_stft_overlap`` (K13): real signal (batch, n_sig) -> spectrum
-  planes (batch, nseg, m1), frame s = x[:, s hop : s hop + nperseg] times
-  the complex (nperseg, m1) matrix: :func:`stft_frames`;
+  planes (batch, nseg, m1), frame s = x[:, s hop : s hop + nperseg]
+  detrended (none, constant or linear), windowed, zero-padded to nfft,
+  real-DFT'd and multiplied by a per-bin complex factor c (the scale, a
+  phase shift, the onesided2X doubling): :func:`stft_frames`. tpufft folds
+  all of it into one (nperseg, m1) host matrix; the port's kernel is an
+  FFT of each frame, in shared memory, and takes the window, c, nfft and
+  the detrend kind instead (the matrix stays with the callers' backward
+  and with the plain version, :func:`frame_matrix`);
 * ``build_istft_ola`` (K14): spectrum planes (batch, nseg, m1) ->
   (batch, (nseg + K - 1) hop), K = nperseg / hop, the overlap-add of each
   segment's Zr Ar + Zi Ai with A (m1, nperseg), unnormalised:
@@ -16,29 +19,41 @@ the host (``spectral._stft_matrix``, ``_istft_matrix`` and the
 * ``build_welch_accum`` (K15): the sum over segments of |F_s M|^2, or of
   conj(F_s M) (G_s M) as two planes for two signals: :func:`welch_accum`.
 
-One CUDA source (``csrc/stft_mm.cu``, on the tile loop of
-``csrc/tile_mm.cuh`` that K10-K12 share) serves all three with f32 FMA (no
-TF32). Frames are never materialised on the kernel path. Signals and
-spectra may be f32 or bf16 (computed in f32); matrices and results are f32.
-The TPU kernels' segment-major (nseg, batch, m1) layout and segment groups
-exist for Mosaic's block rule and the MXU's 128 rows, and have no
-counterpart here: the kernels read and write the layouts their callers use.
+One CUDA source (``csrc/stft_mm.cu``) serves all three. K13 runs K7's
+stages (``csrc/fft_stages.cuh``, ``real_fft.cuh``) on frames copied once
+a block into shared memory; its envelope is :func:`frames_supported` (an
+nfft whose stage length, nfft/2 or odd nfft, has prime factors <= 127).
+K14 and K15 are products with a host-built matrix on the tile loop of
+``csrc/tile_mm.cuh`` that K10-K12 share, with f32 FMA (no TF32). Frames
+are never materialised on the kernel path. Signals and spectra may be f32
+or bf16 (computed in f32); tables and results are f32. The TPU kernels'
+segment-major (nseg, batch, m1) layout and segment groups exist for
+Mosaic's block rule and the MXU's 128 rows, and have no counterpart here:
+the kernels read and write the layouts their callers use.
 
-A CPU tensor runs the plain version (``unfold`` and two ``torch.matmul``;
-per-segment matmuls and an ``index_add_`` overlap-add; the first then the
-square and sum); a CUDA tensor launches the kernel or raises, never falls
-back. ``launches["stft"|"istft"|"welch"|"csd"]`` count launches;
+A CPU tensor runs the plain version (``unfold`` and two ``torch.matmul``
+with the f64-built matrix; per-segment matmuls and an ``index_add_``
+overlap-add; the first then the square and sum); a CUDA tensor launches
+the kernel or raises, never falls back.
+``launches["stft"|"istft"|"welch"|"csd"]`` count launches;
 ``reference_cuda_calls`` counts runs of the plain versions on CUDA
 tensors, which the main path never makes.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import _build
+from . import minor_fft, real_fft
 
 __all__ = [
+    "DETRENDS",
+    "frame_matrix",
+    "frames_supported",
     "istft_ola",
     "istft_ola_reference",
     "launches",
@@ -54,6 +69,9 @@ launches = {"stft": 0, "istft": 0, "welch": 0, "csd": 0}
 reference_cuda_calls = 0
 
 _STORAGE = (torch.float32, torch.bfloat16)
+# K13's detrend kinds, as the kernel numbers them
+DETRENDS = {False: 0, None: 0, "constant": 1, "linear": 2}
+MAX_FRAME_NFFT = 1024   # the callers' cap (spectral.STFT_KERNEL_MAX_NFFT)
 
 
 def reset_counts() -> None:
@@ -96,32 +114,77 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def stft_frames(x: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor,
-                hop: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Frames of the rows of ``x`` (batch, n_sig) times ``mr + i mi``
-    (nperseg, m1): the (batch, nseg, m1) f32 spectrum planes, nseg =
-    1 + (n_sig - nperseg) // hop (K13).
+def frames_supported(nfft: int) -> bool:
+    """Is nfft inside K13's envelope: 2 <= nfft <= 1024 with a stage
+    length (nfft/2, or odd nfft) whose prime factors are <= 127, as for K7
+    (``real_fft.supported``)? The primes 131 to 1021, and 262 = 2 x 131,
+    are not."""
+    nfft = int(nfft)
+    return (2 <= nfft <= MAX_FRAME_NFFT
+            and real_fft.supported(nfft, torch.float32))
+
+
+def _detrend_kind(detrend) -> int:
+    if callable(detrend) or detrend not in DETRENDS:
+        raise ValueError(f"stft_frames: detrend must be False, None, "
+                         f"'constant' or 'linear', got {detrend!r}")
+    return DETRENDS[detrend]
+
+
+def _check_frames(x: torch.Tensor, nperseg: int, nfft: int, hop: int,
+                  nseg: int) -> None:
+    if not 1 <= nperseg <= nfft:
+        raise ValueError(f"stft_frames: nperseg {nperseg} must be in "
+                         f"[1, nfft = {nfft}]")
+    if hop < 1 or nseg < 1 or (nseg - 1) * hop + nperseg > x.shape[-1]:
+        raise ValueError(
+            f"stft_frames: {nseg} frames of {nperseg} at hop {hop} do not "
+            f"fit a signal of {x.shape[-1]}")
+
+
+def stft_frames(x: torch.Tensor, win: torch.Tensor, cr: torch.Tensor,
+                ci: torch.Tensor, nfft: int, detrend, hop: int,
+                nseg: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The spectra of frames s = 0..nseg-1 of the rows of ``x`` (batch,
+    n_sig), frame s = x[:, s hop : s hop + nperseg]: detrended (``detrend``
+    False/None, "constant" or "linear"), times the real window ``win``
+    (nperseg), zero-padded to ``nfft``, the real DFT's nfft/2 + 1 bins,
+    each times ``cr + i ci``: the (batch, nseg, nfft/2 + 1) f32 planes
+    (K13).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream and raise on anything it does not take."""
-    if all(t.device.type == "cpu" for t in (x, mr, mi)):
-        return stft_frames_reference(x, mr, mi, hop)
+    nfft, hop, nseg = int(nfft), int(hop), int(nseg)
+    kind = _detrend_kind(detrend)
+    if all(t.device.type == "cpu" for t in (x, win, cr, ci)):
+        return stft_frames_reference(x, win, cr, ci, nfft, detrend, hop,
+                                     nseg)
     name = "stft_frames"
     _check_rows(name, "the signal", x, x.device, 2)
-    nperseg, m1 = mr.shape
-    for t in (mr, mi):
-        _check_table(name, t, x.device, (nperseg, m1))
+    nperseg, m1 = win.shape[0], nfft // 2 + 1
+    _check_table(name, win, x.device, (nperseg,))
+    for t in (cr, ci):
+        _check_table(name, t, x.device, (m1,))
+    _check_frames(x, nperseg, nfft, hop, nseg)
+    if not frames_supported(nfft):
+        raise ValueError(
+            f"{name}: nfft {nfft} is outside the kernel's envelope (2 <= "
+            f"nfft <= {MAX_FRAME_NFFT}, stage length nfft/2 or odd nfft "
+            f"with prime factors <= {minor_fft.MAX_PRIME})")
     batch, n_sig = x.shape
-    nseg = _nseg(n_sig, nperseg, hop)
     yr = x.new_empty((batch, nseg, m1), dtype=torch.float32)
     yi = torch.empty_like(yr)
     if batch == 0:
         return yr, yi
     lib = _build.load()
     with torch.cuda.device(x.device):
+        tw, half, _, _ = real_fft._launch_args(nfft, False, x.device)
+        rad = minor_fft.radices(nfft // 2 if nfft % 2 == 0 else nfft)
+        rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
         err = lib.tpufft_stft_frames(
-            x.data_ptr(), mr.data_ptr(), mi.data_ptr(), yr.data_ptr(),
-            yi.data_ptr(), batch, n_sig, hop, nseg, nperseg, m1,
+            x.data_ptr(), win.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), tw.data_ptr(), half.data_ptr(),
+            batch, n_sig, hop, nseg, nperseg, nfft, kind, rad_arr, len(rad),
             int(x.dtype == torch.bfloat16), _stream(x))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -232,11 +295,45 @@ def _frames(x: torch.Tensor, nperseg: int, hop: int) -> torch.Tensor:
     return x.float().unfold(-1, nperseg, hop)[:, :nseg]
 
 
-def stft_frames_reference(x, mr, mi, hop: int):
-    """Plain PyTorch version of :func:`stft_frames`: ``unfold`` and two
-    matmuls; any device."""
+def frame_matrix(win, c, nfft: int, detrend) -> np.ndarray:
+    """K13's function as one (nperseg, nfft/2 + 1) complex f64 matrix,
+    M = D diag(win) V diag(c): D the detrend projector (I, I - 11^T/n or
+    I - A pinv(A) with A = [1, j - (n-1)/2]), V the DFT's first nperseg
+    rows and nfft/2 + 1 columns (host f64 trig). The callers' tables
+    (``spectral._stft_matrix`` times the scale, ``ShortTimeFFT.
+    _fused_stft_matrix``) are this matrix for their window and c."""
+    win = np.asarray(win, np.float64)
+    c = np.asarray(c, np.complex128)
+    nperseg = win.shape[0]
+    j = np.arange(nperseg, dtype=np.float64)
+    k = np.arange(nfft // 2 + 1, dtype=np.float64)
+    M = win[:, None] * np.exp((-2j * np.pi / nfft) * np.outer(j, k))
+    kind = _detrend_kind(detrend)
+    if kind == 1:
+        M = M - M.mean(axis=0)[None, :]
+    elif kind == 2:
+        A = np.stack([np.ones(nperseg), j - (nperseg - 1) / 2.0], axis=1)
+        M = M - A @ (np.linalg.pinv(A) @ M)
+    return M * c[None, :]
+
+
+def stft_frames_reference(x, win, cr, ci, nfft: int, detrend, hop: int,
+                          nseg: int):
+    """Plain PyTorch version of :func:`stft_frames`: :func:`frame_matrix`
+    built on the host in f64 from the same arguments, then ``unfold`` and
+    two f32 matmuls; any device. It shares no code with the kernel's FFT."""
     _count(x)
-    f = _frames(x, mr.shape[0], hop)
+    nfft, hop, nseg = int(nfft), int(hop), int(nseg)
+    nperseg = win.shape[0]
+    _check_frames(x, nperseg, nfft, hop, nseg)
+
+    def host(t):
+        return t.detach().double().cpu().numpy()
+
+    M = frame_matrix(host(win), host(cr) + 1j * host(ci), nfft, detrend)
+    f = x.float().unfold(-1, nperseg, hop)[:, :nseg]
+    mr = torch.as_tensor(M.real, dtype=torch.float32, device=x.device)
+    mi = torch.as_tensor(M.imag, dtype=torch.float32, device=x.device)
     return f @ mr, f @ mi
 
 

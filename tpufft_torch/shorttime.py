@@ -15,9 +15,14 @@ canonical dual window, ``spectrogram``, the full index bookkeeping
 * Kernel routes: a real f32 or bf16 signal in a onesided mode with a
   real window, a foldable detrend and the kernels' geometry (2 <= mfft
   <= 1024, m_num <= mfft, m_num % hop == 0) runs ``stft`` on K13 and
-  ``istft`` on K14 (``kernels/stft_mm``): the window, phase roll, mode
-  scaling and DFT fold into one host matrix, so no frame tensor is built
-  and the overlap-add has no scatter. A CPU tensor takes the same route
+  ``istft`` on K14 (``kernels/stft_mm``). K13 (where mfft is inside its
+  FFT's envelope, ``stft_mm.frames_supported``) detrends, windows,
+  zero-pads and real-FFTs each frame in shared memory and multiplies bin
+  k by c[k], the phase roll and the mode scaling (``_frame_factor``); the
+  same steps as one host matrix serve its backward. For K14 the inverse
+  DFT, phase roll, mode scaling and dual window fold into one host matrix.
+  No frame tensor is built and the overlap-add has no scatter. A CPU
+  tensor takes the same route
   through the kernels' plain versions. Everything else composes the
   port's own transforms on the frames (rfft/irfft/fft: K7, K8, K1 on the
   card) and overlap-adds with one ``index_add_``.
@@ -39,6 +44,7 @@ from . import api
 from .api import numpy_device
 from .config import PlanConfig
 from .core import SplitComplex
+from .kernels import stft_mm
 from .spectral import _detrend_seg
 
 __all__ = ["ShortTimeFFT", "closest_STFT_dual_window"]
@@ -529,38 +535,52 @@ class ShortTimeFFT:
             return False
         if cfg.backend == "xla":
             return False
-        return _geometry_ok(self.m_num, self._hop, self._mfft)
+        return (_geometry_ok(self.m_num, self._hop, self._mfft)
+                and stft_mm.frames_supported(self._mfft))
+
+    def _phase_shift_p(self) -> int:
+        """p_s: the shift of the DFT's sample index by the phase shift."""
+        if self._phase_shift is None:
+            return 0
+        return (self._phase_shift + self.m_num_mid) % self.m_num
+
+    def _frame_factor(self) -> np.ndarray:
+        """K13's per-bin factor c: the phase roll exp(+2 pi i p_s k /
+        mfft) times the onesided2X doubling (f64 host trig);
+        ``_fused_stft_matrix`` is ``stft_mm.frame_matrix`` of the real
+        window and this c."""
+        k = np.arange(self._mfft // 2 + 1, dtype=np.float64)
+        c = np.exp((2j * np.pi * self._phase_shift_p() / self._mfft) * k)
+        if self._fft_mode == "onesided2X":
+            fac = math.sqrt(2) if self._scaling == "psd" else 2.0
+            c[1:-1 if self._mfft % 2 == 0 else None] *= fac
+        return c
+
+    def _frame_tables(self, device):
+        """The real window and c as f32 tensors on ``device``, cached with
+        the instance (dropped by scale_to)."""
+        full = ("frame tables", self._win_version, str(device))
+        tables = self._mat_cache.get(full)
+        if tables is None:
+            c = self._frame_factor()
+            tables = tuple(
+                torch.as_tensor(np.ascontiguousarray(p), dtype=torch.float32,
+                                device=device)
+                for p in (np.real(self._win), c.real, c.imag))
+            self._mat_cache[full] = tables
+        return tables
 
     def _fused_stft_matrix(self, detr) -> np.ndarray:
         """The whole _fft_func as ONE (m_num, m1) complex matrix: detrend
-        projector, conj window, zero-pad, phase roll (a constant shift in
-        the DFT exponent), onesided rDFT and the onesided2X scaling are all
-        linear maps (f64 host trig)."""
+        projector (acting on the RAW frame), window, zero-pad, phase roll
+        and onesided2X scaling (``_frame_factor``) and the onesided rDFT
+        are all linear maps (f64 host trig, ``stft_mm.frame_matrix``)."""
         key = ("stft", detr, self._win_version)
         M = self._mat_cache.get(key)
-        if M is not None:
-            return M
-        m = self.m_num
-        m1 = self._mfft // 2 + 1
-        p_s = 0
-        if self._phase_shift is not None:
-            p_s = (self._phase_shift + self.m_num_mid) % m
-        j = np.arange(m, dtype=np.float64)
-        k = np.arange(m1, dtype=np.float64)
-        theta = (-2.0 * np.pi / self._mfft) * np.outer(j - p_s, k)
-        M = np.conj(self._win)[:, None] * np.exp(1j * theta)
-        if detr == "constant":
-            # detrend acts on the RAW frame: out = f @ (D @ M) with the
-            # symmetric projector D = I - 11^T/m
-            M = M - M.mean(axis=0)[None, :]
-        elif detr == "linear":
-            A = np.stack([np.ones(m), j - (m - 1) / 2.0], axis=1)
-            M = M - A @ (np.linalg.pinv(A) @ M)
-        if self._fft_mode == "onesided2X":
-            fac = math.sqrt(2) if self._scaling == "psd" else 2.0
-            sl = slice(1, -1 if self._mfft % 2 == 0 else None)
-            M[:, sl] *= fac
-        self._mat_cache[key] = M
+        if M is None:
+            M = stft_mm.frame_matrix(np.real(self._win), self._frame_factor(),
+                                     self._mfft, detr)
+            self._mat_cache[key] = M
         return M
 
     def _device_tables(self, key, build, device):
@@ -579,7 +599,8 @@ class ShortTimeFFT:
     def _fused_stft(self, x, detr, p0: int, p1: int, k_offset: int,
                     padding: str):
         """(..., p, f) planes on K13: frames stream straight from the
-        (padded) signal, no frame tensor is built."""
+        (padded) signal, no frame tensor is built; the matrix serves the
+        backward only."""
         from .spectral import _STFTFused
 
         xpad, start = self._padded(x, p0, p1, k_offset, padding)
@@ -587,10 +608,13 @@ class ShortTimeFFT:
         n_sig = (nseg - 1) * self._hop + self.m_num
         xs = xpad[..., start:start + n_sig]
         lead = xs.shape[:-1]
-        mr, mi = self._device_tables(
-            ("stft", detr), lambda: self._fused_stft_matrix(detr), x.device)
-        Xr, Xi = _STFTFused.apply(xs.reshape(-1, n_sig).contiguous(), mr,
-                                  mi, self._hop)
+        win, cr, ci = self._frame_tables(x.device)
+        Xr, Xi = _STFTFused.apply(
+            xs.reshape(-1, n_sig).contiguous(), win, cr, ci, self._mfft,
+            detr, self._hop, nseg,
+            lambda: self._device_tables(
+                ("stft", detr), lambda: self._fused_stft_matrix(detr),
+                x.device))
         m1 = Xr.shape[-1]
         return Xr.reshape(lead + (nseg, m1)), Xi.reshape(lead + (nseg, m1))
 
@@ -618,9 +642,7 @@ class ShortTimeFFT:
         if A is not None:
             return A
         m1 = self._mfft // 2 + 1
-        p_s = 0
-        if self._phase_shift is not None:
-            p_s = (self._phase_shift + self.m_num_mid) % self.m_num
+        p_s = self._phase_shift_p()
         k = np.arange(m1, dtype=np.float64)
         t = np.arange(self.m_num, dtype=np.float64)
         c = np.full(m1, 2.0)

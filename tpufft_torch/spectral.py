@@ -4,13 +4,13 @@ spectrogram, periodogram, welch, csd, coherence, get_window, check_NOLA,
 check_COLA, lombscargle).
 
 Every per-segment step (detrend, window, zero-pad to nfft, DFT, scale) is
-a linear map, so tpufft folds the whole pipeline into one host matrix and
-the port keeps that design on three hand-written CUDA kernels
-(``kernels/stft_mm``):
+a linear map, so tpufft folds the whole pipeline into one host matrix. The
+port runs it on three hand-written CUDA kernels (``kernels/stft_mm``):
 
 * K13: stft, spectrogram and the unreduced psd modes read overlapped
-  frames straight from the signal and multiply them by the (nperseg, m1)
-  matrix (``_stft_matrix``): no frame tensor is built;
+  frames straight from the signal and detrend, window, zero-pad and
+  real-FFT each one in shared memory, times the scale; no frame tensor is
+  built, and the matrix (``_stft_matrix``) serves only the backward;
 * K14: istft runs the inverse DFT, the synthesis window and the
   overlap-add as one product with the (m1, nperseg) matrix
   (``_istft_matrix``); the window-sum normalisation stays outside;
@@ -21,7 +21,10 @@ the port keeps that design on three hand-written CUDA kernels
 The kernels serve real f32 or bf16 signals with a onesided spectrum,
 detrend False, "constant" or "linear", and 2 <= nfft <= 1024,
 nperseg <= nfft, nperseg % hop == 0 (tpufft's gate without its
-``hop % 128 == 0``, which comes from TPU lane tiling). A CPU tensor takes
+``hop % 128 == 0``, which comes from TPU lane tiling); K13 also needs an
+nfft inside its FFT's envelope (``stft_mm.frames_supported``: no prime
+factor of nfft/2, or of odd nfft, above 127), and stft takes the composed
+route for the others (262, the primes 131 to 1021). A CPU tensor takes
 the same route through the kernels' plain versions; float64 and complex
 input, other detrends, ``boundary``/``padded`` on welch, and
 ``backend="xla"`` take tpufft's composed route: framing, detrend, window
@@ -302,17 +305,10 @@ def _stft_matrix(win: np.ndarray, nperseg: int, nfft: int,
                  detrend) -> np.ndarray:
     """The whole per-segment pipeline as ONE (nperseg, m1) complex matrix:
     detrend, window, zero-pad to nfft and DFT are all linear maps, so
-    M = P_detrend @ diag(win) @ V_nfft[:nperseg, :m1] (f64 host trig)."""
-    j = np.arange(nperseg, dtype=np.float64)
-    k = np.arange(nfft // 2 + 1, dtype=np.float64)
-    theta = (-2.0 * np.pi / nfft) * np.outer(j, k)
-    M = win[:, None] * np.exp(1j * theta)
-    if detrend == "constant":
-        M = M - M.mean(axis=0)[None, :]
-    elif detrend == "linear":
-        A = np.stack([np.ones(nperseg), j - (nperseg - 1) / 2.0], axis=1)
-        M = M - A @ (np.linalg.pinv(A) @ M)
-    return M
+    M = P_detrend @ diag(win) @ V_nfft[:nperseg, :m1] (f64 host trig; K13's
+    function with c = 1, ``stft_mm.frame_matrix``)."""
+    return stft_mm.frame_matrix(win, np.ones(nfft // 2 + 1), nfft,
+                                detrend)
 
 
 def _istft_matrix(win: np.ndarray, nperseg: int, nfft: int,
@@ -359,25 +355,42 @@ def _tables(kind: str, win: np.ndarray, nperseg: int, nfft: int, arg,
             dense_mm.device_table(key + ("im",), plane("imag"), device))
 
 
+def _frame_tables(win: np.ndarray, nfft: int, fold: float, device):
+    """K13's operands for a real scale ``fold``: the window and c = fold
+    (every bin) as f32 tensors on ``device``, uploaded once."""
+    wb = np.ascontiguousarray(win, np.float64).tobytes()
+    key = ("frames", hashlib.sha1(wb).hexdigest(), nfft, fold)
+    m1 = nfft // 2 + 1
+    return (dense_mm.device_table(key + ("win",),
+                                  lambda: np.frombuffer(wb).copy(), device),
+            dense_mm.device_table(key + ("cr",),
+                                  lambda: np.full(m1, fold), device),
+            dense_mm.device_table(key + ("ci",), lambda: np.zeros(m1),
+                                  device))
+
+
 class _STFTFused(torch.autograd.Function):
-    """Frames of x times M on K13; the backward is the adjoint product
-    followed by an overlap-add (plain torch ops, as tpufft's VJP is XLA)."""
+    """The frames of x through K13: detrend, window, zero-pad, real DFT
+    and the per-bin factor c in one kernel. The backward is the adjoint
+    product with the same function as a host matrix (``matrix()`` gives
+    its f32 planes, built and uploaded on first use) followed by an
+    overlap-add (plain torch ops, as tpufft's VJP is XLA)."""
 
     @staticmethod
-    def forward(ctx, x, mr, mi, hop):
-        ctx.save_for_backward(mr, mi)
+    def forward(ctx, x, win, cr, ci, nfft, detrend, hop, nseg, matrix):
+        ctx.matrix = matrix
         ctx.hop, ctx.n_sig, ctx.dtype = hop, x.shape[1], x.dtype
-        return stft_mm.stft_frames(x, mr, mi, hop)
+        return stft_mm.stft_frames(x, win, cr, ci, nfft, detrend, hop, nseg)
 
     @staticmethod
     def backward(ctx, gr, gi):
-        mr, mi = ctx.saved_tensors
+        mr, mi = ctx.matrix()
         gseg = gr @ mr.T + gi @ mi.T              # (batch, nseg, nperseg)
         batch, nseg, nperseg = gseg.shape
         acc = gseg.new_zeros((batch, ctx.n_sig))
         acc.index_add_(1, _ola_index(nperseg, ctx.hop, nseg, gseg.device),
                        gseg.reshape(batch, -1))
-        return acc.to(ctx.dtype), None, None, None
+        return (acc.to(ctx.dtype),) + (None,) * 8
 
 
 def _welch_composed(x, y, mr, mi, hop: int):
@@ -458,7 +471,8 @@ def _stft_fused_ok(im, onesided, detrend, dtype, nperseg: int, step: int,
         return False
     if dtype not in _KERNEL_DTYPES or cfg.backend == "xla":
         return False
-    return _geometry_ok(nperseg, step, nfft)
+    return _geometry_ok(nperseg, step, nfft) and stft_mm.frames_supported(
+        nfft)
 
 
 def _welch_fused_ok(xim, yim, onesided, detrend, dtypes, nperseg: int,
@@ -593,10 +607,14 @@ def _spectral_helper(x, y, fs, window, nperseg, noverlap, nfft, detrend,
                 im = None if im is None else F.pad(im, (0, nadd))
         if _stft_fused_ok(im, onesided, detrend, re.dtype, nperseg, step,
                           nfft, config):
-            # K13: frames stream straight from the signal; detrend,
-            # window, pad, DFT and scale are one matrix
-            mr, mi = _tables("stft", win, nperseg, nfft, (dkey, fold), dev)
-            Xr, Xi = _STFTFused.apply(rows(re), mr, mi, step)
+            # K13: frames stream straight from the signal through the
+            # detrend, window, pad, real FFT and scale of one kernel
+            wt, cr, ci = _frame_tables(win, nfft, fold, dev)
+            Xr, Xi = _STFTFused.apply(
+                rows(re), wt, cr, ci, nfft, dkey, step,
+                1 + (re.shape[-1] - nperseg) // step,
+                lambda: _tables("stft", win, nperseg, nfft, (dkey, fold),
+                                dev))
             shape = re.shape[:-1] + Xr.shape[1:]
             return Xr.reshape(shape), Xi.reshape(shape), True
         re, im = _widen(re), _widen(im)
