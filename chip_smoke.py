@@ -98,7 +98,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
     (8, 8, 8) to (64, 64, 64) and (24, 40, 56) (clusters of 1 to 16
     blocks), pairs (8, 16, 128) to (128, 512, 3), among them (64, 128, 37)
     (a ragged L), pre 3 and 5, both directions, scale 1 and 1/N, f32 and
-    bf16 storage; and how many clusters of each the card holds at once
+    bf16 storage; which form of the cube kernel each cube runs (the line
+    form for power-of-two axes up to 64, else the stage form) and how
+    many clusters of each kernel the card holds at once
     (``cudaOccupancyMaxActiveClusters``), as SMs kept busy;
 19. the ND paths at full size, each call driven with every count set to 0
     just before it and read just after: ``fftn(axes=(1, 2, 3))`` on
@@ -109,7 +111,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
     and the backward of the cube path against numpy;
 20. times: those paths, K5 and K6 alone, their plain versions, cuFFT
     (``torch.fft.fftn``, a yardstick only), the routes they replace (K3 +
-    K4 for the cube, K3 + K2 for the pair) and the copy floor; and K6
+    K4 for the cube, K3 + K2 for the pair) and the copy floor, with K5's
+    form and clusters at once beside K3 + K4 and cuFFT; and K6
     against the two strided passes at about 268 MB for L = 1 to 512, the
     sweep behind ``execute.MID_PAIR_MIN_L``;
 21. the fused-storage kernels K16 (cube), K17 (pair), K18 (a leading
@@ -131,7 +134,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
     plan on the same logical data, cuFFT (a yardstick only) and the copy
     floor; each fused kernel alone at its path's shape beside its
     split-plane sibling on the same data (K5, K4, K3, K2, K1), its plain
-    version and one ``torch.fft`` call of the same function; and K18
+    version and one ``torch.fft`` call of the same function (K16 and its
+    bf16 form also beside K3 + K4 on the same data); and K18
     against K3 on the same 268 MB for halves L = 2 to 64, where a half is
     shorter than a 32-byte sector.
 
@@ -1551,8 +1555,9 @@ def phase_cluster_kernels() -> None:
     for cube in CUBES:
         c = cube_fft.cluster_size(*cube)
         active = cube_fft.active_clusters(*cube, False, 0)
-        print(f"K5 cube {cube}: clusters of {c} blocks, {active} at once "
-              f"({active * c} blocks on the {sms} SMs)")
+        print(f"K5 cube {cube}: {cube_fft.form(*cube)} form, clusters of "
+              f"{c} blocks, {active} at once ({active * c} blocks on the "
+              f"{sms} SMs)")
         check(active > 0, f"K5 {cube}: no cluster fits")
         for dtype in (torch.float32, torch.bfloat16):
             for pre in (3, 5):
@@ -1717,6 +1722,11 @@ def phase_nd_times() -> dict:
                                                    scale=1.0),
                lambda: torch.fft.fftn(xc, dim=(1, 2, 3)), nb,
                _fft_flops(n1 * n2 * n3, pre))
+    print(f"  K5 {CUBE_SHAPE}: {cube_fft.form(n1, n2, n3)} form, clusters "
+          f"of {cube_fft.cluster_size(n1, n2, n3)} blocks, "
+          f"{cube_fft.active_clusters(n1, n2, n3, False, 0)} at once: K5 "
+          f"{out['cube']['ms']:.4f} ms, K3 + K4 {t['old_route_K3_K4']:.4f} "
+          f"ms, cuFFT {t['torch_fftn']:.4f} ms")
     del x, xc, xr, xi
     # every axis of (1, 64, 64, 64, 64): K3 along axis 1, then K5
     xr, xi = _device_planes(CUBE_5D_SHAPE, seed=2)
@@ -1976,6 +1986,23 @@ def phase_layout_times() -> dict:
                        lambda: torch.fft.fftn(xc, dim=dims), nb,
                        _fft_flops(math.prod(shape[1:]), shape[0]),
                        F32_TOL if dt == torch.float32 else BF16_TOL)
+            key = "K16" if dt == torch.float32 else "K16_bf16"
+            n1, n2, n3 = shape[1:]
+            v3 = (shape[0] * n1, n2, n3)
+
+            def old_cube():
+                yr, yi = inner_fft.fft_inner_nd(ar.reshape(v3),
+                                                ai.reshape(v3), n=n1, **kw)
+                return pair_fft.fft_pair(yr, yi, **kw)
+
+            t_old = _time_ms(old_cube)
+            active = cube_fft.active_clusters(
+                n1, n2, n3, dt == torch.bfloat16, 0, fused=True)
+            print(f"  {key} {shape} {dt}: {cube_fft.form(n1, n2, n3)} form, "
+                  f"clusters of {cube_fft.cluster_size(n1, n2, n3)} blocks, "
+                  f"{active} at once: K16 {out[key]['ms']:.4f} ms, K5 "
+                  f"{out[key]['sibling_ms']:.4f} ms, K3 + K4 {t_old:.4f} ms, "
+                  f"cuFFT {out[key]['library_ms']:.4f} ms")
             del st, ar, ai
         elif name in ("P2", "P3", "P4"):
             pre, n, M = shape[0], shape[1], math.prod(shape[2:-1])

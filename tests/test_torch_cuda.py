@@ -858,22 +858,90 @@ def test_spectral_autograd_on_the_card(cuda_device):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("cube", [(8, 8, 8), (8, 16, 32), (16, 16, 32),
                                   (16, 32, 32), (16, 32, 64), (32, 64, 64),
-                                  (64, 64, 64), (24, 40, 56)])
+                                  (64, 64, 64), (24, 40, 56), (32, 32, 32)])
 def test_cube_kernel_matches_plain_version(cube, dtype, tol, cuda_device):
-    """Clusters of 1, 2, 4, 8, 16, 16, 16 and 8 blocks (blocks of 8192
-    elements, and of 16384 in two register passes), on a ragged pre of
-    3."""
-    assert cube_fft.active_clusters(*cube, dtype == torch.bfloat16, 0) > 0
-    xr, xi = _planes((3,) + cube, cuda_device, dtype, seed=sum(cube))
+    """Clusters of 1, 2, 4, 8, 16, 16, 16, 8 and 16 blocks; the line form
+    for every cube but (24, 40, 56), which runs the stage form (blocks of
+    8192 elements, and of 16384 in two register passes). On a ragged pre of
+    3, on pre = 1, and on a pre that is not a multiple of the clusters the
+    card holds at once."""
+    active = cube_fft.active_clusters(*cube, dtype == torch.bfloat16, 0)
+    assert active > 0
+    assert cube_fft.form(*cube) == ("stages" if cube == (24, 40, 56)
+                                    else "lines")
+    for pre in (3, 1, 2 * active + 1):
+        xr, xi = _planes((pre,) + cube, cuda_device, dtype,
+                         seed=sum(cube) + pre)
+        for inverse in (False, True):
+            for scale in (1.0, 1.0 / np.prod(cube)):
+                before = cube_fft.launches
+                got = cube_fft.fft_cube(xr, xi, inverse=inverse, scale=scale)
+                ref = cube_fft.fft_cube_reference(xr, xi, inverse=inverse,
+                                                  scale=scale)
+                torch.cuda.synchronize()
+                assert cube_fft.launches == before + 1
+                assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cube", [(32, 32, 32), (64, 64, 64)])
+def test_cube_fused_matches_cube_after_pack(cube, dtype, tol, cuda_device):
+    """K16 on the lane-fused array of Plan.pack gives K5's result on the
+    planes: one kernel body, two loads and stores (f32: to 1e-6, the two
+    instantiations may contract their arithmetic differently; bf16: to the
+    storage's rounding)."""
+    from tpufft_torch.kernels import fused_fft
+    shape = (3,) + cube
+    xr, xi = _planes(shape, cuda_device, dtype, seed=len(cube))
+    plan = tpufft_torch.plan_fft(shape, axes=(1, 2, 3), layout="lane-fused")
+    st = plan.pack(SplitComplex(xr, xi))
+    assert st.dtype == dtype and st.shape == shape[:3] + (2 * cube[2],)
     for inverse in (False, True):
         for scale in (1.0, 1.0 / np.prod(cube)):
-            before = cube_fft.launches
-            got = cube_fft.fft_cube(xr, xi, inverse=inverse, scale=scale)
-            ref = cube_fft.fft_cube_reference(xr, xi, inverse=inverse,
-                                              scale=scale)
+            got = fused_fft.fft_cube_fused(st, inverse=inverse, scale=scale)
+            want = cube_fft.fft_cube(xr, xi, inverse=inverse, scale=scale)
             torch.cuda.synchronize()
-            assert cube_fft.launches == before + 1
-            assert got[0].dtype == dtype and _err(got, ref) < tol
+            h = cube[2]
+            assert _err((got[..., :h], got[..., h:]), want) < tol
+
+
+@pytest.mark.parametrize("route", ["cube_last", "P1"])
+@pytest.mark.parametrize("cube", [(32, 32, 32), (64, 64, 64)])
+def test_cube_backward_through_the_line_form(cube, route, cuda_device):
+    """The backward of the cube_last rule (K5) and of the lane-fused cube
+    tier (P1, K16) at the line form's cubes: the kernel twice a loss, and
+    the gradient against the CPU's."""
+    from tpufft_torch.kernels import fused_fft
+    shape = (2,) + cube
+    weight = torch.arange(cube[2], device=cuda_device, dtype=torch.float32)
+    if route == "cube_last":
+        xr, xi = _planes(shape, cuda_device, seed=5)
+        xr.requires_grad_(True)
+        xi.requires_grad_(True)
+        _reset()
+        out = tpufft_torch.fftn(SplitComplex(xr, xi), axes=(1, 2, 3))
+        (out.re.square() * weight + out.im).sum().backward()
+        assert _counts() == (dict(NONE, cube=2), 0)
+        cr = xr.detach().cpu().requires_grad_(True)
+        ci = xi.detach().cpu().requires_grad_(True)
+        ref = tpufft_torch.fftn(SplitComplex(cr, ci), axes=(1, 2, 3))
+        (ref.re.square() * weight.cpu() + ref.im).sum().backward()
+        assert _err((xr.grad, xi.grad), (cr.grad, ci.grad)) < 1e-5
+    else:
+        p = tpufft_torch.plan_fft(shape, axes=(1, 2, 3), layout="lane-fused",
+                                  norm="ortho")
+        st = _fused_array(shape, cuda_device, seed=5).requires_grad_(True)
+        fused_fft.reset_counts()
+        (p(st).square() * torch.cat([weight, weight])).sum().backward()
+        assert fused_fft.launches["cube"] == 2
+        pc = tpufft_torch.plan_fft(shape, axes=(1, 2, 3),
+                                   layout="lane-fused", norm="ortho",
+                                   device="cpu")
+        sc = st.detach().cpu().requires_grad_(True)
+        (pc(sc).square() * torch.cat([weight, weight]).cpu()).sum().backward()
+        assert _fused_err(st.grad, sc.grad) < 1e-5
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -969,6 +1037,7 @@ FUSED_CASES = [
     ("pair", (13, 64, 64)), ("pair", (3, 8, 93)), ("pair", (5, 128, 128)),
     ("cube", (3, 8, 8, 8)), ("cube", (3, 16, 32, 64)),
     ("cube", (2, 64, 64, 64)), ("cube", (3, 24, 40, 56)),
+    ("cube", (3, 32, 32, 32)), ("cube", (1, 64, 64, 64)),
 ]
 
 

@@ -110,3 +110,88 @@ def test_wrapper_refuses_non_cuda_devices():
     x = torch.empty(2, 8, 8, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         cube_fft.fft_cube(x, x, inverse=False, scale=1.0)
+
+
+# The envelope over a grid of cubes, as the kernel's stage-form-only
+# release answered it: for each n1 of AXES, one group per n2 of AXES and in
+# it one character per n3 of AXES: the cluster size (1, 2, 4, 8, g = 16) of
+# a supported cube, "." for a cube outside the envelope (no cluster size).
+# The line form must not narrow it.
+AXES = (2, 4, 8, 16, 32, 64, 24, 40, 56, 93, 1024)
+ENVELOPE = {
+    2: "11111111112 11111111112 11111111112 11111111122 1111121222. "
+       "1111222222. 1111121122. 1111221222. 1111222222. 111222222.. "
+       "2222.......",
+    4: "11111111114 11111111114 11111111124 11111212244 1111242444. "
+       "1112444444. 1111242244. 1112442444. 1112444444. 112444444.. "
+       "4444.......",
+    8: "11111111118 11111111128 11111212248 11112424488 1112484888. "
+       "1124888888. 1112484488. 1124884888. 1124888888. 124888888.. "
+       "8888.......",
+    16: "1111111112g 1111121224g 1111242448g 111248488gg 11248g8ggg. "
+        "1248gggggg. 11248g88g8. 1248gg8gg8. 1248ggggg8. 248ggg888.. "
+        "gggg.......",
+    32: "1111121222g 1111242444g 1112484888g 11248g8ggg. 1248gggggg. "
+        "248ggggggg. 1248ggggg8. 248gggggg8. 248gggggg.. 248ggg88... "
+        "ggg........",
+    64: "1111242442g 1112484884g 11248g8gg8. 1248gggggg. 248ggggggg. "
+        "48ggggggg.. 248gggggg.. 48ggggggg.. 48ggggggg.. 248gg...... "
+        "gg.........",
+    24: "11111211228 11112422448 1112484488. 1124888888. 1248888888. "
+        "248888888.. 1248888888. 1248888888. 2488888888. 24888.888.. "
+        "88.........",
+    40: "11112412428 1112482484. 1124884888. 1248888888. 2488888888. "
+        "48888.88... 1248888888. 248888888.. 48888.888.. 24888.8.... "
+        "8..........",
+    56: "11112424428 1112484884. 1124888888. 1248888888. 248888888.. "
+        "48888.8.... 2488888888. 48888.888.. 48888.88... 2488..8.... "
+        "8..........",
+    93: "111111111.. 11111.11... 1111....... 111........ 11......... "
+        "1.......... 11......... 11......... 1.......... ........... "
+        "...........",
+    1024: "248gggggg.. 48ggggggg.. 8gggg.g.... gggg....... ggg........ "
+          "gg......... ggg........ gg......... gg......... ........... "
+          "...........",
+}
+_CLUSTER = {"1": 1, "2": 2, "4": 4, "8": 8, "g": 16, ".": None}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n1", AXES)
+def test_envelope_and_cluster_size_over_the_grid(n1, dtype):
+    groups = ENVELOPE[n1].split()
+    for n2, group in zip(AXES, groups, strict=True):
+        for n3, ch in zip(AXES, group, strict=True):
+            want = _CLUSTER[ch]
+            cube = (n1, n2, n3)
+            assert cube_fft.cluster_size(*cube) == want, cube
+            assert cube_fft.supported(*cube, dtype) == (want is not None), cube
+
+
+@pytest.mark.parametrize("cube,want", [
+    ((64, 64, 64), "lines"), ((32, 32, 32), "lines"), ((8, 8, 8), "lines"),
+    ((8, 16, 32), "lines"), ((16, 16, 32), "lines"), ((16, 32, 32), "lines"),
+    ((16, 32, 64), "lines"), ((32, 64, 64), "lines"), ((2, 2, 2), "lines"),
+    ((2, 64, 2), "lines"), ((24, 40, 56), "stages"), ((3, 16, 24), "stages"),
+    ((128, 2, 2), "stages"), ((64, 64, 24), "stages"),
+    ((128, 128, 64), None),
+])
+def test_form(cube, want):
+    """Cubes of power-of-two axes up to 64 take the line form, the rest of
+    the envelope the stage form; outside it there is no form."""
+    assert cube_fft.form(*cube) == want
+
+
+def test_form_over_the_grid():
+    """Over the envelope grid: the line form exactly where every axis is a
+    power of two up to 64 (a block's n1-columns are then always even)."""
+    for n1 in AXES:
+        for n2 in AXES:
+            for n3 in AXES:
+                got = cube_fft.form(n1, n2, n3)
+                if cube_fft.cluster_size(n1, n2, n3) is None:
+                    assert got is None
+                    continue
+                pow2 = all(n in cube_fft.LINE_LENGTHS for n in (n1, n2, n3))
+                assert got == ("lines" if pow2 else "stages"), (n1, n2, n3)

@@ -8,16 +8,41 @@ It compiles patched copies of ``tpufft_torch/csrc/cluster_fft.cu`` into
 ``build/cluster_phases/`` (one ``nvcc`` each, in parallel), each with some
 phases switched off, and times ``tpufft_cube_fft`` at (100, 64, 64, 64) and
 ``tpufft_mid_pair_fft`` at (32, 64, 128, 128) in each (CUDA events, median
-of 20; the results of the patched copies are wrong by design). Then it
-times K6 at other tile geometries (lanes of L a tile, cluster size) through
-the package, and the two-pass routes the kernels replace. Every line names
-the card and its power limit.
+of 20; the results of the patched copies are wrong by design).
+
+K5 at 64^3 runs the line form (``cube_line_kernel``); its copies are:
+
+- ``k5_n3``: returns after the n3 pass (the load, the n3 FFTs, the tile
+  writes and the block barrier after them);
+- ``k5_n3_n2``: returns after the n2 pass;
+- ``k5_local_exchange``: the n1 pass reads the block's own tile instead of
+  the cluster's (what distributed shared memory costs);
+- ``k5_joint_barrier``: the end barrier's arrive moves from after the last
+  remote read to just before its wait (what the split saves);
+- ``k5_256_threads``, ``k5_1024_threads``, ``k5_32_values``: whole kernels
+  at other block geometries (256 or 1024 threads of 16 values, or 512 of
+  32; these copies compute the right result).
+
+``python3 tools/cluster_phases.py NAME ...`` builds and times only the
+named copies beside ``full``. For each copy it prints the line-form
+kernel's registers and spills (ptxas).
+
+The n2 pass is ``k5_n3_n2`` - ``k5_n3``; the exchange, the n1 pass, the
+store and the end barrier together are the full kernel - ``k5_n3_n2``.
+K6 runs the stage form; its copies switch off the stages (``no_stages``),
+read the gather from the block itself (``no_stages_local_gather``), leave
+only the load and the store (``load_store_only``), or skip the
+permutation and the gather (``stages_no_gather``). Then it times K6 at
+other tile geometries (lanes of L a tile, cluster size) through the
+package, and the two-pass routes the kernels replace. Every line names the
+card and its power limit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -36,19 +61,35 @@ STAGES = "                                       bool inv) {\n  const int n = pl
 PERMUTE = ("                                        Src src, Dst dst) {\n")
 GATHER = "                                       Remote remote, Dst dst) {\n"
 REMOTE = "cluster.map_shared_rank(buf, owner)"
+# the line form's phases (cube_line_kernel)
+LINE = "// The line form of the cube kernel"
+N3_END = "  __syncthreads();\n  with_length(n2, [&](auto n) {\n"
+N2_END = "  cluster.sync();\n  with_length(n1, [&](auto n) {\n"
+LINE_REMOTE = "cluster.map_shared_rank(tile, k1 >> slab_shift)"
+ARRIVE = ("    if (it == rounds - 1) cluster_arrive();  "
+          "// the last remote read is done\n")
+WAIT = "  }\n  cluster_wait();\n}\n"
+THREADS = "constexpr int kLineThreads = 512;"
+VALUES = "constexpr int kLineValues = 16;"
 
 
 def variants() -> dict:
     src = open(SRC).read()
-    for mark in (STAGES, PERMUTE, GATHER, REMOTE):
+    for mark in (STAGES, PERMUTE, GATHER, REMOTE, LINE, N3_END, N2_END,
+                 LINE_REMOTE, ARRIVE, WAIT, THREADS, VALUES):
         assert mark in src, f"marker not found in {SRC}: {mark!r}"
     no_stages = src.replace(STAGES, STAGES.replace(
         "{\n", "{\n  __syncthreads();\n  return;\n", 1))
     skip = (PERMUTE, PERMUTE + "  return;\n"), (
         GATHER, GATHER + "  __syncthreads();\n  return;\n")
     out = {"full": src, "no_stages": no_stages}
-    out["no_stages_local_gather"] = no_stages.replace(REMOTE, "buf").replace(
-        "cluster.sync();", "__syncthreads();")
+    # the gather reads the block's own tile, and its two cluster barriers
+    # (in gather(), before LINE) become block barriers; the line form keeps
+    # its own
+    head, tail = no_stages.split(LINE, 1)
+    out["no_stages_local_gather"] = (
+        head.replace("cluster.sync();", "__syncthreads();") + LINE + tail
+    ).replace(REMOTE, "buf")
     s = no_stages
     for a, b in skip:
         s = s.replace(a, b)
@@ -57,6 +98,18 @@ def variants() -> dict:
     for a, b in skip:
         s = s.replace(a, b)
     out["stages_no_gather"] = s
+    out["k5_n3"] = src.replace(N3_END, N3_END.replace(
+        "  with_length", "  return;\n  with_length", 1))
+    out["k5_n3_n2"] = src.replace(N2_END, N2_END.replace(
+        "  cluster.sync();", "  __syncthreads();\n  return;", 1))
+    out["k5_local_exchange"] = src.replace(LINE_REMOTE, "tile")
+    out["k5_joint_barrier"] = src.replace(ARRIVE, "").replace(
+        WAIT, WAIT.replace("  cluster_wait();", "  cluster_arrive();\n"
+                           "  cluster_wait();"))
+    for threads in (256, 1024):
+        out[f"k5_{threads}_threads"] = src.replace(
+            THREADS, THREADS.replace("512", str(threads)))
+    out["k5_32_values"] = src.replace(VALUES, VALUES.replace("16", "32"))
     return out
 
 
@@ -68,7 +121,7 @@ def build(texts: dict) -> dict:
         cu = os.path.join(OUT, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        cmd = [nvcc, *_build.NVCC_FLAGS[:-2], "-shared",
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared",
                "-Itpufft_torch/csrc", "-o", os.path.join(OUT, f"{name}.so"),
                cu]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -79,12 +132,42 @@ def build(texts: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{text[-3000:]}")
         libs[name] = os.path.abspath(os.path.join(OUT, f"{name}.so"))
+        print(f"{name}: ptxas {line_form_resources(text)}", flush=True)
     return libs
+
+
+def line_form_resources(log: str) -> str:
+    """Registers and spill bytes of each line-form instantiation in a
+    ptxas report."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w*cube_line_kernel\w*)'",
+                      line)
+        if m or "Compiling entry function" in line:
+            cur = m.group(1) if m else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kind = ("bf16" if "bfloat16" in cur else "f32") + (
+                " fused" if "Lb1E" in cur else "")
+            out.append(f"{kind} {m.group(1)} registers, {spill} bytes "
+                       "spilled")
+            cur = None
+    return "; ".join(out)
 
 
 def main() -> None:
     card = chip_smoke._smi("name,power.limit")
-    libs = build(variants())
+    texts = variants()
+    if len(sys.argv) > 1:
+        texts = {k: v for k, v in texts.items()
+                 if k == "full" or k in sys.argv[1:]}
+    libs = build(texts)
     _build.load()
     t = chip_smoke._time_ms
     i32, vp = ctypes.c_int, ctypes.c_void_p
@@ -97,6 +180,16 @@ def main() -> None:
     tw128 = minor_fft._device_twiddles(128, False, xr.device)
     r64, r128 = minor_fft.radices(64), minor_fft.radices(128)
     a64, a128 = (i32 * len(r64))(*r64), (i32 * len(r128))(*r128)
+    st = torch.cat([xr, xi], -1)
+    st_out = torch.empty_like(st)
+    xb, xbi = xr.bfloat16(), xi.bfloat16()
+    yb, ybi = torch.empty_like(xb), torch.empty_like(xbi)
+    sr, si = chip_smoke._device_planes((800, 32, 32, 32), 4)
+    s_out = torch.empty_like(sr), torch.empty_like(si)
+    tw32, r32 = minor_fft._device_twiddles(32, False, xr.device), \
+        minor_fft.radices(32)
+    a32 = (i32 * len(r32))(*r32)
+    c32 = cube_fft.cluster_size(32, 32, 32)
     stream = torch.cuda.current_stream().cuda_stream
     c5 = cube_fft.cluster_size(64, 64, 64)
     c6 = mid_pair_fft.cluster_size(64, 128)
@@ -108,16 +201,34 @@ def main() -> None:
         lib.tpufft_cube_fft.argtypes = [vp] * 7 + [
             ctypes.c_longlong, i32, i32, i32, i32, arr, i32, arr, i32, arr,
             i32, i32, ctypes.c_float, i32, vp]
+        lib.tpufft_cube_fft_fused.argtypes = [vp] * 5 + [
+            ctypes.c_longlong, i32, i32, i32, i32, arr, i32, arr, i32, arr,
+            i32, i32, ctypes.c_float, i32, vp]
         lib.tpufft_mid_pair_fft.argtypes = [vp] * 6 + [
             ctypes.c_longlong, i32, i32, ctypes.c_longlong, i32, i32, arr,
             i32, arr, i32, i32, ctypes.c_float, i32, vp]
 
-        def k5():
+        def k5(planes=(xr, xi, yr, yi), bf16=0):
             err = lib.tpufft_cube_fft(
-                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                *(p.data_ptr() for p in planes),
                 tw64.data_ptr(), tw64.data_ptr(), tw64.data_ptr(), 100, 64,
                 64, 64, c5, a64, len(r64), a64, len(r64), a64, len(r64), 0,
-                1.0, 0, stream)
+                1.0, bf16, stream)
+            assert err == 0, err
+
+        def k16():
+            err = lib.tpufft_cube_fft_fused(
+                st.data_ptr(), st_out.data_ptr(), tw64.data_ptr(),
+                tw64.data_ptr(), tw64.data_ptr(), 100, 64, 64, 64, c5, a64,
+                len(r64), a64, len(r64), a64, len(r64), 0, 1.0, 0, stream)
+            assert err == 0, err
+
+        def k5_32():
+            err = lib.tpufft_cube_fft(
+                sr.data_ptr(), si.data_ptr(), s_out[0].data_ptr(),
+                s_out[1].data_ptr(), tw32.data_ptr(), tw32.data_ptr(),
+                tw32.data_ptr(), 800, 32, 32, 32, c32, a32, len(r32), a32,
+                len(r32), a32, len(r32), 0, 1.0, 0, stream)
             assert err == 0, err
 
         def k6():
@@ -127,8 +238,10 @@ def main() -> None:
                 c6, a64, len(r64), a128, len(r128), 0, 1.0, 0, stream)
             assert err == 0, err
 
-        print(f"{card}: {name}: K5 {t(k5):.4f} ms, K6 {t(k6):.4f} ms",
-              flush=True)
+        k5_bf16 = t(lambda: k5((xb, xbi, yb, ybi), 1))
+        print(f"{card}: {name}: K5 {t(k5):.4f} ms (bf16 {k5_bf16:.4f}, "
+              f"(800, 32^3) {t(k5_32):.4f}), K16 {t(k16):.4f} ms, K6 "
+              f"{t(k6):.4f} ms", flush=True)
     v3 = (6400, 64, 64)
 
     def old_cube():
@@ -138,6 +251,18 @@ def main() -> None:
 
     print(f"{card}: routes replaced: K3 + K4 {t(old_cube):.4f} ms, K3 + K2 "
           f"{t(lambda: chip_smoke._axes_1_2(mr, mi)):.4f} ms")
+    # K5 at (800, 32^3) over clusters of 2 to 16 blocks (16384 to 2048
+    # elements a block), through the package
+    pick = cube_fft.cluster_size
+    for csize in (2, 4, 8, 16):
+        cube_fft.cluster_size = lambda n1, n2, n3, c=csize: c
+        cube_fft.active_clusters.cache_clear()
+        ms = t(lambda: cube_fft.fft_cube(sr, si, inverse=False, scale=1.0))
+        print(f"{card}: K5 (800, 32, 32, 32) clusters of {csize} "
+              f"({cube_fft.active_clusters(32, 32, 32, False, 0)} at once): "
+              f"{ms:.4f} ms")
+    cube_fft.cluster_size = pick
+    cube_fft.active_clusters.cache_clear()
     for shape in ((32, 64, 128, 128), (512, 64, 128, 8)):
         ar, ai = chip_smoke._device_planes(shape, 3)
         for lanes_, csize in ((8, 4), (8, 16), (4, 8), (4, 16), (2, 16)):

@@ -6,8 +6,10 @@ new, new, old.
 The rows, each the median of 20 CUDA-event timings after two warm-up
 calls, in ms:
 
-- K1 (minor axis, (100000, 1024) c64), K5 (cube, (100, 64, 64, 64) c64)
-  and K7 (real minor axis, (100000, 1024) f32);
+- K1 (minor axis, (100000, 1024) c64), K5 (cube, (100, 64, 64, 64) c64),
+  K16 (the cube on the fused (100, 64, 64, 2 x 64) array of the same
+  data), K7 (real minor axis, (100000, 1024) f32) and K6 (middle pair,
+  (32, 64, 128, 128) c64);
 - K13 (``stft_frames``) on (64, 1048832) f32 at nperseg 256, hop 128 (the
   ``stft`` path's shape: 1048576 samples extended by 128 a side), beside
   ``torch.stft(center=False)`` of the same frames;
@@ -25,8 +27,8 @@ now): the timer passes whichever the checkout's ``stft_frames`` takes, for
 the same function (hann window, scale 1/sum(window), no detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
-list of the rows above (K1, K5, K7, K13, K4, K4_n2_in, K4_packed, K17, P3,
-P4) and times those alone. Needs the card.
+list of the rows above (K1, K5, K16, K7, K6, K13, K4, K4_n2_in, K4_packed,
+K17, P3, P4) and times those alone. Needs the card.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ TIMER = r"""
 import inspect, statistics, torch
 import numpy as np
 from tpufft_torch import SplitComplex, plan_fft, spectral
-from tpufft_torch.kernels import (cube_fft, fused_fft, minor_fft, pair_fft,
-                                  real_fft, stft_mm)
+from tpufft_torch.kernels import (cube_fft, fused_fft, mid_pair_fft,
+                                  minor_fft, pair_fft, real_fft, stft_mm)
 
 def median_ms(fn, reps=20):
     fn(); fn(); torch.cuda.synchronize()
@@ -60,15 +62,21 @@ def want(*names):
 rows = {}
 kw = dict(inverse=False, scale=1.0)
 g = torch.Generator(device="cuda"); g.manual_seed(1)
-if want("K1", "K5", "K7"):
+if want("K1", "K5", "K16", "K7", "K6"):
     xr = torch.randn(100000, 1024, generator=g, device="cuda")
     xi = torch.randn(100000, 1024, generator=g, device="cuda")
     rows["K1"] = median_ms(lambda: minor_fft.fft_minor(xr, xi, **kw))
     cr = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
     ci = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
     rows["K5"] = median_ms(lambda: cube_fft.fft_cube(cr, ci, **kw))
+    cst = torch.cat([cr, ci], -1)
+    rows["K16"] = median_ms(lambda: fused_fft.fft_cube_fused(cst, **kw))
     rows["K7"] = median_ms(lambda: real_fft.rfft_minor(xr, scale=1.0))
-    del xr, xi, cr, ci
+    del xr, xi, cr, ci, cst
+    mr = torch.randn(32, 64, 128, 128, generator=g, device="cuda")
+    mi = torch.randn(32, 64, 128, 128, generator=g, device="cuda")
+    rows["K6"] = median_ms(lambda: mid_pair_fft.fft_mid_pair(mr, mi, **kw))
+    del mr, mi
 
 x = torch.randn(64, 1048832, generator=g, device="cuda")
 nperseg, hop = 256, 128

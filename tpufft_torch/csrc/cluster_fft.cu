@@ -2,14 +2,15 @@
 // a thread-block cluster that holds the tile in distributed shared memory:
 //
 // - K5, tpufft_cube_fft: the three trailing axes of (pre, n1, n2, n3)
-//   planes in one pass. Replaces tpufft/kernels/mxu_fft.py:_build_3d.
+//   planes in one pass. Replaces tpufft/kernels/mxu_fft.py:1941,
+//   _build_3d.
+// - K16, tpufft_cube_fft_fused: K5 on fused storage (pre, n1, n2, 2*n3),
+//   each n3-row [re | im] (fft_stages.cuh). Replaces
+//   tpufft/kernels/mxu_fft.py:2046, _build_3d_fused; only the load and the
+//   store differ from K5, through the kernels' kFused flag.
 // - K6, tpufft_mid_pair_fft: axes 1 and 2 of (pre, n1, n2, L) planes in
 //   one pass, L the contiguous batch (fftn(axes=(1, 2)) of a channels-last
 //   (B, H, W, C) array). Replaces tpufft/kernels/mxu_fft.py:_build_mid_pair.
-// - K16, tpufft_cube_fft_fused: K5 on fused storage (pre, n1, n2, 2*n3),
-//   each n3-row [re | im] (fft_stages.cuh). Replaces
-//   tpufft/kernels/mxu_fft.py:_build_3d_fused; only the load and the store
-//   differ from K5, through the kernel's kFused flag.
 //
 // Contract as there: f32 or bf16 storage, f32 arithmetic, a forward/inverse
 // flag, and one real scale applied once at the store. Plain C entry points
@@ -17,53 +18,85 @@
 // fused_fft.py bind and check them).
 //
 // What bounds them on an H100: device-memory bandwidth by the bytes (~3
-// flop/byte an axis), but in practice the shared-memory passes and the
-// barriers between them. Run axis by axis, a 3-D transform reads and
-// writes the planes three times and a middle pair twice; these kernels do
-// it once. A 64^3 c64 cube is 2 MiB and one block holds at most 227 KB, so
+// flop/byte an axis): run axis by axis, a 3-D transform reads and writes
+// the planes three times and a middle pair twice; these kernels do it
+// once. A 64^3 c64 cube is 2 MiB and one block holds at most 227 KB, so
 // the tile is split along n1 over a cluster of C blocks (C in 1, 2, 4, 8,
 // 16; C = 16 is a non-portable cluster size, allowed per kernel), each
-// holding at most 16384 elements (139 KB with the bank padding), K4's
-// largest slice:
+// holding at most 16384 elements. Block b holds slabs [b n1/C, (b+1) n1/C)
+// of n1; after a cluster barrier it owns 1/C of the n1-columns (a
+// contiguous run of flat (k2, k3) positions) and reads them, n1 values
+// each, from the cluster's shared memory (map_shared_rank).
 //
-// 1. block b loads its n1/C slabs along n1 (for K5 one contiguous run;
-//    for K6 rows of `lanes` contiguous elements, the ragged end of L
-//    masked to zeros) and runs the trailing axes of each slab with the
-//    shared Stockham stages (fft_stages.cuh): K5 runs n2, transposes each
-//    slab back to natural (k2, k3) order and runs n3; K6 runs n2 along
-//    rows (slab, lane);
-// 2. cluster.sync(); block b then owns 1/C of the n1-columns (for K5 a
-//    contiguous run of flat (k2, k3) positions, for K6 of flat
-//    (k2, lane) positions) and gathers them, n1 values each, from the
-//    cluster's shared memory (map_shared_rank) - the same count it holds;
-// 3. cluster.sync() again, so that no block overwrites, or exits with,
-//    memory another block still reads; the gathered values go to the
-//    block's own shared memory as rows of n1, the n1 stages run, and each
-//    k1 stores the block's columns as one run (K5: (n2 n3)/C contiguous
-//    elements, 1 KB at 64^3 f32; K6: runs of `lanes` elements, 4 from
-//    the wrapper).
+// The cube kernel has two forms (kernels/cube_fft.py:form mirrors the
+// choice; the entry point makes it):
 //
-// A thread holds at most 8 values in any phase (kPer = 8): at 1024 threads
-// a block has 64 registers a thread, and 16 values spilled to memory. A
-// block of more than 8192 elements so works in two register passes: the
-// stages run in chunks of whole rows, and an in-place permutation or the
-// gather parks its second pass in a spare shared region (70 KB at 16384).
-// Every index is split by multiply-and-shift division (Div), not by the
-// hardware's ~20-instruction integer division. The host picks C so that a
-// block holds at most 2048 elements where it can (kernels/cube_fft.py:
-// pick_cluster): small blocks share an SM, and one block's loads overlap
-// another's stages.
+// The line form (cube_line_kernel), for cubes whose three axes are powers
+// of two from 2 to 64 (64^3, 32^3, the lane-fused plans' cubes). A line of
+// length n is owned by G = n/V lanes of one warp, V = min(n, 8) values
+// each: lane l holds x[l + G j], runs its radix-V butterfly in registers,
+// multiplies by w^(l a) from the f64-built table, swaps values with the
+// other lanes of its line by __shfl_xor_sync (log2 G exchanges that swap a
+// lane bit with a register bit), and runs radix-G butterflies in
+// registers. No barrier and no shared memory inside a line. A thread holds
+// 16 values, K = 16/V lines, in 512 threads or fewer; a 16384-element
+// block takes two rounds of them, with nothing parked between rounds.
+//   1. the n3 rows: read from device memory straight into registers
+//      (8 consecutive elements of 4 rows a warp instruction at n3 = 64),
+//      transformed and written to the tile in natural order;
+//   2. __syncthreads; the n2 columns of each slab, read from the tile into
+//      registers, transformed and written back in place;
+//   3. cluster.sync; each lane group reads its n1-columns' values from
+//      the owning blocks (two adjacent columns a lane, one 16-byte load a
+//      value pair), transforms them and stores them to device memory from
+//      registers: at n1 = 64 a warp store writes 8 consecutive columns of
+//      each of 8 rows, one 32-byte sector a row in f32 (16 bytes in bf16).
+//      Nothing is written to the local tile after the exchange. Each thread
+//      arrives on the cluster barrier after its last remote read
+//      (barrier.cluster.arrive, a release) and waits on it before exit, so
+//      the last stores overlap the wait while every block's memory stays
+//      in place until the cluster has read it.
+// The tile's n3-rows lie at pitch n3 + 4 (n3 >= 32; + 2 below) and its
+// slabs at n2 (n3 + pad) + 8 float2: at 64^3 every shared access of the
+// three phases is free of bank conflicts (a half warp on 4 rows x 4
+// columns, a quarter warp of 16-byte reads on 2 slabs x 8 columns);
+// 32-long rows take 2-way conflicts in the n3 writes and n2 reads.
+// A 64^3 block takes 136 KB (one block an SM, 7 clusters of 16 at once on
+// the H100), with no spare region.
 //
-// Known costs left for later work (PERF.md; tools/cluster_phases.py times
-// each phase): a 64^3 cube needs C = 16 blocks of 16384, one block an SM,
-// so its loads, barriers and stages overlap nothing, and 7 such clusters
-// fit the H100 (112 of 132 SMs); the slab transpose, the n1-row writes and
-// the store's reads are 4-way bank conflicts (the row pitch n + n/16 that
-// keeps the stages conflict-free); the gather reads 15/16 of a 16-block
-// tile from other SMs.
+// The stage form (cube_fft_kernel), for every other cube in the envelope
+// (odd radices, axes above 64) and K6 (mid_pair_fft_kernel): the shared
+// Stockham stages (fft_stages.cuh) over the tile. Block b loads its slabs
+// (K5: one contiguous run, written transposed (n2, n3) -> (n3, n2); K6:
+// rows of `lanes` contiguous elements, the ragged end of L masked to
+// zeros), runs n2, permutes each slab back and runs n3 (K6: n2 along rows
+// (slab, lane)); after cluster.sync() it gathers its n1-columns as rows of
+// n1 into its own tile, cluster.sync() again, runs the n1 stages and
+// stores. A thread holds at most 8 values in any phase (kPer = 8): at 1024
+// threads a block has 64 registers a thread. A block of more than 8192
+// elements so works in two register passes: the stages run in chunks of
+// whole rows, and a permutation or the gather parks its second pass in a
+// spare shared region (70 KB at 16384). Every index is split by
+// multiply-and-shift division (Div). The host picks C so that a block
+// holds at most 2048 elements where it can (kernels/cube_fft.py:
+// pick_cluster): small blocks share an SM.
+//
+// Known costs (PERF.md; tools/cluster_phases.py times each phase of both
+// forms and other line-form geometries): a 64^3 cube needs C = 16 blocks,
+// one block an SM, so a block's load, exchange and store overlap only
+// other SMs' work, and 7 clusters fit the H100 (112 of 132 SMs); n1 values
+// come 15/16 from other SMs; the line form's bf16 stores fill half
+// sectors. 256 or 1024 threads of 16 values, or 512 of 32, measured slower
+// at 64^3, and so did two forms that overlap more (the next round's reads
+// issued before this round's transforms; a persistent grid of the resident
+// clusters that reads the next cube while the cluster drains): both took
+// more registers than this one's 80. In the stage form the
+// block-wide stages synchronize the block at each stage, and the slab
+// transpose and the n1-row writes are 4-way bank conflicts.
 
 #include <climits>
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "fft_stages.cuh"
 
@@ -206,6 +239,328 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster,
   }
   __syncthreads();
 }
+
+// ---------------------------------------------------------------------------
+// The line form of the cube kernel (the header's first form).
+// ---------------------------------------------------------------------------
+
+constexpr int kLineThreads = 512;  // threads of a line-form block, at most
+constexpr int kLineValues = 16;    // values a thread holds at once
+constexpr int kLineSlabPad = 8;    // float2 between slabs of the tile
+
+// A line of length N (a power of two, 2 to 64) on G lanes of a warp: lane
+// `place` l of the line holds V of its values, input x[l + G j] in register
+// j; a thread holds K lines at once; a warp holds W lines side by side, the
+// lane of place l and slot c being l * W + c (the place in the high lane
+// bits, so that the slots of a warp take consecutive lines).
+template <int N>
+struct Line {
+  static constexpr int V = N < 8 ? N : 8;
+  static constexpr int G = N / V;
+  static constexpr int K = kLineValues / V;
+  static constexpr int W = 32 / G;
+  static constexpr int Q = V / G;
+  static_assert(N >= 2 && N <= 64 && (N & (N - 1)) == 0, "line length");
+  // index in the line of input register j of place l
+  static __device__ __forceinline__ int in(int l, int j) { return l + G * j; }
+  // index in the line of output register r of place m (line_fft)
+  static __device__ __forceinline__ int out(int m, int r) {
+    return m * Q + r % Q + V * (r / Q);
+  }
+};
+
+// The DFT of one line held as Line<N> says (tw: w^k, k < N, for the
+// direction). X[a + V b] = sum_l w_G^(l b) w^(l a) sum_j x[l + G j]
+// w_V^(j a): the radix-V butterfly over j in registers, the twiddle w^(l a),
+// then the values move so that lane m holds a in [m Q, m Q + Q) for every
+// l (each exchange swaps bit i of the place with bit log2(Q) + i of the
+// register, between lanes W << i apart), and radix-G butterflies over l.
+// Register r of place m ends holding X[Line<N>::out(m, r)]. Every lane of
+// the warp calls it together.
+template <int N>
+__device__ __forceinline__ void line_fft(float2 (&v)[Line<N>::V], int l,
+                                         const float2* __restrict__ tw,
+                                         bool inv) {
+  using L = Line<N>;
+  butterfly<L::V>(v, inv);
+  if constexpr (L::G > 1) {
+#pragma unroll
+    for (int a = 1; a < L::V; ++a) v[a] = cmul(v[a], __ldg(&tw[l * a]));
+#pragma unroll
+    for (int i = 0; (1 << i) < L::G; ++i) {
+      const int bit = L::Q << i;
+      const bool hi = (l >> i) & 1;
+#pragma unroll
+      for (int r = 0; r < L::V; ++r) {
+        if (r & bit) continue;
+        const float2 send = hi ? v[r] : v[r | bit];
+        float2 got;
+        got.x = __shfl_xor_sync(0xffffffffu, send.x, L::W << i);
+        got.y = __shfl_xor_sync(0xffffffffu, send.y, L::W << i);
+        if (hi)
+          v[r] = got;
+        else
+          v[r | bit] = got;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < L::Q; ++a) {
+      float2 t[L::G];
+#pragma unroll
+      for (int b = 0; b < L::G; ++b) t[b] = v[b * L::Q + a];
+      butterfly<L::G>(t, inv);
+#pragma unroll
+      for (int b = 0; b < L::G; ++b) v[b * L::Q + a] = t[b];
+    }
+  }
+}
+
+// f(integral_constant<int, n>) for the line length n (2 to 64).
+template <class F>
+__device__ __forceinline__ void with_length(int n, const F& f) {
+  switch (n) {
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    case 16: f(std::integral_constant<int, 16>{}); break;
+    case 32: f(std::integral_constant<int, 32>{}); break;
+    default: f(std::integral_constant<int, 64>{}); break;
+  }
+}
+
+// The tile of a line-form block: `slabs` slabs of n2 rows of n3, rows at
+// pitch `row`, slabs at pitch `slab` (float2). The pads keep the three
+// phases' shared accesses free of bank conflicts at 64^3 (the header).
+struct LineTile {
+  int row, slab;
+  __host__ __device__ LineTile(int n2, int n3)
+      : row(n3 + (n3 >= 32 ? 4 : 2)), slab(n2 * row + kLineSlabPad) {}
+};
+
+// Where a thread's task of round `it` lies: its warp task w, place l and
+// slot c.
+template <int N>
+struct Task {
+  int w, l, c;
+  __device__ __forceinline__ explicit Task(int it) {
+    const int t = it * (int)blockDim.x + (int)threadIdx.x;
+    w = t >> 5;
+    l = (t & 31) / Line<N>::W;
+    c = (t & 31) % Line<N>::W;
+  }
+};
+
+__device__ __forceinline__ void store_pair(float* p, int64_t i, float a,
+                                           float b) {
+  *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int64_t i,
+                                           float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// Phase 1: the n3 rows of the block's slabs, `rows` = slabs * n2 of them,
+// from device memory (the run from src0) into the tile. Line k of a
+// thread is row w W K + c + W k.
+template <int N, typename T, bool kFused>
+__device__ __forceinline__ void line_rows(const T* __restrict__ xr,
+                                          const T* __restrict__ xi,
+                                          float2* tile, const LineTile& at,
+                                          const float2* __restrict__ tw,
+                                          int64_t src0, int rows, int n2,
+                                          int rounds, bool inv) {
+  using L = Line<N>;
+  const int n2_shift = __ffs(n2) - 1;
+  for (int it = 0; it < rounds; ++it) {
+    const Task<N> tk(it);
+    float2 v[L::K][L::V];
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) {
+      const int r = tk.w * (L::W * L::K) + tk.c + L::W * k;
+#pragma unroll
+      for (int j = 0; j < L::V; ++j) {
+        v[k][j] = make_float2(0.f, 0.f);
+        if (r < rows) {
+          const int i = L::in(tk.l, j);
+          int64_t g = src0 + (int64_t)r * N + i;
+          if (kFused) g = fused_index(g, i);
+          v[k][j] = make_float2(load_f(xr, g), load_f(xi, g));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) line_fft<N>(v[k], tk.l, tw, inv);
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) {
+      const int r = tk.w * (L::W * L::K) + tk.c + L::W * k;
+      if (r < rows) {
+        const int j = r >> n2_shift, k2 = r & (n2 - 1);
+        float2* row = tile + j * at.slab + k2 * at.row;
+#pragma unroll
+        for (int q = 0; q < L::V; ++q) row[L::out(tk.l, q)] = v[k][q];
+      }
+    }
+  }
+}
+
+// Phase 2: the n2 columns of every slab, `lines` = slabs * n3 of them, in
+// place in the tile. Line k of a thread is column w W K + c + W k.
+template <int N>
+__device__ __forceinline__ void line_cols(float2* tile, const LineTile& at,
+                                          const float2* __restrict__ tw,
+                                          int lines, int n3, int rounds,
+                                          bool inv) {
+  using L = Line<N>;
+  const int n3_shift = __ffs(n3) - 1;
+  for (int it = 0; it < rounds; ++it) {
+    const Task<N> tk(it);
+    float2 v[L::K][L::V];
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) {
+      const int line = tk.w * (L::W * L::K) + tk.c + L::W * k;
+      const float2* col = tile + (line >> n3_shift) * at.slab +
+                          (line & (n3 - 1));
+#pragma unroll
+      for (int j = 0; j < L::V; ++j)
+        v[k][j] = line < lines ? col[L::in(tk.l, j) * at.row]
+                               : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) line_fft<N>(v[k], tk.l, tw, inv);
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) {
+      const int line = tk.w * (L::W * L::K) + tk.c + L::W * k;
+      if (line < lines) {
+        float2* col = tile + (line >> n3_shift) * at.slab + (line & (n3 - 1));
+#pragma unroll
+        for (int q = 0; q < L::V; ++q) col[L::out(tk.l, q) * at.row] = v[k][q];
+      }
+    }
+  }
+}
+
+// Phase 3: the block's `cols` n1-columns (flat (k2, k3) positions
+// [rank cols, rank cols + cols), an even count), read from the cluster's
+// tiles, transformed and stored to device memory from registers; ends
+// after the cluster barrier. Lines k and k + 1 (k even) of a thread are the
+// adjacent columns w W K + c K + k and + 1: one 16-byte shared read a
+// value pair and one paired store a plane.
+template <int N, typename T, bool kFused>
+__device__ __forceinline__ void line_n1(cg::cluster_group& cluster,
+                                        float2* tile, const LineTile& at,
+                                        T* __restrict__ yr,
+                                        T* __restrict__ yi,
+                                        const float2* __restrict__ tw,
+                                        int64_t base, int rank, int cols,
+                                        int slabs, int n3, int area,
+                                        int rounds, bool inv, float scale) {
+  using L = Line<N>;
+  static_assert(L::K % 2 == 0, "columns go in pairs");
+  const int n3_shift = __ffs(n3) - 1, slab_shift = __ffs(slabs) - 1;
+  for (int it = 0; it < rounds; ++it) {
+    const Task<N> tk(it);
+    float2 v[L::K][L::V];
+#pragma unroll
+    for (int k = 0; k < L::K; k += 2) {
+      const int q = tk.w * (L::W * L::K) + tk.c * L::K + k;
+      const int col = rank * cols + q;
+      const int off = (col >> n3_shift) * at.row + (col & (n3 - 1));
+#pragma unroll
+      for (int j = 0; j < L::V; ++j) {
+        float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < cols) {
+          const int k1 = L::in(tk.l, j);
+          const float2* src = cluster.map_shared_rank(tile, k1 >> slab_shift);
+          p = *reinterpret_cast<const float4*>(
+              src + (k1 & (slabs - 1)) * at.slab + off);
+        }
+        v[k][j] = make_float2(p.x, p.y);
+        v[k + 1][j] = make_float2(p.z, p.w);
+      }
+    }
+    if (it == rounds - 1) cluster_arrive();  // the last remote read is done
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) line_fft<N>(v[k], tk.l, tw, inv);
+#pragma unroll
+    for (int k = 0; k < L::K; k += 2) {
+      const int q = tk.w * (L::W * L::K) + tk.c * L::K + k;
+      if (q < cols) {
+        const int col = rank * cols + q;
+#pragma unroll
+        for (int r = 0; r < L::V; ++r) {
+          int64_t g = base + (int64_t)L::out(tk.l, r) * area + col;
+          if (kFused) g = fused_index(g, col & (n3 - 1));
+          store_pair(yr, g, v[k][r].x * scale, v[k + 1][r].x * scale);
+          store_pair(yi, g, v[k][r].y * scale, v[k + 1][r].y * scale);
+        }
+      }
+    }
+  }
+  cluster_wait();
+}
+
+// Lanes of a line-form share: every phase takes ceil(share / (32
+// kLineValues)) warp tasks (a warp holds 32 kLineValues values).
+__host__ __device__ inline int line_lanes(int share) {
+  constexpr int warp = 32 * kLineValues;
+  return (share + warp - 1) / warp * 32;
+}
+
+// Rounds of a line-form block of `threads` threads over a share.
+__host__ __device__ inline int line_rounds(int share, int threads) {
+  return (line_lanes(share) + threads - 1) / threads;
+}
+
+// K5/K16, the line form. Cluster c transforms cube c; block `rank` holds
+// slabs [rank slabs, rank slabs + slabs) of n1 (one contiguous run of the
+// planes) and, after the exchange, transforms the n1-columns [rank cols,
+// rank cols + cols). kFused (K16): fused storage, h = n3.
+template <typename T, bool kFused>
+__global__ void __launch_bounds__(kLineThreads, 1)
+cube_line_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                 T* __restrict__ yr, T* __restrict__ yi,
+                 const float2* __restrict__ tw1,
+                 const float2* __restrict__ tw2,
+                 const float2* __restrict__ tw3, int n1, int n2, int n3,
+                 int csize, int inverse, float scale) {
+  extern __shared__ __align__(16) float2 tpufft_line_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* tile = tpufft_line_smem;
+  const int area = n2 * n3, slabs = n1 / csize;
+  const int share = slabs * area, cols = area / csize;
+  const int rank = (int)cluster.block_rank();
+  const int rounds = line_rounds(share, blockDim.x);
+  const int64_t base = (int64_t)(blockIdx.x / csize) * n1 * area;
+  const bool inv = inverse != 0;
+  const LineTile at(n2, n3);
+  with_length(n3, [&](auto n) {
+    line_rows<decltype(n)::value, T, kFused>(
+        xr, xi, tile, at, tw3, base + (int64_t)rank * share, slabs * n2, n2,
+        rounds, inv);
+  });
+  __syncthreads();
+  with_length(n2, [&](auto n) {
+    line_cols<decltype(n)::value>(tile, at, tw2, slabs * n3, n3, rounds,
+                                  inv);
+  });
+  cluster.sync();
+  with_length(n1, [&](auto n) {
+    line_n1<decltype(n)::value, T, kFused>(cluster, tile, at, yr, yi, tw1,
+                                           base, rank, cols, slabs, n3, area,
+                                           rounds, inv, scale);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The stage form of the cube kernel, and K6 (the header's second form).
+// ---------------------------------------------------------------------------
 
 // K5. Cluster c (blocks c*C .. c*C + C-1) transforms cube c; block `rank`
 // holds slabs [rank*slabs, rank*slabs + slabs) of n1 and, after the
@@ -447,13 +802,10 @@ int active_clusters(Kernel kernel, const Shape& s, int csize, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
 }
 
-template <typename T, int kThreads, int kMinBlocks, bool kFused>
-int launch_cube(const T* xr, const T* xi, T* yr, T* yi, const void* tw1,
-                const void* tw2, const void* tw3, long long pre,
-                const Radices& p1, const Radices& p2, const Radices& p3,
-                int csize, const Shape& s, int inverse, float scale,
-                cudaStream_t stream) {
-  auto* kernel = cube_fft_kernel<T, kThreads, kMinBlocks, kFused>;
+// Launch `kernel` over pre clusters of csize blocks of geometry s.
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, const Shape& s, long long pre, int csize,
+                    cudaStream_t stream, Args... args) {
   const long long blocks = pre * csize;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
@@ -461,17 +813,38 @@ int launch_cube(const T* xr, const T* xi, T* yr, T* yi, const void* tw1,
   const cudaError_t err =
       configure(kernel, s, blocks, csize, stream, &attr, &cfg);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchKernelEx(&cfg, kernel, xr, xi, yr, yi,
-                     static_cast<const float2*>(tw1),
-                     static_cast<const float2*>(tw2),
-                     static_cast<const float2*>(tw3), p1, p2, p3, csize,
-                     inverse, scale);
+  cudaLaunchKernelEx(&cfg, kernel, args...);
   return (int)cudaGetLastError();
+}
+
+// Does the cube take the line form: every axis a power of two from 2 to
+// 64, and an even number of n1-columns a block (they go in pairs)?
+// kernels/cube_fft.py:form mirrors it.
+inline bool line_cube(int n1, int n2, int n3, int csize) {
+  const auto ok = [](int n) { return n >= 2 && n <= 64 && !(n & (n - 1)); };
+  return ok(n1) && ok(n2) && ok(n3) && (n2 * n3 / csize) % 2 == 0;
+}
+
+// The line form's block: enough threads for the share's warp tasks, at
+// most kLineThreads, and the padded tile (LineTile).
+inline Shape line_shape(int n1, int n2, int n3, int csize) {
+  Shape s;
+  const int slabs = n1 / csize, share = slabs * n2 * n3;
+  const int lanes = line_lanes(share);
+  s.threads = lanes < kLineThreads ? lanes : kLineThreads;
+  s.span = 0;
+  s.smem = (size_t)slabs * LineTile(n2, n3).slab * sizeof(float2);
+  return s;
+}
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // K5 (kFused off: xr, xi, yr, yi are the four planes) or K16 (on: xr and
 // yr are the fused input and output, xi and yi unused), for the checked
-// cube geometry s.
+// cube geometry s of the stage form: the line form where line_cube holds
+// and the outputs take paired stores, else the stage form.
 template <typename T, bool kFused>
 int launch_cube_typed(const void* xr, const void* xi, void* yr, void* yi,
                       const void* tw1, const void* tw2, const void* tw3,
@@ -482,13 +855,22 @@ int launch_cube_typed(const void* xr, const void* xi, void* yr, void* yi,
   T* y = static_cast<T*>(yr);
   const T* x_im = kFused ? x + p3.n : static_cast<const T*>(xi);
   T* y_im = kFused ? y + p3.n : static_cast<T*>(yi);
+  const auto* w1 = static_cast<const float2*>(tw1);
+  const auto* w2 = static_cast<const float2*>(tw2);
+  const auto* w3 = static_cast<const float2*>(tw3);
+  if (line_cube(p1.n, p2.n, p3.n, csize) && aligned(y, 2 * sizeof(T)) &&
+      aligned(y_im, 2 * sizeof(T)))
+    return launch_clusters(cube_line_kernel<T, kFused>,
+                           line_shape(p1.n, p2.n, p3.n, csize), pre, csize,
+                           stream, x, x_im, y, y_im, w1, w2, w3, p1.n, p2.n,
+                           p3.n, csize, inverse, scale);
   if (s.threads <= kPackedShare / kPer)
-    return launch_cube<T, 512, 2, kFused>(x, x_im, y, y_im, tw1, tw2, tw3,
-                                          pre, p1, p2, p3, csize, s, inverse,
-                                          scale, stream);
-  return launch_cube<T, 1024, 1, kFused>(x, x_im, y, y_im, tw1, tw2, tw3, pre,
-                                         p1, p2, p3, csize, s, inverse, scale,
-                                         stream);
+    return launch_clusters(cube_fft_kernel<T, 512, 2, kFused>, s, pre, csize,
+                           stream, x, x_im, y, y_im, w1, w2, w3, p1, p2, p3,
+                           csize, inverse, scale);
+  return launch_clusters(cube_fft_kernel<T, 1024, 1, kFused>, s, pre, csize,
+                         stream, x, x_im, y, y_im, w1, w2, w3, p1, p2, p3,
+                         csize, inverse, scale);
 }
 
 template <typename T, int kThreads, int kMinBlocks>
@@ -497,20 +879,13 @@ int launch_mid(const void* xr, const void* xi, void* yr, void* yi,
                const Radices& p1, const Radices& p2, long long L, int lanes,
                int csize, const Shape& s, int inverse, float scale,
                cudaStream_t stream) {
-  auto* kernel = mid_pair_fft_kernel<T, kThreads, kMinBlocks>;
-  const long long tiles = pre * ((L + lanes - 1) / lanes);
-  if (tiles > INT_MAX / csize) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-  const cudaError_t err =
-      configure(kernel, s, tiles * csize, csize, stream, &attr, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(xr),
-                     static_cast<const T*>(xi), static_cast<T*>(yr),
-                     static_cast<T*>(yi), static_cast<const float2*>(tw1),
-                     static_cast<const float2*>(tw2), p1, p2, (int64_t)L,
-                     lanes, csize, inverse, scale);
-  return (int)cudaGetLastError();
+  return launch_clusters(mid_pair_fft_kernel<T, kThreads, kMinBlocks>, s,
+                         pre * ((L + lanes - 1) / lanes), csize, stream,
+                         static_cast<const T*>(xr), static_cast<const T*>(xi),
+                         static_cast<T*>(yr), static_cast<T*>(yi),
+                         static_cast<const float2*>(tw1),
+                         static_cast<const float2*>(tw2), p1, p2,
+                         (int64_t)L, lanes, csize, inverse, scale);
 }
 
 // The (n1 / csize) * inner elements a block holds, or 0 when csize is not
@@ -575,21 +950,24 @@ int cube_entry(const void* xr, const void* xi, void* yr, void* yi,
                                           scale, st);
 }
 
+template <typename T, bool kFused>
+int cube_clusters_typed(int n1, int n2, int n3, int csize, const Shape& s,
+                        int* out) {
+  if (line_cube(n1, n2, n3, csize))
+    return active_clusters(cube_line_kernel<T, kFused>,
+                           line_shape(n1, n2, n3, csize), csize, out);
+  if (s.threads <= kPackedShare / kPer)
+    return active_clusters(cube_fft_kernel<T, 512, 2, kFused>, s, csize, out);
+  return active_clusters(cube_fft_kernel<T, 1024, 1, kFused>, s, csize, out);
+}
+
 template <bool kFused>
 int cube_clusters(int n1, int n2, int n3, int csize, int bf16, int* out) {
   const Shape s = cube_shape(n1, n2, n3, csize);
   if (s.threads == 0) return (int)cudaErrorInvalidValue;
-  if (s.threads <= kPackedShare / kPer)
-    return bf16 ? active_clusters(
-                      cube_fft_kernel<__nv_bfloat16, 512, 2, kFused>, s,
-                      csize, out)
-                : active_clusters(cube_fft_kernel<float, 512, 2, kFused>, s,
-                                  csize, out);
-  return bf16 ? active_clusters(
-                    cube_fft_kernel<__nv_bfloat16, 1024, 1, kFused>, s,
-                    csize, out)
-              : active_clusters(cube_fft_kernel<float, 1024, 1, kFused>, s,
-                                csize, out);
+  return bf16 ? cube_clusters_typed<__nv_bfloat16, kFused>(n1, n2, n3, csize,
+                                                           s, out)
+              : cube_clusters_typed<float, kFused>(n1, n2, n3, csize, s, out);
 }
 
 }  // namespace

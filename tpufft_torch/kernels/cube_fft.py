@@ -19,6 +19,11 @@ such a C. C = 16 is a non-portable cluster size; :func:`active_clusters`
 reports how many clusters the card holds at once, and a launch raises
 RuntimeError when that is 0.
 
+The kernel has two forms (:func:`form`): cubes whose axes are powers of
+two up to 64 run the line form, each line's FFT in the registers of a few
+lanes of a warp that exchange values by shuffles; every other cube in the
+envelope runs the stage form, the shared Stockham stages over the tile.
+
 ``fft_cube`` is the wrapper: a CPU tensor runs the plain version; a CUDA
 tensor launches the kernel or raises. ``launches`` counts its launches,
 ``reference_cuda_calls`` runs of the plain version on CUDA tensors.
@@ -41,6 +46,7 @@ __all__ = [
     "cluster_size",
     "fft_cube",
     "fft_cube_reference",
+    "form",
     "launches",
     "pick_cluster",
     "reference_cuda_calls",
@@ -52,6 +58,7 @@ __all__ = [
 MAX_SHARE = 16384  # elements a block holds, K4's largest slice
 SMALL_SHARE = 2048  # a block of 256 threads, four blocks an SM
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
+LINE_LENGTHS = (2, 4, 8, 16, 32, 64)  # axes of the kernel's line form
 
 launches = 0
 reference_cuda_calls = 0
@@ -84,6 +91,20 @@ def cluster_size(n1: int, n2: int, n3: int) -> int | None:
     """Blocks a cube's cluster takes (:func:`pick_cluster` of n1 and
     n2*n3); None outside the envelope."""
     return pick_cluster(int(n1), int(n2) * int(n3))
+
+
+def form(n1: int, n2: int, n3: int) -> str | None:
+    """Which form of the kernel transforms the cube: ``"lines"`` where
+    every axis is in ``LINE_LENGTHS`` and a block's n1-columns, n2*n3 / C,
+    are even (they go in pairs), else ``"stages"``; None without a
+    cluster size. Mirrors ``line_cube`` in ``csrc/cluster_fft.cu``, which
+    makes the choice at the launch."""
+    c = cluster_size(n1, n2, n3)
+    if c is None:
+        return None
+    lines = (all(int(n) in LINE_LENGTHS for n in (n1, n2, n3))
+             and int(n2) * int(n3) // c % 2 == 0)
+    return "lines" if lines else "stages"
 
 
 def stages_fit(n: int, rows: int, share: int) -> bool:
