@@ -55,7 +55,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
     DCT/DST table) against their plain versions (f32 matmuls, TF32 off) on
     ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128)
     and (128 -> 93), and every DCT/DST (kind, type, norm, direction) at
-    n = 2 to 1024;
+    n = 2 to 1024; K11 and K12 on both bodies of the real kernel
+    (``dense_mm.form``: the 3xTF32 tensor-core body where both lengths are
+    multiples of 4, else the FMA body) at batches of 1, 127, 129 and 257
+    rows, and on edge-value rows (+-Inf, NaN, 3.4e38, FLT_MAX, rows scaled
+    by 1e-20 and 1e18) whose Inf and NaN must fall where the plain
+    version's do;
 13. the filtering, convolution, DCT/DST, czt and fht paths at full size,
     each call driven with every count set to 0 just before it and read just
     after: ``hilbert`` (100000, 512) (K10), a low-pass ``plan_filter(512)``
@@ -68,8 +73,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
     float64 on a few rows and through its round trip where it has one;
 14. times: each of those paths, K10, K11 and K12 alone at their paths'
     shapes, their plain versions and ``torch.matmul`` on the same operands
-    (cuBLAS, a yardstick only), and the filter's dense route (K10) against
-    its composed route (K1, multiply, K1) on (100000, n) for n = 64 to 512;
+    (cuBLAS, a yardstick only); for K11 and K12 the body each runs, its
+    operations bound on the FP32 cores beside the 3xTF32 one, the other
+    (FMA) body's time, and ``torch.matmul`` with ``allow_tf32`` (one TF32
+    product: informational, it fails the 1e-5 check); and the filter's
+    dense route (K10) against its composed route (K1, multiply, K1) on
+    (100000, n) for n = 64 to 512;
 15. the short-time Fourier kernels K13 (overlapped-frame STFT, an FFT of
     each frame in shared memory), K14 (inverse STFT with overlap-add) and
     K15 (Welch and CSD accumulators) against their plain versions: hop 128,
@@ -142,9 +151,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
 its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
-clock ``nvidia-smi`` reports). The line before the last is one JSON object
-describing every kernel; the last line is ``{"ok": true, "device":
-{...}}``.
+clock ``nvidia-smi`` reports); for K11/K12 on the tensor-core body, three
+TF32 products over the 495 TFLOP/s TF32 peak (their entries also give
+``form``, ``bound_fp32_ms`` and ``bound_tf32x3_ms``). The line before the
+last is one JSON object describing every kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -176,6 +187,9 @@ SPECTRAL_TOL = 1e-4  # f32 spectral paths vs scipy in float64
 KERNEL_NS = (8, 93, 127, 128, 256, 960, 1024, 1792, 4096, 16384)
 MAIN_SHAPES = ((100_000, 1024), (1_000_000, 93))
 REPS = 20
+# TF32 on the tensor cores, dense: NVIDIA's data sheet for the H100 SXM at
+# 700 W. K11/K12's tensor-core body does three TF32 products per f32 one.
+TF32_PEAK = 495e12
 STRIDED_NS = (8, 93, 127, 128, 960, 1024, 4096, 16384)
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
@@ -990,36 +1004,94 @@ def phase_real_times(k1_ms: float) -> dict:
     return out
 
 
+def _edge_rows(x: torch.Tensor) -> torch.Tensor:
+    """x with edge values in its first rows: +Inf, -Inf, NaN, 3.4e38 and
+    FLT_MAX each at one place, rows scaled by 1e-20 and by 1e18."""
+    x = x.clone()
+    n = x.shape[1]
+    x[0, 5 % n] = float("inf")
+    x[1, 7 % n] = float("-inf")
+    x[2, 3 % n] = float("nan")
+    x[3, 9 % n] = 3.4e38
+    x[4, 11 % n] = torch.finfo(torch.float32).max
+    x[5] *= 1e-20
+    x[6] *= 1e18
+    return x
+
+
+def _hold_edges(worst, key, got, ref, what):
+    """Inf and NaN where the plain version has them, and the finite
+    entries within F32_TOL of it, each row relative to its own magnitude
+    (the 1e-20 row is held to its scale, not to 1)."""
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        check(torch.equal(test(got), test(ref)),
+              f"{key} edge rows {what}: {test.__name__} pattern differs")
+    fin = torch.isfinite(ref)
+    scale = torch.where(fin, ref.abs(), 0).amax(1, keepdim=True).clamp_min(
+        1e-30)
+    err = (torch.where(fin, (got - ref).abs(), 0) / scale).max().item()
+    worst[(key, "edges")] = max(worst.get((key, "edges"), 0.0), err)
+    check(err < F32_TOL, f"{key} edge rows {what}: {err:.3e} >= {F32_TOL}")
+
+
+DENSE_BATCHES = (1, 127, 129, 257)   # rows ending mid-tile, and a few tiles
+
+
 def phase_dense_kernels() -> None:
     """K10, K11 and K12 against their plain versions (f32 matmuls, TF32
-    off) on ragged batches of 257 rows."""
+    off): K10 and K11 on ragged batches of 257 rows; K11 and K12 on both
+    bodies (``dense_mm.form``) at batches of 1 to 257 rows and on edge-value
+    rows, whose Inf and NaN must fall where the plain version's do."""
     worst = {}
     f32 = torch.float32
+    forms = collections.defaultdict(list)
     for m_in, m_out in DENSE_SHAPES:
         xr, xi = _planes((257, m_in), f32, seed=m_in)
         wr, wi = _planes((m_in, m_out), f32, seed=m_out + 7)
         what = f"({m_in} -> {m_out})"
+        forms[dense_mm.form(m_in, m_out)].append(what)
         _hold(worst, "complex", f32,
               dense_mm.dense_mm_complex(xr, xi, wr, wi),
               dense_mm.dense_mm_complex_reference(xr, xi, wr, wi), what)
-        _hold(worst, "real", f32, dense_mm.dense_mm_real(xr, wr),
-              dense_mm.dense_mm_real_reference(xr, wr), what)
+        for batch in DENSE_BATCHES:
+            _hold(worst, "real", f32, dense_mm.dense_mm_real(xr[:batch], wr),
+                  dense_mm.dense_mm_real_reference(xr[:batch], wr),
+                  f"{what} batch {batch}")
+        edge = _edge_rows(xr)
+        _hold_edges(worst, "real", dense_mm.dense_mm_real(edge, wr),
+                    dense_mm.dense_mm_real_reference(edge, wr), what)
     for n in R2R_NS:
         x, _ = _planes((257, n), f32, seed=n)
+        edge = _edge_rows(x)
+        forms[dense_mm.form(n, n)].append(f"r2r n={n}")
         for kind in ("dct", "dst"):
             for type_ in (1, 2, 3, 4):
                 for norm in R2R_NORMS:
                     for inverse in (False, True):
                         w = realtrans._table((kind, type_, n, norm, inverse),
                                              x.device)
+                        what = f"{kind}{type_} n={n} {norm} inverse={inverse}"
                         _hold(worst, "r2r", f32, dense_mm.r2r_minor(x, w),
-                              dense_mm.r2r_minor_reference(x, w),
-                              f"{kind}{type_} n={n} {norm} "
-                              f"inverse={inverse}")
+                              dense_mm.r2r_minor_reference(x, w), what)
+                        if norm != "backward" or inverse:
+                            continue
+                        for batch in DENSE_BATCHES[:-1]:
+                            _hold(worst, "r2r", f32,
+                                  dense_mm.r2r_minor(x[:batch], w),
+                                  dense_mm.r2r_minor_reference(x[:batch], w),
+                                  f"{what} batch {batch}")
+                        _hold_edges(worst, "r2r", dense_mm.r2r_minor(edge, w),
+                                    dense_mm.r2r_minor_reference(edge, w),
+                                    what)
     torch.cuda.synchronize()
+    for body, shapes in forms.items():
+        print(f"real kernel (K11, K12) body {body}: {', '.join(shapes)}")
     for k in DENSE_KERNELS:
         print(f"{k} vs plain: max normalized error f32 "
-              f"{worst[(k, f32)]:.3e} (tol {F32_TOL})")
+              f"{worst[(k, f32)]:.3e} (tol {F32_TOL})"
+              + (f"; edge rows (+-Inf, NaN, 3.4e38, FLT_MAX, x1e-20, x1e18): "
+                 f"Inf/NaN pattern equal, finite entries "
+                 f"{worst[(k, 'edges')]:.3e}" if k != "complex" else ""))
 
 
 def _lowpass(n: int) -> np.ndarray:
@@ -1169,11 +1241,47 @@ def phase_dense_paths() -> dict:
     return total
 
 
-def phase_dense_times() -> dict:
+def _real_body_lines(key: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """K11/K12's other body on the same operands, and one TF32 product
+    (torch.matmul with allow_tf32, informational: it fails the 1e-5
+    check the kernel is held to)."""
+    lib = _build.load()
+    y = torch.empty(x.shape[0], w.shape[1], device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ref = dense_mm.dense_mm_real_reference(x, w)
+
+    def fma():   # the FMA body, called through the C entry point
+        check(lib.tpufft_dense_mm_real(x.data_ptr(), w.data_ptr(),
+                                       y.data_ptr(), x.shape[0], x.shape[1],
+                                       w.shape[1], 0, stream) == 0,
+              f"{key}: the FMA body did not launch")
+
+    fma()
+    err_fma = norm_err(y, ref)
+    check(err_fma < F32_TOL, f"{key}: FMA body vs plain {err_fma:.3e}")
+    t_fma = _time_ms(fma)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err_tf32 = norm_err(torch.matmul(x, w), ref)
+        t_tf32 = _time_ms(lambda: torch.matmul(x, w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"  {key} {tuple(x.shape)} x {tuple(w.shape)}: the FMA body "
+          f"{t_fma:.4f} ms (vs plain {err_fma:.3e}); torch.matmul with "
+          f"allow_tf32 (one TF32 product, informational) {t_tf32:.4f} ms, "
+          f"vs plain {err_tf32:.3e}: "
+          f"{'FAILS' if err_tf32 >= F32_TOL else 'passes'} the {F32_TOL} "
+          f"check")
+    del y, ref
+
+
+def phase_dense_times(peak: float) -> dict:
     """Times of the paths and of K10, K11 and K12 alone at their paths'
     shapes; returns, per dense kernel, its time, its plain version's,
     torch.matmul's on the same operands, its bytes and flops, and its
-    largest absolute error against the plain version."""
+    largest absolute error against the plain version; for K11 and K12 also
+    the body that ran and its operations bound on the FP32 cores (one f32
+    product at ``peak``) and as 3xTF32 on the tensor cores."""
     for seed, (name, shape, is_complex, kshape, run, *_) in enumerate(
             DENSE_PATHS):
         x, k = _dense_path_inputs(shape, is_complex, kshape, seed)
@@ -1198,7 +1306,8 @@ def phase_dense_times() -> dict:
               f"ms, torch.matmul {t_l:.4f} ms; vs plain max abs "
               f"{abs_err:.3e}, normalized {err:.3e}")
         out[key] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                    "bytes": nbytes, "flops": flops, "max_abs_err": abs_err}
+                    "bytes": nbytes, "flops": flops, "max_abs_err": abs_err,
+                    "mkn": shape}
 
     f32 = 4
     rows, n = 100_000, 512
@@ -1218,6 +1327,7 @@ def phase_dense_times() -> dict:
                lambda: dense_mm.dense_mm_real_reference(xr, w),
                lambda: torch.matmul(xr, w),
                f32 * (2 * rows * n + n * n), 2.0 * rows * n * n)
+    _real_body_lines("real", xr, w)
     del xr, xi
     n = 1024
     x, _ = _device_planes((rows, n), seed=33)
@@ -1226,7 +1336,20 @@ def phase_dense_times() -> dict:
                lambda: dense_mm.r2r_minor_reference(x, w),
                lambda: torch.matmul(x, w),
                f32 * (2 * rows * n + n * n), 2.0 * rows * n * n)
+    _real_body_lines("r2r", x, w)
     del x
+    for key in ("real", "r2r"):
+        row = out[key]
+        row["form"] = dense_mm.form(*row["mkn"][1:])
+        row["bound_fp32_ms"] = row["flops"] / peak * 1e3
+        row["bound_tf32x3_ms"] = 3 * row["flops"] / TF32_PEAK * 1e3
+        print(f"  {key} {row['mkn']}: body {row['form']}, kernel "
+              f"{row['ms']:.4f} ms; operations bound on the FP32 cores "
+              f"{row['bound_fp32_ms']:.4f} ms, as 3xTF32 on the tensor "
+              f"cores {row['bound_tf32x3_ms']:.4f} ms (3 x "
+              f"{row['flops'] / 1e9:.1f} GFLOP at {TF32_PEAK / 1e12:.0f} "
+              f"TFLOP/s); torch.matmul {row['library_ms']:.4f} ms, kernel / "
+              f"matmul {row['ms'] / row['library_ms']:.3f}")
     # the filter's two routes on (100000, n): one K10 pass against K1,
     # the pointwise response, K1 (and cuFFT's composition, a yardstick)
     rng = np.random.default_rng(34)
@@ -2170,6 +2293,20 @@ def _entry(name: str, source: str, replaces: str, launches: int,
             "library_ms": row["library_ms"]}
 
 
+def _dense_entry(name: str, replaces: str, launches: int, row: dict,
+                 rate: float, peak: float) -> dict:
+    """K11/K12's entry: the bound of the body that ran (the tensor-core
+    body does three TF32 products at TF32_PEAK, the FMA body one f32
+    product at the FP32 peak), both operations bounds, and the body."""
+    tf32x3 = row["form"] == "tf32x3"
+    entry = _entry(name, "dense_mm.cu", replaces, launches,
+                   dict(row, flops=3 * row["flops"]) if tf32x3 else row,
+                   rate, TF32_PEAK if tf32x3 else peak)
+    entry.update(form=row["form"], bound_tf32x3_ms=row["bound_tf32x3_ms"],
+                 bound_fp32_ms=row["bound_fp32_ms"])
+    return entry
+
+
 def main() -> None:
     name, peak = phase_device()
     phase_build()
@@ -2185,7 +2322,7 @@ def main() -> None:
     real_rows = phase_real_times(head["kernel"])
     phase_dense_kernels()
     dense_launches = phase_dense_paths()
-    dense_rows = phase_dense_times()
+    dense_rows = phase_dense_times(peak)
     phase_stft_kernels()
     stft_launches = phase_spectral_paths()
     stft_rows = phase_spectral_times()
@@ -2234,10 +2371,10 @@ def main() -> None:
                total["minor_padded"], real_rows["minor_padded"], rate, peak),
         _entry("dense_mm_complex (K10)", "dense_mm.cu", f"{mx}:606",
                total["complex"], dense_rows["complex"], rate, peak),
-        _entry("dense_mm_real (K11)", "dense_mm.cu", f"{mx}:658",
-               total["real"], dense_rows["real"], rate, peak),
-        _entry("r2r_minor (K12)", "dense_mm.cu", "tpufft/realtrans.py:177",
-               total["r2r"], dense_rows["r2r"], rate, peak),
+        _dense_entry("dense_mm_real (K11)", f"{mx}:658", total["real"],
+                     dense_rows["real"], rate, peak),
+        _dense_entry("r2r_minor (K12)", "tpufft/realtrans.py:177",
+                     total["r2r"], dense_rows["r2r"], rate, peak),
         _entry("stft_frames (K13)", "stft_mm.cu", f"{mx}:755",
                total["stft"], stft_rows["stft"], rate, peak),
         _entry("istft_ola (K14)", "stft_mm.cu", f"{mx}:884",

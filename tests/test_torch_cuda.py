@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import tpufft_torch
-from tpufft_torch import PlanConfig, SplitComplex
+from tpufft_torch import PlanConfig, SplitComplex, realtrans
 from tpufft_torch.kernels import (cube_fft, dense_mm, inner_fft,
                                   mid_pair_fft, minor_fft, pair_fft, real_fft,
                                   stft_mm)
@@ -585,6 +585,124 @@ def test_r2r_kernel_matches_plain_version(n, cuda_device):
                 torch.cuda.synchronize()
                 assert _err((got, torch.zeros_like(got)),
                             (ref, torch.zeros_like(ref))) < 1e-5
+
+
+def _edge_rows(x):
+    """+-Inf, NaN, 3.4e38 and FLT_MAX at one place each, and rows scaled
+    by 1e-20 and 1e18."""
+    x = x.clone()
+    n = x.shape[1]
+    x[0, 5 % n] = float("inf")
+    x[1, 7 % n] = float("-inf")
+    x[2, 3 % n] = float("nan")
+    x[3, 9 % n] = 3.4e38
+    x[4, 11 % n] = torch.finfo(torch.float32).max
+    x[5] *= 1e-20
+    x[6] *= 1e18
+    return x
+
+
+def _same_nonfinite(got, ref):
+    return all(torch.equal(f(got), f(ref))
+               for f in (torch.isnan, torch.isposinf, torch.isneginf))
+
+
+def _row_err(got, ref):
+    """Finite entries, each row relative to its own magnitude."""
+    fin = torch.isfinite(ref)
+    scale = torch.where(fin, ref.abs(), 0).amax(1, keepdim=True).clamp_min(
+        1e-30)
+    return (torch.where(fin, (got - ref).abs(), 0) / scale).max().item()
+
+
+# both bodies of the real kernel: the 3xTF32 tensor-core GEMM (lengths
+# that are multiples of 4) and the FMA loop
+REAL_BODIES = [(64, 64, "tf32x3"), (512, 512, "tf32x3"),
+               (1000, 1000, "tf32x3"), (96, 132, "tf32x3"),
+               (93, 93, "fma"), (93, 128, "fma"), (7, 7, "fma"),
+               (2, 2, "fma")]
+
+
+@pytest.mark.parametrize("batch", [1, 127, 129, 257])
+@pytest.mark.parametrize("m_in,m_out,body", REAL_BODIES)
+def test_real_kernel_bodies_match_plain_version(m_in, m_out, body, batch,
+                                                cuda_device):
+    """K11 on batches that end mid-tile; one call, one launch."""
+    assert dense_mm.form(m_in, m_out) == body
+    x, _ = _planes((batch, m_in), cuda_device, seed=batch)
+    w, _ = _planes((m_in, m_out), cuda_device, seed=m_out + 3)
+    dense_mm.reset_counts()
+    got = dense_mm.dense_mm_real(x, w)
+    assert dense_mm.launches == {"complex": 0, "real": 1, "r2r": 0}
+    ref = dense_mm.dense_mm_real_reference(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, m_out) and got.dtype == torch.float32
+    assert _err((got, torch.zeros_like(got)),
+                (ref, torch.zeros_like(ref))) < 1e-5
+
+
+@pytest.mark.parametrize("table", [("dct", 2, "backward"),
+                                   ("dst", 4, "ortho"),
+                                   ("dct", 1, "forward")])
+@pytest.mark.parametrize("n", [93, 128, 1024])
+def test_real_kernel_edge_values(n, table, cuda_device):
+    """K11/K12 on edge-value rows: Inf and NaN where the plain version has
+    them, finite entries within 1e-5 of it."""
+    kind, type_, norm = table
+    x = _edge_rows(_planes((257, n), cuda_device, seed=n)[0])
+    w = realtrans._table((kind, type_, n, norm, False), cuda_device)
+    for kernel, plain in ((dense_mm.r2r_minor, dense_mm.r2r_minor_reference),
+                          (dense_mm.dense_mm_real,
+                           dense_mm.dense_mm_real_reference)):
+        got, ref = kernel(x, w), plain(x, w)
+        torch.cuda.synchronize()
+        assert _same_nonfinite(got, ref)
+        assert not torch.isfinite(ref[:3]).all()
+        assert _row_err(got, ref) < 1e-5
+
+
+def test_real_kernel_misaligned_view_runs_the_fma_body(cuda_device):
+    """Rows that start 4 bytes into their storage cannot take 16-byte
+    copies: the wrapper runs the FMA body, with the same result."""
+    base, _ = _planes((257 * 128 + 1,), cuda_device, seed=5)
+    x = base[1:].view(257, 128)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w, _ = _planes((128, 128), cuda_device, seed=6)
+    assert dense_mm.form(128, 128, aligned=False) == "fma"
+    got = dense_mm.dense_mm_real(x, w)
+    ref = dense_mm.dense_mm_real_reference(x, w)
+    torch.cuda.synchronize()
+    assert _err((got, torch.zeros_like(got)),
+                (ref, torch.zeros_like(ref))) < 1e-5
+
+
+def test_real_kernel_rows_past_one_launch(cuda_device):
+    """A batch longer than 65535 row tiles runs in two launches of the
+    tensor-core body (the C loop), counted as one call."""
+    batch = 65535 * 128 + 300
+    x = torch.randn(batch, 4, device=cuda_device)
+    w = torch.randn(4, 8, device=cuda_device)
+    assert dense_mm.form(4, 8) == "tf32x3"
+    got = dense_mm.dense_mm_real(x, w)
+    ref = dense_mm.dense_mm_real_reference(x, w)
+    torch.cuda.synchronize()
+    assert _err((got, torch.zeros_like(got)),
+                (ref, torch.zeros_like(ref))) < 1e-5
+
+
+def test_r2r_backward_on_the_tensor_core_body(cuda_device):
+    """K12's backward (``_R2R.backward``, the transposed table) on the
+    tensor-core body at n = 1024."""
+    assert dense_mm.form(1024, 1024) == "tf32x3"
+    x, _ = _planes((300, 1024), cuda_device, seed=11)
+    x.requires_grad_(True)
+    dense_mm.reset_counts()
+    tpufft_torch.dct(x, type=2).square().sum().backward()
+    assert dense_mm.launches == {"complex": 0, "real": 0, "r2r": 2}
+    xc = x.detach().cpu().requires_grad_(True)
+    tpufft_torch.dct(xc, type=2).square().sum().backward()
+    assert _err((x.grad, torch.zeros_like(x.grad)),
+                (xc.grad, torch.zeros_like(xc.grad))) < 1e-5
 
 
 def test_dense_wrappers_check_their_operands(cuda_device):

@@ -9,6 +9,14 @@ magnitude: bf16x3 keeps about 2^-24 of each product and the plain version
 rounds in f32, so the two differ by a few 1e-6 at m_in = 512 (the
 kernels on the card are held to their plain versions in
 ``test_torch_cuda.py``).
+
+The real kernel's tensor-core body (``csrc/tf32x3_mm.cuh``) cannot run
+here; a numpy model of its arithmetic stands in for it: the split of each
+f32 operand into a TF32 big part (low 13 mantissa bits cleared; 0 for Inf
+and NaN) and a small part (the rest, truncated to TF32 too), and three
+products accumulated in f32, small ones first. It is held
+to float64 at the plain version's 1e-5, and one TF32 product is shown to
+miss it.
 """
 
 import numpy as np
@@ -18,7 +26,7 @@ import torch
 from tpufft import realtrans as tp_realtrans
 from tpufft.kernels import mxu_fft
 
-from tpufft_torch import realtrans
+from tpufft_torch import realtrans, signal
 from tpufft_torch.kernels import dense_mm
 
 TOL = 2e-5
@@ -111,3 +119,134 @@ def test_device_table_uploads_once():
     assert a.dtype == torch.float32 and a.is_contiguous()
     c = dense_mm.device_table(("test-eye", 3), build, "cpu", torch.float64)
     assert c.dtype == torch.float64 and len(builds) == 2
+
+
+# ----------------------------------------------------------------------------
+# The tensor-core body's arithmetic (3xTF32), modelled in numpy
+# ----------------------------------------------------------------------------
+
+F32_TOL = 1e-5   # the kernel against its plain version on the card
+_MASK = np.uint32(0xFFFFE000)   # TF32 keeps the top 19 bits of an f32
+
+
+def _tf32_split(v):
+    """The kernel's split (``tf32x3::split``): v -> (big, small), both
+    TF32 values held in f32."""
+    v = np.ascontiguousarray(v, np.float32)
+    u = v.view(np.uint32)
+    keep = np.where(np.abs(v) <= np.finfo(np.float32).max, _MASK,
+                    np.uint32(0))
+    big = (u & keep).view(np.float32)
+    with np.errstate(invalid="ignore"):
+        small = ((v - big).view(np.uint32) & _MASK).view(np.float32)
+    return big, small
+
+
+def _tf32_round(v):
+    """One TF32 rounding to nearest, ties away (cvt.rna.tf32.f32)."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & _MASK).view(np.float32)
+
+
+def _tf32x3(x, w):
+    """x @ w as the kernel forms it: three products of the TF32 parts,
+    accumulated in f32, the two small ones first."""
+    xb, xs = _tf32_split(x)
+    wb, ws = _tf32_split(w)
+    with np.errstate(invalid="ignore", over="ignore"):
+        acc = xs @ wb
+        acc += xb @ ws
+        acc += xb @ wb
+    return acc
+
+
+def _table(name, n):
+    """The tables the real kernel multiplies by on the paths: the DCT-II
+    matrix (``dct``, K12) and the circulant of a low-pass filter (bins
+    |k| <= n/8, a real impulse: ``plan_filter`` on real rows, K11)."""
+    if name == "dct2":
+        return realtrans._mat("dct", 2, n, "backward", False)
+    k = np.minimum(np.arange(n), n - np.arange(n))
+    impulse = np.fft.ifft((k <= n // 8).astype(np.float64)).real
+    return signal._circulant(impulse)
+
+
+def _norm_err(got, ref):
+    return float(np.max(np.abs(got - ref)) / max(1.0, np.max(np.abs(ref))))
+
+
+@pytest.mark.parametrize("table", ["dct2", "lowpass"])
+@pytest.mark.parametrize("n", [93, 512, 1024])
+def test_tf32x3_model_meets_the_f32_tolerance(n, table):
+    """3xTF32 stays within 1e-5 of float64 on (257, n) rows; one TF32
+    product (what ``allow_tf32`` gives) does not."""
+    x = _f32((257, n), n)
+    w64 = _table(table, n)
+    w = w64.astype(np.float32)
+    exact = x.astype(np.float64) @ w64
+    err3 = _norm_err(_tf32x3(x, w).astype(np.float64), exact)
+    err1 = _norm_err((_tf32_round(x) @ _tf32_round(w)).astype(np.float64),
+                     exact)
+    plain = _norm_err((x @ w).astype(np.float64), exact)
+    assert err3 < F32_TOL and err3 < 10 * max(plain, 1e-7), (err3, plain)
+    assert err1 > F32_TOL, err1
+
+
+@pytest.mark.parametrize("value", [np.inf, -np.inf, np.nan, 3.4e38,
+                                   np.finfo(np.float32).max, 1e-20, 1e18])
+def test_tf32x3_split_keeps_edge_values(value):
+    """big + small gives v back to within 2^-20, never rounds a finite v
+    up to Inf (|big + small| <= |v|), and carries Inf and NaN whole in the
+    small part."""
+    v = np.array([value, -value], np.float32)
+    big, small = _tf32_split(v)
+    if np.isfinite(value):
+        assert np.all(np.isfinite(big)) and np.all(np.isfinite(small))
+        total = big.astype(np.float64) + small
+        assert np.all(np.abs(total) <= np.abs(v.astype(np.float64)))
+        assert np.all(np.abs(total - v) / np.abs(v) <= 2.0 ** -20)
+    else:
+        assert np.all(big == 0)
+        assert np.array_equal(np.isnan(small), np.isnan(v))
+        assert np.array_equal(small[np.isinf(v)], v[np.isinf(v)])
+
+
+@pytest.mark.parametrize("table", ["dct2", "lowpass"])
+@pytest.mark.parametrize("n", [93, 512])
+def test_tf32x3_model_keeps_the_plain_inf_and_nan_pattern(n, table):
+    """Rows with +-Inf, NaN, a value near FLT_MAX and rows scaled by 1e-20
+    and 1e18: the model's Inf and NaN fall where the f32 product's do, and
+    the finite entries agree within 1e-5 (scaled rows relative to their
+    own magnitude)."""
+    x = _f32((16, n), n + 1)
+    x[0, 5] = np.inf
+    x[1, 7] = -np.inf
+    x[2, 3] = np.nan
+    x[3, 9] = 3.4e38
+    x[4, 11] = np.finfo(np.float32).max
+    x[5] *= np.float32(1e-20)
+    x[6] *= np.float32(1e18)
+    w = _table(table, n).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        ref = x @ w
+    got = _tf32x3(x, w)
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        assert np.array_equal(test(got), test(ref)), test.__name__
+    assert np.all(~np.isfinite(ref[:3]).all(axis=1))
+    for row in range(x.shape[0]):
+        fin = np.isfinite(ref[row])
+        scale = max(float(np.max(np.abs(ref[row][fin]), initial=0.0)),
+                    1e-30)
+        assert np.max(np.abs(got[row][fin] - ref[row][fin]),
+                      initial=0.0) / scale < F32_TOL, row
+
+
+# every shape chip_smoke.py holds K11/K12 to (DENSE_SHAPES, R2R_NS)
+@pytest.mark.parametrize("m_in,m_out,body", [
+    (2, 2, "fma"), (7, 7, "fma"), (64, 64, "tf32x3"), (93, 93, "fma"),
+    (128, 128, "tf32x3"), (512, 512, "tf32x3"), (93, 128, "fma"),
+    (128, 93, "fma"), (3, 3, "fma"), (1000, 1000, "tf32x3"),
+    (1024, 1024, "tf32x3")])
+def test_form_names_the_body_of_each_shape(m_in, m_out, body):
+    assert dense_mm.form(m_in, m_out) == body
+    assert dense_mm.form(m_in, m_out, aligned=False) == "fma"

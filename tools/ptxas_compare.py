@@ -7,7 +7,8 @@ OLD and NEW are checkouts, or files holding a build's ptxas report (the
 ``.log`` beside a built library, or ``chip_smoke.py``'s output, which
 prints it). A checkout's library is built with its own
 ``tpufft_torch._build.build()`` (into its own ``build/``; one nvcc per
-source, needs nvcc). The tool reads the ptxas report, demangles each kernel's name with
+source, needs nvcc). The tool reads the ptxas report (registers, spills,
+stack and static shared memory per kernel), demangles each kernel's name with
 ``c++filt`` (or ``cu++filt``), and matches kernels by name and template
 arguments. Prints every old kernel's numbers beside the new build's, then
 the kernels only the new build has, and exits 1 if any matched kernel
@@ -41,14 +42,15 @@ def _demangle(names: list[str]) -> list[str]:
     return out.strip().splitlines()
 
 
-def _report(log: str) -> dict[str, tuple[int, int, int, int]]:
-    """Demangled kernel -> (registers, spill stores, spill loads, stack)."""
+def _report(log: str) -> dict[str, tuple[int, int, int, int, int]]:
+    """Demangled kernel -> (registers, spill stores, spill loads, stack,
+    static shared memory bytes)."""
     raw, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = m.group(1)
-            raw[cur] = [0, 0, 0, 0]
+            raw[cur] = [0, 0, 0, 0, 0]
             continue
         if cur is None:
             continue
@@ -59,6 +61,9 @@ def _report(log: str) -> dict[str, tuple[int, int, int, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             raw[cur][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            raw[cur][4] = int(m.group(1))
     names = list(raw)
     return {d: tuple(raw[n]) for n, d in zip(names, _demangle(names))}
 
@@ -104,7 +109,9 @@ def main() -> int:
     old = {_key(k): v for k, v in _report(_log(sys.argv[1])).items()}
     new = {_key(k): v for k, v in _report(_log(new_path)).items()}
     bad = 0
-    print("kernel: registers, spill stores, spill loads, stack (old -> new)")
+    print("kernel: registers, spill stores, spill loads, stack, static "
+          "shared memory (old -> new; dynamic shared memory is set at the "
+          "launch and not in ptxas's report)")
     for k in sorted(old):
         got = new.get(k)
         same = got == old[k]

@@ -18,7 +18,17 @@ calls, in ms:
   (200000, 8, 93) (five slices a block), and K17 (``fft_pair_fused``) on
   the (1280, 128, 2 x 128) fused array, beside ``torch.fft.fft2``;
 - the lane-fused plans P3 (10, 128, 128, 128) and P4 (16, 64, 128, 256)
-  over axes 1-3.
+  over axes 1-3;
+- the dense kernels at their paths' shapes: K11 (``dense_mm_real``,
+  (100000, 512) x (512, 512) f32), K12 (``r2r_minor``, (100000, 1024) x the
+  (1024, 1024) DCT-II table), K10 (``dense_mm_complex``, (100000, 512) x
+  (512, 512) c64 planes), and K14 (``istft_ola``) and K15
+  (``welch_accum``, welch and csd) at the spectral paths' shapes, (64,
+  1048576) signals at nperseg 256, hop 128;
+- the paths above K11 and K12, as ``chip_smoke.py`` drives them:
+  ``filter_real`` (a low-pass ``plan_filter(512)``, bins |k| <= 64, on
+  real (100000, 512) rows), ``dct`` (100000, 1024) and ``dst4``
+  (``dst(type=4)`` on (100000, 93)).
 
 Each turn is a fresh process that imports that checkout's tpufft_torch
 (building its library on first use). K13's arguments changed between
@@ -28,7 +38,8 @@ the same function (hann window, scale 1/sum(window), no detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K5, K16, K7, K6, K13, K4, K4_n2_in, K4_packed,
-K17, P3, P4) and times those alone. Needs the card.
+K17, P3, P4, K11, K12, K10, K14, K15, filter_real, dct, dst4) and times
+those alone. Needs the card.
 """
 
 from __future__ import annotations
@@ -130,6 +141,64 @@ for name, shape in (("P3", (10, 128, 128, 128)), ("P4", (16, 64, 128, 256))):
     packed = plan.pack(SplitComplex(pr, pi))
     rows[name] = median_ms(lambda: plan(packed))
     del pr, pi, packed
+
+if want("K11", "K12", "K10"):
+    from tpufft_torch import realtrans
+    from tpufft_torch.kernels import dense_mm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xr = torch.randn(100000, 512, generator=g, device="cuda")
+    xi = torch.randn(100000, 512, generator=g, device="cuda")
+    wr = torch.randn(512, 512, generator=g, device="cuda")
+    wi = torch.randn(512, 512, generator=g, device="cuda")
+    if want("K11"):
+        rows["K11"] = median_ms(lambda: dense_mm.dense_mm_real(xr, wr))
+    if want("K10"):
+        rows["K10"] = median_ms(lambda: dense_mm.dense_mm_complex(
+            xr, xi, wr, wi))
+    del xr, xi, wr, wi
+    if want("K12"):
+        x = torch.randn(100000, 1024, generator=g, device="cuda")
+        w = realtrans._table(("dct", 2, 1024, "backward", False),
+                             torch.device("cuda"))
+        rows["K12"] = median_ms(lambda: dense_mm.r2r_minor(x, w))
+        del x
+
+if want("K14", "K15"):
+    x = torch.randn(64, 1048576, generator=g, device="cuda")
+    y = torch.randn(64, 1048576, generator=g, device="cuda")
+    win = np.hanning(257)[:-1]
+    dev = torch.device("cuda")
+    if want("K14"):
+        xe = torch.nn.functional.pad(x, (128, 128))
+        nseg = 1 + (xe.shape[1] - 256) // 128
+        args = spectral._frame_tables(win, 256, 1.0 / win.sum(), dev) + (
+            256, None, 128, nseg)
+        zr, zi = stft_mm.stft_frames(xe, *args)
+        ar, ai = spectral._tables("istft", win, 256, 256, float(win.sum()),
+                                  dev)
+        rows["K14"] = median_ms(lambda: stft_mm.istft_ola(zr, zi, ar, ai,
+                                                          128))
+        del xe, zr, zi
+    if want("K15"):
+        mr, mi = spectral._tables("stft", win, 256, 256, ("constant", 1.0),
+                                  dev)
+        rows["K15"] = median_ms(lambda: stft_mm.welch_accum(x, mr, mi, 128))
+        rows["K15_csd"] = median_ms(lambda: stft_mm.welch_accum(
+            x, mr, mi, 128, y))
+    del x, y
+
+if want("filter_real", "dct", "dst4"):
+    import tpufft_torch
+    bins = np.minimum(np.arange(512), 512 - np.arange(512))
+    lowpass = tpufft_torch.plan_filter(512, response=(bins <= 64) * 1.0)
+    for name, shape, call in (
+            ("filter_real", (100000, 512), lowpass),
+            ("dct", (100000, 1024), tpufft_torch.dct),
+            ("dst4", (100000, 93), lambda x: tpufft_torch.dst(x, type=4))):
+        if want(name):
+            x = torch.randn(*shape, generator=g, device="cuda")
+            rows[name] = median_ms(lambda: call(x))
+            del x
 print(" ".join(f"{k} {v:.4f}" for k, v in rows.items()))
 """
 

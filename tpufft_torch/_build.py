@@ -232,6 +232,7 @@ def load() -> ctypes.CDLL:
     lib.tpufft_dense_mm_real.argtypes = [
         vp, vp, vp,                  # x, w, y
         ctypes.c_longlong, i32, i32,  # batch, m_in, m_out
+        i32,                         # form: 1 tf32x3, 0 fma
         vp,                          # cudaStream_t
     ]
     lib.tpufft_dense_mm_real.restype = i32

@@ -14,27 +14,39 @@
 // X (batch, m_in), W (m_in, m_out) and Y (batch, m_out) are f32, row-major
 // and contiguous; any lengths, ragged edges masked.
 //
-// What bounds them on an H100: FP32 arithmetic. A dense product does
-// 2 m_in flop per output for 8 bytes of device traffic (16 m_in for the
-// complex form), hundreds of flop a byte at m_in = 512, far above the
-// ~20 flop/byte where the card's 67 TFLOP/s of FP32 FMA meets its memory
-// rate. So the kernel is a classic shared-memory SGEMM, the tile loop of
-// tile_mm.cuh: each block of 256 threads computes a 128 x 64 tile of Y,
-// staging 16-deep k-slices of X (transposed) and W in shared memory, and
-// each thread keeps an 8 x 4 register tile. The complex form stages Xr,
-// Xi, Wr and Wi for the same k-slice and accumulates Yr = Xr Wr - Xi Wi
-// and Yi = Xr Wi + Xi Wr in registers, so X is read from device memory
-// once per column tile. Column tiles of one row tile are neighbours in the
-// launch order, so a row tile's re-reads of X come from L2. Every product
-// is an f32 FMA: no TF32 tensor cores, which keep about three decimal
-// digits (a split 3xTF32 product on the tensor cores is the later
-// redesign).
+// What bounds them on an H100: arithmetic. A dense product does 2 m_in
+// flop per output for 8 bytes of device traffic (16 m_in for the complex
+// form), hundreds of flop a byte at m_in = 512, far above the ~20
+// flop/byte where the card's 67 TFLOP/s of FP32 FMA meets its memory rate.
+//
+// The real product (K11, K12) has two bodies (dense_mm.py:form mirrors
+// the choice, which the wrapper passes in):
+//   "tf32x3": where m_in and m_out are multiples of 4 and the operands
+//       start on 16-byte boundaries, the 3xTF32 tensor-core tile loop of
+//       tf32x3_mm.cuh: each f32 operand split into a TF32 big and small
+//       part at the fragment load and three mma.sync products summed in
+//       f32 (the TPU kernels' bf16x3 split, on the tensor cores), 128 x
+//       128 block tiles, a ring of four 32-deep cp.async stages. Its
+//       bound is three TF32 products at 495 TFLOP/s, 0.41 of the FP32
+//       cores' bound for one f32 product.
+//   "fma": every other shape (m_in or m_out of 2, 3, 7, 93, whose rows
+//       break 16-byte copies), the shared-memory SGEMM of tile_mm.cuh
+//       below.
+// The complex product (K10) runs the FMA tile loop of tile_mm.cuh: each
+// block of 256 threads computes a 128 x 64 tile of Y, staging 16-deep
+// k-slices of X (transposed) and W in shared memory, and each thread keeps
+// an 8 x 4 register tile; it stages Xr, Xi, Wr and Wi for the same k-slice
+// and accumulates Yr = Xr Wr - Xi Wi and Yi = Xr Wi + Xi Wr in registers,
+// so X is read from device memory once per column tile. In both loops the
+// column tiles of one row tile are neighbours in the launch order, so a
+// row tile's re-reads of X come from L2, where W stays.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "tf32x3_mm.cuh"
 #include "tile_mm.cuh"
 
 namespace {
@@ -85,6 +97,77 @@ dense_mm_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// Y = X W for real rows on the tensor cores (the "tf32x3" body): one
+// 128 x 128 tile of Y a block, f32 results stored as float2 pairs.
+constexpr int kTcStages = 4;
+
+__global__ void __launch_bounds__(tf32x3::kThreads, 1)
+dense_mm_tf32x3_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w, float* __restrict__ y,
+                       int64_t batch, int m_in, int m_out) {
+  namespace tc = tf32x3;
+  extern __shared__ __align__(16) float smem[];
+  const int64_t row0 = (int64_t)blockIdx.y * tc::kBM;
+  const int col0 = blockIdx.x * tc::kBN;
+  tc::Acc acc;
+#pragma unroll
+  for (int i = 0; i < tc::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < tc::kNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  tc::accumulate<kTcStages>(smem, x + row0 * m_in, m_in, batch - row0,
+                            w + col0, m_out, m_out - col0, m_in, acc);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t r0 = row0 + (warp / tc::kWarpsN) * tc::kWM + g;
+  const int c0 = col0 + (warp % tc::kWarpsN) * tc::kWN + 2 * t;
+#pragma unroll
+  for (int i = 0; i < tc::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < tc::kNT; ++j) {
+      const int c = c0 + j * 8;   // m_out is even: c < m_out covers c + 1
+      if (c >= m_out) continue;
+      const int64_t r = r0 + i * 16;
+      if (r < batch)
+        *reinterpret_cast<float2*>(y + r * m_out + c) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (r + 8 < batch)
+        *reinterpret_cast<float2*>(y + (r + 8) * m_out + c) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// The tensor-core body's launches: as launch() below, 128-row tiles.
+int launch_tf32x3(const float* x, const float* w, float* y, long long batch,
+                  int m_in, int m_out, cudaStream_t stream) {
+  using tf32x3::kBM;
+  using tf32x3::kBN;
+  const auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (batch < 0 || m_in < 4 || m_out < 4 || m_in % 4 || m_out % 4 ||
+      misaligned(x) || misaligned(w) || misaligned(y))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = tf32x3::smem_bytes<kTcStages>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_mm_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned col_tiles = (unsigned)((m_out + kBN - 1) / kBN);
+  for (int64_t r = 0; r < batch; r += kMaxRowTiles * kBM) {
+    const int64_t rows =
+        batch - r < kMaxRowTiles * kBM ? batch - r : kMaxRowTiles * kBM;
+    const dim3 grid(col_tiles, (unsigned)((rows + kBM - 1) / kBM));
+    dense_mm_tf32x3_kernel<<<grid, tf32x3::kThreads, smem, stream>>>(
+        x + r * m_in, w, y + r * m_out, rows, m_in, m_out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 template <bool kComplex>
 int launch(const float* xr, const float* xi, const float* wr, const float* wi,
            float* yr, float* yi, long long batch, int m_in, int m_out,
@@ -125,12 +208,19 @@ extern "C" int tpufft_dense_mm_complex(const void* xr, const void* xi,
 
 // Y = X W for real rows and a real matrix (K11, and K12 with the DCT/DST
 // table): x (batch, m_in), w (m_in, m_out), y (batch, m_out), f32 and
-// contiguous. Returns 0 or the CUDA error of a launch.
+// contiguous. form 1 runs the 3xTF32 tensor-core body (m_in and m_out
+// multiples of 4, operands on 16-byte boundaries, else
+// cudaErrorInvalidValue), form 0 the FMA body. Returns 0 or the CUDA error
+// of a launch.
 extern "C" int tpufft_dense_mm_real(const void* x, const void* w, void* y,
                                     long long batch, int m_in, int m_out,
-                                    void* stream) {
-  return launch<false>(static_cast<const float*>(x), nullptr,
-                       static_cast<const float*>(w), nullptr,
-                       static_cast<float*>(y), nullptr, batch, m_in, m_out,
-                       static_cast<cudaStream_t>(stream));
+                                    int form, void* stream) {
+  const auto xp = static_cast<const float*>(x);
+  const auto wp = static_cast<const float*>(w);
+  const auto yp = static_cast<float*>(y);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (form == 1) return launch_tf32x3(xp, wp, yp, batch, m_in, m_out, st);
+  if (form != 0) return (int)cudaErrorInvalidValue;
+  return launch<false>(xp, nullptr, wp, nullptr, yp, nullptr, batch, m_in,
+                       m_out, st);
 }

@@ -12,11 +12,15 @@ rows times one (m_in, m_out) matrix built on the host:
 * ``tpufft/realtrans.py:_build_minor_r2r`` (K12), real rows times the
   DCT/DST matrix: :func:`r2r_minor`, the real kernel with that table.
 
-One CUDA source (``csrc/dense_mm.cu``) serves all three: a shared-memory
-SGEMM with f32 FMA (no TF32), the complex form accumulating both output
-planes from one read of X. Rows, tables and results are f32 and
-contiguous. Tables are built in float64 on the host by the caller, cast to
-f32 and uploaded once per (key, device) by :func:`device_table`.
+One CUDA source (``csrc/dense_mm.cu``) serves all three. The real product
+(K11, K12) has two bodies, :func:`form`: a 3xTF32 tensor-core GEMM
+(``csrc/tf32x3_mm.cuh``: each f32 operand split into a TF32 big and small
+part, three ``mma.sync`` products summed in f32) where both lengths are
+multiples of 4, else a shared-memory SGEMM with f32 FMA. The complex
+product (K10) runs the FMA loop, accumulating both output planes from one
+read of X. Rows, tables and results are f32 and contiguous. Tables are
+built in float64 on the host by the caller, cast to f32 and uploaded once
+per (key, device) by :func:`device_table`.
 
 A CPU tensor runs the plain version (one ``torch.matmul``, four for the
 complex form); a CUDA tensor launches the kernel or raises, never falls
@@ -39,6 +43,7 @@ __all__ = [
     "dense_mm_real",
     "dense_mm_real_reference",
     "device_table",
+    "form",
     "launches",
     "r2r_minor",
     "r2r_minor_reference",
@@ -135,17 +140,32 @@ def dense_mm_complex(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     return yr, yi
 
 
+_FORMS = {"fma": 0, "tf32x3": 1}
+
+
+def form(m_in: int, m_out: int, aligned: bool = True) -> str:
+    """Which body of the real kernel (K11, K12) multiplies (batch, m_in)
+    rows by an (m_in, m_out) table: ``"tf32x3"``, the 3xTF32 tensor-core
+    GEMM, where m_in and m_out are multiples of 4 (its 16-byte copies) and
+    the operands start on 16-byte boundaries (``aligned``: a view with an
+    odd storage offset does not), else ``"fma"``, the f32 FMA tile loop.
+    The wrapper passes the choice to ``tpufft_dense_mm_real``."""
+    fits = m_in % 4 == 0 and m_out % 4 == 0 and aligned
+    return "tf32x3" if fits else "fma"
+
+
 def _real(name: str, counter: str, x: torch.Tensor,
           w: torch.Tensor) -> torch.Tensor:
     batch, m_in, m_out = _check_operands(name, (x,), (w,))
     y = x.new_empty((batch, m_out))
     if batch == 0:
         return y
+    body = form(m_in, m_out, (x.data_ptr() | w.data_ptr()) % 16 == 0)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.tpufft_dense_mm_real(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), batch, m_in, m_out,
-            torch.cuda.current_stream().cuda_stream)
+            _FORMS[body], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[counter] += 1
