@@ -11,8 +11,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
 2. the build of the CUDA sources in ``tpufft_torch/csrc``, one ``nvcc``
    per source, started together (time and ptxas's resource report);
 3. the minor-axis kernel against its plain PyTorch version on the card, on a
-   ragged batch of 257 rows: every length class of the kernel, forward and
-   inverse, scale 1 and 1/n, f32 and bf16 storage;
+   ragged batch of 257 rows: every power-of-two length of the line form (2
+   to 4096: one warp's lanes for n <= 64, each four-step geometry above)
+   and the stage form's length classes (93, 127, 960, 1792, 16384), each
+   printed with its form (``minor_fft.form``), forward and inverse, scale
+   1 and 1/n, f32 and bf16 storage;
 4. the main path, ``plan_fft`` + ``fft``/``ifft`` on c64 ``SplitComplex``
    planes at (100000, 1024) and (1000000, 93): rows against ``np.fft.fft``,
    the round trip, and the launch counts (the kernel ran, its plain version
@@ -126,9 +129,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
     sweep behind ``execute.MID_PAIR_MIN_L``;
 21. the fused-storage kernels K16 (cube), K17 (pair), K18 (a leading
     axis, M > 1), K19 (the axis next to the minor one, M = 1) and K20 (the
-    minor axis) against their plain versions: halves 8 to 16384 (93 among
-    them), ragged pre, B and M, the cubes of phase 18 (clusters of 1 to 16
-    blocks), both directions, scale 1 and 1/N, f32 and bf16 storage;
+    minor axis, on every power-of-two half of K1's line form and on the
+    stage form, each printed with its form) against their plain versions:
+    halves 2 to 16384 (93 among them), ragged pre, B and M, the cubes of
+    phase 18 (clusters of 1 to 16 blocks), both directions, scale 1 and
+    1/N, f32 and bf16 storage;
 22. the layouts at full size, each call driven with every count set to 0
     just before it and read just after: lane-fused ``plan_fft`` of
     (100, 64, 64, 64) axes 1-3 (K16 once; P1) and its bf16 form (P1b),
@@ -184,7 +189,8 @@ F32_TOL = 1e-5   # kernel vs plain version, f32 storage: both compute in f32
 BF16_TOL = 8e-3  # bf16 storage: both round to bf16 (2^-8 relative) at the store
 NP_TOL = 1e-3    # main path vs np.fft.fft, the check bench.py makes
 SPECTRAL_TOL = 1e-4  # f32 spectral paths vs scipy in float64
-KERNEL_NS = (8, 93, 127, 128, 256, 960, 1024, 1792, 4096, 16384)
+KERNEL_NS = (2, 4, 8, 16, 32, 64, 93, 127, 128, 256, 512, 960, 1024, 1792,
+             2048, 4096, 16384)
 MAIN_SHAPES = ((100_000, 1024), (1_000_000, 93))
 REPS = 20
 # TF32 on the tensor cores, dense: NVIDIA's data sheet for the H100 SXM at
@@ -287,6 +293,7 @@ def _planes(shape, dtype, seed):
 def phase_kernel() -> None:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for n in KERNEL_NS:
+        at_n = {torch.float32: 0.0, torch.bfloat16: 0.0}
         for dtype in (torch.float32, torch.bfloat16):
             xr, xi = _planes((257, n), dtype, seed=n)
             for inverse in (False, True):
@@ -299,10 +306,14 @@ def phase_kernel() -> None:
                           f"kernel output {got[0].dtype} {got[0].shape}")
                     err = pair_err(got, ref)
                     worst[dtype] = max(worst[dtype], err)
+                    at_n[dtype] = max(at_n[dtype], err)
                     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
                     check(err < tol,
                           f"kernel vs plain n={n} {dtype} inverse={inverse} "
                           f"scale={scale}: {err:.3e} >= {tol}")
+        print(f"  n={n} ({minor_fft.form(n)} form): max normalized error "
+              f"f32 {at_n[torch.float32]:.3e}, bf16 "
+              f"{at_n[torch.bfloat16]:.3e}")
     torch.cuda.synchronize()
     print(f"kernel vs plain, batch 257, n in {KERNEL_NS}: max normalized "
           f"error f32 {worst[torch.float32]:.3e} (tol {F32_TOL}), "
@@ -1907,9 +1918,10 @@ def phase_nd_times() -> dict:
 # kernel, logical shape of a fused array whose last dim is the half h:
 # halves 8 to 16384 (93 among them), ragged pre, B and M, and the cubes of
 # phase 18 (clusters of 1 to 16 blocks)
-FUSED_CASES = (
-    ("minor", (257, 8)), ("minor", (257, 93)), ("minor", (37, 1024)),
-    ("minor", (5, 16384)),
+FUSED_CASES = tuple(
+    ("minor", (257, n)) for n in (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048,
+                                  4096)) + (
+    ("minor", (257, 93)), ("minor", (37, 1024)), ("minor", (5, 16384)),
     ("inner", (3, 64, 37, 93)), ("inner", (11, 128, 3, 256)),
     ("inner", (2, 16, 5, 8)), ("inner", (1, 2048, 3, 8)),
     ("inner_m1", (5, 128, 93)), ("inner_m1", (3, 8, 16384)),
@@ -1950,14 +1962,21 @@ def phase_fused_kernels() -> None:
             active = cube_fft.active_clusters(*shape[1:], False, 0,
                                               fused=True)
             check(active > 0, f"K16 {shape[1:]}: no cluster fits")
+        at = {}
         for dtype in (torch.float32, torch.bfloat16):
             st = _fused_array(shape, dtype, seed=sum(shape))
             for inverse in (False, True):
                 for scale in (1.0, 1.0 / n_total):
                     kw = dict(inverse=inverse, scale=scale)
-                    _hold(worst, key, dtype, _halves(kernel(st, **kw)),
+                    _hold(at, key, dtype, _halves(kernel(st, **kw)),
                           _halves(plain(st, **kw)),
                           f"{shape} {dtype} inverse={inverse} scale={scale}")
+        for k, v in at.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        if key == "minor":
+            print(f"  K20 {shape} ({fused_fft.minor_form(shape[1])} form): "
+                  f"max normalized error f32 {at[(key, torch.float32)]:.3e}, "
+                  f"bf16 {at[(key, torch.bfloat16)]:.3e}")
     torch.cuda.synchronize()
     for k in FUSED_CALLS:
         print(f"fused {k} vs plain: max normalized error f32 "
@@ -2270,7 +2289,8 @@ def phase_times() -> dict:
             "copy": _time_ms(copy),
         }
         gbytes = 2 * 2 * 4 * batch * n / 1e9   # planes in + out, f32
-        print(f"times ({batch}, {n}) c64, median of {REPS} ms: "
+        print(f"times ({batch}, {n}) c64, {minor_fft.form(n)} form, median "
+              f"of {REPS} ms: "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
               + f"; kernel {gbytes / (t['kernel'] * 1e-3):.0f} GB/s, "
               f"copy {gbytes / (t['copy'] * 1e-3):.0f} GB/s; kernel vs plain "

@@ -64,6 +64,118 @@ def test_kernel_matches_plain_version(n, dtype, tol, cuda_device):
             assert _err(got, ref) < tol
 
 
+LINE_NS = [2 ** k for k in range(1, 13)]   # the line form: 2 .. 4096
+LINE_BATCHES = [1, 3, 127, 129, 257]        # ragged last blocks and groups
+
+
+def _fused_minor(xr, xi):
+    """The (B, 2n) fused array [re | im] of the planes."""
+    return torch.cat([xr, xi], -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", LINE_BATCHES)
+@pytest.mark.parametrize("n", LINE_NS)
+def test_line_form_matches_plain_version(n, batch, dtype, tol, cuda_device):
+    """K1 and K20 on the line form (power-of-two n up to 4096) against
+    their plain versions: both directions, scale 1 and 1/n, one launch a
+    call."""
+    from tpufft_torch.kernels import fused_fft
+    assert minor_fft.form(n) == "lines" == fused_fft.minor_form(n)
+    xr, xi = _planes((batch, n), cuda_device, dtype, seed=n + batch)
+    st = _fused_minor(xr, xi)
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / n):
+            kw = dict(inverse=inverse, scale=scale)
+            before = minor_fft.launches
+            got = minor_fft.fft_minor(xr, xi, **kw)
+            assert minor_fft.launches == before + 1
+            ref = minor_fft.fft_minor_reference(xr, xi, **kw)
+            before = fused_fft.launches["minor"]
+            out = fused_fft.fft_minor_fused(st, **kw)
+            assert fused_fft.launches["minor"] == before + 1
+            plain = fused_fft.fft_minor_fused_reference(st, **kw)
+            torch.cuda.synchronize()
+            assert got[0].dtype == dtype and got[0].shape == (batch, n)
+            assert out.dtype == dtype and out.shape == (batch, 2 * n)
+            assert _err(got, ref) < tol
+            assert _err((out[:, :n], out[:, n:]),
+                        (plain[:, :n], plain[:, n:])) < tol
+
+
+def _fft_edge_rows(xr, xi):
+    """+Inf, -Inf and NaN in the re plane of rows 0-2, 3.4e38 in row 3,
+    and rows 5 and 6 (both planes) scaled by 1e-20 and 1e18."""
+    xr, xi = xr.clone(), xi.clone()
+    n = xr.shape[1]
+    xr[0, 5 % n] = float("inf")
+    xr[1, 7 % n] = float("-inf")
+    xr[2, 3 % n] = float("nan")
+    xr[3, 9 % n] = 3.4e38
+    for x in (xr, xi):
+        x[5] *= 1e-20
+        x[6] *= 1e18
+    return xr, xi
+
+
+def _complex_row_err(got, ref):
+    """max |got - ref| over the finite entries of each complex row, relative
+    to the row's largest finite |ref| (the 1e-20 row held to its scale)."""
+    fin = torch.isfinite(ref[0]) & torch.isfinite(ref[1])
+    mag = torch.where(fin, torch.hypot(ref[0], ref[1]), 0)
+    diff = torch.where(fin, torch.hypot(got[0] - ref[0], got[1] - ref[1]), 0)
+    return (diff / mag.amax(1, keepdim=True).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["K1", "K20"])
+@pytest.mark.parametrize("n", [2, 8, 64, 128, 256, 1024, 2048, 4096])
+def test_line_form_edge_values(n, fused, cuda_device):
+    """Edge-value rows through the line form: the rows holding Inf or NaN
+    come out non-finite in the kernel and in the plain version alike, and
+    no row without such an input does, except that the 3.4e38 row may
+    overflow in a butterfly's sum (the pattern stays inside its row); the
+    other rows, 1e-20 and 1e18 among them, are within 1e-5 of the plain
+    version relative to their own magnitude, and so is the 3.4e38 row
+    where it stays finite."""
+    from tpufft_torch.kernels import fused_fft
+    xr, xi = _fft_edge_rows(*_planes((257, n), cuda_device, seed=n))
+    if fused:
+        st = _fused_minor(xr, xi)
+        out = fused_fft.fft_minor_fused(st, inverse=False, scale=1.0)
+        ref = fused_fft.fft_minor_fused_reference(st, inverse=False,
+                                                  scale=1.0)
+        got = (out[:, :n], out[:, n:])
+        ref = (ref[:, :n], ref[:, n:])
+    else:
+        got = minor_fft.fft_minor(xr, xi, inverse=False, scale=1.0)
+        ref = minor_fft.fft_minor_reference(xr, xi, inverse=False, scale=1.0)
+    torch.cuda.synchronize()
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[:3].all() and not bad[4:].any()
+    assert _complex_row_err((got[0][4:], got[1][4:]),
+                            (ref[0][4:], ref[1][4:])) < 1e-5
+    if torch.isfinite(got[0][3]).all() and torch.isfinite(got[1][3]).all():
+        assert _complex_row_err((got[0][3:4], got[1][3:4]),
+                                (ref[0][3:4], ref[1][3:4])) < 1e-5
+
+
+def test_line_form_misaligned_view(cuda_device):
+    """A contiguous view 4 bytes into its storage runs the line form (its
+    loads and stores are 4-byte accesses) and matches its plain version."""
+    flat = torch.randn(1 + 2 * 33 * 1024, device=cuda_device)
+    xr = flat[1:1 + 33 * 1024].view(33, 1024)
+    xi = flat[1 + 33 * 1024:].view(33, 1024)
+    assert xr.is_contiguous() and xr.data_ptr() % 16 == 4
+    got = minor_fft.fft_minor(xr, xi, inverse=True, scale=1.0 / 1024)
+    ref = minor_fft.fft_minor_reference(xr, xi, inverse=True,
+                                        scale=1.0 / 1024)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+
+
 def test_kernel_empty_batch(cuda_device):
     xr, xi = _planes((0, 64), cuda_device)
     before = minor_fft.launches

@@ -111,6 +111,17 @@ def test_gates_are_the_port_envelopes():
     assert not fused_fft.inner_supported(16385, f32)
 
 
+@pytest.mark.parametrize("n,expected", (
+    [(2 ** k, "lines") for k in range(1, 13)]
+    + [(n, "stages") for n in (1, 93, 480, 960, 1792, 8192, 16384)]
+    + [(131, None), (2 * 131, None)]))
+def test_minor_form(n, expected):
+    """K20 runs K1's form for the length; the gate is unchanged."""
+    assert fused_fft.minor_form(n) == expected
+    assert (expected is not None) == fused_fft.minor_supported(
+        n, torch.float32)
+
+
 @pytest.mark.parametrize("kernel,shape", [
     ("cube", (2, 3, 16, 24)), ("pair", (3, 7, 93)), ("minor", (5, 93)),
     ("inner", (3, 5, 7, 93)), ("inner_m1", (2, 93, 5))])

@@ -6,7 +6,21 @@ new, new, old.
 The rows, each the median of 20 CUDA-event timings after two warm-up
 calls, in ms:
 
-- K1 (minor axis, (100000, 1024) c64), K5 (cube, (100, 64, 64, 64) c64),
+- the minor-axis kernel: K1 at (100000, 1024) c64 (the line form's
+  four-step at n = 1024, the main path) and ``torch.fft.fft`` of it
+  (``cuFFT_1024``), K1 at (1000000, 64), (50000, 2048) and (100000, 4096)
+  (the line form's one-warp rows and its lane-pair four-steps), each
+  beside ``torch.fft.fft`` of it (``cuFFT``), K20 on the (131072, 2 x 256)
+  fused array (P4's minor axis) beside ``torch.fft.fft`` of its
+  (131072, 256) halves (``cuFFT_256``), and the stage form, whose code did
+  not change: K1 at (1000000, 93), (64000, 480) (``fft2``'s minor axis)
+  and (10000, 8320) (Bluestein's), and K9 (1000000, 93 -> 128);
+- the paths above K1: the 1-D C2C ``plan_fft`` of (100000, 1024)
+  ``SplitComplex`` planes (``c2c``), the two-pass ``fft`` of (16, 1048576)
+  (``two_pass``), Bluestein ``fft`` of (10000, 4099) (``bluestein``) and
+  ``czt`` of real (100000, 1024) rows to 1024 points on
+  ``chip_smoke.py``'s arc;
+- K5 (cube, (100, 64, 64, 64) c64),
   K16 (the cube on the fused (100, 64, 64, 2 x 64) array of the same
   data), K7 (real minor axis, (100000, 1024) f32) and K6 (middle pair,
   (32, 64, 128, 128) c64);
@@ -37,9 +51,10 @@ now): the timer passes whichever the checkout's ``stft_frames`` takes, for
 the same function (hann window, scale 1/sum(window), no detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
-list of the rows above (K1, K5, K16, K7, K6, K13, K4, K4_n2_in, K4_packed,
-K17, P3, P4, K11, K12, K10, K14, K15, filter_real, dct, dst4) and times
-those alone. Needs the card.
+list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
+K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K13, K4, K4_n2_in,
+K4_packed, K17, P3, P4, K11, K12, K10, K14, K15, filter_real, dct, dst4)
+and times those alone. Needs the card.
 """
 
 from __future__ import annotations
@@ -73,10 +88,57 @@ def want(*names):
 rows = {}
 kw = dict(inverse=False, scale=1.0)
 g = torch.Generator(device="cuda"); g.manual_seed(1)
+for name, shape in (("K1_64", (1000000, 64)), ("K1_4096", (100000, 4096)),
+                    ("K1_2048", (50000, 2048)),
+                    ("K1_93", (1000000, 93)), ("K1_480", (64000, 480)),
+                    ("K1_8320", (10000, 8320))):
+    if want(name):
+        xr = torch.randn(*shape, generator=g, device="cuda")
+        xi = torch.randn(*shape, generator=g, device="cuda")
+        rows[name] = median_ms(lambda: minor_fft.fft_minor(xr, xi, **kw))
+        if name in ("K1_64", "K1_2048", "K1_4096"):
+            c = torch.complex(xr, xi)
+            rows[name + " cuFFT"] = median_ms(lambda: torch.fft.fft(c))
+            del c
+        del xr, xi
+if want("K9"):
+    xr = torch.randn(1000000, 93, generator=g, device="cuda")
+    xi = torch.randn(1000000, 93, generator=g, device="cuda")
+    rows["K9"] = median_ms(lambda: minor_fft.fft_minor_padded(
+        xr, xi, n=128, **kw))
+    del xr, xi
+if want("K20"):
+    st = torch.randn(131072, 512, generator=g, device="cuda")
+    rows["K20"] = median_ms(lambda: fused_fft.fft_minor_fused(st, **kw))
+    c = torch.complex(st[:, :256], st[:, 256:])
+    rows["cuFFT_256"] = median_ms(lambda: torch.fft.fft(c, dim=-1))
+    del st, c
+for name, shape in (("c2c", (100000, 1024)), ("two_pass", (16, 1048576)),
+                    ("bluestein", (10000, 4099))):
+    if want(name):
+        import tpufft_torch
+        x = SplitComplex(torch.randn(*shape, generator=g, device="cuda"),
+                         torch.randn(*shape, generator=g, device="cuda"))
+        if name == "c2c":
+            plan = plan_fft(shape, torch.complex64, axes=(-1,))
+            rows[name] = median_ms(lambda: plan(x))
+        else:
+            rows[name] = median_ms(lambda: tpufft_torch.fft(x))
+        del x
+if want("czt"):
+    import tpufft_torch
+    x = torch.randn(100000, 1024, generator=g, device="cuda")  # real rows
+    zw = np.exp(-2j * np.pi * 0.25 / 1024)
+    za = np.exp(2j * np.pi * 0.1)
+    rows["czt"] = median_ms(lambda: tpufft_torch.czt(x, 1024, zw, za))
+    del x
 if want("K1", "K5", "K16", "K7", "K6"):
     xr = torch.randn(100000, 1024, generator=g, device="cuda")
     xi = torch.randn(100000, 1024, generator=g, device="cuda")
     rows["K1"] = median_ms(lambda: minor_fft.fft_minor(xr, xi, **kw))
+    c = torch.complex(xr, xi)
+    rows["cuFFT_1024"] = median_ms(lambda: torch.fft.fft(c, dim=-1))
+    del c
     cr = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
     ci = torch.randn(100, 64, 64, 64, generator=g, device="cuda")
     rows["K5"] = median_ms(lambda: cube_fft.fft_cube(cr, ci, **kw))

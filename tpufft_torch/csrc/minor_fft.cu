@@ -1,8 +1,10 @@
 // Host entry points of the batched minor-axis C2C FFT (K1, K9) and of its
 // fused-storage form (K20), with a plain C interface for ctypes
 // (tpufft_torch/_build.py builds this file; tpufft_torch/kernels/
-// minor_fft.py and fused_fft.py bind and check it). The kernel and its
-// design notes are in minor_fft.cuh.
+// minor_fft.py and fused_fft.py bind and check it). The kernel's two forms
+// and their design notes are in minor_fft.cuh; launch_sized picks the form.
+
+#include <climits>
 
 #include "minor_fft.cuh"
 
@@ -29,10 +31,100 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
+// The line form at n <= 64: one kernel of 128 threads, each warp W K rows.
+template <typename T, int N, bool kFused>
+int launch_lines(const void* xr, const void* xi, void* yr, void* yi,
+                 const void* tw, long long batch, int inverse, float scale,
+                 cudaStream_t stream) {
+  constexpr int kThreads = 128;
+  using L = tpufft_line::Line<N>;
+  constexpr long long rows =
+      (kThreads / 32) * L::W * (kLineLaneValues / L::V);
+  const long long blocks = (batch + rows - 1) / rows;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  minor_lines_kernel<T, N, kThreads, kFused><<<(unsigned)blocks, kThreads, 0,
+                                               stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw), (int64_t)batch, inverse, scale);
+  return (int)cudaGetLastError();
+}
+
+// The line form at 128 <= n <= 4096: a grid of at most the blocks the card
+// holds at once (each stages the table once and loops over row groups).
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
+          bool kFused>
+int launch_lane(const void* xr, const void* xi, void* yr, void* yi,
+                const void* tw, long long batch, int inverse, float scale,
+                cudaStream_t stream) {
+  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
+  auto* kernel = minor_lane_kernel<T, N1, N2, kTeamWarps, kThreads, kFused>;
+  cudaError_t err = allow_smem(kernel, S::smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, S::smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  constexpr long long rows = S::teams * S::rows;
+  const long long groups = (batch + rows - 1) / rows;
+  const long long resident = (long long)sms * per_sm;
+  const long long blocks = groups < resident ? groups : resident;
+  kernel<<<(unsigned)blocks, kThreads, S::smem, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw), (int64_t)batch, inverse, scale);
+  return (int)cudaGetLastError();
+}
+
+// The line form, for power-of-two n from 2 to 4096; (N1, N2, warps a team,
+// rows a team, threads a block) of each four-step, as the wrapper's
+// line_geometry lists them.
+template <typename T, bool kFused>
+int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
+                     const void* tw, long long batch, int n, int inverse,
+                     float scale, cudaStream_t stream) {
+#define TPUFFT_LINES(N) \
+  launch_lines<T, N, kFused>(xr, xi, yr, yi, tw, batch, inverse, scale, stream)
+#define TPUFFT_LANE(N1, N2, TW, TH)                                     \
+  launch_lane<T, N1, N2, TW, TH, kFused>(xr, xi, yr, yi, tw, batch, inverse, \
+                                         scale, stream)
+  switch (n) {
+    case 2: return TPUFFT_LINES(2);
+    case 4: return TPUFFT_LINES(4);
+    case 8: return TPUFFT_LINES(8);
+    case 16: return TPUFFT_LINES(16);
+    case 32: return TPUFFT_LINES(32);
+    case 64: return TPUFFT_LINES(64);
+    case 128: return TPUFFT_LANE(8, 16, 1, 128);
+    case 256: return TPUFFT_LANE(16, 16, 1, 128);
+    case 512: return TPUFFT_LANE(32, 16, 1, 128);
+    case 1024: return TPUFFT_LANE(32, 32, 1, 128);
+    case 2048: return TPUFFT_LANE(32, 64, 2, 128);
+    case 4096: return TPUFFT_LANE(64, 64, 4, 256);
+  }
+#undef TPUFFT_LINES
+#undef TPUFFT_LANE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Is n a length of the line form?
+inline bool line_form(int n) {
+  return n >= 2 && n <= kLineMaxN && (n & (n - 1)) == 0;
+}
+
 template <typename T, bool kPadded, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, long long batch, const Radices& plan,
                  int n_in, int inverse, float scale, cudaStream_t stream) {
+  if constexpr (!kPadded) {
+    if (line_form(plan.n))
+      return launch_line_form<T, kFused>(xr, xi, yr, yi, tw, batch, plan.n,
+                                         inverse, scale, stream);
+  }
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
     return launch<T, 512, 8, 2, kPadded, kFused>(
@@ -72,7 +164,8 @@ int launch_fused(const void* st, void* out, const void* tw, long long batch,
 // stream of the current device; n_in == n is the plain C2C transform (K1),
 // 1 <= n_in < n the fused zero-pad DFT (K9). tw holds the n complex f32
 // values exp(-+2 pi i k / n) for the direction; radices[0:nstages] multiply
-// to n, each 2, 4, 8 or an odd value up to 127.
+// to n, each 2, 4, 8 or an odd value up to 127 (the stage form's plan; the
+// line form, which K1 runs at power-of-two n from 2 to 4096, ignores it).
 // Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 void* yi, const void* tw, long long batch,

@@ -21,7 +21,9 @@ pointers (``csrc/fft_stages.cuh``, ``fused_index``), with nothing else
 changed: K16 is the cube kernel K5 (``csrc/cluster_fft.cu``), K17 the pair
 kernel K4 (``csrc/pair_fft.cu``), K18 and K19 the strided kernel K2/K3
 (``csrc/strided_fft.cu``, h = L) and K20 the minor-axis kernel K1
-(``csrc/minor_fft.cuh``). The contract is theirs: f32 or bf16 storage, f32
+(``csrc/minor_fft.cuh``), in K1's form for the length (:func:`minor_form`:
+the register line form at power-of-two n up to 4096, the Stockham stages
+elsewhere). The contract is theirs: f32 or bf16 storage, f32
 arithmetic, a forward/inverse flag, one real scale applied once at the
 store. Each is bound by device-memory bandwidth like its sibling: it moves
 the same bytes, in runs of h values a plane instead of whole rows.
@@ -61,6 +63,7 @@ __all__ = [
     "fft_pair_fused_reference",
     "inner_supported",
     "launches",
+    "minor_form",
     "minor_supported",
     "pair_supported",
     "reference_cuda_calls",
@@ -109,6 +112,13 @@ def minor_supported(n: int, dtype) -> bool:
     (``minor_fft.supported``); tpufft's dense-W and ``n % 64`` rules do not
     apply."""
     return minor_fft.supported(n, dtype)
+
+
+def minor_form(n: int) -> str | None:
+    """Which form of K1's kernel K20 runs on a minor logical axis of length
+    n: ``minor_fft.form`` (``"lines"`` for power-of-two n from 2 to 4096,
+    ``"stages"`` for the rest of the envelope, None outside it)."""
+    return minor_fft.form(n)
 
 
 def _check(name: str, st: torch.Tensor, ranks: tuple[int, ...]) -> None:

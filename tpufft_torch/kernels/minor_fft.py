@@ -9,10 +9,13 @@ forward/inverse flag and one real scale.
 
 The CUDA kernel (``csrc/minor_fft.cu``, design notes in
 ``csrc/minor_fft.cuh``) is bound by device-memory bandwidth on an H100
-(~3 flop/byte at n = 1024): each block loads whole rows once, coalesced,
-runs every mixed-radix Stockham stage in shared memory, and stores the rows
-once in natural order. Twiddles come from a host float64 table cast to f32,
-uploaded once per (n, direction, device).
+(~3 flop/byte at n = 1024) and reads and writes each row once, coalesced,
+in one of two forms (:func:`form`): power-of-two n from 2 to 4096 run the
+line form, each row in registers (n <= 64: the lanes of one warp; above:
+a four-step n = N1 N2, :func:`line_split`, through one shared-memory tile
+a team of warps); every other length, and K9, runs the stage form, every
+mixed-radix Stockham stage in shared memory. Twiddles come from a host
+float64 table cast to f32, uploaded once per (n, direction, device).
 
 ``fft_minor`` is the wrapper. A CPU tensor runs ``fft_minor_reference``;
 a CUDA tensor launches the kernel or raises, never falls back. Its launch
@@ -60,7 +63,10 @@ __all__ = [
     "fft_minor_padded",
     "fft_minor_padded_reference",
     "fft_minor_reference",
+    "form",
     "launches",
+    "line_geometry",
+    "line_split",
     "padded_launches",
     "radices",
     "reference_cuda_calls",
@@ -70,7 +76,14 @@ __all__ = [
 
 MAX_N = 16384     # one row must fit the 227 KB of shared memory in f32
 MAX_PRIME = 127   # largest radix of the kernel's direct-sum stage
+LINE_MAX_N = 4096  # longest row of the line form
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+# The line form's four-step at n = 128 .. 4096 (csrc/minor_fft.cu,
+# launch_line_form): N1, N2, warps a team, threads a block.
+_FOUR_STEP = {128: (8, 16, 1, 128), 256: (16, 16, 1, 128),
+              512: (32, 16, 1, 128), 1024: (32, 32, 1, 128),
+              2048: (32, 64, 2, 128), 4096: (64, 64, 4, 256)}
 
 launches = 0
 padded_launches = 0
@@ -95,6 +108,46 @@ def supported(n: int, dtype) -> bool:
     single-pass kernel takes (``kernel_factors(n) is not None``: n <= 128,
     or A*B with A, B <= 128) is inside, and n = 1."""
     return dtype in STORAGE_DTYPES and _length_ok(int(n))
+
+
+def form(n: int, n_in: int | None = None) -> str | None:
+    """Which form of the kernel transforms rows of length n (read from
+    ``n_in`` values zero-padded to n, K9, when ``n_in`` < n): ``"lines"``
+    for power-of-two n from 2 to ``LINE_MAX_N`` without a pad, ``"stages"``
+    for every other length in the envelope and for K9, None outside it.
+    Mirrors ``launch_sized`` in ``csrc/minor_fft.cu``, which makes the
+    choice at the launch."""
+    n = int(n)
+    if not _length_ok(n):
+        return None
+    if n_in is not None and int(n_in) != n:
+        return "stages" if 1 <= int(n_in) < n else None
+    return "lines" if 2 <= n <= LINE_MAX_N and n & (n - 1) == 0 else "stages"
+
+
+def line_split(n: int) -> tuple[int, int] | None:
+    """(N1, N2) of the line form at length n: the four-step n = N1 N2 for n
+    > 64 (pass 1 runs the N1-long columns, pass 2 the N2-long rows of the
+    (N1, N2) view); (n, 1) for n <= 64, one line a row; None where n does
+    not run the line form."""
+    n = int(n)
+    if form(n) != "lines":
+        return None
+    return _FOUR_STEP[n][:2] if n in _FOUR_STEP else (n, 1)
+
+
+def line_geometry(n: int) -> dict | None:
+    """The four-step geometry of the line form at n (128 to 4096), as
+    ``LaneStep`` in ``csrc/minor_fft.cuh`` has it: ``n1``, ``n2``,
+    ``team_warps``, ``threads`` (a block) and ``rows`` (a team, 32 values
+    a lane). A line of 8 to 32 lies in one lane, a line of 64 on a lane
+    pair. None where n does not run the four-step."""
+    n = int(n)
+    if n not in _FOUR_STEP or form(n) != "lines":
+        return None
+    n1, n2, team_warps, threads = _FOUR_STEP[n]
+    return {"n1": n1, "n2": n2, "team_warps": team_warps,
+            "threads": threads, "rows": 1024 * team_warps // n}
 
 
 @functools.lru_cache(maxsize=None)
