@@ -40,9 +40,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
    K4's packed form on (200000, 8, 93) beside ``fft2`` and its copy floor;
 9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
    DFT, K1 with a bound on its load) and K4 with ``n2_in`` against their
-   plain versions on ragged batches: even and odd real lengths 2 to 32768,
-   pads (93 -> 128) to (5000 -> 8192), pairs (64, 93 -> 128) and
-   (120, 100 -> 128), scale 1 and 1/n, f32 and bf16 storage;
+   plain versions on ragged batches: even and odd real lengths 2 to 32768
+   (every length of K7's line form, 256 to 8192, among them; each length
+   printed with K7's form, ``real_fft.form``), pads (93 -> 128) to
+   (5000 -> 8192), pairs (64, 93 -> 128) and (120, 100 -> 128), scale 1
+   and 1/n, f32 and bf16 storage;
 10. the real and padded paths at full size, each call driven with every
     count set to 0 just before it and read just after: ``rfft`` and
     ``irfft`` on (100000, 1024) (K7, K8), ``rfft`` on (1000000, 93) (K7,
@@ -50,10 +52,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
     ``fft(n="fast-aligned")`` on (1000000, 93) -> 128 (K9) and
     ``fft2(s=(64, 128))`` on (10000, 64, 93) (K4 with ``n2_in``), each
     against ``np.fft`` on a few slices and through its round trip;
-11. times at those shapes: the path, each kernel alone, its plain version,
-    cuFFT (a baseline only) and the copy floor (one read of the input and
-    one write of the output), plus ``rfft`` along a non-minor axis
-    (movedim + K7 + movedim back);
+11. times at those shapes: the path, each kernel alone (K7 with its form),
+    its plain version, cuFFT (a baseline only) and the copy floor (one read
+    of the input and one write of the output), the ``rfft`` path split
+    into K7, the interleave of its planes and the rest, K7 alone at
+    (400000, 256) and (12500, 8192) beside ``torch.fft.rfft``, plus
+    ``rfft`` along a non-minor axis (movedim + K7 + movedim back);
 12. the dense-matrix kernels K10 (complex), K11 (real) and K12 (real, the
     DCT/DST table) against their plain versions (f32 matmuls, TF32 off) on
     ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128)
@@ -206,7 +210,10 @@ CLUSTER_KERNELS = ("cube", "mid_pair")
 FUSED_KERNELS = tuple(f"fused_{k}" for k in fused_fft.launches)
 ALL_KERNELS = (KERNELS + REAL_KERNELS + DENSE_KERNELS + STFT_KERNELS
                + CLUSTER_KERNELS + FUSED_KERNELS)
-REAL_EVEN_NS = (2, 8, 128, 1024, 4096, 32768)
+REAL_EVEN_NS = (2, 8, 128, 256, 512, 1024, 2048, 4096, 8192, 32768)
+# K7 alone beside torch.fft.rfft at the line form's shortest and longest
+# rows, ~100 MB of input each (the (100000, 1024) row is the rfft path's)
+REAL_LINE_SHAPES = ((400_000, 256), (12_500, 8192))
 REAL_ODD_NS = (3, 93, 127, 16383)
 PADS = ((93, 128), (1000, 1024), (5000, 8192))
 PAIR_PADS = ((64, 93, 128), (120, 100, 128))
@@ -713,18 +720,23 @@ def phase_real_kernels() -> None:
     dtypes = (torch.float32, torch.bfloat16)
     for n in REAL_EVEN_NS + REAL_ODD_NS:
         m1 = n // 2 + 1
+        at_n = dict.fromkeys(dtypes, 0.0)
         for dtype in dtypes:
             x, _ = _planes((257, n), dtype, seed=n)
             br, bi = _planes((257, m1), dtype, seed=n + 1)
             for scale in (1.0, 1.0 / n):
                 what = f"n={n} {dtype} scale={scale}"
-                _hold(worst, "r2c", dtype,
-                      real_fft.rfft_minor(x, scale=scale),
-                      real_fft.rfft_minor_reference(x, scale=scale), what)
+                got = real_fft.rfft_minor(x, scale=scale)
+                ref = real_fft.rfft_minor_reference(x, scale=scale)
+                _hold(worst, "r2c", dtype, got, ref, what)
+                at_n[dtype] = max(at_n[dtype], pair_err(got, ref))
                 _hold(worst, "c2r", dtype,
                       real_fft.irfft_minor(br, bi, n=n, scale=scale),
                       real_fft.irfft_minor_reference(br, bi, n=n,
                                                      scale=scale), what)
+        print(f"  r2c n={n} ({real_fft.form(n)} form): max normalized error "
+              f"f32 {at_n[torch.float32]:.3e}, bf16 "
+              f"{at_n[torch.bfloat16]:.3e}")
     for n_in, n in PADS:
         for dtype in dtypes:
             xr, xi = _planes((257, n_in), dtype, seed=n_in)
@@ -909,6 +921,7 @@ def phase_real_times(k1_ms: float) -> dict:
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
           + f"; K1 C2C at this shape {k1_ms:.4f}; one pass {nb / 1e9:.4f} "
           "GB")
+    rfft_path = t["rfft_path"]
     kernel_row("r2c", (rows, n),
                lambda: real_fft.rfft_minor(x, scale=1.0),
                lambda: real_fft.rfft_minor_reference(x, scale=1.0), nb,
@@ -927,12 +940,39 @@ def phase_real_times(k1_ms: float) -> dict:
     print(f"  around the kernels: interleave of K7's planes into the complex "
           f"output {inter:.4f} ms, de-interleave of irfft's complex input "
           f"{deinter:.4f} ms")
+    print(f"  rfft path ({rows}, {n}) {rfft_path:.4f} ms = K7 "
+          f"({real_fft.form(n)} form) {out['r2c']['ms']:.4f} ms + interleave "
+          f"{inter:.4f} ms + {rfft_path - out['r2c']['ms'] - inter:.4f} ms "
+          "of the call layer; back to back (10 calls an event pair, ms a "
+          f"call): path "
+          f"{_back_to_back_ms(lambda: tpufft_torch.rfft(x)):.4f}, K7 "
+          f"{_back_to_back_ms(lambda: real_fft.rfft_minor(x, scale=1.0)):.4f}"
+          f"; host time to queue one call: path "
+          f"{_host_ms(lambda: tpufft_torch.rfft(x)):.4f}, K7 "
+          f"{_host_ms(lambda: real_fft.rfft_minor(x, scale=1.0)):.4f}")
     del yr, yi
     xt = x.reshape(n, rows)   # the same bytes, rfft along axis 0
     moved = _time_ms(lambda: tpufft_torch.rfft(xt, axis=0))
     print(f"  rfft along axis 0 of ({n}, {rows}) (movedim + K7 + movedim "
           f"back): {moved:.4f} ms")
     del x, xc, hr, hi, xt
+    # K7 alone at the line form's shortest and longest rows
+    for rows, n in REAL_LINE_SHAPES:
+        x, _ = _device_planes((rows, n), seed=n)
+        got = real_fft.rfft_minor(x, scale=1.0)
+        ref = real_fft.rfft_minor_reference(x, scale=1.0)
+        err = max(norm_err(g, r) for g, r in zip(got, ref))
+        check(err < F32_TOL, f"r2c ({rows}, {n}): kernel vs plain {err:.3e}")
+        del got, ref
+        nb = f32 * (rows * n + 2 * rows * (n // 2 + 1))
+        t_k = _time_ms(lambda: real_fft.rfft_minor(x, scale=1.0))
+        t_l = _time_ms(lambda: torch.fft.rfft(x))
+        t_c = _copy_floor_ms(nb)
+        print(f"  r2c alone ({rows}, {n}) ({real_fft.form(n)} form): kernel "
+              f"{t_k:.4f} ms ({nb / 1e9 / (t_k * 1e-3):.0f} GB/s), "
+              f"torch.fft.rfft {t_l:.4f} ms, copy floor {t_c:.4f} ms; vs "
+              f"plain normalized {err:.3e}")
+        del x
     # rfft (1000000, 93), odd n
     rows, n = 1_000_000, 93
     m1 = n // 2 + 1
@@ -1010,8 +1050,9 @@ def phase_real_times(k1_ms: float) -> dict:
                    xr, xi, n2=n2, inverse=False, scale=1.0), nb)
     del xr, xi, xs, xc
     torch.cuda.synchronize()
-    print(f"rfft (100000, 1024) on K7 {out['r2c']['ms']:.4f} ms against K1's "
-          f"C2C {k1_ms:.4f} ms: ratio {out['r2c']['vs_k1']:.3f}")
+    print(f"rfft (100000, 1024) on K7 ({real_fft.form(1024)} form) "
+          f"{out['r2c']['ms']:.4f} ms against K1's C2C {k1_ms:.4f} ms: "
+          f"ratio {out['r2c']['vs_k1']:.3f}")
     return out
 
 
@@ -2255,6 +2296,39 @@ def _time_ms(fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _back_to_back_ms(fn, launches: int = 10) -> float:
+    """Median over REPS event pairs of ``launches`` calls each, per call:
+    the device time of a call without the host's time before its launch,
+    where the call takes longer on the device than on the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def _host_ms(fn) -> float:
+    """Median of REPS host-clock times of one call, from its start until it
+    returns with its work queued (the device idle before each call)."""
+    fn()
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 

@@ -484,8 +484,8 @@ def _all_counts():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [2, 3, 8, 93, 127, 128, 1024, 4096, 16383,
-                               32768])
+@pytest.mark.parametrize("n", [2, 3, 8, 93, 127, 128, 256, 1024, 4096,
+                               16383, 32768])
 def test_real_kernels_match_plain_versions(n, dtype, tol, cuda_device):
     """K7 and K8 on a ragged batch of 257 rows, both scales; the planes
     into K8 have nonzero imaginary parts at DC and Nyquist."""
@@ -517,6 +517,86 @@ def test_real_kernel_misaligned_input(cuda_device):
     ref = real_fft.rfft_minor_reference(x, scale=1.0)
     torch.cuda.synchronize()
     assert _err(got, ref) < 1e-5
+
+
+REAL_LINE_NS = [2 ** k for k in range(8, 14)]   # K7's line form: 256 .. 8192
+
+
+def _past_one_grid(n):
+    """A batch of K7's line form at n that spans twice as many row groups
+    as its grid can have blocks (the card's SMs times five 128-thread or
+    two 256-thread blocks), plus a ragged group."""
+    geo = minor_fft.line_geometry(n // 2)
+    per_group = geo["threads"] // (32 * geo["team_warps"]) * geo["rows"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = sms * (5 if geo["threads"] == 128 else 2)
+    return 2 * blocks * per_group + 3
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", LINE_BATCHES + ["past_grid"])
+@pytest.mark.parametrize("n", REAL_LINE_NS)
+def test_real_line_form_matches_plain_version(n, batch, dtype, tol,
+                                              cuda_device):
+    """K7's line form against its plain version on ragged batches and on
+    one that makes each block loop over several row groups, scale 1 and
+    1/n: one launch a call, and no run of a plain version inside it."""
+    assert real_fft.form(n) == "lines"
+    if batch == "past_grid":
+        batch = _past_one_grid(n)
+    x, _ = _planes((batch, n), cuda_device, dtype, seed=n + batch)
+    for scale in (1.0, 1.0 / n):
+        before = real_fft.launches["r2c"]
+        plain = real_fft.reference_cuda_calls
+        got = real_fft.rfft_minor(x, scale=scale)
+        assert real_fft.launches["r2c"] == before + 1
+        assert real_fft.reference_cuda_calls == plain
+        ref = real_fft.rfft_minor_reference(x, scale=scale)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and got[0].shape == (batch, n // 2 + 1)
+        assert _err(got, ref) < tol
+
+
+@pytest.mark.parametrize("n", REAL_LINE_NS)
+def test_real_line_form_edge_values(n, cuda_device):
+    """Edge-value rows through K7's line form, held as
+    ``test_line_form_edge_values`` holds K1's: the rows holding Inf or NaN
+    come out non-finite in the kernel and in the plain version alike, no
+    row without such an input does but the 3.4e38 row (whose packed pair
+    may overflow in the untangle's sum), and the other rows, 1e-20 and
+    1e18 among them, are within 1e-5 of the plain version relative to
+    their own magnitude, as is the 3.4e38 row where it stays finite."""
+    x, _ = _planes((257, n), cuda_device, seed=n)
+    x, _ = _fft_edge_rows(x, torch.zeros_like(x))
+    got = real_fft.rfft_minor(x, scale=1.0)
+    ref = real_fft.rfft_minor_reference(x, scale=1.0)
+    torch.cuda.synchronize()
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[:3].all() and not bad[4:].any()
+    assert _complex_row_err((got[0][4:], got[1][4:]),
+                            (ref[0][4:], ref[1][4:])) < 1e-5
+    if torch.isfinite(got[0][3]).all() and torch.isfinite(got[1][3]).all():
+        assert _complex_row_err((got[0][3:4], got[1][3:4]),
+                                (ref[0][3:4], ref[1][3:4])) < 1e-5
+
+
+def test_real_line_form_misaligned_views(cuda_device):
+    """K7's line form on views that do not start on a 16-byte boundary: 8
+    bytes in, it reads the view in place; 4 bytes in, the wrapper copies
+    it first (its pair loads need 8 bytes). Both match the plain version."""
+    flat = torch.randn(2 + 33 * 1024, device=cuda_device)
+    for off in (2, 1):
+        x = flat[off:off + 33 * 1024].view(33, 1024)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4 * off
+        before = real_fft.launches["r2c"]
+        got = real_fft.rfft_minor(x, scale=1.0 / 1024)
+        assert real_fft.launches["r2c"] == before + 1
+        ref = real_fft.rfft_minor_reference(x, scale=1.0 / 1024)
+        torch.cuda.synchronize()
+        assert _err(got, ref) < 1e-5
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -15,6 +15,12 @@ result:
   round their f32 result to bf16 at the store;
 * 1e-5 against ``np.fft`` in float64 above 1024.
 
+K7's line form (``real_fft.form``: even n from 256 to 8192 with n/2 a
+power of two) is checked here as a model: its arithmetic in torch ops with
+the kernel's indexing (1e-5 against ``_build_minor_r2c`` up to 1024 and
+against ``np.fft.rfft`` above), and the tile's indexing of its untangle
+(every element written and read back, no bank conflict).
+
 The CUDA kernels themselves need the card: ``test_torch_cuda.py`` holds
 them against these plain versions there.
 """
@@ -29,8 +35,9 @@ from tpufft import api as tp_api
 from tpufft.kernels import mxu_fft as tp_mxu
 from tpufft.planner import factorize as tp_factorize
 
+from test_torch_kernel_minor import _line_out
 from tpufft_torch import api
-from tpufft_torch.kernels import real_fft
+from tpufft_torch.kernels import minor_fft, real_fft
 
 NS = [2, 3, 8, 93, 127, 128, 131, 1024]
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
@@ -179,3 +186,187 @@ def test_wrappers_refuse_non_cuda_devices():
     h = torch.empty(2, 5, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         real_fft.irfft_minor(h, h, n=8, scale=1.0)
+
+
+# ----------------------------------------------------------------------------
+# K7's line form (power-of-two n/2 from 128 to 4096)
+# ----------------------------------------------------------------------------
+
+LINE_NS = [256, 512, 1024, 2048, 4096, 8192]
+
+
+def _partner(n1, n2):
+    """The line and register of Z[m - k] for Z[k1 + N1 k2] after pass 2:
+    line N1 - k1 with k2 mirrored to N2 - 1 - k2, and line k1 = 0 paired
+    with itself, k2 -> (N2 - k2) mod N2. Two (N1, N2) index grids."""
+    k1 = torch.arange(n1)[:, None].expand(n1, n2)
+    k2 = torch.arange(n2)[None, :].expand(n1, n2)
+    own = k1 == 0
+    return ((n1 - k1) % n1,
+            torch.where(own, (n2 - k2) % n2, n2 - 1 - k2))
+
+
+def _line_form_model(x, scale):
+    """K7's line form in torch ops (complex64, f32 arithmetic) with the
+    kernel's indexing: z[j] = x[2j] + i x[2j+1] in the (N1, N2) view of
+    the packed row (j = N2 j1 + j2, ``line_split(m)``), the N1-long DFTs
+    of the columns (table exponents k1 j1 N2 mod m), the twiddle w^(k1 j2)
+    at (k1 j2) mod m, the N2-long DFTs of the rows k1 (exponents k2 j2 N1),
+    giving Z[k1 + N1 k2]; then the untangle of each pair k < m/2 with its
+    partner Z[m - k] gathered from the mirrored line (``_partner``), X[k] =
+    (s - u)/2 and X[m-k] = conj(s + u)/2 with s = Z[k] + conj Z[m-k] and u
+    = i W^k (Z[k] - conj Z[m-k]), and X[m/2] = conj Z[m/2]; scaled once."""
+    n = x.shape[1]
+    m, half = n // 2, n // 4
+    n1, n2 = minor_fft.line_split(m)
+    cpu = torch.device("cpu")
+    tab = minor_fft._device_twiddles(m, False, cpu)
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    hw = real_fft._device_half_twiddle(n, cpu)
+    big_w = torch.complex(hw[:, 0], hw[:, 1])
+    xt = torch.from_numpy(x)
+    z = torch.complex(xt[:, 0::2], xt[:, 1::2]).reshape(-1, n1, n2)
+    k1 = torch.arange(n1)
+    k2 = torch.arange(n2)
+    y = torch.einsum("kj,bjm->bkm", w[(k1[:, None] * k1[None, :] * n2) % m],
+                     z)                                 # [b, k1, j2]
+    y = y * w[(k1[:, None] * k2[None, :]) % m]          # w^(k1 j2)
+    zz = torch.einsum("qm,bkm->bkq",
+                      w[(k2[:, None] * k2[None, :] * n1) % m], y)
+    p1, p2 = _partner(n1, n2)
+    k = k1[:, None] + n1 * k2[None, :]                  # Z[k1 + N1 k2]
+    assert torch.equal(p1 + n1 * p2, (m - k) % m)
+    a = torch.zeros(zz.shape[0], m, dtype=zz.dtype)
+    b = torch.zeros_like(a)
+    a[:, k.reshape(-1)] = zz.reshape(-1, m)             # Z in natural order
+    b[:, k.reshape(-1)] = zz[:, p1, p2].reshape(-1, m)  # its partners
+    mid = a[:, half]
+    a, b = a[:, :half], b[:, :half]                     # the pairs k < m/2
+    s = a + b.conj()
+    u = 1j * big_w[:half] * (a - b.conj())
+    out = torch.zeros(a.shape[0], m + 1, dtype=zz.dtype)
+    ks = torch.arange(half)
+    out[:, ks] = 0.5 * (s - u)
+    out[:, m - ks] = 0.5 * (s + u).conj()
+    out[:, half] = mid.conj()
+    return (out * scale).numpy()
+
+
+@pytest.mark.parametrize("unit_scale", [True, False],
+                         ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("n", LINE_NS)
+def test_line_form_model_matches_tpufft(n, unit_scale):
+    """The line form's arithmetic against tpufft's ``_build_minor_r2c`` in
+    interpret mode where tpufft takes n (up to 1024), and against
+    ``np.fft.rfft`` in float64 above."""
+    assert real_fft.form(n) == "lines"
+    scale = 1.0 if unit_scale else 1.0 / n
+    x = _real((BATCH, n), n + 7)
+    got = _line_form_model(x, scale)
+    if n <= 1024:
+        jx = jnp.asarray(x, jnp.float32)
+        run = tp_mxu._build_minor_r2c(n, float(scale),
+                                      tp_mxu.choose_lane_block(n, TP_CFG),
+                                      "highest", True, "f32")
+        zr, zi = run(jx)
+        ref = np.asarray(zr) + 1j * np.asarray(zi)
+    else:
+        ref = np.fft.rfft(x.astype(np.float64)) * scale
+    assert _err(got, ref) < 1e-5
+
+
+def _untangle_tile_accesses(n):
+    """Per warp instruction of a team, the lanes' tile positions (float2)
+    and the elements (row, k) of Z they carry, indexed as
+    ``rfft_lane_kernel`` indexes them at n = 2m: pass 2's writes of Z (lane
+    t holds lines t + 32 W s, or for N2 = 64 line (t mod 16) + 16 (t / 32)
+    on the pair t, t ^ 16; register q holds k2 = line_out(p, q)) at r m +
+    ((k1 + N1 k2) ^ ((N1 r) mod 16)), and the untangle's two reads of each
+    of its 16 instructions, Z[k] and Z[(m - k) mod m] of e = t + lanes i,
+    r = e / (m/2), k = e mod (m/2). Also the lone reads of Z[m/2] by the
+    lanes of k = 0."""
+    m = n // 2
+    geo = minor_fft.line_geometry(m)
+    n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
+    lanes, rows, half = 32 * tw, geo["rows"], m // 2
+
+    def pos(row, k):
+        return row * m + (k ^ ((n1 * row) & 15))
+
+    writes, reads, lone = [], [], []
+    for w in range(tw):
+        for s in range(1 if n2 == 64 else 32 // n2):
+            for q in range(32 if n2 == 64 else n2):
+                acc = []
+                for t in range(32 * w, 32 * w + 32):
+                    p = (t >> 4) & 1
+                    line = ((t & 15) + 16 * (t >> 5) if n2 == 64
+                            else t + lanes * s)
+                    row, k1 = divmod(line, n1)
+                    k = k1 + n1 * _line_out(n2, p, q)
+                    acc.append((pos(row, k), (row, k)))
+                writes.append(acc)
+        for i in range(rows * half // lanes):
+            acc_a, acc_b = [], []
+            for t in range(32 * w, 32 * w + 32):
+                row, k = divmod(t + lanes * i, half)
+                acc_a.append((pos(row, k), (row, k)))
+                kb = (m - k) % m
+                acc_b.append((pos(row, kb), (row, kb)))
+                if k == 0:
+                    lone.append((pos(row, half), (row, half)))
+            reads += [acc_a, acc_b]
+    return geo, writes, reads, lone
+
+
+@pytest.mark.parametrize("n", LINE_NS)
+def test_untangle_tile_mapping(n):
+    """The untangle's round trip through the team's tile: pass 2 writes
+    every Z[k] of the team's rows once, at distinct positions inside the
+    tile; the untangle reads each back from where it was written, every
+    element once but Z[0], which k = 0 reads as both halves of its
+    self-paired bin; and each half warp of every write and read
+    instruction touches 16 distinct bank pairs (8-byte values: position
+    mod 16). Passes 1 and 2 index the tile as K1's line form at length m
+    (``test_line_tile_mapping``)."""
+    geo, writes, reads, lone = _untangle_tile_accesses(n)
+    m = n // 2
+    where = {}
+    for acc in writes:
+        for p, e in acc:
+            assert e not in where
+            where[e] = p
+    assert len(where) == geo["rows"] * m
+    assert sorted(where.values()) == list(range(geo["rows"] * m))
+    seen = {}
+    for acc in reads + [lone]:
+        for p, e in acc:
+            assert where[e] == p
+            seen[e] = seen.get(e, 0) + 1
+    assert set(seen) == set(where)
+    assert all(c == (2 if k == 0 else 1) for (_, k), c in seen.items())
+    for acc in writes + reads:
+        for half in (acc[:16], acc[16:]):
+            assert len({p % 16 for p, _ in half}) == 16, (n, half)
+
+
+def test_form_across_the_envelope():
+    """``real_fft.form``: the line form for even n with n/2 a power of two
+    from 128 to 4096, the stage form for every other length in the
+    envelope (odd n, even n with a non-power-of-two half, n <= 128,
+    n > 8192), None outside it; the line form's geometry is K1's at n/2."""
+    for n in range(2, 16500):
+        f = real_fft.form(n)
+        m = n // 2
+        if not real_fft.supported(n, torch.float32):
+            assert f is None, n
+        elif n % 2 == 0 and 128 <= m <= 4096 and m & (m - 1) == 0:
+            assert f == "lines", n
+            assert minor_fft.line_geometry(m) is not None, n
+        else:
+            assert f == "stages", n
+    for n in (1, 0, 131, 8194, 32769, 65536):
+        assert real_fft.form(n) is None, n
+    assert [real_fft.form(n) for n in (128, 254, 256, 480, 8192, 16384,
+                                       32768)] == [
+        "stages", "stages", "lines", "stages", "lines", "stages", "stages"]

@@ -24,6 +24,12 @@ calls, in ms:
   K16 (the cube on the fused (100, 64, 64, 2 x 64) array of the same
   data), K7 (real minor axis, (100000, 1024) f32) and K6 (middle pair,
   (32, 64, 128, 128) c64);
+- K7 at the ends of its line form, (400000, 256) and (12500, 8192) f32,
+  each beside ``torch.fft.rfft`` of it (``rfft``), and on its stage form,
+  whose code did not change, at (1000000, 93); K8 (irfft, (100000, 513)
+  planes to (100000, 1024)); the ``rfft`` path of real (100000, 1024)
+  rows beside ``torch.fft.rfft`` (``torch_rfft_1024``), and the ``fht``
+  path (``fht(x, 0.05, 0.5)``, K7 + K8) of the same rows;
 - K13 (``stft_frames``) on (64, 1048832) f32 at nperseg 256, hop 128 (the
   ``stft`` path's shape: 1048576 samples extended by 128 a side), beside
   ``torch.stft(center=False)`` of the same frames;
@@ -52,7 +58,8 @@ the same function (hann window, scale 1/sum(window), no detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
-K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K13, K4, K4_n2_in,
+K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
+K8, rfft, fht, K13, K4, K4_n2_in,
 K4_packed, K17, P3, P4, K11, K12, K10, K14, K15, filter_real, dct, dst4)
 and times those alone. Needs the card.
 """
@@ -150,6 +157,29 @@ if want("K1", "K5", "K16", "K7", "K6"):
     mi = torch.randn(32, 64, 128, 128, generator=g, device="cuda")
     rows["K6"] = median_ms(lambda: mid_pair_fft.fft_mid_pair(mr, mi, **kw))
     del mr, mi
+for name, shape in (("K7_256", (400000, 256)), ("K7_8192", (12500, 8192)),
+                    ("K7_93", (1000000, 93))):
+    if want(name):
+        x = torch.randn(*shape, generator=g, device="cuda")
+        rows[name] = median_ms(lambda: real_fft.rfft_minor(x, scale=1.0))
+        if name != "K7_93":
+            rows[name + " rfft"] = median_ms(lambda: torch.fft.rfft(x))
+        del x
+if want("K8", "rfft", "fht"):
+    import tpufft_torch
+    x = torch.randn(100000, 1024, generator=g, device="cuda")
+    if want("rfft"):
+        rows["rfft"] = median_ms(lambda: tpufft_torch.rfft(x))
+        rows["torch_rfft_1024"] = median_ms(lambda: torch.fft.rfft(x))
+    if want("fht"):
+        rows["fht"] = median_ms(lambda: tpufft_torch.fht(x, 0.05, 0.5))
+    if want("K8"):
+        hr = torch.randn(100000, 513, generator=g, device="cuda")
+        hi = torch.randn(100000, 513, generator=g, device="cuda")
+        rows["K8"] = median_ms(lambda: real_fft.irfft_minor(
+            hr, hi, n=1024, scale=1.0 / 1024))
+        del hr, hi
+    del x
 
 x = torch.randn(64, 1048832, generator=g, device="cuda")
 nperseg, hop = 256, 128

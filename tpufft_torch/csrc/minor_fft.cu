@@ -59,21 +59,14 @@ int launch_lane(const void* xr, const void* xi, void* yr, void* yi,
                 cudaStream_t stream) {
   using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
   auto* kernel = minor_lane_kernel<T, N1, N2, kTeamWarps, kThreads, kFused>;
-  cudaError_t err = allow_smem(kernel, S::smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, S::smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   constexpr long long rows = S::teams * S::rows;
-  const long long groups = (batch + rows - 1) / rows;
-  const long long resident = (long long)sms * per_sm;
-  const long long blocks = groups < resident ? groups : resident;
-  kernel<<<(unsigned)blocks, kThreads, S::smem, stream>>>(
+  unsigned blocks = 0;
+  cudaError_t err = allow_smem(kernel, S::smem);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, kThreads, S::smem, (batch + rows - 1) / rows,
+                        &blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, S::smem, stream>>>(
       static_cast<const T*>(xr), static_cast<const T*>(xi),
       static_cast<T*>(yr), static_cast<T*>(yi),
       static_cast<const float2*>(tw), (int64_t)batch, inverse, scale);

@@ -361,6 +361,26 @@ __host__ __device__ constexpr int kLaneMinBlocks(int threads) {
   return threads == 128 ? 5 : 2;
 }
 
+// The grid of a kernel whose blocks loop over `groups` row groups: at most
+// the blocks the card holds at once, so that each block stages its table
+// once. Returns cudaSuccess with *blocks >= 1, or the CUDA error.
+template <typename Kernel>
+inline cudaError_t resident_grid(Kernel kernel, int threads, size_t smem,
+                                 long long groups, unsigned* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long resident = (long long)sms * per_sm;
+  *blocks = (unsigned)(groups < resident ? groups : resident);
+  return cudaSuccess;
+}
+
 // The team's barrier between the passes: __syncwarp for one warp, else
 // named barrier 1 + team (barrier 0 is __syncthreads').
 template <int kTeamWarps>

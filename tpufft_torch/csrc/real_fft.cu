@@ -30,8 +30,34 @@
 //   extends the half spectrum Hermitian-wise in registers at the load
 //   (X[n-k] = conj X[k]) and stores the real part.
 //
-// Rows are packed to blocks exactly as K1 packs them (launch_geometry of the
-// stage length), and the same launch bounds hold registers to 64.
+// K7 has two forms; the host picks one by n (tpufft_rfft; kernels/
+// real_fft.py:form mirrors the choice). K8 has the stage form only.
+//
+// The line form (rfft_lane_kernel), for even n = 2m with m a power of two
+// from 128 to 4096 (n = 256 to 8192): the packed row runs K1's line form
+// at length m (minor_fft.cuh: LaneStep, lane_fft, pair_fft, the staged
+// w_m table, blocks looping over row groups), its load reading each pair
+// x[2j], x[2j+1] as one 8-byte (bf16: 4-byte) value, so that a warp's load
+// instruction reads 256 consecutive bytes. Pass 2 leaves Z[k1 + N1 k2] in
+// registers; bins k and m - k lie in other lanes then (line N1 - k1, k2
+// mirrored; line 0 pairs with itself), so the team writes Z back into its
+// tile in natural order, at r m + (k ^ ((N1 r) mod 16)), and after one
+// team barrier each lane reads the pairs Z[k], Z[m-k] of 16 bins k < m/2,
+// consecutive lanes on consecutive k, and stores both bins of each pair:
+//   X[k] = (s - u) / 2, X[m-k] = conj(s + u) / 2,
+//   s = Z[k] + conj Z[m-k], u = i W^k (Z[k] - conj Z[m-k]),
+// with W^k from half_tw (read through the read-only cache) and, in the
+// lane of k = 0, X[m/2] = conj Z[m/2]. A warp's store instruction writes
+// 32 consecutive bins of each plane (ascending for k, descending for
+// m - k); rows of m + 1 bins start unaligned, so every store is a 4-byte
+// (2-byte) access. The XOR keeps pass 2's writes (two rows a half warp at
+// N1 = 8) and the untangle's reads free of bank conflicts
+// (tests/test_torch_kernel_real.py models both).
+//
+// The stage form (rfft_kernel, irfft_kernel), for every other length:
+// rows are packed to blocks exactly as K1's stage form packs them
+// (launch_geometry of the stage length), and the same launch bounds hold
+// registers to 64.
 
 #include <climits>
 
@@ -39,7 +65,15 @@
 
 using namespace tpufft_fft;
 using tpufft_minor::Geometry;
+using tpufft_minor::kLaneMinBlocks;
+using tpufft_minor::lane_fft;
+using tpufft_minor::lane_line;
+using tpufft_minor::LaneStep;
 using tpufft_minor::launch_geometry;
+using tpufft_minor::line_out;
+using tpufft_minor::pair_fft;
+using tpufft_minor::resident_grid;
+using tpufft_minor::team_sync;
 
 namespace {
 
@@ -108,6 +142,131 @@ rfft_kernel(const T* __restrict__ x, T* __restrict__ yr, T* __restrict__ yi,
     }
     store_f(yr, out0 + e, X.x * scale);
     store_f(yi, out0 + e, X.y * scale);
+  }
+}
+
+// K7's line form at n = 2m, m = N1 N2 (the header's first form): block b
+// stages the w_m table, then takes row groups b, b + gridDim.x, ...; team
+// e of a group transforms rows [(group teams + e) R, + R). Passes 1 and 2
+// are minor_lane_kernel's at length m on z[j] = x[2j] + i x[2j+1]; then
+// the untangle through the tile. Rows past the batch compute on zeros and
+// store nothing.
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads>
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))
+rfft_lane_kernel(const T* __restrict__ x, T* __restrict__ yr,
+                 T* __restrict__ yi, const float2* __restrict__ tw,
+                 const float2* __restrict__ half_tw, int64_t batch,
+                 float scale) {
+  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
+  constexpr int m = S::n, n = 2 * m, R = S::rows, H = m / 2;
+  extern __shared__ float2 tpufft_rfft_lane_smem[];
+  float2* table = tpufft_rfft_lane_smem;
+  const int team = threadIdx.x / S::lanes;
+  const int t = threadIdx.x - team * S::lanes;
+  const int p = (t >> 4) & 1;  // place in a lane pair
+  float2* tile = table + S::table + team * R * m;
+  const float hs = 0.5f * scale;  // the untangle's 1/2, scaled
+  for (int i = threadIdx.x; i < m; i += kThreads) table[pad(i)] = __ldg(&tw[i]);
+  __syncthreads();
+  const int64_t groups = (batch + S::teams * R - 1) / (S::teams * R);
+  for (int64_t grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const int64_t row0 = (grp * S::teams + team) * R;
+    {  // pass 1: the columns of the packed rows, into the tile
+      constexpr int V = S::pair1 ? 32 : N1;
+      float2 v[S::L1][V];
+#pragma unroll
+      for (int s = 0; s < S::L1; ++s) {
+        const int line = lane_line<S::pair1, S::lanes>(t, s);
+        const int64_t row = row0 + line / N2;
+        const int j2 = line % N2;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int j1 = S::pair1 ? p + 2 * j : j;
+          v[s][j] = row < batch ? load_pair(x, row * n + 2 * (N2 * j1 + j2))
+                                : make_float2(0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < S::L1; ++s) {
+        if constexpr (S::pair1)
+          pair_fft<m / 64>(v[s], p, table, false);
+        else
+          lane_fft<N1, m / N1>(v[s], table, false);
+      }
+#pragma unroll
+      for (int s = 0; s < S::L1; ++s) {
+        const int line = lane_line<S::pair1, S::lanes>(t, s);
+        const int r = line / N2, j2 = line % N2;
+        float2* dst = tile + r * m;
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const int k1 = line_out<N1>(p, q);
+          dst[k1 * N2 + (j2 ^ ((k1 + N1 * r) & 15))] =
+              cmul(v[s][q], table[pad(k1 * j2)]);
+        }
+      }
+    }
+    team_sync<kTeamWarps>(team);
+    {  // pass 2: the rows k1 of the tile, Z back into it in natural order
+      constexpr int V = S::pair2 ? 32 : N2;
+      float2 v[S::L2][V];
+#pragma unroll
+      for (int s = 0; s < S::L2; ++s) {
+        const int line = lane_line<S::pair2, S::lanes>(t, s);
+        const float2* src = tile + (line / N1) * m + (line % N1) * N2;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          v[s][j] = src[(S::pair2 ? p + 2 * j : j) ^ (line & 15)];
+      }
+#pragma unroll
+      for (int s = 0; s < S::L2; ++s) {
+        if constexpr (S::pair2)
+          pair_fft<m / 64>(v[s], p, table, false);
+        else
+          lane_fft<N2, m / N2>(v[s], table, false);
+      }
+      team_sync<kTeamWarps>(team);  // every line is read before Z lands
+#pragma unroll
+      for (int s = 0; s < S::L2; ++s) {
+        const int line = lane_line<S::pair2, S::lanes>(t, s);
+        const int r = line / N1, k1 = line % N1;
+        float2* dst = tile + r * m;
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          dst[(k1 + N1 * line_out<N2>(p, q)) ^ ((N1 * r) & 15)] = v[s][q];
+      }
+    }
+    team_sync<kTeamWarps>(team);
+    // the untangle: lane t takes the pairs (k, m - k) of e = t + lanes i.
+    // Unrolled whole for teams of one or two warps, by 4 for the four-warp
+    // teams of n = 8192: the faster at each n on the H100 (PERF.md,
+    // tools/rfft_phases.py)
+    constexpr int kUnroll = kTeamWarps <= 2 ? R * H / S::lanes : 4;
+#pragma unroll (kUnroll)
+    for (int i = 0; i < R * H / S::lanes; ++i) {
+      const int e = t + S::lanes * i;
+      const int r = e / H, k = e % H, sw = (N1 * r) & 15;
+      const float2* z = tile + r * m;
+      const float2 a = z[k ^ sw];                  // Z[k]
+      const float2 b = z[((m - k) & (m - 1)) ^ sw];  // Z[m-k], Z[0] at k = 0
+      const float2 s = make_float2(a.x + b.x, a.y - b.y);
+      const float2 wd = cmul(__ldg(&half_tw[k]),
+                             make_float2(a.x - b.x, a.y + b.y));
+      const int64_t row = row0 + r;
+      if (row < batch) {
+        const int64_t out = row * (m + 1);
+        store_f(yr, out + k, hs * (s.x + wd.y));
+        store_f(yi, out + k, hs * (s.y - wd.x));
+        store_f(yr, out + m - k, hs * (s.x - wd.y));
+        store_f(yi, out + m - k, -hs * (s.y + wd.x));
+        if (k == 0) {
+          const float2 c = z[H ^ sw];  // X[m/2] = conj Z[m/2]
+          store_f(yr, out + H, c.x * scale);
+          store_f(yi, out + H, -c.y * scale);
+        }
+      }
+    }
+    team_sync<kTeamWarps>(team);  // the tile is read before it is rewritten
   }
 }
 
@@ -218,6 +377,57 @@ int launch_r2c(const void* x, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
+// K7's line form at m = N1 N2: a grid of at most the blocks the card holds
+// at once (each stages the table once and loops over row groups).
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads>
+int launch_r2c_lane(const void* x, void* yr, void* yi, const void* tw,
+                    const void* half_tw, long long batch, float scale,
+                    cudaStream_t stream) {
+  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
+  auto* kernel = rfft_lane_kernel<T, N1, N2, kTeamWarps, kThreads>;
+  constexpr long long rows = S::teams * S::rows;
+  unsigned blocks = 0;
+  cudaError_t err = allow_smem(kernel, S::smem);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, kThreads, S::smem, (batch + rows - 1) / rows,
+                        &blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, S::smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(yr), static_cast<T*>(yi),
+      static_cast<const float2*>(tw), static_cast<const float2*>(half_tw),
+      (int64_t)batch, scale);
+  return (int)cudaGetLastError();
+}
+
+// Is the real length n one of K7's line form (even, n/2 a power of two from
+// 128 to 4096)?
+inline bool r2c_line_form(int n) {
+  const int m = n / 2;
+  return n % 2 == 0 && m >= 128 && m <= tpufft_minor::kLineMaxN &&
+         (m & (m - 1)) == 0;
+}
+
+// The line form at n = 2m; (N1, N2, warps a team, threads a block) of each
+// four-step at m, as K1's launch_line_form has them at length m.
+template <typename T>
+int launch_r2c_lines(const void* x, void* yr, void* yi, const void* tw,
+                     const void* half_tw, long long batch, int n, float scale,
+                     cudaStream_t stream) {
+#define TPUFFT_R2C_LANE(N1, N2, TW, TH)                                  \
+  launch_r2c_lane<T, N1, N2, TW, TH>(x, yr, yi, tw, half_tw, batch, scale, \
+                                     stream)
+  switch (n / 2) {
+    case 128: return TPUFFT_R2C_LANE(8, 16, 1, 128);
+    case 256: return TPUFFT_R2C_LANE(16, 16, 1, 128);
+    case 512: return TPUFFT_R2C_LANE(32, 16, 1, 128);
+    case 1024: return TPUFFT_R2C_LANE(32, 32, 1, 128);
+    case 2048: return TPUFFT_R2C_LANE(32, 64, 2, 128);
+    case 4096: return TPUFFT_R2C_LANE(64, 64, 4, 256);
+  }
+#undef TPUFFT_R2C_LANE
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPacked>
 int launch_c2r(const void* xr, const void* xi, void* y, const void* tw,
                const void* half_tw, long long batch, const Radices& plan,
@@ -241,6 +451,11 @@ template <typename T, bool kPacked>
 int launch_r2c_sized(const void* x, void* yr, void* yi, const void* tw,
                      const void* half_tw, long long batch,
                      const Radices& plan, float scale, cudaStream_t stream) {
+  if constexpr (kPacked) {
+    if (r2c_line_form(2 * plan.n))
+      return launch_r2c_lines<T>(x, yr, yi, tw, half_tw, batch, 2 * plan.n,
+                                 scale, stream);
+  }
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
     return launch_r2c<T, 512, 8, 2, kPacked>(x, yr, yi, tw, half_tw, batch,
@@ -273,9 +488,11 @@ bool real_plan(int n, const int* radices, int nstages, Radices* plan) {
 // (f32, or bf16 when bf16 != 0), times scale, on `stream`, a stream of the
 // current device. With L = n/2 for even n and L = n for odd n: tw holds the
 // L complex f32 values exp(-2 pi i k / L), radices[0:nstages] multiply to L
-// (each 2, 4, 8 or an odd value up to 127), and half_tw, read for even n
-// only, holds exp(-2 pi i k / n) for k = 0..n/2. For even n, x must be
-// 8-byte (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA error code.
+// (each 2, 4, 8 or an odd value up to 127; the line form, which even n
+// from 256 to 8192 with n/2 a power of two run, ignores them), and half_tw,
+// read for even n only, holds exp(-2 pi i k / n) for k = 0..n/2. For even
+// n, x must be 8-byte (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA
+// error code.
 extern "C" int tpufft_rfft(const void* x, void* yr, void* yi, const void* tw,
                            const void* half_tw, long long batch, int n,
                            const int* radices, int nstages, float scale,

@@ -10,12 +10,16 @@ Counterpart of two Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
   ignored, as numpy's ``irfft`` does: :func:`irfft_minor`.
 
 Storage is f32 or bf16 and arithmetic f32, as for K1. The TPU kernels are
-dense (n, n//2+1) matmuls; the CUDA kernels (``csrc/real_fft.cu``) are one
-shared-memory Stockham pass each: an even n = 2m runs the length-m C2C
-stages on the packed row x[2j] + i x[2j+1] with the Hermitian untangle
-fused into the store (rfft) or the load (irfft); an odd n runs the length-n
-stages on the real row (rfft) or on the Hermitian extension (irfft). Their
-envelope (:func:`supported`): an even n whose half is inside K1's envelope
+dense (n, n//2+1) matmuls; the CUDA kernels (``csrc/real_fft.cu``) run an
+even n = 2m as a length-m C2C on the packed row x[2j] + i x[2j+1] with the
+Hermitian untangle fused into the store (rfft) or the load (irfft), and an
+odd n as the length-n C2C of the real row (rfft) or of the Hermitian
+extension (irfft). K7 has two forms (:func:`form`): even n from 256 to
+8192 whose half is a power of two run the line form, K1's four-step at
+length m with each row in registers and one extra pass through the tile
+for the untangle; every other length runs the stage form, one
+shared-memory Stockham pass, as K8 always does. Their envelope
+(:func:`supported`): an even n whose half is inside K1's envelope
 (n <= 32768), or an odd n inside it (n <= 16383, prime factors <= 127).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
@@ -37,6 +41,7 @@ from ..twiddle import exact_quarter_cleanup
 from . import minor_fft
 
 __all__ = [
+    "form",
     "irfft_minor",
     "irfft_minor_reference",
     "launches",
@@ -71,6 +76,22 @@ def supported(n: int, dtype) -> bool:
     not (they run the C2C ladder)."""
     n = int(n)
     return n >= 2 and minor_fft.supported(_stage_length(n), dtype)
+
+
+def form(n: int) -> str | None:
+    """Which form of K7 transforms real rows of length n: ``"lines"`` for
+    even n whose half is a power of two from 128 to ``minor_fft.LINE_MAX_N``
+    (n = 256 to 8192), ``"stages"`` for every other length in the
+    envelope, None outside it. Mirrors ``r2c_line_form`` in
+    ``csrc/real_fft.cu``, which makes the choice at the launch. K8 always
+    runs the stage form."""
+    n = int(n)
+    if n < 2 or not minor_fft._length_ok(_stage_length(n)):
+        return None
+    m = n // 2
+    lines = (n % 2 == 0 and 128 <= m <= minor_fft.LINE_MAX_N
+             and m & (m - 1) == 0)
+    return "lines" if lines else "stages"
 
 
 @functools.lru_cache(maxsize=64)
@@ -125,8 +146,9 @@ def rfft_minor(x: torch.Tensor, *,
     """The (batch, n//2+1) half spectrum of the real (batch, n) plane,
     times ``scale``, as re/im planes in the storage dtype of ``x``.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise on anything it does not take."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    :func:`form` on the current stream and raise on anything it does not
+    take."""
     if x.device.type == "cpu":
         return rfft_minor_reference(x, scale=scale)
     _check_plane("rfft_minor", x)
