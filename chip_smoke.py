@@ -28,6 +28,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
    twiddle) and the pair kernel (K4) against their plain versions, on
    ragged pre and post edges: lengths 8 to 16384, pairs (8, 93) to
    (160, 48), both directions, scale 1 and 1/n, f32 and bf16 storage;
+   then every length of the strided kernel's line form (n = r 2^a, r in
+   {1, 3, 5}, 8 to 2048) on a ragged (3, n, 241), K2 and K3 with the
+   twiddle, each printed with its form (``inner_fft.form``: line or
+   stage);
 7. the new paths at full size, each driven with every count set to 0
    just before it and read just after: ``fft2`` on (100, 640, 480) (K2 +
    K1), ``fftn(axes=(1, 2, 3))`` on (10, 128, 128, 128) (K3 + K4), the
@@ -38,6 +42,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
    path gives it, its plain version, cuFFT (a baseline only) and a device
    copy of both planes, plus the old movedim route of the strided axis and
    K4's packed form on (200000, 8, 93) beside ``fft2`` and its copy floor;
+   K2 and K3 printed with their form and geometry, and K2 also timed on
+   ``rfft2``'s (100, 640, 241);
 9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
    DFT, K1 with a bound on its load) and K4 with ``n2_in`` against their
    plain versions on ragged batches: even and odd real lengths 2 to 32768
@@ -136,8 +142,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
     minor axis, on every power-of-two half of K1's line form and on the
     stage form, each printed with its form) against their plain versions:
     halves 2 to 16384 (93 among them), ragged pre, B and M, the cubes of
-    phase 18 (clusters of 1 to 16 blocks), both directions, scale 1 and
-    1/N, f32 and bf16 storage;
+    phase 18 (clusters of 1 to 16 blocks), K18 and K19 at every length of
+    the strided line form (halves L = 2 to 256; each printed with its
+    form), both directions, scale 1 and 1/N, f32 and bf16 storage;
 22. the layouts at full size, each call driven with every count set to 0
     just before it and read just after: lane-fused ``plan_fft`` of
     (100, 64, 64, 64) axes 1-3 (K16 once; P1) and its bf16 form (P1b),
@@ -153,7 +160,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
     floor; each fused kernel alone at its path's shape beside its
     split-plane sibling on the same data (K5, K4, K3, K2, K1), its plain
     version and one ``torch.fft`` call of the same function (K16 and its
-    bf16 form also beside K3 + K4 on the same data); and K18
+    bf16 form also beside K3 + K4 on the same data; K18 and K19 with their
+    form); and K18
     against K3 on the same 268 MB for halves L = 2 to 64, where a half is
     shorter than a 32-byte sector.
 
@@ -201,6 +209,9 @@ REPS = 20
 # 700 W. K11/K12's tensor-core body does three TF32 products per f32 one.
 TF32_PEAK = 495e12
 STRIDED_NS = (8, 93, 127, 128, 960, 1024, 4096, 16384)
+# the strided kernel's line form: n = r 2^a, r in {1, 3, 5}, 8 to 2048
+STRIDED_LINE_NS = tuple(sorted(r * 2 ** a for r in (1, 3, 5)
+                               for a in range(12) if 8 <= r * 2 ** a <= 2048))
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
@@ -441,6 +452,34 @@ def phase_new_kernels() -> None:
                                  inner_fft.fft_inner_nd_reference(
                                      xr.reshape(v), xi.reshape(v), **kw),
                                  f"{what} with_tw={twiddle is not None}")
+    for n in STRIDED_LINE_NS:
+        # a ragged post of 241 columns (units of 8 to 32 columns, the last
+        # one ragged; rows not on 32-byte sectors) and a ragged pre of 3
+        at = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for dtype in (torch.float32, torch.bfloat16):
+            xr, xi = _planes((3, n, 241), dtype, seed=n)
+            tw = _twiddle(n, 241, seed=n)
+            v = (3 * n, 241, 1)
+            for inverse, scale in ((False, 1.0), (True, 1.0 / n)):
+                what = (f"n={n} (3, {n}, 241) {dtype} inverse={inverse} "
+                        f"scale={scale}")
+                kw = dict(inverse=inverse, scale=scale)
+                for kernel, got, ref in (
+                        ("inner", inner_fft.fft_inner(xr, xi, **kw),
+                         inner_fft.fft_inner_reference(xr, xi, **kw)),
+                        ("inner_nd", inner_fft.fft_inner_nd(
+                            xr.reshape(v), xi.reshape(v), n=n, twiddle=tw,
+                            **kw),
+                         inner_fft.fft_inner_nd_reference(
+                             xr.reshape(v), xi.reshape(v), n=n, twiddle=tw,
+                             **kw))):
+                    hold(kernel, dtype, got, ref, what)
+                    at[dtype] = max(at[dtype], pair_err(got, ref))
+        print(f"  strided n={n} (3, {n}, 241): f32 "
+              f"{inner_fft.form(n, 241, torch.float32)} form, bf16 "
+              f"{inner_fft.form(n, 241, torch.bfloat16)} form; max "
+              f"normalized error f32 {at[torch.float32]:.3e}, bf16 "
+              f"{at[torch.bfloat16]:.3e}")
     for n1, n2 in PAIRS:
         for dtype in (torch.float32, torch.bfloat16):
             xr, xi = _planes((13, n1, n2), dtype, seed=n1 * n2)
@@ -611,6 +650,22 @@ def phase_new_times() -> dict:
                            xr, xi, inverse=False, scale=1.0), gb,
                        flops=_fft_flops(n, pre * post),
                        library=lambda: torch.fft.fft(xc, dim=1))
+            print(f"  K2 {shape}: {inner_fft.form(n, post, torch.float32)} "
+                  f"form, {inner_fft.line_geometry(n, post, torch.float32)}")
+            # K2 on rfft2's half spectrum: 241 columns, rows unaligned
+            h = (pre, n, post // 2 + 1)
+            hr, hi = _device_planes(h, seed=4)
+            hc = torch.complex(hr, hi)
+            kernel_row("inner_241", h,
+                       lambda: inner_fft.fft_inner(hr, hi, inverse=False,
+                                                   scale=1.0),
+                       lambda: inner_fft.fft_inner_reference(
+                           hr, hi, inverse=False, scale=1.0), _pass_gb(h),
+                       flops=_fft_flops(n, pre * h[2]),
+                       library=lambda: torch.fft.fft(hc, dim=1))
+            print(f"  K2 {h}: {inner_fft.form(n, h[2], torch.float32)} form, "
+                  f"{inner_fft.line_geometry(n, h[2], torch.float32)}")
+            del hr, hi, hc
             moved = _time_ms(lambda: _movedim_route(xr, xi))
             print(f"  movedim route of axis 1 {shape} (copy, K1, copy "
                   f"back): {moved:.4f} ms")
@@ -631,6 +686,9 @@ def phase_new_times() -> dict:
                            r3, i3, n=n1, inverse=False, scale=1.0), gb,
                        flops=_fft_flops(n1, pre * n2 * n3),
                        library=lambda: torch.fft.fft(xc, dim=1))
+            print(f"  K3 {v}, n = {n1}: "
+                  f"{inner_fft.form(n1, n2 * n3, torch.float32)} form, "
+                  f"{inner_fft.line_geometry(n1, n2 * n3, torch.float32)}")
             c3 = xc.reshape(v)
             kernel_row("pair", v,
                        lambda: pair_fft.fft_pair(r3, i3, inverse=False,
@@ -667,7 +725,12 @@ def phase_new_times() -> dict:
                            twiddle=tw),
                        lambda: inner_fft.fft_inner_nd_reference(
                            r3, i3, n=a, inverse=False, scale=1.0,
-                           twiddle=tw), gb)
+                           twiddle=tw), gb,
+                       library=lambda: torch.fft.fft(
+                           xc.reshape(rows, a, b), dim=1))
+            print(f"  K3 + twiddle {v}, n = {a}: "
+                  f"{inner_fft.form(a, b, torch.float32)} form, "
+                  f"{inner_fft.line_geometry(a, b, torch.float32)}")
             r2, i2 = xr.reshape(rows * a, b), xi.reshape(rows * a, b)
             kernel_row("minor", (rows * a, b),
                        lambda: minor_fft.fft_minor(r2, i2, inverse=False,
@@ -1967,6 +2030,13 @@ FUSED_CASES = tuple(
     ("inner", (2, 16, 5, 8)), ("inner", (1, 2048, 3, 8)),
     ("inner_m1", (5, 128, 93)), ("inner_m1", (3, 8, 16384)),
     ("inner_m1", (13, 93, 64)),
+) + tuple(
+    # K18/K19 at every length of the strided line form, halves L = 2 to
+    # 256 (a unit's columns spanning several m; L < 8 takes 8 columns
+    # of several halves)
+    case for i, n in enumerate(STRIDED_LINE_NS) for case in (
+        ("inner", (3, n, 5, (2, 8, 64, 256)[i % 4])),
+        ("inner_m1", (3, n, (256, 64, 8, 16)[i % 4])))) + (
     ("pair", (13, 64, 64)), ("pair", (13, 8, 93)), ("pair", (5, 128, 128)),
     ("pair", (7, 160, 48)),
 ) + tuple(("cube", (3,) + c) for c in CUBES)
@@ -2014,6 +2084,15 @@ def phase_fused_kernels() -> None:
                           f"{shape} {dtype} inverse={inverse} scale={scale}")
         for k, v in at.items():
             worst[k] = max(worst.get(k, 0.0), v)
+        if key in ("inner", "inner_m1") and shape[1] in STRIDED_LINE_NS:
+            M, L = (shape[2], shape[3]) if key == "inner" else (1, shape[2])
+            print(f"  {'K18' if key == 'inner' else 'K19'} {shape}: f32 "
+                  f"{fused_fft.inner_form(shape[1], M, L, torch.float32)} "
+                  f"form, bf16 "
+                  f"{fused_fft.inner_form(shape[1], M, L, torch.bfloat16)} "
+                  f"form; max normalized error f32 "
+                  f"{at[(key, torch.float32)]:.3e}, bf16 "
+                  f"{at[(key, torch.bfloat16)]:.3e}")
         if key == "minor":
             print(f"  K20 {shape} ({fused_fft.minor_form(shape[1])} form): "
                   f"max normalized error f32 {at[(key, torch.float32)]:.3e}, "
@@ -2201,6 +2280,9 @@ def phase_layout_times() -> dict:
                            xr.reshape(v3), xi.reshape(v3), n=n, **kw),
                        lambda: torch.fft.fft(xc, dim=1), nb,
                        _fft_flops(n, xr.numel() // n))
+            print(f"  K18_{name} {v4}: "
+                  f"{fused_fft.inner_form(n, M, shape[-1], torch.float32)} "
+                  "form")
             if name == "P3":
                 n2, n3 = shape[-2:]
                 v = (-1, n2, 2 * n3)
@@ -2230,6 +2312,9 @@ def phase_layout_times() -> dict:
                                **kw),
                            lambda: torch.fft.fft(c3, dim=1), nb,
                            _fft_flops(n2, xr.numel() // n2))
+                print(f"  K19 {v4}: "
+                      f"{fused_fft.inner_form(n2, 1, n3, torch.float32)} "
+                      "form")
                 v2 = (-1, 2 * n3)
                 r2, i2 = xr.reshape(-1, n3), xi.reshape(-1, n3)
                 kernel_row("K20", str(tuple(packed.reshape(v2).shape)),

@@ -350,6 +350,157 @@ def test_strided_kernel_matches_plain_version(n, dtype, tol, cuda_device):
                     "inner_nd": before["inner_nd"] + 2}
 
 
+# the strided kernel's line form: n = r 2^a, r in {1, 3, 5}, 8 to 2048
+STRIDED_LINE_NS = sorted(r * 2 ** a for r in (1, 3, 5) for a in range(12)
+                         if 8 <= r * 2 ** a <= 2048)
+
+
+def _line_posts(n, dtype):
+    """post of 1-3 columns (the stage form), 8, C - 1, C, C + 1 around the
+    default columns a unit, 241 and 480."""
+    c = inner_fft.line_geometry(n, 4096, dtype)["cols"] if (
+        inner_fft.form(n, 4096, dtype) == "lines") else 16
+    return sorted({1, 2, 3, 8, c - 1, c, c + 1, 241, 480})
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", STRIDED_LINE_NS)
+def test_strided_line_form_matches_plain_version(n, dtype, tol, cuda_device):
+    """K2 and K3 (with and without the (n, M) twiddle) at every length of
+    the line form against their plain versions, on a ragged pre (3) and
+    posts that run each form (``inner_fft.form``), both directions, scale
+    1 and 1/n: each call launches the kernel once and never its plain
+    version."""
+    min_cols = 16 if dtype == torch.bfloat16 else 8
+    for post in _line_posts(n, dtype):
+        want = ("lines" if post >= min_cols and not (
+            dtype == torch.bfloat16 and n > 1024) else "stages")
+        assert inner_fft.form(n, post, dtype) == want
+        xr, xi = _planes((3, n, post), cuda_device, dtype, seed=n + post)
+        M = next(m for m in (5, 3, 2, 1) if post % m == 0)
+        tw = _twiddle(n, M, cuda_device, seed=post)
+        v = (3 * n, M, post // M)
+        for inverse in (False, True):
+            for scale in (1.0, 1.0 / n):
+                kw = dict(inverse=inverse, scale=scale)
+                for twiddle in (None, tw):
+                    before = dict(inner_fft.launches)
+                    plain = inner_fft.reference_cuda_calls
+                    if twiddle is None:
+                        got = inner_fft.fft_inner(xr, xi, **kw)
+                        key = "inner"
+                    else:
+                        got = inner_fft.fft_inner_nd(
+                            xr.reshape(v), xi.reshape(v), n=n,
+                            twiddle=twiddle, **kw)
+                        key = "inner_nd"
+                    assert inner_fft.launches[key] == before[key] + 1
+                    assert inner_fft.reference_cuda_calls == plain
+                    if twiddle is None:
+                        ref = inner_fft.fft_inner_reference(xr, xi, **kw)
+                    else:
+                        ref = inner_fft.fft_inner_nd_reference(
+                            xr.reshape(v), xi.reshape(v), n=n,
+                            twiddle=twiddle, **kw)
+                    torch.cuda.synchronize()
+                    assert got[0].dtype == dtype
+                    assert _err(got, ref) < tol, (post, inverse, scale,
+                                                  twiddle is not None)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", STRIDED_LINE_NS)
+def test_strided_line_form_fused_matches_plain_version(n, dtype, tol,
+                                                       cuda_device):
+    """K18 (M = 3) and K19 (M = 1) on fused (3, n, M, 2L) arrays at halves
+    L = 2, 8, 64 and 256 (a unit's columns spanning several m, and the re
+    and im halves interleaving by L), both directions, scale 1 and 1/n."""
+    from tpufft_torch.kernels import fused_fft
+    for L in (2, 8, 64, 256):
+        for M in (1, 3):
+            st = _fused_array((3, n, M, L), cuda_device, dtype, seed=n + L)
+            key = "inner" if M > 1 else "inner_m1"
+            assert fused_fft.inner_form(n, M, L, dtype) == inner_fft.form(
+                n, M * L, dtype)
+            for inverse in (False, True):
+                for scale in (1.0, 1.0 / n):
+                    kw = dict(inverse=inverse, scale=scale)
+                    before = fused_fft.launches[key]
+                    plain = fused_fft.reference_cuda_calls
+                    got = fused_fft.fft_inner_fused(st, **kw)
+                    assert fused_fft.launches[key] == before + 1
+                    assert fused_fft.reference_cuda_calls == plain
+                    ref = fused_fft.fft_inner_fused_reference(st, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == dtype
+                    assert _fused_err(got, ref) < tol, (L, M, inverse, scale)
+
+
+def _column_edges(xr, xi):
+    """+Inf, -Inf and NaN in the re plane of columns 0-2, 3.4e38 in column
+    3, and columns 5 and 6 (both planes) scaled by 1e-20 and 1e18."""
+    xr, xi = xr.clone(), xi.clone()
+    n = xr.shape[1]
+    xr[0, 5 % n, 0] = float("inf")
+    xr[1, 7 % n, 1] = float("-inf")
+    xr[2, 3 % n, 2] = float("nan")
+    xr[0, 9 % n, 3] = 3.4e38
+    for x in (xr, xi):
+        x[:, :, 5] *= 1e-20
+        x[:, :, 6] *= 1e18
+    return xr, xi
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["K2", "K18"])
+@pytest.mark.parametrize("n", [8, 12, 20, 40, 64, 128, 640, 1024, 2048])
+def test_strided_line_form_edge_values(n, fused, cuda_device):
+    """Edge-value columns through the line form, as K1's rows: the lines
+    holding Inf or NaN come out non-finite in the kernel and in the plain
+    version alike and no line without such an input does, except that the
+    3.4e38 line may overflow in a butterfly's sum; the other lines, the
+    1e-20 and 1e18 columns among them, are within 1e-5 of the plain
+    version relative to their own magnitude, and so is the 3.4e38 line
+    where it stays finite."""
+    from tpufft_torch.kernels import fused_fft
+    post = 40
+    xr, xi = _column_edges(*_planes((3, n, post), cuda_device, seed=n))
+    assert inner_fft.form(n, post, torch.float32) == "lines"
+    if fused:
+        st = torch.cat([xr, xi], -1).reshape(3, n, 1, 2 * post).contiguous()
+        out = fused_fft.fft_inner_fused(st, inverse=False, scale=1.0)
+        ref = fused_fft.fft_inner_fused_reference(st, inverse=False,
+                                                  scale=1.0)
+        got = (out[..., 0, :post], out[..., 0, post:])
+        ref = (ref[..., 0, :post], ref[..., 0, post:])
+    else:
+        got = inner_fft.fft_inner(xr, xi, inverse=False, scale=1.0)
+        ref = inner_fft.fft_inner_reference(xr, xi, inverse=False, scale=1.0)
+    torch.cuda.synchronize()
+    # one line a (slice, column): rows of (3 * post, n)
+    got = tuple(t.transpose(1, 2).reshape(-1, n) for t in got)
+    ref = tuple(t.transpose(1, 2).reshape(-1, n) for t in ref)
+    lines = {"inf": 0 * post + 0, "-inf": 1 * post + 1, "nan": 2 * post + 2,
+             "big": 0 * post + 3}
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[[lines["inf"], lines["-inf"], lines["nan"]]].all()
+        others = torch.ones_like(bad)
+        others[list(lines.values())] = False
+        assert not bad[others].any()
+    keep = torch.ones(got[0].shape[0], dtype=torch.bool, device=cuda_device)
+    keep[list(lines.values())] = False
+    assert _complex_row_err((got[0][keep], got[1][keep]),
+                            (ref[0][keep], ref[1][keep])) < 1e-5
+    b = lines["big"]
+    if torch.isfinite(got[0][b]).all() and torch.isfinite(got[1][b]).all():
+        assert _complex_row_err((got[0][b:b + 1], got[1][b:b + 1]),
+                                (ref[0][b:b + 1], ref[1][b:b + 1])) < 1e-5
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)],
                          ids=["f32", "bf16"])

@@ -122,6 +122,27 @@ def test_minor_form(n, expected):
         n, torch.float32)
 
 
+@pytest.mark.parametrize("n,M,L,dtype,expected", [
+    (128, 128, 128, torch.float32, "lines"),     # P3's K18
+    (128, 1, 256, torch.float32, "lines"),       # P4's K19
+    (64, 128, 256, torch.float32, "lines"),      # P4's K18
+    (64, 4096, 64, torch.bfloat16, "lines"),     # P2's K18 in bf16
+    (640, 5, 2, torch.float32, "lines"),         # 10 columns of 5 halves
+    (2048, 1, 8, torch.float32, "lines"),
+    (2048, 1, 8, torch.bfloat16, "stages"),      # 16 columns, 1024 lanes
+    (8, 1, 7, torch.float32, "stages"),          # under 8 columns
+    (96, 2, 7, torch.bfloat16, "stages"),        # under 16 bf16 columns
+    (93, 128, 128, torch.float32, "stages"),     # T1's length
+    (4096, 3, 8, torch.float32, "stages"),
+    (131, 3, 8, torch.float32, None)])
+def test_inner_form(n, M, L, dtype, expected):
+    """K18/K19 run the strided kernel's form for the (pre, n, M L) logical
+    planes: the line form at n = r 2^a, r in {1, 3, 5}, 8 to 2048 on at
+    least 8 f32 (16 bf16) columns, whatever M and L split them into."""
+    assert fused_fft.inner_form(n, M, L, dtype) == expected
+    assert (expected is not None) == fused_fft.inner_supported(n, dtype)
+
+
 @pytest.mark.parametrize("kernel,shape", [
     ("cube", (2, 3, 16, 24)), ("pair", (3, 7, 93)), ("minor", (5, 93)),
     ("inner", (3, 5, 7, 93)), ("inner_m1", (2, 93, 5))])

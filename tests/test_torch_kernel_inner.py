@@ -13,7 +13,11 @@ normalized by the spectrum's magnitude:
   sides round their f32 result to bf16 at the store.
 
 The CUDA kernel itself needs the card: ``test_torch_cuda.py`` holds it
-against these plain versions there.
+against these plain versions there. Here, a model of the kernel's line
+form (``csrc/strided_line.cuh``) in torch, with its four-step split, lane
+lines, output orders and table exponents, is held against tpufft in
+interpret mode and against ``np.fft`` (1e-5), its tile mapping is checked
+for every geometry, and ``inner_fft.form`` across n, post and dtype.
 """
 
 import numpy as np
@@ -24,7 +28,7 @@ import jax.numpy as jnp
 from tpufft import PlanConfig as TPPlanConfig
 from tpufft.kernels import mxu_fft as tp_mxu
 
-from tpufft_torch.kernels import inner_fft
+from tpufft_torch.kernels import inner_fft, minor_fft
 
 NS = [8, 93, 128, 256, 1024]
 TOL = {"f32": 1e-5, "bf16": 8e-3}
@@ -139,3 +143,342 @@ def test_wrappers_refuse_non_cuda_devices(call):
     never runs the plain version."""
     with pytest.raises(ValueError, match="CUDA device"):
         call(torch.empty(2, 4, 8, device="meta"))
+
+
+# ----------------------------------------------------------------------------
+# The line form (csrc/strided_line.cuh): a model with the kernel's indexing
+# ----------------------------------------------------------------------------
+
+LINE_NS = sorted(inner_fft._LINE_SPLITS)   # n = r 2^a, r in {1, 3, 5}
+
+
+def _first_radix(n):
+    """``first_radix``: 8 (4 at 16), 4, 2, then 3 or 5."""
+    return (8 if n % 8 == 0 and n != 16 else 4 if n % 4 == 0
+            else 2 if n % 2 == 0 else 3 if n % 3 == 0 else 5)
+
+
+def _lane_out(n, r):
+    """``lane_out<n>(r)``: the index in its line of register r."""
+    if n == 1:
+        return 0
+    a = _first_radix(n)
+    b = n // a
+    return r // b + a * _lane_out(b, r % b)
+
+
+def _radix_dft(t, a, inverse):
+    """The radix-a butterfly over the last dim of a complex64 tensor: the
+    kernel's radix-3 and radix-5 formulas with its f32 constants, an exact
+    DFT matrix for 2, 4 and 8."""
+    sg = -1.0 if inverse else 1.0
+    if a == 3:
+        s = np.float32(0.86602540378443864676) * sg
+        x0, x1, x2 = t.unbind(-1)
+        tt, d = x1 + x2, x1 - x2
+        m = x0 - 0.5 * tt
+        isd = torch.complex(s * d.imag, -s * d.real)      # -i s d
+        return torch.stack([x0 + tt, m + isd, m - isd], -1)
+    if a == 5:
+        c1 = np.float32(0.30901699437494742410)
+        c2 = np.float32(-0.80901699437494742410)
+        s1 = np.float32(0.95105651629515357212) * sg
+        s2 = np.float32(0.58778525229247312917) * sg
+        x0, x1, x2, x3, x4 = t.unbind(-1)
+        a1, d1, a2, d2 = x1 + x4, x1 - x4, x2 + x3, x2 - x3
+        m1 = x0 + c1 * a1 + c2 * a2
+        m2 = x0 + c2 * a1 + c1 * a2
+        e1 = s1 * d1 + s2 * d2
+        e2 = s2 * d1 - s1 * d2
+        ie1 = torch.complex(e1.imag, -e1.real)            # -i e
+        ie2 = torch.complex(e2.imag, -e2.real)
+        return torch.stack([x0 + a1 + a2, m1 + ie1, m2 + ie2, m2 - ie2,
+                            m1 - ie1], -1)
+    k = np.arange(a)
+    w = np.exp((1j if inverse else -1j) * 2 * np.pi * np.outer(k, k) / a)
+    w = np.round(w.real, 15) + 1j * np.round(w.imag, 15)
+    return t @ torch.from_numpy(w.T.astype(np.complex64))
+
+
+def _lane_dft(x, n, ktab, w, inverse):
+    """``lane_dft<n, ktab>`` on the registers x (last dim, register order):
+    radix-A butterflies over registers b + B a, times W_n^(a b) =
+    w[a b ktab], then the B-long sub-lines; register q + B a ends holding
+    X[lane_out(n, q + B a)]."""
+    if n == 1:
+        return x
+    a = _first_radix(n)
+    b = n // a
+    y = x.reshape(*x.shape[:-1], a, b)                    # [a, b]
+    y = _radix_dft(y.transpose(-1, -2), a, inverse).transpose(-1, -2)
+    ab = torch.outer(torch.arange(a), torch.arange(b))
+    y = y * w[ab * ktab]
+    return _lane_dft(y, b, ktab * a, w, inverse).reshape(x.shape)
+
+
+def _pair_dft(x, ktab, w, inverse):
+    """``pair_dft<32, ktab>`` on a 64-long line x (last dim, natural
+    order): lane p transforms x[p + 2 i], the pair swaps, and register r
+    of lane p ends holding X[pair_out(p, r)]; returns both lanes'
+    registers, (..., 2, 32)."""
+    f = [_lane_dft(x[..., p::2], 32, 2 * ktab, w, inverse) for p in (0, 1)]
+    lanes = []
+    for p in (0, 1):
+        regs = torch.arange(16) + 16 * p
+        k = torch.tensor([_lane_out(32, int(r)) for r in regs])
+        a, b = f[0][..., regs], f[1][..., regs] * w[k * ktab]
+        lanes.append(torch.cat([a + b, a - b], -1))
+    return torch.stack(lanes, -2)
+
+
+def _pair_out(p, r):
+    return _lane_out(32, r % 16 + 16 * p) + 32 * (r // 16)
+
+
+def _line_model(x, inverse, scale, twiddle=None):
+    """The line form's arithmetic on a complex64 (pre, n, post) tensor,
+    indexed as the kernels index it: one line a lane for n <= 32; else
+    pass 1 over the N1-long column lines j2 (register j1 = x[N2 j1 + j2]),
+    times w^(k1 j2) read at (k1 j2) mod n, pass 2 over the N2-long lines
+    k1 (a 64-long one on a lane pair), X[k1 + N1 k2]; then ``twiddle``
+    ((n, M) complex: output (k, c) times twiddle[k, c / (post / M)]) and
+    the scale."""
+    pre, n, post = x.shape
+    n1, n2 = inner_fft._LINE_SPLITS[n]
+    tab = minor_fft._device_twiddles(n, inverse, torch.device("cpu"))
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    out = torch.empty(pre, post, n, dtype=torch.complex64)
+    if n2 == 1:
+        v = _lane_dft(x.transpose(1, 2), n, 1, w, inverse)
+        out[..., [_lane_out(n, q) for q in range(n)]] = v
+    else:
+        xv = x.reshape(pre, n1, n2, post).permute(0, 3, 2, 1)  # [c, j2, j1]
+        v = _lane_dft(xv, n1, n2, w, inverse)                  # [c, j2, q]
+        k1 = torch.tensor([_lane_out(n1, q) for q in range(n1)])
+        y = torch.empty(pre, post, n1, n2, dtype=torch.complex64)
+        y[:, :, k1, :] = v.transpose(-1, -2)                   # [c, k1, j2]
+        y = y * w[(torch.outer(torch.arange(n1), torch.arange(n2))) % n]
+        if n2 == 64:
+            v2 = _pair_dft(y, n1, w, inverse)                  # [c, k1, p, r]
+            k2 = [[_pair_out(p, r) for r in range(32)] for p in (0, 1)]
+            for p in (0, 1):
+                for r in range(32):
+                    out[..., n1 * k2[p][r] + torch.arange(n1)] = v2[..., p, r]
+        else:
+            v2 = _lane_dft(y, n2, n1, w, inverse)              # [c, k1, q]
+            for q in range(n2):
+                out[..., n1 * _lane_out(n2, q) + torch.arange(n1)] = \
+                    v2[..., q]
+    out = out.transpose(1, 2)                                  # (pre, n, post)
+    if twiddle is not None:
+        tw = torch.complex(twiddle[..., 0], twiddle[..., 1])
+        out = out * tw.repeat_interleave(post // tw.shape[1], dim=1)
+    return out * scale
+
+
+@pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", [64, 96, 128, 640])
+def test_line_model_matches_build_inner(n, inverse, unit_scale):
+    """The line form's four-step (``_LINE_SPLITS``), its radix-3 and
+    radix-5 lane lines with their output order and the table exponents
+    (k1 j2) mod n, against tpufft's ``_build_inner`` in interpret mode on
+    a (3, n, 40) array."""
+    re, im = _planes((3, n, 40), seed=n + 5)
+    scale = 1.0 if unit_scale else 1.0 / n
+    ref = tp_mxu.fft_axis_pallas(
+        jnp.asarray(re), jnp.asarray(im), 1, (), inverse=inverse,
+        scale=scale, config=TP_CFG)
+    got = _line_model(torch.complex(torch.from_numpy(re),
+                                    torch.from_numpy(im)), inverse, scale)
+    assert _err(got.numpy(), _np(*ref)) < 1e-5
+
+
+@pytest.mark.parametrize("with_tw", [False, True], ids=["plain", "with_tw"])
+@pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_line_model_matches_build_inner_nd(inverse, unit_scale, with_tw):
+    """The model with ``tw_nm`` at the store against tpufft's
+    ``_build_inner_nd`` (``with_tw``) at n = 128 on (2 * 128, 5, 9)."""
+    n, pre, M, L = 128, 2, 5, 9
+    re, im = _planes((pre * n, M, L), seed=11)
+    scale = 1.0 if unit_scale else 1.0 / n
+    run = tp_mxu._plan_inner_nd(n, inverse, scale, M, L, TP_CFG, True,
+                                with_tw=with_tw, storage="f32")
+    twc, tws = _two_pass_like_twiddle(n, M)
+    if with_tw:
+        ref = run(jnp.asarray(re), jnp.asarray(im),
+                  jnp.asarray(twc, jnp.float32), jnp.asarray(tws, jnp.float32))
+        twiddle = torch.from_numpy(np.stack([twc, tws], -1).astype(np.float32))
+    else:
+        ref = run(jnp.asarray(re), jnp.asarray(im))
+        twiddle = None
+    x = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    got = _line_model(x.reshape(pre, n, M * L), inverse, scale, twiddle)
+    assert _err(got.reshape(pre * n, M, L).numpy(), _np(*ref)) < 1e-5
+
+
+@pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("shape", [(2, 16, 8, 64), (3, 8, 64),
+                                   (2, 128, 4, 64), (2, 128, 64)],
+                         ids=["inner", "inner_m1", "inner_128",
+                              "inner_m1_128"])
+def test_line_model_matches_build_inner_fused(shape, unit_scale):
+    """The model on fused storage, (pre, n, M, 2L) read as the (pre, n,
+    M L) logical planes, against tpufft's ``_build_inner_fused`` (M > 1)
+    and ``_build_inner_fused_m1`` (M = 1) in interpret mode."""
+    n = shape[1]
+    re, im = _planes(shape, seed=sum(shape))
+    st = np.concatenate([re, im], -1)
+    scale = 1.0 if unit_scale else 1.0 / n
+    ref = np.asarray(tp_mxu.fft_axis_fused_pallas(
+        jnp.asarray(st), 1, inverse=False, scale=scale,
+        config=TPPlanConfig(interpret=True, backend="pallas",
+                            precision="highest")))
+    h = shape[-1]
+    view = (shape[0], n, -1)
+    x = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    got = _line_model(x.reshape(view), False, scale).reshape(shape)
+    assert _err(got.numpy(), ref[..., :h] + 1j * ref[..., h:]) < 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", [1024, 1280, 1536, 2048])
+def test_line_model_matches_numpy(n, inverse):
+    """The long lengths (lane pairs at 1280, 1536 and 2048) against
+    ``np.fft`` in float64 on a (2, n, 9) array."""
+    re, im = _planes((2, n, 9), seed=n)
+    x = re.astype(np.float64) + 1j * im
+    ref = np.fft.ifft(x, axis=1) * n if inverse else np.fft.fft(x, axis=1)
+    got = _line_model(torch.complex(torch.from_numpy(re),
+                                    torch.from_numpy(im)), inverse, 1.0)
+    assert _err(got.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("n", LINE_NS)
+def test_line_model_every_length(n):
+    """Every length of the form, forward, against ``np.fft``."""
+    re, im = _planes((2, n, 3), seed=n + 1)
+    ref = np.fft.fft(re.astype(np.float64) + 1j * im, axis=1)
+    got = _line_model(torch.complex(torch.from_numpy(re),
+                                    torch.from_numpy(im)), False, 1.0)
+    assert _err(got.numpy(), ref) < 1e-5
+
+
+def _tile_accesses(geo):
+    """Per half warp of each instruction of one unit, the tile positions
+    (float2) and the elements (c, k1, j2) that the active lanes of
+    ``strided_lane_kernel`` write in pass 1 and read in pass 2, or None
+    for a half warp with no active lane; raises if a half warp is only
+    partly active. Positions ((k1 N2 + (j2 ^ (k1 & 1))) C + c)."""
+    n1, n2, cols, lanes = geo["n1"], geo["n2"], geo["cols"], geo["threads"]
+
+    def pos(c, k1, j2):
+        return (k1 * n2 + (j2 ^ (k1 & 1))) * cols + c
+
+    def halves(acc):
+        out = []
+        for h in range(0, lanes, 16):
+            part = [a for a in acc[h:h + 16] if a is not None]
+            assert len(part) in (0, 16), "a half warp partly active"
+            out.append(part or None)
+        return out
+
+    writes, reads = [], []
+    for s in range(-(-32 // n1)):
+        for q in range(n1):
+            acc = []
+            for t in range(lanes):
+                line = t + lanes * s
+                if line >= cols * n2:
+                    acc.append(None)
+                    continue
+                c, j2 = line % cols, line // cols
+                k1 = _lane_out(n1, q)
+                acc.append((pos(c, k1, j2), (c, k1, j2)))
+            writes += halves(acc)
+    if n2 == 64:
+        for i in range(32):
+            acc = []
+            for t in range(lanes):
+                line = (t & 15) + 16 * (t >> 5)
+                p = (t >> 4) & 1
+                if line >= cols * n1:
+                    acc.append(None)
+                    continue
+                c, k1 = line % cols, line // cols
+                acc.append((pos(c, k1, p + 2 * i), (c, k1, p + 2 * i)))
+            reads += halves(acc)
+    else:
+        for s in range(-(-32 // n2)):
+            for j in range(n2):
+                acc = []
+                for t in range(lanes):
+                    line = t + lanes * s
+                    if line >= cols * n1:
+                        acc.append(None)
+                        continue
+                    c, k1 = line % cols, line // cols
+                    acc.append((pos(c, k1, j), (c, k1, j)))
+                reads += halves(acc)
+    return ([h for h in writes if h is not None],
+            [h for h in reads if h is not None])
+
+
+LINE_GEOMETRIES = [(n, c) for n in LINE_NS for c in (8, 16, 32)
+                   if inner_fft._LINE_SPLITS[n][1] > 1
+                   and inner_fft.line_geometry(n, 4096, torch.float32, c)]
+
+
+@pytest.mark.parametrize("n,cols", LINE_GEOMETRIES)
+def test_line_tile_mapping(n, cols):
+    """One unit's tile: pass 1 writes every element (c, k1, j2) of its C
+    columns once, at a distinct position inside the C n tile; pass 2 reads
+    each back from the position it was written to; every half warp is
+    wholly active or idle, and each active half warp of both passes
+    touches 16 distinct bank pairs (8-byte values: position mod 16), so the
+    tile has no bank conflict."""
+    geo = inner_fft.line_geometry(n, 4096, torch.float32, cols)
+    assert geo["threads"] % 32 == 0 and geo["threads"] >= cols * n // 32
+    writes, reads = _tile_accesses(geo)
+    where = {}
+    for half in writes:
+        for p, e in half:
+            assert e not in where
+            where[e] = p
+    assert len(where) == cols * n
+    assert sorted(where.values()) == list(range(cols * n))
+    seen = set()
+    for half in reads:
+        for p, e in half:
+            assert where[e] == p and e not in seen
+            seen.add(e)
+    assert seen == set(where)
+    for half in writes + reads:
+        assert len({p % 16 for p, _ in half}) == 16, (n, cols, half)
+
+
+@pytest.mark.parametrize("n,post,dtype,expected", (
+    [(n, 480, torch.float32, "lines") for n in LINE_NS]
+    + [(n, 8, torch.float32, "lines") for n in (8, 40, 640, 2048)]
+    + [(n, 7, torch.float32, "stages") for n in (8, 128, 2048)]
+    + [(n, 1, torch.float32, "stages") for n in (8, 640)]
+    + [(n, 16, torch.bfloat16, "lines") for n in (8, 96, 640, 1024)]
+    + [(n, 15, torch.bfloat16, "stages") for n in (8, 128, 1024)]
+    + [(n, 480, torch.bfloat16, "stages") for n in (1280, 1536, 2048)]
+    + [(n, 480, torch.float32, "stages")
+       for n in (2, 4, 5, 6, 93, 127, 480, 960, 2560, 4096, 16384)]
+    + [(131, 480, torch.float32, None), (16385, 480, torch.float32, None),
+       (128, 480, torch.float64, None)]))
+def test_form(n, post, dtype, expected):
+    """The form each launch runs: n = r 2^a, r in {1, 3, 5}, 8 to 2048, on
+    at least 8 f32 or 16 bf16 columns (bf16 up to n = 1024, where 16
+    columns stay within 512 lanes) runs the line form, the rest of the
+    envelope the stage form; the geometry narrows C to post."""
+    assert inner_fft.form(n, post, dtype) == expected
+    geo = inner_fft.line_geometry(n, post, dtype)
+    assert (geo is not None) == (expected == "lines")
+    if geo:
+        assert geo["n1"] * geo["n2"] == n
+        assert geo["cols"] <= max(post, 16 if dtype == torch.bfloat16 else 8)
+        assert geo["cols"] >= (16 if dtype == torch.bfloat16 else 8)

@@ -37,6 +37,14 @@ calls, in ms:
   (10000, 64, 93) zero-padded to (10000, 64, 128), K4's packed form on
   (200000, 8, 93) (five slices a block), and K17 (``fft_pair_fused``) on
   the (1280, 128, 2 x 128) fused array, beside ``torch.fft.fft2``;
+- the strided kernel: K2 (``fft_inner``) on (100, 640, 480) (``fft2``'s
+  axis 1) and on ``rfft2``'s (100, 640, 241), each beside ``torch.fft.fft``
+  of it along dim 1 (``cuFFT``), and on T1's (1, 93, 1000000) (the stage
+  form, whose code did not change); K3 (``fft_inner_nd``, n = 128) on
+  (1280, 128, 128) and with the two-pass twiddle on (16384, 1024, 1)
+  (``K3_tw``); K18 (``fft_inner_fused``) on P3's fused (10, 128, 128, 2 x
+  128) and K19 on P4's (1024, 128, 1, 2 x 256); the ``fft2`` path of
+  (100, 640, 480) ``SplitComplex`` planes (K2 + K1);
 - the lane-fused plans P3 (10, 128, 128, 128) and P4 (16, 64, 128, 256)
   over axes 1-3;
 - the dense kernels at their paths' shapes: K11 (``dense_mm_real``,
@@ -59,8 +67,9 @@ NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
 K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
-K8, rfft, fht, K13, K4, K4_n2_in,
-K4_packed, K17, P3, P4, K11, K12, K10, K14, K15, filter_real, dct, dst4)
+K8, rfft, fht, K13, K4, K4_n2_in, K4_packed, K17, K2, K2_241, K2_93, K3,
+K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10, K14, K15, filter_real, dct,
+dst4)
 and times those alone. Needs the card.
 """
 
@@ -74,8 +83,9 @@ TIMER = r"""
 import inspect, statistics, torch
 import numpy as np
 from tpufft_torch import SplitComplex, plan_fft, spectral
-from tpufft_torch.kernels import (cube_fft, fused_fft, mid_pair_fft,
-                                  minor_fft, pair_fft, real_fft, stft_mm)
+from tpufft_torch.kernels import (cube_fft, fused_fft, inner_fft,
+                                  mid_pair_fft, minor_fft, pair_fft, real_fft,
+                                  stft_mm)
 
 def median_ms(fn, reps=20):
     fn(); fn(); torch.cuda.synchronize()
@@ -223,6 +233,45 @@ for name, shape, n2 in (("K4", (1280, 128, 128), 128),
         rows["K17"] = median_ms(lambda: fused_fft.fft_pair_fused(st, **kw))
         del st
     del pr, pi
+
+for name, shape in (("K2", (100, 640, 480)), ("K2_241", (100, 640, 241)),
+                    ("K2_93", (1, 93, 1000000))):
+    if want(name):
+        xr = torch.randn(*shape, generator=g, device="cuda")
+        xi = torch.randn(*shape, generator=g, device="cuda")
+        rows[name] = median_ms(lambda: inner_fft.fft_inner(xr, xi, **kw))
+        if name != "K2_93":
+            c = torch.complex(xr, xi)
+            rows[name + " cuFFT"] = median_ms(lambda: torch.fft.fft(c, dim=1))
+            del c
+        del xr, xi
+if want("K3"):
+    xr = torch.randn(1280, 128, 128, generator=g, device="cuda")
+    xi = torch.randn(1280, 128, 128, generator=g, device="cuda")
+    rows["K3"] = median_ms(lambda: inner_fft.fft_inner_nd(xr, xi, n=128,
+                                                          **kw))
+    del xr, xi
+if want("K3_tw"):
+    from tpufft_torch import execute
+    a, b = execute._split_large(1048576)
+    xr = torch.randn(16 * a, b, 1, generator=g, device="cuda")
+    xi = torch.randn(16 * a, b, 1, generator=g, device="cuda")
+    tw = execute._device_two_pass_twiddle(a, b, False, xr.device)
+    rows["K3_tw"] = median_ms(lambda: inner_fft.fft_inner_nd(
+        xr, xi, n=a, twiddle=tw, **kw))
+    del xr, xi
+for name, shape in (("K18", (10, 128, 128, 256)),
+                    ("K19", (1024, 128, 1, 512))):
+    if want(name):
+        st = torch.randn(*shape, generator=g, device="cuda")
+        rows[name] = median_ms(lambda: fused_fft.fft_inner_fused(st, **kw))
+        del st
+if want("fft2"):
+    import tpufft_torch
+    x = SplitComplex(torch.randn(100, 640, 480, generator=g, device="cuda"),
+                     torch.randn(100, 640, 480, generator=g, device="cuda"))
+    rows["fft2"] = median_ms(lambda: tpufft_torch.fft2(x))
+    del x
 
 for name, shape in (("P3", (10, 128, 128, 128)), ("P4", (16, 64, 128, 256))):
     if not want(name):

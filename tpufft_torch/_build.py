@@ -118,6 +118,7 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(i32), i32,    # radices, number of stages
         vp, i32, ctypes.c_longlong,  # (n, M) twiddle or None, M, L
         i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        i32,                         # form: 0 auto, -1 stages, 8/16/32 lines
         vp,                          # cudaStream_t
     ]
     lib.tpufft_strided_fft.restype = i32
@@ -162,6 +163,7 @@ def load() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_longlong,  # M, L (the half)
         ctypes.POINTER(i32), i32,    # radices, number of stages
         i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
+        i32,                         # form: 0 auto, -1 stages, 8/16/32 lines
         vp,                          # cudaStream_t
     ]
     lib.tpufft_strided_fft_fused.restype = i32

@@ -18,23 +18,32 @@
 //
 // What bounds it on an H100: device-memory bandwidth, as for the minor
 // axis (~3 flop/byte), plus the access pattern: the n values of one
-// transform lie `post` elements apart. A block therefore takes an
-// (n, cols) tile - n strided rows, `cols` contiguous columns - and loads it
-// with neighbouring threads on neighbouring columns (coalesced runs of
-// cols elements), transposing it into shared memory as cols rows of
-// length n. It runs the shared Stockham stages (fft_stages.cuh) on those
-// rows and stores the tile back the same way. Every element crosses device
-// memory once each way. The tile is (n, cols) with n * cols <= 4096 for
-// n <= 1024 (512 threads, two or more blocks an SM, as the minor kernel
-// packs short rows) and <= 16384 for longer n (1024 threads, up to 139 KB
-// of shared memory, one block an SM). Measured on an H100 at 700 W, the
-// small tiles ran 2.4x faster at n = 640 and 1.2x at n = 1024 than the
-// large ones despite their narrower column runs (4 columns at n = 1024),
-// and 1.4-1.7x slower at n = 2048 and 4096: with one block an SM nothing
-// overlaps a block's load, stages and store. When post is narrower than a
-// tile, one block takes several pre-slices.
+// transform lie `post` elements apart.
 //
-// Known costs left for later work:
+// The kernel has two forms; launch_sized picks one by (n, post, storage)
+// (kernels/inner_fft.py:form mirrors the choice). The line form
+// (strided_line.cuh: n = r 2^a, r in {1, 3, 5}, from 8 to 2048, post of at
+// least 8 f32 or 16 bf16 columns) keeps each column line in registers and
+// crosses shared memory once; its design notes are there. Every other
+// launch runs the stage form below (strided_fft_kernel), e.g. n = 93, 480
+// (two odd factors) and n > 2048.
+//
+// The stage form: a block takes an (n, cols) tile - n strided rows, `cols`
+// contiguous columns - and loads it with neighbouring threads on neighbouring
+// columns (coalesced runs of cols elements), transposing it into shared memory
+// as cols rows of length n. It runs the shared Stockham stages
+// (fft_stages.cuh) on those rows and stores the tile back the same way. Every
+// element crosses device memory once each way. The tile is (n, cols) with n *
+// cols <= 4096 for n <= 1024 (512 threads, two or more blocks an SM, as the
+// minor kernel packs short rows) and <= 16384 for longer n (1024 threads, up
+// to 139 KB of shared memory, one block an SM). Measured on an H100 at 700 W,
+// the small tiles ran 2.4x faster at n = 640 and 1.2x at n = 1024 than the
+// large ones despite their narrower column runs (4 columns at n = 1024), and
+// 1.4-1.7x slower at n = 2048 and 4096: with one block an SM nothing overlaps
+// a block's load, stages and store. When post is narrower than a tile, one
+// block takes several pre-slices.
+//
+// Known costs of the stage form:
 // - at n = 16384 a tile is one column wide, so each load is a lone
 //   4-byte access per row (a four-step or TMA tiles would fix it);
 // - writing the transposed tile into shared memory hits one bank with up
@@ -42,8 +51,10 @@
 //   pad() serves their own strides, not this one).
 
 #include <climits>
+#include <type_traits>
 
 #include "fft_stages.cuh"
+#include "strided_line.cuh"
 
 using namespace tpufft_fft;
 
@@ -181,12 +192,24 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
+// The form (n, post) runs (cols 0), or the one cols names: -1 the stage
+// form, 8, 16 or 32 the line form with that many columns a unit (tools
+// that time the forms against each other force them).
 template <typename T, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, const void* tw_nm, long long pre,
                  long long post, int tw_m, long long tw_l,
-                 const Radices& plan, int inverse, float scale,
+                 const Radices& plan, int inverse, float scale, int cols,
                  cudaStream_t stream) {
+  tpufft_strided::LineGeometry g;
+  if (cols >= 0 &&
+      tpufft_strided::line_geometry(
+          plan.n, post, std::is_same<T, __nv_bfloat16>::value, cols, &g))
+    return tpufft_strided::launch_line<T, kFused>(
+        {xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m, tw_l, inverse, scale,
+         stream},
+        g);
+  if (cols > 0) return (int)cudaErrorInvalidValue;
   const Tile t = tile_for(pre, plan.n, post);
   if (t.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (t.per == 8)
@@ -203,11 +226,11 @@ int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
 template <typename T>
 int launch_fused(const void* st, void* out, const void* tw, long long pre,
                  long long M, long long L, const Radices& plan, int inverse,
-                 float scale, cudaStream_t stream) {
+                 float scale, int cols, cudaStream_t stream) {
   const T* x = static_cast<const T*>(st);
   T* y = static_cast<T*>(out);
   return launch_sized<T, true>(x, x + L, y, y + L, tw, nullptr, pre, M * L,
-                               0, L, plan, inverse, scale, stream);
+                               0, L, plan, inverse, scale, cols, stream);
 }
 
 }  // namespace
@@ -218,13 +241,15 @@ int launch_fused(const void* st, void* out, const void* tw, long long pre,
 // radices[0:nstages] multiply to n, each 2, 4, 8 or an odd value up to 127.
 // tw_nm is null, or an (n, tw_m) complex f32 table with tw_m * tw_l = post
 // that multiplies output (k, m * tw_l + l) by tw_nm[k, m] before the
-// scale. Returns 0 or the CUDA error code of the launch.
+// scale. cols = 0 runs the form launch_sized picks (-1, 8, 16, 32 force
+// one, for tools; a forced line form outside it is an error). Returns 0
+// or the CUDA error code of the launch.
 extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
                                   void* yi, const void* tw, long long pre,
                                   int n, long long post, const int* radices,
                                   int nstages, const void* tw_nm, int tw_m,
                                   long long tw_l, int inverse, float scale,
-                                  int bf16, void* stream) {
+                                  int bf16, int cols, void* stream) {
   Radices plan;
   if (pre < 0 || post < 0 || post > INT_MAX ||
       !make_radices(n, radices, nstages, &plan))
@@ -236,22 +261,23 @@ extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
   if (bf16)
     return launch_sized<__nv_bfloat16, false>(xr, xi, yr, yi, tw, tw_nm, pre,
                                               post, tw_m, tw_l, plan, inverse,
-                                              scale, s);
+                                              scale, cols, s);
   return launch_sized<float, false>(xr, xi, yr, yi, tw, tw_nm, pre, post,
-                                    tw_m, tw_l, plan, inverse, scale, s);
+                                    tw_m, tw_l, plan, inverse, scale, cols,
+                                    s);
 }
 
 // K18 (M > 1) and K19 (M == 1): axis 1 of the (pre, n, M, 2L) array st in
 // fused storage, each L-row [re(0..L-1) | im(0..L-1)], into `out` of the
 // same shape; tw, radices, inverse, scale, bf16 and stream as for
-// tpufft_strided_fft; M, L >= 1 and M * L <= INT_MAX. Returns 0 or the
-// CUDA error code of the launch.
+// tpufft_strided_fft; M, L >= 1 and M * L <= INT_MAX; cols as for
+// tpufft_strided_fft. Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_strided_fft_fused(const void* st, void* out,
                                         const void* tw, long long pre, int n,
                                         long long M, long long L,
                                         const int* radices, int nstages,
                                         int inverse, float scale, int bf16,
-                                        void* stream) {
+                                        int cols, void* stream) {
   Radices plan;
   if (pre < 0 || M < 1 || L < 1 || M > INT_MAX / L ||
       !make_radices(n, radices, nstages, &plan))
@@ -260,7 +286,7 @@ extern "C" int tpufft_strided_fft_fused(const void* st, void* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_fused<__nv_bfloat16>(st, out, tw, pre, M, L, plan, inverse,
-                                       scale, s);
+                                       scale, cols, s);
   return launch_fused<float>(st, out, tw, pre, M, L, plan, inverse, scale,
-                             s);
+                             cols, s);
 }

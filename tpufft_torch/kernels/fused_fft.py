@@ -23,7 +23,9 @@ kernel K4 (``csrc/pair_fft.cu``), K18 and K19 the strided kernel K2/K3
 (``csrc/strided_fft.cu``, h = L) and K20 the minor-axis kernel K1
 (``csrc/minor_fft.cuh``), in K1's form for the length (:func:`minor_form`:
 the register line form at power-of-two n up to 4096, the Stockham stages
-elsewhere). The contract is theirs: f32 or bf16 storage, f32
+elsewhere); K18/K19 likewise run the strided kernel's form
+(:func:`inner_form`: the column line form at n = r 2^a, r in {1, 3, 5},
+from 8 to 2048). The contract is theirs: f32 or bf16 storage, f32
 arithmetic, a forward/inverse flag, one real scale applied once at the
 store. Each is bound by device-memory bandwidth like its sibling: it moves
 the same bytes, in runs of h values a plane instead of whole rows.
@@ -61,6 +63,7 @@ __all__ = [
     "fft_minor_fused_reference",
     "fft_pair_fused",
     "fft_pair_fused_reference",
+    "inner_form",
     "inner_supported",
     "launches",
     "minor_form",
@@ -105,6 +108,15 @@ def inner_supported(n: int, dtype) -> bool:
     strided kernel's envelope (``minor_fft.supported``), for any M and L;
     tpufft's dense-W and ``l2 % 128`` rules do not apply."""
     return minor_fft.supported(n, dtype)
+
+
+def inner_form(n: int, M: int, L: int, dtype) -> str | None:
+    """Which form of the strided kernel K18/K19 runs on axis 1 of the
+    (pre, n, M, 2L) fused array: ``inner_fft.form`` of its M * L logical
+    columns (``"lines"`` for n = r 2^a, r in {1, 3, 5}, from 8 to 2048 on
+    at least 8 f32 or 16 bf16 columns, ``"stages"`` for the rest of the
+    envelope, None outside it)."""
+    return inner_fft.form(n, M * L, dtype)
 
 
 def minor_supported(n: int, dtype) -> bool:
@@ -259,7 +271,7 @@ def fft_inner_fused(st: torch.Tensor, *, inverse: bool,
         err = lib.tpufft_strided_fft_fused(
             st.data_ptr(), out.data_ptr(), tw.data_ptr(), pre, n, M, L, arr,
             k, int(bool(inverse)), float(scale),
-            int(st.dtype == torch.bfloat16),
+            int(st.dtype == torch.bfloat16), 0,
             torch.cuda.current_stream().cuda_stream)
     _done(name, err)
     launches["inner" if M > 1 else "inner_m1"] += 1
