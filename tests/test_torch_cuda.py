@@ -22,6 +22,10 @@ from tpufft_torch.kernels import (cube_fft, dense_mm, inner_fft,
                                   mid_pair_fft, minor_fft, pair_fft, real_fft,
                                   stft_mm)
 
+from test_torch_strided_geometry import FORM_CASES
+from test_torch_strided_geometry import LINE_NS as STRIDED_LINE_NS
+from test_torch_strided_geometry import model_form, model_geometry
+
 pytestmark = pytest.mark.cuda
 
 
@@ -350,9 +354,25 @@ def test_strided_kernel_matches_plain_version(n, dtype, tol, cuda_device):
                     "inner_nd": before["inner_nd"] + 2}
 
 
-# the strided kernel's line form: n = r 2^a, r in {1, 3, 5}, 8 to 2048
-STRIDED_LINE_NS = sorted(r * 2 ** a for r in (1, 3, 5) for a in range(12)
-                         if 8 <= r * 2 ** a <= 2048)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_strided_geometry_matches_model(dtype, cuda_device):
+    """The form and geometry the launch takes, read from the library
+    (``inner_fft.form``, ``line_geometry``), are the model's that the CPU
+    tests walk (``test_torch_strided_geometry.py``) at every length of the
+    line form and at stage-form lengths, on posts around each C, and give
+    the forms of ``FORM_CASES``."""
+    bf16 = dtype == torch.bfloat16
+    for n in STRIDED_LINE_NS + [2, 6, 93, 127, 480, 960, 2560, 4096, 16384]:
+        for post in (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 241, 480, 4096,
+                     1000000):
+            want = model_geometry(n, post, bf16)
+            assert inner_fft.line_geometry(n, post, dtype) == want, (n, post)
+            assert inner_fft.form(n, post, dtype) == model_form(
+                n, post, dtype), (n, post)
+    for n, post, dt, expected in FORM_CASES:
+        if dt == dtype:
+            assert inner_fft.form(n, post, dt) == expected, (n, post)
 
 
 def _line_posts(n, dtype):

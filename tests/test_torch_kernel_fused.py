@@ -28,6 +28,8 @@ from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import fused_fft
 
+from test_torch_strided_geometry import use_model
+
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", precision="highest")
 
 # kernel: (logical shape, tpufft's call, the port's wrapper, transformed
@@ -135,10 +137,13 @@ def test_minor_form(n, expected):
     (93, 128, 128, torch.float32, "stages"),     # T1's length
     (4096, 3, 8, torch.float32, "stages"),
     (131, 3, 8, torch.float32, None)])
-def test_inner_form(n, M, L, dtype, expected):
+def test_inner_form(n, M, L, dtype, expected, monkeypatch):
     """K18/K19 run the strided kernel's form for the (pre, n, M L) logical
     planes: the line form at n = r 2^a, r in {1, 3, 5}, 8 to 2048 on at
-    least 8 f32 (16 bf16) columns, whatever M and L split them into."""
+    least 8 f32 (16 bf16) columns, whatever M and L split them into. The
+    library's geometry query is answered by the model
+    (``test_torch_strided_geometry.use_model``)."""
+    use_model(monkeypatch)
     assert fused_fft.inner_form(n, M, L, dtype) == expected
     assert (expected is not None) == fused_fft.inner_supported(n, dtype)
 

@@ -17,7 +17,9 @@ against these plain versions there. Here, a model of the kernel's line
 form (``csrc/strided_line.cuh``) in torch, with its four-step split, lane
 lines, output orders and table exponents, is held against tpufft in
 interpret mode and against ``np.fft`` (1e-5), its tile mapping is checked
-for every geometry, and ``inner_fft.form`` across n, post and dtype.
+for every geometry, and ``inner_fft.form`` across n, post and dtype. The
+geometry comes from the model in ``test_torch_strided_geometry.py``, which
+``test_torch_cuda.py`` holds against the library's on the card.
 """
 
 import numpy as np
@@ -29,6 +31,9 @@ from tpufft import PlanConfig as TPPlanConfig
 from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import inner_fft, minor_fft
+
+from test_torch_strided_geometry import (FORM_CASES, LINE_NS, SPLITS,
+                                         model_geometry, use_model)
 
 NS = [8, 93, 128, 256, 1024]
 TOL = {"f32": 1e-5, "bf16": 8e-3}
@@ -149,9 +154,6 @@ def test_wrappers_refuse_non_cuda_devices(call):
 # The line form (csrc/strided_line.cuh): a model with the kernel's indexing
 # ----------------------------------------------------------------------------
 
-LINE_NS = sorted(inner_fft._LINE_SPLITS)   # n = r 2^a, r in {1, 3, 5}
-
-
 def _first_radix(n):
     """``first_radix``: 8 (4 at 16), 4, 2, then 3 or 5."""
     return (8 if n % 8 == 0 and n != 16 else 4 if n % 4 == 0
@@ -244,7 +246,7 @@ def _line_model(x, inverse, scale, twiddle=None):
     ((n, M) complex: output (k, c) times twiddle[k, c / (post / M)]) and
     the scale."""
     pre, n, post = x.shape
-    n1, n2 = inner_fft._LINE_SPLITS[n]
+    n1, n2 = SPLITS[n]
     tab = minor_fft._device_twiddles(n, inverse, torch.device("cpu"))
     w = torch.complex(tab[:, 0], tab[:, 1])
     out = torch.empty(pre, post, n, dtype=torch.complex64)
@@ -280,7 +282,7 @@ def _line_model(x, inverse, scale, twiddle=None):
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 @pytest.mark.parametrize("n", [64, 96, 128, 640])
 def test_line_model_matches_build_inner(n, inverse, unit_scale):
-    """The line form's four-step (``_LINE_SPLITS``), its radix-3 and
+    """The line form's four-step (``SPLITS``), its radix-3 and
     radix-5 lane lines with their output order and the table exponents
     (k1 j2) mod n, against tpufft's ``_build_inner`` in interpret mode on
     a (3, n, 40) array."""
@@ -426,8 +428,7 @@ def _tile_accesses(geo):
 
 
 LINE_GEOMETRIES = [(n, c) for n in LINE_NS for c in (8, 16, 32)
-                   if inner_fft._LINE_SPLITS[n][1] > 1
-                   and inner_fft.line_geometry(n, 4096, torch.float32, c)]
+                   if SPLITS[n][1] > 1 and model_geometry(n, 4096, False, c)]
 
 
 @pytest.mark.parametrize("n,cols", LINE_GEOMETRIES)
@@ -438,7 +439,7 @@ def test_line_tile_mapping(n, cols):
     wholly active or idle, and each active half warp of both passes
     touches 16 distinct bank pairs (8-byte values: position mod 16), so the
     tile has no bank conflict."""
-    geo = inner_fft.line_geometry(n, 4096, torch.float32, cols)
+    geo = model_geometry(n, 4096, False, cols)
     assert geo["threads"] % 32 == 0 and geo["threads"] >= cols * n // 32
     writes, reads = _tile_accesses(geo)
     where = {}
@@ -458,23 +459,14 @@ def test_line_tile_mapping(n, cols):
         assert len({p % 16 for p, _ in half}) == 16, (n, cols, half)
 
 
-@pytest.mark.parametrize("n,post,dtype,expected", (
-    [(n, 480, torch.float32, "lines") for n in LINE_NS]
-    + [(n, 8, torch.float32, "lines") for n in (8, 40, 640, 2048)]
-    + [(n, 7, torch.float32, "stages") for n in (8, 128, 2048)]
-    + [(n, 1, torch.float32, "stages") for n in (8, 640)]
-    + [(n, 16, torch.bfloat16, "lines") for n in (8, 96, 640, 1024)]
-    + [(n, 15, torch.bfloat16, "stages") for n in (8, 128, 1024)]
-    + [(n, 480, torch.bfloat16, "stages") for n in (1280, 1536, 2048)]
-    + [(n, 480, torch.float32, "stages")
-       for n in (2, 4, 5, 6, 93, 127, 480, 960, 2560, 4096, 16384)]
-    + [(131, 480, torch.float32, None), (16385, 480, torch.float32, None),
-       (128, 480, torch.float64, None)]))
-def test_form(n, post, dtype, expected):
+@pytest.mark.parametrize("n,post,dtype,expected", FORM_CASES)
+def test_form(n, post, dtype, expected, monkeypatch):
     """The form each launch runs: n = r 2^a, r in {1, 3, 5}, 8 to 2048, on
     at least 8 f32 or 16 bf16 columns (bf16 up to n = 1024, where 16
     columns stay within 512 lanes) runs the line form, the rest of the
-    envelope the stage form; the geometry narrows C to post."""
+    envelope the stage form; the geometry narrows C to post. The library's
+    geometry query is answered by the model (``use_model``)."""
+    use_model(monkeypatch)
     assert inner_fft.form(n, post, dtype) == expected
     geo = inner_fft.line_geometry(n, post, dtype)
     assert (geo is not None) == (expected == "lines")

@@ -118,7 +118,6 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(i32), i32,    # radices, number of stages
         vp, i32, ctypes.c_longlong,  # (n, M) twiddle or None, M, L
         i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
-        i32,                         # form: 0 auto, -1 stages, 8/16/32 lines
         vp,                          # cudaStream_t
     ]
     lib.tpufft_strided_fft.restype = i32
@@ -163,10 +162,14 @@ def load() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_longlong,  # M, L (the half)
         ctypes.POINTER(i32), i32,    # radices, number of stages
         i32, ctypes.c_float, i32,    # inverse, scale, bf16 storage
-        i32,                         # form: 0 auto, -1 stages, 8/16/32 lines
         vp,                          # cudaStream_t
     ]
     lib.tpufft_strided_fft_fused.restype = i32
+    lib.tpufft_strided_line_geometry.argtypes = [
+        i32, ctypes.c_longlong, i32,  # n, post, bf16 storage
+        ctypes.POINTER(i32),         # out: N1, N2, C, threads, smem bytes
+    ]
+    lib.tpufft_strided_line_geometry.restype = i32
     lib.tpufft_pair_fft_fused.argtypes = [
         vp, vp, vp, vp,              # st, out, n1 and n2 tables
         ctypes.c_longlong, i32, i32,  # pre, n1, n2

@@ -20,13 +20,13 @@
 // axis (~3 flop/byte), plus the access pattern: the n values of one
 // transform lie `post` elements apart.
 //
-// The kernel has two forms; launch_sized picks one by (n, post, storage)
-// (kernels/inner_fft.py:form mirrors the choice). The line form
-// (strided_line.cuh: n = r 2^a, r in {1, 3, 5}, from 8 to 2048, post of at
-// least 8 f32 or 16 bf16 columns) keeps each column line in registers and
-// crosses shared memory once; its design notes are there. Every other
-// launch runs the stage form below (strided_fft_kernel), e.g. n = 93, 480
-// (two odd factors) and n > 2048.
+// The kernel has two forms; launch_sized picks one by (n, post, storage),
+// and tpufft_strided_line_geometry below tells kernels/inner_fft.py:form
+// which. The line form (strided_line.cuh: n = r 2^a, r in {1, 3, 5}, from 8
+// to 2048, post of at least 8 f32 or 16 bf16 columns) keeps each column
+// line in registers and crosses shared memory once; its design notes are
+// there. Every other launch runs the stage form below (strided_fft_kernel),
+// e.g. n = 93, 480 (two odd factors) and n > 2048.
 //
 // The stage form: a block takes an (n, cols) tile - n strided rows, `cols`
 // contiguous columns - and loads it with neighbouring threads on neighbouring
@@ -192,24 +192,20 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// The form (n, post) runs (cols 0), or the one cols names: -1 the stage
-// form, 8, 16 or 32 the line form with that many columns a unit (tools
-// that time the forms against each other force them).
+// The line form where line_geometry gives one, else the stage form.
 template <typename T, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, const void* tw_nm, long long pre,
                  long long post, int tw_m, long long tw_l,
-                 const Radices& plan, int inverse, float scale, int cols,
+                 const Radices& plan, int inverse, float scale,
                  cudaStream_t stream) {
   tpufft_strided::LineGeometry g;
-  if (cols >= 0 &&
-      tpufft_strided::line_geometry(
-          plan.n, post, std::is_same<T, __nv_bfloat16>::value, cols, &g))
+  if (tpufft_strided::line_geometry(
+          plan.n, post, std::is_same<T, __nv_bfloat16>::value, &g))
     return tpufft_strided::launch_line<T, kFused>(
         {xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m, tw_l, inverse, scale,
          stream},
         g);
-  if (cols > 0) return (int)cudaErrorInvalidValue;
   const Tile t = tile_for(pre, plan.n, post);
   if (t.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (t.per == 8)
@@ -226,11 +222,11 @@ int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
 template <typename T>
 int launch_fused(const void* st, void* out, const void* tw, long long pre,
                  long long M, long long L, const Radices& plan, int inverse,
-                 float scale, int cols, cudaStream_t stream) {
+                 float scale, cudaStream_t stream) {
   const T* x = static_cast<const T*>(st);
   T* y = static_cast<T*>(out);
   return launch_sized<T, true>(x, x + L, y, y + L, tw, nullptr, pre, M * L,
-                               0, L, plan, inverse, scale, cols, stream);
+                               0, L, plan, inverse, scale, stream);
 }
 
 }  // namespace
@@ -241,15 +237,13 @@ int launch_fused(const void* st, void* out, const void* tw, long long pre,
 // radices[0:nstages] multiply to n, each 2, 4, 8 or an odd value up to 127.
 // tw_nm is null, or an (n, tw_m) complex f32 table with tw_m * tw_l = post
 // that multiplies output (k, m * tw_l + l) by tw_nm[k, m] before the
-// scale. cols = 0 runs the form launch_sized picks (-1, 8, 16, 32 force
-// one, for tools; a forced line form outside it is an error). Returns 0
-// or the CUDA error code of the launch.
+// scale. Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
                                   void* yi, const void* tw, long long pre,
                                   int n, long long post, const int* radices,
                                   int nstages, const void* tw_nm, int tw_m,
                                   long long tw_l, int inverse, float scale,
-                                  int bf16, int cols, void* stream) {
+                                  int bf16, void* stream) {
   Radices plan;
   if (pre < 0 || post < 0 || post > INT_MAX ||
       !make_radices(n, radices, nstages, &plan))
@@ -261,23 +255,22 @@ extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
   if (bf16)
     return launch_sized<__nv_bfloat16, false>(xr, xi, yr, yi, tw, tw_nm, pre,
                                               post, tw_m, tw_l, plan, inverse,
-                                              scale, cols, s);
+                                              scale, s);
   return launch_sized<float, false>(xr, xi, yr, yi, tw, tw_nm, pre, post,
-                                    tw_m, tw_l, plan, inverse, scale, cols,
-                                    s);
+                                    tw_m, tw_l, plan, inverse, scale, s);
 }
 
 // K18 (M > 1) and K19 (M == 1): axis 1 of the (pre, n, M, 2L) array st in
 // fused storage, each L-row [re(0..L-1) | im(0..L-1)], into `out` of the
 // same shape; tw, radices, inverse, scale, bf16 and stream as for
-// tpufft_strided_fft; M, L >= 1 and M * L <= INT_MAX; cols as for
-// tpufft_strided_fft. Returns 0 or the CUDA error code of the launch.
+// tpufft_strided_fft; M, L >= 1 and M * L <= INT_MAX. Returns 0 or the
+// CUDA error code of the launch.
 extern "C" int tpufft_strided_fft_fused(const void* st, void* out,
                                         const void* tw, long long pre, int n,
                                         long long M, long long L,
                                         const int* radices, int nstages,
                                         int inverse, float scale, int bf16,
-                                        int cols, void* stream) {
+                                        void* stream) {
   Radices plan;
   if (pre < 0 || M < 1 || L < 1 || M > INT_MAX / L ||
       !make_radices(n, radices, nstages, &plan))
@@ -286,7 +279,24 @@ extern "C" int tpufft_strided_fft_fused(const void* st, void* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_fused<__nv_bfloat16>(st, out, tw, pre, M, L, plan, inverse,
-                                       scale, cols, s);
+                                       scale, s);
   return launch_fused<float>(st, out, tw, pre, M, L, plan, inverse, scale,
-                             cols, s);
+                             s);
+}
+
+// The form a launch of n-long lines over post columns (M L on fused
+// storage) in f32 (bf16 = 0) or bf16 storage runs: 1 and out[0:5] = {N1,
+// N2, C, threads, shared-memory bytes} of the line form (N2 = 1: one line a
+// lane, no tile), or 0 for the stage form. n must lie in the kernel's
+// envelope.
+extern "C" int tpufft_strided_line_geometry(int n, long long post, int bf16,
+                                            int* out) {
+  tpufft_strided::LineGeometry g;
+  if (!tpufft_strided::line_geometry(n, post, bf16 != 0, &g)) return 0;
+  out[0] = g.n1;
+  out[1] = g.n2;
+  out[2] = 1 << g.cols_log2;
+  out[3] = g.threads;
+  out[4] = (int)g.smem;
+  return 1;
 }

@@ -60,10 +60,12 @@
 #include <utility>
 
 #include "fft_stages.cuh"
+#include "minor_fft.cuh"
 
 namespace tpufft_strided {
 
 using namespace tpufft_fft;
+using tpufft_minor::resident_grid;
 
 constexpr int kLinesThreads = 128;   // a block of strided_lines_kernel
 constexpr size_t kSmemMax = 232448;  // shared memory a block may take
@@ -444,7 +446,7 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
 
 // The four-step n = N1 N2 of each length of the form (N2 even, lines of at
 // most 32 in a lane, a 64-long N2 on a lane pair); N2 = 1 for n <= 32, one
-// line a lane. False outside the form. kernels/inner_fft.py mirrors it.
+// line a lane. False outside the form.
 inline bool line_split(int n, int* n1, int* n2) {
   static const int kSplits[][3] = {
       {8, 8, 1},       {10, 10, 1},     {12, 12, 1},     {16, 16, 1},
@@ -470,52 +472,25 @@ struct LineGeometry {
   size_t smem;    // bytes: the padded n-table and the tile of C n values
 };
 
-// The line form's geometry for n and post in f32 or bf16 storage; cols = 0
-// takes the default C, the widest of 32, 16 and 8 whose team stays within
-// the launch bound (lane_threads) and whose columns within post; 8, 16
-// or 32 forces that C. False (the stage form) outside the form: n not in
-// line_split, post under 8 columns (16 in bf16) at the default, or a
-// block past the launch bound or the shared memory.
-inline bool line_geometry(int n, long long post, bool bf16, int cols,
+// The line form's geometry for n and post in f32 or bf16 storage: C, the
+// columns a unit, is the widest of 32, 16 and 8 whose team stays within the
+// launch bound (lane_threads) and whose columns within post. False (the
+// stage form) outside the form: n not in line_split, post under 8 columns
+// (16 in bf16), or a block past the launch bound or the shared memory.
+inline bool line_geometry(int n, long long post, bool bf16,
                           LineGeometry* g) {
   if (!line_split(n, &g->n1, &g->n2)) return false;
   const int min_cols = bf16 ? 16 : 8;
-  if (cols == 0) {
-    if (post < min_cols) return false;
-    cols = 32;
-    while (cols > min_cols &&
-           (cols > post ||
-            (g->n2 > 1 && cols * n / 32 > lane_threads(n, bf16))))
-      cols /= 2;
-  }
-  if (cols != 8 && cols != 16 && cols != 32) return false;
-  if (cols < min_cols) return false;
+  if (post < min_cols) return false;
+  int cols = 32;
+  while (cols > min_cols &&
+         (cols > post || (g->n2 > 1 && cols * n / 32 > lane_threads(n, bf16))))
+    cols /= 2;
   g->cols_log2 = cols == 8 ? 3 : cols == 16 ? 4 : 5;
   g->threads =
       g->n2 == 1 ? kLinesThreads : (cols * n / 32 + 31) / 32 * 32;
   g->smem = (size_t)(pad(n) + (g->n2 == 1 ? 0 : cols * n)) * sizeof(float2);
   return g->threads <= lane_threads(n, bf16) && g->smem <= kSmemMax;
-}
-
-// The grid of a kernel whose blocks loop over `work` items: at most the
-// blocks the card holds at once. Returns cudaSuccess with *blocks >= 1, or
-// the CUDA error (minor_fft.cuh's resident_grid, kept here so that this
-// form builds without K1's header).
-template <typename Kernel>
-inline cudaError_t line_grid(Kernel kernel, int threads, size_t smem,
-                             long long work, unsigned* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long resident = (long long)sms * per_sm;
-  *blocks = (unsigned)(work < resident ? work : resident);
-  return cudaSuccess;
 }
 
 // One launch's operands (strided_fft.cu fills it).
@@ -538,9 +513,8 @@ int launch_lines_as(const LineArgs& a, const LineGeometry& g) {
   const long long groups = (a.post + (1 << g.cols_log2) - 1) >> g.cols_log2;
   const long long per = kLinesThreads >> g.cols_log2;
   unsigned blocks = 0;
-  const cudaError_t err = line_grid(kernel, g.threads, g.smem,
-                                    (a.pre * groups + per - 1) / per,
-                                    &blocks);
+  const cudaError_t err = resident_grid(
+      kernel, g.threads, g.smem, (a.pre * groups + per - 1) / per, &blocks);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, g.threads, g.smem, a.stream>>>(
       static_cast<const T*>(a.xr), static_cast<const T*>(a.xi),
@@ -559,7 +533,7 @@ int launch_lane_as(const LineArgs& a, const LineGeometry& g) {
   unsigned blocks = 0;
   cudaError_t err = allow_smem(kernel, g.smem);
   if (err == cudaSuccess)
-    err = line_grid(kernel, g.threads, g.smem, a.pre * groups, &blocks);
+    err = resident_grid(kernel, g.threads, g.smem, a.pre * groups, &blocks);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, g.threads, g.smem, a.stream>>>(
       static_cast<const T*>(a.xr), static_cast<const T*>(a.xi),

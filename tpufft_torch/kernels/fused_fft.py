@@ -271,7 +271,7 @@ def fft_inner_fused(st: torch.Tensor, *, inverse: bool,
         err = lib.tpufft_strided_fft_fused(
             st.data_ptr(), out.data_ptr(), tw.data_ptr(), pre, n, M, L, arr,
             k, int(bool(inverse)), float(scale),
-            int(st.dtype == torch.bfloat16), 0,
+            int(st.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _done(name, err)
     launches["inner" if M > 1 else "inner_m1"] += 1

@@ -35,6 +35,7 @@ tensors, which the main path never makes.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,72 +57,44 @@ __all__ = [
 launches = {"inner": 0, "inner_nd": 0}
 reference_cuda_calls = 0
 
-# The line form's four-step n: (N1, N2) (csrc/strided_line.cuh,
-# line_split); N2 = 1 for n <= 32, one line a lane.
-_LINE_SPLITS = {8: (8, 1), 10: (10, 1), 12: (12, 1), 16: (16, 1),
-                20: (20, 1), 24: (24, 1), 32: (32, 1), 40: (10, 4),
-                48: (12, 4), 64: (8, 8), 80: (10, 8), 96: (12, 8),
-                128: (16, 8), 160: (20, 8), 192: (24, 8), 256: (16, 16),
-                320: (20, 16), 384: (24, 16), 512: (32, 16),
-                640: (32, 20), 768: (32, 24), 1024: (32, 32),
-                1280: (20, 64), 1536: (24, 64), 2048: (32, 64)}
-_LINES_THREADS = 128     # a block of the n <= 32 kernel
-_SMEM_MAX = 232448       # bytes of shared memory a block may take
 
-
-def _lane_threads(n: int, dtype) -> int:
-    """The four-step kernel's launch bound at n (``lane_threads``): 320
-    lanes a block (two blocks an SM, 96 registers a lane), or 512 where
-    the narrowest unit (8 f32 or 16 bf16 columns) takes more lanes."""
-    return 512 if n * (16 if dtype == torch.bfloat16 else 8) // 32 > 320 \
-        else 320
-
-
-def line_geometry(n: int, post: int, dtype, cols: int = 0) -> dict | None:
-    """The line form's geometry for (pre, n, post) planes in ``dtype``
-    storage, as ``line_geometry`` in ``csrc/strided_line.cuh`` computes it:
-    ``n1``, ``n2`` (the four-step; n2 = 1: one line a lane, no tile),
-    ``cols`` (C, columns a unit: by default the widest of 32, 16 and 8
-    whose team stays within the launch bound and whose columns within
-    post; or the ``cols`` given, 8, 16 or 32), ``threads`` (a block: one
-    team of C n / 32 lanes, a whole number of warps, within the launch
-    bound: 320 lanes, or 512 where 8 f32 or 16 bf16 columns need more),
-    ``pair`` (pass 2's 64-long lines on lane pairs) and ``smem`` (bytes:
-    the padded n-table and the tile of C n complex f32 values). None
-    where the launch runs the stage form."""
-    n, post = int(n), int(post)
-    if n not in _LINE_SPLITS or dtype not in minor_fft.STORAGE_DTYPES:
+@functools.lru_cache(maxsize=None)
+def _line_geometry(n: int, post: int, bf16: bool) -> dict | None:
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    if not lib.tpufft_strided_line_geometry(n, post, int(bf16), out):
         return None
-    n1, n2 = _LINE_SPLITS[n]
-    min_cols = 16 if dtype == torch.bfloat16 else 8
-    if cols == 0:
-        if post < min_cols:
-            return None
-        cols = 32
-        while cols > min_cols and (cols > post or (
-                n2 > 1 and cols * n // 32 > _lane_threads(n, dtype))):
-            cols //= 2
-    if cols not in (8, 16, 32) or cols < min_cols:
-        return None
-    threads = (_LINES_THREADS if n2 == 1
-               else (cols * n // 32 + 31) // 32 * 32)
-    smem = 8 * (n + n // 16 + (0 if n2 == 1 else cols * n))
-    if threads > _lane_threads(n, dtype) or smem > _SMEM_MAX:
-        return None
+    n1, n2, cols, threads, smem = out
     return {"n1": n1, "n2": n2, "cols": cols, "threads": threads,
             "pair": n2 == 64, "smem": smem}
 
 
-def form(n: int, post: int, dtype) -> str | None:
-    """Which form of the kernel transforms axis 1 of (pre, n, post) planes
-    in ``dtype`` storage: ``"lines"`` where :func:`line_geometry` gives a
-    geometry (n = r 2^a, r in {1, 3, 5}, 8 <= n <= 2048; post >= 8 f32 or
-    16 bf16 columns; bf16 up to n = 1024), ``"stages"`` for the rest of
-    the envelope, None outside it. Mirrors ``launch_sized`` in
-    ``csrc/strided_fft.cu``, which makes the choice at the launch."""
+def line_geometry(n: int, post: int, dtype) -> dict | None:
+    """The line form's geometry for (pre, n, post) planes in ``dtype``
+    storage, as the launch computes it (``line_geometry`` in
+    ``csrc/strided_line.cuh``, read through the library, so it needs the
+    CUDA toolkit): ``n1``, ``n2`` (the four-step; n2 = 1: one line a lane,
+    no tile), ``cols`` (C, columns a unit: the widest of 32, 16 and 8
+    whose block stays within the launch bound and whose columns within
+    post), ``threads`` (a block), ``pair`` (pass 2's 64-long lines on lane
+    pairs) and ``smem`` (bytes: the padded n-table and the tile of C n
+    complex f32 values). None where the launch runs the stage form."""
     if not minor_fft.supported(n, dtype):
         return None
-    return "lines" if line_geometry(n, post, dtype) else "stages"
+    geo = _line_geometry(int(n), int(post), dtype == torch.bfloat16)
+    return None if geo is None else dict(geo)
+
+
+def form(n: int, post: int, dtype) -> str | None:
+    """Which form of the kernel transforms axis 1 of (pre, n, post) planes
+    in ``dtype`` storage, as the launch picks it (``launch_sized`` in
+    ``csrc/strided_fft.cu``, read through the library): ``"lines"`` (n = r
+    2^a, r in {1, 3, 5}, 8 <= n <= 2048; post >= 8 f32 or 16 bf16 columns;
+    bf16 up to n = 1024), ``"stages"`` for the rest of the envelope, None
+    outside it."""
+    if not minor_fft.supported(n, dtype):
+        return None
+    return "stages" if line_geometry(n, post, dtype) is None else "lines"
 
 
 def reset_counts() -> None:
@@ -135,7 +108,7 @@ def reset_counts() -> None:
 def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
             scale: float, twiddle=None, tw_l: int = 0):
     """The strided kernel on the (pre, n, post) view of contiguous planes,
-    in the form :func:`form` names (the C side picks it)."""
+    in the form :func:`form` names."""
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if xr.numel() == 0:
@@ -151,7 +124,7 @@ def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
             tw.data_ptr(), pre, n, post, rad_arr, len(rad),
             None if twiddle is None else twiddle.data_ptr(), tw_m, tw_l,
             int(bool(inverse)), float(scale),
-            int(xr.dtype == torch.bfloat16), 0,
+            int(xr.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"strided_fft launch failed: CUDA error {err}")
