@@ -94,12 +94,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
     (100000, n) for n = 64 to 512;
 15. the short-time Fourier kernels K13 (overlapped-frame STFT, an FFT of
     each frame in shared memory), K14 (inverse STFT with overlap-add) and
-    K15 (Welch and CSD accumulators) against their plain versions: hop 128,
-    64 and 32, nperseg 128 to 1024, nfft > nperseg, detrend False,
-    "constant" and "linear", batches of 1, 3 and 70 rows, f32 and bf16
-    signals; for K13 also odd nfft (255, 93), a hop longer than a frame,
-    hop 1, ragged last runs of frames and a ShortTimeFFT's window and
-    per-bin factor (onesided2X, psd scaling, a phase shift);
+    K15 (Welch and CSD accumulators on K13's frame FFT) against their
+    plain versions: hop 128, 64 and 32, nperseg 128 to 1024, nfft >
+    nperseg, detrend False, "constant" and "linear", batches of 1, 3 and
+    70 rows, f32 and bf16 signals; for K13 and K15 also odd nfft (255,
+    93), a hop longer than a frame, hop 1, ragged last runs of frames, and
+    for K13 a ShortTimeFFT's window and per-bin factor (onesided2X, psd
+    scaling, a phase shift); K15 run twice on each case gives the same
+    bits;
 16. the spectral paths at full size on (64, 1048576) f32 signals, each call
     driven with every count set to 0 just before it and read just after:
     ``stft(nperseg=256)`` (K13), its ``istft`` (K14), ``welch`` (K15),
@@ -110,8 +112,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
     scipy in float64 on a few rows (limit 1e-4) and through the round
     trips;
 17. times: those paths, K13, K14 and K15 (welch, csd) alone at their
-    paths' shapes (K13's bound: its bytes, the signal read once and the
-    planes written once), their plain versions and the PyTorch yardsticks:
+    paths' shapes (each bound by its bytes: the signal read once and the
+    planes written once, or the planes read and the signal written; their
+    operations are the FFT's), their plain versions and the PyTorch
+    yardsticks:
     ``torch.stft(center=False)`` for K13, ``torch.istft`` for K14 and
     ``torch.stft`` then ``abs() ** 2`` and a sum (a short composition) for
     K15;
@@ -1503,8 +1507,9 @@ STFT_KERNEL_CASES = ((3, 256, 128, 256, 300, False),
 SIG = (64, 1_048_576)   # the spectral paths' signals
 
 
-# K13's frame FFT beyond those: odd nfft (255, 93), a hop longer than a
-# frame, hop 1 (4096 frames a block), ShortTimeFFT's operands (below)
+# K13's and K15's frame FFT beyond those: odd nfft (255, 93), a hop longer
+# than a frame, hop 1 (4096 frames a block); for K13 ShortTimeFFT's
+# operands (below)
 K13_CASES = ((4, 128, 64, 255, 1001, "linear"),
              (2, 93, 31, 93, 400, "constant"),
              (3, 64, 100, 64, 250, False),
@@ -1533,13 +1538,25 @@ def phase_stft_kernels() -> None:
               f"{key} {what}: output {got[0].dtype} {tuple(got[0].shape)}")
         check(err < F32_TOL, f"{key} vs plain {what}: {err:.3e} >= {F32_TOL}")
 
+    def hold_k15(what, x, y, w, nfft, detrend, hop):
+        """welch and csd against their plain versions; a second run gives
+        the same bits."""
+        for key, other in (("welch", None), ("csd", y)):
+            got = stft_mm.welch_accum(x, w, nfft, detrend, hop, other)
+            again = stft_mm.welch_accum(x, w, nfft, detrend, hop, other)
+            check(all(torch.equal(a, b) for a, b in zip(
+                got if other is not None else (got,),
+                again if other is not None else (again,))),
+                f"{key} {what}: two runs differ")
+            hold(key, what, got, stft_mm.welch_accum_reference(
+                x, w, nfft, detrend, hop, other))
+
     frame_cases = []
     for batch, nperseg, hop, nfft, nseg, detrend in STFT_KERNEL_CASES:
         win = scipy.signal.get_window("hann", nperseg)
         frame_cases.append((batch, hop, nseg, detrend, nfft,
                             spectral._frame_tables(win, nfft, 0.5, cuda)))
-        mr, mi = spectral._tables("stft", win, nperseg, nfft,
-                                  (detrend or None, 1.0), cuda)
+        w = spectral._frame_tables(win, nfft, 1.0, cuda)[0]
         ar, ai = spectral._tables("istft", win, nperseg, nfft, 1.0, cuda)
         m1 = nfft // 2 + 1
         n_sig = (nseg - 1) * hop + nperseg + hop - 1
@@ -1550,10 +1567,7 @@ def phase_stft_kernels() -> None:
                     f"nseg {nseg} detrend {detrend} {dtype}")
             # both sides read the same (bf16: the same rounded) values and
             # compute in f32: the f32 limit holds for either storage
-            hold("welch", what, stft_mm.welch_accum(x, mr, mi, hop),
-                 stft_mm.welch_accum_reference(x, mr, mi, hop))
-            hold("csd", what, stft_mm.welch_accum(x, mr, mi, hop, y),
-                 stft_mm.welch_accum_reference(x, mr, mi, hop, y))
+            hold_k15(what, x, y, w, nfft, detrend, hop)
             hold("istft", what, stft_mm.istft_ola(zr, zi, ar, ai, hop),
                  stft_mm.istft_ola_reference(zr, zi, ar, ai, hop))
     for batch, nperseg, hop, nfft, nseg, detrend in K13_CASES:
@@ -1562,23 +1576,29 @@ def phase_stft_kernels() -> None:
                             spectral._frame_tables(win, nfft, 1.0, cuda)))
     sft = _sft_k13()
     frame_cases.append((3, 64, 700, "constant", 200, sft._frame_tables(cuda)))
-    for batch, hop, nseg, detrend, nfft, (w, cr, ci) in frame_cases:
+    k15_cases = len(STFT_KERNEL_CASES) + len(K13_CASES)
+    for i, (batch, hop, nseg, detrend, nfft, (w, cr, ci)) in enumerate(
+            frame_cases):
         nperseg = w.shape[0]
         args = (w, cr, ci, nfft, detrend, hop, nseg)
         n_sig = (nseg - 1) * hop + nperseg + hop - 1
         for dtype in (torch.float32, torch.bfloat16):
-            x, _ = _planes((batch, n_sig), dtype, seed=nperseg + nseg)
-            hold("stft", f"batch {batch} nperseg {nperseg} hop {hop} nfft "
-                 f"{nfft} nseg {nseg} detrend {detrend} {dtype}",
-                 stft_mm.stft_frames(x, *args),
+            x, y = _planes((batch, n_sig), dtype, seed=nperseg + nseg)
+            what = (f"batch {batch} nperseg {nperseg} hop {hop} nfft "
+                    f"{nfft} nseg {nseg} detrend {detrend} {dtype}")
+            hold("stft", what, stft_mm.stft_frames(x, *args),
                  stft_mm.stft_frames_reference(x, *args))
+            if len(STFT_KERNEL_CASES) <= i < k15_cases:
+                # K15 on K13's cases (the window the stft case's, c = 1)
+                hold_k15(what, x, y, w, nfft, detrend, hop)
     torch.cuda.synchronize()
     for k in STFT_KERNELS:
         print(f"{k} vs plain (f32 and bf16 signals): max normalized error "
               f"{worst[k]:.3e} (tol {F32_TOL})")
     print(f"stft (K13) cases: {len(frame_cases)} x f32/bf16, among them odd "
           f"nfft 255 and 93 and ShortTimeFFT(onesided2X, mfft 200, "
-          f"phase_shift 5, psd)")
+          f"phase_shift 5, psd); welch and csd (K15) cases: {k15_cases} x "
+          f"f32/bf16, each run twice to the same bits")
 
 
 def _sft128():
@@ -1731,28 +1751,34 @@ def phase_spectral_times() -> dict:
     ar, ai = spectral._tables("istft", win.cpu().numpy(), nperseg, nperseg,
                               float(win.sum().item()), torch.device("cuda"))
     n_out = (nseg - 1) * hop + nperseg
+    # least work: the planes read once, the signal written once; an
+    # inverse real FFT a segment, its window and its overlap-add (2 flops a
+    # sample), far below the bytes
     kernel_row("istft", (batch, nseg, m1, hop),
                lambda: stft_mm.istft_ola(zr, zi, ar, ai, hop),
                lambda: stft_mm.istft_ola_reference(zr, zi, ar, ai, hop),
                lambda: torch.istft(zc, 256, hop, window=win32, center=True),
                f32 * (out_floats + batch * n_out),
-               4.0 * (nperseg // hop) * m1 * n_out * batch,
+               _fft_flops(nperseg, nseg * batch, real=True)
+               + 2.0 * nperseg * nseg * batch,
                "torch.istft(center=True)")
     del zr, zi, zc
-    # K15 at welch's shape (x as it is: no extension, no padding)
+    # K15 at welch's shape (x as it is: no extension, no padding); least
+    # work: the signal(s) read once, a real FFT a frame (two for csd) and a
+    # few flops a bin, far below the bytes
     nseg_w = 1 + (n - nperseg) // hop
-    mr1, mi1 = spectral._tables("stft", win.cpu().numpy(), nperseg, nperseg,
-                                ("constant", 1.0), torch.device("cuda"))
+    k15 = (win32, nperseg, "constant", hop)
+    fft_w = _fft_flops(nperseg, nseg_w * batch, real=True)
 
     def stft_sq():
         return torch.stft(x, 256, hop, window=win32, center=False,
                           return_complex=True).abs().pow(2).sum(-1)
 
     kernel_row("welch", (batch, n, nperseg, hop),
-               lambda: stft_mm.welch_accum(x, mr1, mi1, hop),
-               lambda: stft_mm.welch_accum_reference(x, mr1, mi1, hop),
+               lambda: stft_mm.welch_accum(x, *k15),
+               lambda: stft_mm.welch_accum_reference(x, *k15),
                stft_sq, f32 * (x.numel() + batch * m1),
-               (4.0 * nperseg + 3) * m1 * nseg_w * batch,
+               fft_w + 3.0 * m1 * nseg_w * batch,
                "torch.stft, abs()**2, sum")
 
     def stft_cross():
@@ -1763,10 +1789,10 @@ def phase_spectral_times() -> dict:
         return (a.conj() * b).sum(-1)
 
     kernel_row("csd", (batch, n, nperseg, hop),
-               lambda: stft_mm.welch_accum(x, mr1, mi1, hop, y),
-               lambda: stft_mm.welch_accum_reference(x, mr1, mi1, hop, y),
+               lambda: stft_mm.welch_accum(x, *k15, y),
+               lambda: stft_mm.welch_accum_reference(x, *k15, y),
                stft_cross, f32 * (2 * x.numel() + 2 * batch * m1),
-               (8.0 * nperseg + 8) * m1 * nseg_w * batch,
+               2 * fft_w + 8.0 * m1 * nseg_w * batch,
                "torch.stft twice, conj product, sum")
     # K13 and K14 at ShortTimeFFT's hop 64, m_num 128
     xp = torch.nn.functional.pad(x, (64, 64))

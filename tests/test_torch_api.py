@@ -30,6 +30,7 @@ import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex
 from tpufft_torch.convert import plan_from_fields, split_from_numpy
 from tpufft_torch.kernels import cube_fft, minor_fft, pair_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")

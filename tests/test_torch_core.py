@@ -13,6 +13,7 @@ from tpufft import core as tp_core
 
 from tpufft_torch import core
 from tpufft_torch.planner import default_bases
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 CASES = [(16, (16,)), (93, None), (128, (8, 16)), (360, None),
          (1024, None), (1, (1,))]

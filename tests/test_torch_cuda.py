@@ -1173,23 +1173,24 @@ def test_stft_kernels_match_plain_versions(batch, nperseg, hop, m1, nseg,
     same (bf16: the same rounded) inputs; both compute in f32."""
     n_sig = (nseg - 1) * hop + nperseg + hop - 1   # a ragged tail
     x, y = _planes((batch, n_sig), cuda_device, dtype, seed=nperseg)
-    mr, mi = _stft_tables(nperseg, m1, cuda_device, seed=m1)
-    # K13 on nfft = 2 (m1 - 1): a random window and per-bin factor, the
-    # detrend kinds in turn
+    # K13 and K15 on nfft = 2 (m1 - 1): a random window and per-bin factor,
+    # the detrend kinds in turn
     win, c_r = (t[:, 0].contiguous() for t in _stft_tables(
         max(nperseg, m1), 2, cuda_device, seed=batch))
+    detrend = (False, "constant", "linear")[nseg % 3]
     frame_args = (win[:nperseg].contiguous(), c_r[:m1].contiguous(),
-                  c_r.flip(0)[:m1].contiguous(), 2 * (m1 - 1),
-                  (False, "constant", "linear")[nseg % 3], hop, nseg)
+                  c_r.flip(0)[:m1].contiguous(), 2 * (m1 - 1), detrend, hop,
+                  nseg)
     stft_mm.reset_counts()
     got = stft_mm.stft_frames(x, *frame_args)
     ref = stft_mm.stft_frames_reference(x, *frame_args)
     assert got[0].shape == (batch, nseg, m1) and got[0].dtype == torch.float32
     assert max(_rel(g, r) for g, r in zip(got, ref)) < tol
-    w = stft_mm.welch_accum(x, mr, mi, hop)
-    assert _rel(w, stft_mm.welch_accum_reference(x, mr, mi, hop)) < tol
-    c = stft_mm.welch_accum(x, mr, mi, hop, y)
-    cref = stft_mm.welch_accum_reference(x, mr, mi, hop, y)
+    welch_args = (frame_args[0], 2 * (m1 - 1), detrend, hop)
+    w = stft_mm.welch_accum(x, *welch_args)
+    assert _rel(w, stft_mm.welch_accum_reference(x, *welch_args)) < tol
+    c = stft_mm.welch_accum(x, *welch_args, y)
+    cref = stft_mm.welch_accum_reference(x, *welch_args, y)
     assert max(_rel(g, r) for g, r in zip(c, cref)) < tol
     if nperseg % hop == 0:
         zr, zi = _planes((batch, nseg, m1), cuda_device, dtype, seed=nseg)
@@ -1206,6 +1207,7 @@ def test_stft_kernels_match_plain_versions(batch, nperseg, hop, m1, nseg,
 def test_stft_wrappers_check_their_operands(cuda_device):
     x = torch.zeros(2, 512, device=cuda_device)
     mr = torch.zeros(128, 65, device=cuda_device)
+    win = torch.ones(128, device=cuda_device)
     frame_args = (torch.ones(128, device=cuda_device),
                   torch.ones(65, device=cuda_device),
                   torch.zeros(65, device=cuda_device), 128, False, 64, 3)
@@ -1214,9 +1216,11 @@ def test_stft_wrappers_check_their_operands(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         stft_mm.stft_frames(x[:, ::2], *frame_args)
     with pytest.raises(ValueError, match="CUDA device"):
-        stft_mm.welch_accum(x.cpu(), mr, mr, 64)
+        stft_mm.welch_accum(x.cpu(), win, 128, False, 64)
     with pytest.raises(ValueError, match="tables must be float32 on"):
-        stft_mm.welch_accum(x, mr.cpu(), mr.cpu(), 64)
+        stft_mm.welch_accum(x, win.cpu(), 128, False, 64)
+    with pytest.raises(ValueError, match="outside the kernel's envelope"):
+        stft_mm.welch_accum(x, win, 262, False, 64)
     z = torch.zeros(2, 7, 65, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of hop"):
         stft_mm.istft_ola(z, z, mr.T.contiguous(), mr.T.contiguous(), 48)
@@ -1258,6 +1262,39 @@ def test_stft_frame_fft_matches_plain_version(batch, nperseg, hop, nfft,
     torch.cuda.synchronize()
     assert stft_mm.launches["stft"] == before + 1
     assert got[0].shape == (batch, nseg, m1) and got[0].dtype == torch.float32
+    assert max(_rel(g, r) for g, r in zip(got, ref)) < 1e-5
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["welch", "csd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("detrend", [False, "constant", "linear"])
+@pytest.mark.parametrize("batch,nperseg,hop,nfft,nseg,offset", K13_CASES)
+def test_welch_frame_fft_matches_plain_version(batch, nperseg, hop, nfft,
+                                               nseg, offset, detrend, dtype,
+                                               cross, cuda_device):
+    """K15's frame FFT (welch, and csd of two signals) against its plain
+    version (the f64-built matrix) on K13's cases: odd nfft, ragged last
+    runs, signals off a 16-byte boundary; two runs give the same bits."""
+    n_sig = (nseg - 1) * hop + nperseg + 7
+    flat, flat_y = _planes((batch * n_sig + offset,), cuda_device, dtype,
+                           seed=nfft + nseg)
+    x = flat[offset:].view(batch, n_sig)
+    y = flat_y[offset:].view(batch, n_sig) if cross else None
+    win = torch.from_numpy(np.random.default_rng(nseg).standard_normal(
+        nperseg).astype(np.float32)).to(cuda_device)
+    args = (win, nfft, detrend, hop)
+    key = "csd" if cross else "welch"
+    before = stft_mm.launches[key]
+    got = stft_mm.welch_accum(x, *args, y=y)
+    again = stft_mm.welch_accum(x, *args, y=y)
+    ref = stft_mm.welch_accum_reference(x, *args, y=y)
+    torch.cuda.synchronize()
+    assert stft_mm.launches[key] == before + 2
+    got, again, ref = ((t,) if not cross else t for t in (got, again, ref))
+    assert all(g.shape == (batch, nfft // 2 + 1) and g.dtype == torch.float32
+               for g in got)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert max(_rel(g, r) for g, r in zip(got, ref)) < 1e-5
 
 

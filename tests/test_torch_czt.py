@@ -32,6 +32,7 @@ import tpufft_torch
 from tpufft_torch import CZT, PlanConfig, SplitComplex, ZoomFFT
 from tpufft_torch.convert import czt_plan_from_fields, filter_plan_from_fields
 from tpufft_torch.kernels import minor_fft, real_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas")
 CFG = PlanConfig(**dataclasses.asdict(TP_CFG))

@@ -18,6 +18,7 @@ from tpufft.planner import digit_reverse as tp_digit_reverse
 
 import tpufft_torch
 from tpufft_torch import SplitComplex
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 8, 93, 128])

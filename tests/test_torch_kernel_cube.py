@@ -21,6 +21,7 @@ from tpufft import PlanConfig as TPPlanConfig
 from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import cube_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 # tpufft's own cube tests (tests/test_kernels.py): the dispatch cube and
 # the ragged-grid canary

@@ -28,6 +28,7 @@ from tpufft.kernels import mxu_fft
 
 from tpufft_torch import realtrans, signal
 from tpufft_torch.kernels import dense_mm
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TOL = 2e-5
 # (batch, m_in, m_out): squares, rectangles both ways, ragged batches

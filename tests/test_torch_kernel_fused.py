@@ -29,6 +29,7 @@ from tpufft.kernels import mxu_fft as tp_mxu
 from tpufft_torch.kernels import fused_fft
 
 from test_torch_strided_geometry import use_model
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", precision="highest")
 

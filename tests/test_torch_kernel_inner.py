@@ -34,6 +34,7 @@ from tpufft_torch.kernels import inner_fft, minor_fft
 
 from test_torch_strided_geometry import (FORM_CASES, LINE_NS, SPLITS,
                                          model_geometry, use_model)
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 NS = [8, 93, 128, 256, 1024]
 TOL = {"f32": 1e-5, "bf16": 8e-3}

@@ -21,6 +21,7 @@ from tpufft import PlanConfig as TPPlanConfig
 from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import mid_pair_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 # tpufft's own mid-pair shape (tests/test_nd.py) and its gradient shape
 SHAPES = [(3, 40, 64, 256), (2, 8, 16, 128)]

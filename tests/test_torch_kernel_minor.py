@@ -31,6 +31,7 @@ from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import minor_fft
 from tpufft_torch.planner import factorize, kernel_factors
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 BATCH = 130  # not a multiple of tpufft's 128-row lane block
 NS = [8, 93, 128, 256, 960, 1024, 1792]

@@ -21,6 +21,7 @@ from tpufft import PlanConfig as TPPlanConfig
 from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import pair_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 PAIRS = [(8, 93), (64, 64), (64, 128), (16, 48)]
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,

@@ -38,6 +38,7 @@ from tpufft.planner import factorize as tp_factorize
 from test_torch_kernel_minor import _line_out
 from tpufft_torch import api
 from tpufft_torch.kernels import minor_fft, real_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 NS = [2, 3, 8, 93, 127, 128, 131, 1024]
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,

@@ -8,10 +8,11 @@ the hop in 128 lanes) and K = nperseg / hop of 1, 2 and 4; the port's
 wrappers, given CPU tensors, run their plain versions (``unfold`` and
 ``torch.matmul`` in f32, an ``index_add_`` overlap-add). tpufft's K13
 takes its callers' host matrix (``spectral._stft_matrix``,
-``ShortTimeFFT._fused_stft_matrix``); the port's takes the window, the
-per-bin factor c, nfft and the detrend kind, and its plain version builds
-the same matrix from them (``stft_mm.frame_matrix``). Both get the same
-seeded numpy signals. Tolerance 2e-5, normalized by the result's
+``ShortTimeFFT._fused_stft_matrix``), and so does its K15; the port's K13
+takes the window, the per-bin factor c, nfft and the detrend kind, its K15
+the same without c, and their plain versions build the same matrix from
+them (``stft_mm.frame_matrix``). Both get the same seeded numpy
+signals. Tolerance 2e-5, normalized by the result's
 magnitude: bf16x3 keeps about 2^-24 of each product and the plain versions
 round in f32, so the two differ by a few 1e-6 at nperseg = 512 (the
 kernels on the card are held to their plain versions in
@@ -31,6 +32,7 @@ from tpufft.kernels import mxu_fft
 import tpufft_torch
 from tpufft_torch import spectral
 from tpufft_torch.kernels import stft_mm
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TOL = 2e-5
 HOP = 128
@@ -219,20 +221,86 @@ def test_istft_ola_matches_tpufft(batch, nperseg, nfft, nseg):
 @pytest.mark.parametrize("batch,nperseg,nfft,nseg", SHAPES)
 def test_welch_accum_matches_tpufft(batch, nperseg, nfft, nseg, detrend,
                                     cross):
+    """K15 takes K13's window, nfft and detrend kind (c = 1); tpufft's
+    takes the matrix of the same function."""
     mr, mi = _stft_planes(nperseg, nfft, detrend)
     n = (nseg - 1) * HOP + nperseg
     xs = [_signal(batch, n, 7)] + ([_signal(batch, n, 8)] if cross else [])
     ref = mxu_fft.build_welch_accum(mr, mi, HOP, nseg, 8, "bf16x3", True,
                                     cross)(*xs)
-    t = _t(*xs, mr, mi)
+    t = _t(*xs)
+    win = _frame_args(nperseg, nfft)[0]
     if cross:
-        got = stft_mm.welch_accum(t[0], t[2], t[3], HOP, t[1])
+        got = stft_mm.welch_accum(t[0], win, nfft, detrend, HOP, t[1])
         got = got[0].numpy() + 1j * got[1].numpy()
         ref = np.asarray(ref[0]) + 1j * np.asarray(ref[1])
     else:
-        got = stft_mm.welch_accum(t[0], t[1], t[2], HOP).numpy()
+        got = stft_mm.welch_accum(t[0], win, nfft, detrend, HOP).numpy()
     assert got.shape == (batch, nfft // 2 + 1)
     assert _err(got, ref) < TOL
+
+
+def test_welch_nfft_outside_the_frame_fft_takes_the_composed_route(
+        monkeypatch):
+    """K15 shares K13's envelope: welch and csd at an nfft whose half has a
+    prime factor above 127 (262 = 2 x 131, and the prime 131) take the
+    composed route (no K15 call, plain or kernel) and still match scipy;
+    256 and 255 stay on K15."""
+    calls = []
+    orig = stft_mm.welch_accum_reference
+    monkeypatch.setattr(stft_mm, "welch_accum_reference",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    x, y = _signal(2, 3000, 10), _signal(2, 3000, 11)
+    xd, yd = x.astype(np.float64), y.astype(np.float64)
+    for nfft, on_k15 in ((262, False), (131, False), (256, True),
+                         (255, True)):
+        calls.clear()
+        _, P = tpufft_torch.welch(torch.from_numpy(x), nperseg=128,
+                                  nfft=nfft)
+        assert len(calls) == int(on_k15), nfft
+        assert _err(P.numpy(), sps.welch(xd, nperseg=128, nfft=nfft)[1]) \
+            < 1e-5
+        calls.clear()
+        _, C = tpufft_torch.csd(torch.from_numpy(x), torch.from_numpy(y),
+                                nperseg=128, nfft=nfft)
+        assert len(calls) == int(on_k15), nfft
+        assert _err(C.numpy(), sps.csd(xd, yd, nperseg=128, nfft=nfft)[1]) \
+            < 1e-5
+
+
+@pytest.mark.parametrize("detrend", DETRENDS)
+def test_welch_backward_through_k15_matches_the_composed_route(detrend,
+                                                              monkeypatch):
+    """welch and csd on K15 (``spectral._WelchFused``, whose backward
+    builds the host matrix on first use) give the gradients of the
+    composed route (framing, detrend, window and rfft in differentiable
+    torch ops, ``backend="xla"``), which never reaches K15."""
+    calls = []
+    orig = stft_mm.welch_accum_reference
+    monkeypatch.setattr(stft_mm, "welch_accum_reference",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    x, y = _signal(3, 2048, 12), _signal(3, 2048, 13)
+    weights = torch.from_numpy(
+        np.random.default_rng(14).standard_normal(129).astype(np.float32))
+    kw = dict(nperseg=256, noverlap=128, detrend=detrend)
+
+    def grads(config):
+        xs = torch.from_numpy(x).requires_grad_(True)
+        ys = torch.from_numpy(y).requires_grad_(True)
+        _, P = tpufft_torch.welch(xs, config=config, **kw)
+        _, C = tpufft_torch.csd(xs, ys, config=config, **kw)
+        loss = (P * weights).sum() + (C.real * weights).sum() \
+            - (C.imag * weights.flip(0)).sum()
+        loss.backward()
+        return xs.grad.numpy(), ys.grad.numpy()
+
+    fused = grads(None)
+    assert len(calls) == 2
+    calls.clear()
+    composed = grads(tpufft_torch.PlanConfig(backend="xla"))
+    assert not calls
+    for got, want in zip(fused, composed):
+        assert _err(got, want) < 1e-5
 
 
 @pytest.mark.parametrize("hop", [1, 3, 64])
@@ -249,7 +317,9 @@ def test_plain_versions_take_any_hop(hop):
                                  *_frame_args(nperseg, nfft), nfft,
                                  "constant", hop, nseg)
     assert _err(yr.numpy() + 1j * yi.numpy(), spec) < TOL
-    assert _err(stft_mm.welch_accum(*_t(x, mr, mi), hop).numpy(),
+    assert _err(stft_mm.welch_accum(torch.from_numpy(x),
+                                    _frame_args(nperseg, nfft)[0], nfft,
+                                    "constant", hop).numpy(),
                 (np.abs(spec) ** 2).sum(1)) < TOL
 
 
@@ -264,8 +334,9 @@ def test_cpu_tensors_run_the_plain_versions():
     dc[..., 0] = 4.0   # a constant frame of ones: all in the DC bin
     assert torch.allclose(yr, dc, atol=1e-6)
     assert torch.allclose(yi, torch.zeros_like(yi), atol=1e-6)
-    assert torch.equal(stft_mm.welch_accum(x, m, m, 2),
-                       torch.full((2, 3), 128.0))
+    # four frames a row, each all in the DC bin: 4 x 4^2
+    assert torch.allclose(stft_mm.welch_accum(x, torch.ones(4), 4, False, 2),
+                          torch.tensor([[64.0, 0.0, 0.0]] * 2), atol=1e-6)
     out = stft_mm.istft_ola(yr, yi, m.T.contiguous(), m.T.contiguous(), 2)
     assert out.shape == (2, 10)
     assert stft_mm.launches == {"stft": 0, "istft": 0, "welch": 0, "csd": 0}

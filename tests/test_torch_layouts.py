@@ -28,6 +28,7 @@ import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex, execute
 from tpufft_torch.convert import plan_from_fields
 from tpufft_torch.kernels import fused_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_INTERP = TPPlanConfig(interpret=True)
 

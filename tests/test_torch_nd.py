@@ -32,6 +32,7 @@ from tpufft_torch import PlanConfig, SplitComplex, execute
 from tpufft_torch.convert import plan_from_fields
 from tpufft_torch.kernels import (cube_fft, inner_fft, mid_pair_fft,
                                   minor_fft, pair_fft)
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")

@@ -12,6 +12,7 @@ from tpufft.kernels import mxu_fft as tp_mxu
 import tpufft_torch
 from tpufft_torch import planner
 from tpufft_torch.config import PlanConfig
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 LENGTHS = range(1, 2049)
 

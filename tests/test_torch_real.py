@@ -32,6 +32,7 @@ from tpufft_torch import PlanConfig, SplitComplex
 from tpufft_torch.kernels import minor_fft, real_fft
 
 from conftest import assert_spectrum_close
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas", lane_block=128,
                       precision="highest")

@@ -24,6 +24,7 @@ from tpufft import PlanConfig as TPPlanConfig
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex, realtrans
 from tpufft_torch.kernels import dense_mm
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True, backend="pallas")
 CFG = PlanConfig(**dataclasses.asdict(TP_CFG))

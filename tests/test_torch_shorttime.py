@@ -28,6 +28,7 @@ from tpufft_torch.convert import short_time_fft_from_fields
 from tpufft_torch.kernels import stft_mm
 
 from conftest import assert_spectrum_close
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 F64 = 1e-10
 F32 = 1e-5

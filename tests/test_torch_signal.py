@@ -31,6 +31,7 @@ from tpufft import SplitComplex as TPSplit
 import tpufft_torch
 from tpufft_torch import PlanConfig, SplitComplex, signal
 from tpufft_torch.kernels import dense_mm, minor_fft
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPPlanConfig(interpret=True)
 CFG = PlanConfig(**dataclasses.asdict(TP_CFG))

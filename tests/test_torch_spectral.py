@@ -31,6 +31,7 @@ from tpufft_torch import PlanConfig, SplitComplex
 from tpufft_torch.kernels import stft_mm
 
 from conftest import assert_spectrum_close
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 TP_CFG = TPConfig(interpret=True)
 F32_SCIPY = 1e-5

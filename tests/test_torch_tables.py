@@ -10,6 +10,7 @@ from tpufft.kernels import mxu_fft as tp_mxu
 from tpufft_torch import twiddle
 from tpufft_torch.kernels import minor_fft
 from tpufft_torch.planner import default_bases
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 NS = [8, 93, 128, 256, 1024, 1792]
 

@@ -11,6 +11,7 @@ import scipy.signal.windows as sw
 from tpufft import windows as tp_windows
 
 from tpufft_torch import windows
+from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 # every function of the module, with the parameters it needs
 WINDOWS = [

@@ -52,24 +52,26 @@ calls, in ms:
   (1024, 1024) DCT-II table), K10 (``dense_mm_complex``, (100000, 512) x
   (512, 512) c64 planes), and K14 (``istft_ola``) and K15
   (``welch_accum``, welch and csd) at the spectral paths' shapes, (64,
-  1048576) signals at nperseg 256, hop 128;
+  1048576) signals at nperseg 256, hop 128, and the ``welch``, ``csd``
+  and ``coherence`` paths of the same signals (``spectral``);
 - the paths above K11 and K12, as ``chip_smoke.py`` drives them:
   ``filter_real`` (a low-pass ``plan_filter(512)``, bins |k| <= 64, on
   real (100000, 512) rows), ``dct`` (100000, 1024) and ``dst4``
   (``dst(type=4)`` on (100000, 93)).
 
 Each turn is a fresh process that imports that checkout's tpufft_torch
-(building its library on first use). K13's arguments changed between
-checkouts (a host matrix before, the window, c, nfft and the detrend kind
-now): the timer passes whichever the checkout's ``stft_frames`` takes, for
-the same function (hann window, scale 1/sum(window), no detrend).
+(building its library on first use). K13's and K15's arguments changed
+between checkouts (a host matrix before, the window, nfft, the detrend
+kind and for K13 c now): the timer passes whichever the checkout's
+``stft_frames`` or ``welch_accum`` takes, for the same function (hann
+window; K13 scale 1/sum(window), no detrend; K15 constant detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
 K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
 K8, rfft, fht, K13, K4, K4_n2_in, K4_packed, K17, K2, K2_241, K2_93, K3,
-K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10, K14, K15, filter_real, dct,
-dst4)
+K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10, K14, K15, spectral,
+filter_real, dct, dst4)
 and times those alone. Needs the card.
 """
 
@@ -304,7 +306,7 @@ if want("K11", "K12", "K10"):
         rows["K12"] = median_ms(lambda: dense_mm.r2r_minor(x, w))
         del x
 
-if want("K14", "K15"):
+if want("K14", "K15", "spectral"):
     x = torch.randn(64, 1048576, generator=g, device="cuda")
     y = torch.randn(64, 1048576, generator=g, device="cuda")
     win = np.hanning(257)[:-1]
@@ -321,11 +323,20 @@ if want("K14", "K15"):
                                                           128))
         del xe, zr, zi
     if want("K15"):
-        mr, mi = spectral._tables("stft", win, 256, 256, ("constant", 1.0),
-                                  dev)
-        rows["K15"] = median_ms(lambda: stft_mm.welch_accum(x, mr, mi, 128))
+        if "win" in inspect.signature(stft_mm.welch_accum).parameters:
+            w32 = torch.tensor(win, dtype=torch.float32, device="cuda")
+            k15 = (w32, 256, "constant", 128)
+        else:
+            k15 = spectral._tables("stft", win, 256, 256, ("constant", 1.0),
+                                   dev) + (128,)
+        rows["K15"] = median_ms(lambda: stft_mm.welch_accum(x, *k15))
         rows["K15_csd"] = median_ms(lambda: stft_mm.welch_accum(
-            x, mr, mi, 128, y))
+            x, *k15, y=y))
+    if want("spectral"):
+        import tpufft_torch
+        rows["welch"] = median_ms(lambda: tpufft_torch.welch(x))
+        rows["csd"] = median_ms(lambda: tpufft_torch.csd(x, y))
+        rows["coherence"] = median_ms(lambda: tpufft_torch.coherence(x, y))
     del x, y
 
 if want("filter_real", "dct", "dst4"):

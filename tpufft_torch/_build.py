@@ -257,12 +257,18 @@ def load() -> ctypes.CDLL:
         i32, vp,                     # bf16 storage, cudaStream_t
     ]
     lib.tpufft_istft_ola.restype = i32
-    lib.tpufft_welch_partial_floats.argtypes = [i64, i32, i32, i32]
+    lib.tpufft_welch_partial_floats.argtypes = [
+        i64, i32, i32, i32, i32,     # batch, hop, nseg, nperseg, nfft
+        i32, i32,                    # cross, bf16 storage
+    ]
     lib.tpufft_welch_partial_floats.restype = i64
-    lib.tpufft_welch_accum.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp,  # x, y, mr, mi, partials, outr, outi
-        i64, i64, i32, i32, i32, i32,  # batch, n_sig, hop, nseg, nperseg, m1
+    lib.tpufft_welch_frames.argtypes = [
+        vp, vp, vp, vp, vp, vp,      # x, y, window, partials, outr, outi
+        vp, vp,                      # stage and half-length twiddle tables
+        i64, i64, i32, i32, i32,     # batch, n_sig, hop, nseg, nperseg
+        i32, i32,                    # nfft, detrend (0, 1 constant, 2 linear)
+        ctypes.POINTER(i32), i32,    # radices, number of stages
         i32, i32, vp,                # cross, bf16 storage, cudaStream_t
     ]
-    lib.tpufft_welch_accum.restype = i32
+    lib.tpufft_welch_frames.restype = i32
     return lib

@@ -15,51 +15,57 @@
 //       overlap-added signal (batch, (nseg + K - 1) hop), K = nperseg / hop;
 //       segment s contributes Zr Ar + Zi Ai (A is (m1, nperseg)) at s hop;
 //       unnormalised (the window-sum division stays with the caller);
-//   K15 build_welch_accum: the sum over segments of |F_s M|^2 (welch), or
-//       of conj(F_s M) (G_s M) as two planes (csd), -> (batch, m1); the
-//       per-segment spectra never reach device memory.
+//   K15 build_welch_accum: the sum over frames of |X_s|^2 (welch), or of
+//       conj(X_s) Y_s as two planes (csd), -> (batch, m1), X_s the spectrum
+//       of K13 with c = 1; the per-frame spectra never reach device memory.
 // Signals and spectra are f32 or bf16 (computed in f32), tables and
 // results f32, all row-major and contiguous.
 //
-// K13 on an H100 is bound by device-memory bytes: one read of the signal
-// and one write of the planes (at nperseg 256, hop 128: 4 bytes in, 8.1
-// bytes out per sample) against ~2.5 nfft log2 nfft flops a frame. The
-// dense product with M costs 4 nperseg flops a bin, ~32x the FFT's at
-// nfft = 256, which bounded the earlier form by the FP32 peak above
-// torch.stft's time. So K13 is an FFT: a block takes one row and a run of
-// `frames` consecutive frames, copies the run's span, (frames - 1) hop +
-// nperseg samples, into shared memory once (16-byte cp.async where the
-// chunk lies inside the signal), reads the overlapping frames from there,
-// takes each frame's mean and first moment by a warp reduction, windows and
-// zero-pads it into the stage buffer as K7 packs a row (even nfft: m =
-// nfft/2 complex values x[2j] + i x[2j+1]; odd nfft: the row with a zero
-// imaginary part), runs K7's stages (fft_stages.cuh), untangles the bins
-// (real_fft.cuh), multiplies by c and stores the block's frames as one
-// contiguous, coalesced run of each plane. A block takes half the rows K1
-// packs of its stage length (minor_fft.cuh:launch_geometry): ~2048
-// values, 256 threads, 64 registers, up to four blocks an SM; fewer where
-// the span would not fit.
+// K13 and K15 on an H100 are bound by device-memory bytes: K13 reads the
+// signal once and writes the planes (at nperseg 256, hop 128: 4 bytes in,
+// 8.1 bytes out per sample), K15 only reads the signal (4 bytes a sample;
+// two signals for csd), against ~2.5 nfft log2 nfft flops a frame. A dense
+// product with M costs 4 nperseg flops a bin, ~32x the FFT's at nfft =
+// 256, which bounded the earlier forms of both by the FP32 peak, above
+// torch.stft's time. So both run one frame core, an FFT: a block takes one
+// row and a run of `frames` consecutive frames, copies the run's span,
+// (frames - 1) hop + nperseg samples, into shared memory once (16-byte
+// cp.async where the chunk lies inside the signal), reads the overlapping
+// frames from there, takes each frame's mean and first moment by a warp
+// reduction, windows and zero-pads it into the stage buffer as K7 packs a
+// row (even nfft: m = nfft/2 complex values x[2j] + i x[2j+1]; odd nfft:
+// the row with a zero imaginary part) and runs K7's stages
+// (fft_stages.cuh). A block takes half the rows K1 packs of its stage
+// length (minor_fft.cuh:launch_geometry): ~2048 values, 256 threads, 64
+// registers, up to four blocks an SM; fewer where the span would not fit.
+// The two kernels differ in their epilogue:
+//   K13 untangles the bins (real_fft.cuh), multiplies by c and stores the
+//       block's frames as one contiguous, coalesced run of each plane;
+//   K15 sums |X_k|^2 over the run's frames, each sum owned by one thread:
+//       a thread untangles a pair of bins (k, m - k) from one read of Z[k]
+//       and Z[m - k], for every groups-th frame, into its group's sums in
+//       shared memory (groups = threads / pairs, 3 at nfft = 256), and the
+//       groups' sums are added in order at the end. A block walks a
+//       contiguous range of its row's runs and writes one partial per
+//       (row, block, bin); the blocks a row are the fewest that fill the
+//       card's resident blocks in whole waves. Blocks run in no order, so
+//       a second small pass sums the partials of a row in a fixed order:
+//       no atomics, the same bits every run. csd puts the two signals'
+//       frames in one stage buffer, x's in rows 0 .. frames - 1 and y's in
+//       the rows after (half the frames a block, the same stage values),
+//       each packed and transformed as welch's, with its own detrend
+//       statistics, and sums conj(X_k) Y_k: two real FFTs, not one complex
+//       FFT of x + i y, whose split would leave each spectrum with the
+//       other's rounding error (large where |X| >> |Y|).
 //
-// K14 and K15 are still dense products: the shared-memory SGEMM of
-// tile_mm.cuh (f32 FMA, no TF32, as K10-K12), of depth K m1 (K14) or
-// nperseg (K15), with an A operand that is never materialised:
-//   K14: output chunk c (hop samples) of row b is the sum over taps
-//        k < K of Z[b, c - k, :] A[:, k hop : (k + 1) hop]: a product of
-//        depth K m1 whose A row at tap k is segment c - k, masked where that
-//        segment does not exist. Every output is written once by one
-//        thread: no atomics, no scatter-add, the same bits every run.
-//   K15: row (b, s) of A starts at b n_sig + s hop (the frame view, its
-//        overlapping re-reads served by L1/L2); the epilogue squares (or
-//        takes conj(X) Y of the two signals' spectra) and sums the tile's
-//        segment rows in registers, then across the block's threads through
-//        shared memory, into one partial per (row, segment tile, column).
-//        A block has no sequential grid to carry a sum (the TPU kernel
-//        revisits one output block), so a second small pass sums the
-//        partials over the segment tiles in a fixed order: deterministic.
-//        The segment tiles are what fill 132 SMs when batch x column tiles
-//        are few.
-// Rows of a batch are gridDim.z there; a batch beyond 65535 rows runs in
-// several launches.
+// K14 is still a dense product: the shared-memory SGEMM of tile_mm.cuh (f32
+// FMA, no TF32, as K10), of depth K m1, with an A operand that is never
+// materialised: output chunk c (hop samples) of row b is the sum over taps
+// k < K of Z[b, c - k, :] A[:, k hop : (k + 1) hop]: a product of depth K
+// m1 whose A row at tap k is segment c - k, masked where that segment does
+// not exist. Every output is written once by one thread: no atomics, no
+// scatter-add, the same bits every run. Rows of a batch are gridDim.z
+// there; a batch beyond 65535 rows runs in several launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,20 +107,136 @@ __host__ __device__ __forceinline__ size_t round16(size_t b) {
   return (b + 15) & ~size_t(15);
 }
 
-// Byte offsets of a block's shared regions: the stage buffer (pad(frames
-// L) float2), the signal span (raw storage values, 16 bytes of slack a
-// side for the alignment of its copy), the window, the per-frame detrend
-// (mean, slope) pairs.
+// Byte offsets of a block's shared regions: the stage buffer (pad(signals
+// frames L) float2), the span of each signal (raw storage values, 16 bytes
+// of slack a side for the alignment of its copy), the window, each
+// signal's per-frame detrend (mean, slope) pairs.
 struct Layout {
-  size_t sig, win, stats, bytes;
+  size_t sig, span, win, stats, bytes;
   __host__ __device__ Layout(int frames, int L, int hop, int nperseg,
-                             int elem) {
-    sig = round16((size_t)pad(frames * L) * sizeof(float2));
-    win = sig + round16(((size_t)(frames - 1) * hop + nperseg) * elem + 32);
+                             int elem, int signals = 1) {
+    sig = round16((size_t)pad(signals * frames * L) * sizeof(float2));
+    span = round16(((size_t)(frames - 1) * hop + nperseg) * elem + 32);
+    win = sig + signals * span;
     stats = win + round16((size_t)nperseg * sizeof(float));
-    bytes = stats + (size_t)frames * sizeof(float2);
+    bytes = stats + (size_t)signals * frames * sizeof(float2);
   }
 };
+
+// The frame core of K13 and K15: frames s0 .. s0 + here - 1 of signal row b
+// of x (and of y where kCross), detrended (0 none, 1 constant, 2 linear),
+// windowed and zero-padded into the stage buffer at the block's shared
+// memory `base`: x's frame r in row r, y's in row frames + r, of plan.n
+// values each (rows of frames r >= here zero); then every stage of `plan`:
+// the buffer ends in natural order, synchronized. kPacked: nfft = 2 plan.n
+// and z[j] = g[2j] + i g[2j+1]; otherwise nfft = plan.n (odd) and z[j] =
+// g[j].
+template <class T, bool kPacked, bool kCross>
+__device__ __forceinline__ void frame_core(
+    char* base, const Layout& lay, const T* __restrict__ x,
+    const T* __restrict__ y, const float* __restrict__ win,
+    const float2* __restrict__ tw, int64_t n_total, int64_t n_sig, int hop,
+    int nperseg, int detrend, const Radices& plan, int frames, int64_t b,
+    int s0, int here) {
+  constexpr int kSignals = kCross ? 2 : 1;
+  const int L = plan.n;
+  float2* buf = reinterpret_cast<float2*>(base);
+  float* wtab = reinterpret_cast<float*>(base + lay.win);
+  float2* stats = reinterpret_cast<float2*>(base + lay.stats);
+
+  // the span of the run, in 16-byte chunks from the aligned address at or
+  // below its first sample; chunks that reach outside the signal go
+  // element by element
+  constexpr int E = 16 / sizeof(T);
+  const int64_t a = b * n_sig + (int64_t)s0 * hop;
+  int lead[kSignals];
+#pragma unroll
+  for (int q = 0; q < kSignals; ++q) {
+    const T* src = q ? y : x;
+    T* sig = reinterpret_cast<T*>(base + lay.sig + q * lay.span);
+    lead[q] = (int)((reinterpret_cast<uintptr_t>(src + a) & 15) / sizeof(T));
+    const int64_t a16 = a - lead[q];
+    const int chunks = (lead[q] + (here - 1) * hop + nperseg + E - 1) / E;
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+      const int64_t g = a16 + (int64_t)c * E;
+      if (g >= 0 && g + E <= n_total) {
+        cp_async16(sig + c * E, src + g);
+      } else {
+        for (int e = 0; e < E; ++e)
+          if (g + e >= 0 && g + e < n_total) sig[c * E + e] = src[g + e];
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < nperseg; i += blockDim.x) wtab[i] = win[i];
+  cp_async_wait_all();
+  __syncthreads();
+  // frame r of signal q in the shared span
+  const auto frame = [&](int q, int r) {
+    return reinterpret_cast<const T*>(base + lay.sig + q * lay.span) +
+           (q ? lead[kSignals - 1] : lead[0]) + r * hop;
+  };
+
+  // detrend: each frame's mean and its first moment about the centre,
+  // one warp a (signal, frame)
+  const float mid = 0.5f * (float)(nperseg - 1);
+  if (detrend) {
+    const int lane = threadIdx.x & 31;
+    const float tt =
+        (float)nperseg * ((float)nperseg * (float)nperseg - 1.f) / 12.f;
+    for (int rq = threadIdx.x >> 5; rq < kSignals * here;
+         rq += blockDim.x >> 5) {
+      const int q = kCross && rq >= here ? 1 : 0;
+      const int r = rq - q * here;
+      const T* f = frame(q, r);
+      float s1 = 0.f, s2 = 0.f;
+      for (int j = lane; j < nperseg; j += 32) {
+        const float v = to_f32(f[j]);
+        s1 += v;
+        s2 += v * ((float)j - mid);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      }
+      if (lane == 0)
+        stats[q * frames + r] =
+            make_float2(s1 / (float)nperseg,
+                        detrend == 2 && nperseg > 1 ? s2 / tt : 0.f);
+    }
+    __syncthreads();
+  }
+
+  // detrended, windowed, zero-padded frames into the stage buffer
+  const Div by_L(L);
+  const int total = kSignals * frames * L;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    if (e < total) {
+      const int row = by_L(e), j = e - row * L;
+      const int q = kCross && row >= frames ? 1 : 0;
+      const int r = row - q * frames;
+      float2 z = make_float2(0.f, 0.f);
+      if (r < here) {
+        const float2 st =
+            detrend ? stats[q * frames + r] : make_float2(0.f, 0.f);
+        const T* f = frame(q, r);
+        auto sample = [&](int i) {
+          return i < nperseg
+                     ? (to_f32(f[i]) - st.x - st.y * ((float)i - mid)) *
+                           wtab[i]
+                     : 0.f;
+        };
+        z = kPacked ? make_float2(sample(2 * j), sample(2 * j + 1))
+                    : make_float2(sample(j), 0.f);
+      }
+      buf[pad(e)] = z;
+    }
+  }
+  __syncthreads();
+  tpufft_fft::run_stages<kPer>(buf, tw, plan, kSignals * frames, false);
+}
 
 // K13. Block (b, run) transforms frames s0 .. s0 + frames - 1 of signal row
 // b, s0 = run * frames, into rows s0.. of the (batch, nseg, m1) planes
@@ -135,90 +257,14 @@ stft_frames_kernel(const T* __restrict__ x, const float* __restrict__ win,
   const int L = plan.n;
   const int m1 = (kPacked ? 2 * L : L) / 2 + 1;
   const Layout lay(frames, L, hop, nperseg, (int)sizeof(T));
-  float2* buf = reinterpret_cast<float2*>(base);
-  T* sig = reinterpret_cast<T*>(base + lay.sig);
-  float* wtab = reinterpret_cast<float*>(base + lay.win);
-  float2* stats = reinterpret_cast<float2*>(base + lay.stats);
+  const float2* buf = reinterpret_cast<const float2*>(base);
 
   const int64_t b = blockIdx.x / runs;
   const int s0 = (int)(blockIdx.x - b * runs) * frames;
   const int here = min(frames, nseg - s0);
-
-  // the span of the run, in 16-byte chunks from the aligned address at or
-  // below its first sample; chunks that reach outside the signal go
-  // element by element
-  constexpr int E = 16 / sizeof(T);
-  const int64_t a = b * n_sig + (int64_t)s0 * hop;
-  const int lead =
-      (int)((reinterpret_cast<uintptr_t>(x + a) & 15) / sizeof(T));
-  const int64_t a16 = a - lead;
-  const int chunks = (lead + (here - 1) * hop + nperseg + E - 1) / E;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-    const int64_t g = a16 + (int64_t)c * E;
-    if (g >= 0 && g + E <= n_total) {
-      cp_async16(sig + c * E, x + g);
-    } else {
-      for (int e = 0; e < E; ++e)
-        if (g + e >= 0 && g + e < n_total) sig[c * E + e] = x[g + e];
-    }
-  }
-  for (int i = threadIdx.x; i < nperseg; i += blockDim.x) wtab[i] = win[i];
-  cp_async_wait_all();
-  __syncthreads();
-
-  // detrend: each frame's mean and its first moment about the centre,
-  // one warp a frame
-  const float mid = 0.5f * (float)(nperseg - 1);
-  if (detrend) {
-    const int lane = threadIdx.x & 31;
-    const float tt =
-        (float)nperseg * ((float)nperseg * (float)nperseg - 1.f) / 12.f;
-    for (int r = threadIdx.x >> 5; r < here; r += blockDim.x >> 5) {
-      const T* f = sig + lead + r * hop;
-      float s1 = 0.f, s2 = 0.f;
-      for (int j = lane; j < nperseg; j += 32) {
-        const float v = to_f32(f[j]);
-        s1 += v;
-        s2 += v * ((float)j - mid);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-      }
-      if (lane == 0)
-        stats[r] = make_float2(s1 / (float)nperseg,
-                               detrend == 2 && nperseg > 1 ? s2 / tt : 0.f);
-    }
-    __syncthreads();
-  }
-
-  // detrended, windowed, zero-padded frames into the stage buffer
-  const Div by_L(L);
-  const int total = frames * L;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int e = threadIdx.x + k * blockDim.x;
-    if (e < total) {
-      const int r = by_L(e), j = e - r * L;
-      float2 z = make_float2(0.f, 0.f);
-      if (r < here) {
-        const float2 st = detrend ? stats[r] : make_float2(0.f, 0.f);
-        const T* f = sig + lead + r * hop;
-        auto sample = [&](int i) {
-          return i < nperseg
-                     ? (to_f32(f[i]) - st.x - st.y * ((float)i - mid)) *
-                           wtab[i]
-                     : 0.f;
-        };
-        z = kPacked ? make_float2(sample(2 * j), sample(2 * j + 1))
-                    : make_float2(sample(j), 0.f);
-      }
-      buf[pad(e)] = z;
-    }
-  }
-  __syncthreads();
-  tpufft_fft::run_stages<kPer>(buf, tw, plan, frames, false);
+  frame_core<T, kPacked, false>(base, lay, x, nullptr, win, tw, n_total,
+                                n_sig, hop, nperseg, detrend, plan, frames,
+                                b, s0, here);
 
   // bins times c; the block's frames are one contiguous run of each plane
   const Div by_m1(m1);
@@ -262,6 +308,227 @@ int launch(const void* x, const float* win, const float* cr, const float* ci,
       static_cast<const T*>(x), win, cr, ci, yr, yi, tw, half_tw,
       batch * n_sig, n_sig, hop, nseg, nperseg, detrend, plan, frames, runs);
   return (int)cudaGetLastError();
+}
+
+// K15's units of epilogue work: for even nfft (kPacked) the pairs of bins
+// (u, L - u), u <= L/2, whose untangle reads the same two values; for odd
+// nfft the m1 bins. Groups of `units` threads take every groups-th frame of
+// a run, each group with its own sums: groups = blockDim / units, at least
+// one.
+__host__ __device__ __forceinline__ int welch_units(int L, bool packed) {
+  return packed ? L / 2 + 1 : (L + 1) / 2;
+}
+__host__ __device__ __forceinline__ int welch_groups(int threads, int units) {
+  return threads / units > 1 ? threads / units : 1;
+}
+
+// The untangle of bins k and m - k (k <= m/2) of a packed row's length-m
+// DFT Z at pad(row0 + j), as tpufft_real::untangle computes each, from one
+// read of Z[k] and Z[m - k].
+__device__ __forceinline__ void untangle_pair(
+    const float2* buf, int row0, int m, int k,
+    const float2* __restrict__ half_tw, float2& xk, float2& xmk) {
+  const float2 a = buf[pad(row0 + k)];                      // Z[k]
+  const float2 b = buf[pad(row0 + (k == 0 ? 0 : m - k))];   // Z[m-k]
+  const auto bin = [](float2 p, float2 q, float2 w) {
+    const float2 s = make_float2(p.x + q.x, p.y - q.y);     // P + conj Q
+    const float2 wd = tpufft_fft::cmul(w, make_float2(p.x - q.x, p.y + q.y));
+    return make_float2(0.5f * (s.x + wd.y), 0.5f * (s.y - wd.x));
+  };
+  xk = bin(a, b, __ldg(&half_tw[k]));
+  xmk = bin(b, a, __ldg(&half_tw[m - k]));
+}
+
+// K15. Block (b, chunk) of per_row blocks a row sums over runs r0 .. r1 - 1
+// of signal row b (r0 = chunk runs / per_row): the frame core, then the
+// bins of the run's frames. Thread t < groups units takes unit u = t mod
+// units (welch_units) of frames r = g, g + groups, ... (g = t / units) and
+// adds their sum, taken in order, to the group's sums in shared memory,
+// which only it touches: sum[(g planes + q) m1 + k]. At the end the block
+// adds the groups' sums in order and writes them to part[blockIdx.x m1 +
+// k] (the imaginary plane of csd gridDim.x m1 further on). welch: |X_k|^2;
+// csd (kCross): conj(X_k) Y_k, X's frame r in stage row r and Y's in row
+// frames + r. X_k is the untangle for even nfft (kPacked) and Z_k for odd.
+template <class T, bool kPacked, bool kCross>
+__global__ void __launch_bounds__(kBlock, 2)
+welch_frames_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                    const float* __restrict__ win, float* __restrict__ part,
+                    const float2* __restrict__ tw,
+                    const float2* __restrict__ half_tw, int64_t n_total,
+                    int64_t n_sig, int hop, int nseg, int nperseg,
+                    int detrend, Radices plan, int frames, int runs,
+                    int per_row) {
+  extern __shared__ float4 tpufft_welch_smem[];   // 16-byte aligned
+  char* base = reinterpret_cast<char*>(tpufft_welch_smem);
+  constexpr int kPlanes = kCross ? 2 : 1;
+  const int L = plan.n;
+  const int m1 = (kPacked ? 2 * L : L) / 2 + 1;
+  const Layout lay(frames, L, hop, nperseg, (int)sizeof(T), kPlanes);
+  const float2* buf = reinterpret_cast<const float2*>(base);
+  float* sum = reinterpret_cast<float*>(base + round16(lay.bytes));
+  const int units = welch_units(L, kPacked);
+  const int groups = welch_groups(blockDim.x, units);
+
+  const int64_t b = blockIdx.x / per_row;
+  const int chunk = (int)(blockIdx.x - b * per_row);
+  const int r0 = (int)((int64_t)chunk * runs / per_row);
+  const int r1 = (int)((int64_t)(chunk + 1) * runs / per_row);
+  for (int k = threadIdx.x; k < groups * kPlanes * m1; k += blockDim.x)
+    sum[k] = 0.f;
+  for (int run = r0; run < r1; ++run) {
+    const int s0 = run * frames;
+    const int here = min(frames, nseg - s0);
+    frame_core<T, kPacked, kCross>(base, lay, x, y, win, tw, n_total, n_sig,
+                                   hop, nperseg, detrend, plan, frames, b,
+                                   s0, here);
+    // X times conj-or-not Y: |X|^2 (welch) or conj(X) Y (csd), added to
+    // (re, im)
+    const auto add = [](float2 X, float2 Y, float2& acc) {
+      acc.x += X.x * Y.x + X.y * Y.y;
+      if (kCross) acc.y += X.x * Y.y - X.y * Y.x;
+    };
+    for (int t = threadIdx.x; t < groups * units; t += blockDim.x) {
+      const int g = t / units, u = t - g * units;
+      float* own = sum + g * kPlanes * m1;
+      float2 s1 = make_float2(0.f, 0.f), s2 = s1;   // bins u and L - u
+      for (int r = g; r < here; r += groups) {
+        if constexpr (kPacked) {
+          float2 X1, X2;
+          untangle_pair(buf, r * L, L, u, half_tw, X1, X2);
+          if constexpr (kCross) {
+            float2 Y1, Y2;
+            untangle_pair(buf, (frames + r) * L, L, u, half_tw, Y1, Y2);
+            add(X1, Y1, s1);
+            add(X2, Y2, s2);
+          } else {
+            add(X1, X1, s1);
+            add(X2, X2, s2);
+          }
+        } else {
+          const float2 X = buf[pad(r * L + u)];
+          add(X, kCross ? buf[pad((frames + r) * L + u)] : X, s1);
+        }
+      }
+      own[u] += s1.x;
+      if (kCross) own[m1 + u] += s1.y;
+      if (kPacked && L - u != u) {
+        own[L - u] += s2.x;
+        if (kCross) own[m1 + L - u] += s2.y;
+      }
+    }
+    __syncthreads();   // the next run fills the stage buffer again
+  }
+  for (int k = threadIdx.x; k < kPlanes * m1; k += blockDim.x) {
+    float total = 0.f;
+    for (int g = 0; g < groups; ++g) total += sum[g * kPlanes * m1 + k];
+    const int q = k >= m1 ? 1 : 0;
+    part[((int64_t)q * gridDim.x + blockIdx.x) * m1 + (k - q * m1)] = total;
+  }
+}
+
+// out[b, c] (plane q: out_q) = sum over the row's blocks t, in order, of
+// part[q][b, t, c]
+__global__ void sum_partials_kernel(const float* __restrict__ part,
+                                    float* __restrict__ outr,
+                                    float* __restrict__ outi, int64_t rows,
+                                    int per_row, int m1) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * m1) return;
+  const int64_t b = idx / m1;
+  const int c = (int)(idx % m1);
+  float* outs[2] = {outr, outi};
+  for (int q = 0; q < (outi ? 2 : 1); ++q) {
+    const float* p = part + (q * rows + b) * per_row * m1 + c;
+    float s = 0.f;
+    for (int t = 0; t < per_row; ++t) s += p[(int64_t)t * m1];
+    outs[q][idx] = s;
+  }
+}
+
+// K15's launch: the frames a block as K13's (half of them for two
+// signals, so that a block holds as many stage values), the shared memory
+// (K13's regions for one or two signals, then the groups' sums), and the
+// blocks a row: the fewest that fill the resident blocks in whole waves to
+// 90 %, at most one a run.
+struct WelchPlan {
+  int frames, threads, runs, per_row;
+  size_t smem;
+};
+
+template <class T, bool kPacked, bool kCross>
+int welch_plan(int64_t batch, int L, int hop, int nseg, int nperseg,
+               WelchPlan* p) {
+  auto* kernel = welch_frames_kernel<T, kPacked, kCross>;
+  const Geometry g = launch_geometry(L);
+  if (g.per != kPer || g.threads > kBlock) return (int)cudaErrorInvalidValue;
+  const int planes = kCross ? 2 : 1;
+  int frames = g.rows > planes ? g.rows / (2 * planes) : 1;
+  if (frames > nseg) frames = nseg;
+  while (frames > 1 &&
+         ((size_t)(frames - 1) * hop + nperseg) * sizeof(T) > kSpanBytes)
+    frames = (frames + 1) / 2;
+  const int m1 = (kPacked ? 2 * L : L) / 2 + 1;
+  const Layout lay(frames, L, hop, nperseg, (int)sizeof(T), planes);
+  p->frames = frames;
+  p->threads = ((planes * frames * L + kPer - 1) / kPer + 31) / 32 * 32;
+  const int groups = welch_groups(p->threads, welch_units(L, kPacked));
+  p->smem = round16(lay.bytes) + (size_t)groups * planes * m1 * sizeof(float);
+  if (p->smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  p->runs = (nseg + frames - 1) / frames;
+  cudaError_t err = tpufft_fft::allow_smem(kernel, p->smem);
+  unsigned resident = 0;
+  if (err == cudaSuccess)
+    err = tpufft_minor::resident_grid(kernel, p->threads, p->smem, LLONG_MAX,
+                                      &resident);
+  if (err != cudaSuccess) return (int)err;
+  int per_row = 1;
+  for (; per_row < p->runs; ++per_row) {
+    const long long blocks = batch * per_row;
+    const long long waves = (blocks + resident - 1) / resident;
+    if (blocks * 10 >= waves * resident * 9) break;
+  }
+  p->per_row = per_row;
+  if (batch * per_row > INT_MAX) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <class T, bool kPacked, bool kCross>
+int launch_welch(const void* x, const void* y, const float* win, float* part,
+                 float* outr, float* outi, const float2* tw,
+                 const float2* half_tw, int64_t batch, int64_t n_sig, int hop,
+                 int nseg, int nperseg, int detrend, const Radices& plan,
+                 cudaStream_t stream) {
+  WelchPlan p;
+  const int err = welch_plan<T, kPacked, kCross>(batch, plan.n, hop, nseg,
+                                                 nperseg, &p);
+  if (err != 0) return err;
+  const int64_t blocks = batch * p.per_row;
+  welch_frames_kernel<T, kPacked, kCross>
+      <<<(unsigned)blocks, p.threads, p.smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(y), win, part, tw,
+          half_tw, batch * n_sig, n_sig, hop, nseg, nperseg, detrend, plan,
+          p.frames, p.runs, p.per_row);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int m1 = (kPacked ? 2 * plan.n : plan.n) / 2 + 1;
+  const int64_t n = batch * m1;
+  sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, outr, kCross ? outi : nullptr, batch, p.per_row, m1);
+  return (int)cudaGetLastError();
+}
+
+// Calls f(T*, kPacked, kCross), the flags as std::bool_constant: the
+// storage type, the packed core for even nfft, two signals for csd.
+template <class F>
+int welch_form(int bf16, int nfft, int cross, F&& f) {
+  const auto flags = [&](auto t) {
+    using Yes = std::true_type;
+    using No = std::false_type;
+    if (nfft % 2 == 0) return cross ? f(t, Yes{}, Yes{}) : f(t, Yes{}, No{});
+    return cross ? f(t, No{}, Yes{}) : f(t, No{}, No{});
+  };
+  return bf16 ? flags(static_cast<__nv_bfloat16*>(nullptr))
+              : flags(static_cast<float*>(nullptr));
 }
 
 }  // namespace k13
@@ -319,86 +586,6 @@ istft_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
   }
 }
 
-template <class T, bool kCross>
-__global__ void __launch_bounds__(kThreads)
-welch_kernel(const T* __restrict__ x, const T* __restrict__ y,
-             const float* __restrict__ mr, const float* __restrict__ mi,
-             float* __restrict__ part, int64_t n_sig, int hop, int nseg,
-             int nperseg, int m1) {
-  using Op = std::conditional_t<kCross, PairComplex, RealComplex>;
-  constexpr int TM = kCross ? 4 : 8;   // four accumulator planes: fewer rows
-  constexpr int NP = kCross ? 2 : 1;   // output planes
-  __shared__ __align__(16) Smem<TM, Op::PA, Op::PB> sm;
-  __shared__ float red[NP][16][kBN];
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int64_t b = blockIdx.z;
-  const int s0 = blockIdx.y * Tile<TM>::BM;
-  const int col0 = blockIdx.x * kBN;
-  const T* xb = x + b * n_sig;
-  const T* yb = kCross ? y + b * n_sig : nullptr;
-
-  float acc[Op::PC][TM][4];
-  zero(acc);
-  // segments past nseg load zeros, so their spectra add nothing below
-  accumulate<Op, TM>(
-      sm, nperseg,
-      [&](int q, int r, int k) {
-        const int s = s0 + r;
-        return s < nseg ? to_f32((q ? yb : xb)[(int64_t)s * hop + k]) : 0.f;
-      },
-      [&](int q, int k, int c) {
-        return col0 + c < m1 ? (q ? mi : mr)[(int64_t)k * m1 + col0 + c]
-                             : 0.f;
-      },
-      acc);
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float pr = 0.f, pi = 0.f;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if constexpr (kCross) {   // conj(X) Y
-        pr += acc[0][i][j] * acc[2][i][j] + acc[1][i][j] * acc[3][i][j];
-        pi += acc[0][i][j] * acc[3][i][j] - acc[1][i][j] * acc[2][i][j];
-      } else {
-        pr += acc[0][i][j] * acc[0][i][j] + acc[1][i][j] * acc[1][i][j];
-      }
-    }
-    red[0][ty][tx * 4 + j] = pr;
-    if constexpr (kCross) red[NP - 1][ty][tx * 4 + j] = pi;
-  }
-  __syncthreads();
-  if (threadIdx.x < kBN) {
-    const int col = col0 + threadIdx.x;
-    if (col < m1) {
-      const int64_t tiles = gridDim.y;
-      const int64_t off = (b * tiles + blockIdx.y) * m1 + col;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        float s = 0.f;
-        for (int t = 0; t < 16; ++t) s += red[q][t][threadIdx.x];
-        // plane q of the partials follows plane 0's (rows x tiles x m1)
-        part[q * (int64_t)gridDim.z * tiles * m1 + off] = s;
-      }
-    }
-  }
-}
-
-// out[b, c] = sum over tiles t, in order, of part[b, t, c]
-__global__ void sum_tiles_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int64_t rows,
-                                 int tiles, int m1) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows * m1) return;
-  const int64_t b = idx / m1;
-  const int c = (int)(idx % m1);
-  const float* p = part + b * tiles * m1 + c;
-  float s = 0.f;
-  for (int t = 0; t < tiles; ++t) s += p[(int64_t)t * m1];
-  out[idx] = s;
-}
-
 int tiles_of(int64_t n, int bm) { return (int)((n + bm - 1) / bm); }
 
 template <class T>
@@ -418,34 +605,6 @@ int launch_istft(const T* zr, const T* zi, const float* ar, const float* ai,
         nseg, hop, taps, nperseg, m1);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-template <class T, bool kCross>
-int launch_welch(const T* x, const T* y, const float* mr, const float* mi,
-                 float* part, float* outr, float* outi, int64_t batch,
-                 int64_t n_sig, int hop, int nseg, int nperseg, int m1,
-                 cudaStream_t stream) {
-  constexpr int BM = Tile<kCross ? 4 : 8>::BM;
-  const int tiles = tiles_of(nseg, BM);
-  if (tiles > kMaxGrid) return (int)cudaErrorInvalidValue;
-  float* outs[2] = {outr, outi};
-  for (int64_t b0 = 0; b0 < batch; b0 += kMaxGrid) {
-    const int64_t rows = batch - b0 < kMaxGrid ? batch - b0 : kMaxGrid;
-    const dim3 grid(tiles_of(m1, kBN), tiles, (unsigned)rows);
-    welch_kernel<T, kCross><<<grid, kThreads, 0, stream>>>(
-        x + b0 * n_sig, kCross ? y + b0 * n_sig : nullptr, mr, mi, part,
-        n_sig, hop, nseg, nperseg, m1);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int64_t n = rows * m1;
-    for (int q = 0; q < (kCross ? 2 : 1); ++q) {
-      sum_tiles_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-          part + q * rows * tiles * m1, outs[q] + b0 * m1, rows, tiles, m1);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
   }
   return 0;
 }
@@ -524,48 +683,64 @@ extern "C" int tpufft_istft_ola(const void* zr, const void* zi,
                       st);
 }
 
-// Rows of K15's partials a launch needs: (batch, tiles, m1) floats per
-// output plane, tiles = ceil(nseg / segment rows of a block).
-extern "C" long long tpufft_welch_partial_floats(long long batch, int nseg,
-                                                 int m1, int cross) {
-  const int bm = cross ? Tile<4>::BM : Tile<8>::BM;
-  const long long rows = batch < kMaxGrid ? batch : kMaxGrid;
-  return (cross ? 2 : 1) * rows * tiles_of(nseg, bm) * (long long)m1;
+// Floats of K15's partials for these arguments (see tpufft_welch_frames),
+// or minus a CUDA error.
+extern "C" long long tpufft_welch_partial_floats(long long batch, int hop,
+                                                 int nseg, int nperseg,
+                                                 int nfft, int cross,
+                                                 int bf16) {
+  if (batch < 1 || hop < 1 || nseg < 1 || nperseg < 1 || nfft < 2 ||
+      nperseg > nfft)
+    return -(long long)cudaErrorInvalidValue;
+  const int L = nfft % 2 ? nfft : nfft / 2;
+  k13::WelchPlan p;
+  const int err = k13::welch_form(bf16, nfft, cross, [&](auto t, auto packed,
+                                                         auto crossed) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    return k13::welch_plan<T, decltype(packed)::value,
+                           decltype(crossed)::value>(batch, L, hop, nseg,
+                                                     nperseg, &p);
+  });
+  if (err != 0) return -(long long)err;
+  return (cross ? 2LL : 1LL) * batch * p.per_row * (nfft / 2 + 1);
 }
 
-// K15: x (and y when cross != 0) (batch, n_sig) f32 or bf16, mr/mi
-// (nperseg, m1) f32, part scratch of tpufft_welch_partial_floats floats,
-// outr (and outi when cross) (batch, m1) f32. Returns 0 or a CUDA error.
-extern "C" int tpufft_welch_accum(const void* x, const void* y,
-                                  const void* mr, const void* mi, void* part,
-                                  void* outr, void* outi, long long batch,
-                                  long long n_sig, int hop, int nseg,
-                                  int nperseg, int m1, int cross, int bf16,
-                                  void* stream) {
-  if (batch < 0 || hop < 1 || nseg < 1 || nperseg < 1 || m1 < 1 ||
-      (int64_t)(nseg - 1) * hop + nperseg > n_sig)
+// K15: x (and y when cross != 0) (batch, n_sig) f32 or bf16 (bf16 != 0),
+// win (nperseg) f32, part scratch of tpufft_welch_partial_floats floats,
+// outr (and outi when cross) (batch, nfft/2 + 1) f32: the sum over frames
+// s < nseg (frame s of row b starts at b n_sig + s hop, with (nseg - 1) hop
+// + nperseg <= n_sig and nperseg <= nfft) of |X_s|^2, or of conj(X_s) Y_s
+// as (re, im), X_s the real DFT of frame s detrended (0 none, 1 constant,
+// 2 linear), windowed and zero-padded to nfft. As for K13, with L = nfft/2
+// for even nfft and L = nfft for odd: tw holds exp(-2 pi i k / L), k < L,
+// radices[0:nstages] multiply to L (each 2, 4, 8 or an odd value up to
+// 127), half_tw (read for even nfft) exp(-2 pi i k / nfft), k <= nfft/2.
+// Returns 0 or a CUDA error.
+extern "C" int tpufft_welch_frames(const void* x, const void* y,
+                                   const void* win, void* part, void* outr,
+                                   void* outi, const void* tw,
+                                   const void* half_tw, long long batch,
+                                   long long n_sig, int hop, int nseg,
+                                   int nperseg, int nfft, int detrend,
+                                   const int* radices, int nstages, int cross,
+                                   int bf16, void* stream) {
+  tpufft_fft::Radices plan;
+  const int L = nfft % 2 ? nfft : nfft / 2;
+  if (batch < 0 || hop < 1 || nseg < 1 || nperseg < 1 || nfft < 2 ||
+      nperseg > nfft || detrend < 0 || detrend > 2 ||
+      (int64_t)(nseg - 1) * hop + nperseg > n_sig ||
+      !tpufft_fft::make_radices(L, radices, nstages, &plan))
     return (int)cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* fr = static_cast<const float*>(mr);
-  const auto* fi = static_cast<const float*>(mi);
-  auto* p = static_cast<float*>(part);
-  auto* o_r = static_cast<float*>(outr);
-  auto* o_i = static_cast<float*>(outi);
-  if (bf16) {
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    const auto* yb = static_cast<const __nv_bfloat16*>(y);
-    return cross ? launch_welch<__nv_bfloat16, true>(
-                       xb, yb, fr, fi, p, o_r, o_i, batch, n_sig, hop, nseg,
-                       nperseg, m1, st)
-                 : launch_welch<__nv_bfloat16, false>(
-                       xb, nullptr, fr, fi, p, o_r, nullptr, batch, n_sig,
-                       hop, nseg, nperseg, m1, st);
-  }
-  const auto* xf = static_cast<const float*>(x);
-  const auto* yf = static_cast<const float*>(y);
-  return cross ? launch_welch<float, true>(xf, yf, fr, fi, p, o_r, o_i, batch,
-                                           n_sig, hop, nseg, nperseg, m1, st)
-               : launch_welch<float, false>(xf, nullptr, fr, fi, p, o_r,
-                                            nullptr, batch, n_sig, hop, nseg,
-                                            nperseg, m1, st);
+  if (batch == 0) return 0;
+  return k13::welch_form(bf16, nfft, cross, [&](auto t, auto packed,
+                                                auto crossed) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    return k13::launch_welch<T, decltype(packed)::value,
+                             decltype(crossed)::value>(
+        x, y, static_cast<const float*>(win), static_cast<float*>(part),
+        static_cast<float*>(outr), static_cast<float*>(outi),
+        static_cast<const float2*>(tw), static_cast<const float2*>(half_tw),
+        batch, n_sig, hop, nseg, nperseg, detrend, plan,
+        static_cast<cudaStream_t>(stream));
+  });
 }

@@ -1,5 +1,5 @@
 // The shared-memory SGEMM tile loop of the port's dense-matrix kernels:
-// dense_mm.cu (K10, K11, K12) and stft_mm.cu (K13, K14, K15).
+// dense_mm.cu (K10, K11, K12) and stft_mm.cu (K14; K13 and K15 use to_f32).
 //
 // A block of 256 threads computes a BM x 64 tile of a product A B, with
 // BM = 16 TM rows: each thread keeps a TM x 4 register tile per output
@@ -8,9 +8,9 @@
 // (transposed, one float per thread and row group) and B in shared memory,
 // and every product is an f32 FMA on the CUDA cores (no TF32, which keeps
 // about three decimal digits). The kernels differ only in where A's rows
-// come from (contiguous rows, overlapping frames of a signal, shifted
-// spectrum segments), in the planes they multiply (an Op below) and in
-// their epilogue, so each passes its own loaders to accumulate().
+// come from (contiguous rows, shifted spectrum segments), in the planes
+// they multiply (an Op below) and in their epilogue, so each passes its own
+// loaders to accumulate().
 
 #pragma once
 
@@ -70,40 +70,6 @@ struct ComplexComplex {    // yr = xr wr - xi wi, yi = xr wi + xi wr (K10)
         c[0][i][j] = fmaf(-a[1][i], b[1][j], c[0][i][j]);
         c[1][i][j] = fmaf(a[0][i], b[1][j], c[1][i][j]);
         c[1][i][j] = fmaf(a[1][i], b[0][j], c[1][i][j]);
-      }
-  }
-};
-
-struct RealComplex {       // yr = x wr, yi = x wi (K13, K15)
-  static constexpr int PA = 1, PB = 2, PC = 2;
-  template <int TM>
-  __device__ __forceinline__ static void fma(const float (&a)[PA][TM],
-                                             const float (&b)[PB][4],
-                                             float (&c)[PC][TM][4]) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[0][i][j] = fmaf(a[0][i], b[0][j], c[0][i][j]);
-        c[1][i][j] = fmaf(a[0][i], b[1][j], c[1][i][j]);
-      }
-  }
-};
-
-struct PairComplex {       // two real rows x, y times w: xr, xi, yr, yi (K15 csd)
-  static constexpr int PA = 2, PB = 2, PC = 4;
-  template <int TM>
-  __device__ __forceinline__ static void fma(const float (&a)[PA][TM],
-                                             const float (&b)[PB][4],
-                                             float (&c)[PC][TM][4]) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[0][i][j] = fmaf(a[0][i], b[0][j], c[0][i][j]);
-        c[1][i][j] = fmaf(a[0][i], b[1][j], c[1][i][j]);
-        c[2][i][j] = fmaf(a[1][i], b[0][j], c[2][i][j]);
-        c[3][i][j] = fmaf(a[1][i], b[1][j], c[3][i][j]);
       }
   }
 };

@@ -17,15 +17,19 @@ Counterparts of three Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
   segment's Zr Ar + Zi Ai with A (m1, nperseg), unnormalised:
   :func:`istft_ola`;
 * ``build_welch_accum`` (K15): the sum over segments of |F_s M|^2, or of
-  conj(F_s M) (G_s M) as two planes for two signals: :func:`welch_accum`.
+  conj(F_s M) (G_s M) as two planes for two signals, M K13's function with
+  c = 1: :func:`welch_accum`. tpufft takes M; the port's kernel takes the
+  window, nfft and the detrend kind, as K13's.
 
-One CUDA source (``csrc/stft_mm.cu``) serves all three. K13 runs K7's
-stages (``csrc/fft_stages.cuh``, ``real_fft.cuh``) on frames copied once
-a block into shared memory; its envelope is :func:`frames_supported` (an
-nfft whose stage length, nfft/2 or odd nfft, has prime factors <= 127).
-K14 and K15 are products with a host-built matrix on the tile loop of
-``csrc/tile_mm.cuh`` that K10-K12 share, with f32 FMA (no TF32). Frames
-are never materialised on the kernel path. Signals and spectra may be f32
+One CUDA source (``csrc/stft_mm.cu``) serves all three. K13 and K15 run
+one frame core, K7's stages (``csrc/fft_stages.cuh``, ``real_fft.cuh``) on
+frames copied once a block into shared memory; K13 stores the bins, K15
+sums |X|^2 (or conj(X) Y) over a block's frames and writes one partial a
+(row, block, bin), which a second pass sums in a fixed order. Their
+envelope is :func:`frames_supported` (an nfft whose stage length, nfft/2 or
+odd nfft, has prime factors <= 127). K14 is a product with a host-built
+matrix on the tile loop of ``csrc/tile_mm.cuh`` that K10 shares, with f32
+FMA (no TF32). Frames are never materialised on the kernel path. Signals and spectra may be f32
 or bf16 (computed in f32); tables and results are f32. The TPU kernels'
 segment-major (nseg, batch, m1) layout and segment groups exist for
 Mosaic's block rule and the MXU's 128 rows, and have no counterpart here:
@@ -33,8 +37,8 @@ the kernels read and write the layouts their callers use.
 
 A CPU tensor runs the plain version (``unfold`` and two ``torch.matmul``
 with the f64-built matrix; per-segment matmuls and an ``index_add_``
-overlap-add; the first then the square and sum); a CUDA tensor launches
-the kernel or raises, never falls back.
+overlap-add; the first with c = 1 then the square and sum); a CUDA tensor
+launches the kernel or raises, never falls back.
 ``launches["stft"|"istft"|"welch"|"csd"]`` count launches;
 ``reference_cuda_calls`` counts runs of the plain versions on CUDA
 tensors, which the main path never makes.
@@ -115,7 +119,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def frames_supported(nfft: int) -> bool:
-    """Is nfft inside K13's envelope: 2 <= nfft <= 1024 with a stage
+    """Is nfft inside K13's and K15's envelope: 2 <= nfft <= 1024 with a stage
     length (nfft/2, or odd nfft) whose prime factors are <= 127, as for K7
     (``real_fft.supported``)? The primes 131 to 1021, and 262 = 2 x 131,
     are not."""
@@ -132,14 +136,30 @@ def _detrend_kind(detrend) -> int:
 
 
 def _check_frames(x: torch.Tensor, nperseg: int, nfft: int, hop: int,
-                  nseg: int) -> None:
+                  nseg: int, name: str = "stft_frames") -> None:
     if not 1 <= nperseg <= nfft:
-        raise ValueError(f"stft_frames: nperseg {nperseg} must be in "
+        raise ValueError(f"{name}: nperseg {nperseg} must be in "
                          f"[1, nfft = {nfft}]")
     if hop < 1 or nseg < 1 or (nseg - 1) * hop + nperseg > x.shape[-1]:
         raise ValueError(
-            f"stft_frames: {nseg} frames of {nperseg} at hop {hop} do not "
+            f"{name}: {nseg} frames of {nperseg} at hop {hop} do not "
             f"fit a signal of {x.shape[-1]}")
+
+
+def _check_envelope(name: str, nfft: int) -> None:
+    if not frames_supported(nfft):
+        raise ValueError(
+            f"{name}: nfft {nfft} is outside the kernel's envelope (2 <= "
+            f"nfft <= {MAX_FRAME_NFFT}, stage length nfft/2 or odd nfft "
+            f"with prime factors <= {minor_fft.MAX_PRIME})")
+
+
+def _frame_launch_args(nfft: int, device):
+    """The stage and half-length twiddle tables and the radices of K13's
+    and K15's stage length (nfft/2, or odd nfft)."""
+    tw, half, _, _ = real_fft._launch_args(nfft, False, device)
+    rad = minor_fft.radices(nfft // 2 if nfft % 2 == 0 else nfft)
+    return tw, half, (ctypes.c_int * max(len(rad), 1))(*rad), len(rad)
 
 
 def stft_frames(x: torch.Tensor, win: torch.Tensor, cr: torch.Tensor,
@@ -166,11 +186,7 @@ def stft_frames(x: torch.Tensor, win: torch.Tensor, cr: torch.Tensor,
     for t in (cr, ci):
         _check_table(name, t, x.device, (m1,))
     _check_frames(x, nperseg, nfft, hop, nseg)
-    if not frames_supported(nfft):
-        raise ValueError(
-            f"{name}: nfft {nfft} is outside the kernel's envelope (2 <= "
-            f"nfft <= {MAX_FRAME_NFFT}, stage length nfft/2 or odd nfft "
-            f"with prime factors <= {minor_fft.MAX_PRIME})")
+    _check_envelope(name, nfft)
     batch, n_sig = x.shape
     yr = x.new_empty((batch, nseg, m1), dtype=torch.float32)
     yi = torch.empty_like(yr)
@@ -178,13 +194,11 @@ def stft_frames(x: torch.Tensor, win: torch.Tensor, cr: torch.Tensor,
         return yr, yi
     lib = _build.load()
     with torch.cuda.device(x.device):
-        tw, half, _, _ = real_fft._launch_args(nfft, False, x.device)
-        rad = minor_fft.radices(nfft // 2 if nfft % 2 == 0 else nfft)
-        rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
+        tw, half, rad_arr, nstages = _frame_launch_args(nfft, x.device)
         err = lib.tpufft_stft_frames(
             x.data_ptr(), win.data_ptr(), cr.data_ptr(), ci.data_ptr(),
             yr.data_ptr(), yi.data_ptr(), tw.data_ptr(), half.data_ptr(),
-            batch, n_sig, hop, nseg, nperseg, nfft, kind, rad_arr, len(rad),
+            batch, n_sig, hop, nseg, nperseg, nfft, kind, rad_arr, nstages,
             int(x.dtype == torch.bfloat16), _stream(x))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -231,19 +245,23 @@ def istft_ola(zr: torch.Tensor, zi: torch.Tensor, ar: torch.Tensor,
     return out
 
 
-def welch_accum(x: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor,
+def welch_accum(x: torch.Tensor, win: torch.Tensor, nfft: int, detrend,
                 hop: int, y: torch.Tensor | None = None):
-    """The sum over the frames of ``x`` (batch, n_sig) of |F M|^2, M =
-    ``mr + i mi`` (nperseg, m1): (batch, m1) f32 (welch). With ``y`` (the
-    same shape and dtype), the sum of conj(F_x M) (F_y M) as its (re, im)
-    planes (csd). The per-segment spectra never reach device memory
-    (K15).
+    """The sum over the frames s of ``x`` (batch, n_sig), frame s = x[:,
+    s hop : s hop + nperseg], of |X_s|^2, X_s the frame detrended
+    (``detrend`` False/None, "constant" or "linear"), times the real window
+    ``win`` (nperseg), zero-padded to ``nfft`` and real-DFT'd (K13's
+    spectrum with c = 1): (batch, nfft/2 + 1) f32 (welch). With ``y`` (the
+    same shape and dtype), the sum of conj(X_s) Y_s as its (re, im) planes
+    (csd). The per-frame spectra never reach device memory (K15).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
-    ts = (x, mr, mi) if y is None else (x, y, mr, mi)
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream and raise on anything it does not take."""
+    nfft, hop = int(nfft), int(hop)
+    kind = _detrend_kind(detrend)
+    ts = (x, win) if y is None else (x, y, win)
     if all(t.device.type == "cpu" for t in ts):
-        return welch_accum_reference(x, mr, mi, hop, y)
+        return welch_accum_reference(x, win, nfft, detrend, hop, y)
     name = "welch_accum"
     _check_rows(name, "the signal", x, x.device, 2)
     if y is not None:
@@ -251,27 +269,32 @@ def welch_accum(x: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor,
         if y.shape != x.shape or y.dtype != x.dtype:
             raise ValueError(f"{name}: signals of different shapes or "
                              "dtypes")
-    nperseg, m1 = mr.shape
-    for t in (mr, mi):
-        _check_table(name, t, x.device, (nperseg, m1))
+    nperseg, m1 = win.shape[0], nfft // 2 + 1
+    _check_table(name, win, x.device, (nperseg,))
     batch, n_sig = x.shape
     nseg = _nseg(n_sig, nperseg, hop)
+    _check_frames(x, nperseg, nfft, hop, nseg, name)
+    _check_envelope(name, nfft)
     cross = y is not None
     outr = x.new_empty((batch, m1), dtype=torch.float32)
     outi = torch.empty_like(outr) if cross else None
     if batch == 0:
         return (outr, outi) if cross else outr
+    bf16 = int(x.dtype == torch.bfloat16)
     lib = _build.load()
-    part = x.new_empty(lib.tpufft_welch_partial_floats(batch, nseg, m1,
-                                                        int(cross)),
-                       dtype=torch.float32)
     with torch.cuda.device(x.device):
-        err = lib.tpufft_welch_accum(
-            x.data_ptr(), y.data_ptr() if cross else None, mr.data_ptr(),
-            mi.data_ptr(), part.data_ptr(), outr.data_ptr(),
-            outi.data_ptr() if cross else None, batch, n_sig, hop, nseg,
-            nperseg, m1, int(cross), int(x.dtype == torch.bfloat16),
-            _stream(x))
+        floats = lib.tpufft_welch_partial_floats(batch, hop, nseg, nperseg,
+                                                 nfft, int(cross), bf16)
+        if floats < 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {-floats}")
+        part = x.new_empty(floats, dtype=torch.float32)
+        tw, half, rad_arr, nstages = _frame_launch_args(nfft, x.device)
+        err = lib.tpufft_welch_frames(
+            x.data_ptr(), y.data_ptr() if cross else None, win.data_ptr(),
+            part.data_ptr(), outr.data_ptr(),
+            outi.data_ptr() if cross else None, tw.data_ptr(),
+            half.data_ptr(), batch, n_sig, hop, nseg, nperseg, nfft, kind,
+            rad_arr, nstages, int(cross), bf16, _stream(x))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches["csd" if cross else "welch"] += 1
@@ -352,14 +375,23 @@ def istft_ola_reference(zr, zi, ar, ai, hop: int) -> torch.Tensor:
     return out.index_add_(1, idx, seg.reshape(batch, -1))
 
 
-def welch_accum_reference(x, mr, mi, hop: int, y=None):
-    """Plain PyTorch version of :func:`welch_accum`: the plain STFT, then
-    the square (or conjugate product) summed over segments; any device."""
+def welch_accum_reference(x, win, nfft: int, detrend, hop: int, y=None):
+    """Plain PyTorch version of :func:`welch_accum`: :func:`frame_matrix`
+    with c = 1, built on the host in f64 from the same arguments, then
+    ``unfold``, two f32 matmuls, and the square (or conjugate product)
+    summed over frames; any device. It shares no code with the kernel's
+    FFT."""
     _count(x)
-    fx = _frames(x, mr.shape[0], hop)
+    nfft, hop = int(nfft), int(hop)
+    nperseg = win.shape[0]
+    M = frame_matrix(win.detach().double().cpu().numpy(),
+                     np.ones(nfft // 2 + 1), nfft, detrend)
+    mr = torch.as_tensor(M.real, dtype=torch.float32, device=x.device)
+    mi = torch.as_tensor(M.imag, dtype=torch.float32, device=x.device)
+    fx = _frames(x, nperseg, hop)
     xr, xi = fx @ mr, fx @ mi
     if y is None:
         return (xr * xr + xi * xi).sum(1)
-    fy = _frames(y, mr.shape[0], hop)
+    fy = _frames(y, nperseg, hop)
     yr, yi = fy @ mr, fy @ mi
     return (xr * yr + xi * yi).sum(1), (xr * yi - xi * yr).sum(1)

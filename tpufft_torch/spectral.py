@@ -14,17 +14,19 @@ port runs it on three hand-written CUDA kernels (``kernels/stft_mm``):
 * K14: istft runs the inverse DFT, the synthesis window and the
   overlap-add as one product with the (m1, nperseg) matrix
   (``_istft_matrix``); the window-sum normalisation stays outside;
-* K15: welch, csd (and coherence, periodogram through them) accumulate
-  |X|^2 or conj(X) Y over segments inside the kernel: the per-segment
-  spectra never reach device memory.
+* K15: welch, csd (and coherence, periodogram through them) run K13's
+  frame FFT and accumulate |X|^2 or conj(X) Y over segments inside the
+  kernel: the per-segment spectra never reach device memory, and the
+  matrix serves only the backward.
 
 The kernels serve real f32 or bf16 signals with a onesided spectrum,
 detrend False, "constant" or "linear", and 2 <= nfft <= 1024,
 nperseg <= nfft, nperseg % hop == 0 (tpufft's gate without its
-``hop % 128 == 0``, which comes from TPU lane tiling); K13 also needs an
-nfft inside its FFT's envelope (``stft_mm.frames_supported``: no prime
-factor of nfft/2, or of odd nfft, above 127), and stft takes the composed
-route for the others (262, the primes 131 to 1021). A CPU tensor takes
+``hop % 128 == 0``, which comes from TPU lane tiling); K13 and K15 also
+need an nfft inside their FFT's envelope (``stft_mm.frames_supported``: no
+prime factor of nfft/2, or of odd nfft, above 127), and stft, welch and
+csd take the composed route for the others (262, the primes 131 to
+1021). A CPU tensor takes
 the same route through the kernels' plain versions; float64 and complex
 input, other detrends, ``boundary``/``padded`` on welch, and
 ``backend="xla"`` take tpufft's composed route: framing, detrend, window
@@ -407,18 +409,22 @@ def _welch_composed(x, y, mr, mi, hop: int):
 
 
 class _WelchFused(torch.autograd.Function):
-    """The sum over segments of |X|^2 (or conj(X) Y) on K15; the backward
-    recomputes through the composed torch ops, as tpufft's VJP does."""
+    """The sum over segments of |X|^2 (or conj(X) Y) on K15: the window,
+    nfft and detrend go to the kernel's frame FFT. The backward recomputes
+    through the composed torch ops, as tpufft's VJP does, with the same
+    function as a host matrix (``matrix()`` gives its f32 planes, built and
+    uploaded on first use)."""
 
     @staticmethod
-    def forward(ctx, x, y, mr, mi, hop):
-        ctx.save_for_backward(x, y, mr, mi)
-        ctx.hop = hop
-        return stft_mm.welch_accum(x, mr, mi, hop, y)
+    def forward(ctx, x, y, win, nfft, detrend, hop, matrix):
+        ctx.save_for_backward(x, y)
+        ctx.hop, ctx.matrix = hop, matrix
+        return stft_mm.welch_accum(x, win, nfft, detrend, hop, y)
 
     @staticmethod
     def backward(ctx, *g):
-        x, y, mr, mi = ctx.saved_tensors
+        x, y = ctx.saved_tensors
+        mr, mi = ctx.matrix()
         with torch.enable_grad():
             xs = x.detach().float().requires_grad_()
             ys = None if y is None else y.detach().float().requires_grad_()
@@ -428,7 +434,7 @@ class _WelchFused(torch.autograd.Function):
             grads = torch.autograd.grad(outs, ins, g[:len(outs)])
         gx = grads[0].to(x.dtype)
         gy = None if y is None else grads[1].to(y.dtype)
-        return gx, gy, None, None, None
+        return gx, gy, None, None, None, None, None
 
 
 class _ISTFTFused(torch.autograd.Function):
@@ -485,7 +491,8 @@ def _welch_fused_ok(xim, yim, onesided, detrend, dtypes, nperseg: int,
         return False
     if any(d not in _KERNEL_DTYPES for d in dtypes) or cfg.backend == "xla":
         return False
-    return _geometry_ok(nperseg, step, nfft)
+    return _geometry_ok(nperseg, step, nfft) and stft_mm.frames_supported(
+        nfft)
 
 
 def _istft_fused_ok(onesided, n_freq: int, dtype, nperseg: int, step: int,
@@ -638,14 +645,15 @@ def _spectral_helper(x, y, fs, window, nperseg, noverlap, nfft, detrend,
         # K15: per-segment spectra never reach device memory; the mean and
         # scale are scalar passes on the (rows, m1) result
         nseg_f = 1 + (xre.shape[-1] - nperseg) // step
-        mr, mi = _tables("stft", win, nperseg, nfft, (dkey, 1.0), dev)
+        wt = _frame_tables(win, nfft, 1.0, dev)[0]
         lead = xre.shape[:-1]
+        args = (wt, nfft, dkey, step, lambda: _tables(
+            "stft", win, nperseg, nfft, (dkey, 1.0), dev))
         if same_data:
-            Pr, Pi = _WelchFused.apply(rows(xre), None, mr, mi, step), None
+            Pr, Pi = _WelchFused.apply(rows(xre), None, *args), None
         else:
             dt = (xre.dtype if xre.dtype == yre.dtype else torch.float32)
-            Pr, Pi = _WelchFused.apply(rows(xre, dt), rows(yre, dt), mr, mi,
-                                       step)
+            Pr, Pi = _WelchFused.apply(rows(xre, dt), rows(yre, dt), *args)
         k = float(scale) / nseg_f
         m1 = Pr.shape[-1]
         Rr = (Pr * k).reshape(lead + (1, m1))
