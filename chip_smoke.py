@@ -66,14 +66,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
     ``rfft`` along a non-minor axis (movedim + K7 + movedim back);
 12. the dense-matrix kernels K10 (complex), K11 (real) and K12 (real, the
     DCT/DST table) against their plain versions (f32 matmuls, TF32 off) on
-    ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128)
-    and (128 -> 93), and every DCT/DST (kind, type, norm, direction) at
-    n = 2 to 1024; K11 and K12 on both bodies of the real kernel
-    (``dense_mm.form``: the 3xTF32 tensor-core body where both lengths are
-    multiples of 4, else the FMA body) at batches of 1, 127, 129 and 257
-    rows, and on edge-value rows (+-Inf, NaN, 3.4e38, FLT_MAX, rows scaled
-    by 1e-20 and 1e18) whose Inf and NaN must fall where the plain
-    version's do;
+    ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128),
+    (128 -> 93) and (36 -> 100), and every DCT/DST (kind, type, norm,
+    direction) at n = 2 to 1024; each on its body (``dense_mm.form``: the
+    3xTF32 tensor-core body where both lengths are multiples of 4, for K10
+    the block product [Xr | Xi] [[Wr, Wi], [-Wi, Wr]], else the FMA body)
+    at batches of 1, 127, 129 and 257 rows, and on edge-value rows (+-Inf,
+    NaN, 3.4e38, FLT_MAX, rows scaled by 1e-20 and 1e18) whose Inf and NaN
+    must fall where the plain version's do;
 13. the filtering, convolution, DCT/DST, czt and fht paths at full size,
     each call driven with every count set to 0 just before it and read just
     after: ``hilbert`` (100000, 512) (K10), a low-pass ``plan_filter(512)``
@@ -86,10 +86,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
     float64 on a few rows and through its round trip where it has one;
 14. times: each of those paths, K10, K11 and K12 alone at their paths'
     shapes, their plain versions and ``torch.matmul`` on the same operands
-    (cuBLAS, a yardstick only); for K11 and K12 the body each runs, its
-    operations bound on the FP32 cores beside the 3xTF32 one, the other
-    (FMA) body's time, and ``torch.matmul`` with ``allow_tf32`` (one TF32
-    product: informational, it fails the 1e-5 check); and the filter's
+    (cuBLAS, a yardstick only); for each the body it runs, its operations
+    bound on the FP32 cores beside the 3xTF32 one, and the FMA body's time
+    (for K10 the form it had before the tensor-core one); for K11 and K12
+    ``torch.matmul`` with ``allow_tf32`` (one TF32 product:
+    informational, it fails the 1e-5 check); and the filter's
     dense route (K10) against its composed route (K1, multiply, K1) on
     (100000, n) for n = 64 to 512;
 15. the short-time Fourier kernels K13 (overlapped-frame STFT, an FFT of
@@ -124,9 +125,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
     (8, 8, 8) to (64, 64, 64) and (24, 40, 56) (clusters of 1 to 16
     blocks), pairs (8, 16, 128) to (128, 512, 3), among them (64, 128, 37)
     (a ragged L), pre 3 and 5, both directions, scale 1 and 1/N, f32 and
-    bf16 storage; which form of the cube kernel each cube runs (the line
-    form for power-of-two axes up to 64, else the stage form) and how
-    many clusters of each kernel the card holds at once
+    bf16 storage; which form of each kernel each shape runs (the line
+    form for power-of-two axes up to 64 for K5, up to 128 for K6, else
+    the stage form) and how many clusters of each kernel the card holds
+    at once
     (``cudaOccupancyMaxActiveClusters``), as SMs kept busy;
 19. the ND paths at full size, each call driven with every count set to 0
     just before it and read just after: ``fftn(axes=(1, 2, 3))`` on
@@ -138,9 +140,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
 20. times: those paths, K5 and K6 alone, their plain versions, cuFFT
     (``torch.fft.fftn``, a yardstick only), the routes they replace (K3 +
     K4 for the cube, K3 + K2 for the pair) and the copy floor, with K5's
-    form and clusters at once beside K3 + K4 and cuFFT; and K6
-    against the two strided passes at about 268 MB for L = 1 to 512, the
-    sweep behind ``execute.MID_PAIR_MIN_L``;
+    form and clusters at once beside K3 + K4 and cuFFT, K6's form beside
+    its stage form, K3 + K2 and cuFFT; and K6 (its form and the stage
+    form) against the two strided passes at about 268 MB for L = 1 to
+    512, the sweep behind ``execute.MID_PAIR_MIN_L``;
 21. the fused-storage kernels K16 (cube), K17 (pair), K18 (a leading
     axis, M > 1), K19 (the axis next to the minor one, M = 1) and K20 (the
     minor axis, on every power-of-two half of K1's line form and on the
@@ -182,6 +185,7 @@ last is one JSON object describing every kernel; the last line is
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 import json
 import math
@@ -232,8 +236,8 @@ REAL_LINE_SHAPES = ((400_000, 256), (12_500, 8192))
 REAL_ODD_NS = (3, 93, 127, 16383)
 PADS = ((93, 128), (1000, 1024), (5000, 8192))
 PAIR_PADS = ((64, 93, 128), (120, 100, 128))
-DENSE_SHAPES = ((2, 2), (7, 7), (64, 64), (93, 93), (128, 128), (512, 512),
-                (93, 128), (128, 93))
+DENSE_SHAPES = ((2, 2), (7, 7), (64, 64), (93, 93), (100, 100), (128, 128),
+                (512, 512), (93, 128), (128, 93), (36, 100))
 R2R_NS = (2, 3, 93, 128, 1000, 1024)
 R2R_NORMS = ("backward", "ortho", "forward")
 CROSSOVER_NS = (64, 128, 256, 512)
@@ -1158,20 +1162,31 @@ DENSE_BATCHES = (1, 127, 129, 257)   # rows ending mid-tile, and a few tiles
 
 def phase_dense_kernels() -> None:
     """K10, K11 and K12 against their plain versions (f32 matmuls, TF32
-    off): K10 and K11 on ragged batches of 257 rows; K11 and K12 on both
-    bodies (``dense_mm.form``) at batches of 1 to 257 rows and on edge-value
-    rows, whose Inf and NaN must fall where the plain version's do."""
+    off), each on its body (``dense_mm.form``: the 3xTF32 tensor-core body,
+    else the FMA loop) at batches of 1 to 257 rows and on edge-value rows,
+    whose Inf and NaN must fall where the plain version's do (K10: the
+    edge values in xr)."""
     worst = {}
     f32 = torch.float32
     forms = collections.defaultdict(list)
     for m_in, m_out in DENSE_SHAPES:
         xr, xi = _planes((257, m_in), f32, seed=m_in)
         wr, wi = _planes((m_in, m_out), f32, seed=m_out + 7)
+        wb = dense_mm.block_table(wr, wi).contiguous()
         what = f"({m_in} -> {m_out})"
         forms[dense_mm.form(m_in, m_out)].append(what)
-        _hold(worst, "complex", f32,
-              dense_mm.dense_mm_complex(xr, xi, wr, wi),
-              dense_mm.dense_mm_complex_reference(xr, xi, wr, wi), what)
+        for batch in DENSE_BATCHES:
+            _hold(worst, "complex", f32,
+                  dense_mm.dense_mm_complex(xr[:batch], xi[:batch], wr, wi,
+                                            wb),
+                  dense_mm.dense_mm_complex_reference(xr[:batch], xi[:batch],
+                                                      wr, wi),
+                  f"{what} batch {batch}")
+        edge = _edge_rows(xr)
+        for got, ref in zip(
+                dense_mm.dense_mm_complex(edge, xi, wr, wi, wb),
+                dense_mm.dense_mm_complex_reference(edge, xi, wr, wi)):
+            _hold_edges(worst, "complex", got, ref, what)
         for batch in DENSE_BATCHES:
             _hold(worst, "real", f32, dense_mm.dense_mm_real(xr[:batch], wr),
                   dense_mm.dense_mm_real_reference(xr[:batch], wr),
@@ -1204,13 +1219,13 @@ def phase_dense_kernels() -> None:
                                     what)
     torch.cuda.synchronize()
     for body, shapes in forms.items():
-        print(f"real kernel (K11, K12) body {body}: {', '.join(shapes)}")
+        print(f"dense kernels (K10, K11, K12) body {body}: "
+              f"{', '.join(shapes)}")
     for k in DENSE_KERNELS:
         print(f"{k} vs plain: max normalized error f32 "
-              f"{worst[(k, f32)]:.3e} (tol {F32_TOL})"
-              + (f"; edge rows (+-Inf, NaN, 3.4e38, FLT_MAX, x1e-20, x1e18): "
-                 f"Inf/NaN pattern equal, finite entries "
-                 f"{worst[(k, 'edges')]:.3e}" if k != "complex" else ""))
+              f"{worst[(k, f32)]:.3e} (tol {F32_TOL}); edge rows (+-Inf, "
+              f"NaN, 3.4e38, FLT_MAX, x1e-20, x1e18): Inf/NaN pattern "
+              f"equal, finite entries {worst[(k, 'edges')]:.3e}")
 
 
 def _lowpass(n: int) -> np.ndarray:
@@ -1394,6 +1409,33 @@ def _real_body_lines(key: str, x: torch.Tensor, w: torch.Tensor) -> None:
     del y, ref
 
 
+def _complex_fma_line(xr, xi, wr, wi, row: dict) -> None:
+    """K10's FMA body (its only body before the tensor-core one) on the
+    same operands, through the C entry point: its time beside the
+    tensor-core body's in this run."""
+    lib = _build.load()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fma():
+        check(lib.tpufft_dense_mm_complex(
+            xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(), 0,
+            yr.data_ptr(), yi.data_ptr(), xr.shape[0], xr.shape[1],
+            wr.shape[1], 0, stream) == 0,
+            "complex: the FMA body did not launch")
+
+    fma()
+    ref = dense_mm.dense_mm_complex_reference(xr, xi, wr, wi)
+    err = max(norm_err(yr, ref[0]), norm_err(yi, ref[1]))
+    check(err < F32_TOL, f"complex: FMA body vs plain {err:.3e}")
+    row["fma_ms"] = _time_ms(fma)
+    print(f"  complex {tuple(xr.shape)} x {tuple(wr.shape)}: the FMA body "
+          f"{row['fma_ms']:.4f} ms (vs plain {err:.3e}); the "
+          f"{dense_mm.form(xr.shape[1], wr.shape[1])} body {row['ms']:.4f} "
+          f"ms, ratio {row['ms'] / row['fma_ms']:.3f}")
+    del yr, yi, ref
+
+
 def phase_dense_times(peak: float) -> dict:
     """Times of the paths and of K10, K11 and K12 alone at their paths'
     shapes; returns, per dense kernel, its time, its plain version's,
@@ -1434,12 +1476,14 @@ def phase_dense_times(peak: float) -> dict:
     dev = xr.device
     hplan = signal._hilbert_plan(n, 1, None)
     wr, wi = hplan._table("cr", dev), hplan._table("ci", dev)
+    wb = hplan._table("block", dev)
     xc, wc = torch.complex(xr, xi), torch.complex(wr, wi)
     kernel_row("complex", (rows, n, n),
-               lambda: dense_mm.dense_mm_complex(xr, xi, wr, wi),
+               lambda: dense_mm.dense_mm_complex(xr, xi, wr, wi, wb),
                lambda: dense_mm.dense_mm_complex_reference(xr, xi, wr, wi),
                lambda: torch.matmul(xc, wc),
                f32 * (4 * rows * n + 2 * n * n), 8.0 * rows * n * n)
+    _complex_fma_line(xr, xi, wr, wi, out["complex"])
     del xc, wc
     w = _lowpass_plan()._table("cr", dev)
     kernel_row("real", (rows, n, n), lambda: dense_mm.dense_mm_real(xr, w),
@@ -1457,7 +1501,7 @@ def phase_dense_times(peak: float) -> dict:
                f32 * (2 * rows * n + n * n), 2.0 * rows * n * n)
     _real_body_lines("r2r", x, w)
     del x
-    for key in ("real", "r2r"):
+    for key in DENSE_KERNELS:
         row = out[key]
         row["form"] = dense_mm.form(*row["mkn"][1:])
         row["bound_fp32_ms"] = row["flops"] / peak * 1e3
@@ -1837,8 +1881,10 @@ def phase_cluster_kernels() -> None:
     for n1, n2, L in MID_PAIRS:
         c = mid_pair_fft.cluster_size(n1, n2)
         active = mid_pair_fft.active_clusters(n1, n2, False, 0)
-        print(f"K6 pair ({n1}, {n2}) L {L}: clusters of {c} blocks, {active}"
-              f" at once ({active * c} blocks on the {sms} SMs)")
+        print(f"K6 pair ({n1}, {n2}) L {L}: {mid_pair_fft.form(n1, n2, L)} "
+              f"form, tiles of {mid_pair_fft.lanes(n1, n2)} lanes of L, "
+              f"clusters of {c} blocks, {active} at once ({active * c} "
+              f"blocks on the {sms} SMs)")
         check(active > 0, f"K6 {(n1, n2)}: no cluster fits")
         for dtype in (torch.float32, torch.bfloat16):
             for pre in (3, 5):
@@ -1937,6 +1983,32 @@ def _axes_1_2(xr, xi):
     return execute._kernel_axis(yr, yi, 2, inverse=False, scale=1.0)
 
 
+def _mid_stage_form(xr, xi):
+    """K6's stage form (its only form before the line form) on the same
+    planes, through the C entry point: 4 lanes of L a tile, which the
+    entry point runs on the stage form. Returns a call that launches it
+    and the output planes it writes."""
+    lib = _build.load()
+    _, n1, n2, L = xr.shape
+    c = cube_fft.pick_cluster(n1, n2 * mid_pair_fft.LANES)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    rad1, rad2 = minor_fft.radices(n1), minor_fft.radices(n2)
+    arr1 = (ctypes.c_int * len(rad1))(*rad1)
+    arr2 = (ctypes.c_int * len(rad2))(*rad2)
+    tw1 = minor_fft._device_twiddles(n1, False, xr.device)
+    tw2 = minor_fft._device_twiddles(n2, False, xr.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(lib.tpufft_mid_pair_fft(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            tw1.data_ptr(), tw2.data_ptr(), xr.shape[0], n1, n2, L,
+            mid_pair_fft.LANES, c, arr1, len(rad1), arr2, len(rad2), 0, 1.0,
+            0, stream) == 0, "mid_pair: the stage form did not launch")
+
+    return run, (yr, yi)
+
+
 def phase_nd_times() -> dict:
     """Times of the ND paths and of K5 and K6 alone at their paths' shapes,
     against their plain versions, cuFFT, the routes they replace and the
@@ -2023,20 +2095,37 @@ def phase_nd_times() -> dict:
                    xr, xi, inverse=False, scale=1.0),
                lambda: torch.fft.fftn(xc, dim=(1, 2)), nb,
                _fft_flops(n1 * n2, pre * L))
-    del x, xc, xr, xi
-    # the L sweep: K6 against the two axis passes on (pre, 64, 128, L)
-    # planes of about 268 MB
+    stage, planes = _mid_stage_form(xr, xi)
+    stage()
+    err = pair_err(planes, mid_pair_fft.fft_mid_pair_reference(
+        xr, xi, inverse=False, scale=1.0))
+    check(err < F32_TOL, f"mid_pair stage form vs plain {err:.3e}")
+    out["mid_pair"]["stage_ms"] = t_stage = _time_ms(stage)
+    print(f"  K6 {MID_SHAPE}: {mid_pair_fft.form(n1, n2, L)} form, tiles "
+          f"of {mid_pair_fft.lanes(n1, n2)} lanes, clusters of "
+          f"{mid_pair_fft.cluster_size(n1, n2)} blocks, "
+          f"{mid_pair_fft.active_clusters(n1, n2, False, 0)} at once: K6 "
+          f"{out['mid_pair']['ms']:.4f} ms, the stage form (4 lanes) "
+          f"{t_stage:.4f} ms (vs plain {err:.3e}), K3 + K2 "
+          f"{t['old_route_K3_K2']:.4f} ms, torch.fft.fftn "
+          f"{t['torch_fftn']:.4f} ms")
+    del x, xc, xr, xi, stage, planes
+    # the L sweep: K6 (its form, and the stage form) against the two axis
+    # passes on (pre, 64, 128, L) planes of about 268 MB
     for L in MID_PAIR_SWEEP_LS:
         pre = 4096 // L
         shape = (pre, n1, n2, L)
         xr, xi = _device_planes(shape, seed=L)
         t_k6 = _time_ms(lambda: mid_pair_fft.fft_mid_pair(
             xr, xi, inverse=False, scale=1.0))
+        stage, _ = _mid_stage_form(xr, xi)
+        t_stage = _time_ms(stage)
         t_two = _time_ms(lambda: _axes_1_2(xr, xi))
         print(f"  L sweep {shape} ({2 * f32 * xr.numel() / 1e6:.0f} MB): "
-              f"K6 {t_k6:.4f} ms, two strided passes {t_two:.4f} ms, "
-              f"ratio {t_k6 / t_two:.3f}")
-        del xr, xi
+              f"K6 {mid_pair_fft.form(n1, n2, L)} form {t_k6:.4f} ms, stage "
+              f"form {t_stage:.4f} ms, two strided passes {t_two:.4f} ms, "
+              f"K6 / two passes {t_k6 / t_two:.3f}")
+        del xr, xi, stage
     torch.cuda.synchronize()
     return out
 
@@ -2500,7 +2589,7 @@ def _entry(name: str, source: str, replaces: str, launches: int,
 
 def _dense_entry(name: str, replaces: str, launches: int, row: dict,
                  rate: float, peak: float) -> dict:
-    """K11/K12's entry: the bound of the body that ran (the tensor-core
+    """K10/K11/K12's entry: the bound of the body that ran (the tensor-core
     body does three TF32 products at TF32_PEAK, the FMA body one f32
     product at the FP32 peak), both operations bounds, and the body."""
     tf32x3 = row["form"] == "tf32x3"
@@ -2574,8 +2663,8 @@ def main() -> None:
                real_rows["c2r"], rate, peak),
         _entry("minor_fft_padded (K9)", "minor_fft.cu", f"{mx}:551",
                total["minor_padded"], real_rows["minor_padded"], rate, peak),
-        _entry("dense_mm_complex (K10)", "dense_mm.cu", f"{mx}:606",
-               total["complex"], dense_rows["complex"], rate, peak),
+        _dense_entry("dense_mm_complex (K10)", f"{mx}:606",
+                     total["complex"], dense_rows["complex"], rate, peak),
         _dense_entry("dense_mm_real (K11)", f"{mx}:658", total["real"],
                      dense_rows["real"], rate, peak),
         _dense_entry("r2r_minor (K12)", "tpufft/realtrans.py:177",

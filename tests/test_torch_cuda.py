@@ -1053,6 +1053,98 @@ def test_real_kernel_rows_past_one_launch(cuda_device):
                 (ref, torch.zeros_like(ref))) < 1e-5
 
 
+# both bodies of the complex kernel (K10): the 3xTF32 block product
+# [xr | xi] @ [[wr, wi], [-wi, wr]] (lengths that are multiples of 4; 100
+# and 36 put a plane's end inside a 32-deep stage) and the FMA loop
+COMPLEX_BODIES = [(64, 64, "tf32x3"), (512, 512, "tf32x3"),
+                  (100, 100, "tf32x3"), (36, 100, "tf32x3"),
+                  (96, 132, "tf32x3"), (93, 93, "fma"), (93, 128, "fma"),
+                  (7, 7, "fma"), (2, 2, "fma")]
+
+
+@pytest.mark.parametrize("batch", [1, 127, 129, 257])
+@pytest.mark.parametrize("m_in,m_out,body", COMPLEX_BODIES)
+def test_complex_kernel_bodies_match_plain_version(m_in, m_out, body, batch,
+                                                   cuda_device):
+    """K10 on batches that end mid-tile, with the block table given and
+    built by the wrapper; one launch a call, no plain-version CUDA call."""
+    assert dense_mm.form(m_in, m_out) == body
+    xr, xi = _planes((batch, m_in), cuda_device, seed=batch)
+    wr, wi = _planes((m_in, m_out), cuda_device, seed=m_out + 5)
+    wb = dense_mm.block_table(wr, wi).contiguous()
+    dense_mm.reset_counts()
+    got = dense_mm.dense_mm_complex(xr, xi, wr, wi, wb)
+    again = dense_mm.dense_mm_complex(xr, xi, wr, wi)
+    assert dense_mm.launches == {"complex": 2, "real": 0, "r2r": 0}
+    assert dense_mm.reference_cuda_calls == 0
+    ref = dense_mm.dense_mm_complex_reference(xr, xi, wr, wi)
+    torch.cuda.synchronize()
+    assert got[0].shape == (batch, m_out) and got[1].dtype == torch.float32
+    assert _err(got, ref) < 1e-5
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_complex_kernel_at_the_path_shape(cuda_device):
+    """K10 at (100000, 512) x (512, 512), hilbert's circulant: the
+    tensor-core body, one launch."""
+    from tpufft_torch import signal
+
+    assert dense_mm.form(512, 512) == "tf32x3"
+    xr, xi = _planes((100_000, 512), cuda_device, seed=12)
+    plan = signal._hilbert_plan(512, 1, None)
+    wr, wi = plan._table("cr", cuda_device), plan._table("ci", cuda_device)
+    wb = plan._table("block", cuda_device)
+    torch.testing.assert_close(wb, dense_mm.block_table(wr, wi), rtol=0,
+                               atol=0)
+    dense_mm.reset_counts()
+    got = dense_mm.dense_mm_complex(xr, xi, wr, wi, wb)
+    assert dense_mm.launches["complex"] == 1
+    assert dense_mm.reference_cuda_calls == 0
+    ref = dense_mm.dense_mm_complex_reference(xr, xi, wr, wi)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("n", [93, 128, 512])
+def test_complex_kernel_edge_values(n, cuda_device):
+    """K10 with edge values in xr: Inf and NaN where the plain version has
+    them, finite entries within 1e-5 of it, on either body."""
+    xr, xi = _planes((257, n), cuda_device, seed=n + 2)
+    xr = _edge_rows(xr)
+    wr, wi = _planes((n, n), cuda_device, seed=n + 3)
+    got = dense_mm.dense_mm_complex(xr, xi, wr, wi)
+    ref = dense_mm.dense_mm_complex_reference(xr, xi, wr, wi)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _same_nonfinite(g, r)
+        assert not torch.isfinite(r[:3]).all()
+        assert _row_err(g, r) < 1e-5
+
+
+def test_complex_kernel_misaligned_view_runs_the_fma_body(cuda_device):
+    """Planes that start 4 bytes into their storage run the FMA body."""
+    base, _ = _planes((2 * 257 * 128 + 1,), cuda_device, seed=7)
+    xr = base[1:257 * 128 + 1].view(257, 128)
+    xi = base[257 * 128 + 1:].view(257, 128)
+    assert xr.data_ptr() % 16 != 0
+    wr, wi = _planes((128, 128), cuda_device, seed=8)
+    got = dense_mm.dense_mm_complex(xr, xi, wr, wi)
+    ref = dense_mm.dense_mm_complex_reference(xr, xi, wr, wi)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+
+
+def test_complex_kernel_checks_its_block_table(cuda_device):
+    xr = torch.zeros(4, 8, device=cuda_device)
+    w = torch.zeros(8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="block table"):
+        dense_mm.dense_mm_complex(xr, xr, w, w, torch.zeros(
+            8, 16, device=cuda_device))
+    with pytest.raises(ValueError, match="block table"):
+        dense_mm.dense_mm_complex(xr, xr, w, w, torch.zeros(
+            16, 16, device=cuda_device, dtype=torch.float64))
+
+
 def test_r2r_backward_on_the_tensor_core_body(cuda_device):
     """K12's backward (``_R2R.backward``, the transposed table) on the
     tensor-core body at n = 1024."""
@@ -1349,6 +1441,30 @@ def test_spectral_paths_run_their_kernels(name, call, per_call, cuda_device):
     assert _err(got, ref) < 1e-5
 
 
+@pytest.mark.parametrize("fn", ["csd", "coherence"])
+@pytest.mark.parametrize("xs,ys", [((1, 3000), (3, 3000)),
+                                   ((2, 1, 3000), (1, 3, 3000)),
+                                   ((3, 3000), (1, 3000))])
+def test_csd_broadcast_shapes_on_the_welch_kernel(fn, xs, ys, cuda_device):
+    """csd and coherence broadcast x's and y's leading dims on K15's route:
+    one csd launch a call, and the CPU's result."""
+    x, _ = _planes(xs, cuda_device, seed=20)
+    y, _ = _planes(ys, cuda_device, seed=21)
+    stft_mm.reset_counts()
+    _, got = getattr(tpufft_torch, fn)(x, y, nperseg=256)
+    torch.cuda.synchronize()
+    assert stft_mm.launches["csd"] == 1
+    assert stft_mm.reference_cuda_calls == 0
+    _, ref = getattr(tpufft_torch, fn)(x.cpu(), y.cpu(), nperseg=256)
+    assert got.shape == ref.shape == torch.broadcast_shapes(xs, ys)[:-1] + (
+        129,)
+    g = (got.real, got.imag) if got.is_complex() else (
+        got, torch.zeros_like(got))
+    r = (ref.real, ref.imag) if ref.is_complex() else (
+        ref, torch.zeros_like(ref))
+    assert _err(g, r) < 1e-4
+
+
 def test_spectral_autograd_on_the_card(cuda_device):
     """The fused routes' backward passes (plain torch ops) on the card
     agree with the CPU's."""
@@ -1471,9 +1587,11 @@ def test_cube_backward_through_the_line_form(cube, route, cuda_device):
                                      (128, 128, 9), (128, 512, 3)])
 def test_mid_pair_kernel_matches_plain_version(n1, n2, L, dtype, tol,
                                                cuda_device):
-    """Clusters of 1, 2, 4, 16, 16, 8, 16 and 16 blocks (the last two of
-    4096 and 16384 elements, the last in two register passes), a ragged L
-    (37, 9, 3) and pre of 3."""
+    """The line form on the powers of two (clusters of 1, 4, 8, 16, 16
+    and 16 blocks at 8 lanes of L), the stage form on (40, 64) and
+    (128, 512) (clusters of 8 and 16 at 4 lanes, the last of 16384
+    elements in two register passes), a ragged L (37, 9, 3) and pre of
+    3."""
     assert mid_pair_fft.active_clusters(n1, n2, dtype == torch.bfloat16,
                                         0) > 0
     xr, xi = _planes((3, n1, n2, L), cuda_device, dtype, seed=n1 + L)
@@ -1487,6 +1605,46 @@ def test_mid_pair_kernel_matches_plain_version(n1, n2, L, dtype, tol,
             torch.cuda.synchronize()
             assert mid_pair_fft.launches == before + 1
             assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 12), (1, 2, 2, 1),
+                                   (3, 128, 2, 5), (2, 16, 16, 6),
+                                   (1, 128, 64, 2), (5, 4, 32, 40),
+                                   (2, 32, 128, 1)])
+def test_mid_pair_line_form_edges(shape, dtype, tol, cuda_device):
+    """The line form at the ends of its envelope (axes of 2 and 128), on
+    an even L whose last tile is ragged (12, 6: paired stores masked), odd
+    L (5: single stores), L of 1 and 2, forward and inverse, one launch a
+    call."""
+    _, n1, n2, L = shape
+    assert mid_pair_fft.form(n1, n2, L) == "lines"
+    xr, xi = _planes(shape, cuda_device, dtype, seed=sum(shape))
+    for inverse in (False, True):
+        _reset()
+        got = mid_pair_fft.fft_mid_pair(xr, xi, inverse=inverse,
+                                        scale=0.5)
+        assert mid_pair_fft.launches == 1
+        ref = mid_pair_fft.fft_mid_pair_reference(xr, xi, inverse=inverse,
+                                                  scale=0.5)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+def test_mid_pair_line_form_at_the_path_shape(cuda_device):
+    """K6 at (32, 64, 128, 128) c64, the fftn(axes=(1, 2)) path's shape:
+    the line form, one launch, no plain-version CUDA call."""
+    assert mid_pair_fft.form(64, 128, 128) == "lines"
+    xr, xi = _planes((32, 64, 128, 128), cuda_device, seed=9)
+    _reset()
+    got = tpufft_torch.fftn(SplitComplex(xr, xi), axes=(1, 2))
+    assert _counts() == (dict(NONE, mid_pair=1), 0)
+    ref = mid_pair_fft.fft_mid_pair_reference(xr, xi, inverse=False,
+                                              scale=1.0)
+    torch.cuda.synchronize()
+    assert _err((got.re, got.im), ref) < 1e-5
 
 
 def test_cluster_wrappers_raise_outside_the_envelope(cuda_device):

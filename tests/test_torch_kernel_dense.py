@@ -251,3 +251,65 @@ def test_tf32x3_model_keeps_the_plain_inf_and_nan_pattern(n, table):
 def test_form_names_the_body_of_each_shape(m_in, m_out, body):
     assert dense_mm.form(m_in, m_out) == body
     assert dense_mm.form(m_in, m_out, aligned=False) == "fma"
+
+
+# ----------------------------------------------------------------------------
+# K10's tensor-core body: the complex product as one real block product
+# ----------------------------------------------------------------------------
+
+def _lowpass_complex(n):
+    """The circulant of a complex impulse (a one-sided band, |k| <= n/8 for
+    k >= 0 only): ``plan_filter`` on complex rows, K10's table."""
+    impulse = np.fft.ifft((np.arange(n) <= n // 8).astype(np.float64))
+    return signal._circulant(impulse)
+
+
+def test_block_table_is_the_complex_product_as_one_real_product():
+    """block_table(wr, wi) is [[wr, wi], [-wi, wr]], on numpy and torch
+    planes alike, and [xr | xi] times it is [yr | yi]."""
+    wr, wi = _f32((5, 3), 30), _f32((5, 3), 31)
+    b = dense_mm.block_table(wr, wi)
+    assert b.shape == (10, 6)
+    np.testing.assert_array_equal(b[:5, :3], wr)
+    np.testing.assert_array_equal(b[:5, 3:], wi)
+    np.testing.assert_array_equal(b[5:, :3], -wi)
+    np.testing.assert_array_equal(b[5:, 3:], wr)
+    bt = dense_mm.block_table(torch.from_numpy(wr), torch.from_numpy(wi))
+    np.testing.assert_array_equal(bt.numpy(), b)
+    xr, xi = _f32((4, 5), 32), _f32((4, 5), 33)
+    y = np.concatenate([xr, xi], 1).astype(np.float64) @ b
+    want = (xr + 1j * xi).astype(np.complex128) @ (wr + 1j * wi)
+    np.testing.assert_allclose(y[:, :3] + 1j * y[:, 3:], want, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [93, 512])
+def test_tf32x3_model_of_the_complex_block_product(n):
+    """The 3xTF32 model of [xr | xi] @ block_table(cr, ci) (K10 at depth
+    and width 2 n) stays within 1e-5 of the float64 complex product on
+    (257, n) rows, and within 10x of the plain f32 version's error."""
+    xr, xi = _f32((257, n), 2 * n), _f32((257, n), 2 * n + 1)
+    c64 = _lowpass_complex(n)
+    cr, ci = c64.real.astype(np.float32), c64.imag.astype(np.float32)
+    exact = (xr + 1j * xi).astype(np.complex128) @ c64
+    y = _tf32x3(np.concatenate([xr, xi], 1),
+                dense_mm.block_table(cr, ci)).astype(np.float64)
+    got = y[:, :n] + 1j * y[:, n:]
+    pr, pi = dense_mm.dense_mm_complex_reference(
+        *(torch.from_numpy(a) for a in (xr, xi, cr, ci)))
+    plain = pr.numpy().astype(np.float64) + 1j * pi.numpy()
+    err3, err_plain = _norm_err(got, exact), _norm_err(plain, exact)
+    assert err3 < F32_TOL and err3 < 10 * max(err_plain, 1e-7), (
+        err3, err_plain)
+
+
+# every shape chip_smoke.py holds K10 to (DENSE_SHAPES)
+@pytest.mark.parametrize("m_in,m_out,body", [
+    (2, 2, "fma"), (7, 7, "fma"), (93, 93, "fma"), (93, 128, "fma"),
+    (128, 93, "fma"), (64, 64, "tf32x3"), (100, 100, "tf32x3"),
+    (512, 512, "tf32x3")])
+def test_form_names_the_complex_body_of_each_shape(m_in, m_out, body):
+    """K10 takes the tensor-core body where both lengths are multiples of
+    4 (each 16-byte copy in one plane of [xr | xi], each stored pair in
+    one of [yr | yi]) and every plane is aligned."""
+    assert dense_mm.form(m_in, m_out) == body
+    assert dense_mm.form(m_in, m_out, aligned=False) == "fma"

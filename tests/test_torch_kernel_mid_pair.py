@@ -78,13 +78,16 @@ def test_mid_pair_matches_build_mid_pair_bf16_storage(shape):
 
 def test_envelope():
     """Each length inside the minor-axis kernel's radix envelope and at
-    least 2, and a cluster of 1 to 16 blocks of at most 16384 elements at
-    4 lanes that splits n1 evenly (the smallest with at most 2048 elements
-    a block, else the largest); any L."""
-    sizes = {(8, 16): 1, (16, 64): 2, (32, 64): 4, (40, 64): 8,
-             (64, 128): 16, (128, 128): 16, (128, 512): 16}
-    for (n1, n2), c in sizes.items():
+    least 2, and a cluster of 1 to 16 blocks of at most 16384 elements that
+    splits n1 evenly (the smallest with at most 2048 elements a block, else
+    the largest), at 8 lanes of L on the line form and 4 on the stage
+    form; any L."""
+    sizes = {(8, 16): (1, 8), (16, 64): (4, 8), (32, 64): (8, 8),
+             (40, 64): (8, 4), (64, 128): (16, 8), (128, 128): (16, 8),
+             (128, 512): (16, 4)}
+    for (n1, n2), (c, lanes) in sizes.items():
         assert mid_pair_fft.cluster_size(n1, n2) == c, (n1, n2)
+        assert mid_pair_fft.lanes(n1, n2) == lanes, (n1, n2)
         for L in (1, 37, 128):
             assert mid_pair_fft.supported(n1, n2, L, torch.float32)
             assert mid_pair_fft.supported(n1, n2, L, torch.bfloat16)
@@ -114,3 +117,70 @@ def test_wrapper_refuses_non_cuda_devices():
     x = torch.empty(2, 8, 8, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         mid_pair_fft.fft_mid_pair(x, x, inverse=False, scale=1.0)
+
+
+# every pair chip_smoke.py holds K6 to (MID_PAIRS), and MID_SHAPE's
+@pytest.mark.parametrize("n1,n2,L,want", [
+    (8, 16, 128, "lines"), (16, 64, 24, "lines"), (32, 64, 16, "lines"),
+    (64, 128, 8, "lines"), (64, 128, 37, "lines"), (40, 64, 256, "stages"),
+    (128, 128, 9, "lines"), (128, 512, 3, "stages"), (64, 128, 128, "lines"),
+    (2, 2, 1, "lines"), (128, 2, 5, "lines"), (160, 160, 48, "stages"),
+    (256, 512, 8, None), (16, 131, 8, None)])
+def test_form_names_the_kernel_of_each_pair(n1, n2, L, want):
+    """Powers of two from 2 to 128 take the line form (8 lanes of L, an
+    even number of n1-columns a block); odd radices and axes above 128 the
+    stage form; None outside the envelope. ``form`` mirrors ``line_mid`` in
+    ``csrc/cluster_fft.cu``."""
+    assert mid_pair_fft.form(n1, n2, L) == want
+    if want == "lines":
+        c = mid_pair_fft.cluster_size(n1, n2)
+        assert mid_pair_fft.lanes(n1, n2) == mid_pair_fft.LINE_LANES
+        assert n1 // c * n2 * 8 <= 16384 and n2 * 8 // c % 2 == 0
+
+
+def test_line_form_tile_model():
+    """A model of the line form's index math in numpy (the tile's swizzle,
+    the load, the n2 lines of ``line_fft.cuh``'s ``Line<N>`` layout in
+    place, the n1 columns read across the cluster in pairs): the 2-D DFT
+    of a (1, 16, 128, 11) tile over a cluster of 2, with a ragged L."""
+    rng = np.random.default_rng(3)
+    n1, n2, L, C, lanes = 16, 128, 11, 2, 8
+    x = rng.standard_normal((n1, n2, L)) + 1j * rng.standard_normal(
+        (n1, n2, L))
+    slab = n2 * lanes + 8
+
+    def at(j, k2, l):
+        return j * slab + (k2 >> 1) * 16 + (
+            (((k2 & 1) << 3) | l) ^ (((k2 >> 1) & 3) << 2))
+
+    S = n1 // C
+    idx = {at(j, k2, l) for j in range(S) for k2 in range(n2)
+           for l in range(lanes)}
+    assert len(idx) == S * n2 * lanes   # the swizzle is one-to-one
+    y = np.zeros_like(x)
+    for l0 in range(0, L, lanes):
+        tiles = []
+        for rank in range(C):
+            t = np.zeros(S * slab, complex)
+            for j in range(S):
+                for k2 in range(n2):
+                    for l in range(min(lanes, L - l0)):
+                        t[at(j, k2, l)] = x[rank * S + j, k2, l0 + l]
+            for j in range(S):   # the n2 lines, in place
+                for l in range(lanes):
+                    pos = [at(j, k2, l) for k2 in range(n2)]
+                    t[pos] = np.fft.fft(t[pos])
+            tiles.append(t)
+        cols = n2 * lanes // C
+        for rank in range(C):
+            for q in range(0, cols, 2):   # adjacent lanes of L: one read
+                col = rank * cols + q
+                k2, l = col // lanes, col % lanes
+                pair = np.array([tiles[k1 // S][at(k1 % S, k2, l):
+                                                at(k1 % S, k2, l) + 2]
+                                 for k1 in range(n1)])
+                for d in range(2):
+                    if l0 + l + d < L:
+                        y[:, k2, l0 + l + d] = np.fft.fft(pair[:, d])
+    want = np.fft.fft2(x, axes=(0, 1))
+    assert np.max(np.abs(y - want)) / np.max(np.abs(want)) < 1e-12

@@ -226,6 +226,28 @@ def test_csd_matches_tpufft_and_scipy(nperseg, noverlap, average,
         np.complex64)
 
 
+@pytest.mark.parametrize("fn", ["csd", "coherence"])
+@pytest.mark.parametrize("xs,ys", [((1, 3000), (3, 3000)),
+                                   ((2, 1, 3000), (1, 3, 3000)),
+                                   ((3, 3000), (1, 3000))])
+def test_csd_and_coherence_broadcast_leading_dims(fn, xs, ys, monkeypatch):
+    """x's and y's leading dims broadcast on the K15 route. tpufft's fused
+    Welch route (interpret mode) refuses these shapes too, so the parity
+    is with its default route, which serves them."""
+    x = _x(xs, 20)
+    y = (0.5 * x + _x(ys, 21)).astype(np.float32)
+    kw = dict(nperseg=256, average="mean") if fn == "csd" else dict(
+        nperseg=256)
+    calls = _count_plain(monkeypatch)
+    _, P = getattr(tt, fn)(torch.from_numpy(x), torch.from_numpy(y), **kw)
+    assert calls["welch"] == (1 if fn == "csd" else 3)
+    _, P2 = getattr(sps, fn)(x.astype(np.float64), y.astype(np.float64),
+                             **kw)
+    assert _err(_np(P), P2) < 1e-4
+    _, P3 = getattr(tpufft, fn)(jnp.asarray(x), jnp.asarray(y), **kw)
+    assert _err(_np(P), np.asarray(P3)) < 1e-4
+
+
 def test_coherence_matches_scipy():
     x = _x((2, 4000), 7)
     y = (0.5 * x + _x((2, 4000), 8)).astype(np.float32)

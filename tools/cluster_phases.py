@@ -4,8 +4,9 @@ Run from the repository root on a machine with the GPU:
 
     python3 tools/cluster_phases.py
 
-It compiles patched copies of ``tpufft_torch/csrc/cluster_fft.cu`` into
-``build/cluster_phases/`` (one ``nvcc`` each, in parallel), each with some
+It compiles patched copies of ``tpufft_torch/csrc/cluster_fft.cu`` (and
+of ``line_fft.cuh`` where a copy patches it) into
+``build/cluster_phases/NAME/`` (one ``nvcc`` each, in parallel), each with some
 phases switched off, and times ``tpufft_cube_fft`` at (100, 64, 64, 64) and
 ``tpufft_mid_pair_fft`` at (32, 64, 128, 128) in each (CUDA events, median
 of 20; the results of the patched copies are wrong by design).
@@ -29,13 +30,30 @@ kernel's registers and spills (ptxas).
 
 The n2 pass is ``k5_n3_n2`` - ``k5_n3``; the exchange, the n1 pass, the
 store and the end barrier together are the full kernel - ``k5_n3_n2``.
-K6 runs the stage form; its copies switch off the stages (``no_stages``),
-read the gather from the block itself (``no_stages_local_gather``), leave
-only the load and the store (``load_store_only``), or skip the
-permutation and the gather (``stages_no_gather``). Then it times K6 at
-other tile geometries (lanes of L a tile, cluster size) through the
-package, and the two-pass routes the kernels replace. Every line names the
-card and its power limit.
+
+K6 at (64, 128) runs its line form (``mid_pair_line_kernel``, the same
+exchange and end barrier, so ``k5_local_exchange`` and
+``k5_joint_barrier`` patch it too); its own copies are:
+
+- ``k6_load``: returns after the load into the tile and the block
+  barrier after it;
+- ``k6_load_n2``: returns after the n2 lines;
+- ``k6_scalar_loads``: the load one element a thread and plane (4 bytes)
+  where it takes 16-byte loads;
+- ``k6_bounds_2``, ``k6_bounds_3``: launch bounds of 2 or 3 blocks of
+  256 threads an SM (128 or 80 registers) instead of 4 (64).
+
+The n2 lines are ``k6_load_n2`` - ``k6_load``; the exchange, the n1 lines,
+the store and the end barrier are the full kernel - ``k6_load_n2``. Each
+library also times K6's stage form (``mid_pair_fft_kernel``, 4 lanes of L
+a tile, clusters of 16), whose copies switch off the stages
+(``no_stages``), read the gather from the block itself
+(``no_stages_local_gather``), leave only the load and the store
+(``load_store_only``), or skip the permutation and the gather
+(``stages_no_gather``). Then it times K6 at other tile geometries (lanes
+of L a tile: 8 runs the line form, 4 and 2 the stage form; cluster size)
+through the package, and the two-pass routes the kernels replace. Every
+line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -56,6 +74,7 @@ from tpufft_torch.kernels import (cube_fft, inner_fft, mid_pair_fft,  # noqa
                                   minor_fft, pair_fft)
 
 SRC = "tpufft_torch/csrc/cluster_fft.cu"
+LINE_SRC = "tpufft_torch/csrc/line_fft.cuh"
 OUT = "build/cluster_phases"
 STAGES = "                                       bool inv) {\n  const int n = plan.n;\n"
 PERMUTE = ("                                        Src src, Dst dst) {\n")
@@ -70,14 +89,24 @@ ARRIVE = ("    if (it == rounds - 1) cluster_arrive();  "
           "// the last remote read is done\n")
 WAIT = "  }\n  cluster_wait();\n}\n"
 THREADS = "constexpr int kLineThreads = 512;"
+# the mid-pair line form's phases (mid_pair_line_kernel)
+MID_LOAD_END = "  __syncthreads();\n  with_length128(n2, [&](auto n) {\n"
+MID_N2_END = "  cluster.sync();\n  with_length128(n1, [&](auto n) {\n"
+MID_VECTOR = "  const int quads = L % 4 == 0 &&"
+MID_BOUNDS = "__launch_bounds__(kMidThreads, 4)"
 VALUES = "constexpr int kLineValues = 16;"
 
 
 def variants() -> dict:
+    """name -> the patched cluster_fft.cu, or (it, the patched
+    line_fft.cuh)."""
     src = open(SRC).read()
+    line_src = open(LINE_SRC).read()
     for mark in (STAGES, PERMUTE, GATHER, REMOTE, LINE, N3_END, N2_END,
-                 LINE_REMOTE, ARRIVE, WAIT, THREADS, VALUES):
+                 LINE_REMOTE, ARRIVE, WAIT, THREADS, MID_LOAD_END,
+                 MID_N2_END, MID_VECTOR, MID_BOUNDS):
         assert mark in src, f"marker not found in {SRC}: {mark!r}"
+    assert VALUES in line_src, f"marker not found in {LINE_SRC}: {VALUES!r}"
     no_stages = src.replace(STAGES, STAGES.replace(
         "{\n", "{\n  __syncthreads();\n  return;\n", 1))
     skip = (PERMUTE, PERMUTE + "  return;\n"), (
@@ -109,7 +138,17 @@ def variants() -> dict:
     for threads in (256, 1024):
         out[f"k5_{threads}_threads"] = src.replace(
             THREADS, THREADS.replace("512", str(threads)))
-    out["k5_32_values"] = src.replace(VALUES, VALUES.replace("16", "32"))
+    out["k5_32_values"] = (src, line_src.replace(
+        VALUES, VALUES.replace("16", "32")))
+    out["k6_load"] = src.replace(MID_LOAD_END, MID_LOAD_END.replace(
+        "  with_length128", "  return;\n  with_length128", 1))
+    out["k6_load_n2"] = src.replace(MID_N2_END, MID_N2_END.replace(
+        "  cluster.sync();", "  __syncthreads();\n  return;", 1))
+    out["k6_scalar_loads"] = src.replace(
+        MID_VECTOR, MID_VECTOR.replace("= L", "= false && L"))
+    for blocks in (2, 3):
+        out[f"k6_bounds_{blocks}"] = src.replace(
+            MID_BOUNDS, MID_BOUNDS.replace("4", str(blocks)))
     return out
 
 
@@ -118,12 +157,18 @@ def build(texts: dict) -> dict:
     nvcc = _build._nvcc()
     procs = {}
     for name, text in texts.items():
-        cu = os.path.join(OUT, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+        d = os.path.join(OUT, name)
+        os.makedirs(d, exist_ok=True)
+        cu, header = (text, None) if isinstance(text, str) else text
+        with open(os.path.join(d, "cluster_fft.cu"), "w") as f:
+            f.write(cu)
+        # a patched header beside the source is found before csrc's
+        if header is not None:
+            with open(os.path.join(d, "line_fft.cuh"), "w") as f:
+                f.write(header)
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared",
-               "-Itpufft_torch/csrc", "-o", os.path.join(OUT, f"{name}.so"),
-               cu]
+               "-Itpufft_torch/csrc", "-o", os.path.join(d, f"{name}.so"),
+               os.path.join(d, "cluster_fft.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -131,7 +176,7 @@ def build(texts: dict) -> dict:
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{text[-3000:]}")
-        libs[name] = os.path.abspath(os.path.join(OUT, f"{name}.so"))
+        libs[name] = os.path.abspath(os.path.join(OUT, name, f"{name}.so"))
         print(f"{name}: ptxas {line_form_resources(text)}", flush=True)
     return libs
 
@@ -141,8 +186,8 @@ def line_form_resources(log: str) -> str:
     ptxas report."""
     out, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w*cube_line_kernel\w*)'",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'(\w*(?:cube_line|mid_pair_line)_kernel\w*)'", line)
         if m or "Compiling entry function" in line:
             cur = m.group(1) if m else None
             continue
@@ -153,7 +198,8 @@ def line_form_resources(log: str) -> str:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            kind = ("bf16" if "bfloat16" in cur else "f32") + (
+            kind = ("K6 " if "mid_pair" in cur else "") + (
+                "bf16" if "bfloat16" in cur else "f32") + (
                 " fused" if "Lb1E" in cur else "")
             out.append(f"{kind} {m.group(1)} registers, {spill} bytes "
                        "spilled")
@@ -193,9 +239,12 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     c5 = cube_fft.cluster_size(64, 64, 64)
     c6 = mid_pair_fft.cluster_size(64, 128)
-    lanes = mid_pair_fft.LANES
+    lanes = mid_pair_fft.lanes(64, 128)
+    c6_stage = cube_fft.pick_cluster(64, 128 * mid_pair_fft.LANES)
     print(f"{card}: K5 (100, 64, 64, 64) clusters of {c5}; K6 "
-          f"(32, 64, 128, 128) clusters of {c6} at {lanes} lanes")
+          f"(32, 64, 128, 128) {mid_pair_fft.form(64, 128, 128)} form, "
+          f"clusters of {c6} at {lanes} lanes; its stage form clusters of "
+          f"{c6_stage} at {mid_pair_fft.LANES} lanes")
     for name, path in libs.items():
         lib = ctypes.CDLL(path)
         lib.tpufft_cube_fft.argtypes = [vp] * 7 + [
@@ -231,17 +280,19 @@ def main() -> None:
                 len(r32), a32, len(r32), 0, 1.0, 0, stream)
             assert err == 0, err
 
-        def k6():
+        def k6(lanes_=lanes, csize=c6):
             err = lib.tpufft_mid_pair_fft(
                 mr.data_ptr(), mi.data_ptr(), zr.data_ptr(), zi.data_ptr(),
-                tw64.data_ptr(), tw128.data_ptr(), 32, 64, 128, 128, lanes,
-                c6, a64, len(r64), a128, len(r128), 0, 1.0, 0, stream)
+                tw64.data_ptr(), tw128.data_ptr(), 32, 64, 128, 128, lanes_,
+                csize, a64, len(r64), a128, len(r128), 0, 1.0, 0, stream)
             assert err == 0, err
 
         k5_bf16 = t(lambda: k5((xb, xbi, yb, ybi), 1))
         print(f"{card}: {name}: K5 {t(k5):.4f} ms (bf16 {k5_bf16:.4f}, "
               f"(800, 32^3) {t(k5_32):.4f}), K16 {t(k16):.4f} ms, K6 "
-              f"{t(k6):.4f} ms", flush=True)
+              f"{t(k6):.4f} ms (stage form "
+              f"{t(lambda: k6(mid_pair_fft.LANES, c6_stage)):.4f})",
+              flush=True)
     v3 = (6400, 64, 64)
 
     def old_cube():
@@ -263,16 +314,18 @@ def main() -> None:
               f"{ms:.4f} ms")
     cube_fft.cluster_size = pick
     cube_fft.active_clusters.cache_clear()
-    for shape in ((32, 64, 128, 128), (512, 64, 128, 8)):
+    for shape in ((32, 64, 128, 128), (128, 64, 128, 32), (512, 64, 128, 8)):
         ar, ai = chip_smoke._device_planes(shape, 3)
-        for lanes_, csize in ((8, 4), (8, 16), (4, 8), (4, 16), (2, 16)):
-            mid_pair_fft.LANES = lanes_
+        for lanes_, csize in ((8, 4), (8, 8), (8, 16), (4, 8), (4, 16),
+                              (2, 16)):
+            mid_pair_fft.lanes = lambda n1, n2, v=lanes_: v
             mid_pair_fft.cluster_size = lambda n1, n2, c=csize: c
             mid_pair_fft.active_clusters.cache_clear()
             ms = t(lambda: mid_pair_fft.fft_mid_pair(ar, ai, inverse=False,
                                                      scale=1.0))
-            print(f"{card}: K6 {shape} at {lanes_} lanes, clusters of "
-                  f"{csize}: {ms:.4f} ms")
+            form = "line" if lanes_ == mid_pair_fft.LINE_LANES else "stage"
+            print(f"{card}: K6 {shape} at {lanes_} lanes ({form} form), "
+                  f"clusters of {csize}: {ms:.4f} ms")
         del ar, ai
 
 

@@ -1,5 +1,6 @@
-"""Where the time of the real dense kernel's tensor-core body goes (K11,
-K12: ``dense_mm_tf32x3_kernel``), on the card.
+"""Where the time of the dense kernels' tensor-core bodies goes (K11,
+K12: ``dense_mm_tf32x3_kernel``; K10: ``dense_mm_complex_tf32x3_kernel``),
+on the card.
 
 Run from the repository root on a machine with the GPU:
 
@@ -11,7 +12,9 @@ parallel, each a library of the dense source alone), and times
 ``tpufft_dense_mm_real`` with the tensor-core body on K11's shape,
 (100000, 512) x (512, 512), and K12's, (100000, 1024) x (1024, 1024), f32
 (CUDA events, median of 20; the results of the patched copies are wrong
-by design):
+by design), and ``tpufft_dense_mm_complex`` with the tensor-core body on
+K10's shape, (100000, 512) x (512, 512) c64 planes (the block product
+(100000, 1024) x (1024, 1024)), beside its FMA body:
 
 - ``full``: the kernel as it is;
 - ``no_split``: the operands stored as they are (big = v, small = 0): the
@@ -24,8 +27,8 @@ by design):
   SGEMM: the tensor cores' truncating accumulation);
 - ``stages3``: a ring of three stages instead of four.
 
-Then ``torch.matmul`` (SGEMM, TF32 off) on the same operands. Every line
-names the card and its power limit.
+Then ``torch.matmul`` (SGEMM, TF32 off; CGEMM for K10) on the same
+operands. Every line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -161,6 +164,40 @@ def main() -> int:
         print(f"({x.shape[0]}, {n}) x ({n}, {n}) f32 on {card}, median of 20 "
               "ms: " + ", ".join(f"{k} {v:.4g}" for k, v in times.items()))
         del x, w, y, ref
+    # K10: the complex planes on the block table, each variant's tensor-core
+    # body and the full library's FMA body
+    n = 512
+    xr, xi, wr, wi = (torch.randn(*shape, generator=g, device="cuda")
+                      for shape in ((100000, n), (100000, n), (n, n), (n, n)))
+    wb = torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)])
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    xc, wc = torch.complex(xr, xi), torch.complex(wr, wi)
+    ref = xc @ wc
+    times = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(os.path.abspath(path))
+        fn = lib.tpufft_dense_mm_complex
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 7 + [ctypes.c_longlong, i32, i32, i32, vp]
+        fn.restype = i32
+        stream = torch.cuda.current_stream().cuda_stream
+        for form in ((1, 0) if name == "full" else (1,)):
+            def run():
+                err = fn(xr.data_ptr(), xi.data_ptr(), wr.data_ptr(),
+                         wi.data_ptr(), wb.data_ptr(), yr.data_ptr(),
+                         yi.data_ptr(), xr.shape[0], n, n, form, stream)
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+
+            key = name if form == 1 else "fma_body"
+            times[key] = median_ms(run)
+            if key in ("full", "fma_body", "no_flush", "stages3"):
+                e = (torch.complex(yr, yi) - ref).abs().max() / \
+                    ref.abs().max()
+                times[key + " err"] = e.item()
+    times["torch.matmul"] = median_ms(lambda: xc @ wc)
+    print(f"K10 ({xr.shape[0]}, {n}) x ({n}, {n}) c64 on {card}, median of "
+          "20 ms: " + ", ".join(f"{k} {v:.4g}" for k, v in times.items()))
     return 0
 
 

@@ -54,10 +54,11 @@ calls, in ms:
   (``welch_accum``, welch and csd) at the spectral paths' shapes, (64,
   1048576) signals at nperseg 256, hop 128, and the ``welch``, ``csd``
   and ``coherence`` paths of the same signals (``spectral``);
-- the paths above K11 and K12, as ``chip_smoke.py`` drives them:
+- the paths above K10, K11 and K12, as ``chip_smoke.py`` drives them:
   ``filter_real`` (a low-pass ``plan_filter(512)``, bins |k| <= 64, on
-  real (100000, 512) rows), ``dct`` (100000, 1024) and ``dst4``
-  (``dst(type=4)`` on (100000, 93)).
+  real (100000, 512) rows), ``filter_complex`` (the same plan on c64
+  (100000, 512) rows, K10), ``hilbert`` (real (100000, 512) rows, K10),
+  ``dct`` (100000, 1024) and ``dst4`` (``dst(type=4)`` on (100000, 93)).
 
 Each turn is a fresh process that imports that checkout's tpufft_torch
 (building its library on first use). K13's and K15's arguments changed
@@ -71,7 +72,7 @@ list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320
 K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
 K8, rfft, fht, K13, K4, K4_n2_in, K4_packed, K17, K2, K2_241, K2_93, K3,
 K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10, K14, K15, spectral,
-filter_real, dct, dst4)
+filter_real, filter_complex, hilbert, dct, dst4)
 and times those alone. Needs the card.
 """
 
@@ -296,8 +297,12 @@ if want("K11", "K12", "K10"):
     if want("K11"):
         rows["K11"] = median_ms(lambda: dense_mm.dense_mm_real(xr, wr))
     if want("K10"):
+        # the block table of the tensor-core body, uploaded once, where the
+        # checkout has one
+        kw = ({"wb": dense_mm.block_table(wr, wi).contiguous()}
+              if hasattr(dense_mm, "block_table") else {})
         rows["K10"] = median_ms(lambda: dense_mm.dense_mm_complex(
-            xr, xi, wr, wi))
+            xr, xi, wr, wi, **kw))
     del xr, xi, wr, wi
     if want("K12"):
         x = torch.randn(100000, 1024, generator=g, device="cuda")
@@ -339,16 +344,20 @@ if want("K14", "K15", "spectral"):
         rows["coherence"] = median_ms(lambda: tpufft_torch.coherence(x, y))
     del x, y
 
-if want("filter_real", "dct", "dst4"):
+if want("filter_real", "dct", "dst4", "filter_complex", "hilbert"):
     import tpufft_torch
     bins = np.minimum(np.arange(512), 512 - np.arange(512))
     lowpass = tpufft_torch.plan_filter(512, response=(bins <= 64) * 1.0)
     for name, shape, call in (
             ("filter_real", (100000, 512), lowpass),
+            ("filter_complex", (100000, 512), lowpass),
+            ("hilbert", (100000, 512), tpufft_torch.hilbert),
             ("dct", (100000, 1024), tpufft_torch.dct),
             ("dst4", (100000, 93), lambda x: tpufft_torch.dst(x, type=4))):
         if want(name):
             x = torch.randn(*shape, generator=g, device="cuda")
+            if name == "filter_complex":
+                x = torch.complex(x, x.flip(0))
             rows[name] = median_ms(lambda: call(x))
             del x
 print(" ".join(f"{k} {v:.4f}" for k, v in rows.items()))

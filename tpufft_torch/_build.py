@@ -229,8 +229,10 @@ def load() -> ctypes.CDLL:
     ]
     lib.tpufft_irfft.restype = i32
     lib.tpufft_dense_mm_complex.argtypes = [
-        vp, vp, vp, vp, vp, vp,      # xr, xi, wr, wi, yr, yi
+        vp, vp, vp, vp, vp,          # xr, xi, wr, wi, block table wb
+        vp, vp,                      # yr, yi
         ctypes.c_longlong, i32, i32,  # batch, m_in, m_out
+        i32,                         # form: 1 tf32x3 (wb), 0 fma (wr, wi)
         vp,                          # cudaStream_t
     ]
     lib.tpufft_dense_mm_complex.restype = i32

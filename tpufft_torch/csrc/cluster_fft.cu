@@ -64,8 +64,27 @@
 // A 64^3 block takes 136 KB (one block an SM, 7 clusters of 16 at once on
 // the H100), with no spare region.
 //
+// K6 has a line form too (mid_pair_line_kernel; kernels/mid_pair_fft.py:
+// form mirrors line_mid), for power-of-two n1 and n2 from 2 to 128 (a
+// 128-line is 8 lanes of 16 values): a tile of 8 contiguous elements of
+// L (an f32 row one 32-byte sector), the cluster split along n1 as above.
+//   1. the block's rows of 8 L-elements, read 4 rows a warp instruction
+//      (16 rows of 16-byte loads where L % 4 == 0) and written to the
+//      tile (MidTile: two rows a bank row, the groups of 4 swizzled by
+//      k2, slabs 8 float2 apart), the ragged end of L as zeros;
+//   2. __syncthreads; the n2 lines (slab, lane of L) from the tile into
+//      registers, transformed, written back in place;
+//   3. cluster.sync; each lane group reads its n1-columns (flat (k2, l),
+//      two adjacent lanes of L a 16-byte read for lines up to 64),
+//      transforms them and stores them from registers (paired stores
+//      where L is even), with the split cluster barrier at the end.
+// At (64, 128) every shared access of the three steps is free of bank
+// conflicts, a block holds 4096 elements (32 KB, 256 threads) and several
+// blocks share an SM, so one block's load overlaps another's lines.
+//
 // The stage form (cube_fft_kernel), for every other cube in the envelope
-// (odd radices, axes above 64) and K6 (mid_pair_fft_kernel): the shared
+// (odd radices, axes above 64) and K6's other pairs (mid_pair_fft_kernel:
+// odd radices, an axis above 128, tiles of 4 lanes of L): the shared
 // Stockham stages (fft_stages.cuh) over the tile. Block b loads its slabs
 // (K5: one contiguous run, written transposed (n2, n3) -> (n3, n2); K6:
 // rows of `lanes` contiguous elements, the ragged end of L masked to
@@ -480,6 +499,301 @@ cube_line_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
+// The line form of K6 (the header's third form).
+// ---------------------------------------------------------------------------
+
+constexpr int kMidLanes = 8;     // elements of L a line-form tile takes
+constexpr int kMidThreads = 256; // threads of a mid-pair line-form block
+constexpr int kMidLoadUnroll = 8;
+
+// The tile of a mid-pair line-form block: `slabs` slabs of n2 rows of
+// kMidLanes elements. Two rows k2 make one 16-float2 bank row, in which
+// the group of 4 float2 (index bits 3..2) is XORed with (k2 >> 1) & 3, and
+// slabs lie n2 kMidLanes + 8 float2 apart. At (64, 128) every shared
+// access is then free of bank conflicts but the 16-byte load's stores (2
+// ways): the scalar load's half warps (two rows of 8), the n2 lines'
+// reads (rows k2..k2 + 3, 4 lanes of L) and writes (rows k2, k2 + 2,
+// k2 + 4, k2 + 6), and the n1 lines' 16-byte reads (two slabs, 8 lanes of
+// L). Adjacent lanes of L (l even) stay adjacent, and groups of 4 whole.
+struct MidTile {
+  int slab;
+  __host__ __device__ explicit MidTile(int n2)
+      : slab(n2 * kMidLanes + kLineSlabPad) {}
+  __device__ __forceinline__ int at(int j, int k2, int l) const {
+    return j * slab + (k2 >> 1) * 16 +
+           ((((k2 & 1) << 3) | l) ^ (((k2 >> 1) & 3) << 2));
+  }
+};
+
+// Step 1: the block's `rows` = slabs n2 rows of kMidLanes elements, the
+// ragged end of L read as zeros, from device memory into the tile. A warp
+// reads 4 rows of 8 consecutive elements a plane (f32: four full 32-byte
+// sectors), kMidLoadUnroll loads in flight a thread.
+template <typename T>
+__device__ __forceinline__ void mid_line_load(const T* __restrict__ xr,
+                                              const T* __restrict__ xi,
+                                              float2* tile,
+                                              const MidTile& at,
+                                              int64_t row0, int64_t L,
+                                              int64_t left, int rows, int n2) {
+  const int total = rows * kMidLanes;
+  const int n2_shift = __ffs(n2) - 1;
+  const int step = (int)blockDim.x;
+  for (int e0 = (int)threadIdx.x; e0 < total; e0 += step * kMidLoadUnroll) {
+    float2 v[kMidLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kMidLoadUnroll; ++u) {
+      const int e = e0 + u * step, l = e % kMidLanes;
+      v[u] = make_float2(0.f, 0.f);
+      if (e < total && l < left) {
+        const int64_t g = (row0 + e / kMidLanes) * L + l;
+        v[u] = make_float2(load_f(xr, g), load_f(xi, g));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMidLoadUnroll; ++u) {
+      const int e = e0 + u * step;
+      if (e < total) {
+        const int r = e / kMidLanes;
+        tile[at.at(r >> n2_shift, r & (n2 - 1), e % kMidLanes)] = v[u];
+      }
+    }
+  }
+}
+
+// Four consecutive elements of a plane (16 bytes of f32, 8 of bf16; i a
+// multiple of 4 and the plane aligned to that).
+__device__ __forceinline__ float4 load4(const float* p, int64_t i) {
+  return *reinterpret_cast<const float4*>(p + i);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int64_t i) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p + i);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Step 1 where L % 4 == 0 and the planes take 4-element loads: each
+// thread loads 4 consecutive lanes of a row from each plane (a whole
+// 16-byte f32 chunk; the ragged end of L is then whole chunks) and writes
+// them to the tile as two 16-byte stores (lanes l, l + 1 stay adjacent).
+template <typename T>
+__device__ __forceinline__ void mid_line_load4(const T* __restrict__ xr,
+                                               const T* __restrict__ xi,
+                                               float2* tile,
+                                               const MidTile& at,
+                                               int64_t row0, int64_t L,
+                                               int64_t left, int rows,
+                                               int n2) {
+  constexpr int kQuads = kMidLanes / 4;
+  const int total = rows * kQuads;
+  const int n2_shift = __ffs(n2) - 1;
+  const int step = (int)blockDim.x;
+  for (int e0 = (int)threadIdx.x; e0 < total;
+       e0 += step * (kMidLoadUnroll / 2)) {
+    float4 re[kMidLoadUnroll / 2], im[kMidLoadUnroll / 2];
+#pragma unroll
+    for (int u = 0; u < kMidLoadUnroll / 2; ++u) {
+      const int e = e0 + u * step, l = e % kQuads * 4;
+      re[u] = im[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < total && l < left) {
+        const int64_t g = (row0 + e / kQuads) * L + l;
+        re[u] = load4(xr, g);
+        im[u] = load4(xi, g);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMidLoadUnroll / 2; ++u) {
+      const int e = e0 + u * step;
+      if (e < total) {
+        const int r = e / kQuads;
+        float4* dst = reinterpret_cast<float4*>(
+            tile + at.at(r >> n2_shift, r & (n2 - 1), e % kQuads * 4));
+        dst[0] = make_float4(re[u].x, im[u].x, re[u].y, im[u].y);
+        dst[1] = make_float4(re[u].z, im[u].z, re[u].w, im[u].w);
+      }
+    }
+  }
+}
+
+// Step 2: the n2 lines (slab j, lane l), `lines` = slabs kMidLanes of
+// them, in place in the tile. Line k of a thread is w W K + c + W k.
+template <int N>
+__device__ __forceinline__ void mid_line_n2(float2* tile,
+                                            const MidTile& at,
+                                            const float2* __restrict__ tw,
+                                            int lines, int rounds, bool inv) {
+  using Ln = Line<N>;
+  for (int it = 0; it < rounds; ++it) {
+    const Task<N> tk(it);
+    float2 v[Ln::K][Ln::V];
+#pragma unroll
+    for (int k = 0; k < Ln::K; ++k) {
+      const int line = tk.w * (Ln::W * Ln::K) + tk.c + Ln::W * k;
+      const int j = line / kMidLanes, l = line % kMidLanes;
+#pragma unroll
+      for (int q = 0; q < Ln::V; ++q)
+        v[k][q] = line < lines ? tile[at.at(j, Ln::in(tk.l, q), l)]
+                               : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < Ln::K; ++k) line_fft<N>(v[k], tk.l, tw, inv);
+#pragma unroll
+    for (int k = 0; k < Ln::K; ++k) {
+      const int line = tk.w * (Ln::W * Ln::K) + tk.c + Ln::W * k;
+      if (line < lines) {
+        const int j = line / kMidLanes, l = line % kMidLanes;
+#pragma unroll
+        for (int q = 0; q < Ln::V; ++q)
+          tile[at.at(j, Ln::out(tk.l, q), l)] = v[k][q];
+      }
+    }
+  }
+}
+
+// One output element pair (lanes l, l + 1 of L, l even) or, for K = 1
+// lines, one element: paired stores where L is even and the planes take
+// them, else masked single stores.
+template <typename T>
+__device__ __forceinline__ void mid_store2(T* __restrict__ yr,
+                                           T* __restrict__ yi, int64_t g,
+                                           int l, int64_t left, bool paired,
+                                           float2 a, float2 b, float scale) {
+  if (paired) {   // l and L even: l < left covers l + 1
+    if (l < left) {
+      store_pair(yr, g, a.x * scale, b.x * scale);
+      store_pair(yi, g, a.y * scale, b.y * scale);
+    }
+    return;
+  }
+  if (l < left) {
+    store_f(yr, g, a.x * scale);
+    store_f(yi, g, a.y * scale);
+  }
+  if (l + 1 < left) {
+    store_f(yr, g + 1, b.x * scale);
+    store_f(yi, g + 1, b.y * scale);
+  }
+}
+
+// Step 3: the block's `cols` n1-columns (flat (k2, l) positions [rank cols,
+// rank cols + cols), an even count), read from the cluster's tiles,
+// transformed and stored to device memory from registers, the scale
+// applied once; ends after the cluster barrier. For N <= 64 (K even)
+// lines k and k + 1 of a thread are the adjacent columns w W K + c K + k
+// and + 1 (lanes l, l + 1 of L): one 16-byte shared read a value pair and
+// a paired store a plane, 8 consecutive lanes of L a row in a warp store
+// at N = 64. A 128-line (K = 1) takes one column.
+template <int N, typename T>
+__device__ __forceinline__ void mid_line_n1(
+    cg::cluster_group& cluster, float2* tile, const MidTile& at,
+    T* __restrict__ yr, T* __restrict__ yi, const float2* __restrict__ tw,
+    int64_t out0, int64_t L, int64_t left, bool paired, int rank, int cols,
+    int slabs, int n2, int rounds, bool inv, float scale) {
+  using Ln = Line<N>;
+  constexpr int kStep = Ln::K % 2 == 0 ? 2 : 1;
+  const int slab_shift = __ffs(slabs) - 1;
+  for (int it = 0; it < rounds; ++it) {
+    const Task<N> tk(it);
+    float2 v[Ln::K][Ln::V];
+#pragma unroll
+    for (int k = 0; k < Ln::K; k += kStep) {
+      const int q = tk.w * (Ln::W * Ln::K) + tk.c * Ln::K + k;
+      const int col = rank * cols + q;
+      const int k2 = col / kMidLanes, l = col % kMidLanes;
+#pragma unroll
+      for (int j = 0; j < Ln::V; ++j) {
+        const int k1 = Ln::in(tk.l, j);
+        const float2* src = cluster.map_shared_rank(tile, k1 >> slab_shift) +
+                            at.at(k1 & (slabs - 1), k2, l);
+        if constexpr (kStep == 2) {
+          float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (q < cols) p = *reinterpret_cast<const float4*>(src);
+          v[k][j] = make_float2(p.x, p.y);
+          v[k + 1][j] = make_float2(p.z, p.w);
+        } else {
+          v[k][j] = q < cols ? *src : make_float2(0.f, 0.f);
+        }
+      }
+    }
+    if (it == rounds - 1) cluster_arrive();  // the last remote read is done
+#pragma unroll
+    for (int k = 0; k < Ln::K; ++k) line_fft<N>(v[k], tk.l, tw, inv);
+#pragma unroll
+    for (int k = 0; k < Ln::K; k += kStep) {
+      const int q = tk.w * (Ln::W * Ln::K) + tk.c * Ln::K + k;
+      if (q >= cols) continue;
+      const int col = rank * cols + q;
+      const int k2 = col / kMidLanes, l = col % kMidLanes;
+#pragma unroll
+      for (int r = 0; r < Ln::V; ++r) {
+        const int64_t g =
+            out0 + ((int64_t)Ln::out(tk.l, r) * n2 + k2) * L + l;
+        if constexpr (kStep == 2) {
+          mid_store2(yr, yi, g, l, left, paired, v[k][r], v[k + 1][r], scale);
+        } else if (l < left) {
+          store_f(yr, g, v[k][r].x * scale);
+          store_f(yi, g, v[k][r].y * scale);
+        }
+      }
+    }
+  }
+  cluster_wait();
+}
+
+// K6, the line form. Cluster c transforms tile c = (plane p, lanes [l0,
+// l0 + kMidLanes)) of the (pre, n1, n2, L) planes; block `rank` holds
+// rows k1 in [rank slabs, rank slabs + slabs) and, after the exchange, the
+// n1-columns [rank cols, rank cols + cols) of flat (k2, l). Lanes at or
+// past L load as zeros and are never stored. paired: L even and the
+// output planes aligned for paired stores; quads: L % 4 == 0 and the
+// input planes aligned for 4-element loads.
+template <typename T>
+__global__ void __launch_bounds__(kMidThreads, 4)
+mid_pair_line_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                     T* __restrict__ yr, T* __restrict__ yi,
+                     const float2* __restrict__ tw1,
+                     const float2* __restrict__ tw2, int n1, int n2,
+                     int64_t L, int csize, int paired, int quads,
+                     int inverse, float scale) {
+  extern __shared__ __align__(16) float2 tpufft_mid_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* tile = tpufft_mid_smem;
+  const int slabs = n1 / csize;
+  const int share = slabs * n2 * kMidLanes;
+  const int cols = n2 * kMidLanes / csize;
+  const int rank = (int)cluster.block_rank();
+  const int rounds = line_rounds(share, blockDim.x);
+  const int64_t tile_id = blockIdx.x / csize;
+  const int64_t ltiles = (L + kMidLanes - 1) / kMidLanes;
+  const int64_t p = tile_id / ltiles;
+  const int64_t l0 = (tile_id - p * ltiles) * kMidLanes;
+  const int64_t left = L - l0;   // lanes of this tile inside L
+  const bool inv = inverse != 0;
+  const MidTile at(n2);
+  const int64_t row0 = (p * n1 + (int64_t)rank * slabs) * n2;
+  if (quads)
+    mid_line_load4(xr + l0, xi + l0, tile, at, row0, L, left, slabs * n2,
+                   n2);
+  else
+    mid_line_load(xr + l0, xi + l0, tile, at, row0, L, left, slabs * n2,
+                  n2);
+  __syncthreads();
+  with_length128(n2, [&](auto n) {
+    mid_line_n2<decltype(n)::value>(tile, at, tw2, slabs * kMidLanes,
+                                    rounds, inv);
+  });
+  cluster.sync();
+  with_length128(n1, [&](auto n) {
+    mid_line_n1<decltype(n)::value, T>(
+        cluster, tile, at, yr, yi, tw1, p * n1 * n2 * L + l0, L, left,
+        paired != 0, rank, cols, slabs, n2, rounds, inv, scale);
+  });
+}
+
+// ---------------------------------------------------------------------------
 // The stage form of the cube kernel, and K6 (the header's second form).
 // ---------------------------------------------------------------------------
 
@@ -809,6 +1123,48 @@ int launch_mid(const void* xr, const void* xi, void* yr, void* yi,
                          (int64_t)L, lanes, csize, inverse, scale);
 }
 
+// Does the mid pair take the line form: n1 and n2 powers of two from 2 to
+// 128, tiles of kMidLanes lanes of L, a share of at most 16384 elements
+// and an even number of n1-columns a block (they go in pairs)?
+// kernels/mid_pair_fft.py:form mirrors it.
+inline bool line_mid(int n1, int n2, int lanes, int csize) {
+  const auto ok = [](int n) { return n >= 2 && n <= 128 && !(n & (n - 1)); };
+  return ok(n1) && ok(n2) && lanes == kMidLanes && cluster_ok(csize) &&
+         n1 % csize == 0 && (n1 / csize) * n2 * kMidLanes <= kMaxN &&
+         (n2 * kMidLanes / csize) % 2 == 0;
+}
+
+// The mid-pair line form's block: enough threads for the share's warp
+// tasks, at most kMidThreads, and the padded tile (MidTile).
+inline Shape mid_line_shape(int n1, int n2, int csize) {
+  Shape s;
+  const int slabs = n1 / csize, share = slabs * n2 * kMidLanes;
+  const int lanes = line_lanes(share);
+  s.threads = lanes < kMidThreads ? lanes : kMidThreads;
+  s.span = 0;
+  s.smem = (size_t)slabs * MidTile(n2).slab * sizeof(float2);
+  return s;
+}
+
+template <typename T>
+int launch_mid_line(const void* xr, const void* xi, void* yr, void* yi,
+                    const void* tw1, const void* tw2, long long pre, int n1,
+                    int n2, long long L, int csize, int inverse, float scale,
+                    cudaStream_t stream) {
+  const int paired = L % 2 == 0 && aligned(yr, 2 * sizeof(T)) &&
+                     aligned(yi, 2 * sizeof(T));
+  const int quads = L % 4 == 0 && aligned(xr, 4 * sizeof(T)) &&
+                    aligned(xi, 4 * sizeof(T));
+  return launch_clusters(mid_pair_line_kernel<T>,
+                         mid_line_shape(n1, n2, csize),
+                         pre * ((L + kMidLanes - 1) / kMidLanes), csize,
+                         stream, static_cast<const T*>(xr),
+                         static_cast<const T*>(xi), static_cast<T*>(yr),
+                         static_cast<T*>(yi), static_cast<const float2*>(tw1),
+                         static_cast<const float2*>(tw2), n1, n2, (int64_t)L,
+                         csize, paired, quads, inverse, scale);
+}
+
 // The (n1 / csize) * inner elements a block holds, or 0 when csize is not
 // a cluster size, does not divide n1 or inner, or the share is over 16384.
 inline int share_of(int n1, long long inner, int csize) {
@@ -954,7 +1310,9 @@ extern "C" int tpufft_cube_fused_active_clusters(int n1, int n2, int n3,
 // for tpufft_cube_fft; n1, n2 >= 2, L >= 1, 1 <= lanes <= 64; csize in
 // {1, 2, 4, 8, 16} divides n1 and n2 * lanes,
 // (n1 / csize) * n2 * lanes <= 16384, and each axis's rows split into
-// chunks as for the cube. Returns 0 or the CUDA error code.
+// chunks as for the cube. Where line_mid holds (powers of two to 128, 8
+// lanes) the line form runs, else the stage form. Returns 0 or the CUDA
+// error code.
 extern "C" int tpufft_mid_pair_fft(const void* xr, const void* xi, void* yr,
                                    void* yi, const void* tw1,
                                    const void* tw2, long long pre, int n1,
@@ -967,10 +1325,18 @@ extern "C" int tpufft_mid_pair_fft(const void* xr, const void* xi, void* yr,
       !make_radices(n1, rad1, nstages1, &p1) ||
       !make_radices(n2, rad2, nstages2, &p2))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (line_mid(n1, n2, lanes, csize)) {
+    if (pre == 0) return 0;
+    if (bf16)
+      return launch_mid_line<__nv_bfloat16>(xr, xi, yr, yi, tw1, tw2, pre, n1,
+                                            n2, L, csize, inverse, scale, st);
+    return launch_mid_line<float>(xr, xi, yr, yi, tw1, tw2, pre, n1, n2, L,
+                                  csize, inverse, scale, st);
+  }
   const Shape s = mid_shape(n1, n2, lanes, csize);
   if (s.threads == 0) return (int)cudaErrorInvalidValue;
   if (pre == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s.threads <= kPackedShare / kPer) {
     if (bf16)
       return launch_mid<__nv_bfloat16, 512, 2>(xr, xi, yr, yi, tw1, tw2, pre,
@@ -992,6 +1358,12 @@ extern "C" int tpufft_mid_pair_fft(const void* xr, const void* xi, void* yr,
 extern "C" int tpufft_mid_pair_active_clusters(int n1, int n2, int lanes,
                                                int csize, int bf16,
                                                int* out) {
+  if (line_mid(n1, n2, lanes, csize)) {
+    const Shape s = mid_line_shape(n1, n2, csize);
+    return bf16 ? active_clusters(mid_pair_line_kernel<__nv_bfloat16>, s,
+                                  csize, out)
+                : active_clusters(mid_pair_line_kernel<float>, s, csize, out);
+  }
   const Shape s = mid_shape(n1, n2, lanes, csize);
   if (s.threads == 0) return (int)cudaErrorInvalidValue;
   if (s.threads <= kPackedShare / kPer)

@@ -32,14 +32,27 @@
 //   "fma": every other shape (m_in or m_out of 2, 3, 7, 93, whose rows
 //       break 16-byte copies), the shared-memory SGEMM of tile_mm.cuh
 //       below.
-// The complex product (K10) runs the FMA tile loop of tile_mm.cuh: each
-// block of 256 threads computes a 128 x 64 tile of Y, staging 16-deep
-// k-slices of X (transposed) and W in shared memory, and each thread keeps
-// an 8 x 4 register tile; it stages Xr, Xi, Wr and Wi for the same k-slice
-// and accumulates Yr = Xr Wr - Xi Wi and Yi = Xr Wi + Xi Wr in registers,
-// so X is read from device memory once per column tile. In both loops the
-// column tiles of one row tile are neighbours in the launch order, so a
-// row tile's re-reads of X come from L2, where W stays.
+// The complex product (K10) has the same two bodies, on the same rule:
+//   "tf32x3": the complex product as one real product of twice the depth
+//       and width, [Yr | Yi] = [Xr | Xi] [[Wr, Wi], [-Wi, Wr]], on the
+//       tensor-core body above. The host builds the (2 m_in, 2 m_out)
+//       block table once (dense_mm.py:block_table); the A loader reads
+//       depth k < m_in from xr and the rest from xi (each 16-byte copy in
+//       one plane, m_in being a multiple of 4), and the epilogue stores
+//       column c < m_out to yr and the rest to yi, as float2 pairs (m_out
+//       even). At (100000, 512) x (512, 512) it does K12's work at K12's
+//       shape, (100000, 1024) x (1024, 1024).
+//   "fma": the FMA tile loop of tile_mm.cuh: each block of 256 threads
+//       computes a 128 x 64 tile of Y, staging 16-deep k-slices of X
+//       (transposed) and W in shared memory, and each thread keeps an
+//       8 x 4 register tile; it stages Xr, Xi, Wr and Wi for the same
+//       k-slice and accumulates Yr = Xr Wr - Xi Wi and Yi = Xr Wi + Xi Wr
+//       in registers, so X is read from device memory once per column
+//       tile.
+// Gauss's three-product form (one real product fewer, a sum whose
+// rounding follows the larger of |Xr| and |Xi|) is not built.
+// In every loop the column tiles of one row tile are neighbours in the
+// launch order, so a row tile's re-reads of X come from L2, where W stays.
 
 #include <cuda_runtime.h>
 
@@ -139,29 +152,89 @@ dense_mm_tf32x3_kernel(const float* __restrict__ x,
     }
 }
 
-// The tensor-core body's launches: as launch() below, 128-row tiles.
-int launch_tf32x3(const float* x, const float* w, float* y, long long batch,
-                  int m_in, int m_out, cudaStream_t stream) {
+// [Yr | Yi] = [Xr | Xi] wb for complex planes on the tensor cores (K10's
+// "tf32x3" body): wb the (2 m_in, 2 m_out) block table [[Wr, Wi], [-Wi,
+// Wr]], one 128 x 128 tile of [Yr | Yi] a block.
+__global__ void __launch_bounds__(tf32x3::kThreads, 1)
+dense_mm_complex_tf32x3_kernel(const float* __restrict__ xr,
+                               const float* __restrict__ xi,
+                               const float* __restrict__ wb,
+                               float* __restrict__ yr, float* __restrict__ yi,
+                               int64_t batch, int m_in, int m_out) {
+  namespace tc = tf32x3;
+  extern __shared__ __align__(16) float smem[];
+  const int64_t row0 = (int64_t)blockIdx.y * tc::kBM;
+  const int col0 = blockIdx.x * tc::kBN;
+  const int n2 = 2 * m_out;   // columns of [Yr | Yi] and of wb
+  tc::Acc acc;
+#pragma unroll
+  for (int i = 0; i < tc::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < tc::kNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  tc::accumulate<kTcStages, true>(smem, xr + row0 * m_in, m_in, batch - row0,
+                                  wb + col0, n2, n2 - col0, 2 * m_in, acc,
+                                  xi + row0 * m_in, m_in);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t r0 = row0 + (warp / tc::kWarpsN) * tc::kWM + g;
+  const int c0 = col0 + (warp % tc::kWarpsN) * tc::kWN + 2 * t;
+#pragma unroll
+  for (int i = 0; i < tc::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < tc::kNT; ++j) {
+      const int c = c0 + j * 8;   // c even and m_out even: c + 1 in c's plane
+      if (c >= n2) continue;
+      float* y = c < m_out ? yr + c : yi + (c - m_out);
+      const int64_t r = r0 + i * 16;
+      if (r < batch)
+        *reinterpret_cast<float2*>(y + r * m_out) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (r + 8 < batch)
+        *reinterpret_cast<float2*>(y + (r + 8) * m_out) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+// The tensor-core bodies' launches: as launch() below, 128-row tiles of Y
+// (of [Yr | Yi] when xi is given: the complex body, w then the block
+// table).
+int launch_tf32x3(const float* x, const float* xi, const float* w, float* y,
+                  float* yi, long long batch, int m_in, int m_out,
+                  cudaStream_t stream) {
   using tf32x3::kBM;
   using tf32x3::kBN;
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
-  };
+  const bool cplx = xi != nullptr;
   if (batch < 0 || m_in < 4 || m_out < 4 || m_in % 4 || m_out % 4 ||
-      misaligned(x) || misaligned(w) || misaligned(y))
+      misaligned(x) || misaligned(w) || misaligned(y) ||
+      (cplx && (misaligned(xi) || yi == nullptr || misaligned(yi))))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = tf32x3::smem_bytes<kTcStages>();
   cudaError_t err = cudaFuncSetAttribute(
-      dense_mm_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      cplx ? (const void*)dense_mm_complex_tf32x3_kernel
+           : (const void*)dense_mm_tf32x3_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned col_tiles = (unsigned)((m_out + kBN - 1) / kBN);
+  const int cols = cplx ? 2 * m_out : m_out;
+  const unsigned col_tiles = (unsigned)((cols + kBN - 1) / kBN);
   for (int64_t r = 0; r < batch; r += kMaxRowTiles * kBM) {
     const int64_t rows =
         batch - r < kMaxRowTiles * kBM ? batch - r : kMaxRowTiles * kBM;
     const dim3 grid(col_tiles, (unsigned)((rows + kBM - 1) / kBM));
-    dense_mm_tf32x3_kernel<<<grid, tf32x3::kThreads, smem, stream>>>(
-        x + r * m_in, w, y + r * m_out, rows, m_in, m_out);
+    if (cplx)
+      dense_mm_complex_tf32x3_kernel<<<grid, tf32x3::kThreads, smem,
+                                       stream>>>(
+          x + r * m_in, xi + r * m_in, w, y + r * m_out, yi + r * m_out, rows,
+          m_in, m_out);
+    else
+      dense_mm_tf32x3_kernel<<<grid, tf32x3::kThreads, smem, stream>>>(
+          x + r * m_in, w, y + r * m_out, rows, m_in, m_out);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -194,16 +267,28 @@ int launch(const float* xr, const float* xi, const float* wr, const float* wi,
 
 // Y = X W for complex planes (K10): xr/xi (batch, m_in), wr/wi
 // (m_in, m_out), yr/yi (batch, m_out), all f32 and contiguous on the
-// current device, on `stream`. Returns 0 or the CUDA error of a launch.
+// current device, on `stream`. form 1 runs the 3xTF32 tensor-core body on
+// wb, the (2 m_in, 2 m_out) block table [[Wr, Wi], [-Wi, Wr]] (m_in and
+// m_out multiples of 4, every operand on a 16-byte boundary, else
+// cudaErrorInvalidValue; wr and wi are not read), form 0 the FMA body on
+// wr and wi (wb is not read). Returns 0 or the CUDA error of a launch.
 extern "C" int tpufft_dense_mm_complex(const void* xr, const void* xi,
                                        const void* wr, const void* wi,
-                                       void* yr, void* yi, long long batch,
-                                       int m_in, int m_out, void* stream) {
+                                       const void* wb, void* yr, void* yi,
+                                       long long batch, int m_in, int m_out,
+                                       int form, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (form == 1)
+    return launch_tf32x3(
+        static_cast<const float*>(xr), static_cast<const float*>(xi),
+        static_cast<const float*>(wb), static_cast<float*>(yr),
+        static_cast<float*>(yi), batch, m_in, m_out, st);
+  if (form != 0) return (int)cudaErrorInvalidValue;
   return launch<true>(
       static_cast<const float*>(xr), static_cast<const float*>(xi),
       static_cast<const float*>(wr), static_cast<const float*>(wi),
       static_cast<float*>(yr), static_cast<float*>(yi), batch, m_in, m_out,
-      static_cast<cudaStream_t>(stream));
+      st);
 }
 
 // Y = X W for real rows and a real matrix (K11, and K12 with the DCT/DST
@@ -219,7 +304,9 @@ extern "C" int tpufft_dense_mm_real(const void* x, const void* w, void* y,
   const auto wp = static_cast<const float*>(w);
   const auto yp = static_cast<float*>(y);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (form == 1) return launch_tf32x3(xp, wp, yp, batch, m_in, m_out, st);
+  if (form == 1)
+    return launch_tf32x3(xp, nullptr, wp, yp, nullptr, batch, m_in, m_out,
+                         st);
   if (form != 0) return (int)cudaErrorInvalidValue;
   return launch<false>(xp, nullptr, wp, nullptr, yp, nullptr, batch, m_in,
                        m_out, st);

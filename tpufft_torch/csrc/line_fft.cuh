@@ -1,7 +1,8 @@
-// The DFT of a power-of-two line (2 to 64) held in the registers of the
+// The DFT of a power-of-two line (2 to 128) held in the registers of the
 // lanes of one warp, which swap values by __shfl_xor_sync: no shared memory
-// and no barrier. Shared by the line form of the cube kernel
-// (cluster_fft.cu, cube_line_kernel) and the line form of the minor-axis
+// and no barrier. Shared by the line forms of the cube kernel and of the
+// mid-pair kernel (cluster_fft.cu, cube_line_kernel, mid_pair_line_kernel;
+// lines of 2 to 64 and 2 to 128) and the line form of the minor-axis
 // kernel at n <= 64 (minor_fft.cuh, minor_lines_kernel).
 
 #pragma once
@@ -16,19 +17,22 @@ using namespace tpufft_fft;
 
 constexpr int kLineValues = 16;  // values a thread of the cube kernel holds
 
-// A line of length N (a power of two, 2 to 64) on G lanes of a warp: lane
-// `place` l of the line holds V of its values, input x[l + G j] in register
-// j; a thread holds K lines at once; a warp holds W lines side by side, the
-// lane of place l and slot c being l * W + c (the place in the high lane
-// bits, so that the slots of a warp take consecutive lines).
+// A line of length N (a power of two, 2 to 128) on G lanes of a warp:
+// lane `place` l of the line holds V of its values, input x[l + G j] in
+// register j; a thread holds K lines at once; a warp holds W lines side by
+// side, the lane of place l and slot c being l * W + c (the place in the
+// high lane bits, so that the slots of a warp take consecutive lines).
+// V = min(N, 8), and 16 at N = 128: line_fft needs G <= V (a lane ends
+// holding whole radix-G butterflies), so a 128-line is 8 lanes of 16
+// values, one line a thread.
 template <int N>
 struct Line {
-  static constexpr int V = N < 8 ? N : 8;
+  static constexpr int V = N < 8 ? N : (N == 128 ? 16 : 8);
   static constexpr int G = N / V;
   static constexpr int K = kLineValues / V;
   static constexpr int W = 32 / G;
   static constexpr int Q = V / G;
-  static_assert(N >= 2 && N <= 64 && (N & (N - 1)) == 0, "line length");
+  static_assert(N >= 2 && N <= 128 && (N & (N - 1)) == 0, "line length");
   // index in the line of input register j of place l
   static __device__ __forceinline__ int in(int l, int j) { return l + G * j; }
   // index in the line of output register r of place m (line_fft)
@@ -36,6 +40,54 @@ struct Line {
     return m * Q + r % Q + V * (r / Q);
   }
 };
+
+// W_16^m = exp(-+2 pi i m / 16) for the m = b2 k1 of butterfly16 (1, 2,
+// 3, 4, 6, 9); a constant once the loops are unrolled.
+__device__ __forceinline__ float2 w16(int m, bool inv) {
+  constexpr float c1 = 0.92387953251128674f, s1 = 0.38268343236508977f;
+  constexpr float h = 0.70710678118654752f;
+  float c = 0.f, s = 1.f;   // m = 4
+  switch (m) {
+    case 1: c = c1; s = s1; break;
+    case 2: c = h; s = h; break;
+    case 3: c = s1; s = c1; break;
+    case 6: c = -h; s = h; break;
+    case 9: c = -c1; s = -s1; break;
+    default: break;
+  }
+  return make_float2(c, inv ? s : -s);
+}
+
+// In-register radix-16 DFT, x[k] <- sum_b x[b] W_16^(k b): radix 4 over
+// b = 4 b1 + b2, the twiddle W_16^(b2 k1), radix 4 over b2.
+__device__ __forceinline__ void butterfly16(float2 (&x)[16], bool inv) {
+  float2 t[4][4];
+#pragma unroll
+  for (int b2 = 0; b2 < 4; ++b2) {
+#pragma unroll
+    for (int b1 = 0; b1 < 4; ++b1) t[b2][b1] = x[4 * b1 + b2];
+    butterfly<4>(t[b2], inv);
+    if (b2 == 0) continue;
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      t[b2][k1] = cmul(t[b2][k1], w16(b2 * k1, inv));
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 u[4] = {t[0][k1], t[1][k1], t[2][k1], t[3][k1]};
+    butterfly<4>(u, inv);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) x[k1 + 4 * k2] = u[k2];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void line_butterfly(float2 (&x)[R], bool inv) {
+  if constexpr (R == 16)
+    butterfly16(x, inv);
+  else
+    butterfly<R>(x, inv);
+}
 
 // The DFT of one line held as Line<N> says (tw: w^k, k < N, for the
 // direction). X[a + V b] = sum_l w_G^(l b) w^(l a) sum_j x[l + G j]
@@ -51,7 +103,7 @@ __device__ __forceinline__ void line_fft(float2 (&v)[Line<N>::V], int l,
                                          const float2* __restrict__ tw,
                                          bool inv) {
   using L = Line<N>;
-  butterfly<L::V>(v, inv);
+  line_butterfly<L::V>(v, inv);
   if constexpr (L::G > 1) {
 #pragma unroll
     for (int a = 1; a < L::V; ++a)
@@ -85,7 +137,8 @@ __device__ __forceinline__ void line_fft(float2 (&v)[Line<N>::V], int l,
   }
 }
 
-// f(integral_constant<int, n>) for the line length n (2 to 64).
+// f(integral_constant<int, n>) for the line length n (2 to 64; with_length
+// to 128 below).
 template <class F>
 __device__ __forceinline__ void with_length(int n, const F& f) {
   switch (n) {
@@ -96,6 +149,15 @@ __device__ __forceinline__ void with_length(int n, const F& f) {
     case 32: f(std::integral_constant<int, 32>{}); break;
     default: f(std::integral_constant<int, 64>{}); break;
   }
+}
+
+// f(integral_constant<int, n>) for the line length n (2 to 128).
+template <class F>
+__device__ __forceinline__ void with_length128(int n, const F& f) {
+  if (n == 128)
+    f(std::integral_constant<int, 128>{});
+  else
+    with_length(n, f);
 }
 
 }  // namespace tpufft_line

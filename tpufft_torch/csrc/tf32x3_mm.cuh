@@ -132,11 +132,20 @@ using Acc = float[kMT][kNT][4];
 // read as 0); b: the tile's first column of B, pitch ldb, `cols` valid.
 // depth, lda, ldb, and the two bases must keep 16-byte copies aligned.
 // smem: smem_bytes<kStages>() of dynamic shared memory.
-template <int kStages>
+//
+// kTwoPlanes: A is two row-major planes of one pitch lda side by side,
+// [A_lo | A_hi]: depth k < a_split reads a (A_lo), k >= a_split reads
+// a_hi at k - a_split (a_hi: the tile's first row of A_hi). a_split must
+// be a multiple of 4, so that each 16-byte copy lies in one plane. The
+// default instantiation (one plane) compiles to the same code as before
+// these arguments existed.
+template <int kStages, bool kTwoPlanes = false>
 __device__ __forceinline__ void accumulate(float* smem, const float* a,
                                            int64_t lda, int64_t rows,
                                            const float* b, int64_t ldb,
-                                           int cols, int depth, Acc& acc) {
+                                           int cols, int depth, Acc& acc,
+                                           const float* a_hi = nullptr,
+                                           int a_split = 0) {
   static_assert(kStages >= 2, "a ring of at least two stages");
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -167,8 +176,20 @@ __device__ __forceinline__ void accumulate(float* smem, const float* a,
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
       const bool ok = a_ok[i] && a_k;
-      copy16(as + (ra + kRowStep * i) * kPitchA + ca,
-             ok ? a_src[i] + k0 : a, ok);
+      if constexpr (kTwoPlanes) {
+        // a_src + k0 + shift is A_hi's element at depth k0 + ca - a_split
+        const int64_t shift =
+            k0 + ca < a_split
+                ? 0
+                : (reinterpret_cast<intptr_t>(a_hi) -
+                   reinterpret_cast<intptr_t>(a)) / (int64_t)sizeof(float) -
+                      a_split;
+        copy16(as + (ra + kRowStep * i) * kPitchA + ca,
+               ok ? a_src[i] + k0 + shift : a, ok);
+      } else {
+        copy16(as + (ra + kRowStep * i) * kPitchA + ca,
+               ok ? a_src[i] + k0 : a, ok);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {

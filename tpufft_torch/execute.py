@@ -412,10 +412,10 @@ def fft_pair_last(
 
 # The mid-pair rule needs at least this contiguous batch L behind the pair;
 # below it the two strided passes run. From chip_smoke.py's L sweep on the
-# H100 (PERF.md): below 4, K6 computes on masked lanes of its 4-lane tiles
-# and ran 1.8-4.3x slower than the two passes; from 4 on it ran within
-# 0.97-1.09x of them.
-MID_PAIR_MIN_L = 4
+# H100 (PERF.md): below 8, K6's line form computes on masked lanes of its
+# 8-lane tiles; at L = 4 it ran 1.06x and its stage form 1.18x the two
+# passes' time, at 1 and 2 both 2.2-7.1x; at 8 the line form ran 0.85x.
+MID_PAIR_MIN_L = 8
 
 
 def cube_supported(n1: int, n2: int, n3: int, dtype,

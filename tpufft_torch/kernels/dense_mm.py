@@ -12,15 +12,17 @@ rows times one (m_in, m_out) matrix built on the host:
 * ``tpufft/realtrans.py:_build_minor_r2r`` (K12), real rows times the
   DCT/DST matrix: :func:`r2r_minor`, the real kernel with that table.
 
-One CUDA source (``csrc/dense_mm.cu``) serves all three. The real product
-(K11, K12) has two bodies, :func:`form`: a 3xTF32 tensor-core GEMM
+One CUDA source (``csrc/dense_mm.cu``) serves all three. Each product
+has two bodies, :func:`form`: a 3xTF32 tensor-core GEMM
 (``csrc/tf32x3_mm.cuh``: each f32 operand split into a TF32 big and small
 part, three ``mma.sync`` products summed in f32) where both lengths are
 multiples of 4, else a shared-memory SGEMM with f32 FMA. The complex
-product (K10) runs the FMA loop, accumulating both output planes from one
-read of X. Rows, tables and results are f32 and contiguous. Tables are
-built in float64 on the host by the caller, cast to f32 and uploaded once
-per (key, device) by :func:`device_table`.
+product (K10) runs on the tensor cores as one real product of the planes
+side by side, [Yr | Yi] = [Xr | Xi] times the block table
+[[Wr, Wi], [-Wi, Wr]] (:func:`block_table`); its FMA body accumulates both
+output planes from one read of X. Rows, tables and results are f32 and
+contiguous. Tables are built in float64 on the host by the caller, cast to
+f32 and uploaded once per (key, device) by :func:`device_table`.
 
 A CPU tensor runs the plain version (one ``torch.matmul``, four for the
 complex form); a CUDA tensor launches the kernel or raises, never falls
@@ -33,11 +35,13 @@ from __future__ import annotations
 
 import collections
 
+import numpy as np
 import torch
 
 from .. import _build
 
 __all__ = [
+    "block_table",
     "dense_mm_complex",
     "dense_mm_complex_reference",
     "dense_mm_real",
@@ -54,6 +58,7 @@ __all__ = [
 launches = {"complex": 0, "real": 0, "r2r": 0}
 reference_cuda_calls = 0
 
+_FORMS = {"fma": 0, "tf32x3": 1}
 _MAX_TABLES = 64
 _tables: collections.OrderedDict = collections.OrderedDict()
 
@@ -113,10 +118,24 @@ def _check_operands(name: str, xs, ws) -> tuple[int, int, int]:
     return batch, m_in, ws[0].shape[1]
 
 
+def block_table(wr, wi):
+    """The (2 m_in, 2 m_out) real table [[wr, wi], [-wi, wr]] of the complex
+    product (numpy or torch planes): [xr | xi] @ it is [yr | yi], the
+    operand of the complex kernel's tensor-core body."""
+    if isinstance(wr, torch.Tensor):
+        return torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)])
+    return np.block([[wr, wi], [-wi, wr]])
+
+
 def dense_mm_complex(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
-                     wi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                     wi: torch.Tensor, wb: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(xr + i xi) @ (wr + i wi) for (batch, m_in) planes and an
     (m_in, m_out) table: the (batch, m_out) re/im planes (K10).
+
+    ``wb`` is ``block_table(wr, wi)`` on the rows' device, which the
+    tensor-core body multiplies by; callers that run often upload it once
+    (:func:`device_table`), else it is built here on each call.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream and raise on anything it does not take."""
@@ -128,11 +147,21 @@ def dense_mm_complex(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     yi = torch.empty_like(yr)
     if batch == 0:
         return yr, yi
+    body = form(m_in, m_out, (xr.data_ptr() | xi.data_ptr()) % 16 == 0)
+    if body == "tf32x3":
+        if wb is None:
+            wb = block_table(wr, wi).contiguous()
+        _check("dense_mm_complex", "the block table", wb, xr.device)
+        if wb.shape != (2 * m_in, 2 * m_out) or wb.data_ptr() % 16:
+            raise ValueError(
+                f"dense_mm_complex: block table {tuple(wb.shape)} is not an "
+                f"aligned ({2 * m_in}, {2 * m_out}) matrix")
     lib = _build.load()
     with torch.cuda.device(xr.device):
         err = lib.tpufft_dense_mm_complex(
             xr.data_ptr(), xi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), batch, m_in, m_out,
+            0 if wb is None else wb.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            batch, m_in, m_out, _FORMS[body],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dense_mm_complex launch failed: CUDA error {err}")
@@ -140,16 +169,15 @@ def dense_mm_complex(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
     return yr, yi
 
 
-_FORMS = {"fma": 0, "tf32x3": 1}
-
-
 def form(m_in: int, m_out: int, aligned: bool = True) -> str:
-    """Which body of the real kernel (K11, K12) multiplies (batch, m_in)
+    """Which body of the kernels (K10, K11, K12) multiplies (batch, m_in)
     rows by an (m_in, m_out) table: ``"tf32x3"``, the 3xTF32 tensor-core
-    GEMM, where m_in and m_out are multiples of 4 (its 16-byte copies) and
-    the operands start on 16-byte boundaries (``aligned``: a view with an
-    odd storage offset does not), else ``"fma"``, the f32 FMA tile loop.
-    The wrapper passes the choice to ``tpufft_dense_mm_real``."""
+    GEMM, where m_in and m_out are multiples of 4 (its 16-byte copies; for
+    K10 each copy and each stored pair then lies in one plane) and the
+    operands start on 16-byte boundaries (``aligned``: a view with an odd
+    storage offset does not), else ``"fma"``, the f32 FMA tile loop. The
+    wrappers pass the choice to ``tpufft_dense_mm_real`` and
+    ``tpufft_dense_mm_complex``."""
     fits = m_in % 4 == 0 and m_out % 4 == 0 and aligned
     return "tf32x3" if fits else "fma"
 

@@ -9,16 +9,29 @@ storage, f32 arithmetic, a forward/inverse flag and one real scale applied
 once at the store.
 
 The CUDA kernel (``csrc/cluster_fft.cu``) reads and writes the planes once
-where two strided-axis passes would do it twice. A tile (n1, n2, LANES)
-of LANES = 4 contiguous elements of L is split along n1 over a
-thread-block cluster of C blocks that exchange its n1-columns through
-distributed shared memory; C, one of 1, 2, 4, 8, 16, divides n1 and leaves
-at most 16384 elements a block, and at most 2048 where it can
-(:func:`cluster_size`): at (64, 128) a cluster of 16 blocks of 2048. A
-tile reads half of each 32-byte sector of a row; the tile beside it, run
-at the same time, reads the other half from L2. On the H100, 4 lanes ran
-faster than 8 (fewer bank conflicts in shared memory, smaller blocks) and
-2 (PERF.md, tools/cluster_phases.py). The ragged end of L is masked, never padded.
+where two strided-axis passes would do it twice. A tile (n1, n2, lanes)
+of contiguous elements of L is split along n1 over a thread-block cluster
+of C blocks that exchange its n1-columns through distributed shared
+memory; C, one of 1, 2, 4, 8, 16, divides n1 and leaves at most 16384
+elements a block, and at most 2048 where it can (:func:`cluster_size`).
+The ragged end of L is masked, never padded. It has two forms
+(:func:`form` mirrors the launch's choice):
+
+* ``"lines"``, ``mid_pair_line_kernel``, where n1 and n2 are powers of two
+  from 2 to 128: tiles of ``LINE_LANES`` = 8 lanes of L (an f32 row is one
+  32-byte sector), loaded into the block's tile; each n2 line (slab, lane)
+  transformed in the registers of n2/V lanes of a warp that swap values by
+  shuffles (``csrc/line_fft.cuh``) and written back in place; after the
+  cluster barrier each lane group reads its n1-columns from the cluster's
+  tiles, transforms them in registers and stores them from there. At
+  (64, 128) a cluster of 16 blocks of 4096 elements (32 KB).
+* ``"stages"``, ``mid_pair_fft_kernel``, every other pair (odd radices, an
+  axis above 128): tiles of ``LANES`` = 4 lanes, the shared Stockham stages
+  over the block; a tile reads half of each 32-byte sector of a row (the
+  tile beside it, run at the same time, reads the other half from L2). On
+  the H100, 4 lanes ran faster than 8 and 2 on this form (PERF.md,
+  tools/cluster_phases.py).
+
 The envelope (:func:`supported`): n1, n2 >= 2, each inside the minor-axis
 kernel's radix envelope, n1*n2 <= 65536 with such a C, any L >= 1.
 
@@ -41,17 +54,23 @@ from .cube_fft import MAX_SHARE, pick_cluster, stages_fit
 
 __all__ = [
     "LANES",
+    "LINE_LANES",
+    "LINE_LENGTHS",
     "active_clusters",
     "cluster_size",
     "fft_mid_pair",
     "fft_mid_pair_reference",
+    "form",
+    "lanes",
     "launches",
     "reference_cuda_calls",
     "reset_counts",
     "supported",
 ]
 
-LANES = 4  # elements of L a tile takes: 16 bytes of an f32 plane
+LANES = 4  # elements of L a stage-form tile takes: 16 bytes of f32
+LINE_LANES = 8  # elements of L a line-form tile takes: 32 bytes of f32
+LINE_LENGTHS = (2, 4, 8, 16, 32, 64, 128)  # axes of the line form
 
 launches = 0
 reference_cuda_calls = 0
@@ -64,10 +83,44 @@ def reset_counts() -> None:
     reference_cuda_calls = 0
 
 
+def _geometry(n1: int, n2: int) -> tuple[str, int, int] | None:
+    """(form, lanes of L a tile, cluster size) of the pair, or None without
+    a cluster. Mirrors ``line_mid`` in ``csrc/cluster_fft.cu``: the line
+    form where both axes are in ``LINE_LENGTHS`` and its cluster at
+    ``LINE_LANES`` leaves an even number of n1-columns a block (they go in
+    pairs), else the stage form at ``LANES``."""
+    n1, n2 = int(n1), int(n2)
+    if n1 in LINE_LENGTHS and n2 in LINE_LENGTHS:
+        c = pick_cluster(n1, n2 * LINE_LANES)
+        if c is not None and n2 * LINE_LANES // c % 2 == 0:
+            return "lines", LINE_LANES, c
+    c = pick_cluster(n1, n2 * LANES)
+    return None if c is None else ("stages", LANES, c)
+
+
 def cluster_size(n1: int, n2: int) -> int | None:
     """Blocks a tile's cluster takes (``cube_fft.pick_cluster`` of n1 and
-    n2*LANES); None outside the envelope."""
-    return pick_cluster(int(n1), int(n2) * LANES)
+    n2 times the form's lanes); None outside the envelope."""
+    g = _geometry(n1, n2)
+    return None if g is None else g[2]
+
+
+def lanes(n1: int, n2: int) -> int | None:
+    """Elements of L a tile takes: ``LINE_LANES`` on the line form,
+    ``LANES`` on the stage form; None outside the envelope."""
+    g = _geometry(n1, n2)
+    return None if g is None else g[1]
+
+
+def form(n1: int, n2: int, L: int) -> str | None:
+    """Which form of the kernel transforms axes (1, 2) of (pre, n1, n2, L)
+    planes: ``"lines"`` or ``"stages"`` (see the module docstring); None
+    outside the envelope (:func:`supported`). The launch makes the same
+    choice (``line_mid`` in ``csrc/cluster_fft.cu``); L sets neither the
+    form nor the tile."""
+    if not supported(n1, n2, L, torch.float32):
+        return None
+    return _geometry(n1, n2)[0]
 
 
 def supported(n1: int, n2: int, L: int, dtype) -> bool:
@@ -79,11 +132,14 @@ def supported(n1: int, n2: int, L: int, dtype) -> bool:
             and minor_fft.supported(n1, dtype)
             and minor_fft.supported(n2, dtype)):
         return False
-    c = cluster_size(n1, n2)
-    if c is None:
+    g = _geometry(n1, n2)
+    if g is None:
         return False
-    share = n1 // c * n2 * LANES
-    return (stages_fit(n2, n1 // c * LANES, share)
+    kind, lanes_, c = g
+    if kind == "lines":
+        return True
+    share = n1 // c * n2 * lanes_
+    return (stages_fit(n2, n1 // c * lanes_, share)
             and stages_fit(n1, share // n1, share))
 
 
@@ -95,7 +151,7 @@ def active_clusters(n1: int, n2: int, bf16: bool, device_index: int) -> int:
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.tpufft_mid_pair_active_clusters(
-            n1, n2, LANES, cluster_size(n1, n2), int(bf16),
+            n1, n2, lanes(n1, n2), cluster_size(n1, n2), int(bf16),
             ctypes.byref(out))
     if err != 0:
         raise RuntimeError(
@@ -126,9 +182,9 @@ def _launch(xr, xi, inverse: bool, scale: float):
         tw2 = minor_fft._device_twiddles(n2, bool(inverse), xr.device)
         err = lib.tpufft_mid_pair_fft(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw1.data_ptr(), tw2.data_ptr(), pre, n1, n2, L, LANES, c, arr1,
-            len(rad1), arr2, len(rad2), int(bool(inverse)), float(scale),
-            int(bf16), torch.cuda.current_stream().cuda_stream)
+            tw1.data_ptr(), tw2.data_ptr(), pre, n1, n2, L, lanes(n1, n2),
+            c, arr1, len(rad1), arr2, len(rad2), int(bool(inverse)),
+            float(scale), int(bf16), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mid_pair_fft launch failed: CUDA error {err}")
     return yr, yi, True
@@ -149,7 +205,7 @@ def fft_mid_pair(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
         raise ValueError(
             f"mid_pair_fft: pair {(n1, n2)} is outside the kernel's "
             f"envelope (n1, n2 >= 2, a cluster of at most 16 blocks of "
-            f"<= {MAX_SHARE} elements at {LANES} lanes, prime factors <= "
+            f"<= {MAX_SHARE} elements, prime factors <= "
             f"{minor_fft.MAX_PRIME})")
     yr, yi, launched = _launch(xr, xi, inverse, scale)
     launches += launched

@@ -161,10 +161,14 @@ class FilterPlan:
 
     def _table(self, name: str, device, dtype=torch.float32):
         """A table of this plan on ``device``, uploaded once: "cr"/"ci" the
-        circulant's planes, "cr_t"/"-ci_t" the adjoint's, "hr"/"hi" the
+        circulant's planes, "cr_t"/"-ci_t" the adjoint's, "block"/"block_t"
+        their block tables (K10's tensor-core operand), "hr"/"hi" the
         response."""
         build = {"cr": lambda: self._cr, "ci": lambda: self._ci,
                  "cr_t": lambda: self._cr.T, "-ci_t": lambda: -self._ci.T,
+                 "block": lambda: dense_mm.block_table(self._cr, self._ci),
+                 "block_t": lambda: dense_mm.block_table(self._cr.T,
+                                                         -self._ci.T),
                  "hr": lambda: self._hr, "hi": lambda: self._hi}[name]
         return dense_mm.device_table(self._key + (name,), build, device,
                                      dtype)
@@ -175,7 +179,10 @@ class FilterPlan:
         wi = self._table("-ci_t" if adjoint else "ci", dev, dt)
         if self.config.backend == "xla":
             return xr @ wr - xi @ wi, xr @ wi + xi @ wr
-        return dense_mm.dense_mm_complex(xr, xi, wr, wi)
+        wb = None
+        if xr.is_cuda and dense_mm.form(*wr.shape) == "tf32x3":
+            wb = self._table("block_t" if adjoint else "block", dev, dt)
+        return dense_mm.dense_mm_complex(xr, xi, wr, wi, wb)
 
     def _dense_real(self, x, adjoint: bool):
         w = self._table("cr_t" if adjoint else "cr", x.device, x.dtype)

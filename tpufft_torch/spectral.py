@@ -647,6 +647,12 @@ def _spectral_helper(x, y, fs, window, nperseg, noverlap, nfft, detrend,
         nseg_f = 1 + (xre.shape[-1] - nperseg) // step
         wt = _frame_tables(win, nfft, 1.0, dev)[0]
         lead = xre.shape[:-1]
+        if not same_data:
+            # one row of x beside one row of y: broadcast the leading dims
+            # (scipy's and the composed route's matmuls broadcast them)
+            lead = torch.broadcast_shapes(lead, yre.shape[:-1])
+            xre = xre.expand(lead + xre.shape[-1:])
+            yre = yre.expand(lead + yre.shape[-1:])
         args = (wt, nfft, dkey, step, lambda: _tables(
             "stft", win, nperseg, nfft, (dkey, 1.0), dev))
         if same_data:
