@@ -47,8 +47,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
 9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
    DFT, K1 with a bound on its load) and K4 with ``n2_in`` against their
    plain versions on ragged batches: even and odd real lengths 2 to 32768
-   (every length of K7's line form, 256 to 8192, among them; each length
-   printed with K7's form, ``real_fft.form``), pads (93 -> 128) to
+   (every length of K7's and K8's line form, 256 to 8192, among them;
+   each length printed with its form, ``real_fft.form``), pads (93 -> 128) to
    (5000 -> 8192), pairs (64, 93 -> 128) and (120, 100 -> 128), scale 1
    and 1/n, f32 and bf16 storage;
 10. the real and padded paths at full size, each call driven with every
@@ -58,12 +58,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
     ``fft(n="fast-aligned")`` on (1000000, 93) -> 128 (K9) and
     ``fft2(s=(64, 128))`` on (10000, 64, 93) (K4 with ``n2_in``), each
     against ``np.fft`` on a few slices and through its round trip;
-11. times at those shapes: the path, each kernel alone (K7 with its form),
-    its plain version, cuFFT (a baseline only) and the copy floor (one read
-    of the input and one write of the output), the ``rfft`` path split
-    into K7, the interleave of its planes and the rest, K7 alone at
-    (400000, 256) and (12500, 8192) beside ``torch.fft.rfft``, plus
-    ``rfft`` along a non-minor axis (movedim + K7 + movedim back);
+11. times at those shapes: the path, each kernel alone (K7 and K8 with
+    their form), its plain version, cuFFT (a baseline only) and the copy
+    floor (one read of the input and one write of the output), K8's line
+    form beside its stage form (kept in the library) at n = 1024, the
+    ``rfft`` path split into K7, the interleave of its planes and the
+    rest, K7 alone at (400000, 256) and (12500, 8192) beside
+    ``torch.fft.rfft``, K8 alone there beside its stage form and
+    ``torch.fft.irfft``, plus ``rfft`` along a non-minor axis (movedim +
+    K7 + movedim back);
 12. the dense-matrix kernels K10 (complex), K11 (real) and K12 (real, the
     DCT/DST table) against their plain versions (f32 matmuls, TF32 off) on
     ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128),
@@ -94,9 +97,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
     dense route (K10) against its composed route (K1, multiply, K1) on
     (100000, n) for n = 64 to 512;
 15. the short-time Fourier kernels K13 (overlapped-frame STFT, an FFT of
-    each frame in shared memory), K14 (inverse STFT with overlap-add) and
-    K15 (Welch and CSD accumulators on K13's frame FFT) against their
-    plain versions: hop 128, 64 and 32, nperseg 128 to 1024, nfft >
+    each frame in shared memory), K14 (inverse STFT with overlap-add; each
+    case printed with its form, ``stft_mm.istft_form``, and also run on
+    the dense body with the same function as a matrix, ``istft_ola``, and
+    twice to the same bits) and K15 (Welch and CSD accumulators on K13's
+    frame FFT) against their plain versions: hop 128, 64 and 32, nperseg
+    128 to 1024, nfft >
     nperseg, detrend False, "constant" and "linear", batches of 1, 3 and
     70 rows, f32 and bf16 signals; for K13 and K15 also odd nfft (255,
     93), a hop longer than a frame, hop 1, ragged last runs of frames, and
@@ -119,7 +125,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
     yardsticks:
     ``torch.stft(center=False)`` for K13, ``torch.istft`` for K14 and
     ``torch.stft`` then ``abs() ** 2`` and a sum (a short composition) for
-    K15;
+    K15; K14's line form beside its dense body (kept in the library) at
+    nfft = 256, and K13 and K14 at ShortTimeFFT's hop 64 (K14 with its
+    form);
 18. the thread-block-cluster kernels K5 (the trailing cube) and K6 (two
     middle axes of (pre, n1, n2, L)) against their plain versions: cubes
     (8, 8, 8) to (64, 64, 64) and (24, 40, 56) (clusters of 1 to 16
@@ -791,7 +799,7 @@ def phase_real_kernels() -> None:
     dtypes = (torch.float32, torch.bfloat16)
     for n in REAL_EVEN_NS + REAL_ODD_NS:
         m1 = n // 2 + 1
-        at_n = dict.fromkeys(dtypes, 0.0)
+        at_n = {(k, d): 0.0 for k in ("r2c", "c2r") for d in dtypes}
         for dtype in dtypes:
             x, _ = _planes((257, n), dtype, seed=n)
             br, bi = _planes((257, m1), dtype, seed=n + 1)
@@ -800,14 +808,17 @@ def phase_real_kernels() -> None:
                 got = real_fft.rfft_minor(x, scale=scale)
                 ref = real_fft.rfft_minor_reference(x, scale=scale)
                 _hold(worst, "r2c", dtype, got, ref, what)
-                at_n[dtype] = max(at_n[dtype], pair_err(got, ref))
-                _hold(worst, "c2r", dtype,
-                      real_fft.irfft_minor(br, bi, n=n, scale=scale),
-                      real_fft.irfft_minor_reference(br, bi, n=n,
-                                                     scale=scale), what)
-        print(f"  r2c n={n} ({real_fft.form(n)} form): max normalized error "
-              f"f32 {at_n[torch.float32]:.3e}, bf16 "
-              f"{at_n[torch.bfloat16]:.3e}")
+                at_n["r2c", dtype] = max(at_n["r2c", dtype],
+                                         pair_err(got, ref))
+                got = real_fft.irfft_minor(br, bi, n=n, scale=scale)
+                ref = real_fft.irfft_minor_reference(br, bi, n=n,
+                                                     scale=scale)
+                _hold(worst, "c2r", dtype, got, ref, what)
+                at_n["c2r", dtype] = max(at_n["c2r", dtype],
+                                         norm_err(got, ref))
+        print(f"  r2c and c2r n={n} ({real_fft.form(n)} form): max "
+              "normalized error " + ", ".join(
+                  f"{k} {str(d)[6:]} {at_n[k, d]:.3e}" for k, d in at_n))
     for n_in, n in PADS:
         for dtype in dtypes:
             xr, xi = _planes((257, n_in), dtype, seed=n_in)
@@ -1004,6 +1015,11 @@ def phase_real_times(k1_ms: float) -> dict:
                                                       scale=1.0 / n), nb,
                flops=_fft_flops(n, rows, real=True),
                library=lambda: torch.fft.irfft(xc, n=n))
+    t_stage = _time_ms(lambda: real_fft.irfft_minor(
+        hr, hi, n=n, scale=1.0 / n, stages=True))
+    print(f"  c2r ({rows}, {n}): {real_fft.form(n)} form "
+          f"{out['c2r']['ms']:.4f} ms, the stage form (kept in the library) "
+          f"{t_stage:.4f} ms, ratio {out['c2r']['ms'] / t_stage:.3f}")
     out["r2c"]["vs_k1"] = out["r2c"]["ms"] / k1_ms
     yr, yi = real_fft.rfft_minor(x, scale=1.0)
     inter = _time_ms(lambda: torch.complex(yr, yi))
@@ -1044,6 +1060,27 @@ def phase_real_times(k1_ms: float) -> dict:
               f"torch.fft.rfft {t_l:.4f} ms, copy floor {t_c:.4f} ms; vs "
               f"plain normalized {err:.3e}")
         del x
+    # K8 alone at the same rows: the line form, its stage form, irfft
+    for rows, n in REAL_LINE_SHAPES:
+        hr, hi = _device_planes((rows, n // 2 + 1), seed=n + 1)
+        hc = torch.complex(hr, hi)
+        got = real_fft.irfft_minor(hr, hi, n=n, scale=1.0 / n)
+        ref = real_fft.irfft_minor_reference(hr, hi, n=n, scale=1.0 / n)
+        err = norm_err(got, ref)
+        check(err < F32_TOL, f"c2r ({rows}, {n}): kernel vs plain {err:.3e}")
+        del got, ref
+        nb = f32 * (rows * n + 2 * rows * (n // 2 + 1))
+        t_k = _time_ms(lambda: real_fft.irfft_minor(hr, hi, n=n,
+                                                    scale=1.0 / n))
+        t_s = _time_ms(lambda: real_fft.irfft_minor(hr, hi, n=n,
+                                                    scale=1.0 / n,
+                                                    stages=True))
+        t_l = _time_ms(lambda: torch.fft.irfft(hc, n=n))
+        print(f"  c2r alone ({rows}, {n}) ({real_fft.form(n)} form): kernel "
+              f"{t_k:.4f} ms ({nb / 1e9 / (t_k * 1e-3):.0f} GB/s), stage "
+              f"form {t_s:.4f} ms, torch.fft.irfft {t_l:.4f} ms, copy floor "
+              f"{_copy_floor_ms(nb):.4f} ms; vs plain normalized {err:.3e}")
+        del hr, hi, hc
     # rfft (1000000, 93), odd n
     rows, n = 1_000_000, 93
     m1 = n // 2 + 1
@@ -1601,7 +1638,9 @@ def phase_stft_kernels() -> None:
         frame_cases.append((batch, hop, nseg, detrend, nfft,
                             spectral._frame_tables(win, nfft, 0.5, cuda)))
         w = spectral._frame_tables(win, nfft, 1.0, cuda)[0]
-        ar, ai = spectral._tables("istft", win, nperseg, nfft, 1.0, cuda)
+        # K14's operands: the window and c = 0.5; the dense body's matrix
+        syn = spectral._frame_tables(win, nfft, 0.5, cuda)
+        ar, ai = spectral._tables("istft", win, nperseg, nfft, 0.5, cuda)
         m1 = nfft // 2 + 1
         n_sig = (nseg - 1) * hop + nperseg + hop - 1
         for dtype in (torch.float32, torch.bfloat16):
@@ -1612,8 +1651,17 @@ def phase_stft_kernels() -> None:
             # both sides read the same (bf16: the same rounded) values and
             # compute in f32: the f32 limit holds for either storage
             hold_k15(what, x, y, w, nfft, detrend, hop)
-            hold("istft", what, stft_mm.istft_ola(zr, zi, ar, ai, hop),
-                 stft_mm.istft_ola_reference(zr, zi, ar, ai, hop))
+            ref = stft_mm.istft_frames_reference(zr, zi, *syn, nfft, hop)
+            got = stft_mm.istft_frames(zr, zi, *syn, nfft, hop)
+            again = stft_mm.istft_frames(zr, zi, *syn, nfft, hop)
+            check(torch.equal(got, again), f"istft {what}: two runs differ")
+            hold("istft", what, got, ref)
+            err = norm_err(stft_mm.istft_ola(zr, zi, ar, ai, hop), ref)
+            worst["istft_dense"] = max(worst.get("istft_dense", 0.0), err)
+            check(err < F32_TOL, f"istft dense body {what}: {err:.3e}")
+        print(f"  istft (K14) batch {batch} nperseg {nperseg} hop {hop} nfft "
+              f"{nfft} nseg {nseg}: {stft_mm.istft_form(nfft)} form, and "
+              "the dense body, vs plain")
     for batch, nperseg, hop, nfft, nseg, detrend in K13_CASES:
         win = scipy.signal.get_window("hann", nperseg)
         frame_cases.append((batch, hop, nseg, detrend, nfft,
@@ -1636,7 +1684,7 @@ def phase_stft_kernels() -> None:
                 # K15 on K13's cases (the window the stft case's, c = 1)
                 hold_k15(what, x, y, w, nfft, detrend, hop)
     torch.cuda.synchronize()
-    for k in STFT_KERNELS:
+    for k in STFT_KERNELS + ("istft_dense",):
         print(f"{k} vs plain (f32 and bf16 signals): max normalized error "
               f"{worst[k]:.3e} (tol {F32_TOL})")
     print(f"stft (K13) cases: {len(frame_cases)} x f32/bf16, among them odd "
@@ -1789,23 +1837,33 @@ def phase_spectral_times() -> dict:
                f32 * (xe.numel() + out_floats),
                _fft_flops(nperseg, nseg * batch, real=True),
                "torch.stft(center=False)")
-    # K14 at the istft path's shape
+    # K14 at the istft path's shape, with the path's operands (the window,
+    # c = the stft unscale, nfft)
     zr, zi = stft_mm.stft_frames(xe, *frame_args)
     zc = torch.complex(zr, zi).transpose(1, 2)
+    unscale = float(win.sum().item())
+    syn = spectral._frame_tables(win.cpu().numpy(), nperseg, unscale,
+                                 torch.device("cuda"))
     ar, ai = spectral._tables("istft", win.cpu().numpy(), nperseg, nperseg,
-                              float(win.sum().item()), torch.device("cuda"))
+                              unscale, torch.device("cuda"))
     n_out = (nseg - 1) * hop + nperseg
     # least work: the planes read once, the signal written once; an
     # inverse real FFT a segment, its window and its overlap-add (2 flops a
     # sample), far below the bytes
     kernel_row("istft", (batch, nseg, m1, hop),
-               lambda: stft_mm.istft_ola(zr, zi, ar, ai, hop),
-               lambda: stft_mm.istft_ola_reference(zr, zi, ar, ai, hop),
+               lambda: stft_mm.istft_frames(zr, zi, *syn, nperseg, hop),
+               lambda: stft_mm.istft_frames_reference(zr, zi, *syn, nperseg,
+                                                      hop),
                lambda: torch.istft(zc, 256, hop, window=win32, center=True),
                f32 * (out_floats + batch * n_out),
                _fft_flops(nperseg, nseg * batch, real=True)
                + 2.0 * nperseg * nseg * batch,
                "torch.istft(center=True)")
+    t_dense = _time_ms(lambda: stft_mm.istft_ola(zr, zi, ar, ai, hop))
+    print(f"  istft (K14) {(batch, nseg, m1, hop)}: "
+          f"{stft_mm.istft_form(nperseg)} form {out['istft']['ms']:.4f} ms, "
+          f"the dense body (kept in the library) {t_dense:.4f} ms, ratio "
+          f"{out['istft']['ms'] / t_dense:.3f}")
     del zr, zi, zc
     # K15 at welch's shape (x as it is: no extension, no padding); least
     # work: the signal(s) read once, a real FFT a frame (two for csd) and a
@@ -1844,12 +1902,19 @@ def phase_spectral_times() -> dict:
         128, None, 64, 1 + (xp.shape[1] - 128) // 64)
     yr, yi = stft_mm.stft_frames(xp, *sft_args)
     t64 = {"K13": _time_ms(lambda: stft_mm.stft_frames(xp, *sft_args))}
-    sa_r, sa_i = sft._device_tables(("istft",), sft._fused_istft_matrix,
-                                    x.device)
-    t64["K14"] = _time_ms(lambda: stft_mm.istft_ola(yr, yi, sa_r, sa_i, 64))
+    sft_syn = sft._synthesis_tables(x.device)
+
+    def sft_matrix():
+        return sft._device_tables(("istft",), sft._fused_istft_matrix,
+                                  x.device)
+
+    t64["K14"] = _time_ms(lambda: stft_mm.istft_frames(
+        yr, yi, *sft_syn, sft._mfft, 64, sft_matrix))
+    t64["K14 form"] = stft_mm.istft_form(sft._mfft)
     print(f"  hop 64, m_num 128 on {tuple(xp.shape)} ({yr.shape[1]} "
-          f"slices): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
-                                   t64.items()))
+          f"slices): " + ", ".join(
+              f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
+              for k, v in t64.items()))
     del yr, yi, xp, xe, x, y
     torch.cuda.synchronize()
     return out
@@ -2671,7 +2736,7 @@ def main() -> None:
                      total["r2r"], dense_rows["r2r"], rate, peak),
         _entry("stft_frames (K13)", "stft_mm.cu", f"{mx}:755",
                total["stft"], stft_rows["stft"], rate, peak),
-        _entry("istft_ola (K14)", "stft_mm.cu", f"{mx}:884",
+        _entry("istft_frames (K14)", "stft_mm.cu", f"{mx}:884",
                total["istft"], stft_rows["istft"], rate, peak),
         _entry("welch_accum (K15)", "stft_mm.cu", f"{mx}:1008",
                total["welch"] + total["csd"], stft_rows["welch"], rate,

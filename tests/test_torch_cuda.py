@@ -773,6 +773,82 @@ def test_real_line_form_misaligned_views(cuda_device):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", LINE_BATCHES + ["past_grid"])
+@pytest.mark.parametrize("n", REAL_LINE_NS)
+def test_irfft_line_form_matches_plain_version(n, batch, dtype, tol,
+                                               cuda_device):
+    """K8's line form against its plain version on ragged batches and on
+    one that makes each block loop over several row groups, scale 1 and
+    1/n, planes with nonzero imaginary parts at DC and Nyquist: one launch
+    a call, no run of a plain version inside it; and the stage form, kept
+    in the library, gives the same result."""
+    assert real_fft.form(n) == "lines"
+    if batch == "past_grid":
+        batch = _past_one_grid(n)
+    hr, hi = _planes((batch, n // 2 + 1), cuda_device, dtype, seed=n + batch)
+    zero = torch.zeros(batch, n, device=cuda_device)
+    for scale in (1.0, 1.0 / n):
+        before = real_fft.launches["c2r"]
+        plain = real_fft.reference_cuda_calls
+        got = real_fft.irfft_minor(hr, hi, n=n, scale=scale)
+        assert real_fft.launches["c2r"] == before + 1
+        assert real_fft.reference_cuda_calls == plain
+        ref = real_fft.irfft_minor_reference(hr, hi, n=n, scale=scale)
+        stages = real_fft.irfft_minor(hr, hi, n=n, scale=scale, stages=True)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (batch, n)
+        assert _err((got, zero), (ref, zero)) < tol
+        assert _err((got, zero), (stages, zero)) < tol
+
+
+@pytest.mark.parametrize("n", REAL_LINE_NS)
+def test_irfft_line_form_edge_values(n, cuda_device):
+    """Edge-value rows through K8's line form (``_fft_edge_rows`` on the
+    half-spectrum planes): the rows holding Inf or NaN come out non-finite
+    in the kernel and in the plain version alike, no row without such an
+    input does but the 3.4e38 row (which may overflow in the tangle's
+    sums), and the other rows, 1e-20 and 1e18 among them, are within 1e-5
+    of the plain version relative to their own magnitude, as is the
+    3.4e38 row where it stays finite."""
+    hr, hi = _fft_edge_rows(*_planes((257, n // 2 + 1), cuda_device, seed=n))
+    got = real_fft.irfft_minor(hr, hi, n=n, scale=1.0 / n)
+    ref = real_fft.irfft_minor_reference(hr, hi, n=n, scale=1.0 / n)
+    torch.cuda.synchronize()
+    for out in (got, ref):
+        bad = (~torch.isfinite(out)).any(1)
+        assert bad[:3].all() and not bad[4:].any()
+    zero = torch.zeros_like(got)
+    assert _complex_row_err((got[4:], zero[4:]), (ref[4:], zero[4:])) < 1e-5
+    if torch.isfinite(got[3]).all():
+        assert _complex_row_err((got[3:4], zero[3:4]),
+                                (ref[3:4], zero[3:4])) < 1e-5
+
+
+def test_irfft_line_form_views(cuda_device):
+    """K8's line form reads each bin as a 4-byte value: contiguous planes
+    that start 4 and 8 bytes past a 16-byte boundary run in place and
+    match the plain version; a strided view of the planes (rows of a wider
+    array) is refused, not copied."""
+    n, m1 = 1024, 513
+    flat = torch.randn(2, 2 + 33 * m1, device=cuda_device)
+    for off in (1, 2):
+        hr, hi = (f[off:off + 33 * m1].view(33, m1) for f in flat)
+        assert hr.is_contiguous() and hr.data_ptr() % 16 == 4 * off
+        before = real_fft.launches["c2r"]
+        got = real_fft.irfft_minor(hr, hi, n=n, scale=1.0 / n)
+        assert real_fft.launches["c2r"] == before + 1
+        ref = real_fft.irfft_minor_reference(hr, hi, n=n, scale=1.0 / n)
+        torch.cuda.synchronize()
+        zero = torch.zeros_like(got)
+        assert _err((got, zero), (ref, zero)) < 1e-5
+    wide = torch.randn(33, m1 + 7, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        real_fft.irfft_minor(wide[:, :m1], wide[:, 7:], n=n, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("n_in,n", [(93, 128), (1000, 1024), (5000, 8192),
                                     (1, 16), (8191, 16384)])
 def test_padded_kernel_matches_plain_version(n_in, n, dtype, tol,
@@ -1316,6 +1392,80 @@ def test_stft_wrappers_check_their_operands(cuda_device):
     z = torch.zeros(2, 7, 65, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of hop"):
         stft_mm.istft_ola(z, z, mr.T.contiguous(), mr.T.contiguous(), 48)
+
+
+# K14 (batch, nperseg, hop, nfft, nseg): chip_smoke.py's STFT_KERNEL_CASES
+# (hops 128, 64, 32, nperseg 128 to 1024, nfft > nperseg, nfft 200 on the
+# dense body), one segment, fewer segments than one block's run, hop 1 at
+# nperseg 256 (K = 256, several blocks a row), and a hop that is not a
+# multiple of 4 (the line form's scalar overlap-add)
+ISTFT_CASES = [(3, 256, 128, 256, 300), (1, 128, 64, 128, 1000),
+               (70, 128, 64, 200, 131), (3, 1024, 256, 1024, 37),
+               (5, 256, 128, 512, 129), (2, 128, 32, 128, 500),
+               (4, 256, 128, 256, 1), (3, 256, 64, 512, 20),
+               (1, 256, 1, 256, 9000), (2, 252, 6, 256, 300)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch,nperseg,hop,nfft,nseg", ISTFT_CASES)
+def test_istft_frames_match_plain_version(batch, nperseg, hop, nfft, nseg,
+                                          dtype, cuda_device):
+    """K14 on its form (``istft_form``: the line form at nfft 256 to 1024,
+    the dense body elsewhere) and on the dense body with the same function
+    as a matrix (``istft_ola``), each against the plain version to 1e-5
+    (both compute in f32 from the same, bf16: the same rounded, planes): a
+    random window and complex per-bin factor, one launch a call, no plain
+    version inside it, and two runs give the same bits."""
+    m1 = nfft // 2 + 1
+    zr, zi = _planes((batch, nseg, m1), cuda_device, dtype, seed=nseg)
+    g = np.random.default_rng(nperseg + nfft)
+    win = torch.from_numpy(g.uniform(0.1, 1.0, nperseg).astype(
+        np.float32)).to(cuda_device)
+    c = np.exp(2j * np.pi * g.uniform(size=m1)) * g.uniform(0.5, 2.0, m1)
+    cr, ci = (torch.from_numpy(p.astype(np.float32)).to(cuda_device)
+              for p in (c.real, c.imag))
+    args = (win, cr, ci, nfft, hop)
+    stft_mm.reset_counts()
+    got = stft_mm.istft_frames(zr, zi, *args)
+    again = stft_mm.istft_frames(zr, zi, *args)
+    assert stft_mm.launches["istft"] == 2
+    assert stft_mm.reference_cuda_calls == 0
+    ref = stft_mm.istft_frames_reference(zr, zi, *args)
+    A = stft_mm.synthesis_matrix(win.double().cpu().numpy(),
+                                 cr.double().cpu().numpy()
+                                 + 1j * ci.double().cpu().numpy(), nfft)
+    ar, ai = (torch.as_tensor(p, dtype=torch.float32, device=cuda_device)
+              for p in (A.real, A.imag))
+    dense = stft_mm.istft_ola(zr, zi, ar, ai, hop)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, (nseg - 1) * hop + nperseg)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _rel(got, ref) < 1e-5
+    assert _rel(dense, ref) < 1e-5
+
+
+def test_istft_form_matches_the_library(cuda_device):
+    """``istft_form`` mirrors the form the library picks at each nfft."""
+    from tpufft_torch import _build
+    lib = _build.load()
+    for nfft in range(2, stft_mm.MAX_FRAME_NFFT + 1):
+        assert bool(lib.tpufft_istft_line_form(nfft)) == (
+            stft_mm.istft_form(nfft) == "lines"), nfft
+
+
+def test_istft_frames_check_their_operands(cuda_device):
+    z = torch.zeros(2, 7, 129, device=cuda_device)
+    win, c = (torch.ones(k, device=cuda_device) for k in (256, 129))
+    with pytest.raises(ValueError, match="multiple of hop"):
+        stft_mm.istft_frames(z, z, win, c, c, 256, 48)
+    with pytest.raises(ValueError, match="bins for nfft"):
+        stft_mm.istft_frames(z, z, win, c, c, 512, 128)
+    with pytest.raises(ValueError, match="tables must be float32 on"):
+        stft_mm.istft_frames(z, z, win.cpu(), c, c, 256, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        stft_mm.istft_frames(z[:, ::2], z[:, ::2], win, c, c, 256, 128)
 
 
 # (batch, nperseg, hop, nfft, nseg, offset): the stft path's hop 128 and

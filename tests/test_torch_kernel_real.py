@@ -371,3 +371,147 @@ def test_form_across_the_envelope():
     assert [real_fft.form(n) for n in (128, 254, 256, 480, 8192, 16384,
                                        32768)] == [
         "stages", "stages", "lines", "stages", "lines", "stages", "stages"]
+
+
+# ----------------------------------------------------------------------------
+# K8's line form (the same lengths): the inverse-real line core of
+# csrc/real_fft.cuh
+# ----------------------------------------------------------------------------
+
+def _inverse_line_model(xr, xi, scale):
+    """K8's line form in torch ops (complex64, f32 arithmetic) with the
+    kernel's indexing: the tangle of each pair k < m/2, Z'[k] = (X[k] +
+    conj X[m-k]) + i conj(W^k) (X[k] - conj X[m-k]) and Z'[m-k] = (X[m-k] +
+    conj X[k]) - i W^k (X[m-k] - conj X[k]) with the Nyquist bin as X[m]
+    and the imaginary parts of DC and Nyquist dropped, Z'[m/2] = 2 conj
+    X[m/2]; the inverse N1-long DFTs of the columns j2 of the (N1, N2) view
+    of Z' (table exponents k1 j1 N2), the twiddle w^(k1 j2), the N2-long
+    DFTs of the rows k1 (exponents k2 j2 N1), giving z'[k1 + N1 k2] =
+    (x[2j], x[2j+1]); scaled once."""
+    m1 = xr.shape[1]
+    m = m1 - 1
+    n, half = 2 * m, m // 2
+    n1, n2 = minor_fft.line_split(m)
+    cpu = torch.device("cpu")
+    tab = minor_fft._device_twiddles(m, True, cpu)
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    hw = real_fft._device_half_twiddle(n, cpu)
+    big_w = torch.complex(hw[:, 0], hw[:, 1])
+    X = torch.complex(torch.from_numpy(xr), torch.from_numpy(xi))
+    X[:, 0] = X[:, 0].real.to(X.dtype)
+    X[:, m] = X[:, m].real.to(X.dtype)
+    ks = torch.arange(half)
+    a, b = X[:, ks], X[:, m - ks]
+    wk = big_w[:half]
+    zp = torch.zeros(X.shape[0], m, dtype=X.dtype)
+    zp[:, ks] = (a + b.conj()) + 1j * wk.conj() * (a - b.conj())
+    zp[:, (m - ks[1:])] = ((b + a.conj()) - 1j * wk * (b - a.conj()))[:, 1:]
+    zp[:, half] = 2 * X[:, half].conj()
+    z = zp.reshape(-1, n1, n2)                          # [b, j1, j2]
+    k1 = torch.arange(n1)
+    k2 = torch.arange(n2)
+    y = torch.einsum("kj,bjm->bkm", w[(k1[:, None] * k1[None, :] * n2) % m],
+                     z)                                 # [b, k1, j2]
+    y = y * w[(k1[:, None] * k2[None, :]) % m]          # w^(k1 j2)
+    zz = torch.einsum("qm,bkm->bkq",
+                      w[(k2[:, None] * k2[None, :] * n1) % m], y)
+    out = torch.zeros(X.shape[0], m, dtype=X.dtype)
+    out[:, (k1[:, None] + n1 * k2[None, :]).reshape(-1)] = zz.reshape(-1, m)
+    out = out * scale
+    return torch.stack([out.real, out.imag], -1).reshape(-1, n).numpy()
+
+
+@pytest.mark.parametrize("unit_scale", [True, False],
+                         ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("n", LINE_NS)
+def test_inverse_line_form_model_matches_tpufft(n, unit_scale):
+    """K8's line form's arithmetic against tpufft's ``_build_minor_c2r`` in
+    interpret mode where tpufft takes n (up to 1024), and against
+    ``np.fft.irfft`` in float64 above; random planes, so that the
+    imaginary parts at DC and Nyquist are not zero and must be ignored."""
+    assert real_fft.form(n) == "lines"
+    scale = 1.0 if unit_scale else 1.0 / n
+    m1 = n // 2 + 1
+    xr, xi = _real((BATCH, m1), n + 3), _real((BATCH, m1), n + 4)
+    got = _inverse_line_model(xr, xi, scale)
+    if n <= 1024:
+        ref = _irfft_both(xr, xi, n, scale, "f32")[1]
+    else:
+        ref = np.fft.irfft(xr.astype(np.float64) + 1j * xi, n=n) * n * scale
+    assert _err(got, ref) < 1e-5
+
+
+def _tangle_tile_accesses(n):
+    """Per warp instruction of a team, the lanes' tile positions (float2)
+    and the elements (row, j) of Z' they carry, indexed as
+    ``tpufft_real::tangle`` and ``inverse_passes`` index them at n = 2m:
+    the tangle's two writes of each of its instructions (lane t, e = t +
+    lanes i, r = e / (m/2), k = e mod (m/2): Z'[k] at r m + k, then Z'[m -
+    k] at r m + m - k, or Z'[m/2] at r m + m/2 in the lane of k = 0), and
+    pass 1's reads of the columns (lane t holds lines t + 32 W s, or for
+    N1 = 64 line (t mod 16) + 16 (t / 32) on the pair t, t ^ 16 with
+    register j at j1 = p + 2j): r m + N2 j1 + j2. Also the bins each
+    tangle instruction reads from the planes: (row, k) of X."""
+    m = n // 2
+    geo = minor_fft.line_geometry(m)
+    n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
+    lanes, rows, half = 32 * tw, geo["rows"], m // 2
+    writes, reads, loads = [], [], []
+    for w in range(tw):
+        for i in range(rows * half // lanes):
+            first, second, lo, hi = [], [], [], []
+            for t in range(32 * w, 32 * w + 32):
+                row, k = divmod(t + lanes * i, half)
+                first.append((row * m + k, (row, k)))
+                j = half if k == 0 else m - k
+                second.append((row * m + j, (row, j)))
+                lo.append((row, k))
+                hi.append((row, m - k))
+            writes += [first, second]
+            loads += [lo, hi]
+        for s in range(1 if n1 == 64 else 32 // n1):
+            for j in range(32 if n1 == 64 else n1):
+                acc = []
+                for t in range(32 * w, 32 * w + 32):
+                    p = (t >> 4) & 1
+                    line = ((t & 15) + 16 * (t >> 5) if n1 == 64
+                            else t + lanes * s)
+                    row, j2 = divmod(line, n2)
+                    j1 = p + 2 * j if n1 == 64 else j
+                    acc.append((row * m + n2 * j1 + j2, (row, n2 * j1 + j2)))
+                reads.append(acc)
+    return geo, writes, reads, loads
+
+
+@pytest.mark.parametrize("n", LINE_NS)
+def test_tangle_tile_mapping(n):
+    """The tangle's round trip through the team's tile: every Z'[j] of the
+    team's rows is written once, at distinct positions that fill the tile;
+    pass 1 reads each back once from where it was written; each half warp
+    of every write and read instruction touches 16 distinct bank pairs
+    (8-byte values: position mod 16), with Z' in natural order and no
+    swizzle; and each load instruction reads 32 consecutive bins of one
+    row of a plane, ascending (k) or descending (m - k), the lane of k = 0
+    taking the Nyquist bin."""
+    geo, writes, reads, loads = _tangle_tile_accesses(n)
+    m = n // 2
+    where = {}
+    for acc in writes:
+        for p, e in acc:
+            assert e not in where
+            where[e] = p
+    assert sorted(where.values()) == list(range(geo["rows"] * m))
+    seen = {}
+    for acc in reads:
+        for p, e in acc:
+            assert where[e] == p
+            seen[e] = seen.get(e, 0) + 1
+    assert set(seen) == set(where) and set(seen.values()) == {1}
+    for acc in writes + reads:
+        for half in (acc[:16], acc[16:]):
+            assert len({p % 16 for p, _ in half}) == 16, (n, half)
+    for lo, hi in zip(loads[::2], loads[1::2]):
+        assert len({r for r, _ in lo + hi}) == 1
+        assert [k for _, k in lo] == list(range(lo[0][1], lo[0][1] + 32))
+        assert [k for _, k in hi] == list(range(hi[0][1], hi[0][1] - 32, -1))
+        assert hi[0][1] <= m

@@ -56,7 +56,8 @@ STORE = "      if (row < batch) {\n        const int64_t out = row * (m + 1);\n"
 UNROLL = "#pragma unroll (kUnroll)\n"
 MIRROR = ("        store_f(yr, out + m - k, hs * (s.x - wd.y));\n"
           "        store_f(yi, out + m - k, -hs * (s.y + wd.x));\n")
-BOUND = "__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))\n"
+BOUND = ("__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))"
+         "\nrfft_lane_kernel(")
 
 
 def variants() -> dict:

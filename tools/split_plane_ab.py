@@ -27,9 +27,14 @@ calls, in ms:
 - K7 at the ends of its line form, (400000, 256) and (12500, 8192) f32,
   each beside ``torch.fft.rfft`` of it (``rfft``), and on its stage form,
   whose code did not change, at (1000000, 93); K8 (irfft, (100000, 513)
-  planes to (100000, 1024)); the ``rfft`` path of real (100000, 1024)
-  rows beside ``torch.fft.rfft`` (``torch_rfft_1024``), and the ``fht``
-  path (``fht(x, 0.05, 0.5)``, K7 + K8) of the same rows;
+  planes to (100000, 1024)), and at the ends of its line form, (400000,
+  129) planes to 256 and (12500, 4097) to 8192, each beside
+  ``torch.fft.irfft`` of it (``irfft``), and on its stage form at
+  (1000000, 47) planes to 93; the ``rfft`` path of real (100000, 1024)
+  rows beside ``torch.fft.rfft`` (``torch_rfft_1024``), the ``irfft``
+  path of c64 (100000, 513) rows beside ``torch.fft.irfft``
+  (``torch_irfft_1024``), and the ``fht`` path (``fht(x, 0.05, 0.5)``,
+  K7 + K8) of real (100000, 1024) rows;
 - K13 (``stft_frames``) on (64, 1048832) f32 at nperseg 256, hop 128 (the
   ``stft`` path's shape: 1048576 samples extended by 128 a side), beside
   ``torch.stft(center=False)`` of the same frames;
@@ -50,10 +55,13 @@ calls, in ms:
 - the dense kernels at their paths' shapes: K11 (``dense_mm_real``,
   (100000, 512) x (512, 512) f32), K12 (``r2r_minor``, (100000, 1024) x the
   (1024, 1024) DCT-II table), K10 (``dense_mm_complex``, (100000, 512) x
-  (512, 512) c64 planes), and K14 (``istft_ola``) and K15
-  (``welch_accum``, welch and csd) at the spectral paths' shapes, (64,
-  1048576) signals at nperseg 256, hop 128, and the ``welch``, ``csd``
-  and ``coherence`` paths of the same signals (``spectral``);
+  (512, 512) c64 planes), and K14 and K15 (``welch_accum``, welch and
+  csd) at the spectral paths' shapes, (64, 1048576) signals at nperseg
+  256, hop 128, and the ``welch``, ``csd``, ``coherence`` and (with
+  ``K14``) ``istft`` paths of the same signals (``spectral``); K14 runs
+  through whichever API the checkout has (``istft_frames`` with the
+  window and c, else ``istft_ola`` with the matrix of the same
+  function);
 - the paths above K10, K11 and K12, as ``chip_smoke.py`` drives them:
   ``filter_real`` (a low-pass ``plan_filter(512)``, bins |k| <= 64, on
   real (100000, 512) rows), ``filter_complex`` (the same plan on c64
@@ -70,9 +78,9 @@ NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
 K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
-K8, rfft, fht, K13, K4, K4_n2_in, K4_packed, K17, K2, K2_241, K2_93, K3,
-K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10, K14, K15, spectral,
-filter_real, filter_complex, hilbert, dct, dst4)
+K8, K8_256, K8_8192, K8_93, irfft, rfft, fht, K13, K4, K4_n2_in, K4_packed,
+K17, K2, K2_241, K2_93, K3, K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10,
+K14, K15, spectral, filter_real, filter_complex, hilbert, dct, dst4)
 and times those alone. Needs the card.
 """
 
@@ -193,6 +201,26 @@ if want("K8", "rfft", "fht"):
             hr, hi, n=1024, scale=1.0 / 1024))
         del hr, hi
     del x
+for name, shape in (("K8_256", (400000, 256)), ("K8_8192", (12500, 8192)),
+                    ("K8_93", (1000000, 93))):
+    if want(name):
+        n = shape[1]
+        hr = torch.randn(shape[0], n // 2 + 1, generator=g, device="cuda")
+        hi = torch.randn(shape[0], n // 2 + 1, generator=g, device="cuda")
+        rows[name] = median_ms(lambda: real_fft.irfft_minor(
+            hr, hi, n=n, scale=1.0 / n))
+        if name != "K8_93":
+            hc = torch.complex(hr, hi)
+            rows[name + " irfft"] = median_ms(lambda: torch.fft.irfft(hc, n=n))
+            del hc
+        del hr, hi
+if want("irfft"):
+    import tpufft_torch
+    xc = torch.complex(torch.randn(100000, 513, generator=g, device="cuda"),
+                       torch.randn(100000, 513, generator=g, device="cuda"))
+    rows["irfft"] = median_ms(lambda: tpufft_torch.irfft(xc, n=1024))
+    rows["torch_irfft_1024"] = median_ms(lambda: torch.fft.irfft(xc, n=1024))
+    del xc
 
 x = torch.randn(64, 1048832, generator=g, device="cuda")
 nperseg, hop = 256, 128
@@ -322,10 +350,20 @@ if want("K14", "K15", "spectral"):
         args = spectral._frame_tables(win, 256, 1.0 / win.sum(), dev) + (
             256, None, 128, nseg)
         zr, zi = stft_mm.stft_frames(xe, *args)
-        ar, ai = spectral._tables("istft", win, 256, 256, float(win.sum()),
-                                  dev)
-        rows["K14"] = median_ms(lambda: stft_mm.istft_ola(zr, zi, ar, ai,
-                                                          128))
+        if hasattr(stft_mm, "istft_frames"):
+            syn = spectral._frame_tables(win, 256, float(win.sum()), dev)
+            rows["K14"] = median_ms(lambda: stft_mm.istft_frames(
+                zr, zi, *syn, 256, 128))
+        else:
+            ar, ai = spectral._tables("istft", win, 256, 256,
+                                      float(win.sum()), dev)
+            rows["K14"] = median_ms(lambda: stft_mm.istft_ola(zr, zi, ar, ai,
+                                                              128))
+        if want("spectral"):
+            import tpufft_torch
+            Z = torch.complex(zr, zi).transpose(1, 2)
+            rows["istft"] = median_ms(lambda: tpufft_torch.istft(Z))
+            del Z
         del xe, zr, zi
     if want("K15"):
         if "win" in inspect.signature(stft_mm.welch_accum).parameters:

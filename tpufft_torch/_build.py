@@ -228,6 +228,8 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_irfft.restype = i32
+    lib.tpufft_irfft_stages.argtypes = lib.tpufft_irfft.argtypes
+    lib.tpufft_irfft_stages.restype = i32
     lib.tpufft_dense_mm_complex.argtypes = [
         vp, vp, vp, vp, vp,          # xr, xi, wr, wi, block table wb
         vp, vp,                      # yr, yi
@@ -259,6 +261,16 @@ def load() -> ctypes.CDLL:
         i32, vp,                     # bf16 storage, cudaStream_t
     ]
     lib.tpufft_istft_ola.restype = i32
+    lib.tpufft_istft_frames.argtypes = [
+        vp, vp, vp, vp, vp,          # zr, zi, window, cr, ci
+        vp, vp,                      # inverse w_m and half-length tables
+        vp, vp, vp,                  # ar, ai (the dense body's; or None), out
+        i64, i32, i32, i32, i32,     # batch, nseg, hop, nperseg, nfft
+        i32, vp,                     # bf16 storage, cudaStream_t
+    ]
+    lib.tpufft_istft_frames.restype = i32
+    lib.tpufft_istft_line_form.argtypes = [i32]   # nfft
+    lib.tpufft_istft_line_form.restype = i32
     lib.tpufft_welch_partial_floats.argtypes = [
         i64, i32, i32, i32, i32,     # batch, hop, nseg, nperseg, nfft
         i32, i32,                    # cross, bf16 storage

@@ -30,10 +30,10 @@
 //   extends the half spectrum Hermitian-wise in registers at the load
 //   (X[n-k] = conj X[k]) and stores the real part.
 //
-// K7 has two forms; the host picks one by n (tpufft_rfft; kernels/
-// real_fft.py:form mirrors the choice). K8 has the stage form only.
+// Both kernels have two forms; the host picks one by n (tpufft_rfft,
+// tpufft_irfft; kernels/real_fft.py:form mirrors the choice).
 //
-// The line form (rfft_lane_kernel), for even n = 2m with m a power of two
+// K7's line form (rfft_lane_kernel), for even n = 2m with m a power of two
 // from 128 to 4096 (n = 256 to 8192): the packed row runs K1's line form
 // at length m (minor_fft.cuh: LaneStep, lane_fft, pair_fft, the staged
 // w_m table, blocks looping over row groups), its load reading each pair
@@ -53,6 +53,19 @@
 // (2-byte) access. The XOR keeps pass 2's writes (two rows a half warp at
 // N1 = 8) and the untangle's reads free of bank conflicts
 // (tests/test_torch_kernel_real.py models both).
+//
+// K8's line form (irfft_lane_kernel), at the same n: the inverse-real line
+// core of real_fft.cuh on the same geometry. Lanes on consecutive bins k <
+// m/2 read X[k] and X[m - k] of each plane (an ascending and a descending
+// run, 4-byte loads: rows of m + 1 bins start unaligned), tangle them into
+// Z'[k] and Z'[m - k] in the team's tile, and after one team barrier the
+// inverse four-step runs at m with pass 1 reading the tile; pass 2 leaves
+// z'[j] = (y[2j], y[2j+1]) in registers, lanes on consecutive j, and each
+// pair is stored as one 8-byte (bf16: 4-byte) value, so that a warp's
+// store instruction writes 256 consecutive bytes. What bounds it on the
+// H100 is what bounds K7's line form, the bytes: its stores are whole
+// aligned lines, and its reads are the unaligned 4-byte runs that K7's
+// stores are.
 //
 // The stage form (rfft_kernel, irfft_kernel), for every other length:
 // rows are packed to blocks exactly as K1's stage form packs them
@@ -353,6 +366,58 @@ irfft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
+// K8's line form at n = 2m, m = N1 N2 (the header's K8 line form): block b
+// stages the inverse w_m table, then takes row groups b, b + gridDim.x, ...;
+// team e of a group synthesizes rows [(group teams + e) R, + R) through the
+// inverse-real line core (real_fft.cuh: the tangle of the bins into the
+// tile, K1's inverse four-step at m), and each lane stores its pairs z'[j]
+// times scale as (y[2j], y[2j+1]), one 8-byte (bf16: 4-byte) store each.
+// Rows past the batch compute on zeros and store nothing.
+//
+// Blocks an SM: four of 128 threads (up to 128 registers) where N1 = 32 (n
+// = 1024 to 4096), whose core spills 32-36 bytes under five blocks' bound
+// and ran 9-12 % slower there on the H100 (tools/inverse_phases.py,
+// PERF.md); elsewhere K7's (five of 128 threads, two of 256).
+__host__ __device__ constexpr int kIrfftMinBlocks(int n1, int threads) {
+  return threads == 128 && n1 == 32 ? 4 : kLaneMinBlocks(threads);
+}
+
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads>
+__global__ void __launch_bounds__(kThreads, kIrfftMinBlocks(N1, kThreads))
+irfft_lane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                  T* __restrict__ y, const float2* __restrict__ tw,
+                  const float2* __restrict__ half_tw, int64_t batch,
+                  float scale) {
+  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
+  constexpr int m = S::n, R = S::rows;
+  extern __shared__ float2 tpufft_irfft_lane_smem[];
+  float2* table = tpufft_irfft_lane_smem;
+  const int team = threadIdx.x / S::lanes;
+  const int t = threadIdx.x - team * S::lanes;
+  float2* tile = table + S::table + team * R * m;
+  for (int i = threadIdx.x; i < m; i += kThreads) table[pad(i)] = __ldg(&tw[i]);
+  __syncthreads();
+  const int64_t groups = (batch + S::teams * R - 1) / (S::teams * R);
+  for (int64_t grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const int64_t row0 = (grp * S::teams + team) * R;
+    tpufft_real::tangle<S>(tile, t, half_tw, [&](int r, int k) {
+      const int64_t row = row0 + r;
+      if (row >= batch) return make_float2(0.f, 0.f);
+      const int64_t at = row * (m + 1) + k;
+      return make_float2(load_f(xr, at), load_f(xi, at));
+    });
+    typename tpufft_real::LineCore<S>::Out v;
+    tpufft_real::inverse_passes<S>(tile, table, team, t, v);
+    tpufft_real::for_each_pair<S>(t, v, [&](int r, int j, float2 z) {
+      const int64_t row = row0 + r;
+      if (row < batch)
+        store_pair(y, row * (2 * m) + 2 * j,
+                   make_float2(z.x * scale, z.y * scale));
+    });
+    team_sync<kTeamWarps>(team);  // the tile is read before it is rewritten
+  }
+}
+
 // Dynamic shared memory of a block: the stage buffer, plus the Nyquist
 // bins of the packed irfft.
 inline size_t smem_bytes(const Geometry& g, bool nyquist) {
@@ -377,25 +442,21 @@ int launch_r2c(const void* x, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// K7's line form at m = N1 N2: a grid of at most the blocks the card holds
-// at once (each stages the table once and loops over row groups).
-template <typename T, int N1, int N2, int kTeamWarps, int kThreads>
-int launch_r2c_lane(const void* x, void* yr, void* yi, const void* tw,
-                    const void* half_tw, long long batch, float scale,
-                    cudaStream_t stream) {
-  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
-  auto* kernel = rfft_lane_kernel<T, N1, N2, kTeamWarps, kThreads>;
+// A line-form kernel (K7's or K8's) on geometry S: a grid of at most the
+// blocks the card holds at once, each staging the table once and looping
+// over row groups.
+template <class S, class Kernel, class... Args>
+int launch_lane(Kernel kernel, long long batch, cudaStream_t stream,
+                Args... args) {
+  constexpr int threads = S::teams * S::lanes;
   constexpr long long rows = S::teams * S::rows;
   unsigned blocks = 0;
   cudaError_t err = allow_smem(kernel, S::smem);
   if (err == cudaSuccess)
-    err = resident_grid(kernel, kThreads, S::smem, (batch + rows - 1) / rows,
+    err = resident_grid(kernel, threads, S::smem, (batch + rows - 1) / rows,
                         &blocks);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, S::smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(yr), static_cast<T*>(yi),
-      static_cast<const float2*>(tw), static_cast<const float2*>(half_tw),
-      (int64_t)batch, scale);
+  kernel<<<blocks, threads, S::smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -407,25 +468,19 @@ inline bool r2c_line_form(int n) {
          (m & (m - 1)) == 0;
 }
 
-// The line form at n = 2m; (N1, N2, warps a team, threads a block) of each
-// four-step at m, as K1's launch_line_form has them at length m.
+// The line form at n = 2m, on tpufft_real::with_line_step's geometry.
 template <typename T>
 int launch_r2c_lines(const void* x, void* yr, void* yi, const void* tw,
                      const void* half_tw, long long batch, int n, float scale,
                      cudaStream_t stream) {
-#define TPUFFT_R2C_LANE(N1, N2, TW, TH)                                  \
-  launch_r2c_lane<T, N1, N2, TW, TH>(x, yr, yi, tw, half_tw, batch, scale, \
-                                     stream)
-  switch (n / 2) {
-    case 128: return TPUFFT_R2C_LANE(8, 16, 1, 128);
-    case 256: return TPUFFT_R2C_LANE(16, 16, 1, 128);
-    case 512: return TPUFFT_R2C_LANE(32, 16, 1, 128);
-    case 1024: return TPUFFT_R2C_LANE(32, 32, 1, 128);
-    case 2048: return TPUFFT_R2C_LANE(32, 64, 2, 128);
-    case 4096: return TPUFFT_R2C_LANE(64, 64, 4, 256);
-  }
-#undef TPUFFT_R2C_LANE
-  return (int)cudaErrorInvalidValue;
+  return tpufft_real::with_line_step(n, [&](auto step) {
+    using S = decltype(step);
+    return launch_lane<S>(
+        rfft_lane_kernel<T, S::N1, S::N2, S::lanes / 32, S::teams * S::lanes>,
+        batch, stream, static_cast<const T*>(x), static_cast<T*>(yr),
+        static_cast<T*>(yi), static_cast<const float2*>(tw),
+        static_cast<const float2*>(half_tw), (int64_t)batch, scale);
+  });
 }
 
 template <typename T, int kThreads, int kPer, int kMinBlocks, bool kPacked>
@@ -464,10 +519,33 @@ int launch_r2c_sized(const void* x, void* yr, void* yi, const void* tw,
                                              plan, g, scale, stream);
 }
 
+// K8's line form at n = 2m, on K7's geometry.
+template <typename T>
+int launch_c2r_lines(const void* xr, const void* xi, void* y, const void* tw,
+                     const void* half_tw, long long batch, int n, float scale,
+                     cudaStream_t stream) {
+  return tpufft_real::with_line_step(n, [&](auto step) {
+    using S = decltype(step);
+    return launch_lane<S>(
+        irfft_lane_kernel<T, S::N1, S::N2, S::lanes / 32, S::teams * S::lanes>,
+        batch, stream, static_cast<const T*>(xr), static_cast<const T*>(xi),
+        static_cast<T*>(y), static_cast<const float2*>(tw),
+        static_cast<const float2*>(half_tw), (int64_t)batch, scale);
+  });
+}
+
+// K8 of the form the host picks (lines: r2c_line_form's lengths), or the
+// stage form at any length (lines false).
 template <typename T, bool kPacked>
 int launch_c2r_sized(const void* xr, const void* xi, void* y, const void* tw,
                      const void* half_tw, long long batch,
-                     const Radices& plan, float scale, cudaStream_t stream) {
+                     const Radices& plan, float scale, bool lines,
+                     cudaStream_t stream) {
+  if constexpr (kPacked) {
+    if (lines && r2c_line_form(2 * plan.n))
+      return launch_c2r_lines<T>(xr, xi, y, tw, half_tw, batch, 2 * plan.n,
+                                 scale, stream);
+  }
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
     return launch_c2r<T, 512, 8, 2, kPacked>(xr, xi, y, tw, half_tw, batch,
@@ -514,16 +592,12 @@ extern "C" int tpufft_rfft(const void* x, void* yr, void* yi, const void* tw,
                                                plan, scale, s);
 }
 
-// irfft of the (batch, n//2+1) planes xr/xi into the real (batch, n) plane
-// y, times scale (scale 1/n is numpy's irfft), on `stream`. tw holds
-// exp(+2 pi i k / L), the inverse table; radices and half_tw as for
-// tpufft_rfft. For even n, y must be 8-byte (f32) or 4-byte (bf16) aligned.
-// Returns 0 or the CUDA error code.
-extern "C" int tpufft_irfft(const void* xr, const void* xi, void* y,
-                            const void* tw, const void* half_tw,
-                            long long batch, int n, const int* radices,
-                            int nstages, float scale, int bf16,
-                            void* stream) {
+namespace {
+
+int irfft_entry(const void* xr, const void* xi, void* y, const void* tw,
+                const void* half_tw, long long batch, int n,
+                const int* radices, int nstages, float scale, int bf16,
+                bool lines, void* stream) {
   Radices plan;
   if (batch < 0 || !real_plan(n, radices, nstages, &plan))
     return (int)cudaErrorInvalidValue;
@@ -532,11 +606,40 @@ extern "C" int tpufft_irfft(const void* xr, const void* xi, void* y,
   const bool even = n % 2 == 0;
   if (bf16)
     return even ? launch_c2r_sized<__nv_bfloat16, true>(
-                      xr, xi, y, tw, half_tw, batch, plan, scale, s)
+                      xr, xi, y, tw, half_tw, batch, plan, scale, lines, s)
                 : launch_c2r_sized<__nv_bfloat16, false>(
-                      xr, xi, y, tw, half_tw, batch, plan, scale, s);
+                      xr, xi, y, tw, half_tw, batch, plan, scale, lines, s);
   return even ? launch_c2r_sized<float, true>(xr, xi, y, tw, half_tw, batch,
-                                              plan, scale, s)
+                                              plan, scale, lines, s)
               : launch_c2r_sized<float, false>(xr, xi, y, tw, half_tw, batch,
-                                               plan, scale, s);
+                                               plan, scale, lines, s);
+}
+
+}  // namespace
+
+// irfft of the (batch, n//2+1) planes xr/xi into the real (batch, n) plane
+// y, times scale (scale 1/n is numpy's irfft), on `stream`. tw holds
+// exp(+2 pi i k / L), the inverse table; radices and half_tw as for
+// tpufft_rfft (the line form, which even n from 256 to 8192 with n/2 a
+// power of two run, ignores the radices). For even n, y must be 8-byte
+// (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA error code.
+extern "C" int tpufft_irfft(const void* xr, const void* xi, void* y,
+                            const void* tw, const void* half_tw,
+                            long long batch, int n, const int* radices,
+                            int nstages, float scale, int bf16,
+                            void* stream) {
+  return irfft_entry(xr, xi, y, tw, half_tw, batch, n, radices, nstages,
+                     scale, bf16, true, stream);
+}
+
+// tpufft_irfft on the stage form at every length: the form that the line
+// form's lengths ran before it, kept for comparison (chip_smoke.py times
+// both).
+extern "C" int tpufft_irfft_stages(const void* xr, const void* xi, void* y,
+                                   const void* tw, const void* half_tw,
+                                   long long batch, int n,
+                                   const int* radices, int nstages,
+                                   float scale, int bf16, void* stream) {
+  return irfft_entry(xr, xi, y, tw, half_tw, batch, n, radices, nstages,
+                     scale, bf16, false, stream);
 }

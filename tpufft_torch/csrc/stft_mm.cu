@@ -14,7 +14,11 @@
 //   K14 build_istft_ola: spectrum planes (batch, nseg, m1) -> the
 //       overlap-added signal (batch, (nseg + K - 1) hop), K = nperseg / hop;
 //       segment s contributes Zr Ar + Zi Ai (A is (m1, nperseg)) at s hop;
-//       unnormalised (the window-sum division stays with the caller);
+//       unnormalised (the window-sum division stays with the caller). The
+//       TPU kernel and the callers' backward take A = the inverse onesided
+//       DFT of c Z (a per-bin complex factor c: the unscale, a phase roll)
+//       truncated to nperseg times a real window; the port's line form
+//       takes the window, c and nfft;
 //   K15 build_welch_accum: the sum over frames of |X_s|^2 (welch), or of
 //       conj(X_s) Y_s as two planes (csd), -> (batch, m1), X_s the spectrum
 //       of K13 with c = 1; the per-frame spectra never reach device memory.
@@ -58,14 +62,42 @@
 //       FFT of x + i y, whose split would leave each spectrum with the
 //       other's rounding error (large where |X| >> |Y|).
 //
-// K14 is still a dense product: the shared-memory SGEMM of tile_mm.cuh (f32
-// FMA, no TF32, as K10), of depth K m1, with an A operand that is never
-// materialised: output chunk c (hop samples) of row b is the sum over taps
-// k < K of Z[b, c - k, :] A[:, k hop : (k + 1) hop]: a product of depth K
-// m1 whose A row at tap k is segment c - k, masked where that segment does
-// not exist. Every output is written once by one thread: no atomics, no
-// scatter-add, the same bits every run. Rows of a batch are gridDim.z
-// there; a batch beyond 65535 rows runs in several launches.
+// K14 on an H100 is bound by bytes too: it reads the planes once (at
+// nfft 256, hop 128: 8.1 bytes a sample) and writes the signal once (4),
+// against an inverse real FFT a segment and one add a sample a segment.
+// A dense product with the host matrix (depth K m1, K = nperseg / hop)
+// is bound by the FP32 FMA peak instead, at 0.13 of the byte bound at
+// nfft 256 on the H100 (PERF.md). So K14 has two forms
+// (tpufft_istft_line_form; kernels/stft_mm.py:istft_form mirrors it):
+//   the line form, for nfft = 256, 512, 1024 (m = nfft / 2 = 128 to 512):
+//       the inverse-real line core of real_fft.cuh (K8's) on K1's geometry
+//       at m, four one-warp teams a block, a team transforming S::rows
+//       segments: a wave of W = 4 S::rows segments. A block takes one row
+//       and a run of output chunks (hop samples each) and computes every
+//       segment that touches them; the first K - 1 are also computed by
+//       the block before it (the halo), and the run is the fewest waves
+//       that keep the halo at most 1/33 of a block's segments (63 chunks
+//       from 64 segments at K = 2, nfft 256). Per segment the tangle reads
+//       the row of Zr/Zi with 4-byte loads and multiplies by c, the core
+//       runs the inverse four-step, and pass 2's pairs z'[j] times the
+//       window pair (w[2j], w[2j+1]) / nfft go back into the team's tile.
+//       After a block barrier each output position of the wave is owned by
+//       one thread, which adds the carry of earlier waves and the wave's
+//       segments covering it in segment order (a 16-byte shared read a
+//       segment and a 16-byte store where hop % 4 == 0), stores it where
+//       its chunk is complete and the block's, and else carries it to the
+//       next wave. Shared memory is the tiles, the tables and two carry
+//       buffers of nperseg floats, whatever K; hop 1 is correct, and slow.
+//   the dense body, for every other nfft: the shared-memory SGEMM of
+//       tile_mm.cuh (f32 FMA, no TF32, as K10's FMA body), of depth K m1,
+//       with an A operand that is never materialised: output chunk c of
+//       row b is the sum over taps k < K of Z[b, c - k, :] A[:, k hop :
+//       (k + 1) hop], masked where that segment does not exist; A is
+//       stft_mm.synthesis_matrix of the same window and c, built by the
+//       wrapper. Rows of a batch are gridDim.z there; a batch beyond 65535
+//       rows runs in several launches.
+// In both, every output is written once by one thread: no atomics, no
+// scatter-add, the same bits every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -533,6 +565,229 @@ int welch_form(int bf16, int nfft, int cross, F&& f) {
 
 }  // namespace k13
 
+// K14's line form (nfft = 2m, m = 128 to 512; the header's K14 notes): the
+// inverse-real line core (real_fft.cuh) on K1's geometry at m, a team of
+// one warp holding S::rows segments, four teams a block: a wave is W =
+// 4 S::rows segments.
+namespace k14 {
+
+using tpufft_fft::Div;
+using tpufft_fft::pad;
+using tpufft_minor::LaneStep;
+
+constexpr int kThreads = 128;
+// the halo's share of a block's segments, at most 1 / kHaloShare
+constexpr int kHaloShare = 33;
+
+template <int N1, int N2>
+using Step = LaneStep<N1, N2, 1, kThreads>;
+
+// A block's shared memory past the table and the wave's tiles: the window
+// pairs (m float2), the factor c (m + 1 float2, padded to m + 2), and two
+// carry buffers of nperseg floats.
+template <int N1, int N2>
+__host__ __device__ constexpr size_t fixed_floats() {
+  using S = Step<N1, N2>;
+  return 2 * ((size_t)S::table + (size_t)S::teams * S::rows * S::n +
+              2 * (size_t)S::n + 2);
+}
+
+// The runs of the block split: a block writes `run` output chunks (hop
+// samples each) from waves * W segments, K - 1 of them its halo (also
+// computed by the block before it), waves the fewest with K - 1 <= waves W
+// / kHaloShare.
+struct Split {
+  int run, runs;
+};
+
+__host__ __device__ inline Split split(int nseg, int taps, int wave) {
+  const int need = kHaloShare * (taps - 1);
+  const int waves = need > wave ? (need + wave - 1) / wave : 1;
+  Split p;
+  p.run = waves * wave - (taps - 1);
+  p.runs = (nseg + taps - 1 + p.run - 1) / p.run;
+  return p;
+}
+
+// Block (b, j) of `runs` a row writes output chunks [c0, c1) of row b, c0 =
+// j run, c1 = min(c0 + run, nseg + K - 1), K = nperseg / hop: the samples
+// [c0 hop, c1 hop) of out[b]. It takes segments s_lo = max(0, c0 - K + 1)
+// .. s_hi = min(c1 - 1, nseg - 1) in waves of W from s_lo; each team
+// transforms its S::rows segments of the wave: the bins times c in the
+// tangle, the core, then each pair z'[j] times the window pair win2[j] =
+// (w[2j], w[2j+1]) / nfft into the team's tile at r m + (j ^ ((N1 r) mod
+// 16)) (as K7 writes Z back: pass 2's writes hit 16 bank pairs a half warp).
+// After a block barrier the overlap-add: the wave covers the positions u <
+// (nw + K - 1) hop from s_a hop (nw segments in the wave), chunk c = u /
+// hop; thread i owns u = i, i + 128, ... (quads of u when hop % 4 == 0: one
+// 16-byte shared read a segment, one 16-byte store) and sums, in segment
+// order, the carry of earlier waves (c < K - 1) and segments q = max(0, c -
+// K + 1) .. min(c, nw - 1) of the wave at sample u - q hop. Chunks c < nw
+// are complete, and so is every chunk of the last wave (when s_hi < nseg - 1
+// the chunks past c1 are another block's): they are stored where they lie
+// in [c0, c1); the rest go to the other carry buffer at u - nw hop, read by
+// the next wave. A block barrier ends the wave. Each output sample is
+// written once, by one thread, as the same ordered sum in every block that
+// could compute it: no atomics, the same bits every run.
+template <typename T, int N1, int N2>
+__global__ void __launch_bounds__(kThreads,
+                                  tpufft_minor::kLaneMinBlocks(kThreads))
+istft_lane_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
+                  const float* __restrict__ win, const float* __restrict__ cr,
+                  const float* __restrict__ ci, const float2* __restrict__ tw,
+                  const float2* __restrict__ half_tw, float* __restrict__ out,
+                  int nseg, int hop, int nperseg, int run, int runs) {
+  using S = Step<N1, N2>;
+  constexpr int m = S::n, R = S::rows, W = S::teams * R;
+  extern __shared__ float4 tpufft_istft_lane_smem[];   // 16-byte aligned
+  float2* table = reinterpret_cast<float2*>(tpufft_istft_lane_smem);
+  float2* tiles = table + S::table;     // segment q of a wave at q m
+  float2* win2 = tiles + W * m;
+  float2* cz = win2 + m;
+  float* carry = reinterpret_cast<float*>(cz + m + 2);
+  const int team = threadIdx.x / S::lanes;
+  const int t = threadIdx.x - team * S::lanes;
+  float2* tile = tiles + team * R * m;
+
+  const int taps = nperseg / hop;
+  const int64_t b = blockIdx.x / runs;
+  const int c0 = (int)(blockIdx.x - b * runs) * run;
+  const int c1 = min(c0 + run, nseg + taps - 1);
+  const int s_lo = max(0, c0 - taps + 1), s_hi = min(c1 - 1, nseg - 1);
+  const int64_t m1 = m + 1;
+  const T* zrb = zr + b * nseg * m1;
+  const T* zib = zi + b * nseg * m1;
+  const int64_t n_out = (int64_t)(nseg - 1) * hop + nperseg;
+  float* outb = out + b * n_out;
+
+  const float inv_n = 1.f / (float)(2 * m);
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    table[pad(i)] = __ldg(&tw[i]);
+    win2[i] = make_float2(2 * i < nperseg ? __ldg(&win[2 * i]) * inv_n : 0.f,
+                          2 * i + 1 < nperseg
+                              ? __ldg(&win[2 * i + 1]) * inv_n
+                              : 0.f);
+  }
+  for (int i = threadIdx.x; i <= m; i += kThreads)
+    cz[i] = make_float2(__ldg(&cr[i]), __ldg(&ci[i]));
+  for (int i = threadIdx.x; i < nperseg; i += kThreads) carry[i] = 0.f;
+  __syncthreads();
+
+  const Div by_hop(hop);
+  const bool quads = hop % 4 == 0;
+  float* old_c = carry;
+  float* new_c = carry + nperseg;
+  const float* seg = reinterpret_cast<const float*>(tiles);
+  // float offset of sample tt of wave segment q (row q mod R of its team)
+  const auto at = [&](int q, int tt) {
+    return 2 * (q * m + ((tt >> 1) ^ ((N1 * (q % R)) & 15))) + (tt & 1);
+  };
+  for (int sa = s_lo; sa <= s_hi; sa += W) {
+    const int nw = min(W, s_hi - sa + 1);
+    const bool last = sa + W > s_hi;
+    tpufft_real::tangle<S>(tile, t, half_tw, [&](int r, int k) {
+      const int q = team * R + r;
+      if (q >= nw) return make_float2(0.f, 0.f);
+      const int64_t i = (int64_t)(sa + q) * m1 + k;
+      return tpufft_fft::cmul(
+          make_float2(tpufft_fft::load_f(zrb, i), tpufft_fft::load_f(zib, i)),
+          cz[k]);
+    });
+    typename tpufft_real::LineCore<S>::Out v;
+    tpufft_real::inverse_passes<S>(tile, table, team, t, v);
+    // the team's lines are read before the windowed pairs land
+    tpufft_minor::team_sync<1>(team);
+    tpufft_real::for_each_pair<S>(t, v, [&](int r, int j, float2 z) {
+      const float2 w = win2[j];
+      tile[r * m + (j ^ ((N1 * r) & 15))] = make_float2(z.x * w.x, z.y * w.y);
+    });
+    __syncthreads();
+    const int span = (nw + taps - 1) * hop;
+    const int64_t base = (int64_t)sa * hop;
+    if (quads) {
+      for (int u = 4 * threadIdx.x; u < span; u += 4 * kThreads) {
+        const int c = by_hop(u);
+        float4 acc = c < taps - 1 ? *reinterpret_cast<const float4*>(old_c + u)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int q = max(0, c - taps + 1); q <= min(c, nw - 1); ++q) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(seg + at(q, u - q * hop));
+          acc.x += x.x;
+          acc.y += x.y;
+          acc.z += x.z;
+          acc.w += x.w;
+        }
+        if (c < nw || last) {
+          if (sa + c >= c0 && sa + c < c1)
+            *reinterpret_cast<float4*>(outb + base + u) = acc;
+        } else {
+          *reinterpret_cast<float4*>(new_c + u - nw * hop) = acc;
+        }
+      }
+    } else {
+      for (int u = threadIdx.x; u < span; u += kThreads) {
+        const int c = by_hop(u);
+        float acc = c < taps - 1 ? old_c[u] : 0.f;
+        for (int q = max(0, c - taps + 1); q <= min(c, nw - 1); ++q)
+          acc += seg[at(q, u - q * hop)];
+        if (c < nw || last) {
+          if (sa + c >= c0 && sa + c < c1) outb[base + u] = acc;
+        } else {
+          new_c[u - nw * hop] = acc;
+        }
+      }
+    }
+    float* swap = old_c;
+    old_c = new_c;
+    new_c = swap;
+    __syncthreads();   // the tiles and the carry are read before the next wave
+  }
+}
+
+template <typename T, int N1, int N2>
+int launch_lines(const T* zr, const T* zi, const float* win, const float* cr,
+                 const float* ci, const float2* tw, const float2* half_tw,
+                 float* out, int64_t batch, int nseg, int hop, int nperseg,
+                 cudaStream_t stream) {
+  using S = Step<N1, N2>;
+  auto* kernel = istft_lane_kernel<T, N1, N2>;
+  const Split p = split(nseg, nperseg / hop, S::teams * S::rows);
+  const size_t smem = (fixed_floats<N1, N2>() + 2 * (size_t)nperseg) * 4;
+  if ((int64_t)batch * p.runs > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = tpufft_fft::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)(batch * p.runs), kThreads, smem, stream>>>(
+      zr, zi, win, cr, ci, tw, half_tw, out, nseg, hop, nperseg, p.run,
+      p.runs);
+  return (int)cudaGetLastError();
+}
+
+// Does an nfft run the line form (m = nfft / 2 a power of two from 128 to
+// 512)?
+inline bool line_form(int nfft) {
+  const int m = nfft / 2;
+  return nfft % 2 == 0 && m >= 128 && m <= 512 && (m & (m - 1)) == 0;
+}
+
+template <typename T>
+int launch_line_form(const T* zr, const T* zi, const float* win,
+                     const float* cr, const float* ci, const float2* tw,
+                     const float2* half_tw, float* out, int64_t batch,
+                     int nseg, int hop, int nperseg, int nfft,
+                     cudaStream_t stream) {
+  return tpufft_real::with_line_step(nfft, [&](auto step) {
+    using S = decltype(step);
+    if constexpr (S::n <= 512)   // line_form's nfft
+      return launch_lines<T, S::N1, S::N2>(zr, zi, win, cr, ci, tw, half_tw,
+                                           out, batch, nseg, hop, nperseg,
+                                           stream);
+    else
+      return (int)cudaErrorInvalidValue;
+  });
+}
+
+}  // namespace k14
+
 namespace {
 
 using namespace tile_mm;
@@ -681,6 +936,57 @@ extern "C" int tpufft_istft_ola(const void* zr, const void* zi,
                       static_cast<const float*>(zi), fr, fi,
                       static_cast<float*>(out), batch, nseg, hop, nperseg, m1,
                       st);
+}
+
+// Is nfft one of K14's line form (1) or the dense body's (0)?
+extern "C" int tpufft_istft_line_form(int nfft) {
+  return k14::line_form(nfft) ? 1 : 0;
+}
+
+// K14 from the synthesis window and a per-bin factor: zr/zi (batch, nseg,
+// nfft/2 + 1) f32 or bf16 (bf16 != 0), out (batch, (nseg - 1) hop +
+// nperseg) f32, 16-byte aligned, nperseg % hop == 0, nperseg <= nfft <=
+// 1024. Segment s of row b contributes, at s hop, its samples t < nperseg
+// of win[t] irfft_nfft(c Z[b, s])[t] (numpy's irfft, 1/nfft: the
+// imaginary parts of c Z at DC and, even nfft, Nyquist ignored), c = cr +
+// i ci. tpufft_istft_line_form(nfft) picks the form: the line form reads
+// win (nperseg), cr/ci (nfft/2 + 1), tw (exp(+2 pi i k / m), k < m = nfft
+// / 2) and half_tw (exp(-2 pi i k / nfft), k <= m); the dense body reads
+// ar/ai (nfft/2 + 1, nperseg) f32, the same function as a matrix
+// (stft_mm.synthesis_matrix), and fails where they are null. Returns 0 or
+// a CUDA error.
+extern "C" int tpufft_istft_frames(const void* zr, const void* zi,
+                                   const void* win, const void* cr,
+                                   const void* ci, const void* tw,
+                                   const void* half_tw, const void* ar,
+                                   const void* ai, void* out, long long batch,
+                                   int nseg, int hop, int nperseg, int nfft,
+                                   int bf16, void* stream) {
+  if (batch < 0 || hop < 1 || nseg < 1 || nperseg < hop ||
+      nperseg % hop != 0 || nfft < 2 || nfft > 1024 || nperseg > nfft ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  if (!k14::line_form(nfft)) {
+    if (ar == nullptr || ai == nullptr) return (int)cudaErrorInvalidValue;
+    return tpufft_istft_ola(zr, zi, ar, ai, out, batch, nseg, hop, nperseg,
+                            nfft / 2 + 1, bf16, stream);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const float*>(win);
+  const auto* c_r = static_cast<const float*>(cr);
+  const auto* c_i = static_cast<const float*>(ci);
+  const auto* t = static_cast<const float2*>(tw);
+  const auto* h = static_cast<const float2*>(half_tw);
+  auto* o = static_cast<float*>(out);
+  if (bf16)
+    return k14::launch_line_form(static_cast<const __nv_bfloat16*>(zr),
+                                 static_cast<const __nv_bfloat16*>(zi), w,
+                                 c_r, c_i, t, h, o, batch, nseg, hop, nperseg,
+                                 nfft, st);
+  return k14::launch_line_form(static_cast<const float*>(zr),
+                               static_cast<const float*>(zi), w, c_r, c_i, t,
+                               h, o, batch, nseg, hop, nperseg, nfft, st);
 }
 
 // Floats of K15's partials for these arguments (see tpufft_welch_frames),

@@ -14,11 +14,12 @@ dense (n, n//2+1) matmuls; the CUDA kernels (``csrc/real_fft.cu``) run an
 even n = 2m as a length-m C2C on the packed row x[2j] + i x[2j+1] with the
 Hermitian untangle fused into the store (rfft) or the load (irfft), and an
 odd n as the length-n C2C of the real row (rfft) or of the Hermitian
-extension (irfft). K7 has two forms (:func:`form`): even n from 256 to
+extension (irfft). Both have two forms (:func:`form`): even n from 256 to
 8192 whose half is a power of two run the line form, K1's four-step at
 length m with each row in registers and one extra pass through the tile
-for the untangle; every other length runs the stage form, one
-shared-memory Stockham pass, as K8 always does. Their envelope
+(K7: the untangle after the passes; K8: the tangle before them, the
+inverse-real line core of ``csrc/real_fft.cuh``); every other length runs
+the stage form, one shared-memory Stockham pass. Their envelope
 (:func:`supported`): an even n whose half is inside K1's envelope
 (n <= 32768), or an odd n inside it (n <= 16383, prime factors <= 127).
 
@@ -79,12 +80,12 @@ def supported(n: int, dtype) -> bool:
 
 
 def form(n: int) -> str | None:
-    """Which form of K7 transforms real rows of length n: ``"lines"`` for
-    even n whose half is a power of two from 128 to ``minor_fft.LINE_MAX_N``
-    (n = 256 to 8192), ``"stages"`` for every other length in the
-    envelope, None outside it. Mirrors ``r2c_line_form`` in
-    ``csrc/real_fft.cu``, which makes the choice at the launch. K8 always
-    runs the stage form."""
+    """Which form of K7 and K8 transforms real rows of length n:
+    ``"lines"`` for even n whose half is a power of two from 128 to
+    ``minor_fft.LINE_MAX_N`` (n = 256 to 8192), ``"stages"`` for every
+    other length in the envelope, None outside it. Mirrors
+    ``r2c_line_form`` in ``csrc/real_fft.cu``, which makes the choice at
+    the launch."""
     n = int(n)
     if n < 2 or not minor_fft._length_ok(_stage_length(n)):
         return None
@@ -175,13 +176,15 @@ def rfft_minor(x: torch.Tensor, *,
 
 
 def irfft_minor(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
-                scale: float) -> torch.Tensor:
+                scale: float, stages: bool = False) -> torch.Tensor:
     """The real (batch, n) plane synthesized from the (batch, n//2+1)
     half-spectrum planes, times ``scale`` (1/n is numpy's ``irfft``), in
     their storage dtype.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise on anything it does not take."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    :func:`form` on the current stream (``stages``: the stage form at
+    every length, kept to compare the forms) and raise on anything it does
+    not take."""
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return irfft_minor_reference(xr, xi, n=n, scale=scale)
     minor_fft.check_planes("irfft_minor", xr, xi, 2)
@@ -197,7 +200,8 @@ def irfft_minor(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
     lib = _build.load()
     with torch.cuda.device(xr.device):
         tw, half, rad_arr, nstages = _launch_args(n, True, xr.device)
-        err = lib.tpufft_irfft(
+        entry = lib.tpufft_irfft_stages if stages else lib.tpufft_irfft
+        err = entry(
             xr.data_ptr(), xi.data_ptr(), y.data_ptr(), tw.data_ptr(),
             half.data_ptr(), batch, n, rad_arr, nstages, float(scale),
             int(xr.dtype == torch.bfloat16),

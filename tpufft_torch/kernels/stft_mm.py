@@ -14,8 +14,12 @@ Counterparts of three Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
   and with the plain version, :func:`frame_matrix`);
 * ``build_istft_ola`` (K14): spectrum planes (batch, nseg, m1) ->
   (batch, (nseg + K - 1) hop), K = nperseg / hop, the overlap-add of each
-  segment's Zr Ar + Zi Ai with A (m1, nperseg), unnormalised:
-  :func:`istft_ola`;
+  segment's Zr Ar + Zi Ai with A (m1, nperseg), unnormalised. tpufft's A
+  is the inverse onesided DFT of c Z (a per-bin complex factor c)
+  truncated to nperseg times a real window; the port's kernel takes the
+  window, c and nfft (:func:`istft_frames`; the matrix, built by
+  :func:`synthesis_matrix`, stays with the callers' backward, the plain
+  version and the dense body, :func:`istft_ola`);
 * ``build_welch_accum`` (K15): the sum over segments of |F_s M|^2, or of
   conj(F_s M) (G_s M) as two planes for two signals, M K13's function with
   c = 1: :func:`welch_accum`. tpufft takes M; the port's kernel takes the
@@ -27,17 +31,27 @@ frames copied once a block into shared memory; K13 stores the bins, K15
 sums |X|^2 (or conj(X) Y) over a block's frames and writes one partial a
 (row, block, bin), which a second pass sums in a fixed order. Their
 envelope is :func:`frames_supported` (an nfft whose stage length, nfft/2 or
-odd nfft, has prime factors <= 127). K14 is a product with a host-built
-matrix on the tile loop of ``csrc/tile_mm.cuh`` that K10 shares, with f32
-FMA (no TF32). Frames are never materialised on the kernel path. Signals and spectra may be f32
+odd nfft, has prime factors <= 127). All three are bound by device-memory
+bytes on the H100. K14 has two forms (:func:`istft_form`): at nfft = 256,
+512 and 1024 the line form, the inverse-real line core of
+``csrc/real_fft.cuh`` (K8's: the tangle of a segment's bins times c,
+K1's inverse four-step at nfft/2 in registers) with the window applied to
+pass 2's pairs and the overlap-add in the block (a block takes a run of
+output chunks and the segments that touch them, in waves; each output
+sample is owned by one thread, which sums its segments in order and
+writes it once); at every other nfft the dense body, the product with
+:func:`synthesis_matrix` on the FMA tile loop of ``csrc/tile_mm.cuh``
+that K10's FMA body shares, which the FP32 peak bounds. Frames are never
+materialised on the kernel path. Signals and spectra may be f32
 or bf16 (computed in f32); tables and results are f32. The TPU kernels'
 segment-major (nseg, batch, m1) layout and segment groups exist for
 Mosaic's block rule and the MXU's 128 rows, and have no counterpart here:
 the kernels read and write the layouts their callers use.
 
 A CPU tensor runs the plain version (``unfold`` and two ``torch.matmul``
-with the f64-built matrix; per-segment matmuls and an ``index_add_``
-overlap-add; the first with c = 1 then the square and sum); a CUDA tensor
+with the f64-built matrix; per-segment matmuls with the f64-built
+synthesis matrix and an ``index_add_`` overlap-add; the first with c = 1
+then the square and sum); a CUDA tensor
 launches the kernel or raises, never falls back.
 ``launches["stft"|"istft"|"welch"|"csd"]`` count launches;
 ``reference_cuda_calls`` counts runs of the plain versions on CUDA
@@ -47,17 +61,22 @@ tensors, which the main path never makes.
 from __future__ import annotations
 
 import ctypes
+import functools
+import hashlib
 
 import numpy as np
 import torch
 
 from .. import _build
-from . import minor_fft, real_fft
+from . import dense_mm, minor_fft, real_fft
 
 __all__ = [
     "DETRENDS",
     "frame_matrix",
     "frames_supported",
+    "istft_form",
+    "istft_frames",
+    "istft_frames_reference",
     "istft_ola",
     "istft_ola_reference",
     "launches",
@@ -65,6 +84,7 @@ __all__ = [
     "reset_counts",
     "stft_frames",
     "stft_frames_reference",
+    "synthesis_matrix",
     "welch_accum",
     "welch_accum_reference",
 ]
@@ -245,6 +265,99 @@ def istft_ola(zr: torch.Tensor, zi: torch.Tensor, ar: torch.Tensor,
     return out
 
 
+def istft_form(nfft: int) -> str:
+    """Which body of K14 runs at nfft: ``"lines"`` (the line form, an
+    inverse real FFT of each segment in registers and the overlap-add in
+    the block) for nfft = 256, 512 and 1024, ``"dense"`` (the product with
+    the host-built :func:`synthesis_matrix` on the f32 FMA tile loop) for
+    every other nfft. Mirrors ``tpufft_istft_line_form`` in
+    ``csrc/stft_mm.cu``, which makes the choice at the launch."""
+    nfft = int(nfft)
+    return "lines" if nfft in (256, 512, 1024) else "dense"
+
+
+def _synthesis_tables(win, cr, ci, nfft: int):
+    """The dense body's operands for (win, c, nfft): the f32 planes of
+    :func:`synthesis_matrix` on win's device, built on the host in f64
+    from the operands' values (a device-to-host copy) and uploaded once per
+    value and device. The callers pass theirs (``matrix``) instead."""
+    ops = torch.cat([win, cr, ci]).detach().double().cpu().numpy()
+    key = ("synthesis", hashlib.sha1(ops.tobytes()).hexdigest(), nfft)
+    nperseg, m1 = win.shape[0], nfft // 2 + 1
+
+    @functools.cache
+    def host():
+        return synthesis_matrix(ops[:nperseg], ops[nperseg:nperseg + m1]
+                                + 1j * ops[nperseg + m1:], nfft)
+
+    return tuple(dense_mm.device_table(key + (part,),
+                                       lambda p=part: getattr(host(), p),
+                                       win.device)
+                 for part in ("real", "imag"))
+
+
+def istft_frames(zr: torch.Tensor, zi: torch.Tensor, win: torch.Tensor,
+                 cr: torch.Tensor, ci: torch.Tensor, nfft: int, hop: int,
+                 matrix=None) -> torch.Tensor:
+    """The overlap-add of every segment's inverse: spectrum planes (batch,
+    nseg, nfft/2 + 1), each segment's bins times ``cr + i ci``, inverse
+    real-FFT'd at ``nfft`` (numpy's ``irfft``: 1/nfft, the imaginary parts
+    at DC and Nyquist ignored), its first nperseg samples times the real
+    window ``win`` (nperseg, a multiple of ``hop``), added at s hop ->
+    (batch, (nseg - 1) hop + nperseg) f32, unnormalised (K14).
+
+    CPU tensors run the plain version; CUDA tensors launch the body of
+    :func:`istft_form` on the current stream or raise. The dense body takes
+    ``matrix()``, the f32 planes (ar, ai) of :func:`synthesis_matrix` on
+    the device, where the caller gives it (the callers' backward shares
+    it), else builds them from the operands."""
+    nfft, hop = int(nfft), int(hop)
+    if all(t.device.type == "cpu" for t in (zr, zi, win, cr, ci)):
+        return istft_frames_reference(zr, zi, win, cr, ci, nfft, hop)
+    name = "istft_frames"
+    for t in (zr, zi):
+        _check_rows(name, "the spectrum planes", t, zr.device, 3)
+    if zi.shape != zr.shape or zi.dtype != zr.dtype:
+        raise ValueError(f"{name}: planes of different shapes or dtypes")
+    batch, nseg, m1 = zr.shape
+    nperseg = win.shape[0]
+    if m1 != nfft // 2 + 1:
+        raise ValueError(f"{name}: planes of {m1} bins for nfft {nfft}")
+    _check_table(name, win, zr.device, (nperseg,))
+    for t in (cr, ci):
+        _check_table(name, t, zr.device, (m1,))
+    if not 2 <= nfft <= MAX_FRAME_NFFT or not 1 <= nperseg <= nfft:
+        raise ValueError(f"{name}: nfft {nfft} and nperseg {nperseg} must "
+                         f"satisfy nperseg <= nfft <= {MAX_FRAME_NFFT}")
+    if hop < 1 or nperseg % hop:
+        raise ValueError(f"{name}: nperseg {nperseg} is not a multiple of "
+                         f"hop {hop}")
+    out = zr.new_empty((batch, (nseg - 1) * hop + nperseg),
+                       dtype=torch.float32)
+    if batch == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(zr.device):
+        if istft_form(nfft) == "dense":
+            ar, ai = (matrix() if matrix is not None
+                      else _synthesis_tables(win, cr, ci, nfft))
+            for t in (ar, ai):
+                _check_table(name, t, zr.device, (m1, nperseg))
+            tables = (None, None, ar.data_ptr(), ai.data_ptr())
+        else:
+            tw = minor_fft._device_twiddles(nfft // 2, True, zr.device)
+            half = real_fft._device_half_twiddle(nfft, zr.device)
+            tables = (tw.data_ptr(), half.data_ptr(), None, None)
+        err = lib.tpufft_istft_frames(
+            zr.data_ptr(), zi.data_ptr(), win.data_ptr(), cr.data_ptr(),
+            ci.data_ptr(), *tables, out.data_ptr(), batch, nseg, hop,
+            nperseg, nfft, int(zr.dtype == torch.bfloat16), _stream(zr))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches["istft"] += 1
+    return out
+
+
 def welch_accum(x: torch.Tensor, win: torch.Tensor, nfft: int, detrend,
                 hop: int, y: torch.Tensor | None = None):
     """The sum over the frames s of ``x`` (batch, n_sig), frame s = x[:,
@@ -340,6 +453,28 @@ def frame_matrix(win, c, nfft: int, detrend) -> np.ndarray:
     return M * c[None, :]
 
 
+def synthesis_matrix(win, c, nfft: int) -> np.ndarray:
+    """K14's function as one (nfft/2 + 1, nperseg) complex f64 matrix A
+    with segment = Zr @ A.real + Zi @ A.imag: A[k, t] = (d_k / nfft)
+    conj(c_k) win[t] exp(-2 pi i k t / nfft), d the Hermitian doubling (1
+    at DC and, even nfft, Nyquist; 2 elsewhere) (host f64 trig). Its
+    segment is win[t] times numpy's irfft of c Z at t < nperseg. The
+    callers' tables (``spectral._istft_matrix``, ``ShortTimeFFT.
+    _fused_istft_matrix``) are this matrix for their window and c."""
+    win = np.asarray(win, np.float64)
+    c = np.asarray(c, np.complex128)
+    m1 = nfft // 2 + 1
+    d = np.full(m1, 2.0)
+    d[0] = 1.0
+    if nfft % 2 == 0:
+        d[-1] = 1.0
+    k = np.arange(m1, dtype=np.float64)
+    t = np.arange(win.shape[0], dtype=np.float64)
+    theta = (2.0 * np.pi / nfft) * np.outer(k, t)
+    scale = ((d / nfft) * np.conj(c))[:, None] * win[None, :]
+    return scale * np.exp(-1j * theta)
+
+
 def stft_frames_reference(x, win, cr, ci, nfft: int, detrend, hop: int,
                           nseg: int):
     """Plain PyTorch version of :func:`stft_frames`: :func:`frame_matrix`
@@ -373,6 +508,21 @@ def istft_ola_reference(zr, zi, ar, ai, hop: int) -> torch.Tensor:
            + hop * torch.arange(nseg, device=zr.device)[:, None]).reshape(-1)
     out = seg.new_zeros((batch, (nseg - 1) * hop + nperseg))
     return out.index_add_(1, idx, seg.reshape(batch, -1))
+
+
+def istft_frames_reference(zr, zi, win, cr, ci, nfft: int, hop: int):
+    """Plain PyTorch version of :func:`istft_frames`:
+    :func:`synthesis_matrix` built on the host in f64 from the same
+    arguments, then :func:`istft_ola_reference`'s per-segment matmuls and
+    ``index_add_`` overlap-add; any device. It shares no code with the
+    kernel's FFT."""
+    def host(t):
+        return t.detach().double().cpu().numpy()
+
+    A = synthesis_matrix(host(win), host(cr) + 1j * host(ci), int(nfft))
+    ar = torch.as_tensor(A.real, dtype=torch.float32, device=zr.device)
+    ai = torch.as_tensor(A.imag, dtype=torch.float32, device=zr.device)
+    return istft_ola_reference(zr, zi, ar, ai, hop)
 
 
 def welch_accum_reference(x, win, nfft: int, detrend, hop: int, y=None):

@@ -19,9 +19,13 @@ canonical dual window, ``spectrogram``, the full index bookkeeping
   FFT's envelope, ``stft_mm.frames_supported``) detrends, windows,
   zero-pads and real-FFTs each frame in shared memory and multiplies bin
   k by c[k], the phase roll and the mode scaling (``_frame_factor``); the
-  same steps as one host matrix serve its backward. For K14 the inverse
-  DFT, phase roll, mode scaling and dual window fold into one host matrix.
-  No frame tensor is built and the overlap-add has no scatter. A CPU
+  same steps as one host matrix serve its backward. K14 takes the real
+  dual window and c[k], the inverse phase roll and mode unscale
+  (``_synthesis_factor``), and inverse-real-FFTs each slice (the line
+  form at mfft 256, 512 and 1024; elsewhere its dense body, a product
+  with the same steps as one host matrix, which also serves the
+  backward). No frame tensor is built and the overlap-add has no
+  scatter. A CPU
   tensor takes the same route
   through the kernels' plain versions. Everything else composes the
   port's own transforms on the frames (rfft/irfft/fft: K7, K8, K1 on the
@@ -556,19 +560,26 @@ class ShortTimeFFT:
             c[1:-1 if self._mfft % 2 == 0 else None] *= fac
         return c
 
-    def _frame_tables(self, device):
-        """The real window and c as f32 tensors on ``device``, cached with
-        the instance (dropped by scale_to)."""
-        full = ("frame tables", self._win_version, str(device))
+    def _f32_tables(self, key, arrays, device):
+        """The host arrays ``arrays()`` as f32 tensors on ``device``,
+        cached with the instance (dropped by scale_to)."""
+        full = (key, self._win_version, str(device))
         tables = self._mat_cache.get(full)
         if tables is None:
-            c = self._frame_factor()
             tables = tuple(
                 torch.as_tensor(np.ascontiguousarray(p), dtype=torch.float32,
-                                device=device)
-                for p in (np.real(self._win), c.real, c.imag))
+                                device=device) for p in arrays())
             self._mat_cache[full] = tables
         return tables
+
+    def _frame_tables(self, device):
+        """K13's operands: the real window and c as f32 tensors on
+        ``device`` (``_f32_tables``)."""
+        def arrays():
+            c = self._frame_factor()
+            return np.real(self._win), c.real, c.imag
+
+        return self._f32_tables("frame tables", arrays, device)
 
     def _fused_stft_matrix(self, detr) -> np.ndarray:
         """The whole _fft_func as ONE (m_num, m1) complex matrix: detrend
@@ -584,17 +595,13 @@ class ShortTimeFFT:
         return M
 
     def _device_tables(self, key, build, device):
-        """The f32 planes of a host matrix on ``device``, cached with the
-        instance (dropped by scale_to)."""
-        full = ("tables", key, self._win_version, str(device))
-        tables = self._mat_cache.get(full)
-        if tables is None:
+        """The f32 planes of the host matrix ``build()`` on ``device``
+        (``_f32_tables``)."""
+        def arrays():
             M = build()
-            tables = tuple(
-                torch.as_tensor(np.ascontiguousarray(p), dtype=torch.float32,
-                                device=device) for p in (M.real, M.imag))
-            self._mat_cache[full] = tables
-        return tables
+            return M.real, M.imag
+
+        return self._f32_tables(("tables", key), arrays, device)
 
     def _fused_stft(self, x, detr, p0: int, p1: int, k_offset: int,
                     padding: str):
@@ -631,32 +638,39 @@ class ShortTimeFFT:
             return False
         return _geometry_ok(self.m_num, self._hop, self._mfft)
 
+    def _synthesis_factor(self) -> np.ndarray:
+        """K14's per-bin factor c: the phase roll exp(-2 pi i p_s k /
+        mfft) times the onesided2X unscale (f64 host trig);
+        ``_fused_istft_matrix`` is ``stft_mm.synthesis_matrix`` of the real
+        dual window and this c."""
+        k = np.arange(self._mfft // 2 + 1, dtype=np.float64)
+        c = np.exp((-2j * np.pi * self._phase_shift_p() / self._mfft) * k)
+        if self._fft_mode == "onesided2X":
+            fac, sl = self._fac_slice()
+            c[sl] /= fac
+        return c
+
+    def _synthesis_tables(self, device):
+        """K14's operands: the real dual window and c as f32 tensors on
+        ``device`` (``_f32_tables``)."""
+        def arrays():
+            c = self._synthesis_factor()
+            return np.real(self.dual_win), c.real, c.imag
+
+        return self._f32_tables("synthesis tables", arrays, device)
+
     def _fused_istft_matrix(self) -> np.ndarray:
         """The whole _ifft_func + dual-window synthesis as ONE (m1, m_num)
         complex matrix A with the kernel contract x = Zr @ A.real + Zi @
         A.imag (the real part of the Hermitian inverse): the onesided2X
-        unscale folds into the doubling coefficients, the phase roll into
-        the exponent."""
+        unscale and the phase roll fold into c (``_synthesis_factor``,
+        ``stft_mm.synthesis_matrix``)."""
         key = ("istft", self._win_version)
         A = self._mat_cache.get(key)
-        if A is not None:
-            return A
-        m1 = self._mfft // 2 + 1
-        p_s = self._phase_shift_p()
-        k = np.arange(m1, dtype=np.float64)
-        t = np.arange(self.m_num, dtype=np.float64)
-        c = np.full(m1, 2.0)
-        c[0] = 1.0
-        if self._mfft % 2 == 0:
-            c[-1] = 1.0
-        if self._fft_mode == "onesided2X":
-            fac = math.sqrt(2) if self._scaling == "psd" else 2.0
-            sl = slice(1, -1 if self._mfft % 2 == 0 else None)
-            c[sl] /= fac
-        theta = (2.0 * np.pi / self._mfft) * np.outer(k, t - p_s)
-        scale = (c / self._mfft)[:, None] * self.dual_win[None, :]
-        A = scale * np.cos(theta) - 1j * (scale * np.sin(theta))
-        self._mat_cache[key] = A
+        if A is None:
+            A = stft_mm.synthesis_matrix(np.real(self.dual_win),
+                                         self._synthesis_factor(), self._mfft)
+            self._mat_cache[key] = A
         return A
 
     def _fused_istft(self, zr, zi, k0: int, k1: int):
@@ -666,11 +680,12 @@ class ShortTimeFFT:
 
         lead = zr.shape[:-2]
         q_num, m1 = zr.shape[-2:]
-        ar, ai = self._device_tables(("istft",), self._fused_istft_matrix,
-                                     zr.device)
         zr = zr.reshape(-1, q_num, m1).contiguous()
         zi = zi.reshape(-1, q_num, m1).to(zr.dtype).contiguous()
-        out = _ISTFTFused.apply(zr, zi, ar, ai, self._hop)
+        out = _ISTFTFused.apply(
+            zr, zi, *self._synthesis_tables(zr.device), self._mfft,
+            self._hop, lambda: self._device_tables(
+                ("istft",), self._fused_istft_matrix, zr.device))
         # kernel output sample i is signal sample k_min + i
         out = out[..., k0 - self.k_min:k1 - self.k_min]
         return out.reshape(lead + (k1 - k0,))

@@ -11,9 +11,11 @@ port runs it on three hand-written CUDA kernels (``kernels/stft_mm``):
   frames straight from the signal and detrend, window, zero-pad and
   real-FFT each one in shared memory, times the scale; no frame tensor is
   built, and the matrix (``_stft_matrix``) serves only the backward;
-* K14: istft runs the inverse DFT, the synthesis window and the
-  overlap-add as one product with the (m1, nperseg) matrix
-  (``_istft_matrix``); the window-sum normalisation stays outside;
+* K14: istft runs the inverse real FFT of each segment (times c = the
+  stft unscale), the synthesis window and the overlap-add in one kernel
+  (the line form at nfft 256, 512 and 1024; elsewhere a product with the
+  (m1, nperseg) matrix, ``_istft_matrix``, which also serves the
+  backward); the window-sum normalisation stays outside;
 * K15: welch, csd (and coherence, periodogram through them) run K13's
   frame FFT and accumulate |X|^2 or conj(X) Y over segments inside the
   kernel: the per-segment spectra never reach device memory, and the
@@ -318,18 +320,10 @@ def _istft_matrix(win: np.ndarray, nperseg: int, nfft: int,
     """The whole per-segment synthesis pipeline as ONE (m1, nperseg)
     complex matrix A with x_seg = Zr @ A.real + Zi @ A.imag: the inverse
     onesided DFT (with the Hermitian doubling coefficients), the truncation
-    to nperseg, the synthesis window and the stft unscale (f64 host
-    trig)."""
-    m1 = nfft // 2 + 1
-    k = np.arange(m1, dtype=np.float64)
-    t = np.arange(nperseg, dtype=np.float64)
-    c = np.full(m1, 2.0)
-    c[0] = 1.0
-    if nfft % 2 == 0:
-        c[-1] = 1.0
-    theta = (2.0 * np.pi / nfft) * np.outer(k, t)
-    scale = (c / nfft)[:, None] * (win[None, :] * unscale)
-    return scale * np.cos(theta) - 1j * (scale * np.sin(theta))
+    to nperseg, the synthesis window and the stft unscale (f64 host trig;
+    K14's function with c = unscale, ``stft_mm.synthesis_matrix``)."""
+    return stft_mm.synthesis_matrix(win, np.full(nfft // 2 + 1, unscale),
+                                    nfft)
 
 
 @functools.lru_cache(maxsize=16)
@@ -438,21 +432,24 @@ class _WelchFused(torch.autograd.Function):
 
 
 class _ISTFTFused(torch.autograd.Function):
-    """Inverse transform, synthesis window and overlap-add on K14; the
-    backward is the framing gather times the adjoint (plain torch ops)."""
+    """Inverse transform, synthesis window and overlap-add on K14: the
+    window, the per-bin factor c and nfft go to the kernel. The backward is
+    the framing gather times the adjoint, with the same function as a host
+    matrix (``matrix()`` gives its f32 planes, built and uploaded on first
+    use; the dense body reads them too), plain torch ops."""
 
     @staticmethod
-    def forward(ctx, zr, zi, ar, ai, hop):
-        ctx.save_for_backward(ar, ai)
+    def forward(ctx, zr, zi, win, cr, ci, nfft, hop, matrix):
+        ctx.matrix = matrix
         ctx.hop, ctx.nseg, ctx.dtype = hop, zr.shape[1], zr.dtype
-        return stft_mm.istft_ola(zr, zi, ar, ai, hop)
+        return stft_mm.istft_frames(zr, zi, win, cr, ci, nfft, hop, matrix)
 
     @staticmethod
     def backward(ctx, g):
-        ar, ai = ctx.saved_tensors
+        ar, ai = ctx.matrix()
         frames = g.unfold(-1, ar.shape[1], ctx.hop)[:, :ctx.nseg]
         return ((frames @ ar.T).to(ctx.dtype), (frames @ ai.T).to(ctx.dtype),
-                None, None, None)
+                None, None, None, None, None, None)
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -811,12 +808,13 @@ def istft(Zxx, fs: float = 1.0, window="hann", nperseg: int | None = None,
                        nfft, config):
         # K14: inverse transform, window and overlap-add in one pass, no
         # scatter-add; the time-varying window-sum division stays below
-        ar, ai = _tables("istft", win, nperseg, nfft, float(unscale),
-                         Zr.device)
         zr = Zr.reshape(-1, nseg, n_freq).contiguous()
         zi = Zi.reshape(-1, nseg, n_freq).to(zr.dtype).contiguous()
-        xout = _ISTFTFused.apply(zr, zi, ar, ai, step).reshape(
-            lead + (n_out,))
+        xout = _ISTFTFused.apply(
+            zr, zi, *_frame_tables(win, nfft, float(unscale), Zr.device),
+            nfft, step, lambda: _tables("istft", win, nperseg, nfft,
+                                        float(unscale), Zr.device)
+        ).reshape(lead + (n_out,))
     else:
         Zc = torch.complex(_widen(Zr), _widen(Zi))
         if input_onesided:
