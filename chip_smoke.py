@@ -45,12 +45,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
    K2 and K3 printed with their form and geometry, and K2 also timed on
    ``rfft2``'s (100, 640, 241);
 9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
-   DFT, K1 with a bound on its load) and K4 with ``n2_in`` against their
+   DFT, K1 with the pad in its load) and K4 with ``n2_in`` against their
    plain versions on ragged batches: even and odd real lengths 2 to 32768
    (every length of K7's and K8's line form, 256 to 8192, among them;
-   each length printed with its form, ``real_fft.form``), pads (93 -> 128) to
-   (5000 -> 8192), pairs (64, 93 -> 128) and (120, 100 -> 128), scale 1
-   and 1/n, f32 and bf16 storage;
+   each length printed with its form, ``real_fft.form``), pads (1 -> 2),
+   (33 -> 64), (93 -> 128), (1000 -> 1024), (1024 -> 2048), (2047 ->
+   4096) on K9's line form and (300 -> 384), (5000 -> 8192) on its stage
+   form (each printed with its form, ``minor_fft.form``), pairs (64, 93
+   -> 128) and (120, 100 -> 128), scale 1 and 1/n, f32 and bf16 storage;
 10. the real and padded paths at full size, each call driven with every
     count set to 0 just before it and read just after: ``rfft`` and
     ``irfft`` on (100000, 1024) (K7, K8), ``rfft`` on (1000000, 93) (K7,
@@ -65,8 +67,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
     ``rfft`` path split into K7, the interleave of its planes and the
     rest, K7 alone at (400000, 256) and (12500, 8192) beside
     ``torch.fft.rfft``, K8 alone there beside its stage form and
-    ``torch.fft.irfft``, plus ``rfft`` along a non-minor axis (movedim +
-    K7 + movedim back);
+    ``torch.fft.irfft``, K9 alone at (1000000, 93 -> 128), (100000, 1024
+    -> 2048) and (10000, 2047 -> 4096) beside its stage form (kept in the
+    library), ``torch.fft.fft(x, n)`` and the copy floor, plus ``rfft``
+    along a non-minor axis (movedim + K7 + movedim back);
 12. the dense-matrix kernels K10 (complex), K11 (real) and K12 (real, the
     DCT/DST table) against their plain versions (f32 matmuls, TF32 off) on
     ragged batches of 257 rows: squares 2 to 512, rectangles (93 -> 128),
@@ -242,7 +246,14 @@ REAL_EVEN_NS = (2, 8, 128, 256, 512, 1024, 2048, 4096, 8192, 32768)
 # rows, ~100 MB of input each (the (100000, 1024) row is the rfft path's)
 REAL_LINE_SHAPES = ((400_000, 256), (12_500, 8192))
 REAL_ODD_NS = (3, 93, 127, 16383)
-PADS = ((93, 128), (1000, 1024), (5000, 8192))
+# K9's pads: its line form at power-of-two n up to 4096 (n_in = 1, n/2,
+# odd), its stage form at 384 and 8192
+PADS = ((1, 2), (33, 64), (93, 128), (1000, 1024), (1024, 2048),
+        (2047, 4096), (300, 384), (5000, 8192))
+# K9 timed beside its stage form and torch.fft.fft(x, n): the paths'
+# shapes (fft(n="fast-aligned"), czt, envelope)
+PAD_SHAPES = ((1_000_000, 93, 128), (100_000, 1024, 2048),
+              (10_000, 2047, 4096))
 PAIR_PADS = ((64, 93, 128), (120, 100, 128))
 DENSE_SHAPES = ((2, 2), (7, 7), (64, 64), (93, 93), (100, 100), (128, 128),
                 (512, 512), (93, 128), (128, 93), (36, 100))
@@ -820,16 +831,21 @@ def phase_real_kernels() -> None:
               "normalized error " + ", ".join(
                   f"{k} {str(d)[6:]} {at_n[k, d]:.3e}" for k, d in at_n))
     for n_in, n in PADS:
+        at_pad = dict.fromkeys(dtypes, 0.0)
         for dtype in dtypes:
             xr, xi = _planes((257, n_in), dtype, seed=n_in)
             for inverse in (False, True):
                 for scale in (1.0, 1.0 / n):
                     kw = dict(n=n, inverse=inverse, scale=scale)
-                    _hold(worst, "minor_padded", dtype,
-                          minor_fft.fft_minor_padded(xr, xi, **kw),
-                          minor_fft.fft_minor_padded_reference(xr, xi, **kw),
+                    got = minor_fft.fft_minor_padded(xr, xi, **kw)
+                    ref = minor_fft.fft_minor_padded_reference(xr, xi, **kw)
+                    _hold(worst, "minor_padded", dtype, got, ref,
                           f"({n_in} -> {n}) {dtype} inverse={inverse} "
                           f"scale={scale}")
+                    at_pad[dtype] = max(at_pad[dtype], pair_err(got, ref))
+        print(f"  minor_padded ({n_in} -> {n}) ({minor_fft.form(n, n_in)} "
+              "form): max normalized error " + ", ".join(
+                  f"{str(d)[6:]} {e:.3e}" for d, e in at_pad.items()))
     for n1, n2_in, n2 in PAIR_PADS:
         for dtype in dtypes:
             xr, xi = _planes((13, n1, n2_in), dtype, seed=n1 + n2_in)
@@ -1140,6 +1156,29 @@ def phase_real_times(k1_ms: float) -> dict:
                flops=_fft_flops(n, rows),
                library=lambda: torch.fft.fft(xc, n=n))
     del xr, xi, xs, xc
+    # K9 alone at the paths' shapes: its form, the stage form (kept in the
+    # library), torch.fft.fft(x, n) and the copy floor
+    for rows, n_in, n in PAD_SHAPES:
+        xr, xi = _device_planes((rows, n_in), seed=n_in)
+        xc = torch.complex(xr, xi)
+        kw = dict(n=n, inverse=False, scale=1.0)
+        err = pair_err(minor_fft.fft_minor_padded(xr, xi, **kw),
+                       minor_fft.fft_minor_padded(xr, xi, stages=True, **kw))
+        check(err < F32_TOL, f"minor_padded ({rows}, {n_in} -> {n}): "
+              f"{minor_fft.form(n, n_in)} form vs stage form {err:.3e}")
+        nb = 2 * f32 * rows * (n_in + n)
+        t_k = _time_ms(lambda: minor_fft.fft_minor_padded(xr, xi, **kw))
+        t_s = _time_ms(lambda: minor_fft.fft_minor_padded(xr, xi,
+                                                          stages=True, **kw))
+        t_l = _time_ms(lambda: torch.fft.fft(xc, n=n))
+        t_c = _copy_floor_ms(nb)
+        print(f"  minor_padded alone ({rows}, {n_in} -> {n}) "
+              f"({minor_fft.form(n, n_in)} form): kernel {t_k:.4f} ms "
+              f"({nb / 1e9 / (t_k * 1e-3):.0f} GB/s, {t_c / t_k:.3f} of the "
+              f"copy floor), stage form {t_s:.4f} ms (ratio "
+              f"{t_k / t_s:.3f}), torch.fft.fft(x, n={n}) {t_l:.4f} ms, copy "
+              f"floor {t_c:.4f} ms; vs stage form normalized {err:.3e}")
+        del xr, xi, xc
     # fft2(s=(64, 128)) on (10000, 64, 93)
     shape, n2 = (10_000, 64, 93), 128
     xr, xi = _device_planes(shape, seed=6)

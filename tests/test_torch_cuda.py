@@ -846,14 +846,32 @@ def test_irfft_line_form_views(cuda_device):
         real_fft.irfft_minor(wide[:, :m1], wide[:, 7:], n=n, scale=1.0)
 
 
+def _pad_ins(n):
+    """K9's input lengths at padded length n: 1, n/2, n/2 + 1 and n - 1,
+    those below n."""
+    return sorted({1, n // 2, n // 2 + 1, n - 1} & set(range(1, n)))
+
+
+# K9 at every line-form length, and on the stage form (300 -> 384 and
+# above 4096)
+PADS = ([(n_in, n) for n in LINE_NS for n_in in _pad_ins(n)]
+        + [(93, 128), (1000, 1024), (2047, 4096), (300, 384), (5000, 8192),
+           (8191, 16384)])
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n_in,n", [(93, 128), (1000, 1024), (5000, 8192),
-                                    (1, 16), (8191, 16384)])
-def test_padded_kernel_matches_plain_version(n_in, n, dtype, tol,
+@pytest.mark.parametrize("batch", [1, 127, 257])
+@pytest.mark.parametrize("n_in,n", PADS)
+def test_padded_kernel_matches_plain_version(n_in, n, batch, dtype, tol,
                                              cuda_device):
-    xr, xi = _planes((257, n_in), cuda_device, dtype, seed=n_in)
+    """K9 against its plain version on ragged batches, both directions,
+    scale 1 and 1/n: the line form at power-of-two n up to 4096, the stage
+    form elsewhere (``form``), one launch a call."""
+    assert minor_fft.form(n, n_in) == (
+        "lines" if n in LINE_NS else "stages")
+    xr, xi = _planes((batch, n_in), cuda_device, dtype, seed=n_in + batch)
     for inverse in (False, True):
         for scale in (1.0, 1.0 / n):
             before = minor_fft.padded_launches
@@ -862,8 +880,57 @@ def test_padded_kernel_matches_plain_version(n_in, n, dtype, tol,
             ref = minor_fft.fft_minor_padded_reference(xr, xi, **kw)
             torch.cuda.synchronize()
             assert minor_fft.padded_launches == before + 1
-            assert got[0].dtype == dtype and got[0].shape == (257, n)
+            assert got[0].dtype == dtype and got[0].shape == (batch, n)
             assert _err(got, ref) < tol
+
+
+@pytest.mark.parametrize("n_in,n", [(1, 2), (33, 64), (93, 128),
+                                    (1000, 1024), (1024, 2048), (2047, 4096),
+                                    (300, 384)])
+def test_padded_kernel_edge_values(n_in, n, cuda_device):
+    """Edge-value rows through K9 (``_fft_edge_rows`` on the (257, n_in)
+    planes), held as ``test_line_form_edge_values`` holds K1: the rows
+    holding Inf or NaN come out non-finite in the kernel and in the plain
+    version alike, no row without such an input does but the 3.4e38 row
+    (which may overflow in a butterfly's sum), and the other rows, 1e-20
+    and 1e18 among them, are within 1e-5 of the plain version relative to
+    their own magnitude, as is the 3.4e38 row where it stays finite."""
+    xr, xi = _fft_edge_rows(*_planes((257, n_in), cuda_device, seed=n))
+    got = minor_fft.fft_minor_padded(xr, xi, n=n, inverse=False, scale=1.0)
+    ref = minor_fft.fft_minor_padded_reference(xr, xi, n=n, inverse=False,
+                                               scale=1.0)
+    torch.cuda.synchronize()
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[:3].all() and not bad[4:].any()
+    fin = [torch.isfinite(o[0]) & torch.isfinite(o[1]) for o in (got, ref)]
+    for rows in (slice(0, 3), slice(4, None)):   # where Inf and NaN fall
+        assert torch.equal(fin[0][rows], fin[1][rows])
+    assert _complex_row_err((got[0][4:], got[1][4:]),
+                            (ref[0][4:], ref[1][4:])) < 1e-5
+    if torch.isfinite(got[0][3]).all() and torch.isfinite(got[1][3]).all():
+        assert _complex_row_err((got[0][3:4], got[1][3:4]),
+                                (ref[0][3:4], ref[1][3:4])) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_in,n", [(1, 2), (33, 64), (93, 128),
+                                    (1024, 2048), (2047, 4096), (300, 384)])
+def test_padded_stage_form_matches_line_form(n_in, n, dtype, tol,
+                                             cuda_device):
+    """K9's stage form, kept in the library (``stages=True``), gives the
+    result of the form ``form`` picks, on a ragged batch, both directions."""
+    xr, xi = _planes((257, n_in), cuda_device, dtype, seed=n_in)
+    for inverse in (False, True):
+        kw = dict(n=n, inverse=inverse, scale=1.0 / n if inverse else 1.0)
+        before = minor_fft.padded_launches
+        got = minor_fft.fft_minor_padded(xr, xi, **kw)
+        stages = minor_fft.fft_minor_padded(xr, xi, stages=True, **kw)
+        torch.cuda.synchronize()
+        assert minor_fft.padded_launches == before + 2
+        assert _err(got, stages) < tol
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -16,7 +16,12 @@ The kernel's forms (``minor_fft.form``) and its line form's four-step are
 checked here too: the split ``line_split`` with the table exponents
 (k1 j2) mod n, run in torch ops against ``_build_minor``
 (``assert_spectrum_close``, c64), and a model of the tile's indexing
-(every element written and read back once, no bank conflict).
+(every element written and read back once, no bank conflict). K9's line
+form (the zero-padded minor axis) is checked the same way: a model of its
+padded load (every input value read once at its own row stride n_in,
+nothing read at or past n_in, the sectors a half warp touches), and the
+four-step fed the registers that load fills, against tpufft's
+``_build_minor_rect`` in interpret mode (1e-5 f32, 8e-3 bf16 storage).
 
 The CUDA kernel itself needs the card: ``test_torch_cuda.py`` holds it
 against this plain version there.
@@ -156,34 +161,47 @@ def test_wrapper_refuses_non_cuda_devices(xr, xi, match):
 POW2 = [2 ** k for k in range(1, 13)]   # 2 .. 4096: the line form
 
 
+def _pad_ins(n):
+    """The input lengths of K9's tests at padded length n: 1, n/2, n/2 + 1
+    and n - 1, those below n."""
+    return sorted({1, n // 2, n // 2 + 1, n - 1} & set(range(1, n)))
+
+
+PADDED_LINES = [(n, n_in) for n in POW2 for n_in in _pad_ins(n)]
+
+
 @pytest.mark.parametrize("n,n_in,expected", (
     [(n, None, "lines") for n in POW2]
     + [(n, None, "stages") for n in (1, 93, 480, 960, 1792, 8192, 16384)]
-    + [(128, 93, "stages"),                 # a padded call (K9)
+    + [(128, 93, "lines"),                  # a padded call (K9)
        (1024, 1024, "lines"),
        (131, None, None),                   # prime factor above 127
-       (minor_fft.MAX_N + 1, None, None)]))
+       (minor_fft.MAX_N + 1, None, None)]
+    + [(n, n_in, "lines") for n, n_in in PADDED_LINES]
+    + [(384, 300, "stages"), (8192, 5000, "stages")]))
 def test_form(n, n_in, expected):
-    """The form each length runs; the envelope (``supported``) is the one
-    the stage form alone had: every length in it has a form."""
+    """The form each length runs, K9's padded calls among them (the line
+    form at every power-of-two n up to 4096, whatever n_in); the envelope
+    (``supported``) is the one the stage form alone had: every length in it
+    has a form."""
     assert minor_fft.form(n, n_in) == expected
     assert (expected is not None) == minor_fft.supported(n, torch.float32)
     split = minor_fft.line_split(n)
-    if expected == "lines" and n_in in (None, n):
+    if expected == "lines":
         assert split[0] * split[1] == n and max(split) <= 64
-    elif n_in is None:
+    else:
         assert split is None
 
 
-def _four_step_model(re, im, inverse, scale):
+def _four_step_model(re, im, inverse, scale, split=None):
     """The line form's arithmetic in torch ops: n = N1 N2 from
-    ``line_split``; pass 1 the N1-long DFTs of the columns j2 of the (N1,
-    N2) view (W_N1^(k1 j1) read from the n-table at stride N2, as
-    ``line_fft`` reads it), the twiddle w^(k1 j2) read at (k1 j2) mod n,
-    pass 2 the N2-long DFTs of the rows k1 (table stride N1), out
+    ``line_split`` (or ``split``); pass 1 the N1-long DFTs of the columns
+    j2 of the (N1, N2) view (W_N1^(k1 j1) read from the n-table at stride
+    N2, as ``line_fft`` reads it), the twiddle w^(k1 j2) read at (k1 j2)
+    mod n, pass 2 the N2-long DFTs of the rows k1 (table stride N1), out
     X[k1 + N1 k2], scaled once."""
     n = re.shape[1]
-    n1, n2 = minor_fft.line_split(n)
+    n1, n2 = split or minor_fft.line_split(n)
     tab = minor_fft._device_twiddles(n, inverse, torch.device("cpu"))
     w = torch.complex(tab[:, 0], tab[:, 1])
     x = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
@@ -299,3 +317,172 @@ def test_line_tile_mapping(n):
     for acc in writes + reads:
         for half in (acc[:16], acc[16:]):
             assert len({p % 16 for p, _ in half}) == 16, (n, half)
+
+
+# ----------------------------------------------------------------------------
+# K9's line form: the padded load, and the four-step it feeds
+# ----------------------------------------------------------------------------
+
+def _line_params(n):
+    """``Line<N>`` of ``line_fft.cuh`` at n <= 64: V values a lane, G
+    places a line, K lines a lane (32 values), W lines a warp."""
+    v = n if n < 8 else 8
+    g = n // v
+    return v, g, 32 // v, 32 // g
+
+
+def _padded_loads(n, n_in, batch):
+    """Per warp load instruction of K9's line form at padded length n, the
+    lanes' (row, col, address) where a lane issues a request (address =
+    row n_in + col, in elements), indexed as ``minor_lines_padded_kernel``
+    (n <= 64: lane (l, c) loads x[l + G j] of row row0 + c + W k, 128
+    threads a block) and ``minor_lane_padded_kernel`` (pass 1: lane t of a
+    team holds the column lines t + 32 W s, or for N1 = 64 line (t mod 16)
+    + 16 (t / 32) on the pair t, t ^ 16, register j1 holding x[N2 j1 +
+    j2]; the team's rows from (group teams + team) R) index them; every
+    row group or block the batch needs. A lane whose row is past the batch
+    or whose col is at or past n_in issues nothing."""
+    out = []
+
+    def lane_access(row, col):
+        if row >= batch or col >= n_in:
+            return None
+        return row, col, row * n_in + col
+
+    if n <= 64:
+        v, g, k_lines, w_lines = _line_params(n)
+        rows_warp = w_lines * k_lines
+        for warp in range(-(-batch // rows_warp)):
+            row0 = warp * rows_warp
+            for k in range(k_lines):
+                for j in range(v):
+                    out.append([lane_access(row0 + lane % w_lines
+                                            + w_lines * k,
+                                            lane // w_lines + g * j)
+                                for lane in range(32)])
+        return out
+    geo = minor_fft.line_geometry(n)
+    n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
+    lanes, rows = 32 * tw, geo["rows"]
+    pair = n1 == 64
+    for team0 in range(0, batch, rows):     # every team of every group
+        for w in range(tw):
+            for s in range(1 if pair else 32 // n1):
+                for j in range(32 if pair else n1):
+                    acc = []
+                    for t in range(32 * w, 32 * w + 32):
+                        p = (t >> 4) & 1
+                        line = ((t & 15) + 16 * (t >> 5) if pair
+                                else t + lanes * s)
+                        j1 = p + 2 * j if pair else j
+                        acc.append(lane_access(team0 + line // n2,
+                                               n2 * j1 + line % n2))
+                    out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("n,n_in", PADDED_LINES + [(128, 93), (1024, 1000)])
+def test_padded_load_mapping(n, n_in):
+    """K9's padded load reads every input value (row, col < n_in) exactly
+    once, at the input's own row stride (address row n_in + col), and
+    issues no request at col >= n_in or past the batch; the lanes of a half
+    warp read consecutive columns of one row (a 4-byte access each)."""
+    if n <= 64:   # rows a warp holds
+        _, _, k_lines, w_lines = _line_params(n)
+        unit = k_lines * w_lines
+    else:         # rows a team holds
+        unit = minor_fft.line_geometry(n)["rows"]
+    batch = 2 * unit + 3   # a ragged last warp or team
+    seen = {}
+    for acc in _padded_loads(n, n_in, batch):
+        for a in acc:
+            if a is None:
+                continue
+            row, col, addr = a
+            assert row < batch and col < n_in
+            assert row * n_in <= addr < (row + 1) * n_in
+            assert (row, col) not in seen
+            seen[row, col] = addr
+        if n >= 128:
+            for half in (acc[:16], acc[16:]):
+                live = [a for a in half if a is not None]
+                if live:
+                    assert len({r for r, _, _ in live}) == 1
+                    cols = sorted(c for _, c, _ in live)
+                    assert cols == list(range(cols[0], cols[0] + len(cols)))
+    assert len(seen) == batch * n_in
+
+
+def test_padded_load_sectors_at_93():
+    """At (93 -> 128) a row starts at any 4-byte offset: a half warp's 16
+    consecutive 4-byte loads touch at most three 32-byte sectors (two where
+    the run is 32-byte aligned), and the sectors the warps touch are the
+    input's, each read by one instruction or two that share it at a row's
+    end."""
+    batch = 64
+    sectors = []
+    touched = {}
+    for acc in _padded_loads(128, 93, batch):
+        for half in (acc[:16], acc[16:]):
+            live = [a[2] for a in half if a is not None]
+            if live:
+                secs = {4 * addr // 32 for addr in live}
+                sectors.append(len(secs))
+                for sec in secs:
+                    touched[sec] = touched.get(sec, 0) + 1
+    assert max(sectors) == 3 and min(sectors) >= 1
+    assert 2 in sectors
+    assert set(touched) == set(range(-(-4 * batch * 93 // 32)))
+    assert max(touched.values()) <= 3
+
+
+def _padded_registers(re, im, n):
+    """The values K9's line form holds after its padded load, as the (B, n)
+    rows of the (N1, N2) view it transforms (register j1 of column j2 at
+    N2 j1 + j2; at n <= 64 ``Line<N>``'s register j of place l at G j +
+    l), with the zero pattern checked: register j1 of column j2 is 0
+    exactly where j1 >= ceil((n_in - j2) / N2)."""
+    b, n_in = re.shape
+    n1, n2 = (_line_params(n)[:2] if n <= 64 else minor_fft.line_split(n))
+    x = np.zeros((b, n1, n2), np.complex64)
+    j1 = np.arange(n1)[:, None]
+    j2 = np.arange(n2)[None, :]
+    col = n2 * j1 + j2
+    live = col < n_in
+    assert np.array_equal(~live, j1 >= -(-(n_in - j2) // n2))
+    x[:, live] = (re + 1j * im)[:, col[live]]
+    return (np.ascontiguousarray(x.real.reshape(b, n)),
+            np.ascontiguousarray(x.imag.reshape(b, n)), (n1, n2))
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n_in,n", [(93, 128), (1000, 1024), (1024, 2048),
+                                    (33, 64), (1, 16)])
+def test_padded_line_model_matches_build_minor_rect(n_in, n, inverse,
+                                                    unit_scale, storage, rng):
+    """K9's line form in torch ops: the four-step (``Line<N>``'s split at
+    n <= 64) fed the registers of the padded load, against tpufft's
+    ``_build_minor_rect`` in its zero-pad direction in interpret mode; in
+    bf16 storage both sides read bf16 planes and round the result to bf16
+    at the store."""
+    re, im = _planes(n_in, rng, batch=5)
+    scale = 1.0 if unit_scale else 1.0 / n
+    jdt = jnp.float32 if storage == "f32" else jnp.bfloat16
+    run = tp_mxu._build_minor_rect(n_in, n, n, inverse, scale, 128,
+                                   "highest", True, storage)
+    zr, zi = run(jnp.asarray(re, jdt), jnp.asarray(im, jdt))
+    ref = (np.asarray(zr.astype(jnp.float32))
+           + 1j * np.asarray(zi.astype(jnp.float32)))
+    if storage == "bf16":
+        re, im = _bf16(re), _bf16(im)
+    pr, pi, split = _padded_registers(re, im, n)
+    got = _four_step_model(pr, pi, inverse, scale, split)
+    if storage == "bf16":
+        got = _bf16(got.real) + 1j * _bf16(got.imag)
+    assert _err(got, ref) < (1e-5 if storage == "f32" else 8e-3)

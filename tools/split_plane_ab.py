@@ -14,12 +14,17 @@ calls, in ms:
   fused array (P4's minor axis) beside ``torch.fft.fft`` of its
   (131072, 256) halves (``cuFFT_256``), and the stage form, whose code did
   not change: K1 at (1000000, 93), (64000, 480) (``fft2``'s minor axis)
-  and (10000, 8320) (Bluestein's), and K9 (1000000, 93 -> 128);
+  and (10000, 8320) (Bluestein's); K9 (1000000, 93 -> 128) and at
+  ``czt``'s (100000, 1024 -> 2048) and ``envelope``'s (10000, 2047 ->
+  4096) shapes (``K9_2048``, ``K9_4096``), each on the form the checkout
+  gives it;
 - the paths above K1: the 1-D C2C ``plan_fft`` of (100000, 1024)
   ``SplitComplex`` planes (``c2c``), the two-pass ``fft`` of (16, 1048576)
   (``two_pass``), Bluestein ``fft`` of (10000, 4099) (``bluestein``) and
   ``czt`` of real (100000, 1024) rows to 1024 points on
-  ``chip_smoke.py``'s arc;
+  ``chip_smoke.py``'s arc (K9 + K1), ``fft(n="fast-aligned")`` of
+  (1000000, 93) ``SplitComplex`` planes (``fast_aligned``, K9) and
+  ``envelope`` of real (10000, 4096) rows (K7 + K9 + K8);
 - K5 (cube, (100, 64, 64, 64) c64),
   K16 (the cube on the fused (100, 64, 64, 2 x 64) array of the same
   data), K7 (real minor axis, (100000, 1024) f32) and K6 (middle pair,
@@ -77,7 +82,8 @@ window; K13 scale 1/sum(window), no detrend; K15 constant detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
-K9, c2c, two_pass, bluestein, czt, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
+K9, K9_2048, K9_4096, c2c, two_pass, bluestein, czt, fast_aligned,
+envelope, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
 K8, K8_256, K8_8192, K8_93, irfft, rfft, fht, K13, K4, K4_n2_in, K4_packed,
 K17, K2, K2_241, K2_93, K3, K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10,
 K14, K15, spectral, filter_real, filter_complex, hilbert, dct, dst4)
@@ -129,12 +135,15 @@ for name, shape in (("K1_64", (1000000, 64)), ("K1_4096", (100000, 4096)),
             rows[name + " cuFFT"] = median_ms(lambda: torch.fft.fft(c))
             del c
         del xr, xi
-if want("K9"):
-    xr = torch.randn(1000000, 93, generator=g, device="cuda")
-    xi = torch.randn(1000000, 93, generator=g, device="cuda")
-    rows["K9"] = median_ms(lambda: minor_fft.fft_minor_padded(
-        xr, xi, n=128, **kw))
-    del xr, xi
+for name, rows_, n_in, n in (("K9", 1000000, 93, 128),
+                              ("K9_2048", 100000, 1024, 2048),
+                              ("K9_4096", 10000, 2047, 4096)):
+    if want(name):
+        xr = torch.randn(rows_, n_in, generator=g, device="cuda")
+        xi = torch.randn(rows_, n_in, generator=g, device="cuda")
+        rows[name] = median_ms(lambda: minor_fft.fft_minor_padded(
+            xr, xi, n=n, **kw))
+        del xr, xi
 if want("K20"):
     st = torch.randn(131072, 512, generator=g, device="cuda")
     rows["K20"] = median_ms(lambda: fused_fft.fft_minor_fused(st, **kw))
@@ -159,6 +168,18 @@ if want("czt"):
     zw = np.exp(-2j * np.pi * 0.25 / 1024)
     za = np.exp(2j * np.pi * 0.1)
     rows["czt"] = median_ms(lambda: tpufft_torch.czt(x, 1024, zw, za))
+    del x
+if want("fast_aligned"):
+    import tpufft_torch
+    x = SplitComplex(torch.randn(1000000, 93, generator=g, device="cuda"),
+                     torch.randn(1000000, 93, generator=g, device="cuda"))
+    rows["fast_aligned"] = median_ms(
+        lambda: tpufft_torch.fft(x, n="fast-aligned"))
+    del x
+if want("envelope"):
+    import tpufft_torch
+    x = torch.randn(10000, 4096, generator=g, device="cuda")  # real rows
+    rows["envelope"] = median_ms(lambda: tpufft_torch.envelope(x))
     del x
 if want("K1", "K5", "K16", "K7", "K6"):
     xr = torch.randn(100000, 1024, generator=g, device="cuda")

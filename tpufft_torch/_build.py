@@ -111,6 +111,8 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_minor_fft.restype = i32
+    lib.tpufft_minor_fft_padded_stages.argtypes = lib.tpufft_minor_fft.argtypes
+    lib.tpufft_minor_fft_padded_stages.restype = i32
     lib.tpufft_strided_fft.argtypes = [
         vp, vp, vp, vp, vp,          # xr, xi, yr, yi, twiddle table
         ctypes.c_longlong, i32,      # pre, n

@@ -31,60 +31,87 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// The line form at n <= 64: one kernel of 128 threads, each warp W K rows.
-template <typename T, int N, bool kFused>
+// The line form at n <= 64: one kernel of 128 threads, each warp W K rows
+// (K9, kPadded: the padded kernel on rows of n_in).
+template <typename T, int N, bool kFused, bool kPadded>
 int launch_lines(const void* xr, const void* xi, void* yr, void* yi,
-                 const void* tw, long long batch, int inverse, float scale,
-                 cudaStream_t stream) {
+                 const void* tw, long long batch, int n_in, int inverse,
+                 float scale, cudaStream_t stream) {
   constexpr int kThreads = 128;
   using L = tpufft_line::Line<N>;
   constexpr long long rows =
       (kThreads / 32) * L::W * (kLineLaneValues / L::V);
   const long long blocks = (batch + rows - 1) / rows;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  minor_lines_kernel<T, N, kThreads, kFused><<<(unsigned)blocks, kThreads, 0,
-                                               stream>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xi),
-      static_cast<T*>(yr), static_cast<T*>(yi),
-      static_cast<const float2*>(tw), (int64_t)batch, inverse, scale);
+  const T* x_r = static_cast<const T*>(xr);
+  const T* x_i = static_cast<const T*>(xi);
+  T* y_r = static_cast<T*>(yr);
+  T* y_i = static_cast<T*>(yi);
+  const float2* w = static_cast<const float2*>(tw);
+  if constexpr (kPadded)
+    minor_lines_padded_kernel<T, N, kThreads>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(
+            x_r, x_i, y_r, y_i, w, (int64_t)batch, n_in, inverse, scale);
+  else
+    minor_lines_kernel<T, N, kThreads, kFused>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(
+            x_r, x_i, y_r, y_i, w, (int64_t)batch, inverse, scale);
   return (int)cudaGetLastError();
 }
 
-// The line form at 128 <= n <= 4096: a grid of at most the blocks the card
-// holds at once (each stages the table once and loops over row groups).
-template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
-          bool kFused>
-int launch_lane(const void* xr, const void* xi, void* yr, void* yi,
-                const void* tw, long long batch, int inverse, float scale,
-                cudaStream_t stream) {
-  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
-  auto* kernel = minor_lane_kernel<T, N1, N2, kTeamWarps, kThreads, kFused>;
-  constexpr long long rows = S::teams * S::rows;
+// A lane kernel on a grid of at most the blocks the card holds at once
+// (each stages the table once and loops over `groups` row groups).
+template <typename Kernel, typename... Args>
+int launch_resident(Kernel kernel, int threads, size_t smem, long long groups,
+                    cudaStream_t stream, Args... args) {
   unsigned blocks = 0;
-  cudaError_t err = allow_smem(kernel, S::smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess)
-    err = resident_grid(kernel, kThreads, S::smem, (batch + rows - 1) / rows,
-                        &blocks);
+    err = resident_grid(kernel, threads, smem, groups, &blocks);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, S::smem, stream>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xi),
-      static_cast<T*>(yr), static_cast<T*>(yi),
-      static_cast<const float2*>(tw), (int64_t)batch, inverse, scale);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// The line form at 128 <= n <= 4096 (K9, kPadded: the padded kernel).
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
+          bool kFused, bool kPadded>
+int launch_lane(const void* xr, const void* xi, void* yr, void* yi,
+                const void* tw, long long batch, int n_in, int inverse,
+                float scale, cudaStream_t stream) {
+  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
+  constexpr long long rows = S::teams * S::rows;
+  const long long groups = (batch + rows - 1) / rows;
+  const T* x_r = static_cast<const T*>(xr);
+  const T* x_i = static_cast<const T*>(xi);
+  T* y_r = static_cast<T*>(yr);
+  T* y_i = static_cast<T*>(yi);
+  const float2* w = static_cast<const float2*>(tw);
+  if constexpr (kPadded)
+    return launch_resident(
+        minor_lane_padded_kernel<T, N1, N2, kTeamWarps, kThreads>, kThreads,
+        S::smem, groups, stream, x_r, x_i, y_r, y_i, w, (int64_t)batch, n_in,
+        inverse, scale);
+  else
+    return launch_resident(
+        minor_lane_kernel<T, N1, N2, kTeamWarps, kThreads, kFused>, kThreads,
+        S::smem, groups, stream, x_r, x_i, y_r, y_i, w, (int64_t)batch,
+        inverse, scale);
 }
 
 // The line form, for power-of-two n from 2 to 4096; (N1, N2, warps a team,
-// rows a team, threads a block) of each four-step, as the wrapper's
-// line_geometry lists them.
-template <typename T, bool kFused>
+// threads a block) of each four-step, as the wrapper's line_geometry lists
+// them.
+template <typename T, bool kFused, bool kPadded>
 int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
-                     const void* tw, long long batch, int n, int inverse,
-                     float scale, cudaStream_t stream) {
-#define TPUFFT_LINES(N) \
-  launch_lines<T, N, kFused>(xr, xi, yr, yi, tw, batch, inverse, scale, stream)
-#define TPUFFT_LANE(N1, N2, TW, TH)                                     \
-  launch_lane<T, N1, N2, TW, TH, kFused>(xr, xi, yr, yi, tw, batch, inverse, \
-                                         scale, stream)
+                     const void* tw, long long batch, int n, int n_in,
+                     int inverse, float scale, cudaStream_t stream) {
+#define TPUFFT_LINES(N)                                                   \
+  launch_lines<T, N, kFused, kPadded>(xr, xi, yr, yi, tw, batch, n_in,    \
+                                      inverse, scale, stream)
+#define TPUFFT_LANE(N1, N2, TW, TH)                                       \
+  launch_lane<T, N1, N2, TW, TH, kFused, kPadded>(                        \
+      xr, xi, yr, yi, tw, batch, n_in, inverse, scale, stream)
   switch (n) {
     case 2: return TPUFFT_LINES(2);
     case 4: return TPUFFT_LINES(4);
@@ -104,20 +131,21 @@ int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
   return (int)cudaErrorInvalidValue;
 }
 
-// Is n a length of the line form?
+// Is n a length of the line form? (K1, K20 and K9 alike.)
 inline bool line_form(int n) {
   return n >= 2 && n <= kLineMaxN && (n & (n - 1)) == 0;
 }
 
+// The line form where n is one of its lengths, else the stage form;
+// `stages` forces the stage form (kept to compare the forms).
 template <typename T, bool kPadded, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, long long batch, const Radices& plan,
-                 int n_in, int inverse, float scale, cudaStream_t stream) {
-  if constexpr (!kPadded) {
-    if (line_form(plan.n))
-      return launch_line_form<T, kFused>(xr, xi, yr, yi, tw, batch, plan.n,
-                                         inverse, scale, stream);
-  }
+                 int n_in, int inverse, float scale, bool stages,
+                 cudaStream_t stream) {
+  if (!stages && line_form(plan.n))
+    return launch_line_form<T, kFused, kPadded>(
+        xr, xi, yr, yi, tw, batch, plan.n, n_in, inverse, scale, stream);
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
     return launch<T, 512, 8, 2, kPadded, kFused>(
@@ -129,12 +157,14 @@ int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
 template <typename T>
 int launch_typed(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, long long batch, const Radices& plan,
-                 int n_in, int inverse, float scale, cudaStream_t stream) {
+                 int n_in, int inverse, float scale, bool stages,
+                 cudaStream_t stream) {
   if (n_in == plan.n)
     return launch_sized<T, false, false>(xr, xi, yr, yi, tw, batch, plan,
-                                         n_in, inverse, scale, stream);
+                                         n_in, inverse, scale, stages,
+                                         stream);
   return launch_sized<T, true, false>(xr, xi, yr, yi, tw, batch, plan, n_in,
-                                      inverse, scale, stream);
+                                      inverse, scale, stages, stream);
 }
 
 // K20: the rows of st and out are fused storage, their two planes st and
@@ -147,7 +177,24 @@ int launch_fused(const void* st, void* out, const void* tw, long long batch,
   T* y = static_cast<T*>(out);
   const int n = plan.n;
   return launch_sized<T, false, true>(x, x + n, y, y + n, tw, batch, plan, n,
-                                      inverse, scale, stream);
+                                      inverse, scale, false, stream);
+}
+
+int minor_entry(const void* xr, const void* xi, void* yr, void* yi,
+                const void* tw, long long batch, int n, int n_in,
+                const int* radices, int nstages, int inverse, float scale,
+                int bf16, bool stages, void* stream) {
+  Radices plan;
+  if (batch < 0 || n_in < 1 || n_in > n ||
+      !make_radices(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_typed<__nv_bfloat16>(xr, xi, yr, yi, tw, batch, plan, n_in,
+                                       inverse, scale, stages, s);
+  return launch_typed<float>(xr, xi, yr, yi, tw, batch, plan, n_in, inverse,
+                             scale, stages, s);
 }
 
 }  // namespace
@@ -158,24 +205,26 @@ int launch_fused(const void* st, void* out, const void* tw, long long batch,
 // 1 <= n_in < n the fused zero-pad DFT (K9). tw holds the n complex f32
 // values exp(-+2 pi i k / n) for the direction; radices[0:nstages] multiply
 // to n, each 2, 4, 8 or an odd value up to 127 (the stage form's plan; the
-// line form, which K1 runs at power-of-two n from 2 to 4096, ignores it).
-// Returns 0 or the CUDA error code of the launch.
+// line form, which K1 and K9 run at power-of-two n from 2 to 4096, ignores
+// it). Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 void* yi, const void* tw, long long batch,
                                 int n, int n_in, const int* radices,
                                 int nstages, int inverse, float scale,
                                 int bf16, void* stream) {
-  Radices plan;
-  if (batch < 0 || n_in < 1 || n_in > n ||
-      !make_radices(n, radices, nstages, &plan))
-    return (int)cudaErrorInvalidValue;
-  if (batch == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_typed<__nv_bfloat16>(xr, xi, yr, yi, tw, batch, plan, n_in,
-                                       inverse, scale, s);
-  return launch_typed<float>(xr, xi, yr, yi, tw, batch, plan, n_in, inverse,
-                             scale, s);
+  return minor_entry(xr, xi, yr, yi, tw, batch, n, n_in, radices, nstages,
+                     inverse, scale, bf16, false, stream);
+}
+
+// K9 on the stage form at every length (1 <= n_in < n), kept to compare
+// the forms; arguments and result as for tpufft_minor_fft.
+extern "C" int tpufft_minor_fft_padded_stages(
+    const void* xr, const void* xi, void* yr, void* yi, const void* tw,
+    long long batch, int n, int n_in, const int* radices, int nstages,
+    int inverse, float scale, int bf16, void* stream) {
+  if (n_in >= n) return (int)cudaErrorInvalidValue;
+  return minor_entry(xr, xi, yr, yi, tw, batch, n, n_in, radices, nstages,
+                     inverse, scale, bf16, true, stream);
 }
 
 // K20: the same transform on fused storage. Transforms the (batch, 2n)

@@ -21,8 +21,9 @@
 // The kernel has two forms; the host picks one by n (minor_fft.cu,
 // launch_sized; kernels/minor_fft.py:form mirrors the choice).
 //
-// The line form, for power-of-two n from 2 to 4096 (K1, K20): each row
-// lives in registers and goes through shared memory at most once each way.
+// The line form, for power-of-two n from 2 to 4096 (K1, K20, and K9 at
+// any n_in < n): each row lives in registers and goes through shared
+// memory at most once each way.
 // - n <= 64 (minor_lines_kernel): a row is one line of line_fft.cuh, on
 //   n/8 lanes of a warp that swap values by __shfl_xor_sync. Lane (l, c)
 //   loads x[l + G j] of row c straight from device memory (8 consecutive
@@ -53,8 +54,19 @@
 //   another's butterflies.
 //   Every load and store is a 4-byte (2-byte in bf16) access, so a view
 //   that does not start on a 16-byte boundary runs it too.
+// - K9 (kPadded: minor_lines_padded_kernel, minor_lane_padded_kernel) is
+//   the same kernel with the pad in its load (row_load): element col of
+//   row r is read at r n_in + col, and only where col < n_in; above that
+//   the register is 0 and no memory request is issued. In pass 1 of the
+//   lane kernel, lane j2's register j1 holds x[N2 j1 + j2], so it is 0
+//   for j1 >= ceil((n_in - j2) / N2). The butterflies still run on the
+//   zeros (the pass is bound by bytes, n_in is known only at run time).
+//   The store is K1's. At odd n_in (93) a row starts at any 4-byte
+//   offset, and a half warp's 16 consecutive loads touch up to 3 sectors
+//   instead of 2.
 //
-// The stage form (minor_fft_kernel), for every other length and for K9: a
+// The stage form (minor_fft_kernel), for every other length (K1, K20 and
+// K9 alike, e.g. 93, 480, a pad 300 -> 384 or 5000 -> 8192): a
 // block loads whole rows into shared memory, runs every Stockham stage
 // there (fft_stages.cuh, shared with the strided-axis and pair kernels),
 // and stores the rows. Two details keep it near the bandwidth bound:
@@ -196,15 +208,35 @@ __device__ __forceinline__ void line_store(T* __restrict__ yr,
   store_f(yi, g, v.y * scale);
 }
 
+// The line form's load: element `col` of input row `row`. K1 and K20 read
+// rows of n (line_index). K9 (kPadded) reads rows of n_in, the input's own
+// row stride, at row n_in + col, and only where col < n_in: the pad is 0
+// in the register and issues no memory request.
+template <typename T, bool kFused, bool kPadded>
+__device__ __forceinline__ float2 row_load(const T* __restrict__ xr,
+                                          const T* __restrict__ xi,
+                                          int64_t row, int n, int n_in,
+                                          int col) {
+  static_assert(!(kPadded && kFused), "no fused zero-pad form");
+  if constexpr (kPadded) {
+    if (col >= n_in) return make_float2(0.f, 0.f);
+    const int64_t g = row * n_in + col;
+    return make_float2(load_f(xr, g), load_f(xi, g));
+  } else {
+    return line_load<T, kFused>(xr, xi, row, n, col);
+  }
+}
+
 // n <= 64: warp w of block b holds rows [(b warps + w) R, + R), R = W K: lane
 // (l, c) holds row c + W k for k < K, each as Line<N> (line_fft.cuh). Rows
-// past the batch compute on zeros and store nothing.
-template <typename T, int N, int kThreads, bool kFused>
-__global__ void __launch_bounds__(kThreads, 512 / kThreads)
-minor_lines_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                   T* __restrict__ yr, T* __restrict__ yi,
-                   const float2* __restrict__ tw, int64_t batch, int inverse,
-                   float scale) {
+// past the batch compute on zeros and store nothing. The body of
+// minor_lines_kernel (K1, K20) and minor_lines_padded_kernel (K9, input
+// rows of n_in; n_in = N otherwise).
+template <typename T, int N, int kThreads, bool kFused, bool kPadded>
+__device__ __forceinline__ void lines_rows(
+    const T* __restrict__ xr, const T* __restrict__ xi, T* __restrict__ yr,
+    T* __restrict__ yi, const float2* __restrict__ tw, int64_t batch,
+    int n_in, int inverse, float scale) {
   using L = tpufft_line::Line<N>;
   constexpr int K = kLineLaneValues / L::V;
   const int lane = threadIdx.x & 31, l = lane / L::W, c = lane % L::W;
@@ -217,7 +249,8 @@ minor_lines_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
     const int64_t row = row0 + c + L::W * k;
 #pragma unroll
     for (int j = 0; j < L::V; ++j)
-      v[k][j] = row < batch ? line_load<T, kFused>(xr, xi, row, N, L::in(l, j))
+      v[k][j] = row < batch ? row_load<T, kFused, kPadded>(xr, xi, row, N,
+                                                           n_in, L::in(l, j))
                             : make_float2(0.f, 0.f);
   }
 #pragma unroll
@@ -231,6 +264,27 @@ minor_lines_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
         line_store<T, kFused>(yr, yi, row, N, L::out(l, q), v[k][q], scale);
     }
   }
+}
+
+template <typename T, int N, int kThreads, bool kFused>
+__global__ void __launch_bounds__(kThreads, 512 / kThreads)
+minor_lines_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                   T* __restrict__ yr, T* __restrict__ yi,
+                   const float2* __restrict__ tw, int64_t batch, int inverse,
+                   float scale) {
+  lines_rows<T, N, kThreads, kFused, false>(xr, xi, yr, yi, tw, batch, N,
+                                            inverse, scale);
+}
+
+// K9 at n <= 64: (batch, n_in) rows, 1 <= n_in < N, zero-padded to N.
+template <typename T, int N, int kThreads>
+__global__ void __launch_bounds__(kThreads, 512 / kThreads)
+minor_lines_padded_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                          T* __restrict__ yr, T* __restrict__ yi,
+                          const float2* __restrict__ tw, int64_t batch,
+                          int n_in, int inverse, float scale) {
+  lines_rows<T, N, kThreads, false, true>(xr, xi, yr, yi, tw, batch, n_in,
+                                          inverse, scale);
 }
 
 // ---- 128 <= n <= 4096: whole lines in a lane ----
@@ -403,14 +457,15 @@ __device__ __forceinline__ void team_sync(int team) {
 // line mod N1) in the same arrangement, register j2 (or p + 2 i) holding
 // Y'[k1, j2], stored at X[k1 + N1 k2]: 32 (or 2 x 16) consecutive elements
 // a store instruction. Rows past the batch compute on zeros and store
-// nothing.
+// nothing. The body of minor_lane_kernel (K1, K20) and
+// minor_lane_padded_kernel (K9: input rows of n_in, so pass 1's register
+// j1 of column j2 is 0 for N2 j1 + j2 >= n_in; n_in = n otherwise).
 template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
-          bool kFused>
-__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))
-minor_lane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                  T* __restrict__ yr, T* __restrict__ yi,
-                  const float2* __restrict__ tw, int64_t batch, int inverse,
-                  float scale) {
+          bool kFused, bool kPadded>
+__device__ __forceinline__ void lane_rows(
+    const T* __restrict__ xr, const T* __restrict__ xi, T* __restrict__ yr,
+    T* __restrict__ yi, const float2* __restrict__ tw, int64_t batch,
+    int n_in, int inverse, float scale) {
   using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
   constexpr int n = S::n, R = S::rows;
   extern __shared__ float2 tpufft_lane_smem[];
@@ -436,9 +491,9 @@ minor_lane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const int j1 = S::pair1 ? p + 2 * j : j;
-          v[s][j] = row < batch
-                        ? line_load<T, kFused>(xr, xi, row, n, N2 * j1 + j2)
-                        : make_float2(0.f, 0.f);
+          v[s][j] = row < batch ? row_load<T, kFused, kPadded>(
+                                      xr, xi, row, n, n_in, N2 * j1 + j2)
+                                : make_float2(0.f, 0.f);
         }
       }
 #pragma unroll
@@ -497,6 +552,29 @@ minor_lane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
     }
     team_sync<kTeamWarps>(team);  // the tile is read before it is rewritten
   }
+}
+
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
+          bool kFused>
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))
+minor_lane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                  T* __restrict__ yr, T* __restrict__ yi,
+                  const float2* __restrict__ tw, int64_t batch, int inverse,
+                  float scale) {
+  lane_rows<T, N1, N2, kTeamWarps, kThreads, kFused, false>(
+      xr, xi, yr, yi, tw, batch, N1 * N2, inverse, scale);
+}
+
+// K9 at 128 <= n <= 4096: (batch, n_in) rows, 1 <= n_in < n, zero-padded
+// to n = N1 N2.
+template <typename T, int N1, int N2, int kTeamWarps, int kThreads>
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))
+minor_lane_padded_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                         T* __restrict__ yr, T* __restrict__ yi,
+                         const float2* __restrict__ tw, int64_t batch,
+                         int n_in, int inverse, float scale) {
+  lane_rows<T, N1, N2, kTeamWarps, kThreads, false, true>(
+      xr, xi, yr, yi, tw, batch, n_in, inverse, scale);
 }
 
 }  // namespace tpufft_minor

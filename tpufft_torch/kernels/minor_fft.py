@@ -13,9 +13,10 @@ The CUDA kernel (``csrc/minor_fft.cu``, design notes in
 in one of two forms (:func:`form`): power-of-two n from 2 to 4096 run the
 line form, each row in registers (n <= 64: the lanes of one warp; above:
 a four-step n = N1 N2, :func:`line_split`, through one shared-memory tile
-a team of warps); every other length, and K9, runs the stage form, every
-mixed-radix Stockham stage in shared memory. Twiddles come from a host
-float64 table cast to f32, uploaded once per (n, direction, device).
+a team of warps), K9 at those n too; every other length runs the stage
+form, every mixed-radix Stockham stage in shared memory. Twiddles come
+from a host float64 table cast to f32, uploaded once per (n, direction,
+device).
 
 ``fft_minor`` is the wrapper. A CPU tensor runs ``fft_minor_reference``;
 a CUDA tensor launches the kernel or raises, never falls back. Its launch
@@ -23,11 +24,13 @@ count is ``launches``; ``reference_cuda_calls`` counts runs of the plain
 version on CUDA tensors, which the main path never makes.
 
 ``fft_minor_padded`` is K9, the counterpart of ``_build_minor_rect`` in its
-zero-pad direction (m_in < m_out = den): the same kernel with a bound on
-its load, reading (batch, n_in) rows and transforming them zero-padded to
-n, so the pad never touches device memory. It counts ``padded_launches``;
-its plain version is ``fft_minor_padded_reference`` (``F.pad``, then
-``fft_minor_reference``).
+zero-pad direction (m_in < m_out = den): the same kernel, in the same form
+as K1 at the padded length n, with the pad in its load: it reads (batch,
+n_in) rows at their own stride n_in and loads the columns n_in..n-1 as
+zeros, so the pad never touches device memory. ``stages=True`` forces the
+stage form at every length, kept to compare the forms. It counts
+``padded_launches``; its plain version is ``fft_minor_padded_reference``
+(``F.pad``, then ``fft_minor_reference``).
 
 ``fft_minor_reference`` is the plain version. It follows tpufft's own
 factorization (``_compute``, ``_butterfly`` and the ``_tables`` ported
@@ -113,15 +116,15 @@ def supported(n: int, dtype) -> bool:
 def form(n: int, n_in: int | None = None) -> str | None:
     """Which form of the kernel transforms rows of length n (read from
     ``n_in`` values zero-padded to n, K9, when ``n_in`` < n): ``"lines"``
-    for power-of-two n from 2 to ``LINE_MAX_N`` without a pad, ``"stages"``
-    for every other length in the envelope and for K9, None outside it.
-    Mirrors ``launch_sized`` in ``csrc/minor_fft.cu``, which makes the
-    choice at the launch."""
+    for power-of-two n from 2 to ``LINE_MAX_N``, with or without a pad,
+    ``"stages"`` for every other length in the envelope, None outside it
+    (or for an ``n_in`` outside [1, n]). Mirrors ``launch_sized`` in
+    ``csrc/minor_fft.cu``, which makes the choice at the launch."""
     n = int(n)
     if not _length_ok(n):
         return None
-    if n_in is not None and int(n_in) != n:
-        return "stages" if 1 <= int(n_in) < n else None
+    if n_in is not None and not 1 <= int(n_in) <= n:
+        return None
     return "lines" if 2 <= n <= LINE_MAX_N and n & (n - 1) == 0 else "stages"
 
 
@@ -207,8 +210,10 @@ def check_length(name: str, n: int) -> None:
             f"(n <= {MAX_N}, prime factors <= {MAX_PRIME})")
 
 
-def _launch(xr, xi, n: int, inverse: bool, scale: float):
-    """K1 (n == n_in) or K9 (n_in < n) on the (batch, n_in) planes."""
+def _launch(xr, xi, n: int, inverse: bool, scale: float,
+            stages: bool = False):
+    """K1 (n == n_in) or K9 (n_in < n) on the (batch, n_in) planes; K9 on
+    the stage form with ``stages``."""
     batch, n_in = xr.shape
     yr = xr.new_empty((batch, n))
     yi = torch.empty_like(yr)
@@ -219,7 +224,9 @@ def _launch(xr, xi, n: int, inverse: bool, scale: float):
     rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
     with torch.cuda.device(xr.device):
         tw = _device_twiddles(n, bool(inverse), xr.device)
-        err = lib.tpufft_minor_fft(
+        entry = (lib.tpufft_minor_fft_padded_stages if stages
+                 else lib.tpufft_minor_fft)
+        err = entry(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tw.data_ptr(), batch, n, n_in, rad_arr, len(rad),
             int(bool(inverse)), float(scale), int(xr.dtype == torch.bfloat16),
@@ -247,13 +254,16 @@ def fft_minor(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
 
 
 def fft_minor_padded(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
-                     inverse: bool,
-                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+                     inverse: bool, scale: float,
+                     stages: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Zero-pad the (batch, n_in) planes to length n > n_in along their
     minor axis and transform them, in one pass (K9): (batch, n) out.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise on anything it does not take."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    :func:`form` on the current stream (``stages``: the stage form at every
+    length, kept to compare the forms) and raise on anything it does not
+    take."""
     global padded_launches
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return fft_minor_padded_reference(xr, xi, n=n, inverse=inverse,
@@ -264,7 +274,7 @@ def fft_minor_padded(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
     if not 1 <= xr.shape[1] < n:
         raise ValueError(f"minor_fft_padded: input length {xr.shape[1]} "
                          f"must be in [1, {n})")
-    yr, yi, launched = _launch(xr, xi, n, inverse, scale)
+    yr, yi, launched = _launch(xr, xi, n, inverse, scale, stages)
     padded_launches += launched
     return yr, yi
 
