@@ -182,7 +182,24 @@ Phases, each of which raises (and so exits nonzero) on failure:
     bf16 form also beside K3 + K4 on the same data; K18 and K19 with their
     form); and K18
     against K3 on the same 268 MB for halves L = 2 to 64, where a half is
-    shorter than a 32-byte sector.
+    shorter than a 32-byte sector;
+24. the multirate, IIR, sigtools and ndimage paths at full size, each
+    call driven with every count set to 0 just before it and read just
+    after (no plain version may run; the FFT-convolution paths must launch
+    kernels): ``decimate(x, 4)`` (the IIR zero-phase path: Chebyshev-I
+    sections on the log-depth scan, forward and backward) and
+    ``decimate(x, 4, ftype="fir")``, ``resample_poly(x, 3, 2)``,
+    ``lfilter(*butter(2, 0.2), x, zi=...)`` (the companion scan) and
+    ``lfilter(firwin(101, 0.2), 1, x)`` (one FFT convolution),
+    ``savgol_filter(x, 101, 3)`` on (64, 1048576) f32; ``wiener`` on a
+    (4096, 4096) f32 image; ``medfilt2d`` on a (2048, 2048) f32 tensor
+    (``unfold`` and ``kthvalue`` on the card); and ``fourier_gaussian``
+    between ``rfftn`` and ``irfftn`` of (100, 640, 480), each against
+    scipy in float64 (4 rows of the signals, the whole images, 4 of the
+    volumes; limit 1e-3), with its launches per kernel, its time (CUDA
+    events, median of 5 after a warm-up), its peak device memory above
+    what was allocated before the call, and the byte floor of reading its
+    input and writing its output once at the copy rate.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -2571,6 +2588,144 @@ def phase_layout_times() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 24: the multirate, IIR, sigtools and ndimage paths
+# ----------------------------------------------------------------------------
+
+MULTIRATE_TOL = 1e-3   # f32 paths vs scipy in float64 (bench.py's check)
+MULTIRATE_REPS = 5
+IMAGE = (4096, 4096)          # wiener's image
+MEDIAN_IMAGE = (2048, 2048)   # medfilt2d's
+BLUR = (100, 640, 480)        # fourier_gaussian between rfftn and irfftn
+
+
+def _time_peak(fn) -> tuple[float, float]:
+    """Median of MULTIRATE_REPS CUDA-event times of fn after one warm-up
+    call, and one call's peak device memory above what was allocated
+    before it, in GB."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MULTIRATE_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (statistics.median(times),
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def phase_multirate_paths(rate: float) -> dict:
+    """Each multirate, IIR, sigtools and ndimage path once at full size with
+    every count set to 0 just before it and read just after, against scipy
+    in float64, then timed; returns the launches per kernel."""
+    import scipy.ndimage
+
+    from tpufft_torch import ndimage
+
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    x, _ = _device_planes(SIG, seed=61)
+    xh = x[:4].double().cpu().numpy()
+    b2, a2 = tpufft_torch.butter(2, 0.2)
+    zi1 = tpufft_torch.lfilter_zi(b2, a2)
+    zi = torch.as_tensor(zi1, dtype=torch.float32, device="cuda") * x[:, :1]
+    fir = tpufft_torch.firwin(101, 0.2)
+    img = _device_planes(IMAGE, seed=62)[0]
+    med = _device_planes(MEDIAN_IMAGE, seed=63)[0]
+    vol = _device_planes(BLUR, seed=64)[0]
+    vh = vol[:4].double().cpu().numpy()
+    sig = 4 * math.prod(SIG)
+
+    def blur():
+        spec = tpufft_torch.rfftn(vol, axes=(1, 2))
+        spec = ndimage.fourier_gaussian(spec, (0.0, 2.0, 2.0), n=BLUR[2],
+                                        axis=-1)
+        return tpufft_torch.irfftn(spec, s=BLUR[1:], axes=(1, 2))
+
+    def blur_f64():
+        spec = scipy.ndimage.fourier_gaussian(
+            np.fft.rfftn(vh, axes=(1, 2)), (0.0, 2.0, 2.0), n=BLUR[2],
+            axis=-1)
+        return np.fft.irfftn(spec, s=BLUR[1:], axes=(1, 2))
+
+    # name, call, whether it runs an FFT convolution (kernels must launch),
+    # the result's rows to compare, scipy in float64 on those rows, and the
+    # bytes of the input read and the output written once
+    paths = (
+        ("decimate iir q=4", lambda: tpufft_torch.decimate(x, 4), False,
+         lambda y: y[:4], lambda: scipy.signal.decimate(xh, 4),
+         sig * 1.25),
+        ("decimate fir q=4",
+         lambda: tpufft_torch.decimate(x, 4, ftype="fir"), True,
+         lambda y: y[:4],
+         lambda: scipy.signal.decimate(xh, 4, ftype="fir"), sig * 1.25),
+        ("resample_poly 3/2",
+         lambda: tpufft_torch.resample_poly(x, 3, 2, axis=-1), True,
+         lambda y: y[:4],
+         lambda: scipy.signal.resample_poly(xh, 3, 2, axis=-1), sig * 2.5),
+        ("lfilter butter(2) zi",
+         lambda: tpufft_torch.lfilter(b2, a2, x, zi=zi), False,
+         lambda y: torch.cat([y[0][:4], y[1][:4]], -1),
+         lambda: np.concatenate(scipy.signal.lfilter(
+             b2, a2, xh, zi=zi1[None, :] * xh[:, :1]), -1), sig * 2),
+        ("lfilter firwin(101)", lambda: tpufft_torch.lfilter(fir, 1.0, x),
+         True, lambda y: y[:4], lambda: scipy.signal.lfilter(fir, 1.0, xh),
+         sig * 2),
+        ("savgol_filter 101/3",
+         lambda: tpufft_torch.savgol_filter(x, 101, 3), True,
+         lambda y: y[:4], lambda: scipy.signal.savgol_filter(xh, 101, 3),
+         sig * 2),
+        (f"wiener {IMAGE}", lambda: tpufft_torch.wiener(img), True,
+         lambda y: y, lambda: scipy.signal.wiener(
+             img.double().cpu().numpy()), 8 * math.prod(IMAGE)),
+        (f"medfilt2d {MEDIAN_IMAGE}", lambda: tpufft_torch.medfilt2d(med),
+         False, lambda y: y,
+         lambda: scipy.signal.medfilt2d(med.cpu().numpy()),
+         8 * math.prod(MEDIAN_IMAGE)),
+        (f"fourier_gaussian {BLUR}", blur, True, lambda y: y[:4], blur_f64,
+         8 * math.prod(BLUR)),
+    )
+    for name, fn, convolves, rows, ref, nbytes in paths:
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        check(plain == 0, f"{name}: plain versions ran {plain} times on "
+              "CUDA tensors")
+        launched = {k: v for k, v in by_kernel.items() if v}
+        check(bool(launched) == convolves,
+              f"{name}: kernel launches {launched}")
+        for k, v in by_kernel.items():
+            total[k] += v
+        res = out[0] if isinstance(out, tuple) else out
+        check(res.is_cuda and res.dtype == torch.float32
+              and bool(torch.isfinite(res).all()),
+              f"{name}: output {res.dtype} on {res.device}")
+        err = _rel(rows(out).double().cpu().numpy(), ref())
+        check(err < MULTIRATE_TOL, f"{name}: vs scipy in f64 {err:.3e}")
+        shape = tuple(res.shape)
+        del out, res
+        ms, peak = _time_peak(fn)
+        print(f"path {name} -> {shape} f32: vs scipy f64 {err:.3e}, "
+              f"launches {launched}, plain-version CUDA calls {plain}; "
+              f"median of {MULTIRATE_REPS} {ms:.3f} ms, peak "
+              f"{peak:.3f} GB above the inputs, byte floor "
+              f"{nbytes / rate * 1e3:.4f} ms")
+    del x, zi, img, med, vol
+    print(f"multirate/IIR/sigtools/ndimage paths, launches "
+          f"{ {k: v for k, v in total.items() if v} }, plain-version CUDA "
+          "calls 0")
+    return total
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -2731,9 +2886,11 @@ def main() -> None:
     layout_launches = phase_layout_paths()
     layout_rows = phase_layout_times()
     rate = _copy_rate()
+    multirate_launches = phase_multirate_paths(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
-                 stft_launches, nd_launches, layout_launches):
+                 stft_launches, nd_launches, layout_launches,
+                 multirate_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

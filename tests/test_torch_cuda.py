@@ -2066,3 +2066,208 @@ def test_transform_major_plans_on_the_card(cuda_device):
         got = p.unpack(y)
         ref = torch.fft.fftn(x.cpu().to(torch.complex128), dim=axes)
         assert _err((got.re, got.im), (ref.real, ref.imag)) < 1e-5
+
+
+# ----------------------------------------------------------------------------
+# The multirate, IIR, sigtools and ndimage layers
+# ----------------------------------------------------------------------------
+
+def _layer_counts():
+    """(kernel launches of every module, plain-version runs on CUDA
+    tensors) since the last reset."""
+    from tpufft_torch.kernels import fused_fft
+    mods = (minor_fft, inner_fft, pair_fft, real_fft, dense_mm, stft_mm,
+            cube_fft, mid_pair_fft, fused_fft)
+    launches = minor_fft.padded_launches + pair_fft.padded_launches
+    for m in mods:
+        launches += m.launches if isinstance(m.launches, int) \
+            else sum(m.launches.values())
+    return launches, sum(m.reference_cuda_calls for m in mods)
+
+
+def _layer_reset():
+    from tpufft_torch.kernels import fused_fft
+    for m in (minor_fft, inner_fft, pair_fft, real_fft, dense_mm, stft_mm,
+              cube_fft, mid_pair_fft, fused_fft):
+        m.reset_counts()
+
+
+def _rel(got, ref):
+    got = got.detach().double().cpu().numpy()
+    ref = ref.detach().double().cpu().numpy()
+    assert got.shape == ref.shape
+    return np.max(np.abs(got - ref)) / max(1.0, float(np.max(np.abs(ref))))
+
+
+_BUTTER2 = tpufft_torch.butter(2, 0.2)
+_FIR101 = tpufft_torch.firwin(101, 0.2)
+_SOS8 = tpufft_torch.cheby1(8, 0.05, 0.2, output="sos")
+
+# name, call on a (4, 5000) signal, whether it runs an FFT convolution
+LAYER_PATHS = [
+    ("decimate_iir", lambda x: tpufft_torch.decimate(x, 4), False),
+    ("decimate_iir_causal",
+     lambda x: tpufft_torch.decimate(x, 3, zero_phase=False), False),
+    ("decimate_fir", lambda x: tpufft_torch.decimate(x, 4, ftype="fir"),
+     True),
+    ("resample_poly", lambda x: tpufft_torch.resample_poly(x, 3, 2, axis=-1),
+     True),
+    ("upfirdn_reflect", lambda x: tpufft_torch.upfirdn(
+        _FIR101, x, 2, 3, mode="reflect"), True),
+    ("lfilter_companion_zi", lambda x: tpufft_torch.lfilter(
+        *_BUTTER2, x, zi=x[:, :2] * 0.5)[0], False),
+    ("lfilter_fir", lambda x: tpufft_torch.lfilter(_FIR101, 1.0, x), True),
+    ("sosfilt", lambda x: tpufft_torch.sosfilt(_SOS8, x), False),
+    ("sosfiltfilt", lambda x: tpufft_torch.sosfiltfilt(_SOS8, x), False),
+    ("filtfilt", lambda x: tpufft_torch.filtfilt(*_BUTTER2, x), False),
+    ("savgol_interp", lambda x: tpufft_torch.savgol_filter(x, 101, 3), True),
+    ("savgol_mirror", lambda x: tpufft_torch.savgol_filter(
+        x, 31, 2, deriv=1, mode="mirror"), True),
+    ("detrend", lambda x: tpufft_torch.detrend(x, bp=[1000, 3000]), False),
+]
+
+
+@pytest.mark.parametrize("name,fn,convolves", LAYER_PATHS,
+                         ids=[p[0] for p in LAYER_PATHS])
+def test_layer_paths_on_the_card(name, fn, convolves, cuda_device):
+    """A CUDA tensor in gives a CUDA tensor out; the FFT convolutions launch
+    kernels, the scans none; no plain version runs; the result is the CPU
+    float64 run's within the f32 contract (rtol 2e-4 / atol 2e-5)."""
+    x = _planes((4, 5000), cuda_device, seed=7)[0]
+    _layer_reset()
+    y = fn(x)
+    torch.cuda.synchronize()
+    launches, plain = _layer_counts()
+    assert y.is_cuda and y.dtype == torch.float32
+    assert plain == 0
+    assert (launches > 0) == convolves, launches
+    ref = fn(x.cpu().double())
+    np.testing.assert_allclose(y.cpu().numpy(), ref.numpy(), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_rank_filters_on_the_card(cuda_device, monkeypatch):
+    """medfilt2d, medfilt and order_filter filter a CUDA tensor on the card
+    (unfold and kthvalue, in blocks), exactly as on the CPU."""
+    from tpufft_torch import sigtools
+    monkeypatch.setattr(sigtools, "_CHUNK_BYTES", 1 << 16)
+    a = _planes((300, 257), cuda_device, seed=8)[0]
+    cpu = a.cpu()
+    for fn in (lambda t: tpufft_torch.medfilt2d(t),
+               lambda t: tpufft_torch.medfilt2d(t, 5),
+               lambda t: tpufft_torch.order_filter(
+                   t, np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]]), 3)):
+        got = fn(a)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), fn(cpu))
+    v = _planes((6, 40, 33), cuda_device, seed=9)[0]
+    got = tpufft_torch.medfilt(v, (3, 5, 3))
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), tpufft_torch.medfilt(v.cpu(), (3, 5, 3)))
+
+
+def test_wiener_and_convolve_on_the_card(cuda_device):
+    img = _planes((200, 300), cuda_device, seed=10)[0]
+    _layer_reset()
+    w = tpufft_torch.wiener(img)
+    torch.cuda.synchronize()
+    assert w.is_cuda and _layer_counts()[0] > 0 and _layer_counts()[1] == 0
+    assert _rel(w, tpufft_torch.wiener(img.cpu().double())) < 1e-4
+    k = _planes((5, 7), cuda_device, seed=11)[0]
+    for method in ("fft", "direct"):
+        got = tpufft_torch.convolve(img, k, "same", method)
+        assert got.is_cuda
+        assert _rel(got, tpufft_torch.convolve(img.cpu().double(),
+                                               k.cpu().double(), "same",
+                                               method)) < 1e-5
+    ai = torch.randint(-9, 9, (60, 50), device=cuda_device)
+    bi = torch.randint(-9, 9, (4, 3), device=cuda_device)
+    for method in ("fft", "direct"):
+        got = tpufft_torch.convolve(ai, bi, "full", method)
+        assert got.is_cuda and got.dtype == torch.int64
+        assert torch.equal(got.cpu(), tpufft_torch.convolve(
+            ai.cpu(), bi.cpu(), "full", "direct"))
+    got = tpufft_torch.convolve2d(img, k, "same", "wrap")
+    assert got.is_cuda
+    assert _rel(got, tpufft_torch.convolve2d(img.cpu().double(),
+                                             k.cpu().double(), "same",
+                                             "wrap")) < 1e-5
+
+
+def test_fourier_filters_on_the_card(cuda_device):
+    from tpufft_torch import ndimage
+    x = torch.complex(*_planes((12, 40, 33), cuda_device, seed=12))
+    sx = SplitComplex(x.real.contiguous(), x.imag.contiguous())
+    for fn, p in ((ndimage.fourier_gaussian, 2.0),
+                  (ndimage.fourier_uniform, 3.0),
+                  (ndimage.fourier_ellipsoid, 2.5),
+                  (ndimage.fourier_shift, (1.0, 2.5, -3.0))):
+        got = fn(x, p)
+        assert got.is_cuda and got.dtype == torch.complex64
+        assert _rel(torch.view_as_real(got), torch.view_as_real(
+            fn(x.cpu().to(torch.complex128), p))) < 1e-5
+        gs = fn(sx, p)
+        assert isinstance(gs, SplitComplex) and gs.re.is_cuda
+        assert _rel(torch.view_as_real(gs.complex()),
+                    torch.view_as_real(got)) < 1e-6
+
+
+def test_numpy_input_runs_layers_on_the_card(cuda_device, monkeypatch):
+    """numpy in with no device: the work runs on the card and numpy comes
+    back (the FFT convolution launches kernels; the scan's planes lie on
+    the card)."""
+    from tpufft_torch import iir
+    x = np.random.default_rng(0).standard_normal((3, 4000)).astype(
+        np.float32)
+    _layer_reset()
+    y = tpufft_torch.decimate(x, 4, ftype="fir")
+    assert isinstance(y, np.ndarray) and y.dtype == np.float32
+    assert _layer_counts()[0] > 0
+    devices = []
+    real = iir._affine_scan
+
+    def spy(u, zi, M):
+        devices.append(u[0].device.type)
+        return real(u, zi, M)
+
+    monkeypatch.setattr(iir, "_affine_scan", spy)
+    y = tpufft_torch.sosfilt(_SOS8, x)
+    assert isinstance(y, np.ndarray) and set(devices) == {"cuda"}
+    np.testing.assert_allclose(
+        y, tpufft_torch.sosfilt(_SOS8, x.astype(np.float64), device="cpu"),
+        rtol=2e-4, atol=2e-5)
+
+
+def test_tf32_flag_leaves_the_fp32_product_sites_alone(cuda_device):
+    """The lfilter companion scan, savgol_filter's edge projector and
+    detrend's fit stay within the f32 contract, bit for bit where they are
+    elementwise, with TF32 matmuls allowed."""
+    x = _planes((4, 6000), cuda_device, seed=13)[0] + torch.linspace(
+        0, 30, 6000, device=cuda_device)
+    sites = (lambda t: tpufft_torch.lfilter(*_BUTTER2, t,
+                                            zi=t[:, :2] * 0.5)[0],
+             lambda t: tpufft_torch.savgol_filter(t, 101, 3),
+             lambda t: tpufft_torch.detrend(t, bp=[2000]))
+    off = [fn(x) for fn in sites]
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        on = [fn(x) for fn in sites]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    for i, fn in enumerate(sites):
+        np.testing.assert_allclose(on[i].cpu().numpy(),
+                                   fn(x.cpu().double()).numpy(),
+                                   rtol=2e-4, atol=2e-5)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[2], off[2])
+
+
+def test_scan_autograd_on_the_card(cuda_device):
+    x = _planes((3, 700), cuda_device, seed=14)[0].requires_grad_(True)
+    (tpufft_torch.sosfilt(_SOS8, x) ** 2).sum().backward()
+    xc = x.detach().cpu().requires_grad_(True)
+    (tpufft_torch.sosfilt(_SOS8, xc) ** 2).sum().backward()
+    assert _rel(x.grad, xc.grad) < 1e-4

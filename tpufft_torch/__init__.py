@@ -3,9 +3,12 @@
 Batched complex and real FFTs on torch tensors, with tpufft's plans,
 arguments, split-plane layout and results, and the layers above them:
 filtering and FFT convolution (``signal``), DCT/DST (``realtrans``), the
-chirp-z transform (``czt``), the fast Hankel transform (``fhtlog``), and
+chirp-z transform (``czt``), the fast Hankel transform (``fhtlog``),
 short-time and averaged spectral analysis (``spectral``, ``shorttime``,
-``windows``). A
+``windows``), multirate resampling (``multirate``), IIR filtering on a
+log-depth scan (``iir``), the filter-design core (``design``), the
+scipy.signal utilities (``sigtools``) and Fourier image filters
+(``ndimage``). A
 transform whose lengths are inside the kernels' envelopes runs
 hand-written CUDA kernels on an NVIDIA Hopper GPU (``kernels/``) and their
 plain PyTorch versions on the CPU; everything else runs a torch-op
@@ -31,7 +34,19 @@ from .spectral import (get_window, stft, istft, spectrogram, periodogram,
                        welch, csd, coherence, check_NOLA, check_COLA,
                        lombscargle)
 from .shorttime import ShortTimeFFT, closest_STFT_dual_window
-from . import windows
+from .design import (BadCoefficients, buttap, cheb1ap, cheb2ap, ellipap,
+                     besselap, lp2lp_zpk, lp2hp_zpk, lp2bp_zpk, lp2bs_zpk,
+                     bilinear_zpk, iirfilter, butter, cheby1, cheby2, ellip,
+                     bessel, zpk2tf, normalize, tf2zpk, zpk2sos, tf2sos,
+                     kaiser_beta, kaiser_atten, firwin, lfilter_zi,
+                     sosfilt_zi)
+from .iir import sosfilt, sosfiltfilt, lfilter, filtfilt
+from .multirate import upfirdn, resample_poly, decimate
+from .sigtools import (detrend, deconvolve, wiener, correlation_lags,
+                       choose_conv_method, savgol_filter, savgol_coeffs,
+                       convolve, convolve2d, correlate2d, order_filter,
+                       medfilt, medfilt2d, vectorstrength)
+from . import ndimage, windows
 
 __all__ = [
     "PlanConfig", "SplitComplex", "Plan", "PrecisionDowngradeWarning",
@@ -50,4 +65,15 @@ __all__ = [
     "get_window", "stft", "istft", "spectrogram", "periodogram", "welch",
     "csd", "coherence", "check_NOLA", "check_COLA", "lombscargle",
     "ShortTimeFFT", "closest_STFT_dual_window", "windows",
+    "BadCoefficients", "buttap", "cheb1ap", "cheb2ap", "ellipap",
+    "besselap", "lp2lp_zpk", "lp2hp_zpk", "lp2bp_zpk", "lp2bs_zpk",
+    "bilinear_zpk", "iirfilter", "butter", "cheby1", "cheby2", "ellip",
+    "bessel", "zpk2tf", "normalize", "tf2zpk", "zpk2sos", "tf2sos",
+    "kaiser_beta", "kaiser_atten", "firwin", "lfilter_zi", "sosfilt_zi",
+    "sosfilt", "sosfiltfilt", "lfilter", "filtfilt",
+    "upfirdn", "resample_poly", "decimate",
+    "detrend", "deconvolve", "wiener", "correlation_lags",
+    "choose_conv_method", "savgol_filter", "savgol_coeffs", "convolve",
+    "convolve2d", "correlate2d", "order_filter", "medfilt", "medfilt2d",
+    "vectorstrength", "ndimage",
 ]

@@ -107,6 +107,29 @@ def numpy_device(device=None) -> torch.device:
     return dev
 
 
+_COMPUTE_DTYPES = (torch.float32, torch.float64, torch.complex64,
+                   torch.complex128)
+
+
+def compute_tensor(x, device=None) -> tuple[torch.Tensor, bool]:
+    """``x`` as the tensor a filtering layer computes on, and whether it
+    came as numpy. A tensor stays where it lies, numpy goes to
+    ``numpy_device(device)``; float32, float64, complex64 and complex128
+    keep their dtype, other real (complex) dtypes compute in float64
+    (complex128) for numpy and float32 (complex64) for tensors."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype in _COMPUTE_DTYPES:
+            return x, False
+        return x.to(torch.complex64 if x.is_complex() else torch.float32), \
+            False
+    xn = np.asarray(x)
+    if xn.dtype not in (np.float32, np.float64, np.complex64,
+                        np.complex128):
+        xn = xn.astype(np.complex128 if np.iscomplexobj(xn) else np.float64)
+    return torch.from_numpy(np.ascontiguousarray(xn)).to(
+        numpy_device(device)), True
+
+
 def _norm_scale(norm, n_total: int, inverse: bool) -> float:
     """Total scaling for a transform over n_total points (numpy conventions)."""
     if norm not in _NORMS:
