@@ -199,7 +199,28 @@ Phases, each of which raises (and so exits nonzero) on failure:
     volumes; limit 1e-3), with its launches per kernel, its time (CUDA
     events, median of 5 after a warm-up), its peak device memory above
     what was allocated before the call, and the byte floor of reading its
-    input and writing its output once at the copy rate.
+    input and writing its output once at the copy rate;
+25. the design, LTI and waveform paths at full size, each call driven with
+    every count set to 0 just before it and read just after, with a
+    tensor's ``cpu``/``numpy``/``item``/``tolist`` refused during the call
+    (no host copy): ``freqz`` of ``firwin(101, 0.2)`` as a CUDA f32 tensor
+    at ``worN=2048`` (n_fft 4096: K9 once), of a (129, 16384) bank of taps
+    along axis 0 at ``worN=1024`` (K2) and of one (65537,) FIR at
+    ``worN=2**20`` (n_fft 2**21: the two-pass split, K3 + K1), each against
+    scipy's float64 ``freqz`` (4 filters of the bank; limit 1e-5 of the
+    response's size); ``dlsim`` of a seeded stable 8-state, 4-input,
+    2-output system (``cont2discrete``, zoh) on a (1048576, 4) f32 input
+    with ``x0`` (the log-depth scan, no kernel) against scipy's float64
+    ``dlsim`` (limit 1e-3); and ``chirp`` (linear, logarithmic, complex),
+    ``sweep_poly``, ``gausspulse(retquad=True, retenv=True)``, ``sawtooth``
+    and ``square`` on a (64, 1048576) f32 time grid (no kernel) against
+    scipy on 4 rows, every phase under 2 pi 100 rad, so the limit is 8 f32
+    epsilons of that (6e-4), and for the square wave the share of samples
+    on the other side of an edge (limit 1e-3); each timed (median of 5)
+    with its peak device memory and byte floor, as in phase 24. Phase 25
+    runs alone after the build with
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build();
+    c.phase_design_paths(c._copy_rate())"``.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -2726,6 +2747,193 @@ def phase_multirate_paths(rate: float) -> dict:
     return total
 
 
+# ----------------------------------------------------------------------------
+# Phase 25: the design, LTI and waveform paths
+# ----------------------------------------------------------------------------
+
+FREQZ_TOL = 1e-5      # f32 FFT of the padded taps vs scipy's f64 response
+DLSIM_TOL = 1e-3      # the f32 scan vs scipy's f64 loop, of the output's size
+FREQZ_BANK = (129, 16384)   # taps, filters: a sweep of candidate designs
+FREQZ_LONG = 65537          # one long equalizer, on a 2**20-point grid
+DLSIM_SHAPE = (1_048_576, 4)
+DLSIM_SYSTEM = (8, 4, 2)    # states, inputs, outputs
+WAVE_SHAPE = (64, 1_048_576)
+
+
+class _NoHostCopies:
+    """Within the block, a tensor's ``cpu``, ``numpy``, ``item`` and
+    ``tolist`` raise: the device paths must not copy to the host."""
+
+    NAMES = ("cpu", "numpy", "item", "tolist")
+
+    def __enter__(self):
+        self.saved = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+
+        def refuse(name):
+            def method(*args, **kwargs):
+                raise RuntimeError(f"host copy ({name}) on a device path")
+            return method
+
+        for n in self.NAMES:
+            setattr(torch.Tensor, n, refuse(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, m in self.saved.items():
+            setattr(torch.Tensor, n, m)
+        return False
+
+
+def _dlsim_system():
+    """A seeded stable 8-state, 4-input, 2-output continuous system,
+    discretized by zero-order hold at dt = 0.01."""
+    nst, nin, nout = DLSIM_SYSTEM
+    rng = np.random.default_rng(25)
+    A = rng.standard_normal((nst, nst))
+    A -= (np.max(np.real(np.linalg.eigvals(A))) + 0.5) * np.eye(nst)
+    return tpufft_torch.cont2discrete(
+        (A, rng.standard_normal((nst, nin)), rng.standard_normal((nout, nst)),
+         rng.standard_normal((nout, nin))), 0.01)
+
+
+def _wave_grid() -> torch.Tensor:
+    """(64, 1048576) f32 times: row r holds r / 100 + k / 1048576, so every
+    phase below stays under 2 pi 100 (f32 keeps it to ~4e-5 rad)."""
+    rows, n = WAVE_SHAPE
+    t = (torch.arange(n, dtype=torch.float64, device="cuda") / n)[None] + \
+        torch.arange(rows, dtype=torch.float64, device="cuda")[:, None] / 100
+    return t.float()
+
+
+def phase_design_paths(rate: float) -> dict:
+    """freqz's three FFT routes, dlsim's scan and the waveforms once at full
+    size with every count set to 0 just before each call and read just
+    after, against scipy in float64, then timed (median of 5) with their
+    peak memory; returns the launches per kernel."""
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    fir = tpufft_torch.firwin(101, 0.2)
+    row = torch.as_tensor(fir, dtype=torch.float32, device="cuda")
+    bank = _device_planes(FREQZ_BANK, seed=71)[0]
+    long = _device_planes((FREQZ_LONG,), seed=72)[0]
+    bank_h = bank[:, :4].double().cpu().numpy()
+    long_h = long.double().cpu().numpy()
+    system = _dlsim_system()
+    u = _device_planes(DLSIM_SHAPE, seed=73)[0]
+    x0 = np.linspace(-1.0, 1.0, DLSIM_SYSTEM[0])
+    u_h = u.double().cpu().numpy()
+    t = _wave_grid()
+    t_h = t[:4].double().cpu().numpy()
+    wave_phase = 2 * math.pi * 100
+    wave_tol = 8 * np.finfo(np.float32).eps * wave_phase + 1e-6
+
+    def freqz_bank_f64():
+        return np.stack([scipy.signal.freqz(bank_h[:, j], worN=1024)[1]
+                         for j in range(4)], 1)
+
+    def gauss(tt):
+        return tpufft_torch.gausspulse(tt - 0.3, fc=50.0, retquad=True,
+                                       retenv=True)
+
+    def gauss_f64():
+        return np.stack(scipy.signal.gausspulse(t_h - 0.3, fc=50.0,
+                                                retquad=True, retenv=True))
+
+    n_wave = math.prod(WAVE_SHAPE)
+    # name, call, the kernels it must launch, the result's part to compare,
+    # scipy in float64 on that part, the tolerance, bytes read and written
+    paths = (
+        ("freqz firwin(101) worN=2048", lambda: tpufft_torch.freqz(
+            row, worN=2048)[1], {"minor_padded"}, lambda h: h,
+         lambda: scipy.signal.freqz(fir, worN=2048)[1], FREQZ_TOL,
+         4 * 101 + 8 * 2048),
+        (f"freqz bank {FREQZ_BANK} worN=1024", lambda: tpufft_torch.freqz(
+            bank, worN=1024)[1], {"inner"}, lambda h: h[:, :4],
+         freqz_bank_f64, FREQZ_TOL,
+         4 * math.prod(FREQZ_BANK) + 8 * 1024 * FREQZ_BANK[1]),
+        (f"freqz ({FREQZ_LONG},) worN=2**20", lambda: tpufft_torch.freqz(
+            long, worN=2 ** 20)[1], {"inner_nd", "minor"}, lambda h: h,
+         lambda: scipy.signal.freqz(long_h, worN=2 ** 20)[1], FREQZ_TOL,
+         4 * FREQZ_LONG + 8 * 2 ** 20),
+        (f"dlsim {DLSIM_SYSTEM} u {DLSIM_SHAPE}",
+         lambda: tpufft_torch.dlsim(system, u, x0=x0), set(),
+         lambda out: torch.cat([out[1], out[2]], 1),
+         lambda: np.concatenate(scipy.signal.dlsim(system, u_h, x0=x0)[1:],
+                                1), DLSIM_TOL,
+         4 * math.prod(DLSIM_SHAPE) + 4 * DLSIM_SHAPE[0] * (
+             DLSIM_SYSTEM[0] + DLSIM_SYSTEM[2])),
+        ("chirp linear", lambda: tpufft_torch.chirp(t, 5.0, 1.0, 20.0),
+         set(), lambda y: y[:4],
+         lambda: scipy.signal.chirp(t_h, 5.0, 1.0, 20.0), wave_tol,
+         8 * n_wave),
+        ("chirp logarithmic", lambda: tpufft_torch.chirp(
+            t, 5.0, 1.0, 20.0, "logarithmic"), set(), lambda y: y[:4],
+         lambda: scipy.signal.chirp(t_h, 5.0, 1.0, 20.0, "logarithmic"),
+         wave_tol, 8 * n_wave),
+        ("chirp complex", lambda: tpufft_torch.chirp(
+            t, 5.0, 1.0, 20.0, complex=True), set(), lambda y: y[:4],
+         lambda: scipy.signal.chirp(t_h, 5.0, 1.0, 20.0, complex=True),
+         wave_tol, 12 * n_wave),
+        ("sweep_poly", lambda: tpufft_torch.sweep_poly(t, [6.0, -2.0, 5.0]),
+         set(), lambda y: y[:4],
+         lambda: scipy.signal.sweep_poly(t_h, [6.0, -2.0, 5.0]), wave_tol,
+         8 * n_wave),
+        ("gausspulse retquad retenv", lambda: gauss(t), set(),
+         lambda y: torch.stack(y)[:, :4], gauss_f64, wave_tol, 16 * n_wave),
+        ("sawtooth width 0.3", lambda: tpufft_torch.sawtooth(
+            2 * math.pi * 60 * t, 0.3), set(), lambda y: y[:4],
+         lambda: scipy.signal.sawtooth(2 * math.pi * 60 * t_h, 0.3),
+         wave_tol, 8 * n_wave),
+        ("square duty 0.2", lambda: tpufft_torch.square(
+            2 * math.pi * 60 * t, 0.2), set(), lambda y: y[:4],
+         lambda: scipy.signal.square(2 * math.pi * 60 * t_h, 0.2), None,
+         8 * n_wave),
+    )
+    for name, fn, kernels, part, ref, tol, nbytes in paths:
+        torch.cuda.synchronize()
+        reset_counts()
+        with _NoHostCopies():
+            out = fn()
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        check(plain == 0, f"{name}: plain versions ran {plain} times on "
+              "CUDA tensors")
+        launched = {k: v for k, v in by_kernel.items() if v}
+        check(set(launched) == kernels, f"{name}: kernel launches "
+              f"{launched}, expected {sorted(kernels)}")
+        for k, v in by_kernel.items():
+            total[k] += v
+        res = part(out)
+        check(res.is_cuda and res.dtype in (torch.float32, torch.complex64)
+              and bool(torch.isfinite(res).all()),
+              f"{name}: output {res.dtype} on {res.device}")
+        got = _host(res, res.shape[0])
+        want = ref()
+        if tol is None:
+            # a square wave flips where f32 and f64 disagree on which side
+            # of an edge a sample lies: count those samples
+            err = float(np.mean(got != want))
+            check(set(np.unique(got)) <= {-1.0, 1.0} and err < 1e-3,
+                  f"{name}: {err:.3e} of the samples differ from scipy")
+            what = f"share differing from scipy f64 {err:.3e}"
+        else:
+            err = _rel(got, want)
+            check(err < tol, f"{name}: vs scipy in f64 {err:.3e} (limit "
+                  f"{tol:.1e})")
+            what = f"vs scipy f64 {err:.3e} (limit {tol:.1e})"
+        shape = tuple(res.shape)
+        del out, res
+        ms, peak = _time_peak(fn)
+        print(f"path {name} -> {shape}: {what}, launches {launched}, "
+              f"plain-version CUDA calls {plain}, host copies 0; median of "
+              f"{MULTIRATE_REPS} {ms:.3f} ms, peak {peak:.3f} GB above the "
+              f"inputs, byte floor {nbytes / rate * 1e3:.4f} ms")
+    del row, bank, long, u, t
+    print(f"design/ltisys/waveform paths, launches "
+          f"{ {k: v for k, v in total.items() if v} }, plain-version CUDA "
+          "calls 0")
+    return total
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -2887,10 +3095,11 @@ def main() -> None:
     layout_rows = phase_layout_times()
     rate = _copy_rate()
     multirate_launches = phase_multirate_paths(rate)
+    design_launches = phase_design_paths(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
-                 multirate_launches):
+                 multirate_launches, design_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

@@ -2271,3 +2271,134 @@ def test_scan_autograd_on_the_card(cuda_device):
     xc = x.detach().cpu().requires_grad_(True)
     (tpufft_torch.sosfilt(_SOS8, xc) ** 2).sum().backward()
     assert _rel(x.grad, xc.grad) < 1e-4
+
+
+# ----------------------------------------------------------------------------
+# The design, LTI and waveform layers
+# ----------------------------------------------------------------------------
+
+# name, numerator shape, worN, the kernels that must launch
+FREQZ_ROUTES = [
+    ("row_k9", (101,), 2048, {"minor_padded"}),
+    ("bank_k2", (129, 96), 1024, {"inner"}),
+    ("long_k3_k1", (65537,), 2 ** 20, {"inner_nd", "minor"}),
+]
+
+
+def _by_kernel():
+    from tpufft_torch.kernels import fused_fft
+    return ({"minor": minor_fft.launches,
+             "minor_padded": minor_fft.padded_launches, **inner_fft.launches,
+             "pair": pair_fft.launches,
+             "pair_padded": pair_fft.padded_launches, **real_fft.launches,
+             **dense_mm.launches, **stft_mm.launches,
+             "cube": cube_fft.launches, "mid_pair": mid_pair_fft.launches,
+             **{f"fused_{k}": v for k, v in fused_fft.launches.items()}})
+
+
+@pytest.mark.parametrize("name,shape,worN,kernels", FREQZ_ROUTES,
+                         ids=[r[0] for r in FREQZ_ROUTES])
+def test_freqz_routes_on_the_card(name, shape, worN, kernels, cuda_device):
+    """freqz of a CUDA numerator with a scalar denominator is the port's FFT
+    on the card: the route's kernels launch, no plain version runs, and the
+    response is a complex64 tensor there, within 1e-5 of the float64 host
+    evaluation."""
+    b = _planes(shape, cuda_device, seed=sum(shape))[0]
+    _layer_reset()
+    w, h = tpufft_torch.freqz(b, 2.0, worN=worN)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _by_kernel().items() if v}
+    assert _layer_counts()[1] == 0
+    assert launched == kernels, launched
+    assert h.is_cuda and h.dtype == torch.complex64
+    assert h.shape == (worN,) + shape[1:]
+    bh = b.double().cpu().numpy()
+    rows = bh if bh.ndim == 1 else bh[:, :4]
+    wr, hr = tpufft_torch.freqz(rows, 2.0, worN=worN)
+    np.testing.assert_array_equal(w, wr)
+    got = h.cpu().numpy() if h.ndim == 1 else h[:, :4].cpu().numpy()
+    assert np.max(np.abs(got - hr)) / np.max(np.abs(hr)) < 1e-5
+
+
+def test_freqz_horner_stays_on_the_card(cuda_device):
+    """A non-scalar denominator and an array worN run Horner's rule on the
+    card: no kernel, no host copy, a CUDA tensor out."""
+    b, a = tpufft_torch.butter(4, 0.3)
+    bt = torch.as_tensor(b, dtype=torch.float32, device=cuda_device)
+    _layer_reset()
+    for kw in ({"a": a, "worN": 512}, {"a": 1.0,
+                                        "worN": np.linspace(0, 3, 100)}):
+        w, h = tpufft_torch.freqz(bt, **kw)
+        assert h.is_cuda and h.dtype == torch.complex64
+        ref = tpufft_torch.freqz(b, kw["a"], worN=kw["worN"])[1]
+        assert np.max(np.abs(h.cpu().numpy() - ref)) < 1e-5
+    assert _layer_counts() == (0, 0)
+
+
+def _dlsim_system(nst=8, nin=4, nout=2, seed=5):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((nst, nst))
+    A -= (np.max(np.real(np.linalg.eigvals(A))) + 0.5) * np.eye(nst)
+    return tpufft_torch.cont2discrete(
+        (A, rng.standard_normal((nst, nin)), rng.standard_normal((nout, nst)),
+         rng.standard_normal((nout, nin))), 0.05)
+
+
+def test_dlsim_on_the_card_with_tf32_on(cuda_device):
+    """dlsim of a CUDA input runs the scan on the card with TF32 matmuls
+    allowed and matches the CPU tensor run (no kernel launches)."""
+    system = _dlsim_system()
+    u = _planes((20000, 4), cuda_device, seed=15)[0]
+    x0 = np.linspace(-1, 1, 8)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        _layer_reset()
+        t, y, x = tpufft_torch.dlsim(system, u, x0=x0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert _layer_counts() == (0, 0)
+    assert y.is_cuda and x.is_cuda and y.dtype == torch.float32
+    _, yc, xc = tpufft_torch.dlsim(system, u.cpu(), x0=x0)
+    assert _rel(y, yc) < 1e-5 and _rel(x, xc) < 1e-5
+    _, yd, _ = tpufft_torch.dlsim(system, u.cpu().double().numpy(), x0=x0)
+    assert _rel(y, torch.from_numpy(yd)) < 1e-4
+    tt = np.linspace(0, 0.05 * 19999, 20000) * 0.999
+    _, yt, _ = tpufft_torch.dlsim(system, u, t=tt, x0=x0)
+    assert yt.is_cuda
+    assert _rel(yt, tpufft_torch.dlsim(system, u.cpu(), t=tt, x0=x0)[1]) \
+        < 1e-5
+
+
+WAVEFORMS = [
+    ("chirp_linear", lambda t: tpufft_torch.chirp(t, 5.0, 1.0, 50.0)),
+    ("chirp_log", lambda t: tpufft_torch.chirp(t, 5.0, 1.0, 50.0,
+                                               "logarithmic", phi=30)),
+    ("chirp_complex", lambda t: tpufft_torch.chirp(t, 5.0, 1.0, 50.0,
+                                                   complex=True)),
+    ("sweep_poly", lambda t: tpufft_torch.sweep_poly(t, [2.0, -1.0, 10.0])),
+    ("gausspulse", lambda t: torch.stack(tpufft_torch.gausspulse(
+        t - 0.5, fc=40.0, retquad=True, retenv=True))),
+    ("sawtooth", lambda t: tpufft_torch.sawtooth(20 * t, 0.3)),
+    ("square", lambda t: tpufft_torch.square(20 * t, 0.2)),
+]
+
+
+@pytest.mark.parametrize("name,fn", WAVEFORMS, ids=[w[0] for w in WAVEFORMS])
+def test_waveforms_on_the_card(name, fn, cuda_device):
+    """The samplers run where the time grid lies and keep float32; they
+    match the CPU tensor path bit for bit up to float32 rounding of the
+    phase (|phase| <= 2 pi 30 here)."""
+    t = torch.linspace(0, 1, 100000, device=cuda_device)
+    _layer_reset()
+    y = fn(t)
+    assert y.is_cuda and y.dtype in (torch.float32, torch.complex64)
+    assert _layer_counts() == (0, 0)
+    ref = fn(t.cpu())
+    if y.is_complex():
+        y, ref = torch.view_as_real(y), torch.view_as_real(ref)
+    if name == "square":
+        assert (y.cpu() != ref).float().mean() < 1e-4
+    else:
+        assert _rel(y, ref) < 8 * 6e-8 * 2 * np.pi * 30 + 1e-6

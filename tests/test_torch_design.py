@@ -57,7 +57,7 @@ def resp_err(ba1, ba2, n=512):
 
 def test_exports_are_tpufft_names():
     names = [n for n in d.__all__]
-    assert len(names) == 27
+    assert len(names) == 64
     for name in names:
         assert name in tpufft.__all__, name
         assert name in tpufft_torch.__all__, name

@@ -6,9 +6,10 @@ filtering and FFT convolution (``signal``), DCT/DST (``realtrans``), the
 chirp-z transform (``czt``), the fast Hankel transform (``fhtlog``),
 short-time and averaged spectral analysis (``spectral``, ``shorttime``,
 ``windows``), multirate resampling (``multirate``), IIR filtering on a
-log-depth scan (``iir``), the filter-design core (``design``), the
-scipy.signal utilities (``sigtools``) and Fourier image filters
-(``ndimage``). A
+log-depth scan (``iir``), filter design and frequency responses
+(``design``), linear time-invariant systems (``ltisys``), waveforms
+(``waveforms``), the scipy.signal utilities (``sigtools``) and Fourier
+image filters (``ndimage``). A
 transform whose lengths are inside the kernels' envelopes runs
 hand-written CUDA kernels on an NVIDIA Hopper GPU (``kernels/``) and their
 plain PyTorch versions on the CPU; everything else runs a torch-op
@@ -39,7 +40,20 @@ from .design import (BadCoefficients, buttap, cheb1ap, cheb2ap, ellipap,
                      bilinear_zpk, iirfilter, butter, cheby1, cheby2, ellip,
                      bessel, zpk2tf, normalize, tf2zpk, zpk2sos, tf2sos,
                      kaiser_beta, kaiser_atten, firwin, lfilter_zi,
-                     sosfilt_zi)
+                     sosfilt_zi,
+                     firwin2, firwin_2d, firls, remez, minimum_phase,
+                     gammatone, kaiserord, lp2lp, lp2hp, lp2bp, lp2bs,
+                     bilinear, iirnotch, iirpeak, iircomb, iirdesign,
+                     buttord, cheb1ord, cheb2ord, ellipord, band_stop_obj,
+                     sos2tf, sos2zpk, freqz, freqz_zpk, sosfreqz, freqz_sos,
+                     group_delay, freqs, freqs_zpk, findfreqs, residue,
+                     residuez, invres, invresz, unique_roots, lfiltic)
+from .ltisys import (lti, dlti, TransferFunction, ZerosPolesGain, StateSpace,
+                     tf2ss, ss2tf, zpk2ss, ss2zpk, abcd_normalize,
+                     cont2discrete, lsim, impulse, step, freqresp, bode,
+                     dlsim, dimpulse, dstep, dfreqresp, dbode, place_poles)
+from .waveforms import (chirp, sweep_poly, gausspulse, square, sawtooth,
+                        unit_impulse, max_len_seq)
 from .iir import sosfilt, sosfiltfilt, lfilter, filtfilt
 from .multirate import upfirdn, resample_poly, decimate
 from .sigtools import (detrend, deconvolve, wiener, correlation_lags,
@@ -70,6 +84,19 @@ __all__ = [
     "bilinear_zpk", "iirfilter", "butter", "cheby1", "cheby2", "ellip",
     "bessel", "zpk2tf", "normalize", "tf2zpk", "zpk2sos", "tf2sos",
     "kaiser_beta", "kaiser_atten", "firwin", "lfilter_zi", "sosfilt_zi",
+    "firwin2", "firwin_2d", "firls", "remez", "minimum_phase", "gammatone",
+    "kaiserord", "lp2lp", "lp2hp", "lp2bp", "lp2bs", "bilinear",
+    "iirnotch", "iirpeak", "iircomb", "iirdesign", "buttord", "cheb1ord",
+    "cheb2ord", "ellipord", "band_stop_obj", "sos2tf", "sos2zpk",
+    "freqz", "freqz_zpk", "sosfreqz", "freqz_sos", "group_delay",
+    "freqs", "freqs_zpk", "findfreqs", "residue", "residuez", "invres",
+    "invresz", "unique_roots", "lfiltic",
+    "lti", "dlti", "TransferFunction", "ZerosPolesGain", "StateSpace",
+    "tf2ss", "ss2tf", "zpk2ss", "ss2zpk", "abcd_normalize",
+    "cont2discrete", "lsim", "impulse", "step", "freqresp", "bode",
+    "dlsim", "dimpulse", "dstep", "dfreqresp", "dbode", "place_poles",
+    "chirp", "sweep_poly", "gausspulse", "square", "sawtooth",
+    "unit_impulse", "max_len_seq",
     "sosfilt", "sosfiltfilt", "lfilter", "filtfilt",
     "upfirdn", "resample_poly", "decimate",
     "detrend", "deconvolve", "wiener", "correlation_lags",
