@@ -220,7 +220,38 @@ Phases, each of which raises (and so exits nonzero) on failure:
     with its peak device memory and byte floor, as in phase 24. Phase 25
     runs alone after the build with
     ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build();
-    c.phase_design_paths(c._copy_rate())"``.
+    c.phase_design_paths(c._copy_rate())"``;
+26. peak finding and the B-spline filters at full size, each call driven
+    with every count set to 0 just before it and read just after, no
+    plain version and no host copy allowed (``find_peaks``' tie order
+    among equal heights within the distance and ``find_peaks_cwt``'s
+    maxima coordinates may copy once; the copies are counted and their
+    bytes printed): ``find_peaks`` with all seven conditions
+    (``wlen=1001``) and with ``prominence=0.02`` alone (unbounded walks)
+    on a (16777216,) f32 spectrum of ~20000 Gaussian lines on a slow
+    baseline with white noise, rounded to multiples of 2**-10 (plateaus
+    and equal heights), against scipy in float64 (indices equal,
+    properties within 1e-12 of their size), with the thinning's rounds;
+    ``argrelmax(axis=1, order=5)`` and ``argrelmin(..., mode="wrap")`` on
+    (64, 1048576) f32 (index tuples equal to scipy's);
+    ``find_peaks_cwt(x, np.arange(1, 33))`` on a (131072,) f32 spectrum of
+    the same kind (indices equal; the copy's bytes and the host ridge
+    walk's time); ``cspline1d``, ``qspline1d``, ``symiirorder1(x, 1,
+    -2 + sqrt(3))``, ``cspline1d(x, 2.5)`` and ``symiirorder2(x, 0.5,
+    pi/4)`` on (16777216,) f32 against scipy in float64 (1e-5 of the
+    output's size; for the last two away from 64 samples of each end,
+    plus the folded taps applied to the result giving x back everywhere,
+    1e-5 of x's size); ``cspline1d_eval`` at 4194304 points over
+    [-N/2, 3N/2] (1e-5); ``cspline2d``, ``qspline2d``, ``sepfir2d`` with a
+    7-tap and a 5-tap kernel and ``spline_filter`` at 3.0 (interior
+    [4:-4, 4:-4], 1e-3) and at 5.0 (where scipy raises: the defining
+    equations, 1e-5) on a (4096, 4096) f32 image. Each line prints the
+    error, the launches per kernel (none), the torch kernels of one
+    profiled call and the device's idle share in it, the time (median of
+    5), the peak memory above the inputs and the byte floor, beside the
+    card's name and power limit. Phase 26 runs alone after the build with
+    ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build();
+    c.phase_peaks_spline_paths(c._copy_rate())"``.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -2761,16 +2792,29 @@ WAVE_SHAPE = (64, 1_048_576)
 
 
 class _NoHostCopies:
-    """Within the block, a tensor's ``cpu``, ``numpy``, ``item`` and
-    ``tolist`` raise: the device paths must not copy to the host."""
+    """Within the block, a CUDA tensor's ``cpu``, ``numpy``, ``item`` and
+    ``tolist`` raise: the device paths must not copy to the host. Up to
+    ``allow`` calls of ``cpu`` go through, counted in ``copies`` with
+    their bytes in ``nbytes``."""
 
     NAMES = ("cpu", "numpy", "item", "tolist")
+
+    def __init__(self, allow: int = 0):
+        self.allow = allow
+        self.copies = 0
+        self.nbytes = 0
 
     def __enter__(self):
         self.saved = {n: getattr(torch.Tensor, n) for n in self.NAMES}
 
         def refuse(name):
-            def method(*args, **kwargs):
+            def method(t, *args, **kwargs):
+                if not t.is_cuda:
+                    return self.saved[name](t, *args, **kwargs)
+                if name == "cpu" and self.copies < self.allow:
+                    self.copies += 1
+                    self.nbytes += t.numel() * t.element_size()
+                    return self.saved[name](t, *args, **kwargs)
                 raise RuntimeError(f"host copy ({name}) on a device path")
             return method
 
@@ -2934,6 +2978,342 @@ def phase_design_paths(rate: float) -> dict:
     return total
 
 
+# ----------------------------------------------------------------------------
+# Phase 26: peak finding and the B-spline filters
+# ----------------------------------------------------------------------------
+
+PEAK_N = 1 << 24            # samples of find_peaks' spectrum
+PEAK_LINES = 20000          # Gaussian lines in PEAK_N samples
+PEAK_QUANTUM = 2.0 ** -10   # find_peaks' spectrum is rounded to it
+PEAK_TOL = 1e-12            # find_peaks' properties vs scipy, of their size
+FIND_PEAKS_KW = dict(height=(0.2, 1.5), threshold=(0.0, 0.05), distance=25,
+                     prominence=(0.02, None), width=(2.0, 200.0), wlen=1001,
+                     plateau_size=(1, 4))
+ARGREL_SHAPE = (64, 1_048_576)
+CWT_N = 131_072
+CWT_WIDTHS = np.arange(1, 33)
+SPLINE_N = 1 << 24
+EVAL_POINTS = 4_194_304
+SPLINE_IMAGE = (4096, 4096)
+SEPFIR_ROWS = np.array([-0.05, 0.1, 0.25, 0.4, 0.25, 0.1, -0.05])
+SEPFIR_COLS = np.array([0.1, 0.2, 0.4, 0.2, 0.1])
+Z1_CUBIC = -2 + math.sqrt(3)   # the cubic spline's own pole
+SPLINE_TOL = 1e-5          # f32 solves vs scipy in f64, of the output's size
+SPLINE_FILTER_TOL = 1e-3   # spline_filter(3.0)'s interior, as tpufft's test
+SPLINE_EDGE = 64           # samples that carry scipy's truncated startup
+# the float64 smoothing solve's residual (spline_filter at 5.0): the f32
+# result's own rounding times the 2-D operator's norm (~80^2) is ~4e-5 of
+# the image, so the defining equations are held on the float64 solve
+SPLINE_F64_TOL = 1e-9
+
+
+def _spectrum(n: int, seed: int, quantum: float | None = None):
+    """(n,) f32 on the card: PEAK_LINES lines a PEAK_N samples, Gaussians
+    of standard deviation 3-30 samples and height 0.05-1, on the baseline
+    0.3 + 0.2 sin(6 pi k / n), with white noise of 0.01; rounded to
+    multiples of ``quantum`` when given (plateaus, equal heights)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    f64 = dict(generator=g, device="cuda", dtype=torch.float64)
+    lines = max(1, PEAK_LINES * n // PEAK_N)
+    k = torch.arange(n, device="cuda", dtype=torch.float64)
+    x = 0.3 + 0.2 * torch.sin(6 * math.pi * k / n) + 0.01 * torch.randn(
+        n, **f64)
+    pos = torch.rand(lines, **f64) * n
+    height = 0.05 + 0.95 * torch.rand(lines, **f64)
+    sd = 3 + 27 * torch.rand(lines, **f64)
+    idx = pos.long()[:, None] + torch.arange(-150, 151, device="cuda")
+    val = height[:, None] * torch.exp(
+        -0.5 * ((idx - pos[:, None]) / sd[:, None]) ** 2)
+    inside = (idx >= 0) & (idx < n)
+    x.index_add_(0, idx[inside], val[inside])
+    if quantum is not None:
+        x = torch.round(x / quantum) * quantum
+    return x.float()
+
+
+def _folded(c: np.ndarray, taps: dict, axis: int = -1) -> np.ndarray:
+    """The taps applied to c along ``axis`` with the half-sample mirror
+    (what a prefilter's solve inverts), in float64 on the host."""
+    n = c.shape[axis]
+    k = np.arange(n)
+    out = np.zeros_like(c)
+    for d, v in taps.items():
+        j = k + d
+        j = np.where(j < 0, -j - 1, j)
+        j = np.where(j > n - 1, 2 * n - 1 - j, j)
+        out += v * np.take(c, j, axis=axis)
+    return out
+
+
+def _device_us(event) -> float:
+    """A kernel event's device time, microseconds (``device_time`` in
+    recent PyTorch, ``cuda_time`` before it)."""
+    for attr in ("device_time", "cuda_time"):
+        value = getattr(event, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def _profiled(fn) -> dict:
+    """One call of fn under torch.profiler (CPU and CUDA activities),
+    synchronized at both ends: its device kernels' count and summed time,
+    the wall time on the host clock, the torch ops' summed self CPU time
+    and the device time by kernel name (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e) / 1e3
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    return {"kernels": len(kernels), "device_ms": sum(by_name.values()),
+            "wall_ms": wall,
+            "op_cpu_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
+            "by_name": by_name}
+
+
+def _on_card(value) -> bool:
+    if isinstance(value, dict):
+        return all(_on_card(v) for v in value.values())
+    if isinstance(value, (tuple, list)):
+        return all(_on_card(v) for v in value)
+    return isinstance(value, torch.Tensor) and value.is_cuda
+
+
+def _hold_peaks(got, ref) -> str:
+    """find_peaks' result against scipy's: indices equal, the same
+    properties, each within PEAK_TOL of its size."""
+    (peaks, props), (ref_peaks, ref_props) = got, ref
+    check(np.array_equal(peaks.cpu().numpy(), ref_peaks),
+          f"peaks: {peaks.numel()} against scipy's {ref_peaks.size}")
+    check(set(props) == set(ref_props),
+          f"properties {sorted(props)} against {sorted(ref_props)}")
+    worst = 0.0
+    for key, want in ref_props.items():
+        have = props[key].cpu().numpy()
+        check(have.shape == want.shape, f"{key}: shape {have.shape}")
+        if want.size:
+            worst = max(worst, float(np.max(np.abs(have - want))) / max(
+                1.0, float(np.max(np.abs(want)))))
+    check(worst <= PEAK_TOL, f"properties vs scipy {worst:.3e}")
+    return (f"{ref_peaks.size} peaks equal to scipy's, {len(ref_props)} "
+            f"properties within {worst:.1e} (limit {PEAK_TOL:.0e})")
+
+
+def _hold_indices(got, ref) -> str:
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    check(len(got) == len(ref) and all(
+        np.array_equal(g.cpu().numpy(), np.asarray(r))
+        for g, r in zip(got, ref)), "indices differ from scipy's")
+    return f"{np.asarray(ref[0]).size} indices equal to scipy's"
+
+
+def _hold_close(got: torch.Tensor, ref: np.ndarray, tol: float,
+                cut=slice(None), what: str = "scipy f64") -> str:
+    err = _rel(got.double().cpu().numpy()[cut], ref[cut])
+    check(err <= tol, f"vs {what} {err:.3e} (limit {tol:.0e})")
+    return f"vs {what} {err:.3e} (limit {tol:.0e})"
+
+
+def _hold_residual(coeffs: torch.Tensor, taps: dict, x: np.ndarray,
+                   axes=(-1,), tol: float = SPLINE_TOL) -> str:
+    """The folded taps applied to the coefficients along ``axes`` give x
+    back, within ``tol`` of x's size."""
+    out = coeffs.double().cpu().numpy()
+    for axis in axes:
+        out = _folded(out, taps, axis)
+    err = _rel(out, x)
+    check(err <= tol, f"residual {err:.3e} (limit {tol:.0e})")
+    return f"residual {err:.3e} (limit {tol:.0e})"
+
+
+def _peak_spline_inputs() -> dict:
+    """Phase 26's inputs, made on the card from seeds."""
+    from tpufft_torch import bsplines
+
+    sig = _device_planes((SPLINE_N,), seed=84)[0]
+    return {"spec": _spectrum(PEAK_N, 81, PEAK_QUANTUM),
+            "grid": _device_planes(ARGREL_SHAPE, seed=82)[0],
+            "line": _spectrum(CWT_N, 83), "sig": sig,
+            "coeffs": bsplines.cspline1d(sig),
+            "newx": torch.linspace(-SPLINE_N / 2, 1.5 * SPLINE_N,
+                                   EVAL_POINTS, device="cuda",
+                                   dtype=torch.float64),
+            "img": _device_planes(SPLINE_IMAGE, seed=85)[0]}
+
+
+def _peak_spline_calls(inp: dict) -> dict:
+    """Phase 26's calls on ``inp``, by name."""
+    t = tpufft_torch
+    spec, grid, line, sig, img = (inp[k] for k in ("spec", "grid", "line",
+                                                   "sig", "img"))
+    return {
+        "find_peaks, seven conditions": lambda: t.find_peaks(
+            spec, **FIND_PEAKS_KW),
+        "find_peaks prominence=0.02": lambda: t.find_peaks(
+            spec, prominence=0.02),
+        f"argrelmax {ARGREL_SHAPE} axis=1 order=5": lambda: t.argrelmax(
+            grid, axis=1, order=5),
+        f"argrelmin {ARGREL_SHAPE} axis=1 order=5 wrap": lambda: t.argrelmin(
+            grid, axis=1, order=5, mode="wrap"),
+        f"find_peaks_cwt ({CWT_N},) widths 1..32": lambda: t.find_peaks_cwt(
+            line, CWT_WIDTHS),
+        "cspline1d": lambda: t.cspline1d(sig),
+        "qspline1d": lambda: t.qspline1d(sig),
+        "symiirorder1 c0=1 z1=-2+sqrt(3)": lambda: t.symiirorder1(
+            sig, 1.0, Z1_CUBIC),
+        "cspline1d lamb=2.5": lambda: t.cspline1d(sig, 2.5),
+        "symiirorder2 r=0.5 omega=pi/4": lambda: t.symiirorder2(
+            sig, 0.5, math.pi / 4),
+        f"cspline1d_eval {EVAL_POINTS} points over [-N/2, 3N/2]":
+            lambda: t.cspline1d_eval(inp["coeffs"], inp["newx"]),
+        f"cspline2d {SPLINE_IMAGE}": lambda: t.cspline2d(img),
+        f"qspline2d {SPLINE_IMAGE}": lambda: t.qspline2d(img),
+        "sepfir2d 7-tap rows, 5-tap columns": lambda: t.sepfir2d(
+            img, SEPFIR_ROWS, SEPFIR_COLS),
+        "spline_filter lmbda=3": lambda: t.spline_filter(img, 3.0),
+        "spline_filter lmbda=5": lambda: t.spline_filter(img, 5.0),
+    }
+
+
+def phase_peaks_spline_paths(rate: float) -> dict:
+    """find_peaks, argrel*, find_peaks_cwt and the B-spline filters once at
+    full size with every count set to 0 just before each call and read
+    just after, against scipy in float64 (or the defining equations), each
+    profiled once and timed (median of 5) with its peak memory; returns
+    the launches per kernel."""
+    from tpufft_torch import bsplines, peaks
+
+    card = _smi("name,power.limit")
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    inp = _peak_spline_inputs()
+    calls = _peak_spline_calls(inp)
+    spec_h = inp["spec"].double().cpu().numpy()
+    grid_h = inp["grid"].cpu().numpy()
+    line_h = inp["line"].double().cpu().numpy()
+    sig_h = inp["sig"].double().cpu().numpy()
+    img_h = inp["img"].double().cpu().numpy()
+    smooth5 = bsplines.cspline2d(inp["img"].double(), 5.0)
+    b3 = np.array([1.0, 4.0, 1.0]) / 6.0
+    n_spec, n_sig, n_img = 4 * PEAK_N, 4 * SPLINE_N, 4 * math.prod(
+        SPLINE_IMAGE)
+    edges = slice(SPLINE_EDGE, -SPLINE_EDGE)
+
+    def smooth_1d(out, ref, taps):
+        return _hold_close(out, ref, SPLINE_TOL, edges) + ", " + \
+            _hold_residual(out, taps, sig_h)
+
+    # name, host copies allowed, the check of its result (a line of text),
+    # bytes read and written once
+    paths = (
+        ("find_peaks, seven conditions", 1, lambda out: _hold_peaks(
+            out, scipy.signal.find_peaks(spec_h, **FIND_PEAKS_KW)), n_spec),
+        ("find_peaks prominence=0.02", 0, lambda out: _hold_peaks(
+            out, scipy.signal.find_peaks(spec_h, prominence=0.02)), n_spec),
+        (f"argrelmax {ARGREL_SHAPE} axis=1 order=5", 0,
+         lambda out: _hold_indices(out, scipy.signal.argrelmax(
+             grid_h, axis=1, order=5)), 4 * math.prod(ARGREL_SHAPE)),
+        (f"argrelmin {ARGREL_SHAPE} axis=1 order=5 wrap", 0,
+         lambda out: _hold_indices(out, scipy.signal.argrelmin(
+             grid_h, axis=1, order=5, mode="wrap")),
+         4 * math.prod(ARGREL_SHAPE)),
+        (f"find_peaks_cwt ({CWT_N},) widths 1..32", 1,
+         lambda out: _hold_indices(out, scipy.signal.find_peaks_cwt(
+             line_h, CWT_WIDTHS)), 4 * CWT_N),
+        ("cspline1d", 0, lambda out: _hold_close(
+            out, scipy.signal.cspline1d(sig_h), SPLINE_TOL), 2 * n_sig),
+        ("qspline1d", 0, lambda out: _hold_close(
+            out, scipy.signal.qspline1d(sig_h), SPLINE_TOL), 2 * n_sig),
+        ("symiirorder1 c0=1 z1=-2+sqrt(3)", 0, lambda out: _hold_close(
+            out, scipy.signal.symiirorder1(sig_h, 1.0, Z1_CUBIC),
+            SPLINE_TOL), 2 * n_sig),
+        ("cspline1d lamb=2.5", 0, lambda out: smooth_1d(
+            out, scipy.signal.cspline1d(sig_h, 2.5),
+            bsplines._spline_taps("cubic", 2.5)), 2 * n_sig),
+        ("symiirorder2 r=0.5 omega=pi/4", 0, lambda out: smooth_1d(
+            out, scipy.signal.symiirorder2(sig_h, 0.5, math.pi / 4),
+            bsplines._order2_taps(0.5, math.pi / 4)), 2 * n_sig),
+        (f"cspline1d_eval {EVAL_POINTS} points over [-N/2, 3N/2]", 0,
+         lambda out: _hold_close(out, scipy.signal.cspline1d_eval(
+             inp["coeffs"].double().cpu().numpy(),
+             inp["newx"].cpu().numpy()), SPLINE_TOL),
+         4 * SPLINE_N + 12 * EVAL_POINTS),
+        (f"cspline2d {SPLINE_IMAGE}", 0, lambda out: _hold_close(
+            out, scipy.signal.cspline2d(img_h), SPLINE_TOL), 2 * n_img),
+        (f"qspline2d {SPLINE_IMAGE}", 0, lambda out: _hold_close(
+            out, scipy.signal.qspline2d(img_h), SPLINE_TOL), 2 * n_img),
+        ("sepfir2d 7-tap rows, 5-tap columns", 0, lambda out: _hold_close(
+            out, scipy.signal.sepfir2d(img_h, SEPFIR_ROWS, SEPFIR_COLS),
+            SPLINE_TOL), 2 * n_img),
+        ("spline_filter lmbda=3", 0, lambda out: _hold_close(
+            out, scipy.signal.spline_filter(img_h, 3.0), SPLINE_FILTER_TOL,
+            (slice(4, -4), slice(4, -4))), 2 * n_img),
+        ("spline_filter lmbda=5", 0, lambda out: "f64 solve "
+         + _hold_residual(smooth5, bsplines._spline_taps("cubic", 5.0),
+                          img_h, (0, 1), SPLINE_F64_TOL) + ", "
+         + _hold_close(out, scipy.signal.sepfir2d(
+             smooth5.cpu().numpy(), b3, b3), SPLINE_TOL,
+             what="scipy's sepfir2d of the f64 solve"), 2 * n_img),
+    )
+    check([p[0] for p in paths] == list(calls), "phase 26's paths")
+    for name, allow, hold, nbytes in paths:
+        fn = calls[name]
+        torch.cuda.synchronize()
+        reset_counts()
+        guard = _NoHostCopies(allow)
+        with guard:
+            out = fn()
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        check(plain == 0, f"{name}: plain versions ran {plain} times on "
+              "CUDA tensors")
+        launched = {k: v for k, v in by_kernel.items() if v}
+        check(not launched, f"{name}: kernel launches {launched}")
+        check(_on_card(out), f"{name}: a result left the card")
+        rounds = peaks.distance_rounds
+        t0 = time.perf_counter()
+        held = hold(out)
+        check_s = time.perf_counter() - t0
+        del out
+        ms, peak = _time_peak(fn)
+        prof = _profiled(fn)
+        idle = 1 - prof["device_ms"] / prof["wall_ms"]
+        print(f"path {name}: {held} (check {check_s:.1f} s); launches "
+              f"{launched}, plain-version CUDA calls {plain}, host copies "
+              f"{guard.copies} ({guard.nbytes} B); median of "
+              f"{MULTIRATE_REPS} {ms:.3f} ms, peak {peak:.3f} GB above the "
+              f"inputs, byte floor {nbytes / rate * 1e3:.4f} ms; profiled "
+              f"call {prof['kernels']} torch kernels, device "
+              f"{prof['device_ms']:.3f} of {prof['wall_ms']:.3f} ms, idle "
+              f"share {idle:.3f}; {card}")
+        if name.startswith("find_peaks, seven"):
+            print(f"  distance=25 thinning: {rounds} rounds")
+    rows = peaks._cwt(inp["line"].double(), peaks._ricker, CWT_WIDTHS)
+    maxima = torch.nonzero(peaks._extrema_mask(rows, torch.gt, 1, 1,
+                                               "clip")).cpu().numpy()
+    walk_ms = _host_ms(lambda: peaks._ridge_lines(
+        maxima, len(CWT_WIDTHS), CWT_WIDTHS / 4.0, np.ceil(CWT_WIDTHS[0])))
+    print(f"  find_peaks_cwt: {maxima.shape[0]} maxima, their coordinates "
+          f"{maxima.nbytes} B to the host, host ridge walk {walk_ms:.3f} ms "
+          f"(median of {REPS}); {card}")
+    del inp, calls, smooth5, rows
+    print(f"peak and spline paths, launches "
+          f"{ {k: v for k, v in total.items() if v} }, plain-version CUDA "
+          "calls 0")
+    return total
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -3096,10 +3476,11 @@ def main() -> None:
     rate = _copy_rate()
     multirate_launches = phase_multirate_paths(rate)
     design_launches = phase_design_paths(rate)
+    peak_launches = phase_peaks_spline_paths(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
-                 multirate_launches, design_launches):
+                 multirate_launches, design_launches, peak_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

@@ -2402,3 +2402,162 @@ def test_waveforms_on_the_card(name, fn, cuda_device):
         assert (y.cpu() != ref).float().mean() < 1e-4
     else:
         assert _rel(y, ref) < 8 * 6e-8 * 2 * np.pi * 30 + 1e-6
+
+
+# ----------------------------------------------------------------------------
+# Peak finding and the B-spline filters
+# ----------------------------------------------------------------------------
+
+
+def _line_spectrum(n=65536, seed=9, quantum=2.0 ** -10):
+    """Gaussian lines of widths 3-30 on a slow baseline with noise, rounded
+    to multiples of ``quantum`` (plateaus, equal heights)."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    x = 0.3 + 0.2 * np.sin(6 * np.pi * k / n) + 0.01 * rng.standard_normal(n)
+    for pos, h, sd in zip(rng.uniform(0, n, n // 800),
+                          rng.uniform(0.05, 1.0, n // 800),
+                          rng.uniform(3, 30, n // 800)):
+        x += h * np.exp(-0.5 * ((k - pos) / sd) ** 2)
+    return np.round(x / quantum) * quantum
+
+
+def _same_result(got, ref, tol):
+    """Tensors on the card against the CPU run: integer tensors equal,
+    float ones within tol of their size; nested tuples and dicts too."""
+    if isinstance(ref, dict):
+        assert list(got) == list(ref)
+        for key in ref:
+            _same_result(got[key], ref[key], tol)
+        return
+    if isinstance(ref, (tuple, list)):
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            _same_result(g, r, tol)
+        return
+    assert got.is_cuda and got.dtype == ref.dtype and got.shape == ref.shape
+    if not (ref.is_floating_point() or ref.is_complex()):
+        assert torch.equal(got.cpu(), ref)
+    elif ref.numel():
+        g, r = got.cpu(), ref
+        if r.is_complex():
+            g, r = torch.view_as_real(g), torch.view_as_real(r)
+        assert _rel(g, r) <= tol
+
+
+PEAK_CALLS = [
+    ("all_conditions", lambda x: tpufft_torch.find_peaks(
+        x, height=(0.2, 1.5), threshold=(0.0, 0.05), distance=25,
+        prominence=(0.02, None), width=(2.0, 200.0), wlen=1001,
+        plateau_size=(1, 4))),
+    ("prominence", lambda x: tpufft_torch.find_peaks(x, prominence=0.02)),
+    ("distance_ties", lambda x: tpufft_torch.find_peaks(x, distance=7)),
+    ("array_bounds", lambda x: tpufft_torch.find_peaks(
+        x, height=torch.linspace(0.3, 0.6, x.numel(), device=x.device),
+        width=(1.0, None), rel_height=0.7)),
+    ("prominences_wlen", lambda x: tpufft_torch.peak_prominences(
+        x, tpufft_torch.find_peaks(x)[0], 101)),
+    ("widths", lambda x: tpufft_torch.peak_widths(
+        x, tpufft_torch.find_peaks(x)[0], 0.8)),
+    ("argrelmax_2d", lambda x: tpufft_torch.argrelmax(
+        x.reshape(8, -1), axis=1, order=3)),
+    ("argrelmin_wrap", lambda x: tpufft_torch.argrelmin(
+        x, order=5, mode="wrap")),
+    ("argrelextrema_ge", lambda x: tpufft_torch.argrelextrema(
+        x.reshape(256, -1), np.greater_equal, axis=0, order=2)),
+    ("cwt", lambda x: tpufft_torch.find_peaks_cwt(x[:8192],
+                                                  np.arange(1, 17))),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name,fn", PEAK_CALLS, ids=[p[0] for p in PEAK_CALLS])
+def test_peaks_on_the_card(name, fn, dtype, cuda_device):
+    """The peak functions on a CUDA tensor: no kernel, no plain version,
+    every result a tensor on the card, equal to the CPU tensor's run
+    (indices exactly; the float64 properties to 1e-12 of their size,
+    float32 input being decided in float64 on both devices)."""
+    x = torch.from_numpy(_line_spectrum()).to(dtype)
+    _layer_reset()
+    got = fn(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert _layer_counts() == (0, 0)
+    _same_result(got, fn(x), 1e-12)
+
+
+def test_peaks_numpy_input_runs_on_the_card(cuda_device):
+    x = _line_spectrum()
+    peaks, props = tpufft_torch.find_peaks(x, prominence=0.05, width=2)
+    ref, ref_props = tpufft_torch.find_peaks(x, prominence=0.05, width=2,
+                                             device="cpu")
+    assert isinstance(peaks, np.ndarray)
+    np.testing.assert_array_equal(peaks, ref)
+    for key in ref_props:
+        np.testing.assert_allclose(props[key], ref_props[key], rtol=0,
+                                   atol=1e-12 * max(1.0, np.abs(
+                                       ref_props[key]).max()))
+
+
+_FIR7 = np.array([-0.05, 0.1, 0.25, 0.4, 0.25, 0.1, -0.05])
+_FIR5 = np.array([0.1, 0.2, 0.4, 0.2, 0.1])
+
+SPLINE_CALLS = [
+    ("gauss_spline", lambda x: tpufft_torch.gauss_spline(x, 3)),
+    ("cspline1d", tpufft_torch.cspline1d),
+    ("qspline1d", tpufft_torch.qspline1d),
+    ("cspline1d_smooth", lambda x: tpufft_torch.cspline1d(x, 2.5)),
+    ("symiirorder1", lambda x: tpufft_torch.symiirorder1(
+        x, 1.0, -2 + 3 ** 0.5)),
+    ("symiirorder1_complex", lambda x: tpufft_torch.symiirorder1(
+        x, 1.5, 0.3 + 0.4j)),
+    ("symiirorder2", lambda x: tpufft_torch.symiirorder2(x, 0.5, np.pi / 4)),
+    ("symiirorder2_slow", lambda x: tpufft_torch.symiirorder2(x, 0.97, 0.1)),
+    ("cspline1d_eval", lambda x: tpufft_torch.cspline1d_eval(
+        x, torch.linspace(-3e4, 1.1e5, 50000, device=x.device,
+                          dtype=torch.float64))),
+    ("qspline1d_eval", lambda x: tpufft_torch.qspline1d_eval(
+        x, torch.linspace(-3e4, 1.1e5, 50000, device=x.device,
+                          dtype=torch.float64), 0.5, 3.0)),
+    ("cspline2d", lambda x: tpufft_torch.cspline2d(x[:65536].reshape(
+        256, 256))),
+    ("qspline2d", lambda x: tpufft_torch.qspline2d(x[:65536].reshape(
+        128, 512))),
+    ("sepfir2d", lambda x: tpufft_torch.sepfir2d(x[:65536].reshape(
+        512, 128), _FIR7, _FIR5)),
+    ("spline_filter", lambda x: tpufft_torch.spline_filter(
+        x[:65536].reshape(256, 256), 5.0)),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name,fn", SPLINE_CALLS,
+                         ids=[s[0] for s in SPLINE_CALLS])
+def test_bsplines_on_the_card_with_tf32_on(name, fn, dtype, tol,
+                                           cuda_device):
+    """The B-spline filters on a CUDA tensor of 70000 samples (above the
+    factor cache's limit) keep its dtype, launch no kernel and match the
+    CPU tensor's run, with TF32 matmuls allowed: no product of a solve
+    runs in TF32."""
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        70000)).to(dtype)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        _layer_reset()
+        got = fn(x.to(cuda_device))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert _layer_counts() == (0, 0)
+    _same_result(got, fn(x), tol)
+
+
+def test_bsplines_numpy_input_runs_on_the_card(cuda_device):
+    x = np.random.default_rng(12).standard_normal(5000)
+    got = tpufft_torch.cspline1d(x, 2.5)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    ref = tpufft_torch.cspline1d(x, 2.5, device="cpu")
+    assert np.max(np.abs(got - ref)) <= 1e-12 * np.abs(ref).max()

@@ -26,6 +26,7 @@ def test_port_imports_without_jax():
         import tpufft_torch.design, tpufft_torch.iir, tpufft_torch.multirate
         import tpufft_torch.sigtools, tpufft_torch.ndimage
         import tpufft_torch.ltisys, tpufft_torch.waveforms
+        import tpufft_torch.peaks, tpufft_torch.bsplines
         assert "jax" not in sys.modules, "jax was imported"
         assert "tpufft" not in sys.modules, "tpufft was imported"
         assert "triton" not in sys.modules, "triton was imported"

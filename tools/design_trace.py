@@ -1,4 +1,5 @@
-"""Where the time of chip_smoke's phase-25 paths goes, by torch.profiler.
+"""Where the time of chip_smoke's phase-25 and phase-26 paths goes, by
+torch.profiler.
 
 Run from the repository root on a machine with the GPU:
 
@@ -8,16 +9,18 @@ For each path of ``chip_smoke.phase_design_paths`` (``freqz`` of a 101-tap
 FIR at worN 2048, of a (129, 16384) bank at worN 1024 and of a (65537,)
 FIR at worN 2**20; ``dlsim`` of the 8-state, 4-input system on
 (1048576, 4) f32; the linear ``chirp`` and ``gausspulse`` on (64, 1048576)
-f32) it prints, after a warm-up call:
+f32), and for each call of ``chip_smoke.phase_peaks_spline_paths``
+(``find_peaks``, ``argrelmax``/``argrelmin``, ``find_peaks_cwt`` and the
+B-spline filters at phase 26's sizes) it prints, after a warm-up call:
 
 - the wall time of one call, host clock from a synchronized start to a
   synchronized end, median of 5 (no profiler);
-- from one profiled call (CPU and CUDA activities): the device kernels'
-  summed time, their count, the device's idle share of the profiled wall
-  time (1 - kernel time / wall time), the host time spent in the call's
-  Python code outside torch ops (the profiled call's wall time less the
-  summed self CPU time of its torch ops), and the five kernels with the
-  most device time;
+- from one profiled call (CPU and CUDA activities,
+  ``chip_smoke._profiled``): the device kernels' summed time, their count,
+  the device's idle share of the profiled wall time (1 - kernel time /
+  wall time), the host time spent in the call's Python code outside torch
+  ops (the profiled call's wall time less the summed self CPU time of its
+  torch ops), and the five kernels with the most device time;
 - for ``freqz``, the host time of the frequency grid alone, median of 5:
   tpufft's formula (``np.linspace`` then the ``fs`` scaling, two more
   arrays) beside the port's (``design._uniform_grid``, one array scaled
@@ -37,7 +40,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -68,42 +70,19 @@ def _host_ms(fn) -> float:
     return statistics.median(times)
 
 
-def _device_us(event) -> float:
-    """A kernel event's device time, microseconds (``device_time`` in
-    recent PyTorch, ``cuda_time`` before it)."""
-    for attr in ("device_time", "cuda_time"):
-        value = getattr(event, attr, None)
-        if value is not None:
-            return float(value)
-    return 0.0
-
-
 def _trace(name: str, fn) -> None:
     fn()
     torch.cuda.synchronize()
     wall = _wall_ms(fn)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CPU]
-    op_cpu_ms = sum(e.self_cpu_time_total for e in ops) / 1e3
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    prof = chip_smoke._profiled(fn)
+    traced = prof["wall_ms"]
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:5]
     print(f"{name}: wall {wall:.3f} ms (median of {REPS}); profiled call "
-          f"{traced:.3f} ms: {len(kernels)} kernels, device {device_ms:.3f} "
-          f"ms, idle share {1 - device_ms / traced:.3f}, torch ops' self "
-          f"CPU {op_cpu_ms:.3f} ms, host outside them "
-          f"{max(0.0, traced - op_cpu_ms):.3f} ms")
+          f"{traced:.3f} ms: {prof['kernels']} kernels, device "
+          f"{prof['device_ms']:.3f} ms, idle share "
+          f"{1 - prof['device_ms'] / traced:.3f}, torch ops' self CPU "
+          f"{prof['op_cpu_ms']:.3f} ms, host outside them "
+          f"{max(0.0, traced - prof['op_cpu_ms']):.3f} ms")
     for kname, ms in top:
         print(f"    {ms:.4f} ms  {kname[:110]}")
 
@@ -145,6 +124,10 @@ def main() -> None:
                                                         False))
             print(f"    frequency grid on the host: linspace and scaling "
                   f"{old:.3f} ms, _uniform_grid {new:.3f} ms")
+    del row, bank, long, u, t
+    for pname, fn in chip_smoke._peak_spline_calls(
+            chip_smoke._peak_spline_inputs()).items():
+        _trace(pname, fn)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ short-time and averaged spectral analysis (``spectral``, ``shorttime``,
 ``windows``), multirate resampling (``multirate``), IIR filtering on a
 log-depth scan (``iir``), filter design and frequency responses
 (``design``), linear time-invariant systems (``ltisys``), waveforms
-(``waveforms``), the scipy.signal utilities (``sigtools``) and Fourier
-image filters (``ndimage``). A
+(``waveforms``), the scipy.signal utilities (``sigtools``), Fourier
+image filters (``ndimage``), peak finding (``peaks``) and the B-spline
+filters (``bsplines``). A
 transform whose lengths are inside the kernels' envelopes runs
 hand-written CUDA kernels on an NVIDIA Hopper GPU (``kernels/``) and their
 plain PyTorch versions on the CPU; everything else runs a torch-op
@@ -60,6 +61,11 @@ from .sigtools import (detrend, deconvolve, wiener, correlation_lags,
                        choose_conv_method, savgol_filter, savgol_coeffs,
                        convolve, convolve2d, correlate2d, order_filter,
                        medfilt, medfilt2d, vectorstrength)
+from .peaks import (find_peaks, find_peaks_cwt, peak_prominences,
+                    peak_widths, argrelmin, argrelmax, argrelextrema)
+from .bsplines import (gauss_spline, cspline1d, qspline1d, cspline1d_eval,
+                       qspline1d_eval, cspline2d, qspline2d, spline_filter,
+                       sepfir2d, symiirorder1, symiirorder2)
 from . import ndimage, windows
 
 __all__ = [
@@ -103,4 +109,9 @@ __all__ = [
     "choose_conv_method", "savgol_filter", "savgol_coeffs", "convolve",
     "convolve2d", "correlate2d", "order_filter", "medfilt", "medfilt2d",
     "vectorstrength", "ndimage",
+    "find_peaks", "find_peaks_cwt", "peak_prominences", "peak_widths",
+    "argrelmin", "argrelmax", "argrelextrema",
+    "gauss_spline", "cspline1d", "qspline1d", "cspline1d_eval",
+    "qspline1d_eval", "cspline2d", "qspline2d", "spline_filter",
+    "sepfir2d", "symiirorder1", "symiirorder2",
 ]

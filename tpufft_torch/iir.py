@@ -64,11 +64,17 @@ BLOCK = 16
 _LFILTER_MAX_ORDER = 16
 
 
+def _scalar(v):
+    """A host matrix entry as the Python number torch takes as ``alpha``."""
+    return complex(v) if np.iscomplexobj(v) else float(v)
+
+
 def _affine_scan(u: list, zi: list, M: np.ndarray) -> list:
     """z[k] = M z[k-1] + u[k] for k < n with z[-1] = zi.
 
     ``u``: S planes (B, n); ``zi``: S planes (B,); ``M``: (S, S) float64
-    on the host. Returns the S planes of z, (B, n)."""
+    (complex128 for complex planes) on the host. Returns the S planes of z,
+    (B, n)."""
     S = len(u)
     B, n = u[0].shape
     if n == 0:
@@ -83,7 +89,7 @@ def _affine_scan(u: list, zi: list, M: np.ndarray) -> list:
             gi = f[i].clone()
             for j in range(S):
                 if Mo[i, j] != 0.0:
-                    gi[..., o:].add_(f[j][..., :-o], alpha=float(Mo[i, j]))
+                    gi[..., o:].add_(f[j][..., :-o], alpha=_scalar(Mo[i, j]))
             g.append(gi)
         f = g
         o *= 2
