@@ -251,7 +251,37 @@ Phases, each of which raises (and so exits nonzero) on failure:
     5), the peak memory above the inputs and the byte floor, beside the
     card's name and power limit. Phase 26 runs alone after the build with
     ``python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build();
-    c.phase_peaks_spline_paths(c._copy_rate())"``.
+    c.phase_peaks_spline_paths(c._copy_rate())"``;
+27. the scipy.fft backend, the native host engine and the sharded
+    four-step at full size, each call driven with every count set to 0
+    just before it and read just after, no plain version allowed, against
+    scipy in complex128/float64 on the host (normalized 1e-3 for c64,
+    1e-6 for c128): ``scipy.fft.fft(workers=2)``, ``rfft`` and
+    ``dct(type=2)`` under ``set_backend(tpufft_torch.scipy_backend())`` on
+    numpy (100000, 1024) c64 / f32 / f32 (K1, K7, K12) and ``fft`` on a
+    CUDA tensor (its result stays on the card); ``native.fft``/``ifft`` in
+    c64 and c128 on (100000, 1024) and (1000000, 93) and ``native.fftn`` on
+    (16, 256, 256) (no launch; host times beside the CPU's model and
+    ``native.num_threads()``), and a CUDA tensor refused; and
+    ``tpufft_torch.parallel`` in worlds of processes on cuda:0
+    (``tools/chip_ranks.py``, each with a 600 s timeout): d = 1 over
+    NCCL (``fft_distributed``, ``filter_distributed``, ``rfft_distributed``
+    + ``irfft_distributed`` on (4, 2**24): the two-pass split, K3 + K1),
+    and d = 4 over gloo, whose collectives stage CUDA tensors through the
+    host (the same paths on (4, 2**22) a rank, ``permuted_out`` ->
+    ``permuted_in``, the all-gather fallback at n = 4 * 3**12,
+    ``fftn_distributed`` on (8, 1024, 4096) and ``fft_batch_sharded`` on
+    (128, 640, 480): K2 + K1 a rank, K3 + K1 for the fallback), every
+    rank's kernels, plain versions, exchanges (the module's contract) and
+    placement checked and the blocks assembled against scipy. Each line
+    prints the time (median of 5, CUDA events; the numpy paths include
+    their copies, the slowest rank for d = 4), launches, peak memory and
+    byte floor, and for each rank the local FFTs' and the exchanges' time
+    in one instrumented call; the exchange route is printed (if gloo
+    refuses CUDA tensors, d = 4 runs on CPU blocks and says so). Phase 27
+    runs alone after the build with ``python3 -c "import chip_smoke as c;
+    c.phase_device(); c.phase_build();
+    c.phase_native_parallel_paths(c._copy_rate())"``.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -270,8 +300,10 @@ import ctypes
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -280,7 +312,8 @@ import scipy.signal
 import torch
 
 import tpufft_torch
-from tpufft_torch import _build, execute, realtrans, signal, spectral
+from tpufft_torch import (_build, execute, parallel, realtrans, signal,
+                          spectral)
 from tpufft_torch.convert import split_from_numpy
 from tpufft_torch.kernels import (cube_fft, dense_mm, fused_fft, inner_fft,
                                   mid_pair_fft, minor_fft, pair_fft, real_fft,
@@ -3314,6 +3347,362 @@ def phase_peaks_spline_paths(rate: float) -> dict:
           "calls 0")
     return total
 
+
+# ----------------------------------------------------------------------------
+# Phase 27: the scipy backend, the native host engine and the sharded
+# four-step
+# ----------------------------------------------------------------------------
+
+BACKEND_SHAPE = (100_000, 1024)
+NATIVE_SHAPES = ((100_000, 1024), (1_000_000, 93))
+NATIVE_ND = (16, 256, 256)
+C64_TOL, C128_TOL = 1e-3, 1e-6   # assert_spectrum_close's rule
+RANK_TIMEOUT = 600
+DIST_WORLD = 4
+# the kernels each rank's paths must launch (chip_smoke's counter names)
+D1_KERNELS = ("inner_nd", "minor")      # the two-pass split at 2**24
+D4_KERNELS = {"fft_distributed": ("inner", "minor"),
+              "filter_distributed": ("inner", "minor"),
+              "rfft_distributed": ("inner", "minor"),
+              "irfft_distributed": ("inner", "minor"),
+              "permuted_out": ("inner", "minor"),
+              "permuted_in": ("inner", "minor"),
+              "gather_fallback": ("inner_nd", "minor"),
+              "fftn_distributed": ("inner", "minor"),
+              "fft_batch_sharded": ("inner", "minor")}
+# calls of parallel._a2a per call (the module's contract)
+D4_EXCHANGES = {"fft_distributed": 3, "filter_distributed": 4,
+                "rfft_distributed": 4, "irfft_distributed": 4,
+                "permuted_out": 2, "permuted_in": 2, "gather_fallback": 0,
+                "fftn_distributed": 3, "fft_batch_sharded": 0}
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name from /proc/cpuinfo, else its vendor,
+    family and model numbers."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name", "")
+    if name and name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', 'unknown vendor')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}"
+            f" (model name {name or 'absent'})")
+
+
+def _wall_ms(fn) -> float:
+    """Median of MULTIRATE_REPS host-clock times (the caller has run fn
+    once already, as its check)."""
+    times = []
+    for _ in range(MULTIRATE_REPS):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _run_ranks(world: int, backend: str, tmp: str) -> list[dict]:
+    """Start ``world`` processes of tools/chip_ranks.py on cuda:0 and wait
+    for them (RANK_TIMEOUT from their start); a rank that fails or runs out
+    of time fails the phase, and every process is stopped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, f"{backend}{world}")
+    os.makedirs(out)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=root, LOCAL_RANK="0", OMP_NUM_THREADS="2")
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(root, "tools", "chip_ranks.py"),
+                 str(r), str(world), backend, os.path.join(out, "store"),
+                 out], cwd=root, env=env, stdout=subprocess.DEVNULL,
+                stderr=f))
+    failed = []
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} ran out of its {RANK_TIMEOUT} s")
+                break
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    failed.append(f"rank {r} exited {p.returncode}:\n"
+                                  f"{f.read()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(not failed, f"{backend} world of {world}: " + "\n".join(failed))
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+            for r in range(world)]
+
+
+def _backend_calls(xc: np.ndarray, xr: np.ndarray, xt: torch.Tensor):
+    """Phase 27's scipy.fft calls under ``scipy_backend()``: name, call,
+    the kernel it must launch, bytes read and written once."""
+    backend = tpufft_torch.scipy_backend()
+
+    def under(f):
+        def run():
+            with scipy.fft.set_backend(backend):
+                return f()
+        return run
+
+    return (
+        (f"scipy.fft.fft numpy c64 {BACKEND_SHAPE} workers=2",
+         under(lambda: scipy.fft.fft(xc, workers=2)), "minor",
+         2 * xc.nbytes),
+        (f"scipy.fft.rfft numpy f32 {BACKEND_SHAPE}",
+         under(lambda: scipy.fft.rfft(xr)), "r2c",
+         xr.nbytes + 8 * xr.shape[0] * (xr.shape[1] // 2 + 1)),
+        (f"scipy.fft.dct type=2 numpy f32 {BACKEND_SHAPE}",
+         under(lambda: scipy.fft.dct(xr, type=2)), "r2r", 2 * xr.nbytes),
+        (f"scipy.fft.fft CUDA c64 tensor {BACKEND_SHAPE} workers=2",
+         under(lambda: scipy.fft.fft(xt, workers=2)), "minor",
+         2 * xc.nbytes),
+    )
+
+
+def _phase27_backend(rate: float, card: str, total: dict) -> None:
+    rng = np.random.default_rng(2701)
+    xc = (rng.standard_normal(BACKEND_SHAPE, dtype=np.float32) + 1j
+          * rng.standard_normal(BACKEND_SHAPE, dtype=np.float32)).astype(
+              np.complex64)
+    xr = rng.standard_normal(BACKEND_SHAPE, dtype=np.float32)
+    xt = torch.from_numpy(xc).to("cuda")
+    workers = os.cpu_count()
+    ref_fft = scipy.fft.fft(xc.astype(np.complex128), workers=workers)
+    refs = (ref_fft, scipy.fft.rfft(xr.astype(np.float64), workers=workers),
+            scipy.fft.dct(xr.astype(np.float64), type=2, workers=workers),
+            ref_fft)
+    for (name, fn, kernel, nbytes), ref in zip(
+            _backend_calls(xc, xr, xt), refs):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        launched = {k: v for k, v in by_kernel.items() if v}
+        check(plain == 0, f"{name}: plain versions ran {plain} times")
+        check(launched.get(kernel, 0) > 0,
+              f"{name}: {kernel} never launched ({launched})")
+        if name.startswith("scipy.fft.fft CUDA"):
+            check(isinstance(out, torch.Tensor) and out.is_cuda,
+                  f"{name}: the result left the card")
+            got = out.cpu().numpy()
+        else:
+            check(isinstance(out, np.ndarray), f"{name}: {type(out)} out")
+            got = out
+        err = _rel(got, ref)
+        check(err < C64_TOL, f"{name}: {err:.3e} against scipy in f64")
+        for k, v in launched.items():
+            total[k] += v
+        del out, got
+        ms, peak = _time_peak(fn)
+        print(f"path {name}: vs scipy f64 {err:.3e} (limit {C64_TOL:.0e}); "
+              f"launches {launched}, plain-version CUDA calls {plain}; median "
+              f"of {MULTIRATE_REPS} {ms:.3f} ms (numpy paths: the copies to "
+              f"and from the card included), peak {peak:.3f} GB, byte floor "
+              f"{nbytes / rate * 1e3:.4f} ms; {card}")
+    del xt, ref_fft, refs
+
+
+def _phase27_native(card: str) -> None:
+    from tpufft_torch import native
+
+    check(native.available(), "native: the engine did not build (no g++?)")
+    cpu, threads = _host_cpu(), native.num_threads()
+    rng = np.random.default_rng(2702)
+    workers = os.cpu_count()
+    for shape in NATIVE_SHAPES:
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        fwd = scipy.fft.fft(x, workers=workers)
+        inv = scipy.fft.ifft(x, workers=workers)
+        for dt, tol in ((np.complex64, C64_TOL), (np.complex128, C128_TOL)):
+            xd = x.astype(dt)
+            kw = {"dtype": np.float32 if dt == np.complex64 else np.float64}
+            for name, fn, ref in (("fft", native.fft, fwd),
+                                  ("ifft", native.ifft, inv)):
+                reset_counts()
+                got = fn(xd, **kw)
+                check(not any(counts()[0].values()), "native launched")
+                err = _rel(got, ref)
+                check(err < tol, f"native.{name} {shape} {np.dtype(dt)}: "
+                      f"{err:.3e}")
+                ms = _wall_ms(lambda: fn(xd, **kw))
+                print(f"path native.{name} {shape} {np.dtype(dt).name}: vs "
+                      f"scipy f64 {err:.3e} (limit {tol:.0e}); no launch; "
+                      f"median of {MULTIRATE_REPS} {ms:.3f} ms on the host "
+                      f"({cpu}, {threads} threads)")
+    x = (rng.standard_normal(NATIVE_ND) + 1j * rng.standard_normal(
+        NATIVE_ND)).astype(np.complex64)
+    got = native.fftn(x)
+    err = _rel(got, scipy.fft.fftn(x.astype(np.complex128), axes=(1, 2),
+                                   workers=workers))
+    check(err < C64_TOL, f"native.fftn {NATIVE_ND}: {err:.3e}")
+    ms = _wall_ms(lambda: native.fftn(x))
+    print(f"path native.fftn {NATIVE_ND} complex64: vs scipy f64 {err:.3e} "
+          f"(limit {C64_TOL:.0e}); no launch; median of {MULTIRATE_REPS} "
+          f"{ms:.3f} ms on the host ({cpu}, {threads} threads)")
+    try:
+        native.fft(torch.zeros((4, 64), dtype=torch.complex64, device="cuda"))
+    except ValueError as e:
+        print(f"native.fft of a CUDA tensor: ValueError ({e})")
+    else:
+        check(False, "native.fft took a CUDA tensor")
+
+
+def _chip_ranks():
+    """tools/chip_ranks.py, the ranks' module (its inputs and sizes)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import chip_ranks
+    return chip_ranks
+
+
+def _phase27_refs(device: torch.device) -> dict:
+    """The global inputs of tools/chip_ranks.py on the host in complex128,
+    and each path's reference from scipy in float64."""
+    chip_ranks = _chip_ranks()
+    g = chip_ranks.global_inputs(device)
+    host = {k: (re.double().cpu().numpy() + 1j * im.double().cpu().numpy())
+            for k, (re, im) in g.items()}
+    del g
+    w = os.cpu_count()
+    x = host["x"]
+    X = scipy.fft.fft(x, workers=w)
+    A, B = parallel.split_n(chip_ranks.N, DIST_WORLD)
+    H = chip_ranks.response()
+    return {
+        "fft_distributed": X,
+        "filter_distributed": scipy.fft.ifft(X * H, workers=w),
+        "rfft_distributed": scipy.fft.rfft(x.real, workers=w),
+        "irfft_distributed": x.real,
+        "permuted_out": X.reshape(chip_ranks.ROWS, B, A).swapaxes(
+            1, 2).reshape(chip_ranks.ROWS, chip_ranks.N),
+        "permuted_in": x,
+        "gather_fallback": scipy.fft.fft(host["gather"], workers=w),
+        "fftn_distributed": scipy.fft.fft2(host["fftn"], axes=(1, 2),
+                                           workers=w),
+        "fft_batch_sharded": scipy.fft.fft2(host["batch"], axes=(1, 2),
+                                            workers=w),
+    }
+
+
+def _phase27_bytes(name: str) -> float:
+    """Bytes a path reads and writes once, over all ranks."""
+    chip_ranks = _chip_ranks()
+    rows, n = chip_ranks.ROWS, chip_ranks.N
+    c64 = 8 * rows * n
+    half = 8 * rows * (n // 2 + 1)
+    return {"fft_distributed": 2 * c64, "filter_distributed": 2 * c64,
+            "rfft_distributed": c64 / 2 + half,
+            "irfft_distributed": half + c64 / 2,
+            "permuted_out": 2 * c64, "permuted_in": 2 * c64,
+            "gather_fallback": 16 * rows * chip_ranks.GATHER_N,
+            "fftn_distributed": 16 * math.prod(chip_ranks.FFTN_SHAPE),
+            "fft_batch_sharded": 16 * math.prod(chip_ranks.BATCH_SHAPE)}[name]
+
+
+def _phase27_world(ranks: list[dict], refs: dict, rate: float, card: str,
+                   total: dict, label: str) -> None:
+    """Assemble each path's blocks, hold them against the reference, and
+    check every rank's launches, exchanges and placement."""
+    world = len(ranks)
+    on_cpu = ranks[0]["route"]["device"] == "cpu"
+    axes = {"fftn_distributed": 2, "fft_batch_sharded": 0}
+    for name in ranks[0]["results"]:
+        res = [rk["results"][name] for rk in ranks]
+        got = torch.cat([r["out"] for r in res],
+                        dim=axes.get(name, -1)).numpy()
+        ref = refs[name]
+        check(got.shape == ref.shape, f"{label} {name}: {got.shape}")
+        err = _rel(got, ref)
+        check(err < C64_TOL, f"{label} {name}: {err:.3e} against scipy f64")
+        want = D1_KERNELS if world == 1 else D4_KERNELS[name]
+        exchanges = 0 if world == 1 else D4_EXCHANGES[name]
+        for r, rr in enumerate(res):
+            check(rr["plain"] == 0, f"{label} {name} rank {r}: plain "
+                  f"versions ran {rr['plain']} times")
+            check(rr["a2a"] == exchanges, f"{label} {name} rank {r}: "
+                  f"{rr['a2a']} exchanges, the contract is {exchanges}")
+            if not on_cpu:
+                check(rr["on_card"], f"{label} {name} rank {r}: a result "
+                      "left the card")
+                check(all(rr["launches"].get(k, 0) > 0 for k in want),
+                      f"{label} {name} rank {r}: {rr['launches']}, needs "
+                      f"{want}")
+            for k, v in rr["launches"].items():
+                total[k] += v
+        ms = max(rr["ms"] for rr in res)
+        peak = max(rr["peak_gb"] for rr in res)
+        floor = _phase27_bytes(name) / world / rate * 1e3
+        print(f"path {label} {name}: vs scipy f64 {err:.3e} (limit "
+              f"{C64_TOL:.0e}); per rank: launches {res[0]['launches']}, "
+              f"plain-version CUDA calls 0, exchanges {res[0]['a2a']}, "
+              f"all-gathers {res[0]['gather']}; slowest rank's median of 5 "
+              f"{ms:.3f} ms, peak {peak:.3f} GB, one rank's byte floor "
+              f"{floor:.4f} ms; {card}")
+        for r, rr in enumerate(res):
+            rest = rr["instrumented_ms"] - rr["fft_ms"] - rr["exchange_ms"]
+            print(f"  rank {r}: instrumented call {rr['instrumented_ms']:.3f}"
+                  f" ms = local FFTs {rr['fft_ms']:.3f} + exchanges "
+                  f"{rr['exchange_ms']:.3f} + the rest {rest:.3f}")
+
+
+def phase_native_parallel_paths(rate: float) -> dict:
+    """The scipy.fft backend, the native host engine and the sharded
+    four-step at full size: every call driven with every count set to 0
+    just before it and read just after, against scipy in float64, timed;
+    returns the launches per kernel, the ranks' included."""
+    import tempfile
+
+    card = _smi("name,power.limit")
+    total = dict.fromkeys(ALL_KERNELS, 0)
+    t0 = time.perf_counter()
+    _phase27_backend(rate, card, total)
+    t1 = time.perf_counter()
+    _phase27_native(card)
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        d1 = _run_ranks(1, "nccl", tmp)
+        d4 = _run_ranks(DIST_WORLD, "gloo", tmp)
+        t3 = time.perf_counter()
+        route = d4[0]["route"]
+        if route["refused"]:
+            print(f"exchange route: gloo refused CUDA tensors for "
+                  f"all_to_all_single ({route['refused']}); d = 4 ran on CPU "
+                  "blocks in the ranks, d = 1 on the card over NCCL")
+        else:
+            print(f"exchange route: d = 4 over gloo on CUDA tensors, staged "
+                  f"through the host, {DIST_WORLD} ranks on one GPU ({card}); "
+                  "d = 1 over NCCL, one rank")
+        refs = _phase27_refs(torch.device("cuda"))
+        _phase27_world(d1, refs, rate, card, total, "d=1 nccl")
+        if route["refused"]:
+            refs = _phase27_refs(torch.device("cpu"))
+        _phase27_world(d4, refs, rate, card, total,
+                       f"d={DIST_WORLD} gloo")
+        del d1, d4, refs
+    print(f"phase 27 wall time: backend {t1 - t0:.1f} s, native "
+          f"{t2 - t1:.1f} s, the ranks {t3 - t2:.1f} s, the parent's "
+          f"references and checks {time.perf_counter() - t3:.1f} s")
+    print(f"backend, native and parallel paths, launches "
+          f"{ {k: v for k, v in total.items() if v} }, plain-version CUDA "
+          "calls 0")
+    return total
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -3477,10 +3866,12 @@ def main() -> None:
     multirate_launches = phase_multirate_paths(rate)
     design_launches = phase_design_paths(rate)
     peak_launches = phase_peaks_spline_paths(rate)
+    parallel_launches = phase_native_parallel_paths(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
-                 multirate_launches, design_launches, peak_launches):
+                 multirate_launches, design_launches, peak_launches,
+                 parallel_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

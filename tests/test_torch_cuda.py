@@ -2561,3 +2561,109 @@ def test_bsplines_numpy_input_runs_on_the_card(cuda_device):
     assert isinstance(got, np.ndarray) and got.dtype == np.float64
     ref = tpufft_torch.cspline1d(x, 2.5, device="cpu")
     assert np.max(np.abs(got - ref)) <= 1e-12 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# backend, native and parallel on the card
+
+
+def test_scipy_backend_on_cuda_tensors(cuda_device):
+    """scipy.fft calls on CUDA tensors run the port's kernels (K1, K7,
+    K12) and their results stay on the card, equal to the CPU tensors'
+    runs (the plain versions)."""
+    import scipy.fft as sfft
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy((rng.standard_normal((64, 1024))
+                          + 1j * rng.standard_normal((64, 1024))).astype(
+                              np.complex64))
+    xr = torch.from_numpy(rng.standard_normal((64, 1024)).astype(np.float32))
+    calls = ((lambda a: sfft.fft(a, workers=2), x, "minor"),
+             (sfft.rfft, xr, "r2c"),
+             (lambda a: sfft.dct(a, type=2), xr, "r2r"))
+    for fn, arg, kernel in calls:
+        with sfft.set_backend(tpufft_torch.scipy_backend()):
+            _layer_reset()
+            got = fn(arg.to(cuda_device))
+            torch.cuda.synchronize()
+            launches, plain = _layer_counts()
+            ref = fn(arg)
+        by_kernel = {"minor": minor_fft.launches, **real_fft.launches,
+                     **dense_mm.launches}
+        assert plain == 0 and by_kernel[kernel] >= 1 and launches >= 1
+        assert isinstance(got, torch.Tensor) and got.is_cuda
+        assert _rel(torch.view_as_real(got) if got.is_complex() else got,
+                    torch.view_as_real(ref) if ref.is_complex() else ref) \
+            < 1e-5
+
+
+def test_scipy_backend_numpy_runs_on_the_card(cuda_device):
+    import scipy.fft as sfft
+
+    x = np.random.default_rng(22).standard_normal((16, 256))
+    with sfft.set_backend(tpufft_torch.scipy_backend()):
+        _layer_reset()
+        got = sfft.rfft(x.astype(np.float32))
+        assert _layer_counts()[0] >= 1
+    with sfft.set_backend(tpufft_torch.scipy_backend(device="cpu")):
+        ref = sfft.rfft(x.astype(np.float32))
+    assert isinstance(got, np.ndarray)
+    assert np.max(np.abs(got - ref)) <= 1e-5 * np.max(np.abs(ref))
+
+
+def test_native_refuses_a_cuda_tensor(cuda_device):
+    from tpufft_torch import native
+
+    if not native.available():
+        pytest.skip("native engine unavailable (no g++)")
+    x = torch.zeros((4, 64), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="host engine: got a tensor on cuda"):
+        native.fft(x)
+    with pytest.raises(ValueError, match="host engine"):
+        native.fftn(x.reshape(4, 8, 8))
+
+
+def test_fft_distributed_d1_on_nccl(cuda_device, tmp_path):
+    """A one-process NCCL group: fft_distributed, filter_distributed and
+    rfft/irfft_distributed at d = 1 run the local transform on the card
+    (K1 at n = 4096), with no exchange, and leave their results there."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tpufft_torch import parallel
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+        rng = np.random.default_rng(23)
+        x = rng.standard_normal((8, 4096)) + 1j * rng.standard_normal(
+            (8, 4096))
+        sc = SplitComplex(torch.tensor(x.real, dtype=torch.float32,
+                                       device=cuda_device),
+                          torch.tensor(x.imag, dtype=torch.float32,
+                                       device=cuda_device))
+        H = rng.standard_normal(4096) + 1j * rng.standard_normal(4096)
+        _layer_reset()
+        out = parallel.fft_distributed(sc, mesh, axis_name="sp")
+        filt = parallel.filter_distributed(sc, mesh, axis_name="sp",
+                                           response=H)
+        half = parallel.rfft_distributed(sc.re, mesh, axis_name="sp")
+        back = parallel.irfft_distributed(half, mesh, axis_name="sp",
+                                          n=4096)
+        torch.cuda.synchronize()
+        launches, plain = _layer_counts()
+        assert plain == 0 and minor_fft.launches >= 4 and launches >= 4
+        for t in (out.re, out.im, filt.re, half.re, back):
+            assert t.is_cuda
+        ref = np.fft.fft(x)
+        scale = np.max(np.abs(ref))
+        assert np.max(np.abs(out.numpy() - ref)) / scale < 1e-5
+        want = np.fft.ifft(ref * H)
+        assert np.max(np.abs(filt.numpy() - want)) / max(
+            1.0, np.max(np.abs(want))) < 1e-5
+        assert np.max(np.abs(half.numpy() - np.fft.rfft(x.real))) / scale \
+            < 1e-5
+        assert np.max(np.abs(back.cpu().numpy() - x.real)) < 1e-4
+    finally:
+        dist.destroy_process_group()

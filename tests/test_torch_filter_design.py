@@ -26,7 +26,7 @@ from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 TOL = 1e-12
 F32_TOL = 1e-5
 
-MISSING = {"set_workers", "get_workers", "scipy_backend", "__version__"}
+MISSING: set[str] = set()   # the port has every name of tpufft
 
 
 def _same(got, ref, tol=TOL):
@@ -52,24 +52,28 @@ def resp_err(ba1, ba2, n=512):
     return np.max(np.abs(h1 - h2)) / max(1e-30, np.max(np.abs(h2)))
 
 
-def test_port_lacks_only_peaks_bsplines_backend_and_version():
-    """The port lacks only ``backend``'s three names and ``__version__``
-    (peaks and bsplines are ported; the name is kept from before)."""
+def test_port_exports_exactly_tpuffts_names():
+    """The port exports tpufft's 209 names, no more and no fewer, with
+    tpufft's version."""
     missing = {n for n in tpufft.__all__ if n not in tpufft_torch.__all__}
     assert missing == MISSING
-    assert len(missing) == 4
-    assert not [n for n in tpufft_torch.__all__ if n not in tpufft.__all__]
+    assert sorted(tpufft_torch.__all__) == sorted(tpufft.__all__)
+    assert len(tpufft_torch.__all__) == len(set(tpufft_torch.__all__)) == 209
+    assert tpufft_torch.__version__ == tpufft.__version__
 
 
 @pytest.mark.parametrize("module", ["design", "ltisys", "waveforms",
-                                    "peaks", "bsplines"])
+                                    "peaks", "bsplines", "backend",
+                                    "native", "parallel"])
 def test_module_exports_match_tpufft(module):
+    """Each module exports tpufft's names, and the package re-exports
+    those that tpufft's package takes from that module."""
     import importlib
     mine = importlib.import_module(f"tpufft_torch.{module}")
     ref = importlib.import_module(f"tpufft.{module}")
     assert sorted(mine.__all__) == sorted(ref.__all__)
     for name in mine.__all__:
-        if name in tpufft.__all__:
+        if getattr(tpufft, name, None) is getattr(ref, name):
             assert getattr(tpufft_torch, name) is getattr(mine, name), name
 
 

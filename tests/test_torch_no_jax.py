@@ -1,5 +1,6 @@
 """tpufft_torch imports with neither jax nor tpufft loaded, and builds
-nothing at import (checked in a fresh interpreter)."""
+nothing at import, neither the CUDA library nor the native host engine
+(checked in a fresh interpreter)."""
 
 import os
 import subprocess
@@ -27,10 +28,13 @@ def test_port_imports_without_jax():
         import tpufft_torch.sigtools, tpufft_torch.ndimage
         import tpufft_torch.ltisys, tpufft_torch.waveforms
         import tpufft_torch.peaks, tpufft_torch.bsplines
+        import tpufft_torch.backend, tpufft_torch.native
+        import tpufft_torch.parallel
         assert "jax" not in sys.modules, "jax was imported"
         assert "tpufft" not in sys.modules, "tpufft was imported"
         assert "triton" not in sys.modules, "triton was imported"
         assert tpufft_torch._build.load.cache_info().currsize == 0
+        assert tpufft_torch.native._lib.cache_info().currsize == 0
         print("ok")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -9,8 +9,12 @@ short-time and averaged spectral analysis (``spectral``, ``shorttime``,
 log-depth scan (``iir``), filter design and frequency responses
 (``design``), linear time-invariant systems (``ltisys``), waveforms
 (``waveforms``), the scipy.signal utilities (``sigtools``), Fourier
-image filters (``ndimage``), peak finding (``peaks``) and the B-spline
-filters (``bsplines``). A
+image filters (``ndimage``), peak finding (``peaks``), the B-spline
+filters (``bsplines``) and scipy.fft interop (``backend``: worker control
+and a ``scipy.fft.set_backend`` target). Two submodules are imported by
+name, as in tpufft: ``native``, the ctypes binding of the native C++ host
+engine, and ``parallel``, batch-sharded and distributed transforms over a
+``torch.distributed`` device mesh. A
 transform whose lengths are inside the kernels' envelopes runs
 hand-written CUDA kernels on an NVIDIA Hopper GPU (``kernels/``) and their
 plain PyTorch versions on the CPU; everything else runs a torch-op
@@ -32,6 +36,7 @@ from .signal import (FilterPlan, plan_filter, fftconvolve, oaconvolve,
 from .realtrans import dct, idct, dst, idst, dctn, idctn, dstn, idstn
 from .czt import CZT, ZoomFFT, czt, zoom_fft, czt_points
 from .fhtlog import fht, ifht, fhtoffset
+from .backend import set_workers, get_workers, scipy_backend
 from .spectral import (get_window, stft, istft, spectrogram, periodogram,
                        welch, csd, coherence, check_NOLA, check_COLA,
                        lombscargle)
@@ -67,6 +72,8 @@ from .bsplines import (gauss_spline, cspline1d, qspline1d, cspline1d_eval,
                        qspline1d_eval, cspline2d, qspline2d, spline_filter,
                        sepfir2d, symiirorder1, symiirorder2)
 from . import ndimage, windows
+
+__version__ = "0.4.0"
 
 __all__ = [
     "PlanConfig", "SplitComplex", "Plan", "PrecisionDowngradeWarning",
@@ -114,4 +121,5 @@ __all__ = [
     "gauss_spline", "cspline1d", "qspline1d", "cspline1d_eval",
     "qspline1d_eval", "cspline2d", "qspline2d", "spline_filter",
     "sepfir2d", "symiirorder1", "symiirorder2",
+    "set_workers", "get_workers", "scipy_backend", "__version__",
 ]
