@@ -12,26 +12,28 @@ Phases, each of which raises (and so exits nonzero) on failure:
    per source, started together (time and ptxas's resource report);
 3. the minor-axis kernel against its plain PyTorch version on the card, on a
    ragged batch of 257 rows: every power-of-two length of the line form (2
-   to 4096: one warp's lanes for n <= 64, each four-step geometry above)
-   and the stage form's length classes (93, 127, 960, 1792, 16384), each
-   printed with its form (``minor_fft.form``), forward and inverse, scale
-   1 and 1/n, f32 and bf16 storage;
+   to 4096: one warp's lanes for n <= 64, each four-step geometry above),
+   every mixed-radix length of it (3, 5 and 15 times a power of two, 93,
+   1000, 1080, 2160) and the stage form's length classes (127, 1792,
+   16384), each printed with its form (``minor_fft.form``), forward and
+   inverse, scale 1 and 1/n, f32 and bf16 storage;
 4. the main path, ``plan_fft`` + ``fft``/``ifft`` on c64 ``SplitComplex``
    planes at (100000, 1024) and (1000000, 93): rows against ``np.fft.fft``,
-   the round trip, and the launch counts (the kernel ran, its plain version
-   did not);
+   the round trip, the launch counts (the kernel ran, its plain version
+   did not) and the form the library launched (the line form at both);
 5. times by CUDA events (median of 20 after warm-up) at both shapes: the
    main path, the kernel, its plain version, ``torch.fft.fft`` (cuFFT, a
-   baseline only) and a device copy of both planes (the floor), with the
-   kernel held against its plain version at those shapes;
+   baseline only), a device copy of both planes (the floor) and the
+   kernel's stage form (``stages=True``), with the kernel held against its
+   plain version at those shapes;
 6. the strided-axis kernel (K2 and K3, with and without the (n, M)
    twiddle) and the pair kernel (K4) against their plain versions, on
    ragged pre and post edges: lengths 8 to 16384, pairs (8, 93) to
    (160, 48), both directions, scale 1 and 1/n, f32 and bf16 storage;
    then every length of the strided kernel's line form (n = r 2^a, r in
-   {1, 3, 5}, 8 to 2048) on a ragged (3, n, 241), K2 and K3 with the
-   twiddle, each printed with its form (``inner_fft.form``: line or
-   stage);
+   {1, 3, 5}, 8 to 2048; 15 2^a, 30 to 1920; 25, 93, 1080) on a ragged
+   (3, n, 241), K2 and K3 with the twiddle, each printed with its form
+   (``inner_fft.form``: line or stage);
 7. the new paths at full size, each driven with every count set to 0
    just before it and read just after: ``fft2`` on (100, 640, 480) (K2 +
    K1), ``fftn(axes=(1, 2, 3))`` on (10, 128, 128, 128) (K3 + K4), the
@@ -50,8 +52,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
    (every length of K7's and K8's line form, 256 to 8192, among them;
    each length printed with its form, ``real_fft.form``), pads (1 -> 2),
    (33 -> 64), (93 -> 128), (1000 -> 1024), (1024 -> 2048), (2047 ->
-   4096) on K9's line form and (300 -> 384), (5000 -> 8192) on its stage
-   form (each printed with its form, ``minor_fft.form``), pairs (64, 93
+   4096), (300 -> 384) and (n - 1 -> n) at every mixed-radix length on
+   K9's line form and (5000 -> 8192) on its stage form (each printed with
+   its form, ``minor_fft.form``), pairs (64, 93
    -> 128) and (120, 100 -> 128), scale 1 and 1/n, f32 and bf16 storage;
 10. the real and padded paths at full size, each call driven with every
     count set to 0 just before it and read just after: ``rfft`` and
@@ -158,8 +161,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
     512, the sweep behind ``execute.MID_PAIR_MIN_L``;
 21. the fused-storage kernels K16 (cube), K17 (pair), K18 (a leading
     axis, M > 1), K19 (the axis next to the minor one, M = 1) and K20 (the
-    minor axis, on every power-of-two half of K1's line form and on the
-    stage form, each printed with its form) against their plain versions:
+    minor axis, on every power-of-two half and every mixed-radix length
+    of K1's line form and on the stage form, each printed with its form)
+    against their plain versions:
     halves 2 to 16384 (93 among them), ragged pre, B and M, the cubes of
     phase 18 (clusters of 1 to 16 blocks), K18 and K19 at every length of
     the strided line form (halves L = 2 to 256; each printed with its
@@ -283,6 +287,18 @@ Phases, each of which raises (and so exits nonzero) on failure:
     c.phase_device(); c.phase_build();
     c.phase_native_parallel_paths(c._copy_rate())"``.
 
+28. the mixed-radix line forms (3, 5 and 15 times a power of two, 93,
+    1000, 1080, 2160 for K1; 15 times a power of two, 25, 93 and 1080 for
+    the strided kernel): K1 alone at (1000000, 93), (64000, 480), (19200,
+    1080) and (3840, 2160), K2 alone on (1, 93, 1000000) (T1's axis) and
+    (10, 1920, 1080), each beside its stage form (``stages=True``, kept in
+    the library; in turns), its plain version, ``torch.fft.fft`` and the
+    copy floor of its bytes; and ``fft2`` on the survey's (10, 1920,
+    1080) and (1, 3840, 2160) (bench_suite.py) with every count set to 0
+    just before and read just after, against ``np.fft.fft2`` and through
+    the round trip, beside ``torch.fft.fft2`` and the floor of its two
+    passes.
+
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
 its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
@@ -323,17 +339,30 @@ F32_TOL = 1e-5   # kernel vs plain version, f32 storage: both compute in f32
 BF16_TOL = 8e-3  # bf16 storage: both round to bf16 (2^-8 relative) at the store
 NP_TOL = 1e-3    # main path vs np.fft.fft, the check bench.py makes
 SPECTRAL_TOL = 1e-4  # f32 spectral paths vs scipy in float64
-KERNEL_NS = (2, 4, 8, 16, 32, 64, 93, 127, 128, 256, 512, 960, 1024, 1792,
-             2048, 4096, 16384)
+# K1: the power-of-two line form, the mixed-radix line form (every length
+# of minor_fft._MIXED_STEP: 3, 5 and 15 times a power of two, 93, 1000,
+# 1080, 2160) and the stage form's classes (127, 1792, 16384)
+KERNEL_NS = tuple(sorted(
+    {2, 4, 8, 16, 32, 64, 93, 127, 128, 256, 512, 960, 1024, 1792, 2048,
+     4096, 16384} | set(minor_fft._MIXED_STEP)))
 MAIN_SHAPES = ((100_000, 1024), (1_000_000, 93))
 REPS = 20
 # TF32 on the tensor cores, dense: NVIDIA's data sheet for the H100 SXM at
 # 700 W. K11/K12's tensor-core body does three TF32 products per f32 one.
 TF32_PEAK = 495e12
 STRIDED_NS = (8, 93, 127, 128, 960, 1024, 4096, 16384)
-# the strided kernel's line form: n = r 2^a, r in {1, 3, 5}, 8 to 2048
-STRIDED_LINE_NS = tuple(sorted(r * 2 ** a for r in (1, 3, 5)
-                               for a in range(12) if 8 <= r * 2 ** a <= 2048))
+# the strided kernel's line form: n = r 2^a, r in {1, 3, 5}, 8 to 2048;
+# 15 2^a, 30 to 1920; 25, 93 and 1080
+STRIDED_LINE_NS = tuple(sorted(
+    [r * 2 ** a for r in (1, 3, 5) for a in range(12)
+     if 8 <= r * 2 ** a <= 2048]
+    + [15 * 2 ** a for a in range(1, 8)] + [25, 93, 1080]))
+# phase 28: K1 and the strided kernel's mixed-radix line forms beside their
+# stage forms, and the survey's fft2 shapes (bench_suite.py)
+MIXED_K1_SHAPES = ((1_000_000, 93), (64_000, 480), (19_200, 1080),
+                   (3840, 2160))
+MIXED_K2_SHAPES = ((1, 93, 1_000_000), (10, 1920, 1080))
+SURVEY_FFT2 = ((10, 1920, 1080), (1, 3840, 2160))
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
@@ -349,9 +378,11 @@ REAL_EVEN_NS = (2, 8, 128, 256, 512, 1024, 2048, 4096, 8192, 32768)
 REAL_LINE_SHAPES = ((400_000, 256), (12_500, 8192))
 REAL_ODD_NS = (3, 93, 127, 16383)
 # K9's pads: its line form at power-of-two n up to 4096 (n_in = 1, n/2,
-# odd), its stage form at 384 and 8192
+# odd) and at 384, its stage form at 8192
 PADS = ((1, 2), (33, 64), (93, 128), (1000, 1024), (1024, 2048),
-        (2047, 4096), (300, 384), (5000, 8192))
+        (2047, 4096), (300, 384), (5000, 8192)) + tuple(
+    # K9 at every mixed-radix length of the line form, n_in = n - 1
+    (n - 1, n) for n in sorted(minor_fft._MIXED_STEP) if n != 384)
 # K9 timed beside its stage form and torch.fft.fft(x, n): the paths'
 # shapes (fft(n="fast-aligned"), czt, envelope)
 PAD_SHAPES = ((1_000_000, 93, 128), (100_000, 1024, 2048),
@@ -426,7 +457,8 @@ def phase_build() -> None:
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or line.startswith("nvcc ")):
                 print("  ptxas:", line.strip())
 
 
@@ -526,9 +558,14 @@ def phase_main_path() -> int:
         check(err < NP_TOL, f"({batch}, {n}): vs np.fft.fft {err:.3e}")
         rt = pair_err(back, x)
         check(rt < NP_TOL, f"({batch}, {n}): ifft(fft(x)) error {rt:.3e}")
+        launched = minor_fft.launched_geometry(n)
+        check(launched["form"] == minor_fft.form(n) == "lines",
+              f"({batch}, {n}): K1 launched its {launched['form']} form, the "
+              f"wrapper names {minor_fft.form(n)}; the line form expected")
         print(f"main path ({batch}, {n}) c64: 4 rows vs np.fft.fft "
-              f"{err:.3e}, round trip {rt:.3e}, kernel launches {launches}, "
-              f"plain-version CUDA calls {plain}")
+              f"{err:.3e}, round trip {rt:.3e}, kernel launches {launches} "
+              f"(K1's {launched['form']} form, split "
+              f"{minor_fft.line_split(n)}), plain-version CUDA calls {plain}")
         del x, y, y_fn, back
     return total
 
@@ -2341,11 +2378,15 @@ def phase_nd_times() -> dict:
 # ----------------------------------------------------------------------------
 
 # kernel, logical shape of a fused array whose last dim is the half h:
-# halves 8 to 16384 (93 among them), ragged pre, B and M, and the cubes of
-# phase 18 (clusters of 1 to 16 blocks)
+# halves 8 to 16384 (93 and every mixed-radix length of K1's line form
+# among them), ragged pre, B and M, and the cubes of phase 18 (clusters of
+# 1 to 16 blocks)
 FUSED_CASES = tuple(
     ("minor", (257, n)) for n in (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048,
-                                  4096)) + (
+                                  4096)) + tuple(
+    # K20 at every mixed-radix length of K1's line form
+    ("minor", (37, n)) for n in sorted(minor_fft._MIXED_STEP)
+    if n != 93) + (
     ("minor", (257, 93)), ("minor", (37, 1024)), ("minor", (5, 16384)),
     ("inner", (3, 64, 37, 93)), ("inner", (11, 128, 3, 256)),
     ("inner", (2, 16, 5, 8)), ("inner", (1, 2048, 3, 8)),
@@ -3703,6 +3744,105 @@ def phase_native_parallel_paths(rate: float) -> dict:
     return total
 
 
+def _ab_line(what: str, line, stages, plain, library, nbytes: float,
+             rate: float) -> dict:
+    """One line form beside its stage form, its plain version, the library
+    call and the copy floor of its bytes: the line form held against its
+    stage form (f32 1e-5), each timed (median of REPS), the two forms in
+    turns line, stages, stages, line; returns the medians."""
+    err = pair_err(line(), stages())
+    check(err < F32_TOL, f"{what}: line form vs stage form {err:.3e}")
+    a, b = _time_ms(line), _time_ms(stages)
+    b, a = (b + _time_ms(stages)) / 2, (a + _time_ms(line)) / 2
+    t = {"line": a, "stages": b, "plain": _time_ms(plain),
+         "library": _time_ms(library), "floor": nbytes / rate * 1e3}
+    print(f"  {what}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f" ms; line / stages {a / b:.3f}, floor / line "
+          f"{t['floor'] / a:.3f}; line vs stages {err:.3e}")
+    return t
+
+
+def phase_mixed_times(rate: float) -> dict:
+    """Phase 28: K1's mixed-radix line form at MIXED_K1_SHAPES and the
+    strided one at MIXED_K2_SHAPES, each beside its stage form
+    (``stages=True``), its plain version, ``torch.fft.fft`` and the copy
+    floor; then the
+    survey's ``fft2`` shapes (SURVEY_FFT2) as paths, each driven with every
+    count set to 0 just before it and read just after, against
+    ``np.fft.fft2`` on one slice and through the round trip, timed beside
+    ``torch.fft.fft2`` and the floor of its two passes. Returns the paths'
+    launches."""
+    card = _smi("name,power.limit")
+    print(f"phase 28, mixed-radix line forms [{card}], ms (median of {REPS}):")
+    for rows, n in MIXED_K1_SHAPES:
+        xr, xi = _device_planes((rows, n), seed=n)
+        xc = torch.complex(xr, xi)
+        check(minor_fft.launched_geometry(n)["form"] == "lines",
+              f"K1 at {n}: the library's form is not the line form")
+        _ab_line(f"K1 ({rows}, {n}) {minor_fft.line_split(n)}",
+                 lambda: minor_fft.fft_minor(xr, xi, inverse=False,
+                                             scale=1.0),
+                 lambda: minor_fft.fft_minor(xr, xi, inverse=False,
+                                             scale=1.0, stages=True),
+                 lambda: minor_fft.fft_minor_reference(xr, xi, inverse=False,
+                                                       scale=1.0),
+                 lambda: torch.fft.fft(xc), 16.0 * rows * n, rate)
+        del xr, xi, xc
+    for pre, n, post in MIXED_K2_SHAPES:
+        xr, xi = _device_planes((pre, n, post), seed=n)
+        xc = torch.complex(xr, xi)
+        check(inner_fft.form(n, post, torch.float32) == "lines",
+              f"K2 at {n}: the library's form is not the line form")
+        _ab_line(f"K2 {(pre, n, post)} "
+                 f"{inner_fft.line_geometry(n, post, torch.float32)}",
+                 lambda: inner_fft.fft_inner(xr, xi, inverse=False,
+                                             scale=1.0),
+                 lambda: inner_fft.fft_inner(xr, xi, inverse=False,
+                                             scale=1.0, stages=True),
+                 lambda: inner_fft.fft_inner_reference(xr, xi, inverse=False,
+                                                       scale=1.0),
+                 lambda: torch.fft.fft(xc, dim=1), 16.0 * pre * n * post,
+                 rate)
+        del xr, xi, xc
+    total = collections.Counter()
+    for shape in SURVEY_FFT2:
+        xr, xi = _device_planes(shape, seed=sum(shape))
+        x = tpufft_torch.SplitComplex(xr, xi)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = tpufft_torch.fft2(x)
+        back = tpufft_torch.ifft2(y)
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        check(plain == 0, f"fft2 {shape}: plain versions ran {plain} times")
+        check(by_kernel["minor"] == 2 and by_kernel["inner"] == 2,
+              f"fft2 {shape}: launches {by_kernel}, expected K2 and K1 "
+              "once a transform")
+        total.update(by_kernel)
+        ref = np.fft.fft2(xr[0].cpu().numpy().astype(np.float64)
+                          + 1j * xi[0].cpu().numpy())
+        got = y.re[0].cpu().numpy() + 1j * y.im[0].cpu().numpy()
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err < NP_TOL, f"fft2 {shape}: vs np.fft.fft2 {err:.3e}")
+        rt = pair_err(back, x)
+        check(rt < NP_TOL, f"fft2 {shape}: round trip {rt:.3e}")
+        del y, back
+        xc = torch.complex(xr, xi)
+        _, n1, n2 = shape
+        t = {"path": _time_ms(lambda: tpufft_torch.fft2(x)),
+             "torch_fft2": _time_ms(lambda: torch.fft.fft2(xc)),
+             "floor": 2 * 16.0 * xr.numel() / rate * 1e3}
+        print(f"  path fft2 {shape} c64: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f" ms; K2 at {n1} "
+              f"{inner_fft.form(n1, n2, torch.float32)} form, K1 at {n2} "
+              f"{minor_fft.form(n2)} form; vs np.fft.fft2 {err:.3e}, round "
+              f"trip {rt:.3e}, launches "
+              f"{ {k: v for k, v in by_kernel.items() if v} }")
+        del x, xr, xi, xc
+    torch.cuda.synchronize()
+    return dict(total)
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -3797,6 +3937,8 @@ def phase_times() -> dict:
                 xr, xi, inverse=False, scale=1.0)),
             "torch_fft": _time_ms(lambda: torch.fft.fft(xc, dim=-1)),
             "copy": _time_ms(copy),
+            "stage_form": _time_ms(lambda: minor_fft.fft_minor(
+                xr, xi, inverse=False, scale=1.0, stages=True)),
         }
         gbytes = 2 * 2 * 4 * batch * n / 1e9   # planes in + out, f32
         print(f"times ({batch}, {n}) c64, {minor_fft.form(n)} form, median "
@@ -3867,11 +4009,12 @@ def main() -> None:
     design_launches = phase_design_paths(rate)
     peak_launches = phase_peaks_spline_paths(rate)
     parallel_launches = phase_native_parallel_paths(rate)
+    mixed_launches = phase_mixed_times(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
                  multirate_launches, design_launches, peak_launches,
-                 parallel_launches):
+                 parallel_launches, mixed_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

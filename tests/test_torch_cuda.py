@@ -53,7 +53,8 @@ def _planes(shape, device, dtype=torch.float32, seed=0):
                                        (torch.bfloat16, 8e-3)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("n", [1, 8, 93, 127, 128, 960, 1024, 1792, 4096,
-                               8192, 16383, 16384])
+                               8192, 16383, 16384, 12, 60, 480, 1000, 1080,
+                               2160, 3840])
 def test_kernel_matches_plain_version(n, dtype, tol, cuda_device):
     xr, xi = _planes((257, n), cuda_device, dtype, seed=n)
     for inverse in (False, True):
@@ -68,7 +69,8 @@ def test_kernel_matches_plain_version(n, dtype, tol, cuda_device):
             assert _err(got, ref) < tol
 
 
-LINE_NS = [2 ** k for k in range(1, 13)]   # the line form: 2 .. 4096
+# the line form: powers of two 2 .. 4096 and the mixed-radix lengths
+LINE_NS = [2 ** k for k in range(1, 13)] + sorted(minor_fft._MIXED_STEP)
 LINE_BATCHES = [1, 3, 127, 129, 257]        # ragged last blocks and groups
 
 
@@ -83,9 +85,9 @@ def _fused_minor(xr, xi):
 @pytest.mark.parametrize("batch", LINE_BATCHES)
 @pytest.mark.parametrize("n", LINE_NS)
 def test_line_form_matches_plain_version(n, batch, dtype, tol, cuda_device):
-    """K1 and K20 on the line form (power-of-two n up to 4096) against
-    their plain versions: both directions, scale 1 and 1/n, one launch a
-    call."""
+    """K1 and K20 on the line form (power-of-two n up to 4096 and the
+    mixed-radix lengths) against their plain versions: both directions,
+    scale 1 and 1/n, one launch a call."""
     from tpufft_torch.kernels import fused_fft
     assert minor_fft.form(n) == "lines" == fused_fft.minor_form(n)
     xr, xi = _planes((batch, n), cuda_device, dtype, seed=n + batch)
@@ -134,7 +136,8 @@ def _complex_row_err(got, ref):
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["K1", "K20"])
-@pytest.mark.parametrize("n", [2, 8, 64, 128, 256, 1024, 2048, 4096])
+@pytest.mark.parametrize("n", [2, 8, 64, 128, 256, 1024, 2048, 4096, 12, 93,
+                               480, 1000, 1080, 2160, 3840])
 def test_line_form_edge_values(n, fused, cuda_device):
     """Edge-value rows through the line form: the rows holding Inf or NaN
     come out non-finite in the kernel and in the plain version alike, and
@@ -178,6 +181,73 @@ def test_line_form_misaligned_view(cuda_device):
                                         scale=1.0 / 1024)
     torch.cuda.synchronize()
     assert _err(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("n", [93, 480, 1000, 2160])
+def test_mixed_line_form_misaligned_view(n, cuda_device):
+    """The mixed-radix line form on a contiguous view 4 bytes into its
+    storage (rows at any 4-byte offset, as every odd n has them): K1 and
+    K9 (n_in = n - 1) against their plain versions."""
+    flat = torch.randn(1 + 2 * 33 * n, device=cuda_device)
+    xr = flat[1:1 + 33 * n].view(33, n)
+    xi = flat[1 + 33 * n:].view(33, n)
+    assert xr.is_contiguous() and xr.data_ptr() % 16 == 4
+    assert minor_fft.form(n) == "lines"
+    got = minor_fft.fft_minor(xr, xi, inverse=True, scale=1.0 / n)
+    ref = minor_fft.fft_minor_reference(xr, xi, inverse=True, scale=1.0 / n)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+    pr = flat[1:1 + 33 * (n - 1)].view(33, n - 1)
+    pi = flat[2 + 33 * (n - 1):2 + 66 * (n - 1)].view(33, n - 1)
+    got = minor_fft.fft_minor_padded(pr, pi, n=n, inverse=False, scale=1.0)
+    ref = minor_fft.fft_minor_padded_reference(pr, pi, n=n, inverse=False,
+                                               scale=1.0)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+
+
+def test_form_is_what_the_library_launches(cuda_device):
+    """The wrappers' forms cannot drift from the launch's: at every length
+    of chip_smoke's KERNEL_NS, ``minor_fft.form`` and ``line_geometry``
+    equal what the library's ``launch_sized`` test reports
+    (``launched_geometry``), and the launch itself agrees: the default
+    launch and the stage-form entry (``stages=True``) give the same bits
+    exactly where the form is the stage form (n >= 128, where the two
+    forms factor n differently, so their sums differ). The strided kernel
+    alike at every length of its line form and at stage-form lengths (its
+    ``form`` is the library's own answer; here the A/B launch holds it)."""
+    import chip_smoke
+    for n in chip_smoke.KERNEL_NS:
+        got = minor_fft.launched_geometry(n)
+        want = minor_fft.form(n)
+        assert got["form"] == want, n
+        geo = minor_fft.line_geometry(n)
+        if geo is not None:
+            assert got == {"form": "lines", **geo}, n
+        if n < 128:
+            continue
+        xr, xi = _planes((37, n), cuda_device, seed=n)
+        a = minor_fft.fft_minor(xr, xi, inverse=False, scale=1.0)
+        b = minor_fft.fft_minor(xr, xi, inverse=False, scale=1.0,
+                                stages=True)
+        torch.cuda.synchronize()
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert same == (want == "stages"), n
+        assert _err(a, b) < 1e-5
+    for n in list(chip_smoke.STRIDED_LINE_NS) + [127, 4096]:
+        want = inner_fft.form(n, 241, torch.float32)
+        assert want == ("lines" if n in chip_smoke.STRIDED_LINE_NS
+                        else "stages"), n
+        if n < 128:
+            continue
+        xr, xi = _planes((2, n, 241), cuda_device, seed=n)
+        a = inner_fft.fft_inner(xr, xi, inverse=False, scale=1.0)
+        b = inner_fft.fft_inner(xr, xi, inverse=False, scale=1.0,
+                                stages=True)
+        torch.cuda.synchronize()
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert same == (want == "stages"), n
+        assert _err(a, b) < 1e-5
 
 
 def test_kernel_empty_batch(cuda_device):
@@ -476,7 +546,8 @@ def _column_edges(xr, xi):
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["K2", "K18"])
-@pytest.mark.parametrize("n", [8, 12, 20, 40, 64, 128, 640, 1024, 2048])
+@pytest.mark.parametrize("n", [8, 12, 20, 40, 64, 128, 640, 1024, 2048, 25,
+                               93, 480, 960, 1080])
 def test_strided_line_form_edge_values(n, fused, cuda_device):
     """Edge-value columns through the line form, as K1's rows: the lines
     holding Inf or NaN come out non-finite in the kernel and in the plain

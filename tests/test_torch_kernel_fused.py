@@ -116,10 +116,13 @@ def test_gates_are_the_port_envelopes():
 
 @pytest.mark.parametrize("n,expected", (
     [(2 ** k, "lines") for k in range(1, 13)]
-    + [(n, "stages") for n in (1, 93, 480, 960, 1792, 8192, 16384)]
+    + [(n, "lines") for n in (93, 480, 960)]
+    + [(n, "stages") for n in (1, 1792, 8192, 16384, 127, 37, 7680)]
     + [(131, None), (2 * 131, None)]))
 def test_minor_form(n, expected):
-    """K20 runs K1's form for the length; the gate is unchanged."""
+    """K20 runs K1's form for the length (the line form at powers of two
+    up to 4096 and at K1's mixed-radix lengths, 93, 480 and 960 among
+    them); the gate is unchanged."""
     assert fused_fft.minor_form(n) == expected
     assert (expected is not None) == fused_fft.minor_supported(
         n, torch.float32)
@@ -135,7 +138,7 @@ def test_minor_form(n, expected):
     (2048, 1, 8, torch.bfloat16, "stages"),      # 16 columns, 1024 lanes
     (8, 1, 7, torch.float32, "stages"),          # under 8 columns
     (96, 2, 7, torch.bfloat16, "stages"),        # under 16 bf16 columns
-    (93, 128, 128, torch.float32, "stages"),     # T1's length
+    (93, 128, 128, torch.float32, "lines"),      # T1's length (3 x 31)
     (4096, 3, 8, torch.float32, "stages"),
     (131, 3, 8, torch.float32, None)])
 def test_inner_form(n, M, L, dtype, expected, monkeypatch):

@@ -32,8 +32,8 @@ from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import inner_fft, minor_fft
 
-from test_torch_strided_geometry import (FORM_CASES, LINE_NS, SPLITS,
-                                         model_geometry, use_model)
+from test_torch_strided_geometry import (FORM_CASES, LINE_NS, NEW_LINE_NS,
+                                         SPLITS, model_geometry, use_model)
 from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 NS = [8, 93, 128, 256, 1024]
@@ -156,9 +156,10 @@ def test_wrappers_refuse_non_cuda_devices(call):
 # ----------------------------------------------------------------------------
 
 def _first_radix(n):
-    """``first_radix``: 8 (4 at 16), 4, 2, then 3 or 5."""
+    """``first_radix``: 8 (4 at 16), 4, 2, then the smallest odd prime."""
     return (8 if n % 8 == 0 and n != 16 else 4 if n % 4 == 0
-            else 2 if n % 2 == 0 else 3 if n % 3 == 0 else 5)
+            else 2 if n % 2 == 0
+            else next(p for p in range(3, n + 1, 2) if n % p == 0))
 
 
 def _lane_out(n, r):
@@ -170,10 +171,11 @@ def _lane_out(n, r):
     return r // b + a * _lane_out(b, r % b)
 
 
-def _radix_dft(t, a, inverse):
+def _radix_dft(t, a, inverse, w=None, kstep=0):
     """The radix-a butterfly over the last dim of a complex64 tensor: the
     kernel's radix-3 and radix-5 formulas with its f32 constants, an exact
-    DFT matrix for 2, 4 and 8."""
+    DFT matrix for 2, 4 and 8, and for an odd prime from 7 the
+    conjugate-pair sum with W_a^k read from the n-table w at k kstep."""
     sg = -1.0 if inverse else 1.0
     if a == 3:
         s = np.float32(0.86602540378443864676) * sg
@@ -197,10 +199,25 @@ def _radix_dft(t, a, inverse):
         ie2 = torch.complex(e2.imag, -e2.real)
         return torch.stack([x0 + a1 + a2, m1 + ie1, m2 + ie2, m2 - ie2,
                             m1 - ie1], -1)
+    if a % 2 and a >= 7:
+        h = a // 2
+        x0 = t[..., 0]
+        sums = [t[..., b] + t[..., a - b] for b in range(1, h + 1)]
+        diffs = [t[..., b] - t[..., a - b] for b in range(1, h + 1)]
+        y = torch.empty_like(t)
+        y[..., 0] = x0 + sum(sums)
+        for j in range(1, h + 1):
+            c, e = x0, torch.zeros_like(x0)
+            for b in range(1, h + 1):
+                wb = w[(j * b) % a * kstep]
+                c = c + wb.real * sums[b - 1]
+                e = e + wb.imag * diffs[b - 1]
+            y[..., j], y[..., a - j] = c + 1j * e, c - 1j * e
+        return y
     k = np.arange(a)
-    w = np.exp((1j if inverse else -1j) * 2 * np.pi * np.outer(k, k) / a)
-    w = np.round(w.real, 15) + 1j * np.round(w.imag, 15)
-    return t @ torch.from_numpy(w.T.astype(np.complex64))
+    m = np.exp((1j if inverse else -1j) * 2 * np.pi * np.outer(k, k) / a)
+    m = np.round(m.real, 15) + 1j * np.round(m.imag, 15)
+    return t @ torch.from_numpy(m.T.astype(np.complex64))
 
 
 def _lane_dft(x, n, ktab, w, inverse):
@@ -213,29 +230,32 @@ def _lane_dft(x, n, ktab, w, inverse):
     a = _first_radix(n)
     b = n // a
     y = x.reshape(*x.shape[:-1], a, b)                    # [a, b]
-    y = _radix_dft(y.transpose(-1, -2), a, inverse).transpose(-1, -2)
+    y = _radix_dft(y.transpose(-1, -2), a, inverse, w,
+                   ktab * b).transpose(-1, -2)
     ab = torch.outer(torch.arange(a), torch.arange(b))
     y = y * w[ab * ktab]
     return _lane_dft(y, b, ktab * a, w, inverse).reshape(x.shape)
 
 
 def _pair_dft(x, ktab, w, inverse):
-    """``pair_dft<32, ktab>`` on a 64-long line x (last dim, natural
-    order): lane p transforms x[p + 2 i], the pair swaps, and register r
-    of lane p ends holding X[pair_out(p, r)]; returns both lanes'
-    registers, (..., 2, 32)."""
-    f = [_lane_dft(x[..., p::2], 32, 2 * ktab, w, inverse) for p in (0, 1)]
+    """``pair_dft<M, ktab>`` on a line x of 2M = 36 to 64 (last dim,
+    natural order): lane p transforms x[p + 2 i], the pair swaps, and
+    register r of lane p ends holding X[pair_out(M, p, r)]; returns both
+    lanes' registers, (..., 2, M)."""
+    m = x.shape[-1] // 2
+    h = m // 2
+    f = [_lane_dft(x[..., p::2], m, 2 * ktab, w, inverse) for p in (0, 1)]
     lanes = []
     for p in (0, 1):
-        regs = torch.arange(16) + 16 * p
-        k = torch.tensor([_lane_out(32, int(r)) for r in regs])
+        regs = torch.arange(h) + h * p
+        k = torch.tensor([_lane_out(m, int(r)) for r in regs])
         a, b = f[0][..., regs], f[1][..., regs] * w[k * ktab]
         lanes.append(torch.cat([a + b, a - b], -1))
     return torch.stack(lanes, -2)
 
 
-def _pair_out(p, r):
-    return _lane_out(32, r % 16 + 16 * p) + 32 * (r // 16)
+def _pair_out(p, r, m=32):
+    return _lane_out(m, r % (m // 2) + (m // 2) * p) + m * (r // (m // 2))
 
 
 def _line_model(x, inverse, scale, twiddle=None):
@@ -261,11 +281,12 @@ def _line_model(x, inverse, scale, twiddle=None):
         y = torch.empty(pre, post, n1, n2, dtype=torch.complex64)
         y[:, :, k1, :] = v.transpose(-1, -2)                   # [c, k1, j2]
         y = y * w[(torch.outer(torch.arange(n1), torch.arange(n2))) % n]
-        if n2 == 64:
+        if n2 > 32:
+            m = n2 // 2
             v2 = _pair_dft(y, n1, w, inverse)                  # [c, k1, p, r]
-            k2 = [[_pair_out(p, r) for r in range(32)] for p in (0, 1)]
+            k2 = [[_pair_out(p, r, m) for r in range(m)] for p in (0, 1)]
             for p in (0, 1):
-                for r in range(32):
+                for r in range(m):
                     out[..., n1 * k2[p][r] + torch.arange(n1)] = v2[..., p, r]
         else:
             v2 = _lane_dft(y, n2, n1, w, inverse)              # [c, k1, q]
@@ -281,12 +302,14 @@ def _line_model(x, inverse, scale, twiddle=None):
 
 @pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("n", [64, 96, 128, 640])
+@pytest.mark.parametrize("n", [64, 96, 128, 640] + NEW_LINE_NS)
 def test_line_model_matches_build_inner(n, inverse, unit_scale):
-    """The line form's four-step (``SPLITS``), its radix-3 and
-    radix-5 lane lines with their output order and the table exponents
-    (k1 j2) mod n, against tpufft's ``_build_inner`` in interpret mode on
-    a (3, n, 40) array."""
+    """The line form's four-step (``SPLITS``), its lane lines (radix 3, 5
+    and the conjugate-pair sum of 31 among them; pairs of 36 and 64) with
+    their output order and the table exponents (k1 j2) mod n, against
+    tpufft's ``_build_inner`` in interpret mode on a (3, n, 40) array, at
+    the r = 1, 3, 5 lengths it was written for and at every length of a
+    15, 25 or 31 factor."""
     re, im = _planes((3, n, 40), seed=n + 5)
     scale = 1.0 if unit_scale else 1.0 / n
     ref = tp_mxu.fft_axis_pallas(
@@ -371,19 +394,26 @@ def test_line_model_every_length(n):
 def _tile_accesses(geo):
     """Per half warp of each instruction of one unit, the tile positions
     (float2) and the elements (c, k1, j2) that the active lanes of
-    ``strided_lane_kernel`` write in pass 1 and read in pass 2, or None
-    for a half warp with no active lane; raises if a half warp is only
-    partly active. Positions ((k1 N2 + (j2 ^ (k1 & 1))) C + c)."""
+    ``strided_lane_kernel`` write in pass 1 and read in pass 2 (rounds of
+    t + blockDim s, or for an N2 of 34 to 64 the pair (t mod 16) + 16 (t /
+    32) + blockDim / 2 s), a half warp with no active lane left out; and
+    whether every half warp was wholly active or idle. Positions ((k1 N2 +
+    (j2 ^ (k1 & 1))) C + c) for an even N2, ((k1 N2 + j2) C + c) for an
+    odd one."""
     n1, n2, cols, lanes = geo["n1"], geo["n2"], geo["cols"], geo["threads"]
+    whole = True
 
     def pos(c, k1, j2):
+        if n2 % 2:
+            return (k1 * n2 + j2) * cols + c
         return (k1 * n2 + (j2 ^ (k1 & 1))) * cols + c
 
     def halves(acc):
+        nonlocal whole
         out = []
         for h in range(0, lanes, 16):
             part = [a for a in acc[h:h + 16] if a is not None]
-            assert len(part) in (0, 16), "a half warp partly active"
+            whole = whole and len(part) in (0, 16)
             out.append(part or None)
         return out
 
@@ -400,18 +430,20 @@ def _tile_accesses(geo):
                 k1 = _lane_out(n1, q)
                 acc.append((pos(c, k1, j2), (c, k1, j2)))
             writes += halves(acc)
-    if n2 == 64:
-        for i in range(32):
-            acc = []
-            for t in range(lanes):
-                line = (t & 15) + 16 * (t >> 5)
-                p = (t >> 4) & 1
-                if line >= cols * n1:
-                    acc.append(None)
-                    continue
-                c, k1 = line % cols, line // cols
-                acc.append((pos(c, k1, p + 2 * i), (c, k1, p + 2 * i)))
-            reads += halves(acc)
+    if n2 > 32:
+        m = n2 // 2
+        for s in range(-(-64 // n2)):
+            for i in range(m):
+                acc = []
+                for t in range(lanes):
+                    line = (t & 15) + 16 * (t >> 5) + (lanes // 2) * s
+                    p = (t >> 4) & 1
+                    if line >= cols * n1:
+                        acc.append(None)
+                        continue
+                    c, k1 = line % cols, line // cols
+                    acc.append((pos(c, k1, p + 2 * i), (c, k1, p + 2 * i)))
+                reads += halves(acc)
     else:
         for s in range(-(-32 // n2)):
             for j in range(n2):
@@ -425,7 +457,7 @@ def _tile_accesses(geo):
                     acc.append((pos(c, k1, j), (c, k1, j)))
                 reads += halves(acc)
     return ([h for h in writes if h is not None],
-            [h for h in reads if h is not None])
+            [h for h in reads if h is not None], whole)
 
 
 LINE_GEOMETRIES = [(n, c) for n in LINE_NS for c in (8, 16, 32)
@@ -436,13 +468,17 @@ LINE_GEOMETRIES = [(n, c) for n in LINE_NS for c in (8, 16, 32)
 def test_line_tile_mapping(n, cols):
     """One unit's tile: pass 1 writes every element (c, k1, j2) of its C
     columns once, at a distinct position inside the C n tile; pass 2 reads
-    each back from the position it was written to; every half warp is
-    wholly active or idle, and each active half warp of both passes
-    touches 16 distinct bank pairs (8-byte values: position mod 16), so the
-    tile has no bank conflict."""
+    each back from the position it was written to; the active lanes of
+    each half warp of both passes touch distinct bank pairs (8-byte values:
+    position mod 16), 16 of them where the half warp is wholly active, so
+    the tile has no bank conflict. Every half warp is wholly active or
+    idle at the r = 1, 3, 5 lengths; the lengths of a 15, 25 or 31 factor
+    (rounds of C N2 lines that are no multiple of 16 at C = 8) may leave
+    one half warp of a round partly active."""
     geo = model_geometry(n, 4096, False, cols)
-    assert geo["threads"] % 32 == 0 and geo["threads"] >= cols * n // 32
-    writes, reads = _tile_accesses(geo)
+    assert geo["threads"] % 32 == 0 and geo["threads"] >= cols * n / 32
+    writes, reads, whole = _tile_accesses(geo)
+    assert whole or n in NEW_LINE_NS
     where = {}
     for half in writes:
         for p, e in half:
@@ -457,7 +493,8 @@ def test_line_tile_mapping(n, cols):
             seen.add(e)
     assert seen == set(where)
     for half in writes + reads:
-        assert len({p % 16 for p, _ in half}) == 16, (n, cols, half)
+        assert len({p % 16 for p, _ in half}) == len(half), (n, cols, half)
+        assert len(half) == 16 or not whole
 
 
 @pytest.mark.parametrize("n,post,dtype,expected", FORM_CASES)

@@ -170,18 +170,27 @@ def _pad_ins(n):
 PADDED_LINES = [(n, n_in) for n in POW2 for n_in in _pad_ins(n)]
 
 
+MIXED = sorted(minor_fft._MIXED_STEP)   # the mixed-radix line form
+FOUR_STEP = sorted(minor_fft._FOUR_STEP)  # every four-step geometry
+
+
 @pytest.mark.parametrize("n,n_in,expected", (
     [(n, None, "lines") for n in POW2]
-    + [(n, None, "stages") for n in (1, 93, 480, 960, 1792, 8192, 16384)]
+    + [(n, None, "lines") for n in (93, 480, 960)]
+    + [(n, None, "stages") for n in (1, 1792, 8192, 16384, 127, 37, 7680)]
+    + [(n, None, "lines") for n in MIXED]
     + [(128, 93, "lines"),                  # a padded call (K9)
        (1024, 1024, "lines"),
        (131, None, None),                   # prime factor above 127
        (minor_fft.MAX_N + 1, None, None)]
     + [(n, n_in, "lines") for n, n_in in PADDED_LINES]
-    + [(384, 300, "stages"), (8192, 5000, "stages")]))
+    + [(384, 300, "lines"), (8192, 5000, "stages")]))
 def test_form(n, n_in, expected):
-    """The form each length runs, K9's padded calls among them (the line
-    form at every power-of-two n up to 4096, whatever n_in); the envelope
+    """The form each length runs, K9's padded calls among them: the line
+    form at every power-of-two n up to 4096 and at the mixed-radix lengths
+    of ``_FOUR_STEP`` (3, 5 and 15 times a power of two, 93, 1000, 1080,
+    2160), whatever n_in; the stage form at the rest (a prime above 31,
+    n above 4096 or a length no family lists). The envelope
     (``supported``) is the one the stage form alone had: every length in it
     has a form."""
     assert minor_fft.form(n, n_in) == expected
@@ -219,7 +228,7 @@ def _four_step_model(re, im, inverse, scale, split=None):
 
 @pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("n", [128, 256, 1024, 4096])
+@pytest.mark.parametrize("n", [128, 256, 1024, 4096] + MIXED)
 def test_line_split_model_matches_build_minor(n, inverse, unit_scale, rng):
     """The four-step the line form runs, with ``line_split``'s factors and
     the table exponents (k1 j2) mod n, against tpufft's ``_build_minor``
@@ -233,90 +242,165 @@ def test_line_split_model_matches_build_minor(n, inverse, unit_scale, rng):
     assert _err(got, ref) < 1e-5
 
 
+def _first_radix(n):
+    """``first_radix`` of csrc/lane_dft.cuh: 8 (4 at 16), 4, 2, then the
+    smallest odd prime."""
+    return (8 if n % 8 == 0 and n != 16 else 4 if n % 4 == 0
+            else 2 if n % 2 == 0
+            else next(p for p in range(3, n + 1, 2) if n % p == 0))
+
+
 def _lane_out(n, r):
-    """Index in its line of register r after ``lane_fft<n>`` (n = 8, 16,
-    32: radix-A then radix-B, A = 8 or 4)."""
-    a = 4 if n == 16 else 8
+    """Index in its line of register r after ``lane_dft<n>``."""
+    if n == 1:
+        return 0
+    a = _first_radix(n)
     b = n // a
-    return r // b + a * (r % b)
+    return r // b + a * _lane_out(b, r % b)
 
 
 def _line_out(n, p, r):
-    """``line_out<n>``: a line in one lane, or a 64-line on a lane pair at
-    place p (``pair_out``)."""
-    if n == 64:
-        return _lane_out(32, r % 16 + 16 * p) + 32 * (r // 16)
+    """``line_out<n>``: a line in one lane, or a line of 34 to 64 on a lane
+    pair at place p (``pair_out<n / 2>``)."""
+    if n > 32:
+        m = n // 2
+        return _lane_out(m, r % (m // 2) + (m // 2) * p) + m * (r // (m // 2))
     return _lane_out(n, r)
 
 
+def _tile_pos(geo, n):
+    """``LaneStep::pos``: r n + k1 N2 + (j2 ^ ((k1 + N1 r) mod 16)) for the
+    power-of-two XOR tile (p2 = 0), else r rs + k1 p2 + j2."""
+    n1, n2, p2, rs = geo["n1"], geo["n2"], geo["p2"], geo["rs"]
+    if p2 == 0:
+        return lambda r, k1, j2: r * n + k1 * n2 + (j2 ^ ((k1 + n1 * r) & 15))
+    return lambda r, k1, j2: r * rs + k1 * p2 + j2
+
+
+def _slots(length, lanes, t, s):
+    """(slot, place in a pair) of team lane t in round s of a pass whose
+    lines are ``length`` long: t + lanes s in one lane, (t mod 16) + 16 (t
+    / 32) + lanes / 2 s on the pair t, t ^ 16 (length 34 to 64)."""
+    if length > 32:
+        return (t & 15) + 16 * (t >> 5) + (lanes // 2) * s, (t >> 4) & 1
+    return t + lanes * s, 0
+
+
+def _rounds(geo, q, length):
+    lanes = 32 * geo["team_warps"]
+    units = lanes // 2 if length > 32 else lanes
+    return -(-geo["rows"] * q // units)
+
+
 def _tile_accesses(n):
-    """Per warp instruction of a team, the lanes' tile positions (float2)
-    and the elements of the (N1, N2) views they carry, indexed as
-    ``minor_lane_kernel`` indexes them: pass 1's writes (lane t holds the
-    column lines t + 32 W s, or for N1 = 64 line (t mod 16) + 16 (t / 32)
-    on the pair t, t ^ 16) and pass 2's reads (the lines k1 + N1 r, alike);
-    positions r n + k1 N2 + (j2 ^ ((k1 + N1 r) mod 16))."""
+    """Per warp instruction of a team, the live lanes' tile positions
+    (float2) and the elements (row, k1, j2) of the (N1, N2) views they
+    carry, indexed as ``lane_rows`` indexes them: pass 1's writes (slot u =
+    r Q1 + j2 of each round, live where j2 < N2 and r < rows) and pass 2's
+    reads (slot r Q2 + k1, live where k1 < N1), each line in one lane or on
+    a pair (``_slots``); positions ``_tile_pos``."""
     geo = minor_fft.line_geometry(n)
     n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
+    q1, q2, rows = geo["q1"], geo["q2"], geo["rows"]
     lanes = 32 * tw
-
-    def pos(row, k1, j2):
-        return row * n + k1 * n2 + (j2 ^ ((k1 + n1 * row) & 15))
-
-    def lines(length, t):
-        p = (t >> 4) & 1
-        if length == 64:
-            return p, [(t & 15) + 16 * (t >> 5)]
-        return p, [t + lanes * s for s in range(32 // length)]
-
+    pos = _tile_pos(geo, n)
     writes, reads = [], []
     for w in range(tw):
-        for s in range(1 if n1 == 64 else 32 // n1):
-            for q in range(32 if n1 == 64 else n1):
+        for s in range(_rounds(geo, q1, n1)):
+            for q in range(n1 // 2 if n1 > 32 else n1):
                 acc = []
                 for t in range(32 * w, 32 * w + 32):
-                    p, ls = lines(n1, t)
-                    row, j2 = divmod(ls[s], n2)
+                    slot, p = _slots(n1, lanes, t, s)
+                    row, j2 = divmod(slot, q1)
+                    if row >= rows or j2 >= n2:
+                        acc.append(None)
+                        continue
                     k1 = _line_out(n1, p, q)
                     acc.append((pos(row, k1, j2), (row, k1, j2)))
                 writes.append(acc)
-        for s in range(1 if n2 == 64 else 32 // n2):
-            for j in range(32 if n2 == 64 else n2):
+        for s in range(_rounds(geo, q2, n2)):
+            for j in range(n2 // 2 if n2 > 32 else n2):
                 acc = []
                 for t in range(32 * w, 32 * w + 32):
-                    p, ls = lines(n2, t)
-                    row, k1 = divmod(ls[s], n1)
-                    j2 = p + 2 * j if n2 == 64 else j
+                    slot, p = _slots(n2, lanes, t, s)
+                    row, k1 = divmod(slot, q2)
+                    if row >= rows or k1 >= n1:
+                        acc.append(None)
+                        continue
+                    j2 = p + 2 * j if n2 > 32 else j
                     acc.append((pos(row, k1, j2), (row, k1, j2)))
                 reads.append(acc)
     return geo, writes, reads
 
 
-@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n", FOUR_STEP)
 def test_line_tile_mapping(n):
-    """The team's tile: pass 1 writes every element of its rows' (N1, N2)
-    views once, at a distinct position; pass 2 reads each back from the
-    position it was written to; and each half warp of every write and read
-    instruction touches 16 distinct bank pairs (8-byte values: position mod
-    16), so the tile has no bank conflict."""
+    """The team's tile at every four-step geometry: pass 1 writes every
+    element of its rows' (N1, N2) views once, at a distinct position
+    inside the team's tile; pass 2 reads each back from the position it
+    was written to; and the live lanes of each half warp of every write
+    and read instruction touch distinct bank pairs (8-byte values:
+    position mod 16), all 16 at the power-of-two geometries, so the tile
+    has no bank conflict."""
     geo, writes, reads = _tile_accesses(n)
+    size = geo["rows"] * (n if geo["p2"] == 0 else geo["rs"])
     where = {}
     for acc in writes:
-        for p, e in acc:
+        for a in acc:
+            if a is None:
+                continue
+            p, e = a
             assert e not in where
             where[e] = p
     assert len(where) == geo["rows"] * n
     assert len(set(where.values())) == len(where)
-    assert max(where.values()) < geo["rows"] * n
+    assert max(where.values()) < size
     seen = set()
     for acc in reads:
-        for p, e in acc:
+        for a in acc:
+            if a is None:
+                continue
+            p, e = a
             assert where[e] == p
             seen.add(e)
     assert seen == set(where)
     for acc in writes + reads:
         for half in (acc[:16], acc[16:]):
-            assert len({p % 16 for p, _ in half}) == 16, (n, half)
+            live = [p for p, _ in (a for a in half if a is not None)]
+            assert len(set(x % 16 for x in live)) == len(live), (n, half)
+            if geo["p2"] == 0:
+                assert len(live) == 16
+
+
+def test_tables_match_the_header():
+    """``_FOUR_STEP``'s mixed-radix geometries are the family lists of
+    ``csrc/minor_fft.cuh`` (TPUFFT_MINOR_{R3,R5,R15,ODD}), each list
+    instantiated by its own source, and its power-of-two rows the list
+    TPUFFT_MINOR_POW2 that ``launch_line_form`` in ``csrc/minor_fft.cu``
+    launches."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(minor_fft.__file__).resolve().parent.parent / "csrc"
+    cuh = (csrc / "minor_fft.cuh").read_text()
+    listed = {}
+    for fam in ("R3", "R5", "R15", "ODD"):
+        body = cuh.split(f"#define TPUFFT_MINOR_{fam}(X)")[1].split(
+            "#define")[0].split("\n\n")[0]
+        rows = [tuple(int(v) for v in m.split(","))
+                for m in re.findall(r"X\(([0-9, ]+)\)", body)]
+        assert rows, fam
+        for r in rows:
+            listed[r[0]] = r[1:]
+        src = (csrc / f"minor_line_{fam.lower()}.cu").read_text()
+        assert (f"TPUFFT_MINOR_FAMILY(launch_mixed_{fam.lower()}, "
+                f"TPUFFT_MINOR_{fam})") in src
+    assert listed == minor_fft._MIXED_STEP
+    body = cuh.split("#define TPUFFT_MINOR_POW2(X)")[1].split("#define")[0]
+    lanes = {int(m[0]): tuple(int(v) for v in m[1:]) for m in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", body)}
+    assert lanes == minor_fft._POW2_STEP
+    assert "TPUFFT_MINOR_POW2(TPUFFT_LANE)" in (
+        csrc / "minor_fft.cu").read_text()
 
 
 # ----------------------------------------------------------------------------
@@ -337,11 +421,12 @@ def _padded_loads(n, n_in, batch):
     row n_in + col, in elements), indexed as ``minor_lines_padded_kernel``
     (n <= 64: lane (l, c) loads x[l + G j] of row row0 + c + W k, 128
     threads a block) and ``minor_lane_padded_kernel`` (pass 1: lane t of a
-    team holds the column lines t + 32 W s, or for N1 = 64 line (t mod 16)
-    + 16 (t / 32) on the pair t, t ^ 16, register j1 holding x[N2 j1 +
-    j2]; the team's rows from (group teams + team) R) index them; every
-    row group or block the batch needs. A lane whose row is past the batch
-    or whose col is at or past n_in issues nothing."""
+    team holds the column lines of its slots in each round (``_slots``;
+    slot r Q1 + j2, idle at j2 >= N2), on a pair for N1 of 34 to 64,
+    register j1 holding x[N2 j1 + j2]; the team's rows from (group teams +
+    team) R) index them; every row group or block the batch needs. A lane
+    whose row is past the batch, whose slot is idle or whose col is at or
+    past n_in issues nothing."""
     out = []
 
     def lane_access(row, col):
@@ -363,25 +448,27 @@ def _padded_loads(n, n_in, batch):
         return out
     geo = minor_fft.line_geometry(n)
     n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
-    lanes, rows = 32 * tw, geo["rows"]
-    pair = n1 == 64
+    lanes, rows, q1 = 32 * tw, geo["rows"], geo["q1"]
     for team0 in range(0, batch, rows):     # every team of every group
         for w in range(tw):
-            for s in range(1 if pair else 32 // n1):
-                for j in range(32 if pair else n1):
+            for s in range(_rounds(geo, q1, n1)):
+                for j in range(n1 // 2 if n1 > 32 else n1):
                     acc = []
                     for t in range(32 * w, 32 * w + 32):
-                        p = (t >> 4) & 1
-                        line = ((t & 15) + 16 * (t >> 5) if pair
-                                else t + lanes * s)
-                        j1 = p + 2 * j if pair else j
-                        acc.append(lane_access(team0 + line // n2,
-                                               n2 * j1 + line % n2))
+                        slot, p = _slots(n1, lanes, t, s)
+                        r, j2 = divmod(slot, q1)
+                        if r >= rows or j2 >= n2:
+                            acc.append(None)
+                            continue
+                        j1 = p + 2 * j if n1 > 32 else j
+                        acc.append(lane_access(team0 + r, n2 * j1 + j2))
                     out.append(acc)
     return out
 
 
-@pytest.mark.parametrize("n,n_in", PADDED_LINES + [(128, 93), (1024, 1000)])
+@pytest.mark.parametrize("n,n_in", PADDED_LINES + [(128, 93), (1024, 1000)]
+                         + [(384, 1), (384, 300), (384, 383), (960, 1),
+                            (960, 481), (960, 900)])
 def test_padded_load_mapping(n, n_in):
     """K9's padded load reads every input value (row, col < n_in) exactly
     once, at the input's own row stride (address row n_in + col), and
@@ -463,7 +550,8 @@ def _bf16(a):
 @pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 @pytest.mark.parametrize("n_in,n", [(93, 128), (1000, 1024), (1024, 2048),
-                                    (33, 64), (1, 16)])
+                                    (33, 64), (1, 16), (300, 384),
+                                    (900, 960)])
 def test_padded_line_model_matches_build_minor_rect(n_in, n, inverse,
                                                     unit_scale, storage, rng):
     """K9's line form in torch ops: the four-step (``Line<N>``'s split at

@@ -19,14 +19,18 @@ import torch
 from tpufft_torch.kernels import minor_fft
 
 # The four-step n = N1 N2 of each length of the line form; N2 = 1 for
-# n <= 32, one line a lane.
+# n <= 32, one line a lane; an N2 of 34 to 64 lies on lane pairs.
 SPLITS = {8: (8, 1), 10: (10, 1), 12: (12, 1), 16: (16, 1), 20: (20, 1),
-          24: (24, 1), 32: (32, 1), 40: (10, 4), 48: (12, 4), 64: (8, 8),
-          80: (10, 8), 96: (12, 8), 128: (16, 8), 160: (20, 8),
-          192: (24, 8), 256: (16, 16), 320: (20, 16), 384: (24, 16),
-          512: (32, 16), 640: (32, 20), 768: (32, 24), 1024: (32, 32),
-          1280: (20, 64), 1536: (24, 64), 2048: (32, 64)}
-LINE_NS = sorted(SPLITS)      # n = r 2^a, r in {1, 3, 5}, 8 to 2048
+          24: (24, 1), 25: (25, 1), 30: (30, 1), 32: (32, 1), 40: (10, 4),
+          48: (12, 4), 60: (15, 4), 64: (8, 8), 80: (10, 8), 93: (3, 31),
+          96: (12, 8), 120: (15, 8), 128: (16, 8), 160: (20, 8),
+          192: (24, 8), 240: (15, 16), 256: (16, 16), 320: (20, 16),
+          384: (24, 16), 480: (15, 32), 512: (32, 16), 640: (32, 20),
+          768: (32, 24), 960: (15, 64), 1024: (32, 32), 1080: (30, 36),
+          1280: (20, 64), 1536: (24, 64), 1920: (30, 64), 2048: (32, 64)}
+# n = r 2^a, r in {1, 3, 5}, 8 to 2048; 15 2^a, 30 to 1920; 25, 93, 1080
+LINE_NS = sorted(SPLITS)
+NEW_LINE_NS = [n for n in LINE_NS if n % 15 == 0 or n in (25, 93)]
 LINES_THREADS = 128           # a block of the n <= 32 kernel
 SMEM_MAX = 232448             # bytes of shared memory a block may take
 
@@ -58,12 +62,12 @@ def model_geometry(n: int, post: int, bf16: bool,
     if cols < min_cols:
         return None
     threads = (LINES_THREADS if n2 == 1
-               else (cols * n // 32 + 31) // 32 * 32)
+               else (-(-cols * n // 32) + 31) // 32 * 32)
     smem = 8 * (n + n // 16 + (0 if n2 == 1 else cols * n))
     if threads > lane_threads(n, bf16) or smem > SMEM_MAX:
         return None
     return {"n1": n1, "n2": n2, "cols": cols, "threads": threads,
-            "pair": n2 == 64, "smem": smem}
+            "pair": n2 > 32, "smem": smem}
 
 
 def model_form(n: int, post: int, dtype) -> str | None:
@@ -90,8 +94,10 @@ FORM_CASES = (
     + [(n, 16, torch.bfloat16, "lines") for n in (8, 96, 640, 1024)]
     + [(n, 15, torch.bfloat16, "stages") for n in (8, 128, 1024)]
     + [(n, 480, torch.bfloat16, "stages") for n in (1280, 1536, 2048)]
+    + [(n, 480, torch.bfloat16, "stages") for n in (1080, 1920)]
+    + [(n, 480, torch.bfloat16, "lines") for n in (25, 93, 480, 960)]
     + [(n, 480, torch.float32, "stages")
-       for n in (2, 4, 5, 6, 93, 127, 480, 960, 2560, 4096, 16384)]
+       for n in (2, 4, 5, 6, 127, 2560, 4096, 16384, 37, 3 * 37, 62)]
     + [(131, 480, torch.float32, None), (16385, 480, torch.float32, None),
        (128, 480, torch.float64, None)])
 

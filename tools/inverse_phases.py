@@ -59,10 +59,10 @@ OUT = "build/inverse_phases"
 K8_SHAPES = ((400_000, 256), (200_000, 512), (100_000, 1024), (50_000, 2048),
              (25_000, 4096), (12_500, 8192))
 K14_SHAPE = (64, 8193, 256, 128)   # batch, nseg, nfft = nperseg, hop
-FFT1 = ("        pair_fft<m / 64>(u[s], p, table, true);\n",
-        "        lane_fft<N1, m / N1>(u[s], table, true);\n")
-FFT2 = ("      pair_fft<m / 64>(v[s], p, table, true);\n",
-        "      lane_fft<N2, m / N2>(v[s], table, true);\n")
+FFT1 = ("        pair_dft<32, m / 64>(u[s], p, table, true);\n",
+        "        lane_dft<N1, m / N1, 0, 1>(u[s], table, true);\n")
+FFT2 = ("      pair_dft<32, m / 64>(v[s], p, table, true);\n",
+        "      lane_dft<N2, m / N2, 0, 1>(v[s], table, true);\n")
 PASS1 = re.compile(r"  \{  // pass 1: .*?\n  \}\n", re.S)
 K8_STORE = "      if (row < batch)\n        store_pair(y,"
 K14_STAGE = "      tile[r * m + (j ^ ((N1 * r) & 15))] ="

@@ -15,8 +15,8 @@ pair; the results of the patched copies that skip work are wrong by
 design):
 
 - ``full``: the kernel as it is;
-- ``no_pass1``: pass 1's butterflies skipped (the lane kernel's lane_fft
-  and pair_fft on the loaded columns): the most that skipping the
+- ``no_pass1``: pass 1's butterflies skipped (the lane kernel's line_dft
+  on the loaded columns): the most that skipping the
   butterflies on the pad's known zeros could save;
 - ``one_block``: the 256-thread lane kernel (n = 4096) bound to one block
   an SM (up to 255 registers) instead of two (128, with spills).
@@ -25,7 +25,7 @@ Then, with the kernel as it is: K9 at (1000000, 96 -> 128) and (1000000,
 64 -> 128), whose rows start on 128-byte boundaries (the cost of the odd
 row stride at 93 is the difference, per byte), K1 at n on the rows
 zero-padded in device memory (the same transform without the pad in the
-load), the stage form (``tpufft_minor_fft_padded_stages``),
+load), the stage form (``tpufft_minor_fft_stages``),
 ``torch.fft.fft(x, n)`` and a device copy of the kernel's bytes. Every line
 names the card and its power limit.
 """
@@ -49,10 +49,7 @@ from tpufft_torch.kernels import minor_fft  # noqa: E402
 SRC_DIR = "tpufft_torch/csrc"
 OUT = "build/pad_phases"
 SHAPES = ((1_000_000, 93, 128), (100_000, 1024, 2048), (10_000, 2047, 4096))
-PASS1 = ("        if constexpr (S::pair1)\n"
-         "          pair_fft<n / 64>(v[s], p, table, inv);\n"
-         "        else\n"
-         "          lane_fft<N1, n / N1>(v[s], table, inv);\n")
+PASS1 = "          line_dft<N1, n / N1>(v[s], p, table, inv);\n"
 BOUND = ("  return threads == 128 ? 5 : 2;\n")
 
 
@@ -63,8 +60,7 @@ def variants() -> dict:
     return {"full": cuh,
             # a butterfly that never runs keeps the loads alive
             "no_pass1": cuh.replace(
-                PASS1, "        if (v[s][0].x == 1.2345e-30f) {\n" + PASS1
-                + "        }\n"),
+                PASS1, "          if (v[s][0].x == 1.2345e-30f)\n  " + PASS1),
             "one_block": cuh.replace(BOUND, BOUND.replace(": 2", ": 1"))}
 
 
@@ -81,8 +77,11 @@ def build(texts: dict) -> dict:
                     dst.write(src.read())
         with open(os.path.join(out, "minor_fft.cuh"), "w") as f:
             f.write(text)
+        # minor_fft.cu with the mixed-radix family sources it launches
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-               os.path.join(out, "lib.so"), os.path.join(out, "minor_fft.cu")]
+               os.path.join(out, "lib.so"), os.path.join(out, "minor_fft.cu"),
+               *(os.path.join(out, f) for f in sorted(os.listdir(out))
+                 if f.startswith("minor_line_") and f.endswith(".cu"))]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -153,7 +152,7 @@ def main() -> None:
             line(card, name, entry(lib, "tpufft_minor_fft", xr, xi, yr, yi,
                                    n), nbytes)
         line(card, "stage form", entry(main_lib,
-                                       "tpufft_minor_fft_padded_stages",
+                                       "tpufft_minor_fft_stages",
                                        xr, xi, yr, yi, n), nbytes)
         pr = torch.nn.functional.pad(xr, (0, n - n_in))
         pi = torch.nn.functional.pad(xi, (0, n - n_in))

@@ -12,9 +12,11 @@ calls, in ms:
   (the line form's one-warp rows and its lane-pair four-steps), each
   beside ``torch.fft.fft`` of it (``cuFFT``), K20 on the (131072, 2 x 256)
   fused array (P4's minor axis) beside ``torch.fft.fft`` of its
-  (131072, 256) halves (``cuFFT_256``), and the stage form, whose code did
-  not change: K1 at (1000000, 93), (64000, 480) (``fft2``'s minor axis)
-  and (10000, 8320) (Bluestein's); K9 (1000000, 93 -> 128) and at
+  (131072, 256) halves (``cuFFT_256``), K1 at (1000000, 93), (64000,
+  480) (``fft2``'s minor axis), (19200, 1080) and (3840, 2160) (the
+  survey's ``fft2`` minor axes; each on the form the checkout gives it)
+  and (10000, 8320) (Bluestein's, the stage form); K9 (1000000, 93 ->
+  128) and at
   ``czt``'s (100000, 1024 -> 2048) and ``envelope``'s (10000, 2047 ->
   4096) shapes (``K9_2048``, ``K9_4096``), each on the form the checkout
   gives it;
@@ -49,10 +51,10 @@ calls, in ms:
   the (1280, 128, 2 x 128) fused array, beside ``torch.fft.fft2``;
 - the strided kernel: K2 (``fft_inner``) on (100, 640, 480) (``fft2``'s
   axis 1) and on ``rfft2``'s (100, 640, 241), each beside ``torch.fft.fft``
-  of it along dim 1 (``cuFFT``), and on T1's (1, 93, 1000000) (the stage
-  form, whose code did not change); K3 (``fft_inner_nd``, n = 128) on
-  (1280, 128, 128) and with the two-pass twiddle on (16384, 1024, 1)
-  (``K3_tw``); K18 (``fft_inner_fused``) on P3's fused (10, 128, 128, 2 x
+  of it along dim 1 (``cuFFT``), on T1's (1, 93, 1000000) and on the
+  survey's (10, 1920, 1080) (each on the form the checkout gives it); K3
+  (``fft_inner_nd``, n = 128) on (1280, 128, 128) and with the two-pass
+  twiddle on (16384, 1024, 1) (``K3_tw``); K18 (``fft_inner_fused``) on P3's fused (10, 128, 128, 2 x
   128) and K19 on P4's (1024, 128, 1, 2 x 256); the ``fft2`` path of
   (100, 640, 480) ``SplitComplex`` planes (K2 + K1);
 - the lane-fused plans P3 (10, 128, 128, 128) and P4 (16, 64, 128, 256)
@@ -81,11 +83,13 @@ kind and for K13 c now): the timer passes whichever the checkout's
 window; K13 scale 1/sum(window), no detrend; K15 constant detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
-list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480, K1_8320,
+list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480,
+K1_1080, K1_2160, K1_8320,
 K9, K9_2048, K9_4096, c2c, two_pass, bluestein, czt, fast_aligned,
 envelope, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
 K8, K8_256, K8_8192, K8_93, irfft, rfft, fht, K13, K4, K4_n2_in, K4_packed,
-K17, K2, K2_241, K2_93, K3, K3_tw, K18, K19, fft2, P3, P4, K11, K12, K10,
+K17, K2, K2_241, K2_93, K2_1920, K3, K3_tw, K18, K19, fft2, P3, P4, K11,
+K12, K10,
 K14, K15, spectral, filter_real, filter_complex, hilbert, dct, dst4)
 and times those alone. Needs the card.
 """
@@ -125,6 +129,7 @@ g = torch.Generator(device="cuda"); g.manual_seed(1)
 for name, shape in (("K1_64", (1000000, 64)), ("K1_4096", (100000, 4096)),
                     ("K1_2048", (50000, 2048)),
                     ("K1_93", (1000000, 93)), ("K1_480", (64000, 480)),
+                    ("K1_1080", (19200, 1080)), ("K1_2160", (3840, 2160)),
                     ("K1_8320", (10000, 8320))):
     if want(name):
         xr = torch.randn(*shape, generator=g, device="cuda")
@@ -287,7 +292,8 @@ for name, shape, n2 in (("K4", (1280, 128, 128), 128),
     del pr, pi
 
 for name, shape in (("K2", (100, 640, 480)), ("K2_241", (100, 640, 241)),
-                    ("K2_93", (1, 93, 1000000))):
+                    ("K2_93", (1, 93, 1000000)),
+                    ("K2_1920", (10, 1920, 1080))):
     if want(name):
         xr = torch.randn(*shape, generator=g, device="cuda")
         xi = torch.randn(*shape, generator=g, device="cuda")

@@ -49,7 +49,7 @@ from tpufft_torch.kernels import inner_fft, minor_fft  # noqa: E402
 
 CSRC = "tpufft_torch/csrc"
 SOURCES = ("strided_fft.cu", "strided_line_pow2.cu", "strided_line_r3.cu",
-           "strided_line_r5.cu")
+           "strided_line_r5.cu", "strided_line_r15.cu", "strided_line_odd.cu")
 BOUND = ("__global__ void __launch_bounds__(\n"
          "    lane_threads(N1 * N2, std::is_same<T, __nv_bfloat16>::value),\n"
          "    lane_blocks(N1 * N2, std::is_same<T, __nv_bfloat16>::value))\n")

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build", "load"]
@@ -68,22 +69,34 @@ def build() -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
     jobs = []
+    t0 = time.perf_counter()
     for src in sorted(_SRC_DIR.glob("*.cu")):
         obj = tmp.with_name(f"{src.stem}.{os.getpid()}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        jobs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        sink = open(obj.with_suffix(".out"), "w+")
+        jobs.append((cmd, obj, sink, subprocess.Popen(
+            cmd, stdout=sink, stderr=subprocess.STDOUT, text=True)))
+    # each source's time to its object, polled (the outputs go to files,
+    # so a long ptxas report never blocks its process)
+    took = {}
+    while len(took) < len(jobs):
+        for cmd, obj, _, proc in jobs:
+            if obj not in took and proc.poll() is not None:
+                took[obj] = time.perf_counter() - t0
+        time.sleep(0.05)
     log = []
-    for cmd, _, proc in jobs:
-        text, _ = proc.communicate()
+    for cmd, obj, sink, proc in jobs:
+        sink.seek(0)
+        text = sink.read()
+        sink.close()
+        os.remove(sink.name)
         log.append(text)
         if proc.returncode != 0:
-            for _, _, other in jobs:
-                other.kill()
-                other.wait()
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
-    objs = [str(obj) for _, obj, _ in jobs]
+    log.extend(f"nvcc {obj.stem.rsplit('.', 1)[0]}.cu: {took[obj]:.1f} s\n"
+               for _, obj, _, _ in jobs)
+    objs = [str(obj) for _, obj, _, _ in jobs]
     cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     for obj in objs:
@@ -111,8 +124,12 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_minor_fft.restype = i32
-    lib.tpufft_minor_fft_padded_stages.argtypes = lib.tpufft_minor_fft.argtypes
-    lib.tpufft_minor_fft_padded_stages.restype = i32
+    lib.tpufft_minor_fft_stages.argtypes = lib.tpufft_minor_fft.argtypes
+    lib.tpufft_minor_fft_stages.restype = i32
+    lib.tpufft_minor_line_geometry.argtypes = [
+        i32, ctypes.POINTER(i32),    # n; out: the four-step's 9 parameters
+    ]
+    lib.tpufft_minor_line_geometry.restype = i32
     lib.tpufft_strided_fft.argtypes = [
         vp, vp, vp, vp, vp,          # xr, xi, yr, yi, twiddle table
         ctypes.c_longlong, i32,      # pre, n
@@ -123,6 +140,8 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_strided_fft.restype = i32
+    lib.tpufft_strided_fft_stages.argtypes = lib.tpufft_strided_fft.argtypes
+    lib.tpufft_strided_fft_stages.restype = i32
     lib.tpufft_pair_fft.argtypes = [
         vp, vp, vp, vp, vp, vp,      # xr, xi, yr, yi, n1 and n2 tables
         ctypes.c_longlong, i32, i32, i32,  # pre, n1, n2, n2_in

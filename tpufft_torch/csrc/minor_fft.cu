@@ -59,59 +59,30 @@ int launch_lines(const void* xr, const void* xi, void* yr, void* yi,
   return (int)cudaGetLastError();
 }
 
-// A lane kernel on a grid of at most the blocks the card holds at once
-// (each stages the table once and loops over `groups` row groups).
-template <typename Kernel, typename... Args>
-int launch_resident(Kernel kernel, int threads, size_t smem, long long groups,
-                    cudaStream_t stream, Args... args) {
-  unsigned blocks = 0;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = resident_grid(kernel, threads, smem, groups, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// The line form at 128 <= n <= 4096 (K9, kPadded: the padded kernel).
+// The power-of-two four-step at 128 <= n <= 4096 (LaneStep's XOR tile,
+// 32 values a lane; K9, kPadded: the padded kernel).
 template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
           bool kFused, bool kPadded>
-int launch_lane(const void* xr, const void* xi, void* yr, void* yi,
-                const void* tw, long long batch, int n_in, int inverse,
-                float scale, cudaStream_t stream) {
-  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
-  constexpr long long rows = S::teams * S::rows;
-  const long long groups = (batch + rows - 1) / rows;
-  const T* x_r = static_cast<const T*>(xr);
-  const T* x_i = static_cast<const T*>(xi);
-  T* y_r = static_cast<T*>(yr);
-  T* y_i = static_cast<T*>(yi);
-  const float2* w = static_cast<const float2*>(tw);
-  if constexpr (kPadded)
-    return launch_resident(
-        minor_lane_padded_kernel<T, N1, N2, kTeamWarps, kThreads>, kThreads,
-        S::smem, groups, stream, x_r, x_i, y_r, y_i, w, (int64_t)batch, n_in,
-        inverse, scale);
-  else
-    return launch_resident(
-        minor_lane_kernel<T, N1, N2, kTeamWarps, kThreads, kFused>, kThreads,
-        S::smem, groups, stream, x_r, x_i, y_r, y_i, w, (int64_t)batch,
-        inverse, scale);
+int launch_lane(const LaneArgs& a) {
+  using S = LaneStep<N1, N2, kTeamWarps, kThreads,
+                     1024 * kTeamWarps / (N1 * N2), N2, N1, 0, 0>;
+  return launch_four_step<T, S, kThreads, kFused, kPadded>(a);
 }
 
-// The line form, for power-of-two n from 2 to 4096; (N1, N2, warps a team,
-// threads a block) of each four-step, as the wrapper's line_geometry lists
-// them.
+// The line form: power-of-two n from 2 to 4096 (the four-steps of
+// TPUFFT_MINOR_POW2 from 128) and the mixed-radix lengths of
+// minor_fft.cuh's family lists.
 template <typename T, bool kFused, bool kPadded>
 int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
                      const void* tw, long long batch, int n, int n_in,
                      int inverse, float scale, cudaStream_t stream) {
+  const LaneArgs a{xr, xi, yr, yi, tw, batch, n_in, inverse, scale, stream};
 #define TPUFFT_LINES(N)                                                   \
   launch_lines<T, N, kFused, kPadded>(xr, xi, yr, yi, tw, batch, n_in,    \
                                       inverse, scale, stream)
-#define TPUFFT_LANE(N1, N2, TW, TH)                                       \
-  launch_lane<T, N1, N2, TW, TH, kFused, kPadded>(                        \
-      xr, xi, yr, yi, tw, batch, n_in, inverse, scale, stream)
+#define TPUFFT_LANE(n_, N1, N2, TW, TH) \
+  case n_:                              \
+    return launch_lane<T, N1, N2, TW, TH, kFused, kPadded>(a);
   switch (n) {
     case 2: return TPUFFT_LINES(2);
     case 4: return TPUFFT_LINES(4);
@@ -119,21 +90,17 @@ int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
     case 16: return TPUFFT_LINES(16);
     case 32: return TPUFFT_LINES(32);
     case 64: return TPUFFT_LINES(64);
-    case 128: return TPUFFT_LANE(8, 16, 1, 128);
-    case 256: return TPUFFT_LANE(16, 16, 1, 128);
-    case 512: return TPUFFT_LANE(32, 16, 1, 128);
-    case 1024: return TPUFFT_LANE(32, 32, 1, 128);
-    case 2048: return TPUFFT_LANE(32, 64, 2, 128);
-    case 4096: return TPUFFT_LANE(64, 64, 4, 256);
+    TPUFFT_MINOR_POW2(TPUFFT_LANE)
   }
 #undef TPUFFT_LINES
 #undef TPUFFT_LANE
-  return (int)cudaErrorInvalidValue;
+  return launch_mixed<T, kFused, kPadded>(a, n);
 }
 
 // Is n a length of the line form? (K1, K20 and K9 alike.)
 inline bool line_form(int n) {
-  return n >= 2 && n <= kLineMaxN && (n & (n - 1)) == 0;
+  return (n >= 2 && n <= kLineMaxN && (n & (n - 1)) == 0) ||
+         mixed_family(n) != 0;
 }
 
 // The line form where n is one of its lengths, else the stage form;
@@ -205,8 +172,9 @@ int minor_entry(const void* xr, const void* xi, void* yr, void* yi,
 // 1 <= n_in < n the fused zero-pad DFT (K9). tw holds the n complex f32
 // values exp(-+2 pi i k / n) for the direction; radices[0:nstages] multiply
 // to n, each 2, 4, 8 or an odd value up to 127 (the stage form's plan; the
-// line form, which K1 and K9 run at power-of-two n from 2 to 4096, ignores
-// it). Returns 0 or the CUDA error code of the launch.
+// line form, which K1 and K9 run at power-of-two n from 2 to 4096 and at
+// the mixed-radix lengths of minor_fft.cuh's family lists, ignores it).
+// Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 void* yi, const void* tw, long long batch,
                                 int n, int n_in, const int* radices,
@@ -214,17 +182,6 @@ extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 int bf16, void* stream) {
   return minor_entry(xr, xi, yr, yi, tw, batch, n, n_in, radices, nstages,
                      inverse, scale, bf16, false, stream);
-}
-
-// K9 on the stage form at every length (1 <= n_in < n), kept to compare
-// the forms; arguments and result as for tpufft_minor_fft.
-extern "C" int tpufft_minor_fft_padded_stages(
-    const void* xr, const void* xi, void* yr, void* yi, const void* tw,
-    long long batch, int n, int n_in, const int* radices, int nstages,
-    int inverse, float scale, int bf16, void* stream) {
-  if (n_in >= n) return (int)cudaErrorInvalidValue;
-  return minor_entry(xr, xi, yr, yi, tw, batch, n, n_in, radices, nstages,
-                     inverse, scale, bf16, true, stream);
 }
 
 // K20: the same transform on fused storage. Transforms the (batch, 2n)
@@ -245,4 +202,47 @@ extern "C" int tpufft_minor_fft_fused(const void* st, void* out,
     return launch_fused<__nv_bfloat16>(st, out, tw, batch, plan, inverse,
                                        scale, s);
   return launch_fused<float>(st, out, tw, batch, plan, inverse, scale, s);
+}
+
+// K1 (n_in == n) and K9 (1 <= n_in < n) on the stage form at every
+// length, kept to compare the forms; arguments and result as for
+// tpufft_minor_fft.
+extern "C" int tpufft_minor_fft_stages(const void* xr, const void* xi,
+                                       void* yr, void* yi, const void* tw,
+                                       long long batch, int n, int n_in,
+                                       const int* radices, int nstages,
+                                       int inverse, float scale, int bf16,
+                                       void* stream) {
+  return minor_entry(xr, xi, yr, yi, tw, batch, n, n_in, radices, nstages,
+                     inverse, scale, bf16, true, stream);
+}
+
+// The form the launch runs at length n (K1, K9 and K20 alike): 0 the stage
+// form, 1 the line form of a row on the lanes of one warp (power-of-two n
+// up to 64), 2 the four-step, with out[0:9] = {N1, N2, warps a team,
+// threads a block, rows a team, Q1, Q2, P2, RS} (LaneStep's parameters;
+// P2 = RS = 0 for the power-of-two XOR tile).
+extern "C" int tpufft_minor_line_geometry(int n, int* out) {
+  if (!line_form(n)) return 0;
+  if (n <= 64 && (n & (n - 1)) == 0) return 1;
+#define TPUFFT_GEO(n_, n1, n2, w, r, q1, q2, p2, rs)           \
+  if (n == n_) {                                               \
+    const int v[9] = {n1, n2, w, 128, r, q1, q2, p2, rs};      \
+    for (int i = 0; i < 9; ++i) out[i] = v[i];                 \
+    return 2;                                                  \
+  }
+#define TPUFFT_POW2_GEO(n_, n1, n2, w, th)                        \
+  if (n == n_) {                                                  \
+    const int v[9] = {n1, n2, w, th, 1024 * w / n_, n2, n1, 0, 0}; \
+    for (int i = 0; i < 9; ++i) out[i] = v[i];                    \
+    return 2;                                                     \
+  }
+  TPUFFT_MINOR_POW2(TPUFFT_POW2_GEO)
+#undef TPUFFT_POW2_GEO
+  TPUFFT_MINOR_R3(TPUFFT_GEO)
+  TPUFFT_MINOR_R5(TPUFFT_GEO)
+  TPUFFT_MINOR_R15(TPUFFT_GEO)
+  TPUFFT_MINOR_ODD(TPUFFT_GEO)
+#undef TPUFFT_GEO
+  return 0;
 }

@@ -21,39 +21,58 @@
 // The kernel has two forms; the host picks one by n (minor_fft.cu,
 // launch_sized; kernels/minor_fft.py:form mirrors the choice).
 //
-// The line form, for power-of-two n from 2 to 4096 (K1, K20, and K9 at
-// any n_in < n): each row lives in registers and goes through shared
-// memory at most once each way.
-// - n <= 64 (minor_lines_kernel): a row is one line of line_fft.cuh, on
-//   n/8 lanes of a warp that swap values by __shfl_xor_sync. Lane (l, c)
-//   loads x[l + G j] of row c straight from device memory (8 consecutive
-//   elements of 4 rows a warp instruction at n = 64) and stores X[out(l,
-//   r)] the same way: no shared memory, no barrier.
-// - 128 <= n <= 4096 (minor_lane_kernel): the four-step n = N1 N2 (N1,
-//   N2 powers of two from 8 to 64; line_split in the wrapper) by a team
-//   of one to four warps holding 32 values a lane. Pass 1 transforms the
-//   N1-long column lines j2 of the (N1, N2) view of a row, each whole in
-//   the registers of one lane (lane_fft: radix 8 or 4 twice, no exchange
-//   between lanes; a 64-long line lies on a lane pair, pair_fft, which
-//   swaps 16 values once), consecutive lanes on consecutive columns, so
-//   that a warp's load instruction reads 32 consecutive elements (one
-//   128-byte line in f32 at n = 1024). Each value Y[k1, j2] is multiplied
-//   by w^(k1 j2), read at index k1 j2 of the table staged once a block in
-//   shared memory, and written once into the team's tile. One team barrier
-//   (__syncwarp, or a named barrier for several warps); pass 2 reads the
-//   N2-long lines k1 back, consecutive lanes on consecutive k1, and stores
-//   X[k1 + N1 k2] from registers, again 32 consecutive elements a store
-//   instruction. The tile holds (k1, j2) of row r at r n + k1 N2 + (j2 ^
-//   ((k1 + N1 r) mod 16)), which keeps both passes' shared accesses free
-//   of bank conflicts (LaneStep below; the wrapper's line_geometry mirrors
-//   it for a CPU test). At n = 1024 a team is one warp, a block four teams
-//   (128 threads, ~41 KB of shared memory, at most 102 registers: five
-//   blocks an SM); blocks loop over row groups, so that the table is
-//   staged once per resident block, and after the staging no block-wide
-//   barrier runs: the warps of an SM overlap one team's loads with
-//   another's butterflies.
+// The line form, for power-of-two n from 2 to 4096 and the mixed-radix
+// lengths of the family lists below (3, 5 and 15 times a power of two up
+// to 3072, 2560 and 3840; 93, 1000, 1080, 2160) (K1, K20, and K9 at any
+// n_in < n): each row lives in registers and goes through shared memory at
+// most once each way. Every line DFT is the shared generic-radix one of
+// lane_dft.cuh (radices 2, 4, 8, 3, 5 and odd primes 7 to 31 in one lane's
+// registers, no exchange between lanes but the pair's).
+// - power-of-two n <= 64 (minor_lines_kernel): a row is one line of
+//   line_fft.cuh, on n/8 lanes of a warp that swap values by
+//   __shfl_xor_sync. Lane (l, c) loads x[l + G j] of row c straight from
+//   device memory (8 consecutive elements of 4 rows a warp instruction at
+//   n = 64) and stores X[out(l, r)] the same way: no shared memory, no
+//   barrier.
+// - every other length of the form (minor_lane_kernel, LaneStep): the
+//   four-step n = N1 N2 (each at most 64; line_split in the wrapper) by a
+//   team of one to four warps. Pass 1 transforms the N1-long column lines
+//   j2 of the (N1, N2) view of a row, each whole in the registers of one
+//   lane (lane_dft; a line of 34 to 64 lies on a lane pair, pair_dft,
+//   which swaps half its values once), consecutive lanes on consecutive
+//   columns, so that a warp's load instruction reads consecutive elements
+//   of a row (one 128-byte line in f32 at n = 1024). Each value Y[k1, j2]
+//   is multiplied by w^(k1 j2), read at index k1 j2 of the table staged
+//   once a block in shared memory, and written once into the team's tile.
+//   One team barrier (__syncwarp, or a named barrier for several warps);
+//   pass 2 reads the N2-long lines k1 back, consecutive lanes on
+//   consecutive k1, and stores X[k1 + N1 k2] from registers. A line whose
+//   largest prime is 7 or more (93 = 31 x 3) hands its outputs to the tile
+//   or the store as its conjugate-pair sum forms them (lane_dft_emit).
+//   At powers of two a team holds R = 1024 W / n rows, 32 values a lane,
+//   and the tile holds (k1, j2) of row r at r n + k1 N2 + (j2 ^ ((k1 + N1
+//   r) mod 16)); at 1024 a team is one warp, a block four teams (128
+//   threads, ~41 KB of shared memory, at most 102 registers: five blocks
+//   an SM). At a mixed-radix n no such packing exists (no power of two
+//   rows fill the lanes, the XOR can leave a row that is not a multiple
+//   of 16): LaneStep takes R rows a team, lanes take line slots r Q + j
+//   in rounds (Q >= the lines a row; the slots past them idle), every
+//   round's values held at once (20 to 36 a lane), and the tile holds (k1,
+//   j2) of row r at r RS + k1 P2 + j2 with Q1, Q2, P2 and RS chosen (the
+//   family lists) so that every half warp of both passes touches 16
+//   distinct bank pairs; blocks of 128 threads, four an SM (128
+//   registers), three (168) where a line lies on a lane pair. At 93 (31 x
+//   3; 3 x 31, whose stores would run 3 elements long, took 3x the time)
+//   pass 1 loads runs of 3 elements of ~11 rows a warp instruction (the
+//   bytes of a team's 10 rows are one contiguous run, read once), pass 2
+//   stores runs of 31. Blocks loop over row
+//   groups, so that the table is staged once per resident block, and after
+//   the staging no block-wide barrier runs: the warps of an SM overlap one
+//   team's loads with another's line DFTs. The wrapper's line_geometry
+//   mirrors every geometry for a CPU test of the tile.
 //   Every load and store is a 4-byte (2-byte in bf16) access, so a view
-//   that does not start on a 16-byte boundary runs it too.
+//   that does not start on a 16-byte boundary, and a row of odd length,
+//   run it too.
 // - K9 (kPadded: minor_lines_padded_kernel, minor_lane_padded_kernel) is
 //   the same kernel with the pad in its load (row_load): element col of
 //   row r is read at r n_in + col, and only where col < n_in; above that
@@ -66,7 +85,8 @@
 //   instead of 2.
 //
 // The stage form (minor_fft_kernel), for every other length (K1, K20 and
-// K9 alike, e.g. 93, 480, a pad 300 -> 384 or 5000 -> 8192): a
+// K9 alike, e.g. 127 or any prime above 31, n above 4096 such as Bluestein's
+// 8320, a pad 5000 -> 8192; stages=True runs it at every length): a
 // block loads whole rows into shared memory, runs every Stockham stage
 // there (fft_stages.cuh, shared with the strided-axis and pair kernels),
 // and stores the rows. Two details keep it near the bandwidth bound:
@@ -84,6 +104,7 @@
 #pragma once
 
 #include "fft_stages.cuh"
+#include "lane_dft.cuh"
 #include "line_fft.cuh"
 
 namespace tpufft_minor {
@@ -176,7 +197,7 @@ inline Geometry launch_geometry(int n) {
 }
 
 // ---------------------------------------------------------------------------
-// The line form (power-of-two n from 2 to 4096; the header's first form).
+// The line form (the header's first form).
 // ---------------------------------------------------------------------------
 
 constexpr int kLineLaneValues = 32;  // complex values a lane holds
@@ -287,124 +308,108 @@ minor_lines_padded_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                                           inverse, scale);
 }
 
-// ---- 128 <= n <= 4096: whole lines in a lane ----
+// ---- the four-step: whole lines in a lane ----
 
-// The in-register DFT of the N values (8, 16 or 32) one lane holds: N = A B
-// with A = 8 (N = 8, 32) or 4 (N = 16); radix-A butterflies over x[b + B
-// a] for each b, the twiddles w_N^(a b) read at pad(a b kStride) of the
-// table staged in shared memory (kStride = n / N; the same address in
-// every lane, one broadcast), then radix-B butterflies over x[b + B a] for
-// each a. Register r ends holding X[lane_out<N>(r)].
-template <int N>
-struct LaneSplit {
-  static constexpr int A = N == 16 ? 4 : 8;
-  static constexpr int B = N / A;
-  static_assert(N == 8 || N == 16 || N == 32, "lane line length");
-};
+using tpufft_lane::lane_dft;
+using tpufft_lane::lane_dft_emit;
+using tpufft_lane::lane_out;
+using tpufft_lane::max_prime;
+using tpufft_lane::pair_dft;
+using tpufft_lane::pair_out;
 
-template <int N>
-__host__ __device__ constexpr int lane_out(int r) {
-  return r / LaneSplit<N>::B + LaneSplit<N>::A * (r % LaneSplit<N>::B);
-}
-
-template <int N, int kStride>
-__device__ __forceinline__ void lane_fft(float2 (&x)[N], const float2* table,
-                                         bool inv) {
-  constexpr int A = LaneSplit<N>::A, B = LaneSplit<N>::B;
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-    float2 t[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) t[a] = x[b + B * a];
-    butterfly<A>(t, inv);
-#pragma unroll
-    for (int a = 0; a < A; ++a)
-      x[b + B * a] =
-          a * b == 0 ? t[a] : cmul(t[a], table[pad(a * b * kStride)]);
-  }
-  if constexpr (B > 1) {
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      float2 t[B];
-#pragma unroll
-      for (int b = 0; b < B; ++b) t[b] = x[b + B * a];
-      butterfly<B>(t, inv);
-#pragma unroll
-      for (int b = 0; b < B; ++b) x[b + B * a] = t[b];
-    }
-  }
-}
-
-// A 64-long line on two lanes of a warp, t and t ^ 16 (p = bit 4 of the
-// lane): lane p holds x[p + 2 i] in register i < 32 and transforms its
-// half (lane_fft<32>: F_p[k]); the pair swaps sixteen values by
-// __shfl_xor_sync, so that lane p holds F_0[k] and F_1[k] for the k of
-// its registers 16 p .. 16 p + 15, multiplies F_1[k] by w_64^k (the table
-// at pad(k kStride), kStride = n / 64) and forms X[k] = F_0 + w F_1 in
-// register i and X[k + 32] = F_0 - w F_1 in register 16 + i. Register r
-// ends holding X[pair_out(p, r)].
-__host__ __device__ constexpr int pair_out(int p, int r) {
-  return lane_out<32>(r % 16 + 16 * p) + 32 * (r / 16);
-}
-
-template <int kStride>
-__device__ __forceinline__ void pair_fft(float2 (&v)[32], int p,
-                                         const float2* table, bool inv) {
-  lane_fft<32, 2 * kStride>(v, table, inv);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float2 send = p ? v[i] : v[16 + i];
-    float2 got;
-    got.x = __shfl_xor_sync(0xffffffffu, send.x, 16);
-    got.y = __shfl_xor_sync(0xffffffffu, send.y, 16);
-    const float2 a = p ? got : v[i];
-    const float2 b = cmul(p ? v[16 + i] : got,
-                          table[pad((p ? lane_out<32>(16 + i)
-                                       : lane_out<32>(i)) * kStride)]);
-    v[i] = cadd(a, b);
-    v[16 + i] = csub(a, b);
-  }
-}
-
-// The geometry at n = N1 N2 (N1, N2 in 8..64, N2 >= 16): a team of
-// kTeamWarps warps holds 32 values a lane, R = 1024 kTeamWarps / n rows;
-// a line of 8 to 32 lies in one lane (32 / N of them a lane), a line of 64
-// on a lane pair (pair_fft). The tile holds element (k1, j2) of the
-// (N1, N2) view of the team's row r at r n + k1 N2 + (j2 ^ ((k1 + N1 r)
-// mod 16)): half a warp writes sixteen consecutive columns j2 of one k1 in
-// pass 1 and reads one j2 of sixteen consecutive lines k1 + N1 r in pass
-// 2, and both hit sixteen bank pairs.
-template <int kN1, int kN2, int kTeamWarps, int kThreads>
+// The geometry of the four-step at n = N1 N2 by a team of kTeamWarps warps
+// (lanes = 32 kTeamWarps) holding kRows rows. Pass 1's lines are the
+// columns j2 of the (N1, N2) view of each row, pass 2's the rows k1; a line
+// of up to 32 values lies in one lane, an even one of 34 to 64 on a lane
+// pair (pair_dft). Pass 1 numbers its lines in slots u = r Q1 + j2 (Q1 >=
+// N2 slots a row, those at j2 >= N2 idle), pass 2 in slots r Q2 + k1; lane
+// t of the team takes slot t + lanes s in round s (on a pair, slot (t mod
+// 16) + 16 (t / 32) + lanes / 2 s), every round's values held at once.
+// The tile holds element (k1, j2) of the team's row r at
+// - kP2 == 0 (power-of-two n): r n + k1 N2 + (j2 ^ ((k1 + N1 r) mod 16)),
+//   half a warp writing 16 consecutive columns j2 of one k1 in pass 1 and
+//   reading one j2 of 16 consecutive lines k1 + N1 r in pass 2;
+// - else: r kRS + k1 kP2 + j2 (kRS >= N1 kP2), with kQ1, kQ2, kP2 and kRS
+//   picked so that every half warp's accesses of both passes hit 16
+//   distinct bank pairs (mod 16 positions).
+// The wrapper's line_geometry lists every length's parameters and a CPU
+// test (tests/test_torch_kernel_minor.py) walks each geometry's tile.
+template <int kN1, int kN2, int kTeamWarps, int kThreads,
+          int kRows = 1024 * kTeamWarps / (kN1 * kN2), int kQ1 = kN2,
+          int kQ2 = kN1, int kP2 = 0, int kRS = 0>
 struct LaneStep {
   static constexpr int N1 = kN1, N2 = kN2, n = kN1 * kN2;
+  static constexpr int Q1 = kQ1, Q2 = kQ2;               // slots a row
   static constexpr int lanes = 32 * kTeamWarps;          // of a team
-  static constexpr int rows = 1024 * kTeamWarps / n;     // a team holds
-  static constexpr bool pair1 = N1 == 64, pair2 = N2 == 64;
-  static constexpr int L1 = pair1 ? 1 : 32 / N1;         // lines a lane
-  static constexpr int L2 = pair2 ? 1 : 32 / N2;         // holds
+  static constexpr int rows = kRows;                     // a team holds
+  static constexpr bool pair1 = N1 > 32, pair2 = N2 > 32;
+  static constexpr int V1 = pair1 ? N1 / 2 : N1;         // values a line
+  static constexpr int V2 = pair2 ? N2 / 2 : N2;         // holds in a lane
+  static constexpr int units1 = pair1 ? lanes / 2 : lanes;
+  static constexpr int units2 = pair2 ? lanes / 2 : lanes;
+  static constexpr int S1 = (rows * kQ1 + units1 - 1) / units1;  // rounds
+  static constexpr int S2 = (rows * kQ2 + units2 - 1) / units2;
+  static constexpr int L1 = S1, L2 = S2;  // lines a lane holds (32 values)
+  // every slot of every round a line: no guard
+  static constexpr bool full1 = kQ1 == N2 && S1 * units1 == rows * kQ1;
+  static constexpr bool full2 = kQ2 == N1 && S2 * units2 == rows * kQ2;
+  static constexpr bool kXor = kP2 == 0;
+  // a line whose largest prime is 7 or more hands its outputs over as it
+  // forms them (lane_dft_emit)
+  static constexpr bool emit1 = max_prime(N1) >= 7;
+  static constexpr bool emit2 = max_prime(N2) >= 7;
   static constexpr int teams = kThreads / lanes;
   static constexpr int table = n + n / 16;               // pad(n) float2
-  static constexpr size_t smem = (size_t)(table + teams * rows * n) * 8;
-  static_assert(N1 >= 8 && N2 >= 16 && N2 <= 64 && rows >= 1 &&
-                    rows * n == 1024 * kTeamWarps,
-                "lane split: 32 values a lane");
+  static constexpr int tile = kXor ? rows * n : rows * kRS;  // a team's
+  static constexpr size_t smem = (size_t)(table + teams * tile) * 8;
+  static_assert(kXor ? (N1 >= 8 && N2 >= 16 && N2 <= 64 &&
+                        rows * n == 1024 * kTeamWarps &&
+                        kQ1 == N2 && kQ2 == N1)
+                     : (kQ1 >= N2 && kQ2 >= N1 && kP2 >= N2 &&
+                        kRS >= N1 * kP2),
+                "lane split");
+  static_assert((!pair1 || N1 % 4 == 0) && (!pair2 || N2 % 4 == 0) &&
+                    N1 <= 64 && N2 <= 64,
+                "a line of 34 to 64 lies on a lane pair");
+  static_assert(!(pair1 && emit1) && !(pair2 && emit2),
+                "a pair line's primes are 2, 3 and 5");
   static_assert(teams * lanes == kThreads && teams <= 15, "teams");
+
+  // m = k1 + N1 r, the pass-2 line of (r, k1): its low bits are the XOR's
+  static __device__ __forceinline__ int pos(int r, int k1, int j2, int m) {
+    if constexpr (kXor)
+      return r * n + k1 * N2 + (j2 ^ (m & 15));
+    else
+      return r * kRS + k1 * kP2 + j2;
+  }
 };
 
 // The index in its line of register r of a transformed line of N: in one
-// lane, or on a pair (N = 64) at place p.
+// lane, or on a pair (N > 32) at place p.
 template <int N>
 __device__ __forceinline__ int line_out(int p, int r) {
-  if constexpr (N == 64)
-    return pair_out(p, r);
+  if constexpr (N > 32)
+    return pair_out<N / 2>(p, r);
   else
     return lane_out<N>(r);
 }
 
-// Line s of team lane t in a pass (a line on a pair: both lanes' line).
+// Slot s of team lane t in a pass (a line on a pair: both lanes' slot).
 template <bool kPair, int kLanes>
 __device__ __forceinline__ int lane_line(int t, int s) {
-  return kPair ? (t & 15) + 16 * (t >> 5) : t + kLanes * s;
+  return kPair ? (t & 15) + 16 * (t >> 5) + (kLanes / 2) * s
+               : t + kLanes * s;
+}
+
+// The DFT of a line of N in registers v (one lane, or a pair at place p),
+// n / N the table stride of W_N.
+template <int N, int kStride, int V>
+__device__ __forceinline__ void line_dft(float2 (&v)[V], int p,
+                                         const float2* table, bool inv) {
+  if constexpr (N > 32)
+    pair_dft<N / 2, kStride>(v, p, table, inv);
+  else
+    lane_dft<N, kStride, 0, 1>(v, table, inv);
 }
 
 // Blocks of the lane kernel an SM must hold: five of 128 threads (at most
@@ -446,34 +451,33 @@ __device__ __forceinline__ void team_sync(int team) {
                  : "memory");
 }
 
-// 128 <= n <= 4096: block b stages the table, then takes row groups b, b +
-// gridDim.x, ...; team e of a group transforms rows [(group teams + e) R,
-// + R). Pass 1: the lines are the columns j2 of the (N1, N2) view, lane t
-// holding lines t + 32 W s (row line / N2, j2 = line mod N2) with register
-// j1 holding x[N2 j1 + j2], or for N1 = 64 line (t mod 16) + 16 (t / 32)
-// on a pair with register i holding x[N2 (p + 2 i) + j2]: a warp's load
-// instruction reads 32 consecutive elements (16 in each of two view rows
-// for a pair). Pass 2: the lines are the rows k1 (row line / N1, k1 =
-// line mod N1) in the same arrangement, register j2 (or p + 2 i) holding
-// Y'[k1, j2], stored at X[k1 + N1 k2]: 32 (or 2 x 16) consecutive elements
-// a store instruction. Rows past the batch compute on zeros and store
-// nothing. The body of minor_lane_kernel (K1, K20) and
-// minor_lane_padded_kernel (K9: input rows of n_in, so pass 1's register
-// j1 of column j2 is 0 for N2 j1 + j2 >= n_in; n_in = n otherwise).
-template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
-          bool kFused, bool kPadded>
+// The four-step (n = 128 .. 4096 at powers of two, every mixed-radix
+// length of the form; LaneStep S): block b stages the table, then takes
+// row groups b, b + gridDim.x, ...; team e of a group transforms rows
+// [(group teams + e) R, + R). Pass 1: the lines are the columns j2 of the
+// (N1, N2) view, lane t holding the slots of S's rounds with register j1
+// holding x[N2 j1 + j2] (on a pair register i holds x[N2 (p + 2 i) + j2]):
+// a warp's load instruction reads consecutive elements of a row (32 at n =
+// 1024). Each output Y[k1, j2] times w^(k1 j2) goes into the tile. Pass 2:
+// the lines are the rows k1 in the same arrangement, register j2 (or p + 2
+// i) holding Y'[k1, j2], stored at X[k1 + N1 k2]. Rows past the batch and
+// idle slots compute on zeros and store nothing. The body of
+// minor_lane_kernel (K1, K20) and minor_lane_padded_kernel (K9: input rows
+// of n_in, so pass 1's register j1 of column j2 is 0 for N2 j1 + j2 >=
+// n_in; n_in = n otherwise).
+template <typename T, typename S, int kThreads, bool kFused, bool kPadded>
 __device__ __forceinline__ void lane_rows(
     const T* __restrict__ xr, const T* __restrict__ xi, T* __restrict__ yr,
     T* __restrict__ yi, const float2* __restrict__ tw, int64_t batch,
     int n_in, int inverse, float scale) {
-  using S = LaneStep<N1, N2, kTeamWarps, kThreads>;
-  constexpr int n = S::n, R = S::rows;
+  constexpr int n = S::n, N1 = S::N1, N2 = S::N2, R = S::rows;
+  constexpr int kTeamWarps = S::lanes / 32;
   extern __shared__ float2 tpufft_lane_smem[];
   float2* table = tpufft_lane_smem;
   const int team = threadIdx.x / S::lanes;
   const int t = threadIdx.x - team * S::lanes;
   const int p = (t >> 4) & 1;  // place in a lane pair
-  float2* tile = table + S::table + team * R * n;
+  float2* tile = table + S::table + team * S::tile;
   const bool inv = inverse != 0;
   for (int i = threadIdx.x; i < n; i += kThreads) table[pad(i)] = __ldg(&tw[i]);
   __syncthreads();
@@ -481,72 +485,81 @@ __device__ __forceinline__ void lane_rows(
   for (int64_t grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const int64_t row0 = (grp * S::teams + team) * R;
     {  // pass 1: the columns, from device memory into the tile
-      constexpr int V = S::pair1 ? 32 : N1;
-      float2 v[S::L1][V];
+      constexpr int V = S::V1;
+      float2 v[S::S1][V];
 #pragma unroll
-      for (int s = 0; s < S::L1; ++s) {
-        const int line = lane_line<S::pair1, S::lanes>(t, s);
-        const int64_t row = row0 + line / N2;
-        const int j2 = line % N2;
+      for (int s = 0; s < S::S1; ++s) {
+        const int slot = lane_line<S::pair1, S::lanes>(t, s);
+        const int r = slot / S::Q1, j2 = slot % S::Q1;
+        const int64_t row = row0 + r;
+        const bool live = S::full1 || (r < R && j2 < N2);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const int j1 = S::pair1 ? p + 2 * j : j;
-          v[s][j] = row < batch ? row_load<T, kFused, kPadded>(
-                                      xr, xi, row, n, n_in, N2 * j1 + j2)
-                                : make_float2(0.f, 0.f);
+          v[s][j] = live && row < batch
+                        ? row_load<T, kFused, kPadded>(xr, xi, row, n, n_in,
+                                                       N2 * j1 + j2)
+                        : make_float2(0.f, 0.f);
         }
       }
+      if constexpr (!S::emit1) {
 #pragma unroll
-      for (int s = 0; s < S::L1; ++s) {
-        if constexpr (S::pair1)
-          pair_fft<n / 64>(v[s], p, table, inv);
-        else
-          lane_fft<N1, n / N1>(v[s], table, inv);
+        for (int s = 0; s < S::S1; ++s)
+          line_dft<N1, n / N1>(v[s], p, table, inv);
       }
 #pragma unroll
-      for (int s = 0; s < S::L1; ++s) {
-        const int line = lane_line<S::pair1, S::lanes>(t, s);
-        const int r = line / N2, j2 = line % N2;
-        float2* dst = tile + r * n;
+      for (int s = 0; s < S::S1; ++s) {
+        const int slot = lane_line<S::pair1, S::lanes>(t, s);
+        const int r = slot / S::Q1, j2 = slot % S::Q1;
+        const bool live = S::full1 || (r < R && j2 < N2);
+        auto put = [&](int k1, float2 y) {
+          if (live)
+            tile[S::pos(r, k1, j2, k1 + N1 * r)] =
+                cmul(y, table[pad(k1 * j2)]);
+        };
+        if constexpr (S::emit1) {
+          lane_dft_emit<N1, n / N1, 0, 1>(v[s], table, inv, put);
+        } else {
 #pragma unroll
-        for (int q = 0; q < V; ++q) {
-          const int k1 = line_out<N1>(p, q);
-          dst[k1 * N2 + (j2 ^ ((k1 + N1 * r) & 15))] =
-              cmul(v[s][q], table[pad(k1 * j2)]);
+          for (int q = 0; q < V; ++q) put(line_out<N1>(p, q), v[s][q]);
         }
       }
     }
     team_sync<kTeamWarps>(team);
     {  // pass 2: the rows k1 of the tile, stored to device memory
-      constexpr int V = S::pair2 ? 32 : N2;
-      float2 v[S::L2][V];
+      constexpr int V = S::V2;
+      float2 v[S::S2][V];
 #pragma unroll
-      for (int s = 0; s < S::L2; ++s) {
-        const int line = lane_line<S::pair2, S::lanes>(t, s);
-        const float2* src = tile + (line / N1) * n + (line % N1) * N2;
+      for (int s = 0; s < S::S2; ++s) {
+        const int slot = lane_line<S::pair2, S::lanes>(t, s);
+        const int r = slot / S::Q2, k1 = slot % S::Q2;
+        const bool live = S::full2 || (r < R && k1 < N1);
 #pragma unroll
         for (int j = 0; j < V; ++j)
-          v[s][j] = src[(S::pair2 ? p + 2 * j : j) ^ (line & 15)];
+          v[s][j] = live
+                        ? tile[S::pos(r, k1, S::pair2 ? p + 2 * j : j, slot)]
+                         : make_float2(0.f, 0.f);
+      }
+      if constexpr (!S::emit2) {
+#pragma unroll
+        for (int s = 0; s < S::S2; ++s)
+          line_dft<N2, n / N2>(v[s], p, table, inv);
       }
 #pragma unroll
-      for (int s = 0; s < S::L2; ++s) {
-        if constexpr (S::pair2)
-          pair_fft<n / 64>(v[s], p, table, inv);
-        else
-          lane_fft<N2, n / N2>(v[s], table, inv);
-      }
+      for (int s = 0; s < S::S2; ++s) {
+        const int slot = lane_line<S::pair2, S::lanes>(t, s);
+        const int r = slot / S::Q2, k1 = slot % S::Q2;
+        const int64_t row = row0 + r;
+        const bool live = (S::full2 || (r < R && k1 < N1)) && row < batch;
+        auto put = [&](int k2, float2 y) {
+          if (live)
+            line_store<T, kFused>(yr, yi, row, n, k1 + N1 * k2, y, scale);
+        };
+        if constexpr (S::emit2) {
+          lane_dft_emit<N2, n / N2, 0, 1>(v[s], table, inv, put);
+        } else {
 #pragma unroll
-      for (int s = 0; s < S::L2; ++s) {
-        const int line = lane_line<S::pair2, S::lanes>(t, s);
-        const int64_t row = row0 + line / N1;
-        const int k1 = line % N1;
-        if (row < batch) {
-#pragma unroll
-          for (int q = 0; q < V; ++q) {
-            const int k2 = line_out<N2>(p, q);
-            line_store<T, kFused>(yr, yi, row, n, k1 + N1 * k2, v[s][q],
-                                  scale);
-          }
+          for (int q = 0; q < V; ++q) put(line_out<N2>(p, q), v[s][q]);
         }
       }
     }
@@ -554,27 +567,190 @@ __device__ __forceinline__ void lane_rows(
   }
 }
 
-template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
-          bool kFused>
-__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))
+// Blocks of the lane kernel an SM must hold: the power-of-two geometries
+// as kLaneMinBlocks says; the mixed-radix ones four of 128 threads (at
+// most 128 registers: a lane holds up to 36 values a pass), three (168)
+// where a line lies on a lane pair. On the H100 three took K1 at 1080 and
+// 2160 from 0.200-0.226 to 0.169-0.189 and 0.107-0.135 to 0.098-0.113 ms
+// (their 32-132 bytes of spills gone) and tied at 480; 93, whose lines
+// are in one lane, kept four (0.61-0.64 against 0.61-0.67 ms at three;
+// PERF.md; tools/split_plane_ab.py on patched copies).
+template <typename S, int kThreads>
+__host__ __device__ constexpr int lane_min_blocks() {
+  return S::kXor ? kLaneMinBlocks(kThreads) : S::pair1 || S::pair2 ? 3 : 4;
+}
+
+template <typename T, typename S, int kThreads, bool kFused>
+__global__ void __launch_bounds__(kThreads, (lane_min_blocks<S, kThreads>()))
 minor_lane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                   T* __restrict__ yr, T* __restrict__ yi,
                   const float2* __restrict__ tw, int64_t batch, int inverse,
                   float scale) {
-  lane_rows<T, N1, N2, kTeamWarps, kThreads, kFused, false>(
-      xr, xi, yr, yi, tw, batch, N1 * N2, inverse, scale);
+  lane_rows<T, S, kThreads, kFused, false>(xr, xi, yr, yi, tw, batch, S::n,
+                                           inverse, scale);
 }
 
-// K9 at 128 <= n <= 4096: (batch, n_in) rows, 1 <= n_in < n, zero-padded
-// to n = N1 N2.
-template <typename T, int N1, int N2, int kTeamWarps, int kThreads>
-__global__ void __launch_bounds__(kThreads, kLaneMinBlocks(kThreads))
+// K9 on the four-step: (batch, n_in) rows, 1 <= n_in < n, zero-padded to
+// n = N1 N2.
+template <typename T, typename S, int kThreads>
+__global__ void __launch_bounds__(kThreads, (lane_min_blocks<S, kThreads>()))
 minor_lane_padded_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                          T* __restrict__ yr, T* __restrict__ yi,
                          const float2* __restrict__ tw, int64_t batch,
                          int n_in, int inverse, float scale) {
-  lane_rows<T, N1, N2, kTeamWarps, kThreads, false, true>(
-      xr, xi, yr, yi, tw, batch, n_in, inverse, scale);
+  lane_rows<T, S, kThreads, false, true>(xr, xi, yr, yi, tw, batch, n_in,
+                                         inverse, scale);
 }
+
+// ---- host: the four-step's launch ----
+
+// One launch's operands (minor_fft.cu fills it).
+struct LaneArgs {
+  const void *xr, *xi;
+  void *yr, *yi;
+  const void* tw;
+  long long batch;
+  int n_in, inverse;
+  float scale;
+  cudaStream_t stream;
+};
+
+// The four-step of geometry S on a grid of at most the blocks the card
+// holds at once (each stages the table once and loops over row groups);
+// K9 (kPadded) runs the padded kernel.
+template <typename T, typename S, int kThreads, bool kFused, bool kPadded>
+int launch_four_step(const LaneArgs& a) {
+  constexpr long long rows = S::teams * S::rows;
+  const long long groups = (a.batch + rows - 1) / rows;
+  const T* x_r = static_cast<const T*>(a.xr);
+  const T* x_i = static_cast<const T*>(a.xi);
+  T* y_r = static_cast<T*>(a.yr);
+  T* y_i = static_cast<T*>(a.yi);
+  const float2* w = static_cast<const float2*>(a.tw);
+  unsigned blocks = 0;
+  cudaError_t err;
+  if constexpr (kPadded) {
+    auto* kernel = minor_lane_padded_kernel<T, S, kThreads>;
+    err = allow_smem(kernel, S::smem);
+    if (err == cudaSuccess)
+      err = resident_grid(kernel, kThreads, S::smem, groups, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kThreads, S::smem, a.stream>>>(
+        x_r, x_i, y_r, y_i, w, (int64_t)a.batch, a.n_in, a.inverse, a.scale);
+  } else {
+    auto* kernel = minor_lane_kernel<T, S, kThreads, kFused>;
+    err = allow_smem(kernel, S::smem);
+    if (err == cudaSuccess)
+      err = resident_grid(kernel, kThreads, S::smem, groups, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kThreads, S::smem, a.stream>>>(
+        x_r, x_i, y_r, y_i, w, (int64_t)a.batch, a.inverse, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The mixed-radix lengths of the line form, one list a radix family (each
+// instantiated by its own source, minor_line_{r3,r5,r15,odd}.cu, so that
+// nvcc builds them in parallel): X(n, N1, N2, team warps, rows a team, Q1,
+// Q2, P2, RS), LaneStep's parameters, every block 128 threads. The
+// wrapper's table (kernels/minor_fft.py, _FOUR_STEP) lists the same
+// geometries, and a CPU test holds the two lists equal.
+// The power-of-two four-steps: X(n, N1, N2, warps a team, threads a
+// block), 32 values a lane in the XOR tile (minor_fft.cu, launch_lane).
+#define TPUFFT_MINOR_POW2(X) \
+  X(128, 8, 16, 1, 128)      \
+  X(256, 16, 16, 1, 128)     \
+  X(512, 32, 16, 1, 128)     \
+  X(1024, 32, 32, 1, 128)    \
+  X(2048, 32, 64, 2, 128)    \
+  X(4096, 64, 64, 4, 256)
+#define TPUFFT_MINOR_R3(X)          \
+  X(12, 4, 3, 1, 64, 3, 4, 4, 19)   \
+  X(24, 8, 3, 1, 32, 3, 8, 6, 51)   \
+  X(48, 3, 16, 4, 85, 16, 3, 17, 51) \
+  X(96, 6, 16, 1, 10, 16, 6, 17, 102) \
+  X(192, 8, 24, 1, 4, 24, 8, 25, 200) \
+  X(384, 8, 48, 1, 2, 48, 8, 49, 392) \
+  X(768, 12, 64, 1, 1, 64, 12, 65, 780) \
+  X(1536, 24, 64, 2, 1, 64, 24, 65, 1560) \
+  X(3072, 48, 64, 4, 1, 64, 48, 65, 3120)
+#define TPUFFT_MINOR_R5(X)          \
+  X(20, 4, 5, 1, 56, 5, 4, 12, 53)  \
+  X(40, 8, 5, 1, 19, 5, 8, 6, 53)   \
+  X(80, 5, 16, 1, 12, 16, 5, 17, 85) \
+  X(160, 5, 32, 1, 6, 32, 5, 33, 165) \
+  X(320, 5, 64, 1, 3, 64, 5, 65, 325) \
+  X(640, 10, 64, 2, 3, 64, 10, 65, 650) \
+  X(1280, 20, 64, 2, 1, 64, 20, 65, 1300) \
+  X(2560, 40, 64, 4, 1, 64, 40, 65, 2600)
+#define TPUFFT_MINOR_R15(X)         \
+  X(30, 2, 15, 1, 32, 16, 2, 15, 30) \
+  X(60, 4, 15, 1, 16, 16, 4, 15, 60) \
+  X(120, 8, 15, 1, 8, 16, 8, 15, 120) \
+  X(240, 8, 30, 1, 4, 32, 8, 30, 241) \
+  X(480, 8, 60, 1, 2, 64, 8, 61, 488) \
+  X(960, 15, 64, 1, 1, 64, 15, 65, 975) \
+  X(1920, 30, 64, 2, 1, 64, 30, 65, 1950) \
+  X(3840, 60, 64, 4, 1, 64, 60, 65, 3900)
+#define TPUFFT_MINOR_ODD(X)         \
+  X(93, 31, 3, 1, 10, 3, 32, 3, 99) \
+  X(1000, 25, 40, 2, 1, 40, 25, 41, 1025) \
+  X(1080, 30, 36, 4, 3, 36, 32, 37, 1124) \
+  X(2160, 36, 60, 4, 1, 60, 36, 61, 2196)
+
+// The launchers of each family: the length's kernel in storage T (K1,
+// K20 with kFused, K9 with kPadded), or cudaErrorInvalidValue for a length
+// the family does not hold.
+template <typename T, bool kFused, bool kPadded>
+int launch_mixed_r3(const LaneArgs& a, int n);
+template <typename T, bool kFused, bool kPadded>
+int launch_mixed_r5(const LaneArgs& a, int n);
+template <typename T, bool kFused, bool kPadded>
+int launch_mixed_r15(const LaneArgs& a, int n);
+template <typename T, bool kFused, bool kPadded>
+int launch_mixed_odd(const LaneArgs& a, int n);
+
+// The family source that holds mixed-radix length n: 3, 5, 15 (n = r
+// 2^a) or 1 (the odd list), 0 where n is not a mixed-radix length of the
+// form.
+inline int mixed_family(int n) {
+#define TPUFFT_IS(n_, ...) || n == n_
+  if (false TPUFFT_MINOR_R3(TPUFFT_IS)) return 3;
+  if (false TPUFFT_MINOR_R5(TPUFFT_IS)) return 5;
+  if (false TPUFFT_MINOR_R15(TPUFFT_IS)) return 15;
+  if (false TPUFFT_MINOR_ODD(TPUFFT_IS)) return 1;
+#undef TPUFFT_IS
+  return 0;
+}
+
+template <typename T, bool kFused, bool kPadded>
+int launch_mixed(const LaneArgs& a, int n) {
+  switch (mixed_family(n)) {
+    case 3: return launch_mixed_r3<T, kFused, kPadded>(a, n);
+    case 5: return launch_mixed_r5<T, kFused, kPadded>(a, n);
+    case 15: return launch_mixed_r15<T, kFused, kPadded>(a, n);
+    case 1: return launch_mixed_odd<T, kFused, kPadded>(a, n);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The body of each family's source: its switch over n and the launcher's
+// six instantiations (f32 and bf16; K1, K20, K9).
+#define TPUFFT_MINOR_CASE(n_, n1, n2, w, r, q1, q2, p2, rs)              \
+  case n_:                                                              \
+    return launch_four_step<T, LaneStep<n1, n2, w, 128, r, q1, q2, p2, rs>, \
+                            128, kFused, kPadded>(a);
+#define TPUFFT_MINOR_FAMILY(NAME, LIST)                                  \
+  template <typename T, bool kFused, bool kPadded>                       \
+  int NAME(const LaneArgs& a, int n) {                                   \
+    switch (n) { LIST(TPUFFT_MINOR_CASE) }                               \
+    return (int)cudaErrorInvalidValue;                                   \
+  }                                                                      \
+  template int NAME<float, false, false>(const LaneArgs&, int);          \
+  template int NAME<float, true, false>(const LaneArgs&, int);           \
+  template int NAME<float, false, true>(const LaneArgs&, int);           \
+  template int NAME<__nv_bfloat16, false, false>(const LaneArgs&, int);  \
+  template int NAME<__nv_bfloat16, true, false>(const LaneArgs&, int);   \
+  template int NAME<__nv_bfloat16, false, true>(const LaneArgs&, int);
 
 }  // namespace tpufft_minor

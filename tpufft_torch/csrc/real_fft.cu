@@ -35,8 +35,9 @@
 //
 // K7's line form (rfft_lane_kernel), for even n = 2m with m a power of two
 // from 128 to 4096 (n = 256 to 8192): the packed row runs K1's line form
-// at length m (minor_fft.cuh: LaneStep, lane_fft, pair_fft, the staged
-// w_m table, blocks looping over row groups), its load reading each pair
+// at length m (minor_fft.cuh: LaneStep; lane_dft.cuh: lane_dft and
+// pair_dft; the staged w_m table, blocks looping over row groups), its
+// load reading each pair
 // x[2j], x[2j+1] as one 8-byte (bf16: 4-byte) value, so that a warp's load
 // instruction reads 256 consecutive bytes. Pass 2 leaves Z[k1 + N1 k2] in
 // registers; bins k and m - k lie in other lanes then (line N1 - k1, k2
@@ -79,12 +80,12 @@
 using namespace tpufft_fft;
 using tpufft_minor::Geometry;
 using tpufft_minor::kLaneMinBlocks;
-using tpufft_minor::lane_fft;
+using tpufft_lane::lane_dft;
 using tpufft_minor::lane_line;
 using tpufft_minor::LaneStep;
 using tpufft_minor::launch_geometry;
 using tpufft_minor::line_out;
-using tpufft_minor::pair_fft;
+using tpufft_lane::pair_dft;
 using tpufft_minor::resident_grid;
 using tpufft_minor::team_sync;
 
@@ -202,9 +203,9 @@ rfft_lane_kernel(const T* __restrict__ x, T* __restrict__ yr,
 #pragma unroll
       for (int s = 0; s < S::L1; ++s) {
         if constexpr (S::pair1)
-          pair_fft<m / 64>(v[s], p, table, false);
+          pair_dft<32, m / 64>(v[s], p, table, false);
         else
-          lane_fft<N1, m / N1>(v[s], table, false);
+          lane_dft<N1, m / N1, 0, 1>(v[s], table, false);
       }
 #pragma unroll
       for (int s = 0; s < S::L1; ++s) {
@@ -234,9 +235,9 @@ rfft_lane_kernel(const T* __restrict__ x, T* __restrict__ yr,
 #pragma unroll
       for (int s = 0; s < S::L2; ++s) {
         if constexpr (S::pair2)
-          pair_fft<m / 64>(v[s], p, table, false);
+          pair_dft<32, m / 64>(v[s], p, table, false);
         else
-          lane_fft<N2, m / N2>(v[s], table, false);
+          lane_dft<N2, m / N2, 0, 1>(v[s], table, false);
       }
       team_sync<kTeamWarps>(team);  // every line is read before Z lands
 #pragma unroll

@@ -129,10 +129,10 @@ __device__ __forceinline__ void inverse_passes(float2* tile,
                                                int t,
                                                typename LineCore<S>::Out& v) {
   using C = LineCore<S>;
-  using tpufft_minor::lane_fft;
+  using tpufft_lane::lane_dft;
+  using tpufft_lane::pair_dft;
   using tpufft_minor::lane_line;
   using tpufft_minor::line_out;
-  using tpufft_minor::pair_fft;
   constexpr int N1 = S::N1, N2 = S::N2, m = S::n;
   const int p = (t >> 4) & 1;  // place in a lane pair
   tpufft_minor::team_sync<C::kTeamWarps>(team);
@@ -149,9 +149,9 @@ __device__ __forceinline__ void inverse_passes(float2* tile,
 #pragma unroll
     for (int s = 0; s < S::L1; ++s) {
       if constexpr (S::pair1)
-        pair_fft<m / 64>(u[s], p, table, true);
+        pair_dft<32, m / 64>(u[s], p, table, true);
       else
-        lane_fft<N1, m / N1>(u[s], table, true);
+        lane_dft<N1, m / N1, 0, 1>(u[s], table, true);
     }
     tpufft_minor::team_sync<C::kTeamWarps>(team);  // every column is read
 #pragma unroll
@@ -180,9 +180,9 @@ __device__ __forceinline__ void inverse_passes(float2* tile,
 #pragma unroll
   for (int s = 0; s < S::L2; ++s) {
     if constexpr (S::pair2)
-      pair_fft<m / 64>(v[s], p, table, true);
+      pair_dft<32, m / 64>(v[s], p, table, true);
     else
-      lane_fft<N2, m / N2>(v[s], table, true);
+      lane_dft<N2, m / N2, 0, 1>(v[s], table, true);
   }
 }
 

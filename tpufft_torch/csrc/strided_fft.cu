@@ -23,10 +23,12 @@
 // The kernel has two forms; launch_sized picks one by (n, post, storage),
 // and tpufft_strided_line_geometry below tells kernels/inner_fft.py:form
 // which. The line form (strided_line.cuh: n = r 2^a, r in {1, 3, 5}, from 8
-// to 2048, post of at least 8 f32 or 16 bf16 columns) keeps each column
-// line in registers and crosses shared memory once; its design notes are
-// there. Every other launch runs the stage form below (strided_fft_kernel),
-// e.g. n = 93, 480 (two odd factors) and n > 2048.
+// to 2048, and 15 2^a from 30 to 1920, 25, 93 and 1080, on post of at
+// least 8 f32 or 16 bf16 columns) keeps each column line in registers and
+// crosses shared memory once; its design notes are there. Every other
+// launch runs the stage form below (strided_fft_kernel), e.g. n = 127 (a
+// prime above 31) and n > 2048; tpufft_strided_fft_stages runs it at every
+// length, to compare the forms.
 //
 // The stage form: a block takes an (n, cols) tile - n strided rows, `cols`
 // contiguous columns - and loads it with neighbouring threads on neighbouring
@@ -192,15 +194,16 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// The line form where line_geometry gives one, else the stage form.
+// The line form where line_geometry gives one, else the stage form;
+// `stages` forces the stage form (kept to compare the forms).
 template <typename T, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, const void* tw_nm, long long pre,
                  long long post, int tw_m, long long tw_l,
                  const Radices& plan, int inverse, float scale,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, bool stages = false) {
   tpufft_strided::LineGeometry g;
-  if (tpufft_strided::line_geometry(
+  if (!stages && tpufft_strided::line_geometry(
           plan.n, post, std::is_same<T, __nv_bfloat16>::value, &g))
     return tpufft_strided::launch_line<T, kFused>(
         {xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m, tw_l, inverse, scale,
@@ -231,6 +234,32 @@ int launch_fused(const void* st, void* out, const void* tw, long long pre,
 
 }  // namespace
 
+namespace {
+
+int strided_entry(const void* xr, const void* xi, void* yr, void* yi,
+                  const void* tw, long long pre, int n, long long post,
+                  const int* radices, int nstages, const void* tw_nm,
+                  int tw_m, long long tw_l, int inverse, float scale,
+                  int bf16, bool stages, void* stream) {
+  Radices plan;
+  if (pre < 0 || post < 0 || post > INT_MAX ||
+      !make_radices(n, radices, nstages, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (tw_nm != nullptr && (tw_m < 1 || tw_l < 1 || tw_m * tw_l != post))
+    return (int)cudaErrorInvalidValue;
+  if (pre == 0 || post == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_sized<__nv_bfloat16, false>(xr, xi, yr, yi, tw, tw_nm, pre,
+                                              post, tw_m, tw_l, plan, inverse,
+                                              scale, s, stages);
+  return launch_sized<float, false>(xr, xi, yr, yi, tw, tw_nm, pre, post,
+                                    tw_m, tw_l, plan, inverse, scale, s,
+                                    stages);
+}
+
+}  // namespace
+
 // Transforms axis 1 of the (pre, n, post) planes xr/xi into yr/yi (f32,
 // or bf16 when bf16 != 0) on `stream`, a stream of the current device.
 // tw holds the n complex f32 values exp(-+2 pi i k / n) for the direction;
@@ -244,20 +273,20 @@ extern "C" int tpufft_strided_fft(const void* xr, const void* xi, void* yr,
                                   int nstages, const void* tw_nm, int tw_m,
                                   long long tw_l, int inverse, float scale,
                                   int bf16, void* stream) {
-  Radices plan;
-  if (pre < 0 || post < 0 || post > INT_MAX ||
-      !make_radices(n, radices, nstages, &plan))
-    return (int)cudaErrorInvalidValue;
-  if (tw_nm != nullptr && (tw_m < 1 || tw_l < 1 || tw_m * tw_l != post))
-    return (int)cudaErrorInvalidValue;
-  if (pre == 0 || post == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_sized<__nv_bfloat16, false>(xr, xi, yr, yi, tw, tw_nm, pre,
-                                              post, tw_m, tw_l, plan, inverse,
-                                              scale, s);
-  return launch_sized<float, false>(xr, xi, yr, yi, tw, tw_nm, pre, post,
-                                    tw_m, tw_l, plan, inverse, scale, s);
+  return strided_entry(xr, xi, yr, yi, tw, pre, n, post, radices, nstages,
+                       tw_nm, tw_m, tw_l, inverse, scale, bf16, false,
+                       stream);
+}
+
+// The same transform on the stage form at every length, kept to compare
+// the forms; arguments and result as for tpufft_strided_fft.
+extern "C" int tpufft_strided_fft_stages(
+    const void* xr, const void* xi, void* yr, void* yi, const void* tw,
+    long long pre, int n, long long post, const int* radices, int nstages,
+    const void* tw_nm, int tw_m, long long tw_l, int inverse, float scale,
+    int bf16, void* stream) {
+  return strided_entry(xr, xi, yr, yi, tw, pre, n, post, radices, nstages,
+                       tw_nm, tw_m, tw_l, inverse, scale, bf16, true, stream);
 }
 
 // K18 (M > 1) and K19 (M == 1): axis 1 of the (pre, n, M, 2L) array st in

@@ -1,8 +1,8 @@
 // The line form of the strided-axis C2C FFT (K2, K3, K18, K19): device code,
 // launch geometry and the launchers (strided_fft.cu picks the form and
-// holds the stage form; strided_line_{pow2,r3,r5}.cu instantiate this
-// header's kernels, one source per radix family so that nvcc builds them in
-// parallel).
+// holds the stage form; strided_line_{pow2,r3,r5,r15,odd}.cu instantiate
+// this header's kernels, one source per radix family so that nvcc builds
+// them in parallel).
 //
 // Replaces the same four Pallas TPU kernels as the stage form
 // (tpufft/kernels/mxu_fft.py: _build_inner, _build_inner_nd with with_tw,
@@ -22,37 +22,46 @@
 // and registers in runs of C columns (C = 8 f32 columns fill one 32-byte
 // sector a row a plane), with no transposing load or store.
 //
-// The form covers n = r 2^a, r in {1, 3, 5}, from 8 to 2048 (line_split
-// below), for a launch whose post is at least 8 columns in f32 (16 in
-// bf16, a sector of bf16 values); every other launch runs the stage form.
-// A unit is C consecutive columns of one pre-slice (C a power of two from
-// 8 to 32, line_geometry), every unit's columns past post compute on zeros
-// and store nothing, and blocks loop over units on a grid of at most the
-// blocks the card holds at once, so that each block stages the n-table in
-// shared memory once.
+// The form covers n = r 2^a for r in {1, 3, 5} from 8 to 2048 and r = 15
+// from 30 to 1920, and 25, 93 (3 x 31) and 1080 (line_split below), for a
+// launch whose post is at least 8 columns in f32 (16 in bf16, a sector of
+// bf16 values) and whose block stays within the launch bound (bf16 up to
+// n = 1024); every other launch (a prime above 31, n above 2048) runs the
+// stage form. A unit is C consecutive columns of one pre-slice (C a power
+// of two from 8 to 32, line_geometry), every unit's columns past post
+// compute on zeros and store nothing, and blocks loop over units on a grid
+// of at most the blocks the card holds at once, so that each block stages
+// the n-table in shared memory once.
 // - n <= 32 (strided_lines_kernel): lane c of a unit loads its column's n
 //   values (a warp instruction reads 32 / C rows of C columns), runs the
 //   whole line in registers (lane_dft) and stores it: no tile, no barrier.
 // - 40 <= n <= 2048 (strided_lane_kernel): the four-step n = N1 N2 by one
-//   block of C n / 32 lanes (32 values a lane), a team in K1's words.
-//   Pass 1: lane (c, j2) loads x[N2 j1 + j2, c] for every j1 straight from
-//   device memory (lanes on consecutive c first), runs the N1-long line in
+//   block of at least C n / 32 lanes, a team in K1's words. Pass 1: lane
+//   (c, j2) loads x[N2 j1 + j2, c] for every j1 straight from device
+//   memory (lanes on consecutive c first), runs the N1-long line in
 //   registers, multiplies by w^(k1 j2) from the staged table and writes
 //   each value once into the tile. One __syncthreads. Pass 2: lane (c, k1)
-//   reads the N2 values (k1, .) of its column, runs the N2-long line (on a
-//   lane pair for N2 = 64, pair_dft), applies tw_nm and the scale and
-//   stores X[k1 + N1 k2, c] straight to device memory. Lines whose count
-//   is not a multiple of the lanes take an extra round on whole warps.
-//   The tile holds (k1, j2) of column c at ((k1 N2 + (j2 ^ (k1 & 1))) C +
-//   c): half a warp writes 16 consecutive lines of one k1 in pass 1 and
-//   reads one j2 of 16 consecutive lines in pass 2, which at C = 8 are two
-//   rows of 8 columns that the XOR puts on opposite halves of the 16 bank
+//   reads the N2 values (k1, .) of its column, runs the N2-long line (an
+//   N2 of 36 to 64 on a lane pair, pair_dft), applies tw_nm and the scale
+//   and stores X[k1 + N1 k2, c] straight to device memory. Lines whose
+//   count is not a multiple of the lanes take extra rounds (at n = 93, 3 x
+//   31: eleven rounds of 3-long lines in pass 1, one of 31-long ones in
+//   pass 2). The tile holds (k1, j2) of column c at ((k1 N2 + (j2 ^ (k1 &
+//   1))) C + c) for an even N2, ((k1 N2 + j2) C + c) for an odd one: half a
+//   warp writes 16 consecutive lines of one k1 in pass 1 and reads one j2
+//   of 16 consecutive lines in pass 2, which at C = 8 are two rows of 8
+//   columns an odd number of rows apart, on opposite halves of the 16 bank
 //   pairs (a CPU test, tests/test_torch_kernel_inner.py, checks every
 //   geometry).
-// The lines are Cooley-Tukey in one lane's registers (lane_dft: radix 8,
-// 4, 2, 3 or 5 first, the twiddles W_N^(a b) from the table, then the
-// sub-lines; no exchange between lanes), so a radix-3 or radix-5 factor
-// costs no pass through shared memory.
+// The lines are the shared generic-radix DFT of lane_dft.cuh (radix 8, 4,
+// 2, 3, 5 or an odd prime up to 31 first, the twiddles W_N^(a b) from the
+// table, then the sub-lines; no exchange between lanes), so no radix costs
+// a pass through shared memory; a line whose largest prime is 7 or more
+// hands its outputs over as they are formed (lane_dft_emit; pass 2 into
+// the line's own tile slots, then stored in order), which keeps a 31-long
+// line at 62 floats of values: at 96 registers (lane_threads' bound) K2
+// at 93 spills 72 bytes, against 1200-1900 when pass 2 stored straight
+// from the sum (ptxas; PERF.md).
 
 #pragma once
 
@@ -60,11 +69,13 @@
 #include <utility>
 
 #include "fft_stages.cuh"
+#include "lane_dft.cuh"
 #include "minor_fft.cuh"
 
 namespace tpufft_strided {
 
 using namespace tpufft_fft;
+using namespace tpufft_lane;
 using tpufft_minor::resident_grid;
 
 constexpr int kLinesThreads = 128;   // a block of strided_lines_kernel
@@ -83,143 +94,6 @@ __host__ __device__ constexpr int lane_threads(int n, bool bf16) {
 }
 __host__ __device__ constexpr int lane_blocks(int n, bool bf16) {
   return lane_threads(n, bf16) == 320 ? 2 : 1;
-}
-
-// ---------------------------------------------------------------------------
-// In-register DFTs
-// ---------------------------------------------------------------------------
-
-// The first radix of a lane line of N (N = r 2^b): 8 (4 at N = 16), 4, 2,
-// then 3 or 5.
-__host__ __device__ constexpr int first_radix(int N) {
-  return N % 8 == 0 && N != 16 ? 8
-         : N % 4 == 0           ? 4
-         : N % 2 == 0           ? 2
-         : N % 3 == 0           ? 3
-                                : 5;
-}
-
-// Radix 3: X1, X2 = x0 - (x1 + x2) / 2 -+ i sin(2 pi / 3) (x1 - x2) forward
-// (+- inverse).
-__device__ __forceinline__ void dft3(float2 (&x)[3], bool inv) {
-  const float s = inv ? -0.86602540378443864676f : 0.86602540378443864676f;
-  const float2 t = cadd(x[1], x[2]), d = csub(x[1], x[2]);
-  const float2 m = make_float2(x[0].x - 0.5f * t.x, x[0].y - 0.5f * t.y);
-  x[0] = cadd(x[0], t);
-  x[1] = make_float2(m.x + s * d.y, m.y - s * d.x);
-  x[2] = make_float2(m.x - s * d.y, m.y + s * d.x);
-}
-
-// Radix 5, in conjugate pairs: with a_b = x_b + x_(5-b), d_b = x_b -
-// x_(5-b), X1, X4 = x0 + c1 a1 + c2 a2 -+ i (s1 d1 + s2 d2) and X2, X3 =
-// x0 + c2 a1 + c1 a2 -+ i (s2 d1 - s1 d2) forward (c_k = cos(2 pi k / 5),
-// s_k = sin(2 pi k / 5); the signs of s flip inverse).
-__device__ __forceinline__ void dft5(float2 (&x)[5], bool inv) {
-  const float c1 = 0.30901699437494742410f, c2 = -0.80901699437494742410f;
-  const float s1 = inv ? -0.95105651629515357212f : 0.95105651629515357212f;
-  const float s2 = inv ? -0.58778525229247312917f : 0.58778525229247312917f;
-  const float2 a1 = cadd(x[1], x[4]), d1 = csub(x[1], x[4]);
-  const float2 a2 = cadd(x[2], x[3]), d2 = csub(x[2], x[3]);
-  const float2 m1 = make_float2(x[0].x + c1 * a1.x + c2 * a2.x,
-                                x[0].y + c1 * a1.y + c2 * a2.y);
-  const float2 m2 = make_float2(x[0].x + c2 * a1.x + c1 * a2.x,
-                                x[0].y + c2 * a1.y + c1 * a2.y);
-  const float2 e1 = make_float2(s1 * d1.x + s2 * d2.x, s1 * d1.y + s2 * d2.y);
-  const float2 e2 = make_float2(s2 * d1.x - s1 * d2.x, s2 * d1.y - s1 * d2.y);
-  x[0] = cadd(x[0], cadd(a1, a2));
-  x[1] = make_float2(m1.x + e1.y, m1.y - e1.x);
-  x[4] = make_float2(m1.x - e1.y, m1.y + e1.x);
-  x[2] = make_float2(m2.x + e2.y, m2.y - e2.x);
-  x[3] = make_float2(m2.x - e2.y, m2.y + e2.x);
-}
-
-template <int R>
-__device__ __forceinline__ void radix_dft(float2 (&x)[R], bool inv) {
-  if constexpr (R == 3)
-    dft3(x, inv);
-  else if constexpr (R == 5)
-    dft5(x, inv);
-  else
-    butterfly<R>(x, inv);
-}
-
-// Index in its line of register r after lane_dft<N>: N = A B with A =
-// first_radix(N); register b + B a ends holding X[a + A out_B(b)].
-template <int N>
-__host__ __device__ constexpr int lane_out(int r) {
-  if constexpr (N == 1) {
-    return 0;
-  } else {
-    constexpr int A = first_radix(N), B = N / A;
-    return r / B + A * lane_out<B>(r % B);
-  }
-}
-
-template <int N, int kTab, int kOff, int kS, int M>
-__device__ __forceinline__ void lane_dft(float2 (&x)[M], const float2* table,
-                                         bool inv);
-
-template <int B, int kTab, int kOff, int kS, int M, int... a>
-__device__ __forceinline__ void lane_subs(float2 (&x)[M], const float2* table,
-                                          bool inv,
-                                          std::integer_sequence<int, a...>) {
-  (lane_dft<B, kTab, kOff + kS * B * a, kS>(x, table, inv), ...);
-}
-
-// The DFT of the N values x[kOff + kS i], i < N, in place in registers:
-// radix-A butterflies over x[b + B a] for each b, each value times W_N^(a
-// b) = table[pad(a b kTab)] (the staged n-table, kTab = n / N), then the
-// B-long sub-lines a. Register i ends holding X[lane_out<N>(i)].
-template <int N, int kTab, int kOff, int kS, int M>
-__device__ __forceinline__ void lane_dft(float2 (&x)[M], const float2* table,
-                                         bool inv) {
-  constexpr int A = first_radix(N), B = N / A;
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-    float2 t[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) t[a] = x[kOff + kS * (b + B * a)];
-    radix_dft<A>(t, inv);
-#pragma unroll
-    for (int a = 0; a < A; ++a)
-      x[kOff + kS * (b + B * a)] =
-          a * b == 0 ? t[a] : cmul(t[a], table[pad(a * b * kTab)]);
-  }
-  if constexpr (B > 1)
-    lane_subs<B, kTab * A, kOff, kS>(x, table, inv,
-                                     std::make_integer_sequence<int, A>{});
-}
-
-// A line of 2M on two lanes of a warp, t and t ^ 16 (p = bit 4 of the
-// lane): lane p holds x[p + 2 i] in register i and transforms its half
-// (F_p); the pair swaps M / 2 values by __shfl_xor_sync, so that lane p
-// holds F_0[k] and F_1[k] for the k of its registers p M/2 .. p M/2 + M/2
-// - 1, and forms X[k] = F_0 + W_2M^k F_1 in register i, X[k + M] = F_0 -
-// W_2M^k F_1 in register M/2 + i (W_2M^k = table[pad(k kTab)]). Register
-// r ends holding X[pair_out<M>(p, r)]. Every lane of the warp must call it.
-template <int M>
-__host__ __device__ constexpr int pair_out(int p, int r) {
-  return lane_out<M>(r % (M / 2) + (M / 2) * p) + M * (r / (M / 2));
-}
-
-template <int M, int kTab>
-__device__ __forceinline__ void pair_dft(float2 (&v)[M], int p,
-                                         const float2* table, bool inv) {
-  constexpr int H = M / 2;
-  lane_dft<M, 2 * kTab, 0, 1>(v, table, inv);
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float2 send = p ? v[i] : v[H + i];
-    float2 got;
-    got.x = __shfl_xor_sync(0xffffffffu, send.x, 16);
-    got.y = __shfl_xor_sync(0xffffffffu, send.y, 16);
-    const float2 a = p ? got : v[i];
-    const float2 b = cmul(p ? v[H + i] : got,
-                          table[pad((p ? lane_out<M>(H + i) : lane_out<M>(i)) *
-                                    kTab)]);
-    v[i] = cadd(a, b);
-    v[H + i] = csub(a, b);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -310,39 +184,63 @@ strided_lines_kernel(TPUFFT_LINE_PARAMS) {
       const int64_t g = g0 + j * S;
       v[j] = make_float2(load_f(xr, g), load_f(xi, g));
     }
-    lane_dft<N, 1, 0, 1>(v, table, inv);
-    const int cq = kTw ? col / tw_l : 0;
+    if constexpr (max_prime(N) >= 7) {
+      // the outputs in order, as lane_dft's registers (y holds them as the
+      // sum forms them; only lengths of the form with a prime from 7 come
+      // here)
+      float2 y[N];
+      lane_dft_emit<N, 1, 0, 1>(v, table, inv,
+                                [&](int k, float2 w) { y[k] = w; });
+      const int cq = kTw ? col / tw_l : 0;
 #pragma unroll
-    for (int q = 0; q < N; ++q) {
-      const int k = lane_out<N>(q);
-      store_out<kTw>(yr, yi, tw_nm, g0 + k * S, k, tw_m, cq, v[q], scale);
+      for (int k = 0; k < N; ++k)
+        store_out<kTw>(yr, yi, tw_nm, g0 + k * S, k, tw_m, cq, y[k], scale);
+    } else {
+      lane_dft<N, 1, 0, 1>(v, table, inv);
+      const int cq = kTw ? col / tw_l : 0;
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        const int k = lane_out<N>(q);
+        store_out<kTw>(yr, yi, tw_nm, g0 + k * S, k, tw_m, cq, v[q], scale);
+      }
     }
   }
 }
 
-// The tile position of (k1, j2) of column c (the header's layout).
+// The tile position of (k1, j2) of column c (the header's layout): for an
+// even N2 the XOR puts the rows k1 and k1 + 1 of one j2 an odd number of
+// rows apart; an odd N2 does that by itself.
 template <int N2>
 __device__ __forceinline__ int tile_pos(int c, int k1, int j2,
                                         int cols_log2) {
-  static_assert(N2 % 2 == 0, "the XOR pairs rows");
-  return ((k1 * N2 + (j2 ^ (k1 & 1))) << cols_log2) + c;
+  if constexpr (N2 % 2 == 0)
+    return ((k1 * N2 + (j2 ^ (k1 & 1))) << cols_log2) + c;
+  else
+    return ((k1 * N2 + j2) << cols_log2) + c;
 }
 
 // 40 <= n <= 2048: the four-step by one block of at least C n / 32 lanes
 // (a whole number of warps). Pass 1's lines (c, j2) are t + blockDim s
-// (c = line mod C, j2 = line / C), pass 2's (c, k1) alike, or for N2 = 64
-// (t mod 16) + 16 (t / 32) on the pair t, t ^ 16. The rounds s stay
-// rolled, so that no round's values are live in the next (with them
-// unrolled, K2's (32, 20) spilled 16 bytes at 96 registers).
+// (c = line mod C, j2 = line / C), pass 2's (c, k1) alike, or for N2 of 34
+// to 64 (t mod 16) + 16 (t / 32) + blockDim / 2 s on the pair t, t ^ 16.
+// The rounds s stay rolled, so that no round's values are live in the
+// next (with them unrolled, K2's (32, 20) spilled 16 bytes at 96
+// registers). A line whose largest prime is 7 or more hands its outputs
+// over as it forms them (lane_dft_emit), so that a 31-long line holds 62
+// floats: pass 1 into the tile, pass 2 into the line's own tile slots,
+// stored from there in order.
 template <typename T, int N1, int N2, bool kFused, bool kTw>
 __global__ void __launch_bounds__(
     lane_threads(N1 * N2, std::is_same<T, __nv_bfloat16>::value),
     lane_blocks(N1 * N2, std::is_same<T, __nv_bfloat16>::value))
 strided_lane_kernel(TPUFFT_LINE_PARAMS) {
   constexpr int n = N1 * N2;
-  constexpr bool kPair = N2 == 64;
-  constexpr int R1 = (32 + N1 - 1) / N1;  // rounds, with blockDim = C n / 32
-  constexpr int R2 = kPair ? 1 : (32 + N2 - 1) / N2;
+  constexpr bool kPair = N2 > 32;
+  static_assert(N1 <= 32 && (!kPair || (N2 % 4 == 0 && N2 <= 64)),
+                "a line of up to 32 in a lane, 34 to 64 on a pair");
+  // rounds, with blockDim >= C n / 32 (C n / 64 pairs)
+  constexpr int R1 = (32 + N1 - 1) / N1;
+  constexpr int R2 = kPair ? (64 + N2 - 1) / N2 : (32 + N2 - 1) / N2;
   extern __shared__ float2 tpufft_strided_line_smem[];
   float2* table = tpufft_strided_line_smem;
   float2* tile = table + pad(n);
@@ -377,35 +275,44 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
 #pragma unroll
           for (int j1 = 0; j1 < N1; ++j1) v[j1] = make_float2(0.f, 0.f);
         }
-        lane_dft<N1, N2, 0, 1>(v, table, inv);
-#pragma unroll
-        for (int q = 0; q < N1; ++q) {
-          const int k1 = lane_out<N1>(q);
+        auto put = [&](int k1, float2 w) {
           tile[tile_pos<N2>(c, k1, j2, cols_log2)] =
-              cmul(v[q], table[pad(k1 * j2)]);
+              cmul(w, table[pad(k1 * j2)]);
+        };
+        if constexpr (max_prime(N1) >= 7) {
+          lane_dft_emit<N1, N2, 0, 1>(v, table, inv, put);
+        } else {
+          lane_dft<N1, N2, 0, 1>(v, table, inv);
+#pragma unroll
+          for (int q = 0; q < N1; ++q) put(lane_out<N1>(q), v[q]);
         }
       }
     }
     __syncthreads();
     if constexpr (kPair) {  // pass 2 on lane pairs: tile -> device memory
-      const int line = (threadIdx.x & 15) + 16 * (threadIdx.x >> 5);
-      const bool valid = line < (N1 << cols_log2);
-      const int c = line & (C - 1), k1 = line >> cols_log2;
-      float2 v[32];
+      constexpr int H = N2 / 2;
+#pragma unroll 1
+      for (int round = 0; round < R2; ++round) {
+        const int line = (threadIdx.x & 15) + 16 * (threadIdx.x >> 5) +
+                         (lanes >> 1) * round;
+        const bool valid = line < (N1 << cols_log2);
+        const int c = line & (C - 1), k1 = line >> cols_log2;
+        float2 v[H];
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
-        v[i] = valid ? tile[tile_pos<N2>(c, k1, p2 + 2 * i, cols_log2)]
-                     : make_float2(0.f, 0.f);
-      pair_dft<32, N1>(v, p2, table, inv);
-      const int col = c0 + c;
-      if (valid && col < post) {
-        const int64_t g0 = (slab + k1) * S + col_offset<kFused>(col, tw_l);
-        const int cq = kTw ? col / tw_l : 0;
+        for (int i = 0; i < H; ++i)
+          v[i] = valid ? tile[tile_pos<N2>(c, k1, p2 + 2 * i, cols_log2)]
+                       : make_float2(0.f, 0.f);
+        pair_dft<H, N1>(v, p2, table, inv);
+        const int col = c0 + c;
+        if (valid && col < post) {
+          const int64_t g0 = (slab + k1) * S + col_offset<kFused>(col, tw_l);
+          const int cq = kTw ? col / tw_l : 0;
 #pragma unroll
-        for (int r = 0; r < 32; ++r) {
-          const int k = k1 + N1 * pair_out<32>(p2, r);
-          store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(k - k1) * S, k,
-                         tw_m, cq, v[r], scale);
+          for (int r = 0; r < H; ++r) {
+            const int k = k1 + N1 * pair_out<H>(p2, r);
+            store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(k - k1) * S, k,
+                           tw_m, cq, v[r], scale);
+          }
         }
       }
     } else {
@@ -418,17 +325,38 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
 #pragma unroll
           for (int j = 0; j < N2; ++j)
             v[j] = tile[tile_pos<N2>(c, k1, j, cols_log2)];
-          lane_dft<N2, N1, 0, 1>(v, table, inv);
           const int col = c0 + c;
-          if (col < post) {
-            const int64_t g0 =
-                (slab + k1) * S + col_offset<kFused>(col, tw_l);
-            const int cq = kTw ? col / tw_l : 0;
+          if constexpr (max_prime(N2) >= 7) {
+            // the outputs go back to the line's own tile slots as they are
+            // formed (no other lane reads them), then out in order: stores
+            // straight from the emitting sum kept 31 64-bit addresses live
+            // beside the line's 62 floats (1200-1900 bytes spilled)
+            lane_dft_emit<N2, N1, 0, 1>(v, table, inv, [&](int k2, float2 w) {
+              tile[tile_pos<N2>(c, k1, k2, cols_log2)] = w;
+            });
+            if (col < post) {
+              const int64_t g0 =
+                  (slab + k1) * S + col_offset<kFused>(col, tw_l);
+              const int cq = kTw ? col / tw_l : 0;
 #pragma unroll
-            for (int q = 0; q < N2; ++q) {
-              const int k2 = lane_out<N2>(q);
-              store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * S,
-                             k1 + N1 * k2, tw_m, cq, v[q], scale);
+              for (int k2 = 0; k2 < N2; ++k2)
+                store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * S,
+                               k1 + N1 * k2, tw_m, cq,
+                               tile[tile_pos<N2>(c, k1, k2, cols_log2)],
+                               scale);
+            }
+          } else {
+            lane_dft<N2, N1, 0, 1>(v, table, inv);
+            if (col < post) {
+              const int64_t g0 =
+                  (slab + k1) * S + col_offset<kFused>(col, tw_l);
+              const int cq = kTw ? col / tw_l : 0;
+#pragma unroll
+              for (int q = 0; q < N2; ++q) {
+                const int k2 = lane_out<N2>(q);
+                store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * S,
+                               k1 + N1 * k2, tw_m, cq, v[q], scale);
+              }
             }
           }
         }
@@ -444,18 +372,22 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
 // Host: geometry and launch
 // ---------------------------------------------------------------------------
 
-// The four-step n = N1 N2 of each length of the form (N2 even, lines of at
-// most 32 in a lane, a 64-long N2 on a lane pair); N2 = 1 for n <= 32, one
-// line a lane. False outside the form.
+// The four-step n = N1 N2 of each length of the form (lines of at most 32
+// in a lane, an even N2 of 34 to 64 on a lane pair); N2 = 1 for n <= 32,
+// one line a lane. The lengths are r 2^a for r in {1, 3, 5} from 8 to
+// 2048 and 15 2^a from 30 to 1920, and 25, 93 and 1080. False outside the
+// form.
 inline bool line_split(int n, int* n1, int* n2) {
   static const int kSplits[][3] = {
       {8, 8, 1},       {10, 10, 1},     {12, 12, 1},     {16, 16, 1},
-      {20, 20, 1},     {24, 24, 1},     {32, 32, 1},     {40, 10, 4},
-      {48, 12, 4},     {64, 8, 8},      {80, 10, 8},     {96, 12, 8},
-      {128, 16, 8},    {160, 20, 8},    {192, 24, 8},    {256, 16, 16},
-      {320, 20, 16},   {384, 24, 16},   {512, 32, 16},   {640, 32, 20},
-      {768, 32, 24},   {1024, 32, 32},  {1280, 20, 64},  {1536, 24, 64},
-      {2048, 32, 64}};
+      {20, 20, 1},     {24, 24, 1},     {25, 25, 1},     {30, 30, 1},
+      {32, 32, 1},     {40, 10, 4},     {48, 12, 4},     {60, 15, 4},
+      {64, 8, 8},      {80, 10, 8},     {93, 3, 31},     {96, 12, 8},
+      {120, 15, 8},    {128, 16, 8},    {160, 20, 8},    {192, 24, 8},
+      {240, 15, 16},   {256, 16, 16},   {320, 20, 16},   {384, 24, 16},
+      {480, 15, 32},   {512, 32, 16},   {640, 32, 20},   {768, 32, 24},
+      {960, 15, 64},   {1024, 32, 32},  {1080, 30, 36},  {1280, 20, 64},
+      {1536, 24, 64},  {1920, 30, 64},  {2048, 32, 64}};
   for (const auto& s : kSplits)
     if (s[0] == n) {
       *n1 = s[1];
@@ -487,8 +419,8 @@ inline bool line_geometry(int n, long long post, bool bf16,
          (cols > post || (g->n2 > 1 && cols * n / 32 > lane_threads(n, bf16))))
     cols /= 2;
   g->cols_log2 = cols == 8 ? 3 : cols == 16 ? 4 : 5;
-  g->threads =
-      g->n2 == 1 ? kLinesThreads : (cols * n / 32 + 31) / 32 * 32;
+  g->threads = g->n2 == 1 ? kLinesThreads
+                          : ((cols * n + 31) / 32 + 31) / 32 * 32;
   g->smem = (size_t)(pad(n) + (g->n2 == 1 ? 0 : cols * n)) * sizeof(float2);
   return g->threads <= lane_threads(n, bf16) && g->smem <= kSmemMax;
 }
@@ -561,22 +493,36 @@ int launch_lane(const LineArgs& a, const LineGeometry& g) {
   return launch_lane_as<T, N1, N2, kFused, false>(a, g);
 }
 
-// The launchers of each radix family (strided_line_{pow2,r3,r5}.cu): the
-// length's kernel in storage T, or cudaErrorInvalidValue for a length the
-// family does not hold.
+// The launchers of each radix family (strided_line_{pow2,r3,r5,r15,odd}.cu):
+// the length's kernel in storage T, or cudaErrorInvalidValue for a length
+// the family does not hold.
 template <typename T, bool kFused>
 int launch_line_pow2(const LineArgs& a, const LineGeometry& g);
 template <typename T, bool kFused>
 int launch_line_r3(const LineArgs& a, const LineGeometry& g);
 template <typename T, bool kFused>
 int launch_line_r5(const LineArgs& a, const LineGeometry& g);
+template <typename T, bool kFused>
+int launch_line_r15(const LineArgs& a, const LineGeometry& g);
+template <typename T, bool kFused>
+int launch_line_odd(const LineArgs& a, const LineGeometry& g);
+
+// n's family: n = r 2^a for r = 15, 3, 5 or 1; 25, 93 and 1080 the odd one.
+inline int line_family(int n) {
+  int m = n;
+  while (m % 2 == 0) m /= 2;
+  return m == 1 || m == 3 || m == 5 || m == 15 ? m : 0;
+}
 
 template <typename T, bool kFused>
 int launch_line(const LineArgs& a, const LineGeometry& g) {
-  const int n = g.n1 * g.n2;
-  if (n % 3 == 0) return launch_line_r3<T, kFused>(a, g);
-  if (n % 5 == 0) return launch_line_r5<T, kFused>(a, g);
-  return launch_line_pow2<T, kFused>(a, g);
+  switch (line_family(g.n1 * g.n2)) {
+    case 1: return launch_line_pow2<T, kFused>(a, g);
+    case 3: return launch_line_r3<T, kFused>(a, g);
+    case 5: return launch_line_r5<T, kFused>(a, g);
+    case 15: return launch_line_r15<T, kFused>(a, g);
+  }
+  return launch_line_odd<T, kFused>(a, g);
 }
 
 }  // namespace tpufft_strided

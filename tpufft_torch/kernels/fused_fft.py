@@ -128,8 +128,9 @@ def minor_supported(n: int, dtype) -> bool:
 
 def minor_form(n: int) -> str | None:
     """Which form of K1's kernel K20 runs on a minor logical axis of length
-    n: ``minor_fft.form`` (``"lines"`` for power-of-two n from 2 to 4096,
-    ``"stages"`` for the rest of the envelope, None outside it)."""
+    n: ``minor_fft.form`` (``"lines"`` for power-of-two n from 2 to 4096
+    and K1's mixed-radix lengths, ``"stages"`` for the rest of the
+    envelope, None outside it)."""
     return minor_fft.form(n)
 
 

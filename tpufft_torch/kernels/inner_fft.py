@@ -18,13 +18,17 @@ store, the same length envelope (``minor_fft.supported``) and the same
 host-f64 twiddle table.
 
 The kernel has two forms (:func:`form`). The line form
-(``csrc/strided_line.cuh``) takes n = r 2^a, r in {1, 3, 5}, from 8 to
-2048, when post holds at least 8 f32 (16 bf16) columns: blocks of C n / 32
-lanes keep each column's line in registers, lanes on consecutive columns,
-through one shared-memory tile between the two passes of a four-step n =
-N1 N2 (one line a lane without a tile for n <= 32; :func:`line_geometry`).
-Every other launch runs the stage form, the Stockham stages in shared
-memory.
+(``csrc/strided_line.cuh``) takes n = r 2^a for r in {1, 3, 5} from 8 to
+2048 and r = 15 from 30 to 1920, and 25, 93 and 1080, when post holds at
+least 8 f32 (16 bf16) columns and the block stays within the launch bound
+(bf16 up to n = 1024): blocks of at least C n / 32 lanes keep each
+column's line in registers, lanes on consecutive columns, through one
+shared-memory tile between the two passes of a four-step n = N1 N2 (one
+line a lane without a tile for n <= 32; :func:`line_geometry`); the lines
+run the shared generic-radix DFT of ``csrc/lane_dft.cuh``. Every other
+launch (a prime factor above 31, n above 2048) runs the stage form, the
+Stockham stages in shared memory; ``stages=True`` forces it at every
+length, kept to compare the forms.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises, never falls back. ``launches`` counts kernel launches per wrapper;
@@ -66,7 +70,7 @@ def _line_geometry(n: int, post: int, bf16: bool) -> dict | None:
         return None
     n1, n2, cols, threads, smem = out
     return {"n1": n1, "n2": n2, "cols": cols, "threads": threads,
-            "pair": n2 == 64, "smem": smem}
+            "pair": n2 > 32, "smem": smem}
 
 
 def line_geometry(n: int, post: int, dtype) -> dict | None:
@@ -76,8 +80,8 @@ def line_geometry(n: int, post: int, dtype) -> dict | None:
     CUDA toolkit): ``n1``, ``n2`` (the four-step; n2 = 1: one line a lane,
     no tile), ``cols`` (C, columns a unit: the widest of 32, 16 and 8
     whose block stays within the launch bound and whose columns within
-    post), ``threads`` (a block), ``pair`` (pass 2's 64-long lines on lane
-    pairs) and ``smem`` (bytes: the padded n-table and the tile of C n
+    post), ``threads`` (a block), ``pair`` (pass 2's lines of 36 to 64 on
+    lane pairs) and ``smem`` (bytes: the padded n-table and the tile of C n
     complex f32 values). None where the launch runs the stage form."""
     if not minor_fft.supported(n, dtype):
         return None
@@ -89,9 +93,9 @@ def form(n: int, post: int, dtype) -> str | None:
     """Which form of the kernel transforms axis 1 of (pre, n, post) planes
     in ``dtype`` storage, as the launch picks it (``launch_sized`` in
     ``csrc/strided_fft.cu``, read through the library): ``"lines"`` (n = r
-    2^a, r in {1, 3, 5}, 8 <= n <= 2048; post >= 8 f32 or 16 bf16 columns;
-    bf16 up to n = 1024), ``"stages"`` for the rest of the envelope, None
-    outside it."""
+    2^a, r in {1, 3, 5}, 8 <= n <= 2048, or r = 15, 30 <= n <= 1920; 25,
+    93, 1080; post >= 8 f32 or 16 bf16 columns; bf16 up to n = 1024),
+    ``"stages"`` for the rest of the envelope, None outside it."""
     if not minor_fft.supported(n, dtype):
         return None
     return "stages" if line_geometry(n, post, dtype) is None else "lines"
@@ -106,9 +110,9 @@ def reset_counts() -> None:
 
 
 def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
-            scale: float, twiddle=None, tw_l: int = 0):
+            scale: float, twiddle=None, tw_l: int = 0, stages: bool = False):
     """The strided kernel on the (pre, n, post) view of contiguous planes,
-    in the form :func:`form` names."""
+    in the form :func:`form` names (the stage form with ``stages``)."""
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if xr.numel() == 0:
@@ -119,7 +123,9 @@ def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
     tw_m = 0 if twiddle is None else twiddle.shape[1]
     with torch.cuda.device(xr.device):
         tw = minor_fft._device_twiddles(n, bool(inverse), xr.device)
-        err = lib.tpufft_strided_fft(
+        entry = (lib.tpufft_strided_fft_stages if stages
+                 else lib.tpufft_strided_fft)
+        err = entry(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tw.data_ptr(), pre, n, post, rad_arr, len(rad),
             None if twiddle is None else twiddle.data_ptr(), tw_m, tw_l,
@@ -132,17 +138,21 @@ def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
 
 
 def fft_inner(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
-              scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+              scale: float, stages: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Transform the middle axis of (pre, n, L) planes (K2).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise on anything it does not take."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    :func:`form` on the current stream (``stages``: the stage form at every
+    length, kept to compare the forms) and raise on anything it does not
+    take."""
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return fft_inner_reference(xr, xi, inverse=inverse, scale=scale)
     minor_fft.check_planes("fft_inner", xr, xi, 3)
     pre, n, post = xr.shape
     minor_fft.check_length("fft_inner", n)
-    yr, yi, launched = _launch(xr, xi, pre, n, post, inverse, scale)
+    yr, yi, launched = _launch(xr, xi, pre, n, post, inverse, scale,
+                               stages=stages)
     launches["inner"] += launched
     return yr, yi
 

@@ -9,19 +9,28 @@ forward/inverse flag and one real scale.
 
 The CUDA kernel (``csrc/minor_fft.cu``, design notes in
 ``csrc/minor_fft.cuh``) is bound by device-memory bandwidth on an H100
-(~3 flop/byte at n = 1024) and reads and writes each row once, coalesced,
-in one of two forms (:func:`form`): power-of-two n from 2 to 4096 run the
-line form, each row in registers (n <= 64: the lanes of one warp; above:
-a four-step n = N1 N2, :func:`line_split`, through one shared-memory tile
-a team of warps), K9 at those n too; every other length runs the stage
-form, every mixed-radix Stockham stage in shared memory. Twiddles come
-from a host float64 table cast to f32, uploaded once per (n, direction,
-device).
+(~3 flop/byte at n = 1024) and reads and writes each row once, in one of
+two forms (:func:`form`). The line form keeps each row in registers:
+power-of-two n <= 64 on the lanes of one warp, every other length of the
+form as a four-step n = N1 N2 (:func:`line_split`, :func:`line_geometry`)
+through one shared-memory tile a team of warps, its lines on the shared
+generic-radix in-register DFT of ``csrc/lane_dft.cuh`` (radices 2, 4, 8,
+3, 5 and the odd primes 7 to 31). It takes the powers of two from 2 to
+4096 and the mixed-radix lengths of ``_FOUR_STEP`` (3, 5 and 15 times a
+power of two up to 3072, 2560 and 3840; 93, 1000, 1080, 2160; each family
+instantiated by its own source, ``csrc/minor_line_{r3,r5,r15,odd}.cu``),
+K9 and K20 at those n too. Every other length (a prime factor above 31,
+n above 4096, a length no family lists) runs the stage form, every
+Stockham stage in shared memory. Twiddles come from a host float64 table
+cast to f32, uploaded once per (n, direction, device).
 
 ``fft_minor`` is the wrapper. A CPU tensor runs ``fft_minor_reference``;
-a CUDA tensor launches the kernel or raises, never falls back. Its launch
-count is ``launches``; ``reference_cuda_calls`` counts runs of the plain
-version on CUDA tensors, which the main path never makes.
+a CUDA tensor launches the kernel or raises, never falls back
+(``stages=True`` forces the stage form at every length, kept to compare
+the forms). Its launch count is ``launches``; ``reference_cuda_calls``
+counts runs of the plain version on CUDA tensors, which the main path
+never makes. :func:`launched_geometry` reads the launch's own choice of
+form from the library, for a card test that holds :func:`form` to it.
 
 ``fft_minor_padded`` is K9, the counterpart of ``_build_minor_rect`` in its
 zero-pad direction (m_in < m_out = den): the same kernel, in the same form
@@ -67,6 +76,7 @@ __all__ = [
     "fft_minor_padded_reference",
     "fft_minor_reference",
     "form",
+    "launched_geometry",
     "launches",
     "line_geometry",
     "line_split",
@@ -82,11 +92,45 @@ MAX_PRIME = 127   # largest radix of the kernel's direct-sum stage
 LINE_MAX_N = 4096  # longest row of the line form
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
-# The line form's four-step at n = 128 .. 4096 (csrc/minor_fft.cu,
-# launch_line_form): N1, N2, warps a team, threads a block.
-_FOUR_STEP = {128: (8, 16, 1, 128), 256: (16, 16, 1, 128),
+# The line form's four-step (csrc/minor_fft.cuh, LaneStep): n -> (N1, N2,
+# warps a team, threads a block, rows a team, Q1, Q2, P2, RS): the lists of
+# minor_fft.cuh, TPUFFT_MINOR_POW2 (32 values a lane in the XOR tile, P2 =
+# RS = 0) and the mixed-radix families TPUFFT_MINOR_{R3,R5,R15,ODD}, each
+# instantiated by its own source (a CPU test holds this table equal to
+# those lists, a card test to the library's tpufft_minor_line_geometry).
+_POW2_STEP = {128: (8, 16, 1, 128), 256: (16, 16, 1, 128),
               512: (32, 16, 1, 128), 1024: (32, 32, 1, 128),
               2048: (32, 64, 2, 128), 4096: (64, 64, 4, 256)}
+_MIXED_STEP = {
+    # 3 2^a
+    12: (4, 3, 1, 64, 3, 4, 4, 19), 24: (8, 3, 1, 32, 3, 8, 6, 51),
+    48: (3, 16, 4, 85, 16, 3, 17, 51), 96: (6, 16, 1, 10, 16, 6, 17, 102),
+    192: (8, 24, 1, 4, 24, 8, 25, 200), 384: (8, 48, 1, 2, 48, 8, 49, 392),
+    768: (12, 64, 1, 1, 64, 12, 65, 780),
+    1536: (24, 64, 2, 1, 64, 24, 65, 1560),
+    3072: (48, 64, 4, 1, 64, 48, 65, 3120),
+    # 5 2^a
+    20: (4, 5, 1, 56, 5, 4, 12, 53), 40: (8, 5, 1, 19, 5, 8, 6, 53),
+    80: (5, 16, 1, 12, 16, 5, 17, 85), 160: (5, 32, 1, 6, 32, 5, 33, 165),
+    320: (5, 64, 1, 3, 64, 5, 65, 325), 640: (10, 64, 2, 3, 64, 10, 65, 650),
+    1280: (20, 64, 2, 1, 64, 20, 65, 1300),
+    2560: (40, 64, 4, 1, 64, 40, 65, 2600),
+    # 15 2^a
+    30: (2, 15, 1, 32, 16, 2, 15, 30), 60: (4, 15, 1, 16, 16, 4, 15, 60),
+    120: (8, 15, 1, 8, 16, 8, 15, 120), 240: (8, 30, 1, 4, 32, 8, 30, 241),
+    480: (8, 60, 1, 2, 64, 8, 61, 488), 960: (15, 64, 1, 1, 64, 15, 65, 975),
+    1920: (30, 64, 2, 1, 64, 30, 65, 1950),
+    3840: (60, 64, 4, 1, 64, 60, 65, 3900),
+    # the odd list
+    93: (31, 3, 1, 10, 3, 32, 3, 99), 1000: (25, 40, 2, 1, 40, 25, 41, 1025),
+    1080: (30, 36, 4, 3, 36, 32, 37, 1124),
+    2160: (36, 60, 4, 1, 60, 36, 61, 2196),
+}
+_FOUR_STEP = {
+    **{n: (n1, n2, w, th, 1024 * w // n, n2, n1, 0, 0)
+       for n, (n1, n2, w, th) in _POW2_STEP.items()},
+    **{n: (g[0], g[1], g[2], 128, *g[3:]) for n, g in _MIXED_STEP.items()},
+}
 
 launches = 0
 padded_launches = 0
@@ -116,23 +160,25 @@ def supported(n: int, dtype) -> bool:
 def form(n: int, n_in: int | None = None) -> str | None:
     """Which form of the kernel transforms rows of length n (read from
     ``n_in`` values zero-padded to n, K9, when ``n_in`` < n): ``"lines"``
-    for power-of-two n from 2 to ``LINE_MAX_N``, with or without a pad,
-    ``"stages"`` for every other length in the envelope, None outside it
-    (or for an ``n_in`` outside [1, n]). Mirrors ``launch_sized`` in
-    ``csrc/minor_fft.cu``, which makes the choice at the launch."""
+    for power-of-two n from 2 to ``LINE_MAX_N`` and the mixed-radix lengths
+    of ``_FOUR_STEP``, with or without a pad, ``"stages"`` for every other
+    length in the envelope, None outside it (or for an ``n_in`` outside [1,
+    n]). Mirrors ``launch_sized`` in ``csrc/minor_fft.cu``, which makes the
+    choice at the launch (``tpufft_minor_line_geometry`` reports it)."""
     n = int(n)
     if not _length_ok(n):
         return None
     if n_in is not None and not 1 <= int(n_in) <= n:
         return None
-    return "lines" if 2 <= n <= LINE_MAX_N and n & (n - 1) == 0 else "stages"
+    pow2 = 2 <= n <= LINE_MAX_N and n & (n - 1) == 0
+    return "lines" if pow2 or n in _FOUR_STEP else "stages"
 
 
 def line_split(n: int) -> tuple[int, int] | None:
-    """(N1, N2) of the line form at length n: the four-step n = N1 N2 for n
-    > 64 (pass 1 runs the N1-long columns, pass 2 the N2-long rows of the
-    (N1, N2) view); (n, 1) for n <= 64, one line a row; None where n does
-    not run the line form."""
+    """(N1, N2) of the line form at length n: the four-step n = N1 N2 (pass
+    1 runs the N1-long columns, pass 2 the N2-long rows of the (N1, N2)
+    view); (n, 1) for power-of-two n <= 64, one line a row; None where n
+    does not run the line form."""
     n = int(n)
     if form(n) != "lines":
         return None
@@ -140,17 +186,20 @@ def line_split(n: int) -> tuple[int, int] | None:
 
 
 def line_geometry(n: int) -> dict | None:
-    """The four-step geometry of the line form at n (128 to 4096), as
-    ``LaneStep`` in ``csrc/minor_fft.cuh`` has it: ``n1``, ``n2``,
-    ``team_warps``, ``threads`` (a block) and ``rows`` (a team, 32 values
-    a lane). A line of 8 to 32 lies in one lane, a line of 64 on a lane
+    """The four-step geometry of the line form at n, as ``LaneStep`` in
+    ``csrc/minor_fft.cuh`` has it: ``n1``, ``n2``, ``team_warps``,
+    ``threads`` (a block), ``rows`` (a team), ``q1`` and ``q2`` (line slots
+    a row in passes 1 and 2, those at j2 >= N2 or k1 >= N1 idle), ``p2``
+    and ``rs`` (the tile holds (k1, j2) of row r at r rs + k1 p2 + j2; 0 for
+    the power-of-two XOR tile r n + k1 N2 + (j2 ^ ((k1 + N1 r) mod 16))).
+    A line of up to 32 lies in one lane, an even one of 34 to 64 on a lane
     pair. None where n does not run the four-step."""
     n = int(n)
     if n not in _FOUR_STEP or form(n) != "lines":
         return None
-    n1, n2, team_warps, threads = _FOUR_STEP[n]
-    return {"n1": n1, "n2": n2, "team_warps": team_warps,
-            "threads": threads, "rows": 1024 * team_warps // n}
+    keys = ("n1", "n2", "team_warps", "threads", "rows", "q1", "q2", "p2",
+            "rs")
+    return dict(zip(keys, _FOUR_STEP[n]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,6 +228,25 @@ def _device_twiddles(n: int, inverse: bool, device: torch.device):
     w = exact_quarter_cleanup(np.cos(theta) + 1j * np.sin(theta), k, float(n))
     table = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
     return torch.from_numpy(table).to(device)
+
+
+def launched_geometry(n: int) -> dict | None:
+    """The form the library launches at length n, read from
+    ``tpufft_minor_line_geometry`` (``launch_sized``'s own test; needs the
+    CUDA toolkit): ``{"form": "stages"}``, ``{"form": "lines"}`` for the
+    warp-shuffle rows (power-of-two n <= 64), or the four-step's geometry
+    with the keys of :func:`line_geometry` and ``"form": "lines"``. A card
+    test holds it equal to :func:`form` and :func:`line_geometry`."""
+    lib = _build.load()
+    out = (ctypes.c_int * 9)()
+    kind = lib.tpufft_minor_line_geometry(int(n), out)
+    if kind == 0:
+        return {"form": "stages"}
+    if kind == 1:
+        return {"form": "lines"}
+    keys = ("n1", "n2", "team_warps", "threads", "rows", "q1", "q2", "p2",
+            "rs")
+    return {"form": "lines", **dict(zip(keys, out))}
 
 
 def check_planes(name: str, xr: torch.Tensor, xi: torch.Tensor,
@@ -212,8 +280,8 @@ def check_length(name: str, n: int) -> None:
 
 def _launch(xr, xi, n: int, inverse: bool, scale: float,
             stages: bool = False):
-    """K1 (n == n_in) or K9 (n_in < n) on the (batch, n_in) planes; K9 on
-    the stage form with ``stages``."""
+    """K1 (n == n_in) or K9 (n_in < n) on the (batch, n_in) planes; on the
+    stage form with ``stages``."""
     batch, n_in = xr.shape
     yr = xr.new_empty((batch, n))
     yi = torch.empty_like(yr)
@@ -224,7 +292,7 @@ def _launch(xr, xi, n: int, inverse: bool, scale: float,
     rad_arr = (ctypes.c_int * max(len(rad), 1))(*rad)
     with torch.cuda.device(xr.device):
         tw = _device_twiddles(n, bool(inverse), xr.device)
-        entry = (lib.tpufft_minor_fft_padded_stages if stages
+        entry = (lib.tpufft_minor_fft_stages if stages
                  else lib.tpufft_minor_fft)
         err = entry(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -237,18 +305,21 @@ def _launch(xr, xi, n: int, inverse: bool, scale: float,
 
 
 def fft_minor(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool,
-              scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+              scale: float, stages: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Transform the (batch, n) planes along their minor axis.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise on anything it does not take."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    :func:`form` on the current stream (``stages``: the stage form at every
+    length, kept to compare the forms) and raise on anything it does not
+    take."""
     global launches
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return fft_minor_reference(xr, xi, inverse=inverse, scale=scale)
     check_planes("minor_fft", xr, xi, 2)
     n = xr.shape[1]
     check_length("minor_fft", n)
-    yr, yi, launched = _launch(xr, xi, n, inverse, scale)
+    yr, yi, launched = _launch(xr, xi, n, inverse, scale, stages)
     launches += launched
     return yr, yi
 
