@@ -12,11 +12,13 @@ Phases, each of which raises (and so exits nonzero) on failure:
    per source, started together (time and ptxas's resource report);
 3. the minor-axis kernel against its plain PyTorch version on the card, on a
    ragged batch of 257 rows: every power-of-two length of the line form (2
-   to 4096: one warp's lanes for n <= 64, each four-step geometry above),
-   every mixed-radix length of it (3, 5 and 15 times a power of two, 93,
-   1000, 1080, 2160) and the stage form's length classes (127, 1792,
-   16384), each printed with its form (``minor_fft.form``), forward and
-   inverse, scale 1 and 1/n, f32 and bf16 storage;
+   to 4096: one warp's lanes for n <= 64, each four-step geometry to 2048,
+   three factors at 4096), every mixed-radix length of it (3, 5 and 15
+   times a power of two, 93, 1000, 1080, 2160), every three-factor length
+   above 4096 (4320 to 16384) and the stage form's length classes (127,
+   1792, 4100), each
+   printed with its form (``minor_fft.form``), forward and inverse, scale
+   1 and 1/n, f32 and bf16 storage;
 4. the main path, ``plan_fft`` + ``fft``/``ifft`` on c64 ``SplitComplex``
    planes at (100000, 1024) and (1000000, 93): rows against ``np.fft.fft``,
    the round trip, the launch counts (the kernel ran, its plain version
@@ -52,8 +54,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
    (every length of K7's and K8's line form, 256 to 8192, among them;
    each length printed with its form, ``real_fft.form``), pads (1 -> 2),
    (33 -> 64), (93 -> 128), (1000 -> 1024), (1024 -> 2048), (2047 ->
-   4096), (300 -> 384) and (n - 1 -> n) at every mixed-radix length on
-   K9's line form and (5000 -> 8192) on its stage form (each printed with
+   4096), (300 -> 384) and (n - 1 -> n) at every mixed-radix and
+   three-factor length on K9's line form, (5000 -> 8192) and (4099 ->
+   8320) on it too and (3000 -> 4100) on the stage form (each printed with
    its form, ``minor_fft.form``), pairs (64, 93
    -> 128) and (120, 100 -> 128), scale 1 and 1/n, f32 and bf16 storage;
 10. the real and padded paths at full size, each call driven with every
@@ -299,6 +302,18 @@ Phases, each of which raises (and so exits nonzero) on failure:
     the round trip, beside ``torch.fft.fft2`` and the floor of its two
     passes.
 
+29. K1's three-factor line form above 4096 (n = N1 N2 N3, two passes
+    through the tile): K1 alone at (10000, 8320) (Bluestein's padded
+    length at n = 4099), (10000, 8192), (5000, 16384) and (10000, 7680),
+    each beside its stage form (in turns), its plain version,
+    ``torch.fft.fft`` and the copy floor; K9 at (10000, 5000 -> 8192)
+    beside its stage form and ``torch.fft.fft(x, n)``; K20 at (5, 2 x
+    16384) and (5000, 2 x 16384) beside its split-plane sibling; and the
+    Bluestein ``fft`` on (10000, 4099) as a path, every count set to 0
+    just before it and read just after (K1 twice, on the three-factor
+    form), against ``np.fft.fft`` on a few rows and through the round
+    trip, beside ``torch.fft.fft``.
+
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
 its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
@@ -341,10 +356,11 @@ NP_TOL = 1e-3    # main path vs np.fft.fft, the check bench.py makes
 SPECTRAL_TOL = 1e-4  # f32 spectral paths vs scipy in float64
 # K1: the power-of-two line form, the mixed-radix line form (every length
 # of minor_fft._MIXED_STEP: 3, 5 and 15 times a power of two, 93, 1000,
-# 1080, 2160) and the stage form's classes (127, 1792, 16384)
+# 1080, 2160), the three-factor form above 4096 (every length of
+# minor_fft._LONG_STEP) and the stage form's classes (127, 1792, 4100)
 KERNEL_NS = tuple(sorted(
     {2, 4, 8, 16, 32, 64, 93, 127, 128, 256, 512, 960, 1024, 1792, 2048,
-     4096, 16384} | set(minor_fft._MIXED_STEP)))
+     4096, 4100} | set(minor_fft._MIXED_STEP) | set(minor_fft._LONG_STEP)))
 MAIN_SHAPES = ((100_000, 1024), (1_000_000, 93))
 REPS = 20
 # TF32 on the tensor cores, dense: NVIDIA's data sheet for the H100 SXM at
@@ -363,6 +379,9 @@ MIXED_K1_SHAPES = ((1_000_000, 93), (64_000, 480), (19_200, 1080),
                    (3840, 2160))
 MIXED_K2_SHAPES = ((1, 93, 1_000_000), (10, 1920, 1080))
 SURVEY_FFT2 = ((10, 1920, 1080), (1, 3840, 2160))
+# phase 29: K1's three-factor form at ~1.3 GB a call
+LONG_K1_SHAPES = ((10_000, 8320), (10_000, 8192), (5000, 16384),
+                  (10_000, 7680))
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
@@ -378,11 +397,14 @@ REAL_EVEN_NS = (2, 8, 128, 256, 512, 1024, 2048, 4096, 8192, 32768)
 REAL_LINE_SHAPES = ((400_000, 256), (12_500, 8192))
 REAL_ODD_NS = (3, 93, 127, 16383)
 # K9's pads: its line form at power-of-two n up to 4096 (n_in = 1, n/2,
-# odd) and at 384, its stage form at 8192
+# odd), at 384 and above 4096 (8192, Bluestein's 8320), its stage form at
+# 4100
 PADS = ((1, 2), (33, 64), (93, 128), (1000, 1024), (1024, 2048),
-        (2047, 4096), (300, 384), (5000, 8192)) + tuple(
-    # K9 at every mixed-radix length of the line form, n_in = n - 1
-    (n - 1, n) for n in sorted(minor_fft._MIXED_STEP) if n != 384)
+        (2047, 4096), (300, 384), (5000, 8192), (4099, 8320),
+        (3000, 4100)) + tuple(
+    # K9 at every mixed-radix and three-factor length, n_in = n - 1
+    (n - 1, n) for n in sorted({*minor_fft._MIXED_STEP,
+                                *minor_fft._LONG_STEP} - {384}))
 # K9 timed beside its stage form and torch.fft.fft(x, n): the paths'
 # shapes (fft(n="fast-aligned"), czt, envelope)
 PAD_SHAPES = ((1_000_000, 93, 128), (100_000, 1024, 2048),
@@ -2378,15 +2400,16 @@ def phase_nd_times() -> dict:
 # ----------------------------------------------------------------------------
 
 # kernel, logical shape of a fused array whose last dim is the half h:
-# halves 8 to 16384 (93 and every mixed-radix length of K1's line form
-# among them), ragged pre, B and M, and the cubes of phase 18 (clusters of
-# 1 to 16 blocks)
+# halves 8 to 16384 (93 and every mixed-radix and three-factor length of
+# K1's line form among them), ragged pre, B and M, and the cubes of phase
+# 18 (clusters of 1 to 16 blocks)
 FUSED_CASES = tuple(
     ("minor", (257, n)) for n in (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048,
                                   4096)) + tuple(
-    # K20 at every mixed-radix length of K1's line form
-    ("minor", (37, n)) for n in sorted(minor_fft._MIXED_STEP)
-    if n != 93) + (
+    # K20 at every mixed-radix and three-factor length of K1's line form
+    ("minor", (37, n)) for n in sorted({*minor_fft._MIXED_STEP,
+                                        *minor_fft._LONG_STEP} - {93, 16384})
+    ) + (
     ("minor", (257, 93)), ("minor", (37, 1024)), ("minor", (5, 16384)),
     ("inner", (3, 64, 37, 93)), ("inner", (11, 128, 3, 256)),
     ("inner", (2, 16, 5, 8)), ("inner", (1, 2048, 3, 8)),
@@ -3843,6 +3866,94 @@ def phase_mixed_times(rate: float) -> dict:
     return dict(total)
 
 
+def phase_long_times(rate: float) -> dict:
+    """Phase 29: K1's three-factor line form at LONG_K1_SHAPES, each beside
+    its stage form, its plain version, ``torch.fft.fft`` and the copy
+    floor; K9 at (10000, 5000 -> 8192) and K20 at (5, 2 x 16384) and (5000,
+    2 x 16384) on it; then the Bluestein ``fft`` of (10000, 4099) (K1 twice
+    at m = 8320) as a path, every count set to 0 just before it and read
+    just after, against ``np.fft.fft`` on four rows and through the round
+    trip, timed beside ``torch.fft.fft``. Returns the path's launches."""
+    card = _smi("name,power.limit")
+    print(f"phase 29, the three-factor line form [{card}], ms (median of "
+          f"{REPS}):")
+    kw = dict(inverse=False, scale=1.0)
+    for rows, n in LONG_K1_SHAPES:
+        xr, xi = _device_planes((rows, n), seed=n)
+        xc = torch.complex(xr, xi)
+        launched = minor_fft.launched_geometry(n)
+        check(launched == {"form": "lines", **minor_fft.line_geometry(n)},
+              f"K1 at {n}: the library launches {launched}")
+        _ab_line(f"K1 ({rows}, {n}) {minor_fft.line_split(n)}",
+                 lambda: minor_fft.fft_minor(xr, xi, **kw),
+                 lambda: minor_fft.fft_minor(xr, xi, stages=True, **kw),
+                 lambda: minor_fft.fft_minor_reference(xr, xi, **kw),
+                 lambda: torch.fft.fft(xc), 16.0 * rows * n, rate)
+        del xr, xi, xc
+    xr, xi = _device_planes((10_000, 5000), seed=5000)
+    xc = torch.complex(xr, xi)
+    pad = dict(kw, n=8192)
+    _ab_line("K9 (10000, 5000 -> 8192)",
+             lambda: minor_fft.fft_minor_padded(xr, xi, **pad),
+             lambda: minor_fft.fft_minor_padded(xr, xi, stages=True, **pad),
+             lambda: minor_fft.fft_minor_padded_reference(xr, xi, **pad),
+             lambda: torch.fft.fft(xc, n=8192), 8.0 * 10_000 * (5000 + 8192),
+             rate)
+    del xr, xi, xc
+    for rows in (5, 5000):
+        st = torch.randn(rows, 2 * 16384, device="cuda")
+        xr, xi = st[:, :16384].contiguous(), st[:, 16384:].contiguous()
+        out = fused_fft.fft_minor_fused(st, **kw)
+        ref = fused_fft.fft_minor_fused_reference(st, **kw)
+        err = pair_err((out[:, :16384], out[:, 16384:]),
+                       (ref[:, :16384], ref[:, 16384:]))
+        check(err < F32_TOL, f"K20 ({rows}, 2 x 16384): {err:.3e}")
+        t = {"fused": _time_ms(lambda: fused_fft.fft_minor_fused(st, **kw)),
+             "split_plane": _time_ms(lambda: minor_fft.fft_minor(xr, xi,
+                                                                 **kw)),
+             "plain": _time_ms(
+                 lambda: fused_fft.fft_minor_fused_reference(st, **kw)),
+             "floor": 16.0 * rows * 16384 / rate * 1e3}
+        print(f"  K20 ({rows}, 2 x 16384) f32: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f" ms; vs plain "
+              f"{err:.3e}")
+        del st, xr, xi, out, ref
+    xr, xi = _device_planes((10_000, 4099), seed=4099)
+    x = tpufft_torch.SplitComplex(xr, xi)
+    torch.cuda.synchronize()
+    reset_counts()
+    y = tpufft_torch.fft(x)
+    back = tpufft_torch.ifft(y)
+    torch.cuda.synchronize()
+    by_kernel, plain = counts()
+    want = {k: 4 if k == "minor" else 0 for k in ALL_KERNELS}
+    check(by_kernel == want and plain == 0,
+          f"Bluestein (10000, 4099): launches {by_kernel}, plain {plain}, "
+          f"expected {want}")
+    check(minor_fft.form(8320) == "lines",
+          "Bluestein's m = 8320 is not on the line form")
+    ref = np.fft.fft(xr[:4].cpu().numpy().astype(np.float64)
+                     + 1j * xi[:4].cpu().numpy())
+    got = y.re[:4].cpu().numpy() + 1j * y.im[:4].cpu().numpy()
+    err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+    check(err < NP_TOL, f"Bluestein (10000, 4099): vs np.fft.fft {err:.3e}")
+    rt = pair_err(back, x)
+    check(rt < NP_TOL, f"Bluestein (10000, 4099): round trip {rt:.3e}")
+    del y, back
+    xc = torch.complex(xr, xi)
+    t = {"path": _time_ms(lambda: tpufft_torch.fft(x)),
+         "torch_fft": _time_ms(lambda: torch.fft.fft(xc)),
+         "floor": 16.0 * xr.numel() / rate * 1e3}
+    print(f"  path Bluestein fft (10000, 4099) c64: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()) + f" ms; K1 at m = 8320 on "
+          f"the three-factor form {minor_fft.line_split(8320)}; vs "
+          f"np.fft.fft {err:.3e}, round trip {rt:.3e}, launches "
+          f"{ {k: v for k, v in by_kernel.items() if v} }")
+    del x, xr, xi, xc
+    torch.cuda.synchronize()
+    return {k: v for k, v in by_kernel.items() if v}
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -4010,11 +4121,12 @@ def main() -> None:
     peak_launches = phase_peaks_spline_paths(rate)
     parallel_launches = phase_native_parallel_paths(rate)
     mixed_launches = phase_mixed_times(rate)
+    long_launches = phase_long_times(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
                  multirate_launches, design_launches, peak_launches,
-                 parallel_launches, mixed_launches):
+                 parallel_launches, mixed_launches, long_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

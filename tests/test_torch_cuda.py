@@ -69,8 +69,12 @@ def test_kernel_matches_plain_version(n, dtype, tol, cuda_device):
             assert _err(got, ref) < tol
 
 
-# the line form: powers of two 2 .. 4096 and the mixed-radix lengths
-LINE_NS = [2 ** k for k in range(1, 13)] + sorted(minor_fft._MIXED_STEP)
+# the line form: powers of two 2 .. 4096, the mixed-radix lengths and the
+# three-factor lengths (4096 among them; LONG_ABOVE those above it)
+LONG_NS = sorted(minor_fft._LONG_STEP)
+LONG_ABOVE = [n for n in LONG_NS if n > 4096]
+LINE_NS = ([2 ** k for k in range(1, 13)] + sorted(minor_fft._MIXED_STEP)
+           + LONG_ABOVE)
 LINE_BATCHES = [1, 3, 127, 129, 257]        # ragged last blocks and groups
 
 
@@ -85,9 +89,10 @@ def _fused_minor(xr, xi):
 @pytest.mark.parametrize("batch", LINE_BATCHES)
 @pytest.mark.parametrize("n", LINE_NS)
 def test_line_form_matches_plain_version(n, batch, dtype, tol, cuda_device):
-    """K1 and K20 on the line form (power-of-two n up to 4096 and the
-    mixed-radix lengths) against their plain versions: both directions,
-    scale 1 and 1/n, one launch a call."""
+    """K1 and K20 on the line form (power-of-two n up to 4096, the
+    mixed-radix lengths and the three-factor lengths above 4096) against
+    their plain versions: both directions, scale 1 and 1/n, one launch a
+    call."""
     from tpufft_torch.kernels import fused_fft
     assert minor_fft.form(n) == "lines" == fused_fft.minor_form(n)
     xr, xi = _planes((batch, n), cuda_device, dtype, seed=n + batch)
@@ -137,7 +142,7 @@ def _complex_row_err(got, ref):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["K1", "K20"])
 @pytest.mark.parametrize("n", [2, 8, 64, 128, 256, 1024, 2048, 4096, 12, 93,
-                               480, 1000, 1080, 2160, 3840])
+                               480, 1000, 1080, 2160, 3840] + LONG_ABOVE)
 def test_line_form_edge_values(n, fused, cuda_device):
     """Edge-value rows through the line form: the rows holding Inf or NaN
     come out non-finite in the kernel and in the plain version alike, and
@@ -183,11 +188,11 @@ def test_line_form_misaligned_view(cuda_device):
     assert _err(got, ref) < 1e-5
 
 
-@pytest.mark.parametrize("n", [93, 480, 1000, 2160])
+@pytest.mark.parametrize("n", [93, 480, 1000, 2160, 4320, 8320, 16384])
 def test_mixed_line_form_misaligned_view(n, cuda_device):
-    """The mixed-radix line form on a contiguous view 4 bytes into its
-    storage (rows at any 4-byte offset, as every odd n has them): K1 and
-    K9 (n_in = n - 1) against their plain versions."""
+    """The mixed-radix and three-factor line forms on a contiguous view 4
+    bytes into its storage (rows at any 4-byte offset, as every odd n has
+    them): K1 and K9 (n_in = n - 1) against their plain versions."""
     flat = torch.randn(1 + 2 * 33 * n, device=cuda_device)
     xr = flat[1:1 + 33 * n].view(33, n)
     xi = flat[1 + 33 * n:].view(33, n)
@@ -248,6 +253,22 @@ def test_form_is_what_the_library_launches(cuda_device):
         same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
         assert same == (want == "stages"), n
         assert _err(a, b) < 1e-5
+
+
+def test_three_factor_form_is_what_the_library_launches(cuda_device):
+    """Above 4096 the library launches the three-factor form exactly at the
+    lengths of ``_LONG_STEP``, with the wrapper's geometry, and the stage
+    form at every other length of the envelope: every n of (4096, 16384]
+    with a stride of 7, and every listed length."""
+    for n in sorted(set(range(4097, 16385, 7)) | set(LONG_NS)):
+        want = minor_fft.form(n)
+        if want is None:
+            continue
+        got = minor_fft.launched_geometry(n)
+        assert got["form"] == want, n
+        assert (want == "lines") == (n in LONG_NS), n
+        if want == "lines":
+            assert got == {"form": "lines", **minor_fft.line_geometry(n)}, n
 
 
 def test_kernel_empty_batch(cuda_device):
@@ -768,7 +789,7 @@ def _past_one_grid(n):
     """A batch of K7's line form at n that spans twice as many row groups
     as its grid can have blocks (the card's SMs times five 128-thread or
     two 256-thread blocks), plus a ragged group."""
-    geo = minor_fft.line_geometry(n // 2)
+    geo = real_fft.line_geometry(n)
     per_group = geo["threads"] // (32 * geo["team_warps"]) * geo["rows"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = sms * (5 if geo["threads"] == 128 else 2)
@@ -923,11 +944,11 @@ def _pad_ins(n):
     return sorted({1, n // 2, n // 2 + 1, n - 1} & set(range(1, n)))
 
 
-# K9 at every line-form length, and on the stage form (300 -> 384 and
-# above 4096)
+# K9 at every line-form length (n_in = 1, n/2, n/2 + 1, n - 1; the
+# three-factor lengths among them), and on the stage form above 4096
 PADS = ([(n_in, n) for n in LINE_NS for n_in in _pad_ins(n)]
         + [(93, 128), (1000, 1024), (2047, 4096), (300, 384), (5000, 8192),
-           (8191, 16384)])
+           (8191, 16384), (3000, 4100), (4099, 8320)])
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -938,8 +959,9 @@ PADS = ([(n_in, n) for n in LINE_NS for n_in in _pad_ins(n)]
 def test_padded_kernel_matches_plain_version(n_in, n, batch, dtype, tol,
                                              cuda_device):
     """K9 against its plain version on ragged batches, both directions,
-    scale 1 and 1/n: the line form at power-of-two n up to 4096, the stage
-    form elsewhere (``form``), one launch a call."""
+    scale 1 and 1/n: the line form at its lengths (power-of-two n up to
+    4096, the mixed-radix and three-factor lengths), the stage form
+    elsewhere (``form``), one launch a call."""
     assert minor_fft.form(n, n_in) == (
         "lines" if n in LINE_NS else "stages")
     xr, xi = _planes((batch, n_in), cuda_device, dtype, seed=n_in + batch)
@@ -957,7 +979,7 @@ def test_padded_kernel_matches_plain_version(n_in, n, batch, dtype, tol,
 
 @pytest.mark.parametrize("n_in,n", [(1, 2), (33, 64), (93, 128),
                                     (1000, 1024), (1024, 2048), (2047, 4096),
-                                    (300, 384)])
+                                    (300, 384), (5000, 8192), (4099, 8320)])
 def test_padded_kernel_edge_values(n_in, n, cuda_device):
     """Edge-value rows through K9 (``_fft_edge_rows`` on the (257, n_in)
     planes), held as ``test_line_form_edge_values`` holds K1: the rows
@@ -1994,7 +2016,7 @@ def _fused_err(got, ref):
 # M > 1 (K18) and M == 1 (K19), pairs up to 16384 elements
 FUSED_CASES = [
     ("minor", (257, 8)), ("minor", (37, 93)), ("minor", (5, 1024)),
-    ("minor", (3, 16384)),
+    ("minor", (3, 16384)), ("minor", (5, 16384)), ("minor", (4, 8320)),
     ("inner", (3, 64, 37, 93)), ("inner", (2, 16, 5, 64)),
     ("inner", (11, 128, 3, 256)), ("inner", (1, 2048, 3, 8)),
     ("inner_m1", (5, 128, 93)), ("inner_m1", (3, 8, 16384)),

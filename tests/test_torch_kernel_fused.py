@@ -117,11 +117,13 @@ def test_gates_are_the_port_envelopes():
 @pytest.mark.parametrize("n,expected", (
     [(2 ** k, "lines") for k in range(1, 13)]
     + [(n, "lines") for n in (93, 480, 960)]
-    + [(n, "stages") for n in (1, 1792, 8192, 16384, 127, 37, 7680)]
+    + [(n, "stages") for n in (1, 1792, 4100, 12000, 127, 37)]
+    + [(n, "lines") for n in (8192, 16384, 7680)]
     + [(131, None), (2 * 131, None)]))
 def test_minor_form(n, expected):
     """K20 runs K1's form for the length (the line form at powers of two
-    up to 4096 and at K1's mixed-radix lengths, 93, 480 and 960 among
+    up to 4096, at K1's mixed-radix lengths, 93, 480 and 960 among them,
+    and at its three-factor lengths above 4096, 7680, 8192 and 16384 among
     them); the gate is unchanged."""
     assert fused_fft.minor_form(n) == expected
     assert (expected is not None) == fused_fft.minor_supported(

@@ -34,7 +34,7 @@ import torch
 import jax.numpy as jnp
 from tpufft.kernels import mxu_fft as tp_mxu
 
-from tpufft_torch.kernels import minor_fft
+from tpufft_torch.kernels import minor_fft, real_fft
 from tpufft_torch.planner import factorize, kernel_factors
 from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
@@ -172,32 +172,38 @@ PADDED_LINES = [(n, n_in) for n in POW2 for n_in in _pad_ins(n)]
 
 MIXED = sorted(minor_fft._MIXED_STEP)   # the mixed-radix line form
 FOUR_STEP = sorted(minor_fft._FOUR_STEP)  # every four-step geometry
+LONG = sorted(minor_fft._LONG_STEP)       # the three-factor form
 
 
 @pytest.mark.parametrize("n,n_in,expected", (
     [(n, None, "lines") for n in POW2]
     + [(n, None, "lines") for n in (93, 480, 960)]
-    + [(n, None, "stages") for n in (1, 1792, 8192, 16384, 127, 37, 7680)]
-    + [(n, None, "lines") for n in MIXED]
+    + [(n, None, "stages") for n in (1, 1792, 4100, 12000, 16383, 127, 37,
+                                     7200)]
+    + [(n, None, "lines") for n in (8192, 16384, 7680)]
+    + [(n, None, "lines") for n in MIXED + LONG]
     + [(128, 93, "lines"),                  # a padded call (K9)
        (1024, 1024, "lines"),
        (131, None, None),                   # prime factor above 127
        (minor_fft.MAX_N + 1, None, None)]
     + [(n, n_in, "lines") for n, n_in in PADDED_LINES]
-    + [(384, 300, "lines"), (8192, 5000, "stages")]))
+    + [(384, 300, "lines"), (8192, 5000, "lines"), (8320, 4099, "lines"),
+       (4100, 3000, "stages")]))
 def test_form(n, n_in, expected):
     """The form each length runs, K9's padded calls among them: the line
-    form at every power-of-two n up to 4096 and at the mixed-radix lengths
+    form at every power-of-two n up to 4096, at the mixed-radix lengths
     of ``_FOUR_STEP`` (3, 5 and 15 times a power of two, 93, 1000, 1080,
-    2160), whatever n_in; the stage form at the rest (a prime above 31,
-    n above 4096 or a length no family lists). The envelope
-    (``supported``) is the one the stage form alone had: every length in it
-    has a form."""
+    2160) and at the three-factor lengths of ``_LONG_STEP`` (4320 to
+    16384, Bluestein's 8320 among them), whatever n_in; the stage form at
+    the rest (a prime above 31 or a length no list holds, above 4096 too).
+    The envelope (``supported``) is the one the stage form alone had:
+    every length in it has a form."""
     assert minor_fft.form(n, n_in) == expected
     assert (expected is not None) == minor_fft.supported(n, torch.float32)
     split = minor_fft.line_split(n)
     if expected == "lines":
-        assert split[0] * split[1] == n and max(split) <= 64
+        assert int(np.prod(split)) == n and max(split) <= 64
+        assert len(split) == (3 if n in minor_fft._LONG_STEP else 2)
     else:
         assert split is None
 
@@ -231,13 +237,16 @@ def _four_step_model(re, im, inverse, scale, split=None):
 @pytest.mark.parametrize("n", [128, 256, 1024, 4096] + MIXED)
 def test_line_split_model_matches_build_minor(n, inverse, unit_scale, rng):
     """The four-step the line form runs, with ``line_split``'s factors and
-    the table exponents (k1 j2) mod n, against tpufft's ``_build_minor``
-    in interpret mode."""
+    the table exponents (k1 j2) mod n (at 4096 the three-factor form,
+    ``_three_factor_model``), against tpufft's ``_build_minor`` in
+    interpret mode."""
     from conftest import assert_spectrum_close
     re, im = _planes(n, rng, batch=5)
     scale = 1.0 if unit_scale else 1.0 / n
     ref = _tpufft(re, im, inverse, scale, "highest")
-    got = _four_step_model(re, im, inverse, scale)
+    model = (_three_factor_model if n in minor_fft._LONG_STEP
+             else _four_step_model)
+    got = model(re, im, inverse, scale)
     assert_spectrum_close(got, ref, np.complex64)
     assert _err(got, ref) < 1e-5
 
@@ -292,14 +301,25 @@ def _rounds(geo, q, length):
     return -(-geo["rows"] * q // units)
 
 
+def _four_step_geometry(n):
+    """The four-step geometry launched at length n: K1's
+    (``minor_fft.line_geometry``), or at n = 4096, where K1 takes three
+    factors, the 64 x 64 XOR tile that K7 and K8 launch at the half m =
+    4096 (``real_fft.line_geometry(8192)``)."""
+    if n in minor_fft._FOUR_STEP:
+        return minor_fft.line_geometry(n)
+    return real_fft.line_geometry(2 * n)
+
+
 def _tile_accesses(n):
     """Per warp instruction of a team, the live lanes' tile positions
     (float2) and the elements (row, k1, j2) of the (N1, N2) views they
     carry, indexed as ``lane_rows`` indexes them: pass 1's writes (slot u =
     r Q1 + j2 of each round, live where j2 < N2 and r < rows) and pass 2's
     reads (slot r Q2 + k1, live where k1 < N1), each line in one lane or on
-    a pair (``_slots``); positions ``_tile_pos``."""
-    geo = minor_fft.line_geometry(n)
+    a pair (``_slots``); positions ``_tile_pos``; the geometry
+    ``_four_step_geometry``."""
+    geo = _four_step_geometry(n)
     n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
     q1, q2, rows = geo["q1"], geo["q2"], geo["rows"]
     lanes = 32 * tw
@@ -333,15 +353,15 @@ def _tile_accesses(n):
     return geo, writes, reads
 
 
-@pytest.mark.parametrize("n", FOUR_STEP)
+@pytest.mark.parametrize("n", FOUR_STEP + [4096])
 def test_line_tile_mapping(n):
-    """The team's tile at every four-step geometry: pass 1 writes every
-    element of its rows' (N1, N2) views once, at a distinct position
-    inside the team's tile; pass 2 reads each back from the position it
-    was written to; and the live lanes of each half warp of every write
-    and read instruction touch distinct bank pairs (8-byte values:
-    position mod 16), all 16 at the power-of-two geometries, so the tile
-    has no bank conflict."""
+    """The team's tile at every four-step geometry (K1's, and K7's and
+    K8's 64 x 64 at the half 4096): pass 1 writes every element of its
+    rows' (N1, N2) views once, at a distinct position inside the team's
+    tile; pass 2 reads each back from the position it was written to; and
+    the live lanes of each half warp of every write and read instruction
+    touch distinct bank pairs (8-byte values: position mod 16), all 16 at
+    the power-of-two geometries, so the tile has no bank conflict."""
     geo, writes, reads = _tile_accesses(n)
     size = geo["rows"] * (n if geo["p2"] == 0 else geo["rs"])
     where = {}
@@ -424,9 +444,12 @@ def _padded_loads(n, n_in, batch):
     team holds the column lines of its slots in each round (``_slots``;
     slot r Q1 + j2, idle at j2 >= N2), on a pair for N1 of 34 to 64,
     register j1 holding x[N2 j1 + j2]; the team's rows from (group teams +
-    team) R) index them; every row group or block the batch needs. A lane
-    whose row is past the batch, whose slot is idle or whose col is at or
-    past n_in issues nothing."""
+    team) R) index them, and ``minor_long_kernel`` (the three-factor
+    lengths: pass 1's register j1 of column u = t + threads s is x[M j1 +
+    u], M = N2 N3, one row a block; a warp past M skips the round); every
+    row group or block the batch needs. A lane whose row is past the
+    batch, whose slot is idle or whose col is at or past n_in issues
+    nothing."""
     out = []
 
     def lane_access(row, col):
@@ -445,6 +468,18 @@ def _padded_loads(n, n_in, batch):
                                             + w_lines * k,
                                             lane // w_lines + g * j)
                                 for lane in range(32)])
+        return out
+    if n in minor_fft._LONG_STEP:   # pass 1: lane t, round s: column u
+        geo = minor_fft.line_geometry(n)
+        m, th = geo["n2"] * geo["n3"], geo["threads"]
+        for row in range(batch):
+            for s in range(-(-m // th)):
+                for j in range(geo["n1"]):
+                    for w in range(0, th, 32):
+                        us = [u for u in range(s * th + w, s * th + w + 32)]
+                        if us[0] < m:
+                            out.append([lane_access(row, m * j + u)
+                                        if u < m else None for u in us])
         return out
     geo = minor_fft.line_geometry(n)
     n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
@@ -477,6 +512,8 @@ def test_padded_load_mapping(n, n_in):
     if n <= 64:   # rows a warp holds
         _, _, k_lines, w_lines = _line_params(n)
         unit = k_lines * w_lines
+    elif n in minor_fft._LONG_STEP:   # one row a block
+        unit = 1
     else:         # rows a team holds
         unit = minor_fft.line_geometry(n)["rows"]
     batch = 2 * unit + 3   # a ragged last warp or team
@@ -574,3 +611,249 @@ def test_padded_line_model_matches_build_minor_rect(n_in, n, inverse,
     if storage == "bf16":
         got = _bf16(got.real) + 1j * _bf16(got.imag)
     assert _err(got, ref) < (1e-5 if storage == "f32" else 8e-3)
+
+
+# ----------------------------------------------------------------------------
+# The three-factor form above 4096: the model, its tile and its tables
+# ----------------------------------------------------------------------------
+
+def _three_factor_model(re, im, inverse, scale):
+    """The three-factor form's arithmetic in torch ops (c64), n = N1 N2 N3
+    from ``line_split``, M = N2 N3, u = N3 j2 + j3: pass 1 the N1-long DFTs
+    of the columns u of the (N1, M) view (W_N1^(k1 j1) from the n-table at
+    (k1 j1 mod N1) n / N1, as the kernel's W_N1 table holds it), times A[k1,
+    j2] = w^(k1 j2 N3) and B[k1, j3] = w^(k1 j3); pass 2 the N2-long DFTs
+    over j2, times C[k2, j3] = w^(N1 k2 j3); pass 3 the N3-long DFTs over
+    j3, out X[k1 + N1 (k2 + N2 k3)], scaled once."""
+    n = re.shape[1]
+    n1, n2, n3 = minor_fft.line_split(n)
+    tab = minor_fft._device_twiddles(n, inverse, torch.device("cpu"))
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    x = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    x = x.reshape(-1, n1, n2 * n3)                         # [b, j1, u]
+
+    def line_table(m):
+        k = torch.arange(m)
+        return w[((k[:, None] * k[None, :]) % m) * (n // m)]
+
+    k1, k2, k3 = torch.arange(n1), torch.arange(n2), torch.arange(n3)
+    y = torch.einsum("kj,bju->bku", line_table(n1), x)    # [b, k1, u]
+    y = y.reshape(-1, n1, n2, n3)                          # [b, k1, j2, j3]
+    a = w[k1[:, None] * k2[None, :] * n3]                  # A[k1, j2]
+    b = w[k1[:, None] * k3[None, :]]                       # B[k1, j3]
+    y = y * (a[:, :, None] * b[:, None, :])
+    z = torch.einsum("qj,bkjm->bkqm", line_table(n2), y)  # [b, k1, k2, j3]
+    z = z * w[n1 * k2[:, None] * k3[None, :]]              # C[k2, j3]
+    o = torch.einsum("rm,bkqm->bkqr", line_table(n3), z)  # [b, k1, k2, k3]
+    return (o.permute(0, 3, 2, 1).reshape(-1, n) * scale).numpy()
+
+
+@pytest.mark.parametrize("unit_scale", [True, False], ids=["scale1", "scale1/n"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", LONG)
+def test_three_factor_model_matches_build_minor(n, inverse, unit_scale, rng):
+    """The three-factor form, with ``line_split``'s factors, its table
+    exponents and its output order, against tpufft's ``_build_minor`` in
+    interpret mode (f32, 1e-5)."""
+    re, im = _planes(n, rng, batch=5)
+    scale = 1.0 if unit_scale else 1.0 / n
+    ref = _tpufft(re, im, inverse, scale, "highest")
+    assert _err(_three_factor_model(re, im, inverse, scale), ref) < 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", LONG)
+def test_three_factor_model_bf16_storage(n, inverse, rng):
+    """bf16 storage: both sides read bf16 planes and round the f32 result
+    to bf16 at the store (8e-3)."""
+    re, im = _planes(n, rng, batch=3)
+    scale = 1.0 / n if inverse else 1.0
+    ref = _tpufft(re, im, inverse, scale, "highest", storage="bf16")
+    got = _three_factor_model(_bf16(re), _bf16(im), inverse, scale)
+    got = _bf16(got.real) + 1j * _bf16(got.imag)
+    assert _err(got, ref) < 8e-3
+
+
+def _long_accesses(n):
+    """Per warp instruction of the three-factor kernel at n, the live lanes'
+    accesses as ``minor_long_kernel`` makes them (line l of a pass on lane
+    l mod threads in round l / threads; a half warp is 16 consecutive l of
+    one round): pass 1's loads x[M j1 + u] and tile writes (k1, j2, j3)
+    with the twiddle reads A[k1 N2 + j2] and B[k1 N3 + j3]; pass 2's tile
+    reads (k1, j2, j3) of line w = j3 + N3 k1 and writes (k1, k2, j3) with
+    C[k2 N3 + j3]; pass 3's tile reads (k1, k2, j3) of line l = k1 + N1 k2
+    and stores X[l + N1 N2 k3]. Each access is (tile position or table or
+    memory index, the element it carries) or None for an idle lane."""
+    geo = minor_fft.line_geometry(n)
+    n1, n2, n3, th = geo["n1"], geo["n2"], geo["n3"], geo["threads"]
+    p1, p2 = geo["p1"], geo["p2"]
+
+    def pos(k1, c2, j3):
+        return k1 * p1 + c2 * p2 + j3
+
+    def instructions(lines, regs, access):
+        out = []
+        for s in range(-(-lines // th)):
+            for r in range(regs):
+                acc = []
+                for t in range(th):
+                    line = t + th * s
+                    acc.append(access(line, r) if line < lines else None)
+                # a warp with no live lane skips the round
+                out.extend(acc[w:w + 32] for w in range(0, th, 32)
+                           if any(acc[w:w + 32]))
+        return out
+
+    m = n2 * n3
+    acc = {
+        "load": instructions(m, n1, lambda u, j: (m * j + u, (j, u))),
+        "write1": instructions(m, n1, lambda u, q: (
+            pos(_lane_out(n1, q), u // n3, u % n3),
+            (_lane_out(n1, q), u // n3, u % n3))),
+        "tw_a": instructions(m, n1, lambda u, q: (
+            _lane_out(n1, q) * n2 + u // n3, None)),
+        "tw_b": instructions(m, n1, lambda u, q: (
+            _lane_out(n1, q) * n3 + u % n3, None)),
+        "read2": instructions(n1 * n3, n2, lambda w, j: (
+            pos(w // n3, j, w % n3), (w // n3, j, w % n3))),
+        "write2": instructions(n1 * n3, n2, lambda w, q: (
+            pos(w // n3, _lane_out(n2, q), w % n3),
+            (w // n3, _lane_out(n2, q), w % n3))),
+        "tw_c": instructions(n1 * n3, n2, lambda w, q: (
+            _lane_out(n2, q) * n3 + w % n3, None)),
+        "read3": instructions(n1 * n2, n3, lambda l, j: (
+            pos(l % n1, l // n1, j), (l % n1, l // n1, j))),
+        "store": instructions(n1 * n2, n3, lambda l, q: (
+            l + n1 * n2 * _lane_out(n3, q), None)),
+    }
+    return geo, acc
+
+
+@pytest.mark.parametrize("n", LONG)
+def test_three_factor_tile_mapping(n):
+    """The three-factor kernel's tile and tables at every geometry: pass 1
+    loads every input element once (consecutive lanes on consecutive
+    elements) and writes every (k1, j2, j3) once, at distinct positions
+    inside the tile; pass 2 reads each back from where it was written and
+    writes each (k1, k2, j3) to the same set of positions; pass 3 reads
+    every element once and stores every output once, consecutive lanes on
+    consecutive outputs. The live lanes of each half warp of every tile and
+    table access touch distinct bank pairs (8-byte values: position mod 16;
+    lanes on one table entry share it), so nothing has a bank conflict."""
+    geo, acc = _long_accesses(n)
+    n1, n2, n3 = geo["n1"], geo["n2"], geo["n3"]
+    assert n1 * n2 * n3 == n and max(n1, n2, n3) <= 32
+    size = n1 * geo["p1"]
+
+    def live(kind):
+        return [a for ins in acc[kind] for a in ins if a is not None]
+
+    loads = live("load")
+    assert sorted(a[1][0] * n2 * n3 + a[1][1] for a in loads) == list(
+        range(n))
+    assert sorted(a[0] for a in loads) == list(range(n))
+    where = {}
+    for p, e in live("write1"):
+        assert e not in where
+        where[e] = p
+    assert len(where) == n and len(set(where.values())) == n
+    assert max(where.values()) < size
+    read2 = live("read2")
+    assert len(read2) == n and all(where[e] == p for p, e in read2)
+    write2 = {e: p for p, e in live("write2")}
+    assert set(write2.values()) == set(where.values())
+    read3 = live("read3")
+    assert len(read3) == n and all(write2[e] == p for p, e in read3)
+    assert sorted(a[0] for a in live("store")) == list(range(n))
+    for kind in ("load", "store"):
+        for ins in acc[kind]:
+            got = [a[0] for a in ins if a is not None]
+            assert got == list(range(got[0], got[0] + len(got))), kind
+    for kind, ins_list in acc.items():
+        if kind in ("load", "store"):
+            continue
+        for ins in ins_list:
+            for half in (ins[:16], ins[16:]):
+                addrs = {a[0] for a in half if a is not None}
+                assert len({x % 16 for x in addrs}) == len(addrs), (
+                    n, kind, sorted(addrs))
+
+
+def test_three_factor_tables_match_the_header():
+    """``_LONG_STEP`` is the list TPUFFT_MINOR_LONG of
+    ``csrc/minor_fft.cuh``, which ``csrc/minor_line_long.cu`` instantiates
+    and ``launch_line_form`` in ``csrc/minor_fft.cu`` launches; every
+    length lies from 4096 (where the power-of-two four-step stops) inside
+    the envelope, its factors whole in a lane (radices of ``lane_dft``)."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(minor_fft.__file__).resolve().parent.parent / "csrc"
+    body = (csrc / "minor_fft.cuh").read_text().split(
+        "#define TPUFFT_MINOR_LONG(X)")[1].split("\n\n")[0]
+    rows = {int(m[0]): tuple(int(v) for v in m[1:]) for m in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+)\)", body)}
+    assert rows == minor_fft._LONG_STEP
+    assert "TPUFFT_MINOR_LONG(TPUFFT_LONG_CASE)" in (
+        csrc / "minor_line_long.cu").read_text()
+    assert "launch_long<T, kFused, kPadded>(a, n)" in (
+        csrc / "minor_fft.cu").read_text()
+    for n, (n1, n2, n3, th, p1, p2) in rows.items():
+        assert minor_fft.LINE_MAX_N <= n <= minor_fft.MAX_N
+        assert n1 * n2 * n3 == n and max(n1, n2, n3) <= 32
+        assert max(factorize(n)) <= 31 and th % 32 == 0
+        assert p2 >= n3 and p1 >= n2 * p2
+
+
+def test_real_fft_forms_keep_their_cap():
+    """K7 and K8 decide their line form from ``LINE_MAX_N``, which the
+    three-factor lengths leave as it was: ``real_fft.form`` gives the line
+    form exactly at even n whose half is a power of two from 128 to 4096,
+    for every even n up to 32768 (halves that K1 takes in three factors
+    above 4096, 8192 and 16384 among them, stay on K7/K8's stage form)."""
+    from tpufft_torch.kernels import real_fft
+    assert minor_fft.LINE_MAX_N == 4096
+    for n in range(2, 32769, 2):
+        m = n // 2
+        want = ("lines" if 128 <= m <= 4096 and m & (m - 1) == 0
+                else "stages" if real_fft.supported(n, torch.float32)
+                else None)
+        assert real_fft.form(n) == want, n
+    for m in LONG:   # K7/K8 at 8192 keep their 64 x 64 four-step at m
+        assert real_fft.form(2 * m) == (
+            "lines" if m == 4096
+            else "stages" if real_fft.supported(2 * m, torch.float32)
+            else None)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n_in,n", [(5000, 8192), (4099, 8320), (1, 4320),
+                                    (8191, 16384)])
+def test_padded_three_factor_model_matches_build_minor_rect(n_in, n, inverse,
+                                                             storage, rng):
+    """K9 on the three-factor form: pass 1's register j1 of column u holds
+    x[M j1 + u] where M j1 + u < n_in and 0 past it, which is the
+    three-factor model on the rows zero-padded to n, against tpufft's
+    ``_build_minor_rect`` in its zero-pad direction in interpret mode (1e-5
+    f32, 8e-3 bf16 storage)."""
+    re, im = _planes(n_in, rng, batch=3)
+    scale = 1.0 / n if inverse else 1.0
+    jdt = jnp.float32 if storage == "f32" else jnp.bfloat16
+    run = tp_mxu._build_minor_rect(n_in, n, n, inverse, scale, 128,
+                                   "highest", True, storage)
+    zr, zi = run(jnp.asarray(re, jdt), jnp.asarray(im, jdt))
+    ref = (np.asarray(zr.astype(jnp.float32))
+           + 1j * np.asarray(zi.astype(jnp.float32)))
+    if storage == "bf16":
+        re, im = _bf16(re), _bf16(im)
+    n1, n2, n3 = minor_fft.line_split(n)
+    col = np.arange(n).reshape(n1, n2 * n3)   # M j1 + u
+    assert np.array_equal(col >= n_in, np.arange(n1)[:, None] >= -(
+        -(n_in - np.arange(n2 * n3)[None, :]) // (n2 * n3)))
+    pr = np.pad(re, ((0, 0), (0, n - n_in)))
+    pi = np.pad(im, ((0, 0), (0, n - n_in)))
+    got = _three_factor_model(pr, pi, inverse, scale)
+    if storage == "bf16":
+        got = _bf16(got.real) + 1j * _bf16(got.imag)
+    assert _err(got, ref) < (1e-5 if storage == "f32" else 8e-3)
+

@@ -219,7 +219,8 @@ def _line_form_model(x, scale):
     = i W^k (Z[k] - conj Z[m-k]), and X[m/2] = conj Z[m/2]; scaled once."""
     n = x.shape[1]
     m, half = n // 2, n // 4
-    n1, n2 = minor_fft.line_split(m)
+    geo = real_fft.line_geometry(n)
+    n1, n2 = geo["n1"], geo["n2"]
     cpu = torch.device("cpu")
     tab = minor_fft._device_twiddles(m, False, cpu)
     w = torch.complex(tab[:, 0], tab[:, 1])
@@ -287,7 +288,7 @@ def _untangle_tile_accesses(n):
     r = e / (m/2), k = e mod (m/2). Also the lone reads of Z[m/2] by the
     lanes of k = 0."""
     m = n // 2
-    geo = minor_fft.line_geometry(m)
+    geo = real_fft.line_geometry(n)
     n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
     lanes, rows, half = 32 * tw, geo["rows"], m // 2
 
@@ -328,8 +329,9 @@ def test_untangle_tile_mapping(n):
     element once but Z[0], which k = 0 reads as both halves of its
     self-paired bin; and each half warp of every write and read
     instruction touches 16 distinct bank pairs (8-byte values: position
-    mod 16). Passes 1 and 2 index the tile as K1's line form at length m
-    (``test_line_tile_mapping``)."""
+    mod 16). Passes 1 and 2 index the tile as the four-step at length m
+    (``test_line_tile_mapping``, K1's geometry up to 2048 and K7's and
+    K8's own at 4096)."""
     geo, writes, reads, lone = _untangle_tile_accesses(n)
     m = n // 2
     where = {}
@@ -355,7 +357,8 @@ def test_form_across_the_envelope():
     """``real_fft.form``: the line form for even n with n/2 a power of two
     from 128 to 4096, the stage form for every other length in the
     envelope (odd n, even n with a non-power-of-two half, n <= 128,
-    n > 8192), None outside it; the line form's geometry is K1's at n/2."""
+    n > 8192), None outside it; the line form's geometry is K1's
+    power-of-two four-step at n/2 (``real_fft.line_geometry``)."""
     for n in range(2, 16500):
         f = real_fft.form(n)
         m = n // 2
@@ -363,7 +366,7 @@ def test_form_across_the_envelope():
             assert f is None, n
         elif n % 2 == 0 and 128 <= m <= 4096 and m & (m - 1) == 0:
             assert f == "lines", n
-            assert minor_fft.line_geometry(m) is not None, n
+            assert real_fft.line_geometry(n) is not None, n
         else:
             assert f == "stages", n
     for n in (1, 0, 131, 8194, 32769, 65536):
@@ -391,7 +394,8 @@ def _inverse_line_model(xr, xi, scale):
     m1 = xr.shape[1]
     m = m1 - 1
     n, half = 2 * m, m // 2
-    n1, n2 = minor_fft.line_split(m)
+    geo = real_fft.line_geometry(n)
+    n1, n2 = geo["n1"], geo["n2"]
     cpu = torch.device("cpu")
     tab = minor_fft._device_twiddles(m, True, cpu)
     w = torch.complex(tab[:, 0], tab[:, 1])
@@ -453,7 +457,7 @@ def _tangle_tile_accesses(n):
     register j at j1 = p + 2j): r m + N2 j1 + j2. Also the bins each
     tangle instruction reads from the planes: (row, k) of X."""
     m = n // 2
-    geo = minor_fft.line_geometry(m)
+    geo = real_fft.line_geometry(n)
     n1, n2, tw = geo["n1"], geo["n2"], geo["team_warps"]
     lanes, rows, half = 32 * tw, geo["rows"], m // 2
     writes, reads, loads = [], [], []
@@ -515,3 +519,29 @@ def test_tangle_tile_mapping(n):
         assert [k for _, k in lo] == list(range(lo[0][1], lo[0][1] + 32))
         assert [k for _, k in hi] == list(range(hi[0][1], hi[0][1] - 32, -1))
         assert hi[0][1] <= m
+
+
+def test_half_step_matches_the_header():
+    """``real_fft._HALF_STEP`` is ``with_line_step``'s list in
+    ``csrc/real_fft.cuh`` (the LaneStep K7 and K8 launch at each half m),
+    and up to m = 2048 K1's own power-of-two four-step at m, which K1 runs
+    at those lengths; at m = 4096 K1 takes three factors and K7/K8 keep
+    the 64 x 64 four-step."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(real_fft.__file__).resolve().parent.parent / "csrc"
+    body = (csrc / "real_fft.cuh").read_text().split(
+        "int with_line_step(int n, F&& f) {")[1].split(
+        "cudaErrorInvalidValue")[0]
+    listed = {int(m[0]): tuple(int(v) for v in m[1:]) for m in re.findall(
+        r"case (\d+): return f\(LaneStep<(\d+), (\d+), (\d+), (\d+)>",
+        body)}
+    assert listed == real_fft._HALF_STEP
+    for m in listed:
+        geo = real_fft.line_geometry(2 * m)
+        if m <= 2048:
+            assert geo == minor_fft.line_geometry(m), m
+        else:
+            assert minor_fft.line_split(m) == (16, 16, 16)
+            assert (geo["n1"], geo["n2"], geo["team_warps"]) == (64, 64, 4)
+

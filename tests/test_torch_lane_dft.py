@@ -177,10 +177,11 @@ def _lines():
     """Every line length the line forms instantiate: in one lane (<= 32) or
     on a pair (34 to 64, as its half)."""
     lane, pair = set(PRIMES), set()
-    splits = [g[:2] for g in minor_fft._FOUR_STEP.values()] + list(
-        SPLITS.values())
-    for n1, n2 in splits:
-        for m in (n1, n2):
+    splits = ([g[:2] for g in minor_fft._FOUR_STEP.values()]
+              + [g[:3] for g in minor_fft._LONG_STEP.values()]
+              + list(SPLITS.values()))
+    for split in splits:
+        for m in split:
             if m > 32:
                 pair.add(m)
             elif m > 1:

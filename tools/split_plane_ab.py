@@ -9,13 +9,15 @@ calls, in ms:
 - the minor-axis kernel: K1 at (100000, 1024) c64 (the line form's
   four-step at n = 1024, the main path) and ``torch.fft.fft`` of it
   (``cuFFT_1024``), K1 at (1000000, 64), (50000, 2048) and (100000, 4096)
-  (the line form's one-warp rows and its lane-pair four-steps), each
+  (the line form's one-warp rows, its lane-pair four-step at 2048, and at
+  4096 the lane-pair four-step or, since, the three-factor form), each
   beside ``torch.fft.fft`` of it (``cuFFT``), K20 on the (131072, 2 x 256)
   fused array (P4's minor axis) beside ``torch.fft.fft`` of its
   (131072, 256) halves (``cuFFT_256``), K1 at (1000000, 93), (64000,
   480) (``fft2``'s minor axis), (19200, 1080) and (3840, 2160) (the
-  survey's ``fft2`` minor axes; each on the form the checkout gives it)
-  and (10000, 8320) (Bluestein's, the stage form); K9 (1000000, 93 ->
+  survey's ``fft2`` minor axes), (10000, 8320) (Bluestein's), (10000,
+  8192) and (5000, 16384) (each on the form the checkout gives it: above
+  4096 the stage form before the three-factor form); K9 (1000000, 93 ->
   128) and at
   ``czt``'s (100000, 1024 -> 2048) and ``envelope``'s (10000, 2047 ->
   4096) shapes (``K9_2048``, ``K9_4096``), each on the form the checkout
@@ -84,7 +86,7 @@ window; K13 scale 1/sum(window), no detrend; K15 constant detrend).
 NEW_ROOT defaults to this checkout. ``--rounds R`` runs the four turns R
 times (old, new, new, old, old, new, ...); ``--only`` takes a comma-separated
 list of the rows above (K1, K1_64, K1_2048, K1_4096, K20, K1_93, K1_480,
-K1_1080, K1_2160, K1_8320,
+K1_1080, K1_2160, K1_8320, K1_8192, K1_16384,
 K9, K9_2048, K9_4096, c2c, two_pass, bluestein, czt, fast_aligned,
 envelope, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
 K8, K8_256, K8_8192, K8_93, irfft, rfft, fht, K13, K4, K4_n2_in, K4_packed,
@@ -130,7 +132,8 @@ for name, shape in (("K1_64", (1000000, 64)), ("K1_4096", (100000, 4096)),
                     ("K1_2048", (50000, 2048)),
                     ("K1_93", (1000000, 93)), ("K1_480", (64000, 480)),
                     ("K1_1080", (19200, 1080)), ("K1_2160", (3840, 2160)),
-                    ("K1_8320", (10000, 8320))):
+                    ("K1_8320", (10000, 8320)), ("K1_8192", (10000, 8192)),
+                    ("K1_16384", (5000, 16384))):
     if want(name):
         xr = torch.randn(*shape, generator=g, device="cuda")
         xi = torch.randn(*shape, generator=g, device="cuda")

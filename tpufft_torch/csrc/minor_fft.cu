@@ -59,7 +59,7 @@ int launch_lines(const void* xr, const void* xi, void* yr, void* yi,
   return (int)cudaGetLastError();
 }
 
-// The power-of-two four-step at 128 <= n <= 4096 (LaneStep's XOR tile,
+// The power-of-two four-step at 128 <= n <= 2048 (LaneStep's XOR tile,
 // 32 values a lane; K9, kPadded: the padded kernel).
 template <typename T, int N1, int N2, int kTeamWarps, int kThreads,
           bool kFused, bool kPadded>
@@ -69,9 +69,10 @@ int launch_lane(const LaneArgs& a) {
   return launch_four_step<T, S, kThreads, kFused, kPadded>(a);
 }
 
-// The line form: power-of-two n from 2 to 4096 (the four-steps of
-// TPUFFT_MINOR_POW2 from 128) and the mixed-radix lengths of
-// minor_fft.cuh's family lists.
+// The line form: power-of-two n from 2 to 2048 (the four-steps of
+// TPUFFT_MINOR_POW2 from 128), the mixed-radix lengths of minor_fft.cuh's
+// family lists and the three-factor lengths of TPUFFT_MINOR_LONG (4096
+// among them).
 template <typename T, bool kFused, bool kPadded>
 int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
                      const void* tw, long long batch, int n, int n_in,
@@ -94,13 +95,14 @@ int launch_line_form(const void* xr, const void* xi, void* yr, void* yi,
   }
 #undef TPUFFT_LINES
 #undef TPUFFT_LANE
+  if (three_factor(n)) return launch_long<T, kFused, kPadded>(a, n);
   return launch_mixed<T, kFused, kPadded>(a, n);
 }
 
 // Is n a length of the line form? (K1, K20 and K9 alike.)
 inline bool line_form(int n) {
   return (n >= 2 && n <= kLineMaxN && (n & (n - 1)) == 0) ||
-         mixed_family(n) != 0;
+         mixed_family(n) != 0 || three_factor(n);
 }
 
 // The line form where n is one of its lengths, else the stage form;
@@ -173,7 +175,8 @@ int minor_entry(const void* xr, const void* xi, void* yr, void* yi,
 // values exp(-+2 pi i k / n) for the direction; radices[0:nstages] multiply
 // to n, each 2, 4, 8 or an odd value up to 127 (the stage form's plan; the
 // line form, which K1 and K9 run at power-of-two n from 2 to 4096 and at
-// the mixed-radix lengths of minor_fft.cuh's family lists, ignores it).
+// the mixed-radix and three-factor lengths of minor_fft.cuh's family
+// lists, ignores it).
 // Returns 0 or the CUDA error code of the launch.
 extern "C" int tpufft_minor_fft(const void* xr, const void* xi, void* yr,
                                 void* yi, const void* tw, long long batch,
@@ -221,10 +224,19 @@ extern "C" int tpufft_minor_fft_stages(const void* xr, const void* xi,
 // form, 1 the line form of a row on the lanes of one warp (power-of-two n
 // up to 64), 2 the four-step, with out[0:9] = {N1, N2, warps a team,
 // threads a block, rows a team, Q1, Q2, P2, RS} (LaneStep's parameters;
-// P2 = RS = 0 for the power-of-two XOR tile).
+// P2 = RS = 0 for the power-of-two XOR tile), 3 the three-factor form,
+// with out[0:6] = {N1, N2, N3, threads a block, P1, P2} (LongStep's).
 extern "C" int tpufft_minor_line_geometry(int n, int* out) {
   if (!line_form(n)) return 0;
   if (n <= 64 && (n & (n - 1)) == 0) return 1;
+#define TPUFFT_LONG_GEO(n_, n1, n2, n3, th, p1, p2) \
+  if (n == n_) {                                    \
+    const int v[6] = {n1, n2, n3, th, p1, p2};      \
+    for (int i = 0; i < 6; ++i) out[i] = v[i];      \
+    return 3;                                       \
+  }
+  TPUFFT_MINOR_LONG(TPUFFT_LONG_GEO)
+#undef TPUFFT_LONG_GEO
 #define TPUFFT_GEO(n_, n1, n2, w, r, q1, q2, p2, rs)           \
   if (n == n_) {                                               \
     const int v[9] = {n1, n2, w, 128, r, q1, q2, p2, rs};      \

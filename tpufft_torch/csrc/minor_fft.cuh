@@ -21,11 +21,15 @@
 // The kernel has two forms; the host picks one by n (minor_fft.cu,
 // launch_sized; kernels/minor_fft.py:form mirrors the choice).
 //
-// The line form, for power-of-two n from 2 to 4096 and the mixed-radix
+// The line form, for power-of-two n from 2 to 4096, the mixed-radix
 // lengths of the family lists below (3, 5 and 15 times a power of two up
-// to 3072, 2560 and 3840; 93, 1000, 1080, 2160) (K1, K20, and K9 at any
-// n_in < n): each row lives in registers and goes through shared memory at
-// most once each way. Every line DFT is the shared generic-radix one of
+// to 3072, 2560 and 3840; 93, 1000, 1080, 2160) and the three-factor
+// lengths from 4096 (TPUFFT_MINOR_LONG: 4096, 4320, 5120, 6144, 7680,
+// 8192, 8320, 10240, 12288, 15360, 16384) (K1, K20, and K9 at any n_in <
+// n):
+// each row crosses device memory once each way, lives in registers, and
+// goes through shared memory at most once each way (twice in the
+// three-factor form). Every line DFT is the shared generic-radix one of
 // lane_dft.cuh (radices 2, 4, 8, 3, 5 and odd primes 7 to 31 in one lane's
 // registers, no exchange between lanes but the pair's).
 // - power-of-two n <= 64 (minor_lines_kernel): a row is one line of
@@ -83,10 +87,26 @@
 //   The store is K1's. At odd n_in (93) a row starts at any 4-byte
 //   offset, and a half warp's 16 consecutive loads touch up to 3 sectors
 //   instead of 2.
+// - the three-factor lengths (minor_long_kernel, LongStep; 4096, where it
+//   beat the 64 x 64 four-step on lane pairs, and the lengths above):
+//   n = N1 N2 N3, each factor at most 32 and whole in one lane, by a
+//   block of 256 threads (512 at 15360 and 16384) that holds one row at a
+//   time in its tile (up to 128 KB): pass 1 loads the N1-long columns
+//   straight from device memory (consecutive lanes on consecutive
+//   elements), twiddles them by w^(k1 u) and writes the tile; pass 2
+//   transforms the N2-long lines in the tile in place and twiddles them
+//   by w_(N2 N3)^(k2 j3); pass 3 stores the N3-long lines from registers
+//   to X[k1 + N1 (k2 + N2 k3)], consecutive lanes on consecutive outputs.
+//   Three block barriers a row, against two a Stockham stage. The full
+//   n-table would not fit beside a 16384 row's tile, so the twiddles are
+//   three small tables staged once a block (LongStep: pass 1's w^(k1 u)
+//   is the product of two of them), indexed so that no half warp meets a
+//   bank conflict; the padded tile (P1, P2) has none either. Blocks loop
+//   over rows; two share an SM (128 registers) up to 12288, one above.
 //
 // The stage form (minor_fft_kernel), for every other length (K1, K20 and
-// K9 alike, e.g. 127 or any prime above 31, n above 4096 such as Bluestein's
-// 8320, a pad 5000 -> 8192; stages=True runs it at every length): a
+// K9 alike, e.g. 127 or any prime above 31, n in (4096, 16384] outside
+// TPUFFT_MINOR_LONG such as 4100; stages=True runs it at every length): a
 // block loads whole rows into shared memory, runs every Stockham stage
 // there (fft_stages.cuh, shared with the strided-axis and pair kernels),
 // and stores the rows. Two details keep it near the bandwidth bound:
@@ -201,7 +221,9 @@ inline Geometry launch_geometry(int n) {
 // ---------------------------------------------------------------------------
 
 constexpr int kLineLaneValues = 32;  // complex values a lane holds
-constexpr int kLineMaxN = 4096;     // longest row of the line form
+// the longest power-of-two row of K1's line form, and of the half of
+// K7/K8's (real_fft.cu, r2c_line_form)
+constexpr int kLineMaxN = 4096;
 
 // Logical element `col` of row `row` (row length n): split planes, or fused
 // rows [re | im] of 2n (fft_stages.cuh, fused_index; col = g mod n).
@@ -414,8 +436,9 @@ __device__ __forceinline__ void line_dft(float2 (&v)[V], int p,
 
 // Blocks of the lane kernel an SM must hold: five of 128 threads (at most
 // 102 registers; the compiler takes 92-96 at n = 128 to 2048, with no
-// spill), two of 256 (n = 4096: 128). On the H100, five beat four at n =
-// 2048 and tied at 1024 (PERF.md); no bound (up to 240 registers) lost.
+// spill), two of 256 (K7/K8's half m = 4096: 128). On the H100, five beat
+// four at n = 2048 and tied at 1024 (PERF.md); no bound (up to 240
+// registers) lost.
 __host__ __device__ constexpr int kLaneMinBlocks(int threads) {
   return threads == 128 ? 5 : 2;
 }
@@ -451,7 +474,7 @@ __device__ __forceinline__ void team_sync(int team) {
                  : "memory");
 }
 
-// The four-step (n = 128 .. 4096 at powers of two, every mixed-radix
+// The four-step (n = 128 .. 2048 at powers of two, every mixed-radix
 // length of the form; LaneStep S): block b stages the table, then takes
 // row groups b, b + gridDim.x, ...; team e of a group transforms rows
 // [(group teams + e) R, + R). Pass 1: the lines are the columns j2 of the
@@ -649,6 +672,221 @@ int launch_four_step(const LaneArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// ---- the three-factor line form: n = N1 N2 N3 from 4096 ----
+
+// Rounds of a pass whose values a lane holds at once: as many lines of N
+// as 32 values take, at least one, at most the pass's S rounds.
+__host__ __device__ constexpr int long_hold(int N, int S) {
+  return 32 / N < 1 ? 1 : 32 / N < S ? 32 / N : S;
+}
+
+// The geometry of the three-factor form at n = N1 N2 N3 (each at most 32,
+// whole in one lane) by a block of kThreads threads, one row at a time.
+// With M = N2 N3 and u = N3 j2 + j3:
+// - pass 1 transforms the M columns u of the (N1, M) view (x[M j1 + u]),
+//   lanes on consecutive u, and writes Y[k1, u] w^(k1 u) to (k1, j2, j3);
+// - pass 2 the N1 N3 lines (k1, j3) over j2, in place, lanes on
+//   consecutive j3 (then k1), times w_M^(k2 j3);
+// - pass 3 the N1 N2 lines v = k1 + N1 k2 over j3, lanes on consecutive v,
+//   stored at X[v + N1 N2 k3].
+// Line l of a pass goes to lane t = l mod kThreads in round l / kThreads.
+// The tile holds (k1, c2, j3) (c2 = j2, then k2) at k1 kP1 + c2 kP2 + j3,
+// kP1 and kP2 picked so that every half warp of the three passes touches
+// 16 distinct bank pairs. In front of it, the twiddles (float2):
+// the line tables W_N1, W_N2, W_N3 at pad(m) (lane_dft's), then A[k1][j2]
+// = w^(k1 j2 N3), B[k1][j3] = w^(k1 j3) and C[k2][j3] = w^(N1 k2 j3) =
+// w_M^(k2 j3), all read from the n-table: pass 1's w^(k1 u) is A B.
+// The wrapper's line_geometry lists every length's parameters and a CPU
+// test (tests/test_torch_kernel_minor.py) walks each geometry's tile.
+template <int kN1, int kN2, int kN3, int kThreads, int kP1, int kP2>
+struct LongStep {
+  static constexpr int N1 = kN1, N2 = kN2, N3 = kN3, n = kN1 * kN2 * kN3;
+  static constexpr int threads = kThreads, P1 = kP1, P2 = kP2;
+  static constexpr int lines1 = N2 * N3, lines2 = N1 * N3, lines3 = N1 * N2;
+  static constexpr int S1 = (lines1 + kThreads - 1) / kThreads;  // rounds
+  static constexpr int S2 = (lines2 + kThreads - 1) / kThreads;
+  static constexpr int S3 = (lines3 + kThreads - 1) / kThreads;
+  static constexpr int H1 = long_hold(N1, S1), H2 = long_hold(N2, S2),
+                       H3 = long_hold(N3, S3);
+  static constexpr bool emit1 = max_prime(N1) >= 7;
+  static constexpr bool emit2 = max_prime(N2) >= 7;
+  static constexpr bool emit3 = max_prime(N3) >= 7;
+  static constexpr int w1 = 0, w2 = w1 + N1 + N1 / 16 + 1,
+                       w3 = w2 + N2 + N2 / 16 + 1,
+                       ta = w3 + N3 + N3 / 16 + 1, tb = ta + N1 * N2,
+                       tc = tb + N1 * N3, table = tc + N2 * N3;
+  static constexpr int tile = N1 * kP1;
+  static constexpr size_t smem = (size_t)(table + tile) * 8;
+  // at most 128 registers: two blocks of 256 threads an SM, one of 512
+  static constexpr int min_blocks = 512 / kThreads < 1 ? 1 : 512 / kThreads;
+  static_assert(N1 <= 32 && N2 <= 32 && N3 <= 32 && kThreads % 32 == 0,
+                "lines whole in a lane");
+  static_assert(kP2 >= N3 && kP1 >= N2 * kP2, "tile");
+
+  static __device__ __forceinline__ int pos(int k1, int c2, int j3) {
+    return k1 * kP1 + c2 * kP2 + j3;
+  }
+};
+
+// The DFT of the line of N in v (one lane), its outputs handed to put(k,
+// X[k]) once each: lane_dft, or lane_dft_emit where N has a prime from 7.
+// w is the table of W_N^m at pad(m).
+template <int N, bool kEmit, typename Put>
+__device__ __forceinline__ void long_line(float2 (&v)[N], const float2* w,
+                                          bool inv, const Put& put) {
+  if constexpr (kEmit) {
+    lane_dft_emit<N, 1, 0, 1>(v, w, inv, put);
+  } else {
+    lane_dft<N, 1, 0, 1>(v, w, inv);
+#pragma unroll
+    for (int q = 0; q < N; ++q) put(lane_out<N>(q), v[q]);
+  }
+}
+
+// Pass 1's twiddle w^(k1 (N3 j2 + j3)), k1 > 0: A[k1][j2] B[k1][j3].
+template <typename S>
+__device__ __forceinline__ float2 long_twiddle(const float2* table, int k1,
+                                               int j2, int j3) {
+  return cmul(table[S::ta + k1 * S::N2 + j2], table[S::tb + k1 * S::N3 + j3]);
+}
+
+// The three-factor form (LongStep S): block b stages the twiddles, then
+// transforms rows b, b + gridDim.x, ...: pass 1 from device memory into
+// the tile, a barrier, pass 2 in the tile, a barrier, pass 3 from the tile
+// to device memory, and a barrier before the next row's pass 1. A pass
+// takes its rounds H at a time (all their values held at once); a warp
+// whose lines of a round all lie past the pass's lines skips the round.
+// K9 (kPadded) reads rows of n_in, so pass 1's register j1 of column u is
+// 0 for M j1 + u >= n_in; n_in = n otherwise.
+template <typename T, typename S, bool kFused, bool kPadded>
+__global__ void __launch_bounds__(S::threads, S::min_blocks)
+minor_long_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                  T* __restrict__ yr, T* __restrict__ yi,
+                  const float2* __restrict__ tw, int64_t batch, int n_in,
+                  int inverse, float scale) {
+  constexpr int n = S::n, N1 = S::N1, N2 = S::N2, N3 = S::N3;
+  constexpr int TH = S::threads;
+  extern __shared__ float2 tpufft_long_smem[];
+  float2* table = tpufft_long_smem;
+  float2* tile = table + S::table;
+  const int t = threadIdx.x, warp0 = t & ~31;
+  const bool inv = inverse != 0;
+  for (int m = t; m < N1; m += TH)
+    table[S::w1 + pad(m)] = __ldg(&tw[m * (n / N1)]);
+  for (int m = t; m < N2; m += TH)
+    table[S::w2 + pad(m)] = __ldg(&tw[m * (n / N2)]);
+  for (int m = t; m < N3; m += TH)
+    table[S::w3 + pad(m)] = __ldg(&tw[m * (n / N3)]);
+  for (int i = t; i < N1 * N2; i += TH)
+    table[S::ta + i] = __ldg(&tw[(i / N2) * (i % N2) * N3]);
+  for (int i = t; i < N1 * N3; i += TH)
+    table[S::tb + i] = __ldg(&tw[(i / N3) * (i % N3)]);
+  for (int i = t; i < N2 * N3; i += TH)
+    table[S::tc + i] = __ldg(&tw[N1 * (i / N3) * (i % N3)]);
+  __syncthreads();
+  for (int64_t row = blockIdx.x; row < batch; row += gridDim.x) {
+#pragma unroll
+    for (int c = 0; c < S::S1; c += S::H1) {  // pass 1: columns u
+      float2 v[S::H1][N1];
+#pragma unroll
+      for (int h = 0; h < S::H1; ++h) {
+        const int u = t + TH * (c + h);
+        const bool live = c + h < S::S1 && u < S::lines1;
+#pragma unroll
+        for (int j = 0; j < N1; ++j)
+          v[h][j] = live ? row_load<T, kFused, kPadded>(xr, xi, row, n, n_in,
+                                                        S::lines1 * j + u)
+                         : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < S::H1; ++h) {
+        const int u = t + TH * (c + h);
+        if (c + h >= S::S1 || warp0 + TH * (c + h) >= S::lines1) continue;
+        const int j2 = u / N3, j3 = u - j2 * N3;
+        const bool live = u < S::lines1;
+        long_line<N1, S::emit1>(v[h], table + S::w1, inv,
+                                [&](int k1, float2 y) {
+          if (live)
+            tile[S::pos(k1, j2, j3)] =
+                k1 == 0 ? y : cmul(y, long_twiddle<S>(table, k1, j2, j3));
+        });
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < S::S2; c += S::H2) {  // pass 2: lines (k1, j3)
+      float2 v[S::H2][N2];
+#pragma unroll
+      for (int h = 0; h < S::H2; ++h) {
+        const int w = t + TH * (c + h);
+        const bool live = c + h < S::S2 && w < S::lines2;
+        const int k1 = w / N3, j3 = w - k1 * N3;
+#pragma unroll
+        for (int j = 0; j < N2; ++j)
+          v[h][j] = live ? tile[S::pos(k1, j, j3)] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < S::H2; ++h) {
+        const int w = t + TH * (c + h);
+        if (c + h >= S::S2 || warp0 + TH * (c + h) >= S::lines2) continue;
+        const int k1 = w / N3, j3 = w - k1 * N3;
+        const bool live = w < S::lines2;
+        long_line<N2, S::emit2>(v[h], table + S::w2, inv,
+                                [&](int k2, float2 y) {
+          if (live)
+            tile[S::pos(k1, k2, j3)] =
+                k2 == 0 ? y : cmul(y, table[S::tc + k2 * N3 + j3]);
+        });
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < S::S3; c += S::H3) {  // pass 3: lines k1 + N1 k2
+      float2 v[S::H3][N3];
+#pragma unroll
+      for (int h = 0; h < S::H3; ++h) {
+        const int l = t + TH * (c + h);
+        const bool live = c + h < S::S3 && l < S::lines3;
+        const int k2 = l / N1, k1 = l - k2 * N1;
+#pragma unroll
+        for (int j = 0; j < N3; ++j)
+          v[h][j] = live ? tile[S::pos(k1, k2, j)] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < S::H3; ++h) {
+        const int l = t + TH * (c + h);
+        if (c + h >= S::S3 || warp0 + TH * (c + h) >= S::lines3) continue;
+        const bool live = l < S::lines3;
+        long_line<N3, S::emit3>(v[h], table + S::w3, inv,
+                                [&](int k3, float2 y) {
+          if (live)
+            line_store<T, kFused>(yr, yi, row, n, l + S::lines3 * k3, y,
+                                  scale);
+        });
+      }
+    }
+    __syncthreads();  // the tile is read before the next row rewrites it
+  }
+}
+
+// The three-factor form of geometry S on a grid of at most the blocks the
+// card holds at once, each looping over rows (K9 with kPadded).
+template <typename T, typename S, bool kFused, bool kPadded>
+int launch_three_factor(const LaneArgs& a) {
+  auto* kernel = minor_long_kernel<T, S, kFused, kPadded>;
+  unsigned blocks = 0;
+  cudaError_t err = allow_smem(kernel, S::smem);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, S::threads, S::smem, a.batch, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, S::threads, S::smem, a.stream>>>(
+      static_cast<const T*>(a.xr), static_cast<const T*>(a.xi),
+      static_cast<T*>(a.yr), static_cast<T*>(a.yi),
+      static_cast<const float2*>(a.tw), (int64_t)a.batch, a.n_in, a.inverse,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
 // The mixed-radix lengths of the line form, one list a radix family (each
 // instantiated by its own source, minor_line_{r3,r5,r15,odd}.cu, so that
 // nvcc builds them in parallel): X(n, N1, N2, team warps, rows a team, Q1,
@@ -662,8 +900,7 @@ int launch_four_step(const LaneArgs& a) {
   X(256, 16, 16, 1, 128)     \
   X(512, 32, 16, 1, 128)     \
   X(1024, 32, 32, 1, 128)    \
-  X(2048, 32, 64, 2, 128)    \
-  X(4096, 64, 64, 4, 256)
+  X(2048, 32, 64, 2, 128)
 #define TPUFFT_MINOR_R3(X)          \
   X(12, 4, 3, 1, 64, 3, 4, 4, 19)   \
   X(24, 8, 3, 1, 32, 3, 8, 6, 51)   \
@@ -697,6 +934,22 @@ int launch_four_step(const LaneArgs& a) {
   X(1000, 25, 40, 2, 1, 40, 25, 41, 1025) \
   X(1080, 30, 36, 4, 3, 36, 32, 37, 1124) \
   X(2160, 36, 60, 4, 1, 60, 36, 61, 2196)
+// The three-factor lengths (minor_line_long.cu): X(n, N1, N2, N3, threads
+// a block, P1, P2), LongStep's parameters. At 4096, 16 x 16 x 16 took
+// 0.96 ms on (40000, 4096) against 1.29 for the 64 x 64 four-step on lane
+// pairs (PERF.md). Every other n in (4096, 16384] runs the stage form.
+#define TPUFFT_MINOR_LONG(X)            \
+  X(4096, 16, 16, 16, 256, 257, 16)     \
+  X(4320, 15, 9, 32, 256, 303, 33)      \
+  X(5120, 16, 10, 32, 256, 321, 32)     \
+  X(6144, 16, 12, 32, 256, 385, 32)     \
+  X(7680, 16, 15, 32, 256, 481, 32)     \
+  X(8192, 16, 16, 32, 256, 513, 32)     \
+  X(8320, 13, 20, 32, 256, 661, 33)     \
+  X(10240, 16, 20, 32, 256, 641, 32)    \
+  X(12288, 16, 24, 32, 256, 769, 32)    \
+  X(15360, 16, 30, 32, 512, 961, 32)    \
+  X(16384, 16, 32, 32, 512, 1025, 32)
 
 // The launchers of each family: the length's kernel in storage T (K1,
 // K20 with kFused, K9 with kPadded), or cudaErrorInvalidValue for a length
@@ -709,6 +962,15 @@ template <typename T, bool kFused, bool kPadded>
 int launch_mixed_r15(const LaneArgs& a, int n);
 template <typename T, bool kFused, bool kPadded>
 int launch_mixed_odd(const LaneArgs& a, int n);
+template <typename T, bool kFused, bool kPadded>
+int launch_long(const LaneArgs& a, int n);
+
+// Is n a length of the three-factor form (TPUFFT_MINOR_LONG)?
+inline bool three_factor(int n) {
+#define TPUFFT_IS(n_, ...) || n == n_
+  return false TPUFFT_MINOR_LONG(TPUFFT_IS);
+#undef TPUFFT_IS
+}
 
 // The family source that holds mixed-radix length n: 3, 5, 15 (n = r
 // 2^a) or 1 (the odd list), 0 where n is not a mixed-radix length of the

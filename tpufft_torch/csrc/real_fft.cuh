@@ -62,10 +62,11 @@ __device__ __forceinline__ float2 untangle(const float2* buf, int row0,
 
 // The line form's geometry at an even real length n = 2m, m a power of two
 // from 128 to 4096: f(LaneStep<N1, N2, warps a team, threads a block>{}),
-// the four-step of K1's line form at length m (minor_fft.cu,
-// launch_line_form), shared by K7's and K8's line forms and, for m up to
-// 512 (one-warp teams of a 128-thread block), K14's; cudaErrorInvalidValue
-// at any other n.
+// the power-of-two four-step of K1's line form at length m (minor_fft.cu,
+// launch_line_form, up to 2048; K1 takes three factors at 4096), shared
+// by K7's and K8's line forms and, for m up to 512 (one-warp teams of a
+// 128-thread block), K14's; cudaErrorInvalidValue at any other n
+// (kernels/real_fft.py, _HALF_STEP, lists the same geometries).
 template <class F>
 int with_line_step(int n, F&& f) {
   using tpufft_minor::LaneStep;

@@ -22,7 +22,7 @@ changed: K16 is the cube kernel K5 (``csrc/cluster_fft.cu``), K17 the pair
 kernel K4 (``csrc/pair_fft.cu``), K18 and K19 the strided kernel K2/K3
 (``csrc/strided_fft.cu``, h = L) and K20 the minor-axis kernel K1
 (``csrc/minor_fft.cuh``), in K1's form for the length (:func:`minor_form`:
-the register line form at power-of-two n up to 4096, the Stockham stages
+the register line form at K1's line-form lengths, the Stockham stages
 elsewhere); K18/K19 likewise run the strided kernel's form
 (:func:`inner_form`: the column line form at n = r 2^a, r in {1, 3, 5},
 from 8 to 2048). The contract is theirs: f32 or bf16 storage, f32
@@ -128,9 +128,9 @@ def minor_supported(n: int, dtype) -> bool:
 
 def minor_form(n: int) -> str | None:
     """Which form of K1's kernel K20 runs on a minor logical axis of length
-    n: ``minor_fft.form`` (``"lines"`` for power-of-two n from 2 to 4096
-    and K1's mixed-radix lengths, ``"stages"`` for the rest of the
-    envelope, None outside it)."""
+    n: ``minor_fft.form`` (``"lines"`` for power-of-two n from 2 to 4096,
+    K1's mixed-radix lengths and its three-factor lengths above 4096,
+    ``"stages"`` for the rest of the envelope, None outside it)."""
     return minor_fft.form(n)
 
 

@@ -10,19 +10,23 @@ forward/inverse flag and one real scale.
 The CUDA kernel (``csrc/minor_fft.cu``, design notes in
 ``csrc/minor_fft.cuh``) is bound by device-memory bandwidth on an H100
 (~3 flop/byte at n = 1024) and reads and writes each row once, in one of
-two forms (:func:`form`). The line form keeps each row in registers:
-power-of-two n <= 64 on the lanes of one warp, every other length of the
-form as a four-step n = N1 N2 (:func:`line_split`, :func:`line_geometry`)
-through one shared-memory tile a team of warps, its lines on the shared
-generic-radix in-register DFT of ``csrc/lane_dft.cuh`` (radices 2, 4, 8,
-3, 5 and the odd primes 7 to 31). It takes the powers of two from 2 to
-4096 and the mixed-radix lengths of ``_FOUR_STEP`` (3, 5 and 15 times a
-power of two up to 3072, 2560 and 3840; 93, 1000, 1080, 2160; each family
-instantiated by its own source, ``csrc/minor_line_{r3,r5,r15,odd}.cu``),
-K9 and K20 at those n too. Every other length (a prime factor above 31,
-n above 4096, a length no family lists) runs the stage form, every
-Stockham stage in shared memory. Twiddles come from a host float64 table
-cast to f32, uploaded once per (n, direction, device).
+two forms (:func:`form`). The line form keeps each row in registers,
+its lines on the shared generic-radix in-register DFT of
+``csrc/lane_dft.cuh`` (radices 2, 4, 8, 3, 5 and the odd primes 7 to
+31): power-of-two n <= 64 on the lanes of one warp; the other powers of
+two up to 2048 and the mixed-radix lengths of ``_FOUR_STEP`` (3, 5 and
+15 times a power of two up to 3072, 2560 and 3840; 93, 1000, 1080, 2160;
+each family instantiated by its own source,
+``csrc/minor_line_{r3,r5,r15,odd}.cu``) as a four-step n = N1 N2
+(:func:`line_split`, :func:`line_geometry`) through one shared-memory
+tile a team of warps; the lengths of ``_LONG_STEP`` from 4096 (4096,
+4320, 5120, 6144, 7680, 8192, 8320, 10240, 12288, 15360, 16384;
+``csrc/minor_line_long.cu``) as a three-factor form n = N1 N2 N3, one
+row a block, through the tile twice. K9 and K20 take the same forms.
+Every other length (a prime factor above 31, a length no list holds)
+runs the stage form, every Stockham stage in shared memory. Twiddles come
+from a host float64 table cast to f32, uploaded once per (n, direction,
+device).
 
 ``fft_minor`` is the wrapper. A CPU tensor runs ``fft_minor_reference``;
 a CUDA tensor launches the kernel or raises, never falls back
@@ -89,7 +93,7 @@ __all__ = [
 
 MAX_N = 16384     # one row must fit the 227 KB of shared memory in f32
 MAX_PRIME = 127   # largest radix of the kernel's direct-sum stage
-LINE_MAX_N = 4096  # longest row of the line form
+LINE_MAX_N = 4096  # longest power-of-two row of the line form, K7/K8's cap
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 # The line form's four-step (csrc/minor_fft.cuh, LaneStep): n -> (N1, N2,
@@ -98,9 +102,11 @@ STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 # RS = 0) and the mixed-radix families TPUFFT_MINOR_{R3,R5,R15,ODD}, each
 # instantiated by its own source (a CPU test holds this table equal to
 # those lists, a card test to the library's tpufft_minor_line_geometry).
+# 4096 runs the three-factor form (_LONG_STEP); LINE_MAX_N = 4096 stays the
+# cap of the power-of-two halves K7 and K8 share (real_fft.form).
 _POW2_STEP = {128: (8, 16, 1, 128), 256: (16, 16, 1, 128),
               512: (32, 16, 1, 128), 1024: (32, 32, 1, 128),
-              2048: (32, 64, 2, 128), 4096: (64, 64, 4, 256)}
+              2048: (32, 64, 2, 128)}
 _MIXED_STEP = {
     # 3 2^a
     12: (4, 3, 1, 64, 3, 4, 4, 19), 24: (8, 3, 1, 32, 3, 8, 6, 51),
@@ -131,6 +137,21 @@ _FOUR_STEP = {
        for n, (n1, n2, w, th) in _POW2_STEP.items()},
     **{n: (g[0], g[1], g[2], 128, *g[3:]) for n, g in _MIXED_STEP.items()},
 }
+# The three-factor form from 4096 (csrc/minor_fft.cuh, LongStep; the list
+# TPUFFT_MINOR_LONG, instantiated by csrc/minor_line_long.cu): n -> (N1,
+# N2, N3, threads a block, P1, P2); the tile holds (k1, c2, j3) at k1 P1 +
+# c2 P2 + j3.
+_LONG_STEP = {
+    4096: (16, 16, 16, 256, 257, 16),
+    4320: (15, 9, 32, 256, 303, 33), 5120: (16, 10, 32, 256, 321, 32),
+    6144: (16, 12, 32, 256, 385, 32), 7680: (16, 15, 32, 256, 481, 32),
+    8192: (16, 16, 32, 256, 513, 32), 8320: (13, 20, 32, 256, 661, 33),
+    10240: (16, 20, 32, 256, 641, 32), 12288: (16, 24, 32, 256, 769, 32),
+    15360: (16, 30, 32, 512, 961, 32), 16384: (16, 32, 32, 512, 1025, 32),
+}
+_FOUR_STEP_KEYS = ("n1", "n2", "team_warps", "threads", "rows", "q1", "q2",
+                   "p2", "rs")
+_LONG_KEYS = ("n1", "n2", "n3", "threads", "p1", "p2")
 
 launches = 0
 padded_launches = 0
@@ -160,46 +181,56 @@ def supported(n: int, dtype) -> bool:
 def form(n: int, n_in: int | None = None) -> str | None:
     """Which form of the kernel transforms rows of length n (read from
     ``n_in`` values zero-padded to n, K9, when ``n_in`` < n): ``"lines"``
-    for power-of-two n from 2 to ``LINE_MAX_N`` and the mixed-radix lengths
-    of ``_FOUR_STEP``, with or without a pad, ``"stages"`` for every other
-    length in the envelope, None outside it (or for an ``n_in`` outside [1,
-    n]). Mirrors ``launch_sized`` in ``csrc/minor_fft.cu``, which makes the
-    choice at the launch (``tpufft_minor_line_geometry`` reports it)."""
+    for power-of-two n from 2 to ``LINE_MAX_N``, the mixed-radix lengths
+    of ``_FOUR_STEP`` and the three-factor lengths of ``_LONG_STEP``, with
+    or without a pad, ``"stages"`` for every other length in the envelope,
+    None outside it (or for an ``n_in`` outside [1, n]). Mirrors
+    ``launch_sized`` in ``csrc/minor_fft.cu``, which makes the choice at
+    the launch (``tpufft_minor_line_geometry`` reports it)."""
     n = int(n)
     if not _length_ok(n):
         return None
     if n_in is not None and not 1 <= int(n_in) <= n:
         return None
     pow2 = 2 <= n <= LINE_MAX_N and n & (n - 1) == 0
-    return "lines" if pow2 or n in _FOUR_STEP else "stages"
+    lines = pow2 or n in _FOUR_STEP or n in _LONG_STEP
+    return "lines" if lines else "stages"
 
 
-def line_split(n: int) -> tuple[int, int] | None:
-    """(N1, N2) of the line form at length n: the four-step n = N1 N2 (pass
-    1 runs the N1-long columns, pass 2 the N2-long rows of the (N1, N2)
-    view); (n, 1) for power-of-two n <= 64, one line a row; None where n
-    does not run the line form."""
+def line_split(n: int) -> tuple[int, ...] | None:
+    """The factors of the line form at length n: (N1, N2) of the
+    four-step n = N1 N2 (pass 1 runs the N1-long columns, pass 2 the
+    N2-long rows of the (N1, N2) view); (N1, N2, N3) of the three-factor
+    form (passes of N1-, N2- and N3-long lines); (n, 1) for power-of-two n
+    <= 64, one line a row; None where n does not run the line form."""
     n = int(n)
     if form(n) != "lines":
         return None
+    if n in _LONG_STEP:
+        return _LONG_STEP[n][:3]
     return _FOUR_STEP[n][:2] if n in _FOUR_STEP else (n, 1)
 
 
 def line_geometry(n: int) -> dict | None:
-    """The four-step geometry of the line form at n, as ``LaneStep`` in
-    ``csrc/minor_fft.cuh`` has it: ``n1``, ``n2``, ``team_warps``,
+    """The geometry of the line form at n. The four-step's, as ``LaneStep``
+    in ``csrc/minor_fft.cuh`` has it: ``n1``, ``n2``, ``team_warps``,
     ``threads`` (a block), ``rows`` (a team), ``q1`` and ``q2`` (line slots
     a row in passes 1 and 2, those at j2 >= N2 or k1 >= N1 idle), ``p2``
     and ``rs`` (the tile holds (k1, j2) of row r at r rs + k1 p2 + j2; 0 for
     the power-of-two XOR tile r n + k1 N2 + (j2 ^ ((k1 + N1 r) mod 16))).
     A line of up to 32 lies in one lane, an even one of 34 to 64 on a lane
-    pair. None where n does not run the four-step."""
+    pair. The three-factor form's, as ``LongStep`` has it: ``n1``, ``n2``,
+    ``n3``, ``threads`` (a block, one row at a time), ``p1`` and ``p2``
+    (the tile holds (k1, c2, j3) at k1 p1 + c2 p2 + j3). None where n runs
+    neither."""
     n = int(n)
-    if n not in _FOUR_STEP or form(n) != "lines":
+    if form(n) != "lines":
         return None
-    keys = ("n1", "n2", "team_warps", "threads", "rows", "q1", "q2", "p2",
-            "rs")
-    return dict(zip(keys, _FOUR_STEP[n]))
+    if n in _LONG_STEP:
+        return dict(zip(_LONG_KEYS, _LONG_STEP[n]))
+    if n in _FOUR_STEP:
+        return dict(zip(_FOUR_STEP_KEYS, _FOUR_STEP[n]))
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,9 +265,10 @@ def launched_geometry(n: int) -> dict | None:
     """The form the library launches at length n, read from
     ``tpufft_minor_line_geometry`` (``launch_sized``'s own test; needs the
     CUDA toolkit): ``{"form": "stages"}``, ``{"form": "lines"}`` for the
-    warp-shuffle rows (power-of-two n <= 64), or the four-step's geometry
-    with the keys of :func:`line_geometry` and ``"form": "lines"``. A card
-    test holds it equal to :func:`form` and :func:`line_geometry`."""
+    warp-shuffle rows (power-of-two n <= 64), or the four-step's or the
+    three-factor form's geometry with the keys of :func:`line_geometry` and
+    ``"form": "lines"``. A card test holds it equal to :func:`form` and
+    :func:`line_geometry`."""
     lib = _build.load()
     out = (ctypes.c_int * 9)()
     kind = lib.tpufft_minor_line_geometry(int(n), out)
@@ -244,8 +276,7 @@ def launched_geometry(n: int) -> dict | None:
         return {"form": "stages"}
     if kind == 1:
         return {"form": "lines"}
-    keys = ("n1", "n2", "team_warps", "threads", "rows", "q1", "q2", "p2",
-            "rs")
+    keys = _LONG_KEYS if kind == 3 else _FOUR_STEP_KEYS
     return {"form": "lines", **dict(zip(keys, out))}
 
 

@@ -46,6 +46,7 @@ __all__ = [
     "irfft_minor",
     "irfft_minor_reference",
     "launches",
+    "line_geometry",
     "reference_cuda_calls",
     "reset_counts",
     "rfft_minor",
@@ -55,6 +56,14 @@ __all__ = [
 
 launches = {"r2c": 0, "c2r": 0}
 reference_cuda_calls = 0
+
+# K7's and K8's line form at an even real length n = 2m (csrc/real_fft.cuh,
+# with_line_step): m -> (N1, N2, warps a team, threads a block), the
+# power-of-two four-step of K1's LaneStep at the half m, 32 values a lane
+# in the XOR tile: K1's own up to 2048, and at 4096, where K1 takes three
+# factors, a 64 x 64 of their own. A CPU test holds this table equal to
+# the header's list.
+_HALF_STEP = {**minor_fft._POW2_STEP, 4096: (64, 64, 4, 256)}
 
 
 def reset_counts() -> None:
@@ -93,6 +102,19 @@ def form(n: int) -> str | None:
     lines = (n % 2 == 0 and 128 <= m <= minor_fft.LINE_MAX_N
              and m & (m - 1) == 0)
     return "lines" if lines else "stages"
+
+
+def line_geometry(n: int) -> dict | None:
+    """The four-step geometry of K7's and K8's line form at real length n,
+    on the half m = n/2, with the keys of ``minor_fft.line_geometry``'s
+    four-step (``rows`` = 1024 W / m, ``q1`` = N2, ``q2`` = N1, ``p2`` =
+    ``rs`` = 0, the XOR tile); None where n does not run the line form."""
+    if form(n) != "lines":
+        return None
+    m = int(n) // 2
+    n1, n2, w, th = _HALF_STEP[m]
+    return dict(zip(minor_fft._FOUR_STEP_KEYS,
+                    (n1, n2, w, th, 1024 * w // m, n2, n1, 0, 0)))
 
 
 @functools.lru_cache(maxsize=64)
