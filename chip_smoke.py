@@ -314,6 +314,21 @@ Phases, each of which raises (and so exits nonzero) on failure:
     form), against ``np.fft.fft`` on a few rows and through the round
     trip, beside ``torch.fft.fft``.
 
+30. the strided kernel's cluster form above 2048 (bf16 from 1080; a unit
+    of 16 columns spread over a thread-block cluster): K2 alone at (1,
+    3840, 2160), (1, 8192, 8192) and (2, 16384, 2048) in f32 and (8,
+    2048, 2048) in bf16, and K3 with the two-pass twiddle on the (4 x
+    4096, 4096, 1) view of ``fft`` (4, 2**24), each beside its stage form
+    (in turns), its plain version, ``torch.fft.fft`` and the copy floor;
+    K18 on fused (1, 3840, 8, 2 x 270) and K19 on (1, 8192, 2 x 8192)
+    beside their plain versions, ``torch.fft.fft`` and the floor;
+    then ``fft2`` (1, 3840, 2160) and ``fft`` (4, 2**24) as paths, every
+    count set to 0 just before each and read just after (K2 and K1 once a
+    transform; K3 and K1 once a transform), against ``np.fft`` on a row
+    and through the round trip, beside ``torch.fft``. Phases 6 and 21 hold
+    K2, K3, K18 and K19 at every length of the cluster form against their
+    plain versions (``STRIDED_LINE_NS``).
+
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
 its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
@@ -367,12 +382,18 @@ REPS = 20
 # 700 W. K11/K12's tensor-core body does three TF32 products per f32 one.
 TF32_PEAK = 495e12
 STRIDED_NS = (8, 93, 127, 128, 960, 1024, 4096, 16384)
-# the strided kernel's line form: n = r 2^a, r in {1, 3, 5}, 8 to 2048;
-# 15 2^a, 30 to 1920; 25, 93 and 1080
+# the strided kernel's cluster form (csrc/strided_long.cuh): f32 from 2160,
+# bf16 from 1080 (below 2160 f32 runs the four-step line form)
+STRIDED_CLUSTER_NS = (1080, 1280, 1536, 1920, 2048, 2160, 2560, 3072, 3840,
+                      4096, 4320, 5120, 6144, 7680, 8192, 8320, 10240,
+                      12288, 15360, 16384)
+# the strided kernel's line forms: n = r 2^a, r in {1, 3, 5}, 8 to 2048;
+# 15 2^a, 30 to 1920; 25, 93 and 1080; and the cluster form's lengths
 STRIDED_LINE_NS = tuple(sorted(
-    [r * 2 ** a for r in (1, 3, 5) for a in range(12)
-     if 8 <= r * 2 ** a <= 2048]
-    + [15 * 2 ** a for a in range(1, 8)] + [25, 93, 1080]))
+    {r * 2 ** a for r in (1, 3, 5) for a in range(12)
+     if 8 <= r * 2 ** a <= 2048}
+    | {15 * 2 ** a for a in range(1, 8)} | {25, 93, 1080}
+    | set(STRIDED_CLUSTER_NS)))
 # phase 28: K1 and the strided kernel's mixed-radix line forms beside their
 # stage forms, and the survey's fft2 shapes (bench_suite.py)
 MIXED_K1_SHAPES = ((1_000_000, 93), (64_000, 480), (19_200, 1080),
@@ -382,6 +403,14 @@ SURVEY_FFT2 = ((10, 1920, 1080), (1, 3840, 2160))
 # phase 29: K1's three-factor form at ~1.3 GB a call
 LONG_K1_SHAPES = ((10_000, 8320), (10_000, 8192), (5000, 16384),
                   (10_000, 7680))
+# phase 30: the strided cluster form: K2 at the survey's 4K UHD frame axis,
+# 8192² and a long axis in f32, and bf16 at 2048 (pre, n, post); K3 with the
+# two-pass twiddle as fft (4, 2**24) runs it; the two paths
+CLUSTER_K2_SHAPES = (((1, 3840, 2160), torch.float32),
+                     ((1, 8192, 8192), torch.float32),
+                     ((2, 16384, 2048), torch.float32),
+                     ((8, 2048, 2048), torch.bfloat16))
+TWO_PASS_LONG = (4, 1 << 24)   # split 4096 x 4096: K3 at 4096, then K1
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
@@ -2419,9 +2448,13 @@ FUSED_CASES = tuple(
     # K18/K19 at every length of the strided line form, halves L = 2 to
     # 256 (a unit's columns spanning several m; L < 8 takes 8 columns
     # of several halves)
-    case for i, n in enumerate(STRIDED_LINE_NS) for case in (
+    case for i, n in enumerate(STRIDED_LINE_NS) if n <= 2048 for case in (
         ("inner", (3, n, 5, (2, 8, 64, 256)[i % 4])),
-        ("inner_m1", (3, n, (256, 64, 8, 16)[i % 4])))) + (
+        ("inner_m1", (3, n, (256, 64, 8, 16)[i % 4])))) + tuple(
+    # and at every length of its cluster form, on narrower arrays
+    case for i, n in enumerate(STRIDED_CLUSTER_NS) for case in (
+        ("inner", (2, n, 3, (8, 40)[i % 2])),
+        ("inner_m1", (2, n, (40, 16)[i % 2])))) + (
     ("pair", (13, 64, 64)), ("pair", (13, 8, 93)), ("pair", (5, 128, 128)),
     ("pair", (7, 160, 48)),
 ) + tuple(("cube", (3,) + c) for c in CUBES)
@@ -3768,13 +3801,13 @@ def phase_native_parallel_paths(rate: float) -> dict:
 
 
 def _ab_line(what: str, line, stages, plain, library, nbytes: float,
-             rate: float) -> dict:
+             rate: float, tol: float = F32_TOL) -> dict:
     """One line form beside its stage form, its plain version, the library
     call and the copy floor of its bytes: the line form held against its
-    stage form (f32 1e-5), each timed (median of REPS), the two forms in
-    turns line, stages, stages, line; returns the medians."""
+    stage form (``tol``: f32 1e-5), each timed (median of REPS), the two
+    forms in turns line, stages, stages, line; returns the medians."""
     err = pair_err(line(), stages())
-    check(err < F32_TOL, f"{what}: line form vs stage form {err:.3e}")
+    check(err < tol, f"{what}: line form vs stage form {err:.3e}")
     a, b = _time_ms(line), _time_ms(stages)
     b, a = (b + _time_ms(stages)) / 2, (a + _time_ms(line)) / 2
     t = {"line": a, "stages": b, "plain": _time_ms(plain),
@@ -3954,6 +3987,116 @@ def phase_long_times(rate: float) -> dict:
     return {k: v for k, v in by_kernel.items() if v}
 
 
+def phase_cluster_times(rate: float) -> dict:
+    """Phase 30: the strided kernel's cluster form at CLUSTER_K2_SHAPES (K2)
+    and K3 with the two-pass twiddle on the (4 x 4096, 4096, 1) view of
+    ``fft`` TWO_PASS_LONG, each beside its stage form (in turns), its plain
+    version, ``torch.fft.fft`` and the copy floor; K18 and K19 beside their
+    plain versions, ``torch.fft.fft`` and the floor; then the paths ``fft2``
+    (1, 3840, 2160) (K2 at 3840, K1 at 2160) and ``fft`` TWO_PASS_LONG (K3
+    at 4096, K1 at 4096, the digit swap), each driven with every count set
+    to 0 just before it and read just after, against ``np.fft`` on a few
+    rows and through the round trip, timed beside ``torch.fft``. Returns
+    the paths' launches."""
+    card = _smi("name,power.limit")
+    print(f"phase 30, the strided cluster form [{card}], ms (median of "
+          f"{REPS}):")
+    kw = dict(inverse=False, scale=1.0)
+    for shape, dtype in CLUSTER_K2_SHAPES:
+        pre, n, post = shape
+        xr, xi = _device_planes(shape, seed=n)
+        xr, xi = xr.to(dtype), xi.to(dtype)
+        xc = torch.complex(xr.float(), xi.float())
+        geo = inner_fft.line_geometry(n, post, dtype)
+        check(geo is not None and "q" in geo,
+              f"K2 at {n} {dtype}: not on the cluster form ({geo})")
+        _ab_line(f"K2 {shape} {str(dtype)[6:]} {geo}",
+                 lambda: inner_fft.fft_inner(xr, xi, **kw),
+                 lambda: inner_fft.fft_inner(xr, xi, stages=True, **kw),
+                 lambda: inner_fft.fft_inner_reference(xr, xi, **kw),
+                 lambda: torch.fft.fft(xc, dim=1),
+                 4.0 * xr.element_size() * xr.numel(), rate,
+                 F32_TOL if dtype == torch.float32 else BF16_TOL)
+        del xr, xi, xc
+    batch, n = TWO_PASS_LONG
+    a, b = execute._split_large(n)
+    check((a, b) == (4096, 4096), f"fft {TWO_PASS_LONG}: split {(a, b)}")
+    xr, xi = _device_planes((batch * a, b, 1), seed=a)
+    tw = execute._device_two_pass_twiddle(a, b, False, xr.device)
+    nd = dict(kw, n=a, twiddle=tw)
+    xc = torch.complex(xr, xi).reshape(batch, a, b)
+    check("q" in inner_fft.line_geometry(a, b, torch.float32),
+          f"K3 at {a}: not on the cluster form")
+    _ab_line(f"K3 + twiddle {(batch * a, b, 1)} "
+             f"{inner_fft.line_geometry(a, b, torch.float32)}",
+             lambda: inner_fft.fft_inner_nd(xr, xi, **nd),
+             lambda: inner_fft._launch(xr, xi, batch, a, b, False, 1.0, tw,
+                                       1, stages=True)[:2],
+             lambda: inner_fft.fft_inner_nd_reference(xr, xi, **nd),
+             lambda: torch.fft.fft(xc, dim=1), 16.0 * xr.numel(), rate)
+    del xr, xi, xc, tw
+    # K18 and K19 on the cluster form: a 4K frame's axis 3840 over 8
+    # channels of 270 (fused halves), and the 8192² plane as one fused row
+    for key, shape in (("inner", (1, 3840, 8, 270)),
+                       ("inner_m1", (1, 8192, 8192))):
+        st = _fused_array(shape, torch.float32, seed=shape[1])
+        h = shape[-1]
+        xc = torch.complex(st[..., :h], st[..., h:])
+        out = fused_fft.fft_inner_fused(st, **kw)
+        ref = fused_fft.fft_inner_fused_reference(st, **kw)
+        err = pair_err(_halves(out), _halves(ref))
+        check(err < F32_TOL, f"K18/K19 {shape}: vs plain {err:.3e}")
+        t = {"fused": _time_ms(lambda: fused_fft.fft_inner_fused(st, **kw)),
+             "plain": _time_ms(
+                 lambda: fused_fft.fft_inner_fused_reference(st, **kw)),
+             "library": _time_ms(lambda: torch.fft.fft(xc, dim=1)),
+             "floor": 8.0 * st.numel() / rate * 1e3}
+        print(f"  {'K18' if key == 'inner' else 'K19'} {shape} (x 2 halves)"
+              f" f32: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f" ms; vs plain {err:.3e}")
+        del st, xc, out, ref
+    total = collections.Counter()
+    for shape, call, back_call, ref_call, want in (
+            ((1, 3840, 2160), tpufft_torch.fft2, tpufft_torch.ifft2,
+             torch.fft.fft2, {"inner": 2, "minor": 2}),
+            (TWO_PASS_LONG, tpufft_torch.fft, tpufft_torch.ifft,
+             torch.fft.fft, {"inner_nd": 2, "minor": 2})):
+        xr, xi = _device_planes(shape, seed=sum(shape))
+        x = tpufft_torch.SplitComplex(xr, xi)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = call(x)
+        back = back_call(y)
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        want = {k: want.get(k, 0) for k in ALL_KERNELS}
+        check(by_kernel == want and plain == 0,
+              f"{call.__name__} {shape}: launches {by_kernel}, plain "
+              f"{plain}, expected {want}")
+        total.update(by_kernel)
+        x0 = xr[:1].cpu().numpy().astype(np.float64) + 1j * xi[:1].cpu(
+            ).numpy()
+        ref = np.fft.fft2(x0) if len(shape) == 3 else np.fft.fft(x0)
+        got = y.re[:1].cpu().numpy() + 1j * y.im[:1].cpu().numpy()
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err < NP_TOL, f"{call.__name__} {shape}: vs np.fft {err:.3e}")
+        rt = pair_err(back, x)
+        check(rt < NP_TOL, f"{call.__name__} {shape}: round trip {rt:.3e}")
+        del y, back
+        xc = torch.complex(xr, xi)
+        passes = 2 if len(shape) == 3 else 3
+        t = {"path": _time_ms(lambda: call(x)),
+             "torch_fft": _time_ms(lambda: ref_call(xc)),
+             "floor": passes * 16.0 * xr.numel() / rate * 1e3}
+        print(f"  path {call.__name__} {shape} c64: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f" ms; vs np.fft "
+              f"{err:.3e}, round trip {rt:.3e}, launches "
+              f"{ {k: v for k, v in by_kernel.items() if v} }")
+        del x, xr, xi, xc
+    torch.cuda.synchronize()
+    return dict(total)
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -4122,11 +4265,13 @@ def main() -> None:
     parallel_launches = phase_native_parallel_paths(rate)
     mixed_launches = phase_mixed_times(rate)
     long_launches = phase_long_times(rate)
+    cluster_launches = phase_cluster_times(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
                  multirate_launches, design_launches, peak_launches,
-                 parallel_launches, mixed_launches, long_launches):
+                 parallel_launches, mixed_launches, long_launches,
+                 cluster_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

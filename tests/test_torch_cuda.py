@@ -22,7 +22,7 @@ from tpufft_torch.kernels import (cube_fft, dense_mm, inner_fft,
                                   mid_pair_fft, minor_fft, pair_fft, real_fft,
                                   stft_mm)
 
-from test_torch_strided_geometry import FORM_CASES
+from test_torch_strided_geometry import CLUSTER, CLUSTER_NS, FORM_CASES
 from test_torch_strided_geometry import LINE_NS as STRIDED_LINE_NS
 from test_torch_strided_geometry import model_form, model_geometry
 
@@ -454,7 +454,8 @@ def test_strided_geometry_matches_model(dtype, cuda_device):
     line form and at stage-form lengths, on posts around each C, and give
     the forms of ``FORM_CASES``."""
     bf16 = dtype == torch.bfloat16
-    for n in STRIDED_LINE_NS + [2, 6, 93, 127, 480, 960, 2560, 4096, 16384]:
+    for n in (STRIDED_LINE_NS + [2, 6, 93, 127, 480, 960, 2880, 4100]
+              + sorted(CLUSTER)):
         for post in (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 241, 480, 4096,
                      1000000):
             want = model_geometry(n, post, bf16)
@@ -486,8 +487,7 @@ def test_strided_line_form_matches_plain_version(n, dtype, tol, cuda_device):
     version."""
     min_cols = 16 if dtype == torch.bfloat16 else 8
     for post in _line_posts(n, dtype):
-        want = ("lines" if post >= min_cols and not (
-            dtype == torch.bfloat16 and n > 1024) else "stages")
+        want = "lines" if post >= min_cols else "stages"
         assert inner_fft.form(n, post, dtype) == want
         xr, xi = _planes((3, n, post), cuda_device, dtype, seed=n + post)
         M = next(m for m in (5, 3, 2, 1) if post % m == 0)
@@ -551,6 +551,90 @@ def test_strided_line_form_fused_matches_plain_version(n, dtype, tol,
                     assert _fused_err(got, ref) < tol, (L, M, inverse, scale)
 
 
+# the cluster form: every length of its lists, f32 and bf16
+CLUSTER_CASES = ([(n, torch.float32, 1e-5) for n in CLUSTER_NS]
+                 + [(n, torch.bfloat16, 8e-3) for n in sorted(CLUSTER)])
+CLUSTER_IDS = [f"{n}-{'f32' if d == torch.float32 else 'bf16'}"
+               for n, d, _ in CLUSTER_CASES]
+
+
+@pytest.mark.parametrize("n,dtype,tol", CLUSTER_CASES, ids=CLUSTER_IDS)
+def test_strided_cluster_form_matches_plain_version(n, dtype, tol,
+                                                    cuda_device):
+    """K2 and K3 (with and without the (n, M) twiddle) at every length of
+    the cluster form against their plain versions: pre 2 on a post of 8
+    f32 (16 bf16) columns (one unit a slice, half idle in f32), 17 (a
+    ragged unit of one column) and 241, and pre 1 on 1000 columns (more
+    units than the card holds clusters), both directions, scale 1 and 1/n;
+    the launch's geometry is the cluster form's, each call launches the
+    kernel once and never its plain version."""
+    cols = 16 if dtype == torch.bfloat16 else 8
+    for pre, post in ((2, cols), (2, 17), (2, 241), (1, 1000)):
+        geo = inner_fft.line_geometry(n, post, dtype)
+        assert inner_fft.form(n, post, dtype) == "lines"
+        assert geo == model_geometry(n, post, dtype == torch.bfloat16)
+        assert geo["q"] >= 2 and geo["cols"] == 16
+        xr, xi = _planes((pre, n, post), cuda_device, dtype, seed=n + post)
+        M = next(m for m in (5, 3, 2, 1) if post % m == 0)
+        tw = _twiddle(n, M, cuda_device, seed=post)
+        v = (pre * n, M, post // M)
+        for inverse in (False, True):
+            for scale in (1.0, 1.0 / n):
+                kw = dict(inverse=inverse, scale=scale)
+                for twiddle in (None, tw):
+                    before = dict(inner_fft.launches)
+                    plain = inner_fft.reference_cuda_calls
+                    if twiddle is None:
+                        got = inner_fft.fft_inner(xr, xi, **kw)
+                        key = "inner"
+                    else:
+                        got = inner_fft.fft_inner_nd(
+                            xr.reshape(v), xi.reshape(v), n=n,
+                            twiddle=twiddle, **kw)
+                        key = "inner_nd"
+                    assert inner_fft.launches[key] == before[key] + 1
+                    assert inner_fft.reference_cuda_calls == plain
+                    if twiddle is None:
+                        ref = inner_fft.fft_inner_reference(xr, xi, **kw)
+                    else:
+                        ref = inner_fft.fft_inner_nd_reference(
+                            xr.reshape(v), xi.reshape(v), n=n,
+                            twiddle=twiddle, **kw)
+                    torch.cuda.synchronize()
+                    assert got[0].dtype == dtype
+                    assert _err(got, ref) < tol, (pre, post, inverse, scale,
+                                                  twiddle is not None)
+
+
+@pytest.mark.parametrize("n,dtype,tol", CLUSTER_CASES, ids=CLUSTER_IDS)
+def test_strided_cluster_form_fused_matches_plain_version(n, dtype, tol,
+                                                          cuda_device):
+    """K18 (M = 3) and K19 (M = 1) on the cluster form: fused (2, n, M,
+    2L) arrays at halves L = 8 and 40 (a unit's columns spanning several
+    m, the re and im halves interleaving by L), both directions, scale 1
+    and 1/n."""
+    from tpufft_torch.kernels import fused_fft
+    for L in (8, 40):
+        for M in (1, 3):
+            if M * L < (16 if dtype == torch.bfloat16 else 8):
+                continue
+            st = _fused_array((2, n, M, L), cuda_device, dtype, seed=n + L)
+            key = "inner" if M > 1 else "inner_m1"
+            assert fused_fft.inner_form(n, M, L, dtype) == "lines"
+            for inverse in (False, True):
+                for scale in (1.0, 1.0 / n):
+                    kw = dict(inverse=inverse, scale=scale)
+                    before = fused_fft.launches[key]
+                    plain = fused_fft.reference_cuda_calls
+                    got = fused_fft.fft_inner_fused(st, **kw)
+                    assert fused_fft.launches[key] == before + 1
+                    assert fused_fft.reference_cuda_calls == plain
+                    ref = fused_fft.fft_inner_fused_reference(st, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == dtype
+                    assert _fused_err(got, ref) < tol, (L, M, inverse, scale)
+
+
 def _column_edges(xr, xi):
     """+Inf, -Inf and NaN in the re plane of columns 0-2, 3.4e38 in column
     3, and columns 5 and 6 (both planes) scaled by 1e-20 and 1e18."""
@@ -568,9 +652,11 @@ def _column_edges(xr, xi):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["K2", "K18"])
 @pytest.mark.parametrize("n", [8, 12, 20, 40, 64, 128, 640, 1024, 2048, 25,
-                               93, 480, 960, 1080])
+                               93, 480, 960, 1080, 2160, 3840, 4096, 8320,
+                               12288, 16384])
 def test_strided_line_form_edge_values(n, fused, cuda_device):
-    """Edge-value columns through the line form, as K1's rows: the lines
+    """Edge-value columns through the line forms (the cluster form from
+    2160), as K1's rows: the lines
     holding Inf or NaN come out non-finite in the kernel and in the plain
     version alike and no line without such an input does, except that the
     3.4e38 line may overflow in a butterfly's sum; the other lines, the

@@ -141,12 +141,15 @@ def test_minor_form(n, expected):
     (8, 1, 7, torch.float32, "stages"),          # under 8 columns
     (96, 2, 7, torch.bfloat16, "stages"),        # under 16 bf16 columns
     (93, 128, 128, torch.float32, "lines"),      # T1's length (3 x 31)
-    (4096, 3, 8, torch.float32, "stages"),
-    (131, 3, 8, torch.float32, None)])
+    (4096, 3, 8, torch.float32, "lines"),       # the cluster form
+    (131, 3, 8, torch.float32, None),
+    (2048, 2, 8, torch.bfloat16, "lines"),      # bf16's cluster form
+    (4100, 3, 8, torch.float32, "stages")])     # on no list
 def test_inner_form(n, M, L, dtype, expected, monkeypatch):
     """K18/K19 run the strided kernel's form for the (pre, n, M L) logical
-    planes: the line form at n = r 2^a, r in {1, 3, 5}, 8 to 2048 on at
-    least 8 f32 (16 bf16) columns, whatever M and L split them into. The
+    planes: the line form at n = r 2^a, r in {1, 3, 5}, 8 to 2048, and the
+    cluster form at its lists' lengths (f32 from 2160, bf16 from 1080), on
+    at least 8 f32 (16 bf16) columns, whatever M and L split them into. The
     library's geometry query is answered by the model
     (``test_torch_strided_geometry.use_model``)."""
     use_model(monkeypatch)

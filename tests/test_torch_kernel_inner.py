@@ -17,9 +17,13 @@ against these plain versions there. Here, a model of the kernel's line
 form (``csrc/strided_line.cuh``) in torch, with its four-step split, lane
 lines, output orders and table exponents, is held against tpufft in
 interpret mode and against ``np.fft`` (1e-5), its tile mapping is checked
-for every geometry, and ``inner_fft.form`` across n, post and dtype. The
-geometry comes from the model in ``test_torch_strided_geometry.py``, which
-``test_torch_cuda.py`` holds against the library's on the card.
+for every geometry, and ``inner_fft.form`` across n, post and dtype; a
+model of the cluster form (``csrc/strided_long.cuh``), with its units,
+block ownership, remote-write map, pass splits and table exponents, is
+held against tpufft in interpret mode (1e-5 f32, 8e-3 bf16) and against
+``np.fft`` at every length of its lists. The geometry comes from the model
+in ``test_torch_strided_geometry.py``, which ``test_torch_cuda.py`` holds
+against the library's on the card.
 """
 
 import numpy as np
@@ -32,8 +36,10 @@ from tpufft.kernels import mxu_fft as tp_mxu
 
 from tpufft_torch.kernels import inner_fft, minor_fft
 
-from test_torch_strided_geometry import (FORM_CASES, LINE_NS, NEW_LINE_NS,
-                                         SPLITS, model_geometry, use_model)
+from test_torch_strided_geometry import (CLUSTER, FORM_CASES, LINE_NS,
+                                         NEW_LINE_NS,
+                                         SPLITS, cluster_geometry,
+                                         model_geometry, use_model)
 from _tpufft_caches import cold_tpufft_caches  # noqa: F401
 
 NS = [8, 93, 128, 256, 1024]
@@ -501,14 +507,180 @@ def test_line_tile_mapping(n, cols):
 def test_form(n, post, dtype, expected, monkeypatch):
     """The form each launch runs: n = r 2^a, r in {1, 3, 5}, 8 to 2048, on
     at least 8 f32 or 16 bf16 columns (bf16 up to n = 1024, where 16
-    columns stay within 512 lanes) runs the line form, the rest of the
-    envelope the stage form; the geometry narrows C to post. The library's
-    geometry query is answered by the model (``use_model``)."""
+    columns stay within 512 lanes) runs the line form, and the cluster
+    form's lists (f32 from 2160, bf16 from 1080) its cluster form, both
+    ``"lines"``; the rest of the envelope the stage form; the line form's
+    geometry narrows C to post, the cluster form's units are 16 columns.
+    The library's geometry query is answered by the model
+    (``use_model``)."""
     use_model(monkeypatch)
     assert inner_fft.form(n, post, dtype) == expected
     geo = inner_fft.line_geometry(n, post, dtype)
     assert (geo is not None) == (expected == "lines")
     if geo:
-        assert geo["n1"] * geo["n2"] == n
-        assert geo["cols"] <= max(post, 16 if dtype == torch.bfloat16 else 8)
+        assert geo["n1"] * geo["n2"] * geo.get("n3", 1) == n
         assert geo["cols"] >= (16 if dtype == torch.bfloat16 else 8)
+        if "q" in geo:   # the cluster form: units of 16 columns
+            assert geo["cols"] == 16
+        else:
+            assert geo["cols"] <= max(
+                post, 16 if dtype == torch.bfloat16 else 8)
+
+
+# ----------------------------------------------------------------------------
+# The cluster form (csrc/strided_long.cuh): a model with the kernel's indexing
+# ----------------------------------------------------------------------------
+
+def _cluster_model(x, inverse, scale, twiddle=None):
+    """The cluster form's arithmetic on a complex64 (pre, n, post) tensor,
+    indexed as ``strided_cluster_kernel`` indexes it (one geometry a
+    length, f32 and bf16 alike): units of C = 16 columns of one slice
+    (zeros past post); block b's pass-1 lines l = b M C / Q + i (u = l / C,
+    c = l mod C, u = N3 j2 + j3) load x[M j1 + u, c], run the N1-long lane
+    line (table stride n / N1) and write output k1, times A[k1][j2]
+    B[k1][j3] = w^(k1 N3 j2) w^(k1 j3), into the tile of block k1 / K at
+    ((k1 mod K) N2 + j2) N3 + j3) C + c (the tiles start as NaN, so a read
+    of an unwritten slot shows); pass 2 over each block's lines (kk, j3,
+    c), in place, times C[k2][j3] = w^(N1 k2 j3); pass 3 over its lines
+    (kk, k2, c) to X[b K + kk + N1 (k2 + N2 k3), c]; then ``twiddle`` and
+    the scale."""
+    pre, n, post = x.shape
+    geo = cluster_geometry(n, 1 << 20, True)
+    n1, n2, n3, q, C = (geo[k] for k in ("n1", "n2", "n3", "q", "cols"))
+    K, M = n1 // q, n2 * n3
+
+    def pos(kk, c2, j3, c):
+        return ((kk * n2 + c2) * n3 + j3) * C + c
+
+    tab = minor_fft._device_twiddles(n, inverse, torch.device("cpu"))
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    groups = -(-post // C)
+    xp = torch.zeros(pre, n, groups * C, dtype=torch.complex64)
+    xp[..., :post] = x
+    xu = xp.reshape(pre, n, groups, C).permute(0, 2, 1, 3).reshape(-1, n, C)
+    units = xu.shape[0]
+    ta = w[torch.outer(torch.arange(n1), torch.arange(n2)) * n3]
+    tb = w[torch.outer(torch.arange(n1), torch.arange(n3))]
+    tc = w[torch.outer(torch.arange(n2), torch.arange(n3)) * n1]
+    nan = complex(float("nan"), float("nan"))
+    tiles = torch.full((units, q, K * M * C), nan, dtype=torch.complex64)
+    lines1 = M * C // q
+    for b in range(q):                                     # pass 1
+        line = b * lines1 + torch.arange(lines1)
+        u, c = line // C, line % C
+        j2, j3 = u // n3, u % n3
+        rows = (M * torch.arange(n1))[None, :] + u[:, None]
+        v = _lane_dft(xu[:, rows, c[:, None]], n1, n // n1, w, inverse)
+        for r in range(n1):
+            k1 = _lane_out(n1, r)
+            y = v[..., r] * (ta[k1, j2] * tb[k1, j3]) if k1 else v[..., r]
+            tiles[:, k1 // K, pos(k1 % K, j2, j3, c)] = y
+    out = torch.empty(units, n, C, dtype=torch.complex64)
+    for b in range(q):
+        line = torch.arange(K * n3 * C)                    # pass 2
+        c, kk, j3 = line % C, line // C // n3, line // C % n3
+        at = [pos(kk, j, j3, c) for j in range(n2)]
+        v = _lane_dft(torch.stack([tiles[:, b, a] for a in at], -1), n2,
+                      n // n2, w, inverse)
+        for r in range(n2):
+            k2 = _lane_out(n2, r)
+            y = v[..., r] * tc[k2, j3] if k2 else v[..., r]
+            tiles[:, b, at[k2]] = y
+        line = torch.arange(K * n2 * C)                    # pass 3
+        c, kk, k2 = line % C, line // C // n2, line // C % n2
+        v = torch.stack([tiles[:, b, pos(kk, k2, j, c)] for j in range(n3)],
+                        -1)
+        v = _lane_dft(v, n3, n // n3, w, inverse)
+        for r in range(n3):
+            k = b * K + kk + n1 * (k2 + n2 * _lane_out(n3, r))
+            out[:, k, c] = v[..., r]
+    out = out.reshape(pre, groups, n, C).permute(0, 2, 1, 3)
+    out = out.reshape(pre, n, groups * C)[..., :post]
+    if twiddle is not None:
+        tw = torch.complex(twiddle[..., 0], twiddle[..., 1])
+        out = out * tw.repeat_interleave(post // tw.shape[1], dim=1)
+    return out * scale
+
+
+def _stored(z, storage):
+    """The model's output rounded to the storage dtype, as the kernel's
+    store rounds it."""
+    if storage == "f32":
+        return z.numpy()
+    return (z.real.to(torch.bfloat16).float().numpy()
+            + 1j * z.imag.to(torch.bfloat16).float().numpy())
+
+
+CLUSTER_TP_NS = [3840, 4096, 8320]
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", CLUSTER_TP_NS)
+def test_cluster_model_matches_build_inner(n, inverse, storage):
+    """K2 on the cluster form: the model (on the planes rounded to the
+    storage) against tpufft's ``_build_inner`` in interpret mode on a (1,
+    n, 20) array (two units of 16 columns, the second ragged); scale 1
+    forward, 1/n inverse."""
+    re, im = _planes((1, n, 20), seed=n + 7)
+    scale = 1.0 / n if inverse else 1.0
+    jdt, tdt = DTYPES[storage]
+    ref = tp_mxu.fft_axis_pallas(
+        jnp.asarray(re, jdt), jnp.asarray(im, jdt), 1, (), inverse=inverse,
+        scale=scale, config=TP_CFG)
+    x = torch.complex(torch.from_numpy(re).to(tdt).float(),
+                      torch.from_numpy(im).to(tdt).float())
+    got = _cluster_model(x, inverse, scale)
+    assert _err(_stored(got, storage), _np(*ref)) < TOL[storage]
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("with_tw", [False, True], ids=["plain", "with_tw"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", CLUSTER_TP_NS)
+def test_cluster_model_matches_build_inner_nd(n, inverse, with_tw, storage):
+    """K3 on the cluster form, with and without ``tw_nm`` at the store, on
+    (n, 5, 4) (post 20, the twiddle's (n, 5) columns four wide). tpufft's
+    ``_plan_inner_nd`` plans no kernel at these lengths (their only
+    factorization is its Kronecker four-step, which its rank-3 tiles
+    lack: it returns None, and tpufft's two-pass falls back to its flat
+    form), so the reference is what tpufft runs on the same memory: its
+    ``_build_inner`` (``fft_axis_pallas``) on the (1, n, 20) view in
+    interpret mode at scale 1, then the twiddle and the scale in float64,
+    rounded once to the storage dtype."""
+    M, L = 5, 4
+    re, im = _planes((n, M, L), seed=n + 9)
+    scale = 1.0 / n if inverse else 1.0
+    jdt, tdt = DTYPES[storage]
+    assert tp_mxu._plan_inner_nd(n, inverse, scale, M, L, TP_CFG, True,
+                                 with_tw=with_tw, storage=storage) is None
+    ref = tp_mxu.fft_axis_pallas(
+        jnp.asarray(re.reshape(1, n, M * L), jdt),
+        jnp.asarray(im.reshape(1, n, M * L), jdt), 1, (), inverse=inverse,
+        scale=1.0, config=TP_CFG)
+    ref = _np(*ref).reshape(n, M, L)
+    twc, tws = _two_pass_like_twiddle(n, M)
+    twiddle = None
+    if with_tw:
+        twiddle = torch.from_numpy(np.stack([twc, tws], -1).astype(np.float32))
+        ref = ref * (twc + 1j * tws)[:, :, None]
+    ref = _stored(torch.from_numpy((ref * scale).astype(np.complex64)),
+                  storage)
+    x = torch.complex(torch.from_numpy(re).to(tdt).float(),
+                      torch.from_numpy(im).to(tdt).float())
+    got = _cluster_model(x.reshape(1, n, M * L), inverse, scale, twiddle)
+    assert _err(_stored(got, storage).reshape(n, M, L), ref) < TOL[storage]
+
+
+@pytest.mark.parametrize("n", sorted(CLUSTER))
+def test_cluster_model_matches_numpy(n):
+    """Every length of the cluster form (one geometry a length, f32 and
+    bf16 alike), computed in f32 on f32 planes of two units (the second
+    ragged), forward and inverse, against ``np.fft`` in float64."""
+    re, im = _planes((1, n, 19), seed=n + 3)
+    x = re.astype(np.float64) + 1j * im
+    xt = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    for inverse, ref in ((False, np.fft.fft(x, axis=1)),
+                         (True, np.fft.ifft(x, axis=1) * n)):
+        got = _cluster_model(xt, inverse, 1.0)
+        assert _err(got.numpy(), ref) < 1e-5

@@ -54,7 +54,8 @@ calls, in ms:
 - the strided kernel: K2 (``fft_inner``) on (100, 640, 480) (``fft2``'s
   axis 1) and on ``rfft2``'s (100, 640, 241), each beside ``torch.fft.fft``
   of it along dim 1 (``cuFFT``), on T1's (1, 93, 1000000) and on the
-  survey's (10, 1920, 1080) (each on the form the checkout gives it); K3
+  survey's (10, 1920, 1080) and (1, 3840, 2160) (each on the form the
+  checkout gives it: at 3840 the stage form before the cluster form); K3
   (``fft_inner_nd``, n = 128) on (1280, 128, 128) and with the two-pass
   twiddle on (16384, 1024, 1) (``K3_tw``); K18 (``fft_inner_fused``) on P3's fused (10, 128, 128, 2 x
   128) and K19 on P4's (1024, 128, 1, 2 x 256); the ``fft2`` path of
@@ -90,7 +91,8 @@ K1_1080, K1_2160, K1_8320, K1_8192, K1_16384,
 K9, K9_2048, K9_4096, c2c, two_pass, bluestein, czt, fast_aligned,
 envelope, K5, K16, K7, K6, K7_256, K7_8192, K7_93,
 K8, K8_256, K8_8192, K8_93, irfft, rfft, fht, K13, K4, K4_n2_in, K4_packed,
-K17, K2, K2_241, K2_93, K2_1920, K3, K3_tw, K18, K19, fft2, P3, P4, K11,
+K17, K2, K2_241, K2_93, K2_1920, K2_3840, K3, K3_tw, K18, K19, fft2, P3,
+P4, K11,
 K12, K10,
 K14, K15, spectral, filter_real, filter_complex, hilbert, dct, dst4)
 and times those alone. Needs the card.
@@ -296,7 +298,8 @@ for name, shape, n2 in (("K4", (1280, 128, 128), 128),
 
 for name, shape in (("K2", (100, 640, 480)), ("K2_241", (100, 640, 241)),
                     ("K2_93", (1, 93, 1000000)),
-                    ("K2_1920", (10, 1920, 1080))):
+                    ("K2_1920", (10, 1920, 1080)),
+                    ("K2_3840", (1, 3840, 2160))):
     if want(name):
         xr = torch.randn(*shape, generator=g, device="cuda")
         xi = torch.randn(*shape, generator=g, device="cuda")

@@ -189,7 +189,7 @@ def load() -> ctypes.CDLL:
     lib.tpufft_strided_line_geometry.argtypes = [
         i32, ctypes.c_longlong, i32,  # n, post, bf16 storage
         ctypes.POINTER(i32),         # out: N1, N2, C, threads, smem bytes
-    ]
+    ]                                # (cluster form: N3, Q too)
     lib.tpufft_strided_line_geometry.restype = i32
     lib.tpufft_pair_fft_fused.argtypes = [
         vp, vp, vp, vp,              # st, out, n1 and n2 tables

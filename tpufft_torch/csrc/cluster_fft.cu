@@ -999,40 +999,13 @@ mid_pair_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
-// The launch configuration of `kernel` for `blocks` blocks in clusters of
-// csize, with the kernel's attributes set (dynamic shared memory above
-// 48 KB; a cluster of 16, above the portable 8).
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, const Shape& s, long long blocks,
-                      int csize, cudaStream_t stream,
-                      cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  cudaError_t err = allow_smem(kernel, s.smem);
-  if (err != cudaSuccess) return err;
-  if (csize > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)csize;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((unsigned)blocks);
-  cfg->blockDim = dim3((unsigned)s.threads);
-  cfg->dynamicSmemBytes = s.smem;
-  cfg->stream = stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
 // How many clusters of `kernel` the device can hold at once (0: none).
 template <typename Kernel>
 int active_clusters(Kernel kernel, const Shape& s, int csize, int* out) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cudaError_t err = configure(kernel, s, csize, csize, 0, &attr, &cfg);
+  cudaError_t err =
+      cluster_config(kernel, s.threads, s.smem, csize, csize, 0, &attr, &cfg);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
 }
@@ -1046,7 +1019,8 @@ int launch_clusters(Kernel kernel, const Shape& s, long long pre, int csize,
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   const cudaError_t err =
-      configure(kernel, s, blocks, csize, stream, &attr, &cfg);
+      cluster_config(kernel, s.threads, s.smem, blocks, csize, stream, &attr,
+                     &cfg);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchKernelEx(&cfg, kernel, args...);
   return (int)cudaGetLastError();

@@ -359,4 +359,35 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Host: the launch configuration of `kernel` for `blocks` blocks of
+// `threads` threads and `smem` bytes of dynamic shared memory in clusters
+// of csize, with the kernel's attributes set (dynamic shared memory above
+// 48 KB; a cluster of 16, above the portable 8). The cluster kernels'
+// (cluster_fft.cu, strided_long.cuh).
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int threads, size_t smem,
+                           long long blocks, int csize, cudaStream_t stream,
+                           cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (csize > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)blocks);
+  cfg->blockDim = dim3((unsigned)threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 }  // namespace tpufft_fft

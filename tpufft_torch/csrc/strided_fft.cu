@@ -20,15 +20,19 @@
 // axis (~3 flop/byte), plus the access pattern: the n values of one
 // transform lie `post` elements apart.
 //
-// The kernel has two forms; launch_sized picks one by (n, post, storage),
-// and tpufft_strided_line_geometry below tells kernels/inner_fft.py:form
-// which. The line form (strided_line.cuh: n = r 2^a, r in {1, 3, 5}, from 8
-// to 2048, and 15 2^a from 30 to 1920, 25, 93 and 1080, on post of at
-// least 8 f32 or 16 bf16 columns) keeps each column line in registers and
-// crosses shared memory once; its design notes are there. Every other
-// launch runs the stage form below (strided_fft_kernel), e.g. n = 127 (a
-// prime above 31) and n > 2048; tpufft_strided_fft_stages runs it at every
-// length, to compare the forms.
+// The kernel has three forms; launch_sized picks one by (n, post,
+// storage), and tpufft_strided_line_geometry below tells
+// kernels/inner_fft.py:form which. The line form (strided_line.cuh: n = r
+// 2^a, r in {1, 3, 5}, from 8 to 2048, and 15 2^a from 30 to 1920, 25, 93
+// and 1080, on post of at least 8 f32 or 16 bf16 columns; bf16 up to 1024)
+// keeps each column line in registers and crosses shared memory once; the
+// cluster line form (strided_long.cuh: f32 2160, 2560, 3072, 3840 and the
+// three-factor lengths 4096 to 16384 of the minor axis; bf16 those and
+// 1080, 1280, 1536, 1920, 2048) spreads a unit's tile over a thread-block
+// cluster; their design notes are there. Every other launch runs the stage
+// form below (strided_fft_kernel), e.g. n = 127 (a prime above 31), 2880
+// or 4100; tpufft_strided_fft_stages runs it at every length, to compare
+// the forms.
 //
 // The stage form: a block takes an (n, cols) tile - n strided rows, `cols`
 // contiguous columns - and loads it with neighbouring threads on neighbouring
@@ -47,7 +51,8 @@
 //
 // Known costs of the stage form:
 // - at n = 16384 a tile is one column wide, so each load is a lone
-//   4-byte access per row (a four-step or TMA tiles would fix it);
+//   4-byte access per row (the cluster form's units of 16 columns replace
+//   it at the lengths of its lists);
 // - writing the transposed tile into shared memory hits one bank with up
 //   to 16 threads of a half-warp when n is a multiple of 16 (the stages'
 //   pad() serves their own strides, not this one).
@@ -57,6 +62,7 @@
 
 #include "fft_stages.cuh"
 #include "strided_line.cuh"
+#include "strided_long.cuh"
 
 using namespace tpufft_fft;
 
@@ -194,21 +200,25 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// The line form where line_geometry gives one, else the stage form;
-// `stages` forces the stage form (kept to compare the forms).
+// The line form where line_geometry gives one, else the cluster form
+// where cluster_geometry does, else the stage form; `stages` forces the
+// stage form (kept to compare the forms).
 template <typename T, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, const void* tw_nm, long long pre,
                  long long post, int tw_m, long long tw_l,
                  const Radices& plan, int inverse, float scale,
                  cudaStream_t stream, bool stages = false) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const tpufft_strided::LineArgs args{
+      xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m, tw_l, inverse, scale,
+      stream};
   tpufft_strided::LineGeometry g;
-  if (!stages && tpufft_strided::line_geometry(
-          plan.n, post, std::is_same<T, __nv_bfloat16>::value, &g))
-    return tpufft_strided::launch_line<T, kFused>(
-        {xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m, tw_l, inverse, scale,
-         stream},
-        g);
+  if (!stages && tpufft_strided::line_geometry(plan.n, post, bf16, &g))
+    return tpufft_strided::launch_line<T, kFused>(args, g);
+  tpufft_strided::ClusterGeometry cl;
+  if (!stages && tpufft_strided::cluster_geometry(plan.n, post, bf16, &cl))
+    return tpufft_strided::launch_cluster<T, kFused>(args, cl);
   const Tile t = tile_for(pre, plan.n, post);
   if (t.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (t.per == 8)
@@ -316,16 +326,24 @@ extern "C" int tpufft_strided_fft_fused(const void* st, void* out,
 // The form a launch of n-long lines over post columns (M L on fused
 // storage) in f32 (bf16 = 0) or bf16 storage runs: 1 and out[0:5] = {N1,
 // N2, C, threads, shared-memory bytes} of the line form (N2 = 1: one line a
-// lane, no tile), or 0 for the stage form. n must lie in the kernel's
-// envelope.
+// lane, no tile); 2 and out[0:7] = {N1, N2, C, threads, shared-memory bytes
+// a block, N3, Q} of the cluster form; or 0 for the stage form. n must lie
+// in the kernel's envelope.
 extern "C" int tpufft_strided_line_geometry(int n, long long post, int bf16,
                                             int* out) {
   tpufft_strided::LineGeometry g;
-  if (!tpufft_strided::line_geometry(n, post, bf16 != 0, &g)) return 0;
-  out[0] = g.n1;
-  out[1] = g.n2;
-  out[2] = 1 << g.cols_log2;
-  out[3] = g.threads;
-  out[4] = (int)g.smem;
-  return 1;
+  if (tpufft_strided::line_geometry(n, post, bf16 != 0, &g)) {
+    out[0] = g.n1;
+    out[1] = g.n2;
+    out[2] = 1 << g.cols_log2;
+    out[3] = g.threads;
+    out[4] = (int)g.smem;
+    return 1;
+  }
+  tpufft_strided::ClusterGeometry c;
+  if (!tpufft_strided::cluster_geometry(n, post, bf16 != 0, &c)) return 0;
+  const int row[7] = {c.n1, c.n2, tpufft_strided::kLongCols, c.threads,
+                      (int)c.smem, c.n3, c.q};
+  for (int i = 0; i < 7; ++i) out[i] = row[i];
+  return 2;
 }

@@ -26,8 +26,11 @@
 // from 30 to 1920, and 25, 93 (3 x 31) and 1080 (line_split below), for a
 // launch whose post is at least 8 columns in f32 (16 in bf16, a sector of
 // bf16 values) and whose block stays within the launch bound (bf16 up to
-// n = 1024); every other launch (a prime above 31, n above 2048) runs the
-// stage form. A unit is C consecutive columns of one pre-slice (C a power
+// n = 1024). Longer lengths on the lists of strided_long.cuh (f32 from
+// 2160, bf16 from 1080) run the cluster form there, whose unit tile is
+// spread over a thread-block cluster; every other launch (a prime above
+// 31, a length on no list) runs the stage form. A unit is C consecutive
+// columns of one pre-slice (C a power
 // of two from 8 to 32, line_geometry), every unit's columns past post
 // compute on zeros and store nothing, and blocks loop over units on a grid
 // of at most the blocks the card holds at once, so that each block stages

@@ -24,10 +24,10 @@ kernel K4 (``csrc/pair_fft.cu``), K18 and K19 the strided kernel K2/K3
 (``csrc/minor_fft.cuh``), in K1's form for the length (:func:`minor_form`:
 the register line form at K1's line-form lengths, the Stockham stages
 elsewhere); K18/K19 likewise run the strided kernel's form
-(:func:`inner_form`: the column line form at n = r 2^a, r in {1, 3, 5},
-from 8 to 2048). The contract is theirs: f32 or bf16 storage, f32
-arithmetic, a forward/inverse flag, one real scale applied once at the
-store. Each is bound by device-memory bandwidth like its sibling: it moves
+(:func:`inner_form`: the column line forms at n = r 2^a, r in {1, 3, 5},
+from 8 to 2048, and the cluster form's lengths above). The contract is
+theirs: f32 or bf16 storage, f32 arithmetic, a forward/inverse flag, one
+real scale applied once at the store. Each is bound by device-memory bandwidth like its sibling: it moves
 the same bytes, in runs of h values a plane instead of whole rows.
 
 The gates are the port's own envelopes, applied to the logical lengths:
@@ -113,9 +113,10 @@ def inner_supported(n: int, dtype) -> bool:
 def inner_form(n: int, M: int, L: int, dtype) -> str | None:
     """Which form of the strided kernel K18/K19 runs on axis 1 of the
     (pre, n, M, 2L) fused array: ``inner_fft.form`` of its M * L logical
-    columns (``"lines"`` for n = r 2^a, r in {1, 3, 5}, from 8 to 2048 on
-    at least 8 f32 or 16 bf16 columns, ``"stages"`` for the rest of the
-    envelope, None outside it)."""
+    columns (``"lines"`` for either line form, n = r 2^a, r in {1, 3, 5},
+    from 8 to 2048 and the cluster form's lengths above it, on at least 8
+    f32 or 16 bf16 columns, ``"stages"`` for the rest of the envelope,
+    None outside it)."""
     return inner_fft.form(n, M * L, dtype)
 
 

@@ -17,18 +17,25 @@ f32 arithmetic, a forward/inverse flag, one real scale applied once at the
 store, the same length envelope (``minor_fft.supported``) and the same
 host-f64 twiddle table.
 
-The kernel has two forms (:func:`form`). The line form
-(``csrc/strided_line.cuh``) takes n = r 2^a for r in {1, 3, 5} from 8 to
-2048 and r = 15 from 30 to 1920, and 25, 93 and 1080, when post holds at
-least 8 f32 (16 bf16) columns and the block stays within the launch bound
-(bf16 up to n = 1024): blocks of at least C n / 32 lanes keep each
-column's line in registers, lanes on consecutive columns, through one
-shared-memory tile between the two passes of a four-step n = N1 N2 (one
-line a lane without a tile for n <= 32; :func:`line_geometry`); the lines
+The kernel has three forms; :func:`form` names the line forms
+``"lines"``. The line form (``csrc/strided_line.cuh``) takes n = r 2^a
+for r in {1, 3, 5} from 8 to 2048 and r = 15 from 30 to 1920, and 25, 93
+and 1080, when post holds at least 8 f32 (16 bf16) columns and the block
+stays within the launch bound (bf16 up to n = 1024): blocks of at least C
+n / 32 lanes keep each column's line in registers, lanes on consecutive
+columns, through one shared-memory tile between the two passes of a
+four-step n = N1 N2 (one line a lane without a tile for n <= 32). The
+cluster line form (``csrc/strided_long.cuh``) takes the longer lengths of
+its lists, f32 2160, 2560, 3072, 3840 and 4096 to 16384 (K1's
+three-factor lengths) and bf16 those and 1080 to 2048, on at least 8 f32
+(16 bf16) columns: a three-factor four-step n = N1 N2 N3 whose tile of
+a unit of 16 columns is spread over a thread-block cluster of Q blocks,
+pass 1 writing into the owners' tiles through distributed shared memory
+(:func:`line_geometry` gives either form's geometry). The lines of both
 run the shared generic-radix DFT of ``csrc/lane_dft.cuh``. Every other
-launch (a prime factor above 31, n above 2048) runs the stage form, the
-Stockham stages in shared memory; ``stages=True`` forces it at every
-length, kept to compare the forms.
+launch (a prime factor above 31, a length on no list such as 2880 or
+4100) runs the stage form, the Stockham stages in shared memory;
+``stages=True`` forces it at every length, kept to compare the forms.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises, never falls back. ``launches`` counts kernel launches per wrapper;
@@ -65,24 +72,33 @@ reference_cuda_calls = 0
 @functools.lru_cache(maxsize=None)
 def _line_geometry(n: int, post: int, bf16: bool) -> dict | None:
     lib = _build.load()
-    out = (ctypes.c_int * 5)()
-    if not lib.tpufft_strided_line_geometry(n, post, int(bf16), out):
+    out = (ctypes.c_int * 7)()
+    kind = lib.tpufft_strided_line_geometry(n, post, int(bf16), out)
+    if kind == 0:
         return None
-    n1, n2, cols, threads, smem = out
+    n1, n2, cols, threads, smem, n3, q = out
+    if kind == 2:
+        return {"n1": n1, "n2": n2, "n3": n3, "q": q, "cols": cols,
+                "threads": threads, "smem": smem}
     return {"n1": n1, "n2": n2, "cols": cols, "threads": threads,
             "pair": n2 > 32, "smem": smem}
 
 
 def line_geometry(n: int, post: int, dtype) -> dict | None:
-    """The line form's geometry for (pre, n, post) planes in ``dtype``
+    """The line forms' geometry for (pre, n, post) planes in ``dtype``
     storage, as the launch computes it (``line_geometry`` in
-    ``csrc/strided_line.cuh``, read through the library, so it needs the
-    CUDA toolkit): ``n1``, ``n2`` (the four-step; n2 = 1: one line a lane,
-    no tile), ``cols`` (C, columns a unit: the widest of 32, 16 and 8
-    whose block stays within the launch bound and whose columns within
-    post), ``threads`` (a block), ``pair`` (pass 2's lines of 36 to 64 on
-    lane pairs) and ``smem`` (bytes: the padded n-table and the tile of C n
-    complex f32 values). None where the launch runs the stage form."""
+    ``csrc/strided_line.cuh``, then ``cluster_geometry`` in
+    ``csrc/strided_long.cuh``, read through the library, so it needs the
+    CUDA toolkit). The line form: ``n1``, ``n2`` (the four-step; n2 = 1:
+    one line a lane, no tile), ``cols`` (C, columns a unit: the widest of
+    32, 16 and 8 whose block stays within the launch bound and whose
+    columns within post), ``threads`` (a block), ``pair`` (pass 2's lines
+    of 36 to 64 on lane pairs) and ``smem`` (bytes: the padded n-table and
+    the tile of C n complex f32 values). The cluster form: ``n1``, ``n2``,
+    ``n3`` (n = N1 N2 N3), ``q`` (blocks a cluster, each owning N1 / Q
+    rows k1 of the unit's tile), ``cols`` (C = 16), ``threads`` and
+    ``smem`` (bytes a block: the twiddle tables and its N1 / Q rows of N2
+    N3 C tile values). None where the launch runs the stage form."""
     if not minor_fft.supported(n, dtype):
         return None
     geo = _line_geometry(int(n), int(post), dtype == torch.bfloat16)
@@ -92,10 +108,13 @@ def line_geometry(n: int, post: int, dtype) -> dict | None:
 def form(n: int, post: int, dtype) -> str | None:
     """Which form of the kernel transforms axis 1 of (pre, n, post) planes
     in ``dtype`` storage, as the launch picks it (``launch_sized`` in
-    ``csrc/strided_fft.cu``, read through the library): ``"lines"`` (n = r
-    2^a, r in {1, 3, 5}, 8 <= n <= 2048, or r = 15, 30 <= n <= 1920; 25,
-    93, 1080; post >= 8 f32 or 16 bf16 columns; bf16 up to n = 1024),
-    ``"stages"`` for the rest of the envelope, None outside it."""
+    ``csrc/strided_fft.cu``, read through the library): ``"lines"`` for
+    either line form (n = r 2^a, r in {1, 3, 5}, 8 <= n <= 2048, or r =
+    15, 30 <= n <= 1920; 25, 93, 1080; bf16 up to n = 1024; and the
+    cluster form's lists: f32 2160, 2560, 3072, 3840, 4096 to 16384 at
+    K1's three-factor lengths, bf16 those and 1080 to 2048; post >= 8 f32
+    or 16 bf16 columns), ``"stages"`` for the rest of the envelope, None
+    outside it."""
     if not minor_fft.supported(n, dtype):
         return None
     return "stages" if line_geometry(n, post, dtype) is None else "lines"
