@@ -51,8 +51,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
 9. the real-transform kernels K7 (rfft) and K8 (irfft), K9 (the zero-pad
    DFT, K1 with the pad in its load) and K4 with ``n2_in`` against their
    plain versions on ragged batches: even and odd real lengths 2 to 32768
-   (every length of K7's and K8's line form, 256 to 8192, among them;
-   each length printed with its form, ``real_fft.form``), pads (1 -> 2),
+   (every length of K7's and K8's line form among them: 256 to 8192 at
+   power-of-two halves, the 29 mixed-radix halves of
+   ``real_fft._REAL_STEP`` (n = 24 to 7680) and odd n = 93; each length
+   printed with its form, ``real_fft.form``), pads (1 -> 2),
    (33 -> 64), (93 -> 128), (1000 -> 1024), (1024 -> 2048), (2047 ->
    4096), (300 -> 384) and (n - 1 -> n) at every mixed-radix and
    three-factor length on K9's line form, (5000 -> 8192) and (4099 ->
@@ -329,6 +331,16 @@ Phases, each of which raises (and so exits nonzero) on failure:
     K2, K3, K18 and K19 at every length of the cluster form against their
     plain versions (``STRIDED_LINE_NS``).
 
+31. K7's and K8's mixed-radix line form (K1's four-step at the half m of
+    an even n on K1's lists, or at odd n = 93 itself): K7 and K8 alone at
+    (1000000, 93) and (64000, 480), K7 at (50000, 1920) and (25000, 7680),
+    each beside its stage form (in turns), its plain version,
+    ``torch.fft.rfft`` / ``irfft`` and the copy floor; then ``rfft``
+    (1000000, 93) and ``rfft2`` / ``irfft2`` (100, 640, 480) as paths,
+    every count set to 0 just before each and read just after (K7 once;
+    K7 and K2; K2 and K8), against ``np.fft`` on a few rows and through
+    the round trip, beside ``torch.fft``.
+
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
 its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
@@ -420,11 +432,18 @@ CLUSTER_KERNELS = ("cube", "mid_pair")
 FUSED_KERNELS = tuple(f"fused_{k}" for k in fused_fft.launches)
 ALL_KERNELS = (KERNELS + REAL_KERNELS + DENSE_KERNELS + STFT_KERNELS
                + CLUSTER_KERNELS + FUSED_KERNELS)
-REAL_EVEN_NS = (2, 8, 128, 256, 512, 1024, 2048, 4096, 8192, 32768)
+# the power-of-two line form, the stage form's classes, and every
+# mixed-radix half of K7's and K8's line form (real_fft._REAL_STEP)
+REAL_EVEN_NS = ((2, 8, 128, 256, 512, 1024, 2048, 4096, 8192, 32768)
+                + tuple(sorted(2 * m for m in real_fft._REAL_STEP)))
 # K7 alone beside torch.fft.rfft at the line form's shortest and longest
 # rows, ~100 MB of input each (the (100000, 1024) row is the rfft path's)
 REAL_LINE_SHAPES = ((400_000, 256), (12_500, 8192))
 REAL_ODD_NS = (3, 93, 127, 16383)
+# phase 31: K7/K8 (rows, n, kernels) beside their stage forms, and the
+# paths rfft (10^6, 93) and rfft2/irfft2 (100, 640, 480)
+MIXED_REAL_SHAPES = ((1_000_000, 93, "K7 K8"), (64_000, 480, "K7 K8"),
+                     (50_000, 1920, "K7"), (25_000, 7680, "K7"))
 # K9's pads: its line form at power-of-two n up to 4096 (n_in = 1, n/2,
 # odd), at 384 and above 4096 (8192, Bluestein's 8320), its stage form at
 # 4100
@@ -3804,17 +3823,24 @@ def _ab_line(what: str, line, stages, plain, library, nbytes: float,
              rate: float, tol: float = F32_TOL) -> dict:
     """One line form beside its stage form, its plain version, the library
     call and the copy floor of its bytes: the line form held against its
-    stage form (``tol``: f32 1e-5), each timed (median of REPS), the two
-    forms in turns line, stages, stages, line; returns the medians."""
-    err = pair_err(line(), stages())
+    stage form and its plain version on the same inputs (``tol``: f32
+    1e-5), each timed (median of REPS), the two forms in turns line,
+    stages, stages, line; returns the medians."""
+    got = line()
+    err = pair_err(got, stages())
     check(err < tol, f"{what}: line form vs stage form {err:.3e}")
+    err_plain = pair_err(got, plain())
+    check(err_plain < tol,
+          f"{what}: line form vs plain version {err_plain:.3e}")
+    del got
     a, b = _time_ms(line), _time_ms(stages)
     b, a = (b + _time_ms(stages)) / 2, (a + _time_ms(line)) / 2
     t = {"line": a, "stages": b, "plain": _time_ms(plain),
          "library": _time_ms(library), "floor": nbytes / rate * 1e3}
     print(f"  {what}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
           + f" ms; line / stages {a / b:.3f}, floor / line "
-          f"{t['floor'] / a:.3f}; line vs stages {err:.3e}")
+          f"{t['floor'] / a:.3f}; line vs stages {err:.3e}, vs plain "
+          f"{err_plain:.3e}")
     return t
 
 
@@ -3895,6 +3921,113 @@ def phase_mixed_times(rate: float) -> dict:
               f"trip {rt:.3e}, launches "
               f"{ {k: v for k, v in by_kernel.items() if v} }")
         del x, xr, xi, xc
+    torch.cuda.synchronize()
+    return dict(total)
+
+
+def phase_mixed_real_times(rate: float) -> dict:
+    """Phase 31: K7 and K8 on their mixed-radix line form at
+    MIXED_REAL_SHAPES, each beside its stage form (``stages=True``, in
+    turns), its plain version, ``torch.fft.rfft`` / ``irfft`` and the copy
+    floor; then ``rfft`` (1000000, 93) and ``rfft2`` / ``irfft2`` (100,
+    640, 480) as paths, each call driven with every count set to 0 just
+    before it and read just after, against ``np.fft`` on a few rows and
+    through the round trip, timed beside ``torch.fft``. Returns the paths'
+    launches."""
+    card = _smi("name,power.limit")
+    print(f"phase 31, K7/K8 mixed-radix line form [{card}], ms (median of "
+          f"{REPS}):")
+    f32 = 4
+    for rows, n, which in MIXED_REAL_SHAPES:
+        check(real_fft.launched_geometry(n) == {
+            "form": "lines", **real_fft.line_geometry(n)},
+            f"K7/K8 at {n}: the library's form is not the line form")
+        x, _ = _device_planes((rows, n), seed=n)
+        hr, hi = real_fft.rfft_minor(x, scale=1.0)
+        hc = torch.complex(hr, hi)
+        nb = f32 * (rows * n + 2 * rows * (n // 2 + 1))
+        geo = real_fft.line_geometry(n)
+        split = (geo["n1"], geo["n2"])
+        if "K7" in which:
+            _ab_line(f"K7 ({rows}, {n}) {split}",
+                     lambda: real_fft.rfft_minor(x, scale=1.0),
+                     lambda: real_fft.rfft_minor(x, scale=1.0, stages=True),
+                     lambda: real_fft.rfft_minor_reference(x, scale=1.0),
+                     lambda: torch.fft.rfft(x), nb, rate)
+        if "K8" in which:
+            def pair(y):
+                return y, y
+            _ab_line(f"K8 ({rows}, {n}) {split}",
+                     lambda: pair(real_fft.irfft_minor(hr, hi, n=n,
+                                                       scale=1.0 / n)),
+                     lambda: pair(real_fft.irfft_minor(hr, hi, n=n,
+                                                       scale=1.0 / n,
+                                                       stages=True)),
+                     lambda: pair(real_fft.irfft_minor_reference(
+                         hr, hi, n=n, scale=1.0 / n)),
+                     lambda: torch.fft.irfft(hc, n=n), nb, rate)
+        del x, hr, hi, hc
+    total = collections.Counter()
+
+    def driven(name, fn, arg, want):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(arg)
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        check(plain == 0, f"{name}: plain versions ran {plain} times")
+        got = {k: v for k, v in by_kernel.items() if v}
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        total.update(by_kernel)
+        return out, got
+
+    # rfft (1000000, 93): K7 at odd n on K1's 31 x 3
+    rows, n = 1_000_000, 93
+    x, _ = _device_planes((rows, n), seed=31)
+    y, got = driven("rfft", tpufft_torch.rfft, x, {"r2c": 1})
+    back, got_b = driven("irfft", lambda v: tpufft_torch.irfft(v, n=n), y,
+                         {"c2r": 1})
+    ref = np.fft.rfft(x[:4].double().cpu().numpy())
+    err = float(np.max(np.abs(y[:4].cpu().numpy() - ref))
+                / np.max(np.abs(ref)))
+    rt = norm_err(back, x)
+    check(err < NP_TOL and rt < NP_TOL,
+          f"rfft {(rows, n)}: vs np.fft.rfft {err:.3e}, round trip {rt:.3e}")
+    t = {"path": _time_ms(lambda: tpufft_torch.rfft(x)),
+         "irfft_path": _time_ms(lambda: tpufft_torch.irfft(y, n=n)),
+         "torch_rfft": _time_ms(lambda: torch.fft.rfft(x)),
+         "torch_irfft": _time_ms(lambda: torch.fft.irfft(y, n=n)),
+         "floor": f32 * (rows * n + 2 * rows * (n // 2 + 1)) / rate * 1e3}
+    print(f"  path rfft {(rows, n)} f32 -> c64: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()) + f" ms; K7 "
+          f"{real_fft.form(n)} form; vs np.fft.rfft {err:.3e}, round trip "
+          f"{rt:.3e}, launches {got} and {got_b}")
+    del x, y, back
+    # rfft2 / irfft2 (100, 640, 480): K7 at 480, K2 at 640 (and back)
+    shape = (100, 640, 480)
+    x, _ = _device_planes(shape, seed=640)
+    y, got = driven("rfft2", tpufft_torch.rfft2, x, {"r2c": 1, "inner": 1})
+    back, got_b = driven("irfft2",
+                         lambda v: tpufft_torch.irfft2(v, s=shape[1:]), y,
+                         {"c2r": 1, "inner": 1})
+    ref = np.fft.rfft2(x[:2].double().cpu().numpy())
+    err = float(np.max(np.abs(y[:2].cpu().numpy() - ref))
+                / np.max(np.abs(ref)))
+    rt = norm_err(back, x)
+    check(err < NP_TOL and rt < NP_TOL,
+          f"rfft2 {shape}: vs np.fft.rfft2 {err:.3e}, round trip {rt:.3e}")
+    nb = f32 * (x.numel() + 2 * y.numel())
+    t = {"path": _time_ms(lambda: tpufft_torch.rfft2(x)),
+         "irfft2_path": _time_ms(
+             lambda: tpufft_torch.irfft2(y, s=shape[1:])),
+         "torch_rfft2": _time_ms(lambda: torch.fft.rfft2(x)),
+         "torch_irfft2": _time_ms(lambda: torch.fft.irfft2(y, s=shape[1:])),
+         "floor": (nb + f32 * 4 * y.numel()) / rate * 1e3}
+    print(f"  path rfft2 {shape} f32 -> c64: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()) + f" ms; K7 at 480 "
+          f"{real_fft.form(480)} form; vs np.fft.rfft2 {err:.3e}, round "
+          f"trip {rt:.3e}, launches {got} and {got_b}")
+    del x, y, back
     torch.cuda.synchronize()
     return dict(total)
 
@@ -4266,12 +4399,13 @@ def main() -> None:
     mixed_launches = phase_mixed_times(rate)
     long_launches = phase_long_times(rate)
     cluster_launches = phase_cluster_times(rate)
+    real_mixed_launches = phase_mixed_real_times(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
                  multirate_launches, design_launches, peak_launches,
                  parallel_launches, mixed_launches, long_launches,
-                 cluster_launches):
+                 cluster_launches, real_mixed_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

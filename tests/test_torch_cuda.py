@@ -1024,6 +1024,131 @@ def test_irfft_line_form_views(cuda_device):
         real_fft.irfft_minor(wide[:, :m1], wide[:, 7:], n=n, scale=1.0)
 
 
+# K7's and K8's mixed-radix line form: the 29 even n whose half is on K1's
+# family lists (real_fft._REAL_STEP) and the odd n = 93
+MIXED_REAL_NS = (sorted(2 * m for m in real_fft._REAL_STEP)
+                 + list(real_fft._ODD_LINES))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", LINE_BATCHES + ["past_grid"])
+@pytest.mark.parametrize("n", MIXED_REAL_NS)
+def test_mixed_real_line_form_matches_plain_version(n, batch, dtype, tol,
+                                                    cuda_device):
+    """K7 and K8 on their mixed-radix line form against their plain
+    versions on ragged batches and on one that makes each block loop over
+    several row groups, scale 1 and 1/n, K8's planes with nonzero
+    imaginary parts at DC and Nyquist: one launch a call, no run of a plain
+    version inside it; the stage form (``stages=True``) agrees."""
+    assert real_fft.form(n) == "lines"
+    if batch == "past_grid":
+        batch = _past_one_grid(n)
+    x, _ = _planes((batch, n), cuda_device, dtype, seed=n + batch)
+    hr, hi = _planes((batch, n // 2 + 1), cuda_device, dtype,
+                     seed=n + batch + 1)
+    zero = torch.zeros(batch, n, device=cuda_device)
+    for scale in (1.0, 1.0 / n):
+        before = dict(real_fft.launches)
+        plain = real_fft.reference_cuda_calls
+        got = real_fft.rfft_minor(x, scale=scale)
+        back = real_fft.irfft_minor(hr, hi, n=n, scale=scale)
+        assert real_fft.launches == {"r2c": before["r2c"] + 1,
+                                     "c2r": before["c2r"] + 1}
+        assert real_fft.reference_cuda_calls == plain
+        ref = real_fft.rfft_minor_reference(x, scale=scale)
+        ref_back = real_fft.irfft_minor_reference(hr, hi, n=n, scale=scale)
+        stages = real_fft.rfft_minor(x, scale=scale, stages=True)
+        stages_back = real_fft.irfft_minor(hr, hi, n=n, scale=scale,
+                                           stages=True)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and got[0].shape == (batch, n // 2 + 1)
+        assert back.dtype == dtype and back.shape == (batch, n)
+        assert _err(got, ref) < tol and _err(got, stages) < tol
+        assert _err((back, zero), (ref_back, zero)) < tol
+        assert _err((back, zero), (stages_back, zero)) < tol
+
+
+@pytest.mark.parametrize("n", sorted(set(MIXED_REAL_NS + REAL_LINE_NS
+                                         + [1000, 127, 8640, 128, 95])))
+def test_real_line_geometry_matches_the_library(n, cuda_device):
+    """``real_fft.line_geometry`` (the wrapper's table) is the geometry the
+    library launches (``tpufft_real_line_geometry``), and the stage form
+    is reported where ``real_fft.form`` says so."""
+    got = real_fft.launched_geometry(n)
+    if real_fft.form(n) == "lines":
+        assert got == {"form": "lines", **real_fft.line_geometry(n)}
+    else:
+        assert got == {"form": "stages"}
+
+
+@pytest.mark.parametrize("n", MIXED_REAL_NS)
+def test_mixed_real_line_form_edge_values(n, cuda_device):
+    """Edge-value rows through K7's and K8's mixed-radix line form, held as
+    ``test_real_line_form_edge_values`` and
+    ``test_irfft_line_form_edge_values`` hold the power-of-two halves: rows
+    with Inf or NaN come out non-finite in the kernel and the plain version
+    alike, no other row does but the 3.4e38 row, and the other rows (1e-20
+    and 1e18 among them) are within 1e-5 of the plain version relative to
+    their own magnitude, as is the 3.4e38 row where it stays finite."""
+    x, _ = _planes((257, n), cuda_device, seed=n)
+    x, _ = _fft_edge_rows(x, torch.zeros_like(x))
+    got = real_fft.rfft_minor(x, scale=1.0)
+    ref = real_fft.rfft_minor_reference(x, scale=1.0)
+    hr, hi = _fft_edge_rows(*_planes((257, n // 2 + 1), cuda_device,
+                                     seed=n + 1))
+    back = real_fft.irfft_minor(hr, hi, n=n, scale=1.0 / n)
+    ref_back = real_fft.irfft_minor_reference(hr, hi, n=n, scale=1.0 / n)
+    torch.cuda.synchronize()
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[:3].all() and not bad[4:].any()
+    assert _complex_row_err((got[0][4:], got[1][4:]),
+                            (ref[0][4:], ref[1][4:])) < 1e-5
+    if torch.isfinite(got[0][3]).all() and torch.isfinite(got[1][3]).all():
+        assert _complex_row_err((got[0][3:4], got[1][3:4]),
+                                (ref[0][3:4], ref[1][3:4])) < 1e-5
+    for out in (back, ref_back):
+        bad = (~torch.isfinite(out)).any(1)
+        assert bad[:3].all() and not bad[4:].any()
+    zero = torch.zeros_like(back)
+    assert _complex_row_err((back[4:], zero[4:]),
+                            (ref_back[4:], zero[4:])) < 1e-5
+    if torch.isfinite(back[3]).all():
+        assert _complex_row_err((back[3:4], zero[3:4]),
+                                (ref_back[3:4], zero[3:4])) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+def test_odd_real_line_form_misaligned_views(dtype, tol, cuda_device):
+    """K7 and K8 at odd n = 93 read and write 4-byte (bf16: 2-byte) values:
+    contiguous views that start 1, 2 and 3 elements past a 16-byte
+    boundary run in place (no copy) on the line form and match the plain
+    versions."""
+    n, m1, rows = 93, 47, 131
+    assert real_fft.form(n) == "lines"
+    flat = torch.randn(3, 3 + rows * n, device=cuda_device).to(dtype)
+    for off in (1, 2, 3):
+        x = flat[0, off:off + rows * n].view(rows, n)
+        hr = flat[1, off:off + rows * m1].view(rows, m1)
+        hi = flat[2, off:off + rows * m1].view(rows, m1)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        before = dict(real_fft.launches)
+        got = real_fft.rfft_minor(x, scale=1.0 / n)
+        back = real_fft.irfft_minor(hr, hi, n=n, scale=1.0)
+        assert real_fft.launches == {"r2c": before["r2c"] + 1,
+                                     "c2r": before["c2r"] + 1}
+        ref = real_fft.rfft_minor_reference(x, scale=1.0 / n)
+        ref_back = real_fft.irfft_minor_reference(hr, hi, n=n, scale=1.0)
+        torch.cuda.synchronize()
+        zero = torch.zeros_like(back)
+        assert _err(got, ref) < tol
+        assert _err((back, zero), (ref_back, zero)) < tol
+
+
 def _pad_ins(n):
     """K9's input lengths at padded length n: 1, n/2, n/2 + 1 and n - 1,
     those below n."""

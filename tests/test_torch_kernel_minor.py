@@ -807,14 +807,19 @@ def test_three_factor_tables_match_the_header():
 def test_real_fft_forms_keep_their_cap():
     """K7 and K8 decide their line form from ``LINE_MAX_N``, which the
     three-factor lengths leave as it was: ``real_fft.form`` gives the line
-    form exactly at even n whose half is a power of two from 128 to 4096,
-    for every even n up to 32768 (halves that K1 takes in three factors
-    above 4096, 8192 and 16384 among them, stay on K7/K8's stage form)."""
+    form exactly at even n whose half is a power of two from 128 to 4096
+    or a mixed-radix length of K1's four-step lists (``_REAL_STEP``, all
+    below 4096), for every even n up to 32768 (halves that K1 takes in
+    three factors above 4096, 8192 and 16384 among them, stay on K7/K8's
+    stage form)."""
     from tpufft_torch.kernels import real_fft
     assert minor_fft.LINE_MAX_N == 4096
+    assert set(real_fft._REAL_STEP) == set(minor_fft._MIXED_STEP)
+    assert max(real_fft._REAL_STEP) < minor_fft.LINE_MAX_N
     for n in range(2, 32769, 2):
         m = n // 2
-        want = ("lines" if 128 <= m <= 4096 and m & (m - 1) == 0
+        want = ("lines" if (128 <= m <= 4096 and m & (m - 1) == 0
+                            or m in real_fft._REAL_STEP)
                 else "stages" if real_fft.supported(n, torch.float32)
                 else None)
         assert real_fft.form(n) == want, n

@@ -57,7 +57,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import tpufft_torch  # noqa: E402
-from tools import ptxas_compare  # noqa: E402
+from tools import ptxas_compare, variant_build  # noqa: E402
 from tpufft_torch import _build  # noqa: E402
 from tpufft_torch.kernels import fused_fft, minor_fft  # noqa: E402
 
@@ -129,46 +129,15 @@ def variants() -> dict:
 def build(texts: dict) -> dict:
     """Each variant's minor-axis sources, one nvcc a source (all variants'
     started together), then one link a variant; the library paths."""
-    nvcc = _build._nvcc()
     t0 = time.perf_counter()
-    jobs = []
-    for name, text in texts.items():
-        out = os.path.join(OUT, name)
-        os.makedirs(out, exist_ok=True)
-        for f in os.listdir(SRC_DIR):
-            if f.endswith((".cuh", ".cu")):
-                with open(os.path.join(SRC_DIR, f)) as src, \
-                        open(os.path.join(out, f), "w") as dst:
-                    dst.write(text if f == "minor_fft.cuh" else src.read())
-        for f in sorted(os.listdir(out)):
-            if f == "minor_fft.cu" or (f.startswith("minor_line_")
-                                       and f.endswith(".cu")):
-                obj = os.path.join(out, f[:-3] + ".o")
-                cmd = [nvcc, *_build.NVCC_FLAGS, "-c",
-                       os.path.join(out, f), "-o", obj]
-                jobs.append((name, obj, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
-    reports = {name: [] for name in texts}
-    for name, obj, proc in jobs:
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {obj}:\n"
-                               f"{text[-3000:]}")
-        reports[name].append(text)
-    libs = {}
-    for name in texts:
-        out = os.path.join(OUT, name)
-        objs = [os.path.join(out, f) for f in sorted(os.listdir(out))
-                if f.endswith(".o")]
-        lib = os.path.abspath(os.path.join(out, "lib.so"))
-        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", lib,
-                        *objs], check=True, capture_output=True)
-        libs[name] = lib
+    built = variant_build.build(
+        OUT, "minor_fft.cuh", texts,
+        lambda f: f == "minor_fft.cu" or (f.startswith("minor_line_")
+                                          and f.endswith(".cu")))
+    for name, (_, log) in built.items():
         print(f"{name}: built in {time.perf_counter() - t0:.1f} s; ptxas, "
-              f"three-factor kernels: {report(''.join(reports[name]))}",
-              flush=True)
-    return libs
+              f"three-factor kernels: {report(log)}", flush=True)
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def report(text: str) -> str:

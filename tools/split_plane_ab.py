@@ -34,12 +34,13 @@ calls, in ms:
   data), K7 (real minor axis, (100000, 1024) f32) and K6 (middle pair,
   (32, 64, 128, 128) c64);
 - K7 at the ends of its line form, (400000, 256) and (12500, 8192) f32,
-  each beside ``torch.fft.rfft`` of it (``rfft``), and on its stage form,
-  whose code did not change, at (1000000, 93); K8 (irfft, (100000, 513)
-  planes to (100000, 1024)), and at the ends of its line form, (400000,
-  129) planes to 256 and (12500, 4097) to 8192, each beside
-  ``torch.fft.irfft`` of it (``irfft``), and on its stage form at
-  (1000000, 47) planes to 93; the ``rfft`` path of real (100000, 1024)
+  each beside ``torch.fft.rfft`` of it (``rfft``), and at (1000000, 93)
+  on the form the tree gives it (the stage form, or the mixed-radix line
+  form where the tree has it); K8 (irfft, (100000, 513) planes to (100000,
+  1024)), and at the ends of its line form, (400000, 129) planes to 256
+  and (12500, 4097) to 8192, each beside ``torch.fft.irfft`` of it
+  (``irfft``), and at (1000000, 47) planes to 93 on the form the tree
+  gives it; the ``rfft`` path of real (100000, 1024)
   rows beside ``torch.fft.rfft`` (``torch_rfft_1024``), the ``irfft``
   path of c64 (100000, 513) rows beside ``torch.fft.irfft``
   (``torch_irfft_1024``), and the ``fht`` path (``fht(x, 0.05, 0.5)``,

@@ -66,7 +66,6 @@ limit; ``--times`` ends with a JSON object of the medians.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import ctypes
 import json
 import os
@@ -86,7 +85,7 @@ import chip_smoke  # noqa: E402
 import tpufft_torch  # noqa: E402
 from test_torch_strided_geometry import (CLUSTER,  # noqa: E402
                                          LONG_F32_ABOVE, model_geometry)
-from tools import ptxas_compare  # noqa: E402
+from tools import ptxas_compare, variant_build  # noqa: E402
 from tpufft_torch import _build  # noqa: E402
 from tpufft_torch.kernels import fused_fft, inner_fft, minor_fft  # noqa: E402
 
@@ -464,62 +463,21 @@ def build(texts: dict) -> dict:
     header), then each variant's strided_fft.cu and cluster sources, one
     nvcc a source, at most NVCC_JOBS at a time; one link a variant; the
     library paths."""
-    nvcc = _build._nvcc()
     t0 = time.perf_counter()
-    jobs = []
-    pool = concurrent.futures.ThreadPoolExecutor(NVCC_JOBS)
-
-    def compile_(name, src_dir, f):
-        obj = os.path.join(OUT, name, f[:-3] + ".o")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-c", os.path.join(src_dir, f),
-               "-o", obj]
-        jobs.append((name, obj, pool.submit(
-            subprocess.run, cmd, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-
-    os.makedirs(os.path.join(OUT, "common"), exist_ok=True)
-    for f in sorted(os.listdir(SRC_DIR)):
-        if f.startswith("strided_line_") and f.endswith(".cu"):
-            compile_("common", SRC_DIR, f)
-    for name, text in texts.items():
-        out = os.path.join(OUT, name)
-        os.makedirs(out, exist_ok=True)
-        for f in os.listdir(SRC_DIR):
-            if f.endswith((".cuh", ".cu")):
-                with open(os.path.join(SRC_DIR, f)) as src, \
-                        open(os.path.join(out, f), "w") as dst:
-                    dst.write(text if f == "strided_long.cuh"
-                              else src.read())
-        for f in sorted(os.listdir(out)):
-            if f == "strided_fft.cu" or (f.startswith("strided_long_")
-                                         and f.endswith(".cu")):
-                compile_(name, out, f)
-    reports = {name: [] for name in ("common", *texts)}
-    for name, obj, job in jobs:
-        done = job.result()
-        if done.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {obj}:\n"
-                               f"{done.stdout[-3000:]}")
-        reports[name].append(done.stdout)
-    pool.shutdown()
-    common = [os.path.join(OUT, "common", f)
-              for f in sorted(os.listdir(os.path.join(OUT, "common")))
-              if f.endswith(".o")]
-    libs = {}
-    for name in texts:
-        out = os.path.join(OUT, name)
-        objs = [os.path.join(out, f) for f in sorted(os.listdir(out))
-                if f.endswith(".o")]
-        lib = os.path.abspath(os.path.join(out, "lib.so"))
-        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", lib,
-                        *objs, *common], check=True, capture_output=True)
-        libs[name] = lib
-        ptx = report("".join(reports[name]))
+    built = variant_build.build(
+        OUT, "strided_long.cuh", texts,
+        lambda f: f == "strided_fft.cu" or (f.startswith("strided_long_")
+                                            and f.endswith(".cu")),
+        shared=lambda f: (f.startswith("strided_line_")
+                          and f.endswith(".cu")),
+        jobs=NVCC_JOBS)
+    for name, (_, log) in built.items():
+        ptx = report(log)
         print(f"{name}: built in {time.perf_counter() - t0:.1f} s; ptxas "
               f"(f32 K2 kernels): " + "; ".join(
                   f"{n}: {_kernel_line(ptx, n, 'f32')}"
                   for _, n, _ in K2_SHAPES), flush=True)
-    return libs
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def _geometry(lib, n: int, post: int, bf16: bool) -> dict | None:

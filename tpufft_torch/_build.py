@@ -240,6 +240,12 @@ def load() -> ctypes.CDLL:
         vp,                          # cudaStream_t
     ]
     lib.tpufft_rfft.restype = i32
+    lib.tpufft_rfft_stages.argtypes = lib.tpufft_rfft.argtypes
+    lib.tpufft_rfft_stages.restype = i32
+    lib.tpufft_real_line_geometry.argtypes = [
+        i32, ctypes.POINTER(i32),    # n; out: the four-step's 9 or 13
+    ]
+    lib.tpufft_real_line_geometry.restype = i32
     lib.tpufft_irfft.argtypes = [
         vp, vp, vp,                  # xr, xi, y
         vp, vp,                      # stage and half-length twiddle tables

@@ -483,16 +483,26 @@ __device__ __forceinline__ void team_sync(int team) {
 // a warp's load instruction reads consecutive elements of a row (32 at n =
 // 1024). Each output Y[k1, j2] times w^(k1 j2) goes into the tile. Pass 2:
 // the lines are the rows k1 in the same arrangement, register j2 (or p + 2
-// i) holding Y'[k1, j2], stored at X[k1 + N1 k2]. Rows past the batch and
-// idle slots compute on zeros and store nothing. The body of
-// minor_lane_kernel (K1, K20) and minor_lane_padded_kernel (K9: input rows
-// of n_in, so pass 1's register j1 of column j2 is 0 for N2 j1 + j2 >=
-// n_in; n_in = n otherwise).
-template <typename T, typename S, int kThreads, bool kFused, bool kPadded>
-__device__ __forceinline__ void lane_rows(
-    const T* __restrict__ xr, const T* __restrict__ xi, T* __restrict__ yr,
-    T* __restrict__ yi, const float2* __restrict__ tw, int64_t batch,
-    int n_in, int inverse, float scale) {
+// i) holding Y'[k1, j2], handed over as X[k1 + N1 k2]. Rows past the batch
+// and idle slots compute on zeros and hand over nothing.
+//
+// Where pass 1's values come from and where pass 2's go is the caller's
+// policy `io` (RowIo below for K1, K20 and K9; the real-input kernels of
+// real_fft.cuh read packed or real rows, or a tangled tile, and untangle
+// or store halves):
+// - io.begin(tile, t, team, row0): before pass 1 of each row group;
+// - io.load(tile, r, row, col): element col of the group's row r (device
+//   row `row`) into pass 1, on live slots of rows inside the batch;
+// - io.held1(team), io.held2(team): after each pass's reads (and its line
+//   DFTs where they run apart from the hand-over), before its writes;
+// - io.put(tile, r, row, k, y): X[k] of row r, on live slots of rows
+//   inside the batch;
+// - io.end(tile, t, team, row0): after pass 2, before the group's last
+//   team barrier.
+template <typename S, int kThreads, class Io>
+__device__ __forceinline__ void lane_steps(Io& io,
+                                           const float2* __restrict__ tw,
+                                           int64_t batch, int inverse) {
   constexpr int n = S::n, N1 = S::N1, N2 = S::N2, R = S::rows;
   constexpr int kTeamWarps = S::lanes / 32;
   extern __shared__ float2 tpufft_lane_smem[];
@@ -507,7 +517,8 @@ __device__ __forceinline__ void lane_rows(
   const int64_t groups = (batch + S::teams * R - 1) / (S::teams * R);
   for (int64_t grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const int64_t row0 = (grp * S::teams + team) * R;
-    {  // pass 1: the columns, from device memory into the tile
+    io.begin(tile, t, team, row0);
+    {  // pass 1: the columns, from the caller's rows into the tile
       constexpr int V = S::V1;
       float2 v[S::S1][V];
 #pragma unroll
@@ -519,10 +530,8 @@ __device__ __forceinline__ void lane_rows(
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const int j1 = S::pair1 ? p + 2 * j : j;
-          v[s][j] = live && row < batch
-                        ? row_load<T, kFused, kPadded>(xr, xi, row, n, n_in,
-                                                       N2 * j1 + j2)
-                        : make_float2(0.f, 0.f);
+          v[s][j] = live && row < batch ? io.load(tile, r, row, N2 * j1 + j2)
+                                        : make_float2(0.f, 0.f);
         }
       }
       if constexpr (!S::emit1) {
@@ -530,6 +539,7 @@ __device__ __forceinline__ void lane_rows(
         for (int s = 0; s < S::S1; ++s)
           line_dft<N1, n / N1>(v[s], p, table, inv);
       }
+      io.held1(team);
 #pragma unroll
       for (int s = 0; s < S::S1; ++s) {
         const int slot = lane_line<S::pair1, S::lanes>(t, s);
@@ -549,7 +559,7 @@ __device__ __forceinline__ void lane_rows(
       }
     }
     team_sync<kTeamWarps>(team);
-    {  // pass 2: the rows k1 of the tile, stored to device memory
+    {  // pass 2: the rows k1 of the tile, handed to the caller
       constexpr int V = S::V2;
       float2 v[S::S2][V];
 #pragma unroll
@@ -568,6 +578,7 @@ __device__ __forceinline__ void lane_rows(
         for (int s = 0; s < S::S2; ++s)
           line_dft<N2, n / N2>(v[s], p, table, inv);
       }
+      io.held2(team);
 #pragma unroll
       for (int s = 0; s < S::S2; ++s) {
         const int slot = lane_line<S::pair2, S::lanes>(t, s);
@@ -575,8 +586,7 @@ __device__ __forceinline__ void lane_rows(
         const int64_t row = row0 + r;
         const bool live = (S::full2 || (r < R && k1 < N1)) && row < batch;
         auto put = [&](int k2, float2 y) {
-          if (live)
-            line_store<T, kFused>(yr, yi, row, n, k1 + N1 * k2, y, scale);
+          if (live) io.put(tile, r, row, k1 + N1 * k2, y);
         };
         if constexpr (S::emit2) {
           lane_dft_emit<N2, n / N2, 0, 1>(v[s], table, inv, put);
@@ -586,8 +596,46 @@ __device__ __forceinline__ void lane_rows(
         }
       }
     }
+    io.end(tile, t, team, row0);
     team_sync<kTeamWarps>(team);  // the tile is read before it is rewritten
   }
+}
+
+// lane_steps' policy for K1, K20 and K9: rows of n read from device memory
+// (K9: rows of n_in, zero-padded; row_load) and X stored to rows of n
+// times scale (line_store).
+template <typename T, int kN, bool kFused, bool kPadded>
+struct RowIo {
+  const T* __restrict__ xr;
+  const T* __restrict__ xi;
+  T* __restrict__ yr;
+  T* __restrict__ yi;
+  int n_in;
+  float scale;
+  __device__ __forceinline__ void begin(float2*, int, int, int64_t) {}
+  __device__ __forceinline__ float2 load(const float2*, int, int64_t row,
+                                         int col) const {
+    return row_load<T, kFused, kPadded>(xr, xi, row, kN, n_in, col);
+  }
+  __device__ __forceinline__ void held1(int) {}
+  __device__ __forceinline__ void held2(int) {}
+  __device__ __forceinline__ void put(float2*, int, int64_t row, int k,
+                                      float2 y) const {
+    line_store<T, kFused>(yr, yi, row, kN, k, y, scale);
+  }
+  __device__ __forceinline__ void end(float2*, int, int, int64_t) {}
+};
+
+// The body of minor_lane_kernel (K1, K20) and minor_lane_padded_kernel (K9:
+// input rows of n_in, so pass 1's register j1 of column j2 is 0 for N2 j1
+// + j2 >= n_in; n_in = n otherwise): lane_steps on RowIo.
+template <typename T, typename S, int kThreads, bool kFused, bool kPadded>
+__device__ __forceinline__ void lane_rows(
+    const T* __restrict__ xr, const T* __restrict__ xi, T* __restrict__ yr,
+    T* __restrict__ yi, const float2* __restrict__ tw, int64_t batch,
+    int n_in, int inverse, float scale) {
+  RowIo<T, S::n, kFused, kPadded> io{xr, xi, yr, yi, n_in, scale};
+  lane_steps<S, kThreads>(io, tw, batch, inverse);
 }
 
 // Blocks of the lane kernel an SM must hold: the power-of-two geometries
@@ -950,6 +998,31 @@ int launch_three_factor(const LaneArgs& a) {
   X(12288, 16, 24, 32, 256, 769, 32)    \
   X(15360, 16, 30, 32, 512, 961, 32)    \
   X(16384, 16, 32, 32, 512, 1025, 32)
+
+// K1's four-step at the mixed-radix length n of the family lists:
+// LaneStep's parameters read from them (the real-input kernels of
+// real_fft.cuh run it at their half m, or at n itself for odd n).
+struct MixedGeometry {
+  int n1, n2, w, r, q1, q2, p2, rs;
+};
+
+constexpr MixedGeometry mixed_geometry(int n) {
+#define TPUFFT_GEO_OF(n_, n1, n2, w, r, q1, q2, p2, rs) \
+  if (n == n_) return MixedGeometry{n1, n2, w, r, q1, q2, p2, rs};
+  TPUFFT_MINOR_R3(TPUFFT_GEO_OF)
+  TPUFFT_MINOR_R5(TPUFFT_GEO_OF)
+  TPUFFT_MINOR_R15(TPUFFT_GEO_OF)
+  TPUFFT_MINOR_ODD(TPUFFT_GEO_OF)
+#undef TPUFFT_GEO_OF
+  return MixedGeometry{0, 0, 0, 0, 0, 0, 0, 0};
+}
+
+template <int n>
+using MixedStep =
+    LaneStep<mixed_geometry(n).n1, mixed_geometry(n).n2,
+             mixed_geometry(n).w, 128, mixed_geometry(n).r,
+             mixed_geometry(n).q1, mixed_geometry(n).q2,
+             mixed_geometry(n).p2, mixed_geometry(n).rs>;
 
 // The launchers of each family: the length's kernel in storage T (K1,
 // K20 with kFused, K9 with kPadded), or cudaErrorInvalidValue for a length

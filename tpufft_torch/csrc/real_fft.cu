@@ -31,7 +31,20 @@
 //   (X[n-k] = conj X[k]) and stores the real part.
 //
 // Both kernels have two forms; the host picks one by n (tpufft_rfft,
-// tpufft_irfft; kernels/real_fft.py:form mirrors the choice).
+// tpufft_irfft; kernels/real_fft.py:form mirrors the choice,
+// tpufft_real_line_geometry reports it). The line form has two
+// templates:
+// - at a power-of-two half, the kernels below (rfft_lane_kernel,
+//   irfft_lane_kernel);
+// - at a half m on K1's mixed-radix family lists (n = 24 to 7680: 3, 5
+//   and 15 times a power of two, 186, 2000, 2160, 4320) and at odd n = 93,
+//   K1's own four-step body (minor_fft.cuh: lane_steps) with the real
+//   kernels' loads and hand-overs (real_fft.cuh: rfft_mixed_kernel,
+//   irfft_mixed_kernel, rfft_odd_kernel, irfft_odd_kernel; instantiated by
+//   real_line_{r3,r5,r15,odd}.cu): packed rows untangled or tangled
+//   through the tile in natural order, or the length-n four-step of the
+//   real row (K7: the bins up to n/2 stored; K8: the Hermitian extension
+//   gathered in its load).
 //
 // K7's line form (rfft_lane_kernel), for even n = 2m with m a power of two
 // from 128 to 4096 (n = 256 to 8192): the packed row runs K1's line form
@@ -68,7 +81,10 @@
 // aligned lines, and its reads are the unaligned 4-byte runs that K7's
 // stores are.
 //
-// The stage form (rfft_kernel, irfft_kernel), for every other length:
+// The stage form (rfft_kernel, irfft_kernel), for every other length (odd
+// n but 93, halves on no list such as 500, halves above 4096, n <= 128 at
+// power-of-two halves; tpufft_rfft_stages and tpufft_irfft_stages run it
+// at every length):
 // rows are packed to blocks exactly as K1's stage form packs them
 // (launch_geometry of the stage length), and the same launch bounds hold
 // registers to 64.
@@ -86,27 +102,12 @@ using tpufft_minor::LaneStep;
 using tpufft_minor::launch_geometry;
 using tpufft_minor::line_out;
 using tpufft_lane::pair_dft;
-using tpufft_minor::resident_grid;
 using tpufft_minor::team_sync;
+using tpufft_real::launch_lane;
+using tpufft_real::load_pair;
+using tpufft_real::store_pair;
 
 namespace {
-
-// Two neighbouring reals p[i], p[i+1] (i even) as one complex value; the
-// wrapper guarantees 8-byte (f32) or 4-byte (bf16) alignment of p.
-__device__ __forceinline__ float2 load_pair(const float* p, int64_t i) {
-  return *reinterpret_cast<const float2*>(p + i);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p,
-                                            int64_t i) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
-}
-__device__ __forceinline__ void store_pair(float* p, int64_t i, float2 v) {
-  *reinterpret_cast<float2*>(p + i) = v;
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int64_t i,
-                                           float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p + i) = __float22bfloat162_rn(v);
-}
 
 // K7. Block b transforms rows [b*rows, b*rows + rows) of the real (batch, n)
 // plane x into the (batch, n//2+1) planes yr/yi. kPacked: n = 2 plan.n,
@@ -443,24 +444,6 @@ int launch_r2c(const void* x, void* yr, void* yi, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// A line-form kernel (K7's or K8's) on geometry S: a grid of at most the
-// blocks the card holds at once, each staging the table once and looping
-// over row groups.
-template <class S, class Kernel, class... Args>
-int launch_lane(Kernel kernel, long long batch, cudaStream_t stream,
-                Args... args) {
-  constexpr int threads = S::teams * S::lanes;
-  constexpr long long rows = S::teams * S::rows;
-  unsigned blocks = 0;
-  cudaError_t err = allow_smem(kernel, S::smem);
-  if (err == cudaSuccess)
-    err = resident_grid(kernel, threads, S::smem, (batch + rows - 1) / rows,
-                        &blocks);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, threads, S::smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 // Is the real length n one of K7's line form (even, n/2 a power of two from
 // 128 to 4096)?
 inline bool r2c_line_form(int n) {
@@ -506,11 +489,18 @@ int launch_c2r(const void* xr, const void* xi, void* y, const void* tw,
 template <typename T, bool kPacked>
 int launch_r2c_sized(const void* x, void* yr, void* yi, const void* tw,
                      const void* half_tw, long long batch,
-                     const Radices& plan, float scale, cudaStream_t stream) {
+                     const Radices& plan, float scale, bool lines,
+                     cudaStream_t stream) {
   if constexpr (kPacked) {
-    if (r2c_line_form(2 * plan.n))
+    if (lines && r2c_line_form(2 * plan.n))
       return launch_r2c_lines<T>(x, yr, yi, tw, half_tw, batch, 2 * plan.n,
                                  scale, stream);
+  }
+  const int n = kPacked ? 2 * plan.n : plan.n;
+  if (lines && tpufft_real::real_family(n) != 0) {
+    const tpufft_real::RealArgs a{x,  nullptr, yr,    yi,    tw,
+                                  half_tw, batch, scale, stream};
+    return tpufft_real::launch_real_mixed<T>(a, n, false);
   }
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
@@ -535,8 +525,9 @@ int launch_c2r_lines(const void* xr, const void* xi, void* y, const void* tw,
   });
 }
 
-// K8 of the form the host picks (lines: r2c_line_form's lengths), or the
-// stage form at any length (lines false).
+// K8 of the form the host picks (lines: r2c_line_form's lengths and the
+// mixed-radix ones of real_family), or the stage form at any length (lines
+// false). launch_r2c_sized likewise for K7.
 template <typename T, bool kPacked>
 int launch_c2r_sized(const void* xr, const void* xi, void* y, const void* tw,
                      const void* half_tw, long long batch,
@@ -546,6 +537,12 @@ int launch_c2r_sized(const void* xr, const void* xi, void* y, const void* tw,
     if (lines && r2c_line_form(2 * plan.n))
       return launch_c2r_lines<T>(xr, xi, y, tw, half_tw, batch, 2 * plan.n,
                                  scale, stream);
+  }
+  const int n = kPacked ? 2 * plan.n : plan.n;
+  if (lines && tpufft_real::real_family(n) != 0) {
+    const tpufft_real::RealArgs a{xr, xi,    y,     nullptr, tw,
+                                  half_tw, batch, scale, stream};
+    return tpufft_real::launch_real_mixed<T>(a, n, true);
   }
   const Geometry g = launch_geometry(plan.n);
   if (g.per == 8)
@@ -563,19 +560,12 @@ bool real_plan(int n, const int* radices, int nstages, Radices* plan) {
 
 }  // namespace
 
-// rfft of the real (batch, n) plane x into the (batch, n//2+1) planes yr/yi
-// (f32, or bf16 when bf16 != 0), times scale, on `stream`, a stream of the
-// current device. With L = n/2 for even n and L = n for odd n: tw holds the
-// L complex f32 values exp(-2 pi i k / L), radices[0:nstages] multiply to L
-// (each 2, 4, 8 or an odd value up to 127; the line form, which even n
-// from 256 to 8192 with n/2 a power of two run, ignores them), and half_tw,
-// read for even n only, holds exp(-2 pi i k / n) for k = 0..n/2. For even
-// n, x must be 8-byte (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA
-// error code.
-extern "C" int tpufft_rfft(const void* x, void* yr, void* yi, const void* tw,
-                           const void* half_tw, long long batch, int n,
-                           const int* radices, int nstages, float scale,
-                           int bf16, void* stream) {
+namespace {
+
+int rfft_entry(const void* x, void* yr, void* yi, const void* tw,
+               const void* half_tw, long long batch, int n,
+               const int* radices, int nstages, float scale, int bf16,
+               bool lines, void* stream) {
   Radices plan;
   if (batch < 0 || !real_plan(n, radices, nstages, &plan))
     return (int)cudaErrorInvalidValue;
@@ -584,13 +574,44 @@ extern "C" int tpufft_rfft(const void* x, void* yr, void* yi, const void* tw,
   const bool even = n % 2 == 0;
   if (bf16)
     return even ? launch_r2c_sized<__nv_bfloat16, true>(
-                      x, yr, yi, tw, half_tw, batch, plan, scale, s)
+                      x, yr, yi, tw, half_tw, batch, plan, scale, lines, s)
                 : launch_r2c_sized<__nv_bfloat16, false>(
-                      x, yr, yi, tw, half_tw, batch, plan, scale, s);
+                      x, yr, yi, tw, half_tw, batch, plan, scale, lines, s);
   return even ? launch_r2c_sized<float, true>(x, yr, yi, tw, half_tw, batch,
-                                              plan, scale, s)
+                                              plan, scale, lines, s)
               : launch_r2c_sized<float, false>(x, yr, yi, tw, half_tw, batch,
-                                               plan, scale, s);
+                                               plan, scale, lines, s);
+}
+
+}  // namespace
+
+// rfft of the real (batch, n) plane x into the (batch, n//2+1) planes yr/yi
+// (f32, or bf16 when bf16 != 0), times scale, on `stream`, a stream of the
+// current device. With L = n/2 for even n and L = n for odd n: tw holds the
+// L complex f32 values exp(-2 pi i k / L), radices[0:nstages] multiply to L
+// (each 2, 4, 8 or an odd value up to 127; the line form, which the
+// lengths of tpufft_real_line_geometry run, ignores them), and half_tw,
+// read for even n only, holds exp(-2 pi i k / n) for k = 0..n/2. For even
+// n, x must be 8-byte (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA
+// error code.
+extern "C" int tpufft_rfft(const void* x, void* yr, void* yi, const void* tw,
+                           const void* half_tw, long long batch, int n,
+                           const int* radices, int nstages, float scale,
+                           int bf16, void* stream) {
+  return rfft_entry(x, yr, yi, tw, half_tw, batch, n, radices, nstages,
+                    scale, bf16, true, stream);
+}
+
+// tpufft_rfft on the stage form at every length: the form that the line
+// form's lengths ran before it, kept for comparison (chip_smoke.py times
+// both).
+extern "C" int tpufft_rfft_stages(const void* x, void* yr, void* yi,
+                                  const void* tw, const void* half_tw,
+                                  long long batch, int n, const int* radices,
+                                  int nstages, float scale, int bf16,
+                                  void* stream) {
+  return rfft_entry(x, yr, yi, tw, half_tw, batch, n, radices, nstages,
+                    scale, bf16, false, stream);
 }
 
 namespace {
@@ -621,9 +642,10 @@ int irfft_entry(const void* xr, const void* xi, void* y, const void* tw,
 // irfft of the (batch, n//2+1) planes xr/xi into the real (batch, n) plane
 // y, times scale (scale 1/n is numpy's irfft), on `stream`. tw holds
 // exp(+2 pi i k / L), the inverse table; radices and half_tw as for
-// tpufft_rfft (the line form, which even n from 256 to 8192 with n/2 a
-// power of two run, ignores the radices). For even n, y must be 8-byte
-// (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA error code.
+// tpufft_rfft (the line form, which the lengths of
+// tpufft_real_line_geometry run, ignores the radices). For even n, y must
+// be 8-byte (f32) or 4-byte (bf16) aligned. Returns 0 or the CUDA error
+// code.
 extern "C" int tpufft_irfft(const void* xr, const void* xi, void* y,
                             const void* tw, const void* half_tw,
                             long long batch, int n, const int* radices,
@@ -643,4 +665,40 @@ extern "C" int tpufft_irfft_stages(const void* xr, const void* xi, void* y,
                                    float scale, int bf16, void* stream) {
   return irfft_entry(xr, xi, y, tw, half_tw, batch, n, radices, nstages,
                      scale, bf16, false, stream);
+}
+
+// The form K7 and K8 launch at real length n (both alike): 0 the stage
+// form; 2 the power-of-two four-step at the half m (K7's rfft_lane_kernel,
+// K8's irfft_lane_kernel), out[0:9] = {N1, N2, warps a team, threads a
+// block, rows a team, Q1, Q2, P2, RS} as tpufft_minor_line_geometry gives
+// them (P2 = RS = 0: the XOR tile); 3 the mixed-radix four-step at the half
+// m (rfft_mixed_kernel, irfft_mixed_kernel), out[0:9] K1's geometry at m
+// and out[9:13] = {ZS, ZH of K7, ZS, ZH of K8}; 4 K1's four-step at odd n
+// itself (rfft_odd_kernel, irfft_odd_kernel), out[0:9] its geometry.
+extern "C" int tpufft_real_line_geometry(int n, int* out) {
+  if (r2c_line_form(n))
+    return tpufft_real::with_line_step(n, [&](auto step) {
+      using S = decltype(step);
+      const int v[9] = {S::N1, S::N2, S::lanes / 32, S::teams * S::lanes,
+                        S::rows, S::Q1, S::Q2, 0, 0};
+      for (int i = 0; i < 9; ++i) out[i] = v[i];
+      return 2;
+    });
+  if (tpufft_real::real_family(n) == 0) return 0;
+  const int m = n % 2 == 0 ? n / 2 : n;
+  const tpufft_minor::MixedGeometry g = tpufft_minor::mixed_geometry(m);
+  const int v[9] = {g.n1, g.n2, g.w, 128, g.r, g.q1, g.q2, g.p2, g.rs};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  if (n % 2 == 1) return 4;
+#define TPUFFT_HALF_GEO(m_, zs7, zh7, zs8, zh8)   \
+  if (m == m_) {                                  \
+    const int w[4] = {zs7, zh7, zs8, zh8};        \
+    for (int i = 0; i < 4; ++i) out[9 + i] = w[i]; \
+  }
+  TPUFFT_REAL_R3(TPUFFT_HALF_GEO)
+  TPUFFT_REAL_R5(TPUFFT_HALF_GEO)
+  TPUFFT_REAL_R15(TPUFFT_HALF_GEO)
+  TPUFFT_REAL_ODD(TPUFFT_HALF_GEO)
+#undef TPUFFT_HALF_GEO
+  return 3;
 }

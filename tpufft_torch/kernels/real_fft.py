@@ -14,12 +14,16 @@ dense (n, n//2+1) matmuls; the CUDA kernels (``csrc/real_fft.cu``) run an
 even n = 2m as a length-m C2C on the packed row x[2j] + i x[2j+1] with the
 Hermitian untangle fused into the store (rfft) or the load (irfft), and an
 odd n as the length-n C2C of the real row (rfft) or of the Hermitian
-extension (irfft). Both have two forms (:func:`form`): even n from 256 to
-8192 whose half is a power of two run the line form, K1's four-step at
-length m with each row in registers and one extra pass through the tile
-(K7: the untangle after the passes; K8: the tangle before them, the
-inverse-real line core of ``csrc/real_fft.cuh``); every other length runs
-the stage form, one shared-memory Stockham pass. Their envelope
+extension (irfft). Both have two forms (:func:`form`). The line form runs
+K1's four-step with each row in registers: at the half m of an even n
+whose half is a power of two from 128 to 4096 (n = 256 to 8192) or a
+mixed-radix length of K1's family lists (``_REAL_STEP``: 3, 5 and 15
+times a power of two, 93, 1000, 1080, 2160), with one extra pass through
+the tile (K7: the untangle after the passes; K8: the tangle before them;
+``csrc/real_fft.cuh``), and at the odd n of ``_ODD_LINES`` (93) on the
+length-n four-step itself (K7 stores the bins up to n/2, K8 gathers the
+Hermitian extension in its load). Every other length runs the stage form,
+one shared-memory Stockham pass. Their envelope
 (:func:`supported`): an even n whose half is inside K1's envelope
 (n <= 32768), or an odd n inside it (n <= 16383, prime factors <= 127).
 
@@ -45,6 +49,7 @@ __all__ = [
     "form",
     "irfft_minor",
     "irfft_minor_reference",
+    "launched_geometry",
     "launches",
     "line_geometry",
     "reference_cuda_calls",
@@ -64,6 +69,39 @@ reference_cuda_calls = 0
 # factors, a 64 x 64 of their own. A CPU test holds this table equal to
 # the header's list.
 _HALF_STEP = {**minor_fft._POW2_STEP, 4096: (64, 64, 4, 256)}
+# The mixed-radix line form at an even real length n = 2m (csrc/
+# real_fft.cuh, TPUFFT_REAL_{R3,R5,R15,ODD}, one source a family,
+# real_line_*.cu): m -> (ZS and ZH of K7, ZS and ZH of K8) on K1's own
+# four-step at m (minor_fft._FOUR_STEP). The untangle (K7) and the tangle
+# (K8) hold Z of team row r at r ZS + k in the tile and take the pairs (k,
+# m - k) of slot e = t + lanes i, r = e / ZH, k = e mod ZH, k < ceil(m/2);
+# ZS and ZH were found by a search so that every half warp of pass 2's Z
+# writes and the untangle's reads (K7), and of the tangle's writes and pass
+# 1's reads (K8), touches distinct bank pairs. A CPU test holds this table
+# equal to the header's lists and walks each tile.
+_REAL_STEP = {
+    # 3 2^a
+    12: (12, 16, 19, 16), 24: (24, 16, 35, 16), 48: (51, 32, 56, 24),
+    96: (102, 48, 96, 48), 192: (200, 96, 200, 96),
+    384: (392, 192, 384, 192), 768: (768, 384, 768, 384),
+    1536: (1536, 768, 1536, 768), 3072: (3072, 1536, 3072, 1536),
+    # 5 2^a
+    20: (20, 16, 21, 16), 40: (40, 24, 53, 27), 80: (85, 48, 88, 40),
+    160: (165, 80, 160, 80), 320: (325, 160, 320, 160),
+    640: (650, 320, 640, 320), 1280: (1280, 640, 1280, 640),
+    2560: (2560, 1280, 2560, 1280),
+    # 15 2^a
+    30: (30, 16, 30, 16), 60: (60, 32, 60, 32), 120: (120, 64, 120, 64),
+    240: (248, 120, 248, 120), 480: (488, 240, 480, 240),
+    960: (960, 480, 960, 480), 1920: (1920, 960, 1920, 960),
+    3840: (3840, 1920, 3840, 1920),
+    # the odd list
+    93: (93, 48, 99, 48), 1000: (1000, 500, 1000, 500),
+    1080: (1080, 544, 1092, 544), 2160: (2160, 1080, 2160, 1080),
+}
+_REAL_KEYS = ("untangle_rs", "untangle_slots", "tangle_rs", "tangle_slots")
+# Odd real lengths on K1's four-step at n itself (TPUFFT_REAL_ODD_N).
+_ODD_LINES = (93,)
 
 
 def reset_counts() -> None:
@@ -91,30 +129,60 @@ def supported(n: int, dtype) -> bool:
 def form(n: int) -> str | None:
     """Which form of K7 and K8 transforms real rows of length n:
     ``"lines"`` for even n whose half is a power of two from 128 to
-    ``minor_fft.LINE_MAX_N`` (n = 256 to 8192), ``"stages"`` for every
-    other length in the envelope, None outside it. Mirrors
-    ``r2c_line_form`` in ``csrc/real_fft.cu``, which makes the choice at
-    the launch."""
+    ``minor_fft.LINE_MAX_N`` (n = 256 to 8192) or a length of
+    ``_REAL_STEP`` (n = 24 to 7680), and for the odd n of ``_ODD_LINES``
+    (93); ``"stages"`` for every other length in the envelope, None
+    outside it. Mirrors ``launch_r2c_sized`` and ``launch_c2r_sized`` in
+    ``csrc/real_fft.cu``, which make the choice at the launch
+    (``tpufft_real_line_geometry`` reports it)."""
     n = int(n)
     if n < 2 or not minor_fft._length_ok(_stage_length(n)):
         return None
     m = n // 2
-    lines = (n % 2 == 0 and 128 <= m <= minor_fft.LINE_MAX_N
-             and m & (m - 1) == 0)
+    if n % 2:
+        lines = n in _ODD_LINES
+    else:
+        lines = ((128 <= m <= minor_fft.LINE_MAX_N and m & (m - 1) == 0)
+                 or m in _REAL_STEP)
     return "lines" if lines else "stages"
 
 
 def line_geometry(n: int) -> dict | None:
     """The four-step geometry of K7's and K8's line form at real length n,
-    on the half m = n/2, with the keys of ``minor_fft.line_geometry``'s
-    four-step (``rows`` = 1024 W / m, ``q1`` = N2, ``q2`` = N1, ``p2`` =
-    ``rs`` = 0, the XOR tile); None where n does not run the line form."""
+    with the keys of ``minor_fft.line_geometry``'s four-step: at a
+    power-of-two half m = n/2, ``_HALF_STEP``'s (``rows`` = 1024 W / m,
+    ``q1`` = N2, ``q2`` = N1, ``p2`` = ``rs`` = 0, the XOR tile); at a
+    mixed-radix half, K1's own at m and the (un)tangle's tile rows and pair
+    slots (``_REAL_KEYS``, from ``_REAL_STEP``); at an odd n of
+    ``_ODD_LINES``, K1's own at n. None where n does not run the line
+    form."""
     if form(n) != "lines":
         return None
-    m = int(n) // 2
+    n = int(n)
+    if n % 2:
+        return minor_fft.line_geometry(n)
+    m = n // 2
+    if m in _REAL_STEP:
+        return {**minor_fft.line_geometry(m),
+                **dict(zip(_REAL_KEYS, _REAL_STEP[m]))}
     n1, n2, w, th = _HALF_STEP[m]
     return dict(zip(minor_fft._FOUR_STEP_KEYS,
                     (n1, n2, w, th, 1024 * w // m, n2, n1, 0, 0)))
+
+
+def launched_geometry(n: int) -> dict | None:
+    """The form the library launches at real length n (K7 and K8 alike),
+    read from ``tpufft_real_line_geometry`` (the launch's own test; needs
+    the CUDA toolkit): ``{"form": "stages"}``, or ``"form": "lines"`` with
+    the keys of :func:`line_geometry`. A card test holds it equal to
+    :func:`form` and :func:`line_geometry`."""
+    lib = _build.load()
+    out = (ctypes.c_int * 13)()
+    kind = lib.tpufft_real_line_geometry(int(n), out)
+    if kind == 0:
+        return {"form": "stages"}
+    keys = minor_fft._FOUR_STEP_KEYS + (_REAL_KEYS if kind == 3 else ())
+    return {"form": "lines", **dict(zip(keys, out))}
 
 
 @functools.lru_cache(maxsize=64)
@@ -164,14 +232,15 @@ def _launch_args(n: int, inverse: bool, device: torch.device):
     return tw, half, rad_arr, len(rad)
 
 
-def rfft_minor(x: torch.Tensor, *,
-               scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+def rfft_minor(x: torch.Tensor, *, scale: float,
+               stages: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The (batch, n//2+1) half spectrum of the real (batch, n) plane,
     times ``scale``, as re/im planes in the storage dtype of ``x``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel of
-    :func:`form` on the current stream and raise on anything it does not
-    take."""
+    :func:`form` on the current stream (``stages``: the stage form at
+    every length, kept to compare the forms) and raise on anything it does
+    not take."""
     if x.device.type == "cpu":
         return rfft_minor_reference(x, scale=scale)
     _check_plane("rfft_minor", x)
@@ -186,7 +255,8 @@ def rfft_minor(x: torch.Tensor, *,
     lib = _build.load()
     with torch.cuda.device(x.device):
         tw, half, rad_arr, nstages = _launch_args(n, False, x.device)
-        err = lib.tpufft_rfft(
+        entry = lib.tpufft_rfft_stages if stages else lib.tpufft_rfft
+        err = entry(
             x.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw.data_ptr(),
             half.data_ptr(), batch, n, rad_arr, nstages, float(scale),
             int(x.dtype == torch.bfloat16),
