@@ -143,12 +143,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
 18. the thread-block-cluster kernels K5 (the trailing cube) and K6 (two
     middle axes of (pre, n1, n2, L)) against their plain versions: cubes
     (8, 8, 8) to (64, 64, 64) and (24, 40, 56) (clusters of 1 to 16
-    blocks), pairs (8, 16, 128) to (128, 512, 3), among them (64, 128, 37)
-    (a ragged L), pre 3 and 5, both directions, scale 1 and 1/N, f32 and
+    blocks), pairs (8, 16, 128) to (128, 512, 3) and (160, 160, 12) to
+    (120, 5, 11), among them (64, 128, 37) (a ragged L), pre 3 and 5, both directions, scale 1 and 1/N, f32 and
     bf16 storage; which form of each kernel each shape runs (the line
-    form for power-of-two axes up to 64 for K5, up to 128 for K6, else
-    the stage form) and how many clusters of each kernel the card holds
-    at once
+    form for power-of-two axes up to 64 for K5, up to 128 for K6; K6's
+    generic-radix form for its other pairs of r 2^a, r in 1, 3, 5, 7, 15,
+    up to 240, and 256, such as (160, 160), (48, 160), (56, 56),
+    (256, 128) and (240, 120); else the stage form) and how many clusters
+    of each kernel the card holds at once
     (``cudaOccupancyMaxActiveClusters``), as SMs kept busy;
 19. the ND paths at full size, each call driven with every count set to 0
     just before it and read just after: ``fftn(axes=(1, 2, 3))`` on
@@ -341,6 +343,18 @@ Phases, each of which raises (and so exits nonzero) on failure:
     K7 and K2; K2 and K8), against ``np.fft`` on a few rows and through
     the round trip, beside ``torch.fft``.
 
+32. K6's generic-radix line form (axes r 2^a, r in 1, 3, 5, 7, 15, up to
+    240, and 256; ``csrc/mid_line.cuh``): K6 alone at (25, 160, 160, 48),
+    (25, 160, 160, 128), (32, 56, 56, 256), (16, 256, 128, 32) and T2's
+    own K6 call (25, 48, 160, 160), each beside its stage form (in turns),
+    its plain version, ``torch.fft.fftn(dim=(1, 2))``, the copy floor and
+    the K3 + K2 route; then the T2 path (transform-major (1, 25, 160, 160,
+    48) over axes 1-4) with every count set to 0 just before it and read
+    just after (K3, K6 and K1 once a transform), against ``np.fft.fftn``
+    and through its inverse plan, beside the natural layout and
+    ``torch.fft.fftn``. Phase 18 holds the form against its plain version
+    at every family (``MID_PAIRS``).
+
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
 its flops over the FP32 peak (SMs x 128 lanes x 2 x the maximum SM
@@ -423,6 +437,14 @@ CLUSTER_K2_SHAPES = (((1, 3840, 2160), torch.float32),
                      ((2, 16384, 2048), torch.float32),
                      ((8, 2048, 2048), torch.bfloat16))
 TWO_PASS_LONG = (4, 1 << 24)   # split 4096 x 4096: K3 at 4096, then K1
+# phase 32: K6's generic-radix form (pre, n1, n2, L): the four timed
+# shapes (the aligned 5-D of tpufft's docstring, (25, 160, 160, 128), a
+# channels-last 56^2 map and an axis of 256 among them) and the K6 call of
+# the T2 path, whose physical (1, 25, 48, 160, 160) pairs (48, 160) at
+# L = 160; then the T2 path itself
+MIXED_K6_SHAPES = ((25, 160, 160, 48), (25, 160, 160, 128),
+                   (32, 56, 56, 256), (16, 256, 128, 32), (25, 48, 160, 160))
+T2_SHAPE = (1, 25, 160, 160, 48)
 PAIRS = ((8, 93), (64, 64), (128, 128), (160, 48))
 KERNELS = ("minor", "inner", "inner_nd", "pair")
 REAL_KERNELS = ("r2c", "c2r", "minor_padded", "pair_padded")
@@ -467,8 +489,15 @@ CROSSOVER_NS = (64, 128, 256, 512)
 # 16384 and 6720 elements); of 1, 2, 4, 16, 16, 8, 16 and 16
 CUBES = ((8, 8, 8), (8, 16, 32), (16, 16, 32), (16, 32, 32), (16, 32, 64),
          (32, 64, 64), (64, 64, 64), (24, 40, 56))
+# K6: the power-of-two line form, the generic-radix form (csrc/mid_line.cuh:
+# every family of r 2^a on each axis, the 56- and 60-value lines 224, 120
+# and 240, and 256; (40, 64) among them) and the stage form (128, 512)
 MID_PAIRS = ((8, 16, 128), (16, 64, 24), (32, 64, 16), (64, 128, 8),
-             (64, 128, 37), (40, 64, 256), (128, 128, 9), (128, 512, 3))
+             (64, 128, 37), (40, 64, 256), (128, 128, 9), (128, 512, 3),
+             (160, 160, 12), (48, 160, 37), (56, 56, 9), (256, 128, 5),
+             (240, 120, 3), (224, 128, 16), (128, 240, 7), (12, 15, 5),
+             (14, 28, 8), (40, 7, 3), (30, 60, 10), (96, 192, 4),
+             (3, 224, 8), (120, 5, 11))
 MID_PAIR_SWEEP_LS = (1, 2, 4, 8, 32, 128, 512)
 
 
@@ -4230,6 +4259,77 @@ def phase_cluster_times(rate: float) -> dict:
     return dict(total)
 
 
+def phase_mid_pair_times(rate: float) -> dict:
+    """Phase 32: K6's generic-radix form at MIXED_K6_SHAPES, each through
+    ``_ab_line`` beside its stage form (4 lanes of L, in turns), its plain
+    version, ``torch.fft.fftn(dim=(1, 2))`` and the copy floor, and beside
+    the K3 + K2 route it replaces; then the transform-major T2 path
+    (T2_SHAPE over axes 1-4: K3 at 25, K6 at (48, 160), K1 at 160) with
+    every count set to 0 just before it and read just after, against
+    ``np.fft.fftn`` and through its inverse plan, timed beside the natural
+    layout and ``torch.fft.fftn``. Returns the path's launches."""
+    card = _smi("name,power.limit")
+    print(f"phase 32, K6's generic-radix form [{card}], ms (median of "
+          f"{REPS}):")
+    kw = dict(inverse=False, scale=1.0)
+    for shape in MIXED_K6_SHAPES:
+        _, n1, n2, L = shape
+        check(mid_pair_fft.form(n1, n2, L) == "mixed",
+              f"K6 {shape}: not on the generic-radix form")
+        xr, xi = _device_planes(shape, seed=n1 + L)
+        xc = torch.complex(xr, xi)
+        stage, planes = _mid_stage_form(xr, xi)
+        c = mid_pair_fft.cluster_size(n1, n2)
+        _ab_line(f"K6 {shape} clusters of {c}, "
+                 f"{mid_pair_fft.active_clusters(n1, n2, False, 0)} at once",
+                 lambda: mid_pair_fft.fft_mid_pair(xr, xi, **kw),
+                 lambda: (stage(), planes)[1],
+                 lambda: mid_pair_fft.fft_mid_pair_reference(xr, xi, **kw),
+                 lambda: torch.fft.fftn(xc, dim=(1, 2)),
+                 16.0 * xr.numel(), rate)
+        print(f"    K3 + K2 {_time_ms(lambda: _axes_1_2(xr, xi)):.4f} ms")
+        del xr, xi, xc, stage, planes
+    shape = T2_SHAPE
+    axes = (1, 2, 3, 4)
+    xr, xi = _device_planes(shape, seed=2)
+    x = tpufft_torch.SplitComplex(xr, xi)
+    fwd, inv, nat = _layout_plans(shape, axes, "transform-major", None)
+    packed = fwd.pack(x)
+    torch.cuda.synchronize()
+    reset_counts()
+    y = fwd(packed)
+    back = inv(y)
+    torch.cuda.synchronize()
+    by_kernel, plain = counts()
+    want = {k: 0 for k in ALL_KERNELS}
+    want.update(inner_nd=2, mid_pair=2, minor=2)
+    check(by_kernel == want and plain == 0,
+          f"T2 {shape}: launches {by_kernel}, plain {plain}, expected {want}"
+          " (one K6 launch a transform)")
+    out = fwd.unpack(y)
+    ref = np.fft.fftn(_np_slices(x, 1), axes=axes)
+    err = float(np.max(np.abs(_np_slices(out, 1) - ref)) / np.max(np.abs(
+        ref)))
+    check(err < NP_TOL, f"T2 {shape}: vs np.fft.fftn {err:.3e}")
+    rt = pair_err(inv.unpack(back), x)
+    check(rt < NP_TOL, f"T2 {shape}: round trip {rt:.3e}")
+    del y, back, out
+    xc = torch.complex(xr, xi)
+    t = {"path": _time_ms(lambda: fwd(packed)),
+         "natural": _time_ms(lambda: nat(x)),
+         "torch_fftn": _time_ms(lambda: torch.fft.fftn(xc, dim=axes)),
+         "floor": 3 * 16.0 * xr.numel() / rate * 1e3}
+    print(f"  path T2 transform-major {shape} c64 (physical "
+          f"{tuple(packed.shape)}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in t.items()) + f" ms; K6 at (48, 160)"
+          f" {mid_pair_fft.form(48, 160, 160)} form; vs np.fft.fftn "
+          f"{err:.3e}, round trip {rt:.3e}, launches "
+          f"{ {k: v for k, v in by_kernel.items() if v} }")
+    del x, xr, xi, xc, packed
+    torch.cuda.synchronize()
+    return {k: v for k, v in by_kernel.items() if v}
+
+
 def _copy_rate() -> float:
     """Bytes per second of a 2 GB device copy (1 GB read, 1 GB written)."""
     nbytes = 2e9
@@ -4400,12 +4500,13 @@ def main() -> None:
     long_launches = phase_long_times(rate)
     cluster_launches = phase_cluster_times(rate)
     real_mixed_launches = phase_mixed_real_times(rate)
+    mid_launches = phase_mid_pair_times(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
                  multirate_launches, design_launches, peak_launches,
                  parallel_launches, mixed_launches, long_launches,
-                 cluster_launches, real_mixed_launches):
+                 cluster_launches, real_mixed_launches, mid_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

@@ -2105,12 +2105,14 @@ def test_cube_backward_through_the_line_form(cube, route, cuda_device):
 @pytest.mark.parametrize("n1,n2,L", [(8, 16, 128), (16, 64, 24),
                                      (32, 64, 16), (64, 128, 8),
                                      (64, 128, 37), (40, 64, 256),
-                                     (128, 128, 9), (128, 512, 3)])
+                                     (128, 128, 9), (128, 512, 3),
+                                     (36, 64, 20)])
 def test_mid_pair_kernel_matches_plain_version(n1, n2, L, dtype, tol,
                                                cuda_device):
     """The line form on the powers of two (clusters of 1, 4, 8, 16, 16
-    and 16 blocks at 8 lanes of L), the stage form on (40, 64) and
-    (128, 512) (clusters of 8 and 16 at 4 lanes, the last of 16384
+    and 16 blocks at 8 lanes of L), the generic-radix form on (40, 64)
+    (a cluster of 8 at 8 lanes), the stage form on (128, 512) and
+    (36, 64) (clusters of 16 and 4 at 4 lanes, the first of 16384
     elements in two register passes), a ragged L (37, 9, 3) and pre of
     3."""
     assert mid_pair_fft.active_clusters(n1, n2, dtype == torch.bfloat16,
@@ -2152,6 +2154,105 @@ def test_mid_pair_line_form_edges(shape, dtype, tol, cuda_device):
                                                   scale=0.5)
         torch.cuda.synchronize()
         assert got[0].dtype == dtype and _err(got, ref) < tol
+
+
+# the generic-radix form (csrc/mid_line.cuh): every family on each axis,
+# the 56- and 60-value lines (224, 120, 240) and 256 on both, the timed
+# pairs, T2's (48, 160), ragged L
+MIXED_PAIRS = [(160, 160, 12), (48, 160, 37), (56, 56, 9), (256, 128, 5),
+               (240, 120, 3), (224, 128, 16), (128, 240, 7), (112, 224, 2),
+               (12, 15, 5), (14, 28, 8), (40, 7, 3), (16, 160, 2),
+               (7, 3, 1), (30, 60, 10), (96, 192, 4), (128, 256, 6),
+               (3, 224, 8), (120, 5, 11), (20, 24, 9), (80, 112, 1)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n1,n2,L", MIXED_PAIRS)
+def test_mid_pair_mixed_form_matches_plain_version(n1, n2, L, dtype, tol,
+                                                   cuda_device):
+    """The generic-radix line form against its plain version: forward and
+    inverse, scale 1 and 1/(n1 n2), pre 3, one launch a call and no plain
+    version on the card."""
+    assert mid_pair_fft.form(n1, n2, L) == "mixed"
+    assert mid_pair_fft.active_clusters(n1, n2, dtype == torch.bfloat16,
+                                        0) > 0
+    xr, xi = _planes((3, n1, n2, L), cuda_device, dtype, seed=n1 * n2 + L)
+    for inverse in (False, True):
+        for scale in (1.0, 1.0 / (n1 * n2)):
+            _reset()
+            got = mid_pair_fft.fft_mid_pair(xr, xi, inverse=inverse,
+                                            scale=scale)
+            assert _counts() == (dict(NONE, mid_pair=1), 0)
+            ref = mid_pair_fft.fft_mid_pair_reference(
+                xr, xi, inverse=inverse, scale=scale)
+            torch.cuda.synchronize()
+            assert got[0].dtype == dtype and _err(got, ref) < tol, (
+                inverse, scale)
+
+
+@pytest.mark.parametrize("n1,n2", [(160, 160), (48, 160), (56, 56),
+                                   (256, 128), (240, 120), (12, 15)])
+def test_mid_pair_mixed_form_edge_values(n1, n2, cuda_device):
+    """Edge values through the generic-radix form, one (pre, l) plane each
+    (each plane is its own 2-D transform): +Inf, -Inf and NaN in the re
+    plane of planes l = 0-2 of pre 0, 3.4e38 in plane 3, planes 5 and 6
+    (both planes of storage) scaled by 1e-20 and 1e18, over L = 9 (a
+    ragged second tile). The planes holding Inf or NaN come out
+    non-finite in the kernel and in the plain version alike and no other
+    plane does, except that the 3.4e38 plane may overflow in a
+    butterfly's sum; the others, 1e-20 and 1e18 among them, are within
+    1e-5 of the plain version relative to their own magnitude, and so is
+    the 3.4e38 plane where it stays finite."""
+    L = 9
+    xr, xi = _planes((2, n1, n2, L), cuda_device, seed=n1 + n2)
+    xr[0, 5 % n1, 7 % n2, 0] = float("inf")
+    xr[0, 7 % n1, 3 % n2, 1] = float("-inf")
+    xr[0, 3 % n1, 5 % n2, 2] = float("nan")
+    xr[0, 9 % n1, 1 % n2, 3] = 3.4e38
+    for x in (xr, xi):
+        x[:, :, :, 5] *= 1e-20
+        x[:, :, :, 6] *= 1e18
+    assert mid_pair_fft.form(n1, n2, L) == "mixed"
+    got = mid_pair_fft.fft_mid_pair(xr, xi, inverse=False, scale=1.0)
+    ref = mid_pair_fft.fft_mid_pair_reference(xr, xi, inverse=False,
+                                              scale=1.0)
+    torch.cuda.synchronize()
+    # one row a (pre, l) plane: (2 L, n1 n2)
+    got = tuple(t.permute(0, 3, 1, 2).reshape(2 * L, -1) for t in got)
+    ref = tuple(t.permute(0, 3, 1, 2).reshape(2 * L, -1) for t in ref)
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[:3].all()
+        assert not bad[4:].any()
+    assert _complex_row_err((got[0][4:], got[1][4:]),
+                            (ref[0][4:], ref[1][4:])) < 1e-5
+    if torch.isfinite(got[0][3]).all() and torch.isfinite(got[1][3]).all():
+        assert _complex_row_err((got[0][3:4], got[1][3:4]),
+                                (ref[0][3:4], ref[1][3:4])) < 1e-5
+
+
+def test_mid_pair_mixed_form_on_the_t2_path(cuda_device):
+    """T2 at a tenth of its planes, (1, 25, 160, 160, 48) -> (1, 3, 160,
+    160, 48) transform-major over axes 1-4: K3, then K6 once at (48, 160)
+    on the generic-radix form, then K1; no plain version on the card."""
+    shape = (1, 3, 160, 160, 48)
+    xr, xi = _planes(shape, cuda_device, seed=25)
+    plan = tpufft_torch.plan_fft(shape, layout="transform-major",
+                                 axes=(1, 2, 3, 4))
+    packed = plan.pack(SplitComplex(xr, xi))
+    _reset()
+    y = plan(packed)
+    torch.cuda.synchronize()
+    assert _counts() == (dict(NONE, inner_nd=1, mid_pair=1, minor=1), 0)
+    assert mid_pair_fft.form(48, 160, 160) == "mixed"
+    out = plan.unpack(y)
+    want = np.fft.fftn(xr[0].double().cpu().numpy()
+                       + 1j * xi[0].double().cpu().numpy())
+    got = out.re[0].double().cpu().numpy() + 1j * out.im[0].double().cpu(
+        ).numpy()
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-5
 
 
 def test_mid_pair_line_form_at_the_path_shape(cuda_device):
@@ -2689,11 +2790,45 @@ WAVEFORMS = [
 ]
 
 
+# every test this process has run, in order (the autouse fixture below):
+# a failure of a test that depends on no earlier one reports them
+_RUN_SO_FAR = []
+
+
+@pytest.fixture(autouse=True)
+def _run_order(request):
+    _RUN_SO_FAR.append(request.node.nodeid.rsplit("::", 1)[-1])
+
+
+def _waveform_report(name, t, y, ref, truth, err):
+    """Why the card's sampler and the CPU's differ: the 5 worst samples
+    (index, t, the card's value, the CPU's, float64's), each side's worst
+    distance from float64, the CPU's ATen capability and threads, and the
+    last 40 tests this process ran before this one."""
+    y, ref, truth = (v.detach().double().cpu().reshape(len(t), -1)
+                     for v in (y, ref, truth))
+    diff = (y - ref).abs().amax(1)
+    worst = torch.argsort(diff, descending=True)[:5].tolist()
+    rows = "; ".join(
+        f"[{i}] t={t[i].item():.9g} card={y[i].tolist()} cpu={ref[i].tolist()}"
+        f" f64={truth[i].tolist()}" for i in worst)
+    before = _RUN_SO_FAR[:-1][-40:]
+    return (f"{name}: card vs CPU {err:.3e}; card vs f64 "
+            f"{(y - truth).abs().max().item():.3e}, CPU vs f64 "
+            f"{(ref - truth).abs().max().item():.3e}; CPU "
+            f"{torch.backends.cpu.get_cpu_capability()} x "
+            f"{torch.get_num_threads()} threads; worst samples {rows}; "
+            f"{len(_RUN_SO_FAR) - 1} tests ran before it in this process, "
+            f"the last {len(before)}: {before}")
+
+
 @pytest.mark.parametrize("name,fn", WAVEFORMS, ids=[w[0] for w in WAVEFORMS])
 def test_waveforms_on_the_card(name, fn, cuda_device):
     """The samplers run where the time grid lies and keep float32; they
     match the CPU tensor path bit for bit up to float32 rounding of the
-    phase (|phase| <= 2 pi 30 here)."""
+    phase (|phase| <= 2 pi 30 here). A mismatch reports the samples, each
+    side against the float64 sampler on the same grid, and the tests this
+    process ran before (``_waveform_report``)."""
     t = torch.linspace(0, 1, 100000, device=cuda_device)
     _layer_reset()
     y = fn(t)
@@ -2705,7 +2840,12 @@ def test_waveforms_on_the_card(name, fn, cuda_device):
     if name == "square":
         assert (y.cpu() != ref).float().mean() < 1e-4
     else:
-        assert _rel(y, ref) < 8 * 6e-8 * 2 * np.pi * 30 + 1e-6
+        err = _rel(y, ref)
+        if not err < 8 * 6e-8 * 2 * np.pi * 30 + 1e-6:   # NaN fails too
+            truth = fn(t.cpu().double())
+            if truth.is_complex():
+                truth = torch.view_as_real(truth)
+            pytest.fail(_waveform_report(name, t.cpu(), y, ref, truth, err))
 
 
 # ----------------------------------------------------------------------------

@@ -379,6 +379,75 @@ def test_dispatch_mid_pair(spies):
     assert spies[1] == ("fft_mid_pair", (16, 16, 8, 16))
 
 
+def test_dispatch_mid_pair_t2_like(spies):
+    """A transform-major plan shaped like T2 (tpufft's
+    ``layout="transform-major"`` of (1, 25, 160, 160, 48) over axes 1-4):
+    (1, 3, 160, 160, 12) runs the natural rules on the physical
+    (1, 3, 12, 160, 160), whose trailing pair and cube no kernel holds, so
+    K3 takes the axis of 3, the mid-pair wrapper the non-power-of-two pair
+    (12, 160) at L = 160 once (the generic-radix line form), and K1 the
+    minor axis of 160."""
+    shape = (1, 3, 160, 160, 12)
+    x = _complex(shape, seed=27)
+    plan = tpufft_torch.plan_fft(shape, layout="transform-major",
+                                 axes=(1, 2, 3, 4))
+    packed = plan.pack(SplitComplex(torch.from_numpy(x.real.copy()),
+                                    torch.from_numpy(x.imag.copy())))
+    spies.clear()
+    y = plan(packed)
+    kernels = [c for c in spies if c[0] != "movedim"]
+    assert [c[0] for c in kernels] == ["fft_inner_nd", "fft_mid_pair",
+                                       "fft_minor"]
+    assert kernels[1] == ("fft_mid_pair", (3, 12, 160, 160))
+    assert mid_pair_fft.form(12, 160, 160) == "mixed"
+    out = plan.unpack(y)
+    got = out.re.numpy() + 1j * out.im.numpy()
+    want = np.fft.fftn(x.astype(np.complex128), axes=(1, 2, 3, 4))
+    assert _err(got, want) < 1e-5
+
+
+def test_mid_route_strided_lines_match_the_model():
+    """The route rule's mirror of the strided line form's lengths
+    (``execute._strided_line``) is the strided kernel's model list up to
+    K6's longest axis, 256."""
+    from test_torch_strided_geometry import LINE_NS
+    assert ([n for n in range(2, 257) if execute._strided_line(n)]
+            == [n for n in LINE_NS if n <= 256])
+
+
+@pytest.mark.parametrize("pair,L,dtype,route", [
+    ((160, 160), 8, torch.float32, "two"),    # 12800 elements a block
+    ((256, 128), 8, torch.float32, "two"),    # 16384
+    ((128, 96), 8, torch.float32, "two"),     # 6144
+    ((48, 160), 8, torch.float32, "k6"),      # T2's pair: 3840
+    ((96, 96), 8, torch.float32, "k6"),       # 4608
+    ((64, 120), 8, torch.float32, "two"),     # 3840, but 15 2^a
+    ((56, 56), 8, torch.float32, "k6"),       # 7 2^a: the strided stage form
+    ((112, 112), 8, torch.float32, "k6"),
+    ((64, 128), 8, torch.float32, "k6"),      # the power-of-two form: 4096
+    ((128, 128), 8, torch.float32, "two"),    # 8192
+    ((160, 160), 8, torch.bfloat16, "k6"),    # K2's line form: 16 columns
+    ((160, 160), 16, torch.bfloat16, "two"),
+])
+def test_dispatch_mid_pair_route(spies, pair, L, dtype, route):
+    """Where the two strided passes on their line forms beat K6's line
+    forms (a block share above ``MID_MIXED_MAX_SHARE``, or an axis of 15
+    2^a), the pair runs K3 + K2; elsewhere one mid-pair pass. Both routes
+    give np.fft.fftn's result."""
+    n1, n2 = pair
+    ok = execute.mid_pair_ok(n1, n2, L, dtype, PlanConfig())
+    assert ok == (route == "k6")
+    if dtype != torch.float32:
+        return
+    x = _complex((1, n1, n2, L), seed=n1 + L)
+    spies.clear()
+    y = tpufft_torch.fftn(x, axes=(1, 2), device="cpu")
+    want = ([("fft_mid_pair", (1, n1, n2, L))] if ok else
+            [("fft_inner_nd", (n1, n2, L)), ("fft_inner", (n1, n2, L))])
+    assert [c for c in spies if c[0] != "movedim"] == want
+    assert _err(y, np.fft.fftn(x.astype(np.complex128), axes=(1, 2))) < 1e-5
+
+
 @pytest.mark.parametrize("fn", ["fftn", "ifftn"])
 @pytest.mark.parametrize("norm", [None, "backward", "ortho", "forward"])
 @pytest.mark.parametrize("shape,axes", [

@@ -6,10 +6,11 @@ Run from the repository root on a machine with the GPU:
 
 It compiles patched copies of ``tpufft_torch/csrc/cluster_fft.cu`` (and
 of ``line_fft.cuh`` where a copy patches it) into
-``build/cluster_phases/NAME/`` (one ``nvcc`` each, in parallel), each with some
-phases switched off, and times ``tpufft_cube_fft`` at (100, 64, 64, 64) and
-``tpufft_mid_pair_fft`` at (32, 64, 128, 128) in each (CUDA events, median
-of 20; the results of the patched copies are wrong by design).
+``build/cluster_phases/NAME/`` (``tools/variant_build.py``: one ``nvcc`` a
+source, in parallel), each with some phases switched off, and times
+``tpufft_cube_fft`` at (100, 64, 64, 64) and ``tpufft_mid_pair_fft`` at
+(32, 64, 128, 128) in each (CUDA events, median of 20; the results of the
+patched copies are wrong by design).
 
 K5 at 64^3 runs the line form (``cube_line_kernel``); its copies are:
 
@@ -54,6 +55,28 @@ a tile, clusters of 16), whose copies switch off the stages
 of L a tile: 8 runs the line form, 4 and 2 the stage form; cluster size)
 through the package, and the two-pass routes the kernels replace. Every
 line names the card and its power limit.
+
+Every library links csrc's ``cluster_fft.cu`` and
+``mid_line_{pow2,r3,r5,r7,r15}.cu``, compiled once into
+``build/cluster_phases/common/``, unless the copy holds its own. K6's
+generic-radix form (``mid_mixed_kernel`` in ``csrc/mid_line.cuh``) is
+timed at (25, 160, 160, 48) and at T2's (25, 48,
+160, 160) in every library; its own copies patch ``mid_line.cuh``:
+
+- ``k6m_load``: returns after the tables, the load into the tile and the
+  block barrier after it;
+- ``k6m_load_n2``: returns after the n2 lines;
+- ``k6m_local_exchange``: the n1 lines read the block's own tile instead
+  of the cluster's (what distributed shared memory costs);
+- ``k6m_no_store``: the n1 lines store nothing;
+- ``k6m_no_fft``: neither step runs its lines' DFTs (the loads, the tile's
+  and the cluster's reads and writes and the stores stay);
+- ``k6m_bounds_1``, ``k6m_bounds_3``: launch bounds of 1 or 3 blocks of
+  320 threads an SM instead of 2 (at most 204 or 68 registers instead of
+  102).
+
+The n2 lines are ``k6m_load_n2`` - ``k6m_load``; the exchange, the n1
+lines, the store and the end barrier the full kernel - ``k6m_load_n2``.
 """
 
 from __future__ import annotations
@@ -61,20 +84,23 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-import subprocess
 import sys
 
 sys.path.insert(0, os.getcwd())
+sys.path.insert(0, os.path.join(os.getcwd(), "tools"))
 
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+import variant_build  # noqa: E402
 from tpufft_torch import _build  # noqa: E402
 from tpufft_torch.kernels import (cube_fft, inner_fft, mid_pair_fft,  # noqa
                                   minor_fft, pair_fft)
 
-SRC = "tpufft_torch/csrc/cluster_fft.cu"
-LINE_SRC = "tpufft_torch/csrc/line_fft.cuh"
+CSRC = "tpufft_torch/csrc"
+SRC = f"{CSRC}/cluster_fft.cu"
+LINE_SRC = f"{CSRC}/line_fft.cuh"
+MID_SRC = f"{CSRC}/mid_line.cuh"
 OUT = "build/cluster_phases"
 STAGES = "                                       bool inv) {\n  const int n = plan.n;\n"
 PERMUTE = ("                                        Src src, Dst dst) {\n")
@@ -95,9 +121,69 @@ MID_N2_END = "  cluster.sync();\n  with_length128(n1, [&](auto n) {\n"
 MID_VECTOR = "  const int quads = L % 4 == 0 &&"
 MID_BOUNDS = "__launch_bounds__(kMidThreads, 4)"
 VALUES = "constexpr int kLineValues = 16;"
+# the generic-radix form's phases (mid_mixed_kernel, mid_line.cuh)
+MIX_LOAD_END = "  __syncthreads();\n  with_mix_length(n2, [&](auto n) {\n"
+MIX_N2_END = "  cluster.sync();\n  with_family<kFamily>(n1, [&](auto n) {\n"
+MIX_REMOTE = "cluster.map_shared_rank(tile, owner)"
+MIX_STORE = "    if (valid && l < left) {\n      const int64_t base"
+MIX_BOUNDS = "__launch_bounds__(kMixThreads, 2)"
+MIX_FFT = "    mix_fft<N>(v, tk.l, table, inv);\n"
+# the pairs the generic-radix form is timed at: (160, 160) at L = 48, and
+# T2's (48, 160) at L = 160; n1's family source is patched with the header
+MIX_SHAPES = ((25, 160, 160, 48), (25, 48, 160, 160))
 
 
 def variants() -> dict:
+    """name -> {file name: text} of the copy's csrc files that differ from
+    csrc or are compiled in the copy (a patched cluster_fft.cu, with a
+    patched line_fft.cuh; a patched mid_line.cuh with the family sources of
+    n1 that include it). ``full`` patches nothing: its library is csrc's
+    objects."""
+    out = {}
+    for name, text in _sources().items():
+        if name == "full":
+            out[name] = {}
+        elif isinstance(text, tuple):
+            out[name] = {"cluster_fft.cu": text[0], "line_fft.cuh": text[1]}
+        else:
+            out[name] = {"cluster_fft.cu": text}
+    mid = open(MID_SRC).read()
+    for mark in (MIX_LOAD_END, MIX_N2_END, MIX_REMOTE, MIX_STORE,
+                 MIX_BOUNDS, MIX_FFT):
+        assert mark in mid, f"marker not found in {MID_SRC}: {mark!r}"
+    mixed = {
+        "k6m_load": mid.replace(MIX_LOAD_END, MIX_LOAD_END.replace(
+            "  with_mix_length", "  return;\n  with_mix_length", 1)),
+        "k6m_load_n2": mid.replace(MIX_N2_END, MIX_N2_END.replace(
+            "  cluster.sync();", "  __syncthreads();\n  return;", 1)),
+        "k6m_local_exchange": mid.replace(MIX_REMOTE, "tile"),
+        "k6m_no_store": mid.replace(MIX_STORE, MIX_STORE.replace(
+            "valid && l < left", "false", 1)),
+        "k6m_no_fft": mid.replace(MIX_FFT, ""),
+        "k6m_bounds_1": mid.replace(MIX_BOUNDS, MIX_BOUNDS.replace(
+            "2)", "1)")),
+        "k6m_bounds_3": mid.replace(MIX_BOUNDS, MIX_BOUNDS.replace(
+            "2)", "3)")),
+    }
+    families = sorted({_family(n1) for _, n1, _, _ in MIX_SHAPES})
+    for name, text in mixed.items():
+        # the unpatched cluster_fft.cu takes nothing of the form's kernel
+        # from the header, so csrc's object serves
+        out[name] = {"mid_line.cuh": text,
+                     **{f"mid_line_{f}.cu":
+                        open(f"{CSRC}/mid_line_{f}.cu").read()
+                        for f in families}}
+    return out
+
+
+def _family(n: int) -> str:
+    """The family source of n1 (mid_line_<family>.cu)."""
+    while n % 2 == 0:
+        n //= 2
+    return "pow2" if n == 1 else f"r{n}"
+
+
+def _sources() -> dict:
     """name -> the patched cluster_fft.cu, or (it, the patched
     line_fft.cuh)."""
     src = open(SRC).read()
@@ -153,32 +239,18 @@ def variants() -> dict:
 
 
 def build(texts: dict) -> dict:
-    os.makedirs(OUT, exist_ok=True)
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, text in texts.items():
-        d = os.path.join(OUT, name)
-        os.makedirs(d, exist_ok=True)
-        cu, header = (text, None) if isinstance(text, str) else text
-        with open(os.path.join(d, "cluster_fft.cu"), "w") as f:
-            f.write(cu)
-        # a patched header beside the source is found before csrc's
-        if header is not None:
-            with open(os.path.join(d, "line_fft.cuh"), "w") as f:
-                f.write(header)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared",
-               "-Itpufft_torch/csrc", "-o", os.path.join(d, f"{name}.so"),
-               os.path.join(d, "cluster_fft.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{text[-3000:]}")
-        libs[name] = os.path.abspath(os.path.join(OUT, name, f"{name}.so"))
-        print(f"{name}: ptxas {line_form_resources(text)}", flush=True)
-    return libs
+    """Each copy built through ``tools/variant_build.py`` into
+    ``build/cluster_phases/<name>/``: its own sources compiled in its copy
+    of csrc, csrc's cluster_fft.cu and family sources compiled once into
+    ``common/`` and linked into every copy that does not hold its own;
+    name -> the library's path, with ptxas's line-form report printed."""
+    built = variant_build.build(
+        OUT, None, texts, lambda f: False,
+        shared=lambda f: f == "cluster_fft.cu" or (
+            f.startswith("mid_line_") and f.endswith(".cu")))
+    for name, (_, log) in built.items():
+        print(f"{name}: ptxas {line_form_resources(log)}", flush=True)
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def line_form_resources(log: str) -> str:
@@ -187,7 +259,8 @@ def line_form_resources(log: str) -> str:
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'(\w*(?:cube_line|mid_pair_line)_kernel\w*)'", line)
+                      r"'(\w*(?:cube_line|mid_pair_line|mid_mixed)_kernel"
+                      r"\w*)'", line)
         if m or "Compiling entry function" in line:
             cur = m.group(1) if m else None
             continue
@@ -198,9 +271,13 @@ def line_form_resources(log: str) -> str:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            kind = ("K6 " if "mid_pair" in cur else "") + (
-                "bf16" if "bfloat16" in cur else "f32") + (
-                " fused" if "Lb1E" in cur else "")
+            if "mid_mixed" in cur:   # one kernel a family of n1, any dtype
+                kind = "K6 mixed n1 family " + re.search(
+                    r"ILi(\d+)E", cur).group(1)
+            else:
+                kind = ("K6 " if "mid_pair" in cur else "") + (
+                    "bf16" if "bfloat16" in cur else "f32") + (
+                    " fused" if "Lb1E" in cur else "")
             out.append(f"{kind} {m.group(1)} registers, {spill} bytes "
                        "spilled")
             cur = None
@@ -241,6 +318,19 @@ def main() -> None:
     c6 = mid_pair_fft.cluster_size(64, 128)
     lanes = mid_pair_fft.lanes(64, 128)
     c6_stage = cube_fft.pick_cluster(64, 128 * mid_pair_fft.LANES)
+    mixed = []   # the generic-radix form's operands at MIX_SHAPES
+    for shape in MIX_SHAPES:
+        pre_, n1_, n2_, L_ = shape
+        assert mid_pair_fft.form(n1_, n2_, L_) == "mixed", shape
+        ar_, ai_ = chip_smoke._device_planes(shape, 5)
+        r1_, r2_ = minor_fft.radices(n1_), minor_fft.radices(n2_)
+        mixed.append((shape, ar_, ai_, torch.empty_like(ar_),
+                      torch.empty_like(ai_),
+                      minor_fft._device_twiddles(n1_, False, xr.device),
+                      minor_fft._device_twiddles(n2_, False, xr.device),
+                      (i32 * len(r1_))(*r1_), len(r1_),
+                      (i32 * len(r2_))(*r2_), len(r2_),
+                      mid_pair_fft.cluster_size(n1_, n2_)))
     print(f"{card}: K5 (100, 64, 64, 64) clusters of {c5}; K6 "
           f"(32, 64, 128, 128) {mid_pair_fft.form(64, 128, 128)} form, "
           f"clusters of {c6} at {lanes} lanes; its stage form clusters of "
@@ -287,6 +377,18 @@ def main() -> None:
                 csize, a64, len(r64), a128, len(r128), 0, 1.0, 0, stream)
             assert err == 0, err
 
+        def k6m(m):
+            shape, ar_, ai_, br_, bi_, t1, t2, a1, l1, a2, l2, c = m
+            err = lib.tpufft_mid_pair_fft(
+                ar_.data_ptr(), ai_.data_ptr(), br_.data_ptr(),
+                bi_.data_ptr(), t1.data_ptr(), t2.data_ptr(), shape[0],
+                shape[1], shape[2], shape[3], mid_pair_fft.LINE_LANES, c, a1,
+                l1, a2, l2, 0, 1.0, 0, stream)
+            assert err == 0, err
+
+        mixed_ms = ", ".join(f"{m[0]} {t(lambda: k6m(m)):.4f}" for m in mixed)
+        print(f"{card}: {name}: K6 generic-radix form {mixed_ms} ms",
+              flush=True)
         k5_bf16 = t(lambda: k5((xb, xbi, yb, ybi), 1))
         print(f"{card}: {name}: K5 {t(k5):.4f} ms (bf16 {k5_bf16:.4f}, "
               f"(800, 32^3) {t(k5_32):.4f}), K16 {t(k16):.4f} ms, K6 "

@@ -81,10 +81,17 @@
 // At (64, 128) every shared access of the three steps is free of bank
 // conflicts, a block holds 4096 elements (32 KB, 256 threads) and several
 // blocks share an SM, so one block's load overlaps another's lines.
+// The tile, its load and the split barrier live in mid_line.cuh, beside
+// K6's generic-radix line form (mid_mixed_kernel; kernels/mid_pair_fft.py:
+// form mirrors mixed_pair), the same three steps on the same tile for
+// pairs whose axes are r 2^a (r in 1, 3, 5, 7, 15) up to 240, or 256,
+// and not both powers of two up to 128: the odd factor in registers, then
+// the power-of-two sub-lines on the shuffle exchange (mid_line.cuh).
 //
 // The stage form (cube_fft_kernel), for every other cube in the envelope
 // (odd radices, axes above 64) and K6's other pairs (mid_pair_fft_kernel:
-// odd radices, an axis above 128, tiles of 4 lanes of L): the shared
+// primes 11 to 31, factors 9 and 25, an axis above 256, a tile that needs
+// more than 16 blocks at 8 lanes of L, tiles of 4 lanes of L): the shared
 // Stockham stages (fft_stages.cuh) over the tile. Block b loads its slabs
 // (K5: one contiguous run, written transposed (n2, n3) -> (n3, n2); K6:
 // rows of `lanes` contiguous elements, the ragged end of L masked to
@@ -119,10 +126,12 @@
 
 #include "fft_stages.cuh"
 #include "line_fft.cuh"
+#include "mid_line.cuh"
 
 namespace cg = cooperative_groups;
 using namespace tpufft_fft;
 using namespace tpufft_line;
+using namespace tpufft_mid;
 
 namespace {
 
@@ -297,13 +306,6 @@ __device__ __forceinline__ void store_pair(float* p, int64_t i, float a,
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, int64_t i,
                                            float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
 // Phase 1: the n3 rows of the block's slabs, `rows` = slabs * n2 of them,
@@ -502,121 +504,7 @@ cube_line_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // The line form of K6 (the header's third form).
 // ---------------------------------------------------------------------------
 
-constexpr int kMidLanes = 8;     // elements of L a line-form tile takes
 constexpr int kMidThreads = 256; // threads of a mid-pair line-form block
-constexpr int kMidLoadUnroll = 8;
-
-// The tile of a mid-pair line-form block: `slabs` slabs of n2 rows of
-// kMidLanes elements. Two rows k2 make one 16-float2 bank row, in which
-// the group of 4 float2 (index bits 3..2) is XORed with (k2 >> 1) & 3, and
-// slabs lie n2 kMidLanes + 8 float2 apart. At (64, 128) every shared
-// access is then free of bank conflicts but the 16-byte load's stores (2
-// ways): the scalar load's half warps (two rows of 8), the n2 lines'
-// reads (rows k2..k2 + 3, 4 lanes of L) and writes (rows k2, k2 + 2,
-// k2 + 4, k2 + 6), and the n1 lines' 16-byte reads (two slabs, 8 lanes of
-// L). Adjacent lanes of L (l even) stay adjacent, and groups of 4 whole.
-struct MidTile {
-  int slab;
-  __host__ __device__ explicit MidTile(int n2)
-      : slab(n2 * kMidLanes + kLineSlabPad) {}
-  __device__ __forceinline__ int at(int j, int k2, int l) const {
-    return j * slab + (k2 >> 1) * 16 +
-           ((((k2 & 1) << 3) | l) ^ (((k2 >> 1) & 3) << 2));
-  }
-};
-
-// Step 1: the block's `rows` = slabs n2 rows of kMidLanes elements, the
-// ragged end of L read as zeros, from device memory into the tile. A warp
-// reads 4 rows of 8 consecutive elements a plane (f32: four full 32-byte
-// sectors), kMidLoadUnroll loads in flight a thread.
-template <typename T>
-__device__ __forceinline__ void mid_line_load(const T* __restrict__ xr,
-                                              const T* __restrict__ xi,
-                                              float2* tile,
-                                              const MidTile& at,
-                                              int64_t row0, int64_t L,
-                                              int64_t left, int rows, int n2) {
-  const int total = rows * kMidLanes;
-  const int n2_shift = __ffs(n2) - 1;
-  const int step = (int)blockDim.x;
-  for (int e0 = (int)threadIdx.x; e0 < total; e0 += step * kMidLoadUnroll) {
-    float2 v[kMidLoadUnroll];
-#pragma unroll
-    for (int u = 0; u < kMidLoadUnroll; ++u) {
-      const int e = e0 + u * step, l = e % kMidLanes;
-      v[u] = make_float2(0.f, 0.f);
-      if (e < total && l < left) {
-        const int64_t g = (row0 + e / kMidLanes) * L + l;
-        v[u] = make_float2(load_f(xr, g), load_f(xi, g));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kMidLoadUnroll; ++u) {
-      const int e = e0 + u * step;
-      if (e < total) {
-        const int r = e / kMidLanes;
-        tile[at.at(r >> n2_shift, r & (n2 - 1), e % kMidLanes)] = v[u];
-      }
-    }
-  }
-}
-
-// Four consecutive elements of a plane (16 bytes of f32, 8 of bf16; i a
-// multiple of 4 and the plane aligned to that).
-__device__ __forceinline__ float4 load4(const float* p, int64_t i) {
-  return *reinterpret_cast<const float4*>(p + i);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int64_t i) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p + i);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Step 1 where L % 4 == 0 and the planes take 4-element loads: each
-// thread loads 4 consecutive lanes of a row from each plane (a whole
-// 16-byte f32 chunk; the ragged end of L is then whole chunks) and writes
-// them to the tile as two 16-byte stores (lanes l, l + 1 stay adjacent).
-template <typename T>
-__device__ __forceinline__ void mid_line_load4(const T* __restrict__ xr,
-                                               const T* __restrict__ xi,
-                                               float2* tile,
-                                               const MidTile& at,
-                                               int64_t row0, int64_t L,
-                                               int64_t left, int rows,
-                                               int n2) {
-  constexpr int kQuads = kMidLanes / 4;
-  const int total = rows * kQuads;
-  const int n2_shift = __ffs(n2) - 1;
-  const int step = (int)blockDim.x;
-  for (int e0 = (int)threadIdx.x; e0 < total;
-       e0 += step * (kMidLoadUnroll / 2)) {
-    float4 re[kMidLoadUnroll / 2], im[kMidLoadUnroll / 2];
-#pragma unroll
-    for (int u = 0; u < kMidLoadUnroll / 2; ++u) {
-      const int e = e0 + u * step, l = e % kQuads * 4;
-      re[u] = im[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < total && l < left) {
-        const int64_t g = (row0 + e / kQuads) * L + l;
-        re[u] = load4(xr, g);
-        im[u] = load4(xi, g);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kMidLoadUnroll / 2; ++u) {
-      const int e = e0 + u * step;
-      if (e < total) {
-        const int r = e / kQuads;
-        float4* dst = reinterpret_cast<float4*>(
-            tile + at.at(r >> n2_shift, r & (n2 - 1), e % kQuads * 4));
-        dst[0] = make_float4(re[u].x, im[u].x, re[u].y, im[u].y);
-        dst[1] = make_float4(re[u].z, im[u].z, re[u].w, im[u].w);
-      }
-    }
-  }
-}
 
 // Step 2: the n2 lines (slab j, lane l), `lines` = slabs kMidLanes of
 // them, in place in the tile. Line k of a thread is w W K + c + W k.
@@ -776,10 +664,10 @@ mid_pair_line_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const int64_t row0 = (p * n1 + (int64_t)rank * slabs) * n2;
   if (quads)
     mid_line_load4(xr + l0, xi + l0, tile, at, row0, L, left, slabs * n2,
-                   n2);
+                   Pow2Rows(n2));
   else
     mid_line_load(xr + l0, xi + l0, tile, at, row0, L, left, slabs * n2,
-                  n2);
+                  Pow2Rows(n2));
   __syncthreads();
   with_length128(n2, [&](auto n) {
     mid_line_n2<decltype(n)::value>(tile, at, tw2, slabs * kMidLanes,
@@ -1285,8 +1173,9 @@ extern "C" int tpufft_cube_fused_active_clusters(int n1, int n2, int n3,
 // {1, 2, 4, 8, 16} divides n1 and n2 * lanes,
 // (n1 / csize) * n2 * lanes <= 16384, and each axis's rows split into
 // chunks as for the cube. Where line_mid holds (powers of two to 128, 8
-// lanes) the line form runs, else the stage form. Returns 0 or the CUDA
-// error code.
+// lanes) the line form runs, where mixed_pair holds (mid_line.cuh: both
+// axes on its lists, 8 lanes) the generic-radix form, else the stage
+// form. Returns 0 or the CUDA error code.
 extern "C" int tpufft_mid_pair_fft(const void* xr, const void* xi, void* yr,
                                    void* yi, const void* tw1,
                                    const void* tw2, long long pre, int n1,
@@ -1307,6 +1196,13 @@ extern "C" int tpufft_mid_pair_fft(const void* xr, const void* xi, void* yr,
                                             n2, L, csize, inverse, scale, st);
     return launch_mid_line<float>(xr, xi, yr, yi, tw1, tw2, pre, n1, n2, L,
                                   csize, inverse, scale, st);
+  }
+  if (mixed_pair(n1, n2, lanes, csize)) {
+    if (pre == 0) return 0;
+    const size_t quad = 4 * (bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+    const int quads = L % 4 == 0 && aligned(xr, quad) && aligned(xi, quad);
+    return launch_mixed({xr, xi, yr, yi, tw1, tw2, pre, n1, n2, L, csize,
+                         bf16 != 0, quads, inverse, scale, st});
   }
   const Shape s = mid_shape(n1, n2, lanes, csize);
   if (s.threads == 0) return (int)cudaErrorInvalidValue;
@@ -1338,6 +1234,8 @@ extern "C" int tpufft_mid_pair_active_clusters(int n1, int n2, int lanes,
                                   csize, out)
                 : active_clusters(mid_pair_line_kernel<float>, s, csize, out);
   }
+  if (mixed_pair(n1, n2, lanes, csize))
+    return mixed_clusters(n1, n2, csize, out);
   const Shape s = mid_shape(n1, n2, lanes, csize);
   if (s.threads == 0) return (int)cudaErrorInvalidValue;
   if (s.threads <= kPackedShare / kPer)

@@ -417,6 +417,15 @@ def fft_pair_last(
 # passes' time, at 1 and 2 both 2.2-7.1x; at 8 the line form ran 0.85x.
 MID_PAIR_MIN_L = 8
 
+# K6's line forms against the two strided passes: from tools/mid_route.py
+# on the H100 (PERF.md; 23 pairs at L = 16, 48, 160), K3 + K2 on their
+# line forms win where a block of K6's cluster holds more than this many
+# elements (its tile at 8 lanes of L: 1.0-2.5x K6's time from 6144 up,
+# 0.81-0.95x at 3200-4608) or where an axis is 15 2^a (1.2-2.2x at every
+# share); K6 wins wherever an axis is 7 2^a (0.3-0.6x: the strided kernel
+# runs its stage form there).
+MID_MIXED_MAX_SHARE = 4608
+
 
 def cube_supported(n1: int, n2: int, n3: int, dtype,
                    config: PlanConfig) -> bool:
@@ -429,13 +438,39 @@ def cube_supported(n1: int, n2: int, n3: int, dtype,
     return config.backend != "xla" and cube_fft.supported(n1, n2, n3, dtype)
 
 
+def _strided_line(n: int) -> bool:
+    """Does the strided kernel run an axis of n <= 256 on its line form (r
+    2^a from 8 for r in 1, 3, 5; 15 2^a from 30; 25 and 93; the lists of
+    ``csrc/strided_line.cuh``)?"""
+    odd = n // (n & -n)
+    return (n >= 8 and odd in (1, 3, 5)) or (n >= 30 and odd == 15) or \
+        n in (25, 93)
+
+
+def _two_passes_win(n1: int, n2: int, L: int, dtype) -> bool:
+    """Do K3 + K2 on their line forms beat K6's line forms at this pair
+    (``MID_MIXED_MAX_SHARE``)? K2 takes its line form at L >= 8 columns in
+    f32, 16 in bf16."""
+    if (mid_pair_fft.form(n1, n2, L) not in ("lines", "mixed")
+            or not (_strided_line(n1) and _strided_line(n2))
+            or L < (16 if dtype == torch.bfloat16 else 8)):
+        return False
+    share = n1 // mid_pair_fft.cluster_size(n1, n2) * n2 * \
+        mid_pair_fft.LINE_LANES
+    return share > MID_MIXED_MAX_SHARE or any(
+        n // (n & -n) == 15 for n in (n1, n2))
+
+
 def mid_pair_ok(n1: int, n2: int, L: int, dtype, config: PlanConfig) -> bool:
     """Can two adjacent middle axes (n1, n2) with a contiguous batch L
-    behind them run as one pass of the mid-pair kernel? The port's own
-    envelope (``mid_pair_fft.supported``) and ``L >= MID_PAIR_MIN_L``;
-    tpufft's lane rule (L a multiple of 128) does not apply."""
+    behind them run as one pass of the mid-pair kernel, and should they?
+    The port's own envelope (``mid_pair_fft.supported``), ``L >=
+    MID_PAIR_MIN_L``, and not a pair where the two strided passes run
+    faster (:func:`_two_passes_win`); tpufft's lane rule (L a multiple of
+    128) does not apply."""
     return (config.backend != "xla" and L >= MID_PAIR_MIN_L
-            and mid_pair_fft.supported(n1, n2, L, dtype))
+            and mid_pair_fft.supported(n1, n2, L, dtype)
+            and not _two_passes_win(n1, n2, L, dtype))
 
 
 class _FFTCube(torch.autograd.Function):

@@ -14,7 +14,7 @@ of contiguous elements of L is split along n1 over a thread-block cluster
 of C blocks that exchange its n1-columns through distributed shared
 memory; C, one of 1, 2, 4, 8, 16, divides n1 and leaves at most 16384
 elements a block, and at most 2048 where it can (:func:`cluster_size`).
-The ragged end of L is masked, never padded. It has two forms
+The ragged end of L is masked, never padded. It has three forms
 (:func:`form` mirrors the launch's choice):
 
 * ``"lines"``, ``mid_pair_line_kernel``, where n1 and n2 are powers of two
@@ -25,8 +25,20 @@ The ragged end of L is masked, never padded. It has two forms
   cluster barrier each lane group reads its n1-columns from the cluster's
   tiles, transforms them in registers and stores them from there. At
   (64, 128) a cluster of 16 blocks of 4096 elements (32 KB).
-* ``"stages"``, ``mid_pair_fft_kernel``, every other pair (odd radices, an
-  axis above 128): tiles of ``LANES`` = 4 lanes, the shared Stockham stages
+* ``"mixed"``, ``mid_mixed_kernel`` (``csrc/mid_line.cuh``), the same
+  three steps on the same tile for every other pair of ``MIXED_LENGTHS``
+  (r 2^a for r in 1, 3, 5, 7, 15 up to 240, and 256) whose tile fits a
+  cluster at ``LINE_LANES``: a line of n = R P lies on P/V lanes of a warp,
+  R V values a lane (at most 32); the R-point DFT runs first in registers
+  over stride P, then the twiddle W_n^(p q) and the P-point sub-lines on
+  the shuffle exchange (radix-2 stages across the lanes where a lane holds
+  fewer values than the sub-line has lanes), every twiddle from the
+  n-tables staged in shared memory. At (160, 160) a cluster of 16 blocks
+  of 12800 elements (100 KB), two blocks an SM.
+* ``"stages"``, ``mid_pair_fft_kernel``, every other pair (primes 11 to
+  31, factors 9 and 25, an axis above 256, a tile that needs more than 16
+  blocks at ``LINE_LANES`` such as (224, 224)): tiles of ``LANES`` = 4
+  lanes, the shared Stockham stages
   over the block; a tile reads half of each 32-byte sector of a row (the
   tile beside it, run at the same time, reads the other half from L2). On
   the H100, 4 lanes ran faster than 8 and 2 on this form (PERF.md,
@@ -56,6 +68,7 @@ __all__ = [
     "LANES",
     "LINE_LANES",
     "LINE_LENGTHS",
+    "MIXED_LENGTHS",
     "active_clusters",
     "cluster_size",
     "fft_mid_pair",
@@ -71,6 +84,10 @@ __all__ = [
 LANES = 4  # elements of L a stage-form tile takes: 16 bytes of f32
 LINE_LANES = 8  # elements of L a line-form tile takes: 32 bytes of f32
 LINE_LENGTHS = (2, 4, 8, 16, 32, 64, 128)  # axes of the line form
+# axes of the generic-radix line form (TPUFFT_MID_* in csrc/mid_line.cuh)
+MIXED_LENGTHS = tuple(sorted(
+    {r << a for r in (1, 3, 5, 7, 15) for a in range(8) if r << a <= 240}
+    - {1} | {256}))
 
 launches = 0
 reference_cuda_calls = 0
@@ -85,15 +102,21 @@ def reset_counts() -> None:
 
 def _geometry(n1: int, n2: int) -> tuple[str, int, int] | None:
     """(form, lanes of L a tile, cluster size) of the pair, or None without
-    a cluster. Mirrors ``line_mid`` in ``csrc/cluster_fft.cu``: the line
-    form where both axes are in ``LINE_LENGTHS`` and its cluster at
-    ``LINE_LANES`` leaves an even number of n1-columns a block (they go in
-    pairs), else the stage form at ``LANES``."""
+    a cluster. Mirrors ``line_mid`` in ``csrc/cluster_fft.cu`` and
+    ``mixed_pair`` in ``csrc/mid_line.cuh``: the line form where both axes
+    are in ``LINE_LENGTHS`` and its cluster at ``LINE_LANES`` leaves an even
+    number of n1-columns a block (they go in pairs); else the mixed form
+    where both are in ``MIXED_LENGTHS`` and a cluster at ``LINE_LANES``
+    fits; else the stage form at ``LANES``."""
     n1, n2 = int(n1), int(n2)
     if n1 in LINE_LENGTHS and n2 in LINE_LENGTHS:
         c = pick_cluster(n1, n2 * LINE_LANES)
         if c is not None and n2 * LINE_LANES // c % 2 == 0:
             return "lines", LINE_LANES, c
+    elif n1 in MIXED_LENGTHS and n2 in MIXED_LENGTHS:
+        c = pick_cluster(n1, n2 * LINE_LANES)
+        if c is not None:
+            return "mixed", LINE_LANES, c
     c = pick_cluster(n1, n2 * LANES)
     return None if c is None else ("stages", LANES, c)
 
@@ -106,7 +129,7 @@ def cluster_size(n1: int, n2: int) -> int | None:
 
 
 def lanes(n1: int, n2: int) -> int | None:
-    """Elements of L a tile takes: ``LINE_LANES`` on the line form,
+    """Elements of L a tile takes: ``LINE_LANES`` on the line forms,
     ``LANES`` on the stage form; None outside the envelope."""
     g = _geometry(n1, n2)
     return None if g is None else g[1]
@@ -114,10 +137,11 @@ def lanes(n1: int, n2: int) -> int | None:
 
 def form(n1: int, n2: int, L: int) -> str | None:
     """Which form of the kernel transforms axes (1, 2) of (pre, n1, n2, L)
-    planes: ``"lines"`` or ``"stages"`` (see the module docstring); None
-    outside the envelope (:func:`supported`). The launch makes the same
-    choice (``line_mid`` in ``csrc/cluster_fft.cu``); L sets neither the
-    form nor the tile."""
+    planes: ``"lines"``, ``"mixed"`` or ``"stages"`` (see the module
+    docstring); None outside the envelope (:func:`supported`). The launch
+    makes the same choice (``line_mid`` in ``csrc/cluster_fft.cu``,
+    ``mixed_pair`` in ``csrc/mid_line.cuh``); L sets neither the form nor
+    the tile."""
     if not supported(n1, n2, L, torch.float32):
         return None
     return _geometry(n1, n2)[0]
@@ -136,7 +160,7 @@ def supported(n1: int, n2: int, L: int, dtype) -> bool:
     if g is None:
         return False
     kind, lanes_, c = g
-    if kind == "lines":
+    if kind != "stages":
         return True
     share = n1 // c * n2 * lanes_
     return (stages_fit(n2, n1 // c * lanes_, share)
