@@ -39,7 +39,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
 7. the new paths at full size, each driven with every count set to 0
    just before it and read just after: ``fft2`` on (100, 640, 480) (K2 +
    K1), ``fftn(axes=(1, 2, 3))`` on (10, 128, 128, 128) (K3 + K4), the
-   two-pass ``fft`` on (16, 1048576) (K3 with the twiddle + K1) and
+   two-pass ``fft`` on (16, 1048576) (K3 with the twiddle and the
+   swapped store + K2) and
    Bluestein ``fft`` on (10000, 4099) (K1 twice), each against
    ``np.fft`` on a few slices and through the round trip;
 8. times at those shapes: the path, each kernel alone at the shape the
@@ -217,7 +218,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
     (no host copy): ``freqz`` of ``firwin(101, 0.2)`` as a CUDA f32 tensor
     at ``worN=2048`` (n_fft 4096: K9 once), of a (129, 16384) bank of taps
     along axis 0 at ``worN=1024`` (K2) and of one (65537,) FIR at
-    ``worN=2**20`` (n_fft 2**21: the two-pass split, K3 + K1), each against
+    ``worN=2**20`` (n_fft 2**21: the two-pass split, K3 + K2), each against
     scipy's float64 ``freqz`` (4 filters of the bank; limit 1e-5 of the
     response's size); ``dlsim`` of a seeded stable 8-state, 4-input,
     2-output system (``cont2discrete``, zoh) on a (1048576, 4) f32 input
@@ -277,12 +278,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
     ``tpufft_torch.parallel`` in worlds of processes on cuda:0
     (``tools/chip_ranks.py``, each with a 600 s timeout): d = 1 over
     NCCL (``fft_distributed``, ``filter_distributed``, ``rfft_distributed``
-    + ``irfft_distributed`` on (4, 2**24): the two-pass split, K3 + K1),
+    + ``irfft_distributed`` on (4, 2**24): the two-pass split, K3 + K2),
     and d = 4 over gloo, whose collectives stage CUDA tensors through the
     host (the same paths on (4, 2**22) a rank, ``permuted_out`` ->
     ``permuted_in``, the all-gather fallback at n = 4 * 3**12,
     ``fftn_distributed`` on (8, 1024, 4096) and ``fft_batch_sharded`` on
-    (128, 640, 480): K2 + K1 a rank, K3 + K1 for the fallback), every
+    (128, 640, 480): K2 + K1 a rank, K3 + K2 for the fallback), every
     rank's kernels, plain versions, exchanges (the module's contract) and
     placement checked and the blocks assembled against scipy. Each line
     prints the time (median of 5, CUDA events; the numpy paths include
@@ -322,13 +323,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
     of 16 columns spread over a thread-block cluster): K2 alone at (1,
     3840, 2160), (1, 8192, 8192) and (2, 16384, 2048) in f32 and (8,
     2048, 2048) in bf16, and K3 with the two-pass twiddle on the (4 x
-    4096, 4096, 1) view of ``fft`` (4, 2**24), each beside its stage form
+    4096, 4096, 1) view of ``fft`` (4, 2**24), in the natural order and
+    with the swapped store, each beside its stage form
     (in turns), its plain version, ``torch.fft.fft`` and the copy floor;
     K18 on fused (1, 3840, 8, 2 x 270) and K19 on (1, 8192, 2 x 8192)
     beside their plain versions, ``torch.fft.fft`` and the floor;
     then ``fft2`` (1, 3840, 2160) and ``fft`` (4, 2**24) as paths, every
     count set to 0 just before each and read just after (K2 and K1 once a
-    transform; K3 and K1 once a transform), against ``np.fft`` on a row
+    transform; K3 and K2 once a transform), against ``np.fft`` on a row
     and through the round trip, beside ``torch.fft``. Phases 6 and 21 hold
     K2, K3, K18 and K19 at every length of the cluster form against their
     plain versions (``STRIDED_LINE_NS``).
@@ -354,6 +356,21 @@ Phases, each of which raises (and so exits nonzero) on failure:
     and through its inverse plan, beside the natural layout and
     ``torch.fft.fftn``. Phase 18 holds the form against its plain version
     at every family (``MID_PAIRS``).
+
+33. the two-pass split (K3 with the twiddle and the digit swap in its
+    store, then K2) at (16, 2**20) and (4, 2**24): ``fft`` and ``ifft``
+    with every count set to 0 just before and read just after (K3 and K2
+    once a transform, nothing else), against ``np.fft`` on a row and
+    through the round trip, one call under ``torch.profiler`` in a fresh
+    process (tools/kernel_profile.py: exactly two CUDA kernels, both the
+    strided kernel's: no copy); then the path, the
+    three-step it replaced (K3 natural, K1, the transpose copy; one call
+    and ten back to back), pass 1
+    (the swapped store) beside its natural store and its stage form, pass
+    2 beside its stage form, each pass's plain version and
+    ``torch.fft.fft``, the three-step's K1 and copy, cuFFT and the floor
+    of two passes, and every split of ``TWO_PASS_SPLITS`` (pass 1 over a,
+    pass 2 over b) in two turns.
 
 Every kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over the copy rate measured here and
@@ -436,7 +453,14 @@ CLUSTER_K2_SHAPES = (((1, 3840, 2160), torch.float32),
                      ((1, 8192, 8192), torch.float32),
                      ((2, 16384, 2048), torch.float32),
                      ((8, 2048, 2048), torch.bfloat16))
-TWO_PASS_LONG = (4, 1 << 24)   # split 4096 x 4096: K3 at 4096, then K1
+TWO_PASS_LONG = (4, 1 << 24)   # split 1024 x 16384: K3 swapped, then K2
+# phase 33: the two-pass split's route (K3 with the twiddle and the swapped
+# store, then K2) at its two shapes, and the splits the sweep times (pass 1
+# over a, pass 2 over b)
+TWO_PASS_SHAPES = ((16, 1 << 20), TWO_PASS_LONG)
+TWO_PASS_SPLITS = {1 << 24: ((4096, 4096), (8192, 2048), (2048, 8192),
+                             (16384, 1024), (1024, 16384)),
+                   1 << 20: ((1024, 1024), (2048, 512), (512, 2048))}
 # phase 32: K6's generic-radix form (pre, n1, n2, L): the four timed
 # shapes (the aligned 5-D of tpufft's docstring, (25, 160, 160, 128), a
 # channels-last 56^2 map and an axis of 256 among them) and the K6 call of
@@ -784,7 +808,7 @@ NEW_PATHS = (
      {"inner_nd": 1, "pair": 1}),
     ("two_pass", (16, 1_048_576),
      lambda x, inv: (tpufft_torch.ifft if inv else tpufft_torch.fft)(x),
-     {"inner_nd": 1, "minor": 1}),
+     {"inner_nd": 1, "inner": 1}),
     ("bluestein", (10_000, 4099),
      lambda x, inv: (tpufft_torch.ifft if inv else tpufft_torch.fft)(x),
      {"minor": 2}),
@@ -984,16 +1008,14 @@ def phase_new_times() -> dict:
             r3, i3 = xr.reshape(v), xi.reshape(v)
             tw = execute._device_two_pass_twiddle(a, b, False, xr.device)
             print(f"  split {n} = {a} * {b}")
+            swap = dict(n=a, inverse=False, scale=1.0, twiddle=tw, swap=True)
             kernel_row("inner_nd_tw", v,
-                       lambda: inner_fft.fft_inner_nd(
-                           r3, i3, n=a, inverse=False, scale=1.0,
-                           twiddle=tw),
+                       lambda: inner_fft.fft_inner_nd(r3, i3, **swap),
                        lambda: inner_fft.fft_inner_nd_reference(
-                           r3, i3, n=a, inverse=False, scale=1.0,
-                           twiddle=tw), gb,
+                           r3, i3, **swap), gb,
                        library=lambda: torch.fft.fft(
                            xc.reshape(rows, a, b), dim=1))
-            print(f"  K3 + twiddle {v}, n = {a}: "
+            print(f"  K3 + twiddle, swapped store {v}, n = {a}: "
                   f"{inner_fft.form(a, b, torch.float32)} form, "
                   f"{inner_fft.line_geometry(a, b, torch.float32)}")
             r2, i2 = xr.reshape(rows * a, b), xi.reshape(rows * a, b)
@@ -1005,7 +1027,8 @@ def phase_new_times() -> dict:
             swap = _time_ms(lambda: [
                 t.reshape(rows, a, b).transpose(1, 2).contiguous()
                 for t in (xr, xi)])
-            print(f"  digit swap copy: {swap:.4f} ms")
+            print(f"  the three-step's K1 above and its digit swap copy: "
+                  f"{swap:.4f} ms")
         else:
             rows, n = shape
             m = tpufft_torch.next_fast_len(2 * n - 1, aligned=True)
@@ -3073,7 +3096,7 @@ def phase_design_paths(rate: float) -> dict:
          freqz_bank_f64, FREQZ_TOL,
          4 * math.prod(FREQZ_BANK) + 8 * 1024 * FREQZ_BANK[1]),
         (f"freqz ({FREQZ_LONG},) worN=2**20", lambda: tpufft_torch.freqz(
-            long, worN=2 ** 20)[1], {"inner_nd", "minor"}, lambda h: h,
+            long, worN=2 ** 20)[1], {"inner_nd", "inner"}, lambda h: h,
          lambda: scipy.signal.freqz(long_h, worN=2 ** 20)[1], FREQZ_TOL,
          4 * FREQZ_LONG + 8 * 2 ** 20),
         (f"dlsim {DLSIM_SYSTEM} u {DLSIM_SHAPE}",
@@ -3259,6 +3282,49 @@ def _profiled(fn) -> dict:
             "wall_ms": wall,
             "op_cpu_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
             "by_name": by_name}
+
+
+def _cuda_kernels(fn) -> list:
+    """The CUDA kernels one call of fn ran, as (name, device ms), under
+    torch.profiler with the CUDA activity alone, in this process. After an
+    earlier profiler session in the same process it listed none of the
+    ctypes wrappers' launches, so a check of them runs in a fresh process
+    (``_fresh_fft_kernels``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, _device_us(e) / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _fresh_fft_kernels(shapes) -> dict:
+    """{shape: [(name, device ms), ...]}: the CUDA kernels that one
+    ``tpufft_torch.fft`` of each (rows, n) shape runs, profiled by
+    tools/kernel_profile.py in a process of its own (its first profiler
+    session); the process is stopped if it outlives RANK_TIMEOUT."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=root, OMP_NUM_THREADS="2")
+    try:
+        done = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "kernel_profile.py"),
+             *(f"{r},{n}" for r, n in shapes)], cwd=root, env=env,
+            capture_output=True, text=True, timeout=RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        check(False, f"tools/kernel_profile.py ran out of its "
+              f"{RANK_TIMEOUT} s")
+    check(done.returncode == 0, f"tools/kernel_profile.py exited "
+          f"{done.returncode}:\n{done.stderr[-3000:]}")
+    out = {}
+    for line in done.stdout.splitlines():
+        row = json.loads(line)
+        out[tuple(row["shape"])] = [tuple(k) for k in row["kernels"]]
+    check(set(out) == set(shapes), f"tools/kernel_profile.py: shapes "
+          f"{sorted(out)}, expected {sorted(shapes)}")
+    return out
 
 
 def _on_card(value) -> bool:
@@ -3505,14 +3571,14 @@ C64_TOL, C128_TOL = 1e-3, 1e-6   # assert_spectrum_close's rule
 RANK_TIMEOUT = 600
 DIST_WORLD = 4
 # the kernels each rank's paths must launch (chip_smoke's counter names)
-D1_KERNELS = ("inner_nd", "minor")      # the two-pass split at 2**24
+D1_KERNELS = ("inner_nd", "inner")      # the two-pass split at 2**24
 D4_KERNELS = {"fft_distributed": ("inner", "minor"),
               "filter_distributed": ("inner", "minor"),
               "rfft_distributed": ("inner", "minor"),
               "irfft_distributed": ("inner", "minor"),
               "permuted_out": ("inner", "minor"),
               "permuted_in": ("inner", "minor"),
-              "gather_fallback": ("inner_nd", "minor"),
+              "gather_fallback": ("inner_nd", "inner"),
               "fftn_distributed": ("inner", "minor"),
               "fft_batch_sharded": ("inner", "minor")}
 # calls of parallel._a2a per call (the module's contract)
@@ -4156,7 +4222,7 @@ def phase_cluster_times(rate: float) -> dict:
     version, ``torch.fft.fft`` and the copy floor; K18 and K19 beside their
     plain versions, ``torch.fft.fft`` and the floor; then the paths ``fft2``
     (1, 3840, 2160) (K2 at 3840, K1 at 2160) and ``fft`` TWO_PASS_LONG (K3
-    at 4096, K1 at 4096, the digit swap), each driven with every count set
+    with the swapped store, then K2), each driven with every count set
     to 0 just before it and read just after, against ``np.fft`` on a few
     rows and through the round trip, timed beside ``torch.fft``. Returns
     the paths' launches."""
@@ -4180,9 +4246,10 @@ def phase_cluster_times(rate: float) -> dict:
                  4.0 * xr.element_size() * xr.numel(), rate,
                  F32_TOL if dtype == torch.float32 else BF16_TOL)
         del xr, xi, xc
+    # K3 with the twiddle on the cluster form: the balanced split of
+    # TWO_PASS_LONG, 4096 x 4096 (the split's rule runs 1024 x 16384)
     batch, n = TWO_PASS_LONG
-    a, b = execute._split_large(n)
-    check((a, b) == (4096, 4096), f"fft {TWO_PASS_LONG}: split {(a, b)}")
+    a, b = 4096, n // 4096
     xr, xi = _device_planes((batch * a, b, 1), seed=a)
     tw = execute._device_two_pass_twiddle(a, b, False, xr.device)
     nd = dict(kw, n=a, twiddle=tw)
@@ -4192,9 +4259,15 @@ def phase_cluster_times(rate: float) -> dict:
     _ab_line(f"K3 + twiddle {(batch * a, b, 1)} "
              f"{inner_fft.line_geometry(a, b, torch.float32)}",
              lambda: inner_fft.fft_inner_nd(xr, xi, **nd),
-             lambda: inner_fft._launch(xr, xi, batch, a, b, False, 1.0, tw,
-                                       1, stages=True)[:2],
+             lambda: inner_fft.fft_inner_nd(xr, xi, stages=True, **nd),
              lambda: inner_fft.fft_inner_nd_reference(xr, xi, **nd),
+             lambda: torch.fft.fft(xc, dim=1), 16.0 * xr.numel(), rate)
+    _ab_line(f"K3 + twiddle, swapped store {(batch * a, b, 1)}",
+             lambda: inner_fft.fft_inner_nd(xr, xi, swap=True, **nd),
+             lambda: inner_fft.fft_inner_nd(xr, xi, swap=True, stages=True,
+                                            **nd),
+             lambda: inner_fft.fft_inner_nd_reference(xr, xi, swap=True,
+                                                      **nd),
              lambda: torch.fft.fft(xc, dim=1), 16.0 * xr.numel(), rate)
     del xr, xi, xc, tw
     # K18 and K19 on the cluster form: a 4K frame's axis 3840 over 8
@@ -4222,7 +4295,7 @@ def phase_cluster_times(rate: float) -> dict:
             ((1, 3840, 2160), tpufft_torch.fft2, tpufft_torch.ifft2,
              torch.fft.fft2, {"inner": 2, "minor": 2}),
             (TWO_PASS_LONG, tpufft_torch.fft, tpufft_torch.ifft,
-             torch.fft.fft, {"inner_nd": 2, "minor": 2})):
+             torch.fft.fft, {"inner_nd": 2, "inner": 2})):
         xr, xi = _device_planes(shape, seed=sum(shape))
         x = tpufft_torch.SplitComplex(xr, xi)
         torch.cuda.synchronize()
@@ -4246,16 +4319,143 @@ def phase_cluster_times(rate: float) -> dict:
         check(rt < NP_TOL, f"{call.__name__} {shape}: round trip {rt:.3e}")
         del y, back
         xc = torch.complex(xr, xi)
-        passes = 2 if len(shape) == 3 else 3
         t = {"path": _time_ms(lambda: call(x)),
              "torch_fft": _time_ms(lambda: ref_call(xc)),
-             "floor": passes * 16.0 * xr.numel() / rate * 1e3}
+             "floor": 2 * 16.0 * xr.numel() / rate * 1e3}
         print(f"  path {call.__name__} {shape} c64: " + ", ".join(
             f"{k} {v:.4f}" for k, v in t.items()) + f" ms; vs np.fft "
               f"{err:.3e}, round trip {rt:.3e}, launches "
               f"{ {k: v for k, v in by_kernel.items() if v} }")
         del x, xr, xi, xc
     torch.cuda.synchronize()
+    return dict(total)
+
+
+def phase_two_pass_times(rate: float) -> dict:
+    """Phase 33: the two-pass split at TWO_PASS_SHAPES. Each ``fft`` is
+    driven forward and back with every count set to 0 just before and read
+    just after (K3 with the twiddle and the swapped store, then K2, once a
+    transform; no K1, no plain version), held against ``np.fft`` on a row
+    and through the round trip, and one call profiled in a fresh process
+    by tools/kernel_profile.py (exactly two CUDA kernels, both the strided
+    kernel's: no copy). Then, timed: the path
+    (one call, and per call of ten back to back, which hides the host's
+    time before the launches), the three-step it replaced
+    (``_three_step``: K3 in the natural order, K1, the transpose copy;
+    the same two ways), pass 1 (K3 swapped) beside its natural store
+    and its stage form, pass 2 (K2) alone, the three-step's K1 and copy,
+    ``torch.fft.fft`` and the floor of two passes; then every split of
+    TWO_PASS_SPLITS, in turns. Returns the paths' launches."""
+    card = _smi("name,power.limit")
+    print(f"phase 33, the two-pass split [{card}], ms (median of {REPS}):")
+    total = collections.Counter()
+    kw = dict(inverse=False, scale=1.0)
+    fresh = _fresh_fft_kernels(TWO_PASS_SHAPES)
+    for shape in TWO_PASS_SHAPES:
+        rows, n = shape
+        a, b = execute._split_large(n)
+        xr, xi = _device_planes(shape, seed=n % 997)
+        x = tpufft_torch.SplitComplex(xr, xi)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = tpufft_torch.fft(x)
+        back = tpufft_torch.ifft(y)
+        torch.cuda.synchronize()
+        by_kernel, plain = counts()
+        want = {k: 0 for k in ALL_KERNELS}
+        want.update(inner_nd=2, inner=2)
+        check(by_kernel == want and plain == 0,
+              f"two-pass fft {shape}: launches {by_kernel}, plain {plain}, "
+              f"expected {want}")
+        total.update(by_kernel)
+        x0 = xr[:1].double().cpu().numpy() + 1j * xi[:1].cpu().numpy()
+        ref = np.fft.fft(x0)
+        got = y.re[:1].cpu().numpy() + 1j * y.im[:1].cpu().numpy()
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err < NP_TOL, f"two-pass fft {shape}: vs np.fft {err:.3e}")
+        rt = pair_err(back, x)
+        check(rt < NP_TOL, f"two-pass fft {shape}: round trip {rt:.3e}")
+        del y, back
+        ran = fresh[shape]
+        names = [k.split("(")[0].split("<")[0].split()[-1] for k, _ in ran]
+        check(len(ran) == 2 and all("strided" in k for k, _ in ran),
+              f"two-pass fft {shape}: {len(ran)} CUDA kernels {names}, "
+              f"expected the strided kernel twice and no copy")
+        here = _cuda_kernels(lambda: tpufft_torch.fft(x))
+        print(f"  profiled in this process (after earlier profiler "
+              f"sessions): {len(here)} CUDA kernels; in a fresh process: "
+              f"{len(ran)}")
+        print(f"  path fft {shape} = {a} x {b}: vs np.fft {err:.3e}, round "
+              f"trip {rt:.3e}, launches "
+              f"{ {k: v for k, v in by_kernel.items() if v} }; profiled: "
+              f"{len(ran)} CUDA kernels, " + ", ".join(
+                  f"{k} {ms:.4f} ms" for k, (_, ms) in zip(names, ran)))
+        tw = execute._device_two_pass_twiddle(a, b, False, xr.device)
+        v = (rows * a, b, 1)
+        r3, i3 = xr.reshape(v), xi.reshape(v)
+        nd = dict(kw, n=a, twiddle=tw)
+        xc = torch.complex(xr, xi)
+        p1 = _ab_line(f"pass 1, K3 + twiddle, swapped store {v} "
+                      f"{inner_fft.line_geometry(a, b, torch.float32)}",
+                      lambda: inner_fft.fft_inner_nd(r3, i3, swap=True,
+                                                     **nd),
+                      lambda: inner_fft.fft_inner_nd(
+                          r3, i3, swap=True, stages=True, **nd),
+                      lambda: inner_fft.fft_inner_nd_reference(
+                          r3, i3, swap=True, **nd),
+                      lambda: torch.fft.fft(xc.reshape(rows, a, b), dim=1),
+                      16.0 * xr.numel() + 8.0 * a * b, rate)
+        sr, si = inner_fft.fft_inner_nd(r3, i3, swap=True, **nd)
+        mid = (rows, b, a)
+        sr, si = sr.reshape(mid), si.reshape(mid)
+        sc = torch.complex(sr, si)
+        p2 = _ab_line(f"pass 2, K2 {mid} "
+                      f"{inner_fft.line_geometry(b, a, torch.float32)}",
+                      lambda: inner_fft.fft_inner(sr, si, **kw),
+                      lambda: inner_fft.fft_inner(sr, si, stages=True, **kw),
+                      lambda: inner_fft.fft_inner_reference(sr, si, **kw),
+                      lambda: torch.fft.fft(sc, dim=1), 16.0 * xr.numel(),
+                      rate)
+        del sc
+        m2 = (rows * a, b)
+        t = {"path": _time_ms(lambda: tpufft_torch.fft(x)),
+             "path_back_to_back": _back_to_back_ms(
+                 lambda: tpufft_torch.fft(x)),
+             "three_step": _time_ms(lambda: execute._fft_axis_two_pass(
+                 xr, xi, 1, a, b, _three_step=True, **kw)),
+             "three_step_back_to_back": _back_to_back_ms(
+                 lambda: execute._fft_axis_two_pass(
+                     xr, xi, 1, a, b, _three_step=True, **kw)),
+             "pass1": p1["line"], "pass1_natural": _time_ms(
+                 lambda: inner_fft.fft_inner_nd(r3, i3, **nd)),
+             "pass2": p2["line"],
+             "k1": _time_ms(lambda: minor_fft.fft_minor(
+                 xr.reshape(m2), xi.reshape(m2), **kw)),
+             "swap_copy": _time_ms(lambda: [
+                 p.reshape(rows, a, b).transpose(1, 2).contiguous()
+                 for p in (xr, xi)]),
+             "torch_fft": _time_ms(lambda: torch.fft.fft(xc, dim=-1)),
+             "floor": 2 * 16.0 * xr.numel() / rate * 1e3}
+        print(f"  fft {shape} = {a} x {b}: " + ", ".join(
+            f"{k} {val:.4f}" for k, val in t.items()) + " ms; path / floor "
+            f"{t['path'] / t['floor']:.3f}, path / torch_fft "
+            f"{t['path'] / t['torch_fft']:.3f}")
+        splits = TWO_PASS_SPLITS[n]
+        sweep = {s: 0.0 for s in splits}
+        for turn in range(2):
+            for s in (splits if turn == 0 else splits[::-1]):
+                e = pair_err(execute._fft_axis_two_pass(xr, xi, 1, *s, **kw),
+                             (execute._fft_axis_two_pass(xr, xi, 1, a, b,
+                                                         **kw)))
+                check(e < 1e-4,
+                      f"split {s} of {shape}: vs the rule's {e:.3e}")
+                sweep[s] += _time_ms(lambda: execute._fft_axis_two_pass(
+                    xr, xi, 1, *s, **kw)) / 2
+        print(f"  sweep {shape}, pass 1 over a x pass 2 over b, mean of two "
+              f"turns: " + ", ".join(f"{p} x {q} {val:.4f}"
+                                     for (p, q), val in sweep.items()) + " ms")
+        del x, xr, xi, xc, r3, i3, sr, si
+        torch.cuda.empty_cache()
     return dict(total)
 
 
@@ -4501,12 +4701,14 @@ def main() -> None:
     cluster_launches = phase_cluster_times(rate)
     real_mixed_launches = phase_mixed_real_times(rate)
     mid_launches = phase_mid_pair_times(rate)
+    two_pass_launches = phase_two_pass_times(rate)
     total = collections.Counter()
     for part in (path_launches, real_launches, dense_launches,
                  stft_launches, nd_launches, layout_launches,
                  multirate_launches, design_launches, peak_launches,
                  parallel_launches, mixed_launches, long_launches,
-                 cluster_launches, real_mixed_launches, mid_launches):
+                 cluster_launches, real_mixed_launches, mid_launches,
+                 two_pass_launches):
         total.update(part)
     total["minor"] += launches
     k1 = {"ms": head["kernel"], "plain_ms": head["plain"],

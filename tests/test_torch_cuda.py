@@ -699,6 +699,113 @@ def test_strided_line_form_edge_values(n, fused, cuda_device):
                                 (ref[0][b:b + 1], ref[1][b:b + 1])) < 1e-5
 
 
+# K3's swapped store (pass 1 of the two-pass split) at each form it runs:
+# the line form restaging the unit through the tile (1024, 2048, 960,
+# 1920, 480 at L dividing C) and storing straight (256 and 512, whose pass
+# 2 takes two rounds; 93, which emits; any L = 3), the cluster form (4096;
+# bf16 from 1080) and the stage form (2880, on no list; 16, where the
+# lines kernel has no swapped store). (M, L): the minor axis (L = 1),
+# L = 2 and 8 (dividing C) and L = 3.
+SWAP_NS = [256, 512, 1024, 2048, 960, 1920, 480, 93, 4096, 2880, 16]
+SWAP_POSTS = [(37, 1), (20, 2), (5, 8), (9, 3)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", SWAP_NS)
+def test_swapped_store_matches_plain_version(n, dtype, tol, cuda_device):
+    """K3 with the twiddle and ``swap=True`` on (3 n, M, L) planes against
+    its plain version (the natural result permuted to (3, M, n, L)), both
+    directions, one launch a call, no plain version on the card."""
+    for M, L in SWAP_POSTS:
+        xr, xi = _planes((3 * n, M, L), cuda_device, dtype, seed=n + M)
+        tw = _twiddle(n, M, cuda_device, seed=n + L)
+        for inverse, scale in ((False, 1.0), (True, 1.0 / n)):
+            kw = dict(n=n, inverse=inverse, scale=scale, twiddle=tw,
+                      swap=True)
+            _reset()
+            got = inner_fft.fft_inner_nd(xr, xi, **kw)
+            assert _counts() == (dict(NONE, inner_nd=1), 0)
+            ref = inner_fft.fft_inner_nd_reference(xr, xi, **kw)
+            torch.cuda.synchronize()
+            assert got[0].dtype == dtype and got[0].shape == (3, M, n, L)
+            assert _err(got, ref) < tol, (M, L, inverse)
+
+
+def test_swapped_store_needs_the_twiddle(cuda_device):
+    y = torch.zeros(2 * 64, 8, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="swap=True needs the twiddle"):
+        inner_fft.fft_inner_nd(y, y, n=64, inverse=False, scale=1.0,
+                               swap=True)
+
+
+@pytest.mark.parametrize("swap", [False, True], ids=["natural", "swapped"])
+@pytest.mark.parametrize("n", [512, 1024, 4096, 2880])
+def test_two_pass_twiddle_edge_values(n, swap, cuda_device):
+    """Edge-value columns (``_column_edges``) through K3 with the two-pass
+    twiddle, natural and swapped, at the line form (512 stored straight,
+    1024 restaged), the cluster form (4096) and the stage form (2880): the
+    lines holding Inf or NaN come out non-finite in the kernel and in the
+    plain version alike and no other line does, but the 3.4e38 line, which
+    may overflow; the rest, the 1e-20 and 1e18 columns among them, are
+    within 1e-5 of the plain version relative to their own magnitude, and
+    so is the 3.4e38 line where it stays finite."""
+    from tpufft_torch import execute
+    post = 40
+    xr, xi = _column_edges(*_planes((3, n, post), cuda_device, seed=n))
+    tw = execute._device_two_pass_twiddle(n, post, False, xr.device)
+    v = (3 * n, post, 1)
+    kw = dict(n=n, inverse=False, scale=1.0, twiddle=tw, swap=swap)
+    got = inner_fft.fft_inner_nd(xr.reshape(v), xi.reshape(v), **kw)
+    ref = inner_fft.fft_inner_nd_reference(xr.reshape(v), xi.reshape(v),
+                                           **kw)
+    torch.cuda.synchronize()
+
+    def lines(t):  # one line a (slice, column): rows of (3 * post, n)
+        t = t.reshape(3, post, n) if swap else t.reshape(3, n, post
+                                                         ).transpose(1, 2)
+        return t.reshape(-1, n)
+
+    got = tuple(lines(t) for t in got)
+    ref = tuple(lines(t) for t in ref)
+    edge = {"inf": 0 * post + 0, "-inf": 1 * post + 1, "nan": 2 * post + 2,
+            "big": 0 * post + 3}
+    for out in (got, ref):
+        bad = (~torch.isfinite(out[0]) | ~torch.isfinite(out[1])).any(1)
+        assert bad[[edge["inf"], edge["-inf"], edge["nan"]]].all()
+        others = torch.ones_like(bad)
+        others[list(edge.values())] = False
+        assert not bad[others].any()
+    keep = torch.ones(got[0].shape[0], dtype=torch.bool, device=cuda_device)
+    keep[list(edge.values())] = False
+    assert _complex_row_err((got[0][keep], got[1][keep]),
+                            (ref[0][keep], ref[1][keep])) < 1e-5
+    b = edge["big"]
+    if torch.isfinite(got[0][b]).all() and torch.isfinite(got[1][b]).all():
+        assert _complex_row_err((got[0][b:b + 1], got[1][b:b + 1]),
+                                (ref[0][b:b + 1], ref[1][b:b + 1])) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 32768), (2, 1 << 20)])
+def test_two_pass_runs_two_kernels(shape, cuda_device):
+    """One two-pass ``fft`` runs exactly two CUDA kernels, K3 with the
+    swapped store and K2, and no copy (torch.profiler, after a warm call
+    that uploads the twiddle table)."""
+    from torch.profiler import ProfilerActivity, profile
+    xr, xi = _planes(shape, cuda_device)
+    x = SplitComplex(xr, xi)
+    tpufft_torch.fft(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tpufft_torch.fft(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert all("strided" in name for name in names), names
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)],
                          ids=["f32", "bf16"])
@@ -783,8 +890,8 @@ def test_new_wrappers_raise_outside_the_envelope(cuda_device):
 
 
 @pytest.mark.parametrize("n,kernels", [
-    (32768, {"inner_nd": 1, "minor": 1}),      # two-pass 256 * 128
-    (49152, {"inner_nd": 1, "minor": 1}),      # two-pass 256 * 192
+    (32768, {"inner_nd": 1, "inner": 1}),      # two-pass 1024 * 32
+    (49152, {"inner_nd": 1, "inner": 1}),      # two-pass 1024 * 48
     (4099, {"minor": 2}),                      # Bluestein, m = 8320
 ])
 def test_long_and_prime_paths(n, kernels, cuda_device):
@@ -2686,7 +2793,7 @@ def test_scan_autograd_on_the_card(cuda_device):
 FREQZ_ROUTES = [
     ("row_k9", (101,), 2048, {"minor_padded"}),
     ("bank_k2", (129, 96), 1024, {"inner"}),
-    ("long_k3_k1", (65537,), 2 ** 20, {"inner_nd", "minor"}),
+    ("long_k3_k2", (65537,), 2 ** 20, {"inner_nd", "inner"}),
 ]
 
 

@@ -145,14 +145,14 @@ def test_freqz_tensor_fft_path(shape, worN, dtype, monkeypatch):
 @pytest.mark.parametrize("shape,worN,route", [
     ((101,), 2048, [("fft_minor_padded", (1, 101))]),
     ((129, 16), 1024, [("fft_inner", (1, 2048, 16))]),
-    ((65537,), 2 ** 20, [("fft_inner_nd", (2048, 1024, 1)),
-                         ("fft_minor", (2048, 1024))])])
+    ((65537,), 2 ** 20, [("fft_inner_nd", (1024, 2048, 1)),
+                         ("fft_inner", (1, 2048, 1024))])])
 def test_freqz_tensor_routes(shape, worN, route, monkeypatch):
     """The kernels a tensor numerator reaches, at the chip smoke's routes:
     a 1-D row pads in K9's load, a (taps, filters) bank pads axis 0 with a
     copy and runs K2, a long row pads to 2**21 and runs the two-pass split
-    (K3 with its twiddle, then K1). On the CPU each wrapper runs its plain
-    version; the spies see the calls."""
+    (K3 with its twiddle and the swapped store, then K2). On the CPU each
+    wrapper runs its plain version; the spies see the calls."""
     from tpufft_torch.kernels import inner_fft, minor_fft
     calls = []
     for mod, name in ((minor_fft, "fft_minor"), (minor_fft,

@@ -315,10 +315,12 @@ def test_dispatch_pair_last(spies):
 
 
 def test_dispatch_two_pass_and_bluestein(spies):
+    """The two-pass split is two strided passes: K3 with the twiddle and
+    the swapped store, then K2 on the swapped planes; no K1, no movedim."""
     tpufft_torch.fft(_complex((2, 32768), seed=0), device="cpu")
-    assert spies == [("two_pass", (256, 128)),
-                     ("fft_inner_nd", (512, 128, 1)),
-                     ("fft_minor", (512, 128))]
+    assert spies == [("two_pass", (1024, 32)),
+                     ("fft_inner_nd", (2048, 32, 1)),
+                     ("fft_inner", (2, 32, 1024))]
     spies.clear()
     tpufft_torch.fft(_complex((2, 4099), seed=0), device="cpu")
     # Bluestein moves its axis minor as tpufft does (a no-op here)

@@ -142,6 +142,11 @@ def load() -> ctypes.CDLL:
     lib.tpufft_strided_fft.restype = i32
     lib.tpufft_strided_fft_stages.argtypes = lib.tpufft_strided_fft.argtypes
     lib.tpufft_strided_fft_stages.restype = i32
+    lib.tpufft_strided_fft_swapped.argtypes = [
+        *lib.tpufft_strided_fft.argtypes[:-1],
+        i32, vp,                     # stages, cudaStream_t
+    ]
+    lib.tpufft_strided_fft_swapped.restype = i32
     lib.tpufft_pair_fft.argtypes = [
         vp, vp, vp, vp, vp, vp,      # xr, xi, yr, yi, n1 and n2 tables
         ctypes.c_longlong, i32, i32, i32,  # pre, n1, n2, n2_in

@@ -49,6 +49,14 @@
 // a block's load, stages and store. When post is narrower than a tile, one
 // block takes several pre-slices.
 //
+// A swapped launch (tpufft_strided_fft_swapped, pass 1 of the two-pass
+// split: with tw_nm, post = tw_m tw_l) writes output (p, k, m tw_l + l) to
+// (p, m, k, l) of the (pre, tw_m, n, tw_l) order instead: the line forms
+// with their kSwap instantiations (strided_line.cuh, which restages the
+// unit through the tile where it can, and strided_long.cuh), the stage form
+// with its runtime `swap` at the same store, lanes on consecutive columns.
+// A swapped launch at n <= 32 runs the stage form.
+//
 // Known costs of the stage form:
 // - at n = 16384 a tile is one column wide, so each load is a lone
 //   4-byte access per row (the cluster form's units of 16 columns replace
@@ -112,7 +120,9 @@ inline Tile tile_for(long long pre, int n, long long post) {
 // at c0 of the (pre, n, post) planes; shared row pp*cols + l holds column
 // c0 + l of slice p0 + pp. Out-of-range slices and columns load zeros and
 // are not stored. With tw_nm, output (k, c) is multiplied by
-// tw_nm[k, c / tw_l] (an (n, tw_m) table) before the scale.
+// tw_nm[k, c / tw_l] (an (n, tw_m) table) before the scale; with swap too,
+// it is stored at (p, c / tw_l, k, c mod tw_l) of the (pre, tw_m, n, tw_l)
+// order.
 // kFused (K18, K19): the planes are fused storage (pre, n, M, 2L) with
 // post = M * L logical columns and h = tw_l = L (fft_stages.cuh); logical
 // column c = m*L + l lies at m*2L + l, so a tile's columns may span several
@@ -124,7 +134,8 @@ strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                    const float2* __restrict__ tw,
                    const float2* __restrict__ tw_nm, int64_t pre, int post,
                    int tw_m, int tw_l, Radices plan, int cols_log2,
-                   int slabs, int64_t col_tiles, int inverse, float scale) {
+                   int slabs, int64_t col_tiles, int inverse, float scale,
+                   int swap) {
   extern __shared__ float2 tpufft_strided_smem[];
   float2* buf = tpufft_strided_smem;
   const int n = plan.n;
@@ -175,6 +186,9 @@ strided_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
           w = cmul(w, __ldg(&tw_nm[kk * tw_m + c / tw_l]));
         int64_t g = (p * n + kk) * post + c;
         if (kFused) g = fused_index(g, c % tw_l);
+        if (!kFused && swap)
+          g = p * n * post + (int64_t)(c / tw_l) * n * tw_l +
+              (int64_t)kk * tw_l + c % tw_l;
         store_f(yr, g, w.x * scale);
         store_f(yi, g, w.y * scale);
       }
@@ -186,7 +200,7 @@ template <typename T, int kThreads, int kPer, int kMinBlocks, bool kFused>
 int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
            const void* tw_nm, long long pre, long long post, int tw_m,
            long long tw_l, const Radices& plan, const Tile& t, int inverse,
-           float scale, cudaStream_t stream) {
+           float scale, int swap, cudaStream_t stream) {
   auto* kernel = strided_fft_kernel<T, kThreads, kPer, kMinBlocks, kFused>;
   if (t.threads > kThreads || t.per != kPer) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, t.smem);
@@ -196,25 +210,27 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const void* tw,
       static_cast<T*>(yr), static_cast<T*>(yi),
       static_cast<const float2*>(tw), static_cast<const float2*>(tw_nm),
       (int64_t)pre, (int)post, tw_m, (int)tw_l, plan, t.cols_log2, t.slabs,
-      (int64_t)t.col_tiles, inverse, scale);
+      (int64_t)t.col_tiles, inverse, scale, swap);
   return (int)cudaGetLastError();
 }
 
-// The line form where line_geometry gives one, else the cluster form
-// where cluster_geometry does, else the stage form; `stages` forces the
-// stage form (kept to compare the forms).
+// The line form where line_geometry gives one (not the lines kernel for a
+// swapped launch), else the cluster form where cluster_geometry does, else
+// the stage form; `stages` forces the stage form (kept to compare the
+// forms); `swap` (with tw_nm) the swapped store.
 template <typename T, bool kFused>
 int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
                  const void* tw, const void* tw_nm, long long pre,
                  long long post, int tw_m, long long tw_l,
                  const Radices& plan, int inverse, float scale,
-                 cudaStream_t stream, bool stages = false) {
+                 cudaStream_t stream, bool stages = false, int swap = 0) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   const tpufft_strided::LineArgs args{
       xr, xi, yr, yi, tw, tw_nm, pre, post, tw_m, tw_l, inverse, scale,
-      stream};
+      stream, swap};
   tpufft_strided::LineGeometry g;
-  if (!stages && tpufft_strided::line_geometry(plan.n, post, bf16, &g))
+  if (!stages && tpufft_strided::line_geometry(plan.n, post, bf16, &g) &&
+      !(swap && g.n2 == 1))
     return tpufft_strided::launch_line<T, kFused>(args, g);
   tpufft_strided::ClusterGeometry cl;
   if (!stages && tpufft_strided::cluster_geometry(plan.n, post, bf16, &cl))
@@ -224,10 +240,10 @@ int launch_sized(const void* xr, const void* xi, void* yr, void* yi,
   if (t.per == 8)
     return launch<T, 512, 8, 2, kFused>(xr, xi, yr, yi, tw, tw_nm, pre, post,
                                         tw_m, tw_l, plan, t, inverse, scale,
-                                        stream);
+                                        swap, stream);
   return launch<T, 1024, 16, 1, kFused>(xr, xi, yr, yi, tw, tw_nm, pre, post,
                                         tw_m, tw_l, plan, t, inverse, scale,
-                                        stream);
+                                        swap, stream);
 }
 
 // K18/K19: (pre, n, M, 2L) fused storage, its two planes st and st + L
@@ -250,22 +266,23 @@ int strided_entry(const void* xr, const void* xi, void* yr, void* yi,
                   const void* tw, long long pre, int n, long long post,
                   const int* radices, int nstages, const void* tw_nm,
                   int tw_m, long long tw_l, int inverse, float scale,
-                  int bf16, bool stages, void* stream) {
+                  int bf16, bool stages, void* stream, int swap = 0) {
   Radices plan;
   if (pre < 0 || post < 0 || post > INT_MAX ||
       !make_radices(n, radices, nstages, &plan))
     return (int)cudaErrorInvalidValue;
   if (tw_nm != nullptr && (tw_m < 1 || tw_l < 1 || tw_m * tw_l != post))
     return (int)cudaErrorInvalidValue;
+  if (swap && tw_nm == nullptr) return (int)cudaErrorInvalidValue;
   if (pre == 0 || post == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_sized<__nv_bfloat16, false>(xr, xi, yr, yi, tw, tw_nm, pre,
                                               post, tw_m, tw_l, plan, inverse,
-                                              scale, s, stages);
+                                              scale, s, stages, swap);
   return launch_sized<float, false>(xr, xi, yr, yi, tw, tw_nm, pre, post,
                                     tw_m, tw_l, plan, inverse, scale, s,
-                                    stages);
+                                    stages, swap);
 }
 
 }  // namespace
@@ -297,6 +314,21 @@ extern "C" int tpufft_strided_fft_stages(
     int bf16, void* stream) {
   return strided_entry(xr, xi, yr, yi, tw, pre, n, post, radices, nstages,
                        tw_nm, tw_m, tw_l, inverse, scale, bf16, true, stream);
+}
+
+// Pass 1 of the two-pass split: the transform of tpufft_strided_fft with
+// tw_nm (required) whose output (p, k, m tw_l + l) is stored at (p, m, k,
+// l) of yr/yi in the (pre, tw_m, n, tw_l) order; the form the launch picks
+// (stages = 0) or the stage form (stages != 0, kept to compare the forms).
+// Arguments and result otherwise as for tpufft_strided_fft.
+extern "C" int tpufft_strided_fft_swapped(
+    const void* xr, const void* xi, void* yr, void* yi, const void* tw,
+    long long pre, int n, long long post, const int* radices, int nstages,
+    const void* tw_nm, int tw_m, long long tw_l, int inverse, float scale,
+    int bf16, int stages, void* stream) {
+  return strided_entry(xr, xi, yr, yi, tw, pre, n, post, radices, nstages,
+                       tw_nm, tw_m, tw_l, inverse, scale, bf16, stages != 0,
+                       stream, 1);
 }
 
 // K18 (M > 1) and K19 (M == 1): axis 1 of the (pre, n, M, 2L) array st in

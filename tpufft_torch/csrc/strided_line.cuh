@@ -65,6 +65,20 @@
 // line at 62 floats of values: at 96 registers (lane_threads' bound) K2
 // at 93 spills 72 bytes, against 1200-1900 when pass 2 stored straight
 // from the sum (ptxas; PERF.md).
+//
+// The swapped store (kSwap, pass 1 of the two-pass split, always with kTw):
+// the planes are (pre, n, post) with post = M L (tw_m = M, tw_l = L), and
+// output (p, k, m L + l) goes to (p, m, k, l) of the (pre, M, n, L) order,
+// so that pass 2 transforms m on the strided kernel and stores the natural
+// order (out_at, out_step). Stored straight from registers, lanes on
+// consecutive columns sit n L values apart. So where pass 2 runs in one
+// round without emitting (R2 = 1: n = 480, 960, 1024, 1280, 1536, 1920,
+// 2048) and L divides C, the lane kernel restages the unit: pass 2 writes
+// its twiddled, scaled outputs into the tile as (c, k) rows, and the unit's
+// C n outputs, one contiguous run of device memory, are stored by
+// consecutive lanes (kRestage). Every other swapped launch stores straight.
+// The lines kernel (n <= 32) has no swapped instantiation: strided_fft.cu
+// sends a swapped launch there to the stage form.
 
 #pragma once
 
@@ -124,6 +138,24 @@ __device__ __forceinline__ void unit_of(int64_t u, int64_t groups,
   }
 }
 
+// Slice p and first column of unit u, the slices of one column group
+// first: the swapped store's order (kSwap), so that the units that read the
+// same columns of the (n, M) twiddle run side by side and read it from
+// device memory about once (at (4, 2^24) the table is 128 MB, more than
+// the L2).
+template <bool kColumnsFirst>
+__device__ __forceinline__ void unit_at(int64_t u, int64_t pre,
+                                        int64_t groups, int cols_log2,
+                                        int64_t& p, int& c0) {
+  if constexpr (kColumnsFirst) {
+    const int64_t g = u / pre;
+    p = u - g * pre;
+    c0 = (int)g << cols_log2;
+  } else {
+    unit_of(u, groups, cols_log2, p, c0);
+  }
+}
+
 // The table of w^k, k < n, into shared memory at pad(k).
 __device__ __forceinline__ void stage_table(float2* table,
                                             const float2* __restrict__ tw,
@@ -144,6 +176,34 @@ __device__ __forceinline__ void store_out(T* __restrict__ yr,
   if constexpr (kTw) w = cmul(w, __ldg(&tw_nm[(int64_t)k * tw_m + cq]));
   store_f(yr, g, w.x * scale);
   store_f(yi, g, w.y * scale);
+}
+
+// Where output row k of column col of the n-long slab at row `slab` lies:
+// (slab + k) S + col in the natural (pre, n, post) order (fused storage's
+// column offset with kFused); with kSwap, in the (pre, M, n, L) order of
+// post = M L, slab S + (col / L) n L + k L + col mod L. out_step is the
+// step from row k to row k + 1.
+template <bool kFused, bool kSwap>
+__device__ __forceinline__ int64_t out_at(int64_t slab, int k, int64_t S,
+                                          int col, int L, int n) {
+  if constexpr (kSwap)
+    return slab * S + (int64_t)(col / L) * n * L + (int64_t)k * L + col % L;
+  else
+    return (slab + k) * S + col_offset<kFused>(col, L);
+}
+template <bool kSwap>
+__device__ __forceinline__ int64_t out_step(int64_t S, int L) {
+  return kSwap ? (int64_t)L : S;
+}
+
+// The restaged unit's (c, k) row position in the tile: c n + (k ^ s(c)),
+// s(c) the 4-bit reversal of c mod 16 (n is a multiple of 16). A half warp
+// of pass 2's writes (16 consecutive c of one row k, or 8 of rows k and
+// k + 1 at C = 8) meets 16 bank pairs, and so does one of the stores'
+// reads (L consecutive c, whose s(c) differ in the high bits, by 16 / L
+// consecutive k, which differ in the low ones).
+__device__ __forceinline__ int restage_pos(int c, int k, int n) {
+  return c * n + (k ^ (int)(__brev((unsigned)c) >> 28));
 }
 
 // Arguments shared by both kernels (the stage form's, less the plan): the
@@ -232,7 +292,10 @@ __device__ __forceinline__ int tile_pos(int c, int k1, int j2,
 // over as it forms them (lane_dft_emit), so that a 31-long line holds 62
 // floats: pass 1 into the tile, pass 2 into the line's own tile slots,
 // stored from there in order.
-template <typename T, int N1, int N2, bool kFused, bool kTw>
+// With kSwap (only with kTw) the outputs go to the (pre, M, n, L) order
+// (the header's notes): restaged through the tile where kRestage and L
+// divides C, else stored straight.
+template <typename T, int N1, int N2, bool kFused, bool kTw, bool kSwap>
 __global__ void __launch_bounds__(
     lane_threads(N1 * N2, std::is_same<T, __nv_bfloat16>::value),
     lane_blocks(N1 * N2, std::is_same<T, __nv_bfloat16>::value))
@@ -241,9 +304,12 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
   constexpr bool kPair = N2 > 32;
   static_assert(N1 <= 32 && (!kPair || (N2 % 4 == 0 && N2 <= 64)),
                 "a line of up to 32 in a lane, 34 to 64 on a pair");
+  static_assert(!kSwap || (kTw && !kFused), "the swap is the two-pass's");
   // rounds, with blockDim >= C n / 32 (C n / 64 pairs)
   constexpr int R1 = (32 + N1 - 1) / N1;
   constexpr int R2 = kPair ? (64 + N2 - 1) / N2 : (32 + N2 - 1) / N2;
+  constexpr bool kRestage =
+      kSwap && R2 == 1 && max_prime(N2) < 7 && n % 16 == 0;
   extern __shared__ float2 tpufft_strided_line_smem[];
   float2* table = tpufft_strided_line_smem;
   float2* tile = table + pad(n);
@@ -257,7 +323,7 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
   for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
     int64_t p;
     int c0;
-    unit_of(u, groups, cols_log2, p, c0);
+    unit_at<kSwap>(u, pre, groups, cols_log2, p, c0);
     const int64_t slab = p * n;
 #pragma unroll 1
     for (int s = 0; s < R1; ++s) {  // pass 1: device memory -> tile
@@ -292,7 +358,55 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
       }
     }
     __syncthreads();
-    if constexpr (kPair) {  // pass 2 on lane pairs: tile -> device memory
+    const bool restage = kRestage && (C % tw_l) == 0;
+    if (restage) {  // pass 2 into (c, k) rows of the tile, then stores
+      if constexpr (kRestage) {
+        constexpr int V = kPair ? N2 / 2 : N2;
+        float2 v[V];
+        const int line = kPair ? (threadIdx.x & 15) + 16 * (threadIdx.x >> 5)
+                               : threadIdx.x;
+        const bool valid = line < (N1 << cols_log2);
+        const int c = line & (C - 1), k1 = line >> cols_log2;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          v[i] = valid ? tile[tile_pos<N2>(c, k1, kPair ? p2 + 2 * i : i,
+                                           cols_log2)]
+                       : make_float2(0.f, 0.f);
+        __syncthreads();  // every line of the tile is read
+        const int col = c0 + c;
+        const int cq = col / tw_l;
+        auto put = [&](int k, float2 w) {
+          if (valid && col < post) {
+            w = cmul(w, __ldg(&tw_nm[(int64_t)k * tw_m + cq]));
+            tile[restage_pos(c, k, n)] =
+                make_float2(w.x * scale, w.y * scale);
+          }
+        };
+        if constexpr (kPair) {
+          pair_dft<V, N1>(v, p2, table, inv);
+#pragma unroll
+          for (int r = 0; r < V; ++r) put(k1 + N1 * pair_out<V>(p2, r), v[r]);
+        } else if (valid) {
+          lane_dft<N2, N1, 0, 1>(v, table, inv);
+#pragma unroll
+          for (int q = 0; q < N2; ++q) put(k1 + N1 * lane_out<N2>(q), v[q]);
+        }
+        __syncthreads();
+        // output e of the unit is (column c0 + (e / (n L)) L + e mod L, row
+        // e / L mod n): device memory slab S + c0 n + e
+        const int ll = __ffs(tw_l) - 1;
+        const int64_t base = slab * S + (int64_t)c0 * n;
+        for (int e = threadIdx.x; e < (n << cols_log2); e += lanes) {
+          const int r = e >> ll, mm = r / n, k = r - mm * n;
+          const int cc = (mm << ll) + (e & (tw_l - 1));
+          if (c0 + cc < post) {
+            const float2 w = tile[restage_pos(cc, k, n)];
+            store_f(yr, base + e, w.x);
+            store_f(yi, base + e, w.y);
+          }
+        }
+      }
+    } else if constexpr (kPair) {  // pass 2 on lane pairs: tile -> memory
       constexpr int H = N2 / 2;
 #pragma unroll 1
       for (int round = 0; round < R2; ++round) {
@@ -308,12 +422,14 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
         pair_dft<H, N1>(v, p2, table, inv);
         const int col = c0 + c;
         if (valid && col < post) {
-          const int64_t g0 = (slab + k1) * S + col_offset<kFused>(col, tw_l);
+          const int64_t g0 =
+              out_at<kFused, kSwap>(slab, k1, S, col, tw_l, n);
+          const int64_t ks = out_step<kSwap>(S, tw_l);
           const int cq = kTw ? col / tw_l : 0;
 #pragma unroll
           for (int r = 0; r < H; ++r) {
             const int k = k1 + N1 * pair_out<H>(p2, r);
-            store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(k - k1) * S, k,
+            store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(k - k1) * ks, k,
                            tw_m, cq, v[r], scale);
           }
         }
@@ -339,11 +455,12 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
             });
             if (col < post) {
               const int64_t g0 =
-                  (slab + k1) * S + col_offset<kFused>(col, tw_l);
+                  out_at<kFused, kSwap>(slab, k1, S, col, tw_l, n);
+              const int64_t ks = out_step<kSwap>(S, tw_l);
               const int cq = kTw ? col / tw_l : 0;
 #pragma unroll
               for (int k2 = 0; k2 < N2; ++k2)
-                store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * S,
+                store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * ks,
                                k1 + N1 * k2, tw_m, cq,
                                tile[tile_pos<N2>(c, k1, k2, cols_log2)],
                                scale);
@@ -352,12 +469,13 @@ strided_lane_kernel(TPUFFT_LINE_PARAMS) {
             lane_dft<N2, N1, 0, 1>(v, table, inv);
             if (col < post) {
               const int64_t g0 =
-                  (slab + k1) * S + col_offset<kFused>(col, tw_l);
+                  out_at<kFused, kSwap>(slab, k1, S, col, tw_l, n);
+              const int64_t ks = out_step<kSwap>(S, tw_l);
               const int cq = kTw ? col / tw_l : 0;
 #pragma unroll
               for (int q = 0; q < N2; ++q) {
                 const int k2 = lane_out<N2>(q);
-                store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * S,
+                store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * k2) * ks,
                                k1 + N1 * k2, tw_m, cq, v[q], scale);
               }
             }
@@ -439,6 +557,7 @@ struct LineArgs {
   int inverse;
   float scale;
   cudaStream_t stream;
+  int swap = 0;  // the swapped store (kSwap; with tw_nm only)
 };
 
 template <typename T, int N, bool kFused, bool kTw>
@@ -460,9 +579,9 @@ int launch_lines_as(const LineArgs& a, const LineGeometry& g) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int N1, int N2, bool kFused, bool kTw>
+template <typename T, int N1, int N2, bool kFused, bool kTw, bool kSwap>
 int launch_lane_as(const LineArgs& a, const LineGeometry& g) {
-  auto* kernel = strided_lane_kernel<T, N1, N2, kFused, kTw>;
+  auto* kernel = strided_lane_kernel<T, N1, N2, kFused, kTw, kSwap>;
   if (g.n1 != N1 || g.n2 != N2) return (int)cudaErrorInvalidValue;
   const long long groups = (a.post + (1 << g.cols_log2) - 1) >> g.cols_log2;
   unsigned blocks = 0;
@@ -480,9 +599,12 @@ int launch_lane_as(const LineArgs& a, const LineGeometry& g) {
 }
 
 // The kernel with the twiddle at the store where tw_nm is set (never on
-// fused storage), else without.
+// fused storage), with the swapped store where swap is set too, else
+// without (the lines kernel has no swapped store: launch_sized keeps a
+// swapped launch away from it).
 template <typename T, int N, bool kFused>
 int launch_lines(const LineArgs& a, const LineGeometry& g) {
+  if (a.swap) return (int)cudaErrorInvalidValue;
   if constexpr (!kFused)
     if (a.tw_nm != nullptr) return launch_lines_as<T, N, kFused, true>(a, g);
   return launch_lines_as<T, N, kFused, false>(a, g);
@@ -492,8 +614,9 @@ template <typename T, int N1, int N2, bool kFused>
 int launch_lane(const LineArgs& a, const LineGeometry& g) {
   if constexpr (!kFused)
     if (a.tw_nm != nullptr)
-      return launch_lane_as<T, N1, N2, kFused, true>(a, g);
-  return launch_lane_as<T, N1, N2, kFused, false>(a, g);
+      return a.swap ? launch_lane_as<T, N1, N2, kFused, true, true>(a, g)
+                    : launch_lane_as<T, N1, N2, kFused, true, false>(a, g);
+  return launch_lane_as<T, N1, N2, kFused, false, false>(a, g);
 }
 
 // The launchers of each radix family (strided_line_{pow2,r3,r5,r15,odd}.cu):

@@ -45,7 +45,17 @@
 // N3 + j3) C + c: a half warp's 16 lanes are the 16 columns of one line,
 // so no access of any pass, the remote writes of pass 1 included, meets a
 // bank conflict (a CPU test, tests/test_torch_strided_geometry.py, walks
-// every geometry). Q is the smallest of 1, 2, 4, 8, 16 that leaves two
+// every geometry). With kSwap (pass 1 of the two-pass split, with kTw) the
+// outputs go to the (pre, M, n, L) order of strided_line.cuh's out_at,
+// where a block's own rows k1 make runs of K values. So where pass 3 holds
+// all its lines at once (S3 = H3: 1920, 2048, 3840, 4096, 7680, 8192, 15360
+// and 16384) and L divides C, the kernel restages the unit over the
+// cluster (kRestage): a cluster barrier once every block has read its
+// tile, pass 3's twiddled, scaled outputs written into the tile of the
+// block that owns their rows k in [b R, b R + R), R = n / Q, as (c, k - b
+// R) rows (restage_pos), a cluster barrier, and each block's C R outputs
+// stored by consecutive threads in runs of R L values. Elsewhere pass 3
+// stores straight. Q is the smallest of 1, 2, 4, 8, 16 that leaves two
 // blocks of 256 threads an SM (at most 128 registers); where none does
 // (15360 and 16384) Q = 16 and one block of 512. The grid holds at most
 // the clusters the card keeps resident at once
@@ -130,7 +140,7 @@ __device__ __forceinline__ void long_wait() {
 // same units, so that every thread meets every cluster barrier. Columns
 // past post compute on zeros and store nothing; a warp whose lines of a
 // round all lie past its pass's lines skips the round's line DFTs.
-template <typename T, typename S, bool kFused, bool kTw>
+template <typename T, typename S, bool kFused, bool kTw, bool kSwap>
 __global__ void __launch_bounds__(S::threads, S::min_blocks)
 strided_cluster_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                        T* __restrict__ yr, T* __restrict__ yi,
@@ -168,7 +178,7 @@ strided_cluster_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   for (int64_t u = blockIdx.x / S::Q; u < units; u += clusters) {
     int64_t p;
     int c0;
-    unit_of(u, groups, CL, p, c0);
+    unit_at<kSwap>(u, pre, groups, CL, p, c0);
     const int64_t slab = p * n;
 #pragma unroll
     for (int r = 0; r < S::S1; r += S::H1) {  // pass 1: lines (c, u)
@@ -242,6 +252,10 @@ strided_cluster_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       }
     }
     __syncthreads();
+    constexpr int R = n / S::Q;  // the rows k a block stores, restaged
+    constexpr bool kRestage =
+        kSwap && S::S3 == S::H3 && R % 16 == 0;
+    const bool restage = kRestage && (C % tw_l) == 0;
 #pragma unroll
     for (int r = 0; r < S::S3; r += S::H3) {  // pass 3: lines (k1, k2, c)
       float2 v[S::H3][N3];
@@ -255,6 +269,12 @@ strided_cluster_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
         for (int j = 0; j < N3; ++j)
           v[h][j] = live ? tile[S::pos(kk, k2, j, c)] : make_float2(0.f, 0.f);
       }
+      if constexpr (kRestage) {
+        if (restage) {  // every block has read its tile (S3 = H3: one round)
+          long_arrive();
+          long_wait();
+        }
+      }
 #pragma unroll
       for (int h = 0; h < S::H3; ++h) {
         const int w = t + TH * (r + h);
@@ -264,15 +284,46 @@ strided_cluster_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
         const int col = c0 + c;
         const bool live = w < S::lines3 && col < post;
         const int k0 = b * K + kk + N1 * k2;  // X[k0 + N1 N2 k3]
-        const int64_t g0 = (slab + k0) * stride + col_offset<kFused>(col, tw_l);
+        const int64_t g0 =
+            out_at<kFused, kSwap>(slab, k0, stride, col, tw_l, n);
+        const int64_t ks = out_step<kSwap>(stride, tw_l);
         const int cq = kTw ? col / tw_l : 0;
         long_line<N3, S::emit3>(v[h], table + S::w3, inv,
                                 [&](int k3, float2 y) {
-          if (live)
-            store_out<kTw>(yr, yi, tw_nm,
-                           g0 + (int64_t)(N1 * N2 * k3) * stride,
-                           k0 + N1 * N2 * k3, tw_m, cq, y, scale);
+          if (!live) return;
+          const int k = k0 + N1 * N2 * k3;
+          if constexpr (kRestage) {
+            if (restage) {
+              y = cmul(y, __ldg(&tw_nm[(int64_t)k * tw_m + cq]));
+              cluster.map_shared_rank(tile, k / R)[restage_pos(
+                  c, k % R, R)] = make_float2(y.x * scale, y.y * scale);
+              return;
+            }
+          }
+          store_out<kTw>(yr, yi, tw_nm, g0 + (int64_t)(N1 * N2 * k3) * ks,
+                         k, tw_m, cq, y, scale);
         });
+      }
+    }
+    if constexpr (kRestage) {
+      if (restage) {  // every output is in its owner's tile: store them
+        long_arrive();
+        long_wait();
+        // output e of the block is (column c0 + (e / (R L)) L + e mod L,
+        // row b R + e / L mod R)
+        const int ll = __ffs(tw_l) - 1;
+        const int64_t base = slab * stride + (int64_t)c0 * n;
+        for (int e = t; e < R * C; e += TH) {
+          const int r2 = e >> ll, mm = r2 / R, kl = r2 - mm * R;
+          const int cc = (mm << ll) + (e & (tw_l - 1));
+          if (c0 + cc < post) {
+            const float2 w = tile[restage_pos(cc, kl, R)];
+            const int64_t g = base + (int64_t)mm * n * tw_l +
+                              (int64_t)(b * R + kl) * tw_l + (e & (tw_l - 1));
+            store_f(yr, g, w.x);
+            store_f(yi, g, w.y);
+          }
+        }
       }
     }
     long_arrive();  // this block's tile is read
@@ -352,9 +403,9 @@ inline bool cluster_geometry(int n, long long post, bool bf16,
 // (cudaOccupancyMaxActiveClusters, about 1 us of host time a launch on the
 // H100; an error where it holds none), each looping over units; with
 // tw_nm (never on fused storage) the kTw kernel.
-template <typename T, typename S, bool kFused, bool kTw>
+template <typename T, typename S, bool kFused, bool kTw, bool kSwap>
 int launch_cluster_as(const LineArgs& a, const ClusterGeometry& g) {
-  auto* kernel = strided_cluster_kernel<T, S, kFused, kTw>;
+  auto* kernel = strided_cluster_kernel<T, S, kFused, kTw, kSwap>;
   if (g.n1 != S::N1 || g.n2 != S::N2 || g.n3 != S::N3 || g.q != S::Q ||
       g.threads != S::threads || g.smem != S::smem)
     return (int)cudaErrorInvalidValue;
@@ -395,16 +446,19 @@ int launch_cluster(const LineArgs& a, const ClusterGeometry& g) {
 }
 
 // The body of each source: its list's switch over n (the kTw kernel where
-// tw_nm is set, never on fused storage; f32 only above kLongF32Above) and
-// the launcher's instantiations in its storage T (plain and fused).
+// tw_nm is set, with the swapped store where swap is set too, never on
+// fused storage; f32 only above kLongF32Above) and the launcher's
+// instantiations in its storage T (plain and fused).
 #define TPUFFT_LONG_CASE(n_, n1, n2, n3, q, th)                            \
   case n_:                                                                 \
     if constexpr (kBf16 || n_ > kLongF32Above) {                           \
       using S = ClusterStep<n1, n2, n3, q, th>;                            \
       if constexpr (!kFused)                                               \
         if (a.tw_nm != nullptr)                                            \
-          return launch_cluster_as<T, S, kFused, true>(a, g);              \
-      return launch_cluster_as<T, S, kFused, false>(a, g);                 \
+          return a.swap                                                    \
+                     ? launch_cluster_as<T, S, kFused, true, true>(a, g)   \
+                     : launch_cluster_as<T, S, kFused, true, false>(a, g); \
+      return launch_cluster_as<T, S, kFused, false, false>(a, g);          \
     }                                                                      \
     break;
 #define TPUFFT_LONG_FAMILY(NAME, LIST, STORAGE)                            \

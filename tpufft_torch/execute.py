@@ -11,7 +11,8 @@ For each transformed axis, decide by predicate, before any launch:
   strided kernel beat that route (copy, minor kernel, copy back) at every
   trailing product from 2 up (PERF.md), so the port never moves an axis;
 * a longer f32/bf16 length n = a*b with both factors inside the envelope
-  runs the two-pass split (:func:`_fft_axis_two_pass`);
+  runs the two-pass split (:func:`_fft_axis_two_pass`): two launches of
+  the strided kernel, the digit swap folded into the first one's store;
 * a length with a prime factor above 1024 (any length under
   ``backend="pallas"``) runs Bluestein (:func:`_fft_axis_bluestein`),
   whose two padded transforms come back through this ladder;
@@ -109,12 +110,27 @@ def _kernel_axis(ar, ai, axis: int, *, inverse: bool, scale: float):
 # Two-pass split for lengths above the single-pass envelope
 # ----------------------------------------------------------------------------
 
+# Pass 1's lengths, in order of preference: those where the strided line
+# form restages its swapped store through the tile (strided_line.cuh,
+# kRestage), first in both storages (the line form takes bf16 up to 1024),
+# then in f32 only. On the H100 pass 1 there ran 1.9-2.9x faster than
+# stored straight from registers, and a = 1024 ran every path of the sweep
+# fastest or within 4 % (2**15 to 2**24; PERF.md, tools/two_pass_ab.py).
+_PASS1 = (1024, 960, 480, 2048, 1920, 1536, 1280)
+
+
 @functools.lru_cache(maxsize=None)
 def _split_large(n: int):
-    """Factor n into a * b with both factors inside the kernels' envelope,
-    a >= b and as balanced as possible; None if there is no such split."""
+    """Factor n into a * b with both factors inside the kernels' envelope:
+    pass 1 over a, the first of ``_PASS1`` that divides n with b inside the
+    envelope too; else a >= b and as balanced as possible (pass 1 stores
+    straight); None if there is no such split."""
     if n < 4:
         return None
+    for a in _PASS1:
+        if (n % a == 0 and minor_fft.supported(n // a, torch.float32)
+                and n // a > 1):
+            return a, n // a
     best = None
     d = 2
     while d * d <= n:
@@ -146,16 +162,22 @@ def _device_two_pass_twiddle(a: int, b: int, inverse: bool,
 
 
 def _fft_axis_two_pass(ar, ai, axis: int, a: int, b: int, *, inverse: bool,
-                       scale: float):
+                       scale: float, _three_step: bool = False):
     """Four-step split of a length n = a*b beyond the single-pass envelope.
 
-    With the flat index i = ia*b + ib along the axis, viewing it as (a, b)
-    is free. Pass 1 transforms ia on the strided kernel (K3) with the
-    inter-factor twiddle T[ka, ib] applied at its store; pass 2 transforms
-    ib on the kernel its layout picks (K1 when the axis is minor); one
-    transpose copy swaps the digits (ka, kb) -> k = kb*a + ka into natural
-    order. Unlike tpufft, no axis-to-front transposes are needed: those
-    exist for the TPU's lane layout."""
+    With the flat index i = ia*b + ib along the axis, viewing it as (pre,
+    a, b, post) is free. Pass 1 transforms ia on the strided kernel (K3)
+    with the inter-factor twiddle T[ka, ib] applied at its store, which
+    writes (pre, b, a, post) planes: the digit swap. Pass 2 transforms ib
+    of their (pre, b, a*post) view on the strided kernel (K2), whose store
+    is already the natural order k = kb*a + ka. Two launches, no copy, at
+    any axis. Unlike tpufft, no axis-to-front transposes are needed: those
+    exist for the TPU's lane layout.
+
+    ``_three_step`` runs the route this one replaced (pass 1 in the
+    natural order, pass 2 on the kernel its layout picks, K1 for a minor
+    axis, then one transpose copy), kept to compare the two
+    (``tools/two_pass_ab.py``)."""
     if ai is None:
         ai = torch.zeros_like(ar)
     shape = ar.shape
@@ -165,12 +187,17 @@ def _fft_axis_two_pass(ar, ai, axis: int, a: int, b: int, *, inverse: bool,
     tw = _device_two_pass_twiddle(a, b, bool(inverse), ar.device)
     yr, yi = inner_fft.fft_inner_nd(
         ar.reshape(view).contiguous(), ai.reshape(view).contiguous(), n=a,
-        inverse=inverse, scale=1.0, twiddle=tw)
-    yr, yi = _kernel_axis(yr, yi, 1, inverse=inverse, scale=scale)
-    split = (pre, a, b, post)
-    outr = yr.reshape(split).transpose(1, 2).reshape(shape)
-    outi = yi.reshape(split).transpose(1, 2).reshape(shape)
-    return outr, outi
+        inverse=inverse, scale=1.0, twiddle=tw, swap=not _three_step)
+    if _three_step:
+        yr, yi = _kernel_axis(yr, yi, 1, inverse=inverse, scale=scale)
+        split = (pre, a, b, post)
+        return (yr.reshape(split).transpose(1, 2).reshape(shape),
+                yi.reshape(split).transpose(1, 2).reshape(shape))
+    swapped = (pre, b, a * post)
+    outr, outi = inner_fft.fft_inner(yr.reshape(swapped),
+                                     yi.reshape(swapped), inverse=inverse,
+                                     scale=scale)
+    return outr.reshape(shape), outi.reshape(shape)
 
 
 # ----------------------------------------------------------------------------

@@ -7,7 +7,10 @@ Counterpart of two Pallas TPU kernels of ``tpufft/kernels/mxu_fft.py``:
   contiguous: :func:`fft_inner`;
 * ``_build_inner_nd`` (K3), dim 0 of (pre*n, M, L) planes in groups of n,
   optionally multiplied by an (n, M) complex twiddle before the store
-  (``with_tw``, pass 1 of the two-pass split): :func:`fft_inner_nd`.
+  (``with_tw``, pass 1 of the two-pass split): :func:`fft_inner_nd`; with
+  the twiddle and ``swap=True`` it stores the (pre, M, n, L) order instead,
+  the digit swap of the two-pass split folded into its store (tpufft swaps
+  the digits in a copy after pass 2).
 
 Without the TPU's lane tiling both views are the same memory, (pre, n,
 post) with post = M*L contiguous, so one CUDA kernel
@@ -36,6 +39,17 @@ run the shared generic-radix DFT of ``csrc/lane_dft.cuh``. Every other
 launch (a prime factor above 31, a length on no list such as 2880 or
 4100) runs the stage form, the Stockham stages in shared memory;
 ``stages=True`` forces it at every length, kept to compare the forms.
+
+The swapped store (``fft_inner_nd(..., twiddle=tw, swap=True)``, pass 1
+of the two-pass split) runs the same forms with their kSwap
+instantiations. Where L divides C, the line form restages a unit's
+outputs through its tile where pass 2 of its four-step takes one round
+(n = 480, 960, 1024, 1280, 1536, 1920, 2048), and the cluster form over
+its cluster where pass 3 holds all its lines at once (1920, 2048, 3840,
+4096, 7680, 8192, 15360, 16384), so that consecutive lanes store each
+column's run; elsewhere, and in the stage form, outputs are stored
+straight from registers (a swapped launch at n <= 32 runs the stage
+form).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises, never falls back. ``launches`` counts kernel launches per wrapper;
@@ -129,11 +143,14 @@ def reset_counts() -> None:
 
 
 def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
-            scale: float, twiddle=None, tw_l: int = 0, stages: bool = False):
+            scale: float, twiddle=None, tw_l: int = 0, stages: bool = False,
+            swap: bool = False):
     """The strided kernel on the (pre, n, post) view of contiguous planes,
-    in the form :func:`form` names (the stage form with ``stages``)."""
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    in the form :func:`form` names (the stage form with ``stages``); with
+    ``swap`` (and a twiddle) the output planes are (pre, M, n, L)."""
+    shape = (pre, post // tw_l, n, tw_l) if swap else xr.shape
+    yr = xr.new_empty(shape)
+    yi = xi.new_empty(shape)
     if xr.numel() == 0:
         return yr, yi, False
     lib = _build.load()
@@ -142,15 +159,19 @@ def _launch(xr, xi, pre: int, n: int, post: int, inverse: bool,
     tw_m = 0 if twiddle is None else twiddle.shape[1]
     with torch.cuda.device(xr.device):
         tw = minor_fft._device_twiddles(n, bool(inverse), xr.device)
-        entry = (lib.tpufft_strided_fft_stages if stages
-                 else lib.tpufft_strided_fft)
-        err = entry(
+        args = (
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tw.data_ptr(), pre, n, post, rad_arr, len(rad),
             None if twiddle is None else twiddle.data_ptr(), tw_m, tw_l,
             int(bool(inverse)), float(scale),
-            int(xr.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            int(xr.dtype == torch.bfloat16))
+        stream = torch.cuda.current_stream().cuda_stream
+        if swap:
+            err = lib.tpufft_strided_fft_swapped(*args, int(stages), stream)
+        elif stages:
+            err = lib.tpufft_strided_fft_stages(*args, stream)
+        else:
+            err = lib.tpufft_strided_fft(*args, stream)
     if err != 0:
         raise RuntimeError(f"strided_fft launch failed: CUDA error {err}")
     return yr, yi, True
@@ -185,19 +206,31 @@ def _check_twiddle(twiddle, n: int, M: int, xr) -> None:
             f"{tuple(twiddle.shape)} {twiddle.dtype} on {twiddle.device}")
 
 
+def _check_swap(swap: bool, twiddle) -> None:
+    if swap and twiddle is None:
+        raise ValueError("fft_inner_nd: swap=True needs the twiddle (it is "
+                         "pass 1 of the two-pass split)")
+
+
 def fft_inner_nd(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
                  inverse: bool, scale: float,
-                 twiddle: torch.Tensor | None = None
+                 twiddle: torch.Tensor | None = None, swap: bool = False,
+                 stages: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Transform dim 0 of (pre*n, M, L) planes in groups of n (K3).
 
     ``twiddle``: None, or a float32 (n, M, 2) tensor of complex values
     (re, im) on the planes' device; output (k, m, l) of each group is
-    multiplied by ``twiddle[k, m]`` before the scale. CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise."""
+    multiplied by ``twiddle[k, m]`` before the scale. ``swap`` (with the
+    twiddle): output (p, k, m, l) is stored at (p, m, k, l) of
+    (pre, M, n, L) planes, the digit swap of the two-pass split. CPU tensors
+    run the plain version; CUDA tensors launch the kernel of :func:`form`
+    (``stages``: the stage form, kept to compare the forms) or raise."""
+    _check_swap(swap, twiddle)
     if xr.device.type == "cpu" and xi.device.type == "cpu":
         return fft_inner_nd_reference(xr, xi, n=n, inverse=inverse,
-                                      scale=scale, twiddle=twiddle)
+                                      scale=scale, twiddle=twiddle,
+                                      swap=swap)
     minor_fft.check_planes("fft_inner_nd", xr, xi, 3)
     minor_fft.check_length("fft_inner_nd", n)
     pn, M, L = xr.shape
@@ -207,7 +240,7 @@ def fft_inner_nd(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
     if twiddle is not None:
         _check_twiddle(twiddle, n, M, xr)
     yr, yi, launched = _launch(xr, xi, pn // n, n, M * L, inverse, scale,
-                               twiddle, L)
+                               twiddle, L, stages=stages, swap=swap)
     launches["inner_nd"] += launched
     return yr, yi
 
@@ -250,12 +283,18 @@ def fft_inner_reference(xr: torch.Tensor, xi: torch.Tensor, *,
 
 def fft_inner_nd_reference(xr: torch.Tensor, xi: torch.Tensor, *, n: int,
                            inverse: bool, scale: float,
-                           twiddle: torch.Tensor | None = None
+                           twiddle: torch.Tensor | None = None,
+                           swap: bool = False
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fft_inner_nd`: same contract, any
-    device."""
+    device; ``swap`` permutes the natural result."""
+    _check_swap(swap, twiddle)
     pn, M, L = xr.shape
     view = (pn // n, n, M * L)
     zr, zi = _reference(xr.reshape(view), xi.reshape(view), n, inverse,
                         scale, twiddle)
-    return zr.reshape(pn, M, L), zi.reshape(pn, M, L)
+    if not swap:
+        return zr.reshape(pn, M, L), zi.reshape(pn, M, L)
+    split = (pn // n, n, M, L)
+    return (zr.reshape(split).transpose(1, 2).contiguous(),
+            zi.reshape(split).transpose(1, 2).contiguous())
